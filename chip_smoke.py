@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port end to end on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # the smoke run
+    python3 chip_smoke.py --planted-faults  # the kernel checks catch faults
 
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result:
@@ -9,16 +10,33 @@ prints no result:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA;
   2. build    every kernel of the serving path built from ``csrc/`` with
               one nvcc per source, all at once;
-  3. kernel:flash_prefill           kernel vs its plain version at the
-  4. kernel:ragged_paged_attention  serving shapes, with times and bounds;
-  5. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
-              the plain path give the same tokens;
-  6. serve    llama3-8b at full width and depth, bf16, random seeded
+  3. kernel:flash_prefill                kernel vs its plain version at
+  4. kernel:ragged_paged_attention       the main paths' shapes, with
+  5. kernel:ragged_paged_attention_int8  times, bounds and a library
+  6. kernel:ragged_decode                yardstick;
+  7. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
+              the plain path give the same tokens, through the engine over
+              a model-dtype pool and an int8 pool, and through the
+              dense-cache API (``llama.prefill`` + ``llama.decode_step``);
+  8. serve    llama3-8b at full width and depth, bf16, random seeded
               weights, behind the port's HTTP server: 6 concurrent
               requests, and proof that prefill and decode ran through the
-              kernels (launch counts over the phase).
+              kernels (launch counts over the phase); then a decode
+              profile;
+  9. serve_int8  the same server and requests over an int8 KV pool,
+              proof that decode ran through the int8 kernel instance;
+              then the same decode profile over that pool;
+ 10. dense    the dense-cache API on the same weights: prefill of 8 rows
+              and 32 greedy decode steps through flash_prefill and
+              ragged_decode.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Each kernel phase holds the kernel to its plain version per (query, head)
+within one bf16 ulp of the largest plain output (``compare``);
+``--planted-faults`` shows that this check fails a dropped tile and a
+wrong int8 scale slot, planted in a temporary copy of the port. Each main
+path (8, 9, 10) sets the launch counts to 0 just before it and reads them
+just after; every kernel must have launched on its path. Then
+a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package. Exits non-zero without CUDA, or when the port is not beside it.
 """
@@ -38,7 +56,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the H100 SXM's published peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-BF16_TOL = 2e-2      # one bf16 rounding of outputs of magnitude < 2
+# bf16 keeps 8 significant bits, so ulp(x) <= 2**-7 |x|. A kernel and its
+# plain version each round one f32 result to bf16 (their f32 results differ
+# by summation order, ~1e-6 relative), so a sound kernel differs from its
+# plain version by at most one ulp of each output: for each (query, head)
+# the limit is 2**-7 of its largest plain output.
+BF16_ULP = 2.0 ** -7
+TOLERANCE = "per (query, head): 2**-7 x its largest plain output (one bf16 ulp)"
 PARITY_GAP_TOL = 1e-3    # a divergence is accepted only at a near-tie
 
 
@@ -67,6 +91,38 @@ def time_ms(fn, target_ms: float = 300.0) -> float:
     return start.elapsed_time(end) / n
 
 
+class KernelMismatch(AssertionError):
+    """A kernel disagreed with its plain version; ``reading`` holds the
+    numbers."""
+
+    def __init__(self, name: str, reading: dict):
+        super().__init__(f"{name} disagrees with its plain version: "
+                         f"{json.dumps(reading)}")
+        self.reading = reading
+
+
+def compare(name, got, want, valid):
+    """Kernel output ``got`` against its plain version ``want``, both
+    (rows, queries, H, HD), over the (rows, queries) marked ``valid``: every
+    value finite, and each (query, head) within one bf16 ulp of its largest
+    plain output (``BF16_ULP``). Returns the max abs error and the largest
+    ratio of a (query, head)'s error to its limit; raises KernelMismatch."""
+    import torch
+    HD = got.shape[-1]
+    sel = valid[..., None].expand(got.shape[:3]).reshape(-1)
+    g = got.float().reshape(-1, HD)[sel]
+    w = want.float().reshape(-1, HD)[sel]
+    err = (g - w).abs().amax(dim=1)
+    limit = BF16_ULP * w.abs().amax(dim=1)
+    ratio = torch.where(err > 0, err / limit, torch.zeros_like(err))
+    reading = {"max_abs_err": err.max().item(),
+               "max_err_over_limit": ratio.max().item(),
+               "finite": bool(torch.isfinite(got).all())}
+    if not reading["finite"] or reading["max_err_over_limit"] > 1.0:
+        raise KernelMismatch(name, reading)
+    return reading
+
+
 def bound(flops: float, nbytes: float):
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -90,14 +146,29 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel library; report each kernel instance's registers
+    and spill bytes from the ``-Xptxas -v`` log."""
+    import re
     from generativeaiexamples_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     per_lib = build.build_all()
     report = {}
     for name in build.KERNEL_SOURCES:
+        entries, fn = [], None
         with open(build.lib_path(name) + ".log") as fh:
-            report[name] = [ln.strip() for ln in fh
-                            if "registers" in ln or "spill" in ln][:16]
+            for ln in fh:
+                m = re.search(r"Compiling entry function '(\w+)'", ln)
+                if m:
+                    fn = m.group(1)
+                m = re.search(r"(\d+) bytes spill stores", ln)
+                if m and fn:
+                    spill = int(m.group(1))
+                m = re.search(r"Used (\d+) registers", ln)
+                if m and fn:
+                    entries.append({"fn": fn, "regs": int(m.group(1)),
+                                    "spill_store_bytes": spill})
+                    fn = None
+        report[name] = entries
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_library_s={k: round(v, 3) for k, v in per_lib.items()},
          ptxas=report)
@@ -119,12 +190,8 @@ def phase_flash(dev):
                       dtype=torch.int32, device=dev)
     out = k.flash_prefill(q, kk, vv, sp, vt)
     ref = k.flash_prefill_plain(q, kk, vv, sp, vt)
-    torch.cuda.synchronize()
-    err = max((out[b, :n].float() - ref[b, :n].float()).abs().max().item()
-              for b, n in enumerate(lens))
-    if not (err <= BF16_TOL and torch.isfinite(out).all()):
-        raise AssertionError(f"flash_prefill disagrees with its plain "
-                             f"version: max abs err {err} > {BF16_TOL}")
+    valid = torch.arange(C, device=dev)[None] < (vt - sp)[:, None]
+    check = compare("flash_prefill", out, ref, valid)
     # library yardstick: SDPA over K/V expanded to H heads, same mask
     qpos = sp[:, None].long() + torch.arange(C, device=dev)[None]
     kpos = torch.arange(T, device=dev)[None, None]
@@ -141,7 +208,7 @@ def phase_flash(dev):
         s + n for s, n in zip(starts, lens)) * KV * HD)
     b_ms, b_by = bound(flops, nbytes)
     res = dict(
-        name="flash_prefill", max_abs_err=err, tolerance=BF16_TOL,
+        name="flash_prefill", **check, tolerance=TOLERANCE,
         ms=time_ms(lambda: k.flash_prefill(q, kk, vv, sp, vt)),
         plain_ms=time_ms(lambda: k.flash_prefill_plain(q, kk, vv, sp, vt)),
         library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=m4)),
@@ -154,15 +221,26 @@ def phase_flash(dev):
     return res
 
 
-def _ragged_case(dev, R, Qb, lens, q_num, tag):
+def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False):
+    """One shape of the ragged kernel over a 32-layer pool of llama3-8b
+    heads: bf16 pages, or int8 pages with f32 (N, KV, page) scales."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
     L, H, KV, HD, ps, maxp = 32, 32, 8, 128, 128, 16
     P = 8 * maxp + 1
-    g = torch.Generator(device=dev).manual_seed(2 + R)
+    g = torch.Generator(device=dev).manual_seed(2 + R + 100 * quant)
     bf = torch.bfloat16
-    k_pool = torch.randn((L * P, ps, KV * HD), generator=g, device=dev).to(bf)
-    v_pool = torch.randn((L * P, ps, KV * HD), generator=g, device=dev).to(bf)
+    shape = (L * P, ps, KV * HD)
+    if quant:
+        k_pool, v_pool = (torch.randint(-127, 128, shape, generator=g,
+                                        device=dev, dtype=torch.int8)
+                          for _ in range(2))
+        k_sc, v_sc = (torch.rand((L * P, KV, ps), generator=g, device=dev)
+                      * 0.01 + 0.01 for _ in range(2))
+    else:
+        k_pool = torch.randn(shape, generator=g, device=dev).to(bf)
+        v_pool = torch.randn(shape, generator=g, device=dev).to(bf)
+        k_sc = v_sc = None
     q = torch.randn((R, Qb, H, HD), generator=g, device=dev).to(bf)
     perm = torch.randperm(P - 1, generator=g, device=dev)[:R * maxp] + 1
     tables = perm.reshape(R, maxp).to(torch.int32)
@@ -172,30 +250,37 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag):
     layers = [torch.full((1,), i, dtype=torch.int32, device=dev)
               for i in range(L)]
     out = k.ragged_paged_attention(q, k_pool, v_pool, tables, kv_lens, pos0,
-                                   qn, layer=layers[3], pages_per_layer=P)
+                                   qn, layer=layers[3], pages_per_layer=P,
+                                   k_scales=k_sc, v_scales=v_sc)
     ref = k.ragged_paged_attention_plain(q, k_pool, v_pool, tables, kv_lens,
-                                         pos0, qn, 3, P)
-    torch.cuda.synchronize()
-    err = max([(out[r, :n].float() - ref[r, :n].float()).abs().max().item()
-               for r, n in enumerate(q_num) if n] + [0.0])
-    if not (err <= BF16_TOL and torch.isfinite(out).all()):
-        raise AssertionError(f"ragged_paged_attention ({tag}) disagrees with "
-                             f"its plain version: max abs err {err}")
+                                         pos0, qn, 3, P, k_sc, v_sc)
+    valid = torch.arange(Qb, device=dev)[None] < qn[:, None]
+    check = compare(f"ragged_paged_attention ({tag})", out, ref, valid)
+    if not (out[qn == 0] == 0).all():
+        raise AssertionError(f"ragged_paged_attention ({tag}): a q_num == 0 "
+                             f"row is not zero")
     it = iter(range(1 << 30))
 
     def run_kernel():
         # walk the layers so each launch reads pages cold from HBM
         layer = layers[next(it) % L]
         k.ragged_paged_attention(q, k_pool, v_pool, tables, kv_lens, pos0,
-                                 qn, layer=layer, pages_per_layer=P)
+                                 qn, layer=layer, pages_per_layer=P,
+                                 k_scales=k_sc, v_scales=v_sc)
 
-    # library yardstick: SDPA over the rows' pages pre-gathered dense
+    # library yardstick: SDPA over the rows' pages pre-gathered dense (and
+    # pre-dequantized for the int8 pool), K/V expanded to H heads
     T = maxp * ps
     rows = 3 * P + tables.long()
-    k_d = (k_pool[rows].reshape(R, T, KV, HD)
-           .repeat_interleave(H // KV, dim=2).transpose(1, 2))
-    v_d = (v_pool[rows].reshape(R, T, KV, HD)
-           .repeat_interleave(H // KV, dim=2).transpose(1, 2))
+
+    def dense(pool, sc):
+        x = pool[rows].reshape(R, maxp, ps, KV, HD)
+        if sc is not None:
+            x = (x.float() * sc[rows].permute(0, 1, 3, 2)[..., None]).to(bf)
+        return (x.reshape(R, T, KV, HD).repeat_interleave(H // KV, dim=2)
+                .transpose(1, 2))
+
+    k_d, v_d = dense(k_pool, k_sc), dense(v_pool, v_sc)
     qi = torch.arange(Qb, device=dev)
     t = torch.arange(T, device=dev)
     mask = ((t[None, None] <= (pos0[:, None] + qi[None])[:, :, None].long())
@@ -206,30 +291,90 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag):
     flops = 4.0 * HD * H * sum(
         min(p0 + j + 1, n) for p0, n, m in zip(pos0.tolist(), lens, q_num)
         for j in range(m))
-    nbytes = 2.0 * (sum(n for n, m in zip(lens, q_num) if m) * KV * HD * 2
-                    + 2 * valid_q * H * HD)
+    live = sum(n for n, m in zip(lens, q_num) if m)
+    # each live token's K and V row once (1 byte an element in int8, plus
+    # one f32 scale per KV head each), q read and out written once in bf16
+    kv_bytes = live * KV * HD * 2 * (1 if quant else 2)
+    scale_bytes = live * KV * 4 * 2 if quant else 0
+    nbytes = float(kv_bytes + scale_bytes + 2 * valid_q * H * HD * 2)
     b_ms, b_by = bound(flops, nbytes)
     return dict(
-        max_abs_err=err, tolerance=BF16_TOL,
+        **check, tolerance=TOLERANCE,
         ms=time_ms(run_kernel),
         plain_ms=time_ms(lambda: k.ragged_paged_attention_plain(
-            q, k_pool, v_pool, tables, kv_lens, pos0, qn, 3, P)),
+            q, k_pool, v_pool, tables, kv_lens, pos0, qn, 3, P, k_sc, v_sc)),
         library_ms=time_ms(lambda: sdpa(q_s, k_d, v_d, attn_mask=mask)),
         library_call="scaled_dot_product_attention over the rows' pages "
-                     "pre-gathered dense (gather not timed)",
+                     "pre-gathered dense" + (" and pre-dequantized to bf16"
+                                             if quant else "")
+                     + " (gather not timed)",
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        kv_bytes=kv_bytes, scale_bytes=scale_bytes, live_tokens=live,
         shape=dict(R=R, Qb=Qb, H=H, KV=KV, HD=HD, page=ps, maxp=maxp,
                    layer=3, n_layers=L, kv_lens=lens, q_num=q_num,
-                   dtype="bfloat16"))
+                   q_dtype="bfloat16", pool="int8" if quant else "bfloat16"))
 
 
-def phase_ragged(dev):
-    decode = _ragged_case(dev, 8, 1, [1, 77, 300, 640, 1000, 1333, 1800,
-                                      2047], [1] * 8, "decode")
+DECODE_LENS = [1, 77, 300, 640, 1000, 1333, 1800, 2047]
+
+
+def phase_ragged(dev, quant=False):
+    name = "ragged_paged_attention" + ("_int8" if quant else "")
+    decode = _ragged_case(dev, 8, 1, DECODE_LENS, [1] * 8, "decode", quant)
     mixed = _ragged_case(dev, 4, 8, [520, 1000, 64, 700], [8, 3, 1, 0],
-                         "mixed")
-    res = dict(name="ragged_paged_attention", **decode, mixed_rows=mixed)
-    emit("kernel:ragged_paged_attention", kernel_ms=res["ms"], **res)
+                         "mixed", quant)
+    res = dict(name=name, **decode, mixed_rows=mixed)
+    emit("kernel:" + name, kernel_ms=res["ms"], **res)
+    return res
+
+
+def phase_decode(dev):
+    """ragged_decode at a batch-8 decode layer of llama3-8b heads over a
+    dense (L, B, T, KV, HD) cache, T = 2048."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops.attention import mha_decode
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    L, B, T, H, KV, HD = 32, 8, 2048, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    kc = torch.randn((L, B, T, KV, HD), generator=g, device=dev).to(bf)
+    vc = torch.randn((L, B, T, KV, HD), generator=g, device=dev).to(bf)
+    q = torch.randn((B, 1, H, HD), generator=g, device=dev).to(bf)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    out = k.ragged_decode(q, kc[3], vc[3], lens)
+    ref = mha_decode(q, kc[3], vc[3], lens)
+    check = compare("ragged_decode", out, ref,
+                    torch.ones((B, 1), dtype=torch.bool, device=dev))
+    it = iter(range(1 << 30))
+
+    def run_kernel():
+        i = next(it) % L          # walk the layers: cold cache rows
+        k.ragged_decode(q, kc[i], vc[i], lens)
+
+    # library yardstick: SDPA with a length mask on the dense cache, K/V
+    # expanded to H heads (expansion not timed)
+    k_s = kc[3].repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    v_s = vc[3].repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None].long())[
+        :, None, None]
+    q_s = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    live = sum(DECODE_LENS)
+    flops = 4.0 * HD * H * live
+    nbytes = 2.0 * (live * KV * HD * 2 + 2 * B * H * HD)
+    b_ms, b_by = bound(flops, nbytes)
+    res = dict(
+        name="ragged_decode", **check, tolerance=TOLERANCE,
+        ms=time_ms(run_kernel),
+        plain_ms=time_ms(lambda: mha_decode(q, kc[3], vc[3], lens)),
+        library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=mask)),
+        library_call="scaled_dot_product_attention with a length mask on the "
+                     "dense cache, K/V pre-expanded to H heads",
+        bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        live_tokens=live,
+        shape=dict(B=B, T=T, H=H, KV=KV, HD=HD, n_layers=L,
+                   lengths=DECODE_LENS, dtype="bfloat16"))
+    emit("kernel:ragged_decode", kernel_ms=res["ms"], **res)
     return res
 
 
@@ -238,49 +383,18 @@ PROMPT_TEXT = ("The paged KV cache keeps every request's keys and values in "
                "sequence when it grows. ")
 
 
-def phase_parity(dev):
-    """8B width, 2 layers, f32: kernel path and plain path, same weights."""
-    import dataclasses
+def _parity_report(params, cfg, prompts, got, want, dev, label):
+    """Kernel vs plain greedy streams: equal, or diverging only where the
+    plain forward's top-2 logits are within PARITY_GAP_TOL."""
     import torch
-    from generativeaiexamples_tpu_torch.core.config import EngineConfig
-    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
-    from generativeaiexamples_tpu_torch.engine.scheduler import (
-        Request, Scheduler)
-    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.models import llama
-
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
-                              dtype="float32")
-    params = llama.init_params(torch.Generator(device=dev).manual_seed(3),
-                               cfg, device=dev)
-    tok = ByteTokenizer()
-    prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
-               tok.encode(PROMPT_TEXT * 5, add_bos=True)]   # two chunks
-    streams = {}
-    for attn in ("kernel", "plain"):
-        ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
-                            page_size=128, prefill_chunk=512,
-                            dtype="float32", attention=attn)
-        sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
-                                     device=dev), tok)
-        sched.start()
-        try:
-            reqs = [sched.submit(Request(prompt_ids=p, max_tokens=24,
-                                         temperature=0.0)) for p in prompts]
-            for r in reqs:
-                list(sched.iter_text(r))
-        finally:
-            sched.stop()
-        if any(r.error for r in reqs):
-            raise AssertionError(f"parity run ({attn}) failed: "
-                                 f"{[r.error for r in reqs]}")
-        streams[attn] = [r.output_ids for r in reqs]
     report = []
-    for i, (a, b) in enumerate(zip(streams["kernel"], streams["plain"])):
+    for i, (a, b) in enumerate(zip(got, want)):
         if a == b:
             report.append({"prompt": i, "identical": True, "tokens": len(a)})
             continue
-        step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        step = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
         ids = torch.tensor([prompts[i] + b[:step]], device=dev)
         with torch.no_grad():
             logits = llama.forward(params, cfg, ids)[0, -1]
@@ -289,10 +403,103 @@ def phase_parity(dev):
         report.append({"prompt": i, "identical": False, "step": step,
                        "top2_gap": gap})
         if gap >= PARITY_GAP_TOL:
-            emit("parity", ok=False, streams=report)
-            raise AssertionError(f"kernel and plain streams diverge at step "
-                                 f"{step} with top-2 gap {gap}")
-    emit("parity", ok=True, tolerance_top2_gap=PARITY_GAP_TOL, streams=report)
+            emit("parity", ok=False, path=label, streams=report)
+            raise AssertionError(f"{label}: kernel and plain streams diverge "
+                                 f"at step {step} with top-2 gap {gap}")
+    return report
+
+
+def _dense_greedy(params, cfg, prompts, steps, T, dev):
+    """Greedy tokens of the dense-cache API: one right-padded prefill of
+    every prompt (last_only), then ``steps`` decode steps."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama
+    B, S = len(prompts), max(len(p) for p in prompts)
+    tokens = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32, device=dev)
+    seq = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device=dev)
+    cache = llama.KVCache.create(cfg, B, T, device=dev)
+    with torch.no_grad():
+        logits, cache = llama.prefill(params, cfg, tokens, cache,
+                                      torch.zeros_like(seq), seq,
+                                      last_only=True)
+        if logits.shape != (B, 1, cfg.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"dense prefill gave {tuple(logits.shape)} "
+                                 f"or non-finite logits")
+        tok = logits[:, 0].argmax(-1)
+        out = [tok]
+        for _ in range(steps - 1):
+            logits, cache = llama.decode_step(params, cfg, tok, cache)
+            tok = logits.argmax(-1)
+            out.append(tok)
+    return torch.stack(out, dim=1).tolist()
+
+
+def phase_parity(dev):
+    """8B width, 2 layers, f32: kernel path and plain path, same weights,
+    through the engine over a model-dtype pool and an int8 pool, and
+    through the dense-cache API."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype="float32")
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(3),
+                               cfg, device=dev)
+    tok = ByteTokenizer()
+    prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
+               tok.encode(PROMPT_TEXT * 5, add_bos=True)]   # two chunks
+    reports = {}
+    for kv_quant in ("none", "int8"):
+        streams = {}
+        for attn in ("kernel", "plain"):
+            ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                page_size=128, prefill_chunk=512,
+                                dtype="float32", attention=attn,
+                                kv_quant=kv_quant)
+            sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
+                                         device=dev), tok)
+            k.reset_launch_counts()
+            sched.start()
+            try:
+                reqs = [sched.submit(Request(prompt_ids=p, max_tokens=24,
+                                             temperature=0.0))
+                        for p in prompts]
+                for r in reqs:
+                    list(sched.iter_text(r))
+            finally:
+                sched.stop()
+            if any(r.error for r in reqs):
+                raise AssertionError(f"parity run ({kv_quant}, {attn}) "
+                                     f"failed: {[r.error for r in reqs]}")
+            key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                   else "ragged_paged_attention")
+            if attn == "kernel" and k.launch_counts()[key] == 0:
+                raise AssertionError(f"parity run ({kv_quant}) did not "
+                                     f"launch {key}")
+            streams[attn] = [r.output_ids for r in reqs]
+        label = f"engine, kv_quant={kv_quant}"
+        reports[label] = _parity_report(params, cfg, prompts,
+                                        streams["kernel"], streams["plain"],
+                                        dev, label)
+    dense = {attn: _dense_greedy(params, dataclasses.replace(
+        cfg, attn_impl=attn), prompts, 24, 1024, dev)
+        for attn in ("kernel", "plain")}
+    reports["dense API"] = _parity_report(params, cfg, prompts,
+                                          dense["kernel"], dense["plain"],
+                                          dev, "dense API")
+    emit("parity", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
+         streams=reports)
     del params
 
 
@@ -345,25 +552,33 @@ def _request(base, i):
             "client_latency_s": time.perf_counter() - t0}
 
 
-def phase_serve(dev):
+def draw_8b(dev):
+    """Full llama3-8b, bf16, random weights from seed 0 (drawn once)."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, device=dev)
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def phase_serve(dev, cfg, params, kv_quant="none"):
+    """Six concurrent HTTP requests against full llama3-8b; the launch
+    counts are set to 0 just before the requests and read just after.
+    Returns (launches, the engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
-    from generativeaiexamples_tpu_torch.models import llama
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
 
-    cfg = llama.LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    params = llama.init_params(torch.Generator(device=dev).manual_seed(0),
-                               cfg, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     tok = ByteTokenizer()
     ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
-                        prefill_chunk=512)
+                        prefill_chunk=512, kv_quant=kv_quant)
     core = EngineCore(cfg, ecfg, params, tok.eos_id, device=dev)
     sched = Scheduler(core, tok)
     submitted = []
@@ -374,12 +589,14 @@ def phase_serve(dev):
         return submit(req)
 
     sched.submit = recording_submit
+    torch.cuda.reset_peak_memory_stats()
     httpd, thread = serve_in_thread(sched, "llama3-8b-random")
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
         with urllib.request.urlopen(base + "/health", timeout=30) as resp:
             if resp.status != 200:
                 raise AssertionError("/health did not answer 200")
+            health = json.loads(resp.read())
         k.reset_launch_counts()
         for key in sched.stats:
             sched.stats[key] = 0
@@ -403,23 +620,82 @@ def phase_serve(dev):
         raise AssertionError("a request got no first token or failed: "
                              f"{[r.error for r in submitted]}")
     L = cfg.n_layers
+    decode_key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                  else "ragged_paged_attention")
     need_flash = L * stats["prefill_dispatches"]
-    need_ragged = L * stats["decode_steps"]
+    need_decode = L * stats["decode_steps"]
     if (launches["flash_prefill"] < need_flash or need_flash == 0
-            or launches["ragged_paged_attention"] < need_ragged
-            or need_ragged == 0):
+            or launches[decode_key] < need_decode or need_decode == 0):
         raise AssertionError(f"serving did not run through the kernels: "
                              f"launches {launches}, dispatches {stats}")
+    if health.get("kv_dtype") != ("int8" if kv_quant == "int8"
+                                  else cfg.dtype):
+        raise AssertionError(f"/health reports kv_dtype "
+                             f"{health.get('kv_dtype')!r}")
     gen = sum(r["usage"]["completion_tokens"] for r in results)
-    profile = profile_decode(core)
-    emit("serve", model="llama3-8b", n_layers=L, dtype="bfloat16",
-         weights="random, torch.Generator seed 0", init_weights_s=init_s,
-         requests=results, server_ttft_s=server_ttft,
-         completion_tokens=gen, wall_s=wall, gen_tok_s=gen / wall,
-         dispatches=stats, launches=launches,
-         multi_chunk_prompt=max(len(r.prompt_ids) for r in submitted) > 512,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    emit("profile", **profile)
+    fields = dict(
+        model="llama3-8b", n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
+        weights="random, torch.Generator seed 0", requests=results,
+        server_ttft_s=server_ttft, completion_tokens=gen, wall_s=wall,
+        gen_tok_s=gen / wall, dispatches=stats, launches=launches,
+        kv_pool_bytes=health["kv_pool_bytes"],
+        multi_chunk_prompt=max(len(r.prompt_ids) for r in submitted) > 512,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("serve" if kv_quant == "none" else "serve_" + kv_quant, **fields)
+    return launches, core
+
+
+def phase_dense(dev, cfg, params, rows=8, T=2048, steps=32):
+    """The dense-cache API at full llama3-8b: one prefill of ``rows``
+    prompts of 64 to 512 tokens (last_only) into a T-row cache, then
+    ``steps`` greedy decode steps, through flash_prefill and ragged_decode
+    with the stock config (``attn_impl="auto"``), launch counts set to 0
+    just before, read just after."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    lens = [64 + (512 - 64) * i // (rows - 1) for i in range(rows)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, 256, (rows, max(lens)), generator=g,
+                           device=dev, dtype=torch.int32)
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cache = llama.KVCache.create(cfg, rows, T, device=dev)
+    torch.cuda.synchronize()
+    k.reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = llama.prefill(params, cfg, tokens, cache,
+                                      torch.zeros_like(seq), seq,
+                                      last_only=True)
+        tok = logits[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = llama.decode_step(params, cfg, tok, cache)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches = k.launch_counts()
+    L = cfg.n_layers
+    if launches["flash_prefill"] < L or launches["ragged_decode"] < L * steps:
+        raise AssertionError(f"dense API did not run through the kernels: "
+                             f"launches {launches}")
+    toks = torch.stack(out, dim=1)
+    if (not torch.isfinite(logits).all() or logits.shape != (rows, cfg.vocab_size)
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size
+            or cache.lengths.tolist() != [n + steps for n in lens]):
+        raise AssertionError("dense API gave wrong shapes, lengths or "
+                             "non-finite logits")
+    fields = dict(model="llama3-8b", n_layers=L, dtype="bfloat16", rows=rows,
+                  cache_rows=T, prompt_lens=lens, decode_steps=steps,
+                  prefill_s=prefill_s, decode_ms_per_step=decode_s * 1e3 / steps,
+                  launches=launches,
+                  cache_bytes=2 * cache.k.numel() * cache.k.element_size())
+    emit("dense", **fields)
     return launches
 
 
@@ -487,6 +763,75 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
                 k: v / 1e3 / steps for k, v in classes.items()}}
 
 
+# Faults the kernel checks must catch, planted in a copy of the port:
+# (name, csrc file, text, replacement, phases run). dropped_tile skips the
+# 31st 64-token tile, which only the 2047-token row reaches (one tile in
+# 32); wrong_scale_slot reads the next token's scales in the int8 pool.
+PLANTED_FAULTS = (
+    ("dropped_tile", "common.cuh",
+     "    const int t0 = tile * BT;\n",
+     "    const int t0 = tile * BT;\n    if (tile == 30) continue;\n",
+     ("ragged_paged_attention", "ragged_paged_attention_int8",
+      "ragged_decode")),
+    ("wrong_scale_slot", "ragged_paged.cu",
+     "sc = (row * KV + kvh) * ps + pos % ps;",
+     "sc = (row * KV + kvh) * ps + (pos + 1) % ps;",
+     ("ragged_paged_attention_int8",)),
+)
+
+_FAULT_PHASES = """
+import json, sys, torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+cs.phase_build()
+phases = {"ragged_paged_attention": lambda: cs.phase_ragged(dev),
+          "ragged_paged_attention_int8": lambda: cs.phase_ragged(dev, True),
+          "ragged_decode": lambda: cs.phase_decode(dev)}
+out = {}
+for name in sys.argv[1:]:
+    try:
+        phases[name]()
+        out[name] = "passed"
+    except cs.KernelMismatch as exc:
+        out[name] = exc.reading
+print(json.dumps(out))
+"""
+
+
+def planted_faults() -> None:
+    """Plant each of PLANTED_FAULTS in a temporary copy of the port, build
+    it there and run the kernel phases it touches: each must fail its
+    check. Emits what each check read."""
+    import shutil
+    import tempfile
+    for name, src, text, repl, phases in PLANTED_FAULTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
+            pkg = os.path.join(tmp, "generativeaiexamples_tpu_torch")
+            shutil.copytree(os.path.join(HERE, "generativeaiexamples_tpu_torch"),
+                            pkg, ignore=shutil.ignore_patterns("__pycache__"))
+            path = os.path.join(pkg, "csrc", src)
+            with open(path) as fh:
+                code = fh.read()
+            if code.count(text) != 1:
+                raise AssertionError(f"fault {name}: text not found once in "
+                                     f"{src}")
+            with open(path, "w") as fh:
+                fh.write(code.replace(text, repl))
+            run = subprocess.run([sys.executable, "-c", _FAULT_PHASES,
+                                  *phases], cwd=tmp, capture_output=True,
+                                 text=True, timeout=900)
+        if run.returncode != 0:
+            raise AssertionError(f"fault {name}: run failed\n"
+                                 f"{run.stderr[-4000:]}")
+        readings = json.loads(run.stdout.strip().splitlines()[-1])
+        emit("planted_fault", fault=name, file=src, readings=readings)
+        missed = [p for p, r in readings.items() if r == "passed"]
+        if missed:
+            raise AssertionError(f"fault {name} passed the checks of {missed}")
+
+
 def main() -> int:
     try:
         import torch
@@ -507,30 +852,61 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device()
+    if sys.argv[1:] == ["--planted-faults"]:
+        planted_faults()
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     phase_build()
-    flash = phase_flash(dev)
-    ragged = phase_ragged(dev)
+    results = {"flash_prefill": phase_flash(dev)}
+    for quant in (False, True):
+        res = phase_ragged(dev, quant)
+        results[res["name"]] = res
+    results["ragged_decode"] = phase_decode(dev)
     torch.cuda.empty_cache()
     phase_parity(dev)
     torch.cuda.empty_cache()
-    launches = phase_serve(dev)
+    cfg, params, init_s = draw_8b(dev)
+    emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)
+    paths = {}
+    paths["serve"], core = phase_serve(dev, cfg, params)
+    emit("profile", **profile_decode(core))
+    del core
+    torch.cuda.empty_cache()
+    paths["serve_int8"], core = phase_serve(dev, cfg, params, "int8")
+    emit("profile_int8", **profile_decode(core))
+    del core
+    torch.cuda.empty_cache()
+    paths["dense"] = phase_dense(dev, cfg, params)
     src = "generativeaiexamples_tpu_torch/csrc/"
     tpu = "generativeaiexamples_tpu/ops/pallas/attention.py"
+    # kernel -> (source, TPU function and pallas_call line, main path)
+    table = {
+        "flash_prefill": ("flash_prefill.cu", "flash_prefill", 192, "serve"),
+        "ragged_paged_attention": ("ragged_paged.cu",
+                                   "ragged_paged_attention", 445, "serve"),
+        "ragged_paged_attention_int8": (
+            "ragged_paged.cu", "ragged_paged_attention, int8-KV variant "
+            ":331-351", 445, "serve_int8"),
+        "ragged_decode": ("ragged_decode.cu", "ragged_decode", 526, "dense"),
+    }
     kernels = []
-    for res, source, fn, line in ((flash, "flash_prefill.cu",
-                                   "flash_prefill", 192),
-                                  (ragged, "ragged_paged.cu",
-                                   "ragged_paged_attention", 445)):
-        entry = {"name": res["name"], "route": "cuda", "source": src + source,
+    for name, (source, fn, line, path) in table.items():
+        res = results[name]
+        entry = {"name": name, "route": "cuda", "source": src + source,
                  "replaces": f"{tpu}:{line} ({fn})",
-                 "launches": launches[res["name"]]}
-        entry.update({key: res[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+                 "launches": paths[path][name], "main_path": path,
+                 "launches_by_path": {p: n[name] for p, n in paths.items()}}
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{name} was not launched on its main path "
+                                 f"{path}")
+        keys = ("max_abs_err", "max_err_over_limit", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        entry.update({key: res[key] for key in keys})
         if "mixed_rows" in res:
-            entry["mixed_rows"] = {key: res["mixed_rows"][key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+            entry["mixed_rows"] = {key: res["mixed_rows"][key] for key in keys}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

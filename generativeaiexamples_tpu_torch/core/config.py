@@ -30,7 +30,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "pipeline_depth": ("A6 (dispatch pipelining)", "1"),
     "prefill_hold_chunks": ("A6 (prefill-priority ramp hold)", "0"),
     "quant": ("A1 (int8 weights)", "none"),
-    "kv_quant": ("B2 (int8 KV pool)", "none"),
     "spec_decode": ("A2/A5 (speculative decoding)", "off"),
     "spec_draft": ("A2/A5 (speculative decoding)", "0"),
     "spec_adaptive": ("A2/A5 (speculative decoding)", "off"),
@@ -62,6 +61,9 @@ class EngineConfig:
     decode_steps_per_dispatch: int = 8
     prefill_group: int = 8
     dtype: str = "bfloat16"
+    # KV pool storage: none (the model dtype) | int8 (per-token-per-head
+    # scales; the paged kernel folds the dequant past its dots)
+    kv_quant: str = "none"
     # auto (kernel on CUDA tensors, plain on CPU tensors) | kernel | plain
     attention: str = "auto"
     model_family: str = "llama3-8b"

@@ -1,302 +1,164 @@
-// Ragged paged attention over the flat KV pool (bf16/f32 pool).
+// Ragged paged attention over the flat KV pool (bf16/f32 or int8 pool).
 //
 // Replaces generativeaiexamples_tpu/ops/pallas/attention.py
-// ragged_paged_attention / _ragged_paged_kernel (the paged_decode wrapper
-// stays a Python wrapper over this kernel). R independent rows of up to Qb
-// queries each read K/V straight from the pool (L*P, page, KV*HD): the
-// physical row of a row's logical page p is layer*P + table[r, p], and head
-// kv lives in column band [kv*HD, (kv+1)*HD). Query j of row r sits at
-// q_pos0[r] + j and sees keys at positions <= that and < kv_len[r]; rows
-// with q_num == 0 are skipped (zeros written), and query slots >= q_num
-// come out finite, never NaN (NEG_INF masking plus the max(l, 1e-30) guard,
-// as in the TPU kernel).
+// ragged_paged_attention / _ragged_paged_kernel, both of its variants (the
+// paged_decode wrapper stays a Python wrapper over this kernel). R
+// independent rows of up to Qb queries each read K/V straight from the pool
+// (L*P, page, KV*HD): the physical row of a row's logical page p is
+// layer*P + table[r, p], and head kv lives in column band [kv*HD,
+// (kv+1)*HD). Query j of row r sits at q_pos0[r] + j and sees keys at
+// positions <= that and < kv_len[r]; rows with q_num == 0 are skipped
+// (zeros written), and query slots >= q_num come out finite, never NaN
+// (NEG_INF masking plus the max(l, 1e-30) guard, as in the TPU kernel).
+//
+// int8 pool: the same kernel with the pool type KT = int8_t and two f32
+// scale pools (L*P, KV, page), one scale per token and KV head. As in the
+// TPU kernel the elements are never dequantized (see attend_tiles).
 //
 // The TPU grid (R, pages) carried acc/m/l in VMEM across pages. Here one
-// block per (row, kv head) holds the row's G*Qb query vectors in shared
-// memory and loops over 64-token tiles of its pages itself, so pages past
-// min(kv_len, maxp*page) are never read (the loop clamps to the table's
-// capacity itself: decode_step_wide passes kv_len unclamped).
+// block per (row, kv head) walks 64-token tiles of its pages itself (the
+// walk in common.cuh, attend_tiles, shared with ragged_decode.cu), so pages
+// past min(kv_len, maxp*page) are never read (the loop clamps to the
+// table's capacity itself: decode_step_wide passes kv_len unclamped). This
+// file keeps only the page-table address resolution and the launch.
 //
 // Bound on the H100: decode reads every live K/V byte once for a handful of
-// queries, so it is bound by device memory bytes. Per tile the block
-// resolves each token's physical row once, loads K/V with 16-byte vector
-// loads into shared memory, scores with one thread per (query, token),
-// runs the online softmax one warp per query row, and accumulates P.V with
-// one thread per (query, dim) pair in registers (sized by a query-count
-// bucket: 8 rows on 128 threads, 64 rows on 256). It still launches only
-// R*KV blocks (64 at batch 8 with 8 KV heads, on 132 SMs), so the longest
-// row's page walk sets the time; splitting that walk across blocks is
-// later work.
+// queries, so it is bound by device memory bytes; the int8 pool halves
+// them (plus 8 bytes of scales per token and head). The block resolves
+// each token's physical row (and scale slot) once per tile and loads K/V
+// with 16-byte vector loads. It still launches only R*KV blocks (64 at
+// batch 8 with 8 KV heads, on 132 SMs), so the longest row's page walk
+// sets the time; splitting that walk across blocks is later work.
 #include "common.cuh"
 
 using namespace gk;
 
 namespace {
 
-constexpr int BT = 64;       // tokens per tile
-constexpr int QG_MAX = 64;   // G * Qb query vectors per block, at most
-
-template <typename T, int HD>
-size_t ragged_smem_bytes(int QG) {
-  return sizeof(float) * (size_t)(QG * (HD + 1) + BT * (HD + 1) + BT * HD +
-                                  QG * BT + 3 * QG) +
-         sizeof(long long) * BT;
-}
-
-// threads per block: 4 warps for up to 8 query rows, 8 warps above, so the
-// per-thread (query, dim) accumulators stay at QGB*HD/RT <= 32 registers
-template <int QGB>
-__host__ __device__ constexpr int threads_for() {
-  return QGB > 8 ? 256 : 128;
-}
-
-template <typename T, int HD, int QGB>
+template <typename T, typename KT, int HD, int QGB>
 __global__ void __launch_bounds__(QGB > 8 ? 256 : 128) ragged_paged_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const T* __restrict__ q, const KT* __restrict__ k_pages,
+    const KT* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ tables,
     const int* __restrict__ kv_lens, const int* __restrict__ q_pos0,
     const int* __restrict__ q_num, const int* __restrict__ layer_ptr,
     T* __restrict__ out, int Qb, int H, int KV, int ps, int maxp, int P,
     float scale) {
-  constexpr int RT = threads_for<QGB>();
-  constexpr int LD = HD + 1;           // padded rows: conflict-free k_s reads
-  constexpr int NACC = QGB * HD / RT;  // (query, dim) accumulators per thread
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int CPT = HD / VEC;        // 16-byte chunks per token row
-  extern __shared__ float smem[];
-  const int G = H / KV, QG = Qb * G;
-  float* q_s = smem;            // QG x LD
-  float* k_s = q_s + QG * LD;   // BT x LD
-  float* v_s = k_s + BT * LD;   // BT x HD
-  float* s_s = v_s + BT * HD;   // QG x BT scores, then probabilities
-  float* a_s = s_s + QG * BT;   // QG: this tile's rescale factor
-  float* m_s = a_s + QG;        // QG: running max
-  float* l_s = m_s + QG;        // QG: running denominator
-  long long* off_s = reinterpret_cast<long long*>(l_s + QG);  // BT rows
-
-  const int r = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int r = blockIdx.x, kvh = blockIdx.y;
+  const int G = H / KV;
   const int n_q = q_num[r];
-  // q and out are contiguous (R, Qb, H, HD); block row j = qi*G + g is
-  // head kvh*G + g of query qi
+  // q and out are contiguous (R, Qb, H, HD)
   const long long base = (long long)r * Qb * H * HD;
   if (n_q <= 0) {
-    for (int idx = tid; idx < QG * HD; idx += RT) {
+    for (int idx = threadIdx.x; idx < Qb * G * HD; idx += blockDim.x) {
       const int j = idx / HD, d = idx % HD;
       const int qi = j / G, g = j % G;
       out[base + ((long long)qi * H + kvh * G + g) * HD + d] = from_f<T>(0.f);
     }
     return;
   }
-  const int len = min(kv_lens[r], maxp * ps);
-  const int pos0 = q_pos0[r];
   const long long layer_row = (long long)layer_ptr[0] * P;
   const long long page_stride = (long long)ps * KV * HD;
   const int* table = tables + (long long)r * maxp;
-
-  for (int idx = tid; idx < QG * HD; idx += RT) {
-    const int j = idx / HD, d = idx % HD;
-    const int qi = j / G, g = j % G;
-    q_s[j * LD + d] = to_f(q[base + ((long long)qi * H + kvh * G + g) * HD + d]);
-  }
-  for (int j = tid; j < QG; j += RT) {
-    m_s[j] = NEG_INF;
-    l_s[j] = 0.f;
-  }
-  float acc[NACC];
-#pragma unroll
-  for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
-
-  const int n_tiles = max(1, (len + BT - 1) / BT);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int t0 = tile * BT;
-    __syncthreads();   // previous tile consumed; q_s/m_s/l_s ready
-    for (int t = tid; t < BT; t += RT) {
-      const int pos = t0 + t;
-      off_s[t] = pos < len
-                     ? (layer_row + table[pos / ps]) * page_stride +
-                           (long long)(pos % ps) * KV * HD +
-                           (long long)kvh * HD
-                     : -1;
-    }
-    __syncthreads();
-    for (int c = tid; c < BT * CPT; c += RT) {
-      const int t = c / CPT, d0 = (c % CPT) * VEC;
-      const long long off = off_s[t];
-      float* kd = k_s + t * LD + d0;
-      float* vd = v_s + t * HD + d0;
-      if (off >= 0) {
-        const uint4 kr = *reinterpret_cast<const uint4*>(k_pages + off + d0);
-        const uint4 vr = *reinterpret_cast<const uint4*>(v_pages + off + d0);
-        const T* ke = reinterpret_cast<const T*>(&kr);
-        const T* ve = reinterpret_cast<const T*>(&vr);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          kd[i] = to_f(ke[i]);
-          vd[i] = to_f(ve[i]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          kd[i] = 0.f;
-          vd[i] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < QG * BT; idx += RT) {
-      const int j = idx / BT, t = idx % BT;
-      const float* qr = q_s + j * LD;
-      const float* kr = k_s + t * LD;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const int qi = j / G;
-      const int pos = t0 + t;
-      const bool ok = pos < len && pos <= pos0 + qi && qi < n_q;
-      s_s[j * BT + t] = ok ? dot * scale : NEG_INF;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query row, two tokens per lane
-    for (int j = warp; j < QG; j += RT / 32) {
-      float* sr = s_s + j * BT;
-      const float s0 = sr[lane], s1 = sr[lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[j];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      sr[lane] = p0;
-      sr[lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[j] = alpha * l_s[j] + sum;
-        m_s[j] = m_new;
-        a_s[j] = alpha;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int e = 0; e < NACC; ++e) {
-      const int idx = tid + e * RT;
-      if (idx < QG * HD) {
-        const int j = idx / HD, d = idx % HD;
-        const float* pr = s_s + j * BT;
-        float sum = 0.f;
-#pragma unroll 8
-        for (int t = 0; t < BT; ++t) sum = fmaf(pr[t], v_s[t * HD + d], sum);
-        acc[e] = acc[e] * a_s[j] + sum;
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int e = 0; e < NACC; ++e) {
-    const int idx = tid + e * RT;
-    if (idx < QG * HD) {
-      const int j = idx / HD, d = idx % HD;
-      const int qi = j / G, g = j % G;
-      out[base + ((long long)qi * H + kvh * G + g) * HD + d] =
-          from_f<T>(acc[e] / fmaxf(l_s[j], 1e-30f));
-    }
-  }
+  // a token's physical row is layer*P + table[pos / ps]; its scale slot in
+  // the (L*P, KV, page) scale pools is (row*KV + kvh)*ps + pos % ps
+  const auto locate = [=](int pos, long long& sc) {
+    const long long row = layer_row + table[pos / ps];
+    sc = (row * KV + kvh) * ps + pos % ps;
+    return row * page_stride + (long long)(pos % ps) * KV * HD +
+           (long long)kvh * HD;
+  };
+  attend_tiles<T, KT, HD, QGB>(q, out, base, k_pages, v_pages, k_scales,
+                               v_scales, min(kv_lens[r], maxp * ps), q_pos0[r],
+                               n_q, Qb, G, H, kvh, scale, locate);
 }
 
-template <typename T, int HD, int QGB>
-cudaError_t launch_qgb(const void* q, const void* kp, const void* vp,
-                       const int* tables, const int* lens, const int* pos0,
-                       const int* qnum, const int* layer, void* out, int R,
-                       int Qb, int H, int KV, int ps, int maxp, int P,
-                       cudaStream_t stream) {
-  const int QG = Qb * (H / KV);
-  const size_t smem = ragged_smem_bytes<T, HD>(QG);
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int *tables, *lens, *pos0, *qnum, *layer;
+  void* out;
+  int R, Qb, H, KV, ps, maxp, P;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KT, int HD, int QGB>
+cudaError_t launch_qgb(const Args& a) {
+  const int QG = a.Qb * (a.H / a.KV);
+  const size_t smem = tile_smem_bytes<KT, HD>(QG);
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_paged_kernel<T, HD, QGB>,
+      ragged_paged_kernel<T, KT, HD, QGB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ragged_smem_bytes<T, HD>(QGB));
+      (int)tile_smem_bytes<KT, HD>(QGB));
   if (err != cudaSuccess) return err;
-  dim3 grid(R, KV);
-  ragged_paged_kernel<T, HD, QGB><<<grid, threads_for<QGB>(), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, lens, pos0, qnum, layer,
-      static_cast<T*>(out), Qb, H, KV, ps, maxp, P, 1.f / sqrtf((float)HD));
+  dim3 grid(a.R, a.KV);
+  ragged_paged_kernel<T, KT, HD, QGB>
+      <<<grid, tile_threads<QGB>(), smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const KT*>(a.kp),
+          static_cast<const KT*>(a.vp), a.ks, a.vs, a.tables, a.lens, a.pos0,
+          a.qnum, a.layer, static_cast<T*>(a.out), a.Qb, a.H, a.KV, a.ps,
+          a.maxp, a.P, 1.f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* tables, const int* lens, const int* pos0,
-                   const int* qnum, const int* layer, void* out, int R, int Qb,
-                   int H, int KV, int ps, int maxp, int P,
-                   cudaStream_t stream) {
-  const int QG = Qb * (H / KV);
-  if (QG <= 8) {
-    return launch_qgb<T, HD, 8>(q, kp, vp, tables, lens, pos0, qnum, layer,
-                                out, R, Qb, H, KV, ps, maxp, P, stream);
-  }
-  if (QG <= QG_MAX) {
-    return launch_qgb<T, HD, QG_MAX>(q, kp, vp, tables, lens, pos0, qnum,
-                                     layer, out, R, Qb, H, KV, ps, maxp, P,
-                                     stream);
-  }
+template <typename T, typename KT, int HD>
+cudaError_t launch(const Args& a) {
+  const int QG = a.Qb * (a.H / a.KV);
+  if (QG <= 8) return launch_qgb<T, KT, HD, 8>(a);
+  if (QG <= QG_MAX) return launch_qgb<T, KT, HD, QG_MAX>(a);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* kp, const void* vp,
-                        const int* tables, const int* lens, const int* pos0,
-                        const int* qnum, const int* layer, void* out, int R,
-                        int Qb, int H, int KV, int ps, int maxp, int P,
-                        cudaStream_t s) {
+template <typename T, typename KT>
+cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, kp, vp, tables, lens, pos0, qnum, layer, out, R, Qb, H, KV, ps, maxp, P, s);
-    case 32: return launch<T, 32>(q, kp, vp, tables, lens, pos0, qnum, layer, out, R, Qb, H, KV, ps, maxp, P, s);
-    case 64: return launch<T, 64>(q, kp, vp, tables, lens, pos0, qnum, layer, out, R, Qb, H, KV, ps, maxp, P, s);
-    case 128: return launch<T, 128>(q, kp, vp, tables, lens, pos0, qnum, layer, out, R, Qb, H, KV, ps, maxp, P, s);
+    case 16: return launch<T, KT, 16>(a);
+    case 32: return launch<T, KT, 32>(a);
+    case 64: return launch<T, KT, 64>(a);
+    case 128: return launch<T, KT, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, out: contiguous (R, Qb, H, HD); k_pages, v_pages: contiguous
-// (L*P, ps, KV*HD), 16-byte aligned; tables: (R, maxp) int32; kv_lens,
-// q_pos0, q_num: (R,) int32; layer: (1,) int32 on the device. Returns
-// cudaGetLastError().
+// q, out: contiguous (R, Qb, H, HD) of `dtype`; k_pages, v_pages:
+// contiguous (L*P, ps, KV*HD), 16-byte aligned, of `dtype` when k_scales
+// and v_scales are null, int8 when they are given (contiguous f32 (L*P,
+// KV, ps)); tables: (R, maxp) int32; kv_lens, q_pos0, q_num: (R,) int32;
+// layer: (1,) int32 on the device. Returns cudaGetLastError().
 extern "C" int gk_ragged_paged_attention(
     int dtype, int head_dim, const void* q, const void* k_pages,
-    const void* v_pages, const void* tables, const void* kv_lens,
-    const void* q_pos0, const void* q_num, const void* layer, void* out,
-    int R, int Qb, int H, int KV, int ps, int maxp, int P, void* stream) {
+    const void* v_pages, const void* k_scales, const void* v_scales,
+    const void* tables, const void* kv_lens, const void* q_pos0,
+    const void* q_num, const void* layer, void* out, int R, int Qb, int H,
+    int KV, int ps, int maxp, int P, void* stream) {
   if (R <= 0 || Qb <= 0 || KV <= 0 || H % KV || ps <= 0 || maxp <= 0 ||
+      (k_scales == nullptr) != (v_scales == nullptr) ||
       (reinterpret_cast<uintptr_t>(k_pages) | reinterpret_cast<uintptr_t>(
                                                   v_pages)) % 16) {
     return (int)cudaErrorInvalidValue;
   }
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(kv_lens);
-  const int* p0 = static_cast<const int*>(q_pos0);
-  const int* qn = static_cast<const int*>(q_num);
-  const int* ly = static_cast<const int*>(layer);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q,
+               k_pages,
+               v_pages,
+               static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales),
+               static_cast<const int*>(tables),
+               static_cast<const int*>(kv_lens),
+               static_cast<const int*>(q_pos0),
+               static_cast<const int*>(q_num),
+               static_cast<const int*>(layer),
+               out, R, Qb, H, KV, ps, maxp, P,
+               static_cast<cudaStream_t>(stream)};
+  const bool quant = k_scales != nullptr;
   if (dtype == DT_BF16) {
-    return (int)dispatch_hd<__nv_bfloat16>(head_dim, q, k_pages, v_pages, tb,
-                                           ln, p0, qn, ly, out, R, Qb, H, KV,
-                                           ps, maxp, P, s);
+    return (int)(quant ? dispatch_hd<__nv_bfloat16, int8_t>(head_dim, a)
+                       : dispatch_hd<__nv_bfloat16, __nv_bfloat16>(head_dim, a));
   }
   if (dtype == DT_F32) {
-    return (int)dispatch_hd<float>(head_dim, q, k_pages, v_pages, tb, ln, p0,
-                                   qn, ly, out, R, Qb, H, KV, ps, maxp, P, s);
+    return (int)(quant ? dispatch_hd<float, int8_t>(head_dim, a)
+                       : dispatch_hd<float, float>(head_dim, a));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -12,10 +12,14 @@ with no GPU and no explicit CPU request it raises. ``attention="auto"``
 resolves to the hand-written kernels on CUDA and to the plain PyTorch
 path on the CPU; ``"kernel"`` on the CPU raises.
 
+``kv_quant="int8"`` serves from an int8 KV pool with per-token-per-head
+scales (half the pool's bytes, so more slots fit on a card); its decode
+attention is the int8 instance of the ragged paged kernel.
+
 Not ported here: speculative decoding and the spec/width ladders, the
-mixed-phase program, ``decode_multi``, grammar, LoRA, int8 weights and KV,
-KV handoff, the prefix cache, tensor parallelism (ROADMAP A2, A5, A6, A11,
-B2). Their config knobs are refused in ``core/config.py``.
+mixed-phase program, ``decode_multi``, grammar, LoRA, int8 weights, KV
+handoff, the prefix cache, tensor parallelism (ROADMAP A1, A2, A5, A6,
+A11). Their config knobs are refused in ``core/config.py``.
 """
 
 from __future__ import annotations
@@ -134,6 +138,8 @@ class EngineCore:
         if self.max_seq % self.chunk:
             raise ValueError(f"max_seq_len ({self.max_seq}) must be a "
                              f"multiple of prefill_chunk ({self.chunk})")
+        self.kv_dtype = str(kv_cache.pool_dtype(
+            self.model_cfg, engine_cfg.kv_quant)).removeprefix("torch.")
         k = engine_cfg.decode_steps_per_dispatch
         if k < 1 or k & (k - 1):
             raise ValueError(
@@ -173,7 +179,8 @@ class EngineCore:
     def init_state(self) -> DecodeState:
         B, dev = self.batch, self.device
         cache = PagedKVCache.create(self.model_cfg, B, self.num_pages,
-                                    self.page_size, device=dev)
+                                    self.page_size, device=dev,
+                                    kv_quant=self.cfg.kv_quant)
         z = lambda dt: torch.zeros((B,), dtype=dt, device=dev)
         return DecodeState(
             cache=cache, tokens=z(torch.int32), active=z(torch.bool),

@@ -1,17 +1,24 @@
 """Paged KV pool and the paged prefill/decode passes.
 
-Port of ``generativeaiexamples_tpu/engine/kv_cache.py`` for bf16/f32
-pools. The pool keeps the TPU package's flat layout, ``(L*P, page,
+Port of ``generativeaiexamples_tpu/engine/kv_cache.py`` for bf16/f32 and
+int8 pools. The pool keeps the TPU package's flat layout, ``(L*P, page,
 KV*HD)`` for K and for V, with layer l's physical page p at row
 ``l*P + p`` and page 0 the null page that no request owns (inactive slots
-and padding rows write there). Unlike the JAX version, which threads the
-pool through functionally, these passes **update the pool and the
-``lengths`` vector in place**: PyTorch has no donation, and a copy of a
-multi-GB pool per step would dominate the step.
+and padding rows write there). An int8 pool (``kv_quant="int8"``) adds
+per-token-per-head f32 scales ``k_s``/``v_s`` of shape ``(L*P, KV,
+page)``, the same layout as there, so KV can cross between the packages.
+Unlike the JAX version, which threads the pool through functionally, these
+passes **update the pool and the ``lengths`` vector in place**: PyTorch
+has no donation, and a copy of a multi-GB pool per step would dominate the
+step.
 
-Attention in the passes follows ``cfg.attn_impl``: ``"kernel"`` calls the
-hand-written kernels (``ops/cuda/attention.py``), ``"plain"`` the dense
-gather plus :func:`mha_prefill` (the TPU package's XLA path).
+Attention in the passes follows :func:`llama.kernel_attention`: ``"auto"``
+and ``"kernel"`` call the kernel wrappers (``ops/cuda/attention.py``),
+which launch the hand-written kernels on CUDA tensors, ``"plain"`` the dense
+gather (dequantized in the model dtype for an int8 pool) plus
+:func:`mha_prefill` (the TPU package's XLA path). Prefill over an int8
+pool writes the quantized chunk first and then attends to a dequantized
+dense view, the chunk included, as the reference does.
 """
 
 from __future__ import annotations
@@ -28,49 +35,119 @@ from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
 from generativeaiexamples_tpu_torch.ops.layers import rotary_embedding
 
 
+KV_QUANTS = ("none", "", "int8")   # pool storage: the model dtype, or int8
+
+
+def pool_dtype(cfg: llama.LlamaConfig, kv_quant: str) -> torch.dtype:
+    """The pool's element type: the model dtype, or int8 for
+    ``kv_quant="int8"``; any other value raises."""
+    if kv_quant not in KV_QUANTS:
+        raise ValueError(f"unknown kv_quant {kv_quant!r} (none|int8)")
+    return torch.int8 if kv_quant == "int8" else cfg.torch_dtype
+
+
 @dataclass
 class PagedKVCache:
-    """k, v: (L*P, page_size, KV*HD); lengths: (B,) int32 live rows/slot."""
+    """k, v: (L*P, page_size, KV*HD); lengths: (B,) int32 live rows/slot;
+    k_s, v_s: (L*P, KV, page_size) f32 scales of an int8 pool, else None."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    k_s: Optional[torch.Tensor] = None
+    v_s: Optional[torch.Tensor] = None
 
     @property
     def page_size(self) -> int:
         return self.k.shape[1]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_s is not None
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pool, scales included."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_s, self.v_s)
+                   if t is not None)
+
     @staticmethod
     def create(cfg: llama.LlamaConfig, batch: int, num_pages: int,
                page_size: int, device=None,
                kv_quant: str = "none") -> "PagedKVCache":
-        if kv_quant not in ("none", ""):
-            raise NotImplementedError(
-                f"kv_quant={kv_quant!r}: the int8 KV pool is ROADMAP B2")
+        """Allocate the pool: the model dtype, or int8 with scales for
+        ``kv_quant="int8"``; any other value raises."""
         shape = (cfg.n_layers * num_pages, page_size,
                  cfg.n_kv_heads * cfg.head_dim)
-        return PagedKVCache(
-            k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
+        dtype = pool_dtype(cfg, kv_quant)
+        z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+        cache = PagedKVCache(k=z(shape, dtype), v=z(shape, dtype),
+                             lengths=z((batch,), torch.int32))
+        if kv_quant == "int8":
+            s_shape = (shape[0], cfg.n_kv_heads, page_size)
+            cache.k_s = z(s_shape, torch.float32)
+            cache.v_s = z(s_shape, torch.float32)
+        return cache
+
+
+def _kv_quantize(x: torch.Tensor, KV: int, HD: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., KV*HD) -> int8 values + (..., KV) per-token-per-head scales:
+    symmetric, ``s = max|x| / 127``, rounded half to even (as
+    ``jnp.round``), so the values and scales equal the reference's."""
+    shaped = x.reshape(x.shape[:-1] + (KV, HD)).float()
+    s = shaped.abs().amax(dim=-1) / 127.0
+    safe = s.clamp_min(1e-10)
+    q = torch.round(shaped / safe[..., None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(x.shape), s
+
+
+def _kv_dequant_dense(q: torch.Tensor, s: torch.Tensor, KV: int, HD: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """(B, T, KV*HD) int8 + (B, T, KV) scales -> (B, T, KV, HD) dense."""
+    B, T = q.shape[:2]
+    return (q.reshape(B, T, KV, HD).float() * s[..., None]).to(dtype)
 
 
 def _scatter_pages(cache: PagedKVCache, flat_pages: torch.Tensor,
                    k: torch.Tensor, v: torch.Tensor) -> None:
     """Write a page-aligned chunk's K/V (G, C, KV, HD) into whole physical
-    pages ``flat_pages`` (G*n_cp,), in place. Padding rows all target the
-    null page 0, so duplicate indices only ever hit it."""
+    pages ``flat_pages`` (G*n_cp,), in place, quantizing per token and head
+    for an int8 pool (scales go in transposed, as (rows, KV, page)).
+    Padding rows all target the null page 0, so duplicate indices only
+    ever hit it."""
+    G, C, KV, HD = k.shape
     ps, width = cache.k.shape[1], cache.k.shape[2]
-    cache.k[flat_pages] = k.to(cache.k.dtype).reshape(-1, ps, width)
-    cache.v[flat_pages] = v.to(cache.v.dtype).reshape(-1, ps, width)
+    n_cp = C // ps
+    if not cache.quantized:
+        cache.k[flat_pages] = k.to(cache.k.dtype).reshape(-1, ps, width)
+        cache.v[flat_pages] = v.to(cache.v.dtype).reshape(-1, ps, width)
+        return
+    for pool, scales, x in ((cache.k, cache.k_s, k), (cache.v, cache.v_s, v)):
+        xq, xs = _kv_quantize(x.reshape(G, C, width), KV, HD)
+        pool[flat_pages] = xq.reshape(-1, ps, width)
+        scales[flat_pages] = (xs.reshape(G, n_cp, ps, KV).permute(0, 1, 3, 2)
+                              .reshape(G * n_cp, KV, ps))
 
 
 def _gather_dense(cache: PagedKVCache, flat_rows: torch.Tensor, G: int,
-                  T: int, KV: int, HD: int) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """Dense (G, T, KV, HD) view of pool rows ``flat_rows`` (G, maxp)."""
-    return (cache.k[flat_rows].reshape(G, T, KV, HD),
-            cache.v[flat_rows].reshape(G, T, KV, HD))
+                  T: int, KV: int, HD: int, dtype: torch.dtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (G, T, KV, HD) view of pool rows ``flat_rows`` (G, maxp),
+    dequantized into ``dtype`` for an int8 pool."""
+    if not cache.quantized:
+        return (cache.k[flat_rows].reshape(G, T, KV, HD),
+                cache.v[flat_rows].reshape(G, T, KV, HD))
+    ps = cache.page_size
+
+    def dense(pool, scales):
+        s = (scales[flat_rows].reshape(G, -1, KV, ps).permute(0, 1, 3, 2)
+             .reshape(G, T, KV))
+        return _kv_dequant_dense(pool[flat_rows].reshape(G, T, -1), s, KV, HD,
+                                 dtype)
+
+    return dense(cache.k, cache.k_s), dense(cache.v, cache.v_s)
 
 
 class PageAllocator:
@@ -138,14 +215,15 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
         1, (start // ps)[:, None] + torch.arange(n_cp, device=dev)[None])
     cache_positions = torch.arange(T, device=dev)[None].expand(G, T)
     kv_mask = cache_positions < valid_through[:, None]
+    use_kernel = llama.kernel_attention(cfg)
 
     def attn_for_layer(i):
         def attn(q, k, v):
             _scatter_pages(cache, (i * num_pages + chunk_pages).reshape(-1),
                            k, v)
             k_dense, v_dense = _gather_dense(cache, i * num_pages + rows64,
-                                             G, T, KV, HD)
-            if cfg.attn_impl == "kernel":
+                                             G, T, KV, HD, q.dtype)
+            if use_kernel:
                 return kernels.flash_prefill(q, k_dense, v_dense,
                                              start_pos=start_pos,
                                              kv_valid_through=valid_through)
@@ -207,18 +285,29 @@ def decode_step_wide(params: llama.Params, cfg: llama.LlamaConfig,
     offs = positions % ps
     cache_positions = torch.arange(T, device=dev)[None].expand(B, T)
     kv_mask = cache_positions < attn_len[:, None]
+    use_kernel = llama.kernel_attention(cfg)
 
     def attn_for_layer(i):
         def attn(q, k, v):
             flat = i * num_pages + rows                               # (B, Q)
-            cache.k[flat, offs] = k.to(cache.k.dtype).reshape(B, Q, KV * HD)
-            cache.v[flat, offs] = v.to(cache.v.dtype).reshape(B, Q, KV * HD)
-            if cfg.attn_impl == "kernel":
+            if cache.quantized:
+                # (flat, :, offs) puts the (B, Q) index dims first: (B, Q, KV)
+                for pool, scales, x in ((cache.k, cache.k_s, k),
+                                        (cache.v, cache.v_s, v)):
+                    xq, xs = _kv_quantize(x.reshape(B, Q, KV * HD), KV, HD)
+                    pool[flat, offs] = xq
+                    scales[flat, :, offs] = xs
+            else:
+                cache.k[flat, offs] = k.to(cache.k.dtype).reshape(B, Q, KV * HD)
+                cache.v[flat, offs] = v.to(cache.v.dtype).reshape(B, Q, KV * HD)
+            if use_kernel:
                 return kernels.paged_decode(q, cache.k, cache.v, page_table,
                                             attn_len, layer=i,
-                                            pages_per_layer=num_pages)
+                                            pages_per_layer=num_pages,
+                                            k_scales=cache.k_s,
+                                            v_scales=cache.v_s)
             k_dense, v_dense = _gather_dense(cache, i * num_pages + table64,
-                                             B, T, KV, HD)
+                                             B, T, KV, HD, q.dtype)
             return mha_prefill(q, k_dense, v_dense, q_positions=positions,
                                kv_positions=cache_positions, kv_mask=kv_mask,
                                causal=True)

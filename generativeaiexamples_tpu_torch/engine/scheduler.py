@@ -205,7 +205,8 @@ class Scheduler:
             waiting = len(self._pending)
         return {"running": len(self._slots),
                 "prefilling": len(self._prefilling), "waiting": waiting,
-                "batch": self.core.batch,
+                "batch": self.core.batch, "kv_dtype": self.core.kv_dtype,
+                "kv_pool_bytes": self._state.cache.nbytes,
                 "kv_pages_free": self._alloc.available, **self.stats}
 
     # ------------------------------------------------------------- internals

@@ -9,8 +9,15 @@ projection kept as ``nn.Linear`` stores it, (out, in), so the hot path is
 the one place that transposes. A Python loop over layers takes the place
 of ``lax.scan``.
 
+The dense-cache model API is here too: :class:`KVCache` (k/v ``(L, B, T,
+KV, HD)``), :func:`prefill` and :func:`decode_step`, whose attention is the
+``flash_prefill`` and ``ragged_decode`` kernels unless ``attn_impl ==
+"plain"`` asks for the plain :func:`mha_prefill`/:func:`mha_decode` (see
+:func:`kernel_attention`). Like the paged passes they write the cache in
+place.
+
 Not ported here (ROADMAP A3/A9): LoRA, biased projections and LayerNorm,
-MoE, the dense-cache ``prefill``/``decode_step`` and ``params_from_hf``.
+MoE and ``params_from_hf``.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from generativeaiexamples_tpu_torch.ops.attention import mha_prefill
+from generativeaiexamples_tpu_torch.ops.attention import (
+    mha_decode, mha_prefill)
+from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
 from generativeaiexamples_tpu_torch.ops.layers import (
     apply_rope, glu, rms_norm, rotary_embedding)
 
@@ -50,9 +59,9 @@ class LlamaConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     hidden_act: str = "silu"
-    # "kernel" | "plain": the paged passes' attention (the engine resolves
-    # the config's "auto" from the device)
-    attn_impl: str = "plain"
+    # "auto" | "kernel" | "plain": the attention of the paged passes and the
+    # dense API (see kernel_attention)
+    attn_impl: str = "auto"
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
@@ -195,6 +204,21 @@ def _block(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
     return h + _proj(act, layer, "w_down")
 
 
+ATTN_IMPLS = ("auto", "kernel", "plain")
+
+
+def kernel_attention(cfg: LlamaConfig) -> bool:
+    """Whether attention goes through the kernel wrappers of
+    ``ops/cuda/attention.py``: ``"auto"`` and ``"kernel"`` do, and a
+    wrapper launches its kernel for CUDA tensors and takes its plain
+    version only for CPU tensors; ``"plain"`` asks for the plain PyTorch
+    attention on any device."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{cfg.attn_impl!r}")
+    return cfg.attn_impl != "plain"
+
+
 def _unembed(cfg: LlamaConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -230,3 +254,124 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 
     h = run_blocks(cfg, params, h, cos, sin, lambda _i: attn)
     return _unembed(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
+# Dense-cache API (the paged passes live in engine/kv_cache.py)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class KVCache:
+    """Dense per-layer KV cache: k, v (L, B, T, KV, HD); lengths (B,) int32."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @staticmethod
+    def create(cfg: LlamaConfig, batch: int, max_seq: int,
+               device=None) -> "KVCache":
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _cached_blocks(cfg: LlamaConfig, params: Params, h: torch.Tensor,
+                   cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
+                   write_pos: torch.Tensor, attn: AttnFn) -> torch.Tensor:
+    """The layer loop over the dense cache (``_scan_cached_blocks`` there):
+    each layer writes its new K/V (B, S, KV, HD) into its cache slice at
+    ``write_pos[b]``, in place, then ``attn(q, k_layer, v_layer)`` reads
+    the whole slice. Like ``dynamic_update_slice`` the write start is
+    clamped so that the S rows fit: a write at ``T - S + 1`` or later
+    lands at ``T - S``."""
+    B, S = h.shape[:2]
+    T = cache.k.shape[2]
+    start = write_pos.to(torch.int64).clamp(0, T - S)
+    rows = start[:, None] + torch.arange(S, device=h.device)[None]   # (B, S)
+    batch = torch.arange(B, device=h.device)[:, None]
+
+    def attn_for_layer(i):
+        def attn_i(q, k, v):
+            cache.k[i][batch, rows] = k.to(cache.k.dtype)
+            cache.v[i][batch, rows] = v.to(cache.v.dtype)
+            return attn(q, cache.k[i], cache.v[i])
+        return attn_i
+
+    return run_blocks(cfg, params, h, cos, sin, attn_for_layer)
+
+
+def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+            cache: KVCache, start_pos: torch.Tensor, seq_lens: torch.Tensor,
+            last_only: bool = False) -> Tuple[torch.Tensor, KVCache]:
+    """Prompt pass that fills the dense cache, in place.
+
+    tokens: (B, S) right-padded; start_pos: (B,) cache offset (0 for fresh
+    sequences, > 0 for a later chunk); seq_lens: (B,) valid tokens of this
+    chunk. Returns logits (B, S, V) f32, or (B, 1, V) at each row's last
+    valid position when ``last_only``, and the cache with ``lengths =
+    start_pos + seq_lens``.
+    """
+    B, S = tokens.shape
+    T = cache.k.shape[2]
+    dev = tokens.device
+    positions = start_pos.to(torch.int64)[:, None] + torch.arange(
+        S, device=dev)[None]
+    h = embed_tokens(params, cfg, tokens)
+    cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta,
+                                scaling=cfg.rope_scaling)
+    valid_through = (start_pos + seq_lens).to(torch.int32)
+    cache_positions = torch.arange(T, device=dev)[None].expand(B, T)
+    kv_mask = cache_positions < valid_through[:, None]
+    use_kernel = kernel_attention(cfg)
+    if (use_kernel and dev.type == "cuda"
+            and not kernels.prefill_supported(S, T, cfg.head_dim)):
+        raise ValueError(f"flash_prefill kernel does not take S={S}, T={T}, "
+                         f"head_dim={cfg.head_dim}; attn_impl='plain' runs "
+                         f"the plain attention")
+
+    def attn(q, k, v):
+        if use_kernel:
+            return kernels.flash_prefill(q, k, v, start_pos=start_pos,
+                                         kv_valid_through=valid_through)
+        return mha_prefill(q, k, v, q_positions=positions,
+                           kv_positions=cache_positions, kv_mask=kv_mask,
+                           causal=True)
+
+    h = _cached_blocks(cfg, params, h, cos, sin, cache, start_pos, attn)
+    if last_only:
+        last = (seq_lens.to(torch.int64) - 1).clamp_min(0)
+        h = h[torch.arange(B, device=dev), last][:, None]
+    cache.lengths = valid_through
+    return _unembed(cfg, params, h), cache
+
+
+def decode_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step for every row, in place: token b goes to position
+    ``lengths[b]`` (clamped to the last row once the cache is full) and
+    attends rows ``< lengths[b] + 1``. tokens: (B,). Returns logits (B, V)
+    f32 and the cache with ``lengths + 1``."""
+    T = cache.k.shape[2]
+    positions = cache.lengths.to(torch.int64)[:, None]             # (B, 1)
+    h = embed_tokens(params, cfg, tokens[:, None])
+    cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta,
+                                scaling=cfg.rope_scaling)
+    new_lengths = cache.lengths + 1
+    use_kernel = kernel_attention(cfg)
+    if (use_kernel and tokens.is_cuda
+            and not kernels.decode_supported(T, cfg.head_dim)):
+        raise ValueError(f"ragged_decode kernel does not take T={T}, "
+                         f"head_dim={cfg.head_dim}; attn_impl='plain' runs "
+                         f"the plain attention")
+
+    def attn(q, k, v):
+        if use_kernel:
+            return kernels.ragged_decode(q, k, v, new_lengths)
+        return mha_decode(q, k, v, new_lengths)
+
+    h = _cached_blocks(cfg, params, h, cos, sin, cache, cache.lengths, attn)
+    cache.lengths = new_lengths
+    return _unembed(cfg, params, h)[:, 0], cache

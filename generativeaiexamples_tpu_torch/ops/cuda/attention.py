@@ -1,23 +1,25 @@
-"""The port's two attention kernels: wrappers, plain versions, predicates.
+"""The port's attention kernels: wrappers, plain versions, predicates.
 
-Port of ``generativeaiexamples_tpu/ops/pallas/attention.py`` for the
-single-card serving path. Each kernel is CUDA C++ for ``sm_90a`` under
+Port of ``generativeaiexamples_tpu/ops/pallas/attention.py``, every kernel
+of it, for a single card. Each kernel is CUDA C++ for ``sm_90a`` under
 ``csrc/`` (built by :mod:`.build`, bound with ``ctypes``) and has, beside
 it here:
 
-* a plain PyTorch version of the same signature (``*_plain``): the CPU
-  path takes it, and ``chip_smoke.py`` holds the kernel against it on the
-  card. A wrapper uses it only for tensors that lie on the CPU; for a CUDA
+* a plain PyTorch version of the same signature (``*_plain``; for
+  ``ragged_decode`` it is :func:`mha_decode` itself): the CPU path takes
+  it, and ``chip_smoke.py`` holds the kernel against it on the card. A wrapper uses it only for tensors that lie on the CPU; for a CUDA
   tensor it launches the kernel or raises, never falls back;
 * a launch count (:func:`launch_counts`), raised by one where the wrapper
   launches, so a run can show that the serving path went through it.
 
 ``flash_prefill`` replaces ``flash_prefill``/``_flash_kernel``;
 ``ragged_paged_attention`` replaces ``ragged_paged_attention``/
-``_ragged_paged_kernel`` for bf16/f32 pools (the int8-KV variant is not
-ported yet), and ``paged_decode`` stays a wrapper over it. What bounds each
-kernel on the H100 and what its design does about that is written at the
-top of its ``.cu`` file.
+``_ragged_paged_kernel`` for bf16/f32 pools and, given ``k_scales``/
+``v_scales``, its int8-KV variant (one kernel, two instances, counted
+apart), and ``paged_decode`` stays a wrapper over it; ``ragged_decode``
+replaces ``ragged_decode``/``_decode_kernel``, the decode attention of the
+dense-cache model API. What bounds each kernel on the H100 and what its
+design does about that is written at the top of its ``.cu`` file.
 """
 
 from __future__ import annotations
@@ -27,13 +29,16 @@ from typing import Dict, Optional
 
 import torch
 
-from generativeaiexamples_tpu_torch.ops.attention import NEG_INF, mha_prefill
+from generativeaiexamples_tpu_torch.ops.attention import (
+    NEG_INF, mha_decode, mha_prefill)
 
 HEAD_DIMS = (16, 32, 64, 128)
 QG_MAX = 64   # query vectors (G * Qb) one ragged block holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0}
+_LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
+                             "ragged_paged_attention_int8": 0,
+                             "ragged_decode": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -57,9 +62,10 @@ def prefill_supported(seq_len: int, kv_len: int, head_dim: int) -> bool:
 
 
 def decode_supported(kv_len: int, head_dim: int) -> bool:
-    """``ragged_decode`` (the dense-cache kernel) is not ported: ROADMAP B4."""
-    del kv_len, head_dim
-    return False
+    """``ragged_decode`` takes any cache length (it clamps its walk to the
+    cache and masks the ragged edge itself); head_dim must be one of its
+    template instances."""
+    return kv_len >= 1 and head_dim in HEAD_DIMS
 
 
 def paged_decode_supported(page_size: int, head_dim: int) -> bool:
@@ -97,11 +103,17 @@ def flash_prefill_plain(q, k, v, start_pos=None, kv_valid_through=None):
 
 def ragged_paged_attention_plain(q, k_pages, v_pages, row_tables, kv_lens,
                                  q_pos0, q_num, layer=None,
-                                 pages_per_layer: Optional[int] = None):
+                                 pages_per_layer: Optional[int] = None,
+                                 k_scales=None, v_scales=None):
     """Plain PyTorch ragged paged attention: gathers each row's pages into a
     dense view and masks exactly as the kernel does (keys at positions
     ``<= q_pos0 + j`` and ``< kv_len``; query slots past ``q_num`` are fully
-    masked and come out finite; rows with ``q_num == 0`` come out zero)."""
+    masked and come out finite; rows with ``q_num == 0`` come out zero).
+
+    With ``k_scales``/``v_scales`` (N, KV, page) the pools hold int8 and the
+    math is the kernel's, in f32: scores ``(q.k)*scale*k_s``, probabilities
+    times ``v_s`` before ``p @ v``, the denominator over the unscaled
+    probabilities. The elements are never dequantized."""
     R, Qb, H, HD = q.shape
     N, ps, KVHD = k_pages.shape
     KV = KVHD // HD
@@ -116,6 +128,13 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, row_tables, kv_lens,
     v = v_pages[rows].reshape(R, T, KV, HD).float()
     qg = q.reshape(R, Qb, KV, G, HD).float()
     s = torch.einsum("rqkgd,rtkd->rkgqt", qg, k) * (1.0 / HD ** 0.5)
+
+    def per_token(scales):                                   # (R, KV, 1, 1, T)
+        return (scales[rows].permute(0, 2, 1, 3).reshape(R, KV, T)
+                [:, :, None, None, :].float())
+
+    if k_scales is not None:
+        s = s * per_token(k_scales)
     t = torch.arange(T, device=dev)
     qi = torch.arange(Qb, device=dev)
     qpos = q_pos0.long()[:, None] + qi[None]                 # (R, Qb)
@@ -124,8 +143,10 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, row_tables, kv_lens,
           & (qi[None, :, None] < q_num.long()[:, None, None]))   # (R, Qb, T)
     s = torch.where(ok[:, None, None], s, torch.tensor(NEG_INF, device=dev))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    out = torch.einsum("rkgqt,rtkd->rqkgd", p, v)
-    out = out / p.sum(dim=-1).clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+    denom = p.sum(dim=-1).clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+    if v_scales is not None:
+        p = p * per_token(v_scales)
+    out = torch.einsum("rkgqt,rtkd->rqkgd", p, v) / denom
     out = torch.where((q_num > 0)[:, None, None, None, None], out,
                       torch.zeros((), device=dev))
     return out.reshape(R, Qb, H, HD).to(q.dtype)
@@ -154,8 +175,10 @@ def _as_i32(x: torch.Tensor, device) -> torch.Tensor:
 
 _FLASH_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                + [ctypes.c_void_p] * 2)
-_RAGGED_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                + [ctypes.c_void_p])
+_RAGGED_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_DECODE_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p] * 2)
 
 
 def _lib(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
@@ -216,7 +239,9 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, row_tables: torch.Tensor,
                            kv_lens: torch.Tensor, q_pos0: torch.Tensor,
                            q_num: torch.Tensor, layer=None,
-                           pages_per_layer: Optional[int] = None
+                           pages_per_layer: Optional[int] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Ragged attention straight off the flat paged KV pool.
 
@@ -225,19 +250,28 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``layer*P + table[r, p]``; row_tables: (R, maxp); kv_lens, q_pos0,
     q_num: (R,). Query j of row r sits at ``q_pos0[r] + j``; query slots
     past ``q_num`` are finite garbage the caller discards. ``layer`` may be
-    an int or a device tensor. CPU tensors take the plain version.
+    an int or a device tensor. ``k_scales``/``v_scales``, f32 (L*P, KV,
+    page), switch to the int8 pool (its own launch count,
+    ``ragged_paged_attention_int8``). CPU tensors take the plain version.
     """
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("ragged_paged_attention: give both k_scales and "
+                         "v_scales, or neither")
     if not q.is_cuda:
         return ragged_paged_attention_plain(q, k_pages, v_pages, row_tables,
                                             kv_lens, q_pos0, q_num, layer,
-                                            pages_per_layer)
+                                            pages_per_layer, k_scales,
+                                            v_scales)
+    quant = k_scales is not None
     R, Qb, H, HD = q.shape
     N, ps, KVHD = k_pages.shape
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    pool_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in _DTYPES or k_pages.dtype != pool_dtype \
+            or v_pages.dtype != pool_dtype:
         raise ValueError(f"ragged_paged_attention takes bf16/f32 q and pools "
-                         f"of one dtype, got {q.dtype}, {k_pages.dtype}, "
-                         f"{v_pages.dtype} (the int8 pool is ROADMAP B2)")
+                         f"of q's dtype, or int8 pools with scales; got "
+                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}, "
+                         f"scales {'given' if quant else 'none'}")
     if HD not in HEAD_DIMS or KVHD % HD or v_pages.shape != k_pages.shape:
         raise ValueError(f"ragged_paged_attention: unsupported shapes q "
                          f"{tuple(q.shape)} pool {tuple(k_pages.shape)}")
@@ -252,6 +286,13 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("ragged_paged_attention: pools must be 16-byte "
                          "aligned (the kernel loads them 16 bytes at a time)")
+    if quant and any(s.dtype != torch.float32 or s.shape != (N, KV, ps)
+                     or not s.is_contiguous() or s.device != q.device
+                     for s in (k_scales, v_scales)):
+        raise ValueError(f"ragged_paged_attention: scales must be contiguous "
+                         f"f32 ({N}, {KV}, {ps}) on {q.device}, got "
+                         f"{k_scales.dtype} {tuple(k_scales.shape)}, "
+                         f"{v_scales.dtype} {tuple(v_scales.shape)}")
     dev = q.device
     P = pages_per_layer if pages_per_layer is not None else N
     maxp = row_tables.shape[1]
@@ -264,25 +305,86 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pos0 = _as_i32(q_pos0, dev)
     qnum = _as_i32(q_num, dev)
     out = torch.empty_like(q)
+    null = ctypes.c_void_p(None)
     fn = _lib("ragged_paged", "gk_ragged_paged_attention", _RAGGED_ARGS)
     rc = fn(_DTYPES[q.dtype], HD, _ptr(q), _ptr(k_pages), _ptr(v_pages),
+            _ptr(k_scales) if quant else null,
+            _ptr(v_scales) if quant else null,
             _ptr(tables), _ptr(lens), _ptr(pos0), _ptr(qnum), _ptr(lyr),
             _ptr(out), R, Qb, H, KV, ps, maxp, P, _stream(dev))
-    _check(rc, "ragged_paged_attention")
-    _LAUNCHES["ragged_paged_attention"] += 1
+    name = "ragged_paged_attention_int8" if quant else "ragged_paged_attention"
+    _check(rc, name)
+    _LAUNCHES[name] += 1
     return out
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, page_table: torch.Tensor,
                  lengths: torch.Tensor, layer=None,
-                 pages_per_layer: Optional[int] = None) -> torch.Tensor:
+                 pages_per_layer: Optional[int] = None,
+                 k_scales: Optional[torch.Tensor] = None,
+                 v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention off the paged pool, 1..Q queries per slot: the
     uniform-row case of :func:`ragged_paged_attention` (query qi of slot b
-    at ``lengths[b] - Q + qi``; ``lengths`` counts all Q writes)."""
+    at ``lengths[b] - Q + qi``; ``lengths`` counts all Q writes), over a
+    bf16/f32 pool or, with scales, an int8 one."""
     B, Q = q.shape[:2]
     lengths = lengths.to(torch.int32)
     return ragged_paged_attention(
         q, k_pages, v_pages, page_table, lengths, lengths - Q,
         torch.full((B,), Q, dtype=torch.int32, device=lengths.device),
-        layer=layer, pages_per_layer=pages_per_layer)
+        layer=layer, pages_per_layer=pages_per_layer, k_scales=k_scales,
+        v_scales=v_scales)
+
+
+def ragged_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, lengths: torch.Tensor
+                  ) -> torch.Tensor:
+    """Single-token decode attention over a dense per-slot cache.
+
+    q: (B, 1, H, HD), contiguous; k_cache, v_cache: (B, T, KV, HD), one
+    layer of the dense cache, read in place through their strides (the
+    same for both, head dim contiguous, 16-byte aligned rows); lengths:
+    (B,) live rows including this step's write (values past T cover the
+    whole cache). Returns a fresh (B, 1, H, HD) tensor in q's dtype. CPU
+    tensors take the plain version, :func:`mha_decode`.
+    """
+    if not q.is_cuda:
+        return mha_decode(q, k_cache, v_cache, lengths)
+    B, one, H, HD = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError(f"ragged_decode takes bf16/f32 q and caches of one "
+                         f"dtype, got {q.dtype}, {k_cache.dtype}, "
+                         f"{v_cache.dtype}")
+    if (one != 1 or HD not in HEAD_DIMS or k_cache.shape != (B, T, KV, HD)
+            or v_cache.shape != k_cache.shape):
+        raise ValueError(f"ragged_decode: unsupported shapes q "
+                         f"{tuple(q.shape)} k {tuple(k_cache.shape)} v "
+                         f"{tuple(v_cache.shape)}")
+    if H % KV or H // KV > QG_MAX:
+        raise ValueError(f"ragged_decode: H={H}, KV={KV} outside the "
+                         f"kernel's limits (H/KV <= {QG_MAX})")
+    if (not q.is_contiguous() or k_cache.stride(-1) != 1
+            or v_cache.stride() != k_cache.stride()):
+        raise ValueError("ragged_decode: q must be contiguous, and the "
+                         "caches' head dim contiguous with equal strides")
+    size = q.element_size()
+    if (k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16
+            or any(st * size % 16 for st in k_cache.stride()[:3])):
+        raise ValueError("ragged_decode: cache rows must be 16-byte aligned "
+                         "(the kernel loads them 16 bytes at a time)")
+    if not (k_cache.device == q.device == v_cache.device):
+        raise ValueError("ragged_decode: q, k, v on different devices")
+    dev = q.device
+    lens = _as_i32(lengths, dev)
+    out = torch.empty((B, 1, H, HD), dtype=q.dtype, device=dev)
+    strides = (ctypes.c_longlong * 3)(*k_cache.stride()[:3])
+    fn = _lib("ragged_decode", "gk_ragged_decode", _DECODE_ARGS)
+    rc = fn(_DTYPES[q.dtype], HD, _ptr(q), _ptr(k_cache), _ptr(v_cache),
+            _ptr(lens), _ptr(out), B, T, H, KV,
+            ctypes.cast(strides, ctypes.c_void_p), _stream(dev))
+    _check(rc, "ragged_decode")
+    _LAUNCHES["ragged_decode"] += 1
+    return out

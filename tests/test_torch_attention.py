@@ -149,11 +149,17 @@ def test_support_predicates_and_launch_counts():
             assert (tk.paged_decode_supported(ps, hd)
                     == tk.ragged_paged_supported(ps, hd, 8))
     assert not tk.ragged_paged_supported(16, 32, 3)
-    assert not tk.decode_supported(2048, 128)       # ragged_decode: B4
+    assert tk.decode_supported(2048, 128) and tk.decode_supported(1, 16)
+    assert not tk.decode_supported(2048, 96)
+    assert not tk.decode_supported(0, 128)
     # CPU tensors take the plain version: no launch is counted
     tk.reset_launch_counts()
     x = torch.zeros((1, 8, 2, 16))
     tk.flash_prefill(x, x[:, :, :1], x[:, :, :1])
+    tk.ragged_decode(x[:, :1], x[:, :, :1], x[:, :, :1],
+                     torch.tensor([3], dtype=torch.int32))
     assert tk.launch_counts() == {"flash_prefill": 0,
-                                  "ragged_paged_attention": 0}
+                                  "ragged_paged_attention": 0,
+                                  "ragged_paged_attention_int8": 0,
+                                  "ragged_decode": 0}
 

@@ -6,13 +6,16 @@ so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 
 f32 within 1e-4 (same f32 arithmetic, another summation order); bf16
-within 3e-2 (one bf16 rounding of outputs below 4 in magnitude).
+within 3e-2 (one bf16 rounding of outputs below 4 in magnitude). The int8
+pool's kernel and plain version do the same f32 math on the same int8
+values and scales, so the same tolerances hold.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from generativeaiexamples_tpu_torch.ops.attention import mha_decode
 from generativeaiexamples_tpu_torch.ops.cuda import attention as tk
 
 
@@ -84,9 +87,132 @@ def test_paged_decode_wide_matches_plain_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_engine_kernel_path_matches_plain_path_on_the_card(cuda_device):
+def test_int8_ragged_paged_matches_plain_on_the_card(cuda_device):
+    rng = np.random.default_rng(23)
+    P, ps, H, KV, HD, Qb = 10, 16, 8, 2, 64, 8
+    kp, vp = (_t(rng.integers(-127, 128, size=(2 * P, ps, KV * HD))
+                 .astype(np.int8)).to(cuda_device) for _ in range(2))
+    ks, vs = (_t((rng.random((2 * P, KV, ps)) * 0.05 + 1e-3)
+                 .astype(np.float32)).to(cuda_device) for _ in range(2))
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 0, 0], [7, 8, 9, 0]],
+                          dtype=torch.int32, device=cuda_device)
+    lens = torch.tensor([64, 20, 70], dtype=torch.int32, device=cuda_device)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        for Q, pos0, qnum in ((1, [63, 19, 40], [1, 1, 0]),
+                              (Qb, [63, 12, 40], [1, 8, 0])):
+            qr = _t(_rand(rng, (3, Q, H, HD))).to(cuda_device, dt)
+            pos = torch.tensor(pos0, dtype=torch.int32, device=cuda_device)
+            qn = torch.tensor(qnum, dtype=torch.int32, device=cuda_device)
+            tk.reset_launch_counts()
+            got = tk.ragged_paged_attention(
+                qr, kp, vp, tables, lens, pos, qn, layer=1,
+                pages_per_layer=P, k_scales=ks, v_scales=vs).float()
+            assert tk.launch_counts()["ragged_paged_attention_int8"] == 1
+            assert tk.launch_counts()["ragged_paged_attention"] == 0
+            want = tk.ragged_paged_attention_plain(
+                qr, kp, vp, tables, lens, pos, qn, 1, P, ks, vs).float()
+            for r, n in enumerate(qnum[:2]):
+                assert (got[r, :n] - want[r, :n]).abs().max().item() < tol
+            assert (got[2] == 0).all()      # q_num == 0 writes zeros
+    with pytest.raises(ValueError, match="scales"):
+        tk.ragged_paged_attention(qr, kp, vp, tables, lens, pos, qn,
+                                  k_scales=ks[:, :1], v_scales=vs[:, :1])
+
+
+@pytest.mark.cuda
+def test_ragged_decode_matches_plain_on_the_card(cuda_device):
+    """One layer of a (L, B, T, KV, HD) cache, read through its strides;
+    ragged lengths, a full slot and a length past the cache."""
+    rng = np.random.default_rng(24)
+    L, B, T, H, KV, HD = 2, 4, 200, 8, 2, 64
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        k, v = (_t(_rand(rng, (L, B, T, KV, HD))).to(cuda_device, dt)
+                for _ in range(2))
+        q = _t(_rand(rng, (B, 1, H, HD))).to(cuda_device, dt)
+        lens = torch.tensor([1, 77, T, T + 1], dtype=torch.int32,
+                            device=cuda_device)
+        tk.reset_launch_counts()
+        got = tk.ragged_decode(q, k[1], v[1], lens).float()
+        assert tk.launch_counts()["ragged_decode"] == 1
+        want = mha_decode(q, k[1], v[1], lens).float()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+def test_dense_api_kernel_path_matches_plain_path_on_the_card(cuda_device):
+    """llama.prefill plus greedy decode_step over the dense cache: the
+    flash_prefill/ragged_decode path and the plain one give the same
+    tokens (tiny model, f32)."""
+    import dataclasses
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(6), cfg)
+    rng = np.random.default_rng(25)
+    tokens = _t(rng.integers(0, 259, size=(3, 40)).astype(np.int32)).to(
+        cuda_device)
+    seq = torch.tensor([40, 17, 5], dtype=torch.int32, device=cuda_device)
+    streams = {}
+    for attn in ("kernel", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=attn)
+        cache = llama.KVCache.create(c, 3, 128, device=cuda_device)
+        tk.reset_launch_counts()
+        logits, cache = llama.prefill(params, c, tokens, cache,
+                                      torch.zeros_like(seq), seq,
+                                      last_only=True)
+        tok = logits[:, 0].argmax(-1)
+        out = [tok]
+        for _ in range(16):
+            logits, cache = llama.decode_step(params, c, tok, cache)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        streams[attn] = torch.stack(out).tolist()
+        if attn == "kernel":
+            n = tk.launch_counts()
+            assert n["flash_prefill"] == cfg.n_layers
+            assert n["ragged_decode"] == 16 * cfg.n_layers
+    assert streams["kernel"] == streams["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_name", ["tiny", "llama3_8b"])
+def test_stock_config_dense_api_launches_the_kernels(cuda_device, cfg_name):
+    """The stock configs (``attn_impl="auto"``) send ``llama.prefill`` and
+    ``llama.decode_step`` on CUDA tensors through flash_prefill and
+    ragged_decode (llama3-8b widths, cut to 2 layers and a small vocab)."""
+    import dataclasses
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = getattr(llama.LlamaConfig, cfg_name)()
+    assert cfg.attn_impl == "auto"
+    cfg = dataclasses.replace(cfg, n_layers=2, vocab_size=300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(7), cfg)
+    tokens = torch.randint(0, 259, (2, 24), device=cuda_device,
+                           dtype=torch.int32)
+    seq = torch.tensor([24, 9], dtype=torch.int32, device=cuda_device)
+    cache = llama.KVCache.create(cfg, 2, 64, device=cuda_device)
+    tk.reset_launch_counts()
+    with torch.no_grad():
+        logits, cache = llama.prefill(params, cfg, tokens, cache,
+                                      torch.zeros_like(seq), seq,
+                                      last_only=True)
+        logits, cache = llama.decode_step(params, cfg,
+                                          logits[:, 0].argmax(-1), cache)
+    n = tk.launch_counts()
+    assert n["flash_prefill"] == n["ragged_decode"] == cfg.n_layers
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_engine_kernel_path_matches_plain_path_on_the_card(cuda_device,
+                                                           kv_quant):
     """Greedy streams of the tiny model through the Scheduler: the kernel
-    attention path and the plain one give the same tokens (f32)."""
+    attention path and the plain one give the same tokens (f32), over the
+    model-dtype pool and over the int8 pool."""
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.scheduler import (
@@ -105,8 +231,10 @@ def test_engine_kernel_path_matches_plain_path_on_the_card(cuda_device):
     for attn in ("kernel", "plain"):
         sched = Scheduler(EngineCore(
             cfg, EngineConfig(max_batch_size=4, max_seq_len=128,
-                              prefill_chunk=32, page_size=16, attention=attn),
+                              prefill_chunk=32, page_size=16, attention=attn,
+                              kv_quant=kv_quant),
             params, tok.eos_id, device=cuda_device), tok)
+        tk.reset_launch_counts()
         sched.start()
         try:
             reqs = [sched.submit(Request(prompt_ids=p, max_tokens=24,
@@ -117,4 +245,8 @@ def test_engine_kernel_path_matches_plain_path_on_the_card(cuda_device):
             sched.stop()
         assert all(r.error is None for r in reqs)
         streams[attn] = [r.output_ids for r in reqs]
+        if attn == "kernel":
+            key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                   else "ragged_paged_attention")
+            assert tk.launch_counts()[key] > 0
     assert streams["kernel"] == streams["plain"]

@@ -4,7 +4,8 @@ Same tiny model (vocab 300, ``PRNGKey(5)`` weights as the JAX CLI's
 ``--tiny``), same engine geometry, three greedy prompts (one longer than a
 prefill chunk): the port's ``Scheduler`` streams must be token-identical
 to the JAX ``Scheduler``'s. JAX runs with speculation and the prefix cache
-off, both token-identical options there.
+off, both token-identical options there. The same holds with the int8 KV
+pool (``kv_quant="int8"``) on both sides.
 """
 
 import jax
@@ -40,11 +41,11 @@ def tiny():
     return cfg, jparams, tcfg, llama.params_from_jax(tree, tcfg)
 
 
-def _jax_streams(tiny, prompts, max_tokens):
+def _jax_streams(tiny, prompts, max_tokens, **engine_kw):
     cfg, jparams, _, _ = tiny
     tok = ByteTokenizer()
     core = JaxCore(cfg, JaxEngineConfig(spec_decode="off", prefix_cache="off",
-                                        **GEOMETRY), jparams,
+                                        **GEOMETRY, **engine_kw), jparams,
                    eos_id=tok.eos_id)
     sched = JaxScheduler(core, tok)
     sched.start()
@@ -84,6 +85,18 @@ def test_scheduler_greedy_streams_match_jax(tiny):
     assert got_text == want_text
     assert all(len(ids) == MAX_TOKENS for ids in got_ids)
     assert stats["prefill_chunks"] >= 4       # the long prompt took 2 chunks
+
+
+def test_scheduler_int8_kv_streams_match_jax(tiny):
+    """The int8 KV pool: both engines quantize the same way and attend to
+    the dequantized view on the CPU, so the greedy streams are equal."""
+    want_ids, want_text = _jax_streams(tiny, PROMPTS, MAX_TOKENS,
+                                       kv_quant="int8")
+    got_ids, got_text, stats = _torch_streams(tiny, PROMPTS, MAX_TOKENS,
+                                              kv_quant="int8")
+    assert got_ids == want_ids
+    assert got_text == want_text
+    assert stats["prefill_chunks"] >= 4
 
 
 @pytest.mark.parametrize("engine_kw", [
@@ -161,3 +174,9 @@ def test_engine_refuses_kernel_attention_on_cpu(tiny):
                       device="cpu")
     assert core.model_cfg.attn_impl == "plain"
     assert isinstance(core.init_state().cache.k, torch.Tensor)
+    with pytest.raises(ValueError, match="kv_quant"):
+        EngineCore(tcfg, EngineConfig(kv_quant="fp8", **GEOMETRY), tparams,
+                   eos_id=257, device="cpu")
+    core = EngineCore(tcfg, EngineConfig(kv_quant="int8", **GEOMETRY),
+                      tparams, eos_id=257, device="cpu")
+    assert core.kv_dtype == "int8" and core.init_state().cache.quantized

@@ -113,10 +113,12 @@ def test_unported_config_knobs_are_refused(monkeypatch):
     from generativeaiexamples_tpu_torch.core.config import load_config
     from generativeaiexamples_tpu_torch.models import model_config
 
-    monkeypatch.setenv("APP_ENGINE_KV_QUANT", "int8")
-    with pytest.raises(NotImplementedError, match="B2"):
+    monkeypatch.setenv("APP_ENGINE_QUANT", "int8")
+    with pytest.raises(NotImplementedError, match="A1"):
         load_config()
-    monkeypatch.delenv("APP_ENGINE_KV_QUANT")
+    monkeypatch.delenv("APP_ENGINE_QUANT")
+    monkeypatch.setenv("APP_ENGINE_KV_QUANT", "int8")     # ported
+    assert load_config().engine.kv_quant == "int8"
     monkeypatch.setenv("APP_ENGINE_PREFILL_CHUNK", "256")
     assert load_config().engine.prefill_chunk == 256
     with pytest.raises(NotImplementedError, match="A9"):

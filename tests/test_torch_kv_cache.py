@@ -113,9 +113,9 @@ def test_page_allocator():
     assert alloc.available == 4
     with pytest.raises(ValueError):
         alloc.free([0])
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(ValueError, match="kv_quant"):
         tkv.PagedKVCache.create(tl.LlamaConfig.tiny(), 2, 4, 16,
-                                kv_quant="int8")
+                                kv_quant="int4")
 
 
 def test_prefill_chunk_matches_jax(setup):
