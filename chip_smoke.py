@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                   # the smoke run
     python3 chip_smoke.py --planted-faults  # the kernel checks catch faults
+    python3 chip_smoke.py --ab PARENT CHANGE  # kernel times of two trees
 
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result:
@@ -30,10 +31,16 @@ prints no result:
               and 32 greedy decode steps through flash_prefill and
               ragged_decode.
 
-Each kernel phase holds the kernel to its plain version per (query, head)
-within one bf16 ulp of the largest plain output (``compare``);
-``--planted-faults`` shows that this check fails a dropped tile and a
-wrong int8 scale slot, planted in a temporary copy of the port. Each main
+The ragged phases run decode rows at batch 8 and at batch 1 and Qb = 8
+mixed rows, ``ragged_decode`` batch 8 and batch 1, each with its split
+plan and scratch bytes. Each kernel phase holds the kernel to its plain
+version per (query, head) within one bf16 ulp of the largest plain output
+(``compare``); kernel and library times are device times of CUDA-graph
+replays (``graph_ms``), plain times of CUDA events around eager calls.
+``--planted-faults`` shows that this check fails a dropped tile, a
+dropped split in the combine and a wrong int8 scale slot, planted in a
+temporary copy of the port; ``--ab`` times the decode-side kernels of two
+trees of the port in turns. Each main
 path (8, 9, 10) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -72,7 +79,8 @@ def emit(phase: str, **fields) -> None:
 
 def time_ms(fn, target_ms: float = 300.0) -> float:
     """Mean device time of ``fn()`` over many launches (CUDA events),
-    after warm-up."""
+    after warm-up. Where one call's device time is shorter than the host's
+    time to issue it, this reads the host: use ``graph_ms``."""
     import torch
     for _ in range(2):
         fn()
@@ -89,6 +97,43 @@ def time_ms(fn, target_ms: float = 300.0) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, target_ms: float = 300.0, per_graph: int = 32) -> float:
+    """Mean device time of one ``fn()``: ``per_graph`` calls captured in a
+    CUDA graph (each may take other inputs, as the layer walks do), the
+    graph replayed many times between CUDA events, after warm-up. The host
+    issues one replay per ``per_graph`` calls, so a call shorter than its
+    own Python and launch overhead is still timed on the device; the time
+    includes the gaps between consecutive kernels inside the graph."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    n = int(min(100, max(3, target_ms / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (n * per_graph)
+    del graph
+    return ms
 
 
 class KernelMismatch(AssertionError):
@@ -209,9 +254,9 @@ def phase_flash(dev):
     b_ms, b_by = bound(flops, nbytes)
     res = dict(
         name="flash_prefill", **check, tolerance=TOLERANCE,
-        ms=time_ms(lambda: k.flash_prefill(q, kk, vv, sp, vt)),
+        ms=graph_ms(lambda: k.flash_prefill(q, kk, vv, sp, vt)),
         plain_ms=time_ms(lambda: k.flash_prefill_plain(q, kk, vv, sp, vt)),
-        library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=m4)),
+        library_ms=graph_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=m4)),
         library_call="scaled_dot_product_attention (K/V pre-expanded to H "
                      "heads, boolean causal+length mask)",
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
@@ -300,10 +345,11 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False):
     b_ms, b_by = bound(flops, nbytes)
     return dict(
         **check, tolerance=TOLERANCE,
-        ms=time_ms(run_kernel),
+        **_split_fields(dev, R, KV, T, Qb * H // KV, HD),
+        ms=graph_ms(run_kernel),
         plain_ms=time_ms(lambda: k.ragged_paged_attention_plain(
             q, k_pool, v_pool, tables, kv_lens, pos0, qn, 3, P, k_sc, v_sc)),
-        library_ms=time_ms(lambda: sdpa(q_s, k_d, v_d, attn_mask=mask)),
+        library_ms=graph_ms(lambda: sdpa(q_s, k_d, v_d, attn_mask=mask)),
         library_call="scaled_dot_product_attention over the rows' pages "
                      "pre-gathered dense" + (" and pre-dequantized to bf16"
                                              if quant else "")
@@ -316,31 +362,51 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False):
 
 
 DECODE_LENS = [1, 77, 300, 640, 1000, 1333, 1800, 2047]
+BATCH1_LENS = [2047]
+
+
+def _split_fields(dev, rows, kv_heads, capacity, qg, head_dim):
+    """The decode-side kernels' split plan for one launch and its scratch
+    (from shapes, as the wrapper computes them)."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    if not hasattr(k, "split_plan"):       # a tree from before the split
+        return dict(splits=1, blocks=rows * kv_heads, scratch_bytes=0)
+    plan = k.split_plan(rows, kv_heads, capacity,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    return dict(splits=plan.splits, tiles_per_split=plan.tiles,
+                blocks=rows * kv_heads * plan.splits,
+                scratch_bytes=plan.scratch_bytes(rows * kv_heads, qg,
+                                                 head_dim))
 
 
 def phase_ragged(dev, quant=False):
+    """Decode rows at batch 8 (the serving shape), mixed rows (Qb = 8,
+    q_num 8/3/1/0) and one decode row at batch 1."""
     name = "ragged_paged_attention" + ("_int8" if quant else "")
     decode = _ragged_case(dev, 8, 1, DECODE_LENS, [1] * 8, "decode", quant)
     mixed = _ragged_case(dev, 4, 8, [520, 1000, 64, 700], [8, 3, 1, 0],
                          "mixed", quant)
-    res = dict(name=name, **decode, mixed_rows=mixed)
+    batch1 = _ragged_case(dev, 1, 1, BATCH1_LENS, [1], "batch1", quant)
+    res = dict(name=name, **decode, mixed_rows=mixed, batch1=batch1)
     emit("kernel:" + name, kernel_ms=res["ms"], **res)
     return res
 
 
-def phase_decode(dev):
-    """ragged_decode at a batch-8 decode layer of llama3-8b heads over a
-    dense (L, B, T, KV, HD) cache, T = 2048."""
+def _decode_case(dev, lengths, seed):
+    """ragged_decode at a decode layer of llama3-8b heads over a dense
+    (L, B, T, KV, HD) cache, T = 2048, one slot per length."""
     import torch
     from generativeaiexamples_tpu_torch.ops.attention import mha_decode
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
-    L, B, T, H, KV, HD = 32, 8, 2048, 32, 8, 128
-    g = torch.Generator(device=dev).manual_seed(4)
+    L, B, T, H, KV, HD = 32, len(lengths), 2048, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
     kc = torch.randn((L, B, T, KV, HD), generator=g, device=dev).to(bf)
     vc = torch.randn((L, B, T, KV, HD), generator=g, device=dev).to(bf)
     q = torch.randn((B, 1, H, HD), generator=g, device=dev).to(bf)
-    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     out = k.ragged_decode(q, kc[3], vc[3], lens)
     ref = mha_decode(q, kc[3], vc[3], lens)
     check = compare("ragged_decode", out, ref,
@@ -359,21 +425,29 @@ def phase_decode(dev):
         :, None, None]
     q_s = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    live = sum(DECODE_LENS)
+    live = sum(lengths)
     flops = 4.0 * HD * H * live
     nbytes = 2.0 * (live * KV * HD * 2 + 2 * B * H * HD)
     b_ms, b_by = bound(flops, nbytes)
-    res = dict(
-        name="ragged_decode", **check, tolerance=TOLERANCE,
-        ms=time_ms(run_kernel),
+    return dict(
+        **check, tolerance=TOLERANCE,
+        **_split_fields(dev, B, KV, T, H // KV, HD),
+        ms=graph_ms(run_kernel),
         plain_ms=time_ms(lambda: mha_decode(q, kc[3], vc[3], lens)),
-        library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=mask)),
+        library_ms=graph_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=mask)),
         library_call="scaled_dot_product_attention with a length mask on the "
                      "dense cache, K/V pre-expanded to H heads",
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
         live_tokens=live,
         shape=dict(B=B, T=T, H=H, KV=KV, HD=HD, n_layers=L,
-                   lengths=DECODE_LENS, dtype="bfloat16"))
+                   lengths=lengths, dtype="bfloat16"))
+
+
+def phase_decode(dev):
+    """ragged_decode at batch 8 (the dense API's decode shape) and at
+    batch 1."""
+    res = dict(name="ragged_decode", **_decode_case(dev, DECODE_LENS, 4),
+               batch1=_decode_case(dev, BATCH1_LENS, 5))
     emit("kernel:ragged_decode", kernel_ms=res["ms"], **res)
     return res
 
@@ -765,12 +839,19 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
 
 # Faults the kernel checks must catch, planted in a copy of the port:
 # (name, csrc file, text, replacement, phases run). dropped_tile skips the
-# 31st 64-token tile, which only the 2047-token row reaches (one tile in
-# 32); wrong_scale_slot reads the next token's scales in the int8 pool.
+# 31st 64-token tile of the walk, which only the 2047-token rows reach (one
+# tile in 32); dropped_split has the combine skip the last split of every
+# (row, KV head); wrong_scale_slot reads the next token's scales in the
+# int8 pool.
 PLANTED_FAULTS = (
     ("dropped_tile", "common.cuh",
      "    const int t0 = tile * BT;\n",
      "    const int t0 = tile * BT;\n    if (tile == 30) continue;\n",
+     ("ragged_paged_attention", "ragged_paged_attention_int8",
+      "ragged_decode")),
+    ("dropped_split", "common.cuh",
+     "const int n_split = S;",
+     "const int n_split = S - 1;",
      ("ragged_paged_attention", "ragged_paged_attention_int8",
       "ragged_decode")),
     ("wrong_scale_slot", "ragged_paged.cu",
@@ -797,6 +878,49 @@ for name in sys.argv[1:]:
         out[name] = exc.reading
 print(json.dumps(out))
 """
+
+
+_AB_PHASES = """
+import importlib.util, json, sys, torch
+tree, smoke = sys.argv[1:3]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+cs.phase_build()
+out = {}
+for name, fn in (("ragged_paged_attention", lambda: cs.phase_ragged(dev)),
+                 ("ragged_paged_attention_int8",
+                  lambda: cs.phase_ragged(dev, True)),
+                 ("ragged_decode", lambda: cs.phase_decode(dev))):
+    res = fn()
+    out[name] = {sub: res[sub]["ms"] for sub in ("mixed_rows", "batch1")
+                 if sub in res}
+    out[name]["decode"] = res["ms"]
+print(json.dumps(out))
+"""
+
+
+def ab(trees) -> None:
+    """Kernel times of the decode-side kernels of two trees of the port in
+    one call, in turns (first, second, second, first), each in its own
+    process building its own kernels; the cases and the timing are this
+    script's for both."""
+    order = [trees[0], trees[1], trees[1], trees[0]]
+    runs = []
+    for tree in order:
+        tree = os.path.abspath(tree)
+        run = subprocess.run([sys.executable, "-c", _AB_PHASES, tree,
+                              os.path.abspath(__file__)], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            raise AssertionError(f"A/B run in {tree} failed\n"
+                                 f"{run.stderr[-4000:]}")
+        runs.append({"tree": tree,
+                     "ms": json.loads(run.stdout.strip().splitlines()[-1])})
+    emit("ab", order=order, runs=runs)
 
 
 def planted_faults() -> None:
@@ -852,8 +976,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device()
-    if sys.argv[1:] == ["--planted-faults"]:
-        planted_faults()
+    if sys.argv[1:] == ["--planted-faults"] or sys.argv[1:2] == ["--ab"]:
+        if sys.argv[1] == "--ab":
+            ab(sys.argv[2:4])
+        else:
+            planted_faults()
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -903,10 +1030,12 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on its main path "
                                  f"{path}")
         keys = ("max_abs_err", "max_err_over_limit", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")
-        entry.update({key: res[key] for key in keys})
-        if "mixed_rows" in res:
-            entry["mixed_rows"] = {key: res["mixed_rows"][key] for key in keys}
+                "bound_ms", "bound_by", "library_ms", "splits",
+                "scratch_bytes")
+        entry.update({key: res[key] for key in keys if key in res})
+        for sub in ("mixed_rows", "batch1"):
+            if sub in res:
+                entry[sub] = {key: res[sub][key] for key in keys}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

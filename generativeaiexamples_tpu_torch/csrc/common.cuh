@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace gk {
 
 constexpr float NEG_INF = -1e30f;   // the JAX kernels' finite mask value
@@ -34,39 +36,198 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// The tile walk of the two decode-side kernels (ragged_paged.cu over the
-// paged pool, ragged_decode.cu over the dense cache). One block serves one
-// (row, KV head): the row's QG = Qb*G query vectors sit in shared memory
-// and the block walks its live tokens in BT-token tiles. Per tile it
-// resolves each token's K/V row (and, for an int8 pool, its scale slot)
-// once into shared memory, loads K/V with 16-byte vector loads (8 bf16 or
-// 16 int8 values), scores with one thread per (query, token), runs the
-// online softmax one warp per query row, and accumulates P.V with one
-// thread per (query, dim) pair in registers, sized by a query-count bucket
-// QGB: 8 rows on 128 threads, 64 rows on 256, so the accumulators stay at
-// QGB*HD/threads <= 32 registers. The kernels differ only in where a
-// token's row lives, which `locate` answers.
+// The split-KV walk of the two decode-side kernels (ragged_paged.cu over
+// the paged pool, ragged_decode.cu over the dense cache); each .cu keeps
+// only its address resolution (`locate`) and its launch.
+//
+// What bounds it on the H100: decode does about one multiply-add per K/V
+// byte, far below the ~295 operations per byte at which the tensor cores
+// and not device memory become the limit, so the aim is to keep enough
+// bytes in flight on every SM:
+//
+// * Split the walk (flash-decoding). The grid is (rows, KV heads, S); block
+//   s walks tiles [s*tiles, (s+1)*tiles) of its row, clamped to the row's
+//   length. The wrapper picks S and `tiles` from shapes only (split_plan in
+//   ops/cuda/attention.py: at least 2 x 132 blocks, at most SPLIT_MAX splits,
+//   S = 1 where one tile covers the capacity), so a launch never reads a
+//   length back to the host. With S > 1 each block writes its unnormalised
+//   partial (m, l, acc) to the wrapper's scratch, takes a ticket from a
+//   per-(row, head) counter, and the last block to arrive combines the S
+//   partials and resets the counter to 0: one launch per call. A split that
+//   saw no live key for a query (it lies past the row's length, or past
+//   that query's causal limit) contributes exactly nothing: only partials
+//   whose m is above NEG_INF/2 are rescaled and summed, and a query no
+//   split saw comes out 0, finite.
+// * Async-copy the tiles. K/V tiles of BT tokens are staged in shared
+//   memory in the pool's storage type (bf16, f32, or int8, half the
+//   bytes) by 16-byte cp.async copies into a ring of NS stages (3, or 2
+//   for f32), so the next tiles are in flight while one is scored. Each
+//   token's row offset (and int8 scale slot) is resolved once per tile, one
+//   tile ahead of its copy, into a two-slot table. One barrier per tile.
+// * Tensor cores for bf16 activations (both pools): mma.sync m16n8k16,
+//   bf16 inputs, f32 accumulation. Warp w takes 16-row m-tile w % MT of the
+//   QG = Qb*G query vectors (padded to QGB = 16*MT) and 16-token group
+//   w / MT of every tile, and keeps its own m/l/acc in registers: the
+//   softmax runs in f32 with quad shuffles and needs no barrier; the 4
+//   token groups merge through shared memory at the end of the split. Q
+//   and K are exact in bf16 (int8 K/V elements become bf16 in registers,
+//   exact for -127..127). P enters P.V as two bf16 terms, its nearest bf16
+//   value and the remainder, so it carries 16 significant bits: with P
+//   rounded once to bf16, as flash kernels do, chip_smoke.py's kernel
+//   phases read 0.93 to 1.0 of their one-ulp limit on the H100, and the
+//   second product costs 16 mma.sync per warp and tile on a walk bound by
+//   bytes.
+//   wgmma is not used: decode has QG <= 64 rows and is bound by bytes, not
+//   by the tensor-core rate.
+// * f32 activations keep f32 FMAs for both products (the card's parity
+//   phase runs f32, and TF32 would change its greedy streams) with the
+//   same split and copy pipeline: one thread per (query, token) scores,
+//   one warp per query row runs the softmax, one thread per (query, dim)
+//   accumulates P.V.
+//
+// Registers and spills per instance (`-Xptxas -v`, in the build log beside
+// each library and in chip_smoke.py's build phase): at HD = 128, 125 to 128
+// registers for bf16 activations and 96 to 123 for f32, no spills; spills
+// only at HD <= 64 (76 bytes at most), off the serving shapes.
+//
+// The int8 elements are never dequantized, as in the TPU kernel: scores are
+// (q.k)*scale*k_s, probabilities are multiplied by v_s before P.V, and the
+// denominator sums the unscaled probabilities.
 // ---------------------------------------------------------------------------
 
-constexpr int BT = 64;       // tokens per tile
-constexpr int QG_MAX = 64;   // query vectors (G * Qb) per block, at most
+constexpr int BT = 64;          // tokens per tile
+constexpr int QG_MAX = 64;      // query vectors (G * Qb) per block, at most
+constexpr int SPLIT_MAX = 32;   // splits per (row, KV head), at most
 
 template <typename KT>
 __host__ __device__ constexpr bool is_quant() {
   return sizeof(KT) == 1;
 }
 
-template <int QGB>
-__host__ __device__ constexpr int tile_threads() {
-  return QGB > 8 ? 256 : 128;
+__host__ __device__ constexpr size_t round16(size_t n) {
+  return (n + 15) / 16 * 16;
 }
 
-template <typename KT, int HD>
-size_t tile_smem_bytes(int QG) {
-  return sizeof(float) * (size_t)(QG * (HD + 1) + BT * (HD + 1) + BT * HD +
-                                  QG * BT + 3 * QG +
-                                  (is_quant<KT>() ? 2 * BT : 0)) +
-         sizeof(long long) * BT;
+__host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
+  return a > b ? a : b;
+}
+
+// The static shape of one instance: activation type T, pool type KT, head
+// dim HD, query-row bucket QGB (16, 32 or 64 rows).
+template <typename T, typename KT, int HD, int QGB>
+struct Walk {
+  static constexpr bool QUANT = is_quant<KT>();
+  static constexpr bool MMA = !std::is_same<T, float>::value;
+  static constexpr int MT = QGB / 16;           // 16-row m-tiles
+  static constexpr int RT = 128 * MT;           // threads
+  static constexpr int NTG = MMA ? 4 : 1;       // token groups, merged at end
+  static constexpr int NS = sizeof(KT) == 4 ? 2 : 3;   // ring stages
+  static constexpr int VEC = 16 / sizeof(KT);   // elements per 16-byte copy
+  static constexpr int CPR = HD / VEC;          // 16-byte copies per token row
+  static constexpr int LDK = HD + VEC;          // staged row: 16 bytes of pad
+  static constexpr int LDQ = MMA ? HD + 8 : HD + 1;
+  static constexpr int LDA = HD + 4;            // merge rows (f32)
+  // shared memory: [query block][offset tables][ring | merge | combine]
+  static constexpr size_t Q_BYTES =
+      MMA ? round16(sizeof(__nv_bfloat16) * QGB * LDQ)
+          : round16(sizeof(float) * (QGB * LDQ + QGB * BT + 3 * QGB));
+  static constexpr size_t OFF_BYTES = sizeof(long long) * 4 * BT;
+  static constexpr size_t STAGE_ELEMS = 2 * BT * LDK;  // K then V
+  static constexpr size_t RING_BYTES =
+      round16(sizeof(KT) * NS * STAGE_ELEMS) +
+      (QUANT ? sizeof(float) * NS * 2 * BT : 0);
+  static constexpr size_t MERGE_BYTES =
+      sizeof(float) * NTG * QGB * (LDA + 2);
+  static constexpr size_t COMBINE_BYTES = sizeof(float) * 3 * SPLIT_MAX * QGB;
+  static constexpr size_t SMEM =
+      Q_BYTES + OFF_BYTES +
+      cmax(RING_BYTES, cmax(MERGE_BYTES, COMBINE_BYTES));
+};
+
+// --- PTX helpers ------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; copies nothing and zero-fills when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices, transposed on the way into registers
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* p, uint32_t& r0,
+                                                  uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (lo, hi) as two bf16 pairs whose sum carries 16 significant bits: the
+// nearest bf16 pair and the bf16 pair of the remainder
+__device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& head,
+                                           uint32_t& tail) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  const float2 f = __bfloat1622float2(h);
+  head = *reinterpret_cast<const uint32_t*>(&h);
+  tail = pack_bf16(lo - f.x, hi - f.y);
+}
+
+// two consecutive staged elements of a row as a bf16 pair (k, k+1)
+__device__ __forceinline__ uint32_t pair_bf16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pair_bf16(const int8_t* p) {
+  return pack_bf16((float)p[0], (float)p[1]);
+}
+
+// Fold a partial (m, l, a) into a running one. A partial whose m is at
+// NEG_INF saw no live key and contributes nothing.
+__device__ __forceinline__ void merge_partial(float& M, float& L, float& A,
+                                              float m, float l, float a) {
+  if (m <= 0.5f * NEG_INF) return;
+  const float mn = fmaxf(M, m);
+  const float x = expf(M - mn), y = expf(m - mn);
+  M = mn;
+  L = L * x + l * y;
+  A = A * x + a * y;
 }
 
 // q, out: this block's (row, KV head) slice of a contiguous (rows, Qb, H,
@@ -75,168 +236,428 @@ size_t tile_smem_bytes(int QG) {
 // qi, and only while qi < n_q (slots past n_q come out finite garbage).
 // `locate(pos, sc)` returns the element offset of token pos's K/V row of
 // this head from k and v and, for an int8 pool, sets its scale slot `sc`
-// in k_scales/v_scales. The elements are never dequantized: the scores are
-// row-scaled by the token's K scale, (q.k)*scale*k_s, and the probabilities
-// by its V scale before P.V; the denominator sums the unscaled ones.
+// in k_scales/v_scales. Grid (rows, KV heads, S); with S > 1, `part` holds
+// (m, l, acc) of every (row, head, split) and `tickets` one counter per
+// (row, head), zero between launches.
 template <typename T, typename KT, int HD, int QGB, typename Locate>
 __device__ __forceinline__ void attend_tiles(
     const T* __restrict__ q, T* __restrict__ out, long long base,
     const KT* __restrict__ k, const KT* __restrict__ v,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
     int len, int pos0, int n_q, int Qb, int G, int H, int kvh, float scale,
+    int tiles, float* __restrict__ part, int* __restrict__ tickets,
     const Locate& locate) {
-  constexpr bool QUANT = is_quant<KT>();
-  constexpr int RT = tile_threads<QGB>();
-  constexpr int LD = HD + 1;           // padded rows: conflict-free k_s reads
-  constexpr int NACC = QGB * HD / RT;  // (query, dim) accumulators per thread
-  constexpr int VEC = 16 / sizeof(KT); // elements per 16-byte load
-  constexpr int CPT = HD / VEC;        // 16-byte chunks per token row
-  extern __shared__ float smem[];
+  using W = Walk<T, KT, HD, QGB>;
+  constexpr bool QUANT = W::QUANT;
+  constexpr int RT = W::RT, NS = W::NS, NTG = W::NTG;
+  constexpr int LDK = W::LDK, LDQ = W::LDQ, LDA = W::LDA;
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  __shared__ int last_s;
+  long long* off_s = reinterpret_cast<long long*>(walk_smem + W::Q_BYTES);
+  long long* sc_s = off_s + 2 * BT;
+  unsigned char* uni = walk_smem + W::Q_BYTES + W::OFF_BYTES;
+  KT* ring = reinterpret_cast<KT*>(uni);
+  float* kscale_s = reinterpret_cast<float*>(
+      uni + round16(sizeof(KT) * NS * W::STAGE_ELEMS));
+  // after the walk the union holds the token groups' partials
+  float* acc_w = reinterpret_cast<float*>(uni);
+  float* m_w = acc_w + NTG * QGB * LDA;
+  float* l_w = m_w + NTG * QGB;
+
   const int QG = Qb * G;
-  float* q_s = smem;            // QG x LD
-  float* k_s = q_s + QG * LD;   // BT x LD
-  float* v_s = k_s + BT * LD;   // BT x HD
-  float* s_s = v_s + BT * HD;   // QG x BT scores, then probabilities
-  float* a_s = s_s + QG * BT;   // QG: this tile's rescale factor
-  float* m_s = a_s + QG;        // QG: running max
-  float* l_s = m_s + QG;        // QG: running denominator
-  long long* off_s = reinterpret_cast<long long*>(l_s + QG);  // BT rows
-  float* ks_s = reinterpret_cast<float*>(off_s + BT);  // BT (int8 pool only)
-  float* vs_s = ks_s + BT;                             // BT (int8 pool only)
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int idx = tid; idx < QG * HD; idx += RT) {
-    const int j = idx / HD, d = idx % HD;
-    const int qi = j / G, g = j % G;
-    q_s[j * LD + d] = to_f(q[base + ((long long)qi * H + kvh * G + g) * HD + d]);
-  }
-  for (int j = tid; j < QG; j += RT) {
-    m_s[j] = NEG_INF;
-    l_s[j] = 0.f;
-  }
-  float acc[NACC];
-#pragma unroll
-  for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+  const int S = gridDim.z, split = blockIdx.z;
+  const long long cell = (long long)blockIdx.x * gridDim.y + blockIdx.y;
+  const int tb = split * tiles;
+  const int te = min(tb + tiles, (len + BT - 1) / BT);
+  const int n_t = te - tb;   // <= 0: the split lies past the row's length
 
-  const int n_tiles = max(1, (len + BT - 1) / BT);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int t0 = tile * BT;
-    __syncthreads();   // previous tile consumed; q_s/m_s/l_s ready
+  // --- the copy pipeline ---------------------------------------------------
+  // tile x (x = 0..n_t-1 within the split) is resolved into slot x % 2 of
+  // off_s/sc_s one step before its copies are issued into stage x % NS
+  const auto resolve = [&](int x) {
+    const int t0 = (tb + x) * BT;
+    long long* off = off_s + (x & 1) * BT;
+    long long* scs = sc_s + (x & 1) * BT;
     for (int t = tid; t < BT; t += RT) {
       const int pos = t0 + t;
-      if (pos < len) {
-        long long sc = 0;
-        off_s[t] = locate(pos, sc);
-        if constexpr (QUANT) {
-          ks_s[t] = k_scales[sc];
-          vs_s[t] = v_scales[sc];
-        }
-      } else {
-        off_s[t] = -1;
-        if constexpr (QUANT) {
-          ks_s[t] = 0.f;
-          vs_s[t] = 0.f;
-        }
+      long long sc = 0;
+      off[t] = pos < len ? locate(pos, sc) : -1;
+      scs[t] = sc;
+    }
+  };
+  const auto issue = [&](int x) {
+    const long long* off = off_s + (x & 1) * BT;
+    KT* kd = ring + (x % NS) * W::STAGE_ELEMS;
+    KT* vd = kd + BT * LDK;
+    for (int c = tid; c < BT * W::CPR; c += RT) {
+      const int t = c / W::CPR, e = (c % W::CPR) * W::VEC;
+      const long long o = off[t];
+      const bool ok = o >= 0;
+      cp_async16(kd + t * LDK + e, k + (ok ? o : 0) + e, ok);
+      cp_async16(vd + t * LDK + e, v + (ok ? o : 0) + e, ok);
+    }
+    if constexpr (QUANT) {
+      const long long* scs = sc_s + (x & 1) * BT;
+      float* ks = kscale_s + (x % NS) * 2 * BT;
+      for (int t = tid; t < BT; t += RT) {
+        const bool ok = off[t] >= 0;
+        cp_async4(ks + t, k_scales + (ok ? scs[t] : 0), ok);
+        cp_async4(ks + BT + t, v_scales + (ok ? scs[t] : 0), ok);
       }
     }
-    __syncthreads();
-    for (int c = tid; c < BT * CPT; c += RT) {
-      const int t = c / CPT, d0 = (c % CPT) * VEC;
-      const long long off = off_s[t];
-      float* kd = k_s + t * LD + d0;
-      float* vd = v_s + t * HD + d0;
-      if (off >= 0) {
-        const uint4 kr = *reinterpret_cast<const uint4*>(k + off + d0);
-        const uint4 vr = *reinterpret_cast<const uint4*>(v + off + d0);
-        const KT* ke = reinterpret_cast<const KT*>(&kr);
-        const KT* ve = reinterpret_cast<const KT*>(&vr);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          kd[i] = to_f(ke[i]);
-          vd[i] = to_f(ve[i]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          kd[i] = 0.f;
-          vd[i] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
+  };
 
-    for (int idx = tid; idx < QG * BT; idx += RT) {
-      const int j = idx / BT, t = idx % BT;
-      const float* qr = q_s + j * LD;
-      const float* kr = k_s + t * LD;
-      float dot = 0.f;
+  // per-warp state of the tensor-core walk: m-tile mt, token group tg;
+  // this lane holds rows jr0 = mt*16 + lane/4 and jr0 + 8
+  const int mt = warp % W::MT, tg = warp / W::MT;
+  const int gr = lane >> 2, c0 = (lane & 3) * 2;
+  const int jr0 = mt * 16 + gr;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float acc[W::MMA ? HD / 8 : 1][4];
+  // the f32 walk: one (query, dim) pair per thread and step of RT
+  constexpr int NACC = W::MMA ? 1 : QGB * HD / RT;
+  float facc[NACC];
+  if constexpr (W::MMA) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) facc[e] = 0.f;
+  }
+  // last position each of this lane's rows may see (-1: none)
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = (jr0 + 8 * h) / G;
+    lim[h] = qi < n_q ? min(pos0 + qi, len - 1) : -1;
+  }
+
+  if (n_t > 0) {
+    resolve(0);
+#pragma unroll
+    for (int st = 0; st < NS - 1; ++st) {
+      __syncthreads();
+      if (st < n_t) issue(st);
+      if (st + 1 < n_t) resolve(st + 1);
+      cp_async_commit();
+    }
+  }
+  // --- this block's query vectors, while the first tiles are in flight --
+  if constexpr (W::MMA) {
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(walk_smem);
+    for (int idx = tid; idx < QGB * HD; idx += RT) {
+      const int j = idx / HD, d = idx % HD;
+      const int qi = j / G, g = j % G;
+      q_s[j * LDQ + d] =
+          j < QG ? q[base + ((long long)qi * H + kvh * G + g) * HD + d]
+                 : __float2bfloat16(0.f);
+    }
+  } else {
+    float* q_s = reinterpret_cast<float*>(walk_smem);
+    float* m_s = q_s + QGB * LDQ + QGB * BT;
+    float* l_s = m_s + QGB;
+    for (int idx = tid; idx < QG * HD; idx += RT) {
+      const int j = idx / HD, d = idx % HD;
+      const int qi = j / G, g = j % G;
+      q_s[j * LDQ + d] =
+          to_f(q[base + ((long long)qi * H + kvh * G + g) * HD + d]);
+    }
+    for (int j = tid; j < QG; j += RT) {
+      m_s[j] = NEG_INF;
+      l_s[j] = 0.f;
+    }
+  }
+
+  for (int i = 0; i < n_t; ++i) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();   // tile i landed; tile i-1's stage is free
+    {
+      const int nx = i + NS - 1;
+      if (nx < n_t) issue(nx);
+      if (nx + 1 < n_t) resolve(nx + 1);
+      cp_async_commit();
+    }
+    const int tile = tb + i;
+    const int t0 = tile * BT;
+    const KT* ks = ring + (i % NS) * W::STAGE_ELEMS;
+    const KT* vs = ks + BT * LDK;
+    const float* ksc = kscale_s + (i % NS) * 2 * BT;   // int8 pool only
+    const float* vsc = ksc + BT;
+
+    if constexpr (W::MMA) {
+      // scores of 16 rows x 16 tokens: two n-tiles of 8 tokens
+      const __nv_bfloat16* q_s =
+          reinterpret_cast<const __nv_bfloat16*>(walk_smem);
+      const int tok0 = tg * 16;
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const __nv_bfloat16* qa = q_s + jr0 * LDQ + kk * 16 + c0;
+        const uint32_t a0 = pair_bf16(qa), a1 = pair_bf16(qa + 8 * LDQ);
+        const uint32_t a2 = pair_bf16(qa + 8), a3 = pair_bf16(qa + 8 * LDQ + 8);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const KT* kb = ks + (tok0 + nt * 8 + gr) * LDK + kk * 16 + c0;
+          mma_bf16(sc[nt], a0, a1, a2, a3, pair_bf16(kb), pair_bf16(kb + 8));
+        }
+      }
+      // mask, scale and the online softmax, in registers; a quad of lanes
+      // shares a row
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = tok0 + nt * 8 + c0 + (e & 1);
+          float s = sc[nt][e] * scale;
+          if constexpr (QUANT) s *= ksc[t];   // q.(k*k_s) = (q.k)*k_s
+          s = t0 + t <= lim[e >> 1] ? s : NEG_INF;
+          sc[nt][e] = s;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        alpha[h] = expf(m_r[h] - m_new);
+        m_r[h] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+      uint32_t pa[4], pl[4];   // P = pa + pl, two bf16 terms
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(sc[nt][e] - m_r[e >> 1]);
+          sum[e >> 1] += p[e];
+          // sum_t p_t (v_t*v_s_t) = (p*v_s) @ v: row-scale p, not V
+          if constexpr (QUANT) p[e] *= vsc[tok0 + nt * 8 + c0 + (e & 1)];
+        }
+        split_bf16(p[0], p[1], pa[2 * nt], pl[2 * nt]);           // row gr
+        split_bf16(p[2], p[3], pa[2 * nt + 1], pl[2 * nt + 1]);   // gr + 8
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l_r[h] = alpha[h] * l_r[h] + sum[h];
+      }
+      // P.V: A = P (16 rows x 16 tokens), B = V (16 tokens x 8 dims), as
+      // two products, P's leading bf16 term and its remainder
+#pragma unroll
+      for (int n = 0; n < HD / 8; n += 2) {
+        uint32_t b[4];
+        if constexpr (QUANT) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int8_t* vb = reinterpret_cast<const int8_t*>(vs) +
+                               (tok0 + c0) * LDK + (n + h) * 8 + gr;
+            b[2 * h] = pack_bf16((float)vb[0], (float)vb[LDK]);
+            b[2 * h + 1] = pack_bf16((float)vb[8 * LDK], (float)vb[9 * LDK]);
+          }
+        } else {
+          const KT* vb =
+              vs + (tok0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDK +
+              n * 8 + (lane >> 4) * 8;
+          ldmatrix_x4_trans(vb, b[0], b[1], b[2], b[3]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* c = acc[n + h];
+          c[0] *= alpha[0];
+          c[1] *= alpha[0];
+          c[2] *= alpha[1];
+          c[3] *= alpha[1];
+          mma_bf16(c, pa[0], pa[1], pa[2], pa[3], b[2 * h], b[2 * h + 1]);
+          mma_bf16(c, pl[0], pl[1], pl[2], pl[3], b[2 * h], b[2 * h + 1]);
+        }
+      }
+    } else {
+      float* q_s = reinterpret_cast<float*>(walk_smem);
+      float* s_s = q_s + QGB * LDQ;   // QG x BT scores, then probabilities
+      float* m_s = s_s + QGB * BT;
+      float* l_s = m_s + QGB;
+      float* a_s = l_s + QGB;         // this tile's rescale factor per row
+      for (int idx = tid; idx < QG * BT; idx += RT) {
+        const int j = idx / BT, t = idx % BT;
+        const float* qr = q_s + j * LDQ;
+        const KT* kr = ks + t * LDK;
+        float dot = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const int qi = j / G;
-      const int pos = t0 + t;
-      const bool ok = pos < len && pos <= pos0 + qi && qi < n_q;
-      float s = dot * scale;
-      if constexpr (QUANT) s *= ks_s[t];   // q.(k*k_s) = (q.k)*k_s
-      s_s[j * BT + t] = ok ? s : NEG_INF;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query row, two tokens per lane
-    for (int j = warp; j < QG; j += RT / 32) {
-      float* sr = s_s + j * BT;
-      const float s0 = sr[lane], s1 = sr[lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[j];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      if constexpr (QUANT) {
-        // sum_t p_t (v_t*v_s_t) = (p*v_s) @ v: row-scale p, not V
-        sr[lane] = p0 * vs_s[lane];
-        sr[lane + 32] = p1 * vs_s[lane + 32];
-      } else {
-        sr[lane] = p0;
-        sr[lane + 32] = p1;
+        for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], to_f(kr[d]), dot);
+        const int qi = j / G;
+        const int pos = t0 + t;
+        const bool ok = pos < len && pos <= pos0 + qi && qi < n_q;
+        float s = dot * scale;
+        if constexpr (QUANT) s *= ksc[t];
+        s_s[j * BT + t] = ok ? s : NEG_INF;
       }
-      float sum = p0 + p1;
+      __syncthreads();
+      // online softmax, one warp per query row, two tokens per lane
+      for (int j = warp; j < QG; j += RT / 32) {
+        float* sr = s_s + j * BT;
+        const float s0 = sr[lane], s1 = sr[lane + 32];
+        float mx = fmaxf(s0, s1);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[j] = alpha * l_s[j] + sum;
-        m_s[j] = m_new;
-        a_s[j] = alpha;
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_old = m_s[j];
+        const float m_new = fmaxf(m_old, mx);
+        const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+        if constexpr (QUANT) {
+          sr[lane] = p0 * vsc[lane];
+          sr[lane + 32] = p1 * vsc[lane + 32];
+        } else {
+          sr[lane] = p0;
+          sr[lane + 32] = p1;
+        }
+        float sum = p0 + p1;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);
+          l_s[j] = alpha * l_s[j] + sum;
+          m_s[j] = m_new;
+          a_s[j] = alpha;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) {
+        const int idx = tid + e * RT;
+        if (idx < QG * HD) {
+          const int j = idx / HD, d = idx % HD;
+          const float* pr = s_s + j * BT;
+          float sum = 0.f;
+#pragma unroll 8
+          for (int t = 0; t < BT; ++t)
+            sum = fmaf(pr[t], to_f(vs[t * LDK + d]), sum);
+          facc[e] = facc[e] * a_s[j] + sum;
+        }
       }
     }
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: the union takes the partials
 
+  // --- this block's partial per token group, into shared memory ----------
+  if (n_t <= 0) {
+    for (int j = tid; j < NTG * QGB; j += RT) {
+      m_w[j] = NEG_INF;
+      l_w[j] = 0.f;
+    }
+  } else if constexpr (W::MMA) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = tg * QGB + jr0 + 8 * h;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc_w[row * LDA + n * 8 + c0] = acc[n][2 * h];
+        acc_w[row * LDA + n * 8 + c0 + 1] = acc[n][2 * h + 1];
+      }
+      if ((lane & 3) == 0) {
+        m_w[row] = m_r[h];
+        l_w[row] = l_r[h];
+      }
+    }
+  } else {
+    const float* m_s =
+        reinterpret_cast<const float*>(walk_smem) + QGB * LDQ + QGB * BT;
+    const float* l_s = m_s + QGB;
 #pragma unroll
     for (int e = 0; e < NACC; ++e) {
       const int idx = tid + e * RT;
-      if (idx < QG * HD) {
-        const int j = idx / HD, d = idx % HD;
-        const float* pr = s_s + j * BT;
-        float sum = 0.f;
-#pragma unroll 8
-        for (int t = 0; t < BT; ++t) sum = fmaf(pr[t], v_s[t * HD + d], sum);
-        acc[e] = acc[e] * a_s[j] + sum;
-      }
+      if (idx < QG * HD) acc_w[(idx / HD) * LDA + idx % HD] = facc[e];
+    }
+    for (int j = tid; j < QG; j += RT) {
+      m_w[j] = m_s[j];
+      l_w[j] = l_s[j];
     }
   }
   __syncthreads();
 
+  // --- merge the token groups: the output (S == 1) or this split's partial
+  const long long n_part = (long long)gridDim.x * gridDim.y * S * QG;
+  float* part_m = part;
+  float* part_l = part + n_part;
+  float* part_acc = part + 2 * n_part;
+  const long long pbase = (cell * S + split) * QG;
+  for (int idx = tid; idx < QG * HD; idx += RT) {
+    const int j = idx / HD, d = idx % HD;
+    float M = NEG_INF, L = 0.f, A = 0.f;
 #pragma unroll
-  for (int e = 0; e < NACC; ++e) {
-    const int idx = tid + e * RT;
-    if (idx < QG * HD) {
-      const int j = idx / HD, d = idx % HD;
+    for (int g = 0; g < NTG; ++g)
+      merge_partial(M, L, A, m_w[g * QGB + j], l_w[g * QGB + j],
+                    acc_w[(g * QGB + j) * LDA + d]);
+    if (S == 1) {
       const int qi = j / G, g = j % G;
       out[base + ((long long)qi * H + kvh * G + g) * HD + d] =
-          from_f<T>(acc[e] / fmaxf(l_s[j], 1e-30f));
+          from_f<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(pbase + j) * HD + d] = A;
+      if (d == 0) {
+        part_m[pbase + j] = M;
+        part_l[pbase + j] = L;
+      }
     }
+  }
+  if (S == 1) return;
+
+  // --- the last block of this (row, head) to finish combines the splits --
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last_s = atomicAdd(tickets + cell, 1) == S - 1;
+    if (last_s) tickets[cell] = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const int n_split = S;   // the combine reads every split
+  const long long cbase = cell * S * QG;
+  float* ms_s = reinterpret_cast<float*>(uni);   // split x row: m, l, weight
+  float* ls_s = ms_s + SPLIT_MAX * QGB;
+  float* ws_s = ls_s + SPLIT_MAX * QGB;
+  for (int i = tid; i < n_split * QG; i += RT) {
+    const int sp = i / QG, j = i % QG;
+    ms_s[sp * QGB + j] = __ldcg(part_m + cbase + i);
+    ls_s[sp * QGB + j] = __ldcg(part_l + cbase + i);
+  }
+  __syncthreads();
+  for (int j = tid; j < QG; j += RT) {
+    float M = NEG_INF, L = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const float ms = ms_s[sp * QGB + j];
+      if (ms <= 0.5f * NEG_INF) continue;
+      const float mn = fmaxf(M, ms);
+      L = L * expf(M - mn) + ls_s[sp * QGB + j] * expf(ms - mn);
+      M = mn;
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    for (int sp = 0; sp < n_split; ++sp) {
+      const float ms = ms_s[sp * QGB + j];
+      ws_s[sp * QGB + j] = ms > 0.5f * NEG_INF ? expf(ms - M) * inv : 0.f;
+    }
+  }
+  __syncthreads();
+  // every split wrote its acc (0 where it saw no live key): the loads are
+  // independent of the weights and stay in flight together
+  for (int idx = tid; idx < QG * HD; idx += RT) {
+    const int j = idx / HD, d = idx % HD;
+    const float* pa = part_acc + (cbase + j) * HD + d;
+    float A = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < n_split; ++sp)
+      A = fmaf(ws_s[sp * QGB + j], __ldcg(pa + (long long)sp * QG * HD), A);
+    const int qi = j / G, g = j % G;
+    out[base + ((long long)qi * H + kvh * G + g) * HD + d] = from_f<T>(A);
   }
 }
 

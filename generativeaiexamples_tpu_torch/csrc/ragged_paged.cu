@@ -15,20 +15,22 @@
 // scale pools (L*P, KV, page), one scale per token and KV head. As in the
 // TPU kernel the elements are never dequantized (see attend_tiles).
 //
-// The TPU grid (R, pages) carried acc/m/l in VMEM across pages. Here one
-// block per (row, kv head) walks 64-token tiles of its pages itself (the
-// walk in common.cuh, attend_tiles, shared with ragged_decode.cu), so pages
-// past min(kv_len, maxp*page) are never read (the loop clamps to the
-// table's capacity itself: decode_step_wide passes kv_len unclamped). This
-// file keeps only the page-table address resolution and the launch.
+// The TPU grid (R, pages) carried acc/m/l in VMEM across pages. Here the
+// grid is (R, KV, S): block s walks its split of the row's 64-token tiles
+// (the walk in common.cuh, attend_tiles, shared with ragged_decode.cu,
+// which also says what bounds it, its pipeline and how the splits
+// combine), clamped to min(kv_len, maxp*page), so pages past the length
+// are never read (decode_step_wide passes kv_len unclamped). Any page size
+// works: each token's physical row is resolved once per tile. This file
+// keeps only the page-table address resolution and the launch.
 //
-// Bound on the H100: decode reads every live K/V byte once for a handful of
-// queries, so it is bound by device memory bytes; the int8 pool halves
-// them (plus 8 bytes of scales per token and head). The block resolves
-// each token's physical row (and scale slot) once per tile and loads K/V
-// with 16-byte vector loads. It still launches only R*KV blocks (64 at
-// batch 8 with 8 KV heads, on 132 SMs), so the longest row's page walk
-// sets the time; splitting that walk across blocks is later work.
+// Split plan at the smoke shapes (2048-token capacity, 8 KV heads, 132
+// SMs): batch-8 decode 6 splits of 6 tiles (384 blocks), the Qb = 8 mixed
+// rows (R = 4) 11 of 3 (352), batch 1 32 of 1 (256). Dynamic shared
+// memory per block at HD = 128 (Walk<>::SMEM): 110,848 bytes for a bf16
+// pool in the 16-row bucket (two blocks an SM), 63,232 for an int8 pool,
+// 187,392 for f32 in the 64-row bucket. Registers and spills:
+// chip_smoke.py's build phase.
 #include "common.cuh"
 
 using namespace gk;
@@ -36,24 +38,31 @@ using namespace gk;
 namespace {
 
 template <typename T, typename KT, int HD, int QGB>
-__global__ void __launch_bounds__(QGB > 8 ? 256 : 128) ragged_paged_kernel(
-    const T* __restrict__ q, const KT* __restrict__ k_pages,
-    const KT* __restrict__ v_pages, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, const int* __restrict__ tables,
-    const int* __restrict__ kv_lens, const int* __restrict__ q_pos0,
-    const int* __restrict__ q_num, const int* __restrict__ layer_ptr,
-    T* __restrict__ out, int Qb, int H, int KV, int ps, int maxp, int P,
-    float scale) {
+__global__ void __launch_bounds__(Walk<T, KT, HD, QGB>::RT)
+    ragged_paged_kernel(const T* __restrict__ q, const KT* __restrict__ k_pages,
+                        const KT* __restrict__ v_pages,
+                        const float* __restrict__ k_scales,
+                        const float* __restrict__ v_scales,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ kv_lens,
+                        const int* __restrict__ q_pos0,
+                        const int* __restrict__ q_num,
+                        const int* __restrict__ layer_ptr, T* __restrict__ out,
+                        int Qb, int H, int KV, int ps, int maxp, int P,
+                        float scale, int tiles, float* __restrict__ part,
+                        int* __restrict__ tickets) {
   const int r = blockIdx.x, kvh = blockIdx.y;
   const int G = H / KV;
   const int n_q = q_num[r];
   // q and out are contiguous (R, Qb, H, HD)
   const long long base = (long long)r * Qb * H * HD;
-  if (n_q <= 0) {
-    for (int idx = threadIdx.x; idx < Qb * G * HD; idx += blockDim.x) {
-      const int j = idx / HD, d = idx % HD;
-      const int qi = j / G, g = j % G;
-      out[base + ((long long)qi * H + kvh * G + g) * HD + d] = from_f<T>(0.f);
+  if (n_q <= 0) {   // every split of the row returns here; split 0 writes
+    if (blockIdx.z == 0) {
+      for (int idx = threadIdx.x; idx < Qb * G * HD; idx += blockDim.x) {
+        const int j = idx / HD, d = idx % HD;
+        const int qi = j / G, g = j % G;
+        out[base + ((long long)qi * H + kvh * G + g) * HD + d] = from_f<T>(0.f);
+      }
     }
     return;
   }
@@ -70,7 +79,8 @@ __global__ void __launch_bounds__(QGB > 8 ? 256 : 128) ragged_paged_kernel(
   };
   attend_tiles<T, KT, HD, QGB>(q, out, base, k_pages, v_pages, k_scales,
                                v_scales, min(kv_lens[r], maxp * ps), q_pos0[r],
-                               n_q, Qb, G, H, kvh, scale, locate);
+                               n_q, Qb, G, H, kvh, scale, tiles, part, tickets,
+                               locate);
 }
 
 struct Args {
@@ -78,33 +88,33 @@ struct Args {
   const float *ks, *vs;
   const int *tables, *lens, *pos0, *qnum, *layer;
   void* out;
-  int R, Qb, H, KV, ps, maxp, P;
+  int R, Qb, H, KV, ps, maxp, P, tiles, splits;
+  float* part;
+  int* tickets;
   cudaStream_t stream;
 };
 
 template <typename T, typename KT, int HD, int QGB>
 cudaError_t launch_qgb(const Args& a) {
-  const int QG = a.Qb * (a.H / a.KV);
-  const size_t smem = tile_smem_bytes<KT, HD>(QG);
+  using W = Walk<T, KT, HD, QGB>;
   cudaError_t err = cudaFuncSetAttribute(
       ragged_paged_kernel<T, KT, HD, QGB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tile_smem_bytes<KT, HD>(QGB));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.R, a.KV);
-  ragged_paged_kernel<T, KT, HD, QGB>
-      <<<grid, tile_threads<QGB>(), smem, a.stream>>>(
+  dim3 grid(a.R, a.KV, a.splits);
+  ragged_paged_kernel<T, KT, HD, QGB><<<grid, W::RT, W::SMEM, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const KT*>(a.kp),
           static_cast<const KT*>(a.vp), a.ks, a.vs, a.tables, a.lens, a.pos0,
           a.qnum, a.layer, static_cast<T*>(a.out), a.Qb, a.H, a.KV, a.ps,
-          a.maxp, a.P, 1.f / sqrtf((float)HD));
+          a.maxp, a.P, 1.f / sqrtf((float)HD), a.tiles, a.part, a.tickets);
   return cudaGetLastError();
 }
 
 template <typename T, typename KT, int HD>
 cudaError_t launch(const Args& a) {
   const int QG = a.Qb * (a.H / a.KV);
-  if (QG <= 8) return launch_qgb<T, KT, HD, 8>(a);
+  if (QG <= 16) return launch_qgb<T, KT, HD, 16>(a);
+  if (QG <= 32) return launch_qgb<T, KT, HD, 32>(a);
   if (QG <= QG_MAX) return launch_qgb<T, KT, HD, QG_MAX>(a);
   return cudaErrorInvalidValue;
 }
@@ -126,14 +136,20 @@ cudaError_t dispatch_hd(int hd, const Args& a) {
 // contiguous (L*P, ps, KV*HD), 16-byte aligned, of `dtype` when k_scales
 // and v_scales are null, int8 when they are given (contiguous f32 (L*P,
 // KV, ps)); tables: (R, maxp) int32; kv_lens, q_pos0, q_num: (R,) int32;
-// layer: (1,) int32 on the device. Returns cudaGetLastError().
+// layer: (1,) int32 on the device. The grid is (R, KV, splits), each split
+// `tiles` 64-token tiles; with splits > 1, part: f32 scratch of R*KV*
+// splits*Qb*(H/KV)*(HD+2) values and tickets: R*KV int32 counters, zero
+// (the kernel leaves them zero). Returns cudaGetLastError().
 extern "C" int gk_ragged_paged_attention(
     int dtype, int head_dim, const void* q, const void* k_pages,
     const void* v_pages, const void* k_scales, const void* v_scales,
     const void* tables, const void* kv_lens, const void* q_pos0,
     const void* q_num, const void* layer, void* out, int R, int Qb, int H,
-    int KV, int ps, int maxp, int P, void* stream) {
+    int KV, int ps, int maxp, int P, int tiles, int splits, void* part,
+    void* tickets, void* stream) {
   if (R <= 0 || Qb <= 0 || KV <= 0 || H % KV || ps <= 0 || maxp <= 0 ||
+      tiles <= 0 || splits <= 0 || splits > SPLIT_MAX ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)) ||
       (k_scales == nullptr) != (v_scales == nullptr) ||
       (reinterpret_cast<uintptr_t>(k_pages) | reinterpret_cast<uintptr_t>(
                                                   v_pages)) % 16) {
@@ -149,7 +165,8 @@ extern "C" int gk_ragged_paged_attention(
                static_cast<const int*>(q_pos0),
                static_cast<const int*>(q_num),
                static_cast<const int*>(layer),
-               out, R, Qb, H, KV, ps, maxp, P,
+               out, R, Qb, H, KV, ps, maxp, P, tiles, splits,
+               static_cast<float*>(part), static_cast<int*>(tickets),
                static_cast<cudaStream_t>(stream)};
   const bool quant = k_scales != nullptr;
   if (dtype == DT_BF16) {

@@ -20,12 +20,19 @@ apart), and ``paged_decode`` stays a wrapper over it; ``ragged_decode``
 replaces ``ragged_decode``/``_decode_kernel``, the decode attention of the
 dense-cache model API. What bounds each kernel on the H100 and what its
 design does about that is written at the top of its ``.cu`` file.
+
+The two decode-side kernels split each row's KV walk across blocks
+(flash-decoding): :func:`split_plan` picks the number of splits from shapes
+only, the wrapper allocates the partials' scratch with ``torch.empty``, and
+one launch both walks and combines (the last block of each (row, KV head)
+to finish combines, counted by a per-device ticket buffer that the kernel
+leaves at zero; launches that share it run in one stream's order).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -34,6 +41,8 @@ from generativeaiexamples_tpu_torch.ops.attention import (
 
 HEAD_DIMS = (16, 32, 64, 128)
 QG_MAX = 64   # query vectors (G * Qb) one ragged block holds
+SPLIT_TILE = 64   # tokens per tile of the decode-side walk (csrc BT)
+SPLIT_MAX = 32    # splits of one (row, KV head), at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
@@ -78,6 +87,65 @@ def ragged_paged_supported(page_size: int, head_dim: int,
     construction (one kernel); ``q_block`` adds a power-of-two row size."""
     return (paged_decode_supported(page_size, head_dim)
             and q_block >= 1 and q_block & (q_block - 1) == 0)
+
+
+# ---------------------------------------------------------------------------
+# Split plan of the decode-side kernels
+# ---------------------------------------------------------------------------
+
+class SplitPlan(NamedTuple):
+    """``splits`` blocks per (row, KV head), each walking ``tiles``
+    consecutive ``SPLIT_TILE``-token tiles of the row."""
+    splits: int
+    tiles: int
+
+    def scratch_bytes(self, cells: int, qg: int, head_dim: int) -> int:
+        """Bytes of f32 partials (m, l, acc) for ``cells`` (row, KV head)
+        pairs of ``qg`` query vectors; 0 when the walk is not split."""
+        if self.splits == 1:
+            return 0
+        return 4 * cells * self.splits * qg * (head_dim + 2)
+
+
+def split_plan(rows: int, kv_heads: int, capacity: int,
+               n_sm: int) -> SplitPlan:
+    """Splits of the KV walk, from shapes only (never from lengths, so a
+    launch reads nothing back to the host): at least two blocks per SM
+    where the capacity has that many tiles, at most ``SPLIT_MAX`` per (row,
+    KV head), one where a single tile covers the capacity. Every split
+    holds at least one tile of ``[0, capacity)``."""
+    n_tiles = max(1, -(-capacity // SPLIT_TILE))
+    want = max(1, min(n_tiles, -(-2 * n_sm // max(1, rows * kv_heads)),
+                      SPLIT_MAX))
+    tiles = n_tiles // want
+    if -(-n_tiles // tiles) > SPLIT_MAX:
+        tiles = -(-n_tiles // SPLIT_MAX)
+    return SplitPlan(-(-n_tiles // tiles), tiles)
+
+
+_SM_COUNT: Dict[int, int] = {}
+_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+def _split_args(device: torch.device, rows: int, kv_heads: int,
+                capacity: int, qg: int, head_dim: int):
+    """(plan, scratch, tickets) of one launch on a CUDA ``device``; scratch
+    and tickets are None when the walk is not split."""
+    idx = device.index
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    plan = split_plan(rows, kv_heads, capacity, _SM_COUNT[idx])
+    if plan.splits == 1:
+        return plan, None, None
+    cells = rows * kv_heads
+    part = torch.empty(plan.scratch_bytes(cells, qg, head_dim) // 4,
+                       dtype=torch.float32, device=device)
+    tickets = _TICKETS.get(idx)
+    if tickets is None or tickets.numel() < cells:
+        tickets = torch.zeros(cells, dtype=torch.int32, device=device)
+        _TICKETS[idx] = tickets
+    return plan, part, tickets
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +224,8 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, row_tables, kv_lens,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -176,9 +244,9 @@ def _as_i32(x: torch.Tensor, device) -> torch.Tensor:
 _FLASH_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                + [ctypes.c_void_p] * 2)
 _RAGGED_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
-                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-_DECODE_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p] * 2)
+                + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
+_DECODE_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p] * 4)
 
 
 def _lib(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
@@ -305,13 +373,14 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pos0 = _as_i32(q_pos0, dev)
     qnum = _as_i32(q_num, dev)
     out = torch.empty_like(q)
-    null = ctypes.c_void_p(None)
+    plan, part, tickets = _split_args(dev, R, KV, maxp * ps, Qb * (H // KV),
+                                      HD)
     fn = _lib("ragged_paged", "gk_ragged_paged_attention", _RAGGED_ARGS)
     rc = fn(_DTYPES[q.dtype], HD, _ptr(q), _ptr(k_pages), _ptr(v_pages),
-            _ptr(k_scales) if quant else null,
-            _ptr(v_scales) if quant else null,
-            _ptr(tables), _ptr(lens), _ptr(pos0), _ptr(qnum), _ptr(lyr),
-            _ptr(out), R, Qb, H, KV, ps, maxp, P, _stream(dev))
+            _ptr(k_scales), _ptr(v_scales), _ptr(tables), _ptr(lens),
+            _ptr(pos0), _ptr(qnum), _ptr(lyr), _ptr(out), R, Qb, H, KV, ps,
+            maxp, P, plan.tiles, plan.splits, _ptr(part), _ptr(tickets),
+            _stream(dev))
     name = "ragged_paged_attention_int8" if quant else "ragged_paged_attention"
     _check(rc, name)
     _LAUNCHES[name] += 1
@@ -380,11 +449,13 @@ def ragged_decode(q: torch.Tensor, k_cache: torch.Tensor,
     dev = q.device
     lens = _as_i32(lengths, dev)
     out = torch.empty((B, 1, H, HD), dtype=q.dtype, device=dev)
+    plan, part, tickets = _split_args(dev, B, KV, T, H // KV, HD)
     strides = (ctypes.c_longlong * 3)(*k_cache.stride()[:3])
     fn = _lib("ragged_decode", "gk_ragged_decode", _DECODE_ARGS)
     rc = fn(_DTYPES[q.dtype], HD, _ptr(q), _ptr(k_cache), _ptr(v_cache),
-            _ptr(lens), _ptr(out), B, T, H, KV,
-            ctypes.cast(strides, ctypes.c_void_p), _stream(dev))
+            _ptr(lens), _ptr(out), B, T, H, KV, plan.tiles, plan.splits,
+            _ptr(part), _ptr(tickets), ctypes.cast(strides, ctypes.c_void_p),
+            _stream(dev))
     _check(rc, "ragged_decode")
     _LAUNCHES["ragged_decode"] += 1
     return out

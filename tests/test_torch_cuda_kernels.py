@@ -8,7 +8,9 @@ so it also runs where JAX is not installed:
 f32 within 1e-4 (same f32 arithmetic, another summation order); bf16
 within 3e-2 (one bf16 rounding of outputs below 4 in magnitude). The int8
 pool's kernel and plain version do the same f32 math on the same int8
-values and scales, so the same tolerances hold.
+values and scales, so the same tolerances hold. The split-walk tests hold
+bf16 outputs per (row, query, head) to one bf16 ulp of the largest plain
+output, the bar ``chip_smoke.py`` uses, since int8-pool outputs reach 6.
 """
 
 import numpy as np
@@ -250,3 +252,110 @@ def test_engine_kernel_path_matches_plain_path_on_the_card(cuda_device,
                    else "ragged_paged_attention")
             assert tk.launch_counts()[key] > 0
     assert streams["kernel"] == streams["plain"]
+
+
+def _within_one_ulp(got, want):
+    """Per (row, query, head): within one bf16 ulp of its largest plain
+    output (the bar chip_smoke.py holds bf16 instances to), and finite."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(dim=-1)
+    limit = 2.0 ** -7 * w.abs().amax(dim=-1) + 1e-6
+    return bool(torch.isfinite(g).all()) and bool((err <= limit).all())
+
+
+def _split_pool(rng, dev, pool, N, ps, KV, HD):
+    if pool == "int8":
+        pages = [_t(rng.integers(-127, 128, size=(N, ps, KV * HD))
+                    .astype(np.int8)).to(dev) for _ in range(2)]
+        scales = [_t((rng.random((N, KV, ps)) * 0.05 + 1e-3)
+                     .astype(np.float32)).to(dev) for _ in range(2)]
+        return pages, scales
+    dt = torch.float32 if pool == "f32" else torch.bfloat16
+    return [_t(_rand(rng, (N, ps, KV * HD))).to(dev, dt)
+            for _ in range(2)], [None, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
+def test_split_walk_ragged_paged_matches_plain_on_the_card(cuda_device, pool,
+                                                           ps):
+    """The split walk of ragged_paged_attention at llama3-8b heads (32 q,
+    8 KV, HD 128): decode rows with kv_len 1, exactly at the first split's
+    end, at capacity and past it unclamped; Qb = 8 mixed rows with a
+    q_num == 0 row and a query whose causal limit lies before the second
+    split; one row alone (R = 1). Two calls in a row are bit-equal (the
+    ticket counters are back at zero after each launch)."""
+    rng = np.random.default_rng(40 + ps)
+    H, KV, HD, cap = 32, 8, 128, 1024
+    maxp = cap // ps
+    P = 4 * maxp + 1
+    (kp, vp), (ks, vs) = _split_pool(rng, cuda_device, pool, 2 * P, ps, KV,
+                                     HD)
+    qdt = torch.float32 if pool == "f32" else torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    edge = tk.split_plan(4, KV, cap, n_sm).tiles * tk.SPLIT_TILE
+    cases = (
+        (1, [1, edge, cap, cap + 37], [1, 1, 1, 1]),
+        (8, [edge + 4, cap, 40, 9], [8, 3, 0, 1]),
+        (1, [cap - 1], [1]),
+    )
+    for Qb, lens, qnum in cases:
+        R = len(lens)
+        plan = tk.split_plan(R, KV, cap, n_sm)
+        assert plan.splits > 1
+        q = _t(_rand(rng, (R, Qb, H, HD))).to(cuda_device, qdt)
+        tables = torch.tensor(rng.permutation(np.arange(1, P))[:R * maxp]
+                              .reshape(R, maxp), dtype=torch.int32,
+                              device=cuda_device)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        qn = torch.tensor(qnum, dtype=torch.int32, device=cuda_device)
+        pos0 = kv_lens - qn.clamp_min(1)
+        tk.reset_launch_counts()
+        got = tk.ragged_paged_attention(q, kp, vp, tables, kv_lens, pos0, qn,
+                                        layer=1, pages_per_layer=P,
+                                        k_scales=ks, v_scales=vs)
+        again = tk.ragged_paged_attention(q, kp, vp, tables, kv_lens, pos0,
+                                          qn, layer=1, pages_per_layer=P,
+                                          k_scales=ks, v_scales=vs)
+        key = ("ragged_paged_attention_int8" if pool == "int8"
+               else "ragged_paged_attention")
+        assert tk.launch_counts()[key] == 2
+        assert torch.equal(got, again)
+        want = tk.ragged_paged_attention_plain(
+            q, kp, vp, tables, kv_lens.clamp_max(cap), pos0, qn, 1, P, ks, vs)
+        assert torch.isfinite(got).all()
+        for r, n in enumerate(qnum):
+            if n == 0:
+                assert (got[r] == 0).all()
+            elif qdt == torch.float32:
+                assert (got[r, :n] - want[r, :n]).abs().max().item() < 1e-4
+            else:
+                assert _within_one_ulp(got[r, :n], want[r, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_split_walk_ragged_decode_matches_plain_on_the_card(cuda_device, dt):
+    """ragged_decode's split walk over one layer of a dense cache: lengths
+    of 1, at the first split's end, at T and past T; and one slot alone.
+    Two calls in a row are bit-equal."""
+    rng = np.random.default_rng(44)
+    L, T, H, KV, HD = 2, 1024, 32, 8, 128
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for lengths in ([1, tk.split_plan(4, KV, T, n_sm).tiles * tk.SPLIT_TILE,
+                     T, T + 1], [T - 1]):
+        B = len(lengths)
+        assert tk.split_plan(B, KV, T, n_sm).splits > 1
+        k, v = (_t(_rand(rng, (L, B, T, KV, HD))).to(cuda_device, dt)
+                for _ in range(2))
+        q = _t(_rand(rng, (B, 1, H, HD))).to(cuda_device, dt)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+        got = tk.ragged_decode(q, k[1], v[1], lens)
+        assert torch.equal(got, tk.ragged_decode(q, k[1], v[1], lens))
+        want = mha_decode(q, k[1], v[1], lens)
+        if dt == torch.float32:
+            assert (got - want).abs().max().item() < 1e-4
+        else:
+            assert _within_one_ulp(got, want)
