@@ -23,24 +23,27 @@ prints no result:
               weights, behind the port's HTTP server: 6 concurrent
               requests, and proof that prefill and decode ran through the
               kernels (launch counts over the phase); then a decode
-              profile;
+              profile and a grouped-prefill profile;
   9. serve_int8  the same server and requests over an int8 KV pool,
               proof that decode ran through the int8 kernel instance;
-              then the same decode profile over that pool;
+              then the same two profiles over that pool;
  10. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
               ragged_decode.
 
-The ragged phases run decode rows at batch 8 and at batch 1 and Qb = 8
-mixed rows, ``ragged_decode`` batch 8 and batch 1, each with its split
-plan and scratch bytes. Each kernel phase holds the kernel to its plain
-version per (query, head) within one bf16 ulp of the largest plain output
-(``compare``); kernel and library times are device times of CUDA-graph
-replays (``graph_ms``), plain times of CUDA events around eager calls.
-``--planted-faults`` shows that this check fails a dropped tile, a
-dropped split in the combine and a wrong int8 scale slot, planted in a
-temporary copy of the port; ``--ab`` times the decode-side kernels of two
-trees of the port in turns. Each main
+The flash phase runs 4 ragged chunks and the serve path's group of 8
+chunks (``prefill_group8``); the ragged phases run decode rows at batch 8
+and at batch 1 and Qb = 8 mixed rows, ``ragged_decode`` batch 8 and batch
+1, each with its split plan and scratch bytes. Each kernel phase holds the
+kernel to its plain version per (query, head) within one bf16 ulp of the
+largest plain output (``compare``); kernel and library times are device
+times of CUDA-graph replays (``graph_ms``), plain times of CUDA events
+around eager calls. ``--planted-faults`` shows that this check fails a
+dropped KV tile and a causal mask off by one in ``flash_prefill``, a
+dropped tile, a dropped split in the combine and a wrong int8 scale slot
+in the decode-side walk, each planted in a temporary copy of the port;
+``--ab`` times every kernel of two trees of the port in turns, with the
+grouped-prefill profile. Each main
 path (8, 9, 10) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -219,17 +222,17 @@ def phase_build():
          ptxas=report)
 
 
-def phase_flash(dev):
+def _flash_case(dev, starts, lens, seed):
+    """flash_prefill at llama3-8b heads over G = len(starts) chunks of 512
+    against a T = 2048 dense view, bf16."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
-    G, C, T, H, KV, HD = 4, 512, 2048, 32, 8, 128
-    g = torch.Generator(device=dev).manual_seed(1)
+    G, C, T, H, KV, HD = len(starts), 512, 2048, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
     q = torch.randn((G, C, H, HD), generator=g, device=dev).to(bf)
     kk = torch.randn((G, T, KV, HD), generator=g, device=dev).to(bf)
     vv = torch.randn((G, T, KV, HD), generator=g, device=dev).to(bf)
-    starts = [0, 512, 0, 0]            # row 1 is a prompt's second chunk
-    lens = [512, 300, 450, 97]         # ragged valid lengths
     sp = torch.tensor(starts, dtype=torch.int32, device=dev)
     vt = torch.tensor([s + n for s, n in zip(starts, lens)],
                       dtype=torch.int32, device=dev)
@@ -252,8 +255,8 @@ def phase_flash(dev):
     nbytes = 2.0 * (2 * sum(lens) * H * HD + 2 * sum(
         s + n for s, n in zip(starts, lens)) * KV * HD)
     b_ms, b_by = bound(flops, nbytes)
-    res = dict(
-        name="flash_prefill", **check, tolerance=TOLERANCE,
+    return dict(
+        **check, tolerance=TOLERANCE,
         ms=graph_ms(lambda: k.flash_prefill(q, kk, vv, sp, vt)),
         plain_ms=time_ms(lambda: k.flash_prefill_plain(q, kk, vv, sp, vt)),
         library_ms=graph_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=m4)),
@@ -262,6 +265,17 @@ def phase_flash(dev):
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
         shape=dict(G=G, C=C, T=T, H=H, KV=KV, HD=HD, start_pos=starts,
                    chunk_len=lens, dtype="bfloat16"))
+
+
+def phase_flash(dev):
+    """Four ragged chunks (row 1 a prompt's second chunk), and the serve
+    path's full group of 8 chunks (``prefill_group8``: a prompt's second to
+    fourth chunks beside four first chunks)."""
+    res = dict(name="flash_prefill",
+               **_flash_case(dev, [0, 512, 0, 0], [512, 300, 450, 97], 1),
+               prefill_group8=_flash_case(
+                   dev, [0, 512, 1024, 1536, 0, 0, 0, 0],
+                   [512, 512, 512, 512, 144, 300, 97, 450], 6))
     emit("kernel:flash_prefill", kernel_ms=res["ms"], **res)
     return res
 
@@ -638,22 +652,29 @@ def draw_8b(dev):
     return cfg, params, time.perf_counter() - t0
 
 
+def serving_core(dev, cfg, params, kv_quant="none"):
+    """The serve phases' engine core: 8 slots of 2,048 tokens in pages of
+    128, chunks of 512, over a model-dtype or an int8 pool."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
+                        prefill_chunk=512, kv_quant=kv_quant)
+    return EngineCore(cfg, ecfg, params, ByteTokenizer().eos_id, device=dev)
+
+
 def phase_serve(dev, cfg, params, kv_quant="none"):
     """Six concurrent HTTP requests against full llama3-8b; the launch
     counts are set to 0 just before the requests and read just after.
     Returns (launches, the engine core)."""
     import torch
-    from generativeaiexamples_tpu_torch.core.config import EngineConfig
-    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
 
     tok = ByteTokenizer()
-    ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
-                        prefill_chunk=512, kv_quant=kv_quant)
-    core = EngineCore(cfg, ecfg, params, tok.eos_id, device=dev)
+    core = serving_core(dev, cfg, params, kv_quant)
     sched = Scheduler(core, tok)
     submitted = []
     submit = sched.submit
@@ -811,30 +832,144 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
         state, out = core.decode(state, dev_table, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    classes = {"ragged_paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0)) or 0.0
-        if us <= 0:
-            continue
-        name = ev.key.lower()
-        if "ragged_paged" in name:
-            classes["ragged_paged_attention"] += us
-        elif any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass",
-                                     "sm90_xmma", "cublas")):
-            classes["matmul"] += us
-        else:
-            classes["other"] += us
-    device_ms = sum(classes.values()) / 1e3
-    if device_ms <= 0:
-        raise AssertionError("profiler recorded no device time")
+    classes, summed, top = _device_ms_by_class(
+        prof, (("ragged_paged_attention", ("ragged_paged",)),
+               ("matmul", MATMUL_KERNELS)))
+    device_ms = sum(classes.values())
     return {"batch": core.batch, "context": ctx, "steps": steps,
             "prefill_chunks": len(items), "prefill_s": prefill_s,
             "decode_ms_per_step": wall * 1e3 / steps,
             "device_ms_per_step": device_ms / steps,
             "device_busy_share": device_ms / (wall * 1e3),
             "device_ms_per_step_by_class": {
-                k: v / 1e3 / steps for k, v in classes.items()}}
+                k: v / steps for k, v in classes.items()},
+            "top_other_ms_per_step": [[n, ms / steps] for n, ms in top],
+            "key_averages_self_device_ms_per_step": summed / steps}
+
+
+def profile_prefill(core, chunk: int = 512, rows: int = 8):
+    """Where a grouped prefill dispatch spends its time: ``rows`` prompts of
+    two chunks each; the first chunks go in one dispatch (warm-up), the
+    second chunks (queries at 512..1023 over 1,024 keys) in one profiled
+    dispatch. Host wall ms and device ms by class (torch.profiler): matmul,
+    flash_prefill, the page scatter and dense K/V gather of every layer
+    (with the int8 quantize and dequantize; ``kv_pages``), other."""
+    import numpy as np
+    import torch
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    from generativeaiexamples_tpu_torch.engine import kv_cache
+    from generativeaiexamples_tpu_torch.engine.engine import PrefillItem
+
+    if rows > core.prefill_group_max or chunk > core.chunk:
+        raise AssertionError("profile_prefill: group or chunk past the "
+                             "engine's limits")
+    state = core.init_state()
+    alloc = core.new_allocator()
+    table = np.zeros((core.batch, core.max_pages_per_slot), np.int32)
+    prompts = []
+    for s in range(rows):
+        pages = alloc.alloc(core.pages_for(2 * chunk + 1))
+        table[s, :len(pages)] = pages
+        prompts.append([(s * 37 + i) % 256 for i in range(2 * chunk)])
+
+    def group(half):
+        return [PrefillItem(chunk_ids=p[half * chunk:(half + 1) * chunk],
+                            page_row=table[s], slot=s,
+                            start_pos=half * chunk, is_last=half == 1,
+                            generated=1, max_gen=2, temperature=0.0)
+                for s, p in enumerate(prompts)]
+
+    state, _ = core.prefill_group(state, group(0))
+    torch.cuda.synchronize()
+    passes = {name: getattr(kv_cache, name)
+              for name in ("_scatter_pages", "_gather_dense")}
+
+    def in_range(fn):
+        def wrapped(*args, **kw):
+            with record_function("kv_pages"):
+                return fn(*args, **kw)
+        return wrapped
+
+    try:
+        for name, fn in passes.items():
+            setattr(kv_cache, name, in_range(fn))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = core.prefill_group(state, group(1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, fn in passes.items():
+            setattr(kv_cache, name, fn)
+    classes, summed, top = _device_ms_by_class(
+        prof, (("flash_prefill", ("flash_prefill",)),
+               ("matmul", MATMUL_KERNELS)), ranges=("kv_pages",))
+    device_ms = sum(classes.values())
+    return {"rows": rows, "chunk": chunk, "start_pos": chunk,
+            "kv_dtype": str(state.cache.k.dtype).replace("torch.", ""),
+            "host_wall_ms": wall * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "device_ms_by_class": classes,
+            "flash_prefill_share_of_device": classes["flash_prefill"]
+            / device_ms,
+            "top_other_ms": top,
+            "key_averages_self_device_ms": summed}
+
+
+MATMUL_KERNELS = ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "cublas")
+
+
+def _device_ms_by_class(prof, classes, ranges=()):
+    """Device ms of every kernel the profiler recorded, each counted once
+    (device events only: an aten op's own device time repeats its
+    kernels'), by class: the first of ``ranges`` (``record_function``
+    names) above the op that launched the kernel, else the first
+    ``(class, name parts)`` of ``classes`` with a part in the kernel's name,
+    else "other". Also returns the sum of every ``key_averages`` entry's
+    self device time, which counts a kernel and its launching op both, and
+    the five kernels that take most of "other" with their ms."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    events = prof.events()
+    ranged = Counter()             # (range, kernel name) -> us
+    for ev in events:
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        node = ev
+        while node is not None and node.name not in ranges:
+            node = node.cpu_parent
+        if node is not None:
+            for kern in ev.kernels:
+                ranged[(node.name, kern.name)] += kern.duration
+    by_name = Counter()
+    for ev in events:
+        if (ev.device_type == DeviceType.CUDA and ev.name not in ranges
+                and not getattr(ev, "is_user_annotation", False)):
+            by_name[ev.name] += ev.time_range.elapsed_us()
+    out = {name: 0.0 for name in (*ranges, *(c for c, _ in classes),
+                                  "other")}
+    other = Counter()
+    for (rng, kname), us in ranged.items():
+        out[rng] += us
+        by_name[kname] -= us
+    for kname, us in by_name.items():
+        if us <= 0:              # every launch of it ran under a range
+            continue
+        low = kname.lower()
+        cls = next((c for c, parts in classes
+                    if any(p in low for p in parts)), "other")
+        out[cls] += us
+        if cls == "other":
+            other[kname[:100]] += us
+    if sum(out.values()) <= 0:
+        raise AssertionError("profiler recorded no device time")
+    summed = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)) or 0.0
+                 for ev in prof.key_averages())
+    top = [[name, us / 1e3] for name, us in other.most_common(5)]
+    return {k: v / 1e3 for k, v in out.items()}, summed / 1e3, top
 
 
 # Faults the kernel checks must catch, planted in a copy of the port:
@@ -842,8 +977,17 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
 # 31st 64-token tile of the walk, which only the 2047-token rows reach (one
 # tile in 32); dropped_split has the combine skip the last split of every
 # (row, KV head); wrong_scale_slot reads the next token's scales in the
-# int8 pool.
+# int8 pool; flash_dropped_tile skips the second KV tile of every
+# flash_prefill walk that reaches it; flash_causal_off_by_one hides each
+# query's own key from it.
 PLANTED_FAULTS = (
+    ("flash_dropped_tile", "flash_prefill.cu",
+     "    const __nv_bfloat16* vs = ks + BK * LD;\n",
+     "    const __nv_bfloat16* vs = ks + BK * LD;\n"
+     "    if (kt == 1) continue;\n",
+     ("flash_prefill",)),
+    ("flash_causal_off_by_one", "flash_prefill.cu",
+     "key <= pos", "key < pos", ("flash_prefill",)),
     ("dropped_tile", "common.cuh",
      "    const int t0 = tile * BT;\n",
      "    const int t0 = tile * BT;\n    if (tile == 30) continue;\n",
@@ -866,7 +1010,8 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 cs.phase_build()
-phases = {"ragged_paged_attention": lambda: cs.phase_ragged(dev),
+phases = {"flash_prefill": lambda: cs.phase_flash(dev),
+          "ragged_paged_attention": lambda: cs.phase_ragged(dev),
           "ragged_paged_attention_int8": lambda: cs.phase_ragged(dev, True),
           "ragged_decode": lambda: cs.phase_decode(dev)}
 out = {}
@@ -891,23 +1036,30 @@ torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 cs.phase_build()
 out = {}
-for name, fn in (("ragged_paged_attention", lambda: cs.phase_ragged(dev)),
-                 ("ragged_paged_attention_int8",
-                  lambda: cs.phase_ragged(dev, True)),
-                 ("ragged_decode", lambda: cs.phase_decode(dev))):
+for name, first, fn in (
+        ("flash_prefill", "chunks4", lambda: cs.phase_flash(dev)),
+        ("ragged_paged_attention", "decode", lambda: cs.phase_ragged(dev)),
+        ("ragged_paged_attention_int8", "decode",
+         lambda: cs.phase_ragged(dev, True)),
+        ("ragged_decode", "decode", lambda: cs.phase_decode(dev))):
     res = fn()
-    out[name] = {sub: res[sub]["ms"] for sub in ("mixed_rows", "batch1")
-                 if sub in res}
-    out[name]["decode"] = res["ms"]
+    out[name] = {first: res["ms"]}
+    out[name].update({sub: res[sub]["ms"] for sub in (
+        "prefill_group8", "mixed_rows", "batch1") if sub in res})
+cfg, params, _ = cs.draw_8b(dev)
+prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
+out["profile_prefill"] = {key: prof[key] for key in (
+    "host_wall_ms", "device_ms", "device_ms_by_class")}
 print(json.dumps(out))
 """
 
 
 def ab(trees) -> None:
-    """Kernel times of the decode-side kernels of two trees of the port in
-    one call, in turns (first, second, second, first), each in its own
-    process building its own kernels; the cases and the timing are this
-    script's for both."""
+    """Kernel times of every kernel of two trees of the port, and the
+    grouped prefill dispatch's profile at llama3-8b (bf16 pool), in one
+    call, in turns (first, second, second, first), each in its own process
+    building its own kernels; the cases and the timing are this script's
+    for both."""
     order = [trees[0], trees[1], trees[1], trees[0]]
     runs = []
     for tree in order:
@@ -1000,10 +1152,12 @@ def main() -> int:
     paths = {}
     paths["serve"], core = phase_serve(dev, cfg, params)
     emit("profile", **profile_decode(core))
+    emit("profile_prefill", **profile_prefill(core))
     del core
     torch.cuda.empty_cache()
     paths["serve_int8"], core = phase_serve(dev, cfg, params, "int8")
     emit("profile_int8", **profile_decode(core))
+    emit("profile_prefill_int8", **profile_prefill(core))
     del core
     torch.cuda.empty_cache()
     paths["dense"] = phase_dense(dev, cfg, params)
@@ -1033,9 +1187,10 @@ def main() -> int:
                 "bound_ms", "bound_by", "library_ms", "splits",
                 "scratch_bytes")
         entry.update({key: res[key] for key in keys if key in res})
-        for sub in ("mixed_rows", "batch1"):
+        for sub in ("mixed_rows", "batch1", "prefill_group8"):
             if sub in res:
-                entry[sub] = {key: res[sub][key] for key in keys}
+                entry[sub] = {key: res[sub][key] for key in keys
+                              if key in res[sub]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -185,6 +185,16 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(const void* p, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(smem_addr(p)));
+}
+
 // four 8x8 bf16 matrices, transposed on the way into registers
 __device__ __forceinline__ void ldmatrix_x4_trans(const void* p, uint32_t& r0,
                                                   uint32_t& r1, uint32_t& r2,

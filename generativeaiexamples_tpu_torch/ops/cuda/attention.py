@@ -265,7 +265,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, S, H, HD), the chunk at positions ``start_pos[b] + i``; k, v:
     (B, T, KV, HD), the dense cache view; kv_valid_through: (B,) live rows.
-    Read through their strides (head dim contiguous). Returns a fresh
+    Read through their strides (head dim contiguous, every row on 16
+    bytes: the kernel copies 16 bytes at a time). Returns a fresh
     (B, S, H, HD) tensor in q's dtype. CPU tensors take the plain version.
     """
     if not q.is_cuda:
@@ -283,6 +284,11 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "contiguous")
     if not (k.device == q.device == v.device):
         raise ValueError("flash_prefill: q, k, v on different devices")
+    size = q.element_size()
+    if any(t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3])
+           for t in (q, k, v)):
+        raise ValueError("flash_prefill: q, k, v rows must be 16-byte "
+                         "aligned (the kernel copies 16 bytes at a time)")
     dev = q.device
     if start_pos is None:
         start_pos = torch.zeros((B,), dtype=torch.int32, device=dev)

@@ -65,6 +65,10 @@ FLASH_CASES = [
     (2, 128, 128, 4, 2, 32, None, [100, 37]),               # ragged lengths
     (2, 32, 128, 4, 2, 32, [64, 16], [94, 48]),             # chunked suffix
     (1, 64, 64, 2, 1, 16, None, None),                      # single kv head
+    # the masking the card's tensor-core walk branches on (64-token tiles)
+    (2, 96, 320, 4, 2, 32, [192, 0], [262, 96]),      # chunk at 3x64, ragged
+    (2, 72, 192, 4, 2, 16, [37, 0], [101, 72]),       # S not a multiple of 64
+    (2, 48, 128, 4, 2, 32, [5, 0], [40, 17]),         # keys in the diagonal tile
 ]
 
 

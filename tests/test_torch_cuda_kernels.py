@@ -263,6 +263,83 @@ def _within_one_ulp(got, want):
     return bool(torch.isfinite(g).all()) and bool((err <= limit).all())
 
 
+def _flash_inputs(rng, dev, dt, B, S, T, H, KV, HD, starts, through):
+    q, k, v = (_t(_rand(rng, s)).to(dev, dt)
+               for s in ((B, S, H, HD), (B, T, KV, HD), (B, T, KV, HD)))
+    sp = torch.tensor(starts, dtype=torch.int32, device=dev)
+    vt = torch.tensor(through, dtype=torch.int32, device=dev)
+    return q, k, v, sp, vt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [512, 200])
+def test_flash_prefill_bf16_at_llama3_heads_on_the_card(cuda_device, S):
+    """The tensor-core instance at llama3-8b heads (32 q, 8 KV, HD 128):
+    a first chunk, later chunks (start > 0, a start off the 64-token
+    grid), valid lengths inside the chunk; S = 200 leaves the last query
+    tile partly past the chunk. Each live (query, head) within one bf16
+    ulp of its largest plain output; padded query slots finite."""
+    rng = np.random.default_rng(50 + S)
+    B, T, H, KV, HD = 4, 1536, 32, 8, 128
+    starts = [0, 512, 200, 1000]
+    through = [S, 512 + S - 37, 200 + S // 3, 1000 + S]
+    q, k, v, sp, vt = _flash_inputs(rng, cuda_device, torch.bfloat16, B, S,
+                                    T, H, KV, HD, starts, through)
+    tk.reset_launch_counts()
+    got = tk.flash_prefill(q, k, v, sp, vt)
+    assert tk.launch_counts()["flash_prefill"] == 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    want = tk.flash_prefill_plain(q, k, v, sp, vt)
+    for b in range(B):
+        n = min(S, through[b] - starts[b])
+        assert _within_one_ulp(got[b, :n], want[b, :n]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("HD", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_prefill_every_head_dim_on_the_card(cuda_device, dt, HD):
+    """Every template instance at a small shape; k and v are one layer of
+    a (L, B, T, KV, HD) cache, read through its strides."""
+    rng = np.random.default_rng(60 + HD)
+    B, S, T, H, KV = 2, 96, 160, 4, 2
+    q = _t(_rand(rng, (B, S, H, HD))).to(cuda_device, dt)
+    k, v = (_t(_rand(rng, (2, B, T, KV, HD))).to(cuda_device, dt)[1]
+            for _ in range(2))
+    sp = torch.tensor([0, 64], dtype=torch.int32, device=cuda_device)
+    vt = torch.tensor([90, 150], dtype=torch.int32, device=cuda_device)
+    got = tk.flash_prefill(q, k, v, sp, vt)
+    want = tk.flash_prefill_plain(q, k, v, sp, vt)
+    assert torch.isfinite(got).all()
+    for b, n in enumerate((90, 86)):
+        if dt == torch.float32:
+            assert (got[b, :n] - want[b, :n]).abs().max().item() < 1e-4
+        else:
+            assert _within_one_ulp(got[b, :n], want[b, :n])
+
+
+@pytest.mark.cuda
+def test_flash_prefill_refuses_what_it_cannot_take(cuda_device):
+    """A CUDA tensor never falls back to the plain version: rows off 16
+    bytes, an unsupported head dim or mixed dtypes raise."""
+    B, S, T, H, KV, HD = 1, 64, 64, 4, 2, 64
+    q = torch.zeros((B, S, H, HD), dtype=torch.bfloat16, device=cuda_device)
+    kv = torch.zeros((B, T, KV, HD), dtype=torch.bfloat16,
+                     device=cuda_device)
+    tk.reset_launch_counts()
+    odd = torch.zeros((B, T, KV, HD + 1), dtype=torch.bfloat16,
+                      device=cuda_device)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.flash_prefill(q, odd, kv)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        tk.flash_prefill(q[..., :48], kv[..., :48], kv[..., :48])
+    with pytest.raises(ValueError, match="one dtype"):
+        tk.flash_prefill(q, kv.float(), kv)
+    assert tk.launch_counts()["flash_prefill"] == 0
+
+
 def _split_pool(rng, dev, pool, N, ps, KV, HD):
     if pool == "int8":
         pages = [_t(rng.integers(-127, 128, size=(N, ps, KV * HD))
