@@ -16,25 +16,39 @@ prints no result:
   5. kernel:ragged_paged_attention_int8  times, bounds and a library
   6. kernel:ragged_decode                yardstick;
   7. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
-              the plain path give the same tokens, through the engine over
-              a model-dtype pool and an int8 pool, and through the
-              dense-cache API (``llama.prefill`` + ``llama.decode_step``);
+              the plain path give the same tokens through the engine over
+              a model-dtype pool and an int8 pool, on the narrow
+              two-dispatch path and on the default one (speculation on,
+              the mixed dispatch on, a prompt arriving mid-decode), the
+              default path the narrow one's tokens, and the dense-cache
+              API (``llama.prefill`` + ``llama.decode_step``) kernel vs
+              plain;
   8. serve    llama3-8b at full width and depth, bf16, random seeded
-              weights, behind the port's HTTP server: 6 concurrent
-              requests, and proof that prefill and decode ran through the
-              kernels (launch counts over the phase); then a decode
-              profile and a grouped-prefill profile;
-  9. serve_int8  the same server and requests over an int8 KV pool,
-              proof that decode ran through the int8 kernel instance;
-              then the same two profiles over that pool;
- 10. dense    the dense-cache API on the same weights: prefill of 8 rows
+              weights, behind the port's HTTP server with the reference's
+              defaults (speculation adaptive on, the mixed dispatch on):
+              4 requests decode and 2 prompts of 1,296 bytes arrive once
+              the first decode dispatch ran; proof that prefill, widened
+              decode steps and mixed dispatches ran through the kernels
+              (launch and dispatch counts over the phase); then a W = 5
+              decode profile (``profile_wide``) and a mixed dispatch
+              beside the two-dispatch pair doing the same work
+              (``profile_mixed``);
+  9. serve_int8  the same over an int8 KV pool (the int8 instance);
+ 10. serve_two_dispatch  speculation and the mixed dispatch off, bf16:
+              6 concurrent requests (the narrow path), then a narrow decode
+              profile and a grouped-prefill profile, and the same two
+              profiles over an int8 pool;
+ 11. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
               ragged_decode.
 
 The flash phase runs 4 ragged chunks and the serve path's group of 8
 chunks (``prefill_group8``); the ragged phases run decode rows at batch 8
-and at batch 1 and Qb = 8 mixed rows, ``ragged_decode`` batch 8 and batch
-1, each with its split plan and scratch bytes. Each kernel phase holds the
+and at batch 1, Qb = 8 mixed rows, the verify steps of widths 5 and 9 at
+batch 8 and the mixed program's rows (``mixed_qb16``: 8 decode rows and 4
+chunks of 512 at starts 0 to 1,536 in rows of 16 queries);
+``ragged_decode`` batch 8 and batch 1, each with its split plan and
+scratch bytes. Each kernel phase holds the
 kernel to its plain version per (query, head) within one bf16 ulp of the
 largest plain output (``compare``); kernel and library times are device
 times of CUDA-graph replays (``graph_ms``), plain times of CUDA events
@@ -44,7 +58,7 @@ dropped tile, a dropped split in the combine and a wrong int8 scale slot
 in the decode-side walk, each planted in a temporary copy of the port;
 ``--ab`` times every kernel of two trees of the port in turns, with the
 grouped-prefill profile. Each main
-path (8, 9, 10) sets the launch counts to 0 just before it and reads them
+path (8 to 11) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -280,14 +294,21 @@ def phase_flash(dev):
     return res
 
 
-def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False):
+def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False, pos0=None,
+                 slot_of_row=None, seed=None):
     """One shape of the ragged kernel over a 32-layer pool of llama3-8b
-    heads: bf16 pages, or int8 pages with f32 (N, KV, page) scales."""
+    heads: bf16 pages, or int8 pages with f32 (N, KV, page) scales. Row r
+    reads the page-table row of slot ``slot_of_row[r]`` (default: a slot
+    of its own), with its queries at ``pos0[r]`` on (default: its last
+    ``q_num`` positions)."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
     L, H, KV, HD, ps, maxp = 32, 32, 8, 128, 128, 16
-    P = 8 * maxp + 1
-    g = torch.Generator(device=dev).manual_seed(2 + R + 100 * quant)
+    slot_of_row = list(range(R)) if slot_of_row is None else slot_of_row
+    n_slots = max(slot_of_row) + 1
+    P = max(8, n_slots) * maxp + 1
+    g = torch.Generator(device=dev).manual_seed(
+        2 + R + 100 * quant if seed is None else seed)
     bf = torch.bfloat16
     shape = (L * P, ps, KV * HD)
     if quant:
@@ -301,11 +322,13 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False):
         v_pool = torch.randn(shape, generator=g, device=dev).to(bf)
         k_sc = v_sc = None
     q = torch.randn((R, Qb, H, HD), generator=g, device=dev).to(bf)
-    perm = torch.randperm(P - 1, generator=g, device=dev)[:R * maxp] + 1
-    tables = perm.reshape(R, maxp).to(torch.int32)
+    perm = torch.randperm(P - 1, generator=g, device=dev)[:n_slots * maxp] + 1
+    slot_tables = perm.reshape(n_slots, maxp).to(torch.int32)
+    tables = slot_tables[torch.tensor(slot_of_row, device=dev)].contiguous()
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     qn = torch.tensor(q_num, dtype=torch.int32, device=dev)
-    pos0 = kv_lens - qn
+    pos0 = (kv_lens - qn if pos0 is None
+            else torch.tensor(pos0, dtype=torch.int32, device=dev))
     layers = [torch.full((1,), i, dtype=torch.int32, device=dev)
               for i in range(L)]
     out = k.ragged_paged_attention(q, k_pool, v_pool, tables, kv_lens, pos0,
@@ -348,16 +371,21 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     valid_q = sum(q_num)
     flops = 4.0 * HD * H * sum(
-        min(p0 + j + 1, n) for p0, n, m in zip(pos0.tolist(), lens, q_num)
-        for j in range(m))
-    live = sum(n for n, m in zip(lens, q_num) if m)
-    # each live token's K and V row once (1 byte an element in int8, plus
-    # one f32 scale per KV head each), q read and out written once in bf16
+        max(0, min(p0 + j + 1, n))
+        for p0, n, m in zip(pos0.tolist(), lens, q_num) for j in range(m))
+    # each live token's K and V row once per slot, however many rows of the
+    # slot read it (1 byte an element in int8, plus one f32 scale per KV
+    # head each), q read and out written once in bf16
+    live_by_slot = {}
+    for slot, n, m in zip(slot_of_row, lens, q_num):
+        if m:
+            live_by_slot[slot] = max(live_by_slot.get(slot, 0), n)
+    live = sum(live_by_slot.values())
     kv_bytes = live * KV * HD * 2 * (1 if quant else 2)
     scale_bytes = live * KV * 4 * 2 if quant else 0
     nbytes = float(kv_bytes + scale_bytes + 2 * valid_q * H * HD * 2)
     b_ms, b_by = bound(flops, nbytes)
-    return dict(
+    res = dict(
         **check, tolerance=TOLERANCE,
         **_split_fields(dev, R, KV, T, Qb * H // KV, HD),
         ms=graph_ms(run_kernel),
@@ -372,7 +400,10 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False):
         kv_bytes=kv_bytes, scale_bytes=scale_bytes, live_tokens=live,
         shape=dict(R=R, Qb=Qb, H=H, KV=KV, HD=HD, page=ps, maxp=maxp,
                    layer=3, n_layers=L, kv_lens=lens, q_num=q_num,
+                   q_pos0=pos0.tolist(), slots=n_slots,
                    q_dtype="bfloat16", pool="int8" if quant else "bfloat16"))
+    del k_pool, v_pool, k_d, v_d
+    return res
 
 
 DECODE_LENS = [1, 77, 300, 640, 1000, 1333, 1800, 2047]
@@ -395,15 +426,54 @@ def _split_fields(dev, rows, kv_heads, capacity, qg, head_dim):
                                                  head_dim))
 
 
+def _verify_case(dev, W, quant):
+    """A W-wide speculative verify step at batch 8: the batch-8 decode
+    rows' lengths (at least W), all W queries live."""
+    lens = [max(n, W) for n in DECODE_LENS]
+    return _ragged_case(dev, 8, W, lens, [W] * 8, f"verify_qb{W}", quant,
+                        seed=20 + W + 100 * quant)
+
+
+# the mixed program's rows at llama3-8b (q_block 16 for the top verify
+# width 9): 8 decode rows of 9 live queries, then 4 chunks of 512 at
+# starts 0/512/1,024/1,536, each 32 rows of 16 queries over its own slot
+MIXED_STARTS = (0, 512, 1024, 1536)
+
+
+def _mixed_case(dev, quant):
+    lens = [max(n, 9) for n in DECODE_LENS]
+    q_num, pos0, slots = [9] * 8, [n - 9 for n in lens], list(range(8))
+    for c, start in enumerate(MIXED_STARTS):
+        for j in range(512 // 16):
+            lens.append(start + 512)
+            q_num.append(16)
+            pos0.append(start + 16 * j)
+            slots.append(8 + c)
+    return _ragged_case(dev, len(lens), 16, lens, q_num, "mixed_qb16", quant,
+                        pos0=pos0, slot_of_row=slots, seed=40 + 100 * quant)
+
+
+RAGGED_SUBCASES = ("mixed_rows", "batch1", "verify_qb5", "verify_qb9",
+                   "mixed_qb16")
+
+
 def phase_ragged(dev, quant=False):
-    """Decode rows at batch 8 (the serving shape), mixed rows (Qb = 8,
-    q_num 8/3/1/0) and one decode row at batch 1."""
+    """Decode rows at batch 8 (the narrow serving shape), mixed rows (Qb =
+    8, q_num 8/3/1/0), one decode row at batch 1, the verify steps of
+    widths 5 and 9 at batch 8, and the mixed program's 136 rows."""
+    import torch
     name = "ragged_paged_attention" + ("_int8" if quant else "")
     decode = _ragged_case(dev, 8, 1, DECODE_LENS, [1] * 8, "decode", quant)
-    mixed = _ragged_case(dev, 4, 8, [520, 1000, 64, 700], [8, 3, 1, 0],
-                         "mixed", quant)
-    batch1 = _ragged_case(dev, 1, 1, BATCH1_LENS, [1], "batch1", quant)
-    res = dict(name=name, **decode, mixed_rows=mixed, batch1=batch1)
+    res = dict(name=name, **decode)
+    res["mixed_rows"] = _ragged_case(dev, 4, 8, [520, 1000, 64, 700],
+                                     [8, 3, 1, 0], "mixed", quant)
+    res["batch1"] = _ragged_case(dev, 1, 1, BATCH1_LENS, [1], "batch1",
+                                 quant)
+    for W in (5, 9):
+        res[f"verify_qb{W}"] = _verify_case(dev, W, quant)
+    torch.cuda.empty_cache()
+    res["mixed_qb16"] = _mixed_case(dev, quant)
+    torch.cuda.empty_cache()
     emit("kernel:" + name, kernel_ms=res["ms"], **res)
     return res
 
@@ -526,16 +596,41 @@ def _dense_greedy(params, cfg, prompts, steps, T, dev):
     return torch.stack(out, dim=1).tolist()
 
 
+def _staggered_streams(sched, prompts, first_tokens, rest_tokens):
+    """Greedy output ids of ``prompts`` through a started scheduler: the
+    first alone, the rest submitted once its first decode dispatch ran (so
+    their chunks can ride the decode dispatch)."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    first = sched.submit(Request(prompt_ids=prompts[0],
+                                 max_tokens=first_tokens, temperature=0.0))
+    t0 = time.perf_counter()
+    while sched.stats["decode_dispatches"] < 1:
+        if first.finished_at or time.perf_counter() - t0 > 300:
+            raise AssertionError("the first request never reached decode")
+        time.sleep(0.005)
+    reqs = [first] + [sched.submit(Request(prompt_ids=p, max_tokens=rest_tokens,
+                                           temperature=0.0))
+                      for p in prompts[1:]]
+    for r in reqs:
+        list(sched.iter_text(r))
+    if any(r.error for r in reqs):
+        raise AssertionError(f"a request failed: {[r.error for r in reqs]}")
+    return [r.output_ids for r in reqs]
+
+
 def phase_parity(dev):
-    """8B width, 2 layers, f32: kernel path and plain path, same weights,
-    through the engine over a model-dtype pool and an int8 pool, and
-    through the dense-cache API."""
+    """8B width, 2 layers, f32, same weights, greedy: over a model-dtype
+    pool and an int8 pool, the engine's kernel path against its plain path
+    on the narrow two-dispatch path (speculation and the mixed dispatch
+    off) and on the default one (speculation on, the mixed dispatch on, a
+    prompt arriving while the first decodes), and speculation on against
+    off on the kernel path; and the dense-cache API, kernel against
+    plain."""
     import dataclasses
     import torch
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
-    from generativeaiexamples_tpu_torch.engine.scheduler import (
-        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.models import llama
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
@@ -547,39 +642,48 @@ def phase_parity(dev):
     tok = ByteTokenizer()
     prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
                tok.encode(PROMPT_TEXT * 5, add_bos=True)]   # two chunks
-    reports = {}
+    paths = {"narrow": dict(spec_decode="off", mixed_phase_dispatch="off"),
+             "spec_mixed": {}}
+    reports, dispatches = {}, {}
     for kv_quant in ("none", "int8"):
         streams = {}
-        for attn in ("kernel", "plain"):
-            ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
-                                page_size=128, prefill_chunk=512,
-                                dtype="float32", attention=attn,
-                                kv_quant=kv_quant)
-            sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
-                                         device=dev), tok)
-            k.reset_launch_counts()
-            sched.start()
-            try:
-                reqs = [sched.submit(Request(prompt_ids=p, max_tokens=24,
-                                             temperature=0.0))
-                        for p in prompts]
-                for r in reqs:
-                    list(sched.iter_text(r))
-            finally:
-                sched.stop()
-            if any(r.error for r in reqs):
-                raise AssertionError(f"parity run ({kv_quant}, {attn}) "
-                                     f"failed: {[r.error for r in reqs]}")
-            key = ("ragged_paged_attention_int8" if kv_quant == "int8"
-                   else "ragged_paged_attention")
-            if attn == "kernel" and k.launch_counts()[key] == 0:
-                raise AssertionError(f"parity run ({kv_quant}) did not "
-                                     f"launch {key}")
-            streams[attn] = [r.output_ids for r in reqs]
-        label = f"engine, kv_quant={kv_quant}"
-        reports[label] = _parity_report(params, cfg, prompts,
-                                        streams["kernel"], streams["plain"],
-                                        dev, label)
+        for path, knobs in paths.items():
+            for attn in ("kernel", "plain"):
+                ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                    page_size=128, prefill_chunk=512,
+                                    dtype="float32", attention=attn,
+                                    kv_quant=kv_quant, **knobs)
+                sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
+                                             device=dev), tok)
+                k.reset_launch_counts()
+                sched.start()
+                try:
+                    streams[path, attn] = _staggered_streams(sched, prompts,
+                                                             96, 24)
+                finally:
+                    sched.stop()
+                key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                       else "ragged_paged_attention")
+                if attn == "kernel" and k.launch_counts()[key] == 0:
+                    raise AssertionError(f"parity run ({kv_quant}, {path}) "
+                                         f"did not launch {key}")
+                if path == "spec_mixed" and not (
+                        sched.stats["mixed_dispatches"]
+                        and sched.stats["spec_steps"]):
+                    raise AssertionError(f"parity run ({kv_quant}, {attn}) "
+                                         f"ran no mixed or widened step: "
+                                         f"{sched.stats}")
+                dispatches[f"{kv_quant}, {path}, {attn}"] = dict(sched.stats)
+        for label, a, b in (("kernel vs plain, narrow", ("narrow", "kernel"),
+                             ("narrow", "plain")),
+                            ("kernel vs plain, spec+mixed",
+                             ("spec_mixed", "kernel"),
+                             ("spec_mixed", "plain")),
+                            ("spec+mixed vs narrow, kernel",
+                             ("spec_mixed", "kernel"), ("narrow", "kernel"))):
+            label = f"engine, kv_quant={kv_quant}, {label}"
+            reports[label] = _parity_report(params, cfg, prompts, streams[a],
+                                            streams[b], dev, label)
     dense = {attn: _dense_greedy(params, dataclasses.replace(
         cfg, attn_impl=attn), prompts, 24, 1024, dev)
         for attn in ("kernel", "plain")}
@@ -587,16 +691,21 @@ def phase_parity(dev):
                                           dense["kernel"], dense["plain"],
                                           dev, "dense API")
     emit("parity", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
-         streams=reports)
+         streams=reports, dispatches=dispatches)
     del params
 
 
-def _request(base, i):
-    """One of six requests: chat/completion, streamed or not, T 0 / 0.7."""
-    chat = i % 2 == 0
-    stream = i < 3
-    text = PROMPT_TEXT * (1, 3, 10, 6, 2, 9)[i]     # 144 to 1,440 bytes
-    body = {"max_tokens": 32, "temperature": 0.0 if i % 3 else 0.7,
+def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
+             temperature=None):
+    """One request; by default the i-th of the narrow phase's six:
+    chat/completion, streamed or not, temperature 0 / 0.7."""
+    chat = i % 2 == 0 if chat is None else chat
+    stream = i < 3 if stream is None else stream
+    if text is None:
+        text = PROMPT_TEXT * (1, 3, 10, 6, 2, 9)[i]     # 144 to 1,440 bytes
+    if temperature is None:
+        temperature = 0.0 if i % 3 else 0.7
+    body = {"max_tokens": max_tokens, "temperature": temperature,
             "seed": i, "stream": stream}
     if chat:
         body["messages"] = [{"role": "user", "content": text}]
@@ -637,7 +746,8 @@ def _request(base, i):
     return {"i": i, "chat": chat, "stream": stream, "status": status,
             "prompt_bytes": len(text), "finish_reason": finish,
             "usage": usage, "client_first_text_s": ttft,
-            "client_latency_s": time.perf_counter() - t0}
+            "client_latency_s": time.perf_counter() - t0,
+            "sent_s": t0}
 
 
 def draw_8b(dev):
@@ -652,21 +762,53 @@ def draw_8b(dev):
     return cfg, params, time.perf_counter() - t0
 
 
-def serving_core(dev, cfg, params, kv_quant="none"):
-    """The serve phases' engine core: 8 slots of 2,048 tokens in pages of
-    128, chunks of 512, over a model-dtype or an int8 pool."""
+NARROW = dict(spec_decode="off", mixed_phase_dispatch="off")
+
+
+def serving_core(dev, cfg, params, kv_quant="none", batch=8, **knobs):
+    """The serve phases' engine core: ``batch`` slots of 2,048 tokens in
+    pages of 128, chunks of 512, over a model-dtype or an int8 pool; the
+    reference's defaults (speculation adaptive on, the mixed dispatch
+    "auto", on for the card) unless ``knobs`` say otherwise."""
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
-    ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
-                        prefill_chunk=512, kv_quant=kv_quant)
+    ecfg = EngineConfig(max_batch_size=batch, max_seq_len=2048,
+                        page_size=128, prefill_chunk=512, kv_quant=kv_quant,
+                        **knobs)
     return EngineCore(cfg, ecfg, params, ByteTokenizer().eos_id, device=dev)
 
 
-def phase_serve(dev, cfg, params, kv_quant="none"):
-    """Six concurrent HTTP requests against full llama3-8b; the launch
-    counts are set to 0 just before the requests and read just after.
-    Returns (launches, the engine core)."""
+# the default phases' traffic: 4 requests decode (prompts of 144 to 432
+# bytes, 256 tokens each), then 2 prompts of 1,296 bytes (3 chunks of 512)
+# arrive once the first decode dispatch ran
+DECODERS = (1, 2, 1, 3)
+LATE_PROMPT = 9
+
+
+def _staggered_traffic(base, sched):
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        futs = [pool.submit(_request, base, i, PROMPT_TEXT * n, 256,
+                            i % 2 == 0, i < 2, 0.0 if i % 2 else 0.7)
+                for i, n in enumerate(DECODERS)]
+        t0 = time.perf_counter()
+        while sched.stats["decode_dispatches"] < 1:
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("no decode dispatch within 600 s")
+            time.sleep(0.002)
+        at = dict(sched.stats)
+        futs += [pool.submit(_request, base, 4 + i, PROMPT_TEXT * LATE_PROMPT,
+                             32, i == 0, i == 0, 0.0) for i in range(2)]
+        return [f.result() for f in futs], at
+
+
+def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
+    """HTTP requests against full llama3-8b; the launch counts and the
+    dispatch counts are set to 0 just before the requests and read just
+    after. ``narrow``: speculation and the mixed dispatch off, six
+    concurrent requests (the narrow path); else the reference's defaults and
+    the staggered traffic, which must run at least one mixed dispatch and
+    one widened step. Returns (launches, the engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
@@ -674,7 +816,8 @@ def phase_serve(dev, cfg, params, kv_quant="none"):
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
 
     tok = ByteTokenizer()
-    core = serving_core(dev, cfg, params, kv_quant)
+    core = serving_core(dev, cfg, params, kv_quant,
+                        **(NARROW if narrow else {}))
     sched = Scheduler(core, tok)
     submitted = []
     submit = sched.submit
@@ -687,6 +830,7 @@ def phase_serve(dev, cfg, params, kv_quant="none"):
     torch.cuda.reset_peak_memory_stats()
     httpd, thread = serve_in_thread(sched, "llama3-8b-random")
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    at_late = None
     try:
         with urllib.request.urlopen(base + "/health", timeout=30) as resp:
             if resp.status != 200:
@@ -696,8 +840,12 @@ def phase_serve(dev, cfg, params, kv_quant="none"):
         for key in sched.stats:
             sched.stats[key] = 0
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(6) as pool:
-            results = list(pool.map(lambda i: _request(base, i), range(6)))
+        if narrow:
+            with concurrent.futures.ThreadPoolExecutor(6) as pool:
+                results = list(pool.map(lambda i: _request(base, i),
+                                        range(6)))
+        else:
+            results, at_late = _staggered_traffic(base, sched)
         wall = time.perf_counter() - t0
         launches = k.launch_counts()
         stats = dict(sched.stats)
@@ -707,11 +855,12 @@ def phase_serve(dev, cfg, params, kv_quant="none"):
         sched.stop()
         thread.join(timeout=30)
     for r in results:
+        r["sent_s"] -= t0
         if r["status"] != 200 or not r["finish_reason"] or not r["usage"]:
             raise AssertionError(f"request failed: {r}")
     server_ttft = sorted(round(r.first_token_at - r.submitted_at, 4)
                          for r in submitted if r.first_token_at)
-    if len(server_ttft) != 6 or any(r.error for r in submitted):
+    if len(server_ttft) != len(results) or any(r.error for r in submitted):
         raise AssertionError("a request got no first token or failed: "
                              f"{[r.error for r in submitted]}")
     L = cfg.n_layers
@@ -723,20 +872,35 @@ def phase_serve(dev, cfg, params, kv_quant="none"):
             or launches[decode_key] < need_decode or need_decode == 0):
         raise AssertionError(f"serving did not run through the kernels: "
                              f"launches {launches}, dispatches {stats}")
-    if health.get("kv_dtype") != ("int8" if kv_quant == "int8"
-                                  else cfg.dtype):
-        raise AssertionError(f"/health reports kv_dtype "
-                             f"{health.get('kv_dtype')!r}")
+    if not narrow and (stats["mixed_dispatches"] < 1
+                       or stats["spec_steps"] < 1):
+        raise AssertionError(f"the default path ran no mixed dispatch or "
+                             f"no widened step: {stats}")
+    want_widths = [1] if narrow else [2, 3, 5, 9]
+    if (health.get("kv_dtype") != ("int8" if kv_quant == "int8"
+                                   else cfg.dtype)
+            or health.get("spec_widths") != want_widths
+            or health.get("mixed") != (not narrow)):
+        raise AssertionError(f"/health reports {health}")
     gen = sum(r["usage"]["completion_tokens"] for r in results)
     fields = dict(
         model="llama3-8b", n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
+        spec_widths=health["spec_widths"], mixed=health["mixed"],
         weights="random, torch.Generator seed 0", requests=results,
         server_ttft_s=server_ttft, completion_tokens=gen, wall_s=wall,
         gen_tok_s=gen / wall, dispatches=stats, launches=launches,
+        stats_when_late_prompts_sent=at_late,
+        spec_accepted_share_of_ceiling=(
+            stats["spec_bonus_tokens"]
+            / max(1, stats["spec_base_steps"] * (core.spec_width - 1))),
+        spec_bonus_per_slot_step=(stats["spec_bonus_tokens"]
+                                  / max(1, stats["spec_base_steps"])),
         kv_pool_bytes=health["kv_pool_bytes"],
         multi_chunk_prompt=max(len(r.prompt_ids) for r in submitted) > 512,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    emit("serve" if kv_quant == "none" else "serve_" + kv_quant, **fields)
+    name = ("serve" + ("_two_dispatch" if narrow else "")
+            + ("" if kv_quant == "none" else "_" + kv_quant))
+    emit(name, **fields)
     return launches, core
 
 
@@ -794,10 +958,13 @@ def phase_dense(dev, cfg, params, rows=8, T=2048, steps=32):
     return launches
 
 
-def profile_decode(core, ctx: int = 1000, steps: int = 8):
+def profile_decode(core, ctx: int = 1000, steps: int = 8,
+                   spec_width=None):
     """Where a full-batch decode dispatch spends its time: 8 slots at
-    ``ctx`` tokens, host clock per step and device time by kernel class
-    (torch.profiler), after the serving run (not part of its counts)."""
+    ``ctx`` tokens, ``spec_width`` wide steps (a ladder rung; the narrow
+    step on a core without speculation), host clock per step and device
+    time by kernel class (torch.profiler), after the serving run (not
+    part of its counts)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -808,7 +975,9 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
     table = np.zeros((core.batch, core.max_pages_per_slot), np.int32)
     items = []
     for s in range(core.batch):
-        pages = alloc.alloc(core.pages_for(ctx + 4 * steps))
+        # budget and pages for the warm-up dispatch and the profiled one
+        budget = max(4, 2 * core.spec_width) * steps
+        pages = alloc.alloc(core.pages_for(ctx + budget))
         table[s, :len(pages)] = pages
         ids = [(s * 31 + i) % 256 for i in range(ctx)]
         for start in range(0, ctx, core.chunk):
@@ -816,7 +985,7 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
             items.append(PrefillItem(
                 chunk_ids=chunk, page_row=table[s], slot=s, start_pos=start,
                 is_last=start + len(chunk) >= ctx, generated=1,
-                max_gen=4 * steps + 1, temperature=0.0))
+                max_gen=budget + 1, temperature=0.0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for g in range(0, len(items), core.prefill_group_max):
@@ -824,19 +993,23 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     dev_table = core.put_table(table)
-    state, _ = core.decode(state, dev_table, steps)      # warm
+    kw = {} if spec_width is None else {"spec_width": spec_width}
+    state, _ = core.decode(state, dev_table, steps, **kw)      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, out = core.decode(state, dev_table, steps)
+        state, out = core.decode(state, dev_table, steps, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    emitted = int(out["emitted"].sum())
     classes, summed, top = _device_ms_by_class(
         prof, (("ragged_paged_attention", ("ragged_paged",)),
                ("matmul", MATMUL_KERNELS)))
     device_ms = sum(classes.values())
     return {"batch": core.batch, "context": ctx, "steps": steps,
+            "spec_width": spec_width or 1, "tokens_emitted": emitted,
+            "ms_per_emitted_token": wall * 1e3 / max(1, emitted),
             "prefill_chunks": len(items), "prefill_s": prefill_s,
             "decode_ms_per_step": wall * 1e3 / steps,
             "device_ms_per_step": device_ms / steps,
@@ -845,6 +1018,35 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8):
                 k: v / steps for k, v in classes.items()},
             "top_other_ms_per_step": [[n, ms / steps] for n, ms in top],
             "key_averages_self_device_ms_per_step": summed / steps}
+
+
+def _kv_pages_ranged():
+    """Context that puts every page scatter and dense gather of the paged
+    passes under a ``kv_pages`` profiler range."""
+    import contextlib
+    from torch.autograd.profiler import record_function
+    from generativeaiexamples_tpu_torch.engine import kv_cache
+
+    @contextlib.contextmanager
+    def ranged():
+        passes = {name: getattr(kv_cache, name)
+                  for name in ("_scatter_pages", "_gather_dense",
+                               "_write_rows")}
+
+        def in_range(fn):
+            def wrapped(*args, **kw):
+                with record_function("kv_pages"):
+                    return fn(*args, **kw)
+            return wrapped
+
+        try:
+            for name, fn in passes.items():
+                setattr(kv_cache, name, in_range(fn))
+            yield
+        finally:
+            for name, fn in passes.items():
+                setattr(kv_cache, name, fn)
+    return ranged()
 
 
 def profile_prefill(core, chunk: int = 512, rows: int = 8):
@@ -856,9 +1058,7 @@ def profile_prefill(core, chunk: int = 512, rows: int = 8):
     (with the int8 quantize and dequantize; ``kv_pages``), other."""
     import numpy as np
     import torch
-    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
-    from generativeaiexamples_tpu_torch.engine import kv_cache
     from generativeaiexamples_tpu_torch.engine.engine import PrefillItem
 
     if rows > core.prefill_group_max or chunk > core.chunk:
@@ -882,27 +1082,12 @@ def profile_prefill(core, chunk: int = 512, rows: int = 8):
 
     state, _ = core.prefill_group(state, group(0))
     torch.cuda.synchronize()
-    passes = {name: getattr(kv_cache, name)
-              for name in ("_scatter_pages", "_gather_dense")}
-
-    def in_range(fn):
-        def wrapped(*args, **kw):
-            with record_function("kv_pages"):
-                return fn(*args, **kw)
-        return wrapped
-
-    try:
-        for name, fn in passes.items():
-            setattr(kv_cache, name, in_range(fn))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, _ = core.prefill_group(state, group(1))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for name, fn in passes.items():
-            setattr(kv_cache, name, fn)
+    with _kv_pages_ranged(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = core.prefill_group(state, group(1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     classes, summed, top = _device_ms_by_class(
         prof, (("flash_prefill", ("flash_prefill",)),
                ("matmul", MATMUL_KERNELS)), ranges=("kv_pages",))
@@ -916,6 +1101,91 @@ def profile_prefill(core, chunk: int = 512, rows: int = 8):
             / device_ms,
             "top_other_ms": top,
             "key_averages_self_device_ms": summed}
+
+
+def profile_mixed(core, ctx: int = 1000, steps: int = 8):
+    """A mixed dispatch against the two-dispatch pair doing the same work:
+    8 slots decoding at ``ctx`` tokens (top verify width, uncapped) and 4
+    prompts whose next chunk of 512 starts at 0/512/1,024/1,536 (their
+    earlier chunks prefilled). Mixed: one ``decode_mixed`` of ``steps``
+    steps with the 4 chunks in step 0; pair: ``prefill_group`` of the 4
+    chunks, then ``decode`` of ``steps`` steps. Each is run once to warm
+    and once under torch.profiler, each from a freshly prefilled state;
+    host wall, device ms by class (ragged_paged_attention, flash_prefill,
+    matmul, kv_pages: page writes and dense gathers), busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from generativeaiexamples_tpu_torch.engine.engine import PrefillItem
+
+    n_dec, n_ch = 8, len(MIXED_STARTS)
+    if core.batch < n_dec + n_ch or not core.mixed_supported:
+        raise AssertionError("profile_mixed needs 12 slots and the mixed "
+                             "dispatch on")
+
+    def setup():
+        state = core.init_state()
+        alloc = core.new_allocator()
+        table = np.zeros((core.batch, core.max_pages_per_slot), np.int32)
+        items, chunks = [], []
+        for s in range(n_dec):
+            pages = alloc.alloc(core.pages_for(ctx + core.spec_width * steps))
+            table[s, :len(pages)] = pages
+            ids = [(s * 31 + i) % 256 for i in range(ctx)]
+            for start in range(0, ctx, core.chunk):
+                chunk = ids[start:start + core.chunk]
+                items.append(PrefillItem(
+                    chunk_ids=chunk, page_row=table[s], slot=s,
+                    start_pos=start, is_last=start + len(chunk) >= ctx,
+                    generated=1, max_gen=core.spec_width * steps + 1,
+                    temperature=0.0))
+        for c, start in enumerate(MIXED_STARTS):
+            s = n_dec + c
+            pages = alloc.alloc(core.max_pages_per_slot)
+            table[s, :len(pages)] = pages
+            ids = [(s * 37 + i) % 256 for i in range(start + core.chunk)]
+            for pos in range(0, start + core.chunk, core.chunk):
+                item = PrefillItem(chunk_ids=ids[pos:pos + core.chunk],
+                                   page_row=table[s], slot=s, start_pos=pos)
+                (chunks if pos == start else items).append(item)
+        for g in range(0, len(items), core.prefill_group_max):
+            state, _ = core.prefill_group(
+                state, items[g:g + core.prefill_group_max])
+        torch.cuda.synchronize()
+        return state, core.put_table(table), chunks
+
+    def mixed(state, table, chunks):
+        core.decode_mixed(state, table, steps, chunks)
+
+    def pair(state, table, chunks):
+        core.prefill_group(state, chunks)
+        core.decode(state, table, steps)
+
+    res = {"decode_slots": n_dec, "context": ctx, "steps": steps,
+           "spec_width": core.spec_width, "chunks": n_ch,
+           "chunk_starts": list(MIXED_STARTS), "chunk": core.chunk,
+           "kv_dtype": core.kv_dtype}
+    for name, fn in (("mixed", mixed), ("two_dispatch", pair)):
+        fn(*setup())                                   # warm
+        args = setup()
+        with _kv_pages_ranged(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        classes, summed, top = _device_ms_by_class(
+            prof, (("ragged_paged_attention", ("ragged_paged",)),
+                   ("flash_prefill", ("flash_prefill",)),
+                   ("matmul", MATMUL_KERNELS)), ranges=("kv_pages",))
+        device_ms = sum(classes.values())
+        res[name] = {"host_wall_ms": wall * 1e3, "device_ms": device_ms,
+                     "device_busy_share": device_ms / (wall * 1e3),
+                     "device_ms_by_class": classes, "top_other_ms": top,
+                     "key_averages_self_device_ms": summed}
+        del args
+    return res
 
 
 MATMUL_KERNELS = ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "cublas")
@@ -1045,7 +1315,7 @@ for name, first, fn in (
     res = fn()
     out[name] = {first: res["ms"]}
     out[name].update({sub: res[sub]["ms"] for sub in (
-        "prefill_group8", "mixed_rows", "batch1") if sub in res})
+        "prefill_group8",) + cs.RAGGED_SUBCASES if sub in res})
 cfg, params, _ = cs.draw_8b(dev)
 prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
 out["profile_prefill"] = {key: prof[key] for key in (
@@ -1150,12 +1420,22 @@ def main() -> int:
     cfg, params, init_s = draw_8b(dev)
     emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)
     paths = {}
-    paths["serve"], core = phase_serve(dev, cfg, params)
+    for kv_quant, tag in (("none", ""), ("int8", "_int8")):
+        paths["serve" + tag], core = phase_serve(dev, cfg, params, kv_quant)
+        emit("profile_wide" + tag, **profile_decode(core, spec_width=5))
+        del core
+        torch.cuda.empty_cache()
+        core = serving_core(dev, cfg, params, kv_quant, batch=12)
+        emit("profile_mixed" + tag, **profile_mixed(core))
+        del core
+        torch.cuda.empty_cache()
+    paths["serve_two_dispatch"], core = phase_serve(dev, cfg, params,
+                                                    narrow=True)
     emit("profile", **profile_decode(core))
     emit("profile_prefill", **profile_prefill(core))
     del core
     torch.cuda.empty_cache()
-    paths["serve_int8"], core = phase_serve(dev, cfg, params, "int8")
+    core = serving_core(dev, cfg, params, "int8", **NARROW)
     emit("profile_int8", **profile_decode(core))
     emit("profile_prefill_int8", **profile_prefill(core))
     del core
@@ -1187,7 +1467,7 @@ def main() -> int:
                 "bound_ms", "bound_by", "library_ms", "splits",
                 "scratch_bytes")
         entry.update({key: res[key] for key in keys if key in res})
-        for sub in ("mixed_rows", "batch1", "prefill_group8"):
+        for sub in ("prefill_group8",) + RAGGED_SUBCASES:
             if sub in res:
                 entry[sub] = {key: res[sub][key] for key in keys
                               if key in res[sub]}

@@ -30,14 +30,9 @@ NOT_PORTED: Dict[str, tuple] = {
     "pipeline_depth": ("A6 (dispatch pipelining)", "1"),
     "prefill_hold_chunks": ("A6 (prefill-priority ramp hold)", "0"),
     "quant": ("A1 (int8 weights)", "none"),
-    "spec_decode": ("A2/A5 (speculative decoding)", "off"),
-    "spec_draft": ("A2/A5 (speculative decoding)", "0"),
-    "spec_adaptive": ("A2/A5 (speculative decoding)", "off"),
-    "spec_draft_max": ("A2/A5 (speculative decoding)", "0"),
     "decode_width_ladder": ("A5 (decode width ladder)", "off"),
     "max_adapters": ("A3/A5 (LoRA)", "0"),
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
-    "mixed_phase_dispatch": ("B1 follow-up (mixed_step)", "off"),
     "devtime": ("A6 (device-time ledger)", "off"),
     "qos": ("A6 (QoS plane)", "off"),
     "kv_spill_mb": ("A6 (host KV spill)", "0"),
@@ -67,6 +62,20 @@ class EngineConfig:
     # auto (kernel on CUDA tensors, plain on CPU tensors) | kernel | plain
     attention: str = "auto"
     model_family: str = "llama3-8b"
+    # prompt-lookup speculative decoding: on | off. Each decode step drafts
+    # from the request's own history and verifies the drafts in one widened
+    # step; exact-match acceptance keeps the stream token-identical
+    spec_decode: str = "on"
+    spec_draft: int = 4           # drafted tokens per step (0 = no drafts)
+    spec_ngram: int = 2           # suffix n-gram matched against history
+    # on: per-slot draft caps from an acceptance EMA pick a rung of the
+    # width ladder each dispatch; off: every dispatch is 1 + spec_draft wide
+    spec_adaptive: str = "on"
+    spec_draft_max: int = 0       # ladder ceiling; 0 = 2 x spec_draft
+    # prefill chunks ride the decode dispatch as ragged rows: on | off |
+    # auto (on for a CUDA device, off on the CPU); the bare env
+    # APP_MIXED_PHASE_DISPATCH overrides
+    mixed_phase_dispatch: str = "auto"
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,10 @@ Serves on the GPU unless ``--device cpu`` is given. ``--tiny`` serves the
 test-scale model with the byte tokenizer; otherwise the architecture is
 ``APP_ENGINE_MODEL_FAMILY`` (default llama3-8b) with random weights drawn
 from a seeded generator on the device (checkpoint loading is ROADMAP A3).
+Engine knobs come from ``APP_ENGINE_*`` (``core/config.py``): speculative
+decoding is on by default (``APP_ENGINE_SPEC_DECODE=off`` turns it off),
+and the mixed-phase dispatch follows ``APP_MIXED_PHASE_DISPATCH`` (auto:
+on for a CUDA device, off on the CPU; ``on`` runs it on the CPU too).
 """
 
 from __future__ import annotations

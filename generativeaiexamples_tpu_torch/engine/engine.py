@@ -1,31 +1,41 @@
 """Serving core: paged chunked prefill -> slot activation -> batched decode.
 
 Port of ``EngineCore`` from ``generativeaiexamples_tpu/engine/engine.py``
-for the single-card two-dispatch path: grouped chunked prefill with a fused
-first-token sample and slot activation (``prefill_group``), and K decode
-steps per dispatch (``decode``). PyTorch runs eagerly, so a Python loop
-takes the place of ``lax.scan`` and the state is updated in place rather
-than donated (CUDA graphs are later work).
+for a single card: grouped chunked prefill with a fused first-token sample
+and slot activation (``prefill_group``); K decode steps per dispatch
+(``decode``), each narrow or, with prompt-lookup speculative decoding, a
+W-wide verify step (``step_wide``: drafts from the slot's own history,
+one widened forward, per-position seeded samples, exact-match acceptance)
+at a rung of the acceptance-tuned width ladder (``spec_widths``); and the
+mixed-phase program (``decode_mixed``), whose first step also prefills the
+next chunk of up to ``prefill_group`` prompts as extra ragged rows of the
+same forward (``kv_cache.mixed_step``). PyTorch runs eagerly, so a Python
+loop takes the place of ``lax.scan`` and the state is updated in place
+rather than donated (CUDA graphs are later work).
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request it raises. ``attention="auto"``
 resolves to the hand-written kernels on CUDA and to the plain PyTorch
-path on the CPU; ``"kernel"`` on the CPU raises.
+path on the CPU; ``"kernel"`` on the CPU raises. ``mixed_phase_dispatch=
+"auto"`` resolves on for a CUDA device and off on the CPU.
 
 ``kv_quant="int8"`` serves from an int8 KV pool with per-token-per-head
 scales (half the pool's bytes, so more slots fit on a card); its decode
 attention is the int8 instance of the ragged paged kernel.
 
-Not ported here: speculative decoding and the spec/width ladders, the
-mixed-phase program, ``decode_multi``, grammar, LoRA, int8 weights, KV
-handoff, the prefix cache, tensor parallelism (ROADMAP A1, A2, A5, A6,
-A11). Their config knobs are refused in ``core/config.py``.
+Not ported here: the batch-width ladder, ``decode_multi``, grammar, LoRA,
+int8 weights, logprob rows, KV handoff and ``seed_history`` (its callers
+are the prefix cache, KV import and spill), tensor parallelism (ROADMAP
+A1, A2, A5, A6, A7, A11). Their config knobs are refused in
+``core/config.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import logging
+import os
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +47,13 @@ from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
 from generativeaiexamples_tpu_torch.ops.sampling import (
     fold_seed, sample_logits_per_slot, token_logprob)
+from generativeaiexamples_tpu_torch.ops.speculative import (
+    acceptance, draft_lookup)
 
-# rows of the (fields, steps, B) int32 "packed" decode output; logprob rows
-# carry float32 bits (bitcast) and unpack_decode_out restores them
+logger = logging.getLogger(__name__)
+
+# rows of the (fields, steps*W, B) int32 "packed" decode output; logprob
+# rows carry float32 bits (bitcast) and unpack_decode_out restores them
 _PACKED_FIELDS = ("sampled", "emitted", "done", "hit_eos", "input_tokens",
                   "sampled_lp", "input_lp")
 _LP_FIELDS = frozenset({"sampled_lp", "input_lp"})
@@ -57,10 +71,46 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def spec_ladder(engine_cfg: EngineConfig) -> Tuple[int, Tuple[int, ...]]:
+    """(ceiling width, ladder rungs) of speculative decoding: width 1 when
+    it is off; one rung of 1 + spec_draft when not adaptive; else 1 + each
+    draft of {1, 2, 4, ...} below the ceiling ``spec_draft_max`` (0 = twice
+    spec_draft), spec_draft and the ceiling itself."""
+    if engine_cfg.spec_decode not in ("on", "off"):
+        raise ValueError(f"unknown spec_decode {engine_cfg.spec_decode!r}")
+    if engine_cfg.spec_draft < 0:
+        raise ValueError(f"spec_draft ({engine_cfg.spec_draft}) must be "
+                         ">= 0 (0 disables drafting)")
+    if engine_cfg.spec_ngram < 1:
+        raise ValueError(f"spec_ngram ({engine_cfg.spec_ngram}) must be >= 1")
+    adaptive = (engine_cfg.spec_adaptive or "on").strip().lower()
+    if adaptive not in ("on", "off"):
+        raise ValueError(f"engine.spec_adaptive must be on|off, "
+                         f"got {adaptive!r}")
+    dmax = engine_cfg.spec_draft_max or 0
+    if dmax < 0:
+        raise ValueError(f"spec_draft_max ({dmax}) must be >= 0")
+    draft = engine_cfg.spec_draft
+    if engine_cfg.spec_decode != "on" or draft == 0:
+        return 1, (1,)
+    if adaptive == "off":
+        return 1 + draft, (1 + draft,)
+    dmax = dmax or 2 * draft
+    if dmax < draft:
+        raise ValueError(f"spec_draft_max ({dmax}) must cover spec_draft "
+                         f"({draft})")
+    drafts, d = {draft, dmax}, 1
+    while d < dmax:
+        drafts.add(d)
+        d *= 2
+    return 1 + dmax, tuple(sorted(1 + d for d in drafts))
+
+
 @dataclasses.dataclass(frozen=True)
 class PrefillItem:
-    """One prompt's next chunk, for a grouped prefill dispatch. ``is_last``
-    items also get the fused first-token sample and slot activation."""
+    """One prompt's next chunk, for a grouped prefill dispatch or a mixed
+    one. ``is_last`` items also get the fused first-token sample and slot
+    activation."""
 
     chunk_ids: Any                # sequence of token ids (<= prefill_chunk)
     page_row: Any                 # (max_pages_per_slot,) int32
@@ -89,9 +139,8 @@ class DecodeState:
     are (B,) and updated in place by the engine. The ``host_*`` arrays
     mirror what the host set at activation (which slots sample and from
     which seed), so the decode loop picks its sampling rows without a
-    device sync. The TPU package's drafting ``history``, grammar state and
-    adapter index are not ported (spec decoding, grammar and LoRA are
-    ROADMAP A2/A5)."""
+    device sync. The TPU package's grammar state and adapter index are not
+    ported (grammar and LoRA are ROADMAP A5/A3)."""
 
     cache: PagedKVCache
     tokens: torch.Tensor        # (B,) i32 last token per slot
@@ -102,11 +151,20 @@ class DecodeState:
     top_k: torch.Tensor         # (B,) i32
     top_p: torch.Tensor         # (B,) f32
     last_logprob: torch.Tensor  # (B,) f32 model logprob of tokens[b]
+    # (B, max_seq + 1) i32: each slot's token at each absolute position,
+    # valid through index cache.lengths[b] inclusive (the token fed next);
+    # written by prefill chunks, activation and decode appends, read by
+    # prompt-lookup drafting. Column max_seq is a sink for dropped writes
+    # and is never read.
+    history: torch.Tensor
     host_live: np.ndarray       # (B,) bool: activated, not yet released
     host_temperature: np.ndarray
     host_seed: np.ndarray       # (B,) int64 request seeds
-    host_generated: np.ndarray  # (B,) int64, advanced once per decode step
-    generators: List[Optional[torch.Generator]]
+    # (B,) int64 tokens generated, advanced by each decode step; exact for
+    # slots that sample (a widened step reads it back when one does)
+    host_generated: np.ndarray
+    # (slot, verify position) -> that row's generator
+    generators: Dict[Tuple[int, int], torch.Generator]
 
 
 class EngineCore:
@@ -144,14 +202,26 @@ class EngineCore:
         if k < 1 or k & (k - 1):
             raise ValueError(
                 f"decode_steps_per_dispatch ({k}) must be a power of two")
+        # prompt-lookup speculative decoding: every decode step widens to a
+        # rung of the width ladder; spec_width is the ceiling, which sizes
+        # the mixed program's q_block and the scheduler's page horizon
+        self.spec_width, self.spec_widths = spec_ladder(engine_cfg)
         self.max_pages_per_slot = -(-self.max_seq // self.page_size)
         self.num_pages = (engine_cfg.num_pages
                           or self.batch * self.max_pages_per_slot + 1)
         self.prefill_group_max = max(1, engine_cfg.prefill_group)
+        # grouped/mixed chunk-count buckets: powers of two up to the group
+        gb, g = [], 1
+        while g < self.prefill_group_max:
+            gb.append(g)
+            g *= 2
+        gb.append(self.prefill_group_max)
+        self.group_buckets = tuple(gb)
 
         # ---- kernel-support gate: a config the kernels refuse must fail
         # here, never at the first dispatch
         HD = self.model_cfg.head_dim
+        G = self.model_cfg.n_heads // self.model_cfg.n_kv_heads
         if attn == "kernel":
             T = self.max_pages_per_slot * self.page_size
             if not kernels.prefill_supported(self.chunk, T, HD):
@@ -167,11 +237,64 @@ class EngineCore:
                     "paged_decode_supported and ragged_paged_supported "
                     f"disagree for page_size={self.page_size}, head_dim={HD}"
                     " — kernel-support predicates have drifted")
-            G = self.model_cfg.n_heads // self.model_cfg.n_kv_heads
-            if G > kernels.QG_MAX:
-                raise ValueError(f"GQA group {G} exceeds the ragged "
-                                 f"kernel's {kernels.QG_MAX} query rows")
+            if G * self.spec_width > kernels.QG_MAX:
+                raise ValueError(
+                    f"GQA group {G} x speculative width {self.spec_width} "
+                    f"exceeds the ragged kernel's {kernels.QG_MAX} query "
+                    f"rows; lower spec_draft_max or set spec_decode=off")
+
+        # ---- mixed-phase dispatch gate, resolved once and loudly; the
+        # bare env APP_MIXED_PHASE_DISPATCH overrides the config field
+        mixed = (os.environ.get("APP_MIXED_PHASE_DISPATCH", "").strip().lower()
+                 or (engine_cfg.mixed_phase_dispatch or "auto").strip().lower())
+        if mixed not in ("on", "off", "auto"):
+            raise ValueError(f"APP_MIXED_PHASE_DISPATCH must be on|off|auto, "
+                             f"got {mixed!r}")
+        # ragged rows carry q_block queries; a decode slot's whole verify
+        # width must fit one row
+        qb = 8
+        while qb < self.spec_width:
+            qb *= 2
+        self._mixed_q_block = qb
+        reasons = []
+        if self.chunk % qb:
+            reasons.append(f"prefill_chunk ({self.chunk}) not a multiple of "
+                           f"the ragged q_block ({qb})")
+        if attn == "kernel" and not kernels.ragged_paged_supported(
+                self.page_size, HD, qb):
+            reasons.append(f"page_size={self.page_size} / head_dim={HD} "
+                           f"outside the ragged kernel's limits")
+        if attn == "kernel" and G * qb > kernels.QG_MAX:
+            reasons.append(f"GQA group {G} x q_block {qb} exceeds the ragged "
+                           f"kernel's {kernels.QG_MAX} query rows")
+        if mixed == "on" and reasons:
+            raise ValueError("APP_MIXED_PHASE_DISPATCH=on but the mixed "
+                             "program cannot serve this config: "
+                             + "; ".join(reasons))
+        if mixed == "auto":
+            mixed = ("on" if not reasons and self.device.type == "cuda"
+                     else "off")
+            if mixed == "off":
+                logger.info("mixed-phase dispatch: auto resolved off (%s)",
+                            "; ".join(reasons) or
+                            f"device {self.device.type!r} is not cuda")
+        self._mixed = mixed == "on"
         self.params = params
+
+    @property
+    def mixed_row_queries(self) -> int:
+        """Padded query positions per decode slot inside a mixed dispatch:
+        the ragged kernel pads every slot's row to q_block, the plain path
+        keeps the raw speculative width."""
+        if self.model_cfg.attn_impl == "kernel":
+            return self._mixed_q_block
+        return self.spec_width
+
+    @property
+    def mixed_supported(self) -> bool:
+        """Mixed-phase dispatch (one forward = decode step + prefill
+        chunks, ``kv_cache.mixed_step``) is on for this engine."""
+        return self._mixed
 
     # ------------------------------------------------------------------ state
 
@@ -189,11 +312,13 @@ class EngineCore:
             top_k=z(torch.int32),
             top_p=torch.ones((B,), dtype=torch.float32, device=dev),
             last_logprob=z(torch.float32),
+            history=torch.zeros((B, self.max_seq + 1), dtype=torch.int32,
+                                device=dev),
             host_live=np.zeros((B,), np.bool_),
             host_temperature=np.zeros((B,), np.float32),
             host_seed=np.zeros((B,), np.int64),
             host_generated=np.zeros((B,), np.int64),
-            generators=[None] * B)
+            generators={})
 
     def new_allocator(self) -> kv_cache.PageAllocator:
         return kv_cache.PageAllocator(self.num_pages)
@@ -206,16 +331,77 @@ class EngineCore:
         """Host block table -> device."""
         return torch.as_tensor(np.asarray(table, np.int32), device=self.device)
 
-    def _generator(self, state: DecodeState, slot: int,
-                   index: int) -> torch.Generator:
-        g = state.generators[slot]
+    def _generator(self, state: DecodeState, slot: int, index: int,
+                   position: int = 0) -> torch.Generator:
+        """Slot ``slot``'s generator for verify position ``position``,
+        seeded for token ``index`` of its request."""
+        g = state.generators.get((slot, position))
         if g is None:
             g = torch.Generator(device=self.device)
-            state.generators[slot] = g
+            state.generators[(slot, position)] = g
         g.manual_seed(fold_seed(int(state.host_seed[slot]), index))
         return g
 
     # ---------------------------------------------------------------- prefill
+
+    def _write_chunk_history(self, state: DecodeState,
+                             items: Sequence[PrefillItem]) -> None:
+        """Every item's chunk tokens into its slot's history row, in one
+        indexed write built on the host."""
+        n = [len(it.chunk_ids) for it in items]
+        if not sum(n):
+            return
+        rows = np.repeat([it.slot for it in items], n)
+        cols = np.concatenate([it.start_pos + np.arange(k)
+                               for it, k in zip(items, n)])
+        vals = np.concatenate([np.asarray(it.chunk_ids, np.int32)
+                               for it in items])
+        t = lambda a: torch.as_tensor(a, device=self.device)
+        state.history[t(rows.astype(np.int64)),
+                      t(cols.astype(np.int64))] = t(vals)
+
+    def _activate_rows(self, state: DecodeState, logits: torch.Tensor,
+                       items: Sequence[PrefillItem]) -> torch.Tensor:
+        """Fused first-token sample for each item's last-position logits
+        (G, V); ``is_last`` rows activate their slot with it, and the token
+        enters history at the prompt's end. Returns the (G,) samples, valid
+        for is_last rows."""
+        G = len(items)
+        dev = self.device
+        t = lambda a: torch.as_tensor(a, device=dev)
+        temperature = t(np.array([it.temperature for it in items], np.float32))
+        top_k = t(np.array([it.top_k for it in items], np.int32))
+        top_p = t(np.array([it.top_p for it in items], np.float32))
+        gens: List[Optional[torch.Generator]] = [None] * G
+        for i, it in enumerate(items):
+            if it.is_last:
+                state.host_live[it.slot] = True
+                state.host_temperature[it.slot] = it.temperature
+                state.host_seed[it.slot] = it.seed
+                state.host_generated[it.slot] = it.generated
+                if it.temperature > 0:
+                    gens[i] = self._generator(state, it.slot,
+                                              it.generated - 1)
+        toks = sample_logits_per_slot(gens, logits, temperature, top_k, top_p)
+        lps = token_logprob(logits, toks)
+        rows = [i for i, it in enumerate(items) if it.is_last]
+        if rows:
+            ix = t(np.array(rows, np.int64))
+            sl = t(np.array([items[i].slot for i in rows], np.int64))
+            gen = t(np.array([items[i].generated for i in rows], np.int32))
+            mx = t(np.array([items[i].max_gen for i in rows], np.int32))
+            col = t(np.array([min(items[i].start_pos + len(items[i].chunk_ids),
+                                  self.max_seq - 1) for i in rows], np.int64))
+            state.tokens[sl] = toks[ix]
+            state.active[sl] = (toks[ix] != self.eos_id) & (gen < mx)
+            state.generated[sl] = gen
+            state.max_gen[sl] = mx
+            state.temperature[sl] = temperature[ix]
+            state.top_k[sl] = top_k[ix]
+            state.top_p[sl] = top_p[ix]
+            state.last_logprob[sl] = lps[ix]
+            state.history[sl, col] = toks[ix]
+        return toks
 
     @torch.no_grad()
     def prefill_group(self, state: DecodeState, items: Sequence[PrefillItem]
@@ -238,7 +424,6 @@ class EngineCore:
         C = max(ps, -(-longest // ps) * ps)
         tokens = np.zeros((G, C), np.int32)
         page_rows = np.zeros((G, self.max_pages_per_slot), np.int32)
-        slots = np.full((G,), self.batch, np.int32)
         start_pos = np.zeros((G,), np.int32)
         chunk_len = np.zeros((G,), np.int32)
         for i, it in enumerate(items):
@@ -247,63 +432,48 @@ class EngineCore:
             page_rows[i] = it.page_row
             start_pos[i] = it.start_pos
             chunk_len[i] = n
-        # lengths dedup: only a slot's newest row keeps its true id
-        newest = {it.slot: i for i, it in enumerate(items)}
-        for slot, i in newest.items():
-            slots[i] = slot
-        dev = self.device
-        t = lambda a: torch.as_tensor(a, device=dev)
+        t = lambda a: torch.as_tensor(a, device=self.device)
         logits = kv_cache.prefill_chunks(
             self.params, self.model_cfg, t(tokens), state.cache,
-            t(page_rows), t(slots), t(start_pos), t(chunk_len),
-            self.num_pages)
-        temperature = t(np.array([it.temperature for it in items], np.float32))
-        top_k = t(np.array([it.top_k for it in items], np.int32))
-        top_p = t(np.array([it.top_p for it in items], np.float32))
-        gens: List[Optional[torch.Generator]] = [None] * G
-        for i, it in enumerate(items):
-            if it.is_last:
-                state.host_live[it.slot] = True
-                state.host_temperature[it.slot] = it.temperature
-                state.host_seed[it.slot] = it.seed
-                state.host_generated[it.slot] = it.generated
-                if it.temperature > 0:
-                    gens[i] = self._generator(state, it.slot,
-                                              it.generated - 1)
-        toks = sample_logits_per_slot(gens, logits, temperature, top_k, top_p)
-        lps = token_logprob(logits, toks)
-        rows = [i for i, it in enumerate(items) if it.is_last]
-        if rows:
-            ix = t(np.array(rows, np.int64))
-            sl = t(np.array([items[i].slot for i in rows], np.int64))
-            gen = t(np.array([items[i].generated for i in rows], np.int32))
-            mx = t(np.array([items[i].max_gen for i in rows], np.int32))
-            state.tokens[sl] = toks[ix]
-            state.active[sl] = (toks[ix] != self.eos_id) & (gen < mx)
-            state.generated[sl] = gen
-            state.max_gen[sl] = mx
-            state.temperature[sl] = temperature[ix]
-            state.top_k[sl] = top_k[ix]
-            state.top_p[sl] = top_p[ix]
-            state.last_logprob[sl] = lps[ix]
-        return state, toks
+            t(page_rows), t(self._length_slots(items, G)), t(start_pos),
+            t(chunk_len), self.num_pages)
+        self._write_chunk_history(state, items)
+        return state, self._activate_rows(state, logits, items)
+
+    def _length_slots(self, items: Sequence[PrefillItem], G: int
+                      ) -> np.ndarray:
+        """(G,) slots for the lengths update: only a slot's newest row
+        keeps its id; the others, and padding rows, carry the batch size
+        (dropped)."""
+        slots = np.full((G,), self.batch, np.int32)
+        for slot, i in {it.slot: i for i, it in enumerate(items)}.items():
+            slots[i] = slot
+        return slots
 
     # ----------------------------------------------------------------- decode
 
-    def _step(self, state: DecodeState, page_table: torch.Tensor
-              ) -> Dict[str, torch.Tensor]:
-        """One decode step over every slot (``step_narrow`` there)."""
-        cache = state.cache
-        prev_len = cache.lengths.clone()
-        logits = kv_cache.decode_step(self.params, self.model_cfg,
-                                      state.tokens, cache, page_table,
-                                      state.active, self.num_pages)
+    def _live_sampling(self, state: DecodeState):
         active = state.active
         zero = torch.zeros((), device=self.device)
-        live_temp = torch.where(active, state.temperature, zero)
-        live_topk = torch.where(active, state.top_k,
-                                torch.zeros_like(state.top_k))
-        live_topp = torch.where(active, state.top_p, zero + 1.0)
+        return (torch.where(active, state.temperature, zero),
+                torch.where(active, state.top_k, torch.zeros_like(state.top_k)),
+                torch.where(active, state.top_p, zero + 1.0))
+
+    def _step(self, state: DecodeState, page_table: torch.Tensor,
+              forward: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+        """One narrow decode step over every slot (``step_narrow`` there).
+        ``forward(tokens) -> (B, V)`` replaces the model call and advances
+        every slot's length by one, as ``kv_cache.decode_step`` does.
+        Out arrays are (1, B)."""
+        cache = state.cache
+        if forward is None:
+            forward = lambda toks: kv_cache.decode_step(
+                self.params, self.model_cfg, toks, cache, page_table,
+                state.active, self.num_pages)
+        prev_len = cache.lengths.clone()
+        logits = forward(state.tokens)
+        active = state.active
+        live_temp, live_topk, live_topp = self._live_sampling(state)
         gens = [self._generator(state, b, int(state.host_generated[b]))
                 if state.host_live[b] and state.host_temperature[b] > 0
                 else None for b in range(self.batch)]
@@ -316,6 +486,9 @@ class EngineCore:
                          | (cache.lengths >= self.max_seq - 1))
         # inactive slots keep their lengths, so their positions stay put
         cache.lengths.copy_(torch.where(active, cache.lengths, prev_len))
+        cols = torch.where(active & (cache.lengths < self.max_seq),
+                           cache.lengths, self.max_seq).long()
+        state.history.scatter_(1, cols[:, None], sampled[:, None])
         # state.tokens/active/last_logprob are rebound below, never written
         # in place, so the step's inputs can ride out without copies
         out = {"sampled": sampled, "emitted": active, "done": done,
@@ -326,21 +499,200 @@ class EngineCore:
         state.generated = generated
         state.active = active & ~done
         state.host_generated += state.host_live
+        return {k: v[None] for k, v in out.items()}
+
+    def _step_wide(self, state: DecodeState, page_table: torch.Tensor,
+                   W: int, draft_cap: Optional[torch.Tensor] = None,
+                   forward: Optional[Callable] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One speculative verify step (``step_wide`` there): draft W - 1
+        tokens per slot from its history (capped by ``draft_cap``), run one
+        W-wide forward (``forward(inputs (B, W)) -> (B, W, V)``, lengths
+        unchanged), sample every position with the slot's generator for
+        token ``generated + w``, accept the longest matching prefix, clamp
+        it to pages actually covered, the budget and the capacity, and cut
+        it after an EOS. Out arrays are (W, B)."""
+        B, dev = self.batch, self.device
+        cache = state.cache
+        if forward is None:
+            forward = lambda inputs: kv_cache.decode_step_wide(
+                self.params, self.model_cfg, inputs, cache, page_table,
+                state.active, self.num_pages)
+        L = cache.lengths.to(torch.int64)
+        draft, dlen = draft_lookup(state.history[:, :self.max_seq], L, W - 1,
+                                   self.cfg.spec_ngram)
+        if draft_cap is not None:
+            dlen = torch.minimum(dlen, draft_cap)
+        inputs = torch.cat([state.tokens[:, None], draft], dim=1)
+        raw = forward(inputs).float()                             # (B, W, V)
+        V = raw.shape[-1]
+        active = state.active
+        live_temp, live_topk, live_topp = self._live_sampling(state)
+        gens: List[Optional[torch.Generator]] = [None] * (B * W)
+        for b in range(B):
+            if state.host_live[b] and state.host_temperature[b] > 0:
+                for w in range(W):
+                    gens[b * W + w] = self._generator(
+                        state, b, int(state.host_generated[b]) + w, w)
+        rep = lambda x: x.repeat_interleave(W)
+        flat = raw.reshape(B * W, V)
+        sampled = sample_logits_per_slot(gens, flat, rep(live_temp),
+                                         rep(live_topk), rep(live_topp))
+        lp = token_logprob(flat, sampled).reshape(B, W)
+        sampled = sampled.reshape(B, W)
+        e = acceptance(sampled, draft, dlen).to(torch.int64)      # 1..W
+        pos_w = torch.arange(W, device=dev)[None]
+        # accepted positions need real pages behind their writes (the
+        # scheduler may not have grown the row that far: such writes went
+        # to the null page); position L is always covered
+        cols = (L[:, None] + pos_w).clamp_max(self.max_seq - 1) // self.page_size
+        covered = page_table.to(torch.int64).gather(1, cols) != 0
+        lead = torch.cumprod(covered.to(torch.int64), dim=1).sum(dim=1)
+        e = torch.minimum(e, lead.clamp_min(1))
+        gen0 = state.generated.to(torch.int64)
+        e = torch.minimum(e, (state.max_gen.to(torch.int64) - gen0).clamp_min(1))
+        e = torch.minimum(e, ((self.max_seq - 1) - L).clamp_min(1))
+        is_eos = sampled == self.eos_id
+        first_eos = torch.where(is_eos, pos_w, torch.full_like(pos_w, W)
+                                ).amin(dim=1)
+        e = torch.minimum(e, first_eos + 1)
+        emitted_w = active[:, None] & (pos_w < e[:, None])
+        generated = (gen0 + torch.where(active, e, 0)).to(torch.int32)
+        lengths = torch.where(active, L + e, L)
+        last_ix = (e - 1)[:, None]
+        last_tok = sampled.gather(1, last_ix)[:, 0]
+        last_lp = lp.gather(1, last_ix)[:, 0]
+        last_eos = is_eos.gather(1, last_ix)[:, 0]
+        done_slot = active & (last_eos | (generated >= state.max_gen)
+                              | (lengths >= self.max_seq - 1))
+        done_w = emitted_w & (pos_w == last_ix) & done_slot[:, None]
+        cache.lengths.copy_(lengths.to(torch.int32))
+        h_cols = L[:, None] + 1 + pos_w
+        h_cols = torch.where(emitted_w & (h_cols < self.max_seq), h_cols,
+                             self.max_seq)
+        state.history.scatter_(1, h_cols, sampled)
+        out = {"sampled": sampled.T, "emitted": emitted_w.T, "done": done_w.T,
+               "hit_eos": is_eos.T, "input_tokens": inputs.T, "sampled_lp": lp.T,
+               "input_lp": torch.cat([state.last_logprob[None],
+                                      torch.zeros((W - 1, B), device=dev)])}
+        state.tokens = torch.where(active, last_tok, state.tokens)
+        state.last_logprob = torch.where(active, last_lp, state.last_logprob)
+        state.generated = generated
+        state.active = active & ~done_slot
+        if (state.host_live & (state.host_temperature > 0)).any():
+            # a sampling slot's next draws need its exact token count
+            state.host_generated[:] = generated.cpu().numpy()
         return out
 
-    @torch.no_grad()
-    def decode(self, state: DecodeState, page_table: torch.Tensor,
-               steps: int = 1) -> Tuple[DecodeState, Dict[str, Any]]:
-        """Run ``steps`` decode steps over all slots; ``page_table`` from
-        :meth:`put_table`. Out arrays are (steps, B); ``input_tokens``
-        carries each step's input, and ``out["packed"]`` stacks every field
-        as int32 (logprobs bitcast) for one device-to-host copy."""
-        outs = [self._step(state, page_table) for _ in range(steps)]
-        res: Dict[str, Any] = {k: torch.stack([o[k] for o in outs])
+    def _width(self, spec_width: Optional[int], draft_cap
+               ) -> Tuple[int, Optional[torch.Tensor]]:
+        W = spec_width or self.spec_widths[-1]
+        if W not in self.spec_widths:
+            raise ValueError(f"spec_width {W} is not a ladder rung "
+                             f"{self.spec_widths}")
+        if draft_cap is not None:
+            draft_cap = torch.as_tensor(np.asarray(draft_cap, np.int32),
+                                        device=self.device)
+        return W, draft_cap
+
+    def _run_step(self, state: DecodeState, page_table: torch.Tensor, W: int,
+                  draft_cap, forward=None) -> Dict[str, torch.Tensor]:
+        if W == 1:
+            return self._step(state, page_table, forward)
+        return self._step_wide(state, page_table, W, draft_cap, forward)
+
+    @staticmethod
+    def _pack(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+        """Stack the steps' (W, B) arrays into (steps*W, B) micro-rows, and
+        every field as int32 (logprobs bitcast) into ``packed`` for one
+        device-to-host copy."""
+        res: Dict[str, Any] = {k: torch.cat([o[k] for o in outs])
                                for k in _PACKED_FIELDS}
         res["packed"] = torch.stack([
             res[k].view(torch.int32) if k in _LP_FIELDS
             else res[k].to(torch.int32) for k in _PACKED_FIELDS])
+        return res
+
+    @torch.no_grad()
+    def decode(self, state: DecodeState, page_table: torch.Tensor,
+               steps: int = 1, *, spec_width: Optional[int] = None,
+               draft_cap=None) -> Tuple[DecodeState, Dict[str, Any]]:
+        """Run ``steps`` decode steps over all slots, each ``spec_width``
+        wide (a ladder rung; default the ceiling) with per-slot draft caps
+        ``draft_cap`` (B,) (default uncapped); ``page_table`` from
+        :meth:`put_table`. Out arrays are (steps*W, B) micro-rows, (step,
+        position) in order; ``input_tokens`` carries each position's input,
+        and ``out["packed"]`` stacks every field as int32 (logprobs
+        bitcast) for one device-to-host copy."""
+        W, cap = self._width(spec_width, draft_cap)
+        return state, self._pack([self._run_step(state, page_table, W, cap)
+                                  for _ in range(steps)])
+
+    @torch.no_grad()
+    def decode_mixed(self, state: DecodeState, page_table: torch.Tensor,
+                     steps: int, items: Sequence[PrefillItem], *,
+                     spec_width: Optional[int] = None, draft_cap=None
+                     ) -> Tuple[DecodeState, Dict[str, Any]]:
+        """One mixed-phase dispatch (``_mixed_impl`` there): ``steps``
+        decode steps whose first forward also prefills one chunk of each
+        item (distinct prefilling slots) as ragged rows of ``q_block``
+        queries (``kv_cache.mixed_step``). The chunks' lengths and history
+        are set after step 0 (their slots stay inactive through the
+        steps); ``is_last`` items then sample their first token and
+        activate their slot, so they decode from the next dispatch. Chunks
+        pad to ``prefill_chunk`` and the group to a ``group_buckets`` size.
+        The out block is :meth:`decode`'s, plus ``first_tokens`` (G,) for
+        the items (valid for is_last ones)."""
+        if not self.mixed_supported:
+            raise ValueError("mixed-phase dispatch is gated off for this "
+                             "engine (APP_MIXED_PHASE_DISPATCH or an "
+                             "unsupported config)")
+        if not 1 <= len(items) <= self.prefill_group_max:
+            raise ValueError(f"{len(items)} chunks; limit is "
+                             f"{self.prefill_group_max}")
+        if len({it.slot for it in items}) != len(items):
+            raise ValueError("a mixed dispatch takes one chunk per slot")
+        G = next(b for b in self.group_buckets if len(items) <= b)
+        C = self.chunk
+        tokens = np.zeros((G, C), np.int32)
+        page_rows = np.zeros((G, self.max_pages_per_slot), np.int32)
+        start_pos = np.zeros((G,), np.int32)
+        chunk_len = np.zeros((G,), np.int32)
+        for i, it in enumerate(items):
+            n = len(it.chunk_ids)
+            if n > C:
+                raise ValueError(f"chunk of {n} tokens exceeds "
+                                 f"prefill_chunk ({C})")
+            tokens[i, :n] = it.chunk_ids
+            page_rows[i] = it.page_row
+            start_pos[i] = it.start_pos
+            chunk_len[i] = n
+        t = lambda a: torch.as_tensor(a, device=self.device)
+        W, cap = self._width(spec_width, draft_cap)
+        cache = state.cache
+        ch_args = (t(tokens), t(page_rows), t(start_pos), t(chunk_len))
+        cell: Dict[str, torch.Tensor] = {}
+
+        def forward(inputs: torch.Tensor) -> torch.Tensor:
+            wide = inputs if inputs.dim() == 2 else inputs[:, None]
+            dec, cell["chunk"] = kv_cache.mixed_step(
+                self.params, self.model_cfg, wide, cache, page_table,
+                state.active, self.num_pages, *ch_args,
+                q_block=self._mixed_q_block)
+            if inputs.dim() == 2:
+                return dec
+            cache.lengths += 1         # the narrow step's contract
+            return dec[:, 0]
+
+        outs = [self._run_step(state, page_table, W, cap, forward)]
+        cache.lengths[t(np.array([it.slot for it in items], np.int64))] = \
+            t((start_pos + chunk_len)[:len(items)])
+        self._write_chunk_history(state, items)
+        outs += [self._run_step(state, page_table, W, cap)
+                 for _ in range(steps - 1)]
+        first = self._activate_rows(state, cell["chunk"][:len(items)], items)
+        res = self._pack(outs)
+        res["first_tokens"] = first
         return state, res
 
     @torch.no_grad()
@@ -348,7 +700,10 @@ class EngineCore:
                  generated: int, max_gen: int, temperature: float, top_k: int,
                  top_p: float, seed: int = 0) -> DecodeState:
         """Start decoding a prefilled slot (lengths set by its last chunk;
-        ``generated`` counts tokens already produced, >= 1)."""
+        ``generated`` counts tokens already produced, >= 1); the token
+        enters history at the slot's length."""
+        state.history[slot, state.cache.lengths[slot].long()
+                      .clamp_max(self.max_seq - 1)] = token
         state.tokens[slot] = token
         state.active[slot] = True
         state.generated[slot] = generated
@@ -370,4 +725,3 @@ class EngineCore:
         state.active[slot] = False
         state.host_live[slot] = False
         return state
-

@@ -289,17 +289,9 @@ def decode_step_wide(params: llama.Params, cfg: llama.LlamaConfig,
 
     def attn_for_layer(i):
         def attn(q, k, v):
-            flat = i * num_pages + rows                               # (B, Q)
-            if cache.quantized:
-                # (flat, :, offs) puts the (B, Q) index dims first: (B, Q, KV)
-                for pool, scales, x in ((cache.k, cache.k_s, k),
-                                        (cache.v, cache.v_s, v)):
-                    xq, xs = _kv_quantize(x.reshape(B, Q, KV * HD), KV, HD)
-                    pool[flat, offs] = xq
-                    scales[flat, :, offs] = xs
-            else:
-                cache.k[flat, offs] = k.to(cache.k.dtype).reshape(B, Q, KV * HD)
-                cache.v[flat, offs] = v.to(cache.v.dtype).reshape(B, Q, KV * HD)
+            _write_rows(cache, i * num_pages + rows, offs,
+                        k.reshape(B, Q, KV * HD), v.reshape(B, Q, KV * HD),
+                        KV, HD)
             if use_kernel:
                 return kernels.paged_decode(q, cache.k, cache.v, page_table,
                                             attn_len, layer=i,
@@ -315,6 +307,159 @@ def decode_step_wide(params: llama.Params, cfg: llama.LlamaConfig,
 
     h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer)
     return llama._unembed(cfg, params, h)
+
+
+def _write_rows(cache: PagedKVCache, flat: torch.Tensor, offs: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor, KV: int, HD: int) -> None:
+    """Write (B, Q, KV*HD) K/V rows at pool rows ``flat`` and in-page
+    offsets ``offs`` (both (B, Q)), in place, quantizing for an int8 pool;
+    ``(flat, :, offs)`` puts the (B, Q) index dims first: (B, Q, KV)."""
+    if cache.quantized:
+        for pool, scales, x in ((cache.k, cache.k_s, k),
+                                (cache.v, cache.v_s, v)):
+            xq, xs = _kv_quantize(x, KV, HD)
+            pool[flat, offs] = xq
+            scales[flat, :, offs] = xs
+    else:
+        cache.k[flat, offs] = k.to(cache.k.dtype)
+        cache.v[flat, offs] = v.to(cache.v.dtype)
+
+
+def mixed_step(params: llama.Params, cfg: llama.LlamaConfig,
+               tokens: torch.Tensor, cache: PagedKVCache,
+               page_table: torch.Tensor, write_mask: torch.Tensor,
+               num_pages: int, chunk_tokens: torch.Tensor,
+               chunk_page_rows: torch.Tensor, chunk_start: torch.Tensor,
+               chunk_len: torch.Tensor, q_block: int = 8
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One forward of a Q-wide decode step for every slot plus up to G
+    prefill chunks, as one token axis (the mixed-phase dispatch).
+
+    tokens: (B, Q) decode inputs as in :func:`decode_step_wide`;
+    chunk_tokens: (G, C) right-padded page-aligned chunks, one per distinct
+    prefilling slot, each slot masked out of ``write_mask``;
+    chunk_page_rows: (G, maxp); chunk_start, chunk_len: (G,) as in
+    :func:`prefill_chunks`. Padding rows carry ``chunk_len`` 0 and page
+    rows of zeros (their writes land on the null page).
+
+    With kernel attention every row runs in one ``ragged_paged_attention``
+    launch per layer, either pool: B decode rows of Q queries padded to
+    ``q_block``, then C / q_block rows per chunk; the ragged metadata is
+    built once. Otherwise the plain path attends over dense gathers, the
+    two-dispatch math. Updates the pool in place; ``lengths`` is left
+    unchanged (the engine sets it from accepted counts and chunk ends).
+    Returns (decode logits (B, Q, V), logits at each chunk's last valid
+    position (G, V)).
+    """
+    B, Q = tokens.shape
+    G, C = chunk_tokens.shape
+    ps = cache.page_size
+    if C % ps:
+        raise ValueError(f"chunk size {C} must be page-aligned (page={ps})")
+    if q_block < 1 or C % q_block:
+        raise ValueError(f"chunk size {C} must be a multiple of the ragged "
+                         f"q_block ({q_block})")
+    use_kernel = llama.kernel_attention(cfg)
+    if use_kernel and q_block < Q:
+        raise ValueError(f"decode width {Q} exceeds the ragged q_block "
+                         f"({q_block})")
+    n_cp = C // ps
+    maxp = page_table.shape[1]
+    T = maxp * ps
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_rows = C // q_block                                     # per chunk
+    dev = tokens.device
+    L = cache.lengths.to(torch.int64)
+    dec_pos = L[:, None] + torch.arange(Q, device=dev)[None]          # (B, Q)
+    start = chunk_start.to(torch.int64)
+    ch_pos = start[:, None] + torch.arange(C, device=dev)[None]       # (G, C)
+    positions = torch.cat([dec_pos.reshape(1, B * Q),
+                           ch_pos.reshape(1, G * C)], dim=1)
+    h = llama.embed_tokens(params, cfg, torch.cat(
+        [tokens.reshape(1, B * Q), chunk_tokens.reshape(1, G * C)], dim=1))
+    cos, sin = rotary_embedding(positions, HD, cfg.rope_theta,
+                                scaling=cfg.rope_scaling)
+    # decode rows: decode_step_wide's write and attention geometry
+    attn_len = (L + Q).to(torch.int32)
+    table64 = page_table.to(torch.int64)
+    ok = write_mask[:, None] & (dec_pos < T)
+    rows = torch.where(ok, table64.gather(
+        1, (dec_pos // ps).clamp_max(maxp - 1)), torch.zeros_like(dec_pos))
+    offs = dec_pos % ps
+    # chunk pages: prefill_chunks' geometry
+    chunk_rows64 = chunk_page_rows.to(torch.int64)
+    chunk_pages = chunk_rows64.gather(
+        1, (start // ps)[:, None] + torch.arange(n_cp, device=dev)[None])
+    valid_through = (chunk_start + chunk_len).to(torch.int32)         # (G,)
+    if use_kernel:
+        jr = torch.arange(n_rows, device=dev)
+        row_tables = torch.cat([page_table.to(torch.int32),
+                                chunk_page_rows.to(torch.int32)
+                                .repeat_interleave(n_rows, dim=0)])
+        q_num_ch = (chunk_len.to(torch.int64)[:, None]
+                    - jr[None] * q_block).clamp(0, q_block)
+        # idle tail rows get kv_len 0, so the kernel walks no pages for them
+        kv_lens = torch.cat([attn_len, torch.where(
+            q_num_ch > 0, valid_through[:, None].to(torch.int64),
+            torch.zeros_like(q_num_ch)).reshape(-1).to(torch.int32)])
+        q_pos0 = torch.cat([L, (start[:, None] + jr[None] * q_block)
+                            .reshape(-1)]).to(torch.int32)
+        q_num = torch.cat([torch.full((B,), Q, dtype=torch.int64, device=dev),
+                           q_num_ch.reshape(-1)]).to(torch.int32)
+    else:
+        cache_positions = torch.arange(T, device=dev)
+        dec_mask = cache_positions[None] < attn_len[:, None]
+        ch_mask = cache_positions[None] < valid_through[:, None]
+
+    def attn_for_layer(i):
+        def attn(q, k, v):
+            # q/k/v: (1, N, H|KV, HD), B*Q decode rows then G*C chunk rows;
+            # chunk pages go in first, then the decode rows (disjoint page
+            # sets: every chunk's slot is masked out of the decode writes)
+            _scatter_pages(cache, (i * num_pages + chunk_pages).reshape(-1),
+                           k[0, B * Q:].reshape(G, C, KV, HD),
+                           v[0, B * Q:].reshape(G, C, KV, HD))
+            _write_rows(cache, i * num_pages + rows, offs,
+                        k[0, :B * Q].reshape(B, Q, KV * HD),
+                        v[0, :B * Q].reshape(B, Q, KV * HD), KV, HD)
+            q_dec = q[0, :B * Q].reshape(B, Q, H, HD)
+            q_ch = q[0, B * Q:].reshape(G, C, H, HD)
+            if use_kernel:
+                q_rows = torch.cat([
+                    torch.nn.functional.pad(q_dec,
+                                            (0, 0, 0, 0, 0, q_block - Q)),
+                    q_ch.reshape(G * n_rows, q_block, H, HD)])
+                ctx = kernels.ragged_paged_attention(
+                    q_rows, cache.k, cache.v, row_tables, kv_lens, q_pos0,
+                    q_num, layer=i, pages_per_layer=num_pages,
+                    k_scales=cache.k_s, v_scales=cache.v_s)
+                return torch.cat([ctx[:B, :Q].reshape(1, B * Q, H, HD),
+                                  ctx[B:].reshape(1, G * C, H, HD)], dim=1)
+            k_dense, v_dense = _gather_dense(cache, i * num_pages + table64,
+                                             B, T, KV, HD, q.dtype)
+            ctx_dec = mha_prefill(
+                q_dec, k_dense, v_dense, q_positions=dec_pos,
+                kv_positions=cache_positions[None].expand(B, T),
+                kv_mask=dec_mask, causal=True)
+            k_dense, v_dense = _gather_dense(cache,
+                                             i * num_pages + chunk_rows64,
+                                             G, T, KV, HD, q.dtype)
+            ctx_ch = mha_prefill(
+                q_ch, k_dense, v_dense, q_positions=ch_pos,
+                kv_positions=cache_positions[None].expand(G, T),
+                kv_mask=ch_mask, causal=True)
+            return torch.cat([ctx_dec.reshape(1, B * Q, H, HD),
+                              ctx_ch.reshape(1, G * C, H, HD)], dim=1)
+        return attn
+
+    h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer)
+    # unembed only what is read: every decode position and each chunk's
+    # last valid position
+    last = (B * Q + torch.arange(G, device=dev) * C
+            + (chunk_len.to(torch.int64) - 1).clamp_min(0))
+    h_sel = torch.cat([h[:, :B * Q], h[:, last]], dim=1)
+    logits = llama._unembed(cfg, params, h_sel)[0]
+    return logits[:B * Q].reshape(B, Q, -1), logits[B * Q:]
 
 
 def decode_step(params: llama.Params, cfg: llama.LlamaConfig,

@@ -7,10 +7,15 @@ scheduler.py``. One driver thread owns the device; each tick it
      KV pages are free (a prompt that can never fit fails loudly);
   2. runs one grouped prefill dispatch: up to ``prefill_group`` chunks,
      oldest admission first, final chunks sampling their first token and
-     activating their slot in the same pass;
-  3. runs one K-step decode dispatch over the active slots and fans the
-     tokens out to per-request queues, with stop strings matched on the
-     host over the detokenized stream.
+     activating their slot in the same pass -- unless the prompts may ride
+     the decode dispatch instead (mixed-phase dispatch: while slots decode
+     and at most ``prefill_group`` prompts prefill, each one's next chunk
+     joins the decode forward as ragged rows);
+  3. runs one K-step decode dispatch over the active slots, each step
+     W tokens wide under speculative decoding (W the smallest rung of the
+     width ladder covering every slot's acceptance-tuned draft cap), and
+     fans the accepted tokens out to per-request queues, with stop strings
+     matched on the host over the detokenized stream.
 
 Pages grow as decode crosses page boundaries; when the pool is exhausted
 the youngest request is preempted and re-queued as prompt + generated
@@ -19,13 +24,15 @@ host waits for each decode result before the next dispatch.
 
 Not ported (their Request fields raise): logprobs, LoRA adapters, grammar,
 KV handoff (ROADMAP A2, A3, A5, A7); nor the prefix cache, spill/tier,
-QoS, SLO, metrics and flight planes (A6).
+QoS, SLO, metrics and flight planes, the prefill-priority hold and the
+multi-step plan (A6). Speculation counters live in ``Scheduler.stats``.
 """
 
 from __future__ import annotations
 
 import heapq
 import logging
+import math
 import queue
 import random
 import threading
@@ -120,6 +127,7 @@ class _Job:
     admit_seq: int = 0            # admission order (preemption picks max)
     stop_buf: str = ""            # held-back text (possible stop prefix)
     stopped: bool = False
+    spec_ema: float = -1.0        # trailing accepted drafts; < 0 = unset
 
 
 class Scheduler:
@@ -141,9 +149,24 @@ class Scheduler:
         self._running = False
         self._thread: Optional[threading.Thread] = None
         self._wake = threading.Event()
-        # dispatch counts, read by chip_smoke.py and /health
+        # speculative decoding widens each decode step to W positions per
+        # slot (page growth is in positions); _spec_w is the ceiling, and
+        # with an adaptive ladder each dispatch picks the smallest rung
+        # covering every slot's draft cap
+        self._spec_w = core.spec_width
+        self._spec_widths = tuple(core.spec_widths)
+        # global acceptance EMA seeding fresh slots' controllers, at
+        # spec_draft / 2 so a fresh slot's cap (ceil(2 x ema)) is the
+        # configured draft; wider rungs are earned by measured acceptance
+        self._spec_ema_global = min(core.cfg.spec_draft,
+                                    self._spec_w - 1) / 2.0
+        # dispatch counts, read by chip_smoke.py and /health: mixed
+        # dispatches, widened decode steps (W > 1), accepted drafts
+        # (spec_bonus_tokens) over slot-steps that emitted (spec_base_steps)
         self.stats = {"prefill_dispatches": 0, "prefill_chunks": 0,
                       "decode_dispatches": 0, "decode_steps": 0,
+                      "mixed_dispatches": 0, "spec_steps": 0,
+                      "spec_bonus_tokens": 0, "spec_base_steps": 0,
                       "preemptions": 0}
 
     # ------------------------------------------------------------------ API
@@ -206,6 +229,8 @@ class Scheduler:
         return {"running": len(self._slots),
                 "prefilling": len(self._prefilling), "waiting": waiting,
                 "batch": self.core.batch, "kv_dtype": self.core.kv_dtype,
+                "spec_widths": list(self._spec_widths),
+                "mixed": self.core.mixed_supported,
                 "kv_pool_bytes": self._state.cache.nbytes,
                 "kv_pages_free": self._alloc.available, **self.stats}
 
@@ -406,17 +431,21 @@ class Scheduler:
 
     # -- decode -------------------------------------------------------------
 
-    def _grow_pages(self, steps: int) -> int:
-        """Give every active slot pages for its next ``steps`` writes;
-        preempt the youngest request only when even one step cannot be
-        covered. Returns the power-of-two step count all slots can take."""
+    def _grow_pages(self, steps: int, spec_w: int = 1) -> int:
+        """Give every active slot pages for its next ``steps`` dispatch
+        steps of ``spec_w`` positions each; preempt the youngest request
+        only when even one position cannot be covered. Returns the
+        power-of-two step count all slots have pages for (positions a
+        starved row could not cover land on the null page, and the engine
+        clamps acceptance to the covered span)."""
         effective = steps
         for slot in list(self._slots):
             job = self._slots.get(slot)
             if job is None:
                 continue   # preempted earlier in this pass
             while self._slots.get(slot) is job:
-                target = min(self.core.pages_for(job.total_len + steps - 1),
+                target = min(self.core.pages_for(job.total_len
+                                                 + steps * spec_w - 1),
                              self.core.max_pages_per_slot)
                 minimum = min(self.core.pages_for(job.total_len),
                               self.core.max_pages_per_slot)
@@ -437,7 +466,7 @@ class Scheduler:
                 continue
             if len(job.pages) < self.core.max_pages_per_slot:
                 covered = len(job.pages) * self.core.page_size - job.total_len
-                effective = max(1, min(effective, covered))
+                effective = max(1, min(effective, covered // spec_w))
         p2 = 1
         while p2 * 2 <= effective:
             p2 *= 2
@@ -461,21 +490,164 @@ class Scheduler:
         logger.info("preempted request %s at %d generated tokens",
                     job.request.request_id, len(job.gen_ids))
 
-    def _decode_step(self) -> None:
-        """One K-step decode dispatch, then fan its tokens out."""
-        steps = self._grow_pages(self.core.cfg.decode_steps_per_dispatch)
+    # EMA smoothing of the acceptance signal, and the headroom between the
+    # trailing accepted-drafts mean and the offered draft: cap = ceil(
+    # headroom x ema), so a slot whose drafts all land climbs the ladder;
+    # below _SPEC_MIN_EMA a slot gets no drafts at all
+    _SPEC_EMA_ALPHA = 0.3
+    _SPEC_HEADROOM = 2.0
+    _SPEC_MIN_EMA = 0.05
+
+    def _choose_draft(self, job: _Job) -> int:
+        """Acceptance-tuned draft budget for one slot: the smallest ladder
+        draft covering headroom x trailing acceptance. Exact-match
+        acceptance makes any cap token-identical: it tunes waste only."""
+        if job.spec_ema < 0:
+            job.spec_ema = self._spec_ema_global
+        if job.spec_ema < self._SPEC_MIN_EMA:
+            return 0
+        want = math.ceil(self._SPEC_HEADROOM * job.spec_ema)
+        top = self._spec_w - 1
+        for w in self._spec_widths:
+            if w - 1 >= want:
+                return min(w - 1, top)
+        return top
+
+    def _spec_plan(self):
+        """(dispatch width, (B,) per-slot draft caps) for this dispatch:
+        the smallest rung covering every slot's cap; (ceiling, None) when
+        the engine has no adaptive ladder."""
+        if self._spec_w <= 1 or len(self._spec_widths) <= 1:
+            return self._spec_w, None
+        caps = np.zeros((self.core.batch,), np.int32)
+        top = 0
+        for slot, job in self._slots.items():
+            caps[slot] = self._choose_draft(job)
+            top = max(top, int(caps[slot]))
+        w_disp = next((w for w in self._spec_widths if w >= 1 + top),
+                      self._spec_widths[-1])
+        return w_disp, caps
+
+    def _note_acceptance(self, out: Dict[str, np.ndarray], w_disp: int,
+                         active_map: Dict[int, _Job]) -> None:
+        """Feed the controller and the spec counters from one dispatch:
+        per widened step, a slot's accepted drafts (tokens emitted - 1)
+        update its EMA and the global one."""
+        if w_disp <= 1:
+            return
+        em = out["emitted"].reshape(-1, w_disp, out["emitted"].shape[1])
+        per_step = em.sum(axis=1)                       # (steps, B)
+        self.stats["spec_bonus_tokens"] += int(
+            np.maximum(per_step - 1, 0).sum())
+        self.stats["spec_base_steps"] += int((per_step > 0).sum())
+        a = self._SPEC_EMA_ALPHA
+        for slot, job in active_map.items():
+            col = per_step[:, slot]
+            live = col > 0
+            if not live.any():
+                continue
+            mean = float((col[live] - 1).mean())
+            if job.spec_ema < 0:
+                job.spec_ema = self._spec_ema_global
+            job.spec_ema = (1 - a) * job.spec_ema + a * mean
+            self._spec_ema_global = ((1 - a) * self._spec_ema_global
+                                     + a * mean)
+
+    def _mixed_eligible(self, job: _Job) -> bool:
+        """May this prefilling job's next chunk ride the decode dispatch?
+        Not while more than a group of chunks is left: the mixed program
+        moves one chunk per job a dispatch, the grouped one up to
+        ``prefill_group``."""
+        remaining = len(job.ids) - job.prefilled
+        return remaining <= self.core.prefill_group_max * self.core.chunk
+
+    def _pack_mixed_chunks(self):
+        """Every prefilling job's next chunk as a PrefillItem to ride this
+        decode dispatch, one per job (their slots are disjoint). Called
+        after _grow_pages, whose preemption may have evicted jobs, so the
+        checks run again; returns (items, [(job, is_last), ...]) or None
+        (the chunks then take the grouped prefill next tick)."""
+        if not self._prefilling or not self._slots or \
+                not self.core.mixed_supported:
+            return None
+        jobs = list(self._prefilling)
+        if len(jobs) > self.core.prefill_group_max or \
+                not all(self._mixed_eligible(j) for j in jobs):
+            return None
+        items, metas = [], []
+        for job in jobs:
+            req = job.request
+            start = job.prefilled
+            chunk_ids = job.ids[start:start + self.core.chunk]
+            last = start + len(chunk_ids) >= len(job.ids)
+            if req.prefill_start_at is None:
+                req.prefill_start_at = time.perf_counter()
+            items.append(PrefillItem(
+                chunk_ids=chunk_ids, page_row=self._table[job.slot],
+                slot=job.slot, start_pos=start, is_last=last,
+                generated=len(job.gen_ids) + 1, max_gen=req.max_tokens,
+                temperature=req.temperature, top_k=req.top_k,
+                top_p=req.top_p, seed=req.seed or 0))
+            metas.append((job, last))
+        return items, metas
+
+    def _decode_step(self, try_mixed: bool = False) -> None:
+        """One K-step decode dispatch (with the prefilling jobs' next
+        chunks fused in when ``try_mixed``), then fan its tokens out."""
+        w_plan, _ = self._spec_plan()
+        steps = self._grow_pages(self.core.cfg.decode_steps_per_dispatch,
+                                 w_plan)
         if not self._slots:
             return
+        packed = self._pack_mixed_chunks() if try_mixed else None
+        # re-planned after _grow_pages: preemption only removes slots, so
+        # the rung never widens past the grown horizon
+        w_disp, caps = self._spec_plan()
         active_map = dict(self._slots)
-        self._state, out = self.core.decode(self._state, self._table_device(),
-                                            steps)
+        table = self._table_device()
+        if packed is not None:
+            # mixed dispatches run the ceiling width, uncapped: the ragged
+            # kernel pads every decode row to q_block whatever W is
+            items, metas = packed
+            w_disp = self._spec_w
+            for it, (job, _) in zip(items, metas):
+                job.prefilled = job.total_len = (it.start_pos
+                                                 + len(it.chunk_ids))
+            self._state, out = self.core.decode_mixed(self._state, table,
+                                                      steps, items)
+            self.stats["mixed_dispatches"] += 1
+            self.stats["prefill_chunks"] += len(items)
+        else:
+            kw = ({} if caps is None
+                  else {"spec_width": w_disp, "draft_cap": caps})
+            self._state, out = self.core.decode(self._state, table, steps,
+                                                **kw)
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += steps
-        self._process_decode(unpack_decode_out(out["packed"].cpu().numpy()),
-                             active_map)
+        if w_disp > 1:
+            self.stats["spec_steps"] += steps
+        host = unpack_decode_out(out["packed"].cpu().numpy())
+        self._note_acceptance(host, w_disp, active_map)
+        self._process_decode(host, active_map)
+        if packed is not None:
+            self._resolve_mixed(out["first_tokens"], metas)
+
+    def _resolve_mixed(self, first_tokens, metas) -> None:
+        """Move the mixed dispatch's finished prompts to decoding and emit
+        their fused first tokens."""
+        finals = [(i, job) for i, (job, last) in enumerate(metas) if last]
+        if not finals:
+            return
+        host = first_tokens.cpu().numpy()
+        for i, job in finals:
+            self._prefilling.remove(job)
+            self._slots[job.slot] = job
+            self._resolve_first(job, int(host[i]))
 
     def _process_decode(self, out: Dict[str, np.ndarray],
                         active_map: Dict[int, _Job]) -> None:
+        """Fan out a dispatch's (steps*W, B) micro-rows: a widened step
+        emits up to W accepted tokens per slot."""
         for slot, job in active_map.items():
             if self._slots.get(slot) is not job:
                 continue
@@ -500,11 +672,18 @@ class Scheduler:
         """One scheduling round; False when fully idle."""
         worked = False
         self._admit()
-        if self._prefilling:
+        # while slots decode and few enough prompts prefill, each prompt's
+        # next chunk rides the decode dispatch instead of stalling it
+        try_mixed = (bool(self._prefilling) and bool(self._slots)
+                     and self.core.mixed_supported
+                     and len(self._prefilling) <= self.core.prefill_group_max
+                     and all(self._mixed_eligible(j)
+                             for j in self._prefilling))
+        if self._prefilling and not try_mixed:
             self._prefill_step()
             worked = True
         if self._slots:
-            self._decode_step()
+            self._decode_step(try_mixed)
             worked = True
         return worked
 

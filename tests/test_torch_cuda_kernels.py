@@ -212,9 +212,10 @@ def test_stock_config_dense_api_launches_the_kernels(cuda_device, cfg_name):
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
 def test_engine_kernel_path_matches_plain_path_on_the_card(cuda_device,
                                                            kv_quant):
-    """Greedy streams of the tiny model through the Scheduler: the kernel
-    attention path and the plain one give the same tokens (f32), over the
-    model-dtype pool and over the int8 pool."""
+    """Greedy streams of the tiny model through the Scheduler on the
+    narrow two-dispatch path: the kernel attention path and the plain one
+    give the same tokens (f32), over the model-dtype pool and over the
+    int8 pool."""
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.scheduler import (
@@ -234,7 +235,8 @@ def test_engine_kernel_path_matches_plain_path_on_the_card(cuda_device,
         sched = Scheduler(EngineCore(
             cfg, EngineConfig(max_batch_size=4, max_seq_len=128,
                               prefill_chunk=32, page_size=16, attention=attn,
-                              kv_quant=kv_quant),
+                              kv_quant=kv_quant, spec_decode="off",
+                              mixed_phase_dispatch="off"),
             params, tok.eos_id, device=cuda_device), tok)
         tk.reset_launch_counts()
         sched.start()
@@ -436,3 +438,121 @@ def test_split_walk_ragged_decode_matches_plain_on_the_card(cuda_device, dt):
             assert (got - want).abs().max().item() < 1e-4
         else:
             assert _within_one_ulp(got, want)
+
+
+def _verify_and_mixed_rows(case, cap):
+    """(Qb, kv_lens, q_pos0, q_num, slot of each row) of the serving shapes
+    this slice adds: 8 verify rows of W = 5 or 9 live queries, and the
+    mixed program's rows at q_block 16 (8 decode rows of 9 queries, a
+    chunk of 256 at 0 and a partial one of 200 at 512, whose last rows
+    are idle with kv_len 0)."""
+    dec = [9, 40, 200, 511, 640, 900, cap - 3, cap]
+    if case.startswith("verify"):
+        W = int(case[len("verify_qb"):])
+        lens = [max(n, W) for n in dec]
+        return W, lens, [n - W for n in lens], [W] * 8, list(range(8))
+    lens = [max(n, 9) for n in dec]
+    pos0, qnum, slots = [n - 9 for n in lens], [9] * 8, list(range(8))
+    for slot, (start, n) in ((8, (0, 256)), (9, (512, 200))):
+        for j in range(256 // 16):
+            live = min(16, max(0, n - 16 * j))
+            lens.append(start + n if live else 0)
+            pos0.append(start + 16 * j)
+            qnum.append(live)
+            slots.append(slot)
+    return 16, lens, pos0, qnum, slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["verify_qb5", "verify_qb9", "mixed_qb16"])
+@pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
+def test_ragged_paged_verify_and_mixed_rows_on_the_card(cuda_device, pool,
+                                                         case):
+    """The ragged kernel's multi-query instances that speculative decoding
+    (Qb = 5, 9: the QGB = 32 and 64 instances at G = 4) and the mixed
+    program (Qb = 16, QG = 64) run, at llama3-8b heads over pages of 128:
+    each live (query, head) against the plain version, idle rows zero."""
+    rng = np.random.default_rng(70 + len(case))
+    H, KV, HD, ps, cap = 32, 8, 128, 128, 1024
+    maxp = cap // ps
+    Qb, lens, pos0, qnum, slots = _verify_and_mixed_rows(case, cap)
+    n_slots = max(slots) + 1
+    P = n_slots * maxp + 1
+    (kp, vp), (ks, vs) = _split_pool(rng, cuda_device, pool, 2 * P, ps, KV,
+                                     HD)
+    qdt = torch.float32 if pool == "f32" else torch.bfloat16
+    R = len(lens)
+    q = _t(_rand(rng, (R, Qb, H, HD))).to(cuda_device, qdt)
+    slot_tables = rng.permutation(np.arange(1, P))[:n_slots * maxp]
+    tables = torch.tensor(slot_tables.reshape(n_slots, maxp)[slots],
+                          dtype=torch.int32, device=cuda_device)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda_device)
+    args = (tables, i32(lens), i32(pos0), i32(qnum))
+    tk.reset_launch_counts()
+    got = tk.ragged_paged_attention(q, kp, vp, *args, layer=1,
+                                    pages_per_layer=P, k_scales=ks,
+                                    v_scales=vs)
+    key = ("ragged_paged_attention_int8" if pool == "int8"
+           else "ragged_paged_attention")
+    assert tk.launch_counts()[key] == 1
+    want = tk.ragged_paged_attention_plain(q, kp, vp, *args, 1, P, ks, vs)
+    assert torch.isfinite(got).all()
+    for r, n in enumerate(qnum):
+        if n == 0:
+            assert (got[r] == 0).all()
+        elif qdt == torch.float32:
+            assert (got[r, :n] - want[r, :n]).abs().max().item() < 1e-4
+        else:
+            assert _within_one_ulp(got[r, :n], want[r, :n]), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_engine_spec_and_mixed_kernel_path_matches_plain_on_the_card(
+        cuda_device, kv_quant):
+    """The default engine on the card (speculation on, the mixed dispatch
+    "auto", so on): a prompt arriving while another decodes rides the
+    decode dispatch; the kernel path's greedy streams equal the plain
+    path's (tiny model, f32), over both pools."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(5), cfg)
+    tok = ByteTokenizer()
+    quote = ("the retrieved context says: alpha beta gamma delta. " * 2
+             + "question: repeat the context. answer: the retrieved")
+    prompts = [tok.encode("hello", add_bos=True),
+               tok.encode(quote[:110], add_bos=True)]
+    streams = {}
+    for attn in ("kernel", "plain"):
+        core = EngineCore(cfg, EngineConfig(
+            max_batch_size=4, max_seq_len=256, prefill_chunk=16, page_size=8,
+            attention=attn, kv_quant=kv_quant), params, tok.eos_id,
+            device=cuda_device)
+        assert core.mixed_supported and core.spec_widths == (2, 3, 5, 9)
+        sched = Scheduler(core, tok)
+        tk.reset_launch_counts()
+        reqs = [Request(prompt_ids=prompts[0], max_tokens=40,
+                        temperature=0.0),
+                Request(prompt_ids=prompts[1], max_tokens=24,
+                        temperature=0.0)]
+        sched.submit(reqs[0])
+        sched._tick()
+        sched.submit(reqs[1])
+        while sched._tick():
+            pass
+        assert all(r.error is None for r in reqs)
+        assert sched.stats["mixed_dispatches"] > 0
+        assert sched.stats["spec_steps"] > 0
+        streams[attn] = [r.output_ids for r in reqs]
+        if attn == "kernel":
+            key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                   else "ragged_paged_attention")
+            assert tk.launch_counts()[key] > 0
+    assert streams["kernel"] == streams["plain"]

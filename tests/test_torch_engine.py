@@ -3,8 +3,10 @@
 Same tiny model (vocab 300, ``PRNGKey(5)`` weights as the JAX CLI's
 ``--tiny``), same engine geometry, three greedy prompts (one longer than a
 prefill chunk): the port's ``Scheduler`` streams must be token-identical
-to the JAX ``Scheduler``'s. JAX runs with speculation and the prefix cache
-off, both token-identical options there. The same holds with the int8 KV
+to the JAX ``Scheduler``'s. Both run the narrow two-dispatch path
+(speculation off, the mixed dispatch off on the port; the prefix cache
+off on JAX), all token-identical options there; the speculative and mixed
+paths are held to JAX in ``tests/test_torch_spec_engine.py``. The same holds with the int8 KV
 pool (``kv_quant="int8"``) on both sides.
 """
 
@@ -63,6 +65,10 @@ def _jax_streams(tiny, prompts, max_tokens, **engine_kw):
 def _torch_streams(tiny, prompts, max_tokens, **engine_kw):
     _, _, tcfg, tparams = tiny
     tok = ByteTokenizer()
+    # the narrow two-dispatch path, as the JAX side runs it, unless a test
+    # asks otherwise
+    engine_kw = {"spec_decode": "off", "mixed_phase_dispatch": "off",
+                 **engine_kw}
     core = EngineCore(tcfg, EngineConfig(**GEOMETRY, **engine_kw), tparams,
                       eos_id=tok.eos_id, device="cpu")
     sched = Scheduler(core, tok)
