@@ -22,7 +22,11 @@ prints no result:
               the mixed dispatch on, a prompt arriving mid-decode), the
               default path the narrow one's tokens, and the dense-cache
               API (``llama.prefill`` + ``llama.decode_step``) kernel vs
-              plain;
+              plain; then (``parity_prefix``) the prefix cache on against
+              off on the kernel path, both pools: a shared 1,536-byte
+              context with divergent questions, a repeat and a follow-up
+              turn embedding a finished answer, and one prompt at a time
+              in a pool of 36 pages, which evicts;
   8. serve    llama3-8b at full width and depth, bf16, random seeded
               weights, behind the port's HTTP server with the reference's
               defaults (speculation adaptive on, the mixed dispatch on):
@@ -34,19 +38,29 @@ prints no result:
               beside the two-dispatch pair doing the same work
               (``profile_mixed``);
   9. serve_int8  the same over an int8 KV pool (the int8 instance);
- 10. serve_two_dispatch  speculation and the mixed dispatch off, bf16:
+ 10. serve_prefix  the prefix cache (on by default) behind the server:
+              12 chat requests over one 1,536-byte context, the first
+              alone, 7 once its first token is out (hits riding mixed
+              dispatches), 4 after all finish (hits in a grouped prefill);
+              every request's hit tokens equal ``_cap_shared``'s;
+ 11. serve_prefix_int8  the same over an int8 KV pool;
+ 12. serve_two_dispatch  speculation and the mixed dispatch off, bf16:
               6 concurrent requests (the narrow path), then a narrow decode
               profile and a grouped-prefill profile, and the same two
               profiles over an int8 pool;
- 11. dense    the dense-cache API on the same weights: prefill of 8 rows
+ 13. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
               ragged_decode.
 
-The flash phase runs 4 ragged chunks and the serve path's group of 8
-chunks (``prefill_group8``); the ragged phases run decode rows at batch 8
-and at batch 1, Qb = 8 mixed rows, the verify steps of widths 5 and 9 at
-batch 8 and the mixed program's rows (``mixed_qb16``: 8 decode rows and 4
-chunks of 512 at starts 0 to 1,536 in rows of 16 queries);
+The flash phase runs 4 ragged chunks, the serve path's group of 8 chunks
+(``prefill_group8``) and 8 cache-hit suffixes (``prefix_suffix``: 40 to
+200 queries padded to 256 at starts 1,408 to 1,664); the ragged phases
+run decode rows at batch 8 and at batch 1, Qb = 8 mixed rows, the verify
+steps of widths 5 and 9 at batch 8 and the mixed program's rows
+(``mixed_qb16``: 8 decode rows and 4 chunks of 512 at starts 0 to 1,536
+in rows of 16 queries; ``mixed_prefix``: the same decode rows and 4
+cache-hit suffixes of 64 to 200 tokens at starts 1,152 to 1,408, padded
+to 512);
 ``ragged_decode`` batch 8 and batch 1, each with its split plan and
 scratch bytes. Each kernel phase holds the
 kernel to its plain version per (query, head) within one bf16 ulp of the
@@ -54,11 +68,13 @@ largest plain output (``compare``); kernel and library times are device
 times of CUDA-graph replays (``graph_ms``), plain times of CUDA events
 around eager calls. ``--planted-faults`` shows that this check fails a
 dropped KV tile and a causal mask off by one in ``flash_prefill``, a
-dropped tile, a dropped split in the combine and a wrong int8 scale slot
-in the decode-side walk, each planted in a temporary copy of the port;
+dropped tile, a dropped split in the combine, a causal limit off by one
+and a wrong int8 scale slot in the decode-side walk, each planted in a
+temporary copy of the port, case by case: every case fails under at
+least one fault;
 ``--ab`` times every kernel of two trees of the port in turns, with the
 grouped-prefill profile. Each main
-path (8 to 11) sets the launch counts to 0 just before it and reads them
+path (8 to 13) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -88,6 +104,9 @@ PEAK_BYTES = 3.35e12
 BF16_ULP = 2.0 ** -7
 TOLERANCE = "per (query, head): 2**-7 x its largest plain output (one bf16 ulp)"
 PARITY_GAP_TOL = 1e-3    # a divergence is accepted only at a near-tie
+# the kernel cases stop after their check (no timing): set by the planted
+# faults' runs
+CHECK_ONLY = False
 
 
 def emit(phase: str, **fields) -> None:
@@ -236,12 +255,12 @@ def phase_build():
          ptxas=report)
 
 
-def _flash_case(dev, starts, lens, seed):
-    """flash_prefill at llama3-8b heads over G = len(starts) chunks of 512
-    against a T = 2048 dense view, bf16."""
+def _flash_case(dev, starts, lens, seed, C=512):
+    """flash_prefill at llama3-8b heads over G = len(starts) chunks of C
+    queries against a T = 2048 dense view, bf16."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
-    G, C, T, H, KV, HD = len(starts), 512, 2048, 32, 8, 128
+    G, T, H, KV, HD = len(starts), 2048, 32, 8, 128
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
     q = torch.randn((G, C, H, HD), generator=g, device=dev).to(bf)
@@ -254,6 +273,8 @@ def _flash_case(dev, starts, lens, seed):
     ref = k.flash_prefill_plain(q, kk, vv, sp, vt)
     valid = torch.arange(C, device=dev)[None] < (vt - sp)[:, None]
     check = compare("flash_prefill", out, ref, valid)
+    if CHECK_ONLY:
+        return check
     # library yardstick: SDPA over K/V expanded to H heads, same mask
     qpos = sp[:, None].long() + torch.arange(C, device=dev)[None]
     kpos = torch.arange(T, device=dev)[None, None]
@@ -269,9 +290,9 @@ def _flash_case(dev, starts, lens, seed):
     nbytes = 2.0 * (2 * sum(lens) * H * HD + 2 * sum(
         s + n for s, n in zip(starts, lens)) * KV * HD)
     b_ms, b_by = bound(flops, nbytes)
+    ms = graph_ms(lambda: k.flash_prefill(q, kk, vv, sp, vt))
     return dict(
-        **check, tolerance=TOLERANCE,
-        ms=graph_ms(lambda: k.flash_prefill(q, kk, vv, sp, vt)),
+        **check, tolerance=TOLERANCE, ms=ms, share_of_bound=b_ms / ms,
         plain_ms=time_ms(lambda: k.flash_prefill_plain(q, kk, vv, sp, vt)),
         library_ms=graph_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=m4)),
         library_call="scaled_dot_product_attention (K/V pre-expanded to H "
@@ -281,15 +302,41 @@ def _flash_case(dev, starts, lens, seed):
                    chunk_len=lens, dtype="bfloat16"))
 
 
+# a grouped prefill of 8 cache-hit suffixes: (page-aligned starts, live
+# queries), padded to two pages of 128
+PREFIX_SUFFIX = ([1408, 1536, 1664, 1408, 1536, 1664, 1408, 1536],
+                 [40, 64, 100, 128, 150, 180, 200, 77])
+
+
+def flash_cases(dev):
+    """The flash_prefill cases, each a thunk: four ragged chunks (row 1 a
+    prompt's second chunk), the serve path's full group of 8 chunks
+    (``prefill_group8``: a prompt's second to fourth chunks beside four
+    first chunks), and 8 cache-hit suffixes (``prefix_suffix``)."""
+    return {
+        "chunks4": lambda: _flash_case(dev, [0, 512, 0, 0],
+                                       [512, 300, 450, 97], 1),
+        "prefill_group8": lambda: _flash_case(
+            dev, [0, 512, 1024, 1536, 0, 0, 0, 0],
+            [512, 512, 512, 512, 144, 300, 97, 450], 6),
+        "prefix_suffix": lambda: _flash_case(dev, *PREFIX_SUFFIX, 7, C=256),
+    }
+
+
+def _run_cases(name, cases):
+    """The first case's numbers as the entry's own, the others as its
+    sub-entries."""
+    import torch
+    first, *rest = cases
+    res = dict(name=name, **cases[first]())
+    for sub in rest:
+        res[sub] = cases[sub]()
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_flash(dev):
-    """Four ragged chunks (row 1 a prompt's second chunk), and the serve
-    path's full group of 8 chunks (``prefill_group8``: a prompt's second to
-    fourth chunks beside four first chunks)."""
-    res = dict(name="flash_prefill",
-               **_flash_case(dev, [0, 512, 0, 0], [512, 300, 450, 97], 1),
-               prefill_group8=_flash_case(
-                   dev, [0, 512, 1024, 1536, 0, 0, 0, 0],
-                   [512, 512, 512, 512, 144, 300, 97, 450], 6))
+    res = _run_cases("flash_prefill", flash_cases(dev))
     emit("kernel:flash_prefill", kernel_ms=res["ms"], **res)
     return res
 
@@ -341,6 +388,8 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False, pos0=None,
     if not (out[qn == 0] == 0).all():
         raise AssertionError(f"ragged_paged_attention ({tag}): a q_num == 0 "
                              f"row is not zero")
+    if CHECK_ONLY:
+        return check
     it = iter(range(1 << 30))
 
     def run_kernel():
@@ -385,10 +434,11 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False, pos0=None,
     scale_bytes = live * KV * 4 * 2 if quant else 0
     nbytes = float(kv_bytes + scale_bytes + 2 * valid_q * H * HD * 2)
     b_ms, b_by = bound(flops, nbytes)
+    ms = graph_ms(run_kernel)
     res = dict(
         **check, tolerance=TOLERANCE,
         **_split_fields(dev, R, KV, T, Qb * H // KV, HD),
-        ms=graph_ms(run_kernel),
+        ms=ms, share_of_bound=b_ms / ms,
         plain_ms=time_ms(lambda: k.ragged_paged_attention_plain(
             q, k_pool, v_pool, tables, kv_lens, pos0, qn, 3, P, k_sc, v_sc)),
         library_ms=graph_ms(lambda: sdpa(q_s, k_d, v_d, attn_mask=mask)),
@@ -438,42 +488,57 @@ def _verify_case(dev, W, quant):
 # width 9): 8 decode rows of 9 live queries, then 4 chunks of 512 at
 # starts 0/512/1,024/1,536, each 32 rows of 16 queries over its own slot
 MIXED_STARTS = (0, 512, 1024, 1536)
+# cache-hit suffixes riding a mixed dispatch, as the engine packs them:
+# (start, live tokens) at page-aligned starts that are not multiples of
+# 512, each padded to 512 (32 rows of 16 queries, the rows past the
+# suffix idle with kv_len 0)
+PREFIX_CHUNKS = ((1152, 64), (1280, 200), (1408, 120), (1152, 160))
 
 
-def _mixed_case(dev, quant):
+def _mixed_case(dev, quant, chunks=None, tag="mixed_qb16"):
+    chunks = chunks or tuple((start, 512) for start in MIXED_STARTS)
     lens = [max(n, 9) for n in DECODE_LENS]
     q_num, pos0, slots = [9] * 8, [n - 9 for n in lens], list(range(8))
-    for c, start in enumerate(MIXED_STARTS):
+    for c, (start, n) in enumerate(chunks):
         for j in range(512 // 16):
-            lens.append(start + 512)
-            q_num.append(16)
+            live = min(16, max(0, n - 16 * j))
+            lens.append(start + n if live else 0)
+            q_num.append(live)
             pos0.append(start + 16 * j)
             slots.append(8 + c)
-    return _ragged_case(dev, len(lens), 16, lens, q_num, "mixed_qb16", quant,
-                        pos0=pos0, slot_of_row=slots, seed=40 + 100 * quant)
+    return _ragged_case(dev, len(lens), 16, lens, q_num, tag, quant,
+                        pos0=pos0, slot_of_row=slots,
+                        seed=40 + 100 * quant + (tag != "mixed_qb16"))
 
 
 RAGGED_SUBCASES = ("mixed_rows", "batch1", "verify_qb5", "verify_qb9",
-                   "mixed_qb16")
+                   "mixed_qb16", "mixed_prefix")
+
+
+def ragged_cases(dev, quant=False):
+    """The ragged kernel's cases, each a thunk: decode rows at batch 8 (the
+    narrow serving shape), mixed rows (Qb = 8, q_num 8/3/1/0), one decode
+    row at batch 1, the verify steps of widths 5 and 9 at batch 8, the
+    mixed program's 136 rows, and the same with cache-hit suffixes for
+    chunks (``mixed_prefix``)."""
+    return {
+        "decode": lambda: _ragged_case(dev, 8, 1, DECODE_LENS, [1] * 8,
+                                       "decode", quant),
+        "mixed_rows": lambda: _ragged_case(dev, 4, 8, [520, 1000, 64, 700],
+                                           [8, 3, 1, 0], "mixed", quant),
+        "batch1": lambda: _ragged_case(dev, 1, 1, BATCH1_LENS, [1], "batch1",
+                                       quant),
+        "verify_qb5": lambda: _verify_case(dev, 5, quant),
+        "verify_qb9": lambda: _verify_case(dev, 9, quant),
+        "mixed_qb16": lambda: _mixed_case(dev, quant),
+        "mixed_prefix": lambda: _mixed_case(dev, quant, PREFIX_CHUNKS,
+                                            "mixed_prefix"),
+    }
 
 
 def phase_ragged(dev, quant=False):
-    """Decode rows at batch 8 (the narrow serving shape), mixed rows (Qb =
-    8, q_num 8/3/1/0), one decode row at batch 1, the verify steps of
-    widths 5 and 9 at batch 8, and the mixed program's 136 rows."""
-    import torch
     name = "ragged_paged_attention" + ("_int8" if quant else "")
-    decode = _ragged_case(dev, 8, 1, DECODE_LENS, [1] * 8, "decode", quant)
-    res = dict(name=name, **decode)
-    res["mixed_rows"] = _ragged_case(dev, 4, 8, [520, 1000, 64, 700],
-                                     [8, 3, 1, 0], "mixed", quant)
-    res["batch1"] = _ragged_case(dev, 1, 1, BATCH1_LENS, [1], "batch1",
-                                 quant)
-    for W in (5, 9):
-        res[f"verify_qb{W}"] = _verify_case(dev, W, quant)
-    torch.cuda.empty_cache()
-    res["mixed_qb16"] = _mixed_case(dev, quant)
-    torch.cuda.empty_cache()
+    res = _run_cases(name, ragged_cases(dev, quant))
     emit("kernel:" + name, kernel_ms=res["ms"], **res)
     return res
 
@@ -495,6 +560,8 @@ def _decode_case(dev, lengths, seed):
     ref = mha_decode(q, kc[3], vc[3], lens)
     check = compare("ragged_decode", out, ref,
                     torch.ones((B, 1), dtype=torch.bool, device=dev))
+    if CHECK_ONLY:
+        return check
     it = iter(range(1 << 30))
 
     def run_kernel():
@@ -513,10 +580,11 @@ def _decode_case(dev, lengths, seed):
     flops = 4.0 * HD * H * live
     nbytes = 2.0 * (live * KV * HD * 2 + 2 * B * H * HD)
     b_ms, b_by = bound(flops, nbytes)
+    ms = graph_ms(run_kernel)
     return dict(
         **check, tolerance=TOLERANCE,
-        **_split_fields(dev, B, KV, T, H // KV, HD),
-        ms=graph_ms(run_kernel),
+        **_split_fields(dev, B, KV, T, H // KV, HD), ms=ms,
+        share_of_bound=b_ms / ms,
         plain_ms=time_ms(lambda: mha_decode(q, kc[3], vc[3], lens)),
         library_ms=graph_ms(lambda: sdpa(q_s, k_s, v_s, attn_mask=mask)),
         library_call="scaled_dot_product_attention with a length mask on the "
@@ -527,11 +595,15 @@ def _decode_case(dev, lengths, seed):
                    lengths=lengths, dtype="bfloat16"))
 
 
-def phase_decode(dev):
+def decode_cases(dev):
     """ragged_decode at batch 8 (the dense API's decode shape) and at
     batch 1."""
-    res = dict(name="ragged_decode", **_decode_case(dev, DECODE_LENS, 4),
-               batch1=_decode_case(dev, BATCH1_LENS, 5))
+    return {"decode": lambda: _decode_case(dev, DECODE_LENS, 4),
+            "batch1": lambda: _decode_case(dev, BATCH1_LENS, 5)}
+
+
+def phase_decode(dev):
+    res = _run_cases("ragged_decode", decode_cases(dev))
     emit("kernel:ragged_decode", kernel_ms=res["ms"], **res)
     return res
 
@@ -692,7 +764,117 @@ def phase_parity(dev):
                                           dev, "dense API")
     emit("parity", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
          streams=reports, dispatches=dispatches)
+    _prefix_parity(dev, params, cfg, tok)
     del params
+
+
+# the prefix phases' shared context (1,536 bytes, a RAG chain's retrieved
+# text) and questions of 64 to 256 bytes, each starting with its own byte,
+# so any two prompts share exactly the context
+CONTEXT_TEXT = (PROMPT_TEXT * 11)[:1536]
+QUESTION_BYTES = (64, 96, 128, 160, 192, 224, 256, 80, 72, 112, 144, 200)
+QUESTIONS = [(f"{chr(65 + i)}: which pages does request {i} share? "
+              + "Answer from the context above. " * 9)[:n]
+             for i, n in enumerate(QUESTION_BYTES)]
+
+
+def _wait_for(cond, what, timeout=600):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what} within {timeout} s")
+        time.sleep(0.002)
+
+
+def _prefix_traffic(sched, tok, tight):
+    """Greedy requests through a started scheduler, by token ids. Roomy:
+    context + question 0 alone; once its first token is out, two other
+    questions and a repeat of the first prompt (hits while it decodes);
+    after all finish, a follow-up turn embedding the first prompt and its
+    generated ids (a hit on decode-written pages). Tight: one at a time,
+    a prompt, one over a rotated context, the first again (a hit), and a
+    third, which the small pool serves by evicting cached pages."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+
+    def run(ids_list, max_tokens):
+        reqs = [sched.submit(Request(prompt_ids=ids, max_tokens=max_tokens,
+                                     temperature=0.0)) for ids in ids_list]
+        for r in reqs:
+            list(sched.iter_text(r))
+        return reqs
+
+    q = lambda i: tok.encode(QUESTIONS[i])
+    context = tok.encode(CONTEXT_TEXT, add_bos=True)
+    if tight:
+        texts = [tok.encode(CONTEXT_TEXT[k:] + CONTEXT_TEXT[:k], add_bos=True)
+                 for k in (0, 500, 0, 1000)]
+        reqs = []
+        for i, ids in enumerate(texts):
+            reqs += run([ids + q(i % 2)], 24)
+    else:
+        first = sched.submit(Request(prompt_ids=context + q(0),
+                                     max_tokens=160, temperature=0.0))
+        _wait_for(lambda: first.first_token_at or first.finished_at,
+                  "no first token")
+        reqs = [first] + run([context + q(1), context + q(2), context + q(0)],
+                             24)
+        list(sched.iter_text(first))
+        reqs += run([first.prompt_ids + first.output_ids + q(7)], 24)
+    if any(r.error for r in reqs):
+        raise AssertionError(f"a request failed: {[r.error for r in reqs]}")
+    return reqs
+
+
+def _prefix_parity(dev, params, cfg, tok):
+    """The prefix cache on against off on the kernel path (speculation and
+    the mixed dispatch at their defaults), both pools, roomy and tight
+    traffic: the same greedy tokens (or a divergence at a near-tie)."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    reports, readings = {}, {}
+    for kv_quant in ("none", "int8"):
+        for tight in (False, True):
+            key = f"kv_quant={kv_quant}, {'tight' if tight else 'roomy'}"
+            streams = {}
+            for cache in ("on", "off"):
+                ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                    page_size=128, prefill_chunk=512,
+                                    dtype="float32", attention="kernel",
+                                    kv_quant=kv_quant, prefix_cache=cache,
+                                    num_pages=36 if tight else 0)
+                sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
+                                             device=dev), tok)
+                k.reset_launch_counts()
+                sched.start()
+                try:
+                    reqs = _prefix_traffic(sched, tok, tight)
+                finally:
+                    sched.stop()
+                streams[cache] = [r.output_ids for r in reqs]
+                if cache == "on":
+                    on = dict(sched.stats)
+                    hits = [r.prefix_hit_tokens for r in reqs]
+                    readings[key] = {
+                        "prefix_hit_tokens": hits,
+                        "prompt_tokens": [len(r.prompt_ids) for r in reqs],
+                        "launches": k.launch_counts(),
+                        **{name: on[name] for name in (
+                            "prefix_evictions", "admission_skips",
+                            "mixed_dispatches", "prefill_dispatches")}}
+            reports[key] = _parity_report(
+                params, cfg, [r.prompt_ids for r in reqs], streams["on"],
+                streams["off"], dev, f"prefix cache on vs off, {key}")
+            if tight and (on["prefix_evictions"] < 1 or hits[2] <= 0):
+                raise AssertionError(f"{key}: no eviction or no hit: {hits}, "
+                                     f"{on}")
+            if not tight and (min(hits[1:]) <= 0
+                              or on["mixed_dispatches"] < 1):
+                raise AssertionError(f"{key}: hits {hits}, {on}")
+    emit("parity_prefix", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
+         streams=reports, prefix=readings)
 
 
 def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
@@ -902,6 +1084,135 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
             + ("" if kv_quant == "none" else "_" + kv_quant))
     emit(name, **fields)
     return launches, core
+
+
+def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
+    """The prefix cache at full llama3-8b behind the HTTP server, with the
+    reference's defaults: chat requests over one 1,536-byte context (64- to
+    256-byte questions, 64 tokens, temperature 0 and 0.7). Request 0 alone
+    (cold); requests 1 to 7 once its first token is out (cache hits while
+    it decodes, riding mixed dispatches); after all finish, requests 8 to
+    11 at once (hits with no decoder live: a grouped prefill through
+    flash_prefill). Admission waits until each wave's requests have all
+    arrived, so a wave is admitted in one pass. Launch and dispatch counts
+    are set to 0 just before the requests and read just after; every
+    request must answer 200 and hit exactly what ``_cap_shared`` gives for
+    its prompt. Returns the launches."""
+    import threading
+    import torch
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    tok = ByteTokenizer()
+    core = serving_core(dev, cfg, params, kv_quant)
+    sched = Scheduler(core, tok)
+    submitted = []
+    submit = sched.submit
+
+    def recording_submit(req):
+        submitted.append(req)
+        return submit(req)
+
+    def ask(i):
+        return _request(base, i, CONTEXT_TEXT + QUESTIONS[i], 64, True,
+                        i % 2 == 0, 0.0 if i % 2 == 0 else 0.7)
+
+    admit, arrived = sched._admit, threading.Event()
+    arrived.set()
+
+    def wave(pool, ids):
+        arrived.clear()
+        futs = [pool.submit(ask, i) for i in ids]
+        _wait_for(lambda: len(submitted) > ids[-1], "a wave did not arrive")
+        arrived.set()
+        sched._wake.set()
+        return futs
+
+    sched.submit = recording_submit
+    sched._admit = lambda: arrived.is_set() and admit()
+    torch.cuda.reset_peak_memory_stats()
+    httpd, thread = serve_in_thread(sched, "llama3-8b-random")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if resp.status != 200 or health.get("prefix_cache") is not True:
+            raise AssertionError(f"/health reports {health}")
+        k.reset_launch_counts()
+        for key in sched.stats:
+            sched.stats[key] = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(ask, 0)]
+            _wait_for(lambda: (submitted and submitted[0].first_token_at)
+                      or futs[0].done(), "no first token of the cold request")
+            futs += wave(pool, range(1, 8))
+            results = [f.result() for f in futs]
+            at_late = dict(sched.stats)
+            results += [f.result() for f in wave(pool, range(8, 12))]
+        wall = time.perf_counter() - t0
+        launches = k.launch_counts()
+        stats = dict(sched.stats)
+        health = sched.load_stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+    for r in results:
+        if r["status"] != 200 or not r["finish_reason"] or not r["usage"]:
+            raise AssertionError(f"request failed: {r}")
+    if len(submitted) != 12 or any(r.error or not r.first_token_at
+                                   for r in submitted):
+        raise AssertionError("a request got no first token or failed: "
+                             f"{[r.error for r in submitted]}")
+    # what _cap_shared allows each prompt: the full pages it shares with
+    # the cold prompt (the questions differ from their first byte on)
+    ps, cold = core.page_size, submitted[0].prompt_ids
+    per_request = []
+    for i, req in enumerate(submitted):
+        ids = req.prompt_ids
+        common = next((j for j, (a, b) in enumerate(zip(ids, cold))
+                       if a != b), min(len(ids), len(cold)))
+        want = 0 if i == 0 else sched._cap_shared(
+            len(ids), min(common, len(cold)) // ps * ps)
+        per_request.append({
+            "prompt_tokens": len(ids), "prefix_hit_tokens":
+            req.prefix_hit_tokens, "cap_shared": want,
+            "server_ttft_s": req.first_token_at - req.submitted_at})
+        if req.prefix_hit_tokens != want:
+            raise AssertionError(f"request {i} hit {req.prefix_hit_tokens} "
+                                 f"tokens; _cap_shared gives {want}")
+    L = cfg.n_layers
+    decode_key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                  else "ragged_paged_attention")
+    need_flash = L * stats["prefill_dispatches"]
+    need_decode = L * stats["decode_steps"]
+    if (launches["flash_prefill"] < need_flash or need_flash == 0
+            or launches[decode_key] < need_decode or need_decode == 0):
+        raise AssertionError(f"serving did not run through the kernels: "
+                             f"launches {launches}, dispatches {stats}")
+    if (at_late["mixed_dispatches"] < 1
+            or stats["prefill_dispatches"] <= at_late["prefill_dispatches"]):
+        raise AssertionError(f"the warm requests rode no mixed dispatch, or "
+                             f"the late ones no grouped prefill: {at_late}, "
+                             f"{stats}")
+    ttft = [r["server_ttft_s"] for r in per_request]
+    gen = sum(r["usage"]["completion_tokens"] for r in results)
+    emit("serve_prefix" + ("" if kv_quant == "none" else "_" + kv_quant),
+         model="llama3-8b", n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
+         weights="random, torch.Generator seed 0", context_bytes=len(
+             CONTEXT_TEXT), requests=results, per_request=per_request,
+         server_ttft_cold_s=ttft[0], server_ttft_warm_mixed_s=ttft[1:8],
+         server_ttft_warm_grouped_s=ttft[8:], completion_tokens=gen,
+         wall_s=wall, gen_tok_s=gen / wall, dispatches=stats,
+         dispatches_before_late=at_late, launches=launches,
+         prefix_hit_frac=health["prefix_hit_frac"],
+         prefix_cached_pages=health["prefix_cached_pages"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
 
 
 def phase_dense(dev, cfg, params, rows=8, T=2048, steps=32):
@@ -1247,9 +1558,10 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # 31st 64-token tile of the walk, which only the 2047-token rows reach (one
 # tile in 32); dropped_split has the combine skip the last split of every
 # (row, KV head); wrong_scale_slot reads the next token's scales in the
-# int8 pool; flash_dropped_tile skips the second KV tile of every
-# flash_prefill walk that reaches it; flash_causal_off_by_one hides each
-# query's own key from it.
+# int8 pool; ragged_causal_off_by_one hides each query's own key from it
+# in the decode-side walk's tensor-core path; flash_dropped_tile skips the
+# second KV tile of every flash_prefill walk that reaches it;
+# flash_causal_off_by_one hides each query's own key from it.
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -1268,6 +1580,11 @@ PLANTED_FAULTS = (
      "const int n_split = S - 1;",
      ("ragged_paged_attention", "ragged_paged_attention_int8",
       "ragged_decode")),
+    ("ragged_causal_off_by_one", "common.cuh",
+     "lim[h] = qi < n_q ? min(pos0 + qi, len - 1) : -1;",
+     "lim[h] = qi < n_q ? min(pos0 + qi - 1, len - 1) : -1;",
+     ("ragged_paged_attention", "ragged_paged_attention_int8",
+      "ragged_decode")),
     ("wrong_scale_slot", "ragged_paged.cu",
      "sc = (row * KV + kvh) * ps + pos % ps;",
      "sc = (row * KV + kvh) * ps + (pos + 1) % ps;",
@@ -1278,19 +1595,23 @@ _FAULT_PHASES = """
 import json, sys, torch
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
+cs.CHECK_ONLY = True
 dev = torch.device("cuda")
 cs.phase_build()
-phases = {"flash_prefill": lambda: cs.phase_flash(dev),
-          "ragged_paged_attention": lambda: cs.phase_ragged(dev),
-          "ragged_paged_attention_int8": lambda: cs.phase_ragged(dev, True),
-          "ragged_decode": lambda: cs.phase_decode(dev)}
+phases = {"flash_prefill": cs.flash_cases(dev),
+          "ragged_paged_attention": cs.ragged_cases(dev),
+          "ragged_paged_attention_int8": cs.ragged_cases(dev, True),
+          "ragged_decode": cs.decode_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
-    try:
-        phases[name]()
-        out[name] = "passed"
-    except cs.KernelMismatch as exc:
-        out[name] = exc.reading
+    out[name] = {}
+    for case, fn in phases[name].items():
+        try:
+            fn()
+            out[name][case] = "passed"
+        except cs.KernelMismatch as exc:
+            out[name][case] = exc.reading
+        torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
@@ -1315,7 +1636,8 @@ for name, first, fn in (
     res = fn()
     out[name] = {first: res["ms"]}
     out[name].update({sub: res[sub]["ms"] for sub in (
-        "prefill_group8",) + cs.RAGGED_SUBCASES if sub in res})
+        "prefill_group8", "prefix_suffix") + cs.RAGGED_SUBCASES
+        if sub in res})
 cfg, params, _ = cs.draw_8b(dev)
 prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
 out["profile_prefill"] = {key: prof[key] for key in (
@@ -1347,10 +1669,13 @@ def ab(trees) -> None:
 
 def planted_faults() -> None:
     """Plant each of PLANTED_FAULTS in a temporary copy of the port, build
-    it there and run the kernel phases it touches: each must fail its
-    check. Emits what each check read."""
+    it there and run every case of the kernel phases it touches, checks
+    only: each phase must fail at least one case's check under each of its
+    faults, and each case must fail under at least one fault. Emits what
+    each check read."""
     import shutil
     import tempfile
+    caught = {}                  # "phase:case" -> the faults that failed it
     for name, src, text, repl, phases in PLANTED_FAULTS:
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
@@ -1373,9 +1698,20 @@ def planted_faults() -> None:
                                  f"{run.stderr[-4000:]}")
         readings = json.loads(run.stdout.strip().splitlines()[-1])
         emit("planted_fault", fault=name, file=src, readings=readings)
-        missed = [p for p, r in readings.items() if r == "passed"]
+        missed = [p for p, cases in readings.items()
+                  if all(r == "passed" for r in cases.values())]
         if missed:
             raise AssertionError(f"fault {name} passed the checks of {missed}")
+        for phase, cases in readings.items():
+            for case, reading in cases.items():
+                caught.setdefault(f"{phase}:{case}", [])
+                if reading != "passed":
+                    caught[f"{phase}:{case}"].append(name)
+    emit("planted_faults", caught_by=caught)
+    uncaught = [case for case, faults in caught.items() if not faults]
+    if uncaught:
+        raise AssertionError(f"no planted fault failed the checks of "
+                             f"{uncaught}")
 
 
 def main() -> int:
@@ -1429,6 +1765,10 @@ def main() -> int:
         emit("profile_mixed" + tag, **profile_mixed(core))
         del core
         torch.cuda.empty_cache()
+    for kv_quant, tag in (("none", ""), ("int8", "_int8")):
+        paths["serve_prefix" + tag] = phase_serve_prefix(dev, cfg, params,
+                                                         kv_quant)
+        torch.cuda.empty_cache()
     paths["serve_two_dispatch"], core = phase_serve(dev, cfg, params,
                                                     narrow=True)
     emit("profile", **profile_decode(core))
@@ -1464,10 +1804,10 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on its main path "
                                  f"{path}")
         keys = ("max_abs_err", "max_err_over_limit", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "splits",
-                "scratch_bytes")
+                "bound_ms", "bound_by", "share_of_bound", "library_ms",
+                "splits", "scratch_bytes")
         entry.update({key: res[key] for key in keys if key in res})
-        for sub in ("prefill_group8",) + RAGGED_SUBCASES:
+        for sub in ("prefill_group8", "prefix_suffix") + RAGGED_SUBCASES:
             if sub in res:
                 entry[sub] = {key: res[sub][key] for key in keys
                               if key in res[sub]}

@@ -24,7 +24,6 @@ ENV_PREFIX = "APP"
 # ports them, and the value that means "feature off" (accepted as a no-op)
 NOT_PORTED: Dict[str, tuple] = {
     "role": ("A7 (KV handoff / disaggregated roles)", "unified"),
-    "prefix_cache": ("A6 (prefix cache)", "off"),
     "decode_steps_max": ("A5 (adaptive dispatch depth)", "0"),
     "decode_multistep": ("A5 (decode_multi)", "0"),
     "pipeline_depth": ("A6 (dispatch pipelining)", "1"),
@@ -76,6 +75,11 @@ class EngineConfig:
     # auto (on for a CUDA device, off on the CPU); the bare env
     # APP_MIXED_PHASE_DISPATCH overrides
     mixed_phase_dispatch: str = "auto"
+    # prefix caching over the paged KV pool: on | off. Full prompt pages
+    # are shared across requests by chain hash (refcounted, LRU-evicted
+    # under pool pressure), so repeated chat templates, system prompts and
+    # retrieved chunks skip re-prefill
+    prefix_cache: str = "on"
 
 
 @dataclass(frozen=True)

@@ -23,11 +23,15 @@ path on the CPU; ``"kernel"`` on the CPU raises. ``mixed_phase_dispatch=
 scales (half the pool's bytes, so more slots fit on a card); its decode
 attention is the int8 instance of the ragged paged kernel.
 
+``prefix_cache="on"`` (the default) hands the scheduler a refcounting
+``CachingAllocator`` (``engine/prefix_cache.py``), so identical
+page-aligned prompt prefixes share pages; a cache-hit admission starts its
+prefill at the covered offset and ``seed_history`` writes the skipped
+tokens into the drafting history.
+
 Not ported here: the batch-width ladder, ``decode_multi``, grammar, LoRA,
-int8 weights, logprob rows, KV handoff and ``seed_history`` (its callers
-are the prefix cache, KV import and spill), tensor parallelism (ROADMAP
-A1, A2, A5, A6, A7, A11). Their config knobs are refused in
-``core/config.py``.
+int8 weights, logprob rows, KV handoff, tensor parallelism (ROADMAP A1,
+A2, A5, A7, A11). Their config knobs are refused in ``core/config.py``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 from generativeaiexamples_tpu_torch.core.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine import kv_cache
 from generativeaiexamples_tpu_torch.engine.kv_cache import PagedKVCache
+from generativeaiexamples_tpu_torch.engine.prefix_cache import CachingAllocator
 from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
 from generativeaiexamples_tpu_torch.ops.sampling import (
@@ -209,6 +214,19 @@ class EngineCore:
         self.max_pages_per_slot = -(-self.max_seq // self.page_size)
         self.num_pages = (engine_cfg.num_pages
                           or self.batch * self.max_pages_per_slot + 1)
+        prefix = (engine_cfg.prefix_cache or "on").strip().lower()
+        if prefix not in ("on", "off"):
+            raise ValueError(f"engine.prefix_cache must be on|off, "
+                             f"got {engine_cfg.prefix_cache!r}")
+        self.prefix_caching = prefix == "on"
+        # final-chunk buckets: page-aligned powers of two up to the chunk
+        # (the scheduler's cache-hit geometry cap reads them)
+        buckets, b = [], self.page_size
+        while b < self.chunk:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.chunk)
+        self.buckets = tuple(buckets)
         self.prefill_group_max = max(1, engine_cfg.prefill_group)
         # grouped/mixed chunk-count buckets: powers of two up to the group
         gb, g = [], 1
@@ -320,8 +338,30 @@ class EngineCore:
             host_generated=np.zeros((B,), np.int64),
             generators={})
 
-    def new_allocator(self) -> kv_cache.PageAllocator:
+    def new_allocator(self):
+        """Page allocator for the pool: with ``prefix_cache="on"`` a
+        refcounting :class:`CachingAllocator`, so the scheduler shares
+        identical page-aligned prompt prefixes across requests."""
+        if self.prefix_caching:
+            return CachingAllocator(self.num_pages, self.page_size)
         return kv_cache.PageAllocator(self.num_pages)
+
+    @property
+    def row_tokens(self) -> int:
+        """Token positions one block-table row addresses."""
+        return self.max_pages_per_slot * self.page_size
+
+    def _check_spans(self, items: Sequence[PrefillItem], C: int) -> None:
+        """Refuse a chunk whose C padded positions from its start pass its
+        block-table row: its page gather would index past the row (on the
+        card a device-side assert), and clamping it back, as a dynamic
+        slice does, writes the chunk over an earlier, possibly shared,
+        page. The scheduler never issues one."""
+        for it in items:
+            if it.start_pos + C > self.row_tokens:
+                raise ValueError(
+                    f"chunk at {it.start_pos} padded to {C} positions passes "
+                    f"its block-table row of {self.row_tokens}")
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages so positions 0..n_tokens (inclusive next write) fit."""
@@ -422,6 +462,7 @@ class EngineCore:
             raise ValueError(f"chunk of {longest} tokens exceeds "
                              f"prefill_chunk ({self.chunk})")
         C = max(ps, -(-longest // ps) * ps)
+        self._check_spans(items, C)
         tokens = np.zeros((G, C), np.int32)
         page_rows = np.zeros((G, self.max_pages_per_slot), np.int32)
         start_pos = np.zeros((G,), np.int32)
@@ -654,6 +695,7 @@ class EngineCore:
             raise ValueError("a mixed dispatch takes one chunk per slot")
         G = next(b for b in self.group_buckets if len(items) <= b)
         C = self.chunk
+        self._check_spans(items, C)
         tokens = np.zeros((G, C), np.int32)
         page_rows = np.zeros((G, self.max_pages_per_slot), np.int32)
         start_pos = np.zeros((G,), np.int32)
@@ -724,4 +766,27 @@ class EngineCore:
         decode writes go to the null page)."""
         state.active[slot] = False
         state.host_live[slot] = False
+        return state
+
+    def retire_host(self, state: DecodeState, slot: int) -> DecodeState:
+        """The slot's ``done`` row reached the host (EOS or budget, at its
+        fused first token or in a decode step): the device already left it
+        inactive, so only the host mirror is cleared. Its stale temperature
+        then no longer reseeds generators, draws samples or forces the
+        ``generated`` read-back."""
+        state.host_live[slot] = False
+        return state
+
+    @torch.no_grad()
+    def seed_history(self, state: DecodeState, slot: int,
+                     ids: Sequence[int]) -> DecodeState:
+        """Write ``ids[:max_seq]`` into the slot's history row (zeros
+        after), for a slot whose prompt prefix came from the prefix cache:
+        those chunks never run a prefill dispatch, so the drafting history
+        is seeded here. Column ``max_seq``, the sink, is left alone."""
+        row = np.zeros((self.max_seq,), np.int32)
+        n = min(len(ids), self.max_seq)
+        row[:n] = np.asarray(ids[:n], np.int32)
+        state.history[slot, :self.max_seq] = torch.as_tensor(
+            row, device=self.device)
         return state

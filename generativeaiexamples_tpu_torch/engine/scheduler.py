@@ -3,8 +3,12 @@
 Port of the single-card path of ``generativeaiexamples_tpu/engine/
 scheduler.py``. One driver thread owns the device; each tick it
 
-  1. admits pending requests in FIFO order while a slot and the prompt's
-     KV pages are free (a prompt that can never fit fails loudly);
+  1. admits pending requests while a slot and the prompt's KV pages are
+     free: FIFO with bounded-bypass skip-ahead (while the head waits for
+     pages, up to ``_BYPASS_MAX`` later jobs that fit may pass it, never
+     taking the last free slot), each admission sharing the longest cached
+     chain of its prompt's full pages when the prefix cache is on (a
+     prompt that can never fit fails loudly);
   2. runs one grouped prefill dispatch: up to ``prefill_group`` chunks,
      oldest admission first, final chunks sampling their first token and
      activating their slot in the same pass -- unless the prompts may ride
@@ -19,18 +23,24 @@ scheduler.py``. One driver thread owns the device; each tick it
 
 Pages grow as decode crosses page boundaries; when the pool is exhausted
 the youngest request is preempted and re-queued as prompt + generated
-tokens (recompute preemption), as there. Dispatches are not pipelined: the
-host waits for each decode result before the next dispatch.
+tokens (recompute preemption), as there. With the prefix cache, a prompt's
+full pages are published once the dispatch writing them was issued (its
+final chunk), and a finished or preempted request's decode-written pages
+too, so a resume or a follow-up turn re-admits against them. Dispatches
+are not pipelined: the host waits for each decode result before the next
+dispatch.
 
 Not ported (their Request fields raise): logprobs, LoRA adapters, grammar,
-KV handoff (ROADMAP A2, A3, A5, A7); nor the prefix cache, spill/tier,
-QoS, SLO, metrics and flight planes, the prefill-priority hold and the
-multi-step plan (A6). Speculation counters live in ``Scheduler.stats``.
+KV handoff (ROADMAP A2, A3, A5, A7); nor spill/tier, QoS, SLO, metrics and
+flight planes, the prefill-priority hold and the multi-step plan (A6).
+Speculation, prefix-cache and admission counters live in
+``Scheduler.stats``.
 """
 
 from __future__ import annotations
 
 import heapq
+import itertools
 import logging
 import math
 import queue
@@ -46,6 +56,7 @@ import numpy as np
 
 from generativeaiexamples_tpu_torch.engine.engine import (
     EngineCore, PrefillItem, unpack_decode_out)
+from generativeaiexamples_tpu_torch.engine.prefix_cache import chain_hashes
 from generativeaiexamples_tpu_torch.engine.tokenizer import (
     IncrementalDetokenizer, Tokenizer)
 
@@ -94,6 +105,7 @@ class Request:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     preemptions: int = 0
+    prefix_hit_tokens: int = 0    # prompt tokens served from the prefix cache
     completion_tokens: int = 0
     output_ids: List[int] = field(default_factory=list)   # generated ids
     error: Optional[str] = None
@@ -128,6 +140,10 @@ class _Job:
     stop_buf: str = ""            # held-back text (possible stop prefix)
     stopped: bool = False
     spec_ema: float = -1.0        # trailing accepted drafts; < 0 = unset
+    bypass_count: int = 0         # times passed over while heading the queue
+    shared: int = 0               # tokens of ids served from the prefix cache
+    page_hashes: List[bytes] = field(default_factory=list)  # chain/full page
+    hashed_len: int = -1          # len(ids) the hashes were computed for
 
 
 class Scheduler:
@@ -142,6 +158,11 @@ class Scheduler:
         self._slots: Dict[int, _Job] = {}
         self._free: List[int] = list(range(core.batch))
         self._alloc = core.new_allocator()
+        # prefix caching (engine/prefix_cache.py): on iff the allocator
+        # shares pages; the chain seed "{epoch}|{adapter}" is the
+        # reference's, so both packages hash a prompt alike
+        self._caching = hasattr(self._alloc, "match")
+        self._cache_seed = 0
         self._table = np.zeros((core.batch, core.max_pages_per_slot), np.int32)
         self._table_dev = None
         self._admit_counter = 0
@@ -160,14 +181,19 @@ class Scheduler:
         # configured draft; wider rungs are earned by measured acceptance
         self._spec_ema_global = min(core.cfg.spec_draft,
                                     self._spec_w - 1) / 2.0
-        # dispatch counts, read by chip_smoke.py and /health: mixed
+        # counts read by chip_smoke.py and /health: dispatches, mixed
         # dispatches, widened decode steps (W > 1), accepted drafts
-        # (spec_bonus_tokens) over slot-steps that emitted (spec_base_steps)
+        # (spec_bonus_tokens) over slot-steps that emitted (spec_base_steps),
+        # prompt tokens served from the prefix cache over prompt tokens
+        # admitted, admissions past a page-blocked head, cached pages
+        # reclaimed by allocation
         self.stats = {"prefill_dispatches": 0, "prefill_chunks": 0,
                       "decode_dispatches": 0, "decode_steps": 0,
                       "mixed_dispatches": 0, "spec_steps": 0,
                       "spec_bonus_tokens": 0, "spec_base_steps": 0,
-                      "preemptions": 0}
+                      "preemptions": 0, "prefix_hit_tokens": 0,
+                      "prefix_prompt_tokens": 0, "admission_skips": 0,
+                      "prefix_evictions": 0}
 
     # ------------------------------------------------------------------ API
 
@@ -224,15 +250,24 @@ class Scheduler:
         return text
 
     def load_stats(self) -> Dict[str, object]:
+        """The ``/health`` load surface: queue depths, the engine's serving
+        config, the pool, and every counter of ``stats`` with the prefix
+        cache's hit fraction and cached pages."""
         with self._lock:
             waiting = len(self._pending)
+        prompted = self.stats["prefix_prompt_tokens"]
         return {"running": len(self._slots),
                 "prefilling": len(self._prefilling), "waiting": waiting,
                 "batch": self.core.batch, "kv_dtype": self.core.kv_dtype,
                 "spec_widths": list(self._spec_widths),
                 "mixed": self.core.mixed_supported,
+                "prefix_cache": self._caching,
                 "kv_pool_bytes": self._state.cache.nbytes,
-                "kv_pages_free": self._alloc.available, **self.stats}
+                "kv_pages_free": self._alloc.available,
+                "prefix_hit_frac": (round(self.stats["prefix_hit_tokens"]
+                                          / prompted, 4) if prompted else 0.0),
+                "prefix_cached_pages": getattr(self._alloc, "cached_pages", 0),
+                **self.stats}
 
     # ------------------------------------------------------------- internals
 
@@ -254,8 +289,10 @@ class Scheduler:
         self._table_dev = None
 
     def _release(self, job: _Job) -> None:
-        """Return the job's slot and pages to the pools."""
+        """Return the job's slot and pages to the pools; the slot stops
+        sampling on the host (its device row is already inactive)."""
         if job.slot >= 0:
+            self._state = self.core.retire_host(self._state, job.slot)
             heapq.heappush(self._free, job.slot)
             self._table[job.slot, :] = 0
             self._table_dev = None
@@ -282,6 +319,9 @@ class Scheduler:
         job.stop_buf = ""
         req.finished_at = time.perf_counter()
         req.out_queue.put(_STOP)
+        # decode-written pages join the prefix cache before release: a
+        # follow-up turn whose prompt embeds this one re-admits against them
+        self._cache_insert(job, with_generated=True)
         self._release(job)
 
     def _fail(self, job: _Job, reason: str) -> None:
@@ -296,43 +336,180 @@ class Scheduler:
 
     # -- admission ----------------------------------------------------------
 
+    _ADMIT_SCAN = 32     # pending jobs considered per admission pass
+    _BYPASS_MAX = 8      # admissions allowed past a page-blocked head
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """The one page allocation of admission and decode growth; folds
+        the cached pages it reclaimed into ``stats``."""
+        before = getattr(self._alloc, "evictions", 0)
+        pages = self._alloc.alloc(n)
+        self.stats["prefix_evictions"] += (getattr(self._alloc, "evictions", 0)
+                                           - before)
+        return pages
+
+    def _cap_shared(self, n: int, shared: int) -> int:
+        """Largest usable prefix-cache coverage for an n-token prompt.
+
+        Two geometry rules cap a raw match: (a) at least the final token is
+        recomputed (its logits seed the first sample), so coverage stops at
+        the last full page before position n - 1; (b) the chunk walk from
+        ``shared`` keeps its final chunk, padded to its bucket, inside the
+        block-table row. (b) is re-established by stepping coverage down a
+        page at a time; at a chunk multiple it holds because max_seq is a
+        multiple of the chunk."""
+        ps = self.core.page_size
+        chunk = self.core.chunk
+        row_tokens = self.core.row_tokens
+        shared = min(shared, ((n - 1) // ps) * ps)
+        while shared > 0:
+            start = shared
+            while n - start > chunk:
+                start += chunk
+            bucket = next(b for b in self.core.buckets if (n - start) <= b)
+            if start + bucket <= row_tokens:
+                break
+            shared -= ps
+        return max(shared, 0)
+
+    def _plan_admission(self, job: _Job):
+        """(fresh pages needed, shared tokens, hit pages) for admitting the
+        job now."""
+        n = len(job.ids)
+        if not self._caching:
+            return self.core.pages_for(n), 0, []
+        if job.hashed_len != n:
+            job.page_hashes = chain_hashes(
+                job.ids, self.core.page_size,
+                seed=f"{self._cache_seed}|{job.request.adapter}")
+            job.hashed_len = n
+        hits = self._alloc.match(job.page_hashes)
+        shared = self._cap_shared(n, len(hits) * self.core.page_size)
+        hits = hits[: shared // self.core.page_size]
+        return self.core.pages_for(n) - len(hits), shared, hits
+
+    def _can_alloc(self, need: int, hits) -> bool:
+        if self._caching:
+            return self._alloc.can_serve(need, hits)
+        return self._alloc.available >= need
+
+    def _cache_insert(self, job: _Job, with_generated: bool = False) -> None:
+        """Publish the job's fully written pages to the prefix cache. Call
+        only once the writing dispatches were issued: at final-chunk
+        dispatch for prompt pages; at finish or preemption also the
+        decode-written pages (minus the last generated token, whose KV was
+        never fed back)."""
+        if not self._caching or job.slot < 0 or not job.pages:
+            return
+        ids = job.ids
+        if with_generated:
+            if job.prefilled < len(job.ids):
+                # preempted mid-prefill: only the dispatched chunks have
+                # content; pages past them are garbage
+                ids = job.ids[:job.prefilled]
+            else:
+                ids = list(job.request.prompt_ids) + list(job.gen_ids)
+                if job.gen_ids:
+                    ids = ids[:-1]
+                if (len(ids) // self.core.page_size
+                        > len(job.ids) // self.core.page_size):
+                    job.page_hashes = chain_hashes(
+                        ids, self.core.page_size,
+                        seed=f"{self._cache_seed}|{job.request.adapter}")
+                    job.hashed_len = -1   # differs from ids: recompute later
+        n_full = min(len(ids) // self.core.page_size, len(job.pages),
+                     len(job.page_hashes))
+        if n_full > 0:
+            self._alloc.insert(job.page_hashes[:n_full], job.pages[:n_full])
+
     def _admit(self) -> None:
-        """FIFO: admit the queue head while a slot and its pages are free;
-        a prompt that could never be served fails at once."""
+        """Move pending jobs into the prefilling set while slots and pages
+        last.
+
+        FIFO with bounded-bypass skip-ahead: the queue head is admitted the
+        moment its pages are free, always first. While its pages are not
+        free, a later pending job that fits may be admitted out of order
+        (never taking the last free slot), so small prompts stop convoying
+        behind a big one. Each bypass counts against the blocked head; past
+        ``_BYPASS_MAX`` admission is strict FIFO until the head admits, so
+        small prompts cannot starve a big one. A prompt that can never be
+        served fails at once; a preempted resume that outgrew the cache
+        ends at its current length."""
         while self._free:
             with self._lock:
-                if not self._pending:
-                    return
-                job = self._pending[0]
-            n = len(job.ids)
-            need = self.core.pages_for(n)
-            peak = n if job.gen_ids else n + 1
-            if peak >= self.core.max_seq or need > self.core.num_pages - 1:
+                cands = list(itertools.islice(self._pending,
+                                              self._ADMIT_SCAN))
+            if not cands:
+                return
+            chosen: Optional[_Job] = None
+            oversized: Optional[_Job] = None
+            plan = None
+            head = cands[0]
+            for pos, job in enumerate(cands):
+                n = len(job.ids)
+                need = self.core.pages_for(n)
+                # a fresh prompt's first decode writes at n (peak n + 1); a
+                # resume re-feeds its last generated token (peak n)
+                peak = n if job.gen_ids else n + 1
+                if peak >= self.core.max_seq or need > self.core.num_pages - 1:
+                    oversized = job
+                    break
+                need, shared, hits = self._plan_admission(job)
+                if pos == 0:
+                    if self._can_alloc(need, hits):
+                        chosen, plan = job, (need, shared, hits)
+                        break
+                    if head.bypass_count >= self._BYPASS_MAX:
+                        return   # the head's turn is overdue: strict FIFO
+                elif len(self._free) >= 2 and self._can_alloc(need, hits):
+                    chosen, plan = job, (need, shared, hits)
+                    head.bypass_count += 1
+                    self.stats["admission_skips"] += 1
+                    break
+            if oversized is not None:
+                job = oversized
                 with self._lock:
-                    self._pending.popleft()
+                    self._pending.remove(job)
+                n = len(job.ids)
                 if job.gen_ids:
-                    # a preempted resume that has outgrown the cache ends at
-                    # its current length, keeping the streamed output valid
                     job.request.finish_reason = "length"
                     self._finish(job)
                 else:
-                    self._fail(job, f"prompt of {n} tokens needs {need} KV "
-                                    f"pages and {n + 1} cache positions; "
-                                    f"capacity is {self.core.num_pages - 1} "
-                                    f"pages / {self.core.max_seq - 1} "
-                                    f"positions")
+                    self._fail(job, f"prompt of {n} tokens needs "
+                                    f"{self.core.pages_for(n)} KV pages and "
+                                    f"{n + 1} cache positions; capacity is "
+                                    f"{self.core.num_pages - 1} pages / "
+                                    f"{self.core.max_seq - 1} positions")
                 continue
-            pages = self._alloc.alloc(need)
-            if pages is None:
-                return   # the head waits for pages
+            if chosen is None:
+                return   # the head waits for pages; no job behind it fits
+            job = chosen
+            need, shared, hits = plan
+            # only this thread allocates, so the pages planned above
+            # are still there: acquire the hits, then the fresh pages
+            if hits:
+                self._alloc.acquire(hits)
+            pages = list(hits) + self._alloc_pages(need)
             with self._lock:
-                self._pending.popleft()
-            slot = heapq.heappop(self._free)
+                self._pending.remove(job)
+            slot = heapq.heappop(self._free)   # lowest id first
             job.slot, job.pages = slot, pages
-            job.prefilled = job.total_len = 0
+            job.prefilled = job.total_len = job.shared = shared
             if job.request.admitted_at is None:
                 job.request.admitted_at = time.perf_counter()
+            if self._caching:
+                if shared:
+                    job.request.prefix_hit_tokens += shared
+                    self.stats["prefix_hit_tokens"] += shared
+                    if self._spec_w > 1:
+                        # cache-hit chunks skip prefill, so the drafting
+                        # history row is seeded here
+                        self._state = self.core.seed_history(
+                            self._state, slot, job.ids)
+                self.stats["prefix_prompt_tokens"] += len(job.ids)
             if job.admit_seq == 0:
+                # resumes keep their admission age, so youngest-first
+                # preemption cannot thrash an old request
                 self._admit_counter += 1
                 job.admit_seq = self._admit_counter
             self._table[slot, :] = 0
@@ -346,17 +523,29 @@ class Scheduler:
         """One grouped prefill dispatch, head job first; consecutive chunks
         of one prompt may share it."""
         budget = self.core.prefill_group_max
+        ps, row = self.core.page_size, self.core.row_tokens
         items: List[PrefillItem] = []
         finals: List[_Job] = []
+        span = top = 0    # the group's padded chunk length and latest start
+        full = False
         for job in list(self._prefilling):
-            if len(items) >= budget:
+            if len(items) >= budget or full:
                 break
             req = job.request
             start = job.prefilled
-            if req.prefill_start_at is None:
-                req.prefill_start_at = time.perf_counter()
             while len(items) < budget and start < len(job.ids):
                 chunk_ids = job.ids[start:start + self.core.chunk]
+                # every chunk pads to the group's longest, in pages: a chunk
+                # that would carry some row's span past its end (a cache-hit
+                # start near the row's end beside a long chunk) waits for
+                # the next dispatch
+                pad = -(-len(chunk_ids) // ps) * ps
+                if items and max(top, start) + max(span, pad) > row:
+                    full = True
+                    break
+                span, top = max(span, pad), max(top, start)
+                if req.prefill_start_at is None:
+                    req.prefill_start_at = time.perf_counter()
                 last = start + len(chunk_ids) >= len(job.ids)
                 items.append(PrefillItem(
                     chunk_ids=chunk_ids, page_row=self._table[job.slot],
@@ -373,6 +562,9 @@ class Scheduler:
         self.stats["prefill_chunks"] += len(items)
         if not finals:
             return
+        for job in finals:
+            # the prompt's pages are now write-dispatched: publish them
+            self._cache_insert(job)
         host = toks.cpu().numpy()
         first = {it.slot: int(host[i]) for i, it in enumerate(items)
                  if it.is_last}
@@ -451,7 +643,7 @@ class Scheduler:
                               self.core.max_pages_per_slot)
                 if len(job.pages) >= target:
                     break
-                got = self._alloc.alloc(1)
+                got = self._alloc_pages(1)
                 if got is not None:
                     self._table[slot, len(job.pages)] = got[0]
                     job.pages.extend(got)
@@ -480,6 +672,9 @@ class Scheduler:
         else:
             self._prefilling.remove(job)
         self._state = self.core.release(self._state, job.slot)
+        # publish what the slot computed: the resume re-admits against these
+        # pages instead of recomputing from token 0
+        self._cache_insert(job, with_generated=True)
         self._release(job)
         job.ids = list(job.request.prompt_ids) + list(job.gen_ids)
         job.prefilled = job.total_len = 0
@@ -557,7 +752,13 @@ class Scheduler:
         """May this prefilling job's next chunk ride the decode dispatch?
         Not while more than a group of chunks is left: the mixed program
         moves one chunk per job a dispatch, the grouped one up to
-        ``prefill_group``."""
+        ``prefill_group``. Nor when the chunk starts within
+        ``prefill_chunk`` of the block-table row's end (a cache hit left it
+        at a page, not a chunk, boundary): the mixed program pads every
+        chunk to ``prefill_chunk`` positions, which would pass the row, so
+        that chunk takes the grouped path, which pads to pages."""
+        if job.prefilled + self.core.chunk > self.core.row_tokens:
+            return False
         remaining = len(job.ids) - job.prefilled
         return remaining <= self.core.prefill_group_max * self.core.chunk
 
@@ -617,6 +818,9 @@ class Scheduler:
                                                       steps, items)
             self.stats["mixed_dispatches"] += 1
             self.stats["prefill_chunks"] += len(items)
+            for job, last in metas:
+                if last:    # prompt pages write-dispatched: publish them
+                    self._cache_insert(job)
         else:
             kw = ({} if caps is None
                   else {"spec_width": w_disp, "draft_cap": caps})

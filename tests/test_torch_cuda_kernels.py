@@ -299,6 +299,26 @@ def test_flash_prefill_bf16_at_llama3_heads_on_the_card(cuda_device, S):
 
 
 @pytest.mark.cuda
+def test_flash_prefill_cache_hit_suffixes_on_the_card(cuda_device):
+    """A grouped prefill of 8 cache-hit suffixes: 40 to 200 live queries
+    padded to 256 (two pages), page-aligned starts 1,408 to 1,664 over a
+    2,048-token view, llama3-8b heads, bf16; each live (query, head)
+    within one bf16 ulp, the padded query tiles finite."""
+    rng = np.random.default_rng(58)
+    S, T, H, KV, HD = 256, 2048, 32, 8, 128
+    starts = [1408, 1536, 1664, 1408, 1536, 1664, 1408, 1536]
+    lens = [40, 64, 100, 128, 150, 180, 200, 77]
+    q, k, v, sp, vt = _flash_inputs(
+        rng, cuda_device, torch.bfloat16, len(starts), S, T, H, KV, HD,
+        starts, [s + n for s, n in zip(starts, lens)])
+    got = tk.flash_prefill(q, k, v, sp, vt)
+    want = tk.flash_prefill_plain(q, k, v, sp, vt)
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(lens):
+        assert _within_one_ulp(got[b, :n], want[b, :n]), b
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("HD", [16, 32, 64, 128])
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
@@ -440,12 +460,19 @@ def test_split_walk_ragged_decode_matches_plain_on_the_card(cuda_device, dt):
             assert _within_one_ulp(got, want)
 
 
+# cache-hit suffixes riding a mixed dispatch: (start, tokens) at
+# page-aligned starts that are not multiples of the 512-token chunk, each
+# padded to the chunk as the engine packs it
+PREFIX_CHUNKS = ((1152, 64), (1280, 200), (1408, 120), (1152, 160))
+
+
 def _verify_and_mixed_rows(case, cap):
-    """(Qb, kv_lens, q_pos0, q_num, slot of each row) of the serving shapes
-    this slice adds: 8 verify rows of W = 5 or 9 live queries, and the
-    mixed program's rows at q_block 16 (8 decode rows of 9 queries, a
-    chunk of 256 at 0 and a partial one of 200 at 512, whose last rows
-    are idle with kv_len 0)."""
+    """(Qb, kv_lens, q_pos0, q_num, slot of each row) of the serving shapes:
+    8 verify rows of W = 5 or 9 live queries, and the mixed program's rows
+    at q_block 16 (8 decode rows of 9 queries, then ``mixed_qb16``: a
+    chunk of 256 at 0 and a partial one of 200 at 512; ``mixed_prefix``:
+    the cache-hit suffixes of ``PREFIX_CHUNKS`` in rows of 512; a chunk's
+    last rows are idle with kv_len 0)."""
     dec = [9, 40, 200, 511, 640, 900, cap - 3, cap]
     if case.startswith("verify"):
         W = int(case[len("verify_qb"):])
@@ -453,8 +480,10 @@ def _verify_and_mixed_rows(case, cap):
         return W, lens, [n - W for n in lens], [W] * 8, list(range(8))
     lens = [max(n, 9) for n in dec]
     pos0, qnum, slots = [n - 9 for n in lens], [9] * 8, list(range(8))
-    for slot, (start, n) in ((8, (0, 256)), (9, (512, 200))):
-        for j in range(256 // 16):
+    chunks, padded = ((((0, 256), (512, 200)), 256) if case == "mixed_qb16"
+                      else (PREFIX_CHUNKS, 512))
+    for slot, (start, n) in enumerate(chunks, start=8):
+        for j in range(padded // 16):
             live = min(16, max(0, n - 16 * j))
             lens.append(start + n if live else 0)
             pos0.append(start + 16 * j)
@@ -464,16 +493,20 @@ def _verify_and_mixed_rows(case, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["verify_qb5", "verify_qb9", "mixed_qb16"])
+@pytest.mark.parametrize("case", ["verify_qb5", "verify_qb9", "mixed_qb16",
+                                  "mixed_prefix"])
 @pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
 def test_ragged_paged_verify_and_mixed_rows_on_the_card(cuda_device, pool,
                                                          case):
     """The ragged kernel's multi-query instances that speculative decoding
     (Qb = 5, 9: the QGB = 32 and 64 instances at G = 4) and the mixed
-    program (Qb = 16, QG = 64) run, at llama3-8b heads over pages of 128:
-    each live (query, head) against the plain version, idle rows zero."""
+    program (Qb = 16, QG = 64) run, at llama3-8b heads over pages of 128,
+    with the mixed chunks at chunk-aligned starts and as cache-hit
+    suffixes: each live (query, head) against the plain version, idle
+    rows zero."""
     rng = np.random.default_rng(70 + len(case))
-    H, KV, HD, ps, cap = 32, 8, 128, 128, 1024
+    H, KV, HD, ps = 32, 8, 128, 128
+    cap = 2048 if case == "mixed_prefix" else 1024
     maxp = cap // ps
     Qb, lens, pos0, qnum, slots = _verify_and_mixed_rows(case, cap)
     n_slots = max(slots) + 1
@@ -556,3 +589,49 @@ def test_engine_spec_and_mixed_kernel_path_matches_plain_on_the_card(
                    else "ragged_paged_attention")
             assert tk.launch_counts()[key] > 0
     assert streams["kernel"] == streams["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_engine_prefix_cache_kernel_path_matches_plain_on_the_card(
+        cuda_device, kv_quant):
+    """The default engine with the prefix cache (tiny model, f32): a prompt
+    alone, then, while it decodes, its repeat and a prompt sharing its
+    context (cache hits riding mixed dispatches); the kernel path's greedy
+    streams and hit tokens equal the plain path's, over both pools."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(5), cfg)
+    tok = ByteTokenizer()
+    context = "the shared context of every request, " * 3
+    prompts = [tok.encode(context + q, add_bos=True)
+               for q in ("first?", "first?", "second one?")]
+    runs = {}
+    for attn in ("kernel", "plain"):
+        core = EngineCore(cfg, EngineConfig(
+            max_batch_size=4, max_seq_len=256, prefill_chunk=16, page_size=8,
+            attention=attn, kv_quant=kv_quant), params, tok.eos_id,
+            device=cuda_device)
+        sched = Scheduler(core, tok)
+        reqs = [Request(prompt_ids=p, max_tokens=24, temperature=0.0)
+                for p in prompts]
+        sched.submit(reqs[0])
+        while not reqs[0].first_token_at:
+            sched._tick()
+        for r in reqs[1:]:
+            sched.submit(r)
+        while sched._tick():
+            pass
+        assert all(r.error is None for r in reqs)
+        assert sched.stats["mixed_dispatches"] > 0
+        runs[attn] = ([r.output_ids for r in reqs],
+                      [r.prefix_hit_tokens for r in reqs])
+    assert runs["kernel"] == runs["plain"]
+    assert min(runs["kernel"][1][1:]) > 0

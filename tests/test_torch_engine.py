@@ -4,10 +4,12 @@ Same tiny model (vocab 300, ``PRNGKey(5)`` weights as the JAX CLI's
 ``--tiny``), same engine geometry, three greedy prompts (one longer than a
 prefill chunk): the port's ``Scheduler`` streams must be token-identical
 to the JAX ``Scheduler``'s. Both run the narrow two-dispatch path
-(speculation off, the mixed dispatch off on the port; the prefix cache
-off on JAX), all token-identical options there; the speculative and mixed
-paths are held to JAX in ``tests/test_torch_spec_engine.py``. The same holds with the int8 KV
-pool (``kv_quant="int8"``) on both sides.
+(speculation off, the mixed dispatch off on the port) with the prefix
+cache off, all token-identical options there, and again with the prefix
+cache on on both sides; the speculative and mixed paths are held to JAX in
+``tests/test_torch_spec_engine.py``, the prefix cache's sharing traffic in
+``tests/test_torch_prefix_cache.py``. The same holds with the int8 KV pool
+(``kv_quant="int8"``) on both sides.
 """
 
 import jax
@@ -46,8 +48,9 @@ def tiny():
 def _jax_streams(tiny, prompts, max_tokens, **engine_kw):
     cfg, jparams, _, _ = tiny
     tok = ByteTokenizer()
-    core = JaxCore(cfg, JaxEngineConfig(spec_decode="off", prefix_cache="off",
-                                        **GEOMETRY, **engine_kw), jparams,
+    engine_kw = {"prefix_cache": "off", **engine_kw}
+    core = JaxCore(cfg, JaxEngineConfig(spec_decode="off", **GEOMETRY,
+                                        **engine_kw), jparams,
                    eos_id=tok.eos_id)
     sched = JaxScheduler(core, tok)
     sched.start()
@@ -65,10 +68,10 @@ def _jax_streams(tiny, prompts, max_tokens, **engine_kw):
 def _torch_streams(tiny, prompts, max_tokens, **engine_kw):
     _, _, tcfg, tparams = tiny
     tok = ByteTokenizer()
-    # the narrow two-dispatch path, as the JAX side runs it, unless a test
-    # asks otherwise
+    # the narrow two-dispatch path without the prefix cache, as the JAX side
+    # runs it, unless a test asks otherwise
     engine_kw = {"spec_decode": "off", "mixed_phase_dispatch": "off",
-                 **engine_kw}
+                 "prefix_cache": "off", **engine_kw}
     core = EngineCore(tcfg, EngineConfig(**GEOMETRY, **engine_kw), tparams,
                       eos_id=tok.eos_id, device="cpu")
     sched = Scheduler(core, tok)
@@ -103,6 +106,20 @@ def test_scheduler_int8_kv_streams_match_jax(tiny):
     assert got_ids == want_ids
     assert got_text == want_text
     assert stats["prefill_chunks"] >= 4
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_scheduler_streams_match_jax_with_the_prefix_cache_on(tiny, kv_quant):
+    """The same prompts twice: the repeats hit the prefix cache on both
+    sides, and every stream equals the JAX engine's."""
+    prompts = PROMPTS + PROMPTS
+    want_ids, want_text = _jax_streams(tiny, prompts, MAX_TOKENS,
+                                       kv_quant=kv_quant, prefix_cache="on")
+    got_ids, got_text, stats = _torch_streams(
+        tiny, prompts, MAX_TOKENS, kv_quant=kv_quant, prefix_cache="on")
+    assert got_ids == want_ids
+    assert got_text == want_text
+    assert got_ids[:3] == got_ids[3:]
 
 
 @pytest.mark.parametrize("engine_kw", [

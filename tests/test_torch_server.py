@@ -2,9 +2,12 @@
 
 ``/health`` answers; a chat completion and a streamed one return the JAX
 engine's greedy text for the same weights and prompt, the stream ends with
-``[DONE]`` and reports ``usage``.
+``[DONE]`` and reports ``usage``. Both engines run without the prefix
+cache; a second server with it on answers a repeated chat with the same
+text and reports the hit on ``/health``.
 """
 
+import contextlib
 import json
 import urllib.request
 
@@ -46,11 +49,18 @@ def served():
         jsched.stop()
     tcfg = llama.LlamaConfig.tiny(vocab_size=300)
     tparams = llama.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
-    sched = Scheduler(EngineCore(tcfg, EngineConfig(**GEOMETRY), tparams,
-                                 eos_id=tok.eos_id, device="cpu"), tok)
+    with _server(tparams, tcfg, tok, prefix_cache="off") as base:
+        yield base, want, (tcfg, tparams)
+
+
+@contextlib.contextmanager
+def _server(tparams, tcfg, tok, **engine_kw):
+    sched = Scheduler(EngineCore(tcfg, EngineConfig(**GEOMETRY, **engine_kw),
+                                 tparams, eos_id=tok.eos_id, device="cpu"),
+                      tok)
     httpd, thread = serve_in_thread(sched, "tiny-llama-test")
     try:
-        yield f"http://127.0.0.1:{httpd.server_address[1]}", want
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -65,7 +75,7 @@ def _post(url, body):
 
 
 def test_health_and_models(served):
-    base, _ = served
+    base, _, _ = served
     with urllib.request.urlopen(base + "/health", timeout=10) as resp:
         assert resp.status == 200
         assert json.loads(resp.read())["batch"] == 4
@@ -74,7 +84,7 @@ def test_health_and_models(served):
 
 
 def test_chat_completion_matches_jax_greedy(served):
-    base, want = served
+    base, want, _ = served
     with _post(base + "/v1/chat/completions",
                {"messages": MESSAGES, "max_tokens": MAX_TOKENS,
                 "temperature": 0}) as resp:
@@ -87,7 +97,7 @@ def test_chat_completion_matches_jax_greedy(served):
 
 
 def test_streamed_chat_matches_jax_greedy(served):
-    base, want = served
+    base, want, _ = served
     with _post(base + "/v1/chat/completions",
                {"messages": MESSAGES, "max_tokens": MAX_TOKENS,
                 "temperature": 0, "stream": True}) as resp:
@@ -104,7 +114,7 @@ def test_streamed_chat_matches_jax_greedy(served):
 
 
 def test_completion_and_bad_request(served):
-    base, _ = served
+    base, _, _ = served
     with _post(base + "/v1/completions",
                {"prompt": "abc", "max_tokens": 4, "temperature": 0}) as resp:
         body = json.loads(resp.read())
@@ -113,3 +123,21 @@ def test_completion_and_bad_request(served):
         _post(base + "/v1/chat/completions",
               {"messages": MESSAGES, "tools": [{"type": "function"}]})
     assert err.value.code == 400
+
+
+def test_repeated_chat_hits_the_prefix_cache(served):
+    _, want, (tcfg, tparams) = served
+    tok = ByteTokenizer()
+    with _server(tparams, tcfg, tok, prefix_cache="on") as base:
+        for _ in range(2):
+            with _post(base + "/v1/chat/completions",
+                       {"messages": MESSAGES, "max_tokens": MAX_TOKENS,
+                        "temperature": 0}) as resp:
+                body = json.loads(resp.read())
+            assert body["choices"][0]["message"]["content"] == want
+        with urllib.request.urlopen(base + "/health", timeout=10) as resp:
+            health = json.loads(resp.read())
+    ids = tok.apply_chat_template(MESSAGES)
+    assert health["prefix_cache"] is True
+    assert health["prefix_hit_tokens"] == (len(ids) - 1) // 16 * 16 > 0
+    assert health["prefix_prompt_tokens"] == 2 * len(ids)

@@ -6,7 +6,8 @@ on the CPU with the tiny model.
 * Through the ``Scheduler``, with prompts arriving while a slot decodes,
   greedy streams with speculation on (and the mixed dispatch forced on)
   equal the JAX ``Scheduler``'s with the same settings on the same weights
-  (``params_from_jax``), over the model-dtype pool and the int8 pool.
+  (``params_from_jax``), over the model-dtype pool and the int8 pool, with
+  the prefix cache off on both sides and again on on both sides.
 * Within the port: seeded sampled streams with speculation equal those
   without; a draft cap changes no token; preemption under page pressure
   and slots at the context limit keep the spec-off streams; a repetitive
@@ -84,8 +85,8 @@ def _drive(sched, make, first_ticks=2, **req_kw):
 def _jax_streams(tiny, **engine_kw):
     cfg, jparams, _, _ = tiny
     tok = ByteTokenizer()
-    core = JaxCore(cfg, JaxEngineConfig(prefix_cache="off",
-                                        prefill_hold_chunks=0, **GEOMETRY,
+    engine_kw = {"prefix_cache": "off", **engine_kw}
+    core = JaxCore(cfg, JaxEngineConfig(prefill_hold_chunks=0, **GEOMETRY,
                                         **engine_kw), jparams,
                    eos_id=tok.eos_id)
     sched = JaxScheduler(core, tok)
@@ -94,6 +95,7 @@ def _jax_streams(tiny, **engine_kw):
 
 
 def _torch_streams(tiny, **engine_kw):
+    engine_kw = {"prefix_cache": "off", **engine_kw}
     sched = Scheduler(_core(tiny, **engine_kw), ByteTokenizer())
     reqs = _drive(sched, Request, temperature=0.0)
     return [r.output_ids for r in reqs], sched.stats
@@ -134,6 +136,20 @@ def test_spec_streams_match_jax_scheduler(tiny, kv_quant, mixed):
     if mixed == "on":
         assert stats["mixed_dispatches"] > 0
         assert jsched._mixed_dispatches > 0
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("mixed", ["off", "on"])
+def test_spec_streams_match_jax_scheduler_with_the_prefix_cache_on(
+        tiny, kv_quant, mixed):
+    want, _ = _jax_streams(tiny, kv_quant=kv_quant,
+                           mixed_phase_dispatch=mixed, prefix_cache="on")
+    got, stats = _torch_streams(tiny, kv_quant=kv_quant,
+                                mixed_phase_dispatch=mixed,
+                                prefix_cache="on")
+    assert got == want
+    assert stats["spec_steps"] > 0
+    assert (stats["mixed_dispatches"] > 0) == (mixed == "on")
 
 
 def test_spec_and_mixed_equal_narrow_two_dispatch(tiny):
