@@ -2,7 +2,8 @@
 """Drive the PyTorch port end to end on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py                   # the smoke run
-    python3 chip_smoke.py --planted-faults  # the kernel checks catch faults
+    python3 chip_smoke.py --planted-faults [NAME ...]  # the kernel checks
+                                            # catch faults (all, or those)
     python3 chip_smoke.py --ab PARENT CHANGE  # kernel times of two trees
 
 Phases, each printing one JSON line; any failure exits non-zero and
@@ -15,42 +16,59 @@ prints no result:
   4. kernel:ragged_paged_attention       the main paths' shapes, with
   5. kernel:ragged_paged_attention_int8  times, bounds and a library
   6. kernel:ragged_decode                yardstick;
-  7. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
+  7. kernel:gumbel_argmax  the sampler (threefry draws, Gumbel, argmax) at
+              R = 72, 8 and 40 rows of llama3-8b's vocabulary, rows mixing
+              greedy, temperature 0.7, top-k 50 and top-p 0.9 masked by
+              the port's ``_mask_dynamic``: tokens equal to the plain
+              version's (rows at a near-tie counted), threefry bits exact,
+              times beside the bound, torch's own Gumbel-max as yardstick;
+  8. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
               the plain path give the same tokens through the engine over
-              a model-dtype pool and an int8 pool, on the narrow
-              two-dispatch path and on the default one (speculation on,
-              the mixed dispatch on, a prompt arriving mid-decode), the
-              default path the narrow one's tokens, and the dense-cache
-              API (``llama.prefill`` + ``llama.decode_step``) kernel vs
-              plain; then (``parity_prefix``) the prefix cache on against
-              off on the kernel path, both pools: a shared 1,536-byte
-              context with divergent questions, a repeat and a follow-up
-              turn embedding a finished answer, and one prompt at a time
-              in a pool of 36 pages, which evicts;
-  8. serve    llama3-8b at full width and depth, bf16, random seeded
+              a model-dtype pool and an int8 pool, on the narrow path (one
+              dispatch in flight, no hold, no ladder, speculation and the
+              mixed dispatch off) and with speculation and the mixed
+              dispatch on (a prompt arriving mid-decode), the latter the
+              former's tokens, and the dense-cache API kernel vs plain;
+              then (``parity_prefix``) the prefix cache on against off on
+              the kernel path, both pools; then (``parity_pipeline``) the
+              defaults (two dispatches in flight, the prefill hold, the
+              width ladder, the sampling kernel) against the plain
+              sampler, against ``pipeline_depth`` 1, against the ladder
+              off and against a device that lags (two dispatches then
+              stay in flight), greedy and seeded sampled streams token
+              for token;
+  9. serve    llama3-8b at full width and depth, bf16, random seeded
               weights, behind the port's HTTP server with the reference's
-              defaults (speculation adaptive on, the mixed dispatch on):
-              4 requests decode and 2 prompts of 1,296 bytes arrive once
-              the first decode dispatch ran; proof that prefill, widened
-              decode steps and mixed dispatches ran through the kernels
-              (launch and dispatch counts over the phase); then a W = 5
+              defaults (``warmup`` first): 4 requests (10 chunks) admitted
+              together, a ramp that holds decode, then 2 prompts of 1,296
+              bytes once the first decode dispatch ran (mixed
+              dispatches); proof that prefill, widened decode steps, mixed
+              dispatches and sampled draws ran through the kernels, that
+              the ramp held and that the narrow width rung ran (and how
+              many dispatches were issued with another in flight); then
+              a W = 5
               decode profile (``profile_wide``) and a mixed dispatch
               beside the two-dispatch pair doing the same work
               (``profile_mixed``);
-  9. serve_int8  the same over an int8 KV pool (the int8 instance);
- 10. serve_prefix  the prefix cache (on by default) behind the server:
-              12 chat requests over one 1,536-byte context, the first
-              alone, 7 once its first token is out (hits riding mixed
-              dispatches), 4 after all finish (hits in a grouped prefill);
-              every request's hit tokens equal ``_cap_shared``'s;
- 11. serve_prefix_int8  the same over an int8 KV pool;
- 12. serve_two_dispatch  speculation and the mixed dispatch off, bf16:
-              6 concurrent requests (the narrow path), then a narrow decode
-              profile and a grouped-prefill profile, and the same two
-              profiles over an int8 pool;
- 13. dense    the dense-cache API on the same weights: prefill of 8 rows
+ 10. serve_int8  the same over an int8 KV pool (the int8 instance);
+ 11. serve_prefix  the prefix cache behind the server: 12 chat requests
+              over one 1,536-byte context, the first alone, 7 once its
+              first token is out (cache hits arriving in a ramp), 4 after
+              all finish (hits in a grouped prefill); every request's hit
+              tokens equal ``_cap_shared``'s;
+ 12. serve_prefix_int8  the same over an int8 KV pool;
+ 13. serve_two_dispatch  the narrow path, bf16: 6 concurrent requests, then a
+              narrow decode profile and a grouped-prefill profile, the
+              Scheduler's decode at ``pipeline_depth`` 1 against 2
+              (``profile_pipeline``: host wall and device busy share a
+              step), and the first two profiles over an int8 pool;
+ 14. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
               ragged_decode.
+
+Each serve phase reports the dispatch loop: dispatches per width rung,
+held ticks, dispatches issued with another in flight and the most left in
+flight, the warmup's seconds and the sampler's launches.
 
 The flash phase runs 4 ragged chunks, the serve path's group of 8 chunks
 (``prefill_group8``) and 8 cache-hit suffixes (``prefix_suffix``: 40 to
@@ -69,12 +87,13 @@ times of CUDA-graph replays (``graph_ms``), plain times of CUDA events
 around eager calls. ``--planted-faults`` shows that this check fails a
 dropped KV tile and a causal mask off by one in ``flash_prefill``, a
 dropped tile, a dropped split in the combine, a causal limit off by one
-and a wrong int8 scale slot in the decode-side walk, each planted in a
-temporary copy of the port, case by case: every case fails under at
-least one fault;
+and a wrong int8 scale slot in the decode-side walk, and a wrong
+threefry rotation constant and a counter off by one in the sampler, each
+planted in a temporary copy of the port, case by case: every case fails
+under at least one fault;
 ``--ab`` times every kernel of two trees of the port in turns, with the
 grouped-prefill profile. Each main
-path (8 to 13) sets the launch counts to 0 just before it and reads them
+path (9 to 14) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -608,6 +627,105 @@ def phase_decode(dev):
     return res
 
 
+# the sampler's cases: R = 8 slots (a narrow step), 40 (the W = 5 rung)
+# and 72 (the top W = 9 rung) rows over llama3-8b's vocabulary
+SAMPLE_ROWS = (72, 8, 40)
+SAMPLE_VOCAB = 128_256
+# 32-bit operations a vocabulary entry costs the sampler: threefry2x32's
+# 2 initial key adds, 20 rounds of add, rotate (one funnel shift) and xor,
+# 5 key injections of 3 adds; the xor of its words, the uniform's shift,
+# or, subtract, scale, add and max; two logs and two negations; the add of
+# the logit and the compare of the argmax
+SAMPLE_OPS_PER_ENTRY = 2 + 20 * 3 + 5 * 3 + 1 + 6 + 4 + 2
+# the card's rate for 32-bit operations outside the tensor cores: the
+# H100 SXM's float32 peak (67 TFLOP/s, an FMA counted as two), taken as a
+# lower bound on time for 32-bit integer work too
+PEAK_32BIT_OPS = 67e12
+NEAR_TIE = 1e-5     # a row whose plain top two logit + gumbel lie closer
+
+
+def _sample_case(dev, R, seed):
+    """gumbel_argmax over R rows of llama3-8b logits (scaled N(0, 3)),
+    the rows mixing greedy, temperature 0.7, top-k 50 and top-p 0.9,
+    masked by the port's _mask_dynamic, each with its own folded key:
+    tokens against the plain version (equal; a near-tie row may differ
+    and is counted), the bits of 4,099 counters a key against the plain
+    generator (exact), and the times."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
+    V = SAMPLE_VOCAB
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((R, V), generator=g, device=dev) * 3
+    mix = torch.arange(R, device=dev) % 4
+    temp = torch.where(mix == 0, 0.0, 0.7)
+    top_k = torch.where(mix == 2, 50, 0).to(torch.int32)
+    top_p = torch.where(mix == 3, 0.9, 1.0)
+    masked = sampling._mask_dynamic(logits, temp, top_k, top_p)
+    keys = threefry.fold_in(threefry.prng_key(torch.arange(R) + seed),
+                            torch.arange(R) * 7 + 1).to(dev)
+    got = ks.gumbel_argmax(keys, masked)
+    want = threefry.categorical(keys, masked)
+    scores = threefry.gumbel(keys, V) + masked
+    top2 = scores.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < NEAR_TIE
+    differ = got != want
+    err = (scores.gather(1, want.long()[:, None])
+           - scores.gather(1, got.long()[:, None])).abs()
+    bits = ks.threefry_bits(keys, 4099)
+    bits_ok = bool(torch.equal(bits, threefry.random_bits(keys, 4099)))
+    reading = {"token_mismatches": int(differ.sum()),
+               "mismatches_off_near_ties": int((differ & ~near).sum()),
+               "near_tie_rows": int(near.sum()),
+               "bits_exact": bits_ok, "max_abs_err": float(err.max())}
+    if reading["mismatches_off_near_ties"] or not bits_ok:
+        raise KernelMismatch("gumbel_argmax", reading)
+    res = dict(reading, tolerance="tokens equal to the plain version's "
+               f"except at rows whose plain top-two logit + gumbel lie "
+               f"within {NEAR_TIE}; bits exact")
+    if CHECK_ONLY:
+        return res
+    nbytes = R * V * 4 + R * 16 + R * 4
+    ops = R * V * SAMPLE_OPS_PER_ENTRY
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_32BIT_OPS * 1e3
+    b_ms = max(t_bytes, t_ops)
+    ms = graph_ms(lambda: ks.gumbel_argmax(keys, masked))
+    u = torch.empty_like(masked)
+
+    def torch_gumbel_max():
+        u.uniform_()
+        return torch.argmax(masked - torch.log(-torch.log(u)), dim=-1)
+
+    splits, seg = ks.split_plan(
+        R, V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    res.update(
+        ms=ms, plain_ms=time_ms(lambda: threefry.categorical(keys, masked)),
+        library_ms=graph_ms(torch_gumbel_max),
+        library_call="torch Gumbel-max, argmax(logits - log(-log(U))) with "
+                     "U from torch's own generator (other numbers than "
+                     "threefry's; a yardstick of cost, not of the function)",
+        bound_ms=b_ms, bound_by="operations" if t_ops >= t_bytes
+        else "bytes", bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+        share_of_bound=b_ms / ms, bytes=nbytes, ops=ops,
+        ops_per_entry=SAMPLE_OPS_PER_ENTRY, splits=splits,
+        entries_per_split=seg, blocks=R * splits,
+        shape=dict(R=R, V=V, rows="greedy, t 0.7, top-k 50, top-p 0.9 "
+                                  "in turn"))
+    return res
+
+
+def sample_cases(dev):
+    """The sampler's cases, each a thunk: R = 72, 8 and 40 rows."""
+    return {f"rows{R}": (lambda R=R: _sample_case(dev, R, 60 + R))
+            for R in SAMPLE_ROWS}
+
+
+def phase_sample(dev):
+    res = _run_cases("gumbel_argmax", sample_cases(dev))
+    emit("kernel:gumbel_argmax", kernel_ms=res["ms"], **res)
+    return res
+
+
 PROMPT_TEXT = ("The paged KV cache keeps every request's keys and values in "
                "fixed-size pages so that continuous batching never copies a "
                "sequence when it grows. ")
@@ -714,8 +832,9 @@ def phase_parity(dev):
     tok = ByteTokenizer()
     prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
                tok.encode(PROMPT_TEXT * 5, add_bos=True)]   # two chunks
-    paths = {"narrow": dict(spec_decode="off", mixed_phase_dispatch="off"),
-             "spec_mixed": {}}
+    # the spec+mixed path without the prefill hold, so the second prompt
+    # (arriving while one slot decodes, a ramp) rides a mixed dispatch
+    paths = {"narrow": NARROW, "spec_mixed": dict(prefill_hold_chunks=0)}
     reports, dispatches = {}, {}
     for kv_quant in ("none", "int8"):
         streams = {}
@@ -765,6 +884,7 @@ def phase_parity(dev):
     emit("parity", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
          streams=reports, dispatches=dispatches)
     _prefix_parity(dev, params, cfg, tok)
+    _pipeline_parity(dev, params, cfg, tok)
     del params
 
 
@@ -840,11 +960,14 @@ def _prefix_parity(dev, params, cfg, tok):
             key = f"kv_quant={kv_quant}, {'tight' if tight else 'roomy'}"
             streams = {}
             for cache in ("on", "off"):
+                # no prefill hold: the roomy wave arrives while one slot
+                # decodes (a ramp) and is to ride mixed dispatches
                 ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
                                     page_size=128, prefill_chunk=512,
                                     dtype="float32", attention="kernel",
                                     kv_quant=kv_quant, prefix_cache=cache,
-                                    num_pages=36 if tight else 0)
+                                    num_pages=36 if tight else 0,
+                                    prefill_hold_chunks=0)
                 sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
                                              device=dev), tok)
                 k.reset_launch_counts()
@@ -875,6 +998,189 @@ def _prefix_parity(dev, params, cfg, tok):
                 raise AssertionError(f"{key}: hits {hits}, {on}")
     emit("parity_prefix", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
          streams=reports, prefix=readings)
+
+
+def _sampled_parity_report(params, cfg, reqs, got, want, dev, label):
+    """Streams of greedy and seeded sampled requests, token for token: a
+    divergence is accepted only at a near-tie of the plain f32 forward at
+    that step, the top two logits for a greedy request and the top two
+    masked logits plus the request's Gumbel draw (its key folded with the
+    token's index) for a sampled one, within PARITY_GAP_TOL."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    report = []
+    for i, (r, a, b) in enumerate(zip(reqs, got, want)):
+        if a == b:
+            report.append({"request": i, "identical": True,
+                           "tokens": len(a), "temperature": r.temperature})
+            continue
+        step = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        ids = torch.tensor([r.prompt_ids + b[:step]], device=dev)
+        with torch.no_grad():
+            logits = llama.forward(params, cfg, ids)[0, -1:].float()
+        if r.temperature > 0:
+            logits = sampling._mask_dynamic(
+                logits, torch.tensor([r.temperature], device=dev),
+                torch.tensor([r.top_k], dtype=torch.int32, device=dev),
+                torch.tensor([r.top_p], device=dev))
+            key = threefry.fold_in(threefry.prng_key(r.seed), step)
+            logits = logits + threefry.gumbel(key[None].to(dev),
+                                              logits.shape[-1])
+        top2 = logits[0].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        report.append({"request": i, "identical": False, "step": step,
+                       "top2_gap": gap, "temperature": r.temperature})
+        if gap >= PARITY_GAP_TOL:
+            emit("parity_pipeline", ok=False, path=label, streams=report)
+            raise AssertionError(f"{label}: streams diverge at request {i} "
+                                 f"step {step} with top-2 gap {gap}")
+    return report
+
+
+def _drive_waves(sched, waves, timeout=600):
+    """Submit each wave once every request of the one before has its
+    first token, ticking the scheduler in this thread; tick until all
+    finish."""
+    reqs = []
+    t0 = time.perf_counter()
+    for i, wave in enumerate(waves):
+        while i and not all(r.first_token_at or r.finished_at for r in reqs):
+            sched._tick()
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError("a wave never got its first tokens")
+        reqs += [sched.submit(r) for r in wave]
+    while not all(r.finished_at for r in reqs):
+        sched._tick()
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("requests did not finish")
+    if any(r.error for r in reqs):
+        raise AssertionError(f"a request failed: {[r.error for r in reqs]}")
+    return reqs
+
+
+def _pipeline_waves(tok):
+    """A greedy request and two seeded sampled ones of 4 chunks (9 chunks
+    in all: the ramp outlasts one grouped prefill, so decode is held),
+    then, once all three have their first token, a greedy and a top-p
+    sampled one arriving while 3 of 8 slots decode (another ramp)."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    enc = lambda n: tok.encode(PROMPT_TEXT * n, add_bos=True)
+    return [[Request(prompt_ids=enc(2), max_tokens=96, temperature=0.0),
+             Request(prompt_ids=enc(13), max_tokens=64, temperature=0.7,
+                     seed=1),
+             Request(prompt_ids=enc(13)[::-1], max_tokens=64,
+                     temperature=0.7, top_k=50, seed=2)],
+            [Request(prompt_ids=enc(5), max_tokens=24, temperature=0.0),
+             Request(prompt_ids=enc(3), max_tokens=24, temperature=0.7,
+                     top_p=0.9, seed=3)]]
+
+
+LAG_MS = 150.0   # device time a lagging dispatch spins first
+
+
+def _lag_cycles(ms):
+    """SM clock cycles of ``torch.cuda._sleep`` that spin ``ms`` on this
+    card (timed once with CUDA events)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    return int(ms * 10 ** 7 / start.elapsed_time(end))
+
+
+def _lagging(core, cycles):
+    """Make the device lag the host: every decode and mixed dispatch of
+    ``core`` ends its device work with a spin kernel, queued after its
+    packed result and before that result's copy to the host, so the
+    result lands after the host has issued the next dispatch. (A spin
+    queued first would not do: the host may run only a launch queue's
+    depth ahead of the card, so it would wait inside the dispatch.)"""
+    import torch
+    pack = core._pack
+
+    def spun(outs):
+        res = pack(outs)
+        torch.cuda._sleep(cycles)
+        return res
+    core._pack = spun
+
+
+def _pipeline_parity(dev, params, cfg, tok):
+    """The reference's default dispatch loop on the kernel path (2 layers,
+    f32), both pools: the defaults (two dispatches in flight, the hold,
+    the width ladder, the Gumbel-argmax kernel) against the plain sampler
+    (same config), against pipeline_depth 1, against the ladder off, and
+    against the defaults on a device that lags (each dispatch spins
+    ``LAG_MS`` first, so results land after the next dispatch is issued:
+    two dispatches in flight through the pinned copies and CUDA events,
+    which must overlap and stay in flight up to the depth), greedy and
+    seeded sampled streams token for token."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    variants = {"defaults": {}, "plain_sampler": {},
+                "depth1": dict(pipeline_depth=1),
+                "ladder_off": dict(decode_width_ladder="off"),
+                "lagging_device": {}}
+    lag = _lag_cycles(LAG_MS)
+    reports, readings = {}, {}
+    kernel_draw = sampling.gumbel_argmax
+    for kv_quant in ("none", "int8"):
+        streams = {}
+        for name, knobs in variants.items():
+            ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                page_size=128, prefill_chunk=512,
+                                dtype="float32", attention="kernel",
+                                kv_quant=kv_quant, **knobs)
+            sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
+                                         device=dev), tok)
+            if name == "lagging_device":
+                _lagging(sched.core, lag)
+            k.reset_launch_counts()
+            if name == "plain_sampler":
+                sampling.gumbel_argmax = threefry.categorical
+            try:
+                reqs = _drive_waves(sched, _pipeline_waves(tok))
+            finally:
+                sampling.gumbel_argmax = kernel_draw
+            streams[name] = [r.output_ids for r in reqs]
+            st, launches = dict(sched.stats), k.launch_counts()
+            readings[f"{kv_quant}, {name}"] = {
+                key: st[key] for key in (
+                    "held_ticks", "overlapped_dispatches", "inflight_peak",
+                    "decode_dispatches", "mixed_dispatches",
+                    "prefill_dispatches", *(f"decode_width_{w}" for w in
+                                            sched.core.decode_widths))}
+            readings[f"{kv_quant}, {name}"]["gumbel_argmax_launches"] = \
+                launches["gumbel_argmax"]
+            if (launches["gumbel_argmax"] > 0) != (name != "plain_sampler"):
+                raise AssertionError(f"{name}: gumbel_argmax launches "
+                                     f"{launches['gumbel_argmax']}")
+            if name == "defaults" and not (st["held_ticks"]
+                                           and st["decode_width_4"]):
+                raise AssertionError(f"the defaults never held or ran the "
+                                     f"narrow rung: {st}")
+            if name == "lagging_device" and not (
+                    st["overlapped_dispatches"]
+                    and st["inflight_peak"] == ecfg.pipeline_depth == 2):
+                raise AssertionError(f"on a lagging device no two dispatches "
+                                     f"were in flight: {st}")
+        for other in ("plain_sampler", "depth1", "ladder_off",
+                      "lagging_device"):
+            label = f"kv_quant={kv_quant}, defaults vs {other}"
+            reports[label] = _sampled_parity_report(
+                params, cfg, reqs, streams["defaults"], streams[other], dev,
+                label)
+    emit("parity_pipeline", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
+         lag_ms=LAG_MS, lag_cycles=lag, streams=reports,
+         dispatches=readings)
 
 
 def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
@@ -944,7 +1250,11 @@ def draw_8b(dev):
     return cfg, params, time.perf_counter() - t0
 
 
-NARROW = dict(spec_decode="off", mixed_phase_dispatch="off")
+# the narrow path: speculation and the mixed dispatch off, one dispatch in
+# flight, no prefill hold, the full batch width
+NARROW = dict(spec_decode="off", mixed_phase_dispatch="off",
+              pipeline_depth=1, prefill_hold_chunks=0,
+              decode_width_ladder="off")
 
 
 def serving_core(dev, cfg, params, kv_quant="none", batch=8, **knobs):
@@ -961,18 +1271,37 @@ def serving_core(dev, cfg, params, kv_quant="none", batch=8, **knobs):
     return EngineCore(cfg, ecfg, params, ByteTokenizer().eos_id, device=dev)
 
 
-# the default phases' traffic: 4 requests decode (prompts of 144 to 432
-# bytes, 256 tokens each), then 2 prompts of 1,296 bytes (3 chunks of 512)
-# arrive once the first decode dispatch ran
-DECODERS = (1, 2, 1, 3)
+# the default phases' traffic: 4 requests decode (prompts of 144 to 1,728
+# bytes, 10 chunks of 512 in all, 256 tokens each), admitted together once
+# all four arrived: more chunks than one grouped prefill takes, into an
+# empty batch, so the ramp holds decode; then 2 prompts of 1,296 bytes (3
+# chunks of 512) arrive once the first decode dispatch ran (4 slots live:
+# no ramp, so they ride mixed dispatches)
+DECODERS = (1, 12, 12, 3)
 LATE_PROMPT = 9
 
 
-def _staggered_traffic(base, sched):
+def _gate_admission(sched):
+    """Hold admission until ``open_gate()``: each wave is admitted in one
+    pass, however its HTTP requests trickle in."""
+    import threading
+    admit, gate = sched._admit, threading.Event()
+    gate.set()
+    sched._admit = lambda: gate.is_set() and admit()
+    return gate
+
+
+def _staggered_traffic(base, sched, submitted):
+    gate = _gate_admission(sched)
+    gate.clear()
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         futs = [pool.submit(_request, base, i, PROMPT_TEXT * n, 256,
                             i % 2 == 0, i < 2, 0.0 if i % 2 else 0.7)
                 for i, n in enumerate(DECODERS)]
+        _wait_for(lambda: len(submitted) >= len(DECODERS),
+                  "the decoders did not arrive")
+        gate.set()
+        sched._wake.set()
         t0 = time.perf_counter()
         while sched.stats["decode_dispatches"] < 1:
             if time.perf_counter() - t0 > 600:
@@ -982,6 +1311,43 @@ def _staggered_traffic(base, sched):
         futs += [pool.submit(_request, base, 4 + i, PROMPT_TEXT * LATE_PROMPT,
                              32, i == 0, i == 0, 0.0) for i in range(2)]
         return [f.result() for f in futs], at
+
+
+def _loop_fields(stats, core, warmup_s, launches):
+    """What the dispatch loop did in a phase: dispatches per batch-width
+    rung, the held ticks, dispatches issued with another in flight and the
+    most left in flight, the warmup's seconds and the sampler's launches."""
+    return dict(
+        pipeline_depth=core.cfg.pipeline_depth,
+        prefill_hold_chunks=core.cfg.prefill_hold_chunks,
+        decode_widths=list(core.decode_widths),
+        dispatches_by_width={w: stats[f"decode_width_{w}"]
+                             for w in core.decode_widths},
+        held_ticks=stats["held_ticks"],
+        overlapped_dispatches=stats["overlapped_dispatches"],
+        inflight_peak=stats["inflight_peak"], warmup_s=warmup_s,
+        gumbel_argmax_launches=launches["gumbel_argmax"])
+
+
+def _check_loop(name, stats, core, launches, sampled, ramp):
+    """A serve phase at the new defaults fails if its designed ramp never
+    held, if the narrow rung never ran, or if a sampled request drew
+    without the kernel. Dispatches issued with another in flight are
+    reported, not required: at llama3-8b bf16 the eager host issues a
+    dispatch for longer than the card computes it, so each result has
+    landed before the host looks (``parity_pipeline``'s lagging device
+    holds two in flight)."""
+    narrow = min(core.decode_widths)
+    faults = []
+    if ramp and stats["held_ticks"] < 1:
+        faults.append("the ramp never held decode")
+    if narrow < core.batch and stats[f"decode_width_{narrow}"] < 1:
+        faults.append(f"the narrow rung {narrow} never ran")
+    if sampled and launches["gumbel_argmax"] < 1:
+        faults.append("sampled requests drew without gumbel_argmax")
+    if faults:
+        raise AssertionError(f"{name}: {'; '.join(faults)}: {stats}, "
+                             f"launches {launches}")
 
 
 def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
@@ -1000,6 +1366,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
     tok = ByteTokenizer()
     core = serving_core(dev, cfg, params, kv_quant,
                         **(NARROW if narrow else {}))
+    warmup_s = core.warmup()
     sched = Scheduler(core, tok)
     submitted = []
     submit = sched.submit
@@ -1027,7 +1394,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
                 results = list(pool.map(lambda i: _request(base, i),
                                         range(6)))
         else:
-            results, at_late = _staggered_traffic(base, sched)
+            results, at_late = _staggered_traffic(base, sched, submitted)
         wall = time.perf_counter() - t0
         launches = k.launch_counts()
         stats = dict(sched.stats)
@@ -1062,8 +1429,14 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
     if (health.get("kv_dtype") != ("int8" if kv_quant == "int8"
                                    else cfg.dtype)
             or health.get("spec_widths") != want_widths
-            or health.get("mixed") != (not narrow)):
+            or health.get("mixed") != (not narrow)
+            or health.get("inflight_dispatches") != 0
+            or health.get("pipeline_depth") != core.cfg.pipeline_depth):
         raise AssertionError(f"/health reports {health}")
+    name = ("serve" + ("_two_dispatch" if narrow else "")
+            + ("" if kv_quant == "none" else "_" + kv_quant))
+    if not narrow:
+        _check_loop(name, stats, core, launches, sampled=True, ramp=True)
     gen = sum(r["usage"]["completion_tokens"] for r in results)
     fields = dict(
         model="llama3-8b", n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
@@ -1079,9 +1452,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
                                   / max(1, stats["spec_base_steps"])),
         kv_pool_bytes=health["kv_pool_bytes"],
         multi_chunk_prompt=max(len(r.prompt_ids) for r in submitted) > 512,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    name = ("serve" + ("_two_dispatch" if narrow else "")
-            + ("" if kv_quant == "none" else "_" + kv_quant))
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        **_loop_fields(stats, core, warmup_s, launches))
     emit(name, **fields)
     return launches, core
 
@@ -1098,7 +1470,6 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
     are set to 0 just before the requests and read just after; every
     request must answer 200 and hit exactly what ``_cap_shared`` gives for
     its prompt. Returns the launches."""
-    import threading
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
@@ -1107,6 +1478,7 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
 
     tok = ByteTokenizer()
     core = serving_core(dev, cfg, params, kv_quant)
+    warmup_s = core.warmup()
     sched = Scheduler(core, tok)
     submitted = []
     submit = sched.submit
@@ -1119,8 +1491,7 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
         return _request(base, i, CONTEXT_TEXT + QUESTIONS[i], 64, True,
                         i % 2 == 0, 0.0 if i % 2 == 0 else 0.7)
 
-    admit, arrived = sched._admit, threading.Event()
-    arrived.set()
+    arrived = _gate_admission(sched)
 
     def wave(pool, ids):
         arrived.clear()
@@ -1131,7 +1502,6 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
         return futs
 
     sched.submit = recording_submit
-    sched._admit = lambda: arrived.is_set() and admit()
     torch.cuda.reset_peak_memory_stats()
     httpd, thread = serve_in_thread(sched, "llama3-8b-random")
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -1194,11 +1564,15 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
             or launches[decode_key] < need_decode or need_decode == 0):
         raise AssertionError(f"serving did not run through the kernels: "
                              f"launches {launches}, dispatches {stats}")
-    if (at_late["mixed_dispatches"] < 1
+    # the 7 warm requests arrive while one slot decodes (a ramp): they take
+    # a grouped prefill (or, past the hold's budget, mixed dispatches)
+    if (at_late["mixed_dispatches"] + at_late["prefill_dispatches"] < 2
             or stats["prefill_dispatches"] <= at_late["prefill_dispatches"]):
-        raise AssertionError(f"the warm requests rode no mixed dispatch, or "
-                             f"the late ones no grouped prefill: {at_late}, "
-                             f"{stats}")
+        raise AssertionError(f"the warm requests rode no dispatch of their "
+                             f"own, or the late ones no grouped prefill: "
+                             f"{at_late}, {stats}")
+    _check_loop("serve_prefix", stats, core, launches, sampled=True,
+                ramp=False)
     ttft = [r["server_ttft_s"] for r in per_request]
     gen = sum(r["usage"]["completion_tokens"] for r in results)
     emit("serve_prefix" + ("" if kv_quant == "none" else "_" + kv_quant),
@@ -1211,7 +1585,8 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
          dispatches_before_late=at_late, launches=launches,
          prefix_hit_frac=health["prefix_hit_frac"],
          prefix_cached_pages=health["prefix_cached_pages"],
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **_loop_fields(stats, core, warmup_s, launches))
     return launches
 
 
@@ -1329,6 +1704,110 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
                 k: v / steps for k, v in classes.items()},
             "top_other_ms_per_step": [[n, ms / steps] for n, ms in top],
             "key_averages_self_device_ms_per_step": summed / steps}
+
+
+def profile_pipeline(dev, cfg, params, kv_quant="none", ctx=1000,
+                     dispatches=4):
+    """Decode through the Scheduler at pipeline_depth 1 against 2 (the
+    narrow step, no hold, everything else alike): 8 greedy requests of
+    ``ctx`` prompt tokens decode; after two warm decode dispatches,
+    ``dispatches`` ticks run once timed by the host clock alone and once
+    under torch.profiler (device events), each ending when the last result
+    is on the host. Per step: host wall, device ms and the device's busy
+    share. Information, not a gate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    out = {"context": ctx, "slots": 8, "dispatches": dispatches,
+           "kv_dtype": kv_quant}
+    for depth in (1, 2):
+        core = serving_core(dev, cfg, params, kv_quant, pipeline_depth=depth,
+                            spec_decode="off", mixed_phase_dispatch="off",
+                            prefill_hold_chunks=0)
+        sched = Scheduler(core, ByteTokenizer())
+        reqs = [sched.submit(Request(
+            prompt_ids=[(s * 31 + i) % 256 for i in range(ctx)],
+            max_tokens=600, temperature=0.0)) for s in range(8)]
+        _wait_for(lambda: sched._tick() is not None and all(
+            r.first_token_at or r.finished_at for r in reqs)
+            and sched.stats["decode_dispatches"] >= 2, "no warm decode")
+        res = {}
+        for mode in ("host_clock", "profiled"):
+            while sched._inflight:
+                sched._process_decode()
+            torch.cuda.synchronize()
+            steps0 = sched.stats["decode_steps"]
+            tokens0 = sum(len(r.output_ids) for r in reqs)
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if mode == "profiled" else None)
+            t0 = time.perf_counter()
+            if prof:
+                prof.__enter__()
+            for _ in range(dispatches):
+                sched._tick()
+            while sched._inflight:
+                sched._process_decode()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if prof:
+                prof.__exit__(None, None, None)
+            steps = sched.stats["decode_steps"] - steps0
+            tokens = sum(len(r.output_ids) for r in reqs) - tokens0
+            res[mode] = {"steps": steps, "tokens": tokens,
+                         "host_wall_ms_per_step": wall * 1e3 / steps,
+                         "tok_s": tokens / wall}
+            if prof:
+                from torch.autograd import DeviceType
+                classes, _, _ = _device_ms_by_class(
+                    prof, (("ragged_paged_attention", ("ragged_paged",)),
+                           ("matmul", MATMUL_KERNELS)))
+                device_ms = sum(classes.values())
+                device_ops = sum(1 for ev in prof.events()
+                                 if ev.device_type == DeviceType.CUDA)
+                res[mode].update(device_ms_per_step=device_ms / steps,
+                                 device_busy_share=device_ms / (wall * 1e3),
+                                 device_ops_per_step=device_ops / steps)
+        res["overlapped_dispatches"] = sched.stats["overlapped_dispatches"]
+        res["inflight_peak"] = sched.stats["inflight_peak"]
+        if depth == 2:
+            res["behind_a_spin"] = _queue_probe(core, sched)
+        sched._fail_all("profile done")
+        out[f"depth{depth}"] = res
+        del sched, core
+        torch.cuda.empty_cache()
+    return out
+
+
+def _queue_probe(core, sched, spin_ms=200.0):
+    """How far the host runs ahead of a busy card: host ms of calls made
+    right behind a ``spin_ms`` spin kernel. A call that returns at once
+    queued its work; one that takes the spin's time waited for the card
+    (a sync, or a full launch queue)."""
+    import numpy as np
+    import torch
+    cycles = _lag_cycles(spin_ms)
+    table = np.zeros((core.batch, core.max_pages_per_slot), np.int32)
+
+    def behind(fn):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    return {"spin_ms": spin_ms,
+            "decode_dispatch_ms": behind(lambda: core.decode(
+                sched._state, sched._table_device(),
+                core.cfg.decode_steps_per_dispatch)),
+            "engine_upload_ms": behind(lambda: core.put_table(table)),
+            "blocking_upload_ms": behind(
+                lambda: torch.as_tensor(table, device=core.device))}
 
 
 def _kv_pages_ranged():
@@ -1561,7 +2040,10 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # int8 pool; ragged_causal_off_by_one hides each query's own key from it
 # in the decode-side walk's tensor-core path; flash_dropped_tile skips the
 # second KV tile of every flash_prefill walk that reaches it;
-# flash_causal_off_by_one hides each query's own key from it.
+# flash_causal_off_by_one hides each query's own key from it;
+# sampler_wrong_rotation changes one of threefry's rotation constants and
+# sampler_counter_off_by_one draws entry i with counter i + 1 in the
+# Gumbel-argmax kernel.
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -1589,6 +2071,11 @@ PLANTED_FAULTS = (
      "sc = (row * KV + kvh) * ps + pos % ps;",
      "sc = (row * KV + kvh) * ps + (pos + 1) % ps;",
      ("ragged_paged_attention_int8",)),
+    ("sampler_wrong_rotation", "gumbel_argmax.cu",
+     "{13, 15, 26, 6,", "{13, 15, 25, 6,", ("gumbel_argmax",)),
+    ("sampler_counter_off_by_one", "gumbel_argmax.cu",
+     "threefry2x32(k1, k2, 0u, (uint32_t)i)",
+     "threefry2x32(k1, k2, 0u, (uint32_t)i + 1u)", ("gumbel_argmax",)),
 )
 
 _FAULT_PHASES = """
@@ -1597,11 +2084,11 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.CHECK_ONLY = True
 dev = torch.device("cuda")
-cs.phase_build()
 phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention": cs.ragged_cases(dev),
           "ragged_paged_attention_int8": cs.ragged_cases(dev, True),
-          "ragged_decode": cs.decode_cases(dev)}
+          "ragged_decode": cs.decode_cases(dev),
+          "gumbel_argmax": cs.sample_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -1667,16 +2154,22 @@ def ab(trees) -> None:
     emit("ab", order=order, runs=runs)
 
 
-def planted_faults() -> None:
-    """Plant each of PLANTED_FAULTS in a temporary copy of the port, build
-    it there and run every case of the kernel phases it touches, checks
-    only: each phase must fail at least one case's check under each of its
-    faults, and each case must fail under at least one fault. Emits what
-    each check read."""
+def planted_faults(only=()) -> None:
+    """Plant each of PLANTED_FAULTS (or those named in ``only``) in a
+    temporary copy of the port, build there the libraries its phases use
+    and run every case of the kernel phases it touches, checks only: each
+    phase must fail at least one case's check under each of its faults,
+    and each case must fail under at least one fault. Emits what each
+    check read."""
     import shutil
     import tempfile
     caught = {}                  # "phase:case" -> the faults that failed it
+    unknown = set(only) - {f[0] for f in PLANTED_FAULTS}
+    if unknown:
+        raise AssertionError(f"no planted fault named {sorted(unknown)}")
     for name, src, text, repl, phases in PLANTED_FAULTS:
+        if only and name not in only:
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
             pkg = os.path.join(tmp, "generativeaiexamples_tpu_torch")
@@ -1734,11 +2227,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device()
-    if sys.argv[1:] == ["--planted-faults"] or sys.argv[1:2] == ["--ab"]:
+    if sys.argv[1:2] in (["--planted-faults"], ["--ab"]):
         if sys.argv[1] == "--ab":
             ab(sys.argv[2:4])
         else:
-            planted_faults()
+            planted_faults(sys.argv[2:])
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1750,6 +2243,8 @@ def main() -> int:
         res = phase_ragged(dev, quant)
         results[res["name"]] = res
     results["ragged_decode"] = phase_decode(dev)
+    torch.cuda.empty_cache()
+    results["gumbel_argmax"] = phase_sample(dev)
     torch.cuda.empty_cache()
     phase_parity(dev)
     torch.cuda.empty_cache()
@@ -1775,6 +2270,8 @@ def main() -> int:
     emit("profile_prefill", **profile_prefill(core))
     del core
     torch.cuda.empty_cache()
+    emit("profile_pipeline", **profile_pipeline(dev, cfg, params))
+    torch.cuda.empty_cache()
     core = serving_core(dev, cfg, params, "int8", **NARROW)
     emit("profile_int8", **profile_decode(core))
     emit("profile_prefill_int8", **profile_prefill(core))
@@ -1792,12 +2289,18 @@ def main() -> int:
             "ragged_paged.cu", "ragged_paged_attention, int8-KV variant "
             ":331-351", 445, "serve_int8"),
         "ragged_decode": ("ragged_decode.cu", "ragged_decode", 526, "dense"),
+        "gumbel_argmax": ("gumbel_argmax.cu", None, None, "serve"),
     }
+    # the sampler replaces no Pallas kernel: the XLA fusion of
+    # jax.random.categorical under jax.vmap in sample_logits_per_slot
+    sampler = ("generativeaiexamples_tpu/ops/sampling.py:248-254 "
+               "(jax.random.categorical under jax.vmap in "
+               "sample_logits_per_slot, an XLA fusion)")
     kernels = []
     for name, (source, fn, line, path) in table.items():
         res = results[name]
         entry = {"name": name, "route": "cuda", "source": src + source,
-                 "replaces": f"{tpu}:{line} ({fn})",
+                 "replaces": (f"{tpu}:{line} ({fn})" if line else sampler),
                  "launches": paths[path][name], "main_path": path,
                  "launches_by_path": {p: n[name] for p, n in paths.items()}}
         if entry["launches"] <= 0:
@@ -1805,9 +2308,11 @@ def main() -> int:
                                  f"{path}")
         keys = ("max_abs_err", "max_err_over_limit", "ms", "plain_ms",
                 "bound_ms", "bound_by", "share_of_bound", "library_ms",
-                "splits", "scratch_bytes")
+                "splits", "scratch_bytes", "token_mismatches",
+                "near_tie_rows", "bits_exact")
         entry.update({key: res[key] for key in keys if key in res})
-        for sub in ("prefill_group8", "prefix_suffix") + RAGGED_SUBCASES:
+        for sub in (("prefill_group8", "prefix_suffix") + RAGGED_SUBCASES
+                    + tuple(f"rows{R}" for R in SAMPLE_ROWS[1:])):
             if sub in res:
                 entry[sub] = {key: res[sub][key] for key in keys
                               if key in res[sub]}

@@ -26,10 +26,7 @@ NOT_PORTED: Dict[str, tuple] = {
     "role": ("A7 (KV handoff / disaggregated roles)", "unified"),
     "decode_steps_max": ("A5 (adaptive dispatch depth)", "0"),
     "decode_multistep": ("A5 (decode_multi)", "0"),
-    "pipeline_depth": ("A6 (dispatch pipelining)", "1"),
-    "prefill_hold_chunks": ("A6 (prefill-priority ramp hold)", "0"),
     "quant": ("A1 (int8 weights)", "none"),
-    "decode_width_ladder": ("A5 (decode width ladder)", "off"),
     "max_adapters": ("A3/A5 (LoRA)", "0"),
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
     "devtime": ("A6 (device-time ledger)", "off"),
@@ -80,6 +77,27 @@ class EngineConfig:
     # under pool pressure), so repeated chat templates, system prompts and
     # retrieved chunks skip re-prefill
     prefix_cache: str = "on"
+    # decode dispatches kept in flight ahead of result processing: the
+    # host issues dispatch N+1 while dispatch N's result is still copying
+    pipeline_depth: int = 2
+    # while admissions prefill into a batch under half full, hold decode
+    # dispatches for up to this many prefill chunks per ramp episode
+    # (0 = never hold)
+    prefill_hold_chunks: int = 16
+    # pure-decode dispatches run at the smallest batch-width rung covering
+    # the highest live slot: on | off (full batch only)
+    decode_width_ladder: str = "on"
+
+    def __post_init__(self) -> None:
+        if self.pipeline_depth < 1:
+            raise ValueError(f"engine.pipeline_depth must be >= 1, got "
+                             f"{self.pipeline_depth}")
+        if self.prefill_hold_chunks < 0:
+            raise ValueError(f"engine.prefill_hold_chunks must be >= 0, got "
+                             f"{self.prefill_hold_chunks}")
+        if str(self.decode_width_ladder).strip().lower() not in ("on", "off"):
+            raise ValueError(f"engine.decode_width_ladder must be on|off, "
+                             f"got {self.decode_width_ladder!r}")
 
 
 @dataclass(frozen=True)

@@ -10,7 +10,13 @@ from a seeded generator on the device (checkpoint loading is ROADMAP A3).
 Engine knobs come from ``APP_ENGINE_*`` (``core/config.py``): speculative
 decoding is on by default (``APP_ENGINE_SPEC_DECODE=off`` turns it off),
 and the mixed-phase dispatch follows ``APP_MIXED_PHASE_DISPATCH`` (auto:
-on for a CUDA device, off on the CPU; ``on`` runs it on the CPU too).
+on for a CUDA device, off on the CPU; ``on`` runs it on the CPU too). Two
+decode dispatches stay in flight (``APP_ENGINE_PIPELINE_DEPTH``), ramps
+hold decode for up to 16 prefill chunks (``APP_ENGINE_PREFILL_HOLD_CHUNKS``)
+and pure decode dispatches take the narrowest batch-width rung
+(``APP_ENGINE_DECODE_WIDTH_LADDER``). Before it listens, the server runs
+``EngineCore.warmup`` (every program once, building every kernel on the
+card) and prints its seconds.
 """
 
 from __future__ import annotations
@@ -64,6 +70,9 @@ def main() -> None:
     logging.basicConfig(level=logging.INFO)
     scheduler, model_name = build_scheduler(tiny=args.tiny,
                                             device=args.device)
+    seconds = scheduler.core.warmup()
+    print(f"warmup: {seconds:.3f} s (every serving program once)",
+          flush=True)
     run_server(scheduler, model_name, host=args.host, port=args.port)
 
 

@@ -6,12 +6,24 @@ and slot activation (``prefill_group``); K decode steps per dispatch
 (``decode``), each narrow or, with prompt-lookup speculative decoding, a
 W-wide verify step (``step_wide``: drafts from the slot's own history,
 one widened forward, per-position seeded samples, exact-match acceptance)
-at a rung of the acceptance-tuned width ladder (``spec_widths``); and the
-mixed-phase program (``decode_mixed``), whose first step also prefills the
-next chunk of up to ``prefill_group`` prompts as extra ragged rows of the
-same forward (``kv_cache.mixed_step``). PyTorch runs eagerly, so a Python
-loop takes the place of ``lax.scan`` and the state is updated in place
-rather than donated (CUDA graphs are later work).
+at a rung of the acceptance-tuned width ladder (``spec_widths``) and of
+the batch-width ladder (``decode_widths``: the full batch and the largest
+power of two below it; a narrow rung runs the steps over the first slots
+only); and the mixed-phase program (``decode_mixed``), whose first step
+also prefills the next chunk of up to ``prefill_group`` prompts as extra
+ragged rows of the same forward (``kv_cache.mixed_step``). PyTorch runs
+eagerly, so a Python loop takes the place of ``lax.scan`` and the state is
+updated in place rather than donated (CUDA graphs are later work).
+``warmup`` runs every program once on a throwaway state before traffic.
+
+Sampling draws are JAX's: each slot keeps a raw threefry key
+(``DecodeState.rngs``, ``PRNGKey(seed)``), and token ``n`` of a request
+draws ``categorical(fold_in(key, n))`` (``ops/threefry.py``; on CUDA the
+Gumbel-argmax kernel). No step reads a device value back: host arrays go
+up through pinned buffers without a stream sync, which slots sample and
+with which filters comes from host mirrors set at activation, and results
+come back only through :class:`HostCopy`, which the scheduler's in-flight
+queue holds.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request it raises. ``attention="auto"``
@@ -29,9 +41,9 @@ page-aligned prompt prefixes share pages; a cache-hit admission starts its
 prefill at the covered offset and ``seed_history`` writes the skipped
 tokens into the drafting history.
 
-Not ported here: the batch-width ladder, ``decode_multi``, grammar, LoRA,
-int8 weights, logprob rows, KV handoff, tensor parallelism (ROADMAP A1,
-A2, A5, A7, A11). Their config knobs are refused in ``core/config.py``.
+Not ported here: ``decode_multi``, grammar, LoRA, int8 weights, logprob
+rows, KV handoff, tensor parallelism (ROADMAP A1, A2, A5, A7, A11). Their
+config knobs are refused in ``core/config.py``.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,9 +62,10 @@ from generativeaiexamples_tpu_torch.engine import kv_cache
 from generativeaiexamples_tpu_torch.engine.kv_cache import PagedKVCache
 from generativeaiexamples_tpu_torch.engine.prefix_cache import CachingAllocator
 from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.ops import threefry
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
 from generativeaiexamples_tpu_torch.ops.sampling import (
-    fold_seed, sample_logits_per_slot, token_logprob)
+    sample_logits_per_slot, token_logprob)
 from generativeaiexamples_tpu_torch.ops.speculative import (
     acceptance, draft_lookup)
 
@@ -138,14 +152,40 @@ def unpack_decode_out(packed: np.ndarray) -> Dict[str, np.ndarray]:
     return out
 
 
+class HostCopy:
+    """A device tensor on its way to the host: a ``non_blocking`` copy into
+    a pinned buffer of its own, then an event recorded on the serving
+    stream behind it. On the CPU it is the tensor itself, ready at once.
+    The tensor must be one no later launch writes (a fresh stack)."""
+
+    def __init__(self, t: torch.Tensor) -> None:
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = t, None
+
+    def done(self) -> bool:
+        """The copy has landed (never blocks)."""
+        return self._event is None or self._event.query()
+
+    def result(self) -> np.ndarray:
+        """The host array, waiting for the copy if it is still running."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
 @dataclasses.dataclass
 class DecodeState:
     """Fixed-capacity slot batch for continuous decoding; device tensors
     are (B,) and updated in place by the engine. The ``host_*`` arrays
-    mirror what the host set at activation (which slots sample and from
-    which seed), so the decode loop picks its sampling rows without a
-    device sync. The TPU package's grammar state and adapter index are not
-    ported (grammar and LoRA are ROADMAP A5/A3)."""
+    mirror what the host set at activation (which slots live and how they
+    sample), so a step picks its sampling work without a device sync. The
+    TPU package's grammar state and adapter index are not ported (grammar
+    and LoRA are ROADMAP A5/A3)."""
 
     cache: PagedKVCache
     tokens: torch.Tensor        # (B,) i32 last token per slot
@@ -155,6 +195,7 @@ class DecodeState:
     temperature: torch.Tensor   # (B,) f32
     top_k: torch.Tensor         # (B,) i32
     top_p: torch.Tensor         # (B,) f32
+    rngs: torch.Tensor          # (B, 2) i64 raw threefry key, PRNGKey(seed)
     last_logprob: torch.Tensor  # (B,) f32 model logprob of tokens[b]
     # (B, max_seq + 1) i32: each slot's token at each absolute position,
     # valid through index cache.lengths[b] inclusive (the token fed next);
@@ -163,13 +204,32 @@ class DecodeState:
     # and is never read.
     history: torch.Tensor
     host_live: np.ndarray       # (B,) bool: activated, not yet released
-    host_temperature: np.ndarray
-    host_seed: np.ndarray       # (B,) int64 request seeds
-    # (B,) int64 tokens generated, advanced by each decode step; exact for
-    # slots that sample (a widened step reads it back when one does)
-    host_generated: np.ndarray
-    # (slot, verify position) -> that row's generator
-    generators: Dict[Tuple[int, int], torch.Generator]
+    host_temperature: np.ndarray    # (B,) f32
+    host_top_k: np.ndarray          # (B,) i32
+    host_top_p: np.ndarray          # (B,) f32
+
+    def rows(self, width: int) -> "DecodeState":
+        """The first ``width`` slots as views: in-place writes (the pool,
+        lengths, history) land in this state; rebound fields are merged
+        back by :meth:`merge`."""
+        sl = lambda a: a[:width]
+        return DecodeState(
+            cache=dataclasses.replace(self.cache,
+                                      lengths=sl(self.cache.lengths)),
+            tokens=sl(self.tokens), active=sl(self.active),
+            generated=sl(self.generated), max_gen=sl(self.max_gen),
+            temperature=sl(self.temperature), top_k=sl(self.top_k),
+            top_p=sl(self.top_p), rngs=sl(self.rngs),
+            last_logprob=sl(self.last_logprob), history=sl(self.history),
+            host_live=sl(self.host_live),
+            host_temperature=sl(self.host_temperature),
+            host_top_k=sl(self.host_top_k), host_top_p=sl(self.host_top_p))
+
+    def merge(self, narrow: "DecodeState") -> None:
+        """Write a :meth:`rows` view's rebound per-slot fields back."""
+        w = narrow.tokens.shape[0]
+        for name in ("tokens", "active", "generated", "last_logprob"):
+            getattr(self, name)[:w] = getattr(narrow, name)
 
 
 class EngineCore:
@@ -235,6 +295,18 @@ class EngineCore:
             g *= 2
         gb.append(self.prefill_group_max)
         self.group_buckets = tuple(gb)
+        # batch-width ladder of pure-decode dispatches: the full batch and
+        # the largest power of two below it (two rungs bound the warmup
+        # grid); the scheduler allocates slots lowest id first, so the live
+        # set compacts into the narrow rung
+        ladder = str(engine_cfg.decode_width_ladder).strip().lower()
+        if ladder == "off" or self.batch <= 2:
+            self.decode_widths = (self.batch,)
+        else:
+            p = 1
+            while p * 2 < self.batch:
+                p *= 2
+            self.decode_widths = tuple(sorted({self.batch, p}))
 
         # ---- kernel-support gate: a config the kernels refuse must fail
         # here, never at the first dispatch
@@ -329,14 +401,14 @@ class EngineCore:
             temperature=torch.ones((B,), dtype=torch.float32, device=dev),
             top_k=z(torch.int32),
             top_p=torch.ones((B,), dtype=torch.float32, device=dev),
+            rngs=torch.zeros((B, 2), dtype=torch.int64, device=dev),
             last_logprob=z(torch.float32),
             history=torch.zeros((B, self.max_seq + 1), dtype=torch.int32,
                                 device=dev),
             host_live=np.zeros((B,), np.bool_),
             host_temperature=np.zeros((B,), np.float32),
-            host_seed=np.zeros((B,), np.int64),
-            host_generated=np.zeros((B,), np.int64),
-            generators={})
+            host_top_k=np.zeros((B,), np.int32),
+            host_top_p=np.ones((B,), np.float32))
 
     def new_allocator(self):
         """Page allocator for the pool: with ``prefix_cache="on"`` a
@@ -368,19 +440,34 @@ class EngineCore:
         return n_tokens // self.page_size + 1
 
     def put_table(self, table: np.ndarray) -> torch.Tensor:
-        """Host block table -> device."""
-        return torch.as_tensor(np.asarray(table, np.int32), device=self.device)
+        """Host block table -> a fresh device tensor (the host array may
+        change at once: the upload reads a copy)."""
+        return self._up(np.asarray(table, np.int32))
 
-    def _generator(self, state: DecodeState, slot: int, index: int,
-                   position: int = 0) -> torch.Generator:
-        """Slot ``slot``'s generator for verify position ``position``,
-        seeded for token ``index`` of its request."""
-        g = state.generators.get((slot, position))
-        if g is None:
-            g = torch.Generator(device=self.device)
-            state.generators[(slot, position)] = g
-        g.manual_seed(fold_seed(int(state.host_seed[slot]), index))
-        return g
+    def _up(self, a) -> torch.Tensor:
+        """A host array (or a CPU tensor) as a fresh tensor on the device.
+        On CUDA it goes through a pinned copy with ``non_blocking``, which
+        queues on the serving stream instead of waiting for it (a pageable
+        upload would sync the stream and drain every dispatch in flight);
+        the caching host allocator keeps the pinned block until the copy
+        has run."""
+        t = torch.as_tensor(a)
+        if self.device.type != "cuda":
+            return t.clone() if t.device.type == "cpu" else t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _sampling_flags(live: np.ndarray, temperature: np.ndarray,
+                        top_k: np.ndarray, top_p: np.ndarray):
+        """(any row samples, any sampled row uses top-k, any uses top-p)
+        from host values, for :func:`sample_logits_per_slot`."""
+        sampled = live & (temperature > 0)
+        return (bool(sampled.any()), bool((sampled & (top_k > 0)).any()),
+                bool((sampled & (top_p < 1.0)).any()))
+
+    def _state_flags(self, state: DecodeState):
+        return self._sampling_flags(state.host_live, state.host_temperature,
+                                    state.host_top_k, state.host_top_p)
 
     # ---------------------------------------------------------------- prefill
 
@@ -396,51 +483,61 @@ class EngineCore:
                                for it, k in zip(items, n)])
         vals = np.concatenate([np.asarray(it.chunk_ids, np.int32)
                                for it in items])
-        t = lambda a: torch.as_tensor(a, device=self.device)
-        state.history[t(rows.astype(np.int64)),
-                      t(cols.astype(np.int64))] = t(vals)
+        state.history[self._up(rows.astype(np.int64)),
+                      self._up(cols.astype(np.int64))] = self._up(vals)
 
     def _activate_rows(self, state: DecodeState, logits: torch.Tensor,
                        items: Sequence[PrefillItem]) -> torch.Tensor:
         """Fused first-token sample for each item's last-position logits
         (G, V); ``is_last`` rows activate their slot with it, and the token
-        enters history at the prompt's end. Returns the (G,) samples, valid
-        for is_last rows."""
-        G = len(items)
-        dev = self.device
-        t = lambda a: torch.as_tensor(a, device=dev)
-        temperature = t(np.array([it.temperature for it in items], np.float32))
-        top_k = t(np.array([it.top_k for it in items], np.int32))
-        top_p = t(np.array([it.top_p for it in items], np.float32))
-        gens: List[Optional[torch.Generator]] = [None] * G
-        for i, it in enumerate(items):
-            if it.is_last:
-                state.host_live[it.slot] = True
-                state.host_temperature[it.slot] = it.temperature
-                state.host_seed[it.slot] = it.seed
-                state.host_generated[it.slot] = it.generated
-                if it.temperature > 0:
-                    gens[i] = self._generator(state, it.slot,
-                                              it.generated - 1)
-        toks = sample_logits_per_slot(gens, logits, temperature, top_k, top_p)
+        enters history at the prompt's end. The slot's key is
+        ``PRNGKey(seed)``, and the first token draws under
+        ``fold_in(key, generated - 1)``, continuing the request's stream
+        across a preemption's resume. Returns the (G,) samples, valid for
+        is_last rows."""
+        last = np.array([it.is_last for it in items], np.bool_)
+        temperature = np.array([it.temperature for it in items], np.float32)
+        top_k = np.array([it.top_k for it in items], np.int32)
+        top_p = np.array([it.top_p for it in items], np.float32)
+        seeds = np.array([it.seed for it in items], np.int64)
+        generated = np.array([it.generated for it in items], np.int64)
+        # keys on the host (G rows, a few microseconds), then one upload
+        base = threefry.prng_key(torch.from_numpy(seeds))
+        keys = threefry.fold_in(base, torch.from_numpy(generated - 1))
+        flags = self._sampling_flags(last, temperature, top_k, top_p)
+        temp_dev = self._up(temperature)
+        top_k_dev, top_p_dev = self._up(top_k), self._up(top_p)
+        toks = sample_logits_per_slot(self._up(keys), logits, temp_dev,
+                                      top_k_dev, top_p_dev,
+                                      any_sampled=flags[0],
+                                      any_top_k=flags[1], any_top_p=flags[2])
         lps = token_logprob(logits, toks)
-        rows = [i for i, it in enumerate(items) if it.is_last]
-        if rows:
-            ix = t(np.array(rows, np.int64))
-            sl = t(np.array([items[i].slot for i in rows], np.int64))
-            gen = t(np.array([items[i].generated for i in rows], np.int32))
-            mx = t(np.array([items[i].max_gen for i in rows], np.int32))
-            col = t(np.array([min(items[i].start_pos + len(items[i].chunk_ids),
-                                  self.max_seq - 1) for i in rows], np.int64))
-            state.tokens[sl] = toks[ix]
-            state.active[sl] = (toks[ix] != self.eos_id) & (gen < mx)
-            state.generated[sl] = gen
-            state.max_gen[sl] = mx
-            state.temperature[sl] = temperature[ix]
-            state.top_k[sl] = top_k[ix]
-            state.top_p[sl] = top_p[ix]
-            state.last_logprob[sl] = lps[ix]
-            state.history[sl, col] = toks[ix]
+        rows = np.flatnonzero(last)
+        if not len(rows):
+            return toks
+        slots = np.array([items[i].slot for i in rows], np.int64)
+        state.host_live[slots] = True
+        state.host_temperature[slots] = temperature[rows]
+        state.host_top_k[slots] = top_k[rows]
+        state.host_top_p[slots] = top_p[rows]
+        ix = self._up(rows.astype(np.int64))
+        sl = self._up(slots)
+        gen = self._up(generated[rows].astype(np.int32))
+        mx = self._up(np.array([items[i].max_gen for i in rows], np.int32))
+        col = self._up(np.array([min(items[i].start_pos
+                                     + len(items[i].chunk_ids),
+                                     self.max_seq - 1) for i in rows],
+                                np.int64))
+        state.tokens[sl] = toks[ix]
+        state.active[sl] = (toks[ix] != self.eos_id) & (gen < mx)
+        state.generated[sl] = gen
+        state.max_gen[sl] = mx
+        state.temperature[sl] = temp_dev[ix]
+        state.top_k[sl] = top_k_dev[ix]
+        state.top_p[sl] = top_p_dev[ix]
+        state.rngs[sl] = self._up(base.numpy()[rows])
+        state.last_logprob[sl] = lps[ix]
+        state.history[sl, col] = toks[ix]
         return toks
 
     @torch.no_grad()
@@ -473,7 +570,7 @@ class EngineCore:
             page_rows[i] = it.page_row
             start_pos[i] = it.start_pos
             chunk_len[i] = n
-        t = lambda a: torch.as_tensor(a, device=self.device)
+        t = self._up
         logits = kv_cache.prefill_chunks(
             self.params, self.model_cfg, t(tokens), state.cache,
             t(page_rows), t(self._length_slots(items, G)), t(start_pos),
@@ -494,11 +591,33 @@ class EngineCore:
     # ----------------------------------------------------------------- decode
 
     def _live_sampling(self, state: DecodeState):
+        """Sampling rows of the step: an inactive slot's stale settings
+        must not defeat the greedy path (the reference's ``live_*``)."""
         active = state.active
         zero = torch.zeros((), device=self.device)
         return (torch.where(active, state.temperature, zero),
                 torch.where(active, state.top_k, torch.zeros_like(state.top_k)),
                 torch.where(active, state.top_p, zero + 1.0))
+
+    def _sample(self, state: DecodeState, logits: torch.Tensor, W: int
+                ) -> torch.Tensor:
+        """Per-slot draws of a step's (B * W, V) logits, row (b, w) under
+        ``fold_in(rngs[b], generated[b] + w)``, the reference's keys for a
+        narrow (W = 1) and a widened step. The host mirrors say whether
+        any live slot samples, so an all-greedy batch folds no keys."""
+        live_temp, live_topk, live_topp = self._live_sampling(state)
+        flags = self._state_flags(state)
+        keys = None
+        if flags[0]:
+            pos_w = torch.arange(W, device=self.device, dtype=torch.int64)
+            gen_w = state.generated.to(torch.int64)[:, None] + pos_w[None]
+            keys = threefry.fold_in(state.rngs[:, None, :], gen_w
+                                    ).reshape(-1, 2)
+        rep = lambda x: x.repeat_interleave(W) if W > 1 else x
+        return sample_logits_per_slot(keys, logits, rep(live_temp),
+                                      rep(live_topk), rep(live_topp),
+                                      any_sampled=flags[0],
+                                      any_top_k=flags[1], any_top_p=flags[2])
 
     def _step(self, state: DecodeState, page_table: torch.Tensor,
               forward: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
@@ -514,12 +633,7 @@ class EngineCore:
         prev_len = cache.lengths.clone()
         logits = forward(state.tokens)
         active = state.active
-        live_temp, live_topk, live_topp = self._live_sampling(state)
-        gens = [self._generator(state, b, int(state.host_generated[b]))
-                if state.host_live[b] and state.host_temperature[b] > 0
-                else None for b in range(self.batch)]
-        sampled = sample_logits_per_slot(gens, logits, live_temp, live_topk,
-                                         live_topp)
+        sampled = self._sample(state, logits, 1)
         lp = token_logprob(logits, sampled)
         generated = state.generated + active.to(torch.int32)
         hit_eos = sampled == self.eos_id
@@ -539,7 +653,6 @@ class EngineCore:
         state.last_logprob = torch.where(active, lp, state.last_logprob)
         state.generated = generated
         state.active = active & ~done
-        state.host_generated += state.host_live
         return {k: v[None] for k, v in out.items()}
 
     def _step_wide(self, state: DecodeState, page_table: torch.Tensor,
@@ -549,11 +662,11 @@ class EngineCore:
         """One speculative verify step (``step_wide`` there): draft W - 1
         tokens per slot from its history (capped by ``draft_cap``), run one
         W-wide forward (``forward(inputs (B, W)) -> (B, W, V)``, lengths
-        unchanged), sample every position with the slot's generator for
-        token ``generated + w``, accept the longest matching prefix, clamp
-        it to pages actually covered, the budget and the capacity, and cut
-        it after an EOS. Out arrays are (W, B)."""
-        B, dev = self.batch, self.device
+        unchanged), sample position w under the slot's key folded with
+        ``generated + w``, accept the longest matching prefix, clamp it to
+        pages actually covered, the budget and the capacity, and cut it
+        after an EOS. Out arrays are (W, B)."""
+        B, dev = state.tokens.shape[0], self.device
         cache = state.cache
         if forward is None:
             forward = lambda inputs: kv_cache.decode_step_wide(
@@ -568,17 +681,8 @@ class EngineCore:
         raw = forward(inputs).float()                             # (B, W, V)
         V = raw.shape[-1]
         active = state.active
-        live_temp, live_topk, live_topp = self._live_sampling(state)
-        gens: List[Optional[torch.Generator]] = [None] * (B * W)
-        for b in range(B):
-            if state.host_live[b] and state.host_temperature[b] > 0:
-                for w in range(W):
-                    gens[b * W + w] = self._generator(
-                        state, b, int(state.host_generated[b]) + w, w)
-        rep = lambda x: x.repeat_interleave(W)
         flat = raw.reshape(B * W, V)
-        sampled = sample_logits_per_slot(gens, flat, rep(live_temp),
-                                         rep(live_topk), rep(live_topp))
+        sampled = self._sample(state, flat, W)
         lp = token_logprob(flat, sampled).reshape(B, W)
         sampled = sampled.reshape(B, W)
         e = acceptance(sampled, draft, dlen).to(torch.int64)      # 1..W
@@ -620,9 +724,6 @@ class EngineCore:
         state.last_logprob = torch.where(active, last_lp, state.last_logprob)
         state.generated = generated
         state.active = active & ~done_slot
-        if (state.host_live & (state.host_temperature > 0)).any():
-            # a sampling slot's next draws need its exact token count
-            state.host_generated[:] = generated.cpu().numpy()
         return out
 
     def _width(self, spec_width: Optional[int], draft_cap
@@ -632,8 +733,7 @@ class EngineCore:
             raise ValueError(f"spec_width {W} is not a ladder rung "
                              f"{self.spec_widths}")
         if draft_cap is not None:
-            draft_cap = torch.as_tensor(np.asarray(draft_cap, np.int32),
-                                        device=self.device)
+            draft_cap = self._up(np.asarray(draft_cap, np.int32))
         return W, draft_cap
 
     def _run_step(self, state: DecodeState, page_table: torch.Tensor, W: int,
@@ -646,7 +746,8 @@ class EngineCore:
     def _pack(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
         """Stack the steps' (W, B) arrays into (steps*W, B) micro-rows, and
         every field as int32 (logprobs bitcast) into ``packed`` for one
-        device-to-host copy."""
+        device-to-host copy. Every array is a fresh tensor, which no later
+        dispatch writes."""
         res: Dict[str, Any] = {k: torch.cat([o[k] for o in outs])
                                for k in _PACKED_FIELDS}
         res["packed"] = torch.stack([
@@ -657,17 +758,33 @@ class EngineCore:
     @torch.no_grad()
     def decode(self, state: DecodeState, page_table: torch.Tensor,
                steps: int = 1, *, spec_width: Optional[int] = None,
-               draft_cap=None) -> Tuple[DecodeState, Dict[str, Any]]:
-        """Run ``steps`` decode steps over all slots, each ``spec_width``
-        wide (a ladder rung; default the ceiling) with per-slot draft caps
-        ``draft_cap`` (B,) (default uncapped); ``page_table`` from
-        :meth:`put_table`. Out arrays are (steps*W, B) micro-rows, (step,
-        position) in order; ``input_tokens`` carries each position's input,
-        and ``out["packed"]`` stacks every field as int32 (logprobs
-        bitcast) for one device-to-host copy."""
+               width: Optional[int] = None, draft_cap=None
+               ) -> Tuple[DecodeState, Dict[str, Any]]:
+        """Run ``steps`` decode steps, each ``spec_width`` wide (a ladder
+        rung; default the ceiling) with per-slot draft caps ``draft_cap``
+        (B,) (default uncapped), over the first ``width`` slots (a rung of
+        ``decode_widths``; default the full batch; the caller keeps every
+        live slot below it); ``page_table`` from :meth:`put_table`. Out
+        arrays are (steps*W, width) micro-rows, (step, position) in order;
+        ``input_tokens`` carries each position's input, and
+        ``out["packed"]`` stacks every field as int32 (logprobs bitcast)
+        for one device-to-host copy."""
         W, cap = self._width(spec_width, draft_cap)
-        return state, self._pack([self._run_step(state, page_table, W, cap)
-                                  for _ in range(steps)])
+        bw = width or self.batch
+        if bw not in self.decode_widths:
+            raise ValueError(f"width {bw} is not a ladder rung "
+                             f"{self.decode_widths}")
+        if bw == self.batch:
+            return state, self._pack([self._run_step(state, page_table, W,
+                                                     cap)
+                                      for _ in range(steps)])
+        narrow = state.rows(bw)
+        table = page_table[:bw]
+        cap = cap[:bw] if cap is not None else None
+        res = self._pack([self._run_step(narrow, table, W, cap)
+                          for _ in range(steps)])
+        state.merge(narrow)
+        return state, res
 
     @torch.no_grad()
     def decode_mixed(self, state: DecodeState, page_table: torch.Tensor,
@@ -682,8 +799,8 @@ class EngineCore:
         steps); ``is_last`` items then sample their first token and
         activate their slot, so they decode from the next dispatch. Chunks
         pad to ``prefill_chunk`` and the group to a ``group_buckets`` size.
-        The out block is :meth:`decode`'s, plus ``first_tokens`` (G,) for
-        the items (valid for is_last ones)."""
+        The out block is :meth:`decode`'s at the full batch, plus
+        ``first_tokens`` (G,) for the items (valid for is_last ones)."""
         if not self.mixed_supported:
             raise ValueError("mixed-phase dispatch is gated off for this "
                              "engine (APP_MIXED_PHASE_DISPATCH or an "
@@ -709,7 +826,7 @@ class EngineCore:
             page_rows[i] = it.page_row
             start_pos[i] = it.start_pos
             chunk_len[i] = n
-        t = lambda a: torch.as_tensor(a, device=self.device)
+        t = self._up
         W, cap = self._width(spec_width, draft_cap)
         cache = state.cache
         ch_args = (t(tokens), t(page_rows), t(start_pos), t(chunk_len))
@@ -743,7 +860,8 @@ class EngineCore:
                  top_p: float, seed: int = 0) -> DecodeState:
         """Start decoding a prefilled slot (lengths set by its last chunk;
         ``generated`` counts tokens already produced, >= 1); the token
-        enters history at the slot's length."""
+        enters history at the slot's length, and the slot's key becomes
+        ``PRNGKey(seed)``."""
         state.history[slot, state.cache.lengths[slot].long()
                       .clamp_max(self.max_seq - 1)] = token
         state.tokens[slot] = token
@@ -753,28 +871,43 @@ class EngineCore:
         state.temperature[slot] = temperature
         state.top_k[slot] = top_k
         state.top_p[slot] = top_p
+        state.rngs[slot] = self._up(threefry.prng_key(seed))
         state.last_logprob[slot] = 0.0
         state.host_live[slot] = True
         state.host_temperature[slot] = temperature
-        state.host_seed[slot] = seed
-        state.host_generated[slot] = generated
+        state.host_top_k[slot] = top_k
+        state.host_top_p[slot] = top_p
         return state
+
+    @torch.no_grad()
+    def snapshot_tokens(self, state: DecodeState) -> HostCopy:
+        """A (2, B) int32 snapshot of every slot's current token and its
+        logprob bits on its way to the host: the batched fetch of fused
+        first tokens. A fresh stack, so later dispatches cannot change it."""
+        return HostCopy(torch.stack([state.tokens,
+                                     state.last_logprob.view(torch.int32)]))
+
+    @staticmethod
+    def _clear_host(state: DecodeState, slot: int) -> None:
+        state.host_live[slot] = False
+        state.host_temperature[slot] = 0.0
+        state.host_top_k[slot] = 0
+        state.host_top_p[slot] = 1.0
 
     @torch.no_grad()
     def release(self, state: DecodeState, slot: int) -> DecodeState:
         """Deactivate a slot; its pages may be reused at once (its later
         decode writes go to the null page)."""
         state.active[slot] = False
-        state.host_live[slot] = False
+        self._clear_host(state, slot)
         return state
 
     def retire_host(self, state: DecodeState, slot: int) -> DecodeState:
         """The slot's ``done`` row reached the host (EOS or budget, at its
         fused first token or in a decode step): the device already left it
-        inactive, so only the host mirror is cleared. Its stale temperature
-        then no longer reseeds generators, draws samples or forces the
-        ``generated`` read-back."""
-        state.host_live[slot] = False
+        inactive, so only the host mirror is cleared, and its stale
+        temperature no longer sends steps down the sampling path."""
+        self._clear_host(state, slot)
         return state
 
     @torch.no_grad()
@@ -787,6 +920,49 @@ class EngineCore:
         row = np.zeros((self.max_seq,), np.int32)
         n = min(len(ids), self.max_seq)
         row[:n] = np.asarray(ids[:n], np.int32)
-        state.history[slot, :self.max_seq] = torch.as_tensor(
-            row, device=self.device)
+        state.history[slot, :self.max_seq] = self._up(row)
         return state
+
+    # ----------------------------------------------------------------- warmup
+
+    @torch.no_grad()
+    def warmup(self) -> float:
+        """Run every serving program once on a throwaway state before
+        traffic, as the reference's ``warmup`` compiles its grid: every
+        grouped-prefill bucket (sampled fused first tokens, so the sampling
+        kernel runs too), every decode program (each rung of the batch
+        width ladder times each speculative rung, at
+        ``decode_steps_per_dispatch`` steps, with sampled slots), and every
+        mixed group bucket. On the card this builds every kernel and
+        touches every shape before the first request. The rows write to
+        the null page and end at once (budget 0). Returns the seconds it
+        took, the device included."""
+        t0 = time.perf_counter()
+        state = self.init_state()
+        zero_row = np.zeros((self.max_pages_per_slot,), np.int32)
+        table = self.put_table(np.zeros(
+            (self.batch, self.max_pages_per_slot), np.int32))
+        steps = self.cfg.decode_steps_per_dispatch
+
+        def items(g, last):
+            return [PrefillItem(chunk_ids=[1] * min(4, self.chunk),
+                                page_row=zero_row, slot=i % self.batch,
+                                start_pos=0, is_last=last(i), generated=1,
+                                max_gen=0, temperature=1.0)
+                    for i in range(g)]
+
+        for g in self.group_buckets:
+            state, _ = self.prefill_group(state, items(g, lambda i: True))
+        for wi in self.spec_widths:
+            for bw in self.decode_widths:
+                state, _ = self.decode(state, table, steps, spec_width=wi,
+                                       width=bw)
+        if self.mixed_supported:
+            for g in self.group_buckets:
+                state, _ = self.decode_mixed(
+                    state, table, steps,
+                    items(min(g, self.batch), lambda i: bool(i % 2)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        del state
+        return time.perf_counter() - t0

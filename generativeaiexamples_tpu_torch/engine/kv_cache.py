@@ -236,8 +236,12 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
     last = (chunk_len.to(torch.int64) - 1).clamp_min(0)
     h_last = h[torch.arange(G, device=dev), last][:, None]          # (G, 1, D)
     logits = llama._unembed(cfg, params, h_last)[:, 0]
-    keep = slots < cache.lengths.shape[0]
-    cache.lengths[slots[keep].long()] = valid_through[keep]
+    # rows whose slot is the batch size are dropped: they scatter into a
+    # spare entry past the batch (no boolean indexing, so no host sync)
+    B = cache.lengths.shape[0]
+    ext = torch.cat([cache.lengths, cache.lengths.new_zeros(1)])
+    ext.scatter_(0, slots.long().clamp(0, B), valid_through)
+    cache.lengths.copy_(ext[:B])
     return logits
 
 

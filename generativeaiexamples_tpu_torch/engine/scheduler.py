@@ -3,37 +3,49 @@
 Port of the single-card path of ``generativeaiexamples_tpu/engine/
 scheduler.py``. One driver thread owns the device; each tick it
 
-  1. admits pending requests while a slot and the prompt's KV pages are
+  1. resolves every in-flight decode dispatch whose result has landed on
+     the host, and every landed batched first-token fetch;
+  2. admits pending requests while a slot and the prompt's KV pages are
      free: FIFO with bounded-bypass skip-ahead (while the head waits for
      pages, up to ``_BYPASS_MAX`` later jobs that fit may pass it, never
      taking the last free slot), each admission sharing the longest cached
      chain of its prompt's full pages when the prefix cache is on (a
      prompt that can never fit fails loudly);
-  2. runs one grouped prefill dispatch: up to ``prefill_group`` chunks,
+  3. runs one grouped prefill dispatch: up to ``prefill_group`` chunks,
      oldest admission first, final chunks sampling their first token and
      activating their slot in the same pass -- unless the prompts may ride
      the decode dispatch instead (mixed-phase dispatch: while slots decode
      and at most ``prefill_group`` prompts prefill, each one's next chunk
-     joins the decode forward as ragged rows);
-  3. runs one K-step decode dispatch over the active slots, each step
-     W tokens wide under speculative decoding (W the smallest rung of the
-     width ladder covering every slot's acceptance-tuned draft cap), and
-     fans the accepted tokens out to per-request queues, with stop strings
-     matched on the host over the detokenized stream.
+     joins the decode forward as ragged rows). While admissions prefill
+     into a batch under half full (a ramp), decode dispatches are held
+     for up to ``prefill_hold_chunks`` prefill chunks per episode;
+  4. issues one K-step decode dispatch over the active slots without
+     waiting for it, each step W tokens wide under speculative decoding (W
+     the smallest rung of the width ladder covering every slot's
+     acceptance-tuned draft cap) over the smallest batch-width rung
+     covering the highest live slot; its packed result copies to the host
+     behind a CUDA event. At most ``pipeline_depth`` dispatches stay in
+     flight; the oldest is resolved first, its accepted tokens fanned out
+     to per-request queues, with stop strings matched on the host over
+     the detokenized stream.
 
-Pages grow as decode crosses page boundaries; when the pool is exhausted
+A fused first token is not read back at its prefill: it resolves from the
+next decode dispatch's step-0 inputs or from a batched ``(2, B)`` snapshot
+of the state's tokens and logprobs, whichever lands first.
+
+Pages grow as decode crosses page boundaries, past the positions still in
+flight; when the pool is exhausted the in-flight dispatches drain, then
 the youngest request is preempted and re-queued as prompt + generated
-tokens (recompute preemption), as there. With the prefix cache, a prompt's
-full pages are published once the dispatch writing them was issued (its
-final chunk), and a finished or preempted request's decode-written pages
-too, so a resume or a follow-up turn re-admits against them. Dispatches
-are not pipelined: the host waits for each decode result before the next
-dispatch.
+tokens (recompute preemption), as there. With the prefix cache, a
+prompt's full pages are published once the dispatch writing them was
+issued (its final chunk), and a finished or preempted request's
+decode-written pages too, so a resume or a follow-up turn re-admits
+against them.
 
 Not ported (their Request fields raise): logprobs, LoRA adapters, grammar,
 KV handoff (ROADMAP A2, A3, A5, A7); nor spill/tier, QoS, SLO, metrics and
-flight planes, the prefill-priority hold and the multi-step plan (A6).
-Speculation, prefix-cache and admission counters live in
+flight planes and the multi-step plan (A5, A6). Dispatch, speculation,
+prefix-cache, admission and pipelining counters live in
 ``Scheduler.stats``.
 """
 
@@ -55,7 +67,7 @@ from typing import Deque, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from generativeaiexamples_tpu_torch.engine.engine import (
-    EngineCore, PrefillItem, unpack_decode_out)
+    EngineCore, HostCopy, PrefillItem, unpack_decode_out)
 from generativeaiexamples_tpu_torch.engine.prefix_cache import chain_hashes
 from generativeaiexamples_tpu_torch.engine.tokenizer import (
     IncrementalDetokenizer, Tokenizer)
@@ -144,6 +156,29 @@ class _Job:
     shared: int = 0               # tokens of ids served from the prefix cache
     page_hashes: List[bytes] = field(default_factory=list)  # chain/full page
     hashed_len: int = -1          # len(ids) the hashes were computed for
+    # set when the fused final chunk has sampled this job's first token on
+    # the device; resolved (and cleared) by whichever lands first, a
+    # batched state.tokens fetch or the next decode dispatch's step-0
+    # input_tokens
+    first_pending: bool = False
+    first_batched: bool = False   # included in an in-flight batched fetch
+    first_inflight: bool = False  # already snapshotted into a decode dispatch
+    first_epoch: int = 0          # bumps per (re-)prefill: a stale fetch of
+                                  # a preempted, re-admitted job is dropped
+
+
+@dataclass
+class _Dispatch:
+    """A decode dispatch in flight: its result on the way to the host, the
+    jobs whose first token its step-0 inputs carry, the slot map when it
+    was issued (a slot freed and reused meanwhile must not get the old
+    job's tokens), its positions (steps x W) and its speculative width."""
+
+    result: HostCopy
+    fresh: List[tuple]
+    active_map: Dict[int, _Job]
+    positions: int
+    w_disp: int
 
 
 class Scheduler:
@@ -181,6 +216,20 @@ class Scheduler:
         # configured draft; wider rungs are earned by measured acceptance
         self._spec_ema_global = min(core.cfg.spec_draft,
                                     self._spec_w - 1) / 2.0
+        self._decode_widths = tuple(core.decode_widths)
+        # decode dispatches issued and not yet resolved, oldest first, and
+        # the positions (steps x W) they will write: page growth covers
+        # them. A result resolves when its copy has landed (on the CPU at
+        # once), or at the backpressure point once more than
+        # pipeline_depth are in flight.
+        self._inflight: Deque[_Dispatch] = deque()
+        self._pending_steps = 0
+        self._pipeline_depth = core.cfg.pipeline_depth
+        # batched first-token fetches in flight: [(HostCopy, pairs)]
+        self._first_fetches: List[tuple] = []
+        self._first_fetch_depth = 4
+        self._holding = False      # inside a prefill-priority ramp episode
+        self._hold_left = 0        # chunk budget remaining in the episode
         # counts read by chip_smoke.py and /health: dispatches, mixed
         # dispatches, widened decode steps (W > 1), accepted drafts
         # (spec_bonus_tokens) over slot-steps that emitted (spec_base_steps),
@@ -193,7 +242,16 @@ class Scheduler:
                       "spec_bonus_tokens": 0, "spec_base_steps": 0,
                       "preemptions": 0, "prefix_hit_tokens": 0,
                       "prefix_prompt_tokens": 0, "admission_skips": 0,
-                      "prefix_evictions": 0}
+                      "prefix_evictions": 0,
+                      # ticks whose decode dispatch the ramp hold skipped;
+                      # decode dispatches issued while another was in
+                      # flight, and the most left in flight at the end of
+                      # a tick (what /health's inflight_dispatches reads);
+                      # pure decode dispatches per batch-width rung
+                      "held_ticks": 0, "overlapped_dispatches": 0,
+                      "inflight_peak": 0,
+                      **{f"decode_width_{w}": 0
+                         for w in self._decode_widths}}
 
     # ------------------------------------------------------------------ API
 
@@ -260,6 +318,9 @@ class Scheduler:
                 "prefilling": len(self._prefilling), "waiting": waiting,
                 "batch": self.core.batch, "kv_dtype": self.core.kv_dtype,
                 "spec_widths": list(self._spec_widths),
+                "decode_widths": list(self._decode_widths),
+                "pipeline_depth": self._pipeline_depth,
+                "inflight_dispatches": len(self._inflight),
                 "mixed": self.core.mixed_supported,
                 "prefix_cache": self._caching,
                 "kv_pool_bytes": self._state.cache.nbytes,
@@ -279,6 +340,10 @@ class Scheduler:
         jobs += list(self._prefilling) + list(self._slots.values())
         self._prefilling.clear()
         self._slots.clear()
+        self._inflight.clear()
+        self._pending_steps = 0
+        self._first_fetches = []
+        self._holding = False
         for job in jobs:
             job.request.error = reason
             job.request.finished_at = time.perf_counter()
@@ -519,9 +584,11 @@ class Scheduler:
 
     # -- prefill ------------------------------------------------------------
 
-    def _prefill_step(self) -> None:
+    def _prefill_step(self) -> int:
         """One grouped prefill dispatch, head job first; consecutive chunks
-        of one prompt may share it."""
+        of one prompt may share it. Final chunks sample their first token
+        on the device; it is not read back here (``_enter_decode``).
+        Returns the chunks consumed, the hold budget's unit."""
         budget = self.core.prefill_group_max
         ps, row = self.core.page_size, self.core.row_tokens
         items: List[PrefillItem] = []
@@ -557,25 +624,34 @@ class Scheduler:
                 if last:
                     finals.append(job)
             job.prefilled = job.total_len = start
-        self._state, toks = self.core.prefill_group(self._state, items)
+        self._state, _ = self.core.prefill_group(self._state, items)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_chunks"] += len(items)
-        if not finals:
-            return
-        for job in finals:
-            # the prompt's pages are now write-dispatched: publish them
-            self._cache_insert(job)
-        host = toks.cpu().numpy()
-        first = {it.slot: int(host[i]) for i, it in enumerate(items)
-                 if it.is_last}
         for job in finals:
             self._prefilling.remove(job)
-            self._slots[job.slot] = job
-            self._resolve_first(job, first[job.slot])
+            # the prompt's pages are now write-dispatched: publish them
+            self._cache_insert(job)
+            self._enter_decode(job)
+        return len(items)
+
+    def _enter_decode(self, job: _Job) -> None:
+        """A job's final chunk is dispatched: flag its fused first token
+        for resolution and hand the slot to the decode set."""
+        job.first_pending = True
+        job.first_inflight = False
+        job.first_batched = False
+        job.first_epoch += 1
+        self._slots[job.slot] = job
 
     def _resolve_first(self, job: _Job, first: int) -> None:
-        """Emit the fused first token (the device already left the slot
-        inactive when it is EOS or the budget is spent)."""
+        """Emit the fused first token, from whichever lands first: a
+        batched fetch or a decode dispatch's step-0 inputs (idempotent via
+        ``first_pending``). The device already left the slot inactive when
+        it is EOS or the budget is spent."""
+        if not job.first_pending:
+            return
+        job.first_pending = False
+        job.first_batched = False
         req = job.request
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
@@ -625,8 +701,11 @@ class Scheduler:
 
     def _grow_pages(self, steps: int, spec_w: int = 1) -> int:
         """Give every active slot pages for its next ``steps`` dispatch
-        steps of ``spec_w`` positions each; preempt the youngest request
-        only when even one position cannot be covered. Returns the
+        steps of ``spec_w`` positions each, past the positions already in
+        flight (``_pending_steps``: the host's ``total_len`` lags them).
+        Preempt the youngest request only when even one position cannot
+        be covered, and only after draining every dispatch in flight,
+        whose results may finish jobs and free pages. Returns the
         power-of-two step count all slots have pages for (positions a
         starved row could not cover land on the null page, and the engine
         clamps acceptance to the covered span)."""
@@ -634,12 +713,13 @@ class Scheduler:
         for slot in list(self._slots):
             job = self._slots.get(slot)
             if job is None:
-                continue   # preempted earlier in this pass
+                continue   # finished or preempted earlier in this pass
             while self._slots.get(slot) is job:
-                target = min(self.core.pages_for(job.total_len
+                next_write = job.total_len + self._pending_steps
+                target = min(self.core.pages_for(next_write
                                                  + steps * spec_w - 1),
                              self.core.max_pages_per_slot)
-                minimum = min(self.core.pages_for(job.total_len),
+                minimum = min(self.core.pages_for(next_write),
                               self.core.max_pages_per_slot)
                 if len(job.pages) >= target:
                     break
@@ -651,13 +731,20 @@ class Scheduler:
                     continue
                 if len(job.pages) >= minimum:
                     break
+                if self._inflight:
+                    # the host view is up to _pending_steps stale: drain
+                    # before a destructive decision, then re-evaluate
+                    while self._inflight:
+                        self._process_decode()
+                    continue
                 victim = max(list(self._prefilling) + list(self._slots.values()),
                              key=lambda j: j.admit_seq)
                 self._preempt(victim)
             if self._slots.get(slot) is not job:
                 continue
             if len(job.pages) < self.core.max_pages_per_slot:
-                covered = len(job.pages) * self.core.page_size - job.total_len
+                covered = (len(job.pages) * self.core.page_size
+                           - job.total_len - self._pending_steps)
                 effective = max(1, min(effective, covered // spec_w))
         p2 = 1
         while p2 * 2 <= effective:
@@ -666,7 +753,8 @@ class Scheduler:
 
     def _preempt(self, job: _Job) -> None:
         """Recompute preemption: free the slot and pages, re-queue the job
-        at the head as prompt + generated tokens."""
+        at the head as prompt + generated tokens. Results still in flight
+        for it are dropped by the identity checks."""
         if self._slots.get(job.slot) is job:
             del self._slots[job.slot]
         else:
@@ -678,6 +766,7 @@ class Scheduler:
         self._release(job)
         job.ids = list(job.request.prompt_ids) + list(job.gen_ids)
         job.prefilled = job.total_len = 0
+        job.first_pending = job.first_batched = job.first_inflight = False
         with self._lock:
             self._pending.appendleft(job)
         job.request.preemptions += 1
@@ -792,23 +881,42 @@ class Scheduler:
             metas.append((job, last))
         return items, metas
 
-    def _decode_step(self, try_mixed: bool = False) -> None:
-        """One K-step decode dispatch (with the prefilling jobs' next
-        chunks fused in when ``try_mixed``), then fan its tokens out."""
+    def _decode_width(self) -> int:
+        """Batch-width rung of a pure decode dispatch: the smallest one
+        covering the highest live slot (slots are allocated lowest id
+        first, so the live set compacts). Mixed dispatches keep the full
+        width."""
+        if len(self._decode_widths) <= 1 or not self._slots:
+            return self.core.batch
+        hi = max(self._slots) + 1
+        return next(w for w in self._decode_widths if w >= hi)
+
+    def _dispatch_decode(self, try_mixed: bool = False) -> None:
+        """Issue one K-step decode dispatch (with the prefilling jobs' next
+        chunks fused in when ``try_mixed``) without waiting for it: its
+        packed result starts its copy to the host and the dispatch joins
+        the in-flight queue. Jobs whose first token is pending are
+        snapshotted with it, so their first token resolves from its step-0
+        inputs."""
         w_plan, _ = self._spec_plan()
         steps = self._grow_pages(self.core.cfg.decode_steps_per_dispatch,
                                  w_plan)
         if not self._slots:
             return
         packed = self._pack_mixed_chunks() if try_mixed else None
+        fresh = [(s, j) for s, j in self._slots.items()
+                 if j.first_pending and not j.first_inflight]
+        for _, j in fresh:
+            j.first_inflight = True   # only the first dispatch resolves it
         # re-planned after _grow_pages: preemption only removes slots, so
         # the rung never widens past the grown horizon
         w_disp, caps = self._spec_plan()
         active_map = dict(self._slots)
         table = self._table_device()
         if packed is not None:
-            # mixed dispatches run the ceiling width, uncapped: the ragged
-            # kernel pads every decode row to q_block whatever W is
+            # mixed dispatches run the ceiling width, uncapped, over the
+            # full batch: the ragged kernel pads every decode row to
+            # q_block whatever W is
             items, metas = packed
             w_disp = self._spec_w
             for it, (job, _) in zip(items, metas):
@@ -818,43 +926,49 @@ class Scheduler:
                                                       steps, items)
             self.stats["mixed_dispatches"] += 1
             self.stats["prefill_chunks"] += len(items)
-            for job, last in metas:
-                if last:    # prompt pages write-dispatched: publish them
-                    self._cache_insert(job)
         else:
+            width = self._decode_width()
             kw = ({} if caps is None
                   else {"spec_width": w_disp, "draft_cap": caps})
+            if width != self.core.batch:
+                kw["width"] = width
             self._state, out = self.core.decode(self._state, table, steps,
                                                 **kw)
+            self.stats[f"decode_width_{width}"] += 1
+        if self._inflight:
+            self.stats["overlapped_dispatches"] += 1
+        self._inflight.append(_Dispatch(HostCopy(out["packed"]), fresh,
+                                        active_map, steps * w_disp, w_disp))
+        self._pending_steps += steps * w_disp
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += steps
         if w_disp > 1:
             self.stats["spec_steps"] += steps
-        host = unpack_decode_out(out["packed"].cpu().numpy())
-        self._note_acceptance(host, w_disp, active_map)
-        self._process_decode(host, active_map)
         if packed is not None:
-            self._resolve_mixed(out["first_tokens"], metas)
+            # the finished prompts activated on the device at the end of the
+            # dispatch: they join the decode set after its snapshot, and
+            # their first tokens resolve from a later one (or a fetch)
+            for job, last in metas:
+                if last:
+                    self._prefilling.remove(job)
+                    self._cache_insert(job)
+                    self._enter_decode(job)
 
-    def _resolve_mixed(self, first_tokens, metas) -> None:
-        """Move the mixed dispatch's finished prompts to decoding and emit
-        their fused first tokens."""
-        finals = [(i, job) for i, (job, last) in enumerate(metas) if last]
-        if not finals:
-            return
-        host = first_tokens.cpu().numpy()
-        for i, job in finals:
-            self._prefilling.remove(job)
-            self._slots[job.slot] = job
-            self._resolve_first(job, int(host[i]))
-
-    def _process_decode(self, out: Dict[str, np.ndarray],
-                        active_map: Dict[int, _Job]) -> None:
-        """Fan out a dispatch's (steps*W, B) micro-rows: a widened step
-        emits up to W accepted tokens per slot."""
-        for slot, job in active_map.items():
+    def _process_decode(self) -> None:
+        """Resolve the oldest dispatch in flight (waiting for its copy if
+        it is still running) and fan out its (steps*W, width) micro-rows:
+        first tokens of the jobs it snapshotted, then up to W accepted
+        tokens per slot a step."""
+        entry = self._inflight.popleft()
+        self._pending_steps -= entry.positions
+        out = unpack_decode_out(entry.result.result())
+        self._note_acceptance(out, entry.w_disp, entry.active_map)
+        for slot, job in entry.fresh:
+            if self._slots.get(slot) is job:
+                self._resolve_first(job, int(out["input_tokens"][0, slot]))
+        for slot, job in entry.active_map.items():
             if self._slots.get(slot) is not job:
-                continue
+                continue   # finished or preempted since this dispatch
             req = job.request
             for k in range(out["sampled"].shape[0]):
                 if not out["emitted"][k, slot]:
@@ -870,31 +984,102 @@ class Scheduler:
                     self._finish(job)
                     break
 
+    def _fetch_first_tokens(self, hold: bool) -> None:
+        """Batched first-token fetch: one (2, B) snapshot of the state's
+        tokens and logprob bits covers every job activated since the last
+        one and not yet snapshotted into a decode dispatch. Only while
+        decode is held or at most one dispatch is in flight (deeper, the
+        next dispatch's result carries them as soon)."""
+        waiting = [(j.slot, j, j.first_epoch) for j in self._slots.values()
+                   if j.first_pending and not j.first_inflight
+                   and not j.first_batched]
+        if not (waiting and (hold or len(self._inflight) <= 1)
+                and len(self._first_fetches) < self._first_fetch_depth):
+            return
+        for _, j, _e in waiting:
+            j.first_batched = True
+        self._first_fetches.append((self.core.snapshot_tokens(self._state),
+                                    waiting))
+
+    def _resolve_first_fetches(self) -> bool:
+        landed = [ff for ff in self._first_fetches if ff[0].done()]
+        if not landed:
+            return False
+        self._first_fetches = [ff for ff in self._first_fetches
+                               if all(ff is not x for x in landed)]
+        for fetch, pairs in landed:
+            snap = fetch.result()
+            for slot, job, epoch in pairs:
+                # identity and epoch: the job may have been preempted and
+                # re-admitted into the same slot since the snapshot
+                if self._slots.get(slot) is job and job.first_epoch == epoch:
+                    self._resolve_first(job, int(snap[0, slot]))
+        return True
+
     # -- driver loop --------------------------------------------------------
 
     def _tick(self) -> bool:
         """One scheduling round; False when fully idle."""
         worked = False
+        # results that already landed resolve now: first tokens stamp and
+        # done slots free without waiting for the backpressure point
+        while self._inflight and self._inflight[0].result.done():
+            self._process_decode()
+            worked = True
+        worked |= self._resolve_first_fetches()
         self._admit()
+        # prefill-priority ramp: while admissions prefill into a batch under
+        # half full, decode dispatches are held, for at most
+        # prefill_hold_chunks chunks per episode (the held slots' first
+        # tokens already rode their fused final chunks)
+        ramp = (bool(self._prefilling)
+                and len(self._slots) < self.core.batch // 2)
+        if ramp and not self._holding:
+            self._holding = True
+            self._hold_left = self.core.cfg.prefill_hold_chunks
+        elif not ramp:
+            self._holding = False
         # while slots decode and few enough prompts prefill, each prompt's
-        # next chunk rides the decode dispatch instead of stalling it
+        # next chunk rides the decode dispatch instead of stalling it; a
+        # ramp that holds keeps the grouped prefill
         try_mixed = (bool(self._prefilling) and bool(self._slots)
                      and self.core.mixed_supported
                      and len(self._prefilling) <= self.core.prefill_group_max
+                     and not (self._holding and self._hold_left > 0)
                      and all(self._mixed_eligible(j)
                              for j in self._prefilling))
         if self._prefilling and not try_mixed:
-            self._prefill_step()
+            consumed = self._prefill_step()
+            if self._holding:
+                self._hold_left -= consumed
             worked = True
-        if self._slots:
-            self._decode_step(try_mixed)
+        hold = (self._holding and self._hold_left > 0
+                and bool(self._prefilling))
+        self._fetch_first_tokens(hold)
+        if self._slots and hold:
+            self.stats["held_ticks"] += 1
+        elif self._slots:
+            self._dispatch_decode(try_mixed)
             worked = True
+        # backpressure: at most pipeline_depth dispatches in flight; drain
+        # fully once no slot is left to dispatch for
+        while (len(self._inflight) > self._pipeline_depth
+               or (self._inflight and not self._slots)):
+            self._process_decode()
+            worked = True
+        self.stats["inflight_peak"] = max(self.stats["inflight_peak"],
+                                          len(self._inflight))
         return worked
 
     def _loop(self) -> None:
         while self._running:
             try:
                 if not self._tick():
+                    if self._first_fetches:
+                        # nothing else to do: wait for the oldest fetch on
+                        # the device rather than a timed sleep
+                        self._first_fetches[0][0].result()
+                        continue
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
             except Exception:

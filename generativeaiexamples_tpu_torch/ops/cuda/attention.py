@@ -9,8 +9,9 @@ it here:
   ``ragged_decode`` it is :func:`mha_decode` itself): the CPU path takes
   it, and ``chip_smoke.py`` holds the kernel against it on the card. A wrapper uses it only for tensors that lie on the CPU; for a CUDA
   tensor it launches the kernel or raises, never falls back;
-* a launch count (:func:`launch_counts`), raised by one where the wrapper
-  launches, so a run can show that the serving path went through it.
+* a launch count (:func:`launch_counts`, kept in :mod:`.build` with the
+  sampling kernel's), raised by one where the wrapper launches, so a run
+  can show that the serving path went through it.
 
 ``flash_prefill`` replaces ``flash_prefill``/``_flash_kernel``;
 ``ragged_paged_attention`` replaces ``ragged_paged_attention``/
@@ -38,6 +39,10 @@ import torch
 
 from generativeaiexamples_tpu_torch.ops.attention import (
     NEG_INF, mha_decode, mha_prefill)
+# the launch counts of every kernel of the port, this module's and
+# ops/cuda/sampling.py's, re-exported where the attention kernels live
+from generativeaiexamples_tpu_torch.ops.cuda.build import (  # noqa: F401
+    LAUNCHES, launch_counts, reset_launch_counts)
 
 HEAD_DIMS = (16, 32, 64, 128)
 QG_MAX = 64   # query vectors (G * Qb) one ragged block holds
@@ -45,19 +50,6 @@ SPLIT_TILE = 64   # tokens per tile of the decode-side walk (csrc BT)
 SPLIT_MAX = 32    # splits of one (row, KV head), at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
-                             "ragged_paged_attention_int8": 0,
-                             "ragged_decode": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +297,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _ptr(sp), _ptr(vt), B, S, T, H, KV,
             ctypes.cast(strides, ctypes.c_void_p), _stream(dev))
     _check(rc, "flash_prefill")
-    _LAUNCHES["flash_prefill"] += 1
+    LAUNCHES["flash_prefill"] += 1
     return out
 
 
@@ -389,7 +381,7 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             _stream(dev))
     name = "ragged_paged_attention_int8" if quant else "ragged_paged_attention"
     _check(rc, name)
-    _LAUNCHES[name] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -463,5 +455,5 @@ def ragged_decode(q: torch.Tensor, k_cache: torch.Tensor,
             _ptr(part), _ptr(tickets), ctypes.cast(strides, ctypes.c_void_p),
             _stream(dev))
     _check(rc, "ragged_decode")
-    _LAUNCHES["ragged_decode"] += 1
+    LAUNCHES["ragged_decode"] += 1
     return out

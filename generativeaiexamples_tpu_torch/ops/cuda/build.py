@@ -27,12 +27,29 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-KERNEL_SOURCES = ("flash_prefill", "ragged_paged", "ragged_decode")
+KERNEL_SOURCES = ("flash_prefill", "ragged_paged", "ragged_decode",
+                  "gumbel_argmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# launches of each kernel, raised by one by its wrapper where it launches
+# (ops/cuda/attention.py, ops/cuda/sampling.py), and nowhere else
+LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
+                            "ragged_paged_attention_int8": 0,
+                            "ragged_decode": 0, "gumbel_argmax": 0}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

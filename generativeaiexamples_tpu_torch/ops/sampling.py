@@ -1,30 +1,28 @@
 """Per-slot token sampling: greedy, temperature, top-k, top-p.
 
-Port of the dynamic samplers of ``generativeaiexamples_tpu/ops/sampling.py``
-(``_mask_dynamic``, ``sample_logits_per_slot``, ``sample_logits_dynamic``,
-``token_logprob``). The top-k/top-p cutoffs are found by the same bisection
-with the same thresholds and tie rules, so the masks equal the TPU
-package's. The draw itself uses ``torch.Generator``s: a seeded request is
-reproducible, but its stream differs from JAX's threefry bits (porting
-threefry is ROADMAP A2). Greedy rows are exact.
+Port of the per-slot sampler of ``generativeaiexamples_tpu/ops/sampling.py``
+(``_mask_dynamic``, ``sample_logits_per_slot``, ``token_logprob``). The
+top-k/top-p cutoffs are found by the same bisection with the same
+thresholds and tie rules, so the masks equal the TPU package's, and each
+sampled row draws ``jax.random.categorical`` with its own raw threefry
+key (``ops/threefry.py``), so a seeded request's tokens are the JAX
+engine's. On CUDA the draw is the hand-written Gumbel-argmax kernel
+(``ops/cuda/sampling.py``), on the CPU its plain version. Greedy rows are
+an argmax.
+
+Nothing here reads a device value back to the host: which filters any row
+uses and whether any row samples are the caller's Python booleans (the
+engine knows them from the requests), where the reference branches with
+``lax.cond`` on the device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
-
 import torch
 
+from generativeaiexamples_tpu_torch.ops.cuda.sampling import gumbel_argmax
+
 N_BISECT = 26   # bisection depth of the top-k/top-p cutoff search
-
-# folds a request seed with a token index into one generator seed, the
-# counterpart of fold_in(PRNGKey(seed), index)
-_FOLD = 0x9E3779B1
-
-
-def fold_seed(seed: int, index: int) -> int:
-    """Generator seed for token ``index`` of a request seeded ``seed``."""
-    return ((int(seed) & 0x7FFFFFFF) * _FOLD + int(index)) & ((1 << 63) - 1)
 
 
 def _bisect(pred, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -36,18 +34,21 @@ def _bisect(pred, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def _mask_dynamic(lf: torch.Tensor, temperature: torch.Tensor,
-                  top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+                  top_k: torch.Tensor, top_p: torch.Tensor, *,
+                  any_top_k: bool = True,
+                  any_top_p: bool = True) -> torch.Tensor:
     """Per-row temperature scaling and top-k/top-p masking by bisected
     cutoff values (no vocab sort). lf: (B, V) float32. Rows with neither
-    filter pass through exactly; a batch with no filters skips the search.
-    """
+    filter pass through exactly. ``any_top_k``/``any_top_p`` say whether
+    some row has ``top_k > 0``/``top_p < 1``; False skips that search (the
+    reference's ``lax.cond``), True is always correct."""
     safe_t = torch.where(temperature > 0, temperature,
                          torch.ones_like(temperature))[:, None]
     scaled = lf / safe_t
+    if not (any_top_k or any_top_p):
+        return scaled
     need_k = top_k > 0
     need_p = top_p < 1.0
-    if not bool((need_k | need_p).any()):
-        return scaled
     m = scaled.amax(dim=-1)
     # finite lower bound even with -inf entries (masked tokens)
     lo0 = torch.maximum(scaled.amin(dim=-1), m - 100.0) - 1.0
@@ -57,7 +58,7 @@ def _mask_dynamic(lf: torch.Tensor, temperature: torch.Tensor,
         return (scaled >= t[:, None]).to(torch.int32).sum(dim=-1) >= k_eff
 
     thr_k = lo0
-    if bool(need_k.any()):
+    if any_top_k:
         thr_k = torch.where(need_k, _bisect(k_pred, lo0, m + 1.0), lo0)
 
     e = torch.exp(scaled - m[:, None])
@@ -71,12 +72,11 @@ def _mask_dynamic(lf: torch.Tensor, temperature: torch.Tensor,
         return mass >= target
 
     thr_p = lo0
-    if bool(need_p.any()):
+    if any_top_p:
         thr_p = torch.where(need_p, _bisect(p_pred, lo0, m + 1.0), lo0)
     # the row maximum always survives (top_p = 0 degrades to greedy)
     cut = torch.minimum(torch.maximum(thr_k, thr_p), m)[:, None]
-    out = torch.where(scaled >= cut, scaled,
-                      torch.tensor(float("-inf"), device=lf.device))
+    out = torch.where(scaled >= cut, scaled, scaled.new_full((), -torch.inf))
     return torch.where((need_k | need_p)[:, None], out, scaled)
 
 
@@ -88,39 +88,25 @@ def token_logprob(logits: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
     return picked - torch.logsumexp(lf, dim=-1)
 
 
-def sample_logits_per_slot(generators: Sequence[Optional[torch.Generator]],
-                           logits: torch.Tensor, temperature: torch.Tensor,
-                           top_k: torch.Tensor,
-                           top_p: torch.Tensor) -> torch.Tensor:
-    """Per-slot sampling, each sampled row drawing from its own generator.
+def sample_logits_per_slot(keys: torch.Tensor, logits: torch.Tensor,
+                           temperature: torch.Tensor, top_k: torch.Tensor,
+                           top_p: torch.Tensor, *, any_sampled: bool = True,
+                           any_top_k: bool = True,
+                           any_top_p: bool = True) -> torch.Tensor:
+    """Per-slot sampling with per-slot threefry keys, the ``seed`` surface
+    of the serving API: row b draws ``categorical(keys[b], masked row)``
+    when ``temperature[b] > 0``, else its argmax.
 
-    ``generators[b]`` is the row's generator, already seeded for this token
-    (:func:`fold_seed`), or None for a greedy row; the caller knows which
-    rows sample, so an all-greedy batch costs one argmax and no host sync.
-    Returns (B,) int32.
-    """
-    lf = logits.float()
-    out = lf.argmax(dim=-1).to(torch.int32)
-    rows = [b for b, g in enumerate(generators) if g is not None]
-    if not rows:
-        return out
-    probs = torch.softmax(_mask_dynamic(lf, temperature, top_k, top_p), -1)
-    for b in rows:
-        out[b] = torch.multinomial(probs[b], 1,
-                                   generator=generators[b])[0].to(torch.int32)
-    return out
-
-
-def sample_logits_dynamic(generator: Optional[torch.Generator],
-                          logits: torch.Tensor, temperature: torch.Tensor,
-                          top_k: torch.Tensor,
-                          top_p: torch.Tensor) -> torch.Tensor:
-    """Batch sampling from one generator; rows with temperature <= 0 are
-    greedy. logits: (B, V); temperature/top_k/top_p: (B,)."""
+    keys: (B, 2) int64 raw keys, already folded with the token index by
+    the caller; logits: (B, V); temperature/top_k/top_p: (B,).
+    ``any_sampled=False`` (no row samples) costs one argmax;
+    ``any_top_k``/``any_top_p`` as in :func:`_mask_dynamic`. Returns (B,)
+    int32."""
     lf = logits.float()
     greedy = lf.argmax(dim=-1).to(torch.int32)
-    if generator is None or not bool((temperature > 0).any()):
+    if not any_sampled:
         return greedy
-    probs = torch.softmax(_mask_dynamic(lf, temperature, top_k, top_p), -1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
-    return torch.where(temperature > 0, sampled.to(torch.int32), greedy)
+    scaled = _mask_dynamic(lf, temperature, top_k, top_p,
+                           any_top_k=any_top_k, any_top_p=any_top_p)
+    sampled = gumbel_argmax(keys, scaled)
+    return torch.where(temperature > 0, sampled, greedy)

@@ -11,6 +11,10 @@ pool's kernel and plain version do the same f32 math on the same int8
 values and scales, so the same tolerances hold. The split-walk tests hold
 bf16 outputs per (row, query, head) to one bf16 ulp of the largest plain
 output, the bar ``chip_smoke.py`` uses, since int8-pool outputs reach 6.
+The Gumbel-argmax sampler must give its plain version's token on every row
+(the integer work is exact and both take the same float32 logs); a row
+whose plain top two ``logit + gumbel`` lie within 1e-5 may differ, and is
+counted apart.
 """
 
 import numpy as np
@@ -564,10 +568,11 @@ def test_engine_spec_and_mixed_kernel_path_matches_plain_on_the_card(
                tok.encode(quote[:110], add_bos=True)]
     streams = {}
     for attn in ("kernel", "plain"):
+        # no prefill hold, so the arriving prompt rides a decode dispatch
         core = EngineCore(cfg, EngineConfig(
             max_batch_size=4, max_seq_len=256, prefill_chunk=16, page_size=8,
-            attention=attn, kv_quant=kv_quant), params, tok.eos_id,
-            device=cuda_device)
+            attention=attn, kv_quant=kv_quant, prefill_hold_chunks=0),
+            params, tok.eos_id, device=cuda_device)
         assert core.mixed_supported and core.spec_widths == (2, 3, 5, 9)
         sched = Scheduler(core, tok)
         tk.reset_launch_counts()
@@ -617,11 +622,11 @@ def test_engine_prefix_cache_kernel_path_matches_plain_on_the_card(
     for attn in ("kernel", "plain"):
         core = EngineCore(cfg, EngineConfig(
             max_batch_size=4, max_seq_len=256, prefill_chunk=16, page_size=8,
-            attention=attn, kv_quant=kv_quant), params, tok.eos_id,
-            device=cuda_device)
+            attention=attn, kv_quant=kv_quant, prefill_hold_chunks=0),
+            params, tok.eos_id, device=cuda_device)
         sched = Scheduler(core, tok)
-        reqs = [Request(prompt_ids=p, max_tokens=24, temperature=0.0)
-                for p in prompts]
+        reqs = [Request(prompt_ids=p, max_tokens=64 if i == 0 else 24,
+                        temperature=0.0) for i, p in enumerate(prompts)]
         sched.submit(reqs[0])
         while not reqs[0].first_token_at:
             sched._tick()
@@ -635,3 +640,92 @@ def test_engine_prefix_cache_kernel_path_matches_plain_on_the_card(
                       [r.prefix_hit_tokens for r in reqs])
     assert runs["kernel"] == runs["plain"]
     assert min(runs["kernel"][1][1:]) > 0
+
+
+def _sampler_case(dev, R, V=128_256, seed=0):
+    """(R, 2) keys and (R, V) f32 logits: the rows mix greedy, temperature
+    0.7, top-k 50 and top-p 0.9 and come masked by _mask_dynamic."""
+    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((R, V), generator=g, device=dev) * 3
+    mix = torch.arange(R, device=dev) % 4
+    temp = torch.where(mix == 0, 0.0, 0.7).to(dev)
+    top_k = torch.where(mix == 2, 50, 0).to(torch.int32)
+    top_p = torch.where(mix == 3, 0.9, 1.0).to(dev)
+    masked = sampling._mask_dynamic(logits, temp, top_k, top_p)
+    keys = threefry.fold_in(threefry.prng_key(torch.arange(R) + seed),
+                            torch.arange(R) * 7).to(dev)
+    return keys, masked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [8, 40, 72])
+def test_gumbel_argmax_matches_plain_on_the_card(cuda_device, R):
+    from generativeaiexamples_tpu_torch.ops import threefry
+    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
+    keys, masked = _sampler_case(cuda_device, R)
+    tk.reset_launch_counts()
+    got = ks.gumbel_argmax(keys, masked)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["gumbel_argmax"] == 1
+    want = threefry.categorical(keys, masked)
+    g = threefry.gumbel(keys, masked.shape[1]) + masked
+    top2 = g.topk(2, dim=-1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) < 1e-5
+    differ = got != want
+    assert not (differ & ~near_tie).any()
+    assert torch.isfinite(masked.gather(1, got.long()[:, None])).all()
+
+
+@pytest.mark.cuda
+def test_threefry_bits_of_the_kernel_library_on_the_card(cuda_device):
+    from generativeaiexamples_tpu_torch.ops import threefry
+    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
+    keys = threefry.fold_in(threefry.prng_key(torch.arange(8)),
+                            torch.arange(8) * 3)
+    got = ks.threefry_bits(keys.to(cuda_device), 4099).cpu()
+    assert torch.equal(got, threefry.random_bits(keys, 4099))
+
+
+@pytest.mark.cuda
+def test_engine_sampled_streams_kernel_sampler_match_plain(cuda_device,
+                                                          monkeypatch):
+    """Seeded sampled requests (temperature, top-k, top-p) through the
+    Scheduler at the defaults, f32: the Gumbel-argmax kernel and its plain
+    version give the same tokens."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(5), cfg)
+    tok = ByteTokenizer()
+    streams = {}
+    for sampler in ("kernel", "plain"):
+        if sampler == "plain":
+            monkeypatch.setattr(sampling, "gumbel_argmax",
+                                threefry.categorical)
+        sched = Scheduler(EngineCore(cfg, EngineConfig(
+            max_batch_size=4, max_seq_len=256, prefill_chunk=16,
+            page_size=8), params, tok.eos_id, device=cuda_device), tok)
+        tk.reset_launch_counts()
+        reqs = [Request(prompt_ids=tok.encode(p, add_bos=True),
+                        max_tokens=32, temperature=0.7, top_k=k, top_p=p_,
+                        seed=s)
+                for s, (p, k, p_) in enumerate((("hello", 0, 1.0),
+                                                ("a sampled prompt", 20, 1.0),
+                                                ("another one", 0, 0.9)))]
+        for r in reqs:
+            sched.submit(r)
+        while sched._tick():
+            pass
+        assert all(r.error is None and r.finished_at for r in reqs)
+        streams[sampler] = [r.output_ids for r in reqs]
+        launched = tk.launch_counts()["gumbel_argmax"]
+        assert (launched > 0) == (sampler == "kernel")
+    assert streams["kernel"] == streams["plain"]

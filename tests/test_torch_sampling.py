@@ -4,12 +4,17 @@
 rules), so the set of surviving tokens must be EQUAL, row by row, for rows
 mixing temperature, top-k and top-p, including rows that carry ``-inf``
 entries; the scaled values agree to 1e-6 (one f32 division). Greedy picks
-are equal. Seeded draws use torch generators, so they are checked for
-reproducibility, not against JAX's threefry stream.
+are equal. Draws use the same raw threefry keys on both sides, so the
+sampled tokens are equal too: the uniforms are bit-equal
+(``tests/test_torch_threefry.py``) and only the two float32 logs of the
+Gumbel term may differ by ulps, which moves a token only at a near-tie of
+a row's top two ``logit + gumbel`` (none at these seeds).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from generativeaiexamples_tpu.ops import sampling as js
@@ -55,17 +60,26 @@ def test_mask_dynamic_without_filters_passes_through():
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
+def _keys(n, seed=0):
+    """(n, 2) raw threefry keys, as uint32 for JAX and int64 for the port."""
+    keys = np.asarray(jax.vmap(jax.random.PRNGKey)(
+        jnp.arange(seed, seed + n, dtype=jnp.int32)))
+    return keys, torch.from_numpy(keys.astype(np.int64))
+
+
 def test_greedy_and_logprob_match_jax():
     logits, _, _, _ = _case()
     zeros = np.zeros(6, np.float32)
+    jkeys, tkeys = _keys(6)
     want = np.asarray(js.sample_logits_per_slot(
-        jnp.zeros((6, 2), jnp.uint32), jnp.asarray(logits),
+        jnp.asarray(jkeys), jnp.asarray(logits),
         jnp.asarray(zeros), jnp.zeros(6, jnp.int32), jnp.ones(6)))
-    got = ts.sample_logits_per_slot([None] * 6, torch.from_numpy(logits),
-                                    torch.from_numpy(zeros),
-                                    torch.zeros(6, dtype=torch.int32),
-                                    torch.ones(6))
-    np.testing.assert_array_equal(got.numpy(), want)
+    for any_sampled in (False, True):
+        got = ts.sample_logits_per_slot(
+            tkeys, torch.from_numpy(logits), torch.from_numpy(zeros),
+            torch.zeros(6, dtype=torch.int32), torch.ones(6),
+            any_sampled=any_sampled)
+        np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_allclose(
         ts.token_logprob(torch.from_numpy(logits), got).numpy(),
         np.asarray(js.token_logprob(jnp.asarray(logits), jnp.asarray(want))),
@@ -77,13 +91,51 @@ def test_seeded_draw_is_reproducible_and_respects_masks():
     args = [torch.from_numpy(a) for a in (logits, temperature, top_k, top_p)]
 
     def draw(seed):
-        gens = [None] + [torch.Generator().manual_seed(ts.fold_seed(seed, i))
-                         for i in range(1, 6)]
-        return ts.sample_logits_per_slot(gens, *args).numpy()
+        return ts.sample_logits_per_slot(_keys(6, seed)[1], *args).numpy()
 
     a, b = draw(11), draw(11)
     np.testing.assert_array_equal(a, b)
     allowed = np.isfinite(ts._mask_dynamic(*args).numpy())
     assert all(allowed[r, a[r]] for r in range(1, 6))
     assert a[0] == logits[0].argmax()
-    assert ts.fold_seed(3, 1) != ts.fold_seed(3, 2) != ts.fold_seed(4, 1)
+    draws = np.stack([draw(s) for s in range(40)])
+    assert len(set(draws[:, 2].tolist())) > 1     # other keys, other tokens
+
+
+# (temperature, top_k, top_p) rows: greedy, pure temperature, top-k,
+# top-p, both, top-p 0 (greedy by mask), a hot row
+MIXES = {
+    "mixed_rows": ([0.0, 0.7, 1.0, 0.7, 1.3, 0.9, 2.0],
+                   [0, 0, 50, 0, 20, 0, 0],
+                   [1.0, 1.0, 1.0, 0.9, 0.8, 0.0, 1.0]),
+    "temperature_only": ([0.7] * 7, [0] * 7, [1.0] * 7),
+    "top_k_only": ([1.0] * 7, [1, 2, 5, 50, 100, 299, 300], [1.0] * 7),
+    "top_p_only": ([0.7] * 7, [0] * 7, [0.1, 0.3, 0.5, 0.7, 0.9, 0.95, 0.99]),
+}
+
+
+@pytest.mark.parametrize("mix", sorted(MIXES))
+def test_sample_logits_per_slot_matches_jax_with_the_same_keys(mix):
+    """Every row's token equals the reference's over 40 key sets (280
+    draws a mix): the masks are equal and the draws threefry's. The flags
+    the engine passes (any row sampled, top-k, top-p) are taken from the
+    rows, and True for every flag gives the same tokens."""
+    temperature, top_k, top_p = (np.array(x, dt) for x, dt in zip(
+        MIXES[mix], (np.float32, np.int32, np.float32)))
+    rng = np.random.default_rng(3)
+    for trial in range(40):
+        logits = (rng.standard_normal((7, 300)) * 2.5).astype(np.float32)
+        logits[trial % 7, :30] = -np.inf
+        jkeys, tkeys = _keys(7, 1000 * trial)
+        want = np.asarray(js.sample_logits_per_slot(
+            jnp.asarray(jkeys), jnp.asarray(logits), jnp.asarray(temperature),
+            jnp.asarray(top_k), jnp.asarray(top_p)))
+        sampled = temperature > 0
+        flags = dict(any_sampled=bool(sampled.any()),
+                     any_top_k=bool((sampled & (top_k > 0)).any()),
+                     any_top_p=bool((sampled & (top_p < 1)).any()))
+        for kw in (flags, {}):
+            got = ts.sample_logits_per_slot(
+                tkeys, torch.from_numpy(logits), torch.from_numpy(temperature),
+                torch.from_numpy(top_k), torch.from_numpy(top_p), **kw)
+            np.testing.assert_array_equal(got.numpy(), want)

@@ -95,7 +95,9 @@ def _jax_streams(tiny, **engine_kw):
 
 
 def _torch_streams(tiny, **engine_kw):
-    engine_kw = {"prefix_cache": "off", **engine_kw}
+    # no prefill hold, as the JAX side runs
+    engine_kw = {"prefix_cache": "off", "prefill_hold_chunks": 0,
+                 **engine_kw}
     sched = Scheduler(_core(tiny, **engine_kw), ByteTokenizer())
     reqs = _drive(sched, Request, temperature=0.0)
     return [r.output_ids for r in reqs], sched.stats
@@ -162,8 +164,10 @@ def test_spec_and_mixed_equal_narrow_two_dispatch(tiny):
 
 def _sampled(tiny, **kw):
     """A greedy request decodes; two seeded sampled ones arrive while it
-    does (so, with the mixed dispatch on, their chunks ride it)."""
-    sched = Scheduler(_core(tiny, **kw), ByteTokenizer())
+    does (so, with the mixed dispatch on and no prefill hold, their chunks
+    ride it)."""
+    sched = Scheduler(_core(tiny, **{"prefill_hold_chunks": 0, **kw}),
+                      ByteTokenizer())
     tok = ByteTokenizer()
     reqs = [Request(prompt_ids=tok.encode(QUOTE[:60], add_bos=True),
                     max_tokens=40, temperature=0.0),
@@ -302,7 +306,7 @@ def test_spec_knobs_load_from_the_environment(monkeypatch):
     eng = load_config().engine
     assert (eng.spec_decode, eng.spec_draft, eng.mixed_phase_dispatch) == (
         "off", 3, "on")
-    monkeypatch.setenv("APP_ENGINE_DECODE_WIDTH_LADDER", "on")
+    monkeypatch.setenv("APP_ENGINE_DECODE_MULTISTEP", "2")
     with pytest.raises(NotImplementedError, match="A5"):
         load_config()
     with pytest.raises(ValueError, match="spec_decode"):
