@@ -16,12 +16,17 @@ prints no result:
   4. kernel:ragged_paged_attention       the main paths' shapes, with
   5. kernel:ragged_paged_attention_int8  times, bounds and a library
   6. kernel:ragged_decode                yardstick;
-  7. kernel:gumbel_argmax  the sampler (threefry draws, Gumbel, argmax) at
-              R = 72, 8 and 40 rows of llama3-8b's vocabulary, rows mixing
-              greedy, temperature 0.7, top-k 50 and top-p 0.9 masked by
-              the port's ``_mask_dynamic``: tokens equal to the plain
-              version's (rows at a near-tie counted), threefry bits exact,
-              times beside the bound, torch's own Gumbel-max as yardstick;
+  7. kernel:sample_slots  the sampler, one launch a sampling call (keys,
+              live settings, top-k/top-p bisection, draw, logprob) at
+              R = 72, 8 and 40 rows (8 slots x W) of llama3-8b's
+              vocabulary, float32 and bfloat16 logits, slots mixing
+              greedy, temperature 0.7, top-k 50, top-p 0.9, the chain
+              server's 0.2 / 0.7, both filters, top-p 0 and top-k past the
+              vocabulary, some inactive, with degenerate rows: thr_k
+              bit-equal to the plain version's, thr_p and tokens equal off
+              the counted near-ties, logprobs within 1e-5, threefry bits
+              exact; times beside the bound of the work these inputs need,
+              the plain version and a sort-based torch yardstick;
   8. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
               the plain path give the same tokens through the engine over
               a model-dtype pool and an int8 pool, on the narrow path (one
@@ -33,7 +38,7 @@ prints no result:
               the kernel path, both pools; then (``parity_pipeline``) the
               defaults (two dispatches in flight, the prefill hold, the
               width ladder, the sampling kernel) against the plain
-              sampler, against ``pipeline_depth`` 1, against the ladder
+              sampler (which must launch no ``sample_slots``), against ``pipeline_depth`` 1, against the ladder
               off and against a device that lags (two dispatches then
               stay in flight), greedy and seeded sampled streams token
               for token;
@@ -56,7 +61,16 @@ prints no result:
               first token is out (cache hits arriving in a ramp), 4 after
               all finish (hits in a grouped prefill); every request's hit
               tokens equal ``_cap_shared``'s;
- 12. serve_prefix_int8  the same over an int8 KV pool;
+ 12. serve_prefix_int8  the same over an int8 KV pool; both report the
+              first tokens streamed between a dispatch's steps
+              (``first_mid_dispatch``) and the cold TTFT;
+ 12b. serve_chain  ``serve``'s traffic (6 chat requests, 64 tokens) at the
+              chain server's temperature 0.2 / top-p 0.7, seeds 0 to 5:
+              every request answers 200 and ``sample_slots`` launches once
+              per sampling call of the engine; then ``profile_sampled``:
+              a decode dispatch at those settings beside the same one
+              greedy, narrow and at W = 5 (device operations, host wall
+              and busy share a step);
  13. serve_two_dispatch  the narrow path, bf16: 6 concurrent requests, then a
               narrow decode profile and a grouped-prefill profile, the
               Scheduler's decode at ``pipeline_depth`` 1 against 2
@@ -68,7 +82,8 @@ prints no result:
 
 Each serve phase reports the dispatch loop: dispatches per width rung,
 held ticks, dispatches issued with another in flight and the most left in
-flight, the warmup's seconds and the sampler's launches.
+flight, the warmup's seconds, the sampler's launches (equal to the
+engine's sampling calls) and ``first_mid_dispatch``.
 
 The flash phase runs 4 ragged chunks, the serve path's group of 8 chunks
 (``prefill_group8``) and 8 cache-hit suffixes (``prefix_suffix``: 40 to
@@ -88,11 +103,13 @@ around eager calls. ``--planted-faults`` shows that this check fails a
 dropped KV tile and a causal mask off by one in ``flash_prefill``, a
 dropped tile, a dropped split in the combine, a causal limit off by one
 and a wrong int8 scale slot in the decode-side walk, and a wrong
-threefry rotation constant and a counter off by one in the sampler, each
+threefry rotation constant, a counter off by one, a strict top-p
+predicate and z summed over every entry in the sampler, each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
-``--ab`` times every kernel of two trees of the port in turns, with the
-grouped-prefill profile. Each main
+``--ab`` times every attention kernel and the sampling call of two trees
+of the port in turns, with the grouped-prefill profile and
+``profile_sampled``. Each main
 path (9 to 14) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -631,87 +648,281 @@ def phase_decode(dev):
 # and 72 (the top W = 9 rung) rows over llama3-8b's vocabulary
 SAMPLE_ROWS = (72, 8, 40)
 SAMPLE_VOCAB = 128_256
-# 32-bit operations a vocabulary entry costs the sampler: threefry2x32's
+SAMPLE_SLOTS = 8
+# 32-bit operations a vocabulary entry costs the draw: threefry2x32's
 # 2 initial key adds, 20 rounds of add, rotate (one funnel shift) and xor,
 # 5 key injections of 3 adds; the xor of its words, the uniform's shift,
 # or, subtract, scale, add and max; two logs and two negations; the add of
 # the logit and the compare of the argmax
 SAMPLE_OPS_PER_ENTRY = 2 + 20 * 3 + 5 * 3 + 1 + 6 + 4 + 2
+# the passes over every entry of a row: the load pass (scale, max, min,
+# argmax compare, and the logsumexp's exp and add), a top-k round
+# (compare, add), the top-p mass's set-up (subtract, exp, select, add) and
+# a top-p round (compare, select, add)
+LOAD_OPS_PER_ENTRY = 6
+K_ROUND_OPS_PER_ENTRY = 2
+Z_OPS_PER_ENTRY = 4
+P_ROUND_OPS_PER_ENTRY = 3
+N_BISECT = 26
 # the card's rate for 32-bit operations outside the tensor cores: the
 # H100 SXM's float32 peak (67 TFLOP/s, an FMA counted as two), taken as a
 # lower bound on time for 32-bit integer work too
 PEAK_32BIT_OPS = 67e12
 NEAR_TIE = 1e-5     # a row whose plain top two logit + gumbel lie closer
+# a top-p cutoff may differ only where the plain mass at the higher of the
+# two cutoffs lies within this share of z of the target: two float32 sums
+# of up to 128,256 terms in other orders differ by less
+CUTOFF_TIE = 1e-5
+# each slot's (temperature, top_k, top_p): greedy, temperature 0.7,
+# top-k 50, top-p 0.9, the chain server's 0.2 / 0.7, both filters at
+# temperature 1, top-p 0 (greedy by the cut), top-k past the vocabulary
+SAMPLE_SETTINGS = ((0.0, 0, 1.0), (0.7, 0, 1.0), (0.7, 50, 1.0),
+                   (0.7, 0, 0.9), (0.2, 0, 0.7), (1.0, 50, 0.9),
+                   (0.7, 0, 0.0), (0.7, SAMPLE_VOCAB + 5, 1.0))
 
 
-def _sample_case(dev, R, seed):
-    """gumbel_argmax over R rows of llama3-8b logits (scaled N(0, 3)),
-    the rows mixing greedy, temperature 0.7, top-k 50 and top-p 0.9,
-    masked by the port's _mask_dynamic, each with its own folded key:
-    tokens against the plain version (equal; a near-tie row may differ
-    and is counted), the bits of 4,099 counters a key against the plain
-    generator (exact), and the times."""
+def sampler_inputs(dev, B, W, V, dtype, seed):
+    """One sampling call's arguments: (B * W, V) logits (N(0, 3) from a
+    seed, in ``dtype``), slot b's settings ``SAMPLE_SETTINGS[(b + seed) %
+    8]``, every fifth slot inactive, counters from the seed (past 2**31 for
+    some slots), and degenerate rows: one of -inf entries, one spanning
+    more than 100 nats, a sampled row of -inf only, and a greedy row whose
+    maximum is a -0.0 / +0.0 pair (the first three sampled rows and the
+    last greedy one)."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import threefry
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R = B * W
+    lf = torch.randn((R, V), generator=g, device=dev) * 3
+    sets = [SAMPLE_SETTINGS[(b + seed) % 8] for b in range(B)]
+    temp = torch.tensor([x[0] for x in sets], device=dev)
+    top_k = torch.tensor([x[1] for x in sets], dtype=torch.int32, device=dev)
+    top_p = torch.tensor([x[2] for x in sets], device=dev)
+    active = (torch.arange(B, device=dev) + seed) % 5 != 0
+    counter0 = torch.randint(0, 2 ** 32, (B,), generator=g, device=dev)
+    counter0 = torch.where(torch.arange(B, device=dev) % 2 == 0,
+                           counter0 % 4096, counter0).to(torch.int64)
+    keys = threefry.prng_key(torch.arange(B) + seed).to(dev)
+    sampled = [r for r in range(R) if sets[r // W][0] > 0
+               and bool(active[r // W])]
+    greedy = [r for r in range(R) if r not in sampled]
+    for i, r in enumerate(sampled[:3]):
+        if i == 0:
+            lf[r, : V // 3] = -torch.inf
+        elif i == 1:
+            lf[r, : V // 4] -= 130.0
+        else:
+            lf[r] = -torch.inf
+    if greedy:
+        r = greedy[-1]
+        lf[r] = -lf[r].abs() - 1.0
+        lf[r, 5], lf[r, 9] = -0.0, 0.0
+    return (keys, counter0, W, lf.to(dtype), temp, top_k, top_p, active)
+
+
+def _sampler_plain(args):
+    """The plain version's view of one call: tokens, logprobs, cutoffs,
+    each row's scaled row, live settings, folded key and masked row."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    keys, counter0, W, logits, temp, top_k, top_p, active = args
+    R = logits.shape[0]
+    tok, lp = sampling.sample_slots_plain(*args)
+    cuts = sampling.sample_cutoffs_plain(W, logits, temp, top_k, top_p,
+                                         active)
+    t, k, p = sampling._live_rows(W, temp, top_k, top_p, active)
+    safe_t = torch.where(t > 0, t, torch.ones_like(t))[:, None]
+    scaled = logits.float() / safe_t
+    pos = torch.arange(W, dtype=torch.int64, device=keys.device)
+    row_keys = threefry.fold_in(keys[:, None, :], counter0.to(torch.int64)
+                                [:, None] + pos[None]).reshape(R, 2)
+    masked = sampling._mask_dynamic(logits.float(), t, k, p)
+    return dict(tok=tok, lp=lp, cuts=cuts, t=t, k=k, p=p, scaled=scaled,
+                row_keys=row_keys, masked=masked)
+
+
+def check_sampler(args):
+    """``sample_slots`` on the card against its plain version on the same
+    inputs. Every sampled row's thr_k bit-equal; thr_p equal except at a
+    cutoff near-tie (some entry lies between the two cutoffs and the plain
+    mass at the higher one is positive and within ``CUTOFF_TIE`` x z of
+    the target);
+    tokens equal except at those rows and at draw near-ties (the plain top
+    two masked logit + gumbel within ``NEAR_TIE``); logprobs within 1e-5
+    of the plain formula at the kernel's token; the threefry bits of each
+    row's key exact. Returns the reading; raises KernelMismatch."""
     import torch
     from generativeaiexamples_tpu_torch.ops import sampling, threefry
     from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
-    V = SAMPLE_VOCAB
-    g = torch.Generator(device=dev).manual_seed(seed)
-    logits = torch.randn((R, V), generator=g, device=dev) * 3
-    mix = torch.arange(R, device=dev) % 4
-    temp = torch.where(mix == 0, 0.0, 0.7)
-    top_k = torch.where(mix == 2, 50, 0).to(torch.int32)
-    top_p = torch.where(mix == 3, 0.9, 1.0)
-    masked = sampling._mask_dynamic(logits, temp, top_k, top_p)
-    keys = threefry.fold_in(threefry.prng_key(torch.arange(R) + seed),
-                            torch.arange(R) * 7 + 1).to(dev)
-    got = ks.gumbel_argmax(keys, masked)
-    want = threefry.categorical(keys, masked)
-    scores = threefry.gumbel(keys, V) + masked
-    top2 = scores.topk(2, dim=-1).values
-    near = (top2[:, 0] - top2[:, 1]) < NEAR_TIE
-    differ = got != want
-    err = (scores.gather(1, want.long()[:, None])
-           - scores.gather(1, got.long()[:, None])).abs()
-    bits = ks.threefry_bits(keys, 4099)
-    bits_ok = bool(torch.equal(bits, threefry.random_bits(keys, 4099)))
-    reading = {"token_mismatches": int(differ.sum()),
-               "mismatches_off_near_ties": int((differ & ~near).sum()),
-               "near_tie_rows": int(near.sum()),
-               "bits_exact": bits_ok, "max_abs_err": float(err.max())}
-    if reading["mismatches_off_near_ties"] or not bits_ok:
-        raise KernelMismatch("gumbel_argmax", reading)
-    res = dict(reading, tolerance="tokens equal to the plain version's "
-               f"except at rows whose plain top-two logit + gumbel lie "
-               f"within {NEAR_TIE}; bits exact")
-    if CHECK_ONLY:
-        return res
-    nbytes = R * V * 4 + R * 16 + R * 4
-    ops = R * V * SAMPLE_OPS_PER_ENTRY
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_32BIT_OPS * 1e3
-    b_ms = max(t_bytes, t_ops)
-    ms = graph_ms(lambda: ks.gumbel_argmax(keys, masked))
-    u = torch.empty_like(masked)
+    logits = args[3]
+    tok, lp = ks.sample_slots(*args)
+    tok_c, lp_c, cuts = ks.sample_cutoffs(*args)
+    pl = _sampler_plain(args)
+    sampled = pl["t"] > 0
+    bits = lambda x: x.contiguous().view(torch.int32)
+    same = bits(cuts) == bits(pl["cuts"])
+    scaled = pl["scaled"]
+    m = scaled.amax(dim=1)
+    # cutoff near-ties, row by row, in float64 on the plain side
+    kmask = scaled >= pl["cuts"][:, 0:1]
+    e = torch.exp((scaled - m[:, None]).double())
+    e = torch.where(kmask, e, torch.zeros_like(e))
+    z = e.sum(dim=1)
+    target = pl["p"].clamp(0.0, 1.0).double() * z
+    lo = torch.minimum(cuts[:, 1], pl["cuts"][:, 1])[:, None]
+    hi = torch.maximum(cuts[:, 1], pl["cuts"][:, 1])[:, None]
+    between = (kmask & (scaled >= lo) & (scaled < hi)).any(dim=1)
+    mass_hi = torch.where(scaled >= hi, e, torch.zeros_like(e)).sum(dim=1)
+    # an empty set above both cutoffs sums to 0 on both sides exactly, so
+    # it is no tie
+    cut_tie = (sampled & ~same[:, 1] & between & (mass_hi > 0)
+               & ((mass_hi - target).abs() <= CUTOFF_TIE * z))
+    thr_k_bad = sampled & ~same[:, 0]
+    thr_p_bad = sampled & ~same[:, 1] & ~cut_tie
+    g = threefry.gumbel(pl["row_keys"], logits.shape[1]) + pl["masked"]
+    top2 = g.topk(2, dim=-1).values
+    draw_tie = sampled & ((top2[:, 0] - top2[:, 1]) < NEAR_TIE)
+    differ = tok != pl["tok"]
+    lp_want = sampling.token_logprob(logits, tok)
+    lp_err = torch.where(torch.isnan(lp_want) & torch.isnan(lp),
+                         torch.zeros_like(lp), (lp - lp_want).abs())
+    n = min(4099, logits.shape[1])
+    bits_ok = bool(torch.equal(ks.threefry_bits(pl["row_keys"], n),
+                               threefry.random_bits(pl["row_keys"], n)))
+    reading = {
+        "rows": logits.shape[0], "sampled_rows": int(sampled.sum()),
+        "thr_k_mismatches": int(thr_k_bad.sum()),
+        "thr_p_mismatches_off_near_ties": int(thr_p_bad.sum()),
+        "cutoff_near_tie_rows": int(cut_tie.sum()),
+        "draw_near_tie_rows": int(draw_tie.sum()),
+        "token_mismatches": int(differ.sum()),
+        "mismatches_off_near_ties": int((differ & ~cut_tie
+                                         & ~draw_tie).sum()),
+        "entries_equal": bool(torch.equal(tok, tok_c)
+                              and torch.equal(bits(lp), bits(lp_c))),
+        "max_abs_err": float(lp_err.max()), "bits_exact": bits_ok}
+    if (reading["thr_k_mismatches"] or reading["thr_p_mismatches_off_near_"
+                                               "ties"]
+            or reading["mismatches_off_near_ties"] or not bits_ok
+            or not reading["entries_equal"]
+            or not reading["max_abs_err"] <= 1e-5):
+        raise KernelMismatch("sample_slots", reading)
+    return reading, pl
 
-    def torch_gumbel_max():
+
+def sampler_work(args, pl):
+    """(bytes, operations) the call needs on these inputs: the logits read
+    once, the slots' keys, counters and settings, the tokens and logprobs
+    written; the load pass over every entry, 26 count rounds over a top-k
+    row, the mass set-up and 26 mass rounds over a top-p row, and the draw
+    for each entry that can win: at or above the row's cut (every entry
+    of a filterless row) and within 21 nats (plus a relative margin) of
+    the row maximum, since a Gumbel term lies in [-4.47, 15.95]."""
+    import torch
+    keys, counter0, W, logits, temp, top_k, top_p, active = args
+    R, V = logits.shape
+    B = R // W
+    nbytes = (R * V * logits.element_size() + B * (16 + counter0
+              .element_size() + 4 + 4 + 4 + 1) + R * 8)
+    sampled = pl["t"] > 0
+    need_k = sampled & (pl["k"] > 0)
+    need_p = sampled & (pl["p"] < 1.0)
+    scaled = pl["scaled"]
+    m = scaled.amax(dim=1)
+    keep = torch.where(need_k | need_p, pl["cuts"][:, 2],
+                       torch.full_like(m, -torch.inf))
+    floor = torch.maximum(keep, m - (21.0 + m.abs() * 2.0 ** -20))
+    drawn = torch.where(sampled & (m > -torch.inf),
+                        (scaled >= floor[:, None]).sum(dim=1),
+                        torch.zeros_like(m, dtype=torch.int64))
+    ops = (R * V * LOAD_OPS_PER_ENTRY
+           + int(need_k.sum()) * V * N_BISECT * K_ROUND_OPS_PER_ENTRY
+           + int(need_p.sum()) * V * (Z_OPS_PER_ENTRY
+                                     + N_BISECT * P_ROUND_OPS_PER_ENTRY)
+           + int(drawn.sum()) * SAMPLE_OPS_PER_ENTRY)
+    return nbytes, ops, int(drawn.sum())
+
+
+def sort_sampler(args):
+    """The yardstick: a sort-based sampler in torch's own calls (sort,
+    softmax, cumsum, Gumbel-max with torch's generator), other numbers
+    than threefry's; a function of cost, not the same function."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import sampling
+    keys, counter0, W, logits, temp, top_k, top_p, active = args
+    t, k, p = sampling._live_rows(W, temp, top_k, top_p, active)
+    V = logits.shape[1]
+    safe_t = torch.where(t > 0, t, torch.ones_like(t))[:, None]
+    k_eff = torch.where(k > 0, k, torch.full_like(k, V))[:, None]
+    ranks = torch.arange(V, device=logits.device)[None]
+    u = torch.empty(logits.shape, device=logits.device)
+
+    def run():
+        lf = logits.float()
+        srt, idx = torch.sort(lf / safe_t, dim=-1, descending=True)
+        probs = torch.softmax(srt, dim=-1)
+        keep = ((probs.cumsum(-1) - probs) < p[:, None]) & (ranks < k_eff)
+        keep[:, 0] = True
         u.uniform_()
-        return torch.argmax(masked - torch.log(-torch.log(u)), dim=-1)
+        pick = torch.where(keep, srt, srt.new_full((), -torch.inf)) \
+            - torch.log(-torch.log(u))
+        tok = idx.gather(1, pick.argmax(dim=-1, keepdim=True))[:, 0]
+        tok = torch.where(t > 0, tok, lf.argmax(dim=-1))
+        return sampling.token_logprob(lf, tok)
+    return run
 
-    splits, seg = ks.split_plan(
-        R, V, torch.cuda.get_device_properties(dev).multi_processor_count)
-    res.update(
-        ms=ms, plain_ms=time_ms(lambda: threefry.categorical(keys, masked)),
-        library_ms=graph_ms(torch_gumbel_max),
-        library_call="torch Gumbel-max, argmax(logits - log(-log(U))) with "
-                     "U from torch's own generator (other numbers than "
-                     "threefry's; a yardstick of cost, not of the function)",
-        bound_ms=b_ms, bound_by="operations" if t_ops >= t_bytes
-        else "bytes", bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
-        share_of_bound=b_ms / ms, bytes=nbytes, ops=ops,
-        ops_per_entry=SAMPLE_OPS_PER_ENTRY, splits=splits,
-        entries_per_split=seg, blocks=R * splits,
-        shape=dict(R=R, V=V, rows="greedy, t 0.7, top-k 50, top-p 0.9 "
-                                  "in turn"))
-    return res
+
+def _sample_case(dev, R, seed):
+    """sample_slots over R = 8 x W rows of llama3-8b logits, float32 and
+    bfloat16: checked against the plain version (``check_sampler``), then
+    timed (CUDA-graph replays) beside the plain version (the eager path of
+    the parent's engine: fold_in, _mask_dynamic, the draw, token_logprob),
+    the sort-based yardstick, and the bound of the work these inputs need.
+    The bfloat16 call, the serving dtype, gives the entry's numbers."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import sampling
+    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
+    V, B = SAMPLE_VOCAB, SAMPLE_SLOTS
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = sampler_inputs(dev, B, R // B, V, dtype, seed)
+        reading, pl = check_sampler(args)
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        res[name] = reading
+        if CHECK_ONLY:
+            continue
+        nbytes, ops, drawn = sampler_work(args, pl)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_32BIT_OPS * 1e3
+        b_ms = max(t_bytes, t_ops)
+        ms = graph_ms(lambda: ks.sample_slots(*args))
+        res[name].update(
+            ms=ms, plain_ms=graph_ms(lambda: sampling.sample_slots_plain(
+                *args), per_graph=4),
+            library_ms=graph_ms(sort_sampler(args), per_graph=4),
+            bound_ms=b_ms, bound_by="operations" if t_ops >= t_bytes
+            else "bytes", bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+            share_of_bound=b_ms / ms, bytes=nbytes, ops=ops,
+            drawn_entries=drawn, cluster=ks.CLUSTER,
+            shared_bytes_a_block=8 * ks.slice_entries(V))
+    entry = dict(res["bfloat16"], float32=res["float32"],
+                 tolerance="thr_k bit-equal; thr_p and tokens equal except "
+                 f"at cutoff near-ties (an entry between the cutoffs and "
+                 f"the mass at the higher within {CUTOFF_TIE} x z of the "
+                 f"target) and draw near-ties (top two within {NEAR_TIE}); "
+                 "logprobs within 1e-5; bits exact")
+    if not CHECK_ONLY:
+        entry.update(
+            library_call="torch sort, softmax, cumsum and Gumbel-max with "
+                         "torch's generator (other numbers than threefry's; "
+                         "a yardstick of cost, not of the function)",
+            plain_call="sample_slots_plain: fold_in, _mask_dynamic, "
+                       "categorical, token_logprob (the parent's eager "
+                       "path, its draw in torch), graph-replayed",
+            shape=dict(R=R, B=B, W=R // B, V=V,
+                       slots="greedy, t 0.7, top-k 50, top-p 0.9, chain "
+                             "0.2/0.7, both, top-p 0, top-k > V; every "
+                             "fifth slot inactive"))
+    return entry
 
 
 def sample_cases(dev):
@@ -720,9 +931,51 @@ def sample_cases(dev):
             for R in SAMPLE_ROWS}
 
 
+def sampling_call(args):
+    """A thunk of the tree's sampling call on one step's inputs:
+    ``sample_slots`` where the tree has it, else the parent engine's path
+    (its keys folded by ``fold_in``, the live selects, ``repeat_interleave``,
+    ``sample_logits_per_slot`` with the flags the host knew, then
+    ``token_logprob``): the A/B of the sampler."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    if hasattr(sampling, "sample_slots"):
+        return lambda: sampling.sample_slots(*args)
+    keys, counter0, W, logits, temp, top_k, top_p, active = args
+    live = (active & (temp > 0)).cpu()
+    flags = dict(any_sampled=bool(live.any()),
+                 any_top_k=bool((live & (top_k > 0).cpu()).any()),
+                 any_top_p=bool((live & (top_p < 1.0).cpu()).any()))
+    pos = torch.arange(W, dtype=torch.int64, device=keys.device)
+    rep = lambda x: x.repeat_interleave(W) if W > 1 else x
+
+    def run():
+        zero = torch.zeros((), device=keys.device)
+        row_keys = threefry.fold_in(keys[:, None, :], counter0.to(
+            torch.int64)[:, None] + pos[None]).reshape(-1, 2)
+        tok = sampling.sample_logits_per_slot(
+            row_keys, logits, rep(torch.where(active, temp, zero)),
+            rep(torch.where(active, top_k, torch.zeros_like(top_k))),
+            rep(torch.where(active, top_p, zero + 1.0)), **flags)
+        return tok, sampling.token_logprob(logits, tok)
+    return run
+
+
+def ab_sampling_calls(dev):
+    """The tree's sampling call at the kernel phase's cases (bf16), ms by
+    CUDA-graph replay."""
+    import torch
+    out = {}
+    for R in SAMPLE_ROWS:
+        args = sampler_inputs(dev, SAMPLE_SLOTS, R // SAMPLE_SLOTS,
+                              SAMPLE_VOCAB, torch.bfloat16, 60 + R)
+        out[f"rows{R}"] = {"ms": graph_ms(sampling_call(args), per_graph=4)}
+    return out
+
+
 def phase_sample(dev):
-    res = _run_cases("gumbel_argmax", sample_cases(dev))
-    emit("kernel:gumbel_argmax", kernel_ms=res["ms"], **res)
+    res = _run_cases("sample_slots", sample_cases(dev))
+    emit("kernel:sample_slots", kernel_ms=res.get("ms"), **res)
     return res
 
 
@@ -1063,8 +1316,9 @@ def _drive_waves(sched, waves, timeout=600):
 def _pipeline_waves(tok):
     """A greedy request and two seeded sampled ones of 4 chunks (9 chunks
     in all: the ramp outlasts one grouped prefill, so decode is held),
-    then, once all three have their first token, a greedy and a top-p
-    sampled one arriving while 3 of 8 slots decode (another ramp)."""
+    then, once all three have their first token, a greedy, a top-p
+    sampled one and one at the chain server's temperature 0.2 / top-p 0.7
+    arriving while 3 of 8 slots decode (another ramp)."""
     from generativeaiexamples_tpu_torch.engine.scheduler import Request
     enc = lambda n: tok.encode(PROMPT_TEXT * n, add_bos=True)
     return [[Request(prompt_ids=enc(2), max_tokens=96, temperature=0.0),
@@ -1074,7 +1328,9 @@ def _pipeline_waves(tok):
                      temperature=0.7, top_k=50, seed=2)],
             [Request(prompt_ids=enc(5), max_tokens=24, temperature=0.0),
              Request(prompt_ids=enc(3), max_tokens=24, temperature=0.7,
-                     top_p=0.9, seed=3)]]
+                     top_p=0.9, seed=3),
+             Request(prompt_ids=enc(4)[::-1], max_tokens=24,
+                     temperature=0.2, top_p=0.7, seed=4)]]
 
 
 LAG_MS = 150.0   # device time a lagging dispatch spins first
@@ -1112,8 +1368,8 @@ def _lagging(core, cycles):
 def _pipeline_parity(dev, params, cfg, tok):
     """The reference's default dispatch loop on the kernel path (2 layers,
     f32), both pools: the defaults (two dispatches in flight, the hold,
-    the width ladder, the Gumbel-argmax kernel) against the plain sampler
-    (same config), against pipeline_depth 1, against the ladder off, and
+    the width ladder, the sampling kernel) against the plain sampler
+    (``sample_slots_plain`` in place of ``sample_slots``, same config), against pipeline_depth 1, against the ladder off, and
     against the defaults on a device that lags (each dispatch spins
     ``LAG_MS`` first, so results land after the next dispatch is issued:
     two dispatches in flight through the pinned copies and CUDA events,
@@ -1122,7 +1378,7 @@ def _pipeline_parity(dev, params, cfg, tok):
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
-    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    from generativeaiexamples_tpu_torch.ops import sampling
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
 
     variants = {"defaults": {}, "plain_sampler": {},
@@ -1131,7 +1387,7 @@ def _pipeline_parity(dev, params, cfg, tok):
                 "lagging_device": {}}
     lag = _lag_cycles(LAG_MS)
     reports, readings = {}, {}
-    kernel_draw = sampling.gumbel_argmax
+    kernel_sample = sampling.sample_slots
     for kv_quant in ("none", "int8"):
         streams = {}
         for name, knobs in variants.items():
@@ -1145,11 +1401,11 @@ def _pipeline_parity(dev, params, cfg, tok):
                 _lagging(sched.core, lag)
             k.reset_launch_counts()
             if name == "plain_sampler":
-                sampling.gumbel_argmax = threefry.categorical
+                sampling.sample_slots = sampling.sample_slots_plain
             try:
                 reqs = _drive_waves(sched, _pipeline_waves(tok))
             finally:
-                sampling.gumbel_argmax = kernel_draw
+                sampling.sample_slots = kernel_sample
             streams[name] = [r.output_ids for r in reqs]
             st, launches = dict(sched.stats), k.launch_counts()
             readings[f"{kv_quant}, {name}"] = {
@@ -1158,11 +1414,12 @@ def _pipeline_parity(dev, params, cfg, tok):
                     "decode_dispatches", "mixed_dispatches",
                     "prefill_dispatches", *(f"decode_width_{w}" for w in
                                             sched.core.decode_widths))}
-            readings[f"{kv_quant}, {name}"]["gumbel_argmax_launches"] = \
-                launches["gumbel_argmax"]
-            if (launches["gumbel_argmax"] > 0) != (name != "plain_sampler"):
-                raise AssertionError(f"{name}: gumbel_argmax launches "
-                                     f"{launches['gumbel_argmax']}")
+            readings[f"{kv_quant}, {name}"].update(
+                sample_slots_launches=launches["sample_slots"],
+                sample_calls=sched.core.sample_calls)
+            if (launches["sample_slots"] > 0) != (name != "plain_sampler"):
+                raise AssertionError(f"{name}: sample_slots launches "
+                                     f"{launches['sample_slots']}")
             if name == "defaults" and not (st["held_ticks"]
                                            and st["decode_width_4"]):
                 raise AssertionError(f"the defaults never held or ran the "
@@ -1184,9 +1441,9 @@ def _pipeline_parity(dev, params, cfg, tok):
 
 
 def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
-             temperature=None):
-    """One request; by default the i-th of the narrow phase's six:
-    chat/completion, streamed or not, temperature 0 / 0.7."""
+             temperature=None, top_p=None):
+    """One request (seed ``i``); by default the i-th of the narrow phase's
+    six: chat/completion, streamed or not, temperature 0 / 0.7."""
     chat = i % 2 == 0 if chat is None else chat
     stream = i < 3 if stream is None else stream
     if text is None:
@@ -1195,6 +1452,8 @@ def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
         temperature = 0.0 if i % 3 else 0.7
     body = {"max_tokens": max_tokens, "temperature": temperature,
             "seed": i, "stream": stream}
+    if top_p is not None:
+        body["top_p"] = top_p
     if chat:
         body["messages"] = [{"role": "user", "content": text}]
         url = base + "/v1/chat/completions"
@@ -1291,12 +1550,19 @@ def _gate_admission(sched):
     return gate
 
 
-def _staggered_traffic(base, sched, submitted):
+def _staggered_traffic(base, sched, submitted, chain=False):
+    """``serve``'s traffic: the decoders (256 tokens, greedy and 0.7 in
+    turn) admitted together, then the late prompts (32 tokens) once the
+    first decode dispatch ran. ``chain``: every request at the chain
+    server's temperature 0.2 / top-p 0.7 and 64 tokens (``serve_chain``)."""
     gate = _gate_admission(sched)
     gate.clear()
+    chain_kw = dict(temperature=0.2, top_p=0.7)
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
-        futs = [pool.submit(_request, base, i, PROMPT_TEXT * n, 256,
-                            i % 2 == 0, i < 2, 0.0 if i % 2 else 0.7)
+        futs = [pool.submit(_request, base, i, PROMPT_TEXT * n,
+                            64 if chain else 256, i % 2 == 0, i < 2,
+                            **(chain_kw if chain else dict(
+                                temperature=0.0 if i % 2 else 0.7)))
                 for i, n in enumerate(DECODERS)]
         _wait_for(lambda: len(submitted) >= len(DECODERS),
                   "the decoders did not arrive")
@@ -1309,14 +1575,18 @@ def _staggered_traffic(base, sched, submitted):
             time.sleep(0.002)
         at = dict(sched.stats)
         futs += [pool.submit(_request, base, 4 + i, PROMPT_TEXT * LATE_PROMPT,
-                             32, i == 0, i == 0, 0.0) for i in range(2)]
+                             64 if chain else 32, i == 0, i == 0,
+                             **(chain_kw if chain else dict(temperature=0.0)))
+                 for i in range(2)]
         return [f.result() for f in futs], at
 
 
 def _loop_fields(stats, core, warmup_s, launches):
     """What the dispatch loop did in a phase: dispatches per batch-width
     rung, the held ticks, dispatches issued with another in flight and the
-    most left in flight, the warmup's seconds and the sampler's launches."""
+    most left in flight, the warmup's seconds, the sampler's launches and
+    the engine's sampling calls, and the first tokens streamed between a
+    dispatch's steps."""
     return dict(
         pipeline_depth=core.cfg.pipeline_depth,
         prefill_hold_chunks=core.cfg.prefill_hold_chunks,
@@ -1326,13 +1596,16 @@ def _loop_fields(stats, core, warmup_s, launches):
         held_ticks=stats["held_ticks"],
         overlapped_dispatches=stats["overlapped_dispatches"],
         inflight_peak=stats["inflight_peak"], warmup_s=warmup_s,
-        gumbel_argmax_launches=launches["gumbel_argmax"])
+        sample_slots_launches=launches["sample_slots"],
+        sample_calls=core.sample_calls,
+        first_mid_dispatch=stats["first_mid_dispatch"])
 
 
 def _check_loop(name, stats, core, launches, sampled, ramp):
     """A serve phase at the new defaults fails if its designed ramp never
-    held, if the narrow rung never ran, or if a sampled request drew
-    without the kernel. Dispatches issued with another in flight are
+    held, if the narrow rung never ran, if a sampled request drew without
+    the kernel, or if the sampler's launches differ from the engine's
+    sampling calls (one launch a call). Dispatches issued with another in flight are
     reported, not required: at llama3-8b bf16 the eager host issues a
     dispatch for longer than the card computes it, so each result has
     landed before the host looks (``parity_pipeline``'s lagging device
@@ -1343,20 +1616,27 @@ def _check_loop(name, stats, core, launches, sampled, ramp):
         faults.append("the ramp never held decode")
     if narrow < core.batch and stats[f"decode_width_{narrow}"] < 1:
         faults.append(f"the narrow rung {narrow} never ran")
-    if sampled and launches["gumbel_argmax"] < 1:
-        faults.append("sampled requests drew without gumbel_argmax")
+    if sampled and launches["sample_slots"] < 1:
+        faults.append("sampled requests drew without sample_slots")
+    if launches["sample_slots"] != core.sample_calls:
+        faults.append(f"{launches['sample_slots']} sample_slots launches "
+                      f"for {core.sample_calls} sampling calls")
     if faults:
         raise AssertionError(f"{name}: {'; '.join(faults)}: {stats}, "
                              f"launches {launches}")
 
 
-def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
-    """HTTP requests against full llama3-8b; the launch counts and the
-    dispatch counts are set to 0 just before the requests and read just
-    after. ``narrow``: speculation and the mixed dispatch off, six
-    concurrent requests (the narrow path); else the reference's defaults and
-    the staggered traffic, which must run at least one mixed dispatch and
-    one widened step. Returns (launches, the engine core)."""
+def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
+                chain=False):
+    """HTTP requests against full llama3-8b; the launch counts, the
+    dispatch counts and the engine's sampling calls are set to 0 just
+    before the requests and read just after. ``narrow``: speculation and
+    the mixed dispatch off, six concurrent requests (the narrow path); else
+    the reference's defaults and the staggered traffic, which must run at
+    least one mixed dispatch and one widened step; ``chain``: that traffic
+    at the chain server's temperature 0.2 / top-p 0.7 (``serve_chain``),
+    every step through the top-p bisection. Returns (launches, the engine
+    core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
@@ -1388,13 +1668,15 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
         k.reset_launch_counts()
         for key in sched.stats:
             sched.stats[key] = 0
+        core.sample_calls = 0
         t0 = time.perf_counter()
         if narrow:
             with concurrent.futures.ThreadPoolExecutor(6) as pool:
                 results = list(pool.map(lambda i: _request(base, i),
                                         range(6)))
         else:
-            results, at_late = _staggered_traffic(base, sched, submitted)
+            results, at_late = _staggered_traffic(base, sched, submitted,
+                                                  chain)
         wall = time.perf_counter() - t0
         launches = k.launch_counts()
         stats = dict(sched.stats)
@@ -1434,6 +1716,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
             or health.get("pipeline_depth") != core.cfg.pipeline_depth):
         raise AssertionError(f"/health reports {health}")
     name = ("serve" + ("_two_dispatch" if narrow else "")
+            + ("_chain" if chain else "")
             + ("" if kv_quant == "none" else "_" + kv_quant))
     if not narrow:
         _check_loop(name, stats, core, launches, sampled=True, ramp=True)
@@ -1445,6 +1728,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False):
         server_ttft_s=server_ttft, completion_tokens=gen, wall_s=wall,
         gen_tok_s=gen / wall, dispatches=stats, launches=launches,
         stats_when_late_prompts_sent=at_late,
+        sampling=("temperature 0.2, top_p 0.7, seeds 0-5" if chain else
+                  "greedy and temperature 0.7 in turn"),
         spec_accepted_share_of_ceiling=(
             stats["spec_bonus_tokens"]
             / max(1, stats["spec_base_steps"] * (core.spec_width - 1))),
@@ -1513,6 +1798,7 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
         k.reset_launch_counts()
         for key in sched.stats:
             sched.stats[key] = 0
+        core.sample_calls = 0
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
             futs = [pool.submit(ask, 0)]
@@ -1579,7 +1865,9 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
          model="llama3-8b", n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
          weights="random, torch.Generator seed 0", context_bytes=len(
              CONTEXT_TEXT), requests=results, per_request=per_request,
-         server_ttft_cold_s=ttft[0], server_ttft_warm_mixed_s=ttft[1:8],
+         server_ttft_cold_s=ttft[0],
+         server_ttft_cold_predicted_max_s=0.2,
+         server_ttft_warm_mixed_s=ttft[1:8],
          server_ttft_warm_grouped_s=ttft[8:], completion_tokens=gen,
          wall_s=wall, gen_tok_s=gen / wall, dispatches=stats,
          dispatches_before_late=at_late, launches=launches,
@@ -1645,14 +1933,16 @@ def phase_dense(dev, cfg, params, rows=8, T=2048, steps=32):
 
 
 def profile_decode(core, ctx: int = 1000, steps: int = 8,
-                   spec_width=None):
+                   spec_width=None, sampling=None):
     """Where a full-batch decode dispatch spends its time: 8 slots at
     ``ctx`` tokens, ``spec_width`` wide steps (a ladder rung; the narrow
-    step on a core without speculation), host clock per step and device
-    time by kernel class (torch.profiler), after the serving run (not
-    part of its counts)."""
+    step on a core without speculation), greedy or with ``sampling``
+    (temperature, top_k, top_p; slot s seeded s), host clock per step,
+    device time by kernel class and device operations a step
+    (torch.profiler), after the serving run (not part of its counts)."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from generativeaiexamples_tpu_torch.engine.engine import PrefillItem
 
@@ -1666,12 +1956,14 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
         pages = alloc.alloc(core.pages_for(ctx + budget))
         table[s, :len(pages)] = pages
         ids = [(s * 31 + i) % 256 for i in range(ctx)]
+        temperature, top_k, top_p = sampling or (0.0, 0, 1.0)
         for start in range(0, ctx, core.chunk):
             chunk = ids[start:start + core.chunk]
             items.append(PrefillItem(
                 chunk_ids=chunk, page_row=table[s], slot=s, start_pos=start,
                 is_last=start + len(chunk) >= ctx, generated=1,
-                max_gen=budget + 1, temperature=0.0))
+                max_gen=budget + 1, temperature=temperature, top_k=top_k,
+                top_p=top_p, seed=s))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for g in range(0, len(items), core.prefill_group_max):
@@ -1693,8 +1985,13 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
         prof, (("ragged_paged_attention", ("ragged_paged",)),
                ("matmul", MATMUL_KERNELS)))
     device_ms = sum(classes.values())
+    device_ops = sum(1 for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA)
     return {"batch": core.batch, "context": ctx, "steps": steps,
             "spec_width": spec_width or 1, "tokens_emitted": emitted,
+            "sampling": "greedy" if sampling is None else dict(zip(
+                ("temperature", "top_k", "top_p"), sampling)),
+            "device_ops_per_step": device_ops / steps,
             "ms_per_emitted_token": wall * 1e3 / max(1, emitted),
             "prefill_chunks": len(items), "prefill_s": prefill_s,
             "decode_ms_per_step": wall * 1e3 / steps,
@@ -1704,6 +2001,33 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
                 k: v / steps for k, v in classes.items()},
             "top_other_ms_per_step": [[n, ms / steps] for n, ms in top],
             "key_averages_self_device_ms_per_step": summed / steps}
+
+
+CHAIN_SAMPLING = (0.2, 0, 0.7)     # the chain server's temperature, top_p
+
+
+def profile_sampled(dev, cfg, params):
+    """A decode dispatch at the chain server's settings beside the same
+    dispatch greedy (``profile_decode``: 8 slots at 1,000 tokens, bf16
+    pool), narrow (speculation and the mixed dispatch off) and at W = 5:
+    device operations, host wall and device busy share a step. What the
+    top-p path adds to a step."""
+    import torch
+    out = {}
+    for rung, knobs, width in (("narrow", NARROW, None), ("w5", {}, 5)):
+        core = serving_core(dev, cfg, params, **knobs)
+        for name, smp in (("greedy", None), ("chain", CHAIN_SAMPLING)):
+            prof = profile_decode(core, spec_width=width, sampling=smp)
+            out[f"{rung}_{name}"] = {key: prof[key] for key in (
+                "spec_width", "sampling", "device_ops_per_step",
+                "decode_ms_per_step", "device_ms_per_step",
+                "device_busy_share", "tokens_emitted")}
+        out[f"{rung}_ops_added_by_sampling"] = (
+            out[f"{rung}_chain"]["device_ops_per_step"]
+            - out[f"{rung}_greedy"]["device_ops_per_step"])
+        del core
+        torch.cuda.empty_cache()
+    return out
 
 
 def profile_pipeline(dev, cfg, params, kv_quant="none", ctx=1000,
@@ -2041,9 +2365,12 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # in the decode-side walk's tensor-core path; flash_dropped_tile skips the
 # second KV tile of every flash_prefill walk that reaches it;
 # flash_causal_off_by_one hides each query's own key from it;
-# sampler_wrong_rotation changes one of threefry's rotation constants and
-# sampler_counter_off_by_one draws entry i with counter i + 1 in the
-# Gumbel-argmax kernel.
+# sampler_wrong_rotation changes one of threefry's rotation constants,
+# sampler_counter_off_by_one draws entry i with counter i + 1,
+# sampler_top_p_strict makes the top-p predicate mass > target (caught at
+# top-p 0, where every mass ties the target of 0) and sampler_z_over_all
+# sums z over every entry instead of the top-k survivors (caught where a
+# row has both filters) in the sampling kernel.
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -2071,11 +2398,16 @@ PLANTED_FAULTS = (
      "sc = (row * KV + kvh) * ps + pos % ps;",
      "sc = (row * KV + kvh) * ps + (pos + 1) % ps;",
      ("ragged_paged_attention_int8",)),
-    ("sampler_wrong_rotation", "gumbel_argmax.cu",
-     "{13, 15, 26, 6,", "{13, 15, 25, 6,", ("gumbel_argmax",)),
-    ("sampler_counter_off_by_one", "gumbel_argmax.cu",
-     "threefry2x32(k1, k2, 0u, (uint32_t)i)",
-     "threefry2x32(k1, k2, 0u, (uint32_t)i + 1u)", ("gumbel_argmax",)),
+    ("sampler_wrong_rotation", "sample_slots.cu",
+     "{13, 15, 26, 6,", "{13, 15, 25, 6,", ("sample_slots",)),
+    ("sampler_counter_off_by_one", "sample_slots.cu",
+     "threefry2x32(key.x, key.y, 0u, (uint32_t)i)",
+     "threefry2x32(key.x, key.y, 0u, (uint32_t)i + 1u)", ("sample_slots",)),
+    ("sampler_top_p_strict", "sample_slots.cu",
+     "return mass >= target;", "return mass > target;",
+     ("sample_slots",)),
+    ("sampler_z_over_all", "sample_slots.cu",
+     "zpart += e;", "zpart += ex_all;", ("sample_slots",)),
 )
 
 _FAULT_PHASES = """
@@ -2088,7 +2420,7 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention": cs.ragged_cases(dev),
           "ragged_paged_attention_int8": cs.ragged_cases(dev, True),
           "ragged_decode": cs.decode_cases(dev),
-          "gumbel_argmax": cs.sample_cases(dev)}
+          "sample_slots": cs.sample_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -2125,18 +2457,21 @@ for name, first, fn in (
     out[name].update({sub: res[sub]["ms"] for sub in (
         "prefill_group8", "prefix_suffix") + cs.RAGGED_SUBCASES
         if sub in res})
+out["sampling_call"] = cs.ab_sampling_calls(dev)
 cfg, params, _ = cs.draw_8b(dev)
 prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
 out["profile_prefill"] = {key: prof[key] for key in (
     "host_wall_ms", "device_ms", "device_ms_by_class")}
+out["profile_sampled"] = cs.profile_sampled(dev, cfg, params)
 print(json.dumps(out))
 """
 
 
 def ab(trees) -> None:
-    """Kernel times of every kernel of two trees of the port, and the
-    grouped prefill dispatch's profile at llama3-8b (bf16 pool), in one
-    call, in turns (first, second, second, first), each in its own process
+    """Kernel times of every attention kernel of two trees of the port,
+    each tree's sampling call at the sampler's cases, the grouped prefill
+    dispatch's profile and ``profile_sampled`` at llama3-8b (bf16 pool),
+    in one call, in turns (first, second, second, first), each in its own process
     building its own kernels; the cases and the timing are this script's
     for both."""
     order = [trees[0], trees[1], trees[1], trees[0]]
@@ -2244,7 +2579,7 @@ def main() -> int:
         results[res["name"]] = res
     results["ragged_decode"] = phase_decode(dev)
     torch.cuda.empty_cache()
-    results["gumbel_argmax"] = phase_sample(dev)
+    results["sample_slots"] = phase_sample(dev)
     torch.cuda.empty_cache()
     phase_parity(dev)
     torch.cuda.empty_cache()
@@ -2264,6 +2599,11 @@ def main() -> int:
         paths["serve_prefix" + tag] = phase_serve_prefix(dev, cfg, params,
                                                          kv_quant)
         torch.cuda.empty_cache()
+    paths["serve_chain"], core = phase_serve(dev, cfg, params, chain=True)
+    del core
+    torch.cuda.empty_cache()
+    emit("profile_sampled", **profile_sampled(dev, cfg, params))
+    torch.cuda.empty_cache()
     paths["serve_two_dispatch"], core = phase_serve(dev, cfg, params,
                                                     narrow=True)
     emit("profile", **profile_decode(core))
@@ -2289,13 +2629,13 @@ def main() -> int:
             "ragged_paged.cu", "ragged_paged_attention, int8-KV variant "
             ":331-351", 445, "serve_int8"),
         "ragged_decode": ("ragged_decode.cu", "ragged_decode", 526, "dense"),
-        "gumbel_argmax": ("gumbel_argmax.cu", None, None, "serve"),
+        "sample_slots": ("sample_slots.cu", None, None, "serve"),
     }
-    # the sampler replaces no Pallas kernel: the XLA fusion of
-    # jax.random.categorical under jax.vmap in sample_logits_per_slot
-    sampler = ("generativeaiexamples_tpu/ops/sampling.py:248-254 "
-               "(jax.random.categorical under jax.vmap in "
-               "sample_logits_per_slot, an XLA fusion)")
+    # the sampler replaces no Pallas kernel: the XLA program of
+    # sample_logits_per_slot's full path and token_logprob
+    sampler = ("generativeaiexamples_tpu/ops/sampling.py:126-255 "
+               "(_mask_dynamic, jax.random.categorical under jax.vmap in "
+               "sample_logits_per_slot, token_logprob: an XLA program)")
     kernels = []
     for name, (source, fn, line, path) in table.items():
         res = results[name]
@@ -2309,7 +2649,9 @@ def main() -> int:
         keys = ("max_abs_err", "max_err_over_limit", "ms", "plain_ms",
                 "bound_ms", "bound_by", "share_of_bound", "library_ms",
                 "splits", "scratch_bytes", "token_mismatches",
-                "near_tie_rows", "bits_exact")
+                "near_tie_rows", "bits_exact", "thr_k_mismatches",
+                "cutoff_near_tie_rows", "draw_near_tie_rows", "cluster",
+                "drawn_entries")
         entry.update({key: res[key] for key in keys if key in res})
         for sub in (("prefill_group8", "prefix_suffix") + RAGGED_SUBCASES
                     + tuple(f"rows{R}" for R in SAMPLE_ROWS[1:])):

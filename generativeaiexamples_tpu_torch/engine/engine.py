@@ -18,12 +18,18 @@ updated in place rather than donated (CUDA graphs are later work).
 
 Sampling draws are JAX's: each slot keeps a raw threefry key
 (``DecodeState.rngs``, ``PRNGKey(seed)``), and token ``n`` of a request
-draws ``categorical(fold_in(key, n))`` (``ops/threefry.py``; on CUDA the
-Gumbel-argmax kernel). No step reads a device value back: host arrays go
-up through pinned buffers without a stream sync, which slots sample and
-with which filters comes from host mirrors set at activation, and results
-come back only through :class:`HostCopy`, which the scheduler's in-flight
-queue holds.
+draws ``categorical(fold_in(key, n))`` (``ops/threefry.py``). Every
+sampling call (a narrow or widened step, a mixed dispatch's step, the
+fused first tokens) is one ``ops.sampling.sample_slots`` call: on CUDA one
+launch of the sampling kernel, which folds the keys, reads each slot's
+live settings, finds the top-k/top-p cutoffs, draws and returns the
+logprob; on the CPU its plain version. ``sample_calls`` counts them. No
+step reads a device value back: host arrays go up through pinned buffers
+without a stream sync, and results come back only through
+:class:`HostCopy`, which the scheduler's in-flight queue holds.
+``decode``/``decode_mixed`` call an optional ``between_steps`` hook on the
+host after each step's launches, where the scheduler streams first
+tokens whose fetch has landed.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request it raises. ``attention="auto"``
@@ -62,10 +68,8 @@ from generativeaiexamples_tpu_torch.engine import kv_cache
 from generativeaiexamples_tpu_torch.engine.kv_cache import PagedKVCache
 from generativeaiexamples_tpu_torch.engine.prefix_cache import CachingAllocator
 from generativeaiexamples_tpu_torch.models import llama
-from generativeaiexamples_tpu_torch.ops import threefry
+from generativeaiexamples_tpu_torch.ops import sampling, threefry
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
-from generativeaiexamples_tpu_torch.ops.sampling import (
-    sample_logits_per_slot, token_logprob)
 from generativeaiexamples_tpu_torch.ops.speculative import (
     acceptance, draft_lookup)
 
@@ -181,11 +185,9 @@ class HostCopy:
 @dataclasses.dataclass
 class DecodeState:
     """Fixed-capacity slot batch for continuous decoding; device tensors
-    are (B,) and updated in place by the engine. The ``host_*`` arrays
-    mirror what the host set at activation (which slots live and how they
-    sample), so a step picks its sampling work without a device sync. The
-    TPU package's grammar state and adapter index are not ported (grammar
-    and LoRA are ROADMAP A5/A3)."""
+    are (B,) and updated in place by the engine. The TPU package's grammar
+    state and adapter index are not ported (grammar and LoRA are ROADMAP
+    A5/A3)."""
 
     cache: PagedKVCache
     tokens: torch.Tensor        # (B,) i32 last token per slot
@@ -203,10 +205,6 @@ class DecodeState:
     # prompt-lookup drafting. Column max_seq is a sink for dropped writes
     # and is never read.
     history: torch.Tensor
-    host_live: np.ndarray       # (B,) bool: activated, not yet released
-    host_temperature: np.ndarray    # (B,) f32
-    host_top_k: np.ndarray          # (B,) i32
-    host_top_p: np.ndarray          # (B,) f32
 
     def rows(self, width: int) -> "DecodeState":
         """The first ``width`` slots as views: in-place writes (the pool,
@@ -220,10 +218,7 @@ class DecodeState:
             generated=sl(self.generated), max_gen=sl(self.max_gen),
             temperature=sl(self.temperature), top_k=sl(self.top_k),
             top_p=sl(self.top_p), rngs=sl(self.rngs),
-            last_logprob=sl(self.last_logprob), history=sl(self.history),
-            host_live=sl(self.host_live),
-            host_temperature=sl(self.host_temperature),
-            host_top_k=sl(self.host_top_k), host_top_p=sl(self.host_top_p))
+            last_logprob=sl(self.last_logprob), history=sl(self.history))
 
     def merge(self, narrow: "DecodeState") -> None:
         """Write a :meth:`rows` view's rebound per-slot fields back."""
@@ -370,6 +365,8 @@ class EngineCore:
                             f"device {self.device.type!r} is not cuda")
         self._mixed = mixed == "on"
         self.params = params
+        # sampling calls made (each one sample_slots launch on the card)
+        self.sample_calls = 0
 
     @property
     def mixed_row_queries(self) -> int:
@@ -404,11 +401,7 @@ class EngineCore:
             rngs=torch.zeros((B, 2), dtype=torch.int64, device=dev),
             last_logprob=z(torch.float32),
             history=torch.zeros((B, self.max_seq + 1), dtype=torch.int32,
-                                device=dev),
-            host_live=np.zeros((B,), np.bool_),
-            host_temperature=np.zeros((B,), np.float32),
-            host_top_k=np.zeros((B,), np.int32),
-            host_top_p=np.ones((B,), np.float32))
+                                device=dev))
 
     def new_allocator(self):
         """Page allocator for the pool: with ``prefix_cache="on"`` a
@@ -456,18 +449,11 @@ class EngineCore:
             return t.clone() if t.device.type == "cpu" else t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    @staticmethod
-    def _sampling_flags(live: np.ndarray, temperature: np.ndarray,
-                        top_k: np.ndarray, top_p: np.ndarray):
-        """(any row samples, any sampled row uses top-k, any uses top-p)
-        from host values, for :func:`sample_logits_per_slot`."""
-        sampled = live & (temperature > 0)
-        return (bool(sampled.any()), bool((sampled & (top_k > 0)).any()),
-                bool((sampled & (top_p < 1.0)).any()))
-
-    def _state_flags(self, state: DecodeState):
-        return self._sampling_flags(state.host_live, state.host_temperature,
-                                    state.host_top_k, state.host_top_p)
+    def _sample_slots(self, *args) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One sampling call (``ops.sampling.sample_slots``'s arguments):
+        (R,) tokens and logprobs, counted in ``sample_calls``."""
+        self.sample_calls += 1
+        return sampling.sample_slots(*args)
 
     # ---------------------------------------------------------------- prefill
 
@@ -493,33 +479,25 @@ class EngineCore:
         enters history at the prompt's end. The slot's key is
         ``PRNGKey(seed)``, and the first token draws under
         ``fold_in(key, generated - 1)``, continuing the request's stream
-        across a preemption's resume. Returns the (G,) samples, valid for
-        is_last rows."""
+        across a preemption's resume; rows that are not ``is_last`` draw
+        greedily (their token is not used). Returns the (G,) samples, valid
+        for is_last rows."""
         last = np.array([it.is_last for it in items], np.bool_)
         temperature = np.array([it.temperature for it in items], np.float32)
         top_k = np.array([it.top_k for it in items], np.int32)
         top_p = np.array([it.top_p for it in items], np.float32)
         seeds = np.array([it.seed for it in items], np.int64)
-        generated = np.array([it.generated for it in items], np.int64)
-        # keys on the host (G rows, a few microseconds), then one upload
-        base = threefry.prng_key(torch.from_numpy(seeds))
-        keys = threefry.fold_in(base, torch.from_numpy(generated - 1))
-        flags = self._sampling_flags(last, temperature, top_k, top_p)
-        temp_dev = self._up(temperature)
-        top_k_dev, top_p_dev = self._up(top_k), self._up(top_p)
-        toks = sample_logits_per_slot(self._up(keys), logits, temp_dev,
-                                      top_k_dev, top_p_dev,
-                                      any_sampled=flags[0],
-                                      any_top_k=flags[1], any_top_p=flags[2])
-        lps = token_logprob(logits, toks)
+        generated = np.array([it.generated for it in items], np.int32)
+        t = self._up
+        keys = t(threefry.prng_key(torch.from_numpy(seeds)))
+        temp_dev, top_k_dev, top_p_dev = t(temperature), t(top_k), t(top_p)
+        toks, lps = self._sample_slots(keys, t(generated - 1), 1, logits,
+                                       temp_dev, top_k_dev, top_p_dev,
+                                       t(last))
         rows = np.flatnonzero(last)
         if not len(rows):
             return toks
         slots = np.array([items[i].slot for i in rows], np.int64)
-        state.host_live[slots] = True
-        state.host_temperature[slots] = temperature[rows]
-        state.host_top_k[slots] = top_k[rows]
-        state.host_top_p[slots] = top_p[rows]
         ix = self._up(rows.astype(np.int64))
         sl = self._up(slots)
         gen = self._up(generated[rows].astype(np.int32))
@@ -535,7 +513,7 @@ class EngineCore:
         state.temperature[sl] = temp_dev[ix]
         state.top_k[sl] = top_k_dev[ix]
         state.top_p[sl] = top_p_dev[ix]
-        state.rngs[sl] = self._up(base.numpy()[rows])
+        state.rngs[sl] = keys[ix]
         state.last_logprob[sl] = lps[ix]
         state.history[sl, col] = toks[ix]
         return toks
@@ -590,34 +568,15 @@ class EngineCore:
 
     # ----------------------------------------------------------------- decode
 
-    def _live_sampling(self, state: DecodeState):
-        """Sampling rows of the step: an inactive slot's stale settings
-        must not defeat the greedy path (the reference's ``live_*``)."""
-        active = state.active
-        zero = torch.zeros((), device=self.device)
-        return (torch.where(active, state.temperature, zero),
-                torch.where(active, state.top_k, torch.zeros_like(state.top_k)),
-                torch.where(active, state.top_p, zero + 1.0))
-
     def _sample(self, state: DecodeState, logits: torch.Tensor, W: int
-                ) -> torch.Tensor:
-        """Per-slot draws of a step's (B * W, V) logits, row (b, w) under
-        ``fold_in(rngs[b], generated[b] + w)``, the reference's keys for a
-        narrow (W = 1) and a widened step. The host mirrors say whether
-        any live slot samples, so an all-greedy batch folds no keys."""
-        live_temp, live_topk, live_topp = self._live_sampling(state)
-        flags = self._state_flags(state)
-        keys = None
-        if flags[0]:
-            pos_w = torch.arange(W, device=self.device, dtype=torch.int64)
-            gen_w = state.generated.to(torch.int64)[:, None] + pos_w[None]
-            keys = threefry.fold_in(state.rngs[:, None, :], gen_w
-                                    ).reshape(-1, 2)
-        rep = lambda x: x.repeat_interleave(W) if W > 1 else x
-        return sample_logits_per_slot(keys, logits, rep(live_temp),
-                                      rep(live_topk), rep(live_topp),
-                                      any_sampled=flags[0],
-                                      any_top_k=flags[1], any_top_p=flags[2])
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Tokens and logprobs of a step's (B * W, V) logits in one
+        sampling call, row (b, w) under ``fold_in(rngs[b], generated[b] +
+        w)``, the reference's keys for a narrow (W = 1) and a widened step,
+        with slot b's live settings (an inactive slot greedy)."""
+        return self._sample_slots(state.rngs, state.generated, W, logits,
+                                  state.temperature, state.top_k,
+                                  state.top_p, state.active)
 
     def _step(self, state: DecodeState, page_table: torch.Tensor,
               forward: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
@@ -633,8 +592,7 @@ class EngineCore:
         prev_len = cache.lengths.clone()
         logits = forward(state.tokens)
         active = state.active
-        sampled = self._sample(state, logits, 1)
-        lp = token_logprob(logits, sampled)
+        sampled, lp = self._sample(state, logits, 1)
         generated = state.generated + active.to(torch.int32)
         hit_eos = sampled == self.eos_id
         done = active & (hit_eos | (generated >= state.max_gen)
@@ -678,12 +636,11 @@ class EngineCore:
         if draft_cap is not None:
             dlen = torch.minimum(dlen, draft_cap)
         inputs = torch.cat([state.tokens[:, None], draft], dim=1)
-        raw = forward(inputs).float()                             # (B, W, V)
-        V = raw.shape[-1]
+        raw = forward(inputs)                                     # (B, W, V)
         active = state.active
-        flat = raw.reshape(B * W, V)
-        sampled = self._sample(state, flat, W)
-        lp = token_logprob(flat, sampled).reshape(B, W)
+        sampled, lp = self._sample(state, raw.reshape(B * W, raw.shape[-1]),
+                                   W)
+        lp = lp.reshape(B, W)
         sampled = sampled.reshape(B, W)
         e = acceptance(sampled, draft, dlen).to(torch.int64)      # 1..W
         pos_w = torch.arange(W, device=dev)[None]
@@ -755,10 +712,21 @@ class EngineCore:
             else res[k].to(torch.int32) for k in _PACKED_FIELDS])
         return res
 
+    def _steps(self, state: DecodeState, page_table: torch.Tensor, W: int,
+               cap, steps: int, between_steps: Optional[Callable[[], None]]
+               ) -> List[Dict[str, torch.Tensor]]:
+        outs = []
+        for _ in range(steps):
+            outs.append(self._run_step(state, page_table, W, cap))
+            if between_steps is not None:
+                between_steps()
+        return outs
+
     @torch.no_grad()
     def decode(self, state: DecodeState, page_table: torch.Tensor,
                steps: int = 1, *, spec_width: Optional[int] = None,
-               width: Optional[int] = None, draft_cap=None
+               width: Optional[int] = None, draft_cap=None,
+               between_steps: Optional[Callable[[], None]] = None
                ) -> Tuple[DecodeState, Dict[str, Any]]:
         """Run ``steps`` decode steps, each ``spec_width`` wide (a ladder
         rung; default the ceiling) with per-slot draft caps ``draft_cap``
@@ -768,28 +736,29 @@ class EngineCore:
         arrays are (steps*W, width) micro-rows, (step, position) in order;
         ``input_tokens`` carries each position's input, and
         ``out["packed"]`` stacks every field as int32 (logprobs bitcast)
-        for one device-to-host copy."""
+        for one device-to-host copy. ``between_steps()``, when given, runs
+        on the host after each step's launches; it must leave the state
+        alone."""
         W, cap = self._width(spec_width, draft_cap)
         bw = width or self.batch
         if bw not in self.decode_widths:
             raise ValueError(f"width {bw} is not a ladder rung "
                              f"{self.decode_widths}")
         if bw == self.batch:
-            return state, self._pack([self._run_step(state, page_table, W,
-                                                     cap)
-                                      for _ in range(steps)])
+            return state, self._pack(self._steps(state, page_table, W, cap,
+                                                 steps, between_steps))
         narrow = state.rows(bw)
-        table = page_table[:bw]
         cap = cap[:bw] if cap is not None else None
-        res = self._pack([self._run_step(narrow, table, W, cap)
-                          for _ in range(steps)])
+        res = self._pack(self._steps(narrow, page_table[:bw], W, cap, steps,
+                                     between_steps))
         state.merge(narrow)
         return state, res
 
     @torch.no_grad()
     def decode_mixed(self, state: DecodeState, page_table: torch.Tensor,
                      steps: int, items: Sequence[PrefillItem], *,
-                     spec_width: Optional[int] = None, draft_cap=None
+                     spec_width: Optional[int] = None, draft_cap=None,
+                     between_steps: Optional[Callable[[], None]] = None
                      ) -> Tuple[DecodeState, Dict[str, Any]]:
         """One mixed-phase dispatch (``_mixed_impl`` there): ``steps``
         decode steps whose first forward also prefills one chunk of each
@@ -800,7 +769,8 @@ class EngineCore:
         activate their slot, so they decode from the next dispatch. Chunks
         pad to ``prefill_chunk`` and the group to a ``group_buckets`` size.
         The out block is :meth:`decode`'s at the full batch, plus
-        ``first_tokens`` (G,) for the items (valid for is_last ones)."""
+        ``first_tokens`` (G,) for the items (valid for is_last ones);
+        ``between_steps`` as in :meth:`decode`."""
         if not self.mixed_supported:
             raise ValueError("mixed-phase dispatch is gated off for this "
                              "engine (APP_MIXED_PHASE_DISPATCH or an "
@@ -847,8 +817,10 @@ class EngineCore:
         cache.lengths[t(np.array([it.slot for it in items], np.int64))] = \
             t((start_pos + chunk_len)[:len(items)])
         self._write_chunk_history(state, items)
-        outs += [self._run_step(state, page_table, W, cap)
-                 for _ in range(steps - 1)]
+        if between_steps is not None:
+            between_steps()
+        outs += self._steps(state, page_table, W, cap, steps - 1,
+                            between_steps)
         first = self._activate_rows(state, cell["chunk"][:len(items)], items)
         res = self._pack(outs)
         res["first_tokens"] = first
@@ -873,10 +845,6 @@ class EngineCore:
         state.top_p[slot] = top_p
         state.rngs[slot] = self._up(threefry.prng_key(seed))
         state.last_logprob[slot] = 0.0
-        state.host_live[slot] = True
-        state.host_temperature[slot] = temperature
-        state.host_top_k[slot] = top_k
-        state.host_top_p[slot] = top_p
         return state
 
     @torch.no_grad()
@@ -887,27 +855,11 @@ class EngineCore:
         return HostCopy(torch.stack([state.tokens,
                                      state.last_logprob.view(torch.int32)]))
 
-    @staticmethod
-    def _clear_host(state: DecodeState, slot: int) -> None:
-        state.host_live[slot] = False
-        state.host_temperature[slot] = 0.0
-        state.host_top_k[slot] = 0
-        state.host_top_p[slot] = 1.0
-
     @torch.no_grad()
     def release(self, state: DecodeState, slot: int) -> DecodeState:
         """Deactivate a slot; its pages may be reused at once (its later
         decode writes go to the null page)."""
         state.active[slot] = False
-        self._clear_host(state, slot)
-        return state
-
-    def retire_host(self, state: DecodeState, slot: int) -> DecodeState:
-        """The slot's ``done`` row reached the host (EOS or budget, at its
-        fused first token or in a decode step): the device already left it
-        inactive, so only the host mirror is cleared, and its stale
-        temperature no longer sends steps down the sampling path."""
-        self._clear_host(state, slot)
         return state
 
     @torch.no_grad()

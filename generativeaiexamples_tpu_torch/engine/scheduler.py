@@ -250,6 +250,8 @@ class Scheduler:
                       # pure decode dispatches per batch-width rung
                       "held_ticks": 0, "overlapped_dispatches": 0,
                       "inflight_peak": 0,
+                      # first tokens streamed between a dispatch's steps
+                      "first_mid_dispatch": 0,
                       **{f"decode_width_{w}": 0
                          for w in self._decode_widths}}
 
@@ -354,10 +356,9 @@ class Scheduler:
         self._table_dev = None
 
     def _release(self, job: _Job) -> None:
-        """Return the job's slot and pages to the pools; the slot stops
-        sampling on the host (its device row is already inactive)."""
+        """Return the job's slot and pages to the pools (its device row is
+        already inactive)."""
         if job.slot >= 0:
-            self._state = self.core.retire_host(self._state, job.slot)
             heapq.heappush(self._free, job.slot)
             self._table[job.slot, :] = 0
             self._table_dev = None
@@ -643,31 +644,48 @@ class Scheduler:
         job.first_epoch += 1
         self._slots[job.slot] = job
 
-    def _resolve_first(self, job: _Job, first: int) -> None:
+    def _resolve_first(self, job: _Job, first: int,
+                       defer: Optional[List[tuple]] = None) -> bool:
         """Emit the fused first token, from whichever lands first: a
-        batched fetch or a decode dispatch's step-0 inputs (idempotent via
-        ``first_pending``). The device already left the slot inactive when
-        it is EOS or the budget is spent."""
+        batched fetch (also between a dispatch's steps) or a decode
+        dispatch's step-0 inputs (idempotent via ``first_pending``; True
+        when this call resolved it). The device already left the slot
+        inactive when it is EOS or the budget is spent. With ``defer`` (a
+        dispatch is being issued) the token is stamped and streamed, and a
+        first token that ends the request leaves ``(job, reason)`` in
+        ``defer`` for :meth:`_end_first` once the dispatch is issued: a
+        release inside a narrow-rung dispatch would be overwritten by its
+        merge."""
         if not job.first_pending:
-            return
+            return False
         job.first_pending = False
         job.first_batched = False
         req = job.request
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
-        already = len(job.gen_ids)
         if first == self.core.eos_id:
-            req.finish_reason = "eos"
-            del self._slots[job.slot]
-            self._finish(job)
-            return
-        if self._emit_token(job, first):
+            end = "eos"
+        elif self._emit_token(job, first):
+            end = "stop"
+        elif len(job.gen_ids) >= req.max_tokens:
+            end = "length"
+        else:
+            return True
+        if defer is None:
+            self._end_first(job, end)
+        else:
+            defer.append((job, end))
+        return True
+
+    def _end_first(self, job: _Job, end: str) -> None:
+        """Finish a job whose first token ended it: a stop string also
+        deactivates the slot on the device."""
+        if end == "stop":
             self._retire(job)
             return
-        if already + 1 >= req.max_tokens:
-            req.finish_reason = "length"
-            del self._slots[job.slot]
-            self._finish(job)
+        job.request.finish_reason = end
+        del self._slots[job.slot]
+        self._finish(job)
 
     def _retire(self, job: _Job) -> None:
         """Stop-string end: deactivate the slot on device, then finish."""
@@ -913,6 +931,12 @@ class Scheduler:
         w_disp, caps = self._spec_plan()
         active_map = dict(self._slots)
         table = self._table_device()
+        # first tokens whose batched fetch lands while the dispatch is being
+        # issued stream at once; the finishes they cause wait for its end
+        ended: List[tuple] = []
+
+        def between_steps() -> None:
+            self._resolve_first_fetches(ended)
         if packed is not None:
             # mixed dispatches run the ceiling width, uncapped, over the
             # full batch: the ragged kernel pads every decode row to
@@ -922,14 +946,15 @@ class Scheduler:
             for it, (job, _) in zip(items, metas):
                 job.prefilled = job.total_len = (it.start_pos
                                                  + len(it.chunk_ids))
-            self._state, out = self.core.decode_mixed(self._state, table,
-                                                      steps, items)
+            self._state, out = self.core.decode_mixed(
+                self._state, table, steps, items, between_steps=between_steps)
             self.stats["mixed_dispatches"] += 1
             self.stats["prefill_chunks"] += len(items)
         else:
             width = self._decode_width()
-            kw = ({} if caps is None
-                  else {"spec_width": w_disp, "draft_cap": caps})
+            kw = ({"between_steps": between_steps} if caps is None
+                  else {"spec_width": w_disp, "draft_cap": caps,
+                        "between_steps": between_steps})
             if width != self.core.batch:
                 kw["width"] = width
             self._state, out = self.core.decode(self._state, table, steps,
@@ -953,6 +978,8 @@ class Scheduler:
                     self._prefilling.remove(job)
                     self._cache_insert(job)
                     self._enter_decode(job)
+        for job, end in ended:
+            self._end_first(job, end)
 
     def _process_decode(self) -> None:
         """Resolve the oldest dispatch in flight (waiting for its copy if
@@ -1001,7 +1028,12 @@ class Scheduler:
         self._first_fetches.append((self.core.snapshot_tokens(self._state),
                                     waiting))
 
-    def _resolve_first_fetches(self) -> bool:
+    def _resolve_first_fetches(self, defer: Optional[List[tuple]] = None
+                               ) -> bool:
+        """Resolve the first tokens of every batched fetch that has landed
+        (never waits); True when one had. ``defer`` as in
+        :meth:`_resolve_first`, and each first token resolved so counts in
+        ``stats["first_mid_dispatch"]``."""
         landed = [ff for ff in self._first_fetches if ff[0].done()]
         if not landed:
             return False
@@ -1012,8 +1044,11 @@ class Scheduler:
             for slot, job, epoch in pairs:
                 # identity and epoch: the job may have been preempted and
                 # re-admitted into the same slot since the snapshot
-                if self._slots.get(slot) is job and job.first_epoch == epoch:
-                    self._resolve_first(job, int(snap[0, slot]))
+                if (self._slots.get(slot) is job and job.first_epoch == epoch
+                        and self._resolve_first(job, int(snap[0, slot]),
+                                                defer)
+                        and defer is not None):
+                    self.stats["first_mid_dispatch"] += 1
         return True
 
     # -- driver loop --------------------------------------------------------

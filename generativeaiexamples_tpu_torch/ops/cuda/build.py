@@ -28,7 +28,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 KERNEL_SOURCES = ("flash_prefill", "ragged_paged", "ragged_decode",
-                  "gumbel_argmax")
+                  "sample_slots")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +39,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # (ops/cuda/attention.py, ops/cuda/sampling.py), and nowhere else
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
                             "ragged_paged_attention_int8": 0,
-                            "ragged_decode": 0, "gumbel_argmax": 0}
+                            "ragged_decode": 0, "sample_slots": 0}
 
 
 def launch_counts() -> Dict[str, int]:

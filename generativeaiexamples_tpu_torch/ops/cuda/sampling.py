@@ -1,103 +1,144 @@
-"""The port's sampling kernel: Gumbel-argmax over threefry draws.
+"""The port's sampling kernel: one launch a sampling call.
 
-``gumbel_argmax(keys, logits)`` draws one token per row as
-``jax.random.categorical`` does under ``jax.vmap`` (one raw threefry key a
-row): the first-index argmax of each row's logits plus JAX's Gumbel noise.
-It is the counterpart of that XLA fusion in the reference's
-``sample_logits_per_slot`` (``generativeaiexamples_tpu/ops/sampling.py``),
-not of a Pallas kernel. The kernel is CUDA C++ for ``sm_90a``
-(``csrc/gumbel_argmax.cu``: what bounds it and what its design does about
-that are written there), built by :mod:`.build` and bound with ``ctypes``.
+``sample_slots(keys, counter0, W, logits, temperature, top_k, top_p,
+active)`` computes, for every row (b, w) of a step's (B * W, V) logits,
+the token the reference's ``sample_logits_per_slot`` draws under the key
+``fold_in(keys[b], counter0[b] + w)`` with slot b's live settings
+(temperature, top-k and top-p by bisected cutoffs; an inactive slot
+greedy), and that token's ``token_logprob``. It is the counterpart of the
+XLA program of the reference's sampler
+(``generativeaiexamples_tpu/ops/sampling.py``), not of a Pallas kernel.
+The kernel is CUDA C++ for ``sm_90a`` (``csrc/sample_slots.cu``: what
+bounds it and what its design does about that are written there), built
+by :mod:`.build` and bound with ``ctypes``.
 
-Its plain version is :func:`generativeaiexamples_tpu_torch.ops.threefry.
-categorical`; the wrapper takes it only for logits on the CPU. For CUDA
-tensors it launches the kernel or raises. Each launch adds one to
-``launch_counts()["gumbel_argmax"]``.
+Its plain version is ``ops/sampling.py`` ``sample_slots_plain``, which
+``ops.sampling.sample_slots`` takes for CPU tensors; this wrapper takes
+CUDA tensors only, launches the kernel or raises, and adds one to
+``launch_counts()["sample_slots"]`` a launch. ``sample_cutoffs`` is the
+same kernel with each row's ``(thr_k, thr_p, cut)`` written out: the check
+of the bisection, not a serving path, and not counted.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Tuple
 
 import torch
 
 from generativeaiexamples_tpu_torch.ops import threefry
 from generativeaiexamples_tpu_torch.ops.cuda.build import LAUNCHES
 
-THREADS = 256        # csrc THREADS: a split's entries are a multiple of it
-BLOCKS_PER_SM = 4    # splits aim at this many blocks per SM over all rows
+MAX_ROWS = 136          # 8 slots x W = 9 (72), or the mixed dispatch's 136
+MAX_VOCAB = 128_256     # llama3's vocabulary
+CLUSTER = 8             # blocks a row's cluster holds (csrc CL)
 
-_SM_COUNT: Dict[int, int] = {}
-_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+         + [ctypes.c_void_p] * 8)
 _BITS_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 2
               + [ctypes.c_void_p] * 2)
 
 
-def split_plan(rows: int, vocab: int, n_sm: int):
-    """(splits, entries a split) of each row, from shapes only: about
-    ``BLOCKS_PER_SM`` blocks per SM over all rows, each split a multiple of
-    ``THREADS`` entries, together covering the row."""
-    per_row = max(1, -(-BLOCKS_PER_SM * n_sm // max(1, rows)))
-    seg = -(-vocab // per_row)
-    seg = max(THREADS, -(-seg // THREADS) * THREADS)
-    return -(-vocab // seg), seg
+def slice_entries(vocab: int) -> int:
+    """Entries of a row each block of its cluster holds (the source's
+    ``slice_of``): a multiple of 8 (16-byte loads of bf16), together
+    covering the row. A block keeps 8 bytes of shared memory an entry."""
+    return (-(-vocab // CLUSTER) + 7) // 8 * 8
 
 
 def _fn(name: str, argtypes):
     from generativeaiexamples_tpu_torch.ops.cuda import build
-    f = getattr(build.load("gumbel_argmax"), name)
+    f = getattr(build.load("sample_slots"), name)
     f.argtypes = argtypes
     f.restype = ctypes.c_int
     return f
 
 
-def _keys_on(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    R = logits.shape[0]
-    if keys.shape != (R, 2) or keys.device != logits.device:
-        raise ValueError(f"gumbel_argmax: keys must be ({R}, 2) on "
-                         f"{logits.device}, got {tuple(keys.shape)} on "
-                         f"{keys.device}")
-    return keys.to(torch.int64).contiguous()
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
 
 
-def gumbel_argmax(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """One draw per row: ``argmax(logits[r] + gumbel(keys[r]))``, the first
-    index on ties. keys: (R, 2) int64 raw threefry keys (uint32 words);
-    logits: (R, V) float32 with contiguous entries (masked entries -inf).
-    Returns (R,) int32. CPU tensors take the plain version."""
-    if logits.dim() != 2:
-        raise ValueError(f"gumbel_argmax takes (R, V) logits, got "
-                         f"{tuple(logits.shape)}")
-    if not logits.is_cuda:
-        return threefry.categorical(keys, logits)
-    if logits.dtype != torch.float32 or logits.stride(1) != 1:
-        raise ValueError(f"gumbel_argmax takes float32 logits with "
-                         f"contiguous entries, got {logits.dtype} strides "
-                         f"{logits.stride()}")
+def _check(keys, counter0, W, logits, temperature, top_k, top_p, active):
+    """Raise unless the arguments are what the kernel takes."""
+    if logits.dim() != 2 or not logits.is_cuda:
+        raise ValueError(f"sample_slots takes (R, V) CUDA logits, got "
+                         f"{tuple(logits.shape)} on {logits.device}")
     R, V = logits.shape
-    if R > 65535 or V >= 2 ** 31:
-        raise ValueError(f"gumbel_argmax: {R} rows of {V} outside the "
-                         f"kernel's grid")
-    keys = _keys_on(keys, logits)
+    if (logits.dtype not in _DTYPES or logits.stride(1) != 1
+            or logits.stride(0) < V):
+        raise ValueError(f"sample_slots takes float32 or bfloat16 logits "
+                         f"with contiguous entries, got {logits.dtype} "
+                         f"strides {logits.stride()}")
+    if not (W >= 1 and R % W == 0 and 1 <= R <= MAX_ROWS
+            and 1 <= V <= MAX_VOCAB):
+        raise ValueError(f"sample_slots: {R} rows of {V} in slots of {W} "
+                         f"rows; the kernel takes 1..{MAX_ROWS} rows of at "
+                         f"most {MAX_VOCAB}")
+    B = R // W
+    want = ((keys, (B, 2), (torch.int64,)),
+            (counter0, (B,), (torch.int32, torch.int64)),
+            (temperature, (B,), (torch.float32,)),
+            (top_k, (B,), (torch.int32,)),
+            (top_p, (B,), (torch.float32,)),
+            (active, (B,), (torch.bool,)))
+    for t, shape, dtypes in want:
+        if (tuple(t.shape) != shape or t.dtype not in dtypes
+                or t.device != logits.device or not t.is_contiguous()):
+            raise ValueError(f"sample_slots: an argument of shape "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"where {shape} {dtypes} contiguous on "
+                             f"{logits.device} was expected")
+
+
+def _launch(keys, counter0, W, logits, temperature, top_k, top_p, active,
+            cutoffs=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(keys, counter0, W, logits, temperature, top_k, top_p, active)
+    R, V = logits.shape
     dev = logits.device
-    if dev.index not in _SM_COUNT:
-        _SM_COUNT[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    splits, seg = split_plan(R, V, _SM_COUNT[dev.index])
-    best = torch.empty((R,), dtype=torch.int64, device=dev)
-    out = torch.empty((R,), dtype=torch.int32, device=dev)
-    rc = _fn("gk_gumbel_argmax", _ARGS)(
-        ctypes.c_void_p(keys.data_ptr()), ctypes.c_void_p(logits.data_ptr()),
-        R, V, logits.stride(0), splits, seg, ctypes.c_void_p(best.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
+    tokens = torch.empty((R,), dtype=torch.int32, device=dev)
+    logprobs = torch.empty((R,), dtype=torch.float32, device=dev)
+    rc = _fn("gk_sample_slots", _ARGS)(
+        _DTYPES[logits.dtype], _ptr(logits),
+        logits.stride(0), R, V, W, _ptr(keys), _ptr(counter0),
+        int(counter0.dtype == torch.int64), _ptr(temperature), _ptr(top_k),
+        _ptr(top_p), _ptr(active), _ptr(tokens), _ptr(logprobs),
+        ctypes.c_void_p(None if cutoffs is None else cutoffs.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"gumbel_argmax kernel launch failed: CUDA error "
+        raise RuntimeError(f"sample_slots kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["gumbel_argmax"] += 1
+    return tokens, logprobs
+
+
+def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
+                 logits: torch.Tensor, temperature: torch.Tensor,
+                 top_k: torch.Tensor, top_p: torch.Tensor,
+                 active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch: (R,) int32 tokens and (R,) float32 logprobs of the
+    (R = B * W, V) float32 or bfloat16 ``logits`` on the card. keys (B, 2)
+    int64 raw threefry keys; counter0 (B,) int32 or int64; temperature,
+    top_p (B,) float32; top_k (B,) int32; active (B,) bool. Raises on
+    anything else, and on a failed launch."""
+    out = _launch(keys, counter0, W, logits, temperature, top_k, top_p,
+                  active)
+    LAUNCHES["sample_slots"] += 1
     return out
+
+
+def sample_cutoffs(keys, counter0, W, logits, temperature, top_k, top_p,
+                   active) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """:func:`sample_slots` plus each row's (thr_k, thr_p, cut) as (R, 3)
+    float32 (NaN on greedy rows): the check of the kernel's bisection
+    against ``ops.sampling.sample_cutoffs_plain``. Not counted."""
+    cut = torch.empty((logits.shape[0], 3), dtype=torch.float32,
+                      device=logits.device)
+    tokens, logprobs = _launch(keys, counter0, W, logits, temperature,
+                               top_k, top_p, active, cut)
+    return tokens, logprobs, cut
 
 
 def threefry_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -111,8 +152,7 @@ def threefry_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     R = keys.shape[0]
     out = torch.empty((R, n), dtype=torch.int32, device=keys.device)
     rc = _fn("gk_threefry_bits", _BITS_ARGS)(
-        ctypes.c_void_p(keys.data_ptr()), R, n,
-        ctypes.c_void_p(out.data_ptr()),
+        _ptr(keys), R, n, _ptr(out),
         ctypes.c_void_p(torch.cuda.current_stream(keys.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"threefry_bits launch failed: CUDA error {rc}")

@@ -6,21 +6,30 @@ top-k/top-p cutoffs are found by the same bisection with the same
 thresholds and tie rules, so the masks equal the TPU package's, and each
 sampled row draws ``jax.random.categorical`` with its own raw threefry
 key (``ops/threefry.py``), so a seeded request's tokens are the JAX
-engine's. On CUDA the draw is the hand-written Gumbel-argmax kernel
-(``ops/cuda/sampling.py``), on the CPU its plain version. Greedy rows are
-an argmax.
+engine's. Greedy rows are an argmax.
+
+:func:`sample_slots` is what the engine calls, once a sampling call: the
+keys folded from each slot's key and counter, every row's live settings,
+the cutoffs, the draw and the logprob. On CUDA tensors it is one launch of
+the hand-written kernel (``ops/cuda/sampling.py``), on CPU tensors its
+plain version :func:`sample_slots_plain`, composed of ``fold_in``,
+:func:`_mask_dynamic`, ``categorical``, the greedy select and
+:func:`token_logprob`, which computes every row's full path.
 
 Nothing here reads a device value back to the host: which filters any row
-uses and whether any row samples are the caller's Python booleans (the
-engine knows them from the requests), where the reference branches with
-``lax.cond`` on the device.
+uses and whether any row samples are the caller's Python booleans in
+:func:`sample_logits_per_slot` (the reference branches with ``lax.cond``
+on the device), and each row's own settings in :func:`sample_slots`.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from generativeaiexamples_tpu_torch.ops.cuda.sampling import gumbel_argmax
+from generativeaiexamples_tpu_torch.ops import threefry
+from generativeaiexamples_tpu_torch.ops.cuda import sampling as kernels
 
 N_BISECT = 26   # bisection depth of the top-k/top-p cutoff search
 
@@ -33,20 +42,15 @@ def _bisect(pred, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return lo
 
 
-def _mask_dynamic(lf: torch.Tensor, temperature: torch.Tensor,
-                  top_k: torch.Tensor, top_p: torch.Tensor, *,
-                  any_top_k: bool = True,
-                  any_top_p: bool = True) -> torch.Tensor:
-    """Per-row temperature scaling and top-k/top-p masking by bisected
-    cutoff values (no vocab sort). lf: (B, V) float32. Rows with neither
-    filter pass through exactly. ``any_top_k``/``any_top_p`` say whether
-    some row has ``top_k > 0``/``top_p < 1``; False skips that search (the
-    reference's ``lax.cond``), True is always correct."""
-    safe_t = torch.where(temperature > 0, temperature,
-                         torch.ones_like(temperature))[:, None]
-    scaled = lf / safe_t
-    if not (any_top_k or any_top_p):
-        return scaled
+def mask_cutoffs(scaled: torch.Tensor, top_k: torch.Tensor,
+                 top_p: torch.Tensor, *, any_top_k: bool = True,
+                 any_top_p: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each row's (thr_k, thr_p, cut) of the scaled (B, V) float32 rows:
+    the bisected top-k and top-p cutoffs (``lo0`` where a row has no such
+    filter) and ``min(max(thr_k, thr_p), m)``, which keeps the row
+    maximum (top_p = 0 degrades to greedy). ``any_top_k``/``any_top_p``
+    False skips that search (the reference's ``lax.cond``)."""
     need_k = top_k > 0
     need_p = top_p < 1.0
     m = scaled.amax(dim=-1)
@@ -74,10 +78,28 @@ def _mask_dynamic(lf: torch.Tensor, temperature: torch.Tensor,
     thr_p = lo0
     if any_top_p:
         thr_p = torch.where(need_p, _bisect(p_pred, lo0, m + 1.0), lo0)
-    # the row maximum always survives (top_p = 0 degrades to greedy)
-    cut = torch.minimum(torch.maximum(thr_k, thr_p), m)[:, None]
-    out = torch.where(scaled >= cut, scaled, scaled.new_full((), -torch.inf))
-    return torch.where((need_k | need_p)[:, None], out, scaled)
+    return thr_k, thr_p, torch.minimum(torch.maximum(thr_k, thr_p), m)
+
+
+def _mask_dynamic(lf: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor, *,
+                  any_top_k: bool = True,
+                  any_top_p: bool = True) -> torch.Tensor:
+    """Per-row temperature scaling and top-k/top-p masking by bisected
+    cutoff values (no vocab sort). lf: (B, V) float32. Rows with neither
+    filter pass through exactly. ``any_top_k``/``any_top_p`` say whether
+    some row has ``top_k > 0``/``top_p < 1``; False skips that search (the
+    reference's ``lax.cond``), True is always correct."""
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))[:, None]
+    scaled = lf / safe_t
+    if not (any_top_k or any_top_p):
+        return scaled
+    _, _, cut = mask_cutoffs(scaled, top_k, top_p, any_top_k=any_top_k,
+                             any_top_p=any_top_p)
+    out = torch.where(scaled >= cut[:, None], scaled,
+                      scaled.new_full((), -torch.inf))
+    return torch.where(((top_k > 0) | (top_p < 1.0))[:, None], out, scaled)
 
 
 def token_logprob(logits: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
@@ -108,5 +130,69 @@ def sample_logits_per_slot(keys: torch.Tensor, logits: torch.Tensor,
         return greedy
     scaled = _mask_dynamic(lf, temperature, top_k, top_p,
                            any_top_k=any_top_k, any_top_p=any_top_p)
-    sampled = gumbel_argmax(keys, scaled)
+    sampled = threefry.categorical(keys, scaled)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def _live_rows(W: int, temperature: torch.Tensor, top_k: torch.Tensor,
+               top_p: torch.Tensor, active: torch.Tensor):
+    """Each of the B * W rows' settings, slot b's for its W rows, an
+    inactive slot's read as greedy with no filter (the reference's
+    ``live_*``: a stale setting must not send a dead slot down the
+    sampling path)."""
+    rep = lambda x: x.repeat_interleave(W)
+    return (rep(torch.where(active, temperature,
+                            torch.zeros_like(temperature))),
+            rep(torch.where(active, top_k, torch.zeros_like(top_k))),
+            rep(torch.where(active, top_p, torch.ones_like(top_p))))
+
+
+def sample_slots_plain(keys: torch.Tensor, counter0: torch.Tensor, W: int,
+                       logits: torch.Tensor, temperature: torch.Tensor,
+                       top_k: torch.Tensor, top_p: torch.Tensor,
+                       active: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`sample_slots`: row (b, w) draws under
+    ``fold_in(keys[b], counter0[b] + w)`` with slot b's live settings
+    through :func:`sample_logits_per_slot` (every row's full path), and
+    its token's :func:`token_logprob`."""
+    R = logits.shape[0]
+    pos = torch.arange(W, dtype=torch.int64, device=keys.device)
+    row_keys = threefry.fold_in(keys[:, None, :],
+                                counter0.to(torch.int64)[:, None]
+                                + pos[None]).reshape(R, 2)
+    tokens = sample_logits_per_slot(
+        row_keys, logits, *_live_rows(W, temperature, top_k, top_p, active))
+    return tokens, token_logprob(logits, tokens)
+
+
+def sample_cutoffs_plain(W: int, logits: torch.Tensor,
+                         temperature: torch.Tensor, top_k: torch.Tensor,
+                         top_p: torch.Tensor,
+                         active: torch.Tensor) -> torch.Tensor:
+    """Each row's (thr_k, thr_p, cut) as the plain version finds them,
+    (R, 3) float32, NaN on greedy rows: what the kernel's
+    ``sample_cutoffs`` is held to."""
+    t, k, p = _live_rows(W, temperature, top_k, top_p, active)
+    safe_t = torch.where(t > 0, t, torch.ones_like(t))[:, None]
+    cuts = torch.stack(mask_cutoffs(logits.float() / safe_t, k, p), dim=1)
+    return torch.where((t > 0)[:, None], cuts, cuts.new_full((), torch.nan))
+
+
+def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
+                 logits: torch.Tensor, temperature: torch.Tensor,
+                 top_k: torch.Tensor, top_p: torch.Tensor,
+                 active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sampling call of the engine: (R,) int32 tokens and (R,)
+    float32 logprobs of the (R = B * W, V) logits, row (b, w) drawn under
+    ``fold_in(keys[b], counter0[b] + w)`` with slot b's temperature, top-k
+    and top-p (an inactive slot greedy), the reference's
+    ``sample_logits_per_slot`` and ``token_logprob``. keys (B, 2) int64;
+    counter0 (B,) int32 or int64; temperature, top_p (B,) float32; top_k
+    (B,) int32; active (B,) bool. CUDA logits take the kernel (one
+    launch), CPU logits the plain version."""
+    if not logits.is_cuda:
+        return sample_slots_plain(keys, counter0, W, logits, temperature,
+                                  top_k, top_p, active)
+    return kernels.sample_slots(keys, counter0, W, logits, temperature,
+                                top_k, top_p, active)

@@ -12,8 +12,8 @@ Integers are uint32 values held in int64 tensors and masked to 32 bits
 after every add and shift (torch has no uint32 add on the CPU). A key is
 a ``(..., 2)`` int64 tensor (``k1``, ``k2``), on whatever device the
 caller uses; nothing here syncs with the host. The CUDA kernel
-``csrc/gumbel_argmax.cu`` computes :func:`categorical` in one pass; this
-module is its plain version.
+``csrc/sample_slots.cu`` computes ``fold_in`` and :func:`categorical` for
+every row of a sampling call; this module is the plain version of both.
 """
 
 from __future__ import annotations
@@ -98,8 +98,9 @@ def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
     ``minval``. (..., n) float32."""
     bits = random_bits(keys, n)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    # filled on the device (no host copy), so a CUDA graph can capture it
+    lo = torch.full((), minval, dtype=torch.float32, device=keys.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=keys.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

@@ -165,5 +165,5 @@ def test_support_predicates_and_launch_counts():
     assert tk.launch_counts() == {"flash_prefill": 0,
                                   "ragged_paged_attention": 0,
                                   "ragged_paged_attention_int8": 0,
-                                  "ragged_decode": 0, "gumbel_argmax": 0}
+                                  "ragged_decode": 0, "sample_slots": 0}
 

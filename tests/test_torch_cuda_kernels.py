@@ -11,11 +11,15 @@ pool's kernel and plain version do the same f32 math on the same int8
 values and scales, so the same tolerances hold. The split-walk tests hold
 bf16 outputs per (row, query, head) to one bf16 ulp of the largest plain
 output, the bar ``chip_smoke.py`` uses, since int8-pool outputs reach 6.
-The Gumbel-argmax sampler must give its plain version's token on every row
-(the integer work is exact and both take the same float32 logs); a row
-whose plain top two ``logit + gumbel`` lie within 1e-5 may differ, and is
-counted apart.
+The sampling kernel is held to its plain version by ``chip_smoke.py``'s
+``check_sampler``: the top-k cutoff bit-equal, the top-p cutoff and the
+token equal except at counted near-ties (a mass within rounding of the
+target, the top two ``logit + gumbel`` within 1e-5), logprobs within
+1e-5.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -642,39 +646,37 @@ def test_engine_prefix_cache_kernel_path_matches_plain_on_the_card(
     assert min(runs["kernel"][1][1:]) > 0
 
 
-def _sampler_case(dev, R, V=128_256, seed=0):
-    """(R, 2) keys and (R, V) f32 logits: the rows mix greedy, temperature
-    0.7, top-k 50 and top-p 0.9 and come masked by _mask_dynamic."""
-    from generativeaiexamples_tpu_torch.ops import sampling, threefry
-    g = torch.Generator(device=dev).manual_seed(seed)
-    logits = torch.randn((R, V), generator=g, device=dev) * 3
-    mix = torch.arange(R, device=dev) % 4
-    temp = torch.where(mix == 0, 0.0, 0.7).to(dev)
-    top_k = torch.where(mix == 2, 50, 0).to(torch.int32)
-    top_p = torch.where(mix == 3, 0.9, 1.0).to(dev)
-    masked = sampling._mask_dynamic(logits, temp, top_k, top_p)
-    keys = threefry.fold_in(threefry.prng_key(torch.arange(R) + seed),
-                            torch.arange(R) * 7).to(dev)
-    return keys, masked
+def _smoke():
+    """chip_smoke.py, whose ``check_sampler`` holds the sampling kernel to
+    its plain version."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [8, 40, 72])
-def test_gumbel_argmax_matches_plain_on_the_card(cuda_device, R):
-    from generativeaiexamples_tpu_torch.ops import threefry
-    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
-    keys, masked = _sampler_case(cuda_device, R)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V", [128_256, 32_000, 1_000])
+@pytest.mark.parametrize("R", [1, 8, 72, 136])
+def test_sample_slots_matches_plain_on_the_card(cuda_device, R, V, dtype):
+    """One launch a sampling call, at the engine's row counts (a slot, 8
+    slots narrow, W = 9, the mixed dispatch's 136) and vocabularies, with
+    the degenerate rows of ``chip_smoke.sampler_inputs`` (-inf entries, a
+    span past 100 nats, a row of -inf, a -0.0 / +0.0 maximum, top-p 0,
+    top-k past V, inactive slots): thr_k bit-equal, thr_p and tokens equal
+    off the counted near-ties, logprobs within 1e-5, threefry bits exact,
+    the debug cutoff entry not counted."""
+    cs = _smoke()
+    B = 1 if R == 1 else 8
+    args = cs.sampler_inputs(cuda_device, B, R // B, V,
+                             getattr(torch, dtype), R + V % 97)
     tk.reset_launch_counts()
-    got = ks.gumbel_argmax(keys, masked)
+    reading, _ = cs.check_sampler(args)
     torch.cuda.synchronize()
-    assert tk.launch_counts()["gumbel_argmax"] == 1
-    want = threefry.categorical(keys, masked)
-    g = threefry.gumbel(keys, masked.shape[1]) + masked
-    top2 = g.topk(2, dim=-1).values
-    near_tie = (top2[:, 0] - top2[:, 1]) < 1e-5
-    differ = got != want
-    assert not (differ & ~near_tie).any()
-    assert torch.isfinite(masked.gather(1, got.long()[:, None])).all()
+    assert tk.launch_counts()["sample_slots"] == 1
+    assert reading["rows"] == R and reading["bits_exact"]
 
 
 @pytest.mark.cuda
@@ -690,16 +692,16 @@ def test_threefry_bits_of_the_kernel_library_on_the_card(cuda_device):
 @pytest.mark.cuda
 def test_engine_sampled_streams_kernel_sampler_match_plain(cuda_device,
                                                           monkeypatch):
-    """Seeded sampled requests (temperature, top-k, top-p) through the
-    Scheduler at the defaults, f32: the Gumbel-argmax kernel and its plain
-    version give the same tokens."""
+    """Seeded sampled requests (temperature, top-k, top-p, the chain
+    server's 0.2 / 0.7) through the Scheduler at the defaults, f32: the
+    sampling kernel and its plain version give the same tokens."""
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.scheduler import (
         Request, Scheduler)
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.models import llama
-    from generativeaiexamples_tpu_torch.ops import sampling, threefry
+    from generativeaiexamples_tpu_torch.ops import sampling
 
     cfg = llama.LlamaConfig.tiny(vocab_size=300)
     params = llama.init_params(
@@ -708,8 +710,8 @@ def test_engine_sampled_streams_kernel_sampler_match_plain(cuda_device,
     streams = {}
     for sampler in ("kernel", "plain"):
         if sampler == "plain":
-            monkeypatch.setattr(sampling, "gumbel_argmax",
-                                threefry.categorical)
+            monkeypatch.setattr(sampling, "sample_slots",
+                                sampling.sample_slots_plain)
         sched = Scheduler(EngineCore(cfg, EngineConfig(
             max_batch_size=4, max_seq_len=256, prefill_chunk=16,
             page_size=8), params, tok.eos_id, device=cuda_device), tok)
@@ -720,12 +722,16 @@ def test_engine_sampled_streams_kernel_sampler_match_plain(cuda_device,
                 for s, (p, k, p_) in enumerate((("hello", 0, 1.0),
                                                 ("a sampled prompt", 20, 1.0),
                                                 ("another one", 0, 0.9)))]
+        reqs.append(Request(prompt_ids=tok.encode("the chain", add_bos=True),
+                            max_tokens=32, temperature=0.2, top_p=0.7,
+                            seed=7))
         for r in reqs:
             sched.submit(r)
         while sched._tick():
             pass
         assert all(r.error is None and r.finished_at for r in reqs)
         streams[sampler] = [r.output_ids for r in reqs]
-        launched = tk.launch_counts()["gumbel_argmax"]
-        assert (launched > 0) == (sampler == "kernel")
+        launched = tk.launch_counts()["sample_slots"]
+        assert launched == (sched.core.sample_calls
+                            if sampler == "kernel" else 0)
     assert streams["kernel"] == streams["plain"]

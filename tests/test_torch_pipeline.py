@@ -21,6 +21,10 @@ tiny model.
 * ``warmup()`` leaves the first request's stream unchanged.
 * The knobs' defaults and validation; ``/health``'s in-flight count; the
   step code reads nothing back from the device.
+* A fused first token whose batched fetch has landed streams between the
+  steps of the dispatch being issued (``first_mid_dispatch``), once; a
+  first token that ends its request (EOS, ``max_tokens`` 1) finishes
+  after the dispatch is issued, with its reason, and frees its slot.
 """
 
 import os
@@ -123,7 +127,8 @@ def _default_waves(make):
     """A greedy and a seeded decoder, the second's prompt longer than a
     group of chunks (a ramp that holds decode); then, while both decode, a
     top-k / top-p sampled prompt of several chunks, a greedy one sharing
-    its pages and a sampled one whose seed passes 31 bits (it waits for a
+    its pages, a sampled one whose seed passes 31 bits and one at the
+    chain server's temperature 0.2 / top-p 0.7 (the last two wait for a
     slot)."""
     return [
         [make(prompt_ids=_ids("hello there"), max_tokens=64,
@@ -134,7 +139,9 @@ def _default_waves(make):
               top_k=20, top_p=0.9, seed=12),
          make(prompt_ids=_ids(QUOTE[:100]), max_tokens=24, temperature=0.0),
          make(prompt_ids=_ids("abc"), max_tokens=16, temperature=0.7,
-              seed=2 ** 40 + 3)]]
+              seed=2 ** 40 + 3),
+         make(prompt_ids=_ids("what does the context say?"), max_tokens=20,
+              temperature=0.2, top_p=0.7, seed=4)]]
 
 
 def _jax_tokens(reqs):
@@ -155,7 +162,7 @@ def test_default_streams_match_jax_scheduler(tiny, kv_quant):
             cfg.decode_width_ladder, cfg.prefix_cache) == (2, 16, "on", "on")
     got = [r.output_ids for r in _run(sched, _default_waves(Request))]
     assert got == want
-    assert [len(g) for g in got] == [64, 48, 24, 24, 16]
+    assert [len(g) for g in got] == [64, 48, 24, 24, 16, 20]
     st = sched.stats
     assert st["held_ticks"] > 0 and st["mixed_dispatches"] > 0
     assert st["spec_steps"] > 0 and st["decode_width_2"] > 0
@@ -201,6 +208,174 @@ def test_load_stats_reports_dispatches_in_flight(tiny, lagging):
         sched._tick()
         seen.add(sched.load_stats()["inflight_dispatches"])
     assert seen == {1, 2}
+
+
+# ----------------------------------------- first tokens mid-dispatch (C5)
+
+class _Watch:
+    """Counts decode forwards and records, for every token the Scheduler
+    emits and every request it finishes, how many forwards the dispatch
+    being issued had run (None outside ``_dispatch_decode``) and whether
+    the engine's ``decode`` was still running."""
+
+    def __init__(self, monkeypatch):
+        self.forwards, self.base = 0, None
+        self.in_decode = False
+        self.emitted, self.finished = [], {}
+        step = tengine.kv_cache.decode_step
+
+        def counting(*a, **k):
+            self.forwards += 1
+            return step(*a, **k)
+
+        dispatch = Scheduler._dispatch_decode
+
+        def dispatching(sched, *a, **k):
+            self.base = self.forwards
+            try:
+                return dispatch(sched, *a, **k)
+            finally:
+                self.base = None
+
+        decode = EngineCore.decode
+
+        def decoding(core, *a, **k):
+            self.in_decode = True
+            try:
+                return decode(core, *a, **k)
+            finally:
+                self.in_decode = False
+
+        emit = Scheduler._emit_token
+
+        def emitting(sched, job, tok):
+            self.emitted.append((job.request.request_id, tok, self.at()))
+            return emit(sched, job, tok)
+
+        finish = Scheduler._finish
+
+        def finishing(sched, job):
+            self.finished[job.request.request_id] = (self.at(),
+                                                     self.in_decode)
+            return finish(sched, job)
+
+        monkeypatch.setattr(tengine.kv_cache, "decode_step", counting)
+        monkeypatch.setattr(Scheduler, "_dispatch_decode", dispatching)
+        monkeypatch.setattr(EngineCore, "decode", decoding)
+        monkeypatch.setattr(Scheduler, "_emit_token", emitting)
+        monkeypatch.setattr(Scheduler, "_finish", finishing)
+
+    def at(self):
+        return None if self.base is None else self.forwards - self.base
+
+    def tokens(self, req):
+        return [t for rid, t, _ in self.emitted if rid == req.request_id]
+
+
+_C5 = dict(spec_decode="off", mixed_phase_dispatch="off",
+           prefill_hold_chunks=0, prefix_cache="off")
+
+
+def _decoding(sched, max_tokens=60):
+    """A greedy request decoding, with a dispatch issued."""
+    req = sched.submit(Request(prompt_ids=_ids("a decoder that runs on"),
+                               max_tokens=max_tokens, temperature=0.0))
+    for _ in range(50):
+        if sched.stats["decode_dispatches"]:
+            return req
+        sched._tick()
+    raise AssertionError("no decode dispatch")
+
+
+def _until_done(sched, reqs, cap=3000):
+    for _ in range(cap):
+        if all(r.finished_at for r in reqs):
+            break
+        sched._tick()
+    assert all(r.finished_at and r.error is None for r in reqs)
+
+
+def test_first_token_streams_between_a_dispatchs_steps(tiny, monkeypatch):
+    watch = _Watch(monkeypatch)
+    sched = Scheduler(_core(tiny, **_C5), ByteTokenizer())
+    steps = sched.core.cfg.decode_steps_per_dispatch
+    first = _decoding(sched)
+    late = sched.submit(Request(prompt_ids=_ids("a late prompt"),
+                                max_tokens=12, temperature=0.2, top_p=0.7,
+                                seed=3))
+    _until_done(sched, [first, late])
+    # the late prompt's first token streamed after the first forward of
+    # the dispatch issued beside its fetch, before the dispatch's last one
+    rid, tok, at = next(e for e in watch.emitted
+                        if e[0] == late.request_id)
+    assert at is not None and 1 <= at < steps
+    assert sched.stats["first_mid_dispatch"] >= 1
+    assert sched.load_stats()["first_mid_dispatch"] >= 1
+    # each token once: the dispatch's own step-0 copy of it emits nothing
+    assert watch.tokens(late) == late.output_ids
+    assert len(late.output_ids) == late.completion_tokens == 12
+    # and the stream is the one a device that never lands early gives
+    monkeypatch.setattr(HostCopy, "done", lambda self: False)
+    sched = Scheduler(_core(tiny, **_C5), ByteTokenizer())
+    _decoding(sched)
+    lagged = sched.submit(Request(prompt_ids=_ids("a late prompt"),
+                                  max_tokens=12, temperature=0.2, top_p=0.7,
+                                  seed=3))
+    _until_done(sched, [lagged])
+    assert sched.stats["first_mid_dispatch"] == 0
+    assert lagged.output_ids == late.output_ids
+
+
+def test_first_token_that_ends_its_request_finishes_after_the_dispatch(
+        tiny, monkeypatch):
+    """An EOS first token (forced for seed 77) and a max_tokens=1 request
+    resolve between the steps of a dispatch, and finish after it was
+    issued: outside the engine's decode, with their reasons, their slots
+    and pages freed."""
+    watch = _Watch(monkeypatch)
+    activate = EngineCore._activate_rows
+
+    def eos_for_seed_77(core, state, logits, items):
+        forced = [i for i, it in enumerate(items)
+                  if it.is_last and it.seed == 77]
+        sample = core._sample_slots
+
+        def sampled(*args):
+            toks, lps = sample(*args)
+            toks[forced] = core.eos_id
+            return toks, lps
+
+        core._sample_slots = sampled
+        try:
+            return activate(core, state, logits, items)
+        finally:
+            del core._sample_slots
+
+    monkeypatch.setattr(EngineCore, "_activate_rows", eos_for_seed_77)
+    sched = Scheduler(_core(tiny, **_C5), ByteTokenizer())
+    pages = sched._alloc.available
+    first = _decoding(sched, max_tokens=40)
+    eos = sched.submit(Request(prompt_ids=_ids("ends at once"),
+                               max_tokens=30, temperature=0.7, seed=77))
+    one = sched.submit(Request(prompt_ids=_ids("one token"), max_tokens=1,
+                               temperature=0.0))
+    for _ in range(20):
+        sched._tick()
+        if eos.finished_at and one.finished_at:
+            break
+    assert (eos.finish_reason, eos.output_ids) == ("eos", [])
+    assert one.finish_reason == "length" and len(one.output_ids) == 1
+    assert watch.tokens(one) == one.output_ids
+    assert sched.stats["first_mid_dispatch"] >= 2
+    for req in (eos, one):
+        at, in_decode = watch.finished[req.request_id]
+        assert at is not None and not in_decode
+        assert req.first_token_at <= req.finished_at
+    assert len(sched._slots) == 1 and sched.core.batch - len(sched._free) == 1
+    _until_done(sched, [first])
+    assert len(first.output_ids) == 40
+    assert sorted(sched._free) == list(range(sched.core.batch))
+    assert sched._alloc.available == pages
 
 
 # ------------------------------------------------------- page pressure

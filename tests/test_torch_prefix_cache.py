@@ -47,7 +47,6 @@ from generativeaiexamples_tpu_torch.engine.engine import (EngineCore,
 from generativeaiexamples_tpu_torch.engine.scheduler import Request, Scheduler
 from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops import sampling as ts
-from generativeaiexamples_tpu_torch.ops import threefry
 
 GEOMETRY = dict(max_batch_size=4, max_seq_len=256, page_size=8,
                 prefill_chunk=16)
@@ -536,22 +535,21 @@ def test_skip_ahead_admission_matches_jax(tiny, batch, n_small, want_order):
 @pytest.mark.parametrize("spec", ["off", "on"])
 def test_dead_sampled_slot_draws_no_samples(tiny, spec, monkeypatch):
     """A greedy request of 200 tokens beside a temperature-0.7 request of
-    2: once the sampled one ends by length, no draw and no key folding
-    happens, and the greedy stream is the one it gives alone."""
-    counts = {"draws": 0, "folds": 0}
-    draw = ts.gumbel_argmax
-    fold_in = threefry.fold_in
+    2: once the sampled one ends by length, no sampling call has a live
+    sampled row (its stale temperature does not send the slot down the
+    sampling path: no key is folded and nothing drawn for it), and the
+    greedy stream is the one it gives alone."""
+    counts = {"draws": 0, "calls": 0}
+    sample = ts.sample_slots
 
-    def counting_draw(*args, **kw):
-        counts["draws"] += 1
-        return draw(*args, **kw)
+    def counting_sample(keys, counter0, W, logits, temperature, top_k, top_p,
+                        active):
+        counts["calls"] += 1
+        counts["draws"] += int((active & (temperature > 0)).sum())
+        return sample(keys, counter0, W, logits, temperature, top_k, top_p,
+                      active)
 
-    def counting_fold_in(*args, **kw):
-        counts["folds"] += 1
-        return fold_in(*args, **kw)
-
-    monkeypatch.setattr(ts, "gumbel_argmax", counting_draw)
-    monkeypatch.setattr(threefry, "fold_in", counting_fold_in)
+    monkeypatch.setattr(ts, "sample_slots", counting_sample)
     kw = dict(spec_decode=spec, mixed_phase_dispatch="off",
               prefix_cache="off")
     greedy_ids = _ids("a greedy request that decodes for a long while")
@@ -568,7 +566,7 @@ def test_dead_sampled_slot_draws_no_samples(tiny, spec, monkeypatch):
                 break
             sched._tick()
         drawn = dict(counts)
-        counts.update(draws=0, folds=0)
+        counts.update(draws=0, calls=0)
         _tick_until_idle(sched)
         assert greedy.error is None
         return greedy, sampled, drawn
@@ -576,7 +574,7 @@ def test_dead_sampled_slot_draws_no_samples(tiny, spec, monkeypatch):
     greedy, sampled, drawn = run(True)
     assert sampled.finish_reason == "length"
     assert len(sampled.output_ids) == 2 and drawn["draws"] > 0
-    assert counts == {"draws": 0, "folds": 0}
+    assert counts["draws"] == 0 and counts["calls"] > 0
     assert len(greedy.output_ids) == 200
     alone, _, _ = run(False)
     assert greedy.output_ids == alone.output_ids

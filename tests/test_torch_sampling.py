@@ -139,3 +139,79 @@ def test_sample_logits_per_slot_matches_jax_with_the_same_keys(mix):
                 tkeys, torch.from_numpy(logits), torch.from_numpy(temperature),
                 torch.from_numpy(top_k), torch.from_numpy(top_p), **kw)
             np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the chain server's defaults (server/api.py, chains/basic_rag.py)
+SLOT_MIXES = {**MIXES, "chain": ([0.2] * 7, [0] * 7, [0.7] * 7)}
+COUNTERS = np.array([0, 1, 17, 2 ** 31 - 1, 2 ** 31 + 5, 2 ** 32 - 2, 999],
+                    np.int64)
+
+
+def _jax_sample_slots(keys, counter0, W, logits, temperature, top_k, top_p,
+                      active):
+    """The reference's per-row keys (fold_in of each slot's key by
+    counter0 + w, mod 2**32), live settings, sample and logprob."""
+    ctr = ((counter0[:, None] + np.arange(W)[None]) % 2 ** 32).reshape(-1)
+    row_keys = jax.vmap(jax.random.fold_in)(
+        jnp.repeat(jnp.asarray(keys), W, axis=0),
+        jnp.asarray(ctr.astype(np.uint32)))
+
+    def live(x, off, dt):
+        return jnp.asarray(np.repeat(np.where(active, x, off), W).astype(dt))
+
+    lf = jnp.asarray(logits)
+    tokens = js.sample_logits_per_slot(
+        row_keys, lf, live(temperature, 0, np.float32),
+        live(top_k, 0, np.int32), live(top_p, 1, np.float32))
+    return np.asarray(tokens), np.asarray(js.token_logprob(lf, tokens))
+
+
+@pytest.mark.parametrize("W", [1, 3, 9])
+@pytest.mark.parametrize("mix", sorted(SLOT_MIXES))
+def test_sample_slots_matches_jax(mix, W):
+    temperature, top_k, top_p = (np.array(x, dt) for x, dt in zip(
+        SLOT_MIXES[mix], (np.float32, np.int32, np.float32)))
+    B = len(temperature)
+    rng = np.random.default_rng(W)
+    for trial in range(6):
+        logits = (rng.standard_normal((B * W, 300)) * 2.5).astype(np.float32)
+        logits[(trial * 5) % (B * W), :30] = -np.inf
+        # a row spanning more than 100 nats: its lowest entries fall
+        # below lo0 and out of every top-p mass
+        logits[(trial * 5 + 2) % (B * W), :25] -= 130.0
+        active = np.ones(B, bool)
+        active[trial % B] = False
+        keys = np.asarray(jax.vmap(jax.random.PRNGKey)(
+            jnp.arange(B, dtype=jnp.int32) + 100 * trial))
+        counter0 = np.roll(COUNTERS, trial)[:B]
+        want_tok, want_lp = _jax_sample_slots(
+            keys, counter0, W, logits, temperature, top_k, top_p, active)
+        got_tok, got_lp = ts.sample_slots(
+            torch.from_numpy(keys.astype(np.int64)),
+            torch.from_numpy(counter0), W, torch.from_numpy(logits),
+            torch.from_numpy(temperature), torch.from_numpy(top_k),
+            torch.from_numpy(top_p), torch.from_numpy(active))
+        assert got_tok.dtype == torch.int32 and got_lp.dtype == torch.float32
+        np.testing.assert_array_equal(got_tok.numpy(), want_tok)
+        np.testing.assert_allclose(got_lp.numpy(), want_lp, atol=1e-5)
+        # an inactive slot's rows are greedy whatever its settings
+        dead = np.repeat(~active, W)
+        np.testing.assert_array_equal(got_tok.numpy()[dead],
+                                      logits[dead].argmax(axis=1))
+
+
+def test_sample_cutoffs_plain_are_the_masks_cutoffs():
+    """The cutoffs the kernel is held to on the card are the ones
+    ``_mask_dynamic`` cuts at: the surviving set of every filtered row is
+    the entries at or above ``cut``, and greedy rows read NaN."""
+    logits, temperature, top_k, top_p = _case()
+    args = [torch.from_numpy(a) for a in (logits, temperature, top_k, top_p)]
+    cuts = ts.sample_cutoffs_plain(1, *args, torch.ones(6, dtype=torch.bool))
+    assert torch.isnan(cuts[0]).all()                # greedy row
+    masked = ts._mask_dynamic(*args)
+    safe_t = torch.where(args[1] > 0, args[1], torch.ones(6))[:, None]
+    scaled = args[0] / safe_t
+    for r in range(1, 6):
+        np.testing.assert_array_equal(
+            torch.isfinite(masked[r]).numpy(),
+            (scaled[r] >= cuts[r, 2]).numpy())

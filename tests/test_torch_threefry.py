@@ -11,8 +11,8 @@ CPU, with keys and data made from a numpy seed.
   error).
 * ``categorical`` gives JAX's token in 2,400 draws over rows without and
   with ``-inf`` entries.
-* The kernel wrapper takes its plain version for CPU tensors and counts
-  no launch; the split plan covers a row.
+* ``sample_slots`` takes its plain version for CPU tensors and counts no
+  launch; a row's cluster of blocks covers it.
 """
 
 import jax
@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from generativeaiexamples_tpu_torch.ops import sampling as ts
 from generativeaiexamples_tpu_torch.ops import threefry as tf
 from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
 from generativeaiexamples_tpu_torch.ops.cuda.build import launch_counts
@@ -159,25 +160,34 @@ def test_categorical_of_an_all_masked_row_is_index_0():
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():
-    keys, logits = _categorical_case(0, True)
-    before = launch_counts()["gumbel_argmax"]
-    got = ks.gumbel_argmax(_tkey(keys), torch.from_numpy(logits))
+    """``ops.sampling.sample_slots`` on CPU tensors is its plain version:
+    rows at temperature 1 with no filter (some with -inf entries) draw
+    threefry's categorical under their folded keys, and no launch is
+    counted. The kernel wrapper refuses CPU tensors."""
+    _, logits = _categorical_case(0, True)
+    lf = torch.from_numpy(logits)
+    base = tf.prng_key(torch.arange(40))
+    ctr = torch.arange(40, dtype=torch.int32) * 7
+    ones = torch.ones(40)
+    args = (base, ctr, 1, lf, ones, torch.zeros(40, dtype=torch.int32),
+            ones, torch.ones(40, dtype=torch.bool))
+    before = launch_counts()["sample_slots"]
+    got, _ = ts.sample_slots(*args)
     np.testing.assert_array_equal(
-        got.numpy(), tf.categorical(_tkey(keys), torch.from_numpy(logits)))
-    assert launch_counts()["gumbel_argmax"] == before
-    with pytest.raises(ValueError):
-        ks.gumbel_argmax(_tkey(keys), torch.from_numpy(logits[0]))
-    with pytest.raises(ValueError):
-        tf.categorical(_tkey(keys)[:3], torch.from_numpy(logits))
+        got.numpy(), tf.categorical(tf.fold_in(base, ctr), lf).numpy())
+    assert launch_counts()["sample_slots"] == before
     with pytest.raises(ValueError, match="CUDA"):
-        ks.threefry_bits(_tkey(keys), 8)
+        ks.sample_slots(*args)
+    with pytest.raises(ValueError):
+        tf.categorical(base[:3], lf)
+    with pytest.raises(ValueError, match="CUDA"):
+        ks.threefry_bits(base, 8)
 
 
 @pytest.mark.parametrize("rows, vocab", [(1, 300), (8, 128_256),
-                                         (72, 128_256), (200, 1000)])
-def test_split_plan_covers_the_row(rows, vocab):
-    splits, seg = ks.split_plan(rows, vocab, 132)
-    assert seg % ks.THREADS == 0 and splits * seg >= vocab
-    assert (splits - 1) * seg < vocab          # no empty split
-    assert rows * splits >= min(ks.BLOCKS_PER_SM * 132,
-                                rows * -(-vocab // ks.THREADS)) // 2
+                                         (72, 128_256), (136, 1000)])
+def test_cluster_slices_cover_the_row(rows, vocab):
+    n = ks.slice_entries(vocab)
+    assert n % 8 == 0 and ks.CLUSTER * n >= vocab > ks.CLUSTER * (n - 8)
+    assert 8 * n <= 232_448                    # s and e in shared memory
+    assert rows <= ks.MAX_ROWS and vocab <= ks.MAX_VOCAB
