@@ -27,6 +27,13 @@ prints no result:
               the counted near-ties, logprobs within 1e-5, threefry bits
               exact; times beside the bound of the work these inputs need,
               the plain version and a sort-based torch yardstick;
+  7b. kernel:w8a16_gemm  the W8A16 GEMM (int8 weights, bf16 or f32
+              activations) at every weight shape of llama3-8b (8, 40, 72
+              and 4,096 rows) and of llama3-70b (8 and 72 rows), bf16, and
+              one f32 case, within ``GEMM_TOLERANCE`` of its plain version;
+              times over enough weight copies to pass L2, beside the bound,
+              the plain version and ``F.linear`` over the dequantized
+              weight;
   8. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
               the plain path give the same tokens through the engine over
               a model-dtype pool and an int8 pool, on the narrow path (one
@@ -41,7 +48,9 @@ prints no result:
               sampler (which must launch no ``sample_slots``), against ``pipeline_depth`` 1, against the ladder
               off and against a device that lags (two dispatches then
               stay in flight), greedy and seeded sampled streams token
-              for token;
+              for token; then ``parity_w8``: int8 weights at that width,
+              both pools, the kernel path (``w8a16_gemm``'s f32 instance
+              and the attention kernels) against the plain path;
   9. serve    llama3-8b at full width and depth, bf16, random seeded
               weights, behind the port's HTTP server with the reference's
               defaults (``warmup`` first): 4 requests (10 chunks) admitted
@@ -78,7 +87,19 @@ prints no result:
               step), and the first two profiles over an int8 pool;
  14. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
-              ragged_decode.
+              ragged_decode;
+ 15. serve_w8  ``serve`` with int8 weights (the bf16 set quantized in
+              place): 7 ``w8a16_gemm`` launches a layer and one a head per
+              forward pass, no ``F.linear``; then ``profile_w8``, a narrow
+              decode step's GEMM device ms against the bytes it must read
+              and the bf16 step's matmul ms;
+ 16. serve_70b_w8  after the llama3-8b weights are dropped: llama3-70b at
+              full width and depth, int8 weights drawn from seed 0 and
+              quantized as drawn, an int8 KV pool, the engine's defaults;
+              ``serve``'s 4 decoders at 32 tokens, then one 1,296-byte
+              prompt that rides mixed dispatches of 128 query vectors a
+              row (query tiles of the ragged kernel); peak GB, warmup
+              seconds, tok/s and TTFT.
 
 Each serve phase reports the dispatch loop: dispatches per width rung,
 held ticks, dispatches issued with another in flight and the most left in
@@ -104,13 +125,15 @@ dropped KV tile and a causal mask off by one in ``flash_prefill``, a
 dropped tile, a dropped split in the combine, a causal limit off by one
 and a wrong int8 scale slot in the decode-side walk, and a wrong
 threefry rotation constant, a counter off by one, a strict top-p
-predicate and z summed over every entry in the sampler, each
+predicate and z summed over every entry in the sampler, and a dropped
+scale and a skipped contraction tile (each instance) in the W8A16 GEMM,
+each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
 ``--ab`` times every attention kernel and the sampling call of two trees
 of the port in turns, with the grouped-prefill profile and
 ``profile_sampled``. Each main
-path (9 to 14) sets the launch counts to 0 just before it and reads them
+path (9 to 16) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -120,6 +143,7 @@ package. Exits non-zero without CUDA, or when the port is not beside it.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import os
 import subprocess
@@ -240,8 +264,8 @@ def compare(name, got, want, valid):
     return reading
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -378,15 +402,15 @@ def phase_flash(dev):
 
 
 def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False, pos0=None,
-                 slot_of_row=None, seed=None):
+                 slot_of_row=None, seed=None, H=32):
     """One shape of the ragged kernel over a 32-layer pool of llama3-8b
-    heads: bf16 pages, or int8 pages with f32 (N, KV, page) scales. Row r
-    reads the page-table row of slot ``slot_of_row[r]`` (default: a slot
-    of its own), with its queries at ``pos0[r]`` on (default: its last
-    ``q_num`` positions)."""
+    heads (H = 64: llama3-70b's, G = 8): bf16 pages, or int8 pages with
+    f32 (N, KV, page) scales. Row r reads the page-table row of slot
+    ``slot_of_row[r]`` (default: a slot of its own), with its queries at
+    ``pos0[r]`` on (default: its last ``q_num`` positions)."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
-    L, H, KV, HD, ps, maxp = 32, 32, 8, 128, 128, 16
+    L, KV, HD, ps, maxp = 32, 8, 128, 128, 16
     slot_of_row = list(range(R)) if slot_of_row is None else slot_of_row
     n_slots = max(slot_of_row) + 1
     P = max(8, n_slots) * maxp + 1
@@ -471,9 +495,11 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False, pos0=None,
     nbytes = float(kv_bytes + scale_bytes + 2 * valid_q * H * HD * 2)
     b_ms, b_by = bound(flops, nbytes)
     ms = graph_ms(run_kernel)
+    # rows past QG_MAX query vectors run as query tiles, each a cell
+    tq = (k.query_tile(Qb, H // KV) if hasattr(k, "query_tile") else Qb)
     res = dict(
-        **check, tolerance=TOLERANCE,
-        **_split_fields(dev, R, KV, T, Qb * H // KV, HD),
+        **check, tolerance=TOLERANCE, query_tiles=-(-Qb // tq),
+        **_split_fields(dev, R * -(-Qb // tq), KV, T, tq * H // KV, HD),
         ms=ms, share_of_bound=b_ms / ms,
         plain_ms=time_ms(lambda: k.ragged_paged_attention_plain(
             q, k_pool, v_pool, tables, kv_lens, pos0, qn, 3, P, k_sc, v_sc)),
@@ -512,12 +538,13 @@ def _split_fields(dev, rows, kv_heads, capacity, qg, head_dim):
                                                  head_dim))
 
 
-def _verify_case(dev, W, quant):
+def _verify_case(dev, W, quant, H=32):
     """A W-wide speculative verify step at batch 8: the batch-8 decode
     rows' lengths (at least W), all W queries live."""
     lens = [max(n, W) for n in DECODE_LENS]
-    return _ragged_case(dev, 8, W, lens, [W] * 8, f"verify_qb{W}", quant,
-                        seed=20 + W + 100 * quant)
+    tag = f"verify_qb{W}" + ("" if H == 32 else "_g8")
+    return _ragged_case(dev, 8, W, lens, [W] * 8, tag, quant,
+                        seed=20 + W + 100 * quant + (H != 32), H=H)
 
 
 # the mixed program's rows at llama3-8b (q_block 16 for the top verify
@@ -531,7 +558,7 @@ MIXED_STARTS = (0, 512, 1024, 1536)
 PREFIX_CHUNKS = ((1152, 64), (1280, 200), (1408, 120), (1152, 160))
 
 
-def _mixed_case(dev, quant, chunks=None, tag="mixed_qb16"):
+def _mixed_case(dev, quant, chunks=None, tag="mixed_qb16", H=32):
     chunks = chunks or tuple((start, 512) for start in MIXED_STARTS)
     lens = [max(n, 9) for n in DECODE_LENS]
     q_num, pos0, slots = [9] * 8, [n - 9 for n in lens], list(range(8))
@@ -544,11 +571,12 @@ def _mixed_case(dev, quant, chunks=None, tag="mixed_qb16"):
             slots.append(8 + c)
     return _ragged_case(dev, len(lens), 16, lens, q_num, tag, quant,
                         pos0=pos0, slot_of_row=slots,
-                        seed=40 + 100 * quant + (tag != "mixed_qb16"))
+                        seed=40 + 100 * quant + (tag != "mixed_qb16"), H=H)
 
 
 RAGGED_SUBCASES = ("mixed_rows", "batch1", "verify_qb5", "verify_qb9",
-                   "mixed_qb16", "mixed_prefix")
+                   "mixed_qb16", "mixed_prefix", "verify_qb9_g8",
+                   "mixed_qb16_g8")
 
 
 def ragged_cases(dev, quant=False):
@@ -556,8 +584,11 @@ def ragged_cases(dev, quant=False):
     narrow serving shape), mixed rows (Qb = 8, q_num 8/3/1/0), one decode
     row at batch 1, the verify steps of widths 5 and 9 at batch 8, the
     mixed program's 136 rows, and the same with cache-hit suffixes for
-    chunks (``mixed_prefix``)."""
-    return {
+    chunks (``mixed_prefix``); then llama3-70b's heads (G = 8) at the
+    verify width 9 (72 query vectors a row) and the mixed rows of 16
+    (128), each row two query tiles."""
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    cases = {
         "decode": lambda: _ragged_case(dev, 8, 1, DECODE_LENS, [1] * 8,
                                        "decode", quant),
         "mixed_rows": lambda: _ragged_case(dev, 4, 8, [520, 1000, 64, 700],
@@ -570,6 +601,11 @@ def ragged_cases(dev, quant=False):
         "mixed_prefix": lambda: _mixed_case(dev, quant, PREFIX_CHUNKS,
                                             "mixed_prefix"),
     }
+    if hasattr(k, "query_tile"):     # a tree whose rows take query tiles
+        cases["verify_qb9_g8"] = lambda: _verify_case(dev, 9, quant, H=64)
+        cases["mixed_qb16_g8"] = lambda: _mixed_case(
+            dev, quant, tag="mixed_qb16_g8", H=64)
+    return cases
 
 
 def phase_ragged(dev, quant=False):
@@ -641,6 +677,145 @@ def decode_cases(dev):
 def phase_decode(dev):
     res = _run_cases("ragged_decode", decode_cases(dev))
     emit("kernel:ragged_decode", kernel_ms=res["ms"], **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The W8A16 GEMM
+# ---------------------------------------------------------------------------
+
+# (name, N, K) of each weight shape a forward pass multiplies by: wq and wo
+# (equal at both sizes), wk and wv, gate and up, down, lm_head
+GEMM_SHAPES = {
+    "8b": (("wq_wo", 4096, 4096), ("wk_wv", 1024, 4096),
+           ("gate_up", 14336, 4096), ("down", 4096, 14336),
+           ("lm_head", 128256, 4096)),
+    "70b": (("wq_wo", 8192, 8192), ("wk_wv", 1024, 8192),
+            ("gate_up", 28672, 8192), ("down", 8192, 28672),
+            ("lm_head", 128256, 8192)),
+}
+# rows: a narrow decode step (8 slots), W = 5 and W = 9 verify steps, a
+# grouped prefill of 8 chunks of 512; llama3-70b at the decode widths
+GEMM_ROWS = {"8b": (8, 40, 72, 4096), "70b": (8, 72)}
+PEAK_F32_FLOPS = 67e12     # the H100 SXM's f32 rate outside the tensor cores
+GEMM_TOLERANCE = ("per element: 2**-7 x (|plain product before the scale| "
+                  "x s + |plain result|) (bf16: one ulp of each rounding; "
+                  "f32: 2**-22) + 2**-16 x (|x| @ |q|^T) x s (summation "
+                  "order)")
+
+
+def gemm_inputs(dev, M, N, K, dtype, seed):
+    """x (M, K) standard normal in ``dtype``, q (N, K) int8 uniform over
+    -127..127, s (N,) f32 near what per-channel quantization of a
+    fan-in-scaled normal weight gives (4.5 / sqrt(K) / 127)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    q = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = (torch.rand((N,), generator=g, device=dev) + 0.5) * (
+        4.5 / K ** 0.5 / 127)
+    return x, q, s
+
+
+def check_gemm(name, x, q, s, got):
+    """The kernel's (M, N) ``got`` against the plain version on the same
+    inputs, within ``GEMM_TOLERANCE``: every value finite and no element
+    past its limit. Returns the max abs error and the largest ratio of an
+    error to its limit; raises KernelMismatch."""
+    import torch
+    import torch.nn.functional as F
+    dt = x.dtype
+    unscaled = F.linear(x, q.to(dt))               # the plain's product
+    sb = s.to(dt).float()
+    want = (unscaled * s.to(dt)).float()           # w8a16_gemm_plain
+    absdot = F.linear(x.float().abs(), q.float().abs()) * sb
+    ulp = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+    limit = ulp * (unscaled.float().abs() * sb + want.abs()) \
+        + 2.0 ** -16 * absdot
+    err = (got.float() - want).abs()
+    reading = {"max_abs_err": err.max().item(),
+               "max_err_over_limit": (err / limit).max().item(),
+               "finite": bool(torch.isfinite(got).all())}
+    del unscaled, absdot, limit, err, want
+    if not reading["finite"] or reading["max_err_over_limit"] > 1.0:
+        raise KernelMismatch(name, reading)
+    return reading
+
+
+def _gemm_case(dev, M, N, K, dtype, seed):
+    """w8a16_gemm at one shape: checked against its plain version, then
+    timed over enough copies of the weight to pass L2 (decode finds every
+    weight cold), beside the plain version (eager dequantize + F.linear)
+    and the library yardstick (F.linear over the bf16-dequantized weight,
+    dequantization not timed)."""
+    import torch
+    import torch.nn.functional as F
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+    x, q, s = gemm_inputs(dev, M, N, K, dtype, seed)
+    out = cq.w8a16_gemm(x, q, s)
+    check = check_gemm("w8a16_gemm", x, q, s, out)
+    if CHECK_ONLY:
+        return check
+    copies = max(1, min(32, -(-(256 << 20) // (N * K))))
+    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    deq = [(w.float() * s[:, None]).to(x.dtype) for w in qs]
+    it = iter(range(1 << 30))
+    it2 = iter(range(1 << 30))
+    it3 = iter(range(1 << 30))
+    size = x.element_size()
+    flops = 2.0 * M * N * K
+    nbytes = float(N * K + 4 * N + size * (M * K + M * N))
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    b_ms, b_by = bound(flops, nbytes, peak)
+    plan = cq.gemm_plan(M, N, K, torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    ms = graph_ms(lambda: cq.w8a16_gemm(x, qs[next(it) % copies], s),
+                  target_ms=150.0, per_graph=8)
+    res = dict(
+        **check, tolerance=GEMM_TOLERANCE, ms=ms, share_of_bound=b_ms / ms,
+        plain_ms=time_ms(lambda: cq.w8a16_gemm_plain(
+            x, qs[next(it2) % copies], s), target_ms=150.0),
+        library_ms=graph_ms(lambda: F.linear(x, deq[next(it3) % copies]),
+                            target_ms=150.0, per_graph=8),
+        library_call="F.linear over the weight dequantized to "
+                     + str(x.dtype).removeprefix("torch.")
+                     + " (dequantization not timed)",
+        bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        weight_copies=copies,
+        plan=(None if x.dtype != torch.bfloat16 else plan._asdict()),
+        scratch_bytes=(0 if x.dtype != torch.bfloat16
+                       else plan.scratch_bytes(M, N)),
+        shape=dict(M=M, N=N, K=K, dtype=str(x.dtype).removeprefix("torch.")))
+    del qs, deq
+    return res
+
+
+def gemm_cases(dev):
+    """The W8A16 GEMM's cases, each a thunk: every weight shape of
+    llama3-8b at 8, 40, 72 and 4,096 rows and of llama3-70b at 8 and 72,
+    bf16; and wq at 8 rows in f32 (the parity phase's dtype). The first,
+    gate/up at a narrow decode step, is the entry's own."""
+    import torch
+    cases = {}
+    order = [("8b", "gate_up", 8)] + [
+        (m, name, M) for m in ("8b", "70b") for name, _, _ in GEMM_SHAPES[m]
+        for M in GEMM_ROWS[m]]
+    for i, (m, name, M) in enumerate(order):
+        tag = f"{m}_{name}_m{M}"
+        if tag in cases:
+            continue
+        N, K = next((n, k) for nm, n, k in GEMM_SHAPES[m] if nm == name)
+        cases[tag] = (lambda M=M, N=N, K=K, i=i: _gemm_case(
+            dev, M, N, K, torch.bfloat16, 90 + i))
+    cases["8b_wq_wo_m8_f32"] = lambda: _gemm_case(dev, 8, 4096, 4096,
+                                                  torch.float32, 89)
+    return cases
+
+
+def phase_gemm(dev):
+    res = _run_cases("w8a16_gemm", gemm_cases(dev))
+    emit("kernel:w8a16_gemm", kernel_ms=res["ms"], **res)
     return res
 
 
@@ -1141,6 +1316,67 @@ def phase_parity(dev):
     del params
 
 
+def phase_parity_w8(dev):
+    """int8 weights at llama3-8b width, 2 layers, f32, greedy, the
+    reference's defaults (no prefill hold, so the second prompt rides a
+    mixed dispatch), over a model-dtype pool and an int8 pool: the kernel
+    path (the attention kernels and ``w8a16_gemm``'s f32 instance) against
+    the plain path (plain attention, ``w8a16_gemm_plain``), on weights
+    drawn from one seed and quantized as drawn."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype="float32")
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(3),
+                               cfg, device=dev, quant="int8")
+    tok = ByteTokenizer()
+    prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
+               tok.encode(PROMPT_TEXT * 5, add_bos=True)]
+    kernel_gemm = cq.w8a16_gemm
+    reports, launches = {}, {}
+    for kv_quant in ("none", "int8"):
+        streams = {}
+        for attn in ("kernel", "plain"):
+            ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                page_size=128, prefill_chunk=512,
+                                dtype="float32", attention=attn,
+                                kv_quant=kv_quant, quant="int8",
+                                prefill_hold_chunks=0)
+            sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
+                                         device=dev), tok)
+            cq.w8a16_gemm = (kernel_gemm if attn == "kernel"
+                             else cq.w8a16_gemm_plain)
+            k.reset_launch_counts()
+            sched.start()
+            try:
+                streams[attn] = _staggered_streams(sched, prompts, 96, 24)
+            finally:
+                sched.stop()
+                cq.w8a16_gemm = kernel_gemm
+            launches[f"{kv_quant}, {attn}"] = k.launch_counts()
+            if (k.launch_counts()["w8a16_gemm"] > 0) != (attn == "kernel"):
+                raise AssertionError(f"parity_w8 ({kv_quant}, {attn}): "
+                                     f"launches {k.launch_counts()}")
+            if not sched.stats["mixed_dispatches"]:
+                raise AssertionError(f"parity_w8 ({kv_quant}, {attn}) ran "
+                                     f"no mixed dispatch: {sched.stats}")
+        label = f"engine, quant=int8, kv_quant={kv_quant}, kernel vs plain"
+        reports[label] = _parity_report(params, cfg, prompts,
+                                        streams["kernel"], streams["plain"],
+                                        dev, label)
+    emit("parity_w8", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
+         streams=reports, launches=launches)
+    del params
+
+
 # the prefix phases' shared context (1,536 bytes, a RAG chain's retrieved
 # text) and questions of 64 to 256 bytes, each starting with its own byte,
 # so any two prompts share exactly the context
@@ -1520,7 +1756,9 @@ def serving_core(dev, cfg, params, kv_quant="none", batch=8, **knobs):
     """The serve phases' engine core: ``batch`` slots of 2,048 tokens in
     pages of 128, chunks of 512, over a model-dtype or an int8 pool; the
     reference's defaults (speculation adaptive on, the mixed dispatch
-    "auto", on for the card) unless ``knobs`` say otherwise."""
+    "auto", on for the card, model-dtype weights) unless ``knobs`` say
+    otherwise (``quant="int8"``: int8 weights, quantizing ``params`` in
+    place where they are not yet)."""
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -1550,18 +1788,19 @@ def _gate_admission(sched):
     return gate
 
 
-def _staggered_traffic(base, sched, submitted, chain=False):
-    """``serve``'s traffic: the decoders (256 tokens, greedy and 0.7 in
-    turn) admitted together, then the late prompts (32 tokens) once the
-    first decode dispatch ran. ``chain``: every request at the chain
+def _staggered_traffic(base, sched, submitted, chain=False,
+                       decoder_tokens=256, late=2):
+    """``serve``'s traffic: the decoders (``decoder_tokens``, greedy and
+    0.7 in turn) admitted together, then ``late`` prompts (32 tokens) once
+    the first decode dispatch ran. ``chain``: every request at the chain
     server's temperature 0.2 / top-p 0.7 and 64 tokens (``serve_chain``)."""
     gate = _gate_admission(sched)
     gate.clear()
     chain_kw = dict(temperature=0.2, top_p=0.7)
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         futs = [pool.submit(_request, base, i, PROMPT_TEXT * n,
-                            64 if chain else 256, i % 2 == 0, i < 2,
-                            **(chain_kw if chain else dict(
+                            64 if chain else decoder_tokens, i % 2 == 0,
+                            i < 2, **(chain_kw if chain else dict(
                                 temperature=0.0 if i % 2 else 0.7)))
                 for i, n in enumerate(DECODERS)]
         _wait_for(lambda: len(submitted) >= len(DECODERS),
@@ -1577,7 +1816,7 @@ def _staggered_traffic(base, sched, submitted, chain=False):
         futs += [pool.submit(_request, base, 4 + i, PROMPT_TEXT * LATE_PROMPT,
                              64 if chain else 32, i == 0, i == 0,
                              **(chain_kw if chain else dict(temperature=0.0)))
-                 for i in range(2)]
+                 for i in range(late)]
         return [f.result() for f in futs], at
 
 
@@ -1626,17 +1865,68 @@ def _check_loop(name, stats, core, launches, sampled, ramp):
                              f"launches {launches}")
 
 
+class _ForwardCount:
+    """While entered: the model's forward passes (``llama.run_blocks``
+    calls), unembeddings (``llama._unembed`` calls), the ragged kernel's
+    launches whose rows pass ``QG_MAX`` query vectors (query tiles), and
+    every ``F.linear`` call (none may multiply a weight on an int8 path)."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        from generativeaiexamples_tpu_torch.models import llama
+        from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+        self.blocks = self.unembeds = self.tiled = self.linear = 0
+        self._saved = [(llama, "run_blocks", llama.run_blocks),
+                       (llama, "_unembed", llama._unembed),
+                       (k, "ragged_paged_attention",
+                        k.ragged_paged_attention),
+                       (F, "linear", F.linear)]
+        blocks, unembed, ragged, linear = (f for _, _, f in self._saved)
+
+        def run_blocks(*args, **kw):
+            self.blocks += 1
+            return blocks(*args, **kw)
+
+        def _unembed(*args, **kw):
+            self.unembeds += 1
+            return unembed(*args, **kw)
+
+        def ragged_paged_attention(q, k_pages, *args, **kw):
+            Qb, H = q.shape[1], q.shape[2]
+            G = H // (k_pages.shape[-1] // q.shape[3])
+            self.tiled += Qb * G > k.QG_MAX
+            return ragged(q, k_pages, *args, **kw)
+
+        def counted_linear(*args, **kw):
+            self.linear += 1
+            return linear(*args, **kw)
+
+        llama.run_blocks, llama._unembed = run_blocks, _unembed
+        k.ragged_paged_attention = ragged_paged_attention
+        F.linear = counted_linear
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
 def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
-                chain=False):
-    """HTTP requests against full llama3-8b; the launch counts, the
-    dispatch counts and the engine's sampling calls are set to 0 just
-    before the requests and read just after. ``narrow``: speculation and
-    the mixed dispatch off, six concurrent requests (the narrow path); else
-    the reference's defaults and the staggered traffic, which must run at
-    least one mixed dispatch and one widened step; ``chain``: that traffic
-    at the chain server's temperature 0.2 / top-p 0.7 (``serve_chain``),
-    every step through the top-p bisection. Returns (launches, the engine
-    core)."""
+                chain=False, quant="none", model="llama3-8b",
+                decoder_tokens=256, late=2):
+    """HTTP requests against a full model (llama3-8b unless ``model`` says
+    otherwise); the launch counts, the dispatch counts and the engine's
+    sampling calls are set to 0 just before the requests and read just
+    after. ``narrow``: speculation and the mixed dispatch off, six
+    concurrent requests (the narrow path); else the reference's defaults
+    and the staggered traffic (``decoder_tokens`` a decoder, ``late``
+    late prompts), which must run at least one mixed dispatch and one
+    widened step; ``chain``: that traffic at the chain server's
+    temperature 0.2 / top-p 0.7 (``serve_chain``), every step through the
+    top-p bisection. ``quant="int8"``: int8 weights (``params`` are
+    quantized in place if they are not yet), every projection and the
+    head through ``w8a16_gemm`` (7 launches a layer and one a head per
+    forward pass, no ``F.linear``). Returns (launches, the engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
@@ -1644,7 +1934,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
 
     tok = ByteTokenizer()
-    core = serving_core(dev, cfg, params, kv_quant,
+    core = serving_core(dev, cfg, params, kv_quant, quant=quant,
                         **(NARROW if narrow else {}))
     warmup_s = core.warmup()
     sched = Scheduler(core, tok)
@@ -1657,7 +1947,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
 
     sched.submit = recording_submit
     torch.cuda.reset_peak_memory_stats()
-    httpd, thread = serve_in_thread(sched, "llama3-8b-random")
+    httpd, thread = serve_in_thread(sched, f"{model}-random")
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     at_late = None
     try:
@@ -1665,21 +1955,22 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             if resp.status != 200:
                 raise AssertionError("/health did not answer 200")
             health = json.loads(resp.read())
-        k.reset_launch_counts()
-        for key in sched.stats:
-            sched.stats[key] = 0
-        core.sample_calls = 0
-        t0 = time.perf_counter()
-        if narrow:
-            with concurrent.futures.ThreadPoolExecutor(6) as pool:
-                results = list(pool.map(lambda i: _request(base, i),
-                                        range(6)))
-        else:
-            results, at_late = _staggered_traffic(base, sched, submitted,
-                                                  chain)
-        wall = time.perf_counter() - t0
-        launches = k.launch_counts()
-        stats = dict(sched.stats)
+        with _ForwardCount() as fwd:
+            k.reset_launch_counts()
+            for key in sched.stats:
+                sched.stats[key] = 0
+            core.sample_calls = 0
+            t0 = time.perf_counter()
+            if narrow:
+                with concurrent.futures.ThreadPoolExecutor(6) as pool:
+                    results = list(pool.map(lambda i: _request(base, i),
+                                            range(6)))
+            else:
+                results, at_late = _staggered_traffic(
+                    base, sched, submitted, chain, decoder_tokens, late)
+            wall = time.perf_counter() - t0
+            launches = k.launch_counts()
+            stats = dict(sched.stats)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1703,6 +1994,15 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             or launches[decode_key] < need_decode or need_decode == 0):
         raise AssertionError(f"serving did not run through the kernels: "
                              f"launches {launches}, dispatches {stats}")
+    # every projection (7 a layer) and every unembedding through the W8A16
+    # kernel, and no F.linear at all, with int8 weights
+    need_gemm = 7 * L * fwd.blocks + fwd.unembeds if quant == "int8" else 0
+    if launches["w8a16_gemm"] != need_gemm or (
+            quant == "int8" and (need_gemm == 0 or fwd.linear)):
+        raise AssertionError(
+            f"{launches['w8a16_gemm']} w8a16_gemm launches for "
+            f"{fwd.blocks} forward passes and {fwd.unembeds} "
+            f"unembeddings (want {need_gemm}), {fwd.linear} F.linear calls")
     if not narrow and (stats["mixed_dispatches"] < 1
                        or stats["spec_steps"] < 1):
         raise AssertionError(f"the default path ran no mixed dispatch or "
@@ -1713,20 +2013,27 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             or health.get("spec_widths") != want_widths
             or health.get("mixed") != (not narrow)
             or health.get("inflight_dispatches") != 0
-            or health.get("pipeline_depth") != core.cfg.pipeline_depth):
+            or health.get("pipeline_depth") != core.cfg.pipeline_depth
+            or health.get("quant") != quant
+            or health.get("weight_bytes") != core.param_bytes):
         raise AssertionError(f"/health reports {health}")
-    name = ("serve" + ("_two_dispatch" if narrow else "")
+    name = ("serve_70b_w8" if model == "llama3-70b" else
+            "serve" + ("_two_dispatch" if narrow else "")
             + ("_chain" if chain else "")
-            + ("" if kv_quant == "none" else "_" + kv_quant))
+            + ("" if kv_quant == "none" else "_" + kv_quant)
+            + ("_w8" if quant == "int8" else ""))
     if not narrow:
         _check_loop(name, stats, core, launches, sampled=True, ramp=True)
     gen = sum(r["usage"]["completion_tokens"] for r in results)
     fields = dict(
-        model="llama3-8b", n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
+        model=model, n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
+        quant=quant, weight_bytes=health["weight_bytes"],
         spec_widths=health["spec_widths"], mixed=health["mixed"],
         weights="random, torch.Generator seed 0", requests=results,
         server_ttft_s=server_ttft, completion_tokens=gen, wall_s=wall,
         gen_tok_s=gen / wall, dispatches=stats, launches=launches,
+        forward_passes=fwd.blocks, unembeddings=fwd.unembeds,
+        query_tiled_ragged_launches=fwd.tiled,
         stats_when_late_prompts_sent=at_late,
         sampling=("temperature 0.2, top_p 0.7, seeds 0-5" if chain else
                   "greedy and temperature 0.7 in turn"),
@@ -1739,8 +2046,43 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         multi_chunk_prompt=max(len(r.prompt_ids) for r in submitted) > 512,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         **_loop_fields(stats, core, warmup_s, launches))
+    if model == "llama3-70b" and fwd.tiled < 1:
+        raise AssertionError(f"{name}: no ragged launch of more than "
+                             f"{k.QG_MAX} query vectors a row")
     emit(name, **fields)
     return launches, core
+
+
+def phase_serve_70b(dev):
+    """llama3-70b at full width and depth (80 layers, 64/8 heads, hidden
+    28,672) on one card: int8 weights drawn from seed 0 and quantized one
+    matrix at a time as drawn, an int8 KV pool, the engine's defaults (8
+    slots of 2,048, the width ladder, speculation up to W = 9, the mixed
+    dispatch "auto" -> on). Traffic: ``serve``'s 4 decoders at 32 tokens
+    admitted together, then 1 prompt of 1,296 bytes once the first decode
+    dispatch ran (4 live slots: not a ramp, so it rides mixed dispatches,
+    whose rows of 16 queries hold 128 query vectors: two query tiles).
+    Every request 200, a mixed dispatch, query-tiled ragged launches,
+    every projection through ``w8a16_gemm``. Returns the launches."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.llama3_70b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, device=dev, quant="int8")
+    torch.cuda.synchronize()
+    emit("weights_70b", model="llama3-70b", quant="int8",
+         init_weights_s=time.perf_counter() - t0,
+         allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         peak_during_init_gb=torch.cuda.max_memory_allocated() / 1e9)
+    launches, core = phase_serve(dev, cfg, params, "int8", quant="int8",
+                                 model="llama3-70b", decoder_tokens=32,
+                                 late=1)
+    del core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
@@ -1983,7 +2325,7 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     emitted = int(out["emitted"].sum())
     classes, summed, top = _device_ms_by_class(
         prof, (("ragged_paged_attention", ("ragged_paged",)),
-               ("matmul", MATMUL_KERNELS)))
+               ("w8a16_gemm", ("w8a16",)), ("matmul", MATMUL_KERNELS)))
     device_ms = sum(classes.values())
     device_ops = sum(1 for ev in prof.events()
                      if ev.device_type == DeviceType.CUDA)
@@ -2001,6 +2343,25 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
                 k: v / steps for k, v in classes.items()},
             "top_other_ms_per_step": [[n, ms / steps] for n, ms in top],
             "key_averages_self_device_ms_per_step": summed / steps}
+
+
+def profile_w8(core, bf16_matmul_ms):
+    """A narrow decode step with int8 weights (8 slots at 1,000 tokens,
+    ``profile_decode``): the W8A16 GEMM's device ms a step against the
+    bytes a step must read (every layer matrix, the head and their scales;
+    the embedding is gathered, not read whole) over 3.35 TB/s, and
+    against the bf16 step's matmul ms of the same run."""
+    from generativeaiexamples_tpu_torch.ops import quant
+    prof = profile_decode(core)
+    read = sum(w.q.numel() + 4 * w.s.numel()
+               for w in quant.weights(core.params)
+               if w is not core.params["embed"])
+    gemm_ms = prof["device_ms_per_step_by_class"]["w8a16_gemm"]
+    bound_ms = read / PEAK_BYTES * 1e3
+    return dict(prof, weight_bytes_read_a_step=read,
+                gemm_bound_ms_a_step=bound_ms, gemm_ms_a_step=gemm_ms,
+                gemm_share_of_bound=bound_ms / gemm_ms if gemm_ms else None,
+                bf16_matmul_ms_a_step=bf16_matmul_ms)
 
 
 CHAIN_SAMPLING = (0.2, 0, 0.7)     # the chain server's temperature, top_p
@@ -2370,7 +2731,11 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # sampler_top_p_strict makes the top-p predicate mass > target (caught at
 # top-p 0, where every mass ties the target of 0) and sampler_z_over_all
 # sums z over every entry instead of the top-k survivors (caught where a
-# row has both filters) in the sampling kernel.
+# row has both filters) in the sampling kernel; gemm_dropped_scale leaves
+# the per-channel scale out of the W8A16 GEMM's bf16 epilogue,
+# gemm_skipped_k_tile skips the second 64-deep tile of the contraction in
+# its tensor-core instance and gemm_f32_skipped_k_tile the first tile in
+# its f32 instance.
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -2408,6 +2773,16 @@ PLANTED_FAULTS = (
      ("sample_slots",)),
     ("sampler_z_over_all", "sample_slots.cu",
      "zpart += e;", "zpart += ex_all;", ("sample_slots",)),
+    ("gemm_dropped_scale", "w8a16_gemm.cu",
+     "  const float sv = __bfloat162float(__float2bfloat16(s));\n",
+     "  const float sv = 1.f;\n", ("w8a16_gemm",)),
+    ("gemm_skipped_k_tile", "w8a16_gemm.cu",
+     "    const int8_t* bs = stage_b(i % STAGES);\n",
+     "    const int8_t* bs = stage_b(i % STAGES);\n"
+     "    if (kt0 + i == 1) continue;\n", ("w8a16_gemm",)),
+    ("gemm_f32_skipped_k_tile", "w8a16_gemm.cu",
+     "for (int k0 = 0; k0 < K; k0 += FBK)",
+     "for (int k0 = FBK; k0 < K; k0 += FBK)", ("w8a16_gemm",)),
 )
 
 _FAULT_PHASES = """
@@ -2420,7 +2795,8 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention": cs.ragged_cases(dev),
           "ragged_paged_attention_int8": cs.ragged_cases(dev, True),
           "ragged_decode": cs.decode_cases(dev),
-          "sample_slots": cs.sample_cases(dev)}
+          "sample_slots": cs.sample_cases(dev),
+          "w8a16_gemm": cs.gemm_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -2581,7 +2957,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     results["sample_slots"] = phase_sample(dev)
     torch.cuda.empty_cache()
+    results["w8a16_gemm"] = phase_gemm(dev)
+    torch.cuda.empty_cache()
     phase_parity(dev)
+    torch.cuda.empty_cache()
+    phase_parity_w8(dev)
     torch.cuda.empty_cache()
     cfg, params, init_s = draw_8b(dev)
     emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)
@@ -2606,7 +2986,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve_two_dispatch"], core = phase_serve(dev, cfg, params,
                                                     narrow=True)
-    emit("profile", **profile_decode(core))
+    prof_bf16 = profile_decode(core)
+    emit("profile", **prof_bf16)
     emit("profile_prefill", **profile_prefill(core))
     del core
     torch.cuda.empty_cache()
@@ -2618,29 +2999,49 @@ def main() -> int:
     del core
     torch.cuda.empty_cache()
     paths["dense"] = phase_dense(dev, cfg, params)
+    torch.cuda.empty_cache()
+    # int8 weights last: the engine quantizes the bf16 set in place
+    paths["serve_w8"], core = phase_serve(dev, cfg, params, quant="int8")
+    del core
+    torch.cuda.empty_cache()
+    core = serving_core(dev, cfg, params, quant="int8", **NARROW)
+    emit("profile_w8", **profile_w8(
+        core, prof_bf16["device_ms_per_step_by_class"]["matmul"]))
+    del core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["serve_70b_w8"] = phase_serve_70b(dev)
     src = "generativeaiexamples_tpu_torch/csrc/"
     tpu = "generativeaiexamples_tpu/ops/pallas/attention.py"
-    # kernel -> (source, TPU function and pallas_call line, main path)
+    # kernel -> (source, the TPU function it replaces, main path); the
+    # sampler and the GEMM replace no Pallas kernel but XLA programs
     table = {
-        "flash_prefill": ("flash_prefill.cu", "flash_prefill", 192, "serve"),
-        "ragged_paged_attention": ("ragged_paged.cu",
-                                   "ragged_paged_attention", 445, "serve"),
+        "flash_prefill": ("flash_prefill.cu", f"{tpu}:192 (flash_prefill)",
+                          "serve"),
+        "ragged_paged_attention": (
+            "ragged_paged.cu", f"{tpu}:445 (ragged_paged_attention)",
+            "serve"),
         "ragged_paged_attention_int8": (
-            "ragged_paged.cu", "ragged_paged_attention, int8-KV variant "
-            ":331-351", 445, "serve_int8"),
-        "ragged_decode": ("ragged_decode.cu", "ragged_decode", 526, "dense"),
-        "sample_slots": ("sample_slots.cu", None, None, "serve"),
+            "ragged_paged.cu", f"{tpu}:445 (ragged_paged_attention, int8-KV "
+            "variant :331-351)", "serve_int8"),
+        "ragged_decode": ("ragged_decode.cu", f"{tpu}:526 (ragged_decode)",
+                          "dense"),
+        "sample_slots": (
+            "sample_slots.cu",
+            "generativeaiexamples_tpu/ops/sampling.py:126-255 "
+            "(_mask_dynamic, jax.random.categorical under jax.vmap in "
+            "sample_logits_per_slot, token_logprob: an XLA program)",
+            "serve"),
+        "w8a16_gemm": (
+            "w8a16_gemm.cu",
+            "generativeaiexamples_tpu/ops/quant.py:98-104 (quant.matmul: an "
+            "XLA-fused convert, no Pallas kernel)", "serve_w8"),
     }
-    # the sampler replaces no Pallas kernel: the XLA program of
-    # sample_logits_per_slot's full path and token_logprob
-    sampler = ("generativeaiexamples_tpu/ops/sampling.py:126-255 "
-               "(_mask_dynamic, jax.random.categorical under jax.vmap in "
-               "sample_logits_per_slot, token_logprob: an XLA program)")
     kernels = []
-    for name, (source, fn, line, path) in table.items():
+    for name, (source, replaces, path) in table.items():
         res = results[name]
         entry = {"name": name, "route": "cuda", "source": src + source,
-                 "replaces": (f"{tpu}:{line} ({fn})" if line else sampler),
+                 "replaces": replaces,
                  "launches": paths[path][name], "main_path": path,
                  "launches_by_path": {p: n[name] for p, n in paths.items()}}
         if entry["launches"] <= 0:
@@ -2651,13 +3052,11 @@ def main() -> int:
                 "splits", "scratch_bytes", "token_mismatches",
                 "near_tie_rows", "bits_exact", "thr_k_mismatches",
                 "cutoff_near_tie_rows", "draw_near_tie_rows", "cluster",
-                "drawn_entries")
+                "drawn_entries", "query_tiles", "plan")
         entry.update({key: res[key] for key in keys if key in res})
-        for sub in (("prefill_group8", "prefix_suffix") + RAGGED_SUBCASES
-                    + tuple(f"rows{R}" for R in SAMPLE_ROWS[1:])):
-            if sub in res:
-                entry[sub] = {key: res[sub][key] for key in keys
-                              if key in res[sub]}
+        for sub, val in res.items():      # the phase's other cases
+            if isinstance(val, dict) and "ms" in val:
+                entry[sub] = {key: val[key] for key in keys if key in val}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

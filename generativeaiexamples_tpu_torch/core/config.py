@@ -26,7 +26,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "role": ("A7 (KV handoff / disaggregated roles)", "unified"),
     "decode_steps_max": ("A5 (adaptive dispatch depth)", "0"),
     "decode_multistep": ("A5 (decode_multi)", "0"),
-    "quant": ("A1 (int8 weights)", "none"),
     "max_adapters": ("A3/A5 (LoRA)", "0"),
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
     "devtime": ("A6 (device-time ledger)", "off"),
@@ -55,6 +54,9 @@ class EngineConfig:
     # KV pool storage: none (the model dtype) | int8 (per-token-per-head
     # scales; the paged kernel folds the dequant past its dots)
     kv_quant: str = "none"
+    # weight storage: none (the model dtype) | int8 (per-channel weight-only
+    # int8, the projections through the W8A16 GEMM)
+    quant: str = "none"
     # auto (kernel on CUDA tensors, plain on CPU tensors) | kernel | plain
     attention: str = "auto"
     model_family: str = "llama3-8b"

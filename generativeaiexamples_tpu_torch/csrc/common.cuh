@@ -246,16 +246,20 @@ __device__ __forceinline__ void merge_partial(float& M, float& L, float& A,
 // qi, and only while qi < n_q (slots past n_q come out finite garbage).
 // `locate(pos, sc)` returns the element offset of token pos's K/V row of
 // this head from k and v and, for an int8 pool, sets its scale slot `sc`
-// in k_scales/v_scales. Grid (rows, KV heads, S); with S > 1, `part` holds
-// (m, l, acc) of every (row, head, split) and `tickets` one counter per
-// (row, head), zero between launches.
+// in k_scales/v_scales. Grid (rows, cells, S), a cell one KV head or, for
+// the ragged kernel's rows of more than QG_MAX query vectors, one (KV head,
+// query tile): blockIdx (x, y) names the cell, and a tile is a row of its
+// own here (its q/out slice at `base`, its Qb, pos0 and n_q). With S > 1,
+// `part` holds (m, l, acc) of every (cell, split), `qgs` query vectors a
+// (cell, split) apart (a full tile's), so a combine never mixes two cells,
+// and `tickets` one counter per cell, zero between launches.
 template <typename T, typename KT, int HD, int QGB, typename Locate>
 __device__ __forceinline__ void attend_tiles(
     const T* __restrict__ q, T* __restrict__ out, long long base,
     const KT* __restrict__ k, const KT* __restrict__ v,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
     int len, int pos0, int n_q, int Qb, int G, int H, int kvh, float scale,
-    int tiles, float* __restrict__ part, int* __restrict__ tickets,
+    int tiles, int qgs, float* __restrict__ part, int* __restrict__ tickets,
     const Locate& locate) {
   using W = Walk<T, KT, HD, QGB>;
   constexpr bool QUANT = W::QUANT;
@@ -594,11 +598,11 @@ __device__ __forceinline__ void attend_tiles(
   __syncthreads();
 
   // --- merge the token groups: the output (S == 1) or this split's partial
-  const long long n_part = (long long)gridDim.x * gridDim.y * S * QG;
+  const long long n_part = (long long)gridDim.x * gridDim.y * S * qgs;
   float* part_m = part;
   float* part_l = part + n_part;
   float* part_acc = part + 2 * n_part;
-  const long long pbase = (cell * S + split) * QG;
+  const long long pbase = (cell * S + split) * qgs;
   for (int idx = tid; idx < QG * HD; idx += RT) {
     const int j = idx / HD, d = idx % HD;
     float M = NEG_INF, L = 0.f, A = 0.f;
@@ -631,14 +635,14 @@ __device__ __forceinline__ void attend_tiles(
   if (!last_s) return;
   __threadfence();
   const int n_split = S;   // the combine reads every split
-  const long long cbase = cell * S * QG;
+  const long long cbase = cell * S * qgs;
   float* ms_s = reinterpret_cast<float*>(uni);   // split x row: m, l, weight
   float* ls_s = ms_s + SPLIT_MAX * QGB;
   float* ws_s = ls_s + SPLIT_MAX * QGB;
   for (int i = tid; i < n_split * QG; i += RT) {
     const int sp = i / QG, j = i % QG;
-    ms_s[sp * QGB + j] = __ldcg(part_m + cbase + i);
-    ls_s[sp * QGB + j] = __ldcg(part_l + cbase + i);
+    ms_s[sp * QGB + j] = __ldcg(part_m + cbase + (long long)sp * qgs + j);
+    ls_s[sp * QGB + j] = __ldcg(part_l + cbase + (long long)sp * qgs + j);
   }
   __syncthreads();
   for (int j = tid; j < QG; j += RT) {
@@ -665,7 +669,7 @@ __device__ __forceinline__ void attend_tiles(
     float A = 0.f;
 #pragma unroll 8
     for (int sp = 0; sp < n_split; ++sp)
-      A = fmaf(ws_s[sp * QGB + j], __ldcg(pa + (long long)sp * QG * HD), A);
+      A = fmaf(ws_s[sp * QGB + j], __ldcg(pa + (long long)sp * qgs * HD), A);
     const int qi = j / G, g = j % G;
     out[base + ((long long)qi * H + kvh * G + g) * HD + d] = from_f<T>(A);
   }

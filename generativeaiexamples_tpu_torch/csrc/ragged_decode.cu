@@ -48,7 +48,7 @@ __global__ void __launch_bounds__(Walk<T, T, HD, GB>::RT)
   // q and out are contiguous (B, 1, H, HD): one query, at position len - 1
   attend_tiles<T, T, HD, GB>(q, out, (long long)b * H * HD, k, v, nullptr,
                              nullptr, len, len - 1, 1, 1, H / KV, H, kvh,
-                             scale, tiles, part, tickets, locate);
+                             scale, tiles, H / KV, part, tickets, locate);
 }
 
 struct Args {

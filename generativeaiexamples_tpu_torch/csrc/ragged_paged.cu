@@ -22,7 +22,17 @@
 // combine), clamped to min(kv_len, maxp*page), so pages past the length
 // are never read (decode_step_wide passes kv_len unclamped). Any page size
 // works: each token's physical row is resolved once per tile. This file
-// keeps only the page-table address resolution and the launch.
+// keeps only the page-table address resolution, the query tiles and the
+// launch.
+//
+// Query tiles: a block holds at most QG_MAX = 64 query vectors (Qb * G).
+// A row with more (llama3-70b, G = 8: a verify step of width 9 has 72, a
+// mixed dispatch's q_block of 16 has 128) is cut into tiles of tq =
+// QG_MAX / G queries (the wrapper's choice), each a cell of its own: grid
+// axis y is (query tile, KV head), every tile walks the same KV split,
+// and its partials and ticket are its own, so a combine never mixes two
+// tiles. Each tile re-reads its split's K/V (from L2 when the tiles of a
+// row run together).
 //
 // Split plan at the smoke shapes (2048-token capacity, 8 KV heads, 132
 // SMs): batch-8 decode 6 splits of 6 tiles (384 blocks), the Qb = 8 mixed
@@ -48,17 +58,22 @@ __global__ void __launch_bounds__(Walk<T, KT, HD, QGB>::RT)
                         const int* __restrict__ q_pos0,
                         const int* __restrict__ q_num,
                         const int* __restrict__ layer_ptr, T* __restrict__ out,
-                        int Qb, int H, int KV, int ps, int maxp, int P,
+                        int Qb, int tq, int H, int KV, int ps, int maxp, int P,
                         float scale, int tiles, float* __restrict__ part,
                         int* __restrict__ tickets) {
-  const int r = blockIdx.x, kvh = blockIdx.y;
+  const int r = blockIdx.x;
+  const int kvh = blockIdx.y % KV, qt = blockIdx.y / KV;
   const int G = H / KV;
-  const int n_q = q_num[r];
+  // this block's query tile: queries q0 .. q0 + qb - 1 of the row, of
+  // which the first n_q are live
+  const int q0 = qt * tq;
+  const int qb = min(tq, Qb - q0);
+  const int n_q = min(q_num[r] - q0, qb);
   // q and out are contiguous (R, Qb, H, HD)
-  const long long base = (long long)r * Qb * H * HD;
-  if (n_q <= 0) {   // every split of the row returns here; split 0 writes
+  const long long base = ((long long)r * Qb + q0) * H * HD;
+  if (n_q <= 0) {   // every split of the tile returns here; split 0 writes
     if (blockIdx.z == 0) {
-      for (int idx = threadIdx.x; idx < Qb * G * HD; idx += blockDim.x) {
+      for (int idx = threadIdx.x; idx < qb * G * HD; idx += blockDim.x) {
         const int j = idx / HD, d = idx % HD;
         const int qi = j / G, g = j % G;
         out[base + ((long long)qi * H + kvh * G + g) * HD + d] = from_f<T>(0.f);
@@ -78,9 +93,9 @@ __global__ void __launch_bounds__(Walk<T, KT, HD, QGB>::RT)
            (long long)kvh * HD;
   };
   attend_tiles<T, KT, HD, QGB>(q, out, base, k_pages, v_pages, k_scales,
-                               v_scales, min(kv_lens[r], maxp * ps), q_pos0[r],
-                               n_q, Qb, G, H, kvh, scale, tiles, part, tickets,
-                               locate);
+                               v_scales, min(kv_lens[r], maxp * ps),
+                               q_pos0[r] + q0, n_q, qb, G, H, kvh, scale,
+                               tiles, tq * G, part, tickets, locate);
 }
 
 struct Args {
@@ -88,7 +103,7 @@ struct Args {
   const float *ks, *vs;
   const int *tables, *lens, *pos0, *qnum, *layer;
   void* out;
-  int R, Qb, H, KV, ps, maxp, P, tiles, splits;
+  int R, Qb, tq, H, KV, ps, maxp, P, tiles, splits;
   float* part;
   int* tickets;
   cudaStream_t stream;
@@ -101,18 +116,18 @@ cudaError_t launch_qgb(const Args& a) {
       ragged_paged_kernel<T, KT, HD, QGB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.R, a.KV, a.splits);
+  dim3 grid(a.R, a.KV * ((a.Qb + a.tq - 1) / a.tq), a.splits);
   ragged_paged_kernel<T, KT, HD, QGB><<<grid, W::RT, W::SMEM, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const KT*>(a.kp),
           static_cast<const KT*>(a.vp), a.ks, a.vs, a.tables, a.lens, a.pos0,
-          a.qnum, a.layer, static_cast<T*>(a.out), a.Qb, a.H, a.KV, a.ps,
+          a.qnum, a.layer, static_cast<T*>(a.out), a.Qb, a.tq, a.H, a.KV, a.ps,
           a.maxp, a.P, 1.f / sqrtf((float)HD), a.tiles, a.part, a.tickets);
   return cudaGetLastError();
 }
 
 template <typename T, typename KT, int HD>
 cudaError_t launch(const Args& a) {
-  const int QG = a.Qb * (a.H / a.KV);
+  const int QG = a.tq * (a.H / a.KV);
   if (QG <= 16) return launch_qgb<T, KT, HD, 16>(a);
   if (QG <= 32) return launch_qgb<T, KT, HD, 32>(a);
   if (QG <= QG_MAX) return launch_qgb<T, KT, HD, QG_MAX>(a);
@@ -136,18 +151,21 @@ cudaError_t dispatch_hd(int hd, const Args& a) {
 // contiguous (L*P, ps, KV*HD), 16-byte aligned, of `dtype` when k_scales
 // and v_scales are null, int8 when they are given (contiguous f32 (L*P,
 // KV, ps)); tables: (R, maxp) int32; kv_lens, q_pos0, q_num: (R,) int32;
-// layer: (1,) int32 on the device. The grid is (R, KV, splits), each split
-// `tiles` 64-token tiles; with splits > 1, part: f32 scratch of R*KV*
-// splits*Qb*(H/KV)*(HD+2) values and tickets: R*KV int32 counters, zero
-// (the kernel leaves them zero). Returns cudaGetLastError().
+// layer: (1,) int32 on the device. A row's queries are cut into tiles of
+// tq (tq * H/KV <= QG_MAX query vectors a block); the grid is (R, KV *
+// tiles of a row, splits), each split `tiles` 64-token tiles; with splits
+// > 1, part: f32 scratch of R*KV*ceil(Qb/tq)*splits*tq*(H/KV)*(HD+2)
+// values and tickets: R*KV*ceil(Qb/tq) int32 counters, zero (the kernel
+// leaves them zero). Returns cudaGetLastError().
 extern "C" int gk_ragged_paged_attention(
     int dtype, int head_dim, const void* q, const void* k_pages,
     const void* v_pages, const void* k_scales, const void* v_scales,
     const void* tables, const void* kv_lens, const void* q_pos0,
-    const void* q_num, const void* layer, void* out, int R, int Qb, int H,
-    int KV, int ps, int maxp, int P, int tiles, int splits, void* part,
+    const void* q_num, const void* layer, void* out, int R, int Qb, int tq,
+    int H, int KV, int ps, int maxp, int P, int tiles, int splits, void* part,
     void* tickets, void* stream) {
-  if (R <= 0 || Qb <= 0 || KV <= 0 || H % KV || ps <= 0 || maxp <= 0 ||
+  if (R <= 0 || Qb <= 0 || tq <= 0 || tq > Qb || KV <= 0 || H % KV ||
+      ps <= 0 || maxp <= 0 ||
       tiles <= 0 || splits <= 0 || splits > SPLIT_MAX ||
       (splits > 1 && (part == nullptr || tickets == nullptr)) ||
       (k_scales == nullptr) != (v_scales == nullptr) ||
@@ -165,7 +183,7 @@ extern "C" int gk_ragged_paged_attention(
                static_cast<const int*>(q_pos0),
                static_cast<const int*>(q_num),
                static_cast<const int*>(layer),
-               out, R, Qb, H, KV, ps, maxp, P, tiles, splits,
+               out, R, Qb, tq, H, KV, ps, maxp, P, tiles, splits,
                static_cast<float*>(part), static_cast<int*>(tickets),
                static_cast<cudaStream_t>(stream)};
   const bool quant = k_scales != nullptr;

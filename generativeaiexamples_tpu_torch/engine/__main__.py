@@ -9,6 +9,8 @@ test-scale model with the byte tokenizer; otherwise the architecture is
 from a seeded generator on the device (checkpoint loading is ROADMAP A3).
 Engine knobs come from ``APP_ENGINE_*`` (``core/config.py``): speculative
 decoding is on by default (``APP_ENGINE_SPEC_DECODE=off`` turns it off),
+``APP_ENGINE_QUANT=int8`` serves int8 weights (drawn and quantized one
+matrix at a time; llama3-70b fits one 80 GB card only so),
 and the mixed-phase dispatch follows ``APP_MIXED_PHASE_DISPATCH`` (auto:
 on for a CUDA device, off on the CPU; ``on`` runs it on the CPU too). Two
 decode dispatches stay in flight (``APP_ENGINE_PIPELINE_DEPTH``), ramps
@@ -51,7 +53,10 @@ def build_scheduler(tiny: bool = False, device=None, seed: int = 0) -> tuple:
         model_name = cfg.llm.model_name
         logging.warning("serving RANDOM weights (seed %d)", seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = llama.init_params(gen, model_cfg, device=dev)
+    # int8 weights are quantized as they are drawn, so a model too large
+    # for the card in its dtype (llama3-70b) loads
+    params = llama.init_params(gen, model_cfg, device=dev,
+                               quant=cfg.engine.quant.strip().lower())
     core = EngineCore(model_cfg, cfg.engine, params,
                       eos_id=tokenizer.eos_id, device=dev)
     return Scheduler(core, tokenizer), model_name

@@ -47,9 +47,16 @@ page-aligned prompt prefixes share pages; a cache-hit admission starts its
 prefill at the covered offset and ``seed_history`` writes the skipped
 tokens into the drafting history.
 
-Not ported here: ``decode_multi``, grammar, LoRA, int8 weights, logprob
-rows, KV handoff, tensor parallelism (ROADMAP A1, A2, A5, A7, A11). Their
-config knobs are refused in ``core/config.py``.
+``quant="int8"`` serves per-channel weight-only int8 weights
+(``ops/quant.py``): matrices not already int8 are quantized at load, one
+at a time, and every projection and the unembedding run through the
+hand-written W8A16 GEMM on the card (``ops/cuda/quant.py``). ``n_params``
+and ``param_bytes`` (one byte a parameter at int8) are taken before
+quantization, as the reference's.
+
+Not ported here: ``decode_multi``, grammar, LoRA, logprob rows, KV
+handoff, tensor parallelism (ROADMAP A2, A5, A7, A11). Their config knobs
+are refused in ``core/config.py``.
 """
 
 from __future__ import annotations
@@ -68,8 +75,10 @@ from generativeaiexamples_tpu_torch.engine import kv_cache
 from generativeaiexamples_tpu_torch.engine.kv_cache import PagedKVCache
 from generativeaiexamples_tpu_torch.engine.prefix_cache import CachingAllocator
 from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.ops import quant as quant_ops
 from generativeaiexamples_tpu_torch.ops import sampling, threefry
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
+from generativeaiexamples_tpu_torch.ops.cuda import quant as quant_kernels
 from generativeaiexamples_tpu_torch.ops.speculative import (
     acceptance, draft_lookup)
 
@@ -322,11 +331,12 @@ class EngineCore:
                     "paged_decode_supported and ragged_paged_supported "
                     f"disagree for page_size={self.page_size}, head_dim={HD}"
                     " — kernel-support predicates have drifted")
-            if G * self.spec_width > kernels.QG_MAX:
+            # rows of more than QG_MAX query vectors are cut into query
+            # tiles (kernels.query_tile); only the group must fit a block
+            if G > kernels.QG_MAX:
                 raise ValueError(
-                    f"GQA group {G} x speculative width {self.spec_width} "
-                    f"exceeds the ragged kernel's {kernels.QG_MAX} query "
-                    f"rows; lower spec_draft_max or set spec_decode=off")
+                    f"GQA group {G} exceeds the ragged kernel's "
+                    f"{kernels.QG_MAX} query vectors a block")
 
         # ---- mixed-phase dispatch gate, resolved once and loudly; the
         # bare env APP_MIXED_PHASE_DISPATCH overrides the config field
@@ -349,9 +359,6 @@ class EngineCore:
                 self.page_size, HD, qb):
             reasons.append(f"page_size={self.page_size} / head_dim={HD} "
                            f"outside the ragged kernel's limits")
-        if attn == "kernel" and G * qb > kernels.QG_MAX:
-            reasons.append(f"GQA group {G} x q_block {qb} exceeds the ragged "
-                           f"kernel's {kernels.QG_MAX} query rows")
         if mixed == "on" and reasons:
             raise ValueError("APP_MIXED_PHASE_DISPATCH=on but the mixed "
                              "program cannot serve this config: "
@@ -364,6 +371,29 @@ class EngineCore:
                             "; ".join(reasons) or
                             f"device {self.device.type!r} is not cuda")
         self._mixed = mixed == "on"
+
+        # ---- int8 weights (ops/quant.py), as the reference's load path:
+        # the parameter count and the weight bytes a decode step streams are
+        # taken before quantization, which then consumes the caller's dict
+        # one leaf at a time (the engine owns the weights from here on)
+        self.quant = (engine_cfg.quant or "none").strip().lower() or "none"
+        if self.quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant mode {engine_cfg.quant!r} "
+                             f"(engine.quant); expected 'none' or 'int8'")
+        self.n_params = quant_ops.n_params(params)
+        self.param_bytes = quant_ops.weight_bytes(
+            self.n_params, self.quant, self.model_cfg.torch_dtype.itemsize)
+        if self.quant == "int8":
+            params = quant_ops.quantize_params(params, donate=True)
+            logger.info("serving with int8 weight-only quantization")
+        if self.device.type == "cuda":
+            dt = self.model_cfg.torch_dtype
+            for w in quant_ops.weights(params):
+                if (isinstance(w, quant_ops.QTensor)
+                        and not quant_kernels.w8a16_supported(w.shape[1], dt)):
+                    raise ValueError(f"w8a16_gemm kernel does not take "
+                                     f"in_features={w.shape[1]} with {dt} "
+                                     f"activations")
         self.params = params
         # sampling calls made (each one sample_slots launch on the card)
         self.sample_calls = 0

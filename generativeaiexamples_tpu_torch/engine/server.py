@@ -66,7 +66,9 @@ class ModelServer:
         self.model_name = model_name
 
     def health(self) -> Dict[str, Any]:
-        return {"message": "Service is up.", **self.scheduler.load_stats()}
+        core = self.scheduler.core
+        return {"message": "Service is up.", **self.scheduler.load_stats(),
+                "quant": core.quant, "weight_bytes": core.param_bytes}
 
     def models(self) -> Dict[str, Any]:
         return {"object": "list",

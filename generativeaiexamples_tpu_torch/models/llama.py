@@ -5,9 +5,14 @@ llama.py``: pre-norm blocks, RMSNorm, RoPE (HF split-half), GQA, SwiGLU.
 Parameters are a plain dict of tensors, one dict per layer, with every
 projection kept as ``nn.Linear`` stores it, (out, in), so the hot path is
 ``F.linear``. :func:`params_from_jax` carries the TPU package's pytree
-(stacked ``(L, in, out)`` leaves as numpy arrays) into this layout and is
-the one place that transposes. A Python loop over layers takes the place
-of ``lax.scan``.
+(stacked ``(L, in, out)`` leaves as numpy arrays, or int8 ``(q, s)``
+pairs) into this layout and is the one place that transposes. A Python
+loop over layers takes the place of ``lax.scan``.
+
+Int8 weights (``ops/quant.py``): any matrix may be a ``QTensor``; the
+projections, the embedding gather and the unembedding go through the
+quant seams (``quant.matmul``, ``quant.take``), as the reference's block
+does, so one code path serves model-dtype and int8 weights.
 
 The dense-cache model API is here too: :class:`KVCache` (k/v ``(L, B, T,
 KV, HD)``), :func:`prefill` and :func:`decode_step`, whose attention is the
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from generativeaiexamples_tpu_torch.ops import quant as quant_ops
 from generativeaiexamples_tpu_torch.ops.attention import (
     mha_decode, mha_prefill)
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
@@ -90,26 +96,33 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 def init_params(generator: torch.Generator, cfg: LlamaConfig,
-                device=None) -> Params:
+                device=None, quant: str = "none") -> Params:
     """Random weights: scaled-normal fan-in init (normal / sqrt(fan_in)),
     norms at one, drawn from ``generator`` on ``device`` (the generator's
-    device by default)."""
+    device by default). ``quant="int8"`` quantizes each matrix as
+    soon as it is drawn (in the model dtype, so the result equals
+    ``quant.quantize_params`` of the unquantized draw), so a model too
+    large for the card in its dtype never holds more than one matrix
+    unquantized: llama3-70b's largest, the (128,256, 8,192) embedding and
+    head, for a moment in f32 (4.2 GB)."""
     device = torch.device(device or generator.device)
     D, H, KV, HD, F_ = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                         cfg.hidden_dim)
     dt = cfg.torch_dtype
+    if quant not in ("none", "", "int8"):
+        raise ValueError(f"unknown quant mode {quant!r}; expected "
+                         f"'none' or 'int8'")
 
     def normal(out_f, in_f):
         w = torch.randn((out_f, in_f), generator=generator,
                         dtype=torch.float32, device=device)
-        return w.mul_(1.0 / math.sqrt(in_f)).to(dt)
+        w = w.mul_(1.0 / math.sqrt(in_f)).to(dt)
+        return quant_ops.quantize(w) if quant == "int8" else w
 
     def ones(n):
         return torch.ones((n,), dtype=dt, device=device)
 
-    embed = torch.randn((cfg.vocab_size, D), generator=generator,
-                        dtype=torch.float32, device=device)
-    params: Params = {"embed": embed.mul_(1.0 / math.sqrt(D)).to(dt),
+    params: Params = {"embed": normal(cfg.vocab_size, D),
                       "final_norm": ones(D), "layers": []}
     for _ in range(cfg.n_layers):
         params["layers"].append({
@@ -130,6 +143,17 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+def _qpair(leaf):
+    """(q, s) numpy arrays of a quantized leaf: a ``(q, s)`` pair, or an
+    object with ``q`` and ``s`` (the reference's QTensor with numpy
+    leaves); None for a plain array."""
+    if isinstance(leaf, (tuple, list)) and len(leaf) == 2:
+        return np.asarray(leaf[0]), np.asarray(leaf[1], np.float32)
+    if hasattr(leaf, "q") and hasattr(leaf, "s"):
+        return np.asarray(leaf.q), np.asarray(leaf.s, np.float32)
+    return None
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
                     device=None) -> Params:
     """Carry the TPU package's parameter pytree into this layout.
@@ -137,7 +161,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
     ``tree`` mirrors ``models/llama.init_params`` there with numpy leaves:
     ``embed`` (V, D), ``final_norm`` (D,), optional ``lm_head`` (D, V) and
     ``layers`` of stacked (L, ...) arrays with projections as (in, out).
-    Projections become (out, in) per layer; this is the one transpose.
+    Projections become (out, in) per layer; this is the one transpose. A
+    matrix quantized by the reference's ``quantize_params`` comes as int8
+    ``q`` and keepdims f32 ``s`` (a pair or a QTensor of numpy arrays:
+    layers (L, in, out) with s (L, 1, out), embed (V, D) with s (V, 1),
+    lm_head (D, V) with s (1, V)) and becomes a ``quant.QTensor`` of the
+    same int8 values, transposed the same way, its scales one per output
+    row.
     """
     dt = cfg.torch_dtype
     device = torch.device(device or "cpu")
@@ -146,22 +176,40 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
             device=device, dtype=dt)
 
+    def tq(q, s, transpose):
+        q = np.array(q.T if transpose else q, dtype=np.int8, order="C")
+        return quant_ops.QTensor(
+            q=torch.from_numpy(q).to(device),
+            s=torch.from_numpy(np.array(s, np.float32).reshape(-1)).to(device))
+
+    def matrix(leaf, i=None, transpose=True):
+        pair = _qpair(leaf)
+        if pair is not None:
+            q, s = pair
+            if i is not None:
+                q, s = q[i], s[i]
+            return tq(q, s, transpose)
+        a = np.asarray(leaf if i is None else leaf[i], dtype=np.float32)
+        return t(a.T if transpose else a)
+
     layers = tree["layers"]
     unknown = set(layers) - set(_LAYER_KEYS)
     if unknown:
         raise NotImplementedError(
             f"layer leaves {sorted(unknown)} (biases, MoE, LoRA) are not "
             f"ported (ROADMAP A3/A9)")
-    params: Params = {"embed": t(tree["embed"]),
+    params: Params = {"embed": matrix(tree["embed"], transpose=False),
                       "final_norm": t(tree["final_norm"]), "layers": []}
     for i in range(cfg.n_layers):
         layer = {}
         for key in _LAYER_KEYS:
-            a = np.asarray(layers[key][i], dtype=np.float32)
-            layer[key] = t(a.T if key in _MATRICES else a)
+            if key in _MATRICES:
+                layer[key] = matrix(layers[key], i)
+            else:
+                layer[key] = t(np.asarray(layers[key][i], np.float32))
         params["layers"].append(layer)
     if not cfg.tie_embeddings:
-        params["lm_head"] = t(np.asarray(tree["lm_head"], np.float32).T)
+        params["lm_head"] = matrix(tree["lm_head"])
     return params
 
 
@@ -171,7 +219,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
 
 def embed_tokens(params: Params, cfg: LlamaConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    return quant_ops.take(params["embed"], tokens, cfg.torch_dtype)
 
 
 def _norm(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
@@ -180,7 +228,7 @@ def _norm(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
 
 
 def _proj(x: torch.Tensor, layer: Params, name: str) -> torch.Tensor:
-    return F.linear(x, layer[name])
+    return quant_ops.matmul(x, layer[name])
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -222,6 +270,8 @@ def kernel_attention(cfg: LlamaConfig) -> bool:
 def _unembed(cfg: LlamaConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(head, quant_ops.QTensor):
+        return quant_ops.matmul(h, head).float()
     return F.linear(h, head.to(h.dtype)).float()
 
 

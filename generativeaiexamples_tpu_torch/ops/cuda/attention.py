@@ -45,7 +45,7 @@ from generativeaiexamples_tpu_torch.ops.cuda.build import (  # noqa: F401
     LAUNCHES, launch_counts, reset_launch_counts)
 
 HEAD_DIMS = (16, 32, 64, 128)
-QG_MAX = 64   # query vectors (G * Qb) one ragged block holds
+QG_MAX = 64   # query vectors (G * Qb) one block of the walk holds
 SPLIT_TILE = 64   # tokens per tile of the decode-side walk (csrc BT)
 SPLIT_MAX = 32    # splits of one (row, KV head), at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,6 +79,18 @@ def ragged_paged_supported(page_size: int, head_dim: int,
     construction (one kernel); ``q_block`` adds a power-of-two row size."""
     return (paged_decode_supported(page_size, head_dim)
             and q_block >= 1 and q_block & (q_block - 1) == 0)
+
+
+def query_tile(q_block: int, group: int) -> int:
+    """Queries of a ragged row one block takes: the whole row when its
+    ``q_block * group`` query vectors fit ``QG_MAX``, else ``QG_MAX //
+    group`` (llama3-70b's G = 8: 8 queries, so a verify row of 9 is two
+    tiles and a mixed row of 16 two). Each tile is a block over the same KV
+    walk with partials and a ticket of its own."""
+    if group > QG_MAX:
+        raise ValueError(f"GQA group {group} exceeds the {QG_MAX} query "
+                         f"vectors a block holds")
+    return q_block if q_block * group <= QG_MAX else QG_MAX // group
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +248,7 @@ def _as_i32(x: torch.Tensor, device) -> torch.Tensor:
 _FLASH_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                + [ctypes.c_void_p] * 2)
 _RAGGED_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
-                + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
+                + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
 _DECODE_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p] * 4)
 
@@ -318,7 +330,9 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     past ``q_num`` are finite garbage the caller discards. ``layer`` may be
     an int or a device tensor. ``k_scales``/``v_scales``, f32 (L*P, KV,
     page), switch to the int8 pool (its own launch count,
-    ``ragged_paged_attention_int8``). CPU tensors take the plain version.
+    ``ragged_paged_attention_int8``). A row of more than ``QG_MAX`` query
+    vectors is cut into query tiles (:func:`query_tile`). CPU tensors take
+    the plain version.
     """
     if (k_scales is None) != (v_scales is None):
         raise ValueError("ragged_paged_attention: give both k_scales and "
@@ -342,9 +356,9 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"ragged_paged_attention: unsupported shapes q "
                          f"{tuple(q.shape)} pool {tuple(k_pages.shape)}")
     KV = KVHD // HD
-    if H % KV or Qb * (H // KV) > QG_MAX:
-        raise ValueError(f"ragged_paged_attention: H={H}, KV={KV}, Qb={Qb} "
-                         f"outside the kernel's limits (G*Qb <= {QG_MAX})")
+    if H % KV or H // KV > QG_MAX:
+        raise ValueError(f"ragged_paged_attention: H={H}, KV={KV} outside "
+                         f"the kernel's limits (H/KV <= {QG_MAX})")
     if not (q.is_contiguous() and k_pages.is_contiguous()
             and v_pages.is_contiguous()):
         raise ValueError("ragged_paged_attention: q and pools must be "
@@ -371,13 +385,16 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pos0 = _as_i32(q_pos0, dev)
     qnum = _as_i32(q_num, dev)
     out = torch.empty_like(q)
-    plan, part, tickets = _split_args(dev, R, KV, maxp * ps, Qb * (H // KV),
-                                      HD)
+    # rows past QG_MAX query vectors: query tiles, each a cell of the grid
+    tq = query_tile(Qb, H // KV)
+    n_qt = -(-Qb // tq)
+    plan, part, tickets = _split_args(dev, R * n_qt, KV, maxp * ps,
+                                      tq * (H // KV), HD)
     fn = _lib("ragged_paged", "gk_ragged_paged_attention", _RAGGED_ARGS)
     rc = fn(_DTYPES[q.dtype], HD, _ptr(q), _ptr(k_pages), _ptr(v_pages),
             _ptr(k_scales), _ptr(v_scales), _ptr(tables), _ptr(lens),
-            _ptr(pos0), _ptr(qnum), _ptr(lyr), _ptr(out), R, Qb, H, KV, ps,
-            maxp, P, plan.tiles, plan.splits, _ptr(part), _ptr(tickets),
+            _ptr(pos0), _ptr(qnum), _ptr(lyr), _ptr(out), R, Qb, tq, H, KV,
+            ps, maxp, P, plan.tiles, plan.splits, _ptr(part), _ptr(tickets),
             _stream(dev))
     name = "ragged_paged_attention_int8" if quant else "ragged_paged_attention"
     _check(rc, name)

@@ -28,7 +28,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 KERNEL_SOURCES = ("flash_prefill", "ragged_paged", "ragged_decode",
-                  "sample_slots")
+                  "sample_slots", "w8a16_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,10 +36,12 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # launches of each kernel, raised by one by its wrapper where it launches
-# (ops/cuda/attention.py, ops/cuda/sampling.py), and nowhere else
+# (ops/cuda/attention.py, ops/cuda/sampling.py, ops/cuda/quant.py), and
+# nowhere else
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
                             "ragged_paged_attention_int8": 0,
-                            "ragged_decode": 0, "sample_slots": 0}
+                            "ragged_decode": 0, "sample_slots": 0,
+                            "w8a16_gemm": 0}
 
 
 def launch_counts() -> Dict[str, int]:

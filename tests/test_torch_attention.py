@@ -162,8 +162,12 @@ def test_support_predicates_and_launch_counts():
     tk.flash_prefill(x, x[:, :, :1], x[:, :, :1])
     tk.ragged_decode(x[:, :1], x[:, :, :1], x[:, :, :1],
                      torch.tensor([3], dtype=torch.int32))
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+    cq.w8a16_gemm(torch.ones((2, 16)), torch.ones((4, 16), dtype=torch.int8),
+                  torch.ones(4))
     assert tk.launch_counts() == {"flash_prefill": 0,
                                   "ragged_paged_attention": 0,
                                   "ragged_paged_attention_int8": 0,
-                                  "ragged_decode": 0, "sample_slots": 0}
+                                  "ragged_decode": 0, "sample_slots": 0,
+                                  "w8a16_gemm": 0}
 

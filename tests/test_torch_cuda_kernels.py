@@ -11,6 +11,9 @@ pool's kernel and plain version do the same f32 math on the same int8
 values and scales, so the same tolerances hold. The split-walk tests hold
 bf16 outputs per (row, query, head) to one bf16 ulp of the largest plain
 output, the bar ``chip_smoke.py`` uses, since int8-pool outputs reach 6.
+The W8A16 GEMM is held to its plain version by ``chip_smoke.py``'s
+``check_gemm`` (one bf16 ulp of the unscaled product times the scale plus
+one of the result, and 2**-16 of |x| @ |q|^T for the summation order).
 The sampling kernel is held to its plain version by ``chip_smoke.py``'s
 ``check_sampler``: the top-k cutoff bit-equal, the top-p cutoff and the
 token equal except at counted near-ties (a mass within rounding of the
@@ -512,8 +515,26 @@ def test_ragged_paged_verify_and_mixed_rows_on_the_card(cuda_device, pool,
     with the mixed chunks at chunk-aligned starts and as cache-hit
     suffixes: each live (query, head) against the plain version, idle
     rows zero."""
-    rng = np.random.default_rng(70 + len(case))
-    H, KV, HD, ps = 32, 8, 128, 128
+    _check_verify_and_mixed_rows(cuda_device, pool, case, H=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["verify_qb9", "mixed_qb16"])
+@pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
+def test_ragged_paged_group8_query_tiles_on_the_card(cuda_device, pool,
+                                                     case):
+    """llama3-70b's heads (64 q, 8 KV, G = 8): a verify row of 9 queries
+    holds 72 query vectors and a mixed row of 16 holds 128, past the 64 a
+    block takes, so each row runs as two query tiles over the same KV
+    walk; every live (query, head) against the plain version, idle rows
+    zero, and two calls in a row bit-equal (each tile's tickets back at
+    zero)."""
+    _check_verify_and_mixed_rows(cuda_device, pool, case, H=64)
+
+
+def _check_verify_and_mixed_rows(cuda_device, pool, case, H):
+    rng = np.random.default_rng(70 + len(case) + (0 if H == 32 else 1000))
+    KV, HD, ps = 8, 128, 128
     cap = 2048 if case == "mixed_prefix" else 1024
     maxp = cap // ps
     Qb, lens, pos0, qnum, slots = _verify_and_mixed_rows(case, cap)
@@ -538,6 +559,10 @@ def test_ragged_paged_verify_and_mixed_rows_on_the_card(cuda_device, pool,
     assert tk.launch_counts()[key] == 1
     want = tk.ragged_paged_attention_plain(q, kp, vp, *args, 1, P, ks, vs)
     assert torch.isfinite(got).all()
+    if Qb * H // KV > tk.QG_MAX:
+        assert torch.equal(got, tk.ragged_paged_attention(
+            q, kp, vp, *args, layer=1, pages_per_layer=P, k_scales=ks,
+            v_scales=vs))
     for r, n in enumerate(qnum):
         if n == 0:
             assert (got[r] == 0).all()
@@ -644,6 +669,111 @@ def test_engine_prefix_cache_kernel_path_matches_plain_on_the_card(
                       [r.prefix_hit_tokens for r in reqs])
     assert runs["kernel"] == runs["plain"]
     assert min(runs["kernel"][1][1:]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_engine_group8_int8_weights_kernel_path_matches_plain(
+        cuda_device, kv_quant, monkeypatch):
+    """A tiny model with llama3-70b's GQA group of 8 (16 q over 2 KV heads,
+    f32) and int8 weights under the default engine on the card: the ladder
+    of widths up to 9 (72 query vectors a row) is not refused and the
+    mixed dispatch resolves on (q_block 16, 128 vectors); its greedy
+    streams through the ragged kernel's query tiles and the W8A16 kernel
+    equal the plain path's (plain attention, the GEMM's plain version)."""
+    import dataclasses
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=300),
+                              n_heads=16, n_kv_heads=2)
+    tok = ByteTokenizer()
+    quote = ("the retrieved context says: alpha beta gamma delta. " * 2
+             + "question: repeat the context. answer: the retrieved")
+    prompts = [tok.encode("hello", add_bos=True),
+               tok.encode(quote[:110], add_bos=True)]
+    streams = {}
+    for attn in ("kernel", "plain"):
+        if attn == "plain":
+            monkeypatch.setattr(cq, "w8a16_gemm", cq.w8a16_gemm_plain)
+        params = llama.init_params(
+            torch.Generator(device=cuda_device).manual_seed(7), cfg,
+            quant="int8")
+        core = EngineCore(cfg, EngineConfig(
+            max_batch_size=4, max_seq_len=256, prefill_chunk=16, page_size=8,
+            attention=attn, kv_quant=kv_quant, quant="int8",
+            prefill_hold_chunks=0), params, tok.eos_id, device=cuda_device)
+        assert core.mixed_supported and core.spec_widths == (2, 3, 5, 9)
+        sched = Scheduler(core, tok)
+        tk.reset_launch_counts()
+        reqs = [Request(prompt_ids=prompts[0], max_tokens=40,
+                        temperature=0.0),
+                Request(prompt_ids=prompts[1], max_tokens=24,
+                        temperature=0.0)]
+        sched.submit(reqs[0])
+        sched._tick()
+        sched.submit(reqs[1])
+        while sched._tick():
+            pass
+        assert all(r.error is None for r in reqs)
+        assert sched.stats["mixed_dispatches"] > 0
+        assert sched.stats["spec_steps"] > 0
+        streams[attn] = [r.output_ids for r in reqs]
+        launches = tk.launch_counts()
+        assert (launches["w8a16_gemm"] > 0) == (attn == "kernel")
+    assert streams["kernel"] == streams["plain"]
+
+
+# the W8A16 GEMM's (N, K) weight shapes: llama3-8b's wq/wo, wk/wv,
+# gate/up, down and lm_head, then llama3-70b's
+GEMM_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+               (128256, 4096), (8192, 8192), (1024, 8192), (28672, 8192),
+               (8192, 28672), (128256, 8192))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M", [1, 8, 72, 4096])
+@pytest.mark.parametrize("N,K", GEMM_SHAPES)
+def test_w8a16_gemm_matches_plain_on_the_card(cuda_device, N, K, M, dtype):
+    """The W8A16 GEMM against its plain version at every weight shape of
+    llama3-8b and llama3-70b, decode to prefill rows, within
+    ``chip_smoke.check_gemm``'s limit (bf16: one ulp of the unscaled
+    product times s plus one of the result; f32: two f32 ulps; both plus
+    2**-16 of |x| @ |q|^T times s for the summation order). Two calls are
+    bit-equal (split-K tickets back at zero); each call is one launch."""
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+    cs = _smoke()
+    x, q, s = cs.gemm_inputs(cuda_device, M, N, K, getattr(torch, dtype),
+                             seed=N + K + M)
+    tk.reset_launch_counts()
+    got = cq.w8a16_gemm(x, q, s)
+    assert torch.equal(got, cq.w8a16_gemm(x, q, s))
+    assert tk.launch_counts()["w8a16_gemm"] == 2
+    reading = cs.check_gemm("w8a16_gemm", x, q, s, got)
+    assert reading["max_err_over_limit"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_w8a16_gemm_refuses_what_it_cannot_take(cuda_device):
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+    x = torch.zeros((4, 40), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((8, 40), dtype=torch.int8, device=cuda_device)
+    s = torch.ones((8,), dtype=torch.float32, device=cuda_device)
+    assert not cq.w8a16_supported(40, torch.bfloat16)
+    with pytest.raises(ValueError, match="K=40"):
+        cq.w8a16_gemm(x, q, s)
+    with pytest.raises(ValueError):
+        cq.w8a16_gemm(x.half(), q, s)
+    # f32 takes any K
+    assert cq.w8a16_supported(40, torch.float32)
+    got = cq.w8a16_gemm(x.float() + 1, q + 1, s)
+    assert torch.equal(got, torch.full((4, 8), 40.0, device=cuda_device))
 
 
 def _smoke():

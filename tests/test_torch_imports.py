@@ -113,10 +113,12 @@ def test_unported_config_knobs_are_refused(monkeypatch):
     from generativeaiexamples_tpu_torch.core.config import load_config
     from generativeaiexamples_tpu_torch.models import model_config
 
-    monkeypatch.setenv("APP_ENGINE_QUANT", "int8")
-    with pytest.raises(NotImplementedError, match="A1"):
+    monkeypatch.setenv("APP_ENGINE_LONG_PREFILL", "on")
+    with pytest.raises(NotImplementedError, match="A11"):
         load_config()
-    monkeypatch.delenv("APP_ENGINE_QUANT")
+    monkeypatch.delenv("APP_ENGINE_LONG_PREFILL")
+    monkeypatch.setenv("APP_ENGINE_QUANT", "int8")        # ported
+    assert load_config().engine.quant == "int8"
     monkeypatch.setenv("APP_ENGINE_KV_QUANT", "int8")     # ported
     assert load_config().engine.kv_quant == "int8"
     monkeypatch.setenv("APP_ENGINE_PREFILL_CHUNK", "256")
