@@ -4,14 +4,19 @@
     python3 chip_smoke.py                   # the smoke run
     python3 chip_smoke.py --planted-faults [NAME ...]  # the kernel checks
                                             # catch faults (all, or those)
-    python3 chip_smoke.py --ab PARENT CHANGE  # kernel times of two trees
+    python3 chip_smoke.py --ab PARENT CHANGE [attention sampling gemm]
+                                            # kernel times of two trees
 
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result:
 
   1. device   the card (nvidia-smi name and power limit), torch and CUDA;
   2. build    every kernel of the serving path built from ``csrc/`` with
-              one nvcc per source, all at once;
+              one nvcc per source, all at once; registers and spills of
+              every instance, the SASS counts of HGMMA (wgmma) and UTMALDG
+              (TMA loads) in each W8A16 GEMM kernel (every bf16 instance
+              must hold both) and the clusters of 1 to 8 CTAs the card
+              runs at once;
   3. kernel:flash_prefill                kernel vs its plain version at
   4. kernel:ragged_paged_attention       the main paths' shapes, with
   5. kernel:ragged_paged_attention_int8  times, bounds and a library
@@ -29,11 +34,12 @@ prints no result:
               the plain version and a sort-based torch yardstick;
   7b. kernel:w8a16_gemm  the W8A16 GEMM (int8 weights, bf16 or f32
               activations) at every weight shape of llama3-8b (8, 40, 72
-              and 4,096 rows) and of llama3-70b (8 and 72 rows), bf16, and
-              one f32 case, within ``GEMM_TOLERANCE`` of its plain version;
-              times over enough weight copies to pass L2, beside the bound,
-              the plain version and ``F.linear`` over the dequantized
-              weight;
+              and 4,096 rows) and of llama3-70b (8, 72, 4,096 and the 584
+              rows of its mixed dispatch), bf16, and one f32 case, within
+              ``GEMM_TOLERANCE`` of its plain version; device times over
+              enough weight copies to pass L2 and host us a call, beside
+              the bound, the plain version and ``F.linear`` over the
+              dequantized weight, and each case's tile plan;
   8. parity   llama3-8b width, 2 layers, f32, greedy: the kernel path and
               the plain path give the same tokens through the engine over
               a model-dtype pool and an int8 pool, on the narrow path (one
@@ -90,7 +96,8 @@ prints no result:
               ragged_decode;
  15. serve_w8  ``serve`` with int8 weights (the bf16 set quantized in
               place): 7 ``w8a16_gemm`` launches a layer and one a head per
-              forward pass, no ``F.linear``; then ``profile_w8``, a narrow
+              forward pass, no ``F.linear``, and the launches by rows
+              (``gemm_launches_by_rows``); then ``profile_w8``, a narrow
               decode step's GEMM device ms against the bytes it must read
               and the bf16 step's matmul ms;
  16. serve_70b_w8  after the llama3-8b weights are dropped: llama3-70b at
@@ -99,7 +106,7 @@ prints no result:
               ``serve``'s 4 decoders at 32 tokens, then one 1,296-byte
               prompt that rides mixed dispatches of 128 query vectors a
               row (query tiles of the ragged kernel); peak GB, warmup
-              seconds, tok/s and TTFT.
+              seconds, tok/s, TTFT and the GEMM's launches by rows.
 
 Each serve phase reports the dispatch loop: dispatches per width rung,
 held ticks, dispatches issued with another in flight and the most left in
@@ -126,13 +133,15 @@ dropped tile, a dropped split in the combine, a causal limit off by one
 and a wrong int8 scale slot in the decode-side walk, and a wrong
 threefry rotation constant, a counter off by one, a strict top-p
 predicate and z summed over every entry in the sampler, and a dropped
-scale and a skipped contraction tile (each instance) in the W8A16 GEMM,
-each
+scale, a skipped contraction step (each instance) and a rank dropped
+from the cluster's reduction in the W8A16 GEMM, each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
 ``--ab`` times every attention kernel and the sampling call of two trees
 of the port in turns, with the grouped-prefill profile and
-``profile_sampled``. Each main
+``profile_sampled``, and every W8A16 GEMM case (device ms and host us a
+call) with ``profile_w8`` (the parts named after the trees, all by
+default). Each main
 path (9 to 16) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -286,9 +295,10 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def phase_build(gemm_report=True):
     """Build every kernel library; report each kernel instance's registers
-    and spill bytes from the ``-Xptxas -v`` log."""
+    and spill bytes from the ``-Xptxas -v`` log and (``gemm_report``) the
+    W8A16 GEMM's SASS counts and cluster occupancy."""
     import re
     from generativeaiexamples_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
@@ -312,7 +322,46 @@ def phase_build():
         report[name] = entries
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_library_s={k: round(v, 3) for k, v in per_lib.items()},
-         ptxas=report)
+         ptxas=report,
+         **(dict(w8a16_gemm_sass=gemm_sass_counts(),
+                 w8a16_gemm_max_clusters=gemm_max_clusters())
+            if gemm_report else {}))
+
+
+def gemm_sass_counts():
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in each W8A16
+    GEMM kernel's SASS (``cuobjdump -sass``); every bf16 instance must
+    hold both."""
+    import re
+    from generativeaiexamples_tpu_torch.ops.cuda import build
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(
+        build._nvcc())), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build.lib_path("w8a16_gemm")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\b", ln))
+    bf16 = {f: c for f, c in counts.items() if "wgmma" in f}
+    if not bf16 or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
+                       for c in bf16.values()):
+        raise AssertionError(f"a bf16 W8A16 GEMM kernel lacks HGMMA or "
+                             f"UTMALDG: {counts}")
+    return counts
+
+
+def gemm_max_clusters():
+    """Clusters of 1, 2, 4 and 8 CTAs of the W8A16 GEMM that the card runs
+    at once (``cudaOccupancyMaxActiveClusters``): the plan's slots."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+    return cq._card(torch.cuda.current_device())[1]
 
 
 def _flash_case(dev, starts, lens, seed, C=512):
@@ -695,8 +744,11 @@ GEMM_SHAPES = {
             ("lm_head", 128256, 8192)),
 }
 # rows: a narrow decode step (8 slots), W = 5 and W = 9 verify steps, a
-# grouped prefill of 8 chunks of 512; llama3-70b at the decode widths
-GEMM_ROWS = {"8b": (8, 40, 72, 4096), "70b": (8, 72)}
+# grouped prefill of 8 chunks of 512; llama3-70b at the decode widths, its
+# grouped prefill and the rows of the mixed dispatch that serve_70b_w8
+# launches (its ``gemm_launches_by_rows``)
+MIXED_70B_ROWS = 584       # 8 slots x W = 9, and one chunk of 512
+GEMM_ROWS = {"8b": (8, 40, 72, 4096), "70b": (8, 72, 4096, MIXED_70B_ROWS)}
 PEAK_F32_FLOPS = 67e12     # the H100 SXM's f32 rate outside the tensor cores
 GEMM_TOLERANCE = ("per element: 2**-7 x (|plain product before the scale| "
                   "x s + |plain result|) (bf16: one ulp of each rounding; "
@@ -743,12 +795,40 @@ def check_gemm(name, x, q, s, got):
     return reading
 
 
+def host_us(fn, calls):
+    """Host microseconds a call of ``fn`` (eager, no synchronise inside:
+    what issuing it costs the host), after warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
+def _gemm_timing(M, N, K, x, q, s):
+    """w8a16_gemm's device ms over enough copies of the weight to pass L2
+    (decode finds every weight cold) and its host us a call, through the
+    wrapper's public call only (``--ab`` runs this against older trees),
+    and the weight copies."""
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+    copies = max(1, min(32, -(-(256 << 20) // (N * K))))
+    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    it = iter(range(1 << 30))
+    ms = graph_ms(lambda: cq.w8a16_gemm(x, qs[next(it) % copies], s),
+                  target_ms=150.0, per_graph=8)
+    us = host_us(lambda: cq.w8a16_gemm(x, q, s), 100 if M <= 128 else 10)
+    return ms, us, qs
+
+
 def _gemm_case(dev, M, N, K, dtype, seed):
     """w8a16_gemm at one shape: checked against its plain version, then
-    timed over enough copies of the weight to pass L2 (decode finds every
-    weight cold), beside the plain version (eager dequantize + F.linear)
-    and the library yardstick (F.linear over the bf16-dequantized weight,
-    dequantization not timed)."""
+    timed (``_gemm_timing``) beside the plain version (eager dequantize +
+    F.linear) and the library yardstick (F.linear over the
+    bf16-dequantized weight, dequantization not timed)."""
     import torch
     import torch.nn.functional as F
     from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
@@ -757,10 +837,9 @@ def _gemm_case(dev, M, N, K, dtype, seed):
     check = check_gemm("w8a16_gemm", x, q, s, out)
     if CHECK_ONLY:
         return check
-    copies = max(1, min(32, -(-(256 << 20) // (N * K))))
-    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    ms, us, qs = _gemm_timing(M, N, K, x, q, s)
+    copies = len(qs)
     deq = [(w.float() * s[:, None]).to(x.dtype) for w in qs]
-    it = iter(range(1 << 30))
     it2 = iter(range(1 << 30))
     it3 = iter(range(1 << 30))
     size = x.element_size()
@@ -768,12 +847,10 @@ def _gemm_case(dev, M, N, K, dtype, seed):
     nbytes = float(N * K + 4 * N + size * (M * K + M * N))
     peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
     b_ms, b_by = bound(flops, nbytes, peak)
-    plan = cq.gemm_plan(M, N, K, torch.cuda.get_device_properties(dev)
-                        .multi_processor_count)
-    ms = graph_ms(lambda: cq.w8a16_gemm(x, qs[next(it) % copies], s),
-                  target_ms=150.0, per_graph=8)
+    plan = cq.card_plan(M, N, K, dev)
     res = dict(
         **check, tolerance=GEMM_TOLERANCE, ms=ms, share_of_bound=b_ms / ms,
+        host_us=us,
         plain_ms=time_ms(lambda: cq.w8a16_gemm_plain(
             x, qs[next(it2) % copies], s), target_ms=150.0),
         library_ms=graph_ms(lambda: F.linear(x, deq[next(it3) % copies]),
@@ -783,34 +860,54 @@ def _gemm_case(dev, M, N, K, dtype, seed):
                      + " (dequantization not timed)",
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
         weight_copies=copies,
-        plan=(None if x.dtype != torch.bfloat16 else plan._asdict()),
-        scratch_bytes=(0 if x.dtype != torch.bfloat16
-                       else plan.scratch_bytes(M, N)),
+        plan=(None if x.dtype != torch.bfloat16 else
+              dict(plan._asdict(), rows=plan.rows, instance=plan.instance,
+                   ctas=plan.ctas)),
         shape=dict(M=M, N=N, K=K, dtype=str(x.dtype).removeprefix("torch.")))
     del qs, deq
     return res
 
 
-def gemm_cases(dev):
-    """The W8A16 GEMM's cases, each a thunk: every weight shape of
-    llama3-8b at 8, 40, 72 and 4,096 rows and of llama3-70b at 8 and 72,
-    bf16; and wq at 8 rows in f32 (the parity phase's dtype). The first,
-    gate/up at a narrow decode step, is the entry's own."""
-    import torch
-    cases = {}
+def gemm_case_shapes():
+    """tag -> (M, N, K, dtype name, seed) of every W8A16 GEMM case: every
+    weight shape of llama3-8b at 8, 40, 72 and 4,096 rows and of llama3-70b
+    at 8, 72, 4,096 and its mixed dispatch's rows, bf16; and wq at 8 rows
+    in f32 (the parity phase's dtype). The first, gate/up at a narrow
+    decode step, is the entry's own."""
+    shapes = {}
     order = [("8b", "gate_up", 8)] + [
         (m, name, M) for m in ("8b", "70b") for name, _, _ in GEMM_SHAPES[m]
         for M in GEMM_ROWS[m]]
     for i, (m, name, M) in enumerate(order):
         tag = f"{m}_{name}_m{M}"
-        if tag in cases:
+        if tag in shapes:
             continue
         N, K = next((n, k) for nm, n, k in GEMM_SHAPES[m] if nm == name)
-        cases[tag] = (lambda M=M, N=N, K=K, i=i: _gemm_case(
-            dev, M, N, K, torch.bfloat16, 90 + i))
-    cases["8b_wq_wo_m8_f32"] = lambda: _gemm_case(dev, 8, 4096, 4096,
-                                                  torch.float32, 89)
-    return cases
+        shapes[tag] = (M, N, K, "bfloat16", 90 + i)
+    shapes["8b_wq_wo_m8_f32"] = (8, 4096, 4096, "float32", 89)
+    return shapes
+
+
+def gemm_cases(dev):
+    """The W8A16 GEMM's cases (``gemm_case_shapes``), each a thunk."""
+    import torch
+    return {tag: (lambda M=M, N=N, K=K, dt=dt, seed=seed: _gemm_case(
+        dev, M, N, K, getattr(torch, dt), seed))
+        for tag, (M, N, K, dt, seed) in gemm_case_shapes().items()}
+
+
+def ab_gemm(dev):
+    """Every GEMM case's device ms and host us a call through the tree's
+    ``w8a16_gemm`` (``--ab``)."""
+    import torch
+    out = {}
+    for tag, (M, N, K, dt, seed) in gemm_case_shapes().items():
+        x, q, s = gemm_inputs(dev, M, N, K, getattr(torch, dt), seed)
+        ms, us, qs = _gemm_timing(M, N, K, x, q, s)
+        out[tag] = {"ms": ms, "host_us": us}
+        del x, q, s, qs
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_gemm(dev):
@@ -1932,6 +2029,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    from generativeaiexamples_tpu_torch.ops.cuda import build
 
     tok = ByteTokenizer()
     core = serving_core(dev, cfg, params, kv_quant, quant=quant,
@@ -1970,6 +2068,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                     base, sched, submitted, chain, decoder_tokens, late)
             wall = time.perf_counter() - t0
             launches = k.launch_counts()
+            gemm_rows = build.gemm_launches_by_rows()
             stats = dict(sched.stats)
     finally:
         httpd.shutdown()
@@ -2003,6 +2102,9 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             f"{launches['w8a16_gemm']} w8a16_gemm launches for "
             f"{fwd.blocks} forward passes and {fwd.unembeds} "
             f"unembeddings (want {need_gemm}), {fwd.linear} F.linear calls")
+    if sum(gemm_rows.values()) != need_gemm:
+        raise AssertionError(f"w8a16_gemm launches by rows {gemm_rows} do "
+                             f"not add up to {need_gemm}")
     if not narrow and (stats["mixed_dispatches"] < 1
                        or stats["spec_steps"] < 1):
         raise AssertionError(f"the default path ran no mixed dispatch or "
@@ -2045,7 +2147,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         kv_pool_bytes=health["kv_pool_bytes"],
         multi_chunk_prompt=max(len(r.prompt_ids) for r in submitted) > 512,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        **_loop_fields(stats, core, warmup_s, launches))
+        **_loop_fields(stats, core, warmup_s, launches),
+        **(dict(gemm_launches_by_rows=gemm_rows) if quant == "int8" else {}))
     if model == "llama3-70b" and fwd.tiled < 1:
         raise AssertionError(f"{name}: no ragged launch of more than "
                              f"{k.QG_MAX} query vectors a row")
@@ -2733,9 +2836,12 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # sums z over every entry instead of the top-k survivors (caught where a
 # row has both filters) in the sampling kernel; gemm_dropped_scale leaves
 # the per-channel scale out of the W8A16 GEMM's bf16 epilogue,
-# gemm_skipped_k_tile skips the second 64-deep tile of the contraction in
-# its tensor-core instance and gemm_f32_skipped_k_tile the first tile in
-# its f32 instance.
+# gemm_skipped_k_tile has its consumers skip the wgmma of the second 64
+# of the contraction's depth (still releasing its stage),
+# gemm_cluster_dropped_rank has the distributed-shared-memory reduction of
+# its decode tiles skip rank 1's partials (caught where the plan splits the
+# contraction across a cluster) and gemm_f32_skipped_k_tile skips the first
+# tile in its f32 instance.
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -2777,9 +2883,14 @@ PLANTED_FAULTS = (
      "  const float sv = __bfloat162float(__float2bfloat16(s));\n",
      "  const float sv = 1.f;\n", ("w8a16_gemm",)),
     ("gemm_skipped_k_tile", "w8a16_gemm.cu",
-     "    const int8_t* bs = stage_b(i % STAGES);\n",
-     "    const int8_t* bs = stage_b(i % STAGES);\n"
-     "    if (kt0 + i == 1) continue;\n", ("w8a16_gemm",)),
+     "    for (int j = 0; j < 4; ++j) mma_rows<BN>(acc, cur[j], xs + 32 * j);\n",
+     "    if (u != 1)\n"
+     "    for (int j = 0; j < 4; ++j) mma_rows<BN>(acc, cur[j], xs + 32 * j);\n",
+     ("w8a16_gemm",)),
+    ("gemm_cluster_dropped_rank", "w8a16_gemm.cu",
+     "        for (int q = 0; q < CL; ++q) {   // ranks in order\n",
+     "        for (int q = 0; q < CL; ++q) {   // ranks in order\n"
+     "          if (q == 1) continue;\n", ("w8a16_gemm",)),
     ("gemm_f32_skipped_k_tile", "w8a16_gemm.cu",
      "for (int k0 = 0; k0 < K; k0 += FBK)",
      "for (int k0 = FBK; k0 < K; k0 += FBK)", ("w8a16_gemm",)),
@@ -2813,56 +2924,76 @@ print(json.dumps(out))
 
 _AB_PHASES = """
 import importlib.util, json, sys, torch
-tree, smoke = sys.argv[1:3]
+tree, smoke, parts = sys.argv[1:4]
+parts = parts.split(",")
 sys.path.insert(0, tree)
 spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
-cs.phase_build()
+cs.phase_build(gemm_report=False)
 out = {}
-for name, first, fn in (
-        ("flash_prefill", "chunks4", lambda: cs.phase_flash(dev)),
-        ("ragged_paged_attention", "decode", lambda: cs.phase_ragged(dev)),
-        ("ragged_paged_attention_int8", "decode",
-         lambda: cs.phase_ragged(dev, True)),
-        ("ragged_decode", "decode", lambda: cs.phase_decode(dev))):
-    res = fn()
-    out[name] = {first: res["ms"]}
-    out[name].update({sub: res[sub]["ms"] for sub in (
-        "prefill_group8", "prefix_suffix") + cs.RAGGED_SUBCASES
-        if sub in res})
-out["sampling_call"] = cs.ab_sampling_calls(dev)
+if "attention" in parts:
+    for name, first, fn in (
+            ("flash_prefill", "chunks4", lambda: cs.phase_flash(dev)),
+            ("ragged_paged_attention", "decode", lambda: cs.phase_ragged(dev)),
+            ("ragged_paged_attention_int8", "decode",
+             lambda: cs.phase_ragged(dev, True)),
+            ("ragged_decode", "decode", lambda: cs.phase_decode(dev))):
+        res = fn()
+        out[name] = {first: res["ms"]}
+        out[name].update({sub: res[sub]["ms"] for sub in (
+            "prefill_group8", "prefix_suffix") + cs.RAGGED_SUBCASES
+            if sub in res})
+if "sampling" in parts:
+    out["sampling_call"] = cs.ab_sampling_calls(dev)
+if "gemm" in parts:
+    out["w8a16_gemm"] = cs.ab_gemm(dev)
 cfg, params, _ = cs.draw_8b(dev)
-prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
-out["profile_prefill"] = {key: prof[key] for key in (
-    "host_wall_ms", "device_ms", "device_ms_by_class")}
-out["profile_sampled"] = cs.profile_sampled(dev, cfg, params)
+if "attention" in parts:
+    prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
+    out["profile_prefill"] = {key: prof[key] for key in (
+        "host_wall_ms", "device_ms", "device_ms_by_class")}
+if "sampling" in parts:
+    out["profile_sampled"] = cs.profile_sampled(dev, cfg, params)
+if "gemm" in parts:
+    prof = cs.profile_w8(cs.serving_core(dev, cfg, params, quant="int8",
+                                         **cs.NARROW), None)
+    out["profile_w8"] = {key: prof[key] for key in (
+        "prefill_s", "decode_ms_per_step", "device_ms_per_step",
+        "device_busy_share", "device_ms_per_step_by_class", "gemm_ms_a_step",
+        "gemm_share_of_bound")}
 print(json.dumps(out))
 """
+AB_PARTS = ("attention", "sampling", "gemm")
 
 
-def ab(trees) -> None:
-    """Kernel times of every attention kernel of two trees of the port,
-    each tree's sampling call at the sampler's cases, the grouped prefill
-    dispatch's profile and ``profile_sampled`` at llama3-8b (bf16 pool),
-    in one call, in turns (first, second, second, first), each in its own process
-    building its own kernels; the cases and the timing are this script's
-    for both."""
+def ab(trees, parts=AB_PARTS) -> None:
+    """Kernel times of two trees of the port in one call, in turns (first,
+    second, second, first), each in its own process building its own
+    kernels; the cases and the timing are this script's for both.
+    ``parts``: "attention" (every attention kernel and the grouped prefill
+    dispatch's profile at llama3-8b, bf16 pool), "sampling" (the sampling
+    call at the sampler's cases and ``profile_sampled``), "gemm" (every
+    W8A16 GEMM case's device ms and host us a call, and ``profile_w8``)."""
+    unknown = set(parts) - set(AB_PARTS)
+    if unknown:
+        raise AssertionError(f"no A/B part named {sorted(unknown)}")
     order = [trees[0], trees[1], trees[1], trees[0]]
     runs = []
     for tree in order:
         tree = os.path.abspath(tree)
         run = subprocess.run([sys.executable, "-c", _AB_PHASES, tree,
-                              os.path.abspath(__file__)], cwd=tree,
-                             capture_output=True, text=True, timeout=900)
+                              os.path.abspath(__file__), ",".join(parts)],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=900)
         if run.returncode != 0:
             raise AssertionError(f"A/B run in {tree} failed\n"
                                  f"{run.stderr[-4000:]}")
         runs.append({"tree": tree,
                      "ms": json.loads(run.stdout.strip().splitlines()[-1])})
-    emit("ab", order=order, runs=runs)
+    emit("ab", order=order, parts=list(parts), runs=runs)
 
 
 def planted_faults(only=()) -> None:
@@ -2940,7 +3071,7 @@ def main() -> int:
     smi = phase_device()
     if sys.argv[1:2] in (["--planted-faults"], ["--ab"]):
         if sys.argv[1] == "--ab":
-            ab(sys.argv[2:4])
+            ab(sys.argv[2:4], sys.argv[4:] or AB_PARTS)
         else:
             planted_faults(sys.argv[2:])
         print(smi, flush=True)
@@ -3047,7 +3178,8 @@ def main() -> int:
         if entry["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on its main path "
                                  f"{path}")
-        keys = ("max_abs_err", "max_err_over_limit", "ms", "plain_ms",
+        keys = ("max_abs_err", "max_err_over_limit", "ms", "host_us",
+                "plain_ms",
                 "bound_ms", "bound_by", "share_of_bound", "library_ms",
                 "splits", "scratch_bytes", "token_mismatches",
                 "near_tie_rows", "bits_exact", "thr_k_mismatches",

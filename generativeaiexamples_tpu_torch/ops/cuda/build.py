@@ -42,6 +42,9 @@ LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
                             "ragged_paged_attention_int8": 0,
                             "ragged_decode": 0, "sample_slots": 0,
                             "w8a16_gemm": 0}
+# w8a16_gemm's launches by activation rows, beside LAUNCHES["w8a16_gemm"]:
+# "m<=R" for a decode tile of R rows (M <= 128), "m=M" above
+GEMM_ROWS: Dict[str, int] = {}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -49,9 +52,17 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+def gemm_launches_by_rows() -> Dict[str, int]:
+    """``w8a16_gemm`` launches by activation rows since the last
+    :func:`reset_launch_counts`."""
+    return dict(sorted(GEMM_ROWS.items(),
+                       key=lambda kv: int(kv[0].lstrip("m<="))))
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    GEMM_ROWS.clear()
 
 
 def _nvcc() -> str:

@@ -738,15 +738,17 @@ GEMM_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("M", [1, 8, 72, 4096])
+@pytest.mark.parametrize("M", [1, 8, 9, 72, 73, 136, 4096])
 @pytest.mark.parametrize("N,K", GEMM_SHAPES)
 def test_w8a16_gemm_matches_plain_on_the_card(cuda_device, N, K, M, dtype):
     """The W8A16 GEMM against its plain version at every weight shape of
-    llama3-8b and llama3-70b, decode to prefill rows, within
+    llama3-8b and llama3-70b, decode to prefill rows (9, 73: a decode
+    tile's rows past M; 136: the smallest prefill tile count), within
     ``chip_smoke.check_gemm``'s limit (bf16: one ulp of the unscaled
     product times s plus one of the result; f32: two f32 ulps; both plus
     2**-16 of |x| @ |q|^T times s for the summation order). Two calls are
-    bit-equal (split-K tickets back at zero); each call is one launch."""
+    bit-equal (the cluster adds its partials in rank order); each call is
+    one launch."""
     from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
     cs = _smoke()
     x, q, s = cs.gemm_inputs(cuda_device, M, N, K, getattr(torch, dtype),
