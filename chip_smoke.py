@@ -94,6 +94,26 @@ prints no result:
  14. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
               ragged_decode;
+ 14b. serve_ckpt  the same weights written as an HF checkpoint under
+              build/ (``config.json``, four safetensors shards and their
+              index, 16.06 GB) with a Llama-3-shaped ``tokenizer.json``
+              made from seed 0 (128,000 entries, 256 specials,
+              ``ignore_merges``), loaded by ``load_hf_dir`` bit-equal to
+              the in-memory weights (load s, GB/s, peak GB), served behind
+              the HTTP server with ``get_tokenizer(dir)``: four unicode
+              chat requests greedy, one after another, then the same four
+              at the chain server's settings at once; every
+              ``prompt_tokens`` the chat template's length, every text
+              ``decode`` of its ids, the greedy ids those of a Scheduler
+              over the in-memory weights, through flash_prefill,
+              ragged_paged_attention and sample_slots; the native
+              tokenizer's host tokens/s over a 100 KB document and us a
+              chat template;
+ 14c. serve_ckpt_w8  the directory loaded with ``quant="int8"``: every q
+              and s bit-equal to ``quantize`` of the in-memory matrix, the
+              load's peak within the int8 set plus two of its largest
+              bf16 matrices; two chats through ``w8a16_gemm``; the
+              directory is then removed;
  15. serve_w8  ``serve`` with int8 weights (the bf16 set quantized in
               place): 7 ``w8a16_gemm`` launches a layer and one a head per
               forward pass, no ``F.linear``, and the launches by rows
@@ -1776,7 +1796,8 @@ def _pipeline_parity(dev, params, cfg, tok):
 def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
              temperature=None, top_p=None):
     """One request (seed ``i``); by default the i-th of the narrow phase's
-    six: chat/completion, streamed or not, temperature 0 / 0.7."""
+    six: chat/completion, streamed or not, temperature 0 / 0.7. Returns
+    its status, text, finish reason, usage and client-side times."""
     chat = i % 2 == 0 if chat is None else chat
     stream = i < 3 if stream is None else stream
     if text is None:
@@ -1819,12 +1840,16 @@ def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
             final = chunks[-2]
             finish = final["choices"][0]["finish_reason"]
             usage = final.get("usage")
+            out = "".join(c["choices"][0]["delta"].get("content", "")
+                          for c in chunks[:-1])
         else:
             body = json.loads(resp.read())
             finish = body["choices"][0]["finish_reason"]
             usage = body.get("usage")
+            out = (body["choices"][0]["message"]["content"] if chat
+                   else body["choices"][0]["text"])
     return {"i": i, "chat": chat, "stream": stream, "status": status,
-            "prompt_bytes": len(text), "finish_reason": finish,
+            "text": out, "prompt_bytes": len(text), "finish_reason": finish,
             "usage": usage, "client_first_text_s": ttft,
             "client_latency_s": time.perf_counter() - t0,
             "sent_s": t0}
@@ -1849,20 +1874,24 @@ NARROW = dict(spec_decode="off", mixed_phase_dispatch="off",
               decode_width_ladder="off")
 
 
-def serving_core(dev, cfg, params, kv_quant="none", batch=8, **knobs):
+def serving_core(dev, cfg, params, kv_quant="none", batch=8, eos_id=None,
+                 **knobs):
     """The serve phases' engine core: ``batch`` slots of 2,048 tokens in
     pages of 128, chunks of 512, over a model-dtype or an int8 pool; the
     reference's defaults (speculation adaptive on, the mixed dispatch
     "auto", on for the card, model-dtype weights) unless ``knobs`` say
     otherwise (``quant="int8"``: int8 weights, quantizing ``params`` in
-    place where they are not yet)."""
+    place where they are not yet); ``eos_id`` the byte tokenizer's unless
+    given."""
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     ecfg = EngineConfig(max_batch_size=batch, max_seq_len=2048,
                         page_size=128, prefill_chunk=512, kv_quant=kv_quant,
                         **knobs)
-    return EngineCore(cfg, ecfg, params, ByteTokenizer().eos_id, device=dev)
+    return EngineCore(cfg, ecfg, params,
+                      ByteTokenizer().eos_id if eos_id is None else eos_id,
+                      device=dev)
 
 
 # the default phases' traffic: 4 requests decode (prompts of 144 to 1,728
@@ -1886,20 +1915,25 @@ def _gate_admission(sched):
 
 
 def _staggered_traffic(base, sched, submitted, chain=False,
-                       decoder_tokens=256, late=2):
+                       decoder_tokens=256, late=2, texts=None):
     """``serve``'s traffic: the decoders (``decoder_tokens``, greedy and
     0.7 in turn) admitted together, then ``late`` prompts (32 tokens) once
     the first decode dispatch ran. ``chain``: every request at the chain
-    server's temperature 0.2 / top-p 0.7 and 64 tokens (``serve_chain``)."""
+    server's temperature 0.2 / top-p 0.7 and 64 tokens (``serve_chain``).
+    ``texts``: (the decoders' prompts, the late prompt) in place of
+    ``PROMPT_TEXT`` times ``DECODERS`` and ``LATE_PROMPT``."""
+    if texts is None:
+        texts = ([PROMPT_TEXT * n for n in DECODERS],
+                 PROMPT_TEXT * LATE_PROMPT)
     gate = _gate_admission(sched)
     gate.clear()
     chain_kw = dict(temperature=0.2, top_p=0.7)
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
-        futs = [pool.submit(_request, base, i, PROMPT_TEXT * n,
+        futs = [pool.submit(_request, base, i, text,
                             64 if chain else decoder_tokens, i % 2 == 0,
                             i < 2, **(chain_kw if chain else dict(
                                 temperature=0.0 if i % 2 else 0.7)))
-                for i, n in enumerate(DECODERS)]
+                for i, text in enumerate(texts[0])]
         _wait_for(lambda: len(submitted) >= len(DECODERS),
                   "the decoders did not arrive")
         gate.set()
@@ -1910,7 +1944,7 @@ def _staggered_traffic(base, sched, submitted, chain=False,
                 raise AssertionError("no decode dispatch within 600 s")
             time.sleep(0.002)
         at = dict(sched.stats)
-        futs += [pool.submit(_request, base, 4 + i, PROMPT_TEXT * LATE_PROMPT,
+        futs += [pool.submit(_request, base, 4 + i, texts[1],
                              64 if chain else 32, i == 0, i == 0,
                              **(chain_kw if chain else dict(temperature=0.0)))
                  for i in range(late)]
@@ -2010,7 +2044,7 @@ class _ForwardCount:
 
 def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                 chain=False, quant="none", model="llama3-8b",
-                decoder_tokens=256, late=2):
+                decoder_tokens=256, late=2, tok=None, texts=None, name=None):
     """HTTP requests against a full model (llama3-8b unless ``model`` says
     otherwise); the launch counts, the dispatch counts and the engine's
     sampling calls are set to 0 just before the requests and read just
@@ -2023,7 +2057,10 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     top-p bisection. ``quant="int8"``: int8 weights (``params`` are
     quantized in place if they are not yet), every projection and the
     head through ``w8a16_gemm`` (7 launches a layer and one a head per
-    forward pass, no ``F.linear``). Returns (launches, the engine core)."""
+    forward pass, no ``F.linear``). ``tok``: a checkpoint's tokenizer in
+    place of the byte tokenizer (its ``eos_id`` too), ``texts`` the
+    staggered traffic's prompts in its tokens, ``name`` the phase's line.
+    Returns (launches, the engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
@@ -2031,9 +2068,11 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
     from generativeaiexamples_tpu_torch.ops.cuda import build
 
-    tok = ByteTokenizer()
+    weights = ("random, torch.Generator seed 0" if tok is None else
+               "random, torch.Generator seed 0, loaded from safetensors")
+    tok = tok or ByteTokenizer()
     core = serving_core(dev, cfg, params, kv_quant, quant=quant,
-                        **(NARROW if narrow else {}))
+                        eos_id=tok.eos_id, **(NARROW if narrow else {}))
     warmup_s = core.warmup()
     sched = Scheduler(core, tok)
     submitted = []
@@ -2065,7 +2104,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                                             range(6)))
             else:
                 results, at_late = _staggered_traffic(
-                    base, sched, submitted, chain, decoder_tokens, late)
+                    base, sched, submitted, chain, decoder_tokens, late,
+                    texts)
             wall = time.perf_counter() - t0
             launches = k.launch_counts()
             gemm_rows = build.gemm_launches_by_rows()
@@ -2077,6 +2117,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         thread.join(timeout=30)
     for r in results:
         r["sent_s"] -= t0
+        del r["text"]         # random weights: the text is noise
         if r["status"] != 200 or not r["finish_reason"] or not r["usage"]:
             raise AssertionError(f"request failed: {r}")
     server_ttft = sorted(round(r.first_token_at - r.submitted_at, 4)
@@ -2119,11 +2160,11 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             or health.get("quant") != quant
             or health.get("weight_bytes") != core.param_bytes):
         raise AssertionError(f"/health reports {health}")
-    name = ("serve_70b_w8" if model == "llama3-70b" else
-            "serve" + ("_two_dispatch" if narrow else "")
-            + ("_chain" if chain else "")
-            + ("" if kv_quant == "none" else "_" + kv_quant)
-            + ("_w8" if quant == "int8" else ""))
+    name = name or ("serve_70b_w8" if model == "llama3-70b" else
+                    "serve" + ("_two_dispatch" if narrow else "")
+                    + ("_chain" if chain else "")
+                    + ("" if kv_quant == "none" else "_" + kv_quant)
+                    + ("_w8" if quant == "int8" else ""))
     if not narrow:
         _check_loop(name, stats, core, launches, sampled=True, ramp=True)
     gen = sum(r["usage"]["completion_tokens"] for r in results)
@@ -2131,7 +2172,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         model=model, n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
         quant=quant, weight_bytes=health["weight_bytes"],
         spec_widths=health["spec_widths"], mixed=health["mixed"],
-        weights="random, torch.Generator seed 0", requests=results,
+        weights=weights, tokenizer=type(tok).__name__, requests=results,
+        prompt_tokens=[len(r.prompt_ids) for r in submitted],
         server_ttft_s=server_ttft, completion_tokens=gen, wall_s=wall,
         gen_tok_s=gen / wall, dispatches=stats, launches=launches,
         forward_passes=fwd.blocks, unembeddings=fwd.unembeds,
@@ -2263,6 +2305,7 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
         sched.stop()
         thread.join(timeout=30)
     for r in results:
+        del r["text"]
         if r["status"] != 200 or not r["finish_reason"] or not r["usage"]:
             raise AssertionError(f"request failed: {r}")
     if len(submitted) != 12 or any(r.error or not r.first_token_at
@@ -2375,6 +2418,540 @@ def phase_dense(dev, cfg, params, rows=8, T=2048, steps=32):
                   cache_bytes=2 * cache.k.numel() * cache.k.element_size())
     emit("dense", **fields)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# A checkpoint on disk: the HF safetensors layout and a Llama-3 tokenizer
+# ---------------------------------------------------------------------------
+
+# safetensors dtype names of the torch dtypes a checkpoint holds
+ST_DTYPES = {"torch.float32": "F32", "torch.float16": "F16",
+             "torch.bfloat16": "BF16", "torch.int8": "I8",
+             "torch.int32": "I32", "torch.int64": "I64", "torch.uint8": "U8",
+             "torch.bool": "BOOL"}
+
+
+def write_safetensors(path, tensors, metadata=None) -> int:
+    """Write ``tensors`` (name -> torch tensor on any device) as one
+    safetensors file, in order, each copied to the host as it is written
+    (bf16 as its raw 16 bits). Returns the bytes written."""
+    import struct
+    import torch
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype)],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    if metadata:
+        header["__metadata__"] = metadata
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)       # the data section starts aligned
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            t = t.detach().contiguous().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            fh.write(t.numpy().tobytes())
+    return 8 + len(raw) + offset
+
+
+def hf_state(cfg, params):
+    """HF ``LlamaForCausalLM`` names -> the port's model-dtype leaves, in
+    the order a checkpoint stores them."""
+    from generativeaiexamples_tpu_torch.models import llama
+    state = {"model.embed_tokens.weight": params["embed"]}
+    for i, layer in enumerate(params["layers"]):
+        for key, hf in llama.HF_LAYER_KEYS.items():
+            state[f"model.layers.{i}.{hf}"] = layer[key]
+    state["model.norm.weight"] = params["final_norm"]
+    if not cfg.tie_embeddings:
+        state["lm_head.weight"] = params["lm_head"]
+    return state
+
+
+def hf_config(cfg) -> dict:
+    """``config.json`` of a Llama-3 checkpoint of ``cfg``."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "intermediate_size": cfg.hidden_dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "max_position_embeddings": 8192, "hidden_act": "silu",
+            "bos_token_id": 128000, "eos_token_id": 128001,
+            "torch_dtype": cfg.dtype, "rope_scaling": None}
+
+
+def write_hf_checkpoint(directory, cfg, params, shards=4) -> int:
+    """``config.json``, ``shards`` ``model-0000k-of-0000n.safetensors``
+    files of about equal bytes and ``model.safetensors.index.json``, as
+    ``save_pretrained`` lays out a sharded checkpoint. Returns the bytes of
+    the shards."""
+    state = hf_state(cfg, params)
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    groups, size = [[]], 0
+    for name, t in state.items():
+        if size >= total * len(groups) / shards and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(name)
+        size += t.numel() * t.element_size()
+    weight_map, written = {}, 0
+    for k, names in enumerate(groups, 1):
+        fname = f"model-{k:05d}-of-{len(groups):05d}.safetensors"
+        written += write_safetensors(os.path.join(directory, fname),
+                                     {n: state[n] for n in names},
+                                     {"format": "pt"})
+        weight_map.update({n: fname for n in names})
+    with open(os.path.join(directory, "model.safetensors.index.json"),
+              "w") as fh:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, fh)
+    with open(os.path.join(directory, "config.json"), "w") as fh:
+        json.dump(hf_config(cfg), fh, indent=1)
+    return written
+
+
+# Llama-3's special tokens by id (the rest of 128,000-128,255 are reserved)
+LLAMA3_SPECIALS = {0: "<|begin_of_text|>", 1: "<|end_of_text|>",
+                   6: "<|start_header_id|>", 7: "<|end_header_id|>",
+                   9: "<|eot_id|>"}
+LLAMA3_MERGES = 127_744          # 256 bytes + merges = 128,000 entries
+CORPUS_FILES = ("SURVEY.md", "PAPER.md", "PAPERS.md", "SNIPPETS.md")
+
+
+def markdown_corpus() -> str:
+    """The repo's reference notes (Markdown), the learned merges' text."""
+    parts = []
+    for name in CORPUS_FILES:
+        path = os.path.join(HERE, name)
+        if os.path.isfile(path):
+            with open(path, encoding="utf-8") as fh:
+                parts.append(fh.read())
+    return "\n\n".join(parts)
+
+
+def _learned_merges(corpus, b2u, n, per_round=64):
+    """Up to ``n`` merges learned from ``corpus``: words split roughly as
+    Llama-3 splits them, byte-pair counts, and per round the most frequent
+    pairs that share no symbol merged everywhere (ties by the pair)."""
+    import collections
+    import re
+    words = collections.Counter(re.findall(
+        r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\w]?[^\W\d_]+|\d{1,3}"
+        r"| ?[^\s\w]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+", corpus))
+    words = [[list(b2u[b] for b in w.encode()), c] for w, c in words.items()]
+    merges = []
+    while len(merges) < n:
+        pairs = collections.Counter()
+        for syms, c in words:
+            for pair in zip(syms, syms[1:]):
+                pairs[pair] += c
+        ranked = sorted((p for p, c in pairs.items() if c >= 2),
+                        key=lambda p: (-pairs[p], p))
+        chosen, used = {}, set()
+        for a, b in ranked:
+            if len(chosen) == min(per_round, n - len(merges)):
+                break
+            if a not in used and b not in used:
+                chosen[(a, b)] = a + b
+                used.update((a, b))
+        if not chosen:
+            break
+        merges += list(chosen)
+        for w in words:
+            syms, out, i = w[0], [], 0
+            while i < len(syms):
+                if i + 1 < len(syms) and (syms[i], syms[i + 1]) in chosen:
+                    out.append(syms[i] + syms[i + 1])
+                    i += 2
+                else:
+                    out.append(syms[i])
+                    i += 1
+            w[0] = out
+    return merges
+
+
+def llama3_tokenizer_json(corpus, n_merges=LLAMA3_MERGES, seed=0,
+                          learned=2048) -> dict:
+    """A ``tokenizer.json`` shaped as Meta's Llama-3 one, made from a seed:
+    the GPT-2 byte alphabet as ids 0-255, ``n_merges`` merges (up to
+    ``learned`` of them learned from ``corpus``, the rest seeded
+    concatenations of two entries into a new one of at most 16 bytes), 256
+    added specials after the regular entries (Llama-3's names at its
+    offsets, the rest reserved), Llama-3's Split pattern before a
+    ByteLevel without its regex, ``ignore_merges`` and a ByteLevel
+    decoder."""
+    import random
+    from generativeaiexamples_tpu_torch.engine import native_tokenizer as nt
+    b2u = nt.bytes_to_unicode()
+    tokens = [b2u[b] for b in sorted(b2u, key=lambda b: ord(b2u[b]))]
+    vocab = {t: i for i, t in enumerate(tokens)}
+    merges = []
+    for a, b in _learned_merges(corpus, b2u, min(learned, n_merges)):
+        if a + b not in vocab:
+            vocab[a + b] = len(tokens)
+            tokens.append(a + b)
+            merges.append(f"{a} {b}")
+    rng = random.Random(seed)
+    while len(merges) < n_merges:
+        a, b = tokens[rng.randrange(len(tokens))], tokens[
+            rng.randrange(len(tokens))]
+        if len(a) + len(b) <= 16 and a + b not in vocab:
+            vocab[a + b] = len(tokens)
+            tokens.append(a + b)
+            merges.append(f"{a} {b}")
+    added, reserved = [], 0
+    for k in range(256):
+        name = LLAMA3_SPECIALS.get(k)
+        if name is None:
+            name, reserved = f"<|reserved_special_token_{reserved}|>", \
+                reserved + 1
+        added.append({"id": len(tokens) + k, "content": name,
+                      "single_word": False, "lstrip": False,
+                      "rstrip": False, "normalized": False, "special": True})
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": nt._LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+# serve_ckpt's chat requests: ASCII, accented Latin, CJK and emoji
+CKPT_CHATS = (
+    "Summarize how a paged KV cache shares pages between requests.",
+    "Résumé en français : le cache de préfixes évite de recalculer les "
+    "pages déjà vues — naïve café, Zürich, señor.",
+    "日本語と中文：分页缓存如何在请求之间共享页面？请简要说明。",
+    "Emoji check 🚀🔥👍🏽 with symbols ⚡☃ — then say done.",
+)
+CKPT_TOKENS = 32
+
+
+def _serve_chats(sched, tok, name, chats, sampled=()):
+    """Serve ``chats`` (greedy, one after another, streamed and not in
+    turn) and then ``sampled`` (the chain server's temperature 0.2 / top-p
+    0.7, all at once) behind the HTTP server; launch counts set to 0 just
+    before, read just after. Every request answers 200, reports as
+    ``prompt_tokens`` the length of ``apply_chat_template``, and its text
+    equals ``tok.decode`` of its ids. A correctness check, not a rate: the
+    checkpoint phases time ``serve``'s traffic (``_traffic_texts``).
+    Returns (the greedy requests' ids, launches, fields)."""
+    import torch
+    from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    submitted = []
+    submit = sched.submit
+
+    def recording_submit(req):
+        submitted.append(req)
+        return submit(req)
+
+    sched.submit = recording_submit
+    httpd, thread = serve_in_thread(sched, name)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        k.reset_launch_counts()
+        results = [_request(base, i, c, CKPT_TOKENS, chat=True,
+                            stream=i % 2 == 0, temperature=0.0)
+                   for i, c in enumerate(chats)]
+        with concurrent.futures.ThreadPoolExecutor(len(sampled) or 1) as ex:
+            results += list(ex.map(
+                lambda ic: _request(base, ic[0], ic[1], CKPT_TOKENS,
+                                    chat=True, stream=True, temperature=0.2,
+                                    top_p=0.7), enumerate(sampled)))
+        launches = k.launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+    by_prompt = {}
+    for r in submitted:
+        by_prompt.setdefault(tuple(r.prompt_ids), []).append(r)
+    greedy_ids = []
+    for i, (content, r) in enumerate(zip(list(chats) + list(sampled),
+                                          results)):
+        ids = tok.apply_chat_template([{"role": "user", "content": content}])
+        req = by_prompt[tuple(ids)].pop(0)
+        usage = r["usage"] or {}
+        if (r["status"] != 200 or req.error or not r["finish_reason"]
+                or usage.get("prompt_tokens") != len(ids)
+                or usage.get("completion_tokens") != len(req.output_ids)
+                or r["text"] != tok.decode(req.output_ids)):
+            raise AssertionError(
+                f"{name}: request {i} answered {r['status']} "
+                f"{r['finish_reason']} {usage} (chat template {len(ids)} "
+                f"ids, {len(req.output_ids)} generated, error {req.error}); "
+                f"text {r['text']!r} against decode "
+                f"{tok.decode(req.output_ids)!r}")
+        if i < len(chats):
+            greedy_ids.append(list(req.output_ids))
+    return greedy_ids, launches, dict(
+        chat_requests=len(submitted),
+        chat_completion_tokens=sum(len(r.output_ids) for r in submitted),
+        chat_prompt_tokens=[len(r.prompt_ids) for r in submitted],
+        chat_launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _traffic_texts(tok):
+    """``serve``'s staggered traffic in ``tok``'s tokens: prompts as many
+    tokens long as ``serve``'s are bytes (the byte tokenizer's), each a
+    prefix of one periodic text as ``PROMPT_TEXT * n`` is, so that chunks,
+    the ramp, the mixed dispatch and the prefix cache see the same
+    shapes. Returns (the decoders' prompts, the late prompt)."""
+    per = len(PROMPT_TEXT)
+    need = per * max(DECODERS + (LATE_PROMPT,))
+    ids = tok.encode(PROMPT_TEXT * max(DECODERS) * 12)
+    if len(ids) < need:
+        raise AssertionError(f"_traffic_texts: {len(ids)} tokens, "
+                             f"{need} needed")
+
+    def text(n):
+        t = tok.decode(ids[:n])
+        while len(tok.encode(t)) > n:
+            t = t[:-1]
+        return t
+
+    return [text(per * n) for n in DECODERS], text(per * LATE_PROMPT)
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in (torch.bfloat16, torch.float16):
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    elif a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _tokenizer_cost(tok, corpus):
+    """Host cost of the native tokenizer: tokens/s encoding a ~100 KB
+    document, and microseconds a chat template of one CKPT_CHATS message."""
+    doc = (corpus * (1 + 100_000 // max(1, len(corpus))))[:100_000]
+    t0 = time.perf_counter()
+    ids = tok.encode(doc)
+    enc_s = time.perf_counter() - t0
+    if tok.decode(ids) != doc:
+        raise AssertionError("the native tokenizer does not round-trip the "
+                             "100 KB document")
+    n = 200
+    t0 = time.perf_counter()
+    for i in range(n):
+        tok.apply_chat_template([{"role": "user",
+                                  "content": CKPT_CHATS[i % 4]}])
+    return dict(doc_bytes=len(doc.encode()), doc_tokens=len(ids),
+                encode_s=enc_s, encode_tok_s=len(ids) / enc_s,
+                chat_template_us=(time.perf_counter() - t0) / n * 1e6)
+
+
+def phase_serve_ckpt(dev, cfg, params, smi):
+    """The checkpoint path at full llama3-8b (``serve_ckpt``, then
+    ``serve_ckpt_w8``). Writes ``params`` (bf16) as an HF directory under
+    build/ (removed at the end): ``config.json`` with Llama-3-8B's values,
+    four safetensors shards with their index, and a Llama-3-shaped
+    ``tokenizer.json`` from seed 0. Loads it with ``load_hf_dir``: every
+    tensor bit-equal to ``params``; serves the four ``CKPT_CHATS`` greedy
+    and then at the chain server's settings through the HTTP server with
+    ``get_tokenizer(dir)``, through flash_prefill, ragged_paged_attention
+    and sample_slots, the greedy ids equal to a Scheduler over the
+    in-memory ``params``; then times ``serve``'s traffic in the
+    checkpoint's tokens over the loaded weights (``serve_ckpt_traffic``).
+    Then loads it with ``quant="int8"``: every q and s bit-equal to
+    ``quantize`` of the in-memory matrix, the load's peak within the int8
+    set plus two of its largest bf16 matrices, two chats through
+    ``w8a16_gemm`` and ``serve``'s traffic (``serve_ckpt_w8_traffic``).
+    Returns the launches of the four paths."""
+    import shutil
+    import torch
+    from generativeaiexamples_tpu_torch.engine.native_tokenizer import (
+        NativeBPETokenizer)
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.models import hf_loader
+    from generativeaiexamples_tpu_torch.ops import quant as quant_ops
+
+    directory = os.path.join(HERE, "build", "serve_ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    state = hf_state(cfg, params)
+    need = sum(t.numel() * t.element_size() for t in state.values())
+    free = shutil.disk_usage(directory).free
+    if free < need + 4e9:
+        raise AssertionError(f"serve_ckpt: {free / 1e9:.2f} GB free under "
+                             f"build/, the checkpoint needs {need / 1e9:.2f} "
+                             f"GB and a 4 GB margin")
+    try:
+        corpus = markdown_corpus()
+        t0 = time.perf_counter()
+        spec = llama3_tokenizer_json(corpus)
+        with open(os.path.join(directory, "tokenizer.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(spec, fh, ensure_ascii=False)
+        tok_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(directory, cfg, params)
+        write_s = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lcfg, loaded = hf_loader.load_hf_dir(directory, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        if lcfg != cfg:
+            raise AssertionError(f"serve_ckpt: config.json gave {lcfg}, "
+                                 f"not {cfg}")
+        unequal = [n for n, t in hf_state(lcfg, loaded).items()
+                   if not _bits_equal(t, state[n])]
+        if unequal:
+            raise AssertionError(f"serve_ckpt: {len(unequal)} tensors load "
+                                 f"unequal to the written ones: "
+                                 f"{unequal[:4]}")
+        t0 = time.perf_counter()
+        tok = get_tokenizer(directory)
+        tok_load_s = time.perf_counter() - t0
+        if not (isinstance(tok, NativeBPETokenizer) and tok.ignore_merges
+                and (tok.vocab_size, tok.bos_id, tok.eos_id)
+                == (128_256, 128_000, 128_009)):
+            raise AssertionError(f"serve_ckpt: tokenizer {type(tok)} vocab "
+                                 f"{tok.vocab_size} bos {tok.bos_id} eos "
+                                 f"{tok.eos_id}")
+        core = serving_core(dev, lcfg, loaded, eos_id=tok.eos_id)
+        warmup_s = core.warmup()
+        greedy, launches, fields = _serve_chats(
+            Scheduler(core, tok), tok, "llama3-8b-ckpt", CKPT_CHATS,
+            sampled=CKPT_CHATS)
+        if min(launches[k] for k in ("flash_prefill", "ragged_paged_attention",
+                                     "sample_slots")) <= 0:
+            raise AssertionError(f"serve_ckpt did not run through the "
+                                 f"kernels: {launches}")
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+        # serve's traffic over the loaded weights and the checkpoint's
+        # tokenizer: its rate and TTFT compare with serve's
+        texts = _traffic_texts(tok)
+        tlaunches, core = phase_serve(dev, lcfg, loaded, tok=tok, texts=texts,
+                                      name="serve_ckpt_traffic")
+        del core, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same greedy chats, one after another, over the in-memory
+        # weights
+        ref = Scheduler(serving_core(dev, cfg, params, eos_id=tok.eos_id),
+                        tok)
+        ref.start()
+        try:
+            want = []
+            for content in CKPT_CHATS:
+                req = Request(prompt_ids=tok.apply_chat_template(
+                    [{"role": "user", "content": content}]),
+                    max_tokens=CKPT_TOKENS, temperature=0.0)
+                ref.submit(req)
+                "".join(ref.iter_text(req))
+                want.append(list(req.output_ids))
+        finally:
+            ref.stop()
+        if greedy != want:
+            raise AssertionError(f"serve_ckpt: greedy ids {greedy} differ "
+                                 f"from the in-memory model's {want}")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("serve_ckpt", nvidia_smi=smi, model="llama3-8b",
+             n_layers=lcfg.n_layers, dtype=lcfg.dtype,
+             checkpoint_bytes=written, shards=4,
+             weights="random, torch.Generator seed 0, written as safetensors",
+             tokenizer="Llama-3-shaped, seed 0: 128,000 entries, 256 "
+                       "specials, ignore_merges",
+             tokenizer_write_s=tok_s, tokenizer_load_s=tok_load_s,
+             write_s=write_s, load_s=load_s, load_gb_s=written / load_s / 1e9,
+             load_peak_gb=load_peak, warmup_s=warmup_s,
+             greedy_equal_in_memory=True,
+             **fields, **_tokenizer_cost(tok, corpus))
+        paths = {"serve_ckpt": launches, "serve_ckpt_traffic": tlaunches}
+
+        # int8, quantized matrix by matrix as it is read
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, qloaded = hf_loader.load_hf_dir(directory, device=dev,
+                                           quant="int8")
+        torch.cuda.synchronize()
+        qload_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        qstate = hf_state(lcfg, qloaded)
+        int8_bytes = sum(t.q.numel() + 4 * t.s.numel()
+                         if isinstance(t, quant_ops.QTensor)
+                         else t.numel() * t.element_size()
+                         for t in qstate.values())
+        largest = max(t.numel() * t.element_size() for t in state.values())
+        limit = int8_bytes + 2 * largest
+        if peak > limit:
+            raise AssertionError(f"serve_ckpt_w8: the load peaked "
+                                 f"{peak / 1e9:.3f} GB above what it found, "
+                                 f"past the int8 set plus two bf16 matrices "
+                                 f"({limit / 1e9:.3f} GB)")
+        for name, t in qstate.items():
+            if isinstance(t, quant_ops.QTensor):
+                want_q = quant_ops.quantize(state[name])
+                ok = (torch.equal(t.q, want_q.q)
+                      and _bits_equal(t.s, want_q.s))
+                del want_q
+            else:
+                ok = _bits_equal(t, state[name])
+            if not ok:
+                raise AssertionError(f"serve_ckpt_w8: {name} differs from "
+                                     f"quantize of the in-memory matrix")
+        core = serving_core(dev, lcfg, qloaded, quant="int8",
+                            eos_id=tok.eos_id)
+        _, qlaunches, qfields = _serve_chats(
+            Scheduler(core, tok), tok, "llama3-8b-ckpt-w8", CKPT_CHATS[:2])
+        if qlaunches["w8a16_gemm"] <= 0:
+            raise AssertionError(f"serve_ckpt_w8 did not run w8a16_gemm: "
+                                 f"{qlaunches}")
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["serve_ckpt_w8_traffic"], core = phase_serve(
+            dev, lcfg, qloaded, quant="int8", tok=tok, texts=texts,
+            name="serve_ckpt_w8_traffic")
+        emit("serve_ckpt_w8", nvidia_smi=smi, load_s=qload_s,
+             load_gb_s=written / qload_s / 1e9,
+             load_peak_above_resident_gb=peak / 1e9,
+             load_peak_limit_gb=limit / 1e9, int8_set_gb=int8_bytes / 1e9,
+             largest_bf16_matrix_gb=largest / 1e9, **qfields)
+        paths["serve_ckpt_w8"] = qlaunches
+        del core, qloaded, qstate
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
 
 
 def profile_decode(core, ctx: int = 1000, steps: int = 8,
@@ -3131,6 +3708,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["dense"] = phase_dense(dev, cfg, params)
     torch.cuda.empty_cache()
+    # the checkpoint path before serve_w8, which quantizes params in place
+    paths.update(phase_serve_ckpt(dev, cfg, params, smi))
     # int8 weights last: the engine quantizes the bf16 set in place
     paths["serve_w8"], core = phase_serve(dev, cfg, params, quant="int8")
     del core

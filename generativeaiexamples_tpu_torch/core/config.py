@@ -34,7 +34,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "kv_tier": ("A6 (prefix KV tier)", "off"),
     "kv_tier_disk_mb": ("A6 (prefix KV tier)", "0"),
     "mesh_shape": ("A11 (tensor parallelism)", ""),
-    "checkpoint_dir": ("A3 (HF/orbax checkpoints)", ""),
     "donate_buffers": ("none: PyTorch updates the pool in place", "auto"),
 }
 
@@ -60,6 +59,9 @@ class EngineConfig:
     # auto (kernel on CUDA tensors, plain on CPU tensors) | kernel | plain
     attention: str = "auto"
     model_family: str = "llama3-8b"
+    # a local HF Llama directory (config.json, *.safetensors,
+    # tokenizer.json) to serve; "" serves random weights of model_family
+    checkpoint_dir: str = ""
     # prompt-lookup speculative decoding: on | off. Each decode step drafts
     # from the request's own history and verifies the drafts in one widened
     # step; exact-match acceptance keeps the stream token-identical

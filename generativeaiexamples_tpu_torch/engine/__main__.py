@@ -4,13 +4,18 @@
         [--host 0.0.0.0] [--device cpu]
 
 Serves on the GPU unless ``--device cpu`` is given. ``--tiny`` serves the
-test-scale model with the byte tokenizer; otherwise the architecture is
+test-scale model with the byte tokenizer. With
+``APP_ENGINE_CHECKPOINT_DIR`` set to a local HF Llama directory
+(``config.json``, ``*.safetensors``, ``tokenizer.json``) it serves that
+checkpoint: the architecture from ``config.json`` (``model_family`` is
+ignored), the weights in ``APP_ENGINE_DTYPE``, the directory's tokenizer
+and its end-of-turn id. Otherwise the architecture is
 ``APP_ENGINE_MODEL_FAMILY`` (default llama3-8b) with random weights drawn
-from a seeded generator on the device (checkpoint loading is ROADMAP A3).
+from a seeded generator on the device, and the byte tokenizer.
 Engine knobs come from ``APP_ENGINE_*`` (``core/config.py``): speculative
 decoding is on by default (``APP_ENGINE_SPEC_DECODE=off`` turns it off),
-``APP_ENGINE_QUANT=int8`` serves int8 weights (drawn and quantized one
-matrix at a time; llama3-70b fits one 80 GB card only so),
+``APP_ENGINE_QUANT=int8`` serves int8 weights (loaded or drawn and
+quantized one matrix at a time; llama3-70b fits one 80 GB card only so),
 and the mixed-phase dispatch follows ``APP_MIXED_PHASE_DISPATCH`` (auto:
 on for a CUDA device, off on the CPU; ``on`` runs it on the CPU too). Two
 decode dispatches stay in flight (``APP_ENGINE_PIPELINE_DEPTH``), ramps
@@ -30,12 +35,13 @@ import logging
 import torch
 
 from generativeaiexamples_tpu_torch.core.config import get_config
-from generativeaiexamples_tpu_torch.engine.engine import (
-    EngineCore, resolve_device)
+from generativeaiexamples_tpu_torch.core.runtime import resolve_device
+from generativeaiexamples_tpu_torch.engine.engine import EngineCore
 from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
 from generativeaiexamples_tpu_torch.engine.server import run_server
 from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
-from generativeaiexamples_tpu_torch.models import llama, model_config
+from generativeaiexamples_tpu_torch.models import (
+    hf_loader, llama, model_config)
 
 
 def build_scheduler(tiny: bool = False, device=None, seed: int = 0) -> tuple:
@@ -43,20 +49,34 @@ def build_scheduler(tiny: bool = False, device=None, seed: int = 0) -> tuple:
     (``cuda`` unless the caller asks for another; raises with no GPU)."""
     dev = resolve_device(device)
     cfg = get_config()
-    tokenizer = get_tokenizer("")
-    if tiny:
-        model_cfg = llama.LlamaConfig.tiny(vocab_size=300)
-        seed, model_name = 5, "tiny-llama-test"
-    else:
-        model_cfg = dataclasses.replace(model_config(cfg.engine.model_family),
-                                        dtype=cfg.engine.dtype)
+    quant = cfg.engine.quant.strip().lower()
+    ckpt = "" if tiny else cfg.engine.checkpoint_dir
+    if ckpt and not hf_loader.is_hf_dir(ckpt):
+        raise NotImplementedError(
+            f"checkpoint {ckpt!r} is not an HF directory (config.json and "
+            f"*.safetensors); orbax params directories "
+            f"(train/checkpoints.py) are not ported (ROADMAP A.15)")
+    tokenizer = get_tokenizer(ckpt)
+    if ckpt:
+        # int8 weights are quantized as each matrix is read, so a model
+        # too large for the card in its dtype (llama3-70b) loads
+        model_cfg, params = hf_loader.load_hf_dir(
+            ckpt, device=dev, quant=quant, dtype=cfg.engine.dtype)
         model_name = cfg.llm.model_name
-        logging.warning("serving RANDOM weights (seed %d)", seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    # int8 weights are quantized as they are drawn, so a model too large
-    # for the card in its dtype (llama3-70b) loads
-    params = llama.init_params(gen, model_cfg, device=dev,
-                               quant=cfg.engine.quant.strip().lower())
+        logging.info("serving HF checkpoint %s (%d layers, dim %d)", ckpt,
+                     model_cfg.n_layers, model_cfg.dim)
+    else:
+        if tiny:
+            model_cfg = llama.LlamaConfig.tiny(vocab_size=300)
+            seed, model_name = 5, "tiny-llama-test"
+        else:
+            model_cfg = dataclasses.replace(
+                model_config(cfg.engine.model_family), dtype=cfg.engine.dtype)
+            model_name = cfg.llm.model_name
+            logging.warning("serving RANDOM weights (seed %d)", seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        # int8 weights are quantized as they are drawn
+        params = llama.init_params(gen, model_cfg, device=dev, quant=quant)
     core = EngineCore(model_cfg, cfg.engine, params,
                       eos_id=tokenizer.eos_id, device=dev)
     return Scheduler(core, tokenizer), model_name

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.core.config import EngineConfig
+from generativeaiexamples_tpu_torch.core.runtime import resolve_device
 from generativeaiexamples_tpu_torch.engine import kv_cache
 from generativeaiexamples_tpu_torch.engine.kv_cache import PagedKVCache
 from generativeaiexamples_tpu_torch.engine.prefix_cache import CachingAllocator
@@ -89,18 +90,6 @@ logger = logging.getLogger(__name__)
 _PACKED_FIELDS = ("sampled", "emitted", "done", "hit_eos", "input_tokens",
                   "sampled_lp", "input_lp")
 _LP_FIELDS = frozenset({"sampled_lp", "input_lp"})
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller asks for another device; never a silent
-    CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the PyTorch engine serves on the GPU; pass "
-                "device='cpu' (--device cpu) to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def spec_ladder(engine_cfg: EngineConfig) -> Tuple[int, Tuple[int, ...]]:

@@ -21,8 +21,12 @@ KV, HD)``), :func:`prefill` and :func:`decode_step`, whose attention is the
 :func:`kernel_attention`). Like the paged passes they write the cache in
 place.
 
+:func:`params_from_hf` maps a HuggingFace ``LlamaForCausalLM`` state dict
+(``models/hf_loader.py`` reads one from a checkpoint directory) into the
+same layout: HF keeps projections as (out, in) too, so it only renames.
+
 Not ported here (ROADMAP A3/A9): LoRA, biased projections and LayerNorm,
-MoE and ``params_from_hf``.
+and MoE.
 """
 
 from __future__ import annotations
@@ -210,6 +214,78 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
         params["layers"].append(layer)
     if not cfg.tie_embeddings:
         params["lm_head"] = matrix(tree["lm_head"])
+    return params
+
+
+# HF LlamaForCausalLM names of a layer's leaves, under "model.layers.{i}."
+HF_LAYER_KEYS = {
+    "attn_norm": "input_layernorm.weight",
+    "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+    "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+    "mlp_norm": "post_attention_layernorm.weight",
+    "w_gate": "mlp.gate_proj.weight", "w_up": "mlp.up_proj.weight",
+    "w_down": "mlp.down_proj.weight",
+}
+
+
+def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
+                   device=None, quant: str = "none") -> Params:
+    """Map an HF ``LlamaForCausalLM`` state dict into this layout.
+
+    ``state`` maps HF names to CPU torch tensors, and to nothing else:
+    ``hf_loader.read_state`` gives zero-copy views of the mapped shards, a
+    ``state_dict()`` serves as well. HF keeps projections as (out, in), as
+    this layout does, so nothing transposes (the reference's ``params_from_hf`` transposes into its (in, out)).
+    Each leaf is copied to ``device`` (the CPU by default) in its stored
+    dtype and converted there to the model dtype, rounding to nearest even
+    as ``jnp.asarray(arr, dtype)`` does, so a file loads bit-equal to the
+    reference. Without ``lm_head.weight`` (and untied) the head is the
+    embedding, as in the reference. MoE (``block_sparse_moe``) and biased
+    projections raise.
+
+    ``quant="int8"`` quantizes each matrix as it lands on the device and
+    drops its model-dtype copy before the next is read, as
+    :func:`init_params` does as it draws: the result equals
+    ``quant.quantize_params`` of the model-dtype load, and a model too
+    large for the card in its dtype loads holding at most one of its
+    matrices unquantized.
+    """
+    if quant not in ("none", "", "int8"):
+        raise ValueError(f"unknown quant mode {quant!r}; expected "
+                         f"'none' or 'int8'")
+    moe = sorted(k for k in state if ".block_sparse_moe." in k)
+    if moe:
+        raise NotImplementedError(
+            f"MoE weights ({moe[0]}, ...) are not ported (ROADMAP A.11)")
+    biases = sorted(k for k in state if k.endswith(".bias"))
+    if biases:
+        raise NotImplementedError(
+            f"biased projections ({biases[0]}, ...) are not ported (ROADMAP "
+            f"A.11)")
+    device = torch.device(device or "cpu")
+    dt = cfg.torch_dtype
+
+    def leaf(name):
+        if name not in state:
+            raise KeyError(f"the checkpoint has no tensor {name!r}")
+        w = state[name].to(device, copy=True)
+        return w if w.dtype == dt else w.to(dt)
+
+    def matrix(name):
+        w = leaf(name)
+        return quant_ops.quantize(w) if quant == "int8" else w
+
+    params: Params = {"embed": matrix("model.embed_tokens.weight"),
+                      "final_norm": leaf("model.norm.weight"), "layers": []}
+    for i in range(cfg.n_layers):
+        params["layers"].append({
+            key: (matrix if key in _MATRICES else leaf)(
+                f"model.layers.{i}.{hf}")
+            for key, hf in HF_LAYER_KEYS.items()})
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (matrix("lm_head.weight")
+                             if "lm_head.weight" in state
+                             else params["embed"])
     return params
 
 

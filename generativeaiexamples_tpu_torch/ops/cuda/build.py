@@ -23,10 +23,11 @@ import threading
 import time
 from typing import Dict, List
 
+from generativeaiexamples_tpu_torch.core.runtime import BUILD_DIR
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 KERNEL_SOURCES = ("flash_prefill", "ragged_paged", "ragged_decode",
                   "sample_slots", "w8a16_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

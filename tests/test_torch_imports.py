@@ -5,7 +5,10 @@ interpreter whose import system refuses ``jax``, ``jaxlib`` and exactly
 ``generativeaiexamples_tpu[.*]`` (the port's own name shares that prefix,
 so the match is on the top-level name). An AST scan of the sources and of
 ``chip_smoke.py`` finds no such import either, and the entry points refuse
-to fall back to the CPU when no GPU is present.
+to fall back to the CPU when no GPU is present. The packages the serving
+machine lacks (``tokenizers``, ``safetensors``, ``transformers``) are
+imported by no module of the port nor the smoke, but inside
+``HFTokenizer.__init__``, which only a refused ``tokenizer.json`` reaches.
 """
 
 import ast
@@ -19,6 +22,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "generativeaiexamples_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "generativeaiexamples_tpu")
+# packages the serving machine lacks: the port reads safetensors and
+# tokenizer.json itself, and imports `tokenizers` only inside HFTokenizer
+HF_PACKAGES = ("tokenizers", "safetensors", "transformers")
 
 
 def _forbidden(name: str) -> bool:
@@ -85,6 +91,47 @@ print("ok", len(sys.argv) - 1)
 def test_every_module_imports_with_jax_refused():
     mods = sorted(_modules())
     proc = subprocess.run([sys.executable, "-c", _GUARD, *mods], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == f"ok {len(mods)}"
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_sources_import_hf_packages_only_in_hftokenizer(path):
+    """``tokenizers``, ``safetensors`` and ``transformers`` are imported
+    nowhere in the port or the smoke but inside ``HFTokenizer.__init__``."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    allowed = set()
+    if path == os.path.join(PKG, "engine", "tokenizer.py"):
+        for cls in tree.body:
+            if isinstance(cls, ast.ClassDef) and cls.name == "HFTokenizer":
+                for fn in cls.body:
+                    if isinstance(fn, ast.FunctionDef) and \
+                            fn.name == "__init__":
+                        allowed = {id(n) for n in ast.walk(fn)}
+        assert allowed, "HFTokenizer.__init__ not found"
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names = [node.module]
+        bad = [n for n in names if n.split(".")[0] in HF_PACKAGES]
+        assert not bad or id(node) in allowed, \
+            f"{path}:{node.lineno} imports {bad}"
+
+
+def test_every_module_imports_without_hf_packages():
+    """Every module of the port and the smoke script import with
+    ``tokenizers``, ``safetensors`` and ``transformers`` refused."""
+    guard = _GUARD.replace(
+        'FORBIDDEN = ("jax", "jaxlib", "generativeaiexamples_tpu")',
+        f"FORBIDDEN = {HF_PACKAGES!r}")
+    assert guard != _GUARD
+    mods = sorted(_modules()) + ["chip_smoke"]
+    proc = subprocess.run([sys.executable, "-c", guard, *mods], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == f"ok {len(mods)}"
