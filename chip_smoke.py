@@ -31,7 +31,22 @@ prints no result:
               bit-equal to the plain version's, thr_p and tokens equal off
               the counted near-ties, logprobs within 1e-5, threefry bits
               exact; times beside the bound of the work these inputs need,
-              the plain version and a sort-based torch yardstick;
+              the plain version and a sort-based torch yardstick; then its
+              options: an allowed bitmask (``mask_rows8``: every
+              drawn token on the mask), the DFA advance (``advance_rows8``:
+              each slot's next state that of its own token), the top rows
+              (``top_rows40``: bf16 rows with forced ties, ids equal ties
+              included, logprobs within 1e-5, beside ``torch.topk`` +
+              ``torch.logsumexp``) and all three (``all_rows72``, and
+              ``all_slots12_rows108`` at serve_tools' 12 slots of W = 9);
+  7c. kernel:grammar_mask  the allowed set of a grammared sampling call
+              at R = 8, 40 and 72 rows (8 slots) and 108 (serve_tools' 12
+              slots of W = 9) of llama3's 128,256 entries, rows w >
+              0 unconstrained, over the engine's 4-slot flat table holding
+              ``json_value()``, a nested schema, a tool set and a grammar
+              registered over an evicted one, with the byte table of the
+              smoke's Llama-3-shaped tokenizer: bit for bit the plain
+              version's, timed beside it and the bound;
   7b. kernel:w8a16_gemm  the W8A16 GEMM (int8 weights, bf16 or f32
               activations) at every weight shape of llama3-8b (8, 40, 72
               and 4,096 rows) and of llama3-70b (8, 72, 4,096 and the 584
@@ -70,7 +85,8 @@ prints no result:
               decode profile (``profile_wide``) and a mixed dispatch
               beside the two-dispatch pair doing the same work
               (``profile_mixed``);
- 10. serve_int8  the same over an int8 KV pool (the int8 instance);
+ 10. serve_int8  the same over an int8 KV pool (the int8 instance), without
+              the two profiles (cut to keep the smoke's time);
  11. serve_prefix  the prefix cache behind the server: 12 chat requests
               over one 1,536-byte context, the first alone, 7 once its
               first token is out (cache hits arriving in a ramp), 4 after
@@ -84,8 +100,19 @@ prints no result:
               every request answers 200 and ``sample_slots`` launches once
               per sampling call of the engine; then ``profile_sampled``:
               a decode dispatch at those settings beside the same one
-              greedy, narrow and at W = 5 (device operations, host wall
-              and busy share a step);
+              greedy at W = 5 (device operations, host wall and busy
+              share a step);
+ 12c. serve_tools  llama3-8b over the smoke's BPE tokenizer on 12
+              slots: two ``json_schema`` requests (one streamed), a forced
+              tool call, a ``tool_choice: "auto"`` one, ``logprobs`` with
+              ``top_logprobs: 5``, ``n = 2`` seeded and two plain ones, at
+              once; every constrained reply validates, every logprob list
+              has an entry a token, ``grammar_mask`` and the sampler's
+              mask, advance and top variants launch; then the same
+              traffic on the same core with the plain sampler and mask on
+              the card (neither kernel launches): every token stream
+              equal, and the logprob request's ``logprob_data`` (token and
+              top ids exact, logprobs within 1e-5);
  13. serve_two_dispatch  the narrow path, bf16: 6 concurrent requests, then a
               narrow decode profile and a grouped-prefill profile, the
               Scheduler's decode at ``pipeline_depth`` 1 against 2
@@ -113,7 +140,9 @@ prints no result:
               and s bit-equal to ``quantize`` of the in-memory matrix, the
               load's peak within the int8 set plus two of its largest
               bf16 matrices; two chats through ``w8a16_gemm``; the
-              directory is then removed;
+              directory is then removed (its run of ``serve``'s traffic,
+              ``serve_ckpt_w8_traffic``, was cut to keep the smoke's
+              time: it repeated ``serve_w8``'s dispatches and launches);
  15. serve_w8  ``serve`` with int8 weights (the bf16 set quantized in
               place): 7 ``w8a16_gemm`` launches a layer and one a head per
               forward pass, no ``F.linear``, and the launches by rows
@@ -128,7 +157,8 @@ prints no result:
               row (query tiles of the ragged kernel); peak GB, warmup
               seconds, tok/s, TTFT and the GEMM's launches by rows.
 
-Each serve phase reports the dispatch loop: dispatches per width rung,
+Every phase also prints its wall seconds on a line of its own
+(``phase_s``). Each serve phase reports the dispatch loop: dispatches per width rung,
 held ticks, dispatches issued with another in flight and the most left in
 flight, the warmup's seconds, the sampler's launches (equal to the
 engine's sampling calls) and ``first_mid_dispatch``.
@@ -154,7 +184,9 @@ and a wrong int8 scale slot in the decode-side walk, and a wrong
 threefry rotation constant, a counter off by one, a strict top-p
 predicate and z summed over every entry in the sampler, and a dropped
 scale, a skipped contraction step (each instance) and a rank dropped
-from the cluster's reduction in the W8A16 GEMM, each
+from the cluster's reduction in the W8A16 GEMM, a flipped bit of the
+grammar mask, a DFA advance short of the token's last byte and a top-row
+tie taken by the higher index in the sampler, each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
 ``--ab`` times every attention kernel and the sampling call of two trees
@@ -200,6 +232,15 @@ CHECK_ONLY = False
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a line of its own with the phase's
+    wall seconds (``phase_s``)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    emit(name, phase_s=time.perf_counter() - t0)
+    return out
 
 
 def time_ms(fn, target_ms: float = 300.0) -> float:
@@ -1012,28 +1053,35 @@ def sampler_inputs(dev, B, W, V, dtype, seed):
     return (keys, counter0, W, lf.to(dtype), temp, top_k, top_p, active)
 
 
-def _sampler_plain(args):
+def _sampler_plain(args, opts=None):
     """The plain version's view of one call: tokens, logprobs, cutoffs,
-    each row's scaled row, live settings, folded key and masked row."""
+    each row's scaled row, live settings, folded key and masked row (the
+    allowed entries of ``opts["allowed"]`` only), and the options'
+    outputs."""
     import torch
     from generativeaiexamples_tpu_torch.ops import sampling, threefry
     keys, counter0, W, logits, temp, top_k, top_p, active = args
-    R = logits.shape[0]
-    tok, lp = sampling.sample_slots_plain(*args)
-    cuts = sampling.sample_cutoffs_plain(W, logits, temp, top_k, top_p,
+    R, V = logits.shape
+    opts = opts or {}
+    tok, lp, extra = sampling.sample_slots_plain(*args, **opts)
+    drawn = logits.float()
+    if opts.get("allowed") is not None:
+        drawn = torch.where(sampling.unpack_mask(opts["allowed"], V), drawn,
+                            torch.full((), -torch.inf, device=drawn.device))
+    cuts = sampling.sample_cutoffs_plain(W, drawn, temp, top_k, top_p,
                                          active)
     t, k, p = sampling._live_rows(W, temp, top_k, top_p, active)
     safe_t = torch.where(t > 0, t, torch.ones_like(t))[:, None]
-    scaled = logits.float() / safe_t
+    scaled = drawn / safe_t
     pos = torch.arange(W, dtype=torch.int64, device=keys.device)
     row_keys = threefry.fold_in(keys[:, None, :], counter0.to(torch.int64)
                                 [:, None] + pos[None]).reshape(R, 2)
-    masked = sampling._mask_dynamic(logits.float(), t, k, p)
+    masked = sampling._mask_dynamic(drawn, t, k, p)
     return dict(tok=tok, lp=lp, cuts=cuts, t=t, k=k, p=p, scaled=scaled,
-                row_keys=row_keys, masked=masked)
+                row_keys=row_keys, masked=masked, extra=extra)
 
 
-def check_sampler(args):
+def check_sampler(args, opts=None):
     """``sample_slots`` on the card against its plain version on the same
     inputs. Every sampled row's thr_k bit-equal; thr_p equal except at a
     cutoff near-tie (some entry lies between the two cutoffs and the plain
@@ -1042,14 +1090,19 @@ def check_sampler(args):
     tokens equal except at those rows and at draw near-ties (the plain top
     two masked logit + gumbel within ``NEAR_TIE``); logprobs within 1e-5
     of the plain formula at the kernel's token; the threefry bits of each
-    row's key exact. Returns the reading; raises KernelMismatch."""
+    row's key exact. With ``opts`` (``sample_slots``' options): the draw
+    over the allowed entries only; each slot's advanced state equal to
+    ``grammar_advance_plain`` of the kernel's own token at w = 0; the top
+    ids equal to ``top_logprobs_plain``'s, ties included, and their
+    logprobs within 1e-5. Returns the reading; raises KernelMismatch."""
     import torch
     from generativeaiexamples_tpu_torch.ops import sampling, threefry
     from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
+    opts = opts or {}
     logits = args[3]
-    tok, lp = ks.sample_slots(*args)
-    tok_c, lp_c, cuts = ks.sample_cutoffs(*args)
-    pl = _sampler_plain(args)
+    tok, lp, extra = ks.sample_slots(*args, **opts)
+    tok_c, lp_c, cuts = ks.sample_cutoffs(*args, **opts)
+    pl = _sampler_plain(args, opts)
     sampled = pl["t"] > 0
     bits = lambda x: x.contiguous().view(torch.int32)
     same = bits(cuts) == bits(pl["cuts"])
@@ -1093,11 +1146,43 @@ def check_sampler(args):
         "entries_equal": bool(torch.equal(tok, tok_c)
                               and torch.equal(bits(lp), bits(lp_c))),
         "max_abs_err": float(lp_err.max()), "bits_exact": bits_ok}
+    bad = False
+    if opts.get("allowed") is not None:
+        allowed = sampling.unpack_mask(opts["allowed"], logits.shape[1])
+        # a row whose allowed entries are all -inf draws index 0, as the
+        # reference's sampler does over an all -inf row
+        live = pl["scaled"].amax(dim=1) > -torch.inf
+        off = ~allowed.gather(1, tok.long()[:, None])[:, 0] & live
+        reading["masked_rows"] = int((~allowed).any(dim=1).sum())
+        reading["tokens_off_the_mask"] = int(off.sum())
+        bad |= bool(off.any())
+    if opts.get("grammar") is not None:
+        state, table, tok_bytes, tok_lens = opts["grammar"]
+        W, active = args[2], args[7]
+        want = torch.where(active, sampling.grammar_advance_plain(
+            state, tok.reshape(-1, W)[:, 0], table, tok_bytes, tok_lens),
+            state)
+        reading["advanced_slots"] = int(((state > 0) & active).sum())
+        reading["advance_mismatches"] = int(
+            (extra["next_state"] != want).sum())
+        bad |= reading["advance_mismatches"] > 0
+    if opts.get("want_top"):
+        ids, lps = sampling.top_logprobs_plain(logits)
+        both_nan = torch.isnan(lps) & torch.isnan(extra["top_lps"])
+        err = torch.where(both_nan, torch.zeros_like(lps),
+                          (extra["top_lps"] - lps).abs())
+        reading["top_id_mismatches"] = int((extra["top_ids"] != ids).sum())
+        reading["top_max_abs_err"] = float(err.max())
+        reading["top_tie_rows"] = int(
+            (logits.float().topk(6, dim=1).values.diff(dim=1) == 0)
+            .any(dim=1).sum())
+        bad |= (reading["top_id_mismatches"] > 0
+                or not reading["top_max_abs_err"] <= 1e-5)
     if (reading["thr_k_mismatches"] or reading["thr_p_mismatches_off_near_"
                                                "ties"]
             or reading["mismatches_off_near_ties"] or not bits_ok
             or not reading["entries_equal"]
-            or not reading["max_abs_err"] <= 1e-5):
+            or not reading["max_abs_err"] <= 1e-5 or bad):
         raise KernelMismatch("sample_slots", reading)
     return reading, pl
 
@@ -1164,33 +1249,102 @@ def sort_sampler(args):
     return run
 
 
-def _sample_case(dev, R, seed):
-    """sample_slots over R = 8 x W rows of llama3-8b logits, float32 and
+def sampler_options(dev, args, kind, seed):
+    """``sample_slots``' options for a case of ``kind`` ("mask", "advance",
+    "top" or "all"), made from ``seed``: an allowed bitmask whose rows
+    keep every entry, half, 5%, 0.01% and a single entry in turn; a random
+    64-state DFA (2% of its transitions to the reject state, (V, 16) token
+    bytes of lengths -1 to 16) with slots at its states, unconstrained
+    ones among them; ``want_top`` over
+    rows where three entries tie at the row's top value and two more at
+    the next (written into the logits, so bf16 rows carry them exactly).
+    Returns (args, opts)."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import sampling
+    keys, counter0, W, logits, temp, top_k, top_p, active = args
+    R, V = logits.shape
+    B = R // W
+    g = torch.Generator(device=dev).manual_seed(seed)
+    opts = {}
+    if kind in ("mask", "all"):
+        dens = torch.tensor([1.0, 0.5, 0.05, 1e-4, 0.0], device=dev)
+        keep = torch.rand((R, V), generator=g, device=dev) < dens[
+            torch.arange(R, device=dev) % 5][:, None]
+        one = torch.randint(0, V, (R,), generator=g, device=dev)
+        keep[torch.arange(R, device=dev), one] = True
+        opts["allowed"] = sampling.pack_mask(keep)
+    if kind in ("advance", "all"):
+        S = 64
+        table = torch.randint(0, S, (S, 256), generator=g, device=dev,
+                              dtype=torch.int32)
+        # few rejecting bytes, so most walks reach the token's last byte
+        table[torch.rand((S, 256), generator=g, device=dev) < 0.02] = 0
+        table[0] = 0
+        tok_bytes = torch.randint(0, 256, (V, 16), generator=g, device=dev,
+                                  dtype=torch.int32)
+        tok_lens = torch.randint(-1, 17, (V,), generator=g, device=dev,
+                                 dtype=torch.int32)
+        state = torch.randint(-1, S, (B,), generator=g, device=dev,
+                              dtype=torch.int32)
+        opts["grammar"] = (state, table, tok_bytes, tok_lens)
+    if kind in ("top", "all"):
+        opts["want_top"] = True
+        lf = logits.float()
+        top = lf.amax(dim=1)
+        for r in range(0, R, 2):
+            ix = torch.randint(0, V, (5,), generator=g, device=dev)
+            lf[r, ix[:3]] = top[r] + 1.0
+            lf[r, ix[3:]] = top[r] + 0.5
+        logits = lf.to(logits.dtype)
+    return (keys, counter0, W, logits, temp, top_k, top_p, active), opts
+
+
+def _sample_case(dev, R, seed, kind=None, B=SAMPLE_SLOTS):
+    """sample_slots over R = B x W rows of llama3-8b logits, float32 and
     bfloat16: checked against the plain version (``check_sampler``), then
     timed (CUDA-graph replays) beside the plain version (the eager path of
     the parent's engine: fold_in, _mask_dynamic, the draw, token_logprob),
     the sort-based yardstick, and the bound of the work these inputs need.
-    The bfloat16 call, the serving dtype, gives the entry's numbers."""
+    The bfloat16 call, the serving dtype, gives the entry's numbers. With
+    ``kind`` the call takes ``sampler_options``' options; the top case's
+    library call is ``torch.topk`` plus ``torch.logsumexp`` on the rows,
+    the mask and advance cases have none."""
     import torch
     from generativeaiexamples_tpu_torch.ops import sampling
     from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
-    V, B = SAMPLE_VOCAB, SAMPLE_SLOTS
+    V = SAMPLE_VOCAB
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = sampler_inputs(dev, B, R // B, V, dtype, seed)
-        reading, pl = check_sampler(args)
+        opts = {}
+        if kind is not None:
+            args, opts = sampler_options(dev, args, kind, seed)
+        reading, pl = check_sampler(args, opts)
         name = "float32" if dtype == torch.float32 else "bfloat16"
         res[name] = reading
         if CHECK_ONLY:
             continue
         nbytes, ops, drawn = sampler_work(args, pl)
+        nbytes += sum(int(t.numel() * t.element_size()) for t in
+                      ([opts["allowed"]] if "allowed" in opts else []))
+        if opts.get("want_top"):
+            nbytes += R * sampling.TOP_LP * 8
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_32BIT_OPS * 1e3
         b_ms = max(t_bytes, t_ops)
-        ms = graph_ms(lambda: ks.sample_slots(*args))
+        ms = graph_ms(lambda: ks.sample_slots(*args, **opts))
+        library = None
+        if opts.get("want_top"):
+            lf = args[3]
+            library = graph_ms(lambda: (torch.topk(lf, sampling.TOP_LP,
+                                                   dim=-1),
+                                        torch.logsumexp(lf.float(), -1)),
+                               per_graph=4)
+        elif kind is None:
+            library = graph_ms(sort_sampler(args), per_graph=4)
         res[name].update(
             ms=ms, plain_ms=graph_ms(lambda: sampling.sample_slots_plain(
-                *args), per_graph=4),
-            library_ms=graph_ms(sort_sampler(args), per_graph=4),
+                *args, **opts), per_graph=4),
+            library_ms=library,
             bound_ms=b_ms, bound_by="operations" if t_ops >= t_bytes
             else "bytes", bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
             share_of_bound=b_ms / ms, bytes=nbytes, ops=ops,
@@ -1202,7 +1356,16 @@ def _sample_case(dev, R, seed):
                  f"the mass at the higher within {CUTOFF_TIE} x z of the "
                  f"target) and draw near-ties (top two within {NEAR_TIE}); "
                  "logprobs within 1e-5; bits exact")
-    if not CHECK_ONLY:
+    if kind is not None:
+        entry.update(options=kind, tolerance=entry["tolerance"]
+                     + "; tokens on the mask; advanced states equal; top "
+                     "ids equal (ties to the lower index), their logprobs "
+                     "within 1e-5")
+    if not CHECK_ONLY and kind is not None:
+        entry.update(library_call=("torch.topk + torch.logsumexp"
+                                   if entry.get("library_ms") else None),
+                     shape=dict(R=R, B=B, W=R // B, V=V))
+    elif not CHECK_ONLY:
         entry.update(
             library_call="torch sort, softmax, cumsum and Gumbel-max with "
                          "torch's generator (other numbers than threefry's; "
@@ -1217,10 +1380,24 @@ def _sample_case(dev, R, seed):
     return entry
 
 
+# the option cases: (name, rows, options, slots)
+SAMPLE_OPTION_CASES = (("mask_rows8", 8, "mask", SAMPLE_SLOTS),
+                       ("advance_rows8", 8, "advance", SAMPLE_SLOTS),
+                       ("top_rows40", 40, "top", SAMPLE_SLOTS),
+                       ("all_rows72", 72, "all", SAMPLE_SLOTS),
+                       ("all_slots12_rows108", 108, "all", 12))
+
+
 def sample_cases(dev):
-    """The sampler's cases, each a thunk: R = 72, 8 and 40 rows."""
-    return {f"rows{R}": (lambda R=R: _sample_case(dev, R, 60 + R))
-            for R in SAMPLE_ROWS}
+    """The sampler's cases, each a thunk: R = 72, 8 and 40 rows, then the
+    options: the grammar mask, the advance, the top rows, all three (at 8
+    slots, and at serve_tools' 12 slots of W = 9)."""
+    cases = {f"rows{R}": (lambda R=R: _sample_case(dev, R, 60 + R))
+             for R in SAMPLE_ROWS}
+    for name, R, kind, B in SAMPLE_OPTION_CASES:
+        cases[name] = (lambda R=R, kind=kind, B=B:
+                       _sample_case(dev, R, 90 + R, kind, B))
+    return cases
 
 
 def sampling_call(args):
@@ -1268,6 +1445,222 @@ def ab_sampling_calls(dev):
 def phase_sample(dev):
     res = _run_cases("sample_slots", sample_cases(dev))
     emit("kernel:sample_slots", kernel_ms=res.get("ms"), **res)
+    return res
+
+
+# ---- the grammar mask (csrc/grammar_mask.cu)
+# the nested schema and the tool set of the grammar_mask phase and of
+# serve_tools
+SMOKE_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "city": {"type": "string", "maxLength": 24},
+        "days": {"type": "integer"},
+        "units": {"type": "string", "enum": ["metric", "imperial"]},
+        "stops": {"type": "array", "maxItems": 3, "items": {
+            "type": "object",
+            "properties": {"name": {"type": "string", "maxLength": 16},
+                           "hours": {"type": "number"}},
+            "required": ["name", "hours"]}}},
+    "required": ["city", "days", "units", "stops"]}
+SMOKE_TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_weather",
+        "description": "Current weather of a city.",
+        "parameters": {"type": "object", "properties": {
+            "city": {"type": "string", "maxLength": 24},
+            "unit": {"type": "string", "enum": ["c", "f"]}},
+            "required": ["city", "unit"]}}},
+    {"type": "function", "function": {
+        "name": "search_docs",
+        "description": "Search the knowledge base.",
+        "parameters": {"type": "object", "properties": {
+            "query": {"type": "string", "maxLength": 40},
+            "top_k": {"type": "integer"}},
+            "required": ["query"]}}}]
+# the grammar mask's cases: (rows, slots); 108 is serve_tools' 12 slots
+# of W = 9
+GRAMMAR_ROWS = ((8, SAMPLE_SLOTS), (40, SAMPLE_SLOTS), (72, SAMPLE_SLOTS),
+                (108, 12))
+_SMOKE_TOKENIZER = {}
+
+
+def smoke_tokenizer():
+    """The seeded Llama-3-shaped tokenizer (``llama3_tokenizer_json``, seed
+    0) written once under build/smoke_tokenizer/ and read through
+    ``get_tokenizer``, with its byte table (``token_byte_table``, one host
+    decode an id) and the seconds each took; cached for the process."""
+    if "tok" not in _SMOKE_TOKENIZER:
+        from generativeaiexamples_tpu_torch.engine import grammar
+        from generativeaiexamples_tpu_torch.engine.tokenizer import (
+            get_tokenizer)
+        directory = os.path.join(HERE, "build", "smoke_tokenizer")
+        os.makedirs(directory, exist_ok=True)
+        t0 = time.perf_counter()
+        spec = llama3_tokenizer_json(markdown_corpus())
+        with open(os.path.join(directory, "tokenizer.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(spec, fh, ensure_ascii=False)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok = get_tokenizer(directory)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tb, tl = grammar.token_byte_table(tok)
+        table_s = time.perf_counter() - t0
+        _SMOKE_TOKENIZER.update(
+            dir=directory, tok=tok, tok_bytes=tb, tok_lens=tl,
+            seconds={"tokenizer_json_s": write_s, "load_s": load_s,
+                     "token_byte_table_s": table_s},
+            entries=int(tb.shape[0]), never_allowed=int((tl <= 0).sum()))
+    return _SMOKE_TOKENIZER
+
+
+def grammar_stack(dev):
+    """A GrammarStack of the engine's geometry (4 slots of 4,096 states)
+    holding ``json_value()``, ``SMOKE_SCHEMA``, ``SMOKE_TOOLS`` and, in
+    the fourth slot, a grammar registered over an evicted one (the first
+    three pinned). Returns (stack, [(grammar, flat start state), ...]);
+    cached for the process."""
+    if "stack" in _SMOKE_TOKENIZER:
+        return _SMOKE_TOKENIZER["stack"]
+    from generativeaiexamples_tpu_torch.engine import engine
+    from generativeaiexamples_tpu_torch.engine.grammar import Grammar
+    stack = engine.GrammarStack(dev)
+    S = engine.GRAM_STATES
+    grams = [Grammar.json_value(), Grammar.from_schema(SMOKE_SCHEMA),
+             Grammar.for_tools(SMOKE_TOOLS),
+             Grammar.from_schema({"type": "boolean"})]
+    starts = [stack.register(g) for g in grams]
+    repl = Grammar.from_schema({"type": "string",
+                                "enum": ["red", "green", "blue"]})
+    start = stack.register(repl, [g.key for g in grams[:3]])
+    if start // S != starts[3] // S or \
+            grams[3].key in stack.keys:
+        raise AssertionError("grammar_stack: the fourth grammar was not "
+                             "evicted and its slot reused")
+    _SMOKE_TOKENIZER["stack"] = (stack, list(zip(grams[:3] + [repl],
+                                                 starts[:3] + [start])))
+    return _SMOKE_TOKENIZER["stack"]
+
+
+def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS):
+    """One grammared sampling call's mask inputs over R = slots x W rows:
+    the first three quarters of the slots at states of the four resident
+    grammars (their starts, then states drawn from each DFA), the rest
+    unconstrained, budgets of 0, 3 and 8 to 40 tokens; rows w > 0
+    unconstrained, as a widened step masks position 0 only. Returns the
+    grammar_mask arguments."""
+    import torch
+    from generativeaiexamples_tpu_torch.engine.engine import GRAM_STATES
+    tk = smoke_tokenizer()
+    stack, grams = grammar_stack(dev)
+    g = torch.Generator().manual_seed(seed)
+    W = R // slots
+    state = torch.zeros((slots, W), dtype=torch.int32)
+    budget = torch.randint(8, 41, (slots, W), generator=g,
+                           dtype=torch.int32)
+    budget[:2, 0] = torch.tensor([0, 3], dtype=torch.int32)
+    for b in range(3 * slots // 4):
+        gram, start = grams[b % 4]
+        if b < 4:
+            state[b, 0] = start
+        else:
+            slot = start // GRAM_STATES
+            local = int(torch.randint(1, gram.dfa.n_states, (1,),
+                                      generator=g))
+            state[b, 0] = slot * GRAM_STATES + local
+    table, accept, dist = stack.tensors()
+    up = lambda a: torch.as_tensor(a).to(dev)
+    return (up(state.reshape(R)), up(budget.reshape(R)), tk["tok"].eos_id,
+            table, accept, dist, up(tk["tok_bytes"]), up(tk["tok_lens"]))
+
+
+def _walked_bytes(args):
+    """The walks the kernel takes on these inputs (each stops at the
+    reject state or the token's end) over the constrained rows: (bytes
+    walked, constrained rows, distinct table entries read, distinct dist
+    entries read at the walks' ends)."""
+    import torch
+    state, _, _, table, _, _, tok_bytes, tok_lens = args
+    rows = state[state > 0].to(torch.int64)
+    st = rows[:, None].expand(-1, tok_bytes.shape[0]).clone()
+    walked = torch.zeros((), dtype=torch.int64, device=state.device)
+    flat = table.reshape(-1).to(torch.int64)
+    entries = []
+    for l in range(tok_bytes.shape[1]):
+        live = (tok_lens[None, :] > l) & (st != 0)
+        walked += live.sum()
+        ix = st * 256 + tok_bytes[None, :, l].to(torch.int64)
+        entries.append(torch.unique(ix[live]))
+        st = torch.where(live, flat[ix], st)
+    ends = st[(st != 0) & (tok_lens[None, :] > 0)]
+    return (int(walked), int(rows.numel()),
+            int(torch.unique(torch.cat(entries)).numel()),
+            int(torch.unique(ends).numel()))
+
+
+def _grammar_case(dev, R, seed, slots=SAMPLE_SLOTS):
+    """grammar_mask over R rows of llama3's 128,256 entries against its
+    plain version (``grammar_mask_plain`` packed), bit for bit; timed
+    (CUDA-graph replay) beside the plain version (CUDA events) and the
+    bound of the bytes that must leave memory: tok_bytes and tok_lens read
+    once, each distinct table entry and dist entry the walks read once,
+    the rows' states and budgets, the bitmask written."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import sampling
+    from generativeaiexamples_tpu_torch.ops.cuda import grammar as kg
+    args = grammar_inputs(dev, R, seed, slots)
+    got = kg.grammar_mask(*args)
+    want = sampling.pack_mask(sampling.grammar_mask_plain(*args))
+    V = args[6].shape[0]
+    allowed = sampling.unpack_mask(want, V)
+    reading = {"rows": R, "slots": slots,
+               "constrained_rows": int((args[0] > 0).sum()),
+               "bit_mismatches": int(
+                   (sampling.unpack_mask(got, V) != allowed).sum()),
+               "words_equal": bool(torch.equal(got, want)),
+               "allowed_per_constrained_row": [
+                   int(n) for n in allowed[args[0] > 0].sum(dim=1)]}
+    if reading["bit_mismatches"] or not reading["words_equal"]:
+        raise KernelMismatch("grammar_mask", reading)
+    reading["max_abs_err"] = 0.0
+    if CHECK_ONLY:
+        return reading
+    walked, rows, table_entries, dist_entries = _walked_bytes(args)
+    tok_bytes, tok_lens = args[6], args[7]
+    nbytes = (tok_bytes.numel() * 4 + tok_lens.numel() * 4
+              + table_entries * 4 + dist_entries * 4 + got.numel() * 4
+              + R * 8)
+    ops = walked * 4 + R * V * 3
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_32BIT_OPS * 1e3
+    b_ms = max(t_bytes, t_ops)
+    ms = graph_ms(lambda: kg.grammar_mask(*args))
+    reading.update(
+        ms=ms, plain_ms=time_ms(lambda: sampling.pack_mask(
+            sampling.grammar_mask_plain(*args)), target_ms=100.0),
+        library_ms=None, bound_ms=b_ms,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        share_of_bound=b_ms / ms, bytes=nbytes, walked_bytes=walked,
+        table_entries_read=table_entries, dist_entries_read=dist_entries,
+        ops=ops)
+    return reading
+
+
+def grammar_cases(dev):
+    """The grammar mask's cases, each a thunk: R = 8, 40 and 72 rows of 8
+    slots, and 108 of 12."""
+    return {f"rows{R}": (lambda R=R, B=B: _grammar_case(dev, R, 30 + R, B))
+            for R, B in GRAMMAR_ROWS}
+
+
+def phase_grammar(dev):
+    tk = smoke_tokenizer()
+    res = _run_cases("grammar_mask", grammar_cases(dev))
+    res.update(tokenizer=dict(tk["seconds"], entries=tk["entries"],
+                              never_allowed=tk["never_allowed"]),
+               tolerance="bit for bit (the plain set packed)")
+    emit("kernel:grammar_mask", kernel_ms=res.get("ms"), **res)
     return res
 
 
@@ -2366,6 +2759,319 @@ def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
     return launches
 
 
+def validates(value, schema) -> bool:
+    """Whether ``value`` meets ``schema`` in the subset the grammars
+    compile (types, enum, const, anyOf, string lengths, array bounds,
+    fixed properties with required ones): a check independent of the
+    grammar compiler."""
+    if "const" in schema:
+        return value == schema["const"]
+    if "anyOf" in schema or "oneOf" in schema:
+        return any(validates(value, o)
+                   for o in schema.get("anyOf") or schema.get("oneOf"))
+    if "enum" in schema:
+        return any(value == v and type(value) == type(v)
+                   for v in schema["enum"])
+    t = schema.get("type")
+    if t == "string":
+        return (isinstance(value, str)
+                and schema.get("minLength", 0) <= len(value)
+                <= schema.get("maxLength", 10 ** 9))
+    if t == "integer":
+        return isinstance(value, int) and not isinstance(value, bool)
+    if t == "number":
+        return isinstance(value, (int, float)) and not isinstance(value, bool)
+    if t == "boolean":
+        return isinstance(value, bool)
+    if t == "array":
+        return (isinstance(value, list)
+                and schema.get("minItems", 0) <= len(value)
+                <= schema.get("maxItems", 10 ** 9)
+                and all(validates(v, schema.get("items", {}))
+                        for v in value))
+    if t == "object" or "properties" in schema:
+        props = schema.get("properties", {})
+        return (isinstance(value, dict)
+                and all(r in value for r in schema.get("required", []))
+                and all(k in props and validates(v, props[k])
+                        for k, v in value.items()))
+    return True
+
+
+# serve_tools' traffic: (name, body, constrained kind); sent at once, each
+# with its own seed (the admission order sorts by prompt and seed)
+def _tools_traffic():
+    ask = [{"role": "user", "content": "Plan a three-day trip to Oslo and "
+                                       "report it as the schema asks."}]
+    weather = [{"role": "user", "content": "What is the weather in Bergen?"}]
+    schema = {"type": "json_schema",
+              "json_schema": {"name": "trip", "schema": SMOKE_SCHEMA}}
+    return [
+        ("schema", {"messages": ask, "max_tokens": 96, "temperature": 0.0,
+                    "seed": 1, "response_format": schema}, "schema"),
+        ("schema_stream", {"messages": ask, "max_tokens": 96,
+                           "temperature": 0.7, "seed": 7, "stream": True,
+                           "response_format": schema}, "schema"),
+        ("tool_forced", {"messages": weather, "max_tokens": 96,
+                         "temperature": 0.0, "seed": 2, "tools": SMOKE_TOOLS,
+                         "tool_choice": {"type": "function", "function": {
+                             "name": "get_weather"}}}, "tool"),
+        ("tool_auto", {"messages": weather, "max_tokens": 32,
+                       "temperature": 0.0, "seed": 4, "tools": SMOKE_TOOLS,
+                       "tool_choice": "auto"}, None),
+        ("logprobs", {"messages": [{"role": "user", "content": PROMPT_TEXT}],
+                      "max_tokens": 32, "temperature": 0.0, "seed": 5,
+                      "logprobs": True, "top_logprobs": 5}, None),
+        ("n2", {"messages": [{"role": "user", "content": "Two answers, "
+                                                        "please."}],
+                "max_tokens": 32, "temperature": 0.8, "seed": 11, "n": 2},
+         None),
+        ("plain_greedy", {"messages": [{"role": "user",
+                                        "content": PROMPT_TEXT * 2}],
+                          "max_tokens": 32, "temperature": 0.0, "seed": 6},
+         None),
+        ("plain_sampled", {"prompt": PROMPT_TEXT * 3, "max_tokens": 32,
+                           "temperature": 0.7, "seed": 3}, None)]
+
+
+def _tools_request(base, body):
+    """POST one request; (status, body or the stream's chunks)."""
+    url = base + ("/v1/chat/completions" if "messages" in body
+                  else "/v1/completions")
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        raw = resp.read().decode()
+        status = resp.status
+    if not body.get("stream"):
+        return status, json.loads(raw)
+    lines = [ln[len("data: "):] for ln in raw.splitlines()
+             if ln.startswith("data: ")]
+    if lines[-1] != "[DONE]":
+        raise AssertionError("serve_tools: a stream without [DONE]")
+    return status, [json.loads(ln) for ln in lines[:-1]]
+
+
+def _tools_checks(name, body, kind, status, reply):
+    """Every reply answers 200; a constrained one parses and validates
+    under its schema or tool; a logprobs one has an entry a token."""
+    if status != 200:
+        raise AssertionError(f"serve_tools {name}: status {status}")
+    if body.get("stream"):
+        text = "".join(c["choices"][0]["delta"].get("content") or ""
+                       for c in reply)
+        finish = reply[-1]["choices"][0]["finish_reason"]
+    else:
+        choice = reply["choices"][0]
+        finish = choice["finish_reason"]
+        text = (choice["message"]["content"] if "message" in choice
+                else choice["text"]) or ""
+        if len(reply["choices"]) != body.get("n", 1):
+            raise AssertionError(f"serve_tools {name}: "
+                                 f"{len(reply['choices'])} choices")
+    if kind == "schema" and not validates(json.loads(text), SMOKE_SCHEMA):
+        raise AssertionError(f"serve_tools {name}: {text!r} does not "
+                             f"validate")
+    if kind == "tool":
+        call = reply["choices"][0]["message"]["tool_calls"][0]["function"]
+        params = SMOKE_TOOLS[0]["function"]["parameters"]
+        if (finish != "tool_calls" or call["name"] != "get_weather"
+                or not validates(json.loads(call["arguments"]), params)):
+            raise AssertionError(f"serve_tools {name}: tool call {call}")
+    if body.get("logprobs"):
+        content = reply["choices"][0]["logprobs"]["content"]
+        if len(content) != reply["usage"]["completion_tokens"] or any(
+                len(c["top_logprobs"]) != 5 for c in content[1:]):
+            raise AssertionError(f"serve_tools {name}: {len(content)} "
+                                 f"logprob entries for "
+                                 f"{reply['usage']['completion_tokens']}")
+    return {"finish_reason": finish, "text_bytes": len(text.encode())}
+
+
+def _tools_run(core, tok, plain):
+    """One pass of serve_tools' traffic through the HTTP server over a
+    new Scheduler on ``core`` (its own page allocator and prefix cache,
+    decode state and speculation statistics), every request admitted in
+    one pass in a fixed order and every result read at the backpressure
+    point (``HostCopy.done`` False), so the dispatches are the same in
+    every pass; ``plain`` runs the sampler and the mask as their plain
+    versions on the card. Returns (launches, sampler launches by variant,
+    streams by request, logprob_data by request, checks, fields)."""
+    from generativeaiexamples_tpu_torch.engine import engine as eng
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
+    from generativeaiexamples_tpu_torch.ops import sampling
+    from generativeaiexamples_tpu_torch.ops.cuda import build
+
+    sched = Scheduler(core, tok)
+    submitted = []
+    submit = sched.submit
+
+    def recording_submit(req):
+        submitted.append(req)
+        return submit(req)
+    sched.submit = recording_submit
+    traffic = _tools_traffic()
+    gate = _gate_admission(sched)
+    gate.clear()
+    admit = sched._admit
+
+    def ordered_admit():
+        # a fixed admission order: the pending queue sorted by prompt and
+        # seed, whatever order the HTTP threads submitted in
+        with sched._lock:
+            jobs = sorted(sched._pending, key=lambda j: (
+                j.request.prompt_ids, j.request.seed or 0,
+                j.request.max_tokens))
+            sched._pending.clear()
+            sched._pending.extend(jobs)
+        return admit()
+    sched._admit = ordered_admit
+    saved = (eng.HostCopy.done, sampling.kernels.sample_slots,
+             sampling.grammar_kernels.grammar_mask)
+    eng.HostCopy.done = lambda self: False
+    if plain:
+        sampling.kernels.sample_slots = sampling.sample_slots_plain
+        sampling.grammar_kernels.grammar_mask = (
+            lambda *a: sampling.pack_mask(sampling.grammar_mask_plain(*a)))
+    httpd, thread = serve_in_thread(sched, "llama3-8b-random")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    n_reqs = sum(b.get("n", 1) for _, b, _ in traffic)
+    try:
+        build.reset_launch_counts()
+        core.sample_calls = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(traffic)) as pool:
+            futs = [pool.submit(_tools_request, base, body)
+                    for _, body, _ in traffic]
+            _wait_for(lambda: len(submitted) >= n_reqs,
+                      "serve_tools' requests to arrive")
+            gate.set()
+            replies = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        launches = build.launch_counts()
+        variants = build.sampler_launches_by_variant()
+        stats = dict(sched.stats)
+    finally:
+        (eng.HostCopy.done, sampling.kernels.sample_slots,
+         sampling.grammar_kernels.grammar_mask) = saved
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+    checks = {name: _tools_checks(name, body, kind, *reply)
+              for (name, body, kind), reply in zip(traffic, replies)}
+    attached = [r.grammar_attached for r in submitted
+                if r.grammar is not None]
+    if len(attached) != 3 or not all(attached):
+        raise AssertionError(f"serve_tools: grammars attached {attached}")
+    key = lambda r: repr((r.prompt_ids[-8:], r.seed, r.max_tokens))
+    streams = {key(r): list(r.output_ids) for r in submitted}
+    if len(streams) != n_reqs or any(r.error for r in submitted):
+        raise AssertionError("serve_tools: requests collide or failed: "
+                             f"{[r.error for r in submitted]}")
+    logprobs = {key(r): list(r.logprob_data) for r in submitted
+                if r.logprobs}
+    fields = dict(wall_s=wall,
+                  completion_tokens=sum(r.completion_tokens
+                                        for r in submitted),
+                  dispatches=stats, sample_calls=core.sample_calls)
+    return launches, variants, streams, logprobs, checks, fields
+
+
+def _logprob_faults(got, want, tol=1e-5):
+    """Where two passes' ``logprob_data`` differ, request by request:
+    token and top ids exact, logprobs and top logprobs within ``tol``
+    (a missing logprob, the fused first token's, only where both miss
+    it). Returns (faults, largest logprob difference)."""
+    faults, err = [], 0.0
+    for k, rows in got.items():
+        other = want.get(k, [])
+        if len(rows) != len(other):
+            faults.append(f"{len(rows)} logprob entries against "
+                          f"{len(other)}")
+            continue
+        for i, ((t, lp, top), (t2, lp2, top2)) in enumerate(
+                zip(rows, other)):
+            pairs = [(lp, lp2)] + [(a[1], b[1]) for a, b in
+                                   zip(top or [], top2 or [])]
+            ids = [a[0] for a in top or []], [b[0] for b in top2 or []]
+            if t != t2 or ids[0] != ids[1]:
+                faults.append(f"entry {i}: ids {t}, {ids[0]} against "
+                              f"{t2}, {ids[1]}")
+                continue
+            if any((a is None) != (b is None) for a, b in pairs):
+                faults.append(f"entry {i}: a logprob in one pass only")
+                continue
+            for a, b in pairs:
+                if a is not None:
+                    err = max(err, abs(a - b))
+    if err > tol:
+        faults.append(f"logprobs differ by {err} > {tol}")
+    return faults, err
+
+
+def phase_serve_tools(dev, cfg, params):
+    """serve_tools: llama3-8b at full width (``params``, bf16) over the
+    smoke's Llama-3-shaped BPE tokenizer, the engine's defaults on 12
+    slots: two ``json_schema`` requests (one streamed), a forced tool
+    call and a ``tool_choice: "auto"`` one, a ``logprobs`` +
+    ``top_logprobs: 5`` one, an ``n = 2`` seeded one and two plain ones,
+    sent at once. Every constrained reply parses and validates, every
+    logprob list has an entry a token; ``grammar_mask`` and the sampler's
+    mask, advance and top variants launch. Then the same traffic on the
+    same core with the sampler and the mask as their plain versions on
+    the card (no launch of either): every token stream equal, and the
+    logprob request's ``logprob_data`` too (token and top ids exact,
+    logprobs within 1e-5). Returns the kernel pass's launches."""
+    import torch
+    tok = smoke_tokenizer()["tok"]
+    core = serving_core(dev, cfg, params, batch=12, eos_id=tok.eos_id)
+    t0 = time.perf_counter()
+    core.ensure_token_bytes(tok)
+    table_s = time.perf_counter() - t0
+    warmup_s = core.warmup(tokenizer=tok)
+    launches, variants, streams, lps, checks, fields = _tools_run(
+        core, tok, plain=False)
+    p_launches, p_variants, p_streams, p_lps, _, p_fields = _tools_run(
+        core, tok, plain=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del core
+    torch.cuda.empty_cache()
+    faults = []
+    for name in ("flash_prefill", "ragged_paged_attention", "grammar_mask"):
+        if launches[name] < 1:
+            faults.append(f"{name} never launched")
+    for want in ("mask+advance", "top"):
+        if not any(want in v and n > 0 for v, n in variants.items()):
+            faults.append(f"no sample_slots launch with {want}")
+    if launches["sample_slots"] != fields["sample_calls"]:
+        faults.append(f"{launches['sample_slots']} sample_slots launches "
+                      f"for {fields['sample_calls']} sampling calls")
+    if p_launches["grammar_mask"] or p_launches["sample_slots"]:
+        faults.append(f"the plain pass launched {p_launches}")
+    differ = [k for k in streams if streams[k] != p_streams.get(k)]
+    if differ:
+        faults.append(f"{len(differ)} streams differ between the kernel "
+                      f"and the plain pass")
+    lp_faults, lp_err = _logprob_faults(lps, p_lps)
+    if not lps or not any(top for rows in lps.values()
+                          for _, _, top in rows):
+        lp_faults.append("no top logprobs to compare")
+    faults += [f"logprob_data: {f}" for f in lp_faults]
+    if faults:
+        raise AssertionError("serve_tools: " + "; ".join(faults))
+    emit("serve_tools", model="llama3-8b", n_layers=cfg.n_layers,
+         tokenizer="llama3-shaped BPE, seed 0", requests=checks,
+         streams_equal_plain=True, logprob_entries_compared=sum(
+             len(rows) for rows in lps.values()),
+         logprob_max_abs_err_vs_plain=lp_err, launches=launches,
+         sample_slots_by_variant=variants, plain_pass=p_fields,
+         plain_sample_slots_by_variant=p_variants, warmup_s=warmup_s,
+         token_byte_table_s=table_s, peak_mem_gb=peak, **fields)
+    return launches
+
+
 def phase_dense(dev, cfg, params, rows=8, T=2048, steps=32):
     """The dense-cache API at full llama3-8b: one prefill of ``rows``
     prompts of 64 to 512 tokens (last_only) into a T-row cache, then
@@ -2779,8 +3485,9 @@ def phase_serve_ckpt(dev, cfg, params, smi):
     checkpoint's tokens over the loaded weights (``serve_ckpt_traffic``).
     Then loads it with ``quant="int8"``: every q and s bit-equal to
     ``quantize`` of the in-memory matrix, the load's peak within the int8
-    set plus two of its largest bf16 matrices, two chats through
-    ``w8a16_gemm`` and ``serve``'s traffic (``serve_ckpt_w8_traffic``).
+    set plus two of its largest bf16 matrices, and two chats through
+    ``w8a16_gemm`` (its run of ``serve``'s traffic was cut to keep the
+    smoke's time: its dispatches and launches were ``serve_w8``'s).
     Returns the launches of the four paths."""
     import shutil
     import torch
@@ -2804,12 +3511,9 @@ def phase_serve_ckpt(dev, cfg, params, smi):
                              f"GB and a 4 GB margin")
     try:
         corpus = markdown_corpus()
-        t0 = time.perf_counter()
-        spec = llama3_tokenizer_json(corpus)
-        with open(os.path.join(directory, "tokenizer.json"), "w",
-                  encoding="utf-8") as fh:
-            json.dump(spec, fh, ensure_ascii=False)
-        tok_s = time.perf_counter() - t0
+        smoke = smoke_tokenizer()
+        shutil.copy(os.path.join(smoke["dir"], "tokenizer.json"), directory)
+        tok_s = smoke["seconds"]["tokenizer_json_s"]
         t0 = time.perf_counter()
         written = write_hf_checkpoint(directory, cfg, params)
         write_s = time.perf_counter() - t0
@@ -2934,12 +3638,6 @@ def phase_serve_ckpt(dev, cfg, params, smi):
         if qlaunches["w8a16_gemm"] <= 0:
             raise AssertionError(f"serve_ckpt_w8 did not run w8a16_gemm: "
                                  f"{qlaunches}")
-        del core
-        gc.collect()
-        torch.cuda.empty_cache()
-        paths["serve_ckpt_w8_traffic"], core = phase_serve(
-            dev, lcfg, qloaded, quant="int8", tok=tok, texts=texts,
-            name="serve_ckpt_w8_traffic")
         emit("serve_ckpt_w8", nvidia_smi=smi, load_s=qload_s,
              load_gb_s=written / qload_s / 1e9,
              load_peak_above_resident_gb=peak / 1e9,
@@ -3050,12 +3748,12 @@ CHAIN_SAMPLING = (0.2, 0, 0.7)     # the chain server's temperature, top_p
 def profile_sampled(dev, cfg, params):
     """A decode dispatch at the chain server's settings beside the same
     dispatch greedy (``profile_decode``: 8 slots at 1,000 tokens, bf16
-    pool), narrow (speculation and the mixed dispatch off) and at W = 5:
-    device operations, host wall and device busy share a step. What the
-    top-p path adds to a step."""
+    pool) at W = 5: device operations, host wall and device busy share a
+    step. What the top-p path adds to a step. (The narrow pair was cut to
+    keep the smoke's time.)"""
     import torch
     out = {}
-    for rung, knobs, width in (("narrow", NARROW, None), ("w5", {}, 5)):
+    for rung, knobs, width in (("w5", {}, 5),):
         core = serving_core(dev, cfg, params, **knobs)
         for name, smp in (("greedy", None), ("chain", CHAIN_SAMPLING)):
             prof = profile_decode(core, spec_width=width, sampling=smp)
@@ -3072,7 +3770,7 @@ def profile_sampled(dev, cfg, params):
 
 
 def profile_pipeline(dev, cfg, params, kv_quant="none", ctx=1000,
-                     dispatches=4):
+                     dispatches=2):
     """Decode through the Scheduler at pipeline_depth 1 against 2 (the
     narrow step, no hold, everything else alike): 8 greedy requests of
     ``ctx`` prompt tokens decode; after two warm decode dispatches,
@@ -3418,7 +4116,10 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # gemm_cluster_dropped_rank has the distributed-shared-memory reduction of
 # its decode tiles skip rank 1's partials (caught where the plan splits the
 # contraction across a cluster) and gemm_f32_skipped_k_tile skips the first
-# tile in its f32 instance.
+# tile in its f32 instance. grammar_flipped_bit flips one bit of every word
+# of the grammar mask; sampler_advance_short leaves the last byte of the
+# drawn token out of the sampler's DFA advance; sampler_top_tie_high has
+# the sampler's top rows take a tie by the higher index.
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -3471,6 +4172,16 @@ PLANTED_FAULTS = (
     ("gemm_f32_skipped_k_tile", "w8a16_gemm.cu",
      "for (int k0 = 0; k0 < K; k0 += FBK)",
      "for (int k0 = FBK; k0 < K; k0 += FBK)", ("w8a16_gemm",)),
+    ("grammar_flipped_bit", "grammar_mask.cu",
+     "    a.out[(long long)r * a.words + word] = bits;\n",
+     "    a.out[(long long)r * a.words + word] = bits ^ 0x100u;\n",
+     ("grammar_mask",)),
+    ("sampler_advance_short", "sample_slots.cu",
+     "for (int l = 0; l < n; ++l) gs = a.table",
+     "for (int l = 0; l + 1 < n; ++l) gs = a.table", ("sample_slots",)),
+    ("sampler_top_tie_high", "sample_slots.cu",
+     "constexpr bool kTopLowFirst = true;",
+     "constexpr bool kTopLowFirst = false;", ("sample_slots",)),
 )
 
 _FAULT_PHASES = """
@@ -3484,6 +4195,7 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention_int8": cs.ragged_cases(dev, True),
           "ragged_decode": cs.decode_cases(dev),
           "sample_slots": cs.sample_cases(dev),
+          "grammar_mask": cs.grammar_cases(dev),
           "w8a16_gemm": cs.gemm_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
@@ -3656,71 +4368,94 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    phase_build()
-    results = {"flash_prefill": phase_flash(dev)}
+    timed("build", phase_build)
+    results = {"flash_prefill": timed("kernel:flash_prefill", phase_flash,
+                                      dev)}
     for quant in (False, True):
-        res = phase_ragged(dev, quant)
+        res = timed("kernel:ragged_paged_attention"
+                    + ("_int8" if quant else ""), phase_ragged, dev, quant)
         results[res["name"]] = res
-    results["ragged_decode"] = phase_decode(dev)
+    results["ragged_decode"] = timed("kernel:ragged_decode", phase_decode,
+                                     dev)
     torch.cuda.empty_cache()
-    results["sample_slots"] = phase_sample(dev)
+    results["sample_slots"] = timed("kernel:sample_slots", phase_sample, dev)
     torch.cuda.empty_cache()
-    results["w8a16_gemm"] = phase_gemm(dev)
+    results["grammar_mask"] = timed("kernel:grammar_mask", phase_grammar,
+                                    dev)
     torch.cuda.empty_cache()
-    phase_parity(dev)
+    results["w8a16_gemm"] = timed("kernel:w8a16_gemm", phase_gemm, dev)
     torch.cuda.empty_cache()
-    phase_parity_w8(dev)
+    timed("parity", phase_parity, dev)
+    torch.cuda.empty_cache()
+    timed("parity_w8", phase_parity_w8, dev)
     torch.cuda.empty_cache()
     cfg, params, init_s = draw_8b(dev)
     emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)
     paths = {}
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
-        paths["serve" + tag], core = phase_serve(dev, cfg, params, kv_quant)
-        emit("profile_wide" + tag, **profile_decode(core, spec_width=5))
-        del core
-        torch.cuda.empty_cache()
-        core = serving_core(dev, cfg, params, kv_quant, batch=12)
-        emit("profile_mixed" + tag, **profile_mixed(core))
+        paths["serve" + tag], core = timed("serve" + tag, phase_serve, dev,
+                                           cfg, params, kv_quant)
+        if kv_quant == "none":
+            # the int8 pool's W = 5 and mixed profiles were cut to keep
+            # the smoke's time; serve_int8 still runs both paths
+            emit("profile_wide", **timed("profile_wide", profile_decode,
+                                         core, spec_width=5))
+            del core
+            torch.cuda.empty_cache()
+            core = serving_core(dev, cfg, params, kv_quant, batch=12)
+            emit("profile_mixed", **timed("profile_mixed", profile_mixed,
+                                          core))
         del core
         torch.cuda.empty_cache()
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
-        paths["serve_prefix" + tag] = phase_serve_prefix(dev, cfg, params,
-                                                         kv_quant)
+        paths["serve_prefix" + tag] = timed(
+            "serve_prefix" + tag, phase_serve_prefix, dev, cfg, params,
+            kv_quant)
         torch.cuda.empty_cache()
-    paths["serve_chain"], core = phase_serve(dev, cfg, params, chain=True)
+    paths["serve_chain"], core = timed("serve_chain", phase_serve, dev, cfg,
+                                       params, chain=True)
     del core
     torch.cuda.empty_cache()
-    emit("profile_sampled", **profile_sampled(dev, cfg, params))
+    emit("profile_sampled", **timed("profile_sampled", profile_sampled, dev,
+                                    cfg, params))
     torch.cuda.empty_cache()
-    paths["serve_two_dispatch"], core = phase_serve(dev, cfg, params,
-                                                    narrow=True)
-    prof_bf16 = profile_decode(core)
+    paths["serve_tools"] = timed("serve_tools", phase_serve_tools, dev, cfg,
+                                 params)
+    torch.cuda.empty_cache()
+    paths["serve_two_dispatch"], core = timed(
+        "serve_two_dispatch", phase_serve, dev, cfg, params, narrow=True)
+    prof_bf16 = timed("profile", profile_decode, core)
     emit("profile", **prof_bf16)
-    emit("profile_prefill", **profile_prefill(core))
+    emit("profile_prefill", **timed("profile_prefill", profile_prefill,
+                                    core))
     del core
     torch.cuda.empty_cache()
-    emit("profile_pipeline", **profile_pipeline(dev, cfg, params))
+    emit("profile_pipeline", **timed("profile_pipeline", profile_pipeline,
+                                     dev, cfg, params))
     torch.cuda.empty_cache()
     core = serving_core(dev, cfg, params, "int8", **NARROW)
-    emit("profile_int8", **profile_decode(core))
-    emit("profile_prefill_int8", **profile_prefill(core))
+    emit("profile_int8", **timed("profile_int8", profile_decode, core))
+    emit("profile_prefill_int8", **timed("profile_prefill_int8",
+                                         profile_prefill, core))
     del core
     torch.cuda.empty_cache()
-    paths["dense"] = phase_dense(dev, cfg, params)
+    paths["dense"] = timed("dense", phase_dense, dev, cfg, params)
     torch.cuda.empty_cache()
     # the checkpoint path before serve_w8, which quantizes params in place
-    paths.update(phase_serve_ckpt(dev, cfg, params, smi))
+    paths.update(timed("serve_ckpt", phase_serve_ckpt, dev, cfg, params,
+                       smi))
     # int8 weights last: the engine quantizes the bf16 set in place
-    paths["serve_w8"], core = phase_serve(dev, cfg, params, quant="int8")
+    paths["serve_w8"], core = timed("serve_w8", phase_serve, dev, cfg,
+                                    params, quant="int8")
     del core
     torch.cuda.empty_cache()
     core = serving_core(dev, cfg, params, quant="int8", **NARROW)
-    emit("profile_w8", **profile_w8(
-        core, prof_bf16["device_ms_per_step_by_class"]["matmul"]))
+    emit("profile_w8", **timed("profile_w8", profile_w8, core, prof_bf16[
+        "device_ms_per_step_by_class"]["matmul"]))
     del core, params
     gc.collect()
     torch.cuda.empty_cache()
-    paths["serve_70b_w8"] = phase_serve_70b(dev)
+    paths["serve_70b_w8"] = timed("serve_70b_w8", phase_serve_70b, dev)
     src = "generativeaiexamples_tpu_torch/csrc/"
     tpu = "generativeaiexamples_tpu/ops/pallas/attention.py"
     # kernel -> (source, the TPU function it replaces, main path); the
@@ -3746,6 +4481,10 @@ def main() -> int:
             "w8a16_gemm.cu",
             "generativeaiexamples_tpu/ops/quant.py:98-104 (quant.matmul: an "
             "XLA-fused convert, no Pallas kernel)", "serve_w8"),
+        "grammar_mask": (
+            "grammar_mask.cu",
+            "generativeaiexamples_tpu/ops/sampling.py:66-108 (grammar_mask: "
+            "an XLA program, no Pallas kernel)", "serve_tools"),
     }
     kernels = []
     for name, (source, replaces, path) in table.items():
@@ -3763,7 +4502,10 @@ def main() -> int:
                 "splits", "scratch_bytes", "token_mismatches",
                 "near_tie_rows", "bits_exact", "thr_k_mismatches",
                 "cutoff_near_tie_rows", "draw_near_tie_rows", "cluster",
-                "drawn_entries", "query_tiles", "plan")
+                "drawn_entries", "query_tiles", "plan", "options",
+                "tokens_off_the_mask", "advance_mismatches",
+                "top_id_mismatches", "top_max_abs_err", "top_tie_rows",
+                "bit_mismatches", "constrained_rows", "walked_bytes")
         entry.update({key: res[key] for key in keys if key in res})
         for sub, val in res.items():      # the phase's other cases
             if isinstance(val, dict) and "ms" in val:

@@ -25,6 +25,26 @@
 //            -inf gives index 0;
 //   logprob lf[token] - logsumexp(lf), the raw logits' log-probability.
 //
+// Three options, each off (a null pointer) on the common path, where the
+// launch is the instance without them:
+//   allowed  an (R, ceil(V / 32)) bitmask (grammar_mask.cu): an entry
+//            whose bit is 0 reads as s = -inf in every pass of the draw
+//            (the greedy argmax, min and max of s, both bisections and the
+//            Gumbel draw), exactly as the reference's grammar_mask sets
+//            its logit to -inf before the sampler; the logsumexp of the
+//            logprob and the top rows still read the raw row;
+//   advance  the reference's grammar_advance as an epilogue: the thread
+//            that writes a slot's token at w = 0 walks that token's bytes
+//            (tok_bytes, tok_lens) through the flat DFA table from the
+//            slot's state and writes the next state, for an active slot
+//            whose state is > 0; every other slot keeps its state;
+//   top      the TOP largest raw entries of each row and value - lse, the
+//            reference's jax.lax.top_k(raw, 5) rows (ties to the lower
+//            index): each thread keeps the top TOP of its entries as
+//            packed words in registers, the block's top TOP is taken in
+//            TOP rounds of a block-wide max, and rank 0 merges the
+//            cluster's blocks over distributed shared memory.
+//
 // Replaces no Pallas kernel: it is the counterpart of the XLA program of
 // generativeaiexamples_tpu/ops/sampling.py sample_logits_per_slot (full
 // path: _mask_dynamic and jax.random.categorical under jax.vmap) plus
@@ -87,6 +107,10 @@ constexpr int N_BISECT = 26;
 constexpr int LEVELS = 2;      // bisection levels one round decides
 constexpr int MAX_MIDS = (1 << LEVELS) - 1;
 constexpr int UNROLL = 4;      // 16-byte loads in flight a thread
+constexpr int TOP = 5;         // top-logprob entries a row (TOP_LP)
+// a top word's index field: the complement, so that of two equal values
+// the lower index is the larger word (jax.lax.top_k's order of ties)
+constexpr bool kTopLowFirst = true;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -126,6 +150,32 @@ __device__ __forceinline__ unsigned long long pack(float v, int i) {
 
 __device__ __forceinline__ int unpack(unsigned long long w) {
   return (int)(0xFFFFFFFFu - (uint32_t)(w & 0xFFFFFFFFull));
+}
+
+// the words of the top rows: (value, index) as pack, ties by kTopLowFirst
+__device__ __forceinline__ unsigned long long top_word(float v, int i) {
+  const uint32_t ix = kTopLowFirst ? 0xFFFFFFFFu - (uint32_t)i : (uint32_t)i;
+  return ((unsigned long long)ordered(v) << 32) | ix;
+}
+
+__device__ __forceinline__ int top_index(unsigned long long w) {
+  const uint32_t ix = (uint32_t)(w & 0xFFFFFFFFull);
+  return (int)(kTopLowFirst ? 0xFFFFFFFFu - ix : ix);
+}
+
+// a word into a thread's descending top list
+__device__ __forceinline__ void top_insert(unsigned long long (&t)[TOP],
+                                           unsigned long long w) {
+  if (w <= t[TOP - 1]) return;
+  t[TOP - 1] = w;
+#pragma unroll
+  for (int q = TOP - 1; q > 0; --q) {
+    if (t[q] > t[q - 1]) {
+      const unsigned long long x = t[q];
+      t[q] = t[q - 1];
+      t[q - 1] = x;
+    }
+  }
 }
 
 __device__ __forceinline__ float gumbel_of(uint32_t bits) {
@@ -174,6 +224,16 @@ struct Args {
   int* tokens;                  // (R,)
   float* logprobs;              // (R,)
   float* cutoffs;               // (R, 3) thr_k, thr_p, cut, or null
+  const unsigned int* allowed;  // (R, words) bitmask, or null
+  int words;
+  const int* gram_state;        // (B,) flat DFA state, or null (no advance)
+  int* next_state;              // (B,)
+  const int* table;             // (S, 256)
+  const int* tok_bytes;         // (V, L)
+  const int* tok_lens;          // (V,)
+  int L;
+  int* top_ids;                 // (R, TOP), or null
+  float* top_lps;               // (R, TOP)
 };
 
 // a block's partial of the load pass
@@ -310,7 +370,7 @@ __device__ __forceinline__ float bisect(Exchange& ex, float lo, float hi,
   return lo;
 }
 
-template <typename T>
+template <typename T, bool MASK, bool TOPS>
 __global__ void __launch_bounds__(THREADS)
     sample_slots_kernel(const Args a) {
   extern __shared__ float4 smem4[];
@@ -322,6 +382,7 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ Stats xstats;
   __shared__ unsigned long long wbest[WARPS];
   __shared__ unsigned long long xbest;
+  __shared__ unsigned long long xtop[TOP];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -340,12 +401,23 @@ __global__ void __launch_bounds__(THREADS)
   const int len = max(0, min(a.n, a.V - lo_i));
   const T* row = static_cast<const T*>(a.logits) + (long long)r * a.row_stride;
   const T* seg = row + lo_i;
+  const unsigned int* arow = MASK ? a.allowed + (long long)r * a.words
+                                  : nullptr;
 
   // ---- the load pass: s into shared memory, the row's max / min / argmax
-  // of s and the logsumexp of lf
+  // of s and the logsumexp of lf (and, with TOPS, each thread's top words
+  // of lf)
   Stats st{0ull, -INFINITY, INFINITY, -INFINITY, 0.f};
+  unsigned long long tk[TOP];
+#pragma unroll
+  for (int q = 0; q < TOP; ++q) tk[q] = 0ull;
   auto take = [&](int j, float x) -> float {
-    const float s = x / safe_t;
+    float s = x / safe_t;
+    if constexpr (MASK) {
+      const int i = lo_i + j;
+      if (!((arow[i >> 5] >> (i & 31)) & 1u)) s = -INFINITY;
+    }
+    if constexpr (TOPS) top_insert(tk, top_word(x, lo_i + j));
     st.smax = fmaxf(st.smax, s);
     st.smin = fminf(st.smin, s);
     const unsigned long long wd = pack(s, lo_i + j);
@@ -401,6 +473,33 @@ __global__ void __launch_bounds__(THREADS)
     o.rmax = __shfl_xor_sync(0xFFFFFFFFu, st.rmax, off);
     o.rsum = __shfl_xor_sync(0xFFFFFFFFu, st.rsum, off);
     stats_merge(st, o);
+  }
+  if constexpr (TOPS) {
+    // the block's top TOP words: TOP rounds of a block-wide max, the
+    // thread holding each winner dropping it from its list
+#pragma unroll 1
+    for (int q = 0; q < TOP; ++q) {
+      unsigned long long w = tk[0];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(0xFFFFFFFFu, w, off);
+        w = o > w ? o : w;
+      }
+      if (lane == 0) wbest[warp] = w;
+      __syncthreads();
+      if (tid == 0) {
+        unsigned long long b = wbest[0];
+#pragma unroll
+        for (int u = 1; u < WARPS; ++u) b = wbest[u] > b ? wbest[u] : b;
+        xtop[q] = b;
+      }
+      __syncthreads();
+      if (tk[0] == xtop[q] && tk[0] != 0ull) {
+#pragma unroll
+        for (int u = 0; u + 1 < TOP; ++u) tk[u] = tk[u + 1];
+        tk[TOP - 1] = 0ull;
+      }
+    }
   }
   if (lane == 0) wstats[warp] = st;
   __syncthreads();       // also publishes sbuf to the whole block
@@ -523,6 +622,36 @@ __global__ void __launch_bounds__(THREADS)
       a.cutoffs[3 * r + 1] = thr_p;
       a.cutoffs[3 * r + 2] = cut;
     }
+    if (a.next_state != nullptr && w == 0) {
+      // grammar_advance: the drawn token's bytes from the slot's state
+      int gs = a.gram_state[b];
+      if (act && gs > 0) {
+        const int n = min(a.tok_lens[tok], a.L);
+        const int* tb = a.tok_bytes + (long long)tok * a.L;
+        for (int l = 0; l < n; ++l) gs = a.table[(long long)gs * 256 + tb[l]];
+      }
+      a.next_state[b] = gs;
+    }
+    if constexpr (TOPS) {
+      // the cluster's top TOP: the largest of its blocks' words, in turn
+      unsigned long long cand[CL * TOP];
+#pragma unroll
+      for (int q = 0; q < CL; ++q) {
+        const unsigned long long* src = cluster.map_shared_rank(xtop, q);
+#pragma unroll
+        for (int u = 0; u < TOP; ++u) cand[q * TOP + u] = src[u];
+      }
+      const float lse = tot.rmax == -INFINITY ? -INFINITY
+                                              : tot.rmax + logf(tot.rsum);
+      for (int u = 0; u < TOP; ++u) {
+        int at = 0;
+        for (int c = 1; c < CL * TOP; ++c) at = cand[c] > cand[at] ? c : at;
+        const int id = top_index(cand[at]);
+        cand[at] = 0ull;
+        a.top_ids[TOP * r + u] = id;
+        a.top_lps[TOP * r + u] = load1(row, id) - lse;
+      }
+    }
   }
   // no block leaves while another may still read its shared memory
   cluster.sync();
@@ -542,9 +671,9 @@ __global__ void bits_kernel(const long long* __restrict__ keys, int R, int n,
 // loads of bf16), together covering the row
 int slice_of(int V) { return ((V + CL - 1) / CL + 7) / 8 * 8; }
 
-template <typename T>
+template <typename T, bool MASK, bool TOPS>
 int launch(const Args& a, cudaStream_t s) {
-  auto kern = sample_slots_kernel<T>;
+  auto kern = sample_slots_kernel<T, MASK, TOPS>;
   const size_t smem = 2 * sizeof(float) * (size_t)a.n;
   static size_t smem_set = 0;     // the instance's dynamic-shared limit
   if (smem > smem_set) {
@@ -569,6 +698,16 @@ int launch(const Args& a, cudaStream_t s) {
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_options(const Args& a, cudaStream_t s) {
+  if (a.allowed != nullptr) {
+    return a.top_ids != nullptr ? launch<T, true, true>(a, s)
+                                : launch<T, true, false>(a, s);
+  }
+  return a.top_ids != nullptr ? launch<T, false, true>(a, s)
+                              : launch<T, false, false>(a, s);
+}
+
 }  // namespace
 
 // One sampling call: logits (R, V) float32 (dtype 0) or bfloat16 (dtype 1),
@@ -577,16 +716,25 @@ int launch(const Args& a, cudaStream_t s) {
 // int64; temperature, top_p (B,) float32; top_k (B,) int32; active (B,)
 // bool. Writes tokens (R,) int32, logprobs (R,) float32 and, when cutoffs
 // is not null, (R, 3) float32 thr_k, thr_p, cut (NaN on greedy rows).
-// Returns a CUDA error code, 0 on success.
-extern "C" int gk_sample_slots(int dtype, const void* logits,
-                               long long row_stride, int R, int V, int W,
-                               const void* keys, const void* counter0,
-                               int ctr64, const void* temperature,
-                               const void* top_k, const void* top_p,
-                               const void* active, void* tokens,
-                               void* logprobs, void* cutoffs, void* stream) {
+// The options, each null on the common path: allowed (R, ceil(V / 32))
+// uint32; gram_state (B,) int32, next_state (B,) int32, table (S, 256)
+// int32, tok_bytes (V, L) int32, tok_lens (V,) int32 (the advance, read
+// only when gram_state is not null); top_ids (R, 5) int32 and top_lps
+// (R, 5) float32. Returns a CUDA error code, 0 on success.
+extern "C" int gk_sample_slots(
+    int dtype, const void* logits, long long row_stride, int R, int V, int W,
+    const void* keys, const void* counter0, int ctr64,
+    const void* temperature, const void* top_k, const void* top_p,
+    const void* active, void* tokens, void* logprobs, void* cutoffs,
+    const void* allowed, const void* gram_state, void* next_state,
+    const void* table, const void* tok_bytes, const void* tok_lens, int L,
+    void* top_ids, void* top_lps, void* stream) {
   if (R <= 0 || V <= 0 || W <= 0 || R % W || row_stride < V ||
-      (dtype != 0 && dtype != 1)) {
+      (dtype != 0 && dtype != 1) ||
+      (gram_state != nullptr && (next_state == nullptr || table == nullptr
+                                 || tok_bytes == nullptr
+                                 || tok_lens == nullptr || L <= 0)) ||
+      ((top_ids == nullptr) != (top_lps == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -606,11 +754,23 @@ extern "C" int gk_sample_slots(int dtype, const void* logits,
   a.tokens = static_cast<int*>(tokens);
   a.logprobs = static_cast<float*>(logprobs);
   a.cutoffs = static_cast<float*>(cutoffs);
+  a.allowed = static_cast<const unsigned int*>(allowed);
+  a.words = (V + 31) / 32;
+  a.gram_state = static_cast<const int*>(gram_state);
+  a.next_state = gram_state != nullptr ? static_cast<int*>(next_state)
+                                       : nullptr;
+  a.table = static_cast<const int*>(table);
+  a.tok_bytes = static_cast<const int*>(tok_bytes);
+  a.tok_lens = static_cast<const int*>(tok_lens);
+  a.L = L;
+  a.top_ids = static_cast<int*>(top_ids);
+  a.top_lps = static_cast<float*>(top_lps);
   if (2 * sizeof(float) * (size_t)a.n > 232448) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(a, s) : launch<uint16_t>(a, s);
+  return dtype == 0 ? launch_options<float>(a, s)
+                    : launch_options<uint16_t>(a, s);
 }
 
 // The 32-bit random bits of counters 0..n-1 under each of R keys, as

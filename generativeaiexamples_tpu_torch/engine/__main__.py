@@ -22,8 +22,8 @@ decode dispatches stay in flight (``APP_ENGINE_PIPELINE_DEPTH``), ramps
 hold decode for up to 16 prefill chunks (``APP_ENGINE_PREFILL_HOLD_CHUNKS``)
 and pure decode dispatches take the narrowest batch-width rung
 (``APP_ENGINE_DECODE_WIDTH_LADDER``). Before it listens, the server runs
-``EngineCore.warmup`` (every program once, building every kernel on the
-card) and prints its seconds.
+``EngineCore.warmup`` (every program once, the grammared and top-logprob
+variants too, building every kernel on the card) and prints its seconds.
 """
 
 from __future__ import annotations
@@ -95,7 +95,8 @@ def main() -> None:
     logging.basicConfig(level=logging.INFO)
     scheduler, model_name = build_scheduler(tiny=args.tiny,
                                             device=args.device)
-    seconds = scheduler.core.warmup()
+    # the tokenizer, so the constrained-decoding variants warm too
+    seconds = scheduler.core.warmup(tokenizer=scheduler.tokenizer)
     print(f"warmup: {seconds:.3f} s (every serving program once)",
           flush=True)
     run_server(scheduler, model_name, host=args.host, port=args.port)

@@ -54,9 +54,19 @@ hand-written W8A16 GEMM on the card (``ops/cuda/quant.py``). ``n_params``
 and ``param_bytes`` (one byte a parameter at int8) are taken before
 quantization, as the reference's.
 
-Not ported here: ``decode_multi``, grammar, LoRA, logprob rows, KV
-handoff, tensor parallelism (ROADMAP A2, A5, A7, A11). Their config knobs
-are refused in ``core/config.py``.
+Constrained decoding (the reference's grammar stack): compiled grammars
+(``engine/grammar.py``) live in a flat device stack of ``GRAM_SLOTS``
+slots of ``GRAM_STATES`` DFA states (:class:`GrammarStack`), each slot's
+DFA state rides ``DecodeState.gram_state``, and a ``use_grammar`` call
+masks each constrained row's draw by the ``grammar_mask`` kernel's
+bitmask and advances the state inside the sampling launch; under
+speculation a constrained slot's drafts are voided and only position 0 is
+masked. ``want_top`` adds ``TOP_LP`` id rows and ``TOP_LP`` logprob rows
+of each position's raw logits to the packed block, as the reference's.
+
+Not ported here: ``decode_multi``, LoRA, KV handoff, tensor parallelism
+(ROADMAP A2, A5, A7, A11). Their config knobs are refused in
+``core/config.py``.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ import torch
 
 from generativeaiexamples_tpu_torch.core.config import EngineConfig
 from generativeaiexamples_tpu_torch.core.runtime import resolve_device
+from generativeaiexamples_tpu_torch.engine import grammar as grammar_mod
 from generativeaiexamples_tpu_torch.engine import kv_cache
 from generativeaiexamples_tpu_torch.engine.kv_cache import PagedKVCache
 from generativeaiexamples_tpu_torch.engine.prefix_cache import CachingAllocator
@@ -90,6 +101,13 @@ logger = logging.getLogger(__name__)
 _PACKED_FIELDS = ("sampled", "emitted", "done", "hit_eos", "input_tokens",
                   "sampled_lp", "input_lp")
 _LP_FIELDS = frozenset({"sampled_lp", "input_lp"})
+# top-logprob rows appended past the base block with ``want_top``: TOP_LP
+# id rows, then TOP_LP logprob rows (bitcast)
+TOP_LP = sampling.TOP_LP
+# the grammar stack's geometry: GRAM_SLOTS grammars resident at once, each
+# of up to GRAM_STATES DFA states (the reference's)
+GRAM_SLOTS = 4
+GRAM_STATES = 4096
 
 
 def spec_ladder(engine_cfg: EngineConfig) -> Tuple[int, Tuple[int, ...]]:
@@ -143,15 +161,120 @@ class PrefillItem:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
+    gram_state: int = 0           # flat DFA state of the first token (0: none)
     seed: int = 0                 # per-request sampling seed
 
 
 def unpack_decode_out(packed: np.ndarray) -> Dict[str, np.ndarray]:
-    """Split a host copy of ``out["packed"]`` back into named arrays."""
+    """Split a host copy of ``out["packed"]`` back into named arrays;
+    trailing rows (a ``want_top`` dispatch) become ``top_ids`` and
+    ``top_lps`` of shape (TOP_LP, steps * W, B)."""
     out = {k: packed[i] for i, k in enumerate(_PACKED_FIELDS)}
     for k in _LP_FIELDS:
         out[k] = np.ascontiguousarray(out[k]).view(np.float32)
+    base = len(_PACKED_FIELDS)
+    if packed.shape[0] > base:
+        out["top_ids"] = packed[base:base + TOP_LP]
+        out["top_lps"] = np.ascontiguousarray(
+            packed[base + TOP_LP:base + 2 * TOP_LP]).view(np.float32)
     return out
+
+
+def bits_to_f32(x) -> float:
+    """A float32 carried as its int32 bits, as a Python float."""
+    return float(np.int32(x).view(np.float32))
+
+
+class GrammarStack:
+    """The resident grammars (``engine/grammar.py`` ``Grammar``) as one flat
+    DFA: slot g's local state s is flat state ``g * GRAM_STATES + s``,
+    local 0
+    (reject) is flat 0, and each slot's row 0 stays zero, so state 0 is the
+    absorbing reject state of every slot. ``register`` installs a grammar
+    (once per key) and returns its flat start state, evicting an unpinned
+    grammar when every slot is taken; ``tensors`` are the (S, 256) table,
+    (S,) accept and (S,) dist on the device, uploaded after each
+    registration. The reference's ``register_grammar``/``walk_grammar``
+    stack, held apart from the engine so a kernel check can build one."""
+
+    def __init__(self, device, upload=None) -> None:
+        self._upload = upload or (lambda a: torch.as_tensor(a).to(device))
+        self._slot: Dict[str, int] = {}       # key -> slot
+        self._start: Dict[str, int] = {}      # key -> flat start state
+        self._dfa: Dict[str, Any] = {}
+        n = GRAM_SLOTS * GRAM_STATES
+        self.table = np.zeros((n, 256), np.int32)
+        self.accept = np.zeros((n,), np.bool_)
+        self.dist = np.full((n,), grammar_mod.DIST_INF, np.int32)
+        self._dev: Optional[Tuple[torch.Tensor, ...]] = None
+
+    @property
+    def keys(self) -> List[str]:
+        return list(self._slot)
+
+    def register(self, grammar, active_keys=()) -> int:
+        """The grammar's flat start state, installing it if it is not
+        resident. ``active_keys`` (grammars of requests in flight) are
+        never evicted. Raises ``UnsupportedSchema`` when the DFA exceeds a
+        slot or every slot is pinned."""
+        if grammar.key in self._slot:
+            return self._start[grammar.key]
+        dfa = grammar.dfa
+        S = GRAM_STATES
+        if dfa.n_states > S:
+            raise grammar_mod.UnsupportedSchema(
+                f"grammar needs {dfa.n_states} DFA states; engine stack "
+                f"holds {S} per slot")
+        if len(self._slot) >= GRAM_SLOTS:
+            evictable = [k for k in self._slot if k not in active_keys]
+            if not evictable:
+                raise grammar_mod.UnsupportedSchema(
+                    f"all {GRAM_SLOTS} grammar slots pinned by active "
+                    f"requests")
+            victim = evictable[0]
+            del self._slot[victim], self._start[victim], self._dfa[victim]
+        g = next(i for i in range(GRAM_SLOTS)
+                 if i not in self._slot.values())
+        flat = np.where(dfa.table > 0, g * S + dfa.table, 0).astype(np.int32)
+        self.table[g * S:g * S + dfa.n_states] = flat
+        self.table[g * S] = 0
+        self.accept[g * S:g * S + dfa.n_states] = dfa.accept
+        self.dist[g * S:g * S + dfa.n_states] = dfa.dist
+        self._dev = None
+        self._slot[grammar.key] = g
+        self._start[grammar.key] = g * S + dfa.start
+        self._dfa[grammar.key] = dfa
+        return self._start[grammar.key]
+
+    def walk(self, grammar, token_ids, tok_bytes: np.ndarray,
+             tok_lens: np.ndarray, active_keys=(), prefix: bytes = b"") -> int:
+        """The flat state after ``prefix`` and then ``token_ids`` from the
+        grammar's start (a resume re-walks what it emitted); 0 when the
+        walk rejects."""
+        start = self.register(grammar, active_keys)
+        dfa = self._dfa[grammar.key]
+        g = self._slot[grammar.key]
+        s = start - g * GRAM_STATES
+        for b in prefix:
+            s = int(dfa.table[s, int(b)])
+            if s == 0:
+                return 0
+        for t in token_ids:
+            n = int(tok_lens[t])
+            if n <= 0:
+                return 0
+            for b in tok_bytes[t, :n]:
+                s = int(dfa.table[s, int(b)])
+                if s == 0:
+                    return 0
+        return g * GRAM_STATES + s
+
+    def tensors(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(table, accept, dist) on the device, as last registered."""
+        if self._dev is None:
+            self._dev = (self._upload(self.table), self._upload(self.accept),
+                         self._upload(self.dist))
+        return self._dev
 
 
 class HostCopy:
@@ -183,9 +306,8 @@ class HostCopy:
 @dataclasses.dataclass
 class DecodeState:
     """Fixed-capacity slot batch for continuous decoding; device tensors
-    are (B,) and updated in place by the engine. The TPU package's grammar
-    state and adapter index are not ported (grammar and LoRA are ROADMAP
-    A5/A3)."""
+    are (B,) and updated in place by the engine. The TPU package's adapter
+    index is not ported (LoRA is ROADMAP A3)."""
 
     cache: PagedKVCache
     tokens: torch.Tensor        # (B,) i32 last token per slot
@@ -197,6 +319,7 @@ class DecodeState:
     top_p: torch.Tensor         # (B,) f32
     rngs: torch.Tensor          # (B, 2) i64 raw threefry key, PRNGKey(seed)
     last_logprob: torch.Tensor  # (B,) f32 model logprob of tokens[b]
+    gram_state: torch.Tensor    # (B,) i32 flat DFA state; <= 0 unconstrained
     # (B, max_seq + 1) i32: each slot's token at each absolute position,
     # valid through index cache.lengths[b] inclusive (the token fed next);
     # written by prefill chunks, activation and decode appends, read by
@@ -216,12 +339,14 @@ class DecodeState:
             generated=sl(self.generated), max_gen=sl(self.max_gen),
             temperature=sl(self.temperature), top_k=sl(self.top_k),
             top_p=sl(self.top_p), rngs=sl(self.rngs),
-            last_logprob=sl(self.last_logprob), history=sl(self.history))
+            last_logprob=sl(self.last_logprob),
+            gram_state=sl(self.gram_state), history=sl(self.history))
 
     def merge(self, narrow: "DecodeState") -> None:
         """Write a :meth:`rows` view's rebound per-slot fields back."""
         w = narrow.tokens.shape[0]
-        for name in ("tokens", "active", "generated", "last_logprob"):
+        for name in ("tokens", "active", "generated", "last_logprob",
+                     "gram_state"):
             getattr(self, name)[:w] = getattr(narrow, name)
 
 
@@ -386,6 +511,12 @@ class EngineCore:
         self.params = params
         # sampling calls made (each one sample_slots launch on the card)
         self.sample_calls = 0
+        # constrained decoding: the grammar stack, and the vocabulary's
+        # byte table (ensure_token_bytes) on the device and on the host
+        self.grammars = GrammarStack(self.device, upload=self._up)
+        self._tok_bytes: Optional[torch.Tensor] = None
+        self._tok_lens: Optional[torch.Tensor] = None
+        self._tok_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     @property
     def mixed_row_queries(self) -> int:
@@ -418,7 +549,7 @@ class EngineCore:
             top_k=z(torch.int32),
             top_p=torch.ones((B,), dtype=torch.float32, device=dev),
             rngs=torch.zeros((B, 2), dtype=torch.int64, device=dev),
-            last_logprob=z(torch.float32),
+            last_logprob=z(torch.float32), gram_state=z(torch.int32),
             history=torch.zeros((B, self.max_seq + 1), dtype=torch.int32,
                                 device=dev))
 
@@ -468,11 +599,65 @@ class EngineCore:
             return t.clone() if t.device.type == "cpu" else t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _sample_slots(self, *args) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _sample_slots(self, *args, **opts):
         """One sampling call (``ops.sampling.sample_slots``'s arguments):
-        (R,) tokens and logprobs, counted in ``sample_calls``."""
+        (R,) tokens, logprobs and the options' outputs, counted in
+        ``sample_calls``."""
         self.sample_calls += 1
-        return sampling.sample_slots(*args)
+        return sampling.sample_slots(*args, **opts)
+
+    # ---------------------------------------------------- constrained decoding
+
+    def ensure_token_bytes(self, tokenizer) -> None:
+        """Build and upload the vocabulary's byte table once (the grammar's
+        prerequisite), padded to the model's vocabulary: ids past the
+        tokenizer's are never allowed under a grammar."""
+        if self._tok_bytes is not None:
+            return
+        tb, tl = grammar_mod.token_byte_table(tokenizer)
+        V = self.model_cfg.vocab_size
+        if V > tb.shape[0]:
+            pad = V - tb.shape[0]
+            tb = np.concatenate([tb, np.zeros((pad, tb.shape[1]), np.int32)])
+            tl = np.concatenate([tl, np.full((pad,), -1, np.int32)])
+        elif V < tb.shape[0]:
+            tb, tl = tb[:V], tl[:V]
+        self._tok_host = (tb, tl)
+        self._tok_bytes = self._up(np.ascontiguousarray(tb))
+        self._tok_lens = self._up(np.ascontiguousarray(tl))
+
+    def register_grammar(self, grammar, active_keys=()) -> int:
+        """Install a compiled grammar in the stack; its flat start state
+        (what a PrefillItem carries). ``active_keys`` are never evicted;
+        raises ``UnsupportedSchema`` past the stack's geometry or with every
+        slot pinned."""
+        return self.grammars.register(grammar, active_keys)
+
+    def walk_grammar(self, grammar, token_ids, active_keys=(),
+                     prefix: bytes = b"") -> int:
+        """The flat state after ``prefix`` bytes and then ``token_ids``
+        from the grammar's start; 0 when the walk rejects."""
+        tb, tl = self._tok_host
+        return self.grammars.walk(grammar, token_ids, tb, tl, active_keys,
+                                  prefix)
+
+    def _sample_opts(self, row_states: Optional[torch.Tensor], row_budget,
+                     slot_states, use_grammar: bool,
+                     want_top: bool) -> Dict[str, Any]:
+        """``sample_slots``' options for one call: with ``use_grammar`` the
+        ``grammar_mask`` bitmask of the rows' states and budgets and the
+        advance of the slots' states; with ``want_top`` the top rows."""
+        opts: Dict[str, Any] = {}
+        if use_grammar:
+            table, accept, dist = self.grammars.tensors()
+            opts["allowed"] = sampling.grammar_mask(
+                row_states, row_budget, self.eos_id, table, accept, dist,
+                self._tok_bytes, self._tok_lens)
+            opts["grammar"] = (slot_states, table, self._tok_bytes,
+                               self._tok_lens)
+        if want_top:
+            opts["want_top"] = True
+        return opts
 
     # ---------------------------------------------------------------- prefill
 
@@ -507,12 +692,22 @@ class EngineCore:
         top_p = np.array([it.top_p for it in items], np.float32)
         seeds = np.array([it.seed for it in items], np.int64)
         generated = np.array([it.generated for it in items], np.int32)
+        gram = np.array([it.gram_state if it.is_last else 0 for it in items],
+                        np.int32)
         t = self._up
         keys = t(threefry.prng_key(torch.from_numpy(seeds)))
         temp_dev, top_k_dev, top_p_dev = t(temperature), t(top_k), t(top_p)
-        toks, lps = self._sample_slots(keys, t(generated - 1), 1, logits,
-                                       temp_dev, top_k_dev, top_p_dev,
-                                       t(last))
+        # a grammared final samples its first token under its DFA state
+        # with the budget max_gen - generated (the reference's group tail)
+        use_grammar = bool((gram > 0).any())
+        gram_dev = t(gram) if use_grammar else None
+        opts = (self._sample_opts(
+            gram_dev, t(np.array([it.max_gen - it.generated for it in items],
+                                 np.int32)), gram_dev, True, False)
+            if use_grammar else {})
+        toks, lps, extra = self._sample_slots(
+            keys, t(generated - 1), 1, logits, temp_dev, top_k_dev,
+            top_p_dev, t(last), **opts)
         rows = np.flatnonzero(last)
         if not len(rows):
             return toks
@@ -534,6 +729,9 @@ class EngineCore:
         state.top_p[sl] = top_p_dev[ix]
         state.rngs[sl] = keys[ix]
         state.last_logprob[sl] = lps[ix]
+        # activation sets (or clears) the slot's DFA state
+        state.gram_state[sl] = (extra["next_state"][ix] if use_grammar
+                                else torch.zeros_like(sl, dtype=torch.int32))
         state.history[sl, col] = toks[ix]
         return toks
 
@@ -557,6 +755,7 @@ class EngineCore:
                              f"prefill_chunk ({self.chunk})")
         C = max(ps, -(-longest // ps) * ps)
         self._check_spans(items, C)
+        self._check_grammar(any(it.gram_state > 0 for it in items))
         tokens = np.zeros((G, C), np.int32)
         page_rows = np.zeros((G, self.max_pages_per_slot), np.int32)
         start_pos = np.zeros((G,), np.int32)
@@ -587,22 +786,39 @@ class EngineCore:
 
     # ----------------------------------------------------------------- decode
 
-    def _sample(self, state: DecodeState, logits: torch.Tensor, W: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _sample(self, state: DecodeState, logits: torch.Tensor, W: int,
+                use_grammar: bool = False, want_top: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
         """Tokens and logprobs of a step's (B * W, V) logits in one
         sampling call, row (b, w) under ``fold_in(rngs[b], generated[b] +
         w)``, the reference's keys for a narrow (W = 1) and a widened step,
-        with slot b's live settings (an inactive slot greedy)."""
-        return self._sample_slots(state.rngs, state.generated, W, logits,
-                                  state.temperature, state.top_k,
-                                  state.top_p, state.active)
+        with slot b's live settings (an inactive slot greedy). With
+        ``use_grammar`` each slot's position 0 draws under its DFA state,
+        with the budget it has left after that token, and the state
+        advances; rows w > 0 are unconstrained. ``want_top``: the top rows
+        of every position."""
+        opts = {}
+        if use_grammar or want_top:
+            B = state.gram_state.shape[0]
+            rows = state.gram_state
+            budget = state.max_gen - state.generated - 1
+            if W > 1:
+                rows = torch.cat([rows[:, None], rows.new_zeros((B, W - 1))],
+                                 dim=1).reshape(B * W)
+                budget = budget.repeat_interleave(W)
+            opts = self._sample_opts(rows, budget, state.gram_state,
+                                     use_grammar, want_top)
+        return self._sample_slots(
+            state.rngs, state.generated, W, logits, state.temperature,
+            state.top_k, state.top_p, state.active, **opts)
 
     def _step(self, state: DecodeState, page_table: torch.Tensor,
-              forward: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+              forward: Optional[Callable] = None, use_grammar: bool = False,
+              want_top: bool = False) -> Dict[str, torch.Tensor]:
         """One narrow decode step over every slot (``step_narrow`` there).
         ``forward(tokens) -> (B, V)`` replaces the model call and advances
         every slot's length by one, as ``kv_cache.decode_step`` does.
-        Out arrays are (1, B)."""
+        Out arrays are (1, B), the top rows (1, B, TOP_LP)."""
         cache = state.cache
         if forward is None:
             forward = lambda toks: kv_cache.decode_step(
@@ -611,7 +827,8 @@ class EngineCore:
         prev_len = cache.lengths.clone()
         logits = forward(state.tokens)
         active = state.active
-        sampled, lp = self._sample(state, logits, 1)
+        sampled, lp, extra = self._sample(state, logits, 1, use_grammar,
+                                          want_top)
         generated = state.generated + active.to(torch.int32)
         hit_eos = sampled == self.eos_id
         done = active & (hit_eos | (generated >= state.max_gen)
@@ -626,15 +843,20 @@ class EngineCore:
         out = {"sampled": sampled, "emitted": active, "done": done,
                "hit_eos": hit_eos, "input_tokens": state.tokens,
                "sampled_lp": lp, "input_lp": state.last_logprob}
+        if want_top:
+            out["top_ids"], out["top_lps"] = extra["top_ids"], extra["top_lps"]
         state.tokens = torch.where(active, sampled, state.tokens)
         state.last_logprob = torch.where(active, lp, state.last_logprob)
+        if use_grammar:
+            state.gram_state = extra["next_state"]
         state.generated = generated
         state.active = active & ~done
         return {k: v[None] for k, v in out.items()}
 
     def _step_wide(self, state: DecodeState, page_table: torch.Tensor,
                    W: int, draft_cap: Optional[torch.Tensor] = None,
-                   forward: Optional[Callable] = None
+                   forward: Optional[Callable] = None,
+                   use_grammar: bool = False, want_top: bool = False
                    ) -> Dict[str, torch.Tensor]:
         """One speculative verify step (``step_wide`` there): draft W - 1
         tokens per slot from its history (capped by ``draft_cap``), run one
@@ -642,7 +864,9 @@ class EngineCore:
         unchanged), sample position w under the slot's key folded with
         ``generated + w``, accept the longest matching prefix, clamp it to
         pages actually covered, the budget and the capacity, and cut it
-        after an EOS. Out arrays are (W, B)."""
+        after an EOS. A constrained slot (``use_grammar``, state > 0)
+        drafts nothing and draws position 0 under its DFA. Out arrays are
+        (W, B), the top rows (W, B, TOP_LP)."""
         B, dev = state.tokens.shape[0], self.device
         cache = state.cache
         if forward is None:
@@ -654,11 +878,15 @@ class EngineCore:
                                    self.cfg.spec_ngram)
         if draft_cap is not None:
             dlen = torch.minimum(dlen, draft_cap)
+        if use_grammar:
+            # the DFA advances one sampled token at a time
+            dlen = torch.where(state.gram_state > 0, 0, dlen)
         inputs = torch.cat([state.tokens[:, None], draft], dim=1)
         raw = forward(inputs)                                     # (B, W, V)
         active = state.active
-        sampled, lp = self._sample(state, raw.reshape(B * W, raw.shape[-1]),
-                                   W)
+        sampled, lp, extra = self._sample(
+            state, raw.reshape(B * W, raw.shape[-1]), W, use_grammar,
+            want_top)
         lp = lp.reshape(B, W)
         sampled = sampled.reshape(B, W)
         e = acceptance(sampled, draft, dlen).to(torch.int64)      # 1..W
@@ -696,8 +924,15 @@ class EngineCore:
                "hit_eos": is_eos.T, "input_tokens": inputs.T, "sampled_lp": lp.T,
                "input_lp": torch.cat([state.last_logprob[None],
                                       torch.zeros((W - 1, B), device=dev)])}
+        if want_top:
+            out["top_ids"] = extra["top_ids"].reshape(B, W, TOP_LP
+                                                      ).transpose(0, 1)
+            out["top_lps"] = extra["top_lps"].reshape(B, W, TOP_LP
+                                                      ).transpose(0, 1)
         state.tokens = torch.where(active, last_tok, state.tokens)
         state.last_logprob = torch.where(active, last_lp, state.last_logprob)
+        if use_grammar:
+            state.gram_state = extra["next_state"]
         state.generated = generated
         state.active = active & ~done_slot
         return out
@@ -713,37 +948,56 @@ class EngineCore:
         return W, draft_cap
 
     def _run_step(self, state: DecodeState, page_table: torch.Tensor, W: int,
-                  draft_cap, forward=None) -> Dict[str, torch.Tensor]:
+                  draft_cap, forward=None, use_grammar: bool = False,
+                  want_top: bool = False) -> Dict[str, torch.Tensor]:
         if W == 1:
-            return self._step(state, page_table, forward)
-        return self._step_wide(state, page_table, W, draft_cap, forward)
+            return self._step(state, page_table, forward, use_grammar,
+                              want_top)
+        return self._step_wide(state, page_table, W, draft_cap, forward,
+                               use_grammar, want_top)
 
     @staticmethod
     def _pack(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
         """Stack the steps' (W, B) arrays into (steps*W, B) micro-rows, and
         every field as int32 (logprobs bitcast) into ``packed`` for one
-        device-to-host copy. Every array is a fresh tensor, which no later
-        dispatch writes."""
+        device-to-host copy, the top rows (a ``want_top`` dispatch) after
+        them as TOP_LP id rows and TOP_LP logprob rows. Every array is a
+        fresh tensor, which no later dispatch writes."""
         res: Dict[str, Any] = {k: torch.cat([o[k] for o in outs])
                                for k in _PACKED_FIELDS}
-        res["packed"] = torch.stack([
-            res[k].view(torch.int32) if k in _LP_FIELDS
-            else res[k].to(torch.int32) for k in _PACKED_FIELDS])
+        rows = [res[k].view(torch.int32) if k in _LP_FIELDS
+                else res[k].to(torch.int32) for k in _PACKED_FIELDS]
+        if "top_ids" in outs[0]:
+            for k in ("top_ids", "top_lps"):
+                res[k] = torch.cat([o[k] for o in outs])  # (steps*W, B, K)
+            rows += list(res["top_ids"].permute(2, 0, 1))
+            rows += list(res["top_lps"].permute(2, 0, 1).contiguous()
+                         .view(torch.int32))
+        res["packed"] = torch.stack(rows)
         return res
 
     def _steps(self, state: DecodeState, page_table: torch.Tensor, W: int,
-               cap, steps: int, between_steps: Optional[Callable[[], None]]
+               cap, steps: int, between_steps: Optional[Callable[[], None]],
+               use_grammar: bool = False, want_top: bool = False
                ) -> List[Dict[str, torch.Tensor]]:
         outs = []
         for _ in range(steps):
-            outs.append(self._run_step(state, page_table, W, cap))
+            outs.append(self._run_step(state, page_table, W, cap,
+                                       use_grammar=use_grammar,
+                                       want_top=want_top))
             if between_steps is not None:
                 between_steps()
         return outs
 
+    def _check_grammar(self, use_grammar: bool) -> None:
+        if use_grammar and self._tok_bytes is None:
+            raise ValueError("use_grammar needs the vocabulary's byte table "
+                             "(ensure_token_bytes)")
+
     @torch.no_grad()
     def decode(self, state: DecodeState, page_table: torch.Tensor,
-               steps: int = 1, *, spec_width: Optional[int] = None,
+               steps: int = 1, use_grammar: bool = False,
+               want_top: bool = False, *, spec_width: Optional[int] = None,
                width: Optional[int] = None, draft_cap=None,
                between_steps: Optional[Callable[[], None]] = None
                ) -> Tuple[DecodeState, Dict[str, Any]]:
@@ -755,27 +1009,32 @@ class EngineCore:
         arrays are (steps*W, width) micro-rows, (step, position) in order;
         ``input_tokens`` carries each position's input, and
         ``out["packed"]`` stacks every field as int32 (logprobs bitcast)
-        for one device-to-host copy. ``between_steps()``, when given, runs
-        on the host after each step's launches; it must leave the state
-        alone."""
+        for one device-to-host copy. ``use_grammar`` masks and advances each
+        constrained slot (gram_state > 0); ``want_top`` appends the top rows
+        to ``packed``. ``between_steps()``, when given, runs on the host
+        after each step's launches; it must leave the state alone."""
         W, cap = self._width(spec_width, draft_cap)
+        self._check_grammar(use_grammar)
         bw = width or self.batch
         if bw not in self.decode_widths:
             raise ValueError(f"width {bw} is not a ladder rung "
                              f"{self.decode_widths}")
+        flags = dict(use_grammar=use_grammar, want_top=want_top)
         if bw == self.batch:
             return state, self._pack(self._steps(state, page_table, W, cap,
-                                                 steps, between_steps))
+                                                 steps, between_steps,
+                                                 **flags))
         narrow = state.rows(bw)
         cap = cap[:bw] if cap is not None else None
         res = self._pack(self._steps(narrow, page_table[:bw], W, cap, steps,
-                                     between_steps))
+                                     between_steps, **flags))
         state.merge(narrow)
         return state, res
 
     @torch.no_grad()
     def decode_mixed(self, state: DecodeState, page_table: torch.Tensor,
-                     steps: int, items: Sequence[PrefillItem], *,
+                     steps: int, items: Sequence[PrefillItem],
+                     use_grammar: bool = False, want_top: bool = False, *,
                      spec_width: Optional[int] = None, draft_cap=None,
                      between_steps: Optional[Callable[[], None]] = None
                      ) -> Tuple[DecodeState, Dict[str, Any]]:
@@ -789,7 +1048,9 @@ class EngineCore:
         pad to ``prefill_chunk`` and the group to a ``group_buckets`` size.
         The out block is :meth:`decode`'s at the full batch, plus
         ``first_tokens`` (G,) for the items (valid for is_last ones);
-        ``between_steps`` as in :meth:`decode`."""
+        ``use_grammar``, ``want_top`` and ``between_steps`` as in
+        :meth:`decode` (a grammared final samples under its item's
+        ``gram_state`` whatever ``use_grammar`` says)."""
         if not self.mixed_supported:
             raise ValueError("mixed-phase dispatch is gated off for this "
                              "engine (APP_MIXED_PHASE_DISPATCH or an "
@@ -817,6 +1078,9 @@ class EngineCore:
             chunk_len[i] = n
         t = self._up
         W, cap = self._width(spec_width, draft_cap)
+        self._check_grammar(use_grammar
+                            or any(it.gram_state > 0 for it in items))
+        flags = dict(use_grammar=use_grammar, want_top=want_top)
         cache = state.cache
         ch_args = (t(tokens), t(page_rows), t(start_pos), t(chunk_len))
         cell: Dict[str, torch.Tensor] = {}
@@ -832,14 +1096,14 @@ class EngineCore:
             cache.lengths += 1         # the narrow step's contract
             return dec[:, 0]
 
-        outs = [self._run_step(state, page_table, W, cap, forward)]
+        outs = [self._run_step(state, page_table, W, cap, forward, **flags)]
         cache.lengths[t(np.array([it.slot for it in items], np.int64))] = \
             t((start_pos + chunk_len)[:len(items)])
         self._write_chunk_history(state, items)
         if between_steps is not None:
             between_steps()
         outs += self._steps(state, page_table, W, cap, steps - 1,
-                            between_steps)
+                            between_steps, **flags)
         first = self._activate_rows(state, cell["chunk"][:len(items)], items)
         res = self._pack(outs)
         res["first_tokens"] = first
@@ -848,11 +1112,12 @@ class EngineCore:
     @torch.no_grad()
     def activate(self, state: DecodeState, slot: int, token: int,
                  generated: int, max_gen: int, temperature: float, top_k: int,
-                 top_p: float, seed: int = 0) -> DecodeState:
+                 top_p: float, seed: int = 0,
+                 gram_state: int = 0) -> DecodeState:
         """Start decoding a prefilled slot (lengths set by its last chunk;
         ``generated`` counts tokens already produced, >= 1); the token
-        enters history at the slot's length, and the slot's key becomes
-        ``PRNGKey(seed)``."""
+        enters history at the slot's length, the slot's key becomes
+        ``PRNGKey(seed)`` and its DFA state ``gram_state``."""
         state.history[slot, state.cache.lengths[slot].long()
                       .clamp_max(self.max_seq - 1)] = token
         state.tokens[slot] = token
@@ -864,6 +1129,7 @@ class EngineCore:
         state.top_p[slot] = top_p
         state.rngs[slot] = self._up(threefry.prng_key(seed))
         state.last_logprob[slot] = 0.0
+        state.gram_state[slot] = gram_state
         return state
 
     @torch.no_grad()
@@ -897,29 +1163,41 @@ class EngineCore:
     # ----------------------------------------------------------------- warmup
 
     @torch.no_grad()
-    def warmup(self) -> float:
+    def warmup(self, tokenizer=None) -> float:
         """Run every serving program once on a throwaway state before
         traffic, as the reference's ``warmup`` compiles its grid: every
         grouped-prefill bucket (sampled fused first tokens, so the sampling
         kernel runs too), every decode program (each rung of the batch
         width ladder times each speculative rung, at
         ``decode_steps_per_dispatch`` steps, with sampled slots), and every
-        mixed group bucket. On the card this builds every kernel and
+        mixed group bucket. With ``tokenizer`` the constrained variants
+        run too, as the reference's: the byte table is built, a tiny
+        grammar registered, and one grouped prefill, one decode at the
+        ceiling width and the full batch (where the scheduler pins
+        grammared and top-logprob dispatches) with ``use_grammar`` and
+        ``want_top``, and one mixed dispatch with both, each run once; the
+        other ``want_top`` and mixed-bucket crossings stay cold, as the
+        reference leaves them. On the card this builds every kernel and
         touches every shape before the first request. The rows write to
         the null page and end at once (budget 0). Returns the seconds it
         took, the device included."""
         t0 = time.perf_counter()
+        gram_start = 0
+        if tokenizer is not None:
+            self.ensure_token_bytes(tokenizer)
+            gram_start = self.register_grammar(
+                grammar_mod.Grammar.from_schema({"type": "boolean"}))
         state = self.init_state()
         zero_row = np.zeros((self.max_pages_per_slot,), np.int32)
         table = self.put_table(np.zeros(
             (self.batch, self.max_pages_per_slot), np.int32))
         steps = self.cfg.decode_steps_per_dispatch
 
-        def items(g, last):
+        def items(g, last, gs=0):
             return [PrefillItem(chunk_ids=[1] * min(4, self.chunk),
                                 page_row=zero_row, slot=i % self.batch,
                                 start_pos=0, is_last=last(i), generated=1,
-                                max_gen=0, temperature=1.0)
+                                max_gen=0, temperature=1.0, gram_state=gs)
                     for i in range(g)]
 
         for g in self.group_buckets:
@@ -933,6 +1211,15 @@ class EngineCore:
                 state, _ = self.decode_mixed(
                     state, table, steps,
                     items(min(g, self.batch), lambda i: bool(i % 2)))
+        if gram_start:
+            state, _ = self.prefill_group(state, items(1, lambda i: True,
+                                                       gram_start))
+            state, _ = self.decode(state, table, steps, True, True)
+            if self.mixed_supported:
+                state, _ = self.decode_mixed(
+                    state, table, steps,
+                    items(min(2, self.batch), lambda i: bool(i % 2),
+                          gram_start), True, True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         del state

@@ -42,11 +42,20 @@ issued (its final chunk), and a finished or preempted request's
 decode-written pages too, so a resume or a follow-up turn re-admits
 against them.
 
-Not ported (their Request fields raise): logprobs, LoRA adapters, grammar,
-KV handoff (ROADMAP A2, A3, A5, A7); nor spill/tier, QoS, SLO, metrics and
-flight planes and the multi-step plan (A5, A6). Dispatch, speculation,
-prefix-cache, admission and pipelining counters live in
-``Scheduler.stats``.
+Logprobs and constrained decoding, as there: a request with ``logprobs``
+gets ``(token, logprob, top)`` per token in ``logprob_data`` (``top``, the
+``top_logprobs`` alternatives, from a dispatch that ran with the top rows;
+the fused first token has none); a request with a ``grammar`` registers it
+at its final chunk (``_gram_state_for``: a resume re-walks what it
+emitted; requests in flight pin their grammars; a failed registration
+degrades the request to unconstrained and sets ``grammar_attached``
+False). A dispatch with a grammared slot or a top-logprob request runs at
+the ceiling width and the full batch.
+
+Not ported (their Request fields raise): LoRA adapters, KV handoff
+(ROADMAP A3, A7); nor spill/tier, QoS, SLO, metrics and flight planes and
+the multi-step plan (A5, A6). Dispatch, speculation, prefix-cache,
+admission and pipelining counters live in ``Scheduler.stats``.
 """
 
 from __future__ import annotations
@@ -67,7 +76,7 @@ from typing import Deque, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from generativeaiexamples_tpu_torch.engine.engine import (
-    EngineCore, HostCopy, PrefillItem, unpack_decode_out)
+    EngineCore, HostCopy, PrefillItem, bits_to_f32, unpack_decode_out)
 from generativeaiexamples_tpu_torch.engine.prefix_cache import chain_hashes
 from generativeaiexamples_tpu_torch.engine.tokenizer import (
     IncrementalDetokenizer, Tokenizer)
@@ -103,11 +112,24 @@ class Request:
     top_p: float = 1.0
     stop: List[str] = field(default_factory=list)
     seed: Optional[int] = None
-    # not ported yet; setting any of them raises
+    # `logprobs`/`top_logprobs` fill `logprob_data` with (token_id,
+    # logprob, [(alt_id, alt_logprob)] | None) per token
     logprobs: bool = False
     top_logprobs: int = 0
-    adapter: str = ""
+    logprob_data: List[tuple] = field(default_factory=list)
+    # a compiled grammar (engine/grammar.py Grammar) or None; without a
+    # free grammar slot the request degrades to unconstrained.
+    # grammar_prefix: output text already emitted for this generation
+    # elsewhere, walked before the first constrained token;
+    # grammar_spec: the (kind, payload) the grammar was built from;
+    # grammar_attached: True once token-level enforcement is on, False
+    # when it degraded, None before the final chunk decides
     grammar: Optional[object] = None
+    grammar_prefix: str = ""
+    grammar_spec: Optional[tuple] = None
+    grammar_attached: Optional[bool] = None
+    # not ported yet; setting either raises
+    adapter: str = ""
     prefill_only: bool = False
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
@@ -125,9 +147,7 @@ class Request:
     finish_reason: Optional[str] = None
 
     def __post_init__(self) -> None:
-        for name, item in (("logprobs", "A2"), ("top_logprobs", "A2"),
-                           ("adapter", "A3/A5 (LoRA)"),
-                           ("grammar", "A5 (grammar)"),
+        for name, item in (("adapter", "A3/A5 (LoRA)"),
                            ("prefill_only", "A7 (KV handoff)")):
             if getattr(self, name):
                 raise NotImplementedError(
@@ -165,6 +185,7 @@ class _Job:
     first_inflight: bool = False  # already snapshotted into a decode dispatch
     first_epoch: int = 0          # bumps per (re-)prefill: a stale fetch of
                                   # a preempted, re-admitted job is dropped
+    gram_on: bool = False         # its grammar is attached on the device
 
 
 @dataclass
@@ -620,7 +641,9 @@ class Scheduler:
                     slot=job.slot, start_pos=start, is_last=last,
                     generated=len(job.gen_ids) + 1, max_gen=req.max_tokens,
                     temperature=req.temperature, top_k=req.top_k,
-                    top_p=req.top_p, seed=req.seed or 0))
+                    top_p=req.top_p,
+                    gram_state=self._gram_state_for(job) if last else 0,
+                    seed=req.seed or 0))
                 start += len(chunk_ids)
                 if last:
                     finals.append(job)
@@ -635,6 +658,40 @@ class Scheduler:
             self._enter_decode(job)
         return len(items)
 
+    def _gram_state_for(self, job: _Job) -> int:
+        """The flat DFA state a grammared job's fused first token samples
+        under (0: unconstrained). A resume re-walks the tokens it already
+        emitted. Grammars of active, prefilling and pending jobs stay
+        pinned (a preempted job's client was promised enforcement). A
+        failed registration (an unsupported schema, every slot pinned)
+        degrades the job to unconstrained: ``grammar_attached`` False."""
+        grammar = job.request.grammar
+        if grammar is None:
+            return 0
+        job.request.grammar_attached = False
+        try:
+            self.core.ensure_token_bytes(self.tokenizer)
+            with self._lock:
+                pending = list(self._pending)
+            active = {j.request.grammar.key
+                      for j in (list(self._slots.values())
+                                + list(self._prefilling) + pending)
+                      if j.request.grammar is not None}
+            prefix = job.request.grammar_prefix.encode("utf-8")
+            if job.gen_ids or prefix:
+                state = self.core.walk_grammar(grammar, list(job.gen_ids),
+                                               active, prefix=prefix)
+            else:
+                state = self.core.register_grammar(grammar, active)
+            job.gram_on = state > 0
+            job.request.grammar_attached = job.gram_on
+            return state
+        except Exception as exc:
+            logger.warning("constrained decoding disabled for %s: %s",
+                           job.request.request_id, exc)
+            job.gram_on = False
+            return 0
+
     def _enter_decode(self, job: _Job) -> None:
         """A job's final chunk is dispatched: flag its fused first token
         for resolution and hand the slot to the decode set."""
@@ -645,7 +702,8 @@ class Scheduler:
         self._slots[job.slot] = job
 
     def _resolve_first(self, job: _Job, first: int,
-                       defer: Optional[List[tuple]] = None) -> bool:
+                       defer: Optional[List[tuple]] = None,
+                       lp: Optional[float] = None) -> bool:
         """Emit the fused first token, from whichever lands first: a
         batched fetch (also between a dispatch's steps) or a decode
         dispatch's step-0 inputs (idempotent via ``first_pending``; True
@@ -655,7 +713,7 @@ class Scheduler:
         first token that ends the request leaves ``(job, reason)`` in
         ``defer`` for :meth:`_end_first` once the dispatch is issued: a
         release inside a narrow-rung dispatch would be overwritten by its
-        merge."""
+        merge. ``lp`` is the token's logprob (``logprob_data``)."""
         if not job.first_pending:
             return False
         job.first_pending = False
@@ -665,7 +723,7 @@ class Scheduler:
             req.first_token_at = time.perf_counter()
         if first == self.core.eos_id:
             end = "eos"
-        elif self._emit_token(job, first):
+        elif self._emit_token(job, first, lp):
             end = "stop"
         elif len(job.gen_ids) >= req.max_tokens:
             end = "length"
@@ -693,14 +751,18 @@ class Scheduler:
         self._state = self.core.release(self._state, job.slot)
         self._finish(job)
 
-    def _emit_token(self, job: _Job, tok: int) -> bool:
-        """Append a generated token: detokenize, scan stop strings, stream
+    def _emit_token(self, job: _Job, tok: int, lp: Optional[float] = None,
+                    top: Optional[list] = None) -> bool:
+        """Append a generated token (with its logprob and top alternatives
+        for a ``logprobs`` request): detokenize, scan stop strings, stream
         the emit-safe text. True when a stop string matched."""
         job.gen_ids.append(tok)
         job.request.completion_tokens += 1
         job.request.output_ids.append(tok)
         job.total_len += 1
         req = job.request
+        if req.logprobs:
+            req.logprob_data.append((tok, lp, top))
         delta = job.detok.push(tok)
         if req.stop:
             emit, job.stop_buf, stopped = _stop_scan(req.stop,
@@ -890,12 +952,16 @@ class Scheduler:
             last = start + len(chunk_ids) >= len(job.ids)
             if req.prefill_start_at is None:
                 req.prefill_start_at = time.perf_counter()
+            # a grammared final samples its fused first token under the
+            # DFA inside the mixed dispatch, as on the grouped path
             items.append(PrefillItem(
                 chunk_ids=chunk_ids, page_row=self._table[job.slot],
                 slot=job.slot, start_pos=start, is_last=last,
                 generated=len(job.gen_ids) + 1, max_gen=req.max_tokens,
                 temperature=req.temperature, top_k=req.top_k,
-                top_p=req.top_p, seed=req.seed or 0))
+                top_p=req.top_p,
+                gram_state=self._gram_state_for(job) if last else 0,
+                seed=req.seed or 0))
             metas.append((job, last))
         return items, metas
 
@@ -929,6 +995,9 @@ class Scheduler:
         # re-planned after _grow_pages: preemption only removes slots, so
         # the rung never widens past the grown horizon
         w_disp, caps = self._spec_plan()
+        use_grammar = any(j.gram_on for j in self._slots.values())
+        want_top = any(j.request.logprobs and j.request.top_logprobs > 0
+                       for j in self._slots.values())
         active_map = dict(self._slots)
         table = self._table_device()
         # first tokens whose batched fetch lands while the dispatch is being
@@ -947,18 +1016,25 @@ class Scheduler:
                 job.prefilled = job.total_len = (it.start_pos
                                                  + len(it.chunk_ids))
             self._state, out = self.core.decode_mixed(
-                self._state, table, steps, items, between_steps=between_steps)
+                self._state, table, steps, items, use_grammar, want_top,
+                between_steps=between_steps)
             self.stats["mixed_dispatches"] += 1
             self.stats["prefill_chunks"] += len(items)
         else:
-            width = self._decode_width()
+            if use_grammar or want_top:
+                # these variants run at the ceiling width and the full
+                # batch, as the reference pins them
+                w_disp, caps = self._spec_w, None
+                width = self.core.batch
+            else:
+                width = self._decode_width()
             kw = ({"between_steps": between_steps} if caps is None
                   else {"spec_width": w_disp, "draft_cap": caps,
                         "between_steps": between_steps})
             if width != self.core.batch:
                 kw["width"] = width
-            self._state, out = self.core.decode(self._state, table, steps,
-                                                **kw)
+            self._state, out = self.core.decode(
+                self._state, table, steps, use_grammar, want_top, **kw)
             self.stats[f"decode_width_{width}"] += 1
         if self._inflight:
             self.stats["overlapped_dispatches"] += 1
@@ -992,16 +1068,25 @@ class Scheduler:
         self._note_acceptance(out, entry.w_disp, entry.active_map)
         for slot, job in entry.fresh:
             if self._slots.get(slot) is job:
-                self._resolve_first(job, int(out["input_tokens"][0, slot]))
+                self._resolve_first(job, int(out["input_tokens"][0, slot]),
+                                    lp=float(out["input_lp"][0, slot]))
         for slot, job in entry.active_map.items():
             if self._slots.get(slot) is not job:
                 continue   # finished or preempted since this dispatch
             req = job.request
+            n_top = (min(req.top_logprobs, len(out.get("top_ids", ())))
+                     if req.logprobs else 0)
             for k in range(out["sampled"].shape[0]):
                 if not out["emitted"][k, slot]:
                     continue
                 if not (out["done"][k, slot] and out["hit_eos"][k, slot]):
-                    if self._emit_token(job, int(out["sampled"][k, slot])):
+                    lp = (float(out["sampled_lp"][k, slot])
+                          if req.logprobs else None)
+                    top = ([(int(out["top_ids"][j, k, slot]),
+                             float(out["top_lps"][j, k, slot]))
+                            for j in range(n_top)] if n_top else None)
+                    if self._emit_token(job, int(out["sampled"][k, slot]),
+                                        lp, top):
                         self._retire(job)
                         break
                 if out["done"][k, slot]:
@@ -1046,7 +1131,8 @@ class Scheduler:
                 # re-admitted into the same slot since the snapshot
                 if (self._slots.get(slot) is job and job.first_epoch == epoch
                         and self._resolve_first(job, int(snap[0, slot]),
-                                                defer)
+                                                defer,
+                                                bits_to_f32(snap[1, slot]))
                         and defer is not None):
                     self.stats["first_mid_dispatch"] += 1
         return True

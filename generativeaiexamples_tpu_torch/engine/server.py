@@ -8,23 +8,41 @@ is written on ``http.server.ThreadingHTTPServer``: one thread per
 connection blocks on its request's token queue, and the engine's driver
 thread does the device work.
 
-Not ported (ROADMAP A7): tools and JSON mode, ``n > 1``, logprobs, LoRA
-model ids, KV handoff, drain/evacuation, metrics and debug endpoints.
+The request surface the reference's chains send: ``logprobs`` and
+``top_logprobs`` (at most ``TOP_LP``; the fused first token lists only
+itself, as there), ``n`` of 1 to 4 (choice i seeded ``seed + i``; refused
+with ``tools`` or ``response_format``), ``tools`` / ``tool_choice`` and
+``response_format`` (``json_object``, ``json_schema``) through the tool
+and JSON prompt contracts (``engine/tools.py``) and, where the output
+contract is unambiguous (a forced or required tool call, JSON mode
+without tools), an on-device grammar (``engine/grammar.py``) compiled
+once per spec. Tool calls stream as ``tool_calls`` deltas; grammared JSON
+mode streams as content once the grammar attached and falls back to the
+buffered extract path when it did not.
+
+Not ported (ROADMAP A7, A9): LoRA model ids, KV handoff, drain/evacuation,
+metrics and debug endpoints.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
+import queue
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+from generativeaiexamples_tpu_torch.engine import grammar as grammar_mod
+from generativeaiexamples_tpu_torch.engine import tools as tools_mod
+from generativeaiexamples_tpu_torch.engine.engine import TOP_LP
 from generativeaiexamples_tpu_torch.engine.scheduler import Request, Scheduler
 
 MAX_TOKENS_CAP = 1024
+MAX_CHOICES = 4
 logger = logging.getLogger(__name__)
 
 
@@ -36,26 +54,70 @@ def parse_stop(value) -> list:
 
 
 def _finish_reason(req, default: str = "stop") -> str:
-    """OpenAI finish_reason from the scheduler's finish cause."""
+    """OpenAI finish_reason from the scheduler's finish cause; ``default``
+    carries "tool_calls" (a parsed call is complete whatever ended it)."""
     if getattr(req, "error", None):
         return "error"
+    if default == "tool_calls":
+        return default
     if getattr(req, "finish_reason", None) == "length":
         return "length"
     return default
 
 
 def _chunk(model: str, rid: str, delta: Dict[str, Any],
-           finish_reason: Optional[str] = None, index: int = 0) -> str:
+           finish_reason: Optional[str] = None, index: int = 0,
+           logprobs: Optional[Dict[str, Any]] = None) -> str:
+    choice: Dict[str, Any] = {"index": index, "delta": delta,
+                              "finish_reason": finish_reason}
+    if logprobs is not None:
+        choice["logprobs"] = logprobs
     return json.dumps({
         "id": rid, "object": "chat.completion.chunk",
         "created": int(time.time()), "model": model,
-        "choices": [{"index": index, "delta": delta,
-                     "finish_reason": finish_reason}],
+        "choices": [choice],
     })
+
+
+@functools.lru_cache(maxsize=64)
+def _grammar_for(kind: str, payload: str) -> Optional[object]:
+    """Compile-once cache of grammars: schemas and tool sets repeat across
+    requests. None for a schema outside the DFA-regular subset (the request
+    then runs prompt+parse only)."""
+    try:
+        if kind == "schema":
+            return grammar_mod.Grammar.from_schema(json.loads(payload))
+        if kind == "json":
+            return grammar_mod.Grammar.json_value()
+        if kind == "tools":
+            spec = json.loads(payload)
+            return grammar_mod.Grammar.for_tools(spec["tools"],
+                                                 forced=spec["forced"])
+    except grammar_mod.UnsupportedSchema as exc:
+        logger.info("schema outside the DFA-regular subset (%s); serving "
+                    "with prompt+parse only", exc)
+    return None
 
 
 class BadRequest(ValueError):
     pass
+
+
+class Call:
+    """One HTTP request's scheduler requests (``n`` choices) and what its
+    reply needs: the prompt, chat or completion, the tools it may call,
+    JSON mode and the grammar."""
+
+    def __init__(self, reqs: List[Request], ids, chat: bool,
+                 tools: List[Dict[str, Any]], json_mode: bool,
+                 grammar: Optional[object], stream: bool) -> None:
+        self.reqs, self.ids, self.chat = reqs, ids, chat
+        self.tools, self.json_mode, self.grammar = tools, json_mode, grammar
+        self.stream = stream
+
+    @property
+    def req(self) -> Request:
+        return self.reqs[0]
 
 
 class ModelServer:
@@ -81,13 +143,7 @@ class ModelServer:
             value = body.get(key)
             return default if value is None else cast(value)
 
-        for key in ("tools", "response_format", "logprobs", "top_logprobs"):
-            if body.get(key):
-                raise BadRequest(f"{key!r} is not served by the PyTorch "
-                                 f"port yet (ROADMAP A7)")
-        if int(body.get("n") or 1) != 1:
-            raise BadRequest("n > 1 is not served by the PyTorch port yet "
-                             "(ROADMAP A7)")
+        top_lp = get("top_logprobs", 0, int)
         return {
             "max_tokens": min(get("max_tokens", 128, int), MAX_TOKENS_CAP),
             "temperature": get("temperature", 0.7, float),
@@ -96,61 +152,311 @@ class ModelServer:
             "stop": parse_stop(body.get("stop")),
             "seed": (int(body["seed"]) if body.get("seed") is not None
                      else None),
+            "logprobs": bool(get("logprobs", False, bool) or top_lp),
+            "top_logprobs": max(0, min(top_lp, TOP_LP)),
         }
 
-    def prompt_ids(self, path: str, body: Dict[str, Any]):
+    def _format_logprobs(self, req: Request) -> Dict[str, Any]:
+        """The OpenAI chat ``logprobs`` object of the scheduler's (token,
+        logprob, top) triples; the first (fused-prefill) token's
+        ``top_logprobs`` lists only itself."""
         tok = self.scheduler.tokenizer
-        if path == "/v1/chat/completions":
-            messages = body.get("messages") or []
-            if not messages:
-                raise BadRequest("messages must be non-empty")
-            return tok.apply_chat_template(messages)
-        return tok.encode(str(body.get("prompt", "")), add_bos=True)
+        content = []
+        for tid, lp, top in req.logprob_data:
+            s = tok.decode([tid])
+            entry: Dict[str, Any] = {"token": s, "logprob": lp,
+                                     "bytes": list(s.encode("utf-8"))}
+            if req.top_logprobs:
+                alts = top if top else ([(tid, lp)] if lp is not None else [])
+                entry["top_logprobs"] = [
+                    {"token": tok.decode([i]), "logprob": l,
+                     "bytes": list(tok.decode([i]).encode("utf-8"))}
+                    for i, l in alts[:req.top_logprobs]]
+            content.append(entry)
+        return {"content": content}
 
-    def submit(self, path: str, body: Dict[str, Any]):
-        ids = self.prompt_ids(path, body)
-        req = Request(prompt_ids=list(ids), **self._sampling(body))
-        self.scheduler.submit(req)
-        return req, ids
+    @staticmethod
+    def _prepare_chat(body: Dict[str, Any]) -> Dict[str, Any]:
+        """The chat message pipeline: the ``thinking`` toggle, forced-tool
+        validation, message normalization, and the tool and JSON prompt
+        contracts."""
+        messages = body.get("messages") or []
+        if not messages:
+            raise BadRequest("messages must be non-empty")
+        thinking = body.get("thinking")
+        if thinking is not None:
+            messages = ([{"role": "system",
+                          "content": "detailed thinking "
+                                     + ("on" if thinking else "off")}]
+                        + list(messages))
+        tools = body.get("tools") or []
+        tool_choice = body.get("tool_choice", "auto" if tools else "none")
+        response_format = body.get("response_format") or {}
+        json_mode = response_format.get("type") in ("json_object",
+                                                    "json_schema")
+        name = tools_mod.forced_name(tool_choice)
+        if name and name not in tools_mod.tool_names(tools):
+            raise BadRequest(f"tool_choice names unknown tool {name!r}")
+        messages = tools_mod.normalize_messages(messages)
+        use_tools = bool(tools) and tool_choice != "none"
+        if use_tools:
+            messages = tools_mod.inject_tool_prompt(messages, tools,
+                                                    tool_choice)
+        if json_mode:
+            # with tools, the JSON constraint scopes to non-tool replies
+            messages = tools_mod.inject_json_prompt(
+                messages, response_format, with_tools=use_tools)
+        return {"messages": messages, "tools": tools,
+                "tool_choice": tool_choice,
+                "response_format": response_format, "json_mode": json_mode,
+                "use_tools": use_tools, "forced_name": name}
 
-    def complete(self, req: Request, ids, chat: bool) -> Dict[str, Any]:
-        """Non-streamed response body once the request has finished."""
-        text = "".join(self.scheduler.iter_text(req))
-        choice: Dict[str, Any] = {"index": 0,
-                                  "finish_reason": _finish_reason(req)}
+    @staticmethod
+    def _grammar_for_prep(prep: Dict[str, Any]):
+        """``(grammar, (kind, payload) | None)``: a grammar wherever the
+        output contract is unambiguous (a forced or required tool call, or
+        JSON mode without tools; ``tool_choice`` "auto" may answer in
+        prose, so it stays prompt+parse)."""
+        tools = prep["tools"]
+        name = prep["forced_name"]
+        spec = None
+        if prep["use_tools"] and (prep["tool_choice"] == "required" or name):
+            spec = ("tools", json.dumps({"tools": tools, "forced": name}))
+        elif prep["json_mode"] and not prep["use_tools"]:
+            if prep["response_format"].get("type") == "json_schema":
+                # property order is part of the enforced language
+                schema = prep["response_format"].get(
+                    "json_schema", {}).get("schema", {})
+                spec = ("schema", json.dumps(schema))
+            else:
+                spec = ("json", "")
+        if spec is None:
+            return None, None
+        grammar = _grammar_for(*spec)
+        return grammar, (spec if grammar is not None else None)
+
+    def submit(self, path: str, body: Dict[str, Any]) -> Call:
+        """Parse a request and submit its ``n`` choices."""
+        tok = self.scheduler.tokenizer
+        chat = path == "/v1/chat/completions"
+        tools: List[Dict[str, Any]] = []
+        json_mode, grammar, spec = False, None, None
         if chat:
-            choice["message"] = {"role": "assistant", "content": text}
+            prep = self._prepare_chat(body)
+            ids = tok.apply_chat_template(prep["messages"])
+            json_mode = prep["json_mode"]
+            tools = prep["tools"] if prep["use_tools"] else []
+            grammar, spec = self._grammar_for_prep(prep)
         else:
-            choice["text"] = text
-        n = req.completion_tokens
+            ids = tok.encode(str(body.get("prompt", "")), add_bos=True)
+        sampling = self._sampling(body)
+        n = max(1, min(int(body.get("n") or 1), MAX_CHOICES))
+        if n > 1 and (tools or json_mode):
+            raise BadRequest("n > 1 is not supported with tools or "
+                             "response_format")
+        reqs = []
+        for i in range(n):
+            kw = dict(sampling)
+            if i and kw["seed"] is not None:
+                kw["seed"] = kw["seed"] + i   # distinct, still reproducible
+            reqs.append(Request(prompt_ids=list(ids), grammar=grammar,
+                                grammar_spec=spec, **kw))
+        for r in reqs:
+            self.scheduler.submit(r)
+        return Call(reqs, ids, chat, tools, json_mode, grammar,
+                    bool(body.get("stream")))
+
+    def _text(self, req: Request) -> str:
+        return "".join(self.scheduler.iter_text(req))
+
+    def _usage(self, call: Call) -> Dict[str, int]:
+        n = sum(r.completion_tokens for r in call.reqs)
+        return {"prompt_tokens": len(call.ids), "completion_tokens": n,
+                "total_tokens": len(call.ids) + n}
+
+    def _message(self, call: Call, text: str):
+        """(message, finish_reason) of a buffered reply: tool calls parsed,
+        a JSON-mode value extracted and rewritten canonically."""
+        req = call.req
+        tool_calls = (tools_mod.parse_tool_calls(text, call.tools)
+                      if call.tools else None)
+        if call.json_mode and not tool_calls:
+            found = tools_mod.extract_json_value(text)
+            if found is not None:
+                text = json.dumps(found[0])
+        finish = "tool_calls" if tool_calls else _finish_reason(req)
+        message: Dict[str, Any] = {"role": "assistant",
+                                   "content": None if tool_calls else text}
+        if tool_calls:
+            message["tool_calls"] = tool_calls
+        return message, finish
+
+    def complete(self, call: Call) -> Dict[str, Any]:
+        """Non-streamed response body once every choice has finished."""
+        texts = [self._text(r) for r in call.reqs]
+        message, finish = self._message(call, texts[0])
+        choices = []
+        for i, (r, t) in enumerate(zip(call.reqs, texts)):
+            fin = _finish_reason(r, finish if i == 0 else "stop")
+            choice: Dict[str, Any] = {"index": i, "finish_reason": fin}
+            if call.chat:
+                choice["message"] = (message if i == 0 else
+                                     {"role": "assistant", "content": t})
+            else:
+                choice["text"] = t
+            if r.logprobs:
+                choice["logprobs"] = self._format_logprobs(r)
+            choices.append(choice)
         payload = {
             "id": f"chatcmpl-{uuid.uuid4().hex[:16]}",
-            "object": "chat.completion" if chat else "text_completion",
+            "object": "chat.completion" if call.chat else "text_completion",
             "created": int(time.time()), "model": self.model_name,
-            "choices": [choice],
-            "usage": {"prompt_tokens": len(ids), "completion_tokens": n,
-                      "total_tokens": len(ids) + n},
+            "choices": choices, "usage": self._usage(call),
         }
-        if req.error:
-            payload["error"] = req.error
+        errs = [r.error for r in call.reqs if r.error]
+        if errs:
+            payload["error"] = "; ".join(errs)
         return payload
 
-    def stream(self, req: Request, ids, chat: bool):
+    def stream(self, call: Call):
         """SSE payloads (without the ``data: `` framing) of a stream."""
         rid = f"chatcmpl-{uuid.uuid4().hex[:16]}"
-        if chat:
-            yield _chunk(self.model_name, rid, {"role": "assistant"})
-        for delta in self.scheduler.iter_text(req):
-            yield _chunk(self.model_name, rid, {"content": delta})
-        final = json.loads(_chunk(self.model_name, rid, {},
-                                  _finish_reason(req)))
-        n = req.completion_tokens
-        final["usage"] = {"prompt_tokens": len(ids), "completion_tokens": n,
-                          "total_tokens": len(ids) + n}
-        if req.error:
-            final["error"] = req.error
-        yield json.dumps(final)
+        if call.tools and not call.json_mode:
+            yield from self._stream_tools(call, rid)
+        elif call.json_mode and call.grammar is not None and not call.tools:
+            yield from self._stream_json(call, rid)
+        elif call.tools or call.json_mode:
+            yield from self._stream_buffered(call, rid)
+        else:
+            yield from self._stream_text(call, rid)
         yield "[DONE]"
+
+    def _final(self, call: Call, rid: str, req: Request, finish: str,
+               index: int = 0, error: Optional[str] = None,
+               usage: bool = True, logprobs: bool = False) -> str:
+        """A choice's final chunk: its finish reason, with ``logprobs`` its
+        logprobs object (the text streams), the call's usage on the last
+        one, and any error."""
+        lps = (self._format_logprobs(req) if logprobs and req.logprobs
+               else None)
+        final = json.loads(_chunk(self.model_name, rid, {}, finish, index,
+                                  lps))
+        if usage:
+            final["usage"] = self._usage(call)
+        error = req.error or error
+        if error:
+            final["error"] = error
+        return json.dumps(final)
+
+    def _stream_text(self, call: Call, rid: str):
+        """Content deltas; with ``n`` > 1 each choice's deltas under its
+        index as they come, then a final chunk per choice."""
+        model, n = self.model_name, len(call.reqs)
+        if call.chat:
+            for i in range(n):
+                yield _chunk(model, rid, {"role": "assistant"}, index=i)
+        if n == 1:
+            for delta in self.scheduler.iter_text(call.req):
+                yield _chunk(model, rid, {"content": delta})
+        else:
+            q: "queue.Queue" = queue.Queue()
+
+            def pump(i: int, r: Request) -> None:
+                for delta in self.scheduler.iter_text(r):
+                    q.put((i, delta))
+                q.put((i, None))
+
+            for i, r in enumerate(call.reqs):
+                threading.Thread(target=pump, args=(i, r), daemon=True,
+                                 name=f"choice-{i}").start()
+            live = n
+            while live:
+                i, delta = q.get()
+                if delta is None:
+                    live -= 1
+                    continue
+                yield _chunk(model, rid, {"content": delta}, index=i)
+        for i, r in enumerate(call.reqs):
+            yield self._final(call, rid, r, _finish_reason(r), i,
+                              usage=i == n - 1, logprobs=True)
+
+    def _stream_json(self, call: Call, rid: str):
+        """A grammared JSON-mode stream: content deltas once the first
+        delta shows the grammar attached (validity is then token-level);
+        else the buffered extract-and-rewrite path."""
+        model, req = self.model_name, call.req
+        yield _chunk(model, rid, {"role": "assistant"})
+        it = self.scheduler.iter_text(req)
+        first = next(it, None)
+        error = None
+        if req.grammar_attached and first is not None and not req.error:
+            yield _chunk(model, rid, {"content": first})
+            for delta in it:
+                if req.grammar_attached is False:
+                    # a preemption resume lost the grammar: what follows is
+                    # unconstrained, so it is not passed off as valid
+                    error = ("constrained decoding lost on preemption "
+                             "resume; retry the request")
+                    continue
+                yield _chunk(model, rid, {"content": delta})
+        else:
+            text = "".join(([] if first is None else [first]) + list(it))
+            if not req.error:
+                if not req.grammar_prefix:
+                    found = tools_mod.extract_json_value(text)
+                    if found is not None:
+                        text = json.dumps(found[0])
+                yield _chunk(model, rid, {"content": text})
+        finish = "error" if (req.error or error) else _finish_reason(req)
+        yield self._final(call, rid, req, finish, error=error)
+
+    def _stream_tools(self, call: Call, rid: str):
+        """Tool calls as OpenAI ``tool_calls`` deltas: a call is committed
+        once its envelope parses, its arguments stream in fragments."""
+        model, req = self.model_name, call.req
+        yield _chunk(model, rid, {"role": "assistant"})
+        streamer = tools_mod.ToolCallStreamer(call.tools)
+
+        def deltas(events):
+            for ev in events:
+                if ev[0] == "content":
+                    delta: Dict[str, Any] = {"content": ev[1]}
+                elif ev[0] == "tool_start":
+                    delta = {"tool_calls": [{
+                        "index": ev[1], "id": f"call_{uuid.uuid4().hex[:12]}",
+                        "type": "function",
+                        "function": {"name": ev[2], "arguments": ""}}]}
+                else:   # tool_args
+                    delta = {"tool_calls": [{
+                        "index": ev[1], "function": {"arguments": ev[2]}}]}
+                yield _chunk(model, rid, delta)
+
+        for text in self.scheduler.iter_text(req):
+            yield from deltas(streamer.feed(text))
+        yield from deltas(streamer.finish())
+        finish = ("error" if req.error
+                  else "tool_calls" if streamer.committed
+                  else _finish_reason(req))
+        yield self._final(call, rid, req, finish)
+
+    def _stream_buffered(self, call: Call, rid: str):
+        """A buffered tool or JSON reply as a stream: the role chunk, one
+        delta with the whole content or tool calls, the final chunk."""
+        model, req = self.model_name, call.req
+        yield _chunk(model, rid, {"role": "assistant"})
+        text = self._text(req)
+        if req.error:
+            yield self._final(call, rid, req, "error")
+            return
+        message, finish = self._message(call, text)
+        delta: Dict[str, Any] = {}
+        if message.get("tool_calls"):
+            delta["tool_calls"] = [{"index": i, **c} for i, c in
+                                   enumerate(message["tool_calls"])]
+        else:
+            delta["content"] = message.get("content") or ""
+        yield _chunk(model, rid, delta)
+        yield self._final(call, rid, req, finish)
 
 
 def _handler_class(server: ModelServer):
@@ -185,21 +491,20 @@ def _handler_class(server: ModelServer):
                 body = json.loads(self.rfile.read(length) or b"{}")
                 if not isinstance(body, dict):
                     raise BadRequest("the request body must be a JSON object")
-                req, ids = server.submit(self.path, body)
+                call = server.submit(self.path, body)
             except (BadRequest, ValueError, NotImplementedError) as exc:
                 self._json(400, {"error": str(exc)})
                 return
-            chat = self.path == "/v1/chat/completions"
-            if not body.get("stream"):
-                payload = server.complete(req, ids, chat)
-                self._json(503 if req.error else 200, payload)
+            if not call.stream:
+                payload = server.complete(call)
+                self._json(503 if call.req.error else 200, payload)
                 return
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
-            self.send_header("X-Request-Id", req.request_id)
+            self.send_header("X-Request-Id", call.req.request_id)
             self.end_headers()
-            for payload in server.stream(req, ids, chat):
+            for payload in server.stream(call):
                 self.wfile.write(f"data: {payload}\n\n".encode())
                 self.wfile.flush()
 

@@ -36,6 +36,9 @@ class ByteTokenizer:
     """UTF-8 byte tokenizer: ids 0..255 are bytes; specials appended after.
     Ids past 258 (a larger model vocabulary) decode to nothing."""
 
+    # ids 0..255 are the bytes themselves (grammar.token_byte_table)
+    byte_ids = True
+
     def __init__(self) -> None:
         self.bos_id = 256
         self.eos_id = 257

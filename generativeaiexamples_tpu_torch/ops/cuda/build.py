@@ -29,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 KERNEL_SOURCES = ("flash_prefill", "ragged_paged", "ragged_decode",
-                  "sample_slots", "w8a16_gemm")
+                  "sample_slots", "w8a16_gemm", "grammar_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,12 +37,16 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # launches of each kernel, raised by one by its wrapper where it launches
-# (ops/cuda/attention.py, ops/cuda/sampling.py, ops/cuda/quant.py), and
-# nowhere else
+# (ops/cuda/attention.py, ops/cuda/sampling.py, ops/cuda/quant.py,
+# ops/cuda/grammar.py), and nowhere else
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
                             "ragged_paged_attention_int8": 0,
                             "ragged_decode": 0, "sample_slots": 0,
-                            "w8a16_gemm": 0}
+                            "w8a16_gemm": 0, "grammar_mask": 0}
+# sample_slots' launches by variant, beside LAUNCHES["sample_slots"]: the
+# options a launch took ("mask", "advance", "top", joined by "+"), or
+# "plain" for none
+SAMPLER_VARIANTS: Dict[str, int] = {}
 # w8a16_gemm's launches by activation rows, beside LAUNCHES["w8a16_gemm"]:
 # "m<=R" for a decode tile of R rows (M <= 128), "m=M" above
 GEMM_ROWS: Dict[str, int] = {}
@@ -60,10 +64,17 @@ def gemm_launches_by_rows() -> Dict[str, int]:
                        key=lambda kv: int(kv[0].lstrip("m<="))))
 
 
+def sampler_launches_by_variant() -> Dict[str, int]:
+    """``sample_slots`` launches by variant since the last
+    :func:`reset_launch_counts`."""
+    return dict(sorted(SAMPLER_VARIANTS.items()))
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     GEMM_ROWS.clear()
+    SAMPLER_VARIANTS.clear()
 
 
 def _nvcc() -> str:

@@ -18,26 +18,36 @@ CUDA tensors only, launches the kernel or raises, and adds one to
 ``launch_counts()["sample_slots"]`` a launch. ``sample_cutoffs`` is the
 same kernel with each row's ``(thr_k, thr_p, cut)`` written out: the check
 of the bisection, not a serving path, and not counted.
+
+Three options ride the same launch, each off (a null pointer) on the
+common path: ``allowed``, the
+``grammar_mask`` bitmask (masked entries leave the draw, the greedy
+argmax and the cutoffs); ``grammar``, the DFA advance of each active,
+constrained slot over the token it drew at w = 0; ``want_top``, the
+``TOP_LP`` largest raw entries of each row and their logprobs. Launches by
+variant are counted in ``build.sampler_launches_by_variant()``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from generativeaiexamples_tpu_torch.ops import threefry
-from generativeaiexamples_tpu_torch.ops.cuda.build import LAUNCHES
+from generativeaiexamples_tpu_torch.ops.cuda.build import (LAUNCHES,
+                                                           SAMPLER_VARIANTS)
 
 MAX_ROWS = 136          # 8 slots x W = 9 (72), or the mixed dispatch's 136
 MAX_VOCAB = 128_256     # llama3's vocabulary
 CLUSTER = 8             # blocks a row's cluster holds (csrc CL)
+TOP_LP = 5              # top-logprob entries a row (csrc TOP)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
          + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-         + [ctypes.c_void_p] * 8)
+         + [ctypes.c_void_p] * 13 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
 _BITS_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 2
               + [ctypes.c_void_p] * 2)
 
@@ -93,51 +103,117 @@ def _check(keys, counter0, W, logits, temperature, top_k, top_p, active):
                              f"{logits.device} was expected")
 
 
+def _check_options(logits, B, allowed, grammar):
+    """Raise unless the options are what the kernel takes."""
+    R, V = logits.shape
+    dev = logits.device
+    want = []
+    if allowed is not None:
+        want.append((allowed, (R, -(-V // 32)), torch.int32))
+    if grammar is not None:
+        state, table, tok_bytes, tok_lens = grammar
+        want += [(state, (B,), torch.int32),
+                 (table, (table.shape[0], 256), torch.int32),
+                 (tok_bytes, (tok_bytes.shape[0], tok_bytes.shape[1]),
+                  torch.int32), (tok_lens, (tok_bytes.shape[0],),
+                                 torch.int32)]
+        if tok_bytes.shape[0] < V:
+            raise ValueError(f"sample_slots: tok_bytes covers "
+                             f"{tok_bytes.shape[0]} entries of {V}")
+    for t, shape, dtype in want:
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"sample_slots: an option of shape "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"where {shape} {dtype} contiguous on {dev} "
+                             f"was expected")
+
+
 def _launch(keys, counter0, W, logits, temperature, top_k, top_p, active,
-            cutoffs=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            cutoffs=None, allowed=None, grammar=None, want_top=False):
     _check(keys, counter0, W, logits, temperature, top_k, top_p, active)
     R, V = logits.shape
     dev = logits.device
     tokens = torch.empty((R,), dtype=torch.int32, device=dev)
     logprobs = torch.empty((R,), dtype=torch.float32, device=dev)
-    rc = _fn("gk_sample_slots", _ARGS)(
-        _DTYPES[logits.dtype], _ptr(logits),
-        logits.stride(0), R, V, W, _ptr(keys), _ptr(counter0),
-        int(counter0.dtype == torch.int64), _ptr(temperature), _ptr(top_k),
-        _ptr(top_p), _ptr(active), _ptr(tokens), _ptr(logprobs),
-        ctypes.c_void_p(None if cutoffs is None else cutoffs.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    args = [_DTYPES[logits.dtype], _ptr(logits),
+            logits.stride(0), R, V, W, _ptr(keys), _ptr(counter0),
+            int(counter0.dtype == torch.int64), _ptr(temperature),
+            _ptr(top_k), _ptr(top_p), _ptr(active), _ptr(tokens),
+            _ptr(logprobs),
+            ctypes.c_void_p(None if cutoffs is None else cutoffs.data_ptr())]
+    _check_options(logits, R // W, allowed, grammar)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    extra = {}
+    null = ctypes.c_void_p(None)
+    opt = [_ptr(allowed) if allowed is not None else null]
+    if grammar is not None:
+        state, table, tok_bytes, tok_lens = grammar
+        extra["next_state"] = torch.empty_like(state)
+        opt += [_ptr(state), _ptr(extra["next_state"]), _ptr(table),
+                _ptr(tok_bytes), _ptr(tok_lens), tok_bytes.shape[1]]
+    else:
+        opt += [null] * 5 + [0]
+    if want_top:
+        extra["top_ids"] = torch.empty((R, TOP_LP), dtype=torch.int32,
+                                       device=dev)
+        extra["top_lps"] = torch.empty((R, TOP_LP), dtype=torch.float32,
+                                       device=dev)
+        opt += [_ptr(extra["top_ids"]), _ptr(extra["top_lps"])]
+    else:
+        opt += [null, null]
+    rc = _fn("gk_sample_slots", _ARGS)(*args, *opt, stream)
     if rc != 0:
         raise RuntimeError(f"sample_slots kernel launch failed: CUDA error "
                            f"{rc}")
-    return tokens, logprobs
+    return tokens, logprobs, extra
+
+
+def variant(allowed, grammar, want_top: bool) -> str:
+    """The name a launch's options count under: "mask", "advance" and
+    "top" joined by "+", or "plain"."""
+    parts = [name for name, on in (("mask", allowed is not None),
+                                   ("advance", grammar is not None),
+                                   ("top", want_top)) if on]
+    return "+".join(parts) or "plain"
 
 
 def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
                  logits: torch.Tensor, temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch: (R,) int32 tokens and (R,) float32 logprobs of the
-    (R = B * W, V) float32 or bfloat16 ``logits`` on the card. keys (B, 2)
-    int64 raw threefry keys; counter0 (B,) int32 or int64; temperature,
-    top_p (B,) float32; top_k (B,) int32; active (B,) bool. Raises on
-    anything else, and on a failed launch."""
-    out = _launch(keys, counter0, W, logits, temperature, top_k, top_p,
-                  active)
+                 active: torch.Tensor, allowed: Optional[torch.Tensor] = None,
+                 grammar: Optional[Sequence[torch.Tensor]] = None,
+                 want_top: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """One launch: (R,) int32 tokens, (R,) float32 logprobs of the
+    (R = B * W, V) float32 or bfloat16 ``logits`` on the card, and the
+    options' outputs. keys (B, 2) int64 raw threefry keys; counter0 (B,)
+    int32 or int64; temperature, top_p (B,) float32; top_k (B,) int32;
+    active (B,) bool. The options and the dict of their outputs are
+    ``ops.sampling.sample_slots``'s. Raises on anything else, and on a
+    failed launch."""
+    tokens, logprobs, extra = _launch(keys, counter0, W, logits,
+                                      temperature, top_k, top_p, active,
+                                      allowed=allowed, grammar=grammar,
+                                      want_top=want_top)
     LAUNCHES["sample_slots"] += 1
-    return out
+    name = variant(allowed, grammar, want_top)
+    SAMPLER_VARIANTS[name] = SAMPLER_VARIANTS.get(name, 0) + 1
+    return tokens, logprobs, extra
 
 
 def sample_cutoffs(keys, counter0, W, logits, temperature, top_k, top_p,
-                   active) -> Tuple[torch.Tensor, torch.Tensor,
-                                    torch.Tensor]:
-    """:func:`sample_slots` plus each row's (thr_k, thr_p, cut) as (R, 3)
-    float32 (NaN on greedy rows): the check of the kernel's bisection
-    against ``ops.sampling.sample_cutoffs_plain``. Not counted."""
+                   active, allowed=None, grammar=None, want_top=False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`sample_slots` (with its options) plus each row's (thr_k,
+    thr_p, cut) as (R, 3) float32 (NaN on greedy rows): the check of the
+    kernel's bisection against ``ops.sampling.sample_cutoffs_plain``. Not
+    counted."""
     cut = torch.empty((logits.shape[0], 3), dtype=torch.float32,
                       device=logits.device)
-    tokens, logprobs = _launch(keys, counter0, W, logits, temperature,
-                               top_k, top_p, active, cut)
+    tokens, logprobs, _ = _launch(keys, counter0, W, logits, temperature,
+                                  top_k, top_p, active, cut, allowed,
+                                  grammar, want_top)
     return tokens, logprobs, cut
 
 

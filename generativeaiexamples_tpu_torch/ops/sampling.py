@@ -20,18 +20,33 @@ Nothing here reads a device value back to the host: which filters any row
 uses and whether any row samples are the caller's Python booleans in
 :func:`sample_logits_per_slot` (the reference branches with ``lax.cond``
 on the device), and each row's own settings in :func:`sample_slots`.
+
+Constrained decoding and top logprobs (the reference's ``grammar_mask``,
+``grammar_advance`` and the engine's ``want_top`` rows): a grammared call
+first computes each row's allowed set as an ``(R, ceil(V / 32))`` int32
+bitmask (:func:`grammar_mask`: the ``grammar_mask`` kernel on the card,
+:func:`grammar_mask_plain` packed by :func:`pack_mask` on the CPU), and
+:func:`sample_slots` takes it with ``allowed``: masked entries leave the
+greedy argmax, the cutoffs and the draw exactly as the reference's
+``-inf`` logits do, while the logprob and the top-K rows
+(:func:`top_logprobs_plain`) read the raw row. ``grammar`` advances each
+active, constrained slot's DFA state over the token it drew at w = 0
+(:func:`grammar_advance_plain`), in the same launch on the card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from generativeaiexamples_tpu_torch.ops import threefry
+from generativeaiexamples_tpu_torch.ops.cuda import grammar as grammar_kernels
 from generativeaiexamples_tpu_torch.ops.cuda import sampling as kernels
 
 N_BISECT = 26   # bisection depth of the top-k/top-p cutoff search
+# top-logprob alternatives a row returns (the reference engine's TOP_LP)
+TOP_LP = kernels.TOP_LP
 
 
 def _bisect(pred, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -147,23 +162,136 @@ def _live_rows(W: int, temperature: torch.Tensor, top_k: torch.Tensor,
             rep(torch.where(active, top_p, torch.ones_like(top_p))))
 
 
+def _walk(state: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
+          tok_bytes: torch.Tensor, tok_lens: torch.Tensor) -> torch.Tensor:
+    """The DFA state each of ``state``'s entries reaches after the bytes of
+    token ``ids`` (broadcast together): the reference's chained gathers,
+    a byte past a token's length leaving the state as it is."""
+    flat = table.reshape(-1)
+    st, ids = torch.broadcast_tensors(state.to(torch.int64), ids)
+    lens = tok_lens[ids]
+    for l in range(tok_bytes.shape[1]):
+        nxt = flat[st * table.shape[1] + tok_bytes[ids, l].to(torch.int64)]
+        st = torch.where(lens > l, nxt.to(torch.int64), st)
+    return st
+
+
+def grammar_mask_plain(gram_state: torch.Tensor, budget_left: torch.Tensor,
+                       eos_id: int, table: torch.Tensor, accept: torch.Tensor,
+                       dist: torch.Tensor, tok_bytes: torch.Tensor,
+                       tok_lens: torch.Tensor) -> torch.Tensor:
+    """Each row's allowed tokens, (R, V) bool, V = ``tok_bytes.shape[0]``:
+    the reference's ``grammar_mask`` as a set. A token is allowed when its
+    byte walk from the row's state avoids the reject state 0, its length is
+    positive and the state it reaches can accept within ``budget_left``
+    (``dist``); EOS exactly at accepting states, and also where no token is
+    allowed (the fail-safe); a row whose state is <= 0 allows every
+    token. gram_state, budget_left (R,) int32; table (S, 256) int32;
+    accept (S,) bool; dist (S,) int32; tok_bytes (V, L) int32; tok_lens
+    (V,) int32 (-1: never allowed under a grammar)."""
+    V = tok_bytes.shape[0]
+    state = gram_state.to(torch.int64).clamp_min(0)
+    ids = torch.arange(V, device=tok_bytes.device)
+    st = _walk(state[:, None], ids[None, :], table, tok_bytes, tok_lens)
+    ok = (st != 0) & (tok_lens[None, :] > 0)
+    ok &= dist[st] <= budget_left.to(dist.dtype)[:, None]
+    ok[:, eos_id] = accept[state] | ~ok.any(dim=-1)
+    return ok | (gram_state <= 0)[:, None]
+
+
+def grammar_advance_plain(gram_state: torch.Tensor, sampled: torch.Tensor,
+                          table: torch.Tensor, tok_bytes: torch.Tensor,
+                          tok_lens: torch.Tensor) -> torch.Tensor:
+    """Each slot's next DFA state after emitting ``sampled`` (B,): the walk
+    of that token's bytes; a slot whose state is <= 0 keeps it (the
+    reference's ``grammar_advance``). Returns (B,) int32."""
+    st = _walk(gram_state.to(torch.int64).clamp_min(0), sampled.long(),
+               table, tok_bytes, tok_lens)
+    return torch.where(gram_state > 0, st.to(torch.int32), gram_state)
+
+
+def pack_mask(allowed: torch.Tensor) -> torch.Tensor:
+    """(R, V) bool -> the (R, ceil(V / 32)) int32 bitmask the kernels
+    take: bit j of word w is entry 32 w + j; bits past V are 0."""
+    R, V = allowed.shape
+    words = -(-V // 32)
+    pad = torch.zeros((R, words * 32), dtype=torch.int64,
+                      device=allowed.device)
+    pad[:, :V] = allowed.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=allowed.device)
+    w = (pad.reshape(R, words, 32) << shifts).sum(dim=-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unpack_mask(bits: torch.Tensor, V: int) -> torch.Tensor:
+    """The (R, V) bool set of a :func:`pack_mask` bitmask."""
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    b = (bits.to(torch.int64)[:, :, None] >> shifts) & 1
+    return b.reshape(bits.shape[0], -1)[:, :V].to(torch.bool)
+
+
+def grammar_mask(gram_state: torch.Tensor, budget_left: torch.Tensor,
+                 eos_id: int, table: torch.Tensor, accept: torch.Tensor,
+                 dist: torch.Tensor, tok_bytes: torch.Tensor,
+                 tok_lens: torch.Tensor) -> torch.Tensor:
+    """The allowed set of :func:`grammar_mask_plain` as the (R, ceil(V /
+    32)) int32 bitmask :func:`sample_slots` takes: on CUDA tensors one
+    launch of the ``grammar_mask`` kernel, on CPU tensors the plain
+    version packed."""
+    if tok_bytes.is_cuda:
+        return grammar_kernels.grammar_mask(gram_state, budget_left, eos_id,
+                                            table, accept, dist, tok_bytes,
+                                            tok_lens)
+    return pack_mask(grammar_mask_plain(gram_state, budget_left, eos_id,
+                                        table, accept, dist, tok_bytes,
+                                        tok_lens))
+
+
+def top_logprobs_plain(raw: torch.Tensor, k: int = TOP_LP
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of each raw row, (R, k) int32 ids (ties to
+    the lower index, as ``jax.lax.top_k``: a stable descending sort) and
+    their (R, k) float32 logprobs, value - logsumexp(row)."""
+    lf = raw.float()
+    vals, ids = torch.sort(lf, dim=-1, descending=True, stable=True)
+    lse = torch.logsumexp(lf, dim=-1, keepdim=True)
+    return ids[:, :k].to(torch.int32), vals[:, :k] - lse
+
+
 def sample_slots_plain(keys: torch.Tensor, counter0: torch.Tensor, W: int,
                        logits: torch.Tensor, temperature: torch.Tensor,
                        top_k: torch.Tensor, top_p: torch.Tensor,
-                       active: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       active: torch.Tensor, allowed: Optional[torch.Tensor]
+                       = None, grammar: Optional[Sequence[torch.Tensor]]
+                       = None, want_top: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """The plain version of :func:`sample_slots`: row (b, w) draws under
     ``fold_in(keys[b], counter0[b] + w)`` with slot b's live settings
-    through :func:`sample_logits_per_slot` (every row's full path), and
-    its token's :func:`token_logprob`."""
-    R = logits.shape[0]
+    through :func:`sample_logits_per_slot` (every row's full path) over
+    its ``allowed`` entries (masked ones read as ``-inf``), and its
+    token's :func:`token_logprob` under the raw row; with ``grammar`` the
+    advanced states, with ``want_top`` :func:`top_logprobs_plain` of the
+    raw rows."""
+    R, V = logits.shape
     pos = torch.arange(W, dtype=torch.int64, device=keys.device)
     row_keys = threefry.fold_in(keys[:, None, :],
                                 counter0.to(torch.int64)[:, None]
                                 + pos[None]).reshape(R, 2)
+    drawn = logits
+    if allowed is not None:
+        drawn = torch.where(unpack_mask(allowed, V), logits.float(),
+                            torch.full((), -torch.inf, device=logits.device))
     tokens = sample_logits_per_slot(
-        row_keys, logits, *_live_rows(W, temperature, top_k, top_p, active))
-    return tokens, token_logprob(logits, tokens)
+        row_keys, drawn, *_live_rows(W, temperature, top_k, top_p, active))
+    extra = {}
+    if grammar is not None:
+        state, table, tok_bytes, tok_lens = grammar
+        first = tokens.reshape(-1, W)[:, 0]
+        adv = grammar_advance_plain(state, first, table, tok_bytes, tok_lens)
+        extra["next_state"] = torch.where(active, adv, state)
+    if want_top:
+        extra["top_ids"], extra["top_lps"] = top_logprobs_plain(logits)
+    return tokens, token_logprob(logits, tokens), extra
 
 
 def sample_cutoffs_plain(W: int, logits: torch.Tensor,
@@ -182,17 +310,31 @@ def sample_cutoffs_plain(W: int, logits: torch.Tensor,
 def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
                  logits: torch.Tensor, temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One sampling call of the engine: (R,) int32 tokens and (R,)
-    float32 logprobs of the (R = B * W, V) logits, row (b, w) drawn under
+                 active: torch.Tensor, allowed: Optional[torch.Tensor] = None,
+                 grammar: Optional[Sequence[torch.Tensor]] = None,
+                 want_top: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """One sampling call of the engine: (R,) int32 tokens, (R,) float32
+    logprobs and the options' outputs of the (R = B * W, V) logits, row (b, w) drawn under
     ``fold_in(keys[b], counter0[b] + w)`` with slot b's temperature, top-k
     and top-p (an inactive slot greedy), the reference's
     ``sample_logits_per_slot`` and ``token_logprob``. keys (B, 2) int64;
     counter0 (B,) int32 or int64; temperature, top_p (B,) float32; top_k
     (B,) int32; active (B,) bool. CUDA logits take the kernel (one
-    launch), CPU logits the plain version."""
+    launch), CPU logits the plain version.
+
+    ``allowed``: an (R, ceil(V / 32)) int32 bitmask of :func:`grammar_mask`;
+    the draw, the greedy argmax and the cutoffs see only allowed entries.
+    ``grammar``: ``(state (B,) int32, table, tok_bytes, tok_lens)``; each
+    active slot with a state > 0 walks the token it drew at w = 0.
+    ``want_top``: the TOP_LP largest raw entries of each row. The third
+    item is a dict of what the options give: ``next_state`` (B,) int32
+    with ``grammar``, ``top_ids`` (R, TOP_LP) int32 and ``top_lps``
+    (R, TOP_LP) float32 with ``want_top``; empty without either."""
     if not logits.is_cuda:
         return sample_slots_plain(keys, counter0, W, logits, temperature,
-                                  top_k, top_p, active)
+                                  top_k, top_p, active, allowed, grammar,
+                                  want_top)
     return kernels.sample_slots(keys, counter0, W, logits, temperature,
-                                top_k, top_p, active)
+                                top_k, top_p, active, allowed, grammar,
+                                want_top)

@@ -183,9 +183,11 @@ def test_stop_string_ends_stream(tiny):
 
 def test_unported_request_fields_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Request(prompt_ids=[1], logprobs=True)
+        Request(prompt_ids=[1], prefill_only=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Request(prompt_ids=[1], adapter="lora-a")
+    # logprobs and grammars are served since A.5 and A.6
+    assert Request(prompt_ids=[1], logprobs=True, top_logprobs=5).logprobs
 
 
 def test_engine_refuses_kernel_attention_on_cpu(tiny):

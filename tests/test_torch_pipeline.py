@@ -248,9 +248,9 @@ class _Watch:
 
         emit = Scheduler._emit_token
 
-        def emitting(sched, job, tok):
+        def emitting(sched, job, tok, *logprob):
             self.emitted.append((job.request.request_id, tok, self.at()))
-            return emit(sched, job, tok)
+            return emit(sched, job, tok, *logprob)
 
         finish = Scheduler._finish
 
@@ -341,9 +341,9 @@ def test_first_token_that_ends_its_request_finishes_after_the_dispatch(
         sample = core._sample_slots
 
         def sampled(*args):
-            toks, lps = sample(*args)
+            toks, lps, extra = sample(*args)
             toks[forced] = core.eos_id
-            return toks, lps
+            return toks, lps, extra
 
         core._sample_slots = sampled
         try:

@@ -186,7 +186,7 @@ def test_sample_slots_matches_jax(mix, W):
         counter0 = np.roll(COUNTERS, trial)[:B]
         want_tok, want_lp = _jax_sample_slots(
             keys, counter0, W, logits, temperature, top_k, top_p, active)
-        got_tok, got_lp = ts.sample_slots(
+        got_tok, got_lp, _ = ts.sample_slots(
             torch.from_numpy(keys.astype(np.int64)),
             torch.from_numpy(counter0), W, torch.from_numpy(logits),
             torch.from_numpy(temperature), torch.from_numpy(top_k),

@@ -121,7 +121,10 @@ def test_completion_and_bad_request(served):
     assert body["object"] == "text_completion" and "text" in body["choices"][0]
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(base + "/v1/chat/completions",
-              {"messages": MESSAGES, "tools": [{"type": "function"}]})
+              {"messages": MESSAGES,
+               "tools": [{"type": "function", "function": {"name": "f"}}],
+               "tool_choice": {"type": "function",
+                               "function": {"name": "g"}}})
     assert err.value.code == 400
 
 

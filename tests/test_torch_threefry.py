@@ -172,7 +172,7 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     args = (base, ctr, 1, lf, ones, torch.zeros(40, dtype=torch.int32),
             ones, torch.ones(40, dtype=torch.bool))
     before = launch_counts()["sample_slots"]
-    got, _ = ts.sample_slots(*args)
+    got, _, _ = ts.sample_slots(*args)
     np.testing.assert_array_equal(
         got.numpy(), tf.categorical(tf.fold_in(base, ctr), lf).numpy())
     assert launch_counts()["sample_slots"] == before
