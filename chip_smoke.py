@@ -4,7 +4,7 @@
     python3 chip_smoke.py                   # the smoke run
     python3 chip_smoke.py --planted-faults [NAME ...]  # the kernel checks
                                             # catch faults (all, or those)
-    python3 chip_smoke.py --ab PARENT CHANGE [attention sampling gemm]
+    python3 chip_smoke.py --ab PARENT CHANGE [attention sampling gemm grammar]
                                             # kernel times of two trees
 
 Phases, each printing one JSON line; any failure exits non-zero and
@@ -32,8 +32,10 @@ prints no result:
               the counted near-ties, logprobs within 1e-5, threefry bits
               exact; times beside the bound of the work these inputs need,
               the plain version and a sort-based torch yardstick; then its
-              options: an allowed bitmask (``mask_rows8``: every
-              drawn token on the mask), the DFA advance (``advance_rows8``:
+              options: an allowed bitmask with the rows' states, rows 2
+              and 6 of every 8 unconstrained with zero words
+              (``mask_rows8``: every drawn token on the mask, the
+              unconstrained rows drawn unmasked), the DFA advance (``advance_rows8``:
               each slot's next state that of its own token), the top rows
               (``top_rows40``: bf16 rows with forced ties, ids equal ties
               included, logprobs within 1e-5, beside ``torch.topk`` +
@@ -45,8 +47,16 @@ prints no result:
               0 unconstrained, over the engine's 4-slot flat table holding
               ``json_value()``, a nested schema, a tool set and a grammar
               registered over an evicted one, with the byte table of the
-              smoke's Llama-3-shaped tokenizer: bit for bit the plain
-              version's, timed beside it and the bound;
+              smoke's Llama-3-shaped tokenizer (uint8 bytes, int8
+              lengths); then 12 slots all constrained (``all_rows12``), a
+              fail-safe row and an accepting one (``failsafe_rows8``) and
+              two launches on the same buffers (``two_launches``): the
+              output zeroed before each checked launch, constrained rows
+              bit for bit the plain version's, unconstrained rows never
+              written, the sampler over that mask equal to the plain
+              sampler; timed beside the plain version, the bound and the
+              fixed cost of an empty launch on the same grid
+              (``floor_ms``);
   7b. kernel:w8a16_gemm  the W8A16 GEMM (int8 weights, bf16 or f32
               activations) at every weight shape of llama3-8b (8, 40, 72
               and 4,096 rows) and of llama3-70b (8, 72, 4,096 and the 584
@@ -184,9 +194,11 @@ and a wrong int8 scale slot in the decode-side walk, and a wrong
 threefry rotation constant, a counter off by one, a strict top-p
 predicate and z summed over every entry in the sampler, and a dropped
 scale, a skipped contraction step (each instance) and a rank dropped
-from the cluster's reduction in the W8A16 GEMM, a flipped bit of the
-grammar mask, a DFA advance short of the token's last byte and a top-row
-tie taken by the higher index in the sampler, each
+from the cluster's reduction in the W8A16 GEMM, a flipped bit, a dropped
+row of an interleaved group, the fail-safe ignored and flags left set
+in the grammar mask, a DFA advance short of the token's last byte, a
+top-row tie taken by the higher index and the mask applied to an
+unconstrained row in the sampler, each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
 ``--ab`` times every attention kernel and the sampling call of two trees
@@ -1053,11 +1065,19 @@ def sampler_inputs(dev, B, W, V, dtype, seed):
     return (keys, counter0, W, lf.to(dtype), temp, top_k, top_p, active)
 
 
+def _allowed_set(opts, V):
+    """The (R, V) entries a masked call draws from: the bitmask's, and
+    every entry of a row whose ``mask_states`` is <= 0 (its words are
+    not read)."""
+    from generativeaiexamples_tpu_torch.ops import sampling
+    return (sampling.unpack_mask(opts["allowed"], V)
+            | (opts["mask_states"] <= 0)[:, None])
+
+
 def _sampler_plain(args, opts=None):
     """The plain version's view of one call: tokens, logprobs, cutoffs,
     each row's scaled row, live settings, folded key and masked row (the
-    allowed entries of ``opts["allowed"]`` only), and the options'
-    outputs."""
+    entries of ``_allowed_set`` only), and the options' outputs."""
     import torch
     from generativeaiexamples_tpu_torch.ops import sampling, threefry
     keys, counter0, W, logits, temp, top_k, top_p, active = args
@@ -1066,7 +1086,7 @@ def _sampler_plain(args, opts=None):
     tok, lp, extra = sampling.sample_slots_plain(*args, **opts)
     drawn = logits.float()
     if opts.get("allowed") is not None:
-        drawn = torch.where(sampling.unpack_mask(opts["allowed"], V), drawn,
+        drawn = torch.where(_allowed_set(opts, V), drawn,
                             torch.full((), -torch.inf, device=drawn.device))
     cuts = sampling.sample_cutoffs_plain(W, drawn, temp, top_k, top_p,
                                          active)
@@ -1148,7 +1168,7 @@ def check_sampler(args, opts=None):
         "max_abs_err": float(lp_err.max()), "bits_exact": bits_ok}
     bad = False
     if opts.get("allowed") is not None:
-        allowed = sampling.unpack_mask(opts["allowed"], logits.shape[1])
+        allowed = _allowed_set(opts, logits.shape[1])
         # a row whose allowed entries are all -inf draws index 0, as the
         # reference's sampler does over an all -inf row
         live = pl["scaled"].amax(dim=1) > -torch.inf
@@ -1252,7 +1272,10 @@ def sort_sampler(args):
 def sampler_options(dev, args, kind, seed):
     """``sample_slots``' options for a case of ``kind`` ("mask", "advance",
     "top" or "all"), made from ``seed``: an allowed bitmask whose rows
-    keep every entry, half, 5%, 0.01% and a single entry in turn; a random
+    keep every entry, half, 5%, 0.01% and a single entry in turn, with
+    row states (``mask_states``) that leave rows 2 and 6 of every 8
+    unconstrained (states 0 and -1) and their words zero, so a sampler
+    that read them would draw otherwise; a random
     64-state DFA (2% of its transitions to the reject state, (V, 16) token
     bytes of lengths -1 to 16) with slots at its states, unconstrained
     ones among them; ``want_top`` over
@@ -1272,7 +1295,12 @@ def sampler_options(dev, args, kind, seed):
             torch.arange(R, device=dev) % 5][:, None]
         one = torch.randint(0, V, (R,), generator=g, device=dev)
         keep[torch.arange(R, device=dev), one] = True
+        rows = torch.arange(R, device=dev, dtype=torch.int32)
+        states = torch.where(rows % 8 == 2, 0, rows + 1)
+        states = torch.where(rows % 8 == 6, -1, states).to(torch.int32)
+        keep[states <= 0] = False
         opts["allowed"] = sampling.pack_mask(keep)
+        opts["mask_states"] = states
     if kind in ("advance", "all"):
         S = 64
         table = torch.randint(0, S, (S, 256), generator=g, device=dev,
@@ -1325,8 +1353,10 @@ def _sample_case(dev, R, seed, kind=None, B=SAMPLE_SLOTS):
         if CHECK_ONLY:
             continue
         nbytes, ops, drawn = sampler_work(args, pl)
-        nbytes += sum(int(t.numel() * t.element_size()) for t in
-                      ([opts["allowed"]] if "allowed" in opts else []))
+        if "allowed" in opts:
+            # the constrained rows' words and the rows' states
+            con = int((opts["mask_states"] > 0).sum())
+            nbytes += con * opts["allowed"].shape[1] * 4 + R * 4
         if opts.get("want_top"):
             nbytes += R * sampling.TOP_LP * 8
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_32BIT_OPS * 1e3
@@ -1544,13 +1574,15 @@ def grammar_stack(dev):
     return _SMOKE_TOKENIZER["stack"]
 
 
-def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS):
+def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS, every_slot=False):
     """One grammared sampling call's mask inputs over R = slots x W rows:
-    the first three quarters of the slots at states of the four resident
-    grammars (their starts, then states drawn from each DFA), the rest
-    unconstrained, budgets of 0, 3 and 8 to 40 tokens; rows w > 0
-    unconstrained, as a widened step masks position 0 only. Returns the
-    grammar_mask arguments."""
+    the first three quarters of the slots (every slot with
+    ``every_slot``) at states of the four resident grammars (their
+    starts, then states drawn from each DFA), the rest unconstrained,
+    budgets of 0, 3 and 8 to 40 tokens; rows w > 0 unconstrained, as a
+    widened step masks position 0 only. The byte table is the kernel's
+    (uint8 bytes, int8 lengths, as ``mask_byte_table`` makes it). Returns
+    the grammar_mask arguments."""
     import torch
     from generativeaiexamples_tpu_torch.engine.engine import GRAM_STATES
     tk = smoke_tokenizer()
@@ -1561,7 +1593,7 @@ def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS):
     budget = torch.randint(8, 41, (slots, W), generator=g,
                            dtype=torch.int32)
     budget[:2, 0] = torch.tensor([0, 3], dtype=torch.int32)
-    for b in range(3 * slots // 4):
+    for b in range(slots if every_slot else 3 * slots // 4):
         gram, start = grams[b % 4]
         if b < 4:
             state[b, 0] = start
@@ -1572,8 +1604,10 @@ def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS):
             state[b, 0] = slot * GRAM_STATES + local
     table, accept, dist = stack.tensors()
     up = lambda a: torch.as_tensor(a).to(dev)
-    return (up(state.reshape(R)), up(budget.reshape(R)), tk["tok"].eos_id,
-            table, accept, dist, up(tk["tok_bytes"]), up(tk["tok_lens"]))
+    tb = torch.as_tensor(tk["tok_bytes"]).to(torch.uint8)
+    tl = torch.as_tensor(tk["tok_lens"]).to(torch.int8)
+    return [up(state.reshape(R)), up(budget.reshape(R)), tk["tok"].eos_id,
+            table, accept, dist, up(tb), up(tl)]
 
 
 def _walked_bytes(args):
@@ -1600,43 +1634,73 @@ def _walked_bytes(args):
             int(torch.unique(ends).numel()))
 
 
-def _grammar_case(dev, R, seed, slots=SAMPLE_SLOTS):
-    """grammar_mask over R rows of llama3's 128,256 entries against its
-    plain version (``grammar_mask_plain`` packed), bit for bit; timed
-    (CUDA-graph replay) beside the plain version (CUDA events) and the
-    bound of the bytes that must leave memory: tok_bytes and tok_lens read
-    once, each distinct table entry and dist entry the walks read once,
-    the rows' states and budgets, the bitmask written."""
+def _grammar_check(dev, args, slots, seed):
+    """One checked launch of grammar_mask: its output buffer filled with
+    zeros first, then every constrained row's words equal to the packed
+    plain set (``grammar_mask_plain``) bit for bit, and every
+    unconstrained row's words still zero (never written). Then the
+    sampler over those words with the rows' states (``mask_states``),
+    bf16 logits from ``seed`` (``sampler_inputs``), held to the plain
+    sampler by ``check_sampler``: a sampler that read an unconstrained
+    row's zero words would draw otherwise. The reading counts the rows
+    that took the fail-safe EOS (a state that does not accept, nothing
+    else allowed) and the rows at accepting states. Raises
+    KernelMismatch."""
     import torch
     from generativeaiexamples_tpu_torch.ops import sampling
     from generativeaiexamples_tpu_torch.ops.cuda import grammar as kg
-    args = grammar_inputs(dev, R, seed, slots)
+    state, eos, accept = args[0], args[2], args[4]
+    R, V = state.shape[0], args[6].shape[0]
+    kg.buffers(state.device, R, V)[0].zero_()
     got = kg.grammar_mask(*args)
     want = sampling.pack_mask(sampling.grammar_mask_plain(*args))
-    V = args[6].shape[0]
+    con = state > 0
     allowed = sampling.unpack_mask(want, V)
+    accepting = con & accept[state.clamp_min(0).long()]
     reading = {"rows": R, "slots": slots,
-               "constrained_rows": int((args[0] > 0).sum()),
+               "constrained_rows": int(con.sum()),
                "bit_mismatches": int(
-                   (sampling.unpack_mask(got, V) != allowed).sum()),
-               "words_equal": bool(torch.equal(got, want)),
+                   (sampling.unpack_mask(got[con], V)
+                    != allowed[con]).sum()),
+               "words_equal": bool(torch.equal(got[con], want[con])),
+               "unconstrained_words_written": int((got[~con] != 0).sum()),
+               "failsafe_rows": int((con & ~accepting
+                                     & allowed[:, eos]).sum()),
+               "accepting_rows": int(accepting.sum()),
                "allowed_per_constrained_row": [
-                   int(n) for n in allowed[args[0] > 0].sum(dim=1)]}
-    if reading["bit_mismatches"] or not reading["words_equal"]:
+                   int(n) for n in allowed[con].sum(dim=1)]}
+    if (reading["bit_mismatches"] or not reading["words_equal"]
+            or reading["unconstrained_words_written"]):
         raise KernelMismatch("grammar_mask", reading)
+    sargs = sampler_inputs(dev, slots, R // slots, V, torch.bfloat16, seed)
+    sread, _ = check_sampler(sargs, {"allowed": got, "mask_states": state})
+    reading["sampler"] = {key: sread[key] for key in (
+        "token_mismatches", "masked_rows", "tokens_off_the_mask")}
     reading["max_abs_err"] = 0.0
-    if CHECK_ONLY:
-        return reading
+    return reading
+
+
+def _grammar_timing(args):
+    """grammar_mask timed (CUDA-graph replay) beside its plain version
+    (CUDA events) and the bound of these inputs: bytes that must leave
+    memory (tok_bytes as uint8 and tok_lens as int8 read once, each
+    distinct table and dist entry the walks read once, the rows' states
+    and budgets, the constrained rows' words written) and operations (4 a
+    walked byte, 3 an (entry, constrained row))."""
+    from generativeaiexamples_tpu_torch.ops import sampling
+    from generativeaiexamples_tpu_torch.ops.cuda import grammar as kg
     walked, rows, table_entries, dist_entries = _walked_bytes(args)
-    tok_bytes, tok_lens = args[6], args[7]
-    nbytes = (tok_bytes.numel() * 4 + tok_lens.numel() * 4
-              + table_entries * 4 + dist_entries * 4 + got.numel() * 4
-              + R * 8)
-    ops = walked * 4 + R * V * 3
+    state, tok_bytes, tok_lens = args[0], args[6], args[7]
+    R, V = state.shape[0], tok_bytes.shape[0]
+    nbytes = (tok_bytes.numel() * tok_bytes.element_size()
+              + tok_lens.numel() * tok_lens.element_size()
+              + table_entries * 4 + dist_entries * 4 + R * 8
+              + rows * -(-V // 32) * 4)
+    ops = walked * 4 + rows * V * 3
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_32BIT_OPS * 1e3
     b_ms = max(t_bytes, t_ops)
     ms = graph_ms(lambda: kg.grammar_mask(*args))
-    reading.update(
+    return dict(
         ms=ms, plain_ms=time_ms(lambda: sampling.pack_mask(
             sampling.grammar_mask_plain(*args)), target_ms=100.0),
         library_ms=None, bound_ms=b_ms,
@@ -1644,22 +1708,161 @@ def _grammar_case(dev, R, seed, slots=SAMPLE_SLOTS):
         share_of_bound=b_ms / ms, bytes=nbytes, walked_bytes=walked,
         table_entries_read=table_entries, dist_entries_read=dist_entries,
         ops=ops)
+
+
+def _grammar_case(dev, R, seed, slots=SAMPLE_SLOTS, every_slot=False):
+    """grammar_mask over R rows of llama3's 128,256 entries, checked by
+    ``_grammar_check``, then timed by ``_grammar_timing``."""
+    args = grammar_inputs(dev, R, seed, slots, every_slot)
+    reading = _grammar_check(dev, args, slots, seed)
+    if not CHECK_ONLY:
+        reading.update(_grammar_timing(args))
+    return reading
+
+
+def _special_states(dev):
+    """(the nested schema's start, a state of ``json_value()`` that
+    accepts), flat. From the schema's start no single token completes the
+    object (its shortest reply is 40 bytes), so with a budget of 0 no
+    entry is allowed: the fail-safe."""
+    import numpy as np
+    from generativeaiexamples_tpu_torch.engine.engine import GRAM_STATES
+    _, grams = grammar_stack(dev)
+    (json_gram, json_start), (_, schema_start) = grams[0], grams[1]
+    local = int(np.flatnonzero(json_gram.dfa.accept)[0])
+    return schema_start, json_start // GRAM_STATES * GRAM_STATES + local
+
+
+def _failsafe_inputs(dev, seed):
+    """8 rows of 8 slots (W = 1), 6 constrained: row 0 at the nested
+    schema's start with a budget of 0 (no entry allowed: the fail-safe
+    EOS), row 1 at an accepting state of ``json_value()`` (EOS by
+    ``accept``), the others as ``grammar_inputs`` draws them."""
+    args = grammar_inputs(dev, 8, seed)
+    failsafe, accepting = _special_states(dev)
+    args[0][:2] = args[0].new_tensor([failsafe, accepting])
+    args[1][0] = 0
+    return args
+
+
+def _failsafe_case(dev, seed):
+    """``_failsafe_inputs`` checked and timed; fails unless the reading
+    shows both kinds of EOS row."""
+    args = _failsafe_inputs(dev, seed)
+    reading = _grammar_check(dev, args, SAMPLE_SLOTS, seed)
+    if reading["failsafe_rows"] < 1 or reading["accepting_rows"] < 1:
+        raise AssertionError(f"failsafe_rows8 hit no fail-safe or no "
+                             f"accepting row: {reading}")
+    if not CHECK_ONLY:
+        reading.update(_grammar_timing(args))
+    return reading
+
+
+def _two_launch_inputs(dev, seed):
+    """Two launches' inputs: first 8 rows (6 constrained) with row 0 at
+    ``json_value()``'s start with a budget of 8 (entries allowed, so its
+    flag is set), then row 0 at the nested schema's start with a budget
+    of 0 (the fail-safe) and the other constrained rows' states
+    rotated."""
+    import torch
+    first = grammar_inputs(dev, 8, seed)
+    _, grams = grammar_stack(dev)
+    first[0][0], first[1][0] = grams[0][1], 8
+    second = [t.clone() if isinstance(t, torch.Tensor) else t
+              for t in first]
+    second[0][1:6] = first[0][1:6].roll(1)
+    second[0][0], second[1][0] = _special_states(dev)[0], 0
+    return first, second
+
+
+def _two_launch_case(dev, seed):
+    """The same output and scratch buffers launched twice
+    (``_two_launch_inputs``), each launch checked: a flag left set by the
+    first launch would clear the second's EOS bit. Times the second
+    launch."""
+    first, second = _two_launch_inputs(dev, seed)
+    r1 = _grammar_check(dev, first, SAMPLE_SLOTS, seed)
+    reading = _grammar_check(dev, second, SAMPLE_SLOTS, seed + 1)
+    reading["first_launch"] = {key: r1[key] for key in (
+        "constrained_rows", "allowed_per_constrained_row")}
+    if r1["allowed_per_constrained_row"][0] < 2 or \
+            reading["failsafe_rows"] < 1:
+        raise AssertionError(f"two_launches: row 0 was not allowed "
+                             f"entries, then the fail-safe: {reading}")
+    if not CHECK_ONLY:
+        reading.update(_grammar_timing(second))
     return reading
 
 
 def grammar_cases(dev):
     """The grammar mask's cases, each a thunk: R = 8, 40 and 72 rows of 8
-    slots, and 108 of 12."""
-    return {f"rows{R}": (lambda R=R, B=B: _grammar_case(dev, R, 30 + R, B))
-            for R, B in GRAMMAR_ROWS}
+    slots and 108 of 12 (6 or 9 constrained), 12 slots at W = 1 all
+    constrained (``all_rows12``), a fail-safe and an accepting row
+    (``failsafe_rows8``) and two launches on the same buffers
+    (``two_launches``)."""
+    cases = {f"rows{R}": (lambda R=R, B=B: _grammar_case(dev, R, 30 + R, B))
+             for R, B in GRAMMAR_ROWS}
+    cases["all_rows12"] = lambda: _grammar_case(dev, 12, 52, 12, True)
+    cases["failsafe_rows8"] = lambda: _failsafe_case(dev, 53)
+    cases["two_launches"] = lambda: _two_launch_case(dev, 54)
+    return cases
+
+
+def ab_grammar(dev):
+    """The tree's grammar_mask at the mask phase's seven inputs (the
+    second launch of ``two_launches``) and its sampler at the option cases
+    with a mask, bf16, ms by CUDA-graph replay. A tree whose mask has no
+    ``buffers`` is the earlier design (a thread a (row, entry), every row
+    written): it takes the int32 byte table, and its sampler takes no row
+    states but reads every row's words, which that mask sets to ones on
+    an unconstrained row: so it gets ones there."""
+    import inspect
+    import torch
+    from generativeaiexamples_tpu_torch.ops.cuda import grammar as kg
+    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
+    parent = not hasattr(kg, "buffers")
+    inputs = {f"rows{R}": grammar_inputs(dev, R, 30 + R, B)
+              for R, B in GRAMMAR_ROWS}
+    inputs["all_rows12"] = grammar_inputs(dev, 12, 52, 12, True)
+    inputs["failsafe_rows8"] = _failsafe_inputs(dev, 53)
+    inputs["two_launches"] = _two_launch_inputs(dev, 54)[1]
+    out = {}
+    for name, args in inputs.items():
+        if parent:
+            args = args[:6] + [args[6].to(torch.int32),
+                               args[7].to(torch.int32)]
+        out[name] = graph_ms(lambda: kg.grammar_mask(*args))
+    if not parent:
+        V = inputs["rows8"][6].shape[0]
+        out["floor"] = graph_ms(lambda: kg.empty_launch(dev, V))
+    states = "mask_states" in inspect.signature(ks.sample_slots).parameters
+    for name, R, kind, B in SAMPLE_OPTION_CASES:
+        if kind not in ("mask", "all"):
+            continue
+        args = sampler_inputs(dev, B, R // B, SAMPLE_VOCAB, torch.bfloat16,
+                              90 + R)
+        args, opts = sampler_options(dev, args, kind, 90 + R)
+        if not states:
+            free = (opts.pop("mask_states") <= 0)[:, None]
+            opts["allowed"] = torch.where(free, -1, opts["allowed"])
+        out[f"sample_slots:{name}"] = graph_ms(
+            lambda: ks.sample_slots(*args, **opts))
+    return out
 
 
 def phase_grammar(dev):
+    """The grammar mask's cases, and its fixed cost: ``floor_ms``, an empty
+    kernel on its grid, CUDA-graph replayed as the kernel is."""
+    from generativeaiexamples_tpu_torch.ops.cuda import grammar as kg
     tk = smoke_tokenizer()
     res = _run_cases("grammar_mask", grammar_cases(dev))
+    if not CHECK_ONLY:
+        res["floor_ms"] = graph_ms(lambda: kg.empty_launch(dev,
+                                                           tk["entries"]))
     res.update(tokenizer=dict(tk["seconds"], entries=tk["entries"],
                               never_allowed=tk["never_allowed"]),
-               tolerance="bit for bit (the plain set packed)")
+               tolerance="bit for bit on constrained rows (the plain set "
+                         "packed); unconstrained rows never written")
     emit("kernel:grammar_mask", kernel_ms=res.get("ms"), **res)
     return res
 
@@ -3770,7 +3973,7 @@ def profile_sampled(dev, cfg, params):
 
 
 def profile_pipeline(dev, cfg, params, kv_quant="none", ctx=1000,
-                     dispatches=2):
+                     dispatches=1):
     """Decode through the Scheduler at pipeline_depth 1 against 2 (the
     narrow step, no hold, everything else alike): 8 greedy requests of
     ``ctx`` prompt tokens decode; after two warm decode dispatches,
@@ -4117,9 +4320,16 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # its decode tiles skip rank 1's partials (caught where the plan splits the
 # contraction across a cluster) and gemm_f32_skipped_k_tile skips the first
 # tile in its f32 instance. grammar_flipped_bit flips one bit of every word
-# of the grammar mask; sampler_advance_short leaves the last byte of the
-# drawn token out of the sampler's DFA advance; sampler_top_tie_high has
-# the sampler's top rows take a tie by the higher index.
+# of the grammar mask; grammar_row_dropped never walks the last row of
+# each interleaved group of constrained rows; grammar_failsafe_off has the
+# last block ignore the row's "any entry allowed" flag (EOS only at
+# accepting states); grammar_scratch_kept has it read the flags without
+# resetting them (caught by two_launches); sampler_mask_unconstrained has
+# the sampler apply the mask to a row whose state is <= 0 (whose words
+# are zero in the sampler's option cases and unwritten by the mask);
+# sampler_advance_short leaves the last byte of the drawn token out of
+# the sampler's DFA advance; sampler_top_tie_high has the sampler's top
+# rows take a tie by the higher index.
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -4173,9 +4383,22 @@ PLANTED_FAULTS = (
      "for (int k0 = 0; k0 < K; k0 += FBK)",
      "for (int k0 = FBK; k0 < K; k0 += FBK)", ("w8a16_gemm",)),
     ("grammar_flipped_bit", "grammar_mask.cu",
-     "    a.out[(long long)r * a.words + word] = bits;\n",
-     "    a.out[(long long)r * a.words + word] = bits ^ 0x100u;\n",
+     "a.out[(long long)srow[j + g] * a.words + word] = bits;",
+     "a.out[(long long)srow[j + g] * a.words + word] = bits ^ 0x100u;",
      ("grammar_mask",)),
+    ("grammar_row_dropped", "grammar_mask.cu",
+     "st[g] = g < m ? sstate[j + g] : 0;",
+     "st[g] = g < m - 1 ? sstate[j + g] : 0;", ("grammar_mask",)),
+    ("grammar_failsafe_off", "grammar_mask.cu",
+     "const bool ok_eos = a.accept[s] != 0 || !any;",
+     "const bool ok_eos = a.accept[s] != 0 || (!any && false);",
+     ("grammar_mask",)),
+    ("grammar_scratch_kept", "grammar_mask.cu",
+     "atomicExch(a.any_ok + r, 0)", "atomicOr(a.any_ok + r, 0)",
+     ("grammar_mask",)),
+    ("sampler_mask_unconstrained", "sample_slots.cu",
+     "const bool masked = MASK && a.mask_states[r] > 0;",
+     "const bool masked = MASK;", ("sample_slots", "grammar_mask")),
     ("sampler_advance_short", "sample_slots.cu",
      "for (int l = 0; l < n; ++l) gs = a.table",
      "for (int l = 0; l + 1 < n; ++l) gs = a.table", ("sample_slots",)),
@@ -4239,6 +4462,11 @@ if "sampling" in parts:
     out["sampling_call"] = cs.ab_sampling_calls(dev)
 if "gemm" in parts:
     out["w8a16_gemm"] = cs.ab_gemm(dev)
+if "grammar" in parts:
+    out["grammar_mask"] = cs.ab_grammar(dev)
+if not set(parts) & {"attention", "sampling", "gemm"}:
+    print(json.dumps(out))
+    sys.exit(0)
 cfg, params, _ = cs.draw_8b(dev)
 if "attention" in parts:
     prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
@@ -4255,7 +4483,7 @@ if "gemm" in parts:
         "gemm_share_of_bound")}
 print(json.dumps(out))
 """
-AB_PARTS = ("attention", "sampling", "gemm")
+AB_PARTS = ("attention", "sampling", "gemm", "grammar")
 
 
 def ab(trees, parts=AB_PARTS) -> None:
@@ -4265,7 +4493,9 @@ def ab(trees, parts=AB_PARTS) -> None:
     ``parts``: "attention" (every attention kernel and the grouped prefill
     dispatch's profile at llama3-8b, bf16 pool), "sampling" (the sampling
     call at the sampler's cases and ``profile_sampled``), "gemm" (every
-    W8A16 GEMM case's device ms and host us a call, and ``profile_w8``)."""
+    W8A16 GEMM case's device ms and host us a call, and ``profile_w8``),
+    "grammar" (``ab_grammar``: the grammar mask's seven inputs and the
+    sampler's option cases with a mask)."""
     unknown = set(parts) - set(AB_PARTS)
     if unknown:
         raise AssertionError(f"no A/B part named {sorted(unknown)}")
@@ -4505,7 +4735,8 @@ def main() -> int:
                 "drawn_entries", "query_tiles", "plan", "options",
                 "tokens_off_the_mask", "advance_mismatches",
                 "top_id_mismatches", "top_max_abs_err", "top_tie_rows",
-                "bit_mismatches", "constrained_rows", "walked_bytes")
+                "bit_mismatches", "constrained_rows", "walked_bytes",
+                "floor_ms", "failsafe_rows", "accepting_rows")
         entry.update({key: res[key] for key in keys if key in res})
         for sub, val in res.items():      # the phase's other cases
             if isinstance(val, dict) and "ms" in val:

@@ -32,7 +32,11 @@
 //            (the greedy argmax, min and max of s, both bisections and the
 //            Gumbel draw), exactly as the reference's grammar_mask sets
 //            its logit to -inf before the sampler; the logsumexp of the
-//            logprob and the top rows still read the raw row;
+//            logprob and the top rows still read the raw row. With the
+//            rows' grammar states beside it (mask_states), a row whose
+//            state is <= 0 is unconstrained: it skips the mask test (a
+//            branch uniform over its blocks) and never reads its words,
+//            which grammar_mask.cu leaves unwritten;
 //   advance  the reference's grammar_advance as an epilogue: the thread
 //            that writes a slot's token at w = 0 walks that token's bytes
 //            (tok_bytes, tok_lens) through the flat DFA table from the
@@ -225,6 +229,7 @@ struct Args {
   float* logprobs;              // (R,)
   float* cutoffs;               // (R, 3) thr_k, thr_p, cut, or null
   const unsigned int* allowed;  // (R, words) bitmask, or null
+  const int* mask_states;       // (R,) with allowed: rows <= 0 skip it
   int words;
   const int* gram_state;        // (B,) flat DFA state, or null (no advance)
   int* next_state;              // (B,)
@@ -401,8 +406,10 @@ __global__ void __launch_bounds__(THREADS)
   const int len = max(0, min(a.n, a.V - lo_i));
   const T* row = static_cast<const T*>(a.logits) + (long long)r * a.row_stride;
   const T* seg = row + lo_i;
-  const unsigned int* arow = MASK ? a.allowed + (long long)r * a.words
-                                  : nullptr;
+  // a row is masked unless its grammar state says it is unconstrained
+  const bool masked = MASK && a.mask_states[r] > 0;
+  const unsigned int* arow = masked ? a.allowed + (long long)r * a.words
+                                    : nullptr;
 
   // ---- the load pass: s into shared memory, the row's max / min / argmax
   // of s and the logsumexp of lf (and, with TOPS, each thread's top words
@@ -415,7 +422,7 @@ __global__ void __launch_bounds__(THREADS)
     float s = x / safe_t;
     if constexpr (MASK) {
       const int i = lo_i + j;
-      if (!((arow[i >> 5] >> (i & 31)) & 1u)) s = -INFINITY;
+      if (masked && !((arow[i >> 5] >> (i & 31)) & 1u)) s = -INFINITY;
     }
     if constexpr (TOPS) top_insert(tk, top_word(x, lo_i + j));
     st.smax = fmaxf(st.smax, s);
@@ -717,20 +724,22 @@ int launch_options(const Args& a, cudaStream_t s) {
 // bool. Writes tokens (R,) int32, logprobs (R,) float32 and, when cutoffs
 // is not null, (R, 3) float32 thr_k, thr_p, cut (NaN on greedy rows).
 // The options, each null on the common path: allowed (R, ceil(V / 32))
-// uint32; gram_state (B,) int32, next_state (B,) int32, table (S, 256)
-// int32, tok_bytes (V, L) int32, tok_lens (V,) int32 (the advance, read
-// only when gram_state is not null); top_ids (R, 5) int32 and top_lps
-// (R, 5) float32. Returns a CUDA error code, 0 on success.
+// uint32 with mask_states (R,) int32 (rows <= 0 skip the mask);
+// gram_state (B,) int32, next_state (B,) int32, table (S, 256) int32,
+// tok_bytes (V, L) int32, tok_lens (V,) int32 (the advance, read only
+// when gram_state is not null); top_ids (R, 5) int32 and top_lps (R, 5)
+// float32. Returns a CUDA error code, 0 on success.
 extern "C" int gk_sample_slots(
     int dtype, const void* logits, long long row_stride, int R, int V, int W,
     const void* keys, const void* counter0, int ctr64,
     const void* temperature, const void* top_k, const void* top_p,
     const void* active, void* tokens, void* logprobs, void* cutoffs,
-    const void* allowed, const void* gram_state, void* next_state,
-    const void* table, const void* tok_bytes, const void* tok_lens, int L,
-    void* top_ids, void* top_lps, void* stream) {
+    const void* allowed, const void* mask_states, const void* gram_state,
+    void* next_state, const void* table, const void* tok_bytes,
+    const void* tok_lens, int L, void* top_ids, void* top_lps, void* stream) {
   if (R <= 0 || V <= 0 || W <= 0 || R % W || row_stride < V ||
       (dtype != 0 && dtype != 1) ||
+      ((allowed == nullptr) != (mask_states == nullptr)) ||
       (gram_state != nullptr && (next_state == nullptr || table == nullptr
                                  || tok_bytes == nullptr
                                  || tok_lens == nullptr || L <= 0)) ||
@@ -755,6 +764,7 @@ extern "C" int gk_sample_slots(
   a.logprobs = static_cast<float*>(logprobs);
   a.cutoffs = static_cast<float*>(cutoffs);
   a.allowed = static_cast<const unsigned int*>(allowed);
+  a.mask_states = static_cast<const int*>(mask_states);
   a.words = (V + 31) / 32;
   a.gram_state = static_cast<const int*>(gram_state);
   a.next_state = gram_state != nullptr ? static_cast<int*>(next_state)

@@ -512,10 +512,14 @@ class EngineCore:
         # sampling calls made (each one sample_slots launch on the card)
         self.sample_calls = 0
         # constrained decoding: the grammar stack, and the vocabulary's
-        # byte table (ensure_token_bytes) on the device and on the host
+        # byte table (ensure_token_bytes) on the host and on the device:
+        # int32 for the sampler's advance, uint8 bytes and int8 lengths
+        # for the mask
         self.grammars = GrammarStack(self.device, upload=self._up)
         self._tok_bytes: Optional[torch.Tensor] = None
         self._tok_lens: Optional[torch.Tensor] = None
+        self._tok_bytes8: Optional[torch.Tensor] = None
+        self._tok_lens8: Optional[torch.Tensor] = None
         self._tok_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     @property
@@ -611,7 +615,10 @@ class EngineCore:
     def ensure_token_bytes(self, tokenizer) -> None:
         """Build and upload the vocabulary's byte table once (the grammar's
         prerequisite), padded to the model's vocabulary: ids past the
-        tokenizer's are never allowed under a grammar."""
+        tokenizer's are never allowed under a grammar. One host table
+        feeds both device copies: int32 (the sampler's advance) and uint8
+        bytes with int8 lengths (``grammar_mask``, which reads each
+        entry's 16 bytes as one vector)."""
         if self._tok_bytes is not None:
             return
         tb, tl = grammar_mod.token_byte_table(tokenizer)
@@ -625,6 +632,8 @@ class EngineCore:
         self._tok_host = (tb, tl)
         self._tok_bytes = self._up(np.ascontiguousarray(tb))
         self._tok_lens = self._up(np.ascontiguousarray(tl))
+        self._tok_bytes8, self._tok_lens8 = (
+            self._up(t) for t in sampling.mask_byte_table(tb, tl))
 
     def register_grammar(self, grammar, active_keys=()) -> int:
         """Install a compiled grammar in the stack; its flat start state
@@ -645,14 +654,16 @@ class EngineCore:
                      slot_states, use_grammar: bool,
                      want_top: bool) -> Dict[str, Any]:
         """``sample_slots``' options for one call: with ``use_grammar`` the
-        ``grammar_mask`` bitmask of the rows' states and budgets and the
-        advance of the slots' states; with ``want_top`` the top rows."""
+        ``grammar_mask`` bitmask of the rows' states and budgets, those
+        states (rows <= 0 skip the mask) and the advance of the slots'
+        states; with ``want_top`` the top rows."""
         opts: Dict[str, Any] = {}
         if use_grammar:
             table, accept, dist = self.grammars.tensors()
             opts["allowed"] = sampling.grammar_mask(
                 row_states, row_budget, self.eos_id, table, accept, dist,
-                self._tok_bytes, self._tok_lens)
+                self._tok_bytes8, self._tok_lens8)
+            opts["mask_states"] = row_states
             opts["grammar"] = (slot_states, table, self._tok_bytes,
                                self._tok_lens)
         if want_top:

@@ -22,8 +22,11 @@ of the bisection, not a serving path, and not counted.
 Three options ride the same launch, each off (a null pointer) on the
 common path: ``allowed``, the
 ``grammar_mask`` bitmask (masked entries leave the draw, the greedy
-argmax and the cutoffs); ``grammar``, the DFA advance of each active,
-constrained slot over the token it drew at w = 0; ``want_top``, the
+argmax and the cutoffs), with ``mask_states``, the rows' grammar states
+the mask was made from: a row whose state is <= 0 skips the mask and
+never reads its words, which ``grammar_mask`` leaves unwritten;
+``grammar``, the DFA advance of each active, constrained slot over the
+token it drew at w = 0; ``want_top``, the
 ``TOP_LP`` largest raw entries of each row and their logprobs. Launches by
 variant are counted in ``build.sampler_launches_by_variant()``.
 """
@@ -47,7 +50,7 @@ TOP_LP = 5              # top-logprob entries a row (csrc TOP)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
          + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-         + [ctypes.c_void_p] * 13 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+         + [ctypes.c_void_p] * 14 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
 _BITS_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 2
               + [ctypes.c_void_p] * 2)
 
@@ -103,13 +106,18 @@ def _check(keys, counter0, W, logits, temperature, top_k, top_p, active):
                              f"{logits.device} was expected")
 
 
-def _check_options(logits, B, allowed, grammar):
+def _check_options(logits, B, allowed, grammar, mask_states):
     """Raise unless the options are what the kernel takes."""
     R, V = logits.shape
     dev = logits.device
     want = []
     if allowed is not None:
         want.append((allowed, (R, -(-V // 32)), torch.int32))
+    if (allowed is None) != (mask_states is None):
+        raise ValueError("sample_slots: allowed and mask_states come "
+                         "together")
+    if mask_states is not None:
+        want.append((mask_states, (R,), torch.int32))
     if grammar is not None:
         state, table, tok_bytes, tok_lens = grammar
         want += [(state, (B,), torch.int32),
@@ -130,7 +138,8 @@ def _check_options(logits, B, allowed, grammar):
 
 
 def _launch(keys, counter0, W, logits, temperature, top_k, top_p, active,
-            cutoffs=None, allowed=None, grammar=None, want_top=False):
+            cutoffs=None, allowed=None, grammar=None, want_top=False,
+            mask_states=None):
     _check(keys, counter0, W, logits, temperature, top_k, top_p, active)
     R, V = logits.shape
     dev = logits.device
@@ -142,11 +151,12 @@ def _launch(keys, counter0, W, logits, temperature, top_k, top_p, active,
             _ptr(top_k), _ptr(top_p), _ptr(active), _ptr(tokens),
             _ptr(logprobs),
             ctypes.c_void_p(None if cutoffs is None else cutoffs.data_ptr())]
-    _check_options(logits, R // W, allowed, grammar)
+    _check_options(logits, R // W, allowed, grammar, mask_states)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     extra = {}
     null = ctypes.c_void_p(None)
-    opt = [_ptr(allowed) if allowed is not None else null]
+    opt = [_ptr(t) if t is not None else null
+           for t in (allowed, mask_states)]
     if grammar is not None:
         state, table, tok_bytes, tok_lens = grammar
         extra["next_state"] = torch.empty_like(state)
@@ -183,7 +193,8 @@ def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
                  top_k: torch.Tensor, top_p: torch.Tensor,
                  active: torch.Tensor, allowed: Optional[torch.Tensor] = None,
                  grammar: Optional[Sequence[torch.Tensor]] = None,
-                 want_top: bool = False
+                 want_top: bool = False, *,
+                 mask_states: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """One launch: (R,) int32 tokens, (R,) float32 logprobs of the
     (R = B * W, V) float32 or bfloat16 ``logits`` on the card, and the
@@ -195,7 +206,8 @@ def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
     tokens, logprobs, extra = _launch(keys, counter0, W, logits,
                                       temperature, top_k, top_p, active,
                                       allowed=allowed, grammar=grammar,
-                                      want_top=want_top)
+                                      want_top=want_top,
+                                      mask_states=mask_states)
     LAUNCHES["sample_slots"] += 1
     name = variant(allowed, grammar, want_top)
     SAMPLER_VARIANTS[name] = SAMPLER_VARIANTS.get(name, 0) + 1
@@ -203,7 +215,8 @@ def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
 
 
 def sample_cutoffs(keys, counter0, W, logits, temperature, top_k, top_p,
-                   active, allowed=None, grammar=None, want_top=False
+                   active, allowed=None, grammar=None, want_top=False, *,
+                   mask_states=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`sample_slots` (with its options) plus each row's (thr_k,
     thr_p, cut) as (R, 3) float32 (NaN on greedy rows): the check of the
@@ -213,7 +226,7 @@ def sample_cutoffs(keys, counter0, W, logits, temperature, top_k, top_p,
                       device=logits.device)
     tokens, logprobs, _ = _launch(keys, counter0, W, logits, temperature,
                                   top_k, top_p, active, cut, allowed,
-                                  grammar, want_top)
+                                  grammar, want_top, mask_states)
     return tokens, logprobs, cut
 
 

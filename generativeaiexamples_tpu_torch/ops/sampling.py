@@ -26,12 +26,15 @@ Constrained decoding and top logprobs (the reference's ``grammar_mask``,
 first computes each row's allowed set as an ``(R, ceil(V / 32))`` int32
 bitmask (:func:`grammar_mask`: the ``grammar_mask`` kernel on the card,
 :func:`grammar_mask_plain` packed by :func:`pack_mask` on the CPU), and
-:func:`sample_slots` takes it with ``allowed``: masked entries leave the
-greedy argmax, the cutoffs and the draw exactly as the reference's
-``-inf`` logits do, while the logprob and the top-K rows
-(:func:`top_logprobs_plain`) read the raw row. ``grammar`` advances each
-active, constrained slot's DFA state over the token it drew at w = 0
-(:func:`grammar_advance_plain`), in the same launch on the card.
+:func:`sample_slots` takes it with ``allowed`` and the rows' states with
+``mask_states``: masked entries leave the greedy argmax, the cutoffs and
+the draw exactly as the reference's ``-inf`` logits do, while the logprob
+and the top-K rows (:func:`top_logprobs_plain`) read the raw row. A row
+whose state is <= 0 is unconstrained: the sampler ignores its words,
+which the kernel leaves unwritten and the plain version fills with ones.
+``grammar`` advances each active, constrained slot's DFA state over the
+token it drew at w = 0 (:func:`grammar_advance_plain`), in the same
+launch on the card.
 """
 
 from __future__ import annotations
@@ -230,14 +233,33 @@ def unpack_mask(bits: torch.Tensor, V: int) -> torch.Tensor:
     return b.reshape(bits.shape[0], -1)[:, :V].to(torch.bool)
 
 
+def mask_byte_table(tok_bytes, tok_lens) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The vocabulary's byte table as the ``grammar_mask`` kernel reads
+    it: (V, L) uint8 bytes and (V,) int8 lengths, entry for entry the
+    int32 table's (``engine/grammar.py`` ``token_byte_table``: bytes
+    0..255, lengths -1..L). Raises on a value that does not fit."""
+    tb, tl = torch.as_tensor(tok_bytes), torch.as_tensor(tok_lens)
+    if tb.numel() and not (0 <= int(tb.min()) and int(tb.max()) <= 255):
+        raise ValueError("mask_byte_table: a byte outside 0..255")
+    if tl.numel() and not (-1 <= int(tl.min())
+                           and int(tl.max()) <= tb.shape[1]):
+        raise ValueError(f"mask_byte_table: a length outside -1.."
+                         f"{tb.shape[1]}")
+    return (tb.to(torch.uint8).contiguous(), tl.to(torch.int8).contiguous())
+
+
 def grammar_mask(gram_state: torch.Tensor, budget_left: torch.Tensor,
                  eos_id: int, table: torch.Tensor, accept: torch.Tensor,
                  dist: torch.Tensor, tok_bytes: torch.Tensor,
                  tok_lens: torch.Tensor) -> torch.Tensor:
     """The allowed set of :func:`grammar_mask_plain` as the (R, ceil(V /
-    32)) int32 bitmask :func:`sample_slots` takes: on CUDA tensors one
-    launch of the ``grammar_mask`` kernel, on CPU tensors the plain
-    version packed."""
+    32)) int32 bitmask :func:`sample_slots` takes with ``mask_states =
+    gram_state``: on CUDA tensors one launch of the ``grammar_mask``
+    kernel (tok_bytes uint8, tok_lens int8; the words of a row whose
+    state is <= 0 are not written, and the result is the wrapper's buffer,
+    valid until its next call), on CPU tensors the plain version packed
+    (any integer byte table; ones on such a row)."""
     if tok_bytes.is_cuda:
         return grammar_kernels.grammar_mask(gram_state, budget_left, eos_id,
                                             table, accept, dist, tok_bytes,
@@ -263,23 +285,30 @@ def sample_slots_plain(keys: torch.Tensor, counter0: torch.Tensor, W: int,
                        top_k: torch.Tensor, top_p: torch.Tensor,
                        active: torch.Tensor, allowed: Optional[torch.Tensor]
                        = None, grammar: Optional[Sequence[torch.Tensor]]
-                       = None, want_top: bool = False
+                       = None, want_top: bool = False, *,
+                       mask_states: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """The plain version of :func:`sample_slots`: row (b, w) draws under
     ``fold_in(keys[b], counter0[b] + w)`` with slot b's live settings
     through :func:`sample_logits_per_slot` (every row's full path) over
-    its ``allowed`` entries (masked ones read as ``-inf``), and its
-    token's :func:`token_logprob` under the raw row; with ``grammar`` the
-    advanced states, with ``want_top`` :func:`top_logprobs_plain` of the
-    raw rows."""
+    its ``allowed`` entries (masked ones read as ``-inf``; every entry of
+    a row whose ``mask_states`` is <= 0, whatever its words hold: the
+    two come together), and
+    its token's :func:`token_logprob` under the raw row; with ``grammar``
+    the advanced states, with ``want_top`` :func:`top_logprobs_plain` of
+    the raw rows."""
     R, V = logits.shape
     pos = torch.arange(W, dtype=torch.int64, device=keys.device)
     row_keys = threefry.fold_in(keys[:, None, :],
                                 counter0.to(torch.int64)[:, None]
                                 + pos[None]).reshape(R, 2)
     drawn = logits
+    if (allowed is None) != (mask_states is None):
+        raise ValueError("sample_slots: allowed and mask_states come "
+                         "together")
     if allowed is not None:
-        drawn = torch.where(unpack_mask(allowed, V), logits.float(),
+        keep = unpack_mask(allowed, V) | (mask_states <= 0)[:, None]
+        drawn = torch.where(keep, logits.float(),
                             torch.full((), -torch.inf, device=logits.device))
     tokens = sample_logits_per_slot(
         row_keys, drawn, *_live_rows(W, temperature, top_k, top_p, active))
@@ -312,7 +341,8 @@ def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
                  top_k: torch.Tensor, top_p: torch.Tensor,
                  active: torch.Tensor, allowed: Optional[torch.Tensor] = None,
                  grammar: Optional[Sequence[torch.Tensor]] = None,
-                 want_top: bool = False
+                 want_top: bool = False, *,
+                 mask_states: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """One sampling call of the engine: (R,) int32 tokens, (R,) float32
     logprobs and the options' outputs of the (R = B * W, V) logits, row (b, w) drawn under
@@ -325,6 +355,8 @@ def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
 
     ``allowed``: an (R, ceil(V / 32)) int32 bitmask of :func:`grammar_mask`;
     the draw, the greedy argmax and the cutoffs see only allowed entries.
+    ``mask_states``: (R,) int32, the states the mask was made from, given
+    with ``allowed``; a row whose state is <= 0 ignores its words.
     ``grammar``: ``(state (B,) int32, table, tok_bytes, tok_lens)``; each
     active slot with a state > 0 walks the token it drew at w = 0.
     ``want_top``: the TOP_LP largest raw entries of each row. The third
@@ -334,7 +366,7 @@ def sample_slots(keys: torch.Tensor, counter0: torch.Tensor, W: int,
     if not logits.is_cuda:
         return sample_slots_plain(keys, counter0, W, logits, temperature,
                                   top_k, top_p, active, allowed, grammar,
-                                  want_top)
+                                  want_top, mask_states=mask_states)
     return kernels.sample_slots(keys, counter0, W, logits, temperature,
                                 top_k, top_p, active, allowed, grammar,
-                                want_top)
+                                want_top, mask_states=mask_states)

@@ -867,3 +867,142 @@ def test_engine_sampled_streams_kernel_sampler_match_plain(cuda_device,
         assert launched == (sched.core.sample_calls
                             if sampler == "kernel" else 0)
     assert streams["kernel"] == streams["plain"]
+
+
+def _grammar_inputs(rng, dev, R, V, S=40):
+    """A random byte DFA (30% rejecting transitions), a byte table in the
+    kernel's layout (uint8 bytes, int8 lengths -1..5) and R rows, a third
+    of them unconstrained (states -1 and 0); state 7 is a dead end that
+    does not accept, so a row there takes the fail-safe EOS."""
+    from generativeaiexamples_tpu_torch.ops import sampling
+    table = rng.integers(0, S, (S, 256)).astype(np.int32)
+    table[rng.random((S, 256)) < 0.3] = 0
+    table[0] = 0
+    table[7] = 0
+    accept = rng.random(S) < 0.3
+    accept[7] = False
+    dist = rng.integers(0, 6, S).astype(np.int32)
+    tb, tl = sampling.mask_byte_table(
+        rng.integers(0, 256, (V, 16)).astype(np.int32),
+        rng.integers(-1, 6, V).astype(np.int32))
+    state = rng.integers(1, S, R).astype(np.int32)
+    state[::3] = np.where(np.arange(R)[::3] % 2, -1, 0)
+    up = lambda a: torch.as_tensor(a).to(dev)
+    return [up(state), up(rng.integers(0, 8, R).astype(np.int32)),
+            int(rng.integers(0, V)), up(table), up(accept), up(dist),
+            tb.to(dev), tl.to(dev)]
+
+
+def _check_mask_launch(kg, sampling, args):
+    """Zero the kernel's output buffer, launch, and hold the constrained
+    rows to the packed plain set bit for bit; the unconstrained rows must
+    stay zero (never written)."""
+    state = args[0]
+    R, V = state.shape[0], args[6].shape[0]
+    kg.buffers(state.device, R, V)[0].zero_()
+    got = kg.grammar_mask(*args).clone()
+    want = sampling.pack_mask(sampling.grammar_mask_plain(*args))
+    con = state > 0
+    assert torch.equal(got[con], want[con])
+    assert (got[~con] == 0).all()
+    return want
+
+
+@pytest.mark.cuda
+def test_grammar_mask_matches_plain_on_the_card(cuda_device):
+    """The grammar mask at a small vocabulary (1,000 entries: a partial
+    last word) over 20 rows: the output filled with zeros before each
+    launch, constrained rows bit-equal to the plain set, unconstrained
+    rows never written; a fail-safe row (a dead-end state) gets EOS; two
+    launches in a row on the same buffers, the second's fail-safe row
+    allowed entries in the first (the flags reset between calls); then
+    300 rows, past one staging chunk of 256, on buffers grown for them.
+    One launch counted a call."""
+    from generativeaiexamples_tpu_torch.ops import sampling
+    from generativeaiexamples_tpu_torch.ops.cuda import grammar as kg
+    rng = np.random.default_rng(13)
+    args = _grammar_inputs(rng, cuda_device, 20, 1000)
+    eos = args[2]
+    args[0][1], args[1][1] = 7, 5           # the fail-safe row
+    tk.reset_launch_counts()
+    want = _check_mask_launch(kg, sampling, args)
+    allowed = sampling.unpack_mask(want, 1000)
+    assert allowed[1].sum() == 1 and allowed[1, eos]
+    # the second launch: row 1 first at a state with entries allowed
+    first = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    first[0][1], first[1][1] = 1, 7
+    ok_first = sampling.unpack_mask(
+        _check_mask_launch(kg, sampling, first), 1000)
+    assert ok_first[1].sum() > 1
+    _check_mask_launch(kg, sampling, args)
+    big = _grammar_inputs(rng, cuda_device, 300, 1000)
+    _check_mask_launch(kg, sampling, big)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["grammar_mask"] == 4
+
+
+@pytest.mark.cuda
+def test_grammar_mask_refuses_what_it_cannot_take(cuda_device):
+    from generativeaiexamples_tpu_torch.ops.cuda import grammar as kg
+    args = _grammar_inputs(np.random.default_rng(3), cuda_device, 8, 100)
+    for i, bad in ((6, args[6].to(torch.int32)), (7, args[7].to(torch.int32)),
+                   (0, args[0].cpu())):
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises(ValueError):
+            kg.grammar_mask(*wrong)
+
+
+@pytest.mark.cuda
+def test_engine_grammared_greedy_streams_kernels_match_plain(cuda_device,
+                                                             monkeypatch):
+    """Greedy grammared requests (``json_value()`` and a schema) beside a
+    free one through the Scheduler at the defaults, f32: the grammar mask
+    and sampling kernels and their plain versions give the same streams,
+    and every reply parses."""
+    import json
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.grammar import Grammar
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import sampling
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(5), cfg)
+    tok = ByteTokenizer()
+    schema = {"type": "object", "properties": {
+        "a": {"type": "integer"}, "b": {"type": "string", "maxLength": 6}},
+        "required": ["a", "b"]}
+    streams = {}
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            monkeypatch.setattr(sampling.kernels, "sample_slots",
+                                sampling.sample_slots_plain)
+            monkeypatch.setattr(
+                sampling.grammar_kernels, "grammar_mask",
+                lambda *a: sampling.pack_mask(sampling.grammar_mask_plain(*a)))
+        sched = Scheduler(EngineCore(cfg, EngineConfig(
+            max_batch_size=4, max_seq_len=256, prefill_chunk=16,
+            page_size=8), params, tok.eos_id, device=cuda_device), tok)
+        tk.reset_launch_counts()
+        reqs = [Request(prompt_ids=tok.encode(p, add_bos=True),
+                        max_tokens=n, temperature=0.0, grammar=g)
+                for p, n, g in (("free text", 24, None),
+                                ("emit json:", 32, Grammar.json_value()),
+                                ("the schema:", 40,
+                                 Grammar.from_schema(schema)))]
+        for r in reqs:
+            sched.submit(r)
+        while sched._tick():
+            pass
+        assert all(r.error is None and r.finished_at for r in reqs)
+        for r in reqs[1:]:
+            json.loads(tok.decode(r.output_ids))
+        streams[path] = [r.output_ids for r in reqs]
+        launched = tk.launch_counts()["grammar_mask"]
+        assert (launched > 0) if path == "kernel" else launched == 0
+    assert streams["kernel"] == streams["plain"]

@@ -184,7 +184,7 @@ def test_masked_draw_equals_reference(seed, temperature):
         keys, _t(ctr), 1, _t(d["logits"]), _t(temp), _t(top_k), _t(top_p),
         torch.ones(R, dtype=torch.bool), allowed=bits,
         grammar=(_t(d["state"]), _t(d["table"]), _t(d["tok_bytes"]),
-                 _t(d["tok_lens"])))
+                 _t(d["tok_lens"])), mask_states=_t(d["state"]))
     np.testing.assert_array_equal(tok.numpy(), want)
     np.testing.assert_allclose(lp.numpy(), want_lp, atol=1e-5)
     adv = np.asarray(jsampling.grammar_advance(
