@@ -4,7 +4,8 @@
     python3 chip_smoke.py                   # the smoke run
     python3 chip_smoke.py --planted-faults [NAME ...]  # the kernel checks
                                             # catch faults (all, or those)
-    python3 chip_smoke.py --ab PARENT CHANGE [attention sampling gemm grammar]
+    python3 chip_smoke.py --ab PARENT CHANGE [attention sampling gemm grammar
+                                             lora]
                                             # kernel times of two trees
 
 Phases, each printing one JSON line; any failure exits non-zero and
@@ -57,6 +58,16 @@ prints no result:
               sampler; timed beside the plain version, the bound and the
               fixed cost of an empty launch on the same grid
               (``floor_ms``);
+  7d. kernel:lora  the per-row LoRA update (``lora_apply``, one launch a
+              projection) at llama3-8b's projection shapes: rank 16 on
+              wq/wo, wk/wv, gate/up and down at 8, 72 and 4,096 rows
+              with the slots mixed (the base model and three adapters),
+              rank 8 on wq and wk, all base rows and all one adapter at
+              decode and prefill, a global adapter and the f32 instance;
+              slot 0 holds random values there (never read: base rows
+              come out bit-equal), the rest within ``LORA_TOLERANCE`` of
+              the plain version; timed beside the plain version, the
+              reference's formulation in eager PyTorch and the bound;
   7b. kernel:w8a16_gemm  the W8A16 GEMM (int8 weights, bf16 or f32
               activations) at every weight shape of llama3-8b (8, 40, 72
               and 4,096 rows) and of llama3-70b (8, 72, 4,096 and the 584
@@ -81,7 +92,14 @@ prints no result:
               stay in flight), greedy and seeded sampled streams token
               for token; then ``parity_w8``: int8 weights at that width,
               both pools, the kernel path (``w8a16_gemm``'s f32 instance
-              and the attention kernels) against the plain path;
+              and the attention kernels) against the plain path; then
+              ``parity_lora``: three adapters (rank 16 on all seven
+              targets) registered, a batch of the base model and each
+              adapter, greedy and seeded, kernel path against plain path
+              (logits of a grouped prefill, then every stream), and each
+              adapter's requests alone on a global-adapter engine equal
+              to the batch's; ``dense_lora``: the dense-cache API with a
+              global adapter, 8 rows, kernel against plain;
   9. serve    llama3-8b at full width and depth, bf16, random seeded
               weights, behind the port's HTTP server with the reference's
               defaults (``warmup`` first): 4 requests (10 chunks) admitted
@@ -124,13 +142,28 @@ prints no result:
               equal, and the logprob request's ``logprob_data`` (token and
               top ids exact, logprobs within 1e-5);
  13. serve_two_dispatch  the narrow path, bf16: 6 concurrent requests, then a
-              narrow decode profile and a grouped-prefill profile, the
+              narrow decode profile and a grouped-prefill profile and the
               Scheduler's decode at ``pipeline_depth`` 1 against 2
               (``profile_pipeline``: host wall and device busy share a
-              step), and the first two profiles over an int8 pool;
+              step) (the int8 pool's two profiles were cut for the
+              smoke's time);
  14. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
               ragged_decode;
+ 14a. serve_lora  ``serve``'s traffic with three adapters registered
+              before ``warmup`` (rank 16, alpha 32, all seven targets,
+              seeded): the requests name the base model and each adapter
+              in turn, every reply echoes its id, no mixed dispatch runs,
+              ``lora`` launches 7 x 32 times a forward pass; then
+              ``/v1/models`` lists the adapters, an unknown id gets a
+              404, and one prompt under each model shows each adapter's
+              tokens differ from the base model's and no page is shared
+              across adapters, while a second run under one is; then
+              ``profile_lora``: ``profile_wide``'s W = 5 decode step with
+              the base model and the three adapters in turn over the
+              slots (``lora``'s device ms a step among the classes);
+              then ``serve_lora_base``: the same adapters resident and
+              the same traffic, every request naming the base model;
  14b. serve_ckpt  the same weights written as an HF checkpoint under
               build/ (``config.json``, four safetensors shards and their
               index, 16.06 GB) with a Llama-3-shaped ``tokenizer.json``
@@ -198,7 +231,9 @@ from the cluster's reduction in the W8A16 GEMM, a flipped bit, a dropped
 row of an interleaved group, the fail-safe ignored and flags left set
 in the grammar mask, a DFA advance short of the token's last byte, a
 top-row tie taken by the higher index and the mask applied to an
-unconstrained row in the sampler, each
+unconstrained row in the sampler, and a wrong slot, base rows written
+and a dropped rank in the LoRA update (these three also run
+``parity_lora``, which each must fail), each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
 ``--ab`` times every attention kernel and the sampling call of two trees
@@ -222,6 +257,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1867,14 +1903,238 @@ def phase_grammar(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The LoRA update (csrc/lora.cu)
+# ---------------------------------------------------------------------------
+
+# llama3-8b's projection shapes (in K, out O) by the targets that share one
+LORA_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+               "gate_up": (4096, 14336), "down": (14336, 4096)}
+LORA_SLOTS = 4          # max_adapters: the base model and three adapters
+# rows (R), tokens a batch row (S): a narrow decode step of 8 slots, the
+# W = 9 rung of 8 slots, the grouped prefill of 8 chunks of 512
+LORA_ROWS = {"r8": (8, 1), "r72": (72, 9), "r4096": (4096, 512)}
+LORA_TOLERANCE = ("per element: 2**-7 (bf16; 2**-20 f32) x (|plain result| "
+                  "+ |plain update| + sum_j |z_j b_oj|) + 2**-16 x "
+                  "(|x| @ |a|^T) @ |b|^T (summation order); rows of slot 0 "
+                  "bit-equal to the input y")
+
+
+def lora_inputs(dev, K, O, r, R, S, mix, dtype, seed):
+    """y (B, S, O) and x (B, S, K) standard normal, stacked factors a
+    (LORA_SLOTS, r, K) normal / sqrt(K) x 2 (lora_code's alpha / r) and b
+    (LORA_SLOTS, O, r) normal x 0.1 (an update of y's size), slot 0
+    random too (a read of it shows), and each batch row's slot: ``mix``
+    "mixed" cycles 0, 1, 2, 3, "one" is slot 1 throughout, "base" 0
+    throughout, "global" a global adapter (slot 1's factors, no slots)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = R // S
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    y = rnd(B, S, O).to(dtype)
+    x = rnd(B, S, K).to(dtype)
+    a = (rnd(LORA_SLOTS, r, K) * (2.0 / K ** 0.5)).to(dtype)
+    b = (rnd(LORA_SLOTS, O, r) * 0.1).to(dtype)
+    if mix == "global":
+        return y, x, a[1].contiguous(), b[1].contiguous(), None
+    slots = {"mixed": [i % LORA_SLOTS for i in range(B)], "one": [1] * B,
+             "base": [0] * B}[mix]
+    return y, x, a, b, torch.tensor(slots, dtype=torch.int32, device=dev)
+
+
+def check_lora(name, y, x, a, b, slots, got):
+    """The kernel's ``got`` (from ``y``) against the plain version on the
+    same inputs, within ``LORA_TOLERANCE``, and rows of slot 0 bit-equal to
+    ``y``. Returns the max abs error over the adapter rows, its largest
+    share of the limit and the rows of each kind; raises
+    KernelMismatch."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import lora as lora_ops
+    want = lora_ops.lora_apply_plain(y, x, a, b, slots)
+    if slots is None:
+        ga, gb = a.float()[None], b.float()[None]
+        ix = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+        take = torch.ones_like(ix, dtype=torch.bool)
+    else:
+        ga, gb, ix = a.float(), b.float(), slots.long()
+        take = ix != 0
+    dt = x.dtype
+    z = torch.matmul(x, a.to(dt)[ix].transpose(1, 2) if slots is not None
+                     else a.t()).float()                       # rounded z
+    bb = gb[ix].transpose(1, 2)                                 # (B, r, O)
+    u = torch.matmul(z, bb)
+    p = torch.matmul(z.abs(), bb.abs())
+    q = torch.matmul(torch.matmul(x.float().abs(),
+                                  ga[ix].abs().transpose(1, 2)), bb.abs())
+    ulp = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -20
+    limit = ulp * (want.float().abs() + u.abs() + p) + 2.0 ** -16 * q
+    sel = take[:, None, None].expand(want.shape)
+    err = (got.float() - want.float()).abs()
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    base_equal = bool(torch.equal(got[~take].view(bits),
+                                  y[~take].view(bits)))
+    reading = {
+        "max_abs_err": err[sel].max().item() if take.any() else 0.0,
+        "max_err_over_limit": ((err / limit)[sel].max().item()
+                               if take.any() else 0.0),
+        "finite": bool(torch.isfinite(got).all()),
+        "base_rows_bit_equal": base_equal,
+        "adapter_rows": int(take.sum()) * x.shape[1],
+        "base_rows": int((~take).sum()) * x.shape[1]}
+    if (not reading["finite"] or not base_equal
+            or reading["max_err_over_limit"] > 1.0):
+        raise KernelMismatch(name, reading)
+    return reading
+
+
+def lora_library(y, x, a, b, slots):
+    """The reference's formulation in eager PyTorch (``_maybe_lora``): z
+    over all N slots (one einsum), gathered by each row's slot, the
+    product with the gathered b, the add; a global adapter's (x a^T) b^T
+    + y."""
+    import torch
+    if slots is None:
+        return y + torch.matmul(torch.matmul(x, a.t()), b.t())
+    ix = slots.long()
+    za = torch.einsum("bsk,nrk->nbsr", x, a)
+    z = za[ix, torch.arange(x.shape[0], device=x.device)]
+    return y + torch.bmm(z, b[ix].transpose(1, 2))
+
+
+def lora_bound(x, a, b, slots, O):
+    """The least time for the update: the adapter rows' x, each distinct
+    adapter slot's a and b, the adapter rows' y read and written and the
+    slots, over the memory rate; 2 r (K + O) operations an adapter row
+    over the bf16 (or f32) peak. (bound ms, its kind, flops, bytes)"""
+    import torch
+    B, S, K = x.shape
+    r = a.shape[-2]
+    if slots is None:
+        rows, distinct = B * S, 1
+    else:
+        ids = slots.tolist()
+        rows, distinct = S * sum(1 for s in ids if s), len({s for s in ids
+                                                           if s})
+    esz = x.element_size()
+    nbytes = float(esz * (rows * K + distinct * r * (K + O) + 2 * rows * O)
+                   + (4 * B if slots is not None else 0))
+    flops = 2.0 * rows * r * (K + O)
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    ms, by = bound(flops, nbytes, peak)
+    return ms, by, flops, nbytes
+
+
+def _lora_case(dev, shape, r, rows, mix, dtype, seed):
+    """lora_apply at one shape: checked against its plain version (a fresh
+    copy of y a launch), then timed by CUDA-graph replays beside the plain
+    version, the reference's formulation (``lora_library``) and the
+    bound."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import lora as lora_ops
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    K, O = LORA_SHAPES[shape]
+    R, S = LORA_ROWS[rows]
+    y, x, a, b, slots = lora_inputs(dev, K, O, r, R, S, mix, dtype, seed)
+    got = cl.lora_apply(y.clone(), x, a, b, slots)
+    check = check_lora("lora", y, x, a, b, slots, got)
+    del got
+    if CHECK_ONLY:
+        return check
+    b_ms, b_by, flops, nbytes = lora_bound(x, a, b, slots, O)
+    yk = y.clone()
+    ms = graph_ms(lambda: cl.lora_apply(yk, x, a, b, slots), target_ms=100.0)
+    # what a launch costs the host through the model's seam (ops/lora.py)
+    us = host_us(lambda: lora_ops.lora_apply(yk, x, a, b, slots), 200)
+    res = dict(
+        **check, tolerance=LORA_TOLERANCE, ms=ms, host_us=us,
+        share_of_bound=b_ms / ms,
+        plain_ms=time_ms(lambda: lora_ops.lora_apply_plain(y, x, a, b, slots),
+                         target_ms=100.0),
+        library_ms=graph_ms(lambda: lora_library(y, x, a, b, slots),
+                            target_ms=100.0),
+        library_call="the reference's _maybe_lora in eager PyTorch (einsum "
+                     "over every slot, gather, bmm with the gathered b, add)",
+        bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        plan_cols=cl.lora_plan(R, O, torch.cuda.get_device_properties(
+            dev).multi_processor_count),
+        shape=dict(K=K, O=O, r=r, R=R, S=S, mix=mix,
+                   dtype=str(dtype).removeprefix("torch.")))
+    del yk
+    return res
+
+
+def lora_case_shapes():
+    """tag -> (shape, rank, rows, mix, dtype name, seed) of every LoRA case:
+    rank 16 (lora_code) on every distinct llama3-8b projection shape at 8,
+    72 and 4,096 rows with the slots mixed (base rows among them), rank 8
+    (lora_pubmedqa) on wq and wk, all base rows and all one adapter at
+    decode and prefill, the f32 instance and a global adapter (the dense
+    API's). The first, wq at a narrow decode step, is the entry's own."""
+    cases = {}
+    for i, (shape, rows) in enumerate(
+            (s, rw) for s in LORA_SHAPES for rw in LORA_ROWS):
+        cases[f"{shape}_r16_{rows}_mixed"] = (shape, 16, rows, "mixed",
+                                              "bfloat16", 200 + i)
+    cases.update({
+        "wq_wo_r8_r8_mixed": ("wq_wo", 8, "r8", "mixed", "bfloat16", 220),
+        "wk_wv_r8_r8_mixed": ("wk_wv", 8, "r8", "mixed", "bfloat16", 221),
+        "wq_wo_r16_r8_base": ("wq_wo", 16, "r8", "base", "bfloat16", 222),
+        "gate_up_r16_r4096_base": ("gate_up", 16, "r4096", "base",
+                                   "bfloat16", 223),
+        "wq_wo_r16_r8_one": ("wq_wo", 16, "r8", "one", "bfloat16", 224),
+        "gate_up_r16_r4096_one": ("gate_up", 16, "r4096", "one", "bfloat16",
+                                  225),
+        "wq_wo_r16_r8_global": ("wq_wo", 16, "r8", "global", "bfloat16",
+                                226),
+        "wq_wo_r16_r8_mixed_f32": ("wq_wo", 16, "r8", "mixed", "float32",
+                                   227)})
+    return cases
+
+
+def lora_cases(dev):
+    """The LoRA kernel's cases (``lora_case_shapes``), each a thunk."""
+    import torch
+    return {tag: (lambda s=s, r=r, rw=rw, mix=mix, dt=dt, seed=seed:
+                  _lora_case(dev, s, r, rw, mix, getattr(torch, dt), seed))
+            for tag, (s, r, rw, mix, dt, seed) in lora_case_shapes().items()}
+
+
+def ab_lora(dev):
+    """Every LoRA case's device ms through the tree's ``lora_apply``,
+    checked first (``--ab``)."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    out = {}
+    for tag, (shape, r, rows, mix, dt, seed) in lora_case_shapes().items():
+        K, O = LORA_SHAPES[shape]
+        R, S = LORA_ROWS[rows]
+        y, x, a, b, slots = lora_inputs(dev, K, O, r, R, S, mix,
+                                        getattr(torch, dt), seed)
+        check_lora("lora", y, x, a, b, slots,
+                   cl.lora_apply(y.clone(), x, a, b, slots))
+        out[tag] = {"ms": graph_ms(lambda: cl.lora_apply(y, x, a, b, slots),
+                                   target_ms=100.0)}
+        del y, x, a, b, slots
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lora(dev):
+    res = _run_cases("lora", lora_cases(dev))
+    emit("kernel:lora", kernel_ms=res.get("ms"), **res)
+    return res
+
+
 PROMPT_TEXT = ("The paged KV cache keeps every request's keys and values in "
                "fixed-size pages so that continuous batching never copies a "
                "sequence when it grows. ")
 
 
-def _parity_report(params, cfg, prompts, got, want, dev, label):
+def _parity_report(params, cfg, prompts, got, want, dev, label,
+                   adapters=None):
     """Kernel vs plain greedy streams: equal, or diverging only where the
-    plain forward's top-2 logits are within PARITY_GAP_TOL."""
+    plain forward's top-2 logits (under the global adapter tree
+    ``adapters``, if any) are within PARITY_GAP_TOL."""
     import torch
     from generativeaiexamples_tpu_torch.models import llama
     report = []
@@ -1886,7 +2146,7 @@ def _parity_report(params, cfg, prompts, got, want, dev, label):
                     min(len(a), len(b)))
         ids = torch.tensor([prompts[i] + b[:step]], device=dev)
         with torch.no_grad():
-            logits = llama.forward(params, cfg, ids)[0, -1]
+            logits = llama.forward(params, cfg, ids, adapters=adapters)[0, -1]
         top2 = logits.topk(2).values
         gap = (top2[0] - top2[1]).item()
         report.append({"prompt": i, "identical": False, "step": step,
@@ -1898,9 +2158,10 @@ def _parity_report(params, cfg, prompts, got, want, dev, label):
     return report
 
 
-def _dense_greedy(params, cfg, prompts, steps, T, dev):
+def _dense_greedy(params, cfg, prompts, steps, T, dev, adapters=None):
     """Greedy tokens of the dense-cache API: one right-padded prefill of
-    every prompt (last_only), then ``steps`` decode steps."""
+    every prompt (last_only), then ``steps`` decode steps, under the
+    global adapter tree ``adapters`` if given."""
     import torch
     from generativeaiexamples_tpu_torch.models import llama
     B, S = len(prompts), max(len(p) for p in prompts)
@@ -1913,7 +2174,7 @@ def _dense_greedy(params, cfg, prompts, steps, T, dev):
     with torch.no_grad():
         logits, cache = llama.prefill(params, cfg, tokens, cache,
                                       torch.zeros_like(seq), seq,
-                                      last_only=True)
+                                      last_only=True, adapters=adapters)
         if logits.shape != (B, 1, cfg.vocab_size) \
                 or not torch.isfinite(logits).all():
             raise AssertionError(f"dense prefill gave {tuple(logits.shape)} "
@@ -1921,7 +2182,8 @@ def _dense_greedy(params, cfg, prompts, steps, T, dev):
         tok = logits[:, 0].argmax(-1)
         out = [tok]
         for _ in range(steps - 1):
-            logits, cache = llama.decode_step(params, cfg, tok, cache)
+            logits, cache = llama.decode_step(params, cfg, tok, cache,
+                                              adapters=adapters)
             tok = logits.argmax(-1)
             out.append(tok)
     return torch.stack(out, dim=1).tolist()
@@ -2090,6 +2352,315 @@ def phase_parity_w8(dev):
     del params
 
 
+def smoke_adapters(dev, cfg, names, dtype, seed, sigma):
+    """Adapters in the ``lora_code`` layout (rank 16, alpha 32, all seven
+    targets), one a name, drawn on the card from ``seed``: ``a`` as
+    ``init_adapters`` draws it, ``b`` normal times ``sigma`` (a trained
+    adapter's ``b`` is not zero), in ``dtype``."""
+    import torch
+    from generativeaiexamples_tpu_torch.train import lora
+    lcfg = lora.LoraConfig(rank=16, alpha=32.0, targets=lora.TARGETS)
+    out = {}
+    for i, name in enumerate(names):
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        tree = lora.init_adapters(g, cfg, lcfg, device=dev)
+        out[name] = {t: {"a": ab["a"].to(dtype),
+                         "b": (torch.randn(ab["b"].shape, generator=g,
+                                           device=dev) * sigma).to(dtype)}
+                     for t, ab in tree.items()}
+    return out
+
+
+LORA_NAMES = ("ad-1", "ad-2", "ad-3")
+LORA_LOGITS_TOL = 1e-3   # of the largest plain logit: f32 summation order
+
+
+class _PlainLora:
+    """While entered, ``ops.cuda.lora.lora_apply`` is the plain version
+    (the plain pass asks for it by name, as ``parity_w8`` does for the
+    GEMM): no ``lora`` launch."""
+
+    def __enter__(self):
+        from generativeaiexamples_tpu_torch.ops import lora as lora_ops
+        from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+        self._kernel = cl.lora_apply
+        cl.lora_apply = lora_ops.lora_apply_plain
+        return self
+
+    def __exit__(self, *exc):
+        from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+        cl.lora_apply = self._kernel
+
+
+def _parity_lora_setup(dev):
+    """The parity phases' model (llama3-8b width, 2 layers, f32, seed 3),
+    three adapters (``smoke_adapters``, f32) and two prompts (one of two
+    chunks)."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype="float32")
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(3),
+                               cfg, device=dev)
+    trees = smoke_adapters(dev, cfg, LORA_NAMES, torch.float32, 40, 0.05)
+    tok = ByteTokenizer()
+    prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
+               tok.encode(PROMPT_TEXT * 5, add_bos=True)]
+    return cfg, params, trees, tok, prompts
+
+
+def _lora_core(dev, cfg, params, tok, attn, adapters=None, trees=None):
+    """A parity engine (8 slots of 2,048, the reference's defaults, no
+    prefill hold) on the kernel or the plain path, with a global tree or
+    ``trees`` registered."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
+                        prefill_chunk=512, dtype="float32", attention=attn,
+                        prefill_hold_chunks=0)
+    core = EngineCore(cfg, ecfg, params, tok.eos_id, device=dev,
+                      adapters=adapters)
+    for name, tree in (trees or {}).items():
+        core.register_adapter(name, tree)
+    return core
+
+
+def _lora_batch(core, tok, specs, tokens):
+    """``specs`` ((adapter, prompt ids, temperature, seed), ...) submitted
+    at once to a new Scheduler over ``core``; the output ids, the stats,
+    the launches and the forward passes."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import (Request,
+                                                                 Scheduler)
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    sched = Scheduler(core, tok)
+    reqs = [Request(prompt_ids=list(p), max_tokens=tokens, temperature=t,
+                    seed=seed, adapter=ad) for ad, p, t, seed in specs]
+    with _ForwardCount() as fwd:
+        k.reset_launch_counts()
+        sched.start()
+        try:
+            for r in reqs:
+                sched.submit(r)
+            for r in reqs:
+                list(sched.iter_text(r))
+        finally:
+            sched.stop()
+        launches = k.launch_counts()
+    if any(r.error for r in reqs):
+        raise AssertionError(f"a request failed: {[r.error for r in reqs]}")
+    return reqs, [r.output_ids for r in reqs], dict(sched.stats), launches, \
+        fwd.blocks
+
+
+def _lora_logits(core, cfg, dev, seed=11):
+    """Logits of one grouped prefill of 4 chunks (slots 0 to 3: the base
+    model and each adapter) through the core's paged pass and adapters."""
+    import torch
+    from generativeaiexamples_tpu_torch.engine import kv_cache
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G, C, ps = 4, 512, 128
+    cache = kv_cache.PagedKVCache.create(cfg, G, 1 + G * 4, ps, device=dev)
+    tokens = torch.randint(0, 256, (G, C), generator=g, device=dev,
+                           dtype=torch.int32)
+    rows = (1 + torch.arange(G * 4, device=dev, dtype=torch.int32)
+            ).reshape(G, 4)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        return kv_cache.prefill_chunks(
+            core.params, core.model_cfg, tokens, cache, rows,
+            i32([0, 1, 2, 3]),
+            i32([0] * G), i32([512, 300, 450, 97]), 1 + G * 4,
+            adapters=core.adapters, adapter_ix=i32([0, 1, 2, 3]))
+
+
+def phase_parity_lora(dev):
+    """Multi-LoRA at llama3-8b width, 2 layers, f32, the reference's
+    defaults (the mixed dispatch off once adapters are resident): a mixed
+    batch of the base model and three adapters, greedy and seeded, through
+    the kernel path (the attention kernels, ``lora_apply``'s f32 instance)
+    against the plain path (plain attention, ``lora_apply_plain``): the
+    logits of a grouped prefill of the four within ``LORA_LOGITS_TOL``
+    and the streams token for token (``_sampled_parity_report``); then
+    each adapter's requests alone on a global-adapter engine, kernel path,
+    equal to their streams in the mixed batch."""
+    import torch
+    cfg, params, trees, tok, prompts = _parity_lora_setup(dev)
+    ids = [""] + list(LORA_NAMES)
+    # greedy on the two-chunk prompt, seeded on the other, each under the
+    # base model and every adapter
+    specs = ([(ad, prompts[1], 0.0, i) for i, ad in enumerate(ids)]
+             + [(ad, prompts[0], 0.7, 20 + i) for i, ad in enumerate(ids)])
+    runs, logits = {}, {}
+    for attn in ("kernel", "plain"):
+        core = _lora_core(dev, cfg, params, tok, attn, trees=trees)
+        if core.mixed_supported:
+            raise AssertionError("the mixed dispatch is on with adapters "
+                                 "resident")
+        if attn == "plain":
+            with _PlainLora():
+                logits[attn] = _lora_logits(core, cfg, dev)
+                runs[attn] = _lora_batch(core, tok, specs, 48)
+        else:
+            logits[attn] = _lora_logits(core, cfg, dev)
+            runs[attn] = _lora_batch(core, tok, specs, 48)
+        del core
+        torch.cuda.empty_cache()
+    reqs, got, stats, launches, passes = runs["kernel"]
+    _, want, _, plain_launches, _ = runs["plain"]
+    need = len(trees["ad-1"]) * cfg.n_layers * passes
+    if launches["lora"] != need or need == 0 or plain_launches["lora"]:
+        raise AssertionError(f"parity_lora: {launches['lora']} lora launches "
+                             f"for {passes} forward passes (want {need}); "
+                             f"the plain pass launched "
+                             f"{plain_launches['lora']}")
+    if stats["mixed_dispatches"] or not stats["spec_steps"]:
+        raise AssertionError(f"parity_lora ran a mixed dispatch or no "
+                             f"widened step: {stats}")
+    err = (logits["kernel"] - logits["plain"]).abs().max().item()
+    limit = LORA_LOGITS_TOL * logits["plain"].abs().max().item()
+    if not err <= limit:
+        raise KernelMismatch("parity_lora", {"logits_max_abs_err": err,
+                                             "limit": limit})
+    report = {"mixed batch, kernel vs plain": _sampled_parity_report(
+        params, cfg, reqs, got, want, dev, "parity_lora", trees)}
+    if any(got[i] == got[0] for i in (1, 2, 3)):
+        raise AssertionError("parity_lora: an adapter's greedy stream equals "
+                             "the base model's")
+    solo = {}
+    for name in LORA_NAMES:
+        rows = [i for i, s in enumerate(specs) if s[0] == name]
+        core = _lora_core(dev, cfg, params, tok, "kernel",
+                          adapters=trees[name])
+        sreqs, sgot, _, slaunch, spasses = _lora_batch(
+            core, tok, [("",) + specs[i][1:] for i in rows], 48)
+        del core
+        if slaunch["lora"] != len(trees[name]) * cfg.n_layers * spasses:
+            raise AssertionError(f"parity_lora global {name}: launches "
+                                 f"{slaunch}")
+        report[f"{name} alone on a global-adapter engine vs the mixed "
+               f"batch"] = _sampled_parity_report(
+            params, cfg, sreqs, sgot, [got[i] for i in rows], dev,
+            "parity_lora", {"": trees[name]})
+        solo[name] = slaunch["lora"]
+    emit("parity_lora", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
+         logits_max_abs_err=err, logits_limit=limit,
+         logits_tolerance=f"{LORA_LOGITS_TOL} x the largest plain logit",
+         streams=report, dispatches=stats, launches=launches,
+         forward_passes=passes, global_engine_lora_launches=solo,
+         requests=[{"adapter": s[0] or "base", "temperature": s[2],
+                    "tokens": len(g)} for s, g in zip(specs, got)])
+    del params, trees
+
+
+def parity_lora_cases(dev):
+    """``phase_parity_lora`` as one check-only case (the planted faults
+    read it): a failed check of any kind is its reading."""
+    def case():
+        try:
+            phase_parity_lora(dev)
+        except KernelMismatch:
+            raise
+        except AssertionError as exc:
+            raise KernelMismatch("parity_lora", {"error": str(exc)[:400]})
+        return {"passed": True}
+    return {"streams": case}
+
+
+def phase_dense_lora(dev, rows=8, steps=24, T=1024):
+    """The dense-cache API with a global adapter tree (``smoke_adapters``'
+    first, f32) at llama3-8b width, 2 layers, f32: one prefill of ``rows``
+    prompts of 64 to 512 tokens and ``steps`` greedy decode steps through
+    ``flash_prefill``, ``ragged_decode`` and ``lora_apply`` (launch counts
+    set to 0 just before, read just after), against the plain path
+    (plain attention, ``lora_apply_plain``), stream for stream. Returns
+    the kernel path's launches."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    cfg, params, trees, _, _ = _parity_lora_setup(dev)
+    tree = trees["ad-1"]
+    lens = [64 + (512 - 64) * i // (rows - 1) for i in range(rows)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    prompts = [torch.randint(0, 256, (n,), generator=g, device=dev).tolist()
+               for n in lens]
+    streams, launches = {}, {}
+    for attn in ("kernel", "plain"):
+        acfg = dataclasses.replace(cfg, attn_impl=attn)
+        k.reset_launch_counts()
+        if attn == "plain":
+            with _PlainLora():
+                streams[attn] = _dense_greedy(params, acfg, prompts, steps, T,
+                                              dev, tree)
+        else:
+            streams[attn] = _dense_greedy(params, acfg, prompts, steps, T,
+                                          dev, tree)
+        launches[attn] = k.launch_counts()
+    L, got = cfg.n_layers, launches["kernel"]
+    if (got["flash_prefill"] != L or got["ragged_decode"] != L * (steps - 1)
+            or got["lora"] != len(tree) * L * steps
+            or any(launches["plain"].values())):
+        raise AssertionError(f"dense_lora launches: {launches}")
+    report = _parity_report(params, cfg, prompts, streams["kernel"],
+                            streams["plain"], dev, "dense_lora", tree)
+    emit("dense_lora", ok=True, rows=rows, prompt_lens=lens,
+         decode_steps=steps, cache_rows=T, tolerance_top2_gap=PARITY_GAP_TOL,
+         streams=report, launches=launches)
+    return got
+
+
+LORA_PROBE = "LoRA probe. " + PROMPT_TEXT * 3    # its own first page
+
+
+def _lora_serve_checks(base, submitted, base_id, names):
+    """``serve_lora``'s checks on the server once its traffic is done:
+    ``/v1/models`` lists each adapter with the base model as its parent;
+    an unknown id gets a 404; one prompt (``LORA_PROBE``, 3 full pages)
+    under the base model, each adapter, then the first adapter again, one
+    at a time, greedy: every reply echoes its id, each adapter's tokens
+    differ from the base model's, no run shares another model's cached
+    pages, and the first adapter's second run shares its first's."""
+    with urllib.request.urlopen(base + "/v1/models", timeout=30) as resp:
+        cards = json.loads(resp.read())["data"]
+    listed = {c["id"]: c.get("parent") for c in cards}
+    if listed != {base_id: None, **{n: base_id for n in names}}:
+        raise AssertionError(f"/v1/models lists {listed}")
+    try:
+        _request(base, 0, "hi", 4, chat=True, stream=False,
+                 temperature=0.0, model="no-such-adapter")
+        raise AssertionError("an unknown model id was served")
+    except urllib.error.HTTPError as exc:
+        if exc.code != 404:
+            raise AssertionError(f"an unknown model id got {exc.code}")
+    runs = []
+    for m in [base_id] + names + names[:1]:
+        n0 = len(submitted)
+        r = _request(base, 0, LORA_PROBE, 16, chat=False, stream=False,
+                     temperature=0.0, model=m)
+        req = submitted[n0]
+        runs.append({"model": m, "status": r["status"], "echoed": r["model"],
+                     "tokens": len(req.output_ids),
+                     "prefix_hit_tokens": req.prefix_hit_tokens,
+                     "ids": list(req.output_ids)})
+    faults = [f"{run['model']} echoed {run['echoed']}" for run in runs
+              if run["echoed"] != [run["model"]] or run["status"] != 200]
+    for run in runs[1:-1]:
+        if run["ids"] == runs[0]["ids"]:
+            faults.append(f"{run['model']} answered as the base model")
+    faults += [f"{run['model']} shared {run['prefix_hit_tokens']} cached "
+               f"tokens of another model" for run in runs[:-1]
+               if run["prefix_hit_tokens"]]
+    if runs[-1]["prefix_hit_tokens"] <= 0:
+        faults.append(f"{names[0]}'s second run shared no page of its first")
+    if faults:
+        raise AssertionError(f"serve_lora: {'; '.join(faults)}")
+    for run in runs:
+        del run["ids"]
+    return {"models": listed, "unknown_model_status": 404,
+            "probe_prompt_bytes": len(LORA_PROBE), "probe_runs": runs}
+
+
 # the prefix phases' shared context (1,536 bytes, a RAG chain's retrieved
 # text) and questions of 64 to 256 bytes, each starting with its own byte,
 # so any two prompts share exactly the context
@@ -2202,10 +2773,12 @@ def _prefix_parity(dev, params, cfg, tok):
          streams=reports, prefix=readings)
 
 
-def _sampled_parity_report(params, cfg, reqs, got, want, dev, label):
+def _sampled_parity_report(params, cfg, reqs, got, want, dev, label,
+                           adapters=None):
     """Streams of greedy and seeded sampled requests, token for token: a
     divergence is accepted only at a near-tie of the plain f32 forward at
-    that step, the top two logits for a greedy request and the top two
+    that step (under the request's adapter: ``adapters`` maps names to
+    trees), the top two logits for a greedy request and the top two
     masked logits plus the request's Gumbel draw (its key folded with the
     token's index) for a sampled one, within PARITY_GAP_TOL."""
     import torch
@@ -2220,8 +2793,10 @@ def _sampled_parity_report(params, cfg, reqs, got, want, dev, label):
         step = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
                     min(len(a), len(b)))
         ids = torch.tensor([r.prompt_ids + b[:step]], device=dev)
+        tree = (adapters or {}).get(r.adapter)
         with torch.no_grad():
-            logits = llama.forward(params, cfg, ids)[0, -1:].float()
+            logits = llama.forward(params, cfg, ids,
+                                   adapters=tree)[0, -1:].float()
         if r.temperature > 0:
             logits = sampling._mask_dynamic(
                 logits, torch.tensor([r.temperature], device=dev),
@@ -2390,10 +2965,11 @@ def _pipeline_parity(dev, params, cfg, tok):
 
 
 def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
-             temperature=None, top_p=None):
+             temperature=None, top_p=None, model=None):
     """One request (seed ``i``); by default the i-th of the narrow phase's
-    six: chat/completion, streamed or not, temperature 0 / 0.7. Returns
-    its status, text, finish reason, usage and client-side times."""
+    six: chat/completion, streamed or not, temperature 0 / 0.7; ``model``
+    the OpenAI model id to send. Returns its status, text, finish reason,
+    usage, the model id it echoed and client-side times."""
     chat = i % 2 == 0 if chat is None else chat
     stream = i < 3 if stream is None else stream
     if text is None:
@@ -2404,6 +2980,8 @@ def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
             "seed": i, "stream": stream}
     if top_p is not None:
         body["top_p"] = top_p
+    if model is not None:
+        body["model"] = model
     if chat:
         body["messages"] = [{"role": "user", "content": text}]
         url = base + "/v1/chat/completions"
@@ -2436,17 +3014,19 @@ def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
             final = chunks[-2]
             finish = final["choices"][0]["finish_reason"]
             usage = final.get("usage")
+            echoed = sorted({c["model"] for c in chunks[:-1]})
             out = "".join(c["choices"][0]["delta"].get("content", "")
                           for c in chunks[:-1])
         else:
             body = json.loads(resp.read())
             finish = body["choices"][0]["finish_reason"]
             usage = body.get("usage")
+            echoed = [body["model"]]
             out = (body["choices"][0]["message"]["content"] if chat
                    else body["choices"][0]["text"])
     return {"i": i, "chat": chat, "stream": stream, "status": status,
             "text": out, "prompt_bytes": len(text), "finish_reason": finish,
-            "usage": usage, "client_first_text_s": ttft,
+            "usage": usage, "model": echoed, "client_first_text_s": ttft,
             "client_latency_s": time.perf_counter() - t0,
             "sent_s": t0}
 
@@ -2511,13 +3091,15 @@ def _gate_admission(sched):
 
 
 def _staggered_traffic(base, sched, submitted, chain=False,
-                       decoder_tokens=256, late=2, texts=None):
+                       decoder_tokens=256, late=2, texts=None, models=None):
     """``serve``'s traffic: the decoders (``decoder_tokens``, greedy and
     0.7 in turn) admitted together, then ``late`` prompts (32 tokens) once
     the first decode dispatch ran. ``chain``: every request at the chain
     server's temperature 0.2 / top-p 0.7 and 64 tokens (``serve_chain``).
     ``texts``: (the decoders' prompts, the late prompt) in place of
-    ``PROMPT_TEXT`` times ``DECODERS`` and ``LATE_PROMPT``."""
+    ``PROMPT_TEXT`` times ``DECODERS`` and ``LATE_PROMPT``; ``models``: the
+    model id request i sends (decoders first), by default none."""
+    models = models or [None] * (len(DECODERS) + late)
     if texts is None:
         texts = ([PROMPT_TEXT * n for n in DECODERS],
                  PROMPT_TEXT * LATE_PROMPT)
@@ -2525,11 +3107,12 @@ def _staggered_traffic(base, sched, submitted, chain=False,
     gate.clear()
     chain_kw = dict(temperature=0.2, top_p=0.7)
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
-        futs = [pool.submit(_request, base, i, text,
-                            64 if chain else decoder_tokens, i % 2 == 0,
-                            i < 2, **(chain_kw if chain else dict(
-                                temperature=0.0 if i % 2 else 0.7)))
-                for i, text in enumerate(texts[0])]
+        futs = [pool.submit(
+            _request, base, i, text, 64 if chain else decoder_tokens,
+            i % 2 == 0, i < 2, model=models[i],
+            **(chain_kw if chain else dict(temperature=0.0 if i % 2
+                                           else 0.7)))
+            for i, text in enumerate(texts[0])]
         _wait_for(lambda: len(submitted) >= len(DECODERS),
                   "the decoders did not arrive")
         gate.set()
@@ -2542,6 +3125,7 @@ def _staggered_traffic(base, sched, submitted, chain=False,
         at = dict(sched.stats)
         futs += [pool.submit(_request, base, 4 + i, texts[1],
                              64 if chain else 32, i == 0, i == 0,
+                             model=models[len(DECODERS) + i],
                              **(chain_kw if chain else dict(temperature=0.0)))
                  for i in range(late)]
         return [f.result() for f in futs], at
@@ -2640,7 +3224,8 @@ class _ForwardCount:
 
 def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                 chain=False, quant="none", model="llama3-8b",
-                decoder_tokens=256, late=2, tok=None, texts=None, name=None):
+                decoder_tokens=256, late=2, tok=None, texts=None, name=None,
+                adapters=None, adapter_traffic=True):
     """HTTP requests against a full model (llama3-8b unless ``model`` says
     otherwise); the launch counts, the dispatch counts and the engine's
     sampling calls are set to 0 just before the requests and read just
@@ -2656,6 +3241,15 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     forward pass, no ``F.linear``). ``tok``: a checkpoint's tokenizer in
     place of the byte tokenizer (its ``eos_id`` too), ``texts`` the
     staggered traffic's prompts in its tokens, ``name`` the phase's line.
+    ``adapters``: name -> adapter tree, registered before ``warmup``
+    (``serve_lora``): the requests name the base model and each adapter
+    in turn, every reply must echo its id, no mixed dispatch may run (the
+    engine turns it off), ``lora`` launches once a target and layer per
+    forward pass, and ``_lora_serve_checks`` runs once the traffic is
+    done; ``adapter_traffic=False``: the adapters stay resident but every
+    request names the base model (``serve_lora_base``: the launches and
+    the mixed dispatch's absence without the adapter rows' work). Without
+    adapters no ``lora`` launch at all.
     Returns (launches, the engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
@@ -2669,6 +3263,16 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     tok = tok or ByteTokenizer()
     core = serving_core(dev, cfg, params, kv_quant, quant=quant,
                         eos_id=tok.eos_id, **(NARROW if narrow else {}))
+    base_id = f"{model}-random"
+    models, register_s = None, None
+    if adapters:
+        t0 = time.perf_counter()
+        for ad_name, tree in adapters.items():
+            core.register_adapter(ad_name, tree)
+        torch.cuda.synchronize()
+        register_s = time.perf_counter() - t0
+        ids = [base_id] + (list(adapters) if adapter_traffic else [])
+        models = [ids[i % len(ids)] for i in range(len(DECODERS) + late)]
     warmup_s = core.warmup()
     sched = Scheduler(core, tok)
     submitted = []
@@ -2679,10 +3283,15 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         return submit(req)
 
     sched.submit = recording_submit
+    # an earlier phase's engine core lives on in a reference cycle (its
+    # grammar stack holds a bound method of it) until the collector runs:
+    # collect first, so the peak reads this phase's tensors only
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    httpd, thread = serve_in_thread(sched, f"{model}-random")
+    httpd, thread = serve_in_thread(sched, base_id)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     at_late = None
+    lora_checks = None
     try:
         with urllib.request.urlopen(base + "/health", timeout=30) as resp:
             if resp.status != 200:
@@ -2701,26 +3310,35 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             else:
                 results, at_late = _staggered_traffic(
                     base, sched, submitted, chain, decoder_tokens, late,
-                    texts)
+                    texts, models)
             wall = time.perf_counter() - t0
             launches = k.launch_counts()
             gemm_rows = build.gemm_launches_by_rows()
             stats = dict(sched.stats)
+        traffic = list(submitted)     # the counted window's requests
+        if adapters and adapter_traffic:
+            calls = core.sample_calls
+            lora_checks = _lora_serve_checks(base, submitted, base_id,
+                                             list(adapters))
+            core.sample_calls = calls   # the checks below read the window
     finally:
         httpd.shutdown()
         httpd.server_close()
         sched.stop()
         thread.join(timeout=30)
-    for r in results:
+    for i, r in enumerate(results):
         r["sent_s"] -= t0
         del r["text"]         # random weights: the text is noise
         if r["status"] != 200 or not r["finish_reason"] or not r["usage"]:
             raise AssertionError(f"request failed: {r}")
+        if r["model"] != [models[i] if models else base_id]:
+            raise AssertionError(f"request {i} echoed {r['model']}, not "
+                                 f"{models[i] if models else base_id}")
     server_ttft = sorted(round(r.first_token_at - r.submitted_at, 4)
-                         for r in submitted if r.first_token_at)
-    if len(server_ttft) != len(results) or any(r.error for r in submitted):
+                         for r in traffic if r.first_token_at)
+    if len(server_ttft) != len(results) or any(r.error for r in traffic):
         raise AssertionError("a request got no first token or failed: "
-                             f"{[r.error for r in submitted]}")
+                             f"{[r.error for r in traffic]}")
     L = cfg.n_layers
     decode_key = ("ragged_paged_attention_int8" if kv_quant == "int8"
                   else "ragged_paged_attention")
@@ -2742,15 +3360,26 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     if sum(gemm_rows.values()) != need_gemm:
         raise AssertionError(f"w8a16_gemm launches by rows {gemm_rows} do "
                              f"not add up to {need_gemm}")
-    if not narrow and (stats["mixed_dispatches"] < 1
-                       or stats["spec_steps"] < 1):
+    # the update once a target and layer per forward pass with adapters
+    # resident, and never without
+    targets = len(next(iter(adapters.values()))) if adapters else 0
+    need_lora = targets * L * fwd.blocks
+    if launches["lora"] != need_lora or (adapters and need_lora == 0):
+        raise AssertionError(f"{launches['lora']} lora launches for "
+                             f"{fwd.blocks} forward passes (want "
+                             f"{need_lora})")
+    if adapters and (stats["mixed_dispatches"] or stats["spec_steps"] < 1):
+        raise AssertionError(f"with adapters resident: a mixed dispatch "
+                             f"ran or no widened step did: {stats}")
+    if not narrow and not adapters and (stats["mixed_dispatches"] < 1
+                                        or stats["spec_steps"] < 1):
         raise AssertionError(f"the default path ran no mixed dispatch or "
                              f"no widened step: {stats}")
     want_widths = [1] if narrow else [2, 3, 5, 9]
     if (health.get("kv_dtype") != ("int8" if kv_quant == "int8"
                                    else cfg.dtype)
             or health.get("spec_widths") != want_widths
-            or health.get("mixed") != (not narrow)
+            or health.get("mixed") != (not narrow and not adapters)
             or health.get("inflight_dispatches") != 0
             or health.get("pipeline_depth") != core.cfg.pipeline_depth
             or health.get("quant") != quant
@@ -2769,7 +3398,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         quant=quant, weight_bytes=health["weight_bytes"],
         spec_widths=health["spec_widths"], mixed=health["mixed"],
         weights=weights, tokenizer=type(tok).__name__, requests=results,
-        prompt_tokens=[len(r.prompt_ids) for r in submitted],
+        prompt_tokens=[len(r.prompt_ids) for r in traffic],
         server_ttft_s=server_ttft, completion_tokens=gen, wall_s=wall,
         gen_tok_s=gen / wall, dispatches=stats, launches=launches,
         forward_passes=fwd.blocks, unembeddings=fwd.unembeds,
@@ -2783,10 +3412,16 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         spec_bonus_per_slot_step=(stats["spec_bonus_tokens"]
                                   / max(1, stats["spec_base_steps"])),
         kv_pool_bytes=health["kv_pool_bytes"],
-        multi_chunk_prompt=max(len(r.prompt_ids) for r in submitted) > 512,
+        multi_chunk_prompt=max(len(r.prompt_ids) for r in traffic) > 512,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         **_loop_fields(stats, core, warmup_s, launches),
-        **(dict(gemm_launches_by_rows=gemm_rows) if quant == "int8" else {}))
+        **(dict(gemm_launches_by_rows=gemm_rows) if quant == "int8" else {}),
+        **(dict(adapters=list(adapters), adapter_targets=targets,
+                adapter_rank=int(next(iter(next(iter(
+                    adapters.values())).values()))["a"].shape[1]),
+                models_sent=models, register_s=register_s,
+                lora_launches_per_forward=need_lora // max(1, fwd.blocks),
+                lora_checks=lora_checks) if adapters else {}))
     if model == "llama3-70b" and fwd.tiled < 1:
         raise AssertionError(f"{name}: no ragged launch of more than "
                              f"{k.QG_MAX} query vectors a row")
@@ -3856,13 +4491,15 @@ def phase_serve_ckpt(dev, cfg, params, smi):
 
 
 def profile_decode(core, ctx: int = 1000, steps: int = 8,
-                   spec_width=None, sampling=None):
+                   spec_width=None, sampling=None, adapters=0):
     """Where a full-batch decode dispatch spends its time: 8 slots at
     ``ctx`` tokens, ``spec_width`` wide steps (a ladder rung; the narrow
     step on a core without speculation), greedy or with ``sampling``
     (temperature, top_k, top_p; slot s seeded s), host clock per step,
     device time by kernel class and device operations a step
-    (torch.profiler), after the serving run (not part of its counts)."""
+    (torch.profiler), after the serving run (not part of its counts).
+    ``adapters``: slot s takes resident adapter slot s % (adapters + 1),
+    the base model among them (``profile_lora``)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -3886,7 +4523,7 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
                 chunk_ids=chunk, page_row=table[s], slot=s, start_pos=start,
                 is_last=start + len(chunk) >= ctx, generated=1,
                 max_gen=budget + 1, temperature=temperature, top_k=top_k,
-                top_p=top_p, seed=s))
+                top_p=top_p, seed=s, adapter_ix=s % (adapters + 1)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for g in range(0, len(items), core.prefill_group_max):
@@ -3906,7 +4543,8 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     emitted = int(out["emitted"].sum())
     classes, summed, top = _device_ms_by_class(
         prof, (("ragged_paged_attention", ("ragged_paged",)),
-               ("w8a16_gemm", ("w8a16",)), ("matmul", MATMUL_KERNELS)))
+               ("w8a16_gemm", ("w8a16",)), ("lora", ("lora_kernel",)),
+               ("matmul", MATMUL_KERNELS)))
     device_ms = sum(classes.values())
     device_ops = sum(1 for ev in prof.events()
                      if ev.device_type == DeviceType.CUDA)
@@ -4405,6 +5043,15 @@ PLANTED_FAULTS = (
     ("sampler_top_tie_high", "sample_slots.cu",
      "constexpr bool kTopLowFirst = true;",
      "constexpr bool kTopLowFirst = false;", ("sample_slots",)),
+    ("lora_wrong_slot", "lora.cu",
+     "sslot[pos] = s;", "sslot[pos] = s > 0 ? s - 1 : s;",
+     ("lora", "parity_lora")),
+    ("lora_base_rows_written", "lora.cu",
+     "take = p.slots == nullptr || s != 0;",
+     "take = true; if (p.slots) s = max(s, 1);", ("lora", "parity_lora")),
+    ("lora_dropped_rank", "lora.cu",
+     "if (j < r) u = fmaf(z[i][j], bv[j], u);",
+     "if (j < r - 1) u = fmaf(z[i][j], bv[j], u);", ("lora", "parity_lora")),
 )
 
 _FAULT_PHASES = """
@@ -4413,13 +5060,17 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.CHECK_ONLY = True
 dev = torch.device("cuda")
+if "parity_lora" in sys.argv[1:]:
+    cs.phase_build(gemm_report=False)   # every library at once
 phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention": cs.ragged_cases(dev),
           "ragged_paged_attention_int8": cs.ragged_cases(dev, True),
           "ragged_decode": cs.decode_cases(dev),
           "sample_slots": cs.sample_cases(dev),
           "grammar_mask": cs.grammar_cases(dev),
-          "w8a16_gemm": cs.gemm_cases(dev)}
+          "w8a16_gemm": cs.gemm_cases(dev),
+          "lora": cs.lora_cases(dev),
+          "parity_lora": cs.parity_lora_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -4464,6 +5115,8 @@ if "gemm" in parts:
     out["w8a16_gemm"] = cs.ab_gemm(dev)
 if "grammar" in parts:
     out["grammar_mask"] = cs.ab_grammar(dev)
+if "lora" in parts:
+    out["lora"] = cs.ab_lora(dev)
 if not set(parts) & {"attention", "sampling", "gemm"}:
     print(json.dumps(out))
     sys.exit(0)
@@ -4484,6 +5137,7 @@ if "gemm" in parts:
 print(json.dumps(out))
 """
 AB_PARTS = ("attention", "sampling", "gemm", "grammar")
+AB_NAMED_ONLY = ("lora",)    # parts run only when named
 
 
 def ab(trees, parts=AB_PARTS) -> None:
@@ -4495,8 +5149,10 @@ def ab(trees, parts=AB_PARTS) -> None:
     call at the sampler's cases and ``profile_sampled``), "gemm" (every
     W8A16 GEMM case's device ms and host us a call, and ``profile_w8``),
     "grammar" (``ab_grammar``: the grammar mask's seven inputs and the
-    sampler's option cases with a mask)."""
-    unknown = set(parts) - set(AB_PARTS)
+    sampler's option cases with a mask), "lora" (``ab_lora``: every LoRA
+    case; both trees must have the kernel, so it runs only when
+    named)."""
+    unknown = set(parts) - set(AB_PARTS + AB_NAMED_ONLY)
     if unknown:
         raise AssertionError(f"no A/B part named {sorted(unknown)}")
     order = [trees[0], trees[1], trees[1], trees[0]]
@@ -4613,15 +5269,20 @@ def main() -> int:
     results["grammar_mask"] = timed("kernel:grammar_mask", phase_grammar,
                                     dev)
     torch.cuda.empty_cache()
+    results["lora"] = timed("kernel:lora", phase_lora, dev)
+    torch.cuda.empty_cache()
     results["w8a16_gemm"] = timed("kernel:w8a16_gemm", phase_gemm, dev)
     torch.cuda.empty_cache()
     timed("parity", phase_parity, dev)
     torch.cuda.empty_cache()
     timed("parity_w8", phase_parity_w8, dev)
     torch.cuda.empty_cache()
+    timed("parity_lora", phase_parity_lora, dev)
+    torch.cuda.empty_cache()
+    paths = {"dense_lora": timed("dense_lora", phase_dense_lora, dev)}
+    torch.cuda.empty_cache()
     cfg, params, init_s = draw_8b(dev)
     emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)
-    paths = {}
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
         paths["serve" + tag], core = timed("serve" + tag, phase_serve, dev,
                                            cfg, params, kv_quant)
@@ -4663,13 +5324,28 @@ def main() -> int:
     emit("profile_pipeline", **timed("profile_pipeline", profile_pipeline,
                                      dev, cfg, params))
     torch.cuda.empty_cache()
-    core = serving_core(dev, cfg, params, "int8", **NARROW)
-    emit("profile_int8", **timed("profile_int8", profile_decode, core))
-    emit("profile_prefill_int8", **timed("profile_prefill_int8",
-                                         profile_prefill, core))
+    # the int8 pool's narrow decode and prefill profiles were cut to keep
+    # the smoke's time (profile_lora took their place); serve_int8 and
+    # serve_prefix_int8 still run the int8 pool
+    paths["dense"] = timed("dense", phase_dense, dev, cfg, params)
+    torch.cuda.empty_cache()
+    # per-request LoRA before serve_w8, which quantizes params in place
+    adapters = smoke_adapters(dev, cfg, LORA_NAMES, torch.bfloat16, 50, 0.02)
+    paths["serve_lora"], core = timed(
+        "serve_lora", lambda: phase_serve(dev, cfg, params, name="serve_lora",
+                                          adapters=adapters))
+    # profile_wide's W = 5 step with the base model and the three adapters
+    # in turn over the slots
+    emit("profile_lora", **timed("profile_lora", profile_decode, core,
+                                 spec_width=5, adapters=len(adapters)))
     del core
     torch.cuda.empty_cache()
-    paths["dense"] = timed("dense", phase_dense, dev, cfg, params)
+    # the same adapters resident, every request the base model's
+    paths["serve_lora_base"], core = timed(
+        "serve_lora_base", lambda: phase_serve(
+            dev, cfg, params, name="serve_lora_base", adapters=adapters,
+            adapter_traffic=False))
+    del adapters, core
     torch.cuda.empty_cache()
     # the checkpoint path before serve_w8, which quantizes params in place
     paths.update(timed("serve_ckpt", phase_serve_ckpt, dev, cfg, params,
@@ -4715,6 +5391,10 @@ def main() -> int:
             "grammar_mask.cu",
             "generativeaiexamples_tpu/ops/sampling.py:66-108 (grammar_mask: "
             "an XLA program, no Pallas kernel)", "serve_tools"),
+        "lora": (
+            "lora.cu",
+            "generativeaiexamples_tpu/models/llama.py:271-303 (_maybe_lora: "
+            "an XLA program, no Pallas kernel)", "serve_lora"),
     }
     kernels = []
     for name, (source, replaces, path) in table.items():
@@ -4736,7 +5416,8 @@ def main() -> int:
                 "tokens_off_the_mask", "advance_mismatches",
                 "top_id_mismatches", "top_max_abs_err", "top_tie_rows",
                 "bit_mismatches", "constrained_rows", "walked_bytes",
-                "floor_ms", "failsafe_rows", "accepting_rows")
+                "floor_ms", "failsafe_rows", "accepting_rows",
+                "base_rows_bit_equal", "adapter_rows", "plan_cols")
         entry.update({key: res[key] for key in keys if key in res})
         for sub, val in res.items():      # the phase's other cases
             if isinstance(val, dict) and "ms" in val:

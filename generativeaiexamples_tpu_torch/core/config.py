@@ -26,7 +26,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "role": ("A7 (KV handoff / disaggregated roles)", "unified"),
     "decode_steps_max": ("A5 (adaptive dispatch depth)", "0"),
     "decode_multistep": ("A5 (decode_multi)", "0"),
-    "max_adapters": ("A3/A5 (LoRA)", "0"),
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
     "devtime": ("A6 (device-time ledger)", "off"),
     "qos": ("A6 (QoS plane)", "off"),
@@ -91,6 +90,11 @@ class EngineConfig:
     # pure-decode dispatches run at the smallest batch-width rung covering
     # the highest live slot: on | off (full batch only)
     decode_width_ladder: str = "on"
+    # resident LoRA adapter slots for per-request multi-adapter serving
+    # (slot 0 is the base model); requests select an adapter by its
+    # registered name (the OpenAI `model` field) and one decode batch mixes
+    # adapters freely
+    max_adapters: int = 4
 
     def __post_init__(self) -> None:
         if self.pipeline_depth < 1:

@@ -21,7 +21,11 @@ on for a CUDA device, off on the CPU; ``on`` runs it on the CPU too). Two
 decode dispatches stay in flight (``APP_ENGINE_PIPELINE_DEPTH``), ramps
 hold decode for up to 16 prefill chunks (``APP_ENGINE_PREFILL_HOLD_CHUNKS``)
 and pure decode dispatches take the narrowest batch-width rung
-(``APP_ENGINE_DECODE_WIDTH_LADDER``). Before it listens, the server runs
+(``APP_ENGINE_DECODE_WIDTH_LADDER``). Per-request LoRA adapters are
+served once registered (``EngineCore.register_adapter``); loading them
+from ``APP_ENGINE_ADAPTERS`` directories (the reference's orbax
+checkpoints) waits for ROADMAP A.15, and a non-empty value exits with a
+message that says so. Before it listens, the server runs
 ``EngineCore.warmup`` (every program once, the grammared and top-logprob
 variants too, building every kernel on the card) and prints its seconds.
 """
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 
 import torch
 
@@ -47,6 +52,15 @@ from generativeaiexamples_tpu_torch.models import (
 def build_scheduler(tiny: bool = False, device=None, seed: int = 0) -> tuple:
     """(Scheduler, model name) for the configured model on ``device``
     (``cuda`` unless the caller asks for another; raises with no GPU)."""
+    spec = os.environ.get("APP_ENGINE_ADAPTERS", "").strip()
+    if spec:
+        # adapter directories are train/lora.py save_adapters' orbax
+        # checkpoints there
+        raise SystemExit(
+            f"APP_ENGINE_ADAPTERS={spec!r}: loading adapter directories "
+            f"(orbax checkpoints, train/checkpoints.py) is not ported yet "
+            f"(ROADMAP A.15); register adapters with "
+            f"EngineCore.register_adapter")
     dev = resolve_device(device)
     cfg = get_config()
     quant = cfg.engine.quant.strip().lower()

@@ -64,7 +64,18 @@ speculation a constrained slot's drafts are voided and only position 0 is
 masked. ``want_top`` adds ``TOP_LP`` id rows and ``TOP_LP`` logprob rows
 of each position's raw logits to the packed block, as the reference's.
 
-Not ported here: ``decode_multi``, LoRA, KV handoff, tensor parallelism
+Per-request multi-LoRA (the reference's stacked adapter serving):
+:meth:`EngineCore.register_adapter` installs a trained adapter tree
+(``train/lora.py`` layout) into one of ``max_adapters`` resident slots
+(slot 0 is the all-zero base model), each slot's adapter index rides
+``DecodeState.adapter_ix``, and every projection of every forward adds its
+rows' low-rank updates (``ops/lora.py``: one ``lora_apply`` launch a
+projection on the card). An ``adapters=`` tree given to the constructor is
+global instead: every row takes it, and no adapter can be registered. While
+any adapter tree is resident the mixed-phase dispatch is off, as there
+(``mixed_step`` runs base weights only).
+
+Not ported here: ``decode_multi``, KV handoff, tensor parallelism
 (ROADMAP A2, A5, A7, A11). Their config knobs are refused in
 ``core/config.py``.
 """
@@ -72,6 +83,7 @@ Not ported here: ``decode_multi``, LoRA, KV handoff, tensor parallelism
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import os
 import time
@@ -90,6 +102,7 @@ from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops import quant as quant_ops
 from generativeaiexamples_tpu_torch.ops import sampling, threefry
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
+from generativeaiexamples_tpu_torch.ops.cuda import lora as lora_kernels
 from generativeaiexamples_tpu_torch.ops.cuda import quant as quant_kernels
 from generativeaiexamples_tpu_torch.ops.speculative import (
     acceptance, draft_lookup)
@@ -163,6 +176,7 @@ class PrefillItem:
     top_p: float = 1.0
     gram_state: int = 0           # flat DFA state of the first token (0: none)
     seed: int = 0                 # per-request sampling seed
+    adapter_ix: int = 0           # resident LoRA slot (0 = base model)
 
 
 def unpack_decode_out(packed: np.ndarray) -> Dict[str, np.ndarray]:
@@ -306,8 +320,7 @@ class HostCopy:
 @dataclasses.dataclass
 class DecodeState:
     """Fixed-capacity slot batch for continuous decoding; device tensors
-    are (B,) and updated in place by the engine. The TPU package's adapter
-    index is not ported (LoRA is ROADMAP A3)."""
+    are (B,) and updated in place by the engine."""
 
     cache: PagedKVCache
     tokens: torch.Tensor        # (B,) i32 last token per slot
@@ -320,6 +333,7 @@ class DecodeState:
     rngs: torch.Tensor          # (B, 2) i64 raw threefry key, PRNGKey(seed)
     last_logprob: torch.Tensor  # (B,) f32 model logprob of tokens[b]
     gram_state: torch.Tensor    # (B,) i32 flat DFA state; <= 0 unconstrained
+    adapter_ix: torch.Tensor    # (B,) i32 resident LoRA slot (0 = base)
     # (B, max_seq + 1) i32: each slot's token at each absolute position,
     # valid through index cache.lengths[b] inclusive (the token fed next);
     # written by prefill chunks, activation and decode appends, read by
@@ -340,7 +354,8 @@ class DecodeState:
             temperature=sl(self.temperature), top_k=sl(self.top_k),
             top_p=sl(self.top_p), rngs=sl(self.rngs),
             last_logprob=sl(self.last_logprob),
-            gram_state=sl(self.gram_state), history=sl(self.history))
+            gram_state=sl(self.gram_state), adapter_ix=sl(self.adapter_ix),
+            history=sl(self.history))
 
     def merge(self, narrow: "DecodeState") -> None:
         """Write a :meth:`rows` view's rebound per-slot fields back."""
@@ -355,7 +370,9 @@ class EngineCore:
     thread (the scheduler)."""
 
     def __init__(self, model_cfg: llama.LlamaConfig, engine_cfg: EngineConfig,
-                 params: llama.Params, eos_id: int, device=None) -> None:
+                 params: llama.Params, eos_id: int, device=None,
+                 adapters: Optional[Dict[str, Dict[str, Any]]] = None
+                 ) -> None:
         self.device = resolve_device(device)
         attn = engine_cfg.attention
         if attn == "auto":
@@ -521,6 +538,17 @@ class EngineCore:
         self._tok_bytes8: Optional[torch.Tensor] = None
         self._tok_lens8: Optional[torch.Tensor] = None
         self._tok_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # LoRA: a global tree (every row) given here, or the stacked slots
+        # register_adapter fills ({target: {"a": (L, N, r, in), "b": (L, N,
+        # out, r)}} in the model dtype); the names map to slots, and each
+        # registered tree's digest makes a re-registration idempotent
+        self.adapters: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self._adapter_names: Dict[str, int] = {"": 0}
+        self._adapters_stacked = False
+        self._adapter_digests: Dict[str, str] = {}
+        if adapters is not None:
+            self.adapters = {target: {"a": a, "b": b} for target, a, b in
+                             self._adapter_leaves(adapters, "global")}
 
     @property
     def mixed_row_queries(self) -> int:
@@ -534,8 +562,18 @@ class EngineCore:
     @property
     def mixed_supported(self) -> bool:
         """Mixed-phase dispatch (one forward = decode step + prefill
-        chunks, ``kv_cache.mixed_step``) is on for this engine."""
-        return self._mixed
+        chunks, ``kv_cache.mixed_step``) is on for this engine: the
+        init-time gate held and no adapter tree is resident (the fused
+        forward runs base weights for every row, so the first
+        ``register_adapter`` turns it off and the scheduler takes the
+        two-dispatch path)."""
+        return self._mixed and self.adapters is None
+
+    def _lora(self, adapter_ix: Optional[torch.Tensor]) -> Dict[str, Any]:
+        """The paged passes' adapter arguments: the resident tree, and the
+        rows' slots when it is stacked."""
+        return dict(adapters=self.adapters,
+                    adapter_ix=adapter_ix if self._adapters_stacked else None)
 
     # ------------------------------------------------------------------ state
 
@@ -554,6 +592,7 @@ class EngineCore:
             top_p=torch.ones((B,), dtype=torch.float32, device=dev),
             rngs=torch.zeros((B, 2), dtype=torch.int64, device=dev),
             last_logprob=z(torch.float32), gram_state=z(torch.int32),
+            adapter_ix=z(torch.int32),
             history=torch.zeros((B, self.max_seq + 1), dtype=torch.int32,
                                 device=dev))
 
@@ -743,6 +782,10 @@ class EngineCore:
         # activation sets (or clears) the slot's DFA state
         state.gram_state[sl] = (extra["next_state"][ix] if use_grammar
                                 else torch.zeros_like(sl, dtype=torch.int32))
+        if self._adapters_stacked:
+            # the slot's adapter from its first token on (0: base)
+            state.adapter_ix[sl] = self._up(
+                np.array([items[i].adapter_ix for i in rows], np.int32))
         state.history[sl, col] = toks[ix]
         return toks
 
@@ -778,10 +821,12 @@ class EngineCore:
             start_pos[i] = it.start_pos
             chunk_len[i] = n
         t = self._up
+        ixs = (t(np.array([it.adapter_ix for it in items], np.int32))
+               if self._adapters_stacked else None)
         logits = kv_cache.prefill_chunks(
             self.params, self.model_cfg, t(tokens), state.cache,
             t(page_rows), t(self._length_slots(items, G)), t(start_pos),
-            t(chunk_len), self.num_pages)
+            t(chunk_len), self.num_pages, **self._lora(ixs))
         self._write_chunk_history(state, items)
         return state, self._activate_rows(state, logits, items)
 
@@ -834,7 +879,7 @@ class EngineCore:
         if forward is None:
             forward = lambda toks: kv_cache.decode_step(
                 self.params, self.model_cfg, toks, cache, page_table,
-                state.active, self.num_pages)
+                state.active, self.num_pages, **self._lora(state.adapter_ix))
         prev_len = cache.lengths.clone()
         logits = forward(state.tokens)
         active = state.active
@@ -883,7 +928,7 @@ class EngineCore:
         if forward is None:
             forward = lambda inputs: kv_cache.decode_step_wide(
                 self.params, self.model_cfg, inputs, cache, page_table,
-                state.active, self.num_pages)
+                state.active, self.num_pages, **self._lora(state.adapter_ix))
         L = cache.lengths.to(torch.int64)
         draft, dlen = draft_lookup(state.history[:, :self.max_seq], L, W - 1,
                                    self.cfg.spec_ngram)
@@ -1128,7 +1173,8 @@ class EngineCore:
         """Start decoding a prefilled slot (lengths set by its last chunk;
         ``generated`` counts tokens already produced, >= 1); the token
         enters history at the slot's length, the slot's key becomes
-        ``PRNGKey(seed)`` and its DFA state ``gram_state``."""
+        ``PRNGKey(seed)``, its DFA state ``gram_state`` and its adapter the
+        base model, as the reference's ``activate``."""
         state.history[slot, state.cache.lengths[slot].long()
                       .clamp_max(self.max_seq - 1)] = token
         state.tokens[slot] = token
@@ -1141,6 +1187,7 @@ class EngineCore:
         state.rngs[slot] = self._up(threefry.prng_key(seed))
         state.last_logprob[slot] = 0.0
         state.gram_state[slot] = gram_state
+        state.adapter_ix[slot] = 0
         return state
 
     @torch.no_grad()
@@ -1171,6 +1218,131 @@ class EngineCore:
         state.history[slot, :self.max_seq] = self._up(row)
         return state
 
+    # ------------------------------------------------- multi-LoRA serving
+
+    def _adapter_leaves(self, tree, name: str):
+        """(target, a, b) of an adapter tree in the model dtype on the
+        device, each leaf checked against the model's dimensions (a (L, r,
+        in), b (L, out, r)) and, on the card, against what the kernel
+        takes. Raises ValueError naming ``name``."""
+        from generativeaiexamples_tpu_torch.train import lora as lora_mod
+        cfg, dt = self.model_cfg, self.model_cfg.torch_dtype
+        out = []
+        for target in sorted(tree):
+            if target not in lora_mod.TARGETS:
+                raise ValueError(f"adapter {name!r}: unknown target "
+                                 f"{target!r}; valid: {list(lora_mod.TARGETS)}")
+            a = torch.as_tensor(tree[target]["a"])
+            b = torch.as_tensor(tree[target]["b"])
+            d_in, d_out = lora_mod.target_dims(cfg, target)
+            L, r = cfg.n_layers, a.shape[1] if a.dim() == 3 else -1
+            if (tuple(a.shape) != (L, r, d_in)
+                    or tuple(b.shape) != (L, d_out, r)):
+                raise ValueError(
+                    f"adapter {name!r} target {target!r}: a "
+                    f"{tuple(a.shape)}, b {tuple(b.shape)}; the model takes "
+                    f"a (L, r, in) = ({L}, r, {d_in}) and b (L, out, r) = "
+                    f"({L}, {d_out}, r)")
+            if self.device.type == "cuda" and not \
+                    lora_kernels.lora_supported(r, d_in, dt):
+                raise ValueError(
+                    f"adapter {name!r}: rank {r} on {target!r} ({d_in} "
+                    f"inputs) is outside the lora_apply kernel's limits for "
+                    f"{dt}; it takes ranks "
+                    f"{list(lora_kernels.supported_ranks(dt))}")
+            out.append((target, a.to(self.device, dt).contiguous(),
+                        b.to(self.device, dt).contiguous()))
+        return out
+
+    @staticmethod
+    def _adapter_digest(tree) -> str:
+        """A digest of a tree's exact values (as f32) and layout: a
+        re-registration is idempotent only on bit-equal weights."""
+        h = hashlib.sha256()
+        for target in sorted(tree):
+            for key in ("a", "b"):
+                leaf = torch.as_tensor(tree[target][key]).detach()
+                h.update(f"{target}.{key}{tuple(leaf.shape)}".encode())
+                h.update(leaf.to("cpu", torch.float32).contiguous()
+                         .numpy().tobytes())
+        return h.hexdigest()
+
+    def register_adapter(self, name: str, tree) -> int:
+        """Install a trained adapter tree (``train/lora.py`` layout: leaves
+        (L, r, in) / (L, out, r)) into a resident slot and return the slot;
+        requests select it by name (``Request.adapter``, the OpenAI
+        ``model`` field). The first registration fixes the slots' layout
+        (targets and rank) and turns the mixed-phase dispatch off (register
+        before ``warmup``). Slot 0 stays the all-zero base model.
+        Idempotent on bit-equal weights; a rebind of a name to other
+        weights, a layout that differs from the resident one, more than
+        ``max_adapters`` slots, a rank the kernel does not take (on the
+        card) and an engine built with a global tree raise ValueError."""
+        if not name:
+            raise ValueError("adapter name must be non-empty")
+        if name in self._adapter_names:
+            # No-rebind invariant: a registered name maps to the SAME
+            # weights forever. The scheduler's prefix-cache hash seed
+            # namespaces KV pages by adapter NAME alone, so rebinding a
+            # name to new weights would serve pages computed under the old
+            # ones. The comparison is exact: a fine-tune whose deltas sit
+            # under a tolerance must not be absorbed as identical.
+            if self._adapter_digest(tree) != self._adapter_digests[name]:
+                raise ValueError(
+                    f"adapter {name!r} is already registered with "
+                    f"different weights; rebinding is not supported — "
+                    f"prefix-cache pages are namespaced by adapter name "
+                    f"and would go stale. Register under a new name.")
+            return self._adapter_names[name]
+        if self.adapters is not None and not self._adapters_stacked:
+            raise ValueError(
+                "engine was built with a global adapter tree; per-request "
+                "adapters need a base-only engine (serve the global tree "
+                "merged, or register it as a named adapter instead)")
+        N = self.cfg.max_adapters
+        ix = len(self._adapter_names)
+        if ix >= N:
+            raise ValueError(f"all {N} adapter slots in use "
+                             f"(APP_ENGINE_MAX_ADAPTERS)")
+        leaves = self._adapter_leaves(tree, name)
+        if not self._adapters_stacked:
+            # (L, ...) -> (L, N, ...) zero-initialized slot stack
+            self.adapters = {
+                target: {key: torch.zeros(
+                    (leaf.shape[0], N) + tuple(leaf.shape[1:]),
+                    dtype=leaf.dtype, device=leaf.device)
+                    for key, leaf in (("a", a), ("b", b))}
+                for target, a, b in leaves}
+            self._adapters_stacked = True
+        # a rank- or target-mismatched adapter fails loudly here: all
+        # resident adapters share the first registration's layout
+        layout = {t: tuple((s.shape[0],) + tuple(s.shape[2:])
+                           for s in (ab["a"], ab["b"]))
+                  for t, ab in self.adapters.items()}
+        got = {t: (tuple(a.shape), tuple(b.shape)) for t, a, b in leaves}
+        if got != layout:
+            raise ValueError(
+                f"adapter {name!r} leaf shapes {got} do not match the "
+                f"resident slot layout {layout} — all resident adapters "
+                f"must share rank/targets (first registration fixes the "
+                f"layout)")
+        for target, a, b in leaves:
+            self.adapters[target]["a"][:, ix] = a
+            self.adapters[target]["b"][:, ix] = b
+        self._adapter_names[name] = ix
+        self._adapter_digests[name] = self._adapter_digest(tree)
+        return ix
+
+    def adapter_index(self, name: str) -> int:
+        """Resolve a request's adapter name (KeyError for an unknown one:
+        the scheduler fails the request loudly, never serving base weights
+        under a fine-tune's name)."""
+        return self._adapter_names[name or ""]
+
+    @property
+    def adapter_names(self) -> List[str]:
+        return [n for n in self._adapter_names if n]
+
     # ----------------------------------------------------------------- warmup
 
     @torch.no_grad()
@@ -1188,10 +1360,11 @@ class EngineCore:
         grammared and top-logprob dispatches) with ``use_grammar`` and
         ``want_top``, and one mixed dispatch with both, each run once; the
         other ``want_top`` and mixed-bucket crossings stay cold, as the
-        reference leaves them. On the card this builds every kernel and
-        touches every shape before the first request. The rows write to
-        the null page and end at once (budget 0). Returns the seconds it
-        took, the device included."""
+        reference leaves them. With adapters registered the warmup rows
+        take slot 1, so every program runs the adapter update. On the card
+        this builds every kernel and touches every shape before the first
+        request. The rows write to the null page and end at once (budget
+        0). Returns the seconds it took, the device included."""
         t0 = time.perf_counter()
         gram_start = 0
         if tokenizer is not None:
@@ -1204,11 +1377,14 @@ class EngineCore:
             (self.batch, self.max_pages_per_slot), np.int32))
         steps = self.cfg.decode_steps_per_dispatch
 
+        ix = 1 if self._adapters_stacked else 0
+
         def items(g, last, gs=0):
             return [PrefillItem(chunk_ids=[1] * min(4, self.chunk),
                                 page_row=zero_row, slot=i % self.batch,
                                 start_pos=0, is_last=last(i), generated=1,
-                                max_gen=0, temperature=1.0, gram_state=gs)
+                                max_gen=0, temperature=1.0, gram_state=gs,
+                                adapter_ix=ix)
                     for i in range(g)]
 
         for g in self.group_buckets:

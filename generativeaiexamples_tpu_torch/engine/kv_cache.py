@@ -19,6 +19,12 @@ gather (dequantized in the model dtype for an int8 pool) plus
 :func:`mha_prefill` (the TPU package's XLA path). Prefill over an int8
 pool writes the quantized chunk first and then attends to a dequantized
 dense view, the chunk included, as the reference does.
+
+LoRA: :func:`prefill_chunks`, :func:`prefill_chunk`,
+:func:`decode_step_wide` and :func:`decode_step` take ``adapters`` (a
+global tree, or the engine's stacked slots with each row's slot in
+``adapter_ix``) into every projection (``llama.run_blocks``);
+:func:`mixed_step` runs base weights only, as there, and refuses them.
 """
 
 from __future__ import annotations
@@ -184,7 +190,9 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
                    tokens: torch.Tensor, cache: PagedKVCache,
                    page_rows: torch.Tensor, slots: torch.Tensor,
                    start_pos: torch.Tensor, chunk_len: torch.Tensor,
-                   num_pages: int) -> torch.Tensor:
+                   num_pages: int, adapters: Optional[llama.Params] = None,
+                   adapter_ix: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """One chunk each for G rows in one pass; updates ``cache`` in place.
 
     tokens: (G, C) right-padded chunks, C page-aligned; page_rows: (G,
@@ -192,7 +200,8 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
     the batch size (padding rows, or all but the newest chunk of a slot)
     are dropped. Consecutive chunks of one prompt may share a group: every
     layer writes all rows' K/V before any row's attention reads, so a later
-    chunk sees the earlier one. start_pos, chunk_len: (G,). Returns logits
+    chunk sees the earlier one. start_pos, chunk_len: (G,); adapter_ix:
+    (G,) each row's adapter slot under stacked ``adapters``. Returns logits
     at each row's last valid position, (G, V) float32.
     """
     G, C = tokens.shape
@@ -232,7 +241,8 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
                                causal=True)
         return attn
 
-    h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer)
+    h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer, adapters,
+                         adapter_ix)
     last = (chunk_len.to(torch.int64) - 1).clamp_min(0)
     h_last = h[torch.arange(G, device=dev), last][:, None]          # (G, 1, D)
     logits = llama._unembed(cfg, params, h_last)[:, 0]
@@ -248,26 +258,34 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
 def prefill_chunk(params: llama.Params, cfg: llama.LlamaConfig,
                   tokens: torch.Tensor, cache: PagedKVCache,
                   page_row: torch.Tensor, slot: int, start_pos: int,
-                  chunk_len: int, num_pages: int) -> torch.Tensor:
+                  chunk_len: int, num_pages: int,
+                  adapters: Optional[llama.Params] = None,
+                  adapter_ix: Optional[int] = None) -> torch.Tensor:
     """One chunk for a single slot: :func:`prefill_chunks` with G = 1.
-    tokens: (1, C); page_row: (maxp,). Returns (1, V) logits at the last
-    valid position; ``lengths[slot] = start_pos + chunk_len``."""
+    tokens: (1, C); page_row: (maxp,); adapter_ix: the slot's adapter slot
+    under stacked ``adapters``. Returns (1, V) logits at the last valid
+    position; ``lengths[slot] = start_pos + chunk_len``."""
     dev = tokens.device
     i32 = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)
     return prefill_chunks(params, cfg, tokens, cache, page_row[None],
                           i32(slot), i32(start_pos), i32(chunk_len),
-                          num_pages)
+                          num_pages, adapters,
+                          None if adapter_ix is None else i32(adapter_ix))
 
 
 def decode_step_wide(params: llama.Params, cfg: llama.LlamaConfig,
                      tokens: torch.Tensor, cache: PagedKVCache,
                      page_table: torch.Tensor, write_mask: torch.Tensor,
-                     num_pages: int) -> torch.Tensor:
+                     num_pages: int, adapters: Optional[llama.Params] = None,
+                     adapter_ix: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Q-token decode step: tokens (B, Q) occupy positions lengths[b] ..
     lengths[b]+Q-1. Their K/V are written into the slot's pages in place
     (rows past the table's capacity, and every row of a masked-out slot,
     land on the null page); query qi attends positions < lengths[b]+qi+1.
-    Returns logits (B, Q, V); ``lengths`` is left unchanged."""
+    ``adapter_ix`` (B,): each slot's adapter slot under stacked
+    ``adapters``. Returns logits (B, Q, V); ``lengths`` is left
+    unchanged."""
     B, Q = tokens.shape
     ps = cache.page_size
     maxp = page_table.shape[1]
@@ -309,7 +327,8 @@ def decode_step_wide(params: llama.Params, cfg: llama.LlamaConfig,
                                causal=True)
         return attn
 
-    h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer)
+    h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer, adapters,
+                         adapter_ix)
     return llama._unembed(cfg, params, h)
 
 
@@ -334,7 +353,8 @@ def mixed_step(params: llama.Params, cfg: llama.LlamaConfig,
                page_table: torch.Tensor, write_mask: torch.Tensor,
                num_pages: int, chunk_tokens: torch.Tensor,
                chunk_page_rows: torch.Tensor, chunk_start: torch.Tensor,
-               chunk_len: torch.Tensor, q_block: int = 8
+               chunk_len: torch.Tensor, q_block: int = 8,
+               adapters: Optional[llama.Params] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward of a Q-wide decode step for every slot plus up to G
     prefill chunks, as one token axis (the mixed-phase dispatch).
@@ -353,8 +373,12 @@ def mixed_step(params: llama.Params, cfg: llama.LlamaConfig,
     two-dispatch math. Updates the pool in place; ``lengths`` is left
     unchanged (the engine sets it from accepted counts and chunk ends).
     Returns (decode logits (B, Q, V), logits at each chunk's last valid
-    position (G, V)).
+    position (G, V)). Base weights only: ``adapters`` raises (the engine
+    turns the mixed dispatch off while adapters are resident).
     """
+    if adapters is not None:
+        raise ValueError("mixed_step runs base weights only: the mixed "
+                         "dispatch is off while adapters are resident")
     B, Q = tokens.shape
     G, C = chunk_tokens.shape
     ps = cache.page_size
@@ -469,12 +493,14 @@ def mixed_step(params: llama.Params, cfg: llama.LlamaConfig,
 def decode_step(params: llama.Params, cfg: llama.LlamaConfig,
                 tokens: torch.Tensor, cache: PagedKVCache,
                 page_table: torch.Tensor, write_mask: torch.Tensor,
-                num_pages: int) -> torch.Tensor:
+                num_pages: int, adapters: Optional[llama.Params] = None,
+                adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step for every slot, the Q == 1 case of
-    :func:`decode_step_wide`. tokens: (B,). Returns logits (B, V) and
-    advances every slot's ``lengths`` by one in place (the engine restores
-    inactive slots')."""
+    :func:`decode_step_wide` (``adapters`` and ``adapter_ix`` as there).
+    tokens: (B,). Returns logits (B, V) and advances every slot's
+    ``lengths`` by one in place (the engine restores inactive slots')."""
     logits = decode_step_wide(params, cfg, tokens[:, None], cache,
-                              page_table, write_mask, num_pages)
+                              page_table, write_mask, num_pages, adapters,
+                              adapter_ix)
     cache.lengths += 1
     return logits[:, 0]

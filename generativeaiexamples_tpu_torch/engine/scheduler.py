@@ -52,8 +52,15 @@ degrades the request to unconstrained and sets ``grammar_attached``
 False). A dispatch with a grammared slot or a top-logprob request runs at
 the ceiling width and the full batch.
 
-Not ported (their Request fields raise): LoRA adapters, KV handoff
-(ROADMAP A3, A7); nor spill/tier, QoS, SLO, metrics and flight planes and
+Per-request LoRA, as there: a request names a registered adapter in
+``Request.adapter``; admission resolves it to its resident slot
+(``EngineCore.adapter_index``) and fails an unknown name loudly, the
+prefix cache's chain seed ``"{epoch}|{adapter}"`` keeps each adapter's
+pages apart, and an adapter'd job never rides a mixed dispatch (the
+engine turns that dispatch off while adapters are resident).
+
+Not ported (their Request fields raise): KV handoff (ROADMAP A7); nor
+spill/tier, QoS, SLO, metrics and flight planes and
 the multi-step plan (A5, A6). Dispatch, speculation, prefix-cache,
 admission and pipelining counters live in ``Scheduler.stats``.
 """
@@ -128,8 +135,9 @@ class Request:
     grammar_prefix: str = ""
     grammar_spec: Optional[tuple] = None
     grammar_attached: Optional[bool] = None
-    # not ported yet; setting either raises
+    # a registered LoRA adapter's name ("" = the base model)
     adapter: str = ""
+    # not ported yet; setting it raises
     prefill_only: bool = False
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
@@ -147,12 +155,10 @@ class Request:
     finish_reason: Optional[str] = None
 
     def __post_init__(self) -> None:
-        for name, item in (("adapter", "A3/A5 (LoRA)"),
-                           ("prefill_only", "A7 (KV handoff)")):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"Request.{name} is not served by the PyTorch port yet "
-                    f"(ROADMAP {item})")
+        if self.prefill_only:
+            raise NotImplementedError(
+                "Request.prefill_only is not served by the PyTorch port yet "
+                "(ROADMAP A7 (KV handoff))")
 
 
 @dataclass
@@ -186,6 +192,7 @@ class _Job:
     first_epoch: int = 0          # bumps per (re-)prefill: a stale fetch of
                                   # a preempted, re-admitted job is dropped
     gram_on: bool = False         # its grammar is attached on the device
+    adapter_ix: int = 0           # resident LoRA slot (0 = base model)
 
 
 @dataclass
@@ -530,9 +537,17 @@ class Scheduler:
                 return
             chosen: Optional[_Job] = None
             oversized: Optional[_Job] = None
+            bad_adapter: Optional[_Job] = None
             plan = None
             head = cands[0]
             for pos, job in enumerate(cands):
+                if job.request.adapter:
+                    try:
+                        job.adapter_ix = self.core.adapter_index(
+                            job.request.adapter)
+                    except KeyError:
+                        bad_adapter = job
+                        break
                 n = len(job.ids)
                 need = self.core.pages_for(n)
                 # a fresh prompt's first decode writes at n (peak n + 1); a
@@ -553,6 +568,14 @@ class Scheduler:
                     head.bypass_count += 1
                     self.stats["admission_skips"] += 1
                     break
+            if bad_adapter is not None:
+                # never serve base weights under a fine-tune's name
+                with self._lock:
+                    self._pending.remove(bad_adapter)
+                self._fail(bad_adapter,
+                           f"unknown adapter {bad_adapter.request.adapter!r}"
+                           f"; registered: {self.core.adapter_names}")
+                continue
             if oversized is not None:
                 job = oversized
                 with self._lock:
@@ -643,7 +666,7 @@ class Scheduler:
                     temperature=req.temperature, top_k=req.top_k,
                     top_p=req.top_p,
                     gram_state=self._gram_state_for(job) if last else 0,
-                    seed=req.seed or 0))
+                    seed=req.seed or 0, adapter_ix=job.adapter_ix))
                 start += len(chunk_ids)
                 if last:
                     finals.append(job)
@@ -925,7 +948,10 @@ class Scheduler:
         ``prefill_chunk`` of the block-table row's end (a cache hit left it
         at a page, not a chunk, boundary): the mixed program pads every
         chunk to ``prefill_chunk`` positions, which would pass the row, so
-        that chunk takes the grouped path, which pads to pages."""
+        that chunk takes the grouped path, which pads to pages. Nor an
+        adapter'd job: the mixed program runs base weights only."""
+        if job.adapter_ix or job.request.adapter:
+            return False
         if job.prefilled + self.core.chunk > self.core.row_tokens:
             return False
         remaining = len(job.ids) - job.prefilled
@@ -961,7 +987,7 @@ class Scheduler:
                 temperature=req.temperature, top_k=req.top_k,
                 top_p=req.top_p,
                 gram_state=self._gram_state_for(job) if last else 0,
-                seed=req.seed or 0))
+                seed=req.seed or 0, adapter_ix=job.adapter_ix))
             metas.append((job, last))
         return items, metas
 

@@ -20,8 +20,14 @@ once per spec. Tool calls stream as ``tool_calls`` deltas; grammared JSON
 mode streams as content once the grammar attached and falls back to the
 buffered extract path when it did not.
 
-Not ported (ROADMAP A7, A9): LoRA model ids, KV handoff, drain/evacuation,
-metrics and debug endpoints.
+LoRA model ids, as there: ``/v1/models`` lists each registered adapter
+(with the base model as its ``parent``), a request's ``model`` naming an
+adapter routes every choice to it, an unknown id gets a 404 once adapters
+exist, and every response shape (buffered, streamed, ``n`` > 1, tools)
+echoes the requested id.
+
+Not ported (ROADMAP A7, A9): KV handoff, drain/evacuation, metrics and
+debug endpoints.
 """
 
 from __future__ import annotations
@@ -103,6 +109,10 @@ class BadRequest(ValueError):
     pass
 
 
+class NotFound(LookupError):
+    """An unknown model id: the handler answers 404."""
+
+
 class Call:
     """One HTTP request's scheduler requests (``n`` choices) and what its
     reply needs: the prompt, chat or completion, the tools it may call,
@@ -110,10 +120,11 @@ class Call:
 
     def __init__(self, reqs: List[Request], ids, chat: bool,
                  tools: List[Dict[str, Any]], json_mode: bool,
-                 grammar: Optional[object], stream: bool) -> None:
+                 grammar: Optional[object], stream: bool, model: str) -> None:
         self.reqs, self.ids, self.chat = reqs, ids, chat
         self.tools, self.json_mode, self.grammar = tools, json_mode, grammar
         self.stream = stream
+        self.model = model   # the id every response echoes
 
     @property
     def req(self) -> Request:
@@ -133,9 +144,34 @@ class ModelServer:
                 "quant": core.quant, "weight_bytes": core.param_bytes}
 
     def models(self) -> Dict[str, Any]:
-        return {"object": "list",
-                "data": [{"id": self.model_name, "object": "model",
-                          "owned_by": "generativeaiexamples_tpu_torch"}]}
+        """The base model and, as first-class model ids, every registered
+        adapter with the base model as its parent."""
+        cards = [{"id": self.model_name, "object": "model",
+                  "owned_by": "generativeaiexamples_tpu_torch"}]
+        for name in self._adapter_names():
+            cards.append({"id": name, "object": "model",
+                          "owned_by": "generativeaiexamples_tpu_torch",
+                          "parent": self.model_name})
+        return {"object": "list", "data": cards}
+
+    def _adapter_names(self) -> List[str]:
+        """The registered adapters (none for a scheduler without a core)."""
+        core = getattr(self.scheduler, "core", None)
+        return list(getattr(core, "adapter_names", []) or [])
+
+    def _adapter_for(self, body: Dict[str, Any]) -> str:
+        """Route the OpenAI ``model`` field: a registered adapter's name
+        selects it; the base model's id (or no field) serves base weights.
+        Once adapters exist any other id raises NotFound: a mistyped
+        fine-tune name must never serve base weights."""
+        model_id = str(body.get("model") or "")
+        names = self._adapter_names()
+        if model_id in names:
+            return model_id
+        if names and model_id and model_id != self.model_name:
+            raise NotFound(f"unknown model {model_id!r}; served: "
+                           f"{[self.model_name] + names}")
+        return ""
 
     @staticmethod
     def _sampling(body: Dict[str, Any]) -> Dict[str, Any]:
@@ -239,6 +275,7 @@ class ModelServer:
         """Parse a request and submit its ``n`` choices."""
         tok = self.scheduler.tokenizer
         chat = path == "/v1/chat/completions"
+        adapter = self._adapter_for(body)
         tools: List[Dict[str, Any]] = []
         json_mode, grammar, spec = False, None, None
         if chat:
@@ -260,11 +297,13 @@ class ModelServer:
             if i and kw["seed"] is not None:
                 kw["seed"] = kw["seed"] + i   # distinct, still reproducible
             reqs.append(Request(prompt_ids=list(ids), grammar=grammar,
-                                grammar_spec=spec, **kw))
+                                grammar_spec=spec, adapter=adapter, **kw))
         for r in reqs:
             self.scheduler.submit(r)
+        # responses echo the requested id: adapter traffic is not reported
+        # as the base model's
         return Call(reqs, ids, chat, tools, json_mode, grammar,
-                    bool(body.get("stream")))
+                    bool(body.get("stream")), adapter or self.model_name)
 
     def _text(self, req: Request) -> str:
         return "".join(self.scheduler.iter_text(req))
@@ -310,7 +349,7 @@ class ModelServer:
         payload = {
             "id": f"chatcmpl-{uuid.uuid4().hex[:16]}",
             "object": "chat.completion" if call.chat else "text_completion",
-            "created": int(time.time()), "model": self.model_name,
+            "created": int(time.time()), "model": call.model,
             "choices": choices, "usage": self._usage(call),
         }
         errs = [r.error for r in call.reqs if r.error]
@@ -339,8 +378,7 @@ class ModelServer:
         one, and any error."""
         lps = (self._format_logprobs(req) if logprobs and req.logprobs
                else None)
-        final = json.loads(_chunk(self.model_name, rid, {}, finish, index,
-                                  lps))
+        final = json.loads(_chunk(call.model, rid, {}, finish, index, lps))
         if usage:
             final["usage"] = self._usage(call)
         error = req.error or error
@@ -351,7 +389,7 @@ class ModelServer:
     def _stream_text(self, call: Call, rid: str):
         """Content deltas; with ``n`` > 1 each choice's deltas under its
         index as they come, then a final chunk per choice."""
-        model, n = self.model_name, len(call.reqs)
+        model, n = call.model, len(call.reqs)
         if call.chat:
             for i in range(n):
                 yield _chunk(model, rid, {"role": "assistant"}, index=i)
@@ -384,7 +422,7 @@ class ModelServer:
         """A grammared JSON-mode stream: content deltas once the first
         delta shows the grammar attached (validity is then token-level);
         else the buffered extract-and-rewrite path."""
-        model, req = self.model_name, call.req
+        model, req = call.model, call.req
         yield _chunk(model, rid, {"role": "assistant"})
         it = self.scheduler.iter_text(req)
         first = next(it, None)
@@ -413,7 +451,7 @@ class ModelServer:
     def _stream_tools(self, call: Call, rid: str):
         """Tool calls as OpenAI ``tool_calls`` deltas: a call is committed
         once its envelope parses, its arguments stream in fragments."""
-        model, req = self.model_name, call.req
+        model, req = call.model, call.req
         yield _chunk(model, rid, {"role": "assistant"})
         streamer = tools_mod.ToolCallStreamer(call.tools)
 
@@ -442,7 +480,7 @@ class ModelServer:
     def _stream_buffered(self, call: Call, rid: str):
         """A buffered tool or JSON reply as a stream: the role chunk, one
         delta with the whole content or tool calls, the final chunk."""
-        model, req = self.model_name, call.req
+        model, req = call.model, call.req
         yield _chunk(model, rid, {"role": "assistant"})
         text = self._text(req)
         if req.error:
@@ -492,6 +530,9 @@ def _handler_class(server: ModelServer):
                 if not isinstance(body, dict):
                     raise BadRequest("the request body must be a JSON object")
                 call = server.submit(self.path, body)
+            except NotFound as exc:
+                self._json(404, {"error": str(exc)})
+                return
             except (BadRequest, ValueError, NotImplementedError) as exc:
                 self._json(400, {"error": str(exc)})
                 return

@@ -25,8 +25,17 @@ place.
 (``models/hf_loader.py`` reads one from a checkpoint directory) into the
 same layout: HF keeps projections as (out, in) too, so it only renames.
 
-Not ported here (ROADMAP A3/A9): LoRA, biased projections and LayerNorm,
-and MoE.
+LoRA (``_maybe_lora`` there): every projection of a block takes the
+low-rank update of ``ops/lora.py`` when an adapter tree names it. The
+dense API (:func:`forward`, :func:`prefill`, :func:`decode_step`) takes a
+global tree (``train/lora.py`` layout, leaves ``(L, r, in)`` / ``(L, out,
+r)``) for every row; the paged passes (``engine/kv_cache.py``) also take
+the engine's stacked slots ``(L, N, r, in)`` / ``(L, N, out, r)`` with
+each batch row's slot in ``adapter_ix``. Adapter leaves inside the
+*param* tree are refused (:func:`params_from_jax`).
+
+Not ported here (ROADMAP A.11): biased projections and LayerNorm, and
+MoE.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from generativeaiexamples_tpu_torch.ops import lora as lora_ops
 from generativeaiexamples_tpu_torch.ops import quant as quant_ops
 from generativeaiexamples_tpu_torch.ops.attention import (
     mha_decode, mha_prefill)
@@ -201,7 +211,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
     if unknown:
         raise NotImplementedError(
             f"layer leaves {sorted(unknown)} (biases, MoE, LoRA) are not "
-            f"ported (ROADMAP A3/A9)")
+            f"ported into the param tree (ROADMAP A.11; LoRA adapters are "
+            f"a tree of their own: train/lora.adapters_from_jax)")
     params: Params = {"embed": matrix(tree["embed"], transpose=False),
                       "final_norm": t(tree["final_norm"]), "layers": []}
     for i in range(cfg.n_layers):
@@ -303,29 +314,50 @@ def _norm(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     return rms_norm(x, layer[name], cfg.norm_eps)
 
 
-def _proj(x: torch.Tensor, layer: Params, name: str) -> torch.Tensor:
-    return quant_ops.matmul(x, layer[name])
+def _proj(x: torch.Tensor, layer: Params, name: str,
+          adapters: Optional[Params] = None,
+          adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ W through the quant seam, plus the LoRA update when the layer's
+    ``adapters`` name this projection (``_maybe_lora`` there)."""
+    y = quant_ops.matmul(x, layer[name])
+    if adapters is None or name not in adapters:
+        return y
+    a, b = adapters[name]
+    return lora_ops.lora_apply(y, x, a, b, adapter_ix)
+
+
+def layer_adapters(adapters: Optional[Params], i: int) -> Optional[Params]:
+    """Layer i's ``{target: (a, b)}`` of an adapter tree (global or
+    stacked slots), or None."""
+    if adapters is None:
+        return None
+    return {name: (ab["a"][i], ab["b"][i]) for name, ab in adapters.items()}
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def _block(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
-           cos: torch.Tensor, sin: torch.Tensor,
-           attn_fn: AttnFn) -> torch.Tensor:
+           cos: torch.Tensor, sin: torch.Tensor, attn_fn: AttnFn,
+           adapters: Optional[Params] = None,
+           adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One transformer block; ``attn_fn(q, k, v) -> ctx`` owns the cache
-    write and the attention read, so every path shares this block."""
+    write and the attention read, so every path shares this block.
+    ``adapters``: the layer's ``{target: (a, b)}`` (:func:`layer_adapters`),
+    stacked slots selected per batch row by ``adapter_ix`` (B,)."""
     B, S, _ = h.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ad = (adapters, adapter_ix)
     x = _norm(cfg, h, layer, "attn_norm")
-    q = apply_rope(_proj(x, layer, "wq").reshape(B, S, H, HD), cos, sin)
-    k = apply_rope(_proj(x, layer, "wk").reshape(B, S, KV, HD), cos, sin)
-    v = _proj(x, layer, "wv").reshape(B, S, KV, HD)
-    h = h + _proj(attn_fn(q, k, v).reshape(B, S, H * HD), layer, "wo")
+    q = apply_rope(_proj(x, layer, "wq", *ad).reshape(B, S, H, HD), cos, sin)
+    k = apply_rope(_proj(x, layer, "wk", *ad).reshape(B, S, KV, HD), cos,
+                   sin)
+    v = _proj(x, layer, "wv", *ad).reshape(B, S, KV, HD)
+    h = h + _proj(attn_fn(q, k, v).reshape(B, S, H * HD), layer, "wo", *ad)
     x = _norm(cfg, h, layer, "mlp_norm")
-    act = glu(_proj(x, layer, "w_gate"), _proj(x, layer, "w_up"),
+    act = glu(_proj(x, layer, "w_gate", *ad), _proj(x, layer, "w_up", *ad),
               cfg.hidden_act)
-    return h + _proj(act, layer, "w_down")
+    return h + _proj(act, layer, "w_down", *ad)
 
 
 ATTN_IMPLS = ("auto", "kernel", "plain")
@@ -353,19 +385,26 @@ def _unembed(cfg: LlamaConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
 
 def run_blocks(cfg: LlamaConfig, params: Params, h: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor,
-               attn_for_layer: Callable[[int], AttnFn]) -> torch.Tensor:
+               attn_for_layer: Callable[[int], AttnFn],
+               adapters: Optional[Params] = None,
+               adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layer loop (``scan_blocks_inplace`` there): ``attn_for_layer(i)``
-    gives layer i's attention, which may write the KV pool in place."""
+    gives layer i's attention, which may write the KV pool in place.
+    ``adapters``: a global adapter tree, or stacked slots with each batch
+    row's slot in ``adapter_ix`` (B,)."""
     for i, layer in enumerate(params["layers"]):
-        h = _block(cfg, h, layer, cos, sin, attn_for_layer(i))
+        h = _block(cfg, h, layer, cos, sin, attn_for_layer(i),
+                   layer_adapters(adapters, i), adapter_ix)
     return h
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
-            attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            attn_mask: Optional[torch.Tensor] = None,
+            adapters: Optional[Params] = None) -> torch.Tensor:
     """Full-sequence causal LM: tokens (B, S) -> logits (B, S, V) f32.
-    ``attn_mask`` (B, S) marks valid tokens of right-padded rows."""
+    ``attn_mask`` (B, S) marks valid tokens of right-padded rows;
+    ``adapters`` a global adapter tree."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -378,7 +417,7 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                            kv_positions=positions, kv_mask=attn_mask,
                            causal=True)
 
-    h = run_blocks(cfg, params, h, cos, sin, lambda _i: attn)
+    h = run_blocks(cfg, params, h, cos, sin, lambda _i: attn, adapters)
     return _unembed(cfg, params, h)
 
 
@@ -406,7 +445,8 @@ class KVCache:
 
 def _cached_blocks(cfg: LlamaConfig, params: Params, h: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
-                   write_pos: torch.Tensor, attn: AttnFn) -> torch.Tensor:
+                   write_pos: torch.Tensor, attn: AttnFn,
+                   adapters: Optional[Params] = None) -> torch.Tensor:
     """The layer loop over the dense cache (``_scan_cached_blocks`` there):
     each layer writes its new K/V (B, S, KV, HD) into its cache slice at
     ``write_pos[b]``, in place, then ``attn(q, k_layer, v_layer)`` reads
@@ -426,19 +466,20 @@ def _cached_blocks(cfg: LlamaConfig, params: Params, h: torch.Tensor,
             return attn(q, cache.k[i], cache.v[i])
         return attn_i
 
-    return run_blocks(cfg, params, h, cos, sin, attn_for_layer)
+    return run_blocks(cfg, params, h, cos, sin, attn_for_layer, adapters)
 
 
 def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             cache: KVCache, start_pos: torch.Tensor, seq_lens: torch.Tensor,
-            last_only: bool = False) -> Tuple[torch.Tensor, KVCache]:
+            last_only: bool = False, adapters: Optional[Params] = None
+            ) -> Tuple[torch.Tensor, KVCache]:
     """Prompt pass that fills the dense cache, in place.
 
     tokens: (B, S) right-padded; start_pos: (B,) cache offset (0 for fresh
     sequences, > 0 for a later chunk); seq_lens: (B,) valid tokens of this
     chunk. Returns logits (B, S, V) f32, or (B, 1, V) at each row's last
     valid position when ``last_only``, and the cache with ``lengths =
-    start_pos + seq_lens``.
+    start_pos + seq_lens``. ``adapters``: a global adapter tree.
     """
     B, S = tokens.shape
     T = cache.k.shape[2]
@@ -466,7 +507,8 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                            kv_positions=cache_positions, kv_mask=kv_mask,
                            causal=True)
 
-    h = _cached_blocks(cfg, params, h, cos, sin, cache, start_pos, attn)
+    h = _cached_blocks(cfg, params, h, cos, sin, cache, start_pos, attn,
+                       adapters)
     if last_only:
         last = (seq_lens.to(torch.int64) - 1).clamp_min(0)
         h = h[torch.arange(B, device=dev), last][:, None]
@@ -475,11 +517,13 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
-                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                cache: KVCache, adapters: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for every row, in place: token b goes to position
     ``lengths[b]`` (clamped to the last row once the cache is full) and
-    attends rows ``< lengths[b] + 1``. tokens: (B,). Returns logits (B, V)
-    f32 and the cache with ``lengths + 1``."""
+    attends rows ``< lengths[b] + 1``. tokens: (B,); ``adapters``: a
+    global adapter tree. Returns logits (B, V) f32 and the cache with
+    ``lengths + 1``."""
     T = cache.k.shape[2]
     positions = cache.lengths.to(torch.int64)[:, None]             # (B, 1)
     h = embed_tokens(params, cfg, tokens[:, None])
@@ -498,6 +542,7 @@ def decode_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             return kernels.ragged_decode(q, k, v, new_lengths)
         return mha_decode(q, k, v, new_lengths)
 
-    h = _cached_blocks(cfg, params, h, cos, sin, cache, cache.lengths, attn)
+    h = _cached_blocks(cfg, params, h, cos, sin, cache, cache.lengths, attn,
+                       adapters)
     cache.lengths = new_lengths
     return _unembed(cfg, params, h)[:, 0], cache

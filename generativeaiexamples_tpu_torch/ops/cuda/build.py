@@ -29,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 KERNEL_SOURCES = ("flash_prefill", "ragged_paged", "ragged_decode",
-                  "sample_slots", "w8a16_gemm", "grammar_mask")
+                  "sample_slots", "w8a16_gemm", "grammar_mask", "lora")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,11 +38,11 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 # launches of each kernel, raised by one by its wrapper where it launches
 # (ops/cuda/attention.py, ops/cuda/sampling.py, ops/cuda/quant.py,
-# ops/cuda/grammar.py), and nowhere else
+# ops/cuda/grammar.py, ops/cuda/lora.py), and nowhere else
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "ragged_paged_attention": 0,
                             "ragged_paged_attention_int8": 0,
                             "ragged_decode": 0, "sample_slots": 0,
-                            "w8a16_gemm": 0, "grammar_mask": 0}
+                            "w8a16_gemm": 0, "grammar_mask": 0, "lora": 0}
 # sample_slots' launches by variant, beside LAUNCHES["sample_slots"]: the
 # options a launch took ("mask", "advance", "top", joined by "+"), or
 # "plain" for none

@@ -169,5 +169,6 @@ def test_support_predicates_and_launch_counts():
                                   "ragged_paged_attention": 0,
                                   "ragged_paged_attention_int8": 0,
                                   "ragged_decode": 0, "sample_slots": 0,
-                                  "w8a16_gemm": 0, "grammar_mask": 0}
+                                  "w8a16_gemm": 0, "grammar_mask": 0,
+                                  "lora": 0}
 

@@ -18,7 +18,8 @@ The sampling kernel is held to its plain version by ``chip_smoke.py``'s
 ``check_sampler``: the top-k cutoff bit-equal, the top-p cutoff and the
 token equal except at counted near-ties (a mass within rounding of the
 target, the top two ``logit + gumbel`` within 1e-5), logprobs within
-1e-5.
+1e-5. The LoRA update is held by ``chip_smoke.py``'s ``check_lora``
+(``LORA_TOLERANCE``; rows of slot 0 bit-equal to the input).
 """
 
 import os
@@ -1006,3 +1007,132 @@ def test_engine_grammared_greedy_streams_kernels_match_plain(cuda_device,
         launched = tk.launch_counts()["grammar_mask"]
         assert (launched > 0) if path == "kernel" else launched == 0
     assert streams["kernel"] == streams["plain"]
+
+
+# the LoRA update's (K, O) shapes: llama3-8b's wq/wo, wk/wv, gate/up, down
+LORA_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["mixed", "one", "base", "global"])
+@pytest.mark.parametrize("R,S", [(8, 1), (72, 9), (1024, 128)])
+@pytest.mark.parametrize("K,O", LORA_SHAPES)
+def test_lora_apply_matches_plain_on_the_card(cuda_device, K, O, R, S, mix):
+    """The LoRA update at llama3-8b's projection shapes, decode to
+    prefill rows, rank 16 (and 8 and 64 beside it), slots mixed with base
+    rows, one adapter, all base and a global adapter: within
+    ``chip_smoke.LORA_TOLERANCE`` of the plain version, rows of slot 0 bit
+    for bit the input though slot 0 holds random values; one launch a
+    call; two calls bit-equal."""
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    cs = _smoke()
+    for r in (16, 8, 64) if (K, R) == (4096, 8) else (16,):
+        y, x, a, b, slots = cs.lora_inputs(cuda_device, K, O, r, R, S, mix,
+                                           torch.bfloat16, K + O + R)
+        tk.reset_launch_counts()
+        got = cl.lora_apply(y.clone(), x, a, b, slots)
+        assert torch.equal(got, cl.lora_apply(y.clone(), x, a, b, slots))
+        assert tk.launch_counts()["lora"] == 2
+        reading = cs.check_lora("lora", y, x, a, b, slots, got)
+        assert reading["base_rows_bit_equal"]
+
+
+@pytest.mark.cuda
+def test_lora_apply_f32_matches_plain_on_the_card(cuda_device):
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    cs = _smoke()
+    for r, mix in ((16, "mixed"), (4, "mixed"), (12, "global")):
+        y, x, a, b, slots = cs.lora_inputs(cuda_device, 4096, 1024, r, 72, 9,
+                                           mix, torch.float32, r)
+        got = cl.lora_apply(y.clone(), x, a, b, slots)
+        cs.check_lora("lora", y, x, a, b, slots, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["rank", "dtype", "device", "contiguity",
+                                  "slots", "layout", "depth"])
+def test_lora_apply_refuses_what_it_cannot_take(cuda_device, what):
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    cs = _smoke()
+    y, x, a, b, slots = cs.lora_inputs(cuda_device, 64, 32, 8, 8, 2, "mixed",
+                                       torch.bfloat16, 0)
+    bad = {
+        "rank": (y, x, a[:, :4].contiguous(), b[:, :, :4].contiguous(),
+                 slots),
+        "dtype": (y.half(), x.half(), a.half(), b.half(), slots),
+        "device": (y.cpu(), x.cpu(), a.cpu(), b.cpu(), slots.cpu()),
+        "contiguity": (y, x.transpose(1, 2).contiguous().transpose(1, 2), a,
+                       b, slots),
+        "slots": (y, x, a, b, slots.long()),
+        "layout": (y, x, a, b, None),
+        "depth": (y, x[..., :60].contiguous(), a[..., :60].contiguous(), b,
+                  slots),
+    }
+    with pytest.raises(ValueError):
+        cl.lora_apply(*bad[what])
+    tk.reset_launch_counts()
+    cl.lora_apply(y, x, a, b, slots)
+    assert tk.launch_counts()["lora"] == 1
+
+
+@pytest.mark.cuda
+def test_engine_lora_streams_kernel_match_plain(cuda_device, monkeypatch):
+    """Two adapters (rank 8) registered on the tiny model, f32: a mixed
+    batch's greedy and seeded streams through ``lora_apply`` equal those
+    through ``lora_apply_plain``, and the kernel launches once a target and
+    layer a forward pass; a rank the kernel does not take is refused at
+    registration, naming the ranks it takes."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import (
+        Request, Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import lora as lora_ops
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    from generativeaiexamples_tpu_torch.train import lora
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(5), cfg)
+    tok = ByteTokenizer()
+
+    def tree(seed, rank=8):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        t = lora.init_adapters(g, cfg, lora.LoraConfig(rank=rank),
+                               device=cuda_device)
+        for ab in t.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=g,
+                                  device=cuda_device) * 0.5
+        return t
+
+    streams = {}
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            monkeypatch.setattr(cl, "lora_apply", lora_ops.lora_apply_plain)
+        core = EngineCore(cfg, EngineConfig(
+            max_batch_size=4, max_seq_len=256, prefill_chunk=16,
+            page_size=8), params, tok.eos_id, device=cuda_device)
+        with pytest.raises(ValueError, match="ranks"):
+            core.register_adapter("rank6", tree(9, rank=6))
+        core.register_adapter("a", tree(1))
+        core.register_adapter("b", tree(2))
+        assert not core.mixed_supported
+        sched = Scheduler(core, tok)
+        tk.reset_launch_counts()
+        reqs = [Request(prompt_ids=tok.encode("route this prompt",
+                                              add_bos=True),
+                        max_tokens=24, temperature=t, seed=i, adapter=ad)
+                for i, (ad, t) in enumerate((("", 0.0), ("a", 0.0),
+                                             ("b", 0.0), ("a", 0.7)))]
+        for r in reqs:
+            sched.submit(r)
+        while sched._tick():
+            pass
+        assert all(r.error is None for r in reqs)
+        streams[path] = [r.output_ids for r in reqs]
+        launched = tk.launch_counts()["lora"]
+        assert (launched > 0 and launched % (4 * cfg.n_layers) == 0) \
+            if path == "kernel" else launched == 0
+    assert streams["kernel"] == streams["plain"]
+    assert streams["kernel"][0] != streams["kernel"][1]

@@ -184,9 +184,9 @@ def test_stop_string_ends_stream(tiny):
 def test_unported_request_fields_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Request(prompt_ids=[1], prefill_only=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Request(prompt_ids=[1], adapter="lora-a")
-    # logprobs and grammars are served since A.5 and A.6
+    # logprobs and grammars are served since A.5 and A.6, adapters since
+    # A.7
+    assert Request(prompt_ids=[1], adapter="lora-a").adapter == "lora-a"
     assert Request(prompt_ids=[1], logprobs=True, top_logprobs=5).logprobs
 
 
