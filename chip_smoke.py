@@ -58,16 +58,20 @@ prints no result:
               sampler; timed beside the plain version, the bound and the
               fixed cost of an empty launch on the same grid
               (``floor_ms``);
-  7d. kernel:lora  the per-row LoRA update (``lora_apply``, one launch a
-              projection) at llama3-8b's projection shapes: rank 16 on
-              wq/wo, wk/wv, gate/up and down at 8, 72 and 4,096 rows
-              with the slots mixed (the base model and three adapters),
-              rank 8 on wq and wk, all base rows and all one adapter at
-              decode and prefill, a global adapter and the f32 instance;
-              slot 0 holds random values there (never read: base rows
-              come out bit-equal), the rest within ``LORA_TOLERANCE`` of
-              the plain version; timed beside the plain version, the
-              reference's formulation in eager PyTorch and the bound;
+  7d. kernel:lora  the per-row LoRA update (``lora_apply_group``, one
+              call for the targets that share an input) at llama3-8b's
+              projection shapes: rank 16 on wq/wo, wk/wv, gate/up and
+              down at 8, 72 and 4,096 rows with the slots mixed (the base
+              model and three adapters), rank 8 on wq and wk, all base
+              rows and all one adapter at decode and prefill, a global
+              adapter and the f32 instance, the groups wq|wk|wv and
+              gate|up at 8, 72 and 4,096 rows, and llama3-70b's wq,
+              gate/up and down at 8 and 584 rows; slot 0 holds random
+              values there (never read: base rows come out bit-equal),
+              every target within ``LORA_TOLERANCE`` of the plain
+              version; timed beside the plain version, the reference's
+              formulation in eager PyTorch (once a target) and the bound,
+              and the host's time a call through the model's seam;
   7b. kernel:w8a16_gemm  the W8A16 GEMM (int8 weights, bf16 or f32
               activations) at every weight shape of llama3-8b (8, 40, 72
               and 4,096 rows) and of llama3-70b (8, 72, 4,096 and the 584
@@ -142,11 +146,10 @@ prints no result:
               equal, and the logprob request's ``logprob_data`` (token and
               top ids exact, logprobs within 1e-5);
  13. serve_two_dispatch  the narrow path, bf16: 6 concurrent requests, then a
-              narrow decode profile and a grouped-prefill profile and the
-              Scheduler's decode at ``pipeline_depth`` 1 against 2
-              (``profile_pipeline``: host wall and device busy share a
-              step) (the int8 pool's two profiles were cut for the
-              smoke's time);
+              narrow decode profile and a grouped-prefill profile (the
+              int8 pool's two profiles and the Scheduler's decode at
+              ``pipeline_depth`` 1 against 2 were cut for the smoke's
+              time);
  14. dense    the dense-cache API on the same weights: prefill of 8 rows
               and 32 greedy decode steps through flash_prefill and
               ragged_decode;
@@ -154,7 +157,8 @@ prints no result:
               before ``warmup`` (rank 16, alpha 32, all seven targets,
               seeded): the requests name the base model and each adapter
               in turn, every reply echoes its id, no mixed dispatch runs,
-              ``lora`` launches 7 x 32 times a forward pass; then
+              ``lora`` launches 4 x 32 times a forward pass with an
+              adapter row (none in another); then
               ``/v1/models`` lists the adapters, an unknown id gets a
               404, and one prompt under each model shows each adapter's
               tokens differ from the base model's and no page is shared
@@ -163,7 +167,8 @@ prints no result:
               the base model and the three adapters in turn over the
               slots (``lora``'s device ms a step among the classes);
               then ``serve_lora_base``: the same adapters resident and
-              the same traffic, every request naming the base model;
+              the same traffic, every request naming the base model: no
+              ``lora`` launch;
  14b. serve_ckpt  the same weights written as an HF checkpoint under
               build/ (``config.json``, four safetensors shards and their
               index, 16.06 GB) with a Llama-3-shaped ``tokenizer.json``
@@ -231,16 +236,21 @@ from the cluster's reduction in the W8A16 GEMM, a flipped bit, a dropped
 row of an interleaved group, the fail-safe ignored and flags left set
 in the grammar mask, a DFA advance short of the token's last byte, a
 top-row tie taken by the higher index and the mask applied to an
-unconstrained row in the sampler, and a wrong slot, base rows written
-and a dropped rank in the LoRA update (these three also run
-``parity_lora``, which each must fail), each
+unconstrained row in the sampler, and a wrong slot, base rows written,
+a split's partial dropped from the reduction and a target's update
+written into the next target's output in the LoRA update (these four
+also run ``parity_lora``, which each must fail) and a dropped rank in
+its bf16 shrink, each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
 ``--ab`` times every attention kernel and the sampling call of two trees
 of the port in turns, with the grouped-prefill profile and
 ``profile_sampled``, and every W8A16 GEMM case (device ms and host us a
 call) with ``profile_w8`` (the parts named after the trees, all by
-default). Each main
+default); ``--lora-variants`` times a few LoRA cases, with each call's
+shrink and expand device time, for the tree as it is and for each of
+``LORA_VARIANTS`` (the design choices of ``csrc/lora.cu`` undone, one at
+a time, in a temporary copy). Each main
 path (9 to 16) sets the launch counts to 0 just before it and reads them
 just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -1907,39 +1917,56 @@ def phase_grammar(dev):
 # The LoRA update (csrc/lora.cu)
 # ---------------------------------------------------------------------------
 
-# llama3-8b's projection shapes (in K, out O) by the targets that share one
-LORA_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
-               "gate_up": (4096, 14336), "down": (14336, 4096)}
+# the update's shapes (in K, (out O of each target of the call)): llama3-8b's
+# projections by the targets that share one shape, its two groups of
+# targets that share an input (one call each), and llama3-70b's
+LORA_SHAPES = {"wq_wo": (4096, (4096,)), "wk_wv": (4096, (1024,)),
+               "gate_up": (4096, (14336,)), "down": (14336, (4096,)),
+               "qkv_group": (4096, (4096, 1024, 1024)),
+               "gate_up_group": (4096, (14336, 14336)),
+               "70b_wq": (8192, (8192,)), "70b_gate_up": (8192, (28672,)),
+               "70b_down": (28672, (8192,))}
 LORA_SLOTS = 4          # max_adapters: the base model and three adapters
 # rows (R), tokens a batch row (S): a narrow decode step of 8 slots, the
-# W = 9 rung of 8 slots, the grouped prefill of 8 chunks of 512
-LORA_ROWS = {"r8": (8, 1), "r72": (72, 9), "r4096": (4096, 512)}
+# W = 9 rung of 8 slots, the grouped prefill of 8 chunks of 512, the
+# 70b smoke's mixed width (8 rows of 73)
+LORA_ROWS = {"r8": (8, 1), "r72": (72, 9), "r4096": (4096, 512),
+             "r584": (584, 73)}
 LORA_TOLERANCE = ("per element: 2**-7 (bf16; 2**-20 f32) x (|plain result| "
                   "+ |plain update| + sum_j |z_j b_oj|) + 2**-16 x "
                   "(|x| @ |a|^T) @ |b|^T (summation order); rows of slot 0 "
                   "bit-equal to the input y")
 
 
-def lora_inputs(dev, K, O, r, R, S, mix, dtype, seed):
-    """y (B, S, O) and x (B, S, K) standard normal, stacked factors a
-    (LORA_SLOTS, r, K) normal / sqrt(K) x 2 (lora_code's alpha / r) and b
-    (LORA_SLOTS, O, r) normal x 0.1 (an update of y's size), slot 0
-    random too (a read of it shows), and each batch row's slot: ``mix``
-    "mixed" cycles 0, 1, 2, 3, "one" is slot 1 throughout, "base" 0
-    throughout, "global" a global adapter (slot 1's factors, no slots)."""
+def lora_group_inputs(dev, K, Os, r, R, S, mix, dtype, seed):
+    """ys (B, S, O_t) and x (B, S, K) standard normal, stacked factors a_t
+    (LORA_SLOTS, r, K) normal / sqrt(K) x 2 (lora_code's alpha / r) and
+    b_t (LORA_SLOTS, O_t, r) normal x 0.1 (an update of y's size) for each
+    width O_t, slot 0 random too (a read of it shows), and each batch
+    row's slot: ``mix`` "mixed" cycles 0, 1, 2, 3, "one" is slot 1
+    throughout, "base" 0 throughout, "global" a global adapter (slot 1's
+    factors, no slots)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     B = R // S
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
-    y = rnd(B, S, O).to(dtype)
+    ys = [rnd(B, S, O).to(dtype) for O in Os]
     x = rnd(B, S, K).to(dtype)
-    a = (rnd(LORA_SLOTS, r, K) * (2.0 / K ** 0.5)).to(dtype)
-    b = (rnd(LORA_SLOTS, O, r) * 0.1).to(dtype)
+    a = [(rnd(LORA_SLOTS, r, K) * (2.0 / K ** 0.5)).to(dtype) for _ in Os]
+    b = [(rnd(LORA_SLOTS, O, r) * 0.1).to(dtype) for O in Os]
     if mix == "global":
-        return y, x, a[1].contiguous(), b[1].contiguous(), None
+        return (ys, x, [t[1].contiguous() for t in a],
+                [t[1].contiguous() for t in b], None)
     slots = {"mixed": [i % LORA_SLOTS for i in range(B)], "one": [1] * B,
              "base": [0] * B}[mix]
-    return y, x, a, b, torch.tensor(slots, dtype=torch.int32, device=dev)
+    return ys, x, a, b, torch.tensor(slots, dtype=torch.int32, device=dev)
+
+
+def lora_inputs(dev, K, O, r, R, S, mix, dtype, seed):
+    """``lora_group_inputs`` of one target: y, x, a, b, slots."""
+    ys, x, a, b, slots = lora_group_inputs(dev, K, (O,), r, R, S, mix, dtype,
+                                           seed)
+    return ys[0], x, a[0], b[0], slots
 
 
 def check_lora(name, y, x, a, b, slots, got):
@@ -1987,28 +2014,48 @@ def check_lora(name, y, x, a, b, slots, got):
     return reading
 
 
-def lora_library(y, x, a, b, slots):
-    """The reference's formulation in eager PyTorch (``_maybe_lora``): z
-    over all N slots (one einsum), gathered by each row's slot, the
-    product with the gathered b, the add; a global adapter's (x a^T) b^T
-    + y."""
+def check_lora_group(name, ys, x, a, b, slots, got):
+    """``check_lora`` for each target of a call; the worst reading, with
+    the target it came from."""
+    worst = None
+    for t, (y, at, bt, gt) in enumerate(zip(ys, a, b, got)):
+        try:
+            reading = check_lora(name, y, x, at, bt, slots, gt)
+        except KernelMismatch as exc:
+            raise KernelMismatch(name, dict(exc.reading, target=t))
+        if worst is None or (reading["max_err_over_limit"]
+                             > worst["max_err_over_limit"]):
+            worst = dict(reading, target=t)
+    return worst
+
+
+def lora_library(ys, x, a, b, slots):
+    """The reference's formulation in eager PyTorch (``_maybe_lora``), once
+    a target: z over all N slots (one einsum), gathered by each row's
+    slot, the product with the gathered b, the add; a global adapter's (x
+    a^T) b^T + y."""
     import torch
-    if slots is None:
-        return y + torch.matmul(torch.matmul(x, a.t()), b.t())
-    ix = slots.long()
-    za = torch.einsum("bsk,nrk->nbsr", x, a)
-    z = za[ix, torch.arange(x.shape[0], device=x.device)]
-    return y + torch.bmm(z, b[ix].transpose(1, 2))
+    out = []
+    for y, at, bt in zip(ys, a, b):
+        if slots is None:
+            out.append(y + torch.matmul(torch.matmul(x, at.t()), bt.t()))
+            continue
+        ix = slots.long()
+        za = torch.einsum("bsk,nrk->nbsr", x, at)
+        z = za[ix, torch.arange(x.shape[0], device=x.device)]
+        out.append(y + torch.bmm(z, bt[ix].transpose(1, 2)))
+    return out
 
 
-def lora_bound(x, a, b, slots, O):
-    """The least time for the update: the adapter rows' x, each distinct
-    adapter slot's a and b, the adapter rows' y read and written and the
-    slots, over the memory rate; 2 r (K + O) operations an adapter row
-    over the bf16 (or f32) peak. (bound ms, its kind, flops, bytes)"""
+def lora_bound(x, a, b, slots, Os):
+    """The least time for a call: x's adapter rows (read once for every
+    target), each target's factors for each distinct adapter slot, each
+    target's adapter rows of y read and written, and the slots, over the
+    memory rate; 2 r (K + O_t) operations an adapter row and a target over
+    the bf16 (or f32) peak. (bound ms, its kind, flops, bytes)"""
     import torch
     B, S, K = x.shape
-    r = a.shape[-2]
+    r = a[0].shape[-2]
     if slots is None:
         rows, distinct = B * S, 1
     else:
@@ -2016,48 +2063,66 @@ def lora_bound(x, a, b, slots, O):
         rows, distinct = S * sum(1 for s in ids if s), len({s for s in ids
                                                            if s})
     esz = x.element_size()
-    nbytes = float(esz * (rows * K + distinct * r * (K + O) + 2 * rows * O)
+    nbytes = float(esz * (rows * K + sum(distinct * r * (K + O) + 2 * rows * O
+                                         for O in Os))
                    + (4 * B if slots is not None else 0))
-    flops = 2.0 * rows * r * (K + O)
+    flops = float(sum(2.0 * rows * r * (K + O) for O in Os))
     peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
     ms, by = bound(flops, nbytes, peak)
     return ms, by, flops, nbytes
 
 
+def lora_call(cl, ys, x, a, b, slots):
+    """The tree's kernel on one call's inputs (in place into ys): the
+    grouped call through factors made resident once where the tree has it,
+    else (the first design) one ``lora_apply`` a target."""
+    if hasattr(cl, "ResidentGroup"):
+        group = cl.ResidentGroup(a, b)
+        return lambda: cl.lora_apply_group(ys, x, group, slots)
+    return lambda: [cl.lora_apply(y, x, at, bt, slots)
+                    for y, at, bt in zip(ys, a, b)]
+
+
 def _lora_case(dev, shape, r, rows, mix, dtype, seed):
-    """lora_apply at one shape: checked against its plain version (a fresh
-    copy of y a launch), then timed by CUDA-graph replays beside the plain
-    version, the reference's formulation (``lora_library``) and the
-    bound."""
+    """One call at one shape: checked against its plain version (a fresh
+    copy of the ys a launch), then timed by CUDA-graph replays beside the
+    plain version, the reference's formulation (``lora_library``, once a
+    target) and the bound; the host's time a call through the model's seam
+    (``ops.lora.lora_apply_group`` over a resident group)."""
+    import dataclasses
     import torch
     from generativeaiexamples_tpu_torch.ops import lora as lora_ops
     from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
-    K, O = LORA_SHAPES[shape]
+    K, Os = LORA_SHAPES[shape]
     R, S = LORA_ROWS[rows]
-    y, x, a, b, slots = lora_inputs(dev, K, O, r, R, S, mix, dtype, seed)
-    got = cl.lora_apply(y.clone(), x, a, b, slots)
-    check = check_lora("lora", y, x, a, b, slots, got)
+    ys, x, a, b, slots = lora_group_inputs(dev, K, Os, r, R, S, mix, dtype,
+                                           seed)
+    got = [y.clone() for y in ys]
+    lora_call(cl, got, x, a, b, slots)()
+    check = check_lora_group("lora", ys, x, a, b, slots, got)
     del got
     if CHECK_ONLY:
         return check
-    b_ms, b_by, flops, nbytes = lora_bound(x, a, b, slots, O)
-    yk = y.clone()
-    ms = graph_ms(lambda: cl.lora_apply(yk, x, a, b, slots), target_ms=100.0)
-    # what a launch costs the host through the model's seam (ops/lora.py)
-    us = host_us(lambda: lora_ops.lora_apply(yk, x, a, b, slots), 200)
+    b_ms, b_by, flops, nbytes = lora_bound(x, a, b, slots, Os)
+    yk = [y.clone() for y in ys]
+    ms = graph_ms(lora_call(cl, yk, x, a, b, slots), target_ms=100.0)
+    group = lora_ops.lora_group([f"t{i}" for i in range(len(Os))], a, b)
+    us = host_us(lambda: lora_ops.lora_apply_group(yk, x, group, slots), 200)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     res = dict(
         **check, tolerance=LORA_TOLERANCE, ms=ms, host_us=us,
         share_of_bound=b_ms / ms,
-        plain_ms=time_ms(lambda: lora_ops.lora_apply_plain(y, x, a, b, slots),
-                         target_ms=100.0),
-        library_ms=graph_ms(lambda: lora_library(y, x, a, b, slots),
+        plain_ms=time_ms(lambda: lora_ops.lora_apply_group_plain(
+            ys, x, a, b, slots), target_ms=100.0),
+        library_ms=graph_ms(lambda: lora_library(ys, x, a, b, slots),
                             target_ms=100.0),
-        library_call="the reference's _maybe_lora in eager PyTorch (einsum "
-                     "over every slot, gather, bmm with the gathered b, add)",
+        library_call="the reference's _maybe_lora in eager PyTorch, once a "
+                     "target (einsum over every slot, gather, bmm with the "
+                     "gathered b, add)",
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
-        plan_cols=cl.lora_plan(R, O, torch.cuda.get_device_properties(
-            dev).multi_processor_count),
-        shape=dict(K=K, O=O, r=r, R=R, S=S, mix=mix,
+        plan=dataclasses.asdict(cl.lora_plan(
+            R, K, Os, nsm, LORA_SLOTS if slots is not None else 1, r)),
+        shape=dict(K=K, O=list(Os), r=r, R=R, S=S, mix=mix,
                    dtype=str(dtype).removeprefix("torch.")))
     del yk
     return res
@@ -2069,10 +2134,14 @@ def lora_case_shapes():
     72 and 4,096 rows with the slots mixed (base rows among them), rank 8
     (lora_pubmedqa) on wq and wk, all base rows and all one adapter at
     decode and prefill, the f32 instance and a global adapter (the dense
-    API's). The first, wq at a narrow decode step, is the entry's own."""
+    API's), then the two groups of targets that share an input (one call
+    each) at 8, 72 and 4,096 rows and llama3-70b's wq, gate/up and down at
+    8 rows and at its mixed width, 584. The first, wq at a narrow decode
+    step, is the entry's own."""
     cases = {}
+    single = ("wq_wo", "wk_wv", "gate_up", "down")
     for i, (shape, rows) in enumerate(
-            (s, rw) for s in LORA_SHAPES for rw in LORA_ROWS):
+            (s, rw) for s in single for rw in ("r8", "r72", "r4096")):
         cases[f"{shape}_r16_{rows}_mixed"] = (shape, 16, rows, "mixed",
                                               "bfloat16", 200 + i)
     cases.update({
@@ -2088,6 +2157,16 @@ def lora_case_shapes():
                                 226),
         "wq_wo_r16_r8_mixed_f32": ("wq_wo", 16, "r8", "mixed", "float32",
                                    227)})
+    for i, (shape, rows) in enumerate(
+            (s, rw) for s in ("qkv_group", "gate_up_group")
+            for rw in ("r8", "r72", "r4096")):
+        cases[f"{shape}_r16_{rows}_mixed"] = (shape, 16, rows, "mixed",
+                                              "bfloat16", 230 + i)
+    for i, (shape, rows) in enumerate(
+            (s, rw) for s in ("70b_wq", "70b_gate_up", "70b_down")
+            for rw in ("r8", "r584")):
+        cases[f"{shape}_r16_{rows}_mixed"] = (shape, 16, rows, "mixed",
+                                              "bfloat16", 240 + i)
     return cases
 
 
@@ -2100,21 +2179,23 @@ def lora_cases(dev):
 
 
 def ab_lora(dev):
-    """Every LoRA case's device ms through the tree's ``lora_apply``,
-    checked first (``--ab``)."""
+    """Every LoRA case's device ms through the tree's kernel
+    (``lora_call``: a tree of the first design runs a group's targets one
+    call each), checked first (``--ab``)."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
     out = {}
     for tag, (shape, r, rows, mix, dt, seed) in lora_case_shapes().items():
-        K, O = LORA_SHAPES[shape]
+        K, Os = LORA_SHAPES[shape]
         R, S = LORA_ROWS[rows]
-        y, x, a, b, slots = lora_inputs(dev, K, O, r, R, S, mix,
-                                        getattr(torch, dt), seed)
-        check_lora("lora", y, x, a, b, slots,
-                   cl.lora_apply(y.clone(), x, a, b, slots))
-        out[tag] = {"ms": graph_ms(lambda: cl.lora_apply(y, x, a, b, slots),
+        ys, x, a, b, slots = lora_group_inputs(dev, K, Os, r, R, S, mix,
+                                               getattr(torch, dt), seed)
+        got = [y.clone() for y in ys]
+        lora_call(cl, got, x, a, b, slots)()
+        check_lora_group("lora", ys, x, a, b, slots, got)
+        out[tag] = {"ms": graph_ms(lora_call(cl, ys, x, a, b, slots),
                                    target_ms=100.0)}
-        del y, x, a, b, slots
+        del ys, x, a, b, slots, got
         torch.cuda.empty_cache()
     return out
 
@@ -2375,21 +2456,27 @@ LORA_NAMES = ("ad-1", "ad-2", "ad-3")
 LORA_LOGITS_TOL = 1e-3   # of the largest plain logit: f32 summation order
 
 
+def lora_apply_group_plain_resident(ys, x, group, slots):
+    """The plain version over a resident group's factors: what the plain
+    pass takes in place of ``ops.cuda.lora.lora_apply_group``."""
+    from generativeaiexamples_tpu_torch.ops import lora as lora_ops
+    return lora_ops.lora_apply_group_plain(ys, x, group.a, group.b, slots)
+
+
 class _PlainLora:
-    """While entered, ``ops.cuda.lora.lora_apply`` is the plain version
-    (the plain pass asks for it by name, as ``parity_w8`` does for the
-    GEMM): no ``lora`` launch."""
+    """While entered, ``ops.cuda.lora.lora_apply_group`` is the plain
+    version (the plain pass asks for it by name, as ``parity_w8`` does for
+    the GEMM): no ``lora`` launch."""
 
     def __enter__(self):
-        from generativeaiexamples_tpu_torch.ops import lora as lora_ops
         from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
-        self._kernel = cl.lora_apply
-        cl.lora_apply = lora_ops.lora_apply_plain
+        self._kernel = cl.lora_apply_group
+        cl.lora_apply_group = lora_apply_group_plain_resident
         return self
 
     def __exit__(self, *exc):
         from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
-        cl.lora_apply = self._kernel
+        cl.lora_apply_group = self._kernel
 
 
 def _parity_lora_setup(dev):
@@ -2430,13 +2517,15 @@ def _lora_core(dev, cfg, params, tok, attn, adapters=None, trees=None):
 def _lora_batch(core, tok, specs, tokens):
     """``specs`` ((adapter, prompt ids, temperature, seed), ...) submitted
     at once to a new Scheduler over ``core``; the output ids, the stats,
-    the launches and the forward passes."""
+    the launches, the forward passes and those among them that made the
+    LoRA update (``core.lora_passes``)."""
     from generativeaiexamples_tpu_torch.engine.scheduler import (Request,
                                                                  Scheduler)
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
     sched = Scheduler(core, tok)
     reqs = [Request(prompt_ids=list(p), max_tokens=tokens, temperature=t,
                     seed=seed, adapter=ad) for ad, p, t, seed in specs]
+    lora_passes = core.lora_passes
     with _ForwardCount() as fwd:
         k.reset_launch_counts()
         sched.start()
@@ -2451,7 +2540,7 @@ def _lora_batch(core, tok, specs, tokens):
     if any(r.error for r in reqs):
         raise AssertionError(f"a request failed: {[r.error for r in reqs]}")
     return reqs, [r.output_ids for r in reqs], dict(sched.stats), launches, \
-        fwd.blocks
+        fwd.blocks, core.lora_passes - lora_passes
 
 
 def _lora_logits(core, cfg, dev, seed=11):
@@ -2492,9 +2581,10 @@ def phase_parity_lora(dev):
     # base model and every adapter
     specs = ([(ad, prompts[1], 0.0, i) for i, ad in enumerate(ids)]
              + [(ad, prompts[0], 0.7, 20 + i) for i, ad in enumerate(ids)])
-    runs, logits = {}, {}
+    runs, logits, groups = {}, {}, 0
     for attn in ("kernel", "plain"):
         core = _lora_core(dev, cfg, params, tok, attn, trees=trees)
+        groups = core.lora_groups
         if core.mixed_supported:
             raise AssertionError("the mixed dispatch is on with adapters "
                                  "resident")
@@ -2507,13 +2597,17 @@ def phase_parity_lora(dev):
             runs[attn] = _lora_batch(core, tok, specs, 48)
         del core
         torch.cuda.empty_cache()
-    reqs, got, stats, launches, passes = runs["kernel"]
-    _, want, _, plain_launches, _ = runs["plain"]
-    need = len(trees["ad-1"]) * cfg.n_layers * passes
-    if launches["lora"] != need or need == 0 or plain_launches["lora"]:
+    reqs, got, stats, launches, passes, lora_passes = runs["kernel"]
+    _, want, _, plain_launches, _, _ = runs["plain"]
+    # one call a group of targets that share an input and a layer in each
+    # pass with an adapter row
+    need = groups * cfg.n_layers * lora_passes
+    if (launches["lora"] != need or need == 0 or plain_launches["lora"]
+            or not 0 < lora_passes <= passes or groups != 4):
         raise AssertionError(f"parity_lora: {launches['lora']} lora launches "
-                             f"for {passes} forward passes (want {need}); "
-                             f"the plain pass launched "
+                             f"for {lora_passes} of {passes} forward passes "
+                             f"with adapter rows, {groups} groups a layer "
+                             f"(want {need}); the plain pass launched "
                              f"{plain_launches['lora']}")
     if stats["mixed_dispatches"] or not stats["spec_steps"]:
         raise AssertionError(f"parity_lora ran a mixed dispatch or no "
@@ -2533,10 +2627,12 @@ def phase_parity_lora(dev):
         rows = [i for i, s in enumerate(specs) if s[0] == name]
         core = _lora_core(dev, cfg, params, tok, "kernel",
                           adapters=trees[name])
-        sreqs, sgot, _, slaunch, spasses = _lora_batch(
+        sreqs, sgot, _, slaunch, spasses, slora = _lora_batch(
             core, tok, [("",) + specs[i][1:] for i in rows], 48)
+        sgroups = core.lora_groups
         del core
-        if slaunch["lora"] != len(trees[name]) * cfg.n_layers * spasses:
+        if (slaunch["lora"] != sgroups * cfg.n_layers * spasses
+                or slora != spasses):
             raise AssertionError(f"parity_lora global {name}: launches "
                                  f"{slaunch}")
         report[f"{name} alone on a global-adapter engine vs the mixed "
@@ -2548,7 +2644,8 @@ def phase_parity_lora(dev):
          logits_max_abs_err=err, logits_limit=limit,
          logits_tolerance=f"{LORA_LOGITS_TOL} x the largest plain logit",
          streams=report, dispatches=stats, launches=launches,
-         forward_passes=passes, global_engine_lora_launches=solo,
+         forward_passes=passes, lora_passes=lora_passes,
+         lora_groups_a_layer=groups, global_engine_lora_launches=solo,
          requests=[{"adapter": s[0] or "base", "temperature": s[2],
                     "tokens": len(g)} for s, g in zip(specs, got)])
     del params, trees
@@ -2578,9 +2675,11 @@ def phase_dense_lora(dev, rows=8, steps=24, T=1024):
     the kernel path's launches."""
     import dataclasses
     import torch
+    from generativeaiexamples_tpu_torch.ops import lora as lora_ops
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
     cfg, params, trees, _, _ = _parity_lora_setup(dev)
     tree = trees["ad-1"]
+    groups = lora_ops.group_count(lora_ops.prepare(tree, cfg.n_layers))
     lens = [64 + (512 - 64) * i // (rows - 1) for i in range(rows)]
     g = torch.Generator(device=dev).manual_seed(5)
     prompts = [torch.randint(0, 256, (n,), generator=g, device=dev).tolist()
@@ -2599,7 +2698,7 @@ def phase_dense_lora(dev, rows=8, steps=24, T=1024):
         launches[attn] = k.launch_counts()
     L, got = cfg.n_layers, launches["kernel"]
     if (got["flash_prefill"] != L or got["ragged_decode"] != L * (steps - 1)
-            or got["lora"] != len(tree) * L * steps
+            or got["lora"] != groups * L * steps
             or any(launches["plain"].values())):
         raise AssertionError(f"dense_lora launches: {launches}")
     report = _parity_report(params, cfg, prompts, streams["kernel"],
@@ -3244,12 +3343,13 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     ``adapters``: name -> adapter tree, registered before ``warmup``
     (``serve_lora``): the requests name the base model and each adapter
     in turn, every reply must echo its id, no mixed dispatch may run (the
-    engine turns it off), ``lora`` launches once a target and layer per
-    forward pass, and ``_lora_serve_checks`` runs once the traffic is
-    done; ``adapter_traffic=False``: the adapters stay resident but every
-    request names the base model (``serve_lora_base``: the launches and
-    the mixed dispatch's absence without the adapter rows' work). Without
-    adapters no ``lora`` launch at all.
+    engine turns it off), ``lora`` launches once a group of targets that
+    share an input and a layer in each forward pass with an adapter row
+    (``core.lora_passes``), and ``_lora_serve_checks`` runs once the
+    traffic is done; ``adapter_traffic=False``: the adapters stay resident
+    but every request names the base model (``serve_lora_base``: the
+    mixed dispatch's absence without the adapter rows' work, and no
+    ``lora`` launch at all). Without adapters no ``lora`` launch at all.
     Returns (launches, the engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
@@ -3302,6 +3402,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             for key in sched.stats:
                 sched.stats[key] = 0
             core.sample_calls = 0
+            lora_passes0 = core.lora_passes
             t0 = time.perf_counter()
             if narrow:
                 with concurrent.futures.ThreadPoolExecutor(6) as pool:
@@ -3313,6 +3414,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                     texts, models)
             wall = time.perf_counter() - t0
             launches = k.launch_counts()
+            lora_passes = core.lora_passes - lora_passes0
             gemm_rows = build.gemm_launches_by_rows()
             stats = dict(sched.stats)
         traffic = list(submitted)     # the counted window's requests
@@ -3360,14 +3462,17 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     if sum(gemm_rows.values()) != need_gemm:
         raise AssertionError(f"w8a16_gemm launches by rows {gemm_rows} do "
                              f"not add up to {need_gemm}")
-    # the update once a target and layer per forward pass with adapters
-    # resident, and never without
+    # the update once a group of targets that share an input and a layer
+    # in each forward pass that had an adapter row (counted by the engine),
+    # and never in another: base traffic with adapters resident makes none
     targets = len(next(iter(adapters.values()))) if adapters else 0
-    need_lora = targets * L * fwd.blocks
-    if launches["lora"] != need_lora or (adapters and need_lora == 0):
+    need_lora = core.lora_groups * L * lora_passes
+    if (launches["lora"] != need_lora or lora_passes > fwd.blocks
+            or (adapters and adapter_traffic and need_lora == 0)
+            or (not adapter_traffic and launches["lora"])):
         raise AssertionError(f"{launches['lora']} lora launches for "
-                             f"{fwd.blocks} forward passes (want "
-                             f"{need_lora})")
+                             f"{lora_passes} of {fwd.blocks} forward passes "
+                             f"with adapter rows (want {need_lora})")
     if adapters and (stats["mixed_dispatches"] or stats["spec_steps"] < 1):
         raise AssertionError(f"with adapters resident: a mixed dispatch "
                              f"ran or no widened step did: {stats}")
@@ -3420,7 +3525,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                 adapter_rank=int(next(iter(next(iter(
                     adapters.values())).values()))["a"].shape[1]),
                 models_sent=models, register_s=register_s,
-                lora_launches_per_forward=need_lora // max(1, fwd.blocks),
+                lora_groups_a_layer=core.lora_groups,
+                lora_passes=lora_passes,
                 lora_checks=lora_checks) if adapters else {}))
     if model == "llama3-70b" and fwd.tiled < 1:
         raise AssertionError(f"{name}: no ragged launch of more than "
@@ -4543,7 +4649,7 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     emitted = int(out["emitted"].sum())
     classes, summed, top = _device_ms_by_class(
         prof, (("ragged_paged_attention", ("ragged_paged",)),
-               ("w8a16_gemm", ("w8a16",)), ("lora", ("lora_kernel",)),
+               ("w8a16_gemm", ("w8a16",)), ("lora", ("lora_shrink", "lora_expand")),
                ("matmul", MATMUL_KERNELS)))
     device_ms = sum(classes.values())
     device_ops = sum(1 for ev in prof.events()
@@ -4606,82 +4712,6 @@ def profile_sampled(dev, cfg, params):
             out[f"{rung}_chain"]["device_ops_per_step"]
             - out[f"{rung}_greedy"]["device_ops_per_step"])
         del core
-        torch.cuda.empty_cache()
-    return out
-
-
-def profile_pipeline(dev, cfg, params, kv_quant="none", ctx=1000,
-                     dispatches=1):
-    """Decode through the Scheduler at pipeline_depth 1 against 2 (the
-    narrow step, no hold, everything else alike): 8 greedy requests of
-    ``ctx`` prompt tokens decode; after two warm decode dispatches,
-    ``dispatches`` ticks run once timed by the host clock alone and once
-    under torch.profiler (device events), each ending when the last result
-    is on the host. Per step: host wall, device ms and the device's busy
-    share. Information, not a gate."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from generativeaiexamples_tpu_torch.engine.scheduler import (
-        Request, Scheduler)
-    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
-
-    out = {"context": ctx, "slots": 8, "dispatches": dispatches,
-           "kv_dtype": kv_quant}
-    for depth in (1, 2):
-        core = serving_core(dev, cfg, params, kv_quant, pipeline_depth=depth,
-                            spec_decode="off", mixed_phase_dispatch="off",
-                            prefill_hold_chunks=0)
-        sched = Scheduler(core, ByteTokenizer())
-        reqs = [sched.submit(Request(
-            prompt_ids=[(s * 31 + i) % 256 for i in range(ctx)],
-            max_tokens=600, temperature=0.0)) for s in range(8)]
-        _wait_for(lambda: sched._tick() is not None and all(
-            r.first_token_at or r.finished_at for r in reqs)
-            and sched.stats["decode_dispatches"] >= 2, "no warm decode")
-        res = {}
-        for mode in ("host_clock", "profiled"):
-            while sched._inflight:
-                sched._process_decode()
-            torch.cuda.synchronize()
-            steps0 = sched.stats["decode_steps"]
-            tokens0 = sum(len(r.output_ids) for r in reqs)
-            prof = (profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA])
-                    if mode == "profiled" else None)
-            t0 = time.perf_counter()
-            if prof:
-                prof.__enter__()
-            for _ in range(dispatches):
-                sched._tick()
-            while sched._inflight:
-                sched._process_decode()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if prof:
-                prof.__exit__(None, None, None)
-            steps = sched.stats["decode_steps"] - steps0
-            tokens = sum(len(r.output_ids) for r in reqs) - tokens0
-            res[mode] = {"steps": steps, "tokens": tokens,
-                         "host_wall_ms_per_step": wall * 1e3 / steps,
-                         "tok_s": tokens / wall}
-            if prof:
-                from torch.autograd import DeviceType
-                classes, _, _ = _device_ms_by_class(
-                    prof, (("ragged_paged_attention", ("ragged_paged",)),
-                           ("matmul", MATMUL_KERNELS)))
-                device_ms = sum(classes.values())
-                device_ops = sum(1 for ev in prof.events()
-                                 if ev.device_type == DeviceType.CUDA)
-                res[mode].update(device_ms_per_step=device_ms / steps,
-                                 device_busy_share=device_ms / (wall * 1e3),
-                                 device_ops_per_step=device_ops / steps)
-        res["overlapped_dispatches"] = sched.stats["overlapped_dispatches"]
-        res["inflight_peak"] = sched.stats["inflight_peak"]
-        if depth == 2:
-            res["behind_a_spin"] = _queue_probe(core, sched)
-        sched._fail_all("profile done")
-        out[f"depth{depth}"] = res
-        del sched, core
         torch.cuda.empty_cache()
     return out
 
@@ -5044,14 +5074,21 @@ PLANTED_FAULTS = (
      "constexpr bool kTopLowFirst = true;",
      "constexpr bool kTopLowFirst = false;", ("sample_slots",)),
     ("lora_wrong_slot", "lora.cu",
-     "sslot[pos] = s;", "sslot[pos] = s > 0 ? s - 1 : s;",
-     ("lora", "parity_lora")),
+     "const int s = p.slots[row / p.S];",
+     "const int s = p.slots[row / p.S] % 3;", ("lora", "parity_lora")),
     ("lora_base_rows_written", "lora.cu",
-     "take = p.slots == nullptr || s != 0;",
-     "take = true; if (p.slots) s = max(s, 1);", ("lora", "parity_lora")),
+     "return s != 0 ? s : -1;", "return s != 0 ? s : 1;",
+     ("lora", "parity_lora")),
+    ("lora_split_dropped", "lora.cu",
+     "const int nk = p.P;", "const int nk = p.P - 1;",
+     ("lora", "parity_lora")),
+    ("lora_target_shifted", "lora.cu",
+     "const int yt = t;", "const int yt = (t + 1) % p.nt;",
+     ("lora", "parity_lora")),
     ("lora_dropped_rank", "lora.cu",
-     "if (j < r) u = fmaf(z[i][j], bv[j], u);",
-     "if (j < r - 1) u = fmaf(z[i][j], bv[j], u);", ("lora", "parity_lora")),
+     "        if (j < p.r) {\n          src = static_cast<const bf16*>",
+     "        if (j + 1 < p.r) {\n          src = static_cast<const bf16*>",
+     ("lora",)),
 )
 
 _FAULT_PHASES = """
@@ -5171,6 +5208,116 @@ def ab(trees, parts=AB_PARTS) -> None:
     emit("ab", order=order, parts=list(parts), runs=runs)
 
 
+# csrc/lora.cu's design choices, each undone in a temporary copy by
+# ``--lora-variants``: (name, [(text, replacement), ...], what it shows)
+LORA_VARIANTS = (
+    ("steps_one_by_one", [("      if (WK == 1) {", "      if (false) {")],
+     "the prefill shrink's fragments loaded step by step, each mma waiting "
+     "on its ldmatrix"),
+    ("no_x_bytes", [("        const bool ok = kin && src != nullptr;",
+                     "        const bool ok = kin && src != nullptr "
+                     "&& r >= rows;")],
+     "the shrink reading no x at all (zeros; the results are wrong): what "
+     "its steps cost without x's bytes"),
+    ("four_stages", [("constexpr int STAGES = 3;",
+                      "constexpr int STAGES = 4;")],
+     "a fourth stage in the shrink's ring"),
+    ("serial_expand", [('  asm volatile("griddepcontrol.launch_dependents;'
+                        '\\n" ::: "memory");\n', ""),
+                       ("programmaticStreamSerializationAllowed = 1",
+                        "programmaticStreamSerializationAllowed = 0")],
+     "the expand launched only once the shrink has ended"),
+)
+LORA_VARIANT_CASES = ("down_r16_r8_mixed", "qkv_group_r16_r8_mixed",
+                      "wq_wo_r16_r4096_mixed", "down_r16_r4096_mixed",
+                      "qkv_group_r16_r4096_mixed")
+
+_LORA_VARIANT_RUN = """
+import json, sys, torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+print(json.dumps(cs.lora_variant_times(torch.device("cuda"))))
+"""
+
+
+def lora_split_us(fn, calls=20):
+    """Device us a call of ``fn`` by kernel (the shrink, the expand) under
+    torch.profiler, after a warm call. The expand starts while the shrink
+    runs, so the two may overlap."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"shrink": 0.0, "expand": 0.0}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            for key in out:
+                if f"lora_{key}" in ev.name:
+                    out[key] += ev.time_range.elapsed_us() / calls
+    return out
+
+
+def lora_variant_times(dev):
+    """``LORA_VARIANT_CASES``' device ms a call (CUDA-graph replays) and
+    their shrink and expand split, unchecked (a variant may be wrong by
+    design)."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    shapes, out = lora_case_shapes(), {}
+    for tag in LORA_VARIANT_CASES:
+        shape, r, rows, mix, dt, seed = shapes[tag]
+        K, Os = LORA_SHAPES[shape]
+        R, S = LORA_ROWS[rows]
+        ys, x, a, b, slots = lora_group_inputs(dev, K, Os, r, R, S, mix,
+                                               getattr(torch, dt), seed)
+        fn = lora_call(cl, ys, x, a, b, slots)
+        out[tag] = {"ms": graph_ms(fn, target_ms=100.0),
+                    "split_us": lora_split_us(fn)}
+        del ys, x, a, b, slots
+        torch.cuda.empty_cache()
+    return out
+
+
+def lora_variants() -> None:
+    """Time ``LORA_VARIANT_CASES`` for the tree as it is and for each of
+    ``LORA_VARIANTS`` in a temporary copy, one process each (each builds
+    its own LoRA library), in the order given."""
+    import shutil
+    import tempfile
+    runs = {}
+    for name, edits, what in (("as_is", [], "the tree as it is"),
+                              *LORA_VARIANTS):
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
+            pkg = os.path.join(tmp, "generativeaiexamples_tpu_torch")
+            shutil.copytree(os.path.join(HERE, "generativeaiexamples_tpu_torch"),
+                            pkg, ignore=shutil.ignore_patterns("__pycache__"))
+            path = os.path.join(pkg, "csrc", "lora.cu")
+            with open(path) as fh:
+                code = fh.read()
+            for text, repl in edits:
+                if code.count(text) != 1:
+                    raise AssertionError(f"variant {name}: text not found "
+                                         f"once in lora.cu")
+                code = code.replace(text, repl)
+            with open(path, "w") as fh:
+                fh.write(code)
+            run = subprocess.run([sys.executable, "-c", _LORA_VARIANT_RUN],
+                                 cwd=tmp, capture_output=True, text=True,
+                                 timeout=900)
+        if run.returncode != 0:
+            raise AssertionError(f"variant {name} failed\n"
+                                 f"{run.stderr[-4000:]}")
+        runs[name] = {"what": what, "cases": json.loads(
+            run.stdout.strip().splitlines()[-1])}
+    emit("lora_variants", runs=runs)
+
+
 def planted_faults(only=()) -> None:
     """Plant each of PLANTED_FAULTS (or those named in ``only``) in a
     temporary copy of the port, build there the libraries its phases use
@@ -5244,9 +5391,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device()
-    if sys.argv[1:2] in (["--planted-faults"], ["--ab"]):
+    if sys.argv[1:2] in (["--planted-faults"], ["--ab"],
+                         ["--lora-variants"]):
         if sys.argv[1] == "--ab":
             ab(sys.argv[2:4], sys.argv[4:] or AB_PARTS)
+        elif sys.argv[1] == "--lora-variants":
+            lora_variants()
         else:
             planted_faults(sys.argv[2:])
         print(smi, flush=True)
@@ -5321,9 +5471,8 @@ def main() -> int:
                                     core))
     del core
     torch.cuda.empty_cache()
-    emit("profile_pipeline", **timed("profile_pipeline", profile_pipeline,
-                                     dev, cfg, params))
-    torch.cuda.empty_cache()
+    # profile_pipeline (the Scheduler's decode at depth 1 against 2) was
+    # cut to keep the smoke's time
     # the int8 pool's narrow decode and prefill profiles were cut to keep
     # the smoke's time (profile_lora took their place); serve_int8 and
     # serve_prefix_int8 still run the int8 pool
@@ -5417,7 +5566,7 @@ def main() -> int:
                 "top_id_mismatches", "top_max_abs_err", "top_tie_rows",
                 "bit_mismatches", "constrained_rows", "walked_bytes",
                 "floor_ms", "failsafe_rows", "accepting_rows",
-                "base_rows_bit_equal", "adapter_rows", "plan_cols")
+                "base_rows_bit_equal", "adapter_rows")
         entry.update({key: res[key] for key in keys if key in res})
         for sub, val in res.items():      # the phase's other cases
             if isinstance(val, dict) and "ms" in val:

@@ -68,12 +68,16 @@ Per-request multi-LoRA (the reference's stacked adapter serving):
 :meth:`EngineCore.register_adapter` installs a trained adapter tree
 (``train/lora.py`` layout) into one of ``max_adapters`` resident slots
 (slot 0 is the all-zero base model), each slot's adapter index rides
-``DecodeState.adapter_ix``, and every projection of every forward adds its
-rows' low-rank updates (``ops/lora.py``: one ``lora_apply`` launch a
-projection on the card). An ``adapters=`` tree given to the constructor is
-global instead: every row takes it, and no adapter can be registered. While
-any adapter tree is resident the mixed-phase dispatch is off, as there
-(``mixed_step`` runs base weights only).
+``DecodeState.adapter_ix`` (and its host copy ``adapter_host``), and
+every projection of a forward adds its rows' low-rank updates
+(``ops/lora.py``: one ``lora_apply_group`` call on the card for the
+projections that read one input, 4 a layer at seven targets). A pass in
+which no row has an adapter makes no call: the host knows each row's
+slot. ``lora_passes`` counts the passes that made them. An ``adapters=``
+tree given to the constructor is global instead: every row takes it, and
+no adapter can be registered. While any adapter tree is resident the
+mixed-phase dispatch is off, as there (``mixed_step`` runs base weights
+only).
 
 Not ported here: ``decode_multi``, KV handoff, tensor parallelism
 (ROADMAP A2, A5, A7, A11). Their config knobs are refused in
@@ -99,6 +103,7 @@ from generativeaiexamples_tpu_torch.engine import kv_cache
 from generativeaiexamples_tpu_torch.engine.kv_cache import PagedKVCache
 from generativeaiexamples_tpu_torch.engine.prefix_cache import CachingAllocator
 from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.ops import lora as lora_ops
 from generativeaiexamples_tpu_torch.ops import quant as quant_ops
 from generativeaiexamples_tpu_torch.ops import sampling, threefry
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
@@ -340,6 +345,9 @@ class DecodeState:
     # prompt-lookup drafting. Column max_seq is a sink for dropped writes
     # and is never read.
     history: torch.Tensor
+    # (B,) i32 on the host: adapter_ix as set, so a pass without adapter
+    # rows is known without reading the device
+    adapter_host: np.ndarray
 
     def rows(self, width: int) -> "DecodeState":
         """The first ``width`` slots as views: in-place writes (the pool,
@@ -355,7 +363,7 @@ class DecodeState:
             top_p=sl(self.top_p), rngs=sl(self.rngs),
             last_logprob=sl(self.last_logprob),
             gram_state=sl(self.gram_state), adapter_ix=sl(self.adapter_ix),
-            history=sl(self.history))
+            history=sl(self.history), adapter_host=sl(self.adapter_host))
 
     def merge(self, narrow: "DecodeState") -> None:
         """Write a :meth:`rows` view's rebound per-slot fields back."""
@@ -546,9 +554,15 @@ class EngineCore:
         self._adapter_names: Dict[str, int] = {"": 0}
         self._adapters_stacked = False
         self._adapter_digests: Dict[str, str] = {}
+        # the resident tree as each layer's groups (ops.lora.prepare), and
+        # the forward passes that made the update
+        self._lora_layers: Optional[lora_ops.LoraLayers] = None
+        self.lora_passes = 0
         if adapters is not None:
             self.adapters = {target: {"a": a, "b": b} for target, a, b in
                              self._adapter_leaves(adapters, "global")}
+            self._lora_layers = lora_ops.prepare(self.adapters,
+                                                 model_cfg.n_layers)
 
     @property
     def mixed_row_queries(self) -> int:
@@ -569,10 +583,23 @@ class EngineCore:
         two-dispatch path)."""
         return self._mixed and self.adapters is None
 
-    def _lora(self, adapter_ix: Optional[torch.Tensor]) -> Dict[str, Any]:
-        """The paged passes' adapter arguments: the resident tree, and the
-        rows' slots when it is stacked."""
-        return dict(adapters=self.adapters,
+    @property
+    def lora_groups(self) -> int:
+        """LoRA calls a layer makes in a pass with adapter rows."""
+        return (lora_ops.group_count(self._lora_layers)
+                if self._lora_layers is not None else 0)
+
+    def _lora(self, adapter_ix: Optional[torch.Tensor],
+              host_ix: Optional[np.ndarray]) -> Dict[str, Any]:
+        """The paged passes' adapter arguments: the resident tree's groups
+        and, when it is stacked, the rows' slots (``adapter_ix``, whose
+        host copy is ``host_ix``). None when no row has an adapter: the
+        pass then makes no call (rows of slot 0 are never written)."""
+        if self._lora_layers is None or (self._adapters_stacked
+                                         and not host_ix.any()):
+            return dict(adapters=None, adapter_ix=None)
+        self.lora_passes += 1
+        return dict(adapters=self._lora_layers,
                     adapter_ix=adapter_ix if self._adapters_stacked else None)
 
     # ------------------------------------------------------------------ state
@@ -594,7 +621,8 @@ class EngineCore:
             last_logprob=z(torch.float32), gram_state=z(torch.int32),
             adapter_ix=z(torch.int32),
             history=torch.zeros((B, self.max_seq + 1), dtype=torch.int32,
-                                device=dev))
+                                device=dev),
+            adapter_host=np.zeros((B,), np.int32))
 
     def new_allocator(self):
         """Page allocator for the pool: with ``prefix_cache="on"`` a
@@ -784,8 +812,9 @@ class EngineCore:
                                 else torch.zeros_like(sl, dtype=torch.int32))
         if self._adapters_stacked:
             # the slot's adapter from its first token on (0: base)
-            state.adapter_ix[sl] = self._up(
-                np.array([items[i].adapter_ix for i in rows], np.int32))
+            ixs = np.array([items[i].adapter_ix for i in rows], np.int32)
+            state.adapter_ix[sl] = self._up(ixs)
+            state.adapter_host[slots] = ixs
         state.history[sl, col] = toks[ix]
         return toks
 
@@ -821,12 +850,13 @@ class EngineCore:
             start_pos[i] = it.start_pos
             chunk_len[i] = n
         t = self._up
-        ixs = (t(np.array([it.adapter_ix for it in items], np.int32))
-               if self._adapters_stacked else None)
+        ixs = np.array([it.adapter_ix for it in items], np.int32)
+        lora = self._lora(t(ixs) if self._adapters_stacked and ixs.any()
+                          else None, ixs)
         logits = kv_cache.prefill_chunks(
             self.params, self.model_cfg, t(tokens), state.cache,
             t(page_rows), t(self._length_slots(items, G)), t(start_pos),
-            t(chunk_len), self.num_pages, **self._lora(ixs))
+            t(chunk_len), self.num_pages, **lora)
         self._write_chunk_history(state, items)
         return state, self._activate_rows(state, logits, items)
 
@@ -879,7 +909,8 @@ class EngineCore:
         if forward is None:
             forward = lambda toks: kv_cache.decode_step(
                 self.params, self.model_cfg, toks, cache, page_table,
-                state.active, self.num_pages, **self._lora(state.adapter_ix))
+                state.active, self.num_pages,
+                **self._lora(state.adapter_ix, state.adapter_host))
         prev_len = cache.lengths.clone()
         logits = forward(state.tokens)
         active = state.active
@@ -928,7 +959,8 @@ class EngineCore:
         if forward is None:
             forward = lambda inputs: kv_cache.decode_step_wide(
                 self.params, self.model_cfg, inputs, cache, page_table,
-                state.active, self.num_pages, **self._lora(state.adapter_ix))
+                state.active, self.num_pages,
+                **self._lora(state.adapter_ix, state.adapter_host))
         L = cache.lengths.to(torch.int64)
         draft, dlen = draft_lookup(state.history[:, :self.max_seq], L, W - 1,
                                    self.cfg.spec_ngram)
@@ -1188,6 +1220,7 @@ class EngineCore:
         state.last_logprob[slot] = 0.0
         state.gram_state[slot] = gram_state
         state.adapter_ix[slot] = 0
+        state.adapter_host[slot] = 0
         return state
 
     @torch.no_grad()
@@ -1329,6 +1362,8 @@ class EngineCore:
         for target, a, b in leaves:
             self.adapters[target]["a"][:, ix] = a
             self.adapters[target]["b"][:, ix] = b
+        self._lora_layers = lora_ops.prepare(self.adapters,
+                                             self.model_cfg.n_layers)
         self._adapter_names[name] = ix
         self._adapter_digests[name] = self._adapter_digest(tree)
         return ix

@@ -23,7 +23,8 @@ dense view, the chunk included, as the reference does.
 LoRA: :func:`prefill_chunks`, :func:`prefill_chunk`,
 :func:`decode_step_wide` and :func:`decode_step` take ``adapters`` (a
 global tree, or the engine's stacked slots with each row's slot in
-``adapter_ix``) into every projection (``llama.run_blocks``);
+``adapter_ix``; either as a tree or prepared, ``ops.lora.prepare``) into
+every projection (``llama.run_blocks``);
 :func:`mixed_step` runs base weights only, as there, and refuses them.
 """
 

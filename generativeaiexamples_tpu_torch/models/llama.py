@@ -26,13 +26,17 @@ place.
 same layout: HF keeps projections as (out, in) too, so it only renames.
 
 LoRA (``_maybe_lora`` there): every projection of a block takes the
-low-rank update of ``ops/lora.py`` when an adapter tree names it. The
-dense API (:func:`forward`, :func:`prefill`, :func:`decode_step`) takes a
-global tree (``train/lora.py`` layout, leaves ``(L, r, in)`` / ``(L, out,
-r)``) for every row; the paged passes (``engine/kv_cache.py``) also take
-the engine's stacked slots ``(L, N, r, in)`` / ``(L, N, out, r)`` with
-each batch row's slot in ``adapter_ix``. Adapter leaves inside the
-*param* tree are refused (:func:`params_from_jax`).
+low-rank update of ``ops/lora.py`` when an adapter tree names it, one
+call for the projections that read one input (wq|wk|wv, wo,
+w_gate|w_up, w_down), made after their base products. The dense API
+(:func:`forward`, :func:`prefill`, :func:`decode_step`) takes a global
+tree (``train/lora.py`` layout, leaves ``(L, r, in)`` / ``(L, out, r)``)
+for every row; the paged passes (``engine/kv_cache.py``) also take the
+engine's stacked slots ``(L, N, r, in)`` / ``(L, N, out, r)`` with each
+batch row's slot in ``adapter_ix``. Either may come prepared
+(``ops.lora.prepare``, as the engine keeps its resident tree), or is
+prepared for the pass. Adapter leaves inside the *param* tree are refused
+(:func:`params_from_jax`).
 
 Not ported here (ROADMAP A.11): biased projections and LayerNorm, and
 MoE.
@@ -314,24 +318,26 @@ def _norm(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     return rms_norm(x, layer[name], cfg.norm_eps)
 
 
-def _proj(x: torch.Tensor, layer: Params, name: str,
-          adapters: Optional[Params] = None,
-          adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ W through the quant seam, plus the LoRA update when the layer's
-    ``adapters`` name this projection (``_maybe_lora`` there)."""
-    y = quant_ops.matmul(x, layer[name])
-    if adapters is None or name not in adapters:
-        return y
-    a, b = adapters[name]
-    return lora_ops.lora_apply(y, x, a, b, adapter_ix)
+def _projs(x: torch.Tensor, layer: Params, names: Tuple[str, ...],
+           lora: Optional[Dict[str, Any]] = None,
+           adapter_ix: Optional[torch.Tensor] = None):
+    """x @ W of the projections ``names`` that read x, through the quant
+    seam, then the LoRA update of each of the layer's groups over x (one
+    call a group, ``_maybe_lora`` there). Returns the outputs in order."""
+    ys = {n: quant_ops.matmul(x, layer[n]) for n in names}
+    for g in (lora or {}).get(names[0], ()):
+        ys.update(zip(g.targets, lora_ops.lora_apply_group(
+            [ys[t] for t in g.targets], x, g, adapter_ix)))
+    return [ys[n] for n in names]
 
 
-def layer_adapters(adapters: Optional[Params], i: int) -> Optional[Params]:
-    """Layer i's ``{target: (a, b)}`` of an adapter tree (global or
-    stacked slots), or None."""
-    if adapters is None:
-        return None
-    return {name: (ab["a"][i], ab["b"][i]) for name, ab in adapters.items()}
+def lora_layers(adapters: Optional[Params],
+                n_layers: int) -> Optional[lora_ops.LoraLayers]:
+    """An adapter tree (global or stacked slots) as each layer's groups
+    (``ops.lora.prepare``), or None; a prepared one as it is."""
+    if adapters is None or isinstance(adapters, lora_ops.LoraLayers):
+        return adapters
+    return lora_ops.prepare(adapters, n_layers)
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -339,25 +345,26 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 def _block(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
            cos: torch.Tensor, sin: torch.Tensor, attn_fn: AttnFn,
-           adapters: Optional[Params] = None,
+           adapters: Optional[Dict[str, Any]] = None,
            adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One transformer block; ``attn_fn(q, k, v) -> ctx`` owns the cache
     write and the attention read, so every path shares this block.
-    ``adapters``: the layer's ``{target: (a, b)}`` (:func:`layer_adapters`),
+    ``adapters``: the layer's groups (an entry of ``ops.lora.LoraLayers``),
     stacked slots selected per batch row by ``adapter_ix`` (B,)."""
     B, S, _ = h.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ad = (adapters, adapter_ix)
     x = _norm(cfg, h, layer, "attn_norm")
-    q = apply_rope(_proj(x, layer, "wq", *ad).reshape(B, S, H, HD), cos, sin)
-    k = apply_rope(_proj(x, layer, "wk", *ad).reshape(B, S, KV, HD), cos,
-                   sin)
-    v = _proj(x, layer, "wv", *ad).reshape(B, S, KV, HD)
-    h = h + _proj(attn_fn(q, k, v).reshape(B, S, H * HD), layer, "wo", *ad)
+    q, k, v = _projs(x, layer, ("wq", "wk", "wv"), *ad)
+    q = apply_rope(q.reshape(B, S, H, HD), cos, sin)
+    k = apply_rope(k.reshape(B, S, KV, HD), cos, sin)
+    v = v.reshape(B, S, KV, HD)
+    o, = _projs(attn_fn(q, k, v).reshape(B, S, H * HD), layer, ("wo",), *ad)
+    h = h + o
     x = _norm(cfg, h, layer, "mlp_norm")
-    act = glu(_proj(x, layer, "w_gate", *ad), _proj(x, layer, "w_up", *ad),
-              cfg.hidden_act)
-    return h + _proj(act, layer, "w_down", *ad)
+    gate, up = _projs(x, layer, ("w_gate", "w_up"), *ad)
+    down, = _projs(glu(gate, up, cfg.hidden_act), layer, ("w_down",), *ad)
+    return h + down
 
 
 ATTN_IMPLS = ("auto", "kernel", "plain")
@@ -391,10 +398,12 @@ def run_blocks(cfg: LlamaConfig, params: Params, h: torch.Tensor,
     """The layer loop (``scan_blocks_inplace`` there): ``attn_for_layer(i)``
     gives layer i's attention, which may write the KV pool in place.
     ``adapters``: a global adapter tree, or stacked slots with each batch
-    row's slot in ``adapter_ix`` (B,)."""
+    row's slot in ``adapter_ix`` (B,), as a tree or prepared
+    (:func:`lora_layers`)."""
+    lora = lora_layers(adapters, len(params["layers"]))
     for i, layer in enumerate(params["layers"]):
         h = _block(cfg, h, layer, cos, sin, attn_for_layer(i),
-                   layer_adapters(adapters, i), adapter_ix)
+                   lora[i] if lora is not None else None, adapter_ix)
     return h
 
 

@@ -1037,6 +1037,37 @@ def test_lora_apply_matches_plain_on_the_card(cuda_device, K, O, R, S, mix):
         assert reading["base_rows_bit_equal"]
 
 
+# the groups of targets that share an input, (K, (O of each target))
+LORA_GROUPS = ((4096, (4096, 1024, 1024)), (4096, (14336, 14336)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["mixed", "one", "base", "global"])
+@pytest.mark.parametrize("R,S", [(8, 1), (72, 9), (1024, 128)])
+@pytest.mark.parametrize("K,Os", LORA_GROUPS)
+def test_lora_apply_group_matches_plain_on_the_card(cuda_device, K, Os, R,
+                                                    S, mix):
+    """One call for the targets that share an input (wq|wk|wv, gate|up)
+    at llama3-8b's serving shapes, rank 16 (and 8 and 64 at a narrow
+    step): each target within ``chip_smoke.LORA_TOLERANCE`` of the plain
+    version, rows of slot 0 bit for bit the input; one launch a call; two
+    calls bit-identical (the split-K partials are added in a fixed
+    order)."""
+    from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
+    cs = _smoke()
+    for r in (16, 8, 64) if R == 8 else (16,):
+        ys, x, a, b, slots = cs.lora_group_inputs(
+            cuda_device, K, Os, r, R, S, mix, torch.bfloat16, K + R + r)
+        group = cl.ResidentGroup(a, b)
+        tk.reset_launch_counts()
+        got = cl.lora_apply_group([y.clone() for y in ys], x, group, slots)
+        again = cl.lora_apply_group([y.clone() for y in ys], x, group, slots)
+        assert tk.launch_counts()["lora"] == 2
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
+        reading = cs.check_lora_group("lora", ys, x, a, b, slots, got)
+        assert reading["base_rows_bit_equal"]
+
+
 @pytest.mark.cuda
 def test_lora_apply_f32_matches_plain_on_the_card(cuda_device):
     from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
@@ -1046,6 +1077,13 @@ def test_lora_apply_f32_matches_plain_on_the_card(cuda_device):
                                            mix, torch.float32, r)
         got = cl.lora_apply(y.clone(), x, a, b, slots)
         cs.check_lora("lora", y, x, a, b, slots, got)
+    # the grouped call of the f32 instance
+    ys, x, a, b, slots = cs.lora_group_inputs(
+        cuda_device, 4096, (4096, 1024, 1024), 16, 8, 1, "mixed",
+        torch.float32, 5)
+    got = cl.lora_apply_group([y.clone() for y in ys], x,
+                              cl.ResidentGroup(a, b), slots)
+    cs.check_lora_group("lora", ys, x, a, b, slots, got)
 
 
 @pytest.mark.cuda
@@ -1078,20 +1116,21 @@ def test_lora_apply_refuses_what_it_cannot_take(cuda_device, what):
 @pytest.mark.cuda
 def test_engine_lora_streams_kernel_match_plain(cuda_device, monkeypatch):
     """Two adapters (rank 8) registered on the tiny model, f32: a mixed
-    batch's greedy and seeded streams through ``lora_apply`` equal those
-    through ``lora_apply_plain``, and the kernel launches once a target and
-    layer a forward pass; a rank the kernel does not take is refused at
-    registration, naming the ranks it takes."""
+    batch's greedy and seeded streams through ``lora_apply_group`` equal
+    those through the plain version, and the kernel launches once a group
+    of targets that share an input (wq|wk|wv, wo) and a layer in each
+    forward pass with an adapter row; a rank the kernel does not take is
+    refused at registration, naming the ranks it takes."""
     from generativeaiexamples_tpu_torch.core.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.engine import EngineCore
     from generativeaiexamples_tpu_torch.engine.scheduler import (
         Request, Scheduler)
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.models import llama
-    from generativeaiexamples_tpu_torch.ops import lora as lora_ops
     from generativeaiexamples_tpu_torch.ops.cuda import lora as cl
     from generativeaiexamples_tpu_torch.train import lora
 
+    cs = _smoke()
     cfg = llama.LlamaConfig.tiny(vocab_size=300)
     params = llama.init_params(
         torch.Generator(device=cuda_device).manual_seed(5), cfg)
@@ -1109,7 +1148,8 @@ def test_engine_lora_streams_kernel_match_plain(cuda_device, monkeypatch):
     streams = {}
     for path in ("kernel", "plain"):
         if path == "plain":
-            monkeypatch.setattr(cl, "lora_apply", lora_ops.lora_apply_plain)
+            monkeypatch.setattr(cl, "lora_apply_group",
+                                cs.lora_apply_group_plain_resident)
         core = EngineCore(cfg, EngineConfig(
             max_batch_size=4, max_seq_len=256, prefill_chunk=16,
             page_size=8), params, tok.eos_id, device=cuda_device)
@@ -1132,7 +1172,8 @@ def test_engine_lora_streams_kernel_match_plain(cuda_device, monkeypatch):
         assert all(r.error is None for r in reqs)
         streams[path] = [r.output_ids for r in reqs]
         launched = tk.launch_counts()["lora"]
-        assert (launched > 0 and launched % (4 * cfg.n_layers) == 0) \
-            if path == "kernel" else launched == 0
+        assert core.lora_groups == 2 and core.lora_passes > 0
+        assert launched == (2 * cfg.n_layers * core.lora_passes
+                            if path == "kernel" else 0)
     assert streams["kernel"] == streams["plain"]
     assert streams["kernel"][0] != streams["kernel"][1]

@@ -19,8 +19,11 @@ through ``params_from_jax`` and the adapters through ``adapters_from_jax``:
   slot capacity and global exclusivity, the idempotent re-register, the
   refused rebind and rank mismatch;
 * the mixed dispatch is off once an adapter is registered (a base-only
-  engine keeps it and never calls the update), and every forward calls the
-  update once a target and layer.
+  engine keeps it and never calls the update), and every forward pass
+  with an adapter row calls the update once a group of targets that share
+  an input and a layer, a pass without one never; a base-only batch with
+  adapters resident, and a batch in which an adapter'd request finishes
+  while base rows go on, stream the JAX ``Scheduler``'s tokens.
 """
 
 import types
@@ -86,7 +89,8 @@ def setup():
         jtrees=jtrees, trees=trees, tok=ByteTokenizer())
 
 
-def _jax_streams(s, batch, temperature=0.0, adapters=None, **engine_kw):
+def _jax_streams(s, batch, temperature=0.0, adapters=None, lens=None,
+                 **engine_kw):
     core = JaxCore(s.cfg, JaxEngineConfig(**GEOMETRY, **engine_kw),
                    dict(s.jparams), eos_id=s.tok.eos_id, adapters=adapters)
     if adapters is None:
@@ -94,8 +98,9 @@ def _jax_streams(s, batch, temperature=0.0, adapters=None, **engine_kw):
             core.register_adapter(name, tree)
     sched = JaxScheduler(core, s.tok)
     reqs = [JaxRequest(prompt_ids=s.tok.encode(PROMPTS[p], add_bos=True),
-                       max_tokens=TOKENS, temperature=temperature,
-                       seed=10 + i, adapter=name, logprobs=True)
+                       max_tokens=lens[i] if lens else TOKENS,
+                       temperature=temperature, seed=10 + i, adapter=name,
+                       logprobs=True)
             for i, (p, name) in enumerate(batch)]
     for r in reqs:
         sched.submit(r)
@@ -123,12 +128,14 @@ def _run(sched, reqs):
     return reqs
 
 
-def _torch_streams(s, batch, temperature=0.0, core=None, **engine_kw):
+def _torch_streams(s, batch, temperature=0.0, core=None, lens=None,
+                   **engine_kw):
     sched = Scheduler(core or _core(s, **engine_kw), s.tok)
     reqs = _run(sched, [
         Request(prompt_ids=s.tok.encode(PROMPTS[p], add_bos=True),
-                max_tokens=TOKENS, temperature=temperature, seed=10 + i,
-                adapter=name) for i, (p, name) in enumerate(batch)])
+                max_tokens=lens[i] if lens else TOKENS,
+                temperature=temperature, seed=10 + i, adapter=name)
+        for i, (p, name) in enumerate(batch)])
     assert [r.error for r in reqs] == [None] * len(reqs)
     return [r.output_ids for r in reqs], sched
 
@@ -171,6 +178,47 @@ def test_lora_apply_plain_matches_maybe_lora(layout):
                        lora_ops.lora_apply_plain(*args))
 
 
+@pytest.mark.parametrize("layout", ["stacked", "global"])
+def test_lora_apply_group_plain_matches_maybe_lora(layout):
+    """The grouped plain version (wq|wk|wv over one x, S > 1, slot 0 among
+    the rows) against the reference's ``_maybe_lora`` for each target, in
+    f32 to 1e-5; base rows bit-equal; a group of CPU factors takes it."""
+    rng = np.random.default_rng(3)
+    B, S, K, r, N = 4, 3, 24, 4, 3
+    outs = {"wq": 20, "wk": 8, "wv": 8}
+    x = rng.standard_normal((B, S, K)).astype(np.float32)
+    ys = {n: rng.standard_normal((B, S, o)).astype(np.float32)
+          for n, o in outs.items()}
+    # the reference's (N, in, r) / (N, r, out) slots, slot 0 the base model
+    jab = {n: (rng.standard_normal((N, K, r)).astype(np.float32),
+               rng.standard_normal((N, r, o)).astype(np.float32))
+           for n, o in outs.items()}
+    for a, b in jab.values():
+        a[0] = b[0] = 0.0
+    ix = np.array([0, 2, 1, 0], np.int32) if layout == "stacked" else None
+    pick = (lambda v: v) if layout == "stacked" else (lambda v: v[1])
+    tree = {n: {"a": jnp.asarray(pick(a)), "b": jnp.asarray(pick(b))}
+            for n, (a, b) in jab.items()}
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v))
+    a_group = [t(np.swapaxes(pick(a), -1, -2)) for a, _ in jab.values()]
+    b_group = [t(np.swapaxes(pick(b), -1, -2)) for _, b in jab.values()]
+    slots = None if ix is None else t(ix)
+    got = lora_ops.lora_apply_group_plain([t(y) for y in ys.values()], t(x),
+                                          a_group, b_group, slots)
+    for (n, y), g in zip(ys.items(), got):
+        want = np.asarray(jllama._maybe_lora(
+            jnp.asarray(x), jnp.asarray(y), tree, n,
+            None if ix is None else jnp.asarray(ix)))
+        np.testing.assert_allclose(g.numpy(), want, atol=TOL, rtol=TOL)
+        if ix is not None:
+            np.testing.assert_array_equal(g.numpy()[ix == 0], y[ix == 0])
+    group = lora_ops.lora_group(list(outs), a_group, b_group)
+    assert group.kernel is None
+    for g, w in zip(lora_ops.lora_apply_group([t(y) for y in ys.values()],
+                                              t(x), group, slots), got):
+        assert torch.equal(g, w)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors_and_bad_ranks():
     y = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
@@ -194,17 +242,18 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_ranks():
 @pytest.mark.parametrize("T,O", [(8, 4096), (8, 14336), (72, 1024),
                                  (4096, 14336), (4096, 4096)])
 def test_lora_plan_covers_every_column(T, O):
-    cols = lora_kernels.lora_plan(T, O, 132)
-    tiles = -(-O // cols)
-    assert cols >= 1 and (tiles - 1) * cols < O <= tiles * cols
-    row_tiles = -(-T // lora_kernels.ROWS)
-    # no more column tiles than it takes to reach two blocks an SM, none
-    # narrower than 256 columns but the last: a narrow step spreads over
-    # the card, a prefill block covers a long stretch of columns
-    assert row_tiles * (tiles - 1) < 2 * 132
-    assert tiles == 1 or cols >= 256
-    if T <= 16:
-        assert tiles == -(-O // 256)
+    """The grouped kernel's plan (ops/cuda/lora.py lora_plan): the expand's
+    column tiles cover every column once and its row blocks every row,
+    the shrink's row tiles every row; a decode batch stages every adapter
+    slot at once, a prefill batch (one slot a chunk) one. The split-K
+    partitions and the other shapes: tests/test_torch_lora_plan.py."""
+    plan = lora_kernels.lora_plan(T, 4096, (O,), 132, 4)
+    cols, rows = lora_kernels.TILE_COLS, lora_kernels.TILE_ROWS
+    assert (plan.col_tiles - 1) * cols < O <= plan.col_tiles * cols
+    assert (plan.row_blocks - 1) * plan.RT * rows < T \
+        <= plan.row_blocks * plan.RT * rows
+    assert (plan.tiles - 1) * 16 * plan.G < T <= plan.tiles * 16 * plan.G
+    assert plan.SB == (3 if T <= 4 * rows else 1)
 
 
 def test_merge_adapters_matches_reference(setup):
@@ -446,8 +495,8 @@ def test_reregister_is_idempotent_rebind_and_rank_mismatch_refused(setup):
 def test_mixed_dispatch_off_once_adapters_are_resident(setup, monkeypatch):
     s = setup
     calls = []
-    real = lora_ops.lora_apply
-    monkeypatch.setattr(lora_ops, "lora_apply",
+    real = lora_ops.lora_apply_group
+    monkeypatch.setattr(lora_ops, "lora_apply_group",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     base = _core(s, register=False, mixed_phase_dispatch="on",
                  prefill_hold_chunks=0)
@@ -468,24 +517,70 @@ def test_mixed_dispatch_off_once_adapters_are_resident(setup, monkeypatch):
 
 
 def test_update_runs_once_a_target_and_layer_a_forward(setup, monkeypatch):
-    """The card's launch rule at the tiny size: one update a target and a
-    layer in every forward pass while adapters are resident (the warmup's
-    included, which visits the adapter path)."""
+    """The card's launch rule at the tiny size: one update call a group of
+    targets that share an input (wq|wk|wv and wo at the reference's four
+    targets) and a layer in every forward pass that has an adapter row
+    (the warmup's included, which visits the adapter path), none in a pass
+    without one; the engine counts the passes that made them."""
     s = setup
     calls, passes = [], []
-    real, real_blocks = lora_ops.lora_apply, llama.run_blocks
-    monkeypatch.setattr(lora_ops, "lora_apply",
+    real, real_blocks = lora_ops.lora_apply_group, llama.run_blocks
+    monkeypatch.setattr(lora_ops, "lora_apply_group",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    monkeypatch.setattr(llama, "run_blocks",
-                        lambda *a, **k: passes.append(1) or real_blocks(*a,
-                                                                        **k))
+
+    def blocks(*a, **k):
+        passes.append(k.get("adapters", a[6] if len(a) > 6 else None)
+                      is not None)
+        return real_blocks(*a, **k)
+
+    monkeypatch.setattr(llama, "run_blocks", blocks)
     core = _core(s, **NARROW)
+    assert core.lora_groups == 2
     core.warmup()
-    assert passes and len(calls) == 4 * 2 * len(passes)   # wq wk wv wo, L 2
-    calls.clear()
-    passes.clear()
-    _torch_streams(s, BATCH, core=core)
-    assert passes and len(calls) == 4 * 2 * len(passes)
+    assert passes and all(passes)
+    assert len(calls) == 2 * 2 * len(passes) == 2 * 2 * core.lora_passes
+    for batch, with_adapters in ((BATCH, True), ([(0, ""), (1, "")], False)):
+        calls.clear()
+        passes.clear()
+        done = core.lora_passes
+        _torch_streams(s, batch, core=core)
+        assert passes and any(passes) == with_adapters
+        assert len(calls) == 2 * 2 * sum(passes) \
+            == 2 * 2 * (core.lora_passes - done)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_base_only_batch_streams_match_jax_without_an_update(
+        setup, monkeypatch, temperature):
+    """Adapters resident and only base-model requests: the JAX
+    ``Scheduler``'s streams, greedy and seeded, and no update call."""
+    s = setup
+    batch = [(0, ""), (1, ""), (1, "")]
+    want = _jax_streams(s, batch, temperature, **JAX_NARROW)
+    calls = []
+    real = lora_ops.lora_apply_group
+    monkeypatch.setattr(lora_ops, "lora_apply_group",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    core = _core(s, **NARROW)
+    got, _ = _torch_streams(s, batch, temperature, core=core)
+    assert got == want
+    assert not calls and core.lora_passes == 0
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_adapter_request_finishing_while_base_rows_continue(setup,
+                                                            temperature):
+    """An adapter'd request of 3 tokens beside base requests of 12: the
+    passes after it ends (its slot keeps its adapter until reused, as the
+    device's ``adapter_ix`` does) and the base rows' streams equal the JAX
+    ``Scheduler``'s, greedy and seeded."""
+    s = setup
+    batch, lens = [(0, ""), (1, "ad-a"), (1, "")], [TOKENS, 3, TOKENS]
+    want = _jax_streams(s, batch, temperature, lens=lens, **JAX_NARROW)
+    got, sched = _torch_streams(s, batch, temperature, lens=lens, **NARROW)
+    assert got == want
+    assert [len(g) for g in got] == lens
+    assert sched.core.lora_passes > 0
 
 
 def test_config_max_adapters_defaults_to_the_reference(monkeypatch):
