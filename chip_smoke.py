@@ -5,7 +5,7 @@
     python3 chip_smoke.py --planted-faults [NAME ...]  # the kernel checks
                                             # catch faults (all, or those)
     python3 chip_smoke.py --ab PARENT CHANGE [attention sampling gemm grammar
-                                             lora]
+                                             lora | sampler]
                                             # kernel times of two trees
 
 Phases, each printing one JSON line; any failure exits non-zero and
@@ -42,6 +42,9 @@ prints no result:
               included, logprobs within 1e-5, beside ``torch.topk`` +
               ``torch.logsumexp``) and all three (``all_rows72``, and
               ``all_slots12_rows108`` at serve_tools' 12 slots of W = 9);
+              then Gemma's 256,000 entries (``gemma_rows72``, ``_rows8``,
+              ``_rows40``, and all three options at 8 and 72 rows), where
+              a block keeps s alone and recomputes e each top-p round;
   7c. kernel:grammar_mask  the allowed set of a grammared sampling call
               at R = 8, 40 and 72 rows (8 slots) and 108 (serve_tools' 12
               slots of W = 9) of llama3's 128,256 entries, rows w >
@@ -103,7 +106,18 @@ prints no result:
               (logits of a grouped prefill, then every stream), and each
               adapter's requests alone on a global-adapter engine equal
               to the batch's; ``dense_lora``: the dense-cache API with a
-              global adapter, 8 rows, kernel against plain;
+              global adapter, 8 rows, kernel against plain; then
+              ``parity_gemma``: gemma-7b's and gemma-2b's widths (heads of
+              256, G = 1 and 8, V = 256,000), 2 layers, f32, the kernel
+              path against the plain path: a dense prefill's logits within
+              ``PARITY_GAP_TOL``, greedy engine streams over both pools
+              with speculation and the mixed dispatch on;
+  8b. serve_gemma  gemma-7b at full width and depth (28 layers, 8.5 B
+              parameters, bf16, seeded) behind the HTTP server with the
+              reference's defaults: ``serve``'s traffic, then one
+              ``response_format: json_object`` request whose reply must
+              parse; the attention kernels at head_dim 256, the grammar
+              mask and the sampler at V = 256,000 launched;
   9. serve    llama3-8b at full width and depth, bf16, random seeded
               weights, behind the port's HTTP server with the reference's
               defaults (``warmup`` first): 4 requests (10 chunks) admitted
@@ -213,15 +227,18 @@ engine's sampling calls) and ``first_mid_dispatch``.
 
 The flash phase runs 4 ragged chunks, the serve path's group of 8 chunks
 (``prefill_group8``) and 8 cache-hit suffixes (``prefix_suffix``: 40 to
-200 queries padded to 256 at starts 1,408 to 1,664); the ragged phases
+200 queries padded to 256 at starts 1,408 to 1,664), then at gemma-7b's
+heads of 256 four full chunks and the group of 8; the ragged phases
 run decode rows at batch 8 and at batch 1, Qb = 8 mixed rows, the verify
 steps of widths 5 and 9 at batch 8 and the mixed program's rows
 (``mixed_qb16``: 8 decode rows and 4 chunks of 512 at starts 0 to 1,536
 in rows of 16 queries; ``mixed_prefix``: the same decode rows and 4
 cache-hit suffixes of 64 to 200 tokens at starts 1,152 to 1,408, padded
-to 512);
-``ragged_decode`` batch 8 and batch 1, each with its split plan and
-scratch bytes. Each kernel phase holds the
+to 512), and decode, verify 5 and 9 and mixed rows of 16 at gemma-7b's
+heads (G = 1) and gemma-2b's (G = 8, query tiles of 4);
+``ragged_decode`` batch 8 and batch 1 at llama3-8b's and gemma-7b's
+heads, each with its split plan and scratch bytes. Each kernel phase
+holds the
 kernel to its plain version per (query, head) within one bf16 ulp of the
 largest plain output (``compare``); kernel and library times are device
 times of CUDA-graph replays (``graph_ms``), plain times of CUDA events
@@ -240,7 +257,12 @@ unconstrained row in the sampler, and a wrong slot, base rows written,
 a split's partial dropped from the reduction and a target's update
 written into the next target's output in the LoRA update (these four
 also run ``parity_lora``, which each must fail) and a dropped rank in
-its bf16 shrink, each
+its bf16 shrink, and at head_dim 256 and V = 256,000: Q's A fragment of
+the wrong k-step and Q staged in the ring in ``flash_prefill``, the f32
+walk's splits starting at their 64-token index counted in 32-token steps
+(overlapping splits; ``parity_gemma`` must fail), a token group's
+partial merged into the wrong row, and z summed over every entry where
+the sampler recomputes e (V = 256,000), each
 planted in a temporary copy of the port, case by case: every case fails
 under at least one fault;
 ``--ab`` times every attention kernel and the sampling call of two trees
@@ -251,8 +273,8 @@ default); ``--lora-variants`` times a few LoRA cases, with each call's
 shrink and expand device time, for the tree as it is and for each of
 ``LORA_VARIANTS`` (the design choices of ``csrc/lora.cu`` undone, one at
 a time, in a temporary copy). Each main
-path (9 to 16) sets the launch counts to 0 just before it and reads them
-just after; every kernel must have launched on its path. Then
+path (8b to 16) sets the launch counts to 0 just before it and reads
+them just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package. Exits non-zero without CUDA, or when the port is not beside it.
@@ -483,12 +505,21 @@ def gemm_max_clusters():
     return cq._card(torch.cuda.current_device())[1]
 
 
-def _flash_case(dev, starts, lens, seed, C=512):
-    """flash_prefill at llama3-8b heads over G = len(starts) chunks of C
-    queries against a T = 2048 dense view, bf16."""
+# (H, KV, HD) of the attention cases: llama3-8b's heads, and the Gemma
+# family's heads of 256: gemma-7b's 16 / 16 (G = 1) and gemma-2b's 8 / 1
+# (G = 8)
+LLAMA3_8B_HEADS = (32, 8, 128)
+GEMMA_7B_HEADS = (16, 16, 256)
+GEMMA_2B_HEADS = (8, 1, 256)
+
+
+def _flash_case(dev, starts, lens, seed, C=512, heads=LLAMA3_8B_HEADS):
+    """flash_prefill at ``heads`` (llama3-8b's by default) over G =
+    len(starts) chunks of C queries against a T = 2048 dense view,
+    bf16."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
-    G, T, H, KV, HD = len(starts), 2048, 32, 8, 128
+    (H, KV, HD), G, T = heads, len(starts), 2048
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
     q = torch.randn((G, C, H, HD), generator=g, device=dev).to(bf)
@@ -536,18 +567,26 @@ PREFIX_SUFFIX = ([1408, 1536, 1664, 1408, 1536, 1664, 1408, 1536],
                  [40, 64, 100, 128, 150, 180, 200, 77])
 
 
+GROUP8 = ([0, 512, 1024, 1536, 0, 0, 0, 0],
+          [512, 512, 512, 512, 144, 300, 97, 450])
+
+
 def flash_cases(dev):
     """The flash_prefill cases, each a thunk: four ragged chunks (row 1 a
     prompt's second chunk), the serve path's full group of 8 chunks
     (``prefill_group8``: a prompt's second to fourth chunks beside four
-    first chunks), and 8 cache-hit suffixes (``prefix_suffix``)."""
+    first chunks), and 8 cache-hit suffixes (``prefix_suffix``); then the
+    head_dim 256 instance at gemma-7b's heads: four full chunks of 512 of
+    one prompt and a fresh one (``gemma7b_chunks4``) and the group of 8."""
+    g7 = dict(heads=GEMMA_7B_HEADS)
     return {
         "chunks4": lambda: _flash_case(dev, [0, 512, 0, 0],
                                        [512, 300, 450, 97], 1),
-        "prefill_group8": lambda: _flash_case(
-            dev, [0, 512, 1024, 1536, 0, 0, 0, 0],
-            [512, 512, 512, 512, 144, 300, 97, 450], 6),
+        "prefill_group8": lambda: _flash_case(dev, *GROUP8, 6),
         "prefix_suffix": lambda: _flash_case(dev, *PREFIX_SUFFIX, 7, C=256),
+        "gemma7b_chunks4": lambda: _flash_case(
+            dev, [0, 512, 1024, 0], [512, 512, 512, 512], 8, **g7),
+        "gemma7b_prefill_group8": lambda: _flash_case(dev, *GROUP8, 9, **g7),
     }
 
 
@@ -570,15 +609,16 @@ def phase_flash(dev):
 
 
 def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False, pos0=None,
-                 slot_of_row=None, seed=None, H=32):
-    """One shape of the ragged kernel over a 32-layer pool of llama3-8b
-    heads (H = 64: llama3-70b's, G = 8): bf16 pages, or int8 pages with
-    f32 (N, KV, page) scales. Row r reads the page-table row of slot
-    ``slot_of_row[r]`` (default: a slot of its own), with its queries at
-    ``pos0[r]`` on (default: its last ``q_num`` positions)."""
+                 slot_of_row=None, seed=None, H=32, KV=8, HD=128, L=32):
+    """One shape of the ragged kernel over an L-layer pool of llama3-8b
+    heads (H = 64: llama3-70b's, G = 8; or the Gemma family's heads of
+    256): bf16 pages, or int8 pages with f32 (N, KV, page) scales. Row r
+    reads the page-table row of slot ``slot_of_row[r]`` (default: a slot
+    of its own), with its queries at ``pos0[r]`` on (default: its last
+    ``q_num`` positions)."""
     import torch
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
-    L, KV, HD, ps, maxp = 32, 8, 128, 128, 16
+    ps, maxp = 128, 16
     slot_of_row = list(range(R)) if slot_of_row is None else slot_of_row
     n_slots = max(slot_of_row) + 1
     P = max(8, n_slots) * maxp + 1
@@ -663,8 +703,9 @@ def _ragged_case(dev, R, Qb, lens, q_num, tag, quant=False, pos0=None,
     nbytes = float(kv_bytes + scale_bytes + 2 * valid_q * H * HD * 2)
     b_ms, b_by = bound(flops, nbytes)
     ms = graph_ms(run_kernel)
-    # rows past QG_MAX query vectors run as query tiles, each a cell
-    tq = (k.query_tile(Qb, H // KV) if hasattr(k, "query_tile") else Qb)
+    # rows past the head dim's query vectors a block run as query tiles,
+    # each a cell
+    tq = _query_tile(k, Qb, H // KV, HD)
     res = dict(
         **check, tolerance=TOLERANCE, query_tiles=-(-Qb // tq),
         **_split_fields(dev, R * -(-Qb // tq), KV, T, tq * H // KV, HD),
@@ -690,6 +731,15 @@ DECODE_LENS = [1, 77, 300, 640, 1000, 1333, 1800, 2047]
 BATCH1_LENS = [2047]
 
 
+def _query_tile(k, Qb, G, HD):
+    """The wrapper's query tile of a row (a tree from before query tiles:
+    the whole row; before per-head-dim tiles: the 128 rule)."""
+    if not hasattr(k, "query_tile"):
+        return Qb
+    return (k.query_tile(Qb, G, HD) if hasattr(k, "qg_max")
+            else k.query_tile(Qb, G))
+
+
 def _split_fields(dev, rows, kv_heads, capacity, qg, head_dim):
     """The decode-side kernels' split plan for one launch and its scratch
     (from shapes, as the wrapper computes them)."""
@@ -706,13 +756,14 @@ def _split_fields(dev, rows, kv_heads, capacity, qg, head_dim):
                                                  head_dim))
 
 
-def _verify_case(dev, W, quant, H=32):
+def _verify_case(dev, W, quant, H=32, tag=None, **heads):
     """A W-wide speculative verify step at batch 8: the batch-8 decode
     rows' lengths (at least W), all W queries live."""
     lens = [max(n, W) for n in DECODE_LENS]
-    tag = f"verify_qb{W}" + ("" if H == 32 else "_g8")
+    tag = tag or f"verify_qb{W}" + ("" if H == 32 else "_g8")
     return _ragged_case(dev, 8, W, lens, [W] * 8, tag, quant,
-                        seed=20 + W + 100 * quant + (H != 32), H=H)
+                        seed=20 + W + 100 * quant + (H != 32) + len(heads),
+                        H=H, **heads)
 
 
 # the mixed program's rows at llama3-8b (q_block 16 for the top verify
@@ -726,7 +777,7 @@ MIXED_STARTS = (0, 512, 1024, 1536)
 PREFIX_CHUNKS = ((1152, 64), (1280, 200), (1408, 120), (1152, 160))
 
 
-def _mixed_case(dev, quant, chunks=None, tag="mixed_qb16", H=32):
+def _mixed_case(dev, quant, chunks=None, tag="mixed_qb16", H=32, **heads):
     chunks = chunks or tuple((start, 512) for start in MIXED_STARTS)
     lens = [max(n, 9) for n in DECODE_LENS]
     q_num, pos0, slots = [9] * 8, [n - 9 for n in lens], list(range(8))
@@ -739,12 +790,33 @@ def _mixed_case(dev, quant, chunks=None, tag="mixed_qb16", H=32):
             slots.append(8 + c)
     return _ragged_case(dev, len(lens), 16, lens, q_num, tag, quant,
                         pos0=pos0, slot_of_row=slots,
-                        seed=40 + 100 * quant + (tag != "mixed_qb16"), H=H)
+                        seed=40 + 100 * quant + (tag != "mixed_qb16"), H=H,
+                        **heads)
 
 
 RAGGED_SUBCASES = ("mixed_rows", "batch1", "verify_qb5", "verify_qb9",
                    "mixed_qb16", "mixed_prefix", "verify_qb9_g8",
                    "mixed_qb16_g8")
+def _gemma_ragged_cases(dev, quant):
+    """The Gemma family's cases: decode at batch 8, the verify steps of
+    widths 5 and 9 and the mixed rows of 16, at gemma-7b's heads (G = 1)
+    and at gemma-2b's (G = 8: rows of 40, 72 and 128 query vectors, past
+    the 32 a block holds at head_dim 256, run as query tiles of 4), over
+    8 layers of pool."""
+    cases = {}
+    for m, (H, KV, HD) in (("gemma7b", GEMMA_7B_HEADS),
+                           ("gemma2b", GEMMA_2B_HEADS)):
+        kw = dict(H=H, KV=KV, HD=HD, L=8)
+        cases[f"{m}_decode"] = (lambda kw=kw, m=m: _ragged_case(
+            dev, 8, 1, DECODE_LENS, [1] * 8, f"{m}_decode", quant,
+            seed=3 + 100 * quant + H, **kw))
+        for W in (5, 9):
+            cases[f"{m}_verify_qb{W}"] = (
+                lambda kw=kw, m=m, W=W: _verify_case(
+                    dev, W, quant, tag=f"{m}_verify_qb{W}", **kw))
+        cases[f"{m}_mixed_qb16"] = (lambda kw=kw, m=m: _mixed_case(
+            dev, quant, tag=f"{m}_mixed_qb16", **kw))
+    return cases
 
 
 def ragged_cases(dev, quant=False):
@@ -754,7 +826,8 @@ def ragged_cases(dev, quant=False):
     mixed program's 136 rows, and the same with cache-hit suffixes for
     chunks (``mixed_prefix``); then llama3-70b's heads (G = 8) at the
     verify width 9 (72 query vectors a row) and the mixed rows of 16
-    (128), each row two query tiles."""
+    (128), each row two query tiles; then the Gemma family's heads of 256
+    (``_gemma_ragged_cases``)."""
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
     cases = {
         "decode": lambda: _ragged_case(dev, 8, 1, DECODE_LENS, [1] * 8,
@@ -773,6 +846,8 @@ def ragged_cases(dev, quant=False):
         cases["verify_qb9_g8"] = lambda: _verify_case(dev, 9, quant, H=64)
         cases["mixed_qb16_g8"] = lambda: _mixed_case(
             dev, quant, tag="mixed_qb16_g8", H=64)
+    if 256 in k.HEAD_DIMS:            # a tree with the head_dim 256 walk
+        cases.update(_gemma_ragged_cases(dev, quant))
     return cases
 
 
@@ -783,13 +858,14 @@ def phase_ragged(dev, quant=False):
     return res
 
 
-def _decode_case(dev, lengths, seed):
-    """ragged_decode at a decode layer of llama3-8b heads over a dense
-    (L, B, T, KV, HD) cache, T = 2048, one slot per length."""
+def _decode_case(dev, lengths, seed, heads=LLAMA3_8B_HEADS, L=32):
+    """ragged_decode at a decode layer of ``heads`` (llama3-8b's by
+    default) over a dense (L, B, T, KV, HD) cache, T = 2048, one slot per
+    length."""
     import torch
     from generativeaiexamples_tpu_torch.ops.attention import mha_decode
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
-    L, B, T, H, KV, HD = 32, len(lengths), 2048, 32, 8, 128
+    (H, KV, HD), B, T = heads, len(lengths), 2048
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
     kc = torch.randn((L, B, T, KV, HD), generator=g, device=dev).to(bf)
@@ -837,9 +913,18 @@ def _decode_case(dev, lengths, seed):
 
 def decode_cases(dev):
     """ragged_decode at batch 8 (the dense API's decode shape) and at
-    batch 1."""
-    return {"decode": lambda: _decode_case(dev, DECODE_LENS, 4),
-            "batch1": lambda: _decode_case(dev, BATCH1_LENS, 5)}
+    batch 1, at llama3-8b's heads and at gemma-7b's (head_dim 256, 8
+    layers of cache)."""
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    cases = {"decode": lambda: _decode_case(dev, DECODE_LENS, 4),
+             "batch1": lambda: _decode_case(dev, BATCH1_LENS, 5)}
+    if 256 in k.HEAD_DIMS:
+        g7 = dict(heads=GEMMA_7B_HEADS, L=8)
+        cases["gemma7b_decode"] = lambda: _decode_case(dev, DECODE_LENS, 14,
+                                                       **g7)
+        cases["gemma7b_batch1"] = lambda: _decode_case(dev, BATCH1_LENS, 15,
+                                                       **g7)
+    return cases
 
 
 def phase_decode(dev):
@@ -1039,6 +1124,7 @@ def phase_gemm(dev):
 # and 72 (the top W = 9 rung) rows over llama3-8b's vocabulary
 SAMPLE_ROWS = (72, 8, 40)
 SAMPLE_VOCAB = 128_256
+GEMMA_VOCAB = 256_000
 SAMPLE_SLOTS = 8
 # 32-bit operations a vocabulary entry costs the draw: threefry2x32's
 # 2 initial key adds, 20 rounds of add, rotate (one funnel shift) and xor,
@@ -1085,7 +1171,10 @@ def sampler_inputs(dev, B, W, V, dtype, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     R = B * W
     lf = torch.randn((R, V), generator=g, device=dev) * 3
-    sets = [SAMPLE_SETTINGS[(b + seed) % 8] for b in range(B)]
+    # top-k past the vocabulary at any V
+    sets = [(t, V + 5 if k == SAMPLE_VOCAB + 5 else k, p)
+            for t, k, p in (SAMPLE_SETTINGS[(b + seed) % 8]
+                            for b in range(B))]
     temp = torch.tensor([x[0] for x in sets], device=dev)
     top_k = torch.tensor([x[1] for x in sets], dtype=torch.int32, device=dev)
     top_p = torch.tensor([x[2] for x in sets], device=dev)
@@ -1373,9 +1462,10 @@ def sampler_options(dev, args, kind, seed):
     return (keys, counter0, W, logits, temp, top_k, top_p, active), opts
 
 
-def _sample_case(dev, R, seed, kind=None, B=SAMPLE_SLOTS):
-    """sample_slots over R = B x W rows of llama3-8b logits, float32 and
-    bfloat16: checked against the plain version (``check_sampler``), then
+def _sample_case(dev, R, seed, kind=None, B=SAMPLE_SLOTS, V=SAMPLE_VOCAB):
+    """sample_slots over R = B x W rows of llama3-8b logits (or ``V``
+    entries: Gemma's 256,000), float32 and bfloat16: checked against the
+    plain version (``check_sampler``), then
     timed (CUDA-graph replays) beside the plain version (the eager path of
     the parent's engine: fold_in, _mask_dynamic, the draw, token_logprob),
     the sort-based yardstick, and the bound of the work these inputs need.
@@ -1386,7 +1476,6 @@ def _sample_case(dev, R, seed, kind=None, B=SAMPLE_SLOTS):
     import torch
     from generativeaiexamples_tpu_torch.ops import sampling
     from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
-    V = SAMPLE_VOCAB
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = sampler_inputs(dev, B, R // B, V, dtype, seed)
@@ -1425,7 +1514,7 @@ def _sample_case(dev, R, seed, kind=None, B=SAMPLE_SLOTS):
             else "bytes", bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
             share_of_bound=b_ms / ms, bytes=nbytes, ops=ops,
             drawn_entries=drawn, cluster=ks.CLUSTER,
-            shared_bytes_a_block=8 * ks.slice_entries(V))
+            shared_bytes_a_block=4 * ks.slice_entries(V))
     entry = dict(res["bfloat16"], float32=res["float32"],
                  tolerance="thr_k bit-equal; thr_p and tokens equal except "
                  f"at cutoff near-ties (an entry between the cutoffs and "
@@ -1467,12 +1556,22 @@ SAMPLE_OPTION_CASES = (("mask_rows8", 8, "mask", SAMPLE_SLOTS),
 def sample_cases(dev):
     """The sampler's cases, each a thunk: R = 72, 8 and 40 rows, then the
     options: the grammar mask, the advance, the top rows, all three (at 8
-    slots, and at serve_tools' 12 slots of W = 9)."""
+    slots, and at serve_tools' 12 slots of W = 9); then Gemma's 256,000
+    entries at R = 72, 8 and 40 (e recomputed from s, not stored), and
+    with all three options at 8 and 72 rows."""
+    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
     cases = {f"rows{R}": (lambda R=R: _sample_case(dev, R, 60 + R))
              for R in SAMPLE_ROWS}
     for name, R, kind, B in SAMPLE_OPTION_CASES:
         cases[name] = (lambda R=R, kind=kind, B=B:
                        _sample_case(dev, R, 90 + R, kind, B))
+    if ks.MAX_VOCAB >= GEMMA_VOCAB:
+        for R in SAMPLE_ROWS:
+            cases[f"gemma_rows{R}"] = (lambda R=R: _sample_case(
+                dev, R, 160 + R, V=GEMMA_VOCAB))
+        for R in (8, 72):
+            cases[f"gemma_all_rows{R}"] = (lambda R=R: _sample_case(
+                dev, R, 190 + R, "all", V=GEMMA_VOCAB))
     return cases
 
 
@@ -1620,18 +1719,41 @@ def grammar_stack(dev):
     return _SMOKE_TOKENIZER["stack"]
 
 
-def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS, every_slot=False):
-    """One grammared sampling call's mask inputs over R = slots x W rows:
-    the first three quarters of the slots (every slot with
-    ``every_slot``) at states of the four resident grammars (their
-    starts, then states drawn from each DFA), the rest unconstrained,
-    budgets of 0, 3 and 8 to 40 tokens; rows w > 0 unconstrained, as a
-    widened step masks position 0 only. The byte table is the kernel's
-    (uint8 bytes, int8 lengths, as ``mask_byte_table`` makes it). Returns
-    the grammar_mask arguments."""
+def gemma_byte_table():
+    """The smoke tokenizer's byte table widened to Gemma's 256,000 entries:
+    entries past its own 128,256 repeat a seeded draw of its entries, so
+    the mask's words past llama3's 4,008 hold pieces that grammars allow,
+    as a 256,000-piece vocabulary's do. Returns (bytes, lengths); cached
+    for the process."""
+    import numpy as np
+    tk = smoke_tokenizer()
+    if "gemma_table" not in tk:
+        tb, tl = tk["tok_bytes"], tk["tok_lens"]
+        extra = np.random.default_rng(55).integers(
+            0, tb.shape[0], GEMMA_VOCAB - tb.shape[0])
+        tk["gemma_table"] = (np.concatenate([tb, tb[extra]]),
+                             np.concatenate([tl, tl[extra]]))
+    return tk["gemma_table"]
+
+
+def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS, every_slot=False,
+                   V=None):
+    """One grammared sampling call's mask inputs over R = slots x W rows
+    of V entries (the smoke tokenizer's by default, or Gemma's 256,000
+    by ``gemma_byte_table``): the first three quarters of the slots (every
+    slot with ``every_slot``) at states of the four resident grammars
+    (their starts, then states drawn from each DFA), the rest
+    unconstrained, budgets of 0, 3 and 8 to 40 tokens; rows w > 0
+    unconstrained, as a widened step masks position 0 only. The byte
+    table is the kernel's (uint8 bytes, int8 lengths, as
+    ``mask_byte_table`` makes it). Returns the grammar_mask arguments."""
     import torch
     from generativeaiexamples_tpu_torch.engine.engine import GRAM_STATES
     tk = smoke_tokenizer()
+    tb, tl = ((tk["tok_bytes"], tk["tok_lens"]) if V is None
+              else gemma_byte_table())
+    if V is not None and tb.shape[0] != V:
+        raise AssertionError(f"no byte table of {V} entries")
     stack, grams = grammar_stack(dev)
     g = torch.Generator().manual_seed(seed)
     W = R // slots
@@ -1650,8 +1772,8 @@ def grammar_inputs(dev, R, seed, slots=SAMPLE_SLOTS, every_slot=False):
             state[b, 0] = slot * GRAM_STATES + local
     table, accept, dist = stack.tensors()
     up = lambda a: torch.as_tensor(a).to(dev)
-    tb = torch.as_tensor(tk["tok_bytes"]).to(torch.uint8)
-    tl = torch.as_tensor(tk["tok_lens"]).to(torch.int8)
+    tb = torch.as_tensor(tb).to(torch.uint8)
+    tl = torch.as_tensor(tl).to(torch.int8)
     return [up(state.reshape(R)), up(budget.reshape(R)), tk["tok"].eos_id,
             table, accept, dist, up(tb), up(tl)]
 
@@ -1756,10 +1878,11 @@ def _grammar_timing(args):
         ops=ops)
 
 
-def _grammar_case(dev, R, seed, slots=SAMPLE_SLOTS, every_slot=False):
-    """grammar_mask over R rows of llama3's 128,256 entries, checked by
+def _grammar_case(dev, R, seed, slots=SAMPLE_SLOTS, every_slot=False,
+                  V=None):
+    """grammar_mask over R rows of V entries, checked by
     ``_grammar_check``, then timed by ``_grammar_timing``."""
-    args = grammar_inputs(dev, R, seed, slots, every_slot)
+    args = grammar_inputs(dev, R, seed, slots, every_slot, V)
     reading = _grammar_check(dev, args, slots, seed)
     if not CHECK_ONLY:
         reading.update(_grammar_timing(args))
@@ -1779,25 +1902,26 @@ def _special_states(dev):
     return schema_start, json_start // GRAM_STATES * GRAM_STATES + local
 
 
-def _failsafe_inputs(dev, seed):
-    """8 rows of 8 slots (W = 1), 6 constrained: row 0 at the nested
-    schema's start with a budget of 0 (no entry allowed: the fail-safe
-    EOS), row 1 at an accepting state of ``json_value()`` (EOS by
-    ``accept``), the others as ``grammar_inputs`` draws them."""
-    args = grammar_inputs(dev, 8, seed)
+def _failsafe_inputs(dev, seed, V=None):
+    """8 rows of 8 slots (W = 1) of V entries, 6 constrained: row 0 at the
+    nested schema's start with a budget of 0 (no entry allowed: the
+    fail-safe EOS), row 1 at an accepting state of ``json_value()`` (EOS
+    by ``accept``), the others as ``grammar_inputs`` draws them."""
+    args = grammar_inputs(dev, 8, seed, V=V)
     failsafe, accepting = _special_states(dev)
     args[0][:2] = args[0].new_tensor([failsafe, accepting])
     args[1][0] = 0
     return args
 
 
-def _failsafe_case(dev, seed):
+def _failsafe_case(dev, seed, V=None):
     """``_failsafe_inputs`` checked and timed; fails unless the reading
     shows both kinds of EOS row."""
-    args = _failsafe_inputs(dev, seed)
+    args = _failsafe_inputs(dev, seed, V)
     reading = _grammar_check(dev, args, SAMPLE_SLOTS, seed)
     if reading["failsafe_rows"] < 1 or reading["accepting_rows"] < 1:
-        raise AssertionError(f"failsafe_rows8 hit no fail-safe or no "
+        raise AssertionError(f"failsafe_rows8 ({args[6].shape[0]} "
+                             f"entries) hit no fail-safe or no "
                              f"accepting row: {reading}")
     if not CHECK_ONLY:
         reading.update(_grammar_timing(args))
@@ -1845,12 +1969,18 @@ def grammar_cases(dev):
     slots and 108 of 12 (6 or 9 constrained), 12 slots at W = 1 all
     constrained (``all_rows12``), a fail-safe and an accepting row
     (``failsafe_rows8``) and two launches on the same buffers
-    (``two_launches``)."""
+    (``two_launches``); then Gemma's 256,000 entries (8,000 words a row)
+    at R = 8 and 72 and the fail-safe rows (``gemma_*``)."""
     cases = {f"rows{R}": (lambda R=R, B=B: _grammar_case(dev, R, 30 + R, B))
              for R, B in GRAMMAR_ROWS}
     cases["all_rows12"] = lambda: _grammar_case(dev, 12, 52, 12, True)
     cases["failsafe_rows8"] = lambda: _failsafe_case(dev, 53)
     cases["two_launches"] = lambda: _two_launch_case(dev, 54)
+    for R in (8, 72):
+        cases[f"gemma_rows{R}"] = (lambda R=R: _grammar_case(
+            dev, R, 130 + R, V=GEMMA_VOCAB))
+    cases["gemma_failsafe_rows8"] = lambda: _failsafe_case(dev, 153,
+                                                           GEMMA_VOCAB)
     return cases
 
 
@@ -3064,11 +3194,12 @@ def _pipeline_parity(dev, params, cfg, tok):
 
 
 def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
-             temperature=None, top_p=None, model=None):
+             temperature=None, top_p=None, model=None, response_format=None):
     """One request (seed ``i``); by default the i-th of the narrow phase's
     six: chat/completion, streamed or not, temperature 0 / 0.7; ``model``
-    the OpenAI model id to send. Returns its status, text, finish reason,
-    usage, the model id it echoed and client-side times."""
+    the OpenAI model id to send, ``response_format`` its JSON mode.
+    Returns its status, text, finish reason, usage, the model id it echoed
+    and client-side times."""
     chat = i % 2 == 0 if chat is None else chat
     stream = i < 3 if stream is None else stream
     if text is None:
@@ -3081,6 +3212,8 @@ def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
         body["top_p"] = top_p
     if model is not None:
         body["model"] = model
+    if response_format is not None:
+        body["response_format"] = response_format
     if chat:
         body["messages"] = [{"role": "user", "content": text}]
         url = base + "/v1/chat/completions"
@@ -3302,9 +3435,10 @@ class _ForwardCount:
             return unembed(*args, **kw)
 
         def ragged_paged_attention(q, k_pages, *args, **kw):
-            Qb, H = q.shape[1], q.shape[2]
-            G = H // (k_pages.shape[-1] // q.shape[3])
-            self.tiled += Qb * G > k.QG_MAX
+            Qb, H, HD = q.shape[1], q.shape[2], q.shape[3]
+            G = H // (k_pages.shape[-1] // HD)
+            cap = k.qg_max(HD) if hasattr(k, "qg_max") else k.QG_MAX
+            self.tiled += Qb * G > cap
             return ragged(q, k_pages, *args, **kw)
 
         def counted_linear(*args, **kw):
@@ -3321,10 +3455,15 @@ class _ForwardCount:
             setattr(mod, name, fn)
 
 
+# serve_gemma's JSON-mode request: the grammar mask and the sampler's
+# mask and advance at the model's vocabulary
+JSON_PROMPT = "Describe the paged KV cache as a JSON object."
+
+
 def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                 chain=False, quant="none", model="llama3-8b",
                 decoder_tokens=256, late=2, tok=None, texts=None, name=None,
-                adapters=None, adapter_traffic=True):
+                adapters=None, adapter_traffic=True, json_request=False):
     """HTTP requests against a full model (llama3-8b unless ``model`` says
     otherwise); the launch counts, the dispatch counts and the engine's
     sampling calls are set to 0 just before the requests and read just
@@ -3350,7 +3489,11 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     but every request names the base model (``serve_lora_base``: the
     mixed dispatch's absence without the adapter rows' work, and no
     ``lora`` launch at all). Without adapters no ``lora`` launch at all.
-    Returns (launches, the engine core)."""
+    ``json_request``: once the traffic is done, one more chat request with
+    ``response_format: json_object`` (greedy, 64 tokens) inside the
+    counted window: its reply must parse as JSON, and ``grammar_mask`` and
+    the sampler's masked variants must launch. Returns (launches, the
+    engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
@@ -3412,8 +3555,14 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                 results, at_late = _staggered_traffic(
                     base, sched, submitted, chain, decoder_tokens, late,
                     texts, models)
+            if json_request:
+                results.append(_request(
+                    base, len(results), JSON_PROMPT, 64, chat=True,
+                    stream=False, temperature=0.0,
+                    response_format={"type": "json_object"}))
             wall = time.perf_counter() - t0
             launches = k.launch_counts()
+            variants = build.sampler_launches_by_variant()
             lora_passes = core.lora_passes - lora_passes0
             gemm_rows = build.gemm_launches_by_rows()
             stats = dict(sched.stats)
@@ -3428,6 +3577,24 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         httpd.server_close()
         sched.stop()
         thread.join(timeout=30)
+    json_reply = None
+    if json_request:
+        text = results[-1]["text"]
+        try:
+            value = json.loads(text)
+        except ValueError as exc:
+            raise AssertionError(f"{name or model}: the json_object reply "
+                                 f"{text!r} does not parse: {exc}")
+        masked = sum(n for v, n in variants.items() if "mask" in v)
+        json_reply = dict(status=results[-1]["status"],
+                          finish_reason=results[-1]["finish_reason"],
+                          text_bytes=len(text.encode()),
+                          value_type=type(value).__name__,
+                          grammar_mask_launches=launches["grammar_mask"],
+                          sampler_variants=variants)
+        if launches["grammar_mask"] < 1 or masked < 1:
+            raise AssertionError(f"the json_object request ran without the "
+                                 f"grammar mask: {json_reply}")
     for i, r in enumerate(results):
         r["sent_s"] -= t0
         del r["text"]         # random weights: the text is noise
@@ -3499,7 +3666,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         _check_loop(name, stats, core, launches, sampled=True, ramp=True)
     gen = sum(r["usage"]["completion_tokens"] for r in results)
     fields = dict(
-        model=model, n_layers=L, dtype="bfloat16", kv_quant=kv_quant,
+        model=model, n_layers=L, dtype=cfg.dtype, kv_quant=kv_quant,
         quant=quant, weight_bytes=health["weight_bytes"],
         spec_widths=health["spec_widths"], mixed=health["mixed"],
         weights=weights, tokenizer=type(tok).__name__, requests=results,
@@ -3521,6 +3688,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         **_loop_fields(stats, core, warmup_s, launches),
         **(dict(gemm_launches_by_rows=gemm_rows) if quant == "int8" else {}),
+        **(dict(json_object_reply=json_reply) if json_request else {}),
         **(dict(adapters=list(adapters), adapter_targets=targets,
                 adapter_rank=int(next(iter(next(iter(
                     adapters.values())).values()))["a"].shape[1]),
@@ -3561,6 +3729,263 @@ def phase_serve_70b(dev):
     launches, core = phase_serve(dev, cfg, params, "int8", quant="int8",
                                  model="llama3-70b", decoder_tokens=32,
                                  late=1)
+    del core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The Gemma family: heads of 256, a vocabulary of 256,000
+# ---------------------------------------------------------------------------
+
+GEMMA_PARITY = ("gemma-7b", "gemma-2b")
+
+
+def _gemma_parity_model(dev, name):
+    """``name``'s widths at 2 layers, f32, seeded random weights with every
+    norm weight drawn off one (so the norms and the (1 + w) layout
+    matter)."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama, model_config
+    cfg = dataclasses.replace(model_config(name), n_layers=2,
+                              dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = llama.init_params(g, cfg, device=dev)
+    for norm in [params["final_norm"]] + [
+            layer[key] for layer in params["layers"]
+            for key in ("attn_norm", "mlp_norm")]:
+        norm.add_(0.2 * torch.randn(norm.shape, generator=g, device=dev))
+    return cfg, params
+
+
+def _f32_hd256_checks(dev):
+    """The f32 head_dim 256 instances the parity phase runs, held to their
+    plain versions directly (at Gemma's widths with random weights the
+    sqrt(dim)-scaled embedding dominates the residual stream, so greedy
+    streams and logits barely read attention): ``flash_prefill`` over two
+    chunks of 512 (a prompt's first and a 300-token second chunk against
+    a T = 2048 view), ``ragged_paged_attention`` over an f32 and an int8
+    pool, decode rows at batch 8 and verify rows of 5, and
+    ``ragged_decode`` at batch 8, at gemma-7b's and gemma-2b's heads;
+    each within 1e-4 of its largest plain output (f32, another summation
+    order; flash_prefill over its valid query rows). Raises
+    KernelMismatch."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops.attention import mha_decode
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    g = torch.Generator(device=dev).manual_seed(17)
+    ps, maxp, T = 128, 16, 2048
+    out = {}
+
+    def check(name, got, want):
+        err = (got - want).abs().max().item()
+        limit = 1e-4 * max(1.0, want.abs().max().item())
+        out[name] = err
+        if not (err <= limit and bool(torch.isfinite(got).all())):
+            raise KernelMismatch("parity_gemma", {"case": name,
+                                                  "max_abs_err": err,
+                                                  "limit": limit})
+
+    for m, (H, KV, HD) in (("gemma7b", GEMMA_7B_HEADS),
+                           ("gemma2b", GEMMA_2B_HEADS)):
+        q = torch.randn((2, 512, H, HD), generator=g, device=dev)
+        kc, vc = (torch.randn((2, T, KV, HD), generator=g, device=dev)
+                  for _ in range(2))
+        sp = torch.tensor([0, 512], dtype=torch.int32, device=dev)
+        vt = torch.tensor([512, 812], dtype=torch.int32, device=dev)
+        valid = torch.arange(512, device=dev)[None] < (vt - sp)[:, None]
+        check(f"{m}_flash_prefill",
+              k.flash_prefill(q, kc, vc, sp, vt)[valid],
+              k.flash_prefill_plain(q, kc, vc, sp, vt)[valid])
+        del q, kc, vc
+        P = 8 * maxp + 1
+        shape = (2 * P, ps, KV * HD)
+        tables = (torch.randperm(P - 1, generator=g, device=dev)[:8 * maxp]
+                  + 1).reshape(8, maxp).to(torch.int32)
+        for W in (1, 5):
+            lens = torch.tensor([max(n, W) for n in DECODE_LENS],
+                                dtype=torch.int32, device=dev)
+            qn = torch.full((8,), W, dtype=torch.int32, device=dev)
+            q = torch.randn((8, W, H, HD), generator=g, device=dev)
+            for pool in ("f32", "int8"):
+                if pool == "f32":
+                    kp, vp = (torch.randn(shape, generator=g, device=dev)
+                              for _ in range(2))
+                    ks = vs = None
+                else:
+                    kp, vp = (torch.randint(-127, 128, shape, generator=g,
+                                            device=dev, dtype=torch.int8)
+                              for _ in range(2))
+                    ks, vs = (torch.rand((2 * P, KV, ps), generator=g,
+                                         device=dev) * 0.01 + 0.01
+                              for _ in range(2))
+                args = (q, kp, vp, tables, lens, lens - qn, qn)
+                check(f"{m}_ragged_{pool}_qb{W}",
+                      k.ragged_paged_attention(*args, layer=1,
+                                               pages_per_layer=P,
+                                               k_scales=ks, v_scales=vs),
+                      k.ragged_paged_attention_plain(*args, 1, P, ks, vs))
+        kc, vc = (torch.randn((8, T, KV, HD), generator=g, device=dev)
+                  for _ in range(2))
+        q = torch.randn((8, 1, H, HD), generator=g, device=dev)
+        lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+        check(f"{m}_ragged_decode", k.ragged_decode(q, kc, vc, lens),
+              mha_decode(q, kc, vc, lens))
+    return out
+
+
+def phase_parity_gemma(dev):
+    """gemma-7b's widths (16 heads and 16 KV heads of 256, dim 3,072, GeGLU
+    hidden 24,576) and gemma-2b's (8 heads on one KV head of 256, dim
+    2,048), 2 layers, f32, V = 256,000: the kernel path (the head_dim 256
+    f32 instances of ``flash_prefill`` and ``ragged_paged_attention``,
+    ``sample_slots`` at V = 256,000) against the plain path. The logits of
+    a dense-API prefill of a 726-token prompt, kernel attention against
+    plain attention, within ``PARITY_GAP_TOL`` of each other; then greedy
+    streams through the engine over a model-dtype pool and an int8 pool
+    with speculation and the mixed dispatch on (a prompt arriving while
+    the first decodes, no prefill hold), token for token
+    (``_parity_report``): gemma-2b's verify and mixed rows run as query
+    tiles. First the f32 instances themselves (``_f32_hd256_checks``).
+    Raises KernelMismatch on a kernel or the logits, AssertionError on a
+    stream."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    f32_errors = _f32_hd256_checks(dev)
+    torch.cuda.empty_cache()
+    tok = ByteTokenizer()
+    prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
+               tok.encode(PROMPT_TEXT * 5, add_bos=True)]   # two chunks
+    out = {}
+    for name in GEMMA_PARITY:
+        cfg, params = _gemma_parity_model(dev, name)
+        ids = torch.tensor([prompts[1]], device=dev)
+        seq = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
+        logits = {}
+        with torch.no_grad():
+            for attn in ("kernel", "plain"):
+                k.reset_launch_counts()
+                acfg = dataclasses.replace(cfg, attn_impl=attn)
+                logits[attn], _ = llama.prefill(
+                    params, acfg, ids, llama.KVCache.create(acfg, 1, 1024,
+                                                            device=dev),
+                    torch.zeros_like(seq), seq)
+                if (attn == "kernel") != (k.launch_counts()["flash_prefill"]
+                                          == cfg.n_layers):
+                    raise AssertionError(f"parity_gemma {name}: "
+                                         f"{attn} forward launched "
+                                         f"{k.launch_counts()}")
+        err = (logits["kernel"] - logits["plain"]).abs().max().item()
+        if not (err <= PARITY_GAP_TOL
+                and bool(torch.isfinite(logits["kernel"]).all())):
+            raise KernelMismatch("parity_gemma", {
+                "model": name, "logits_max_abs_err": err,
+                "limit": PARITY_GAP_TOL})
+        streams, reports, dispatches = {}, {}, {}
+        for kv_quant in ("none", "int8"):
+            key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                   else "ragged_paged_attention")
+            for attn in ("kernel", "plain"):
+                ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                    page_size=128, prefill_chunk=512,
+                                    dtype="float32", attention=attn,
+                                    kv_quant=kv_quant, prefill_hold_chunks=0)
+                sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
+                                             device=dev), tok)
+                k.reset_launch_counts()
+                sched.start()
+                try:
+                    streams[attn] = _staggered_streams(sched, prompts, 96,
+                                                       24)
+                finally:
+                    sched.stop()
+                launches = k.launch_counts()
+                if attn == "kernel" and not (launches["flash_prefill"]
+                                             and launches[key]
+                                             and launches["sample_slots"]):
+                    raise AssertionError(f"parity_gemma {name} "
+                                         f"({kv_quant}) did not launch "
+                                         f"the kernels: {launches}")
+                if not (sched.stats["mixed_dispatches"]
+                        and sched.stats["spec_steps"]):
+                    raise AssertionError(f"parity_gemma {name} ({kv_quant},"
+                                         f" {attn}) ran no mixed or widened "
+                                         f"step: {sched.stats}")
+                dispatches[f"{kv_quant}, {attn}"] = dict(
+                    mixed=sched.stats["mixed_dispatches"],
+                    spec_steps=sched.stats["spec_steps"], launches=launches)
+            label = f"{name}, kv_quant={kv_quant}, kernel vs plain"
+            reports[label] = _parity_report(params, cfg, prompts,
+                                            streams["kernel"],
+                                            streams["plain"], dev, label)
+        out[name] = dict(logits_max_abs_err=err, streams=reports,
+                         dispatches=dispatches,
+                         widths=dict(dim=cfg.dim, heads=cfg.n_heads,
+                                     kv_heads=cfg.n_kv_heads,
+                                     head_dim=cfg.head_dim,
+                                     hidden=cfg.hidden_dim,
+                                     vocab=cfg.vocab_size))
+        del params, logits
+        torch.cuda.empty_cache()
+    emit("parity_gemma", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
+         logits_tolerance=f"{PARITY_GAP_TOL} absolute", n_layers=2,
+         dtype="float32", f32_kernel_max_abs_err=f32_errors,
+         f32_kernel_tolerance="1e-4 x max(1, the largest plain output)",
+         models=out)
+    return out
+
+
+def parity_gemma_cases(dev):
+    """``phase_parity_gemma`` as one check-only case (the planted faults
+    read it): a failed check of any kind is its reading."""
+    def case():
+        try:
+            phase_parity_gemma(dev)
+        except KernelMismatch:
+            raise
+        except AssertionError as exc:
+            raise KernelMismatch("parity_gemma", {"error": str(exc)[:400]})
+        return {"passed": True}
+    return {"streams": case}
+
+
+def phase_serve_gemma(dev):
+    """gemma-7b at full width and depth (28 layers, dim 3,072, 16 heads and
+    16 KV heads of 256, GeGLU hidden 24,576, V = 256,000, tied embeddings,
+    8.5 B parameters) on one card: bf16 weights drawn from seed 0, a bf16
+    KV pool of 8 slots of 2,048 tokens, the engine's defaults, behind the
+    HTTP server: ``serve``'s staggered traffic, then one
+    ``response_format: json_object`` request (``phase_serve`` with
+    ``json_request``), every request 200, the JSON reply parsing, the
+    attention kernels at head_dim 256 and the sampler at V = 256,000
+    launched. Returns the launches."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama, model_config
+    cfg = model_config("gemma-7b")
+    # the parity phases' engine cores live on in reference cycles until
+    # the collector runs: collect first, so the reading is the weights'
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, device=dev)
+    torch.cuda.synchronize()
+    emit("weights_gemma", model="gemma-7b", dtype=cfg.dtype,
+         init_weights_s=time.perf_counter() - t0,
+         allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         peak_during_init_gb=torch.cuda.max_memory_allocated() / 1e9)
+    launches, core = phase_serve(dev, cfg, params, model="gemma-7b",
+                                 name="serve_gemma", json_request=True)
     del core, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5007,8 +5432,8 @@ PLANTED_FAULTS = (
     ("flash_causal_off_by_one", "flash_prefill.cu",
      "key <= pos", "key < pos", ("flash_prefill",)),
     ("dropped_tile", "common.cuh",
-     "    const int t0 = tile * BT;\n",
-     "    const int t0 = tile * BT;\n    if (tile == 30) continue;\n",
+     "    const int t0 = tile * ST;\n",
+     "    const int t0 = tile * ST;\n    if (tile == 30) continue;\n",
      ("ragged_paged_attention", "ragged_paged_attention_int8",
       "ragged_decode")),
     ("dropped_split", "common.cuh",
@@ -5033,8 +5458,6 @@ PLANTED_FAULTS = (
     ("sampler_top_p_strict", "sample_slots.cu",
      "return mass >= target;", "return mass > target;",
      ("sample_slots",)),
-    ("sampler_z_over_all", "sample_slots.cu",
-     "zpart += e;", "zpart += ex_all;", ("sample_slots",)),
     ("gemm_dropped_scale", "w8a16_gemm.cu",
      "  const float sv = __bfloat162float(__float2bfloat16(s));\n",
      "  const float sv = 1.f;\n", ("w8a16_gemm",)),
@@ -5085,6 +5508,34 @@ PLANTED_FAULTS = (
     ("lora_target_shifted", "lora.cu",
      "const int yt = t;", "const int yt = (t + 1) % p.nt;",
      ("lora", "parity_lora")),
+    # head_dim 256 and Gemma's vocabulary
+    ("flash_hd256_wrong_q_step", "flash_prefill.cu",
+     "        ldmatrix_x4(qa + kk * 16, a[0], a[1], a[2], a[3]);",
+     "        ldmatrix_x4(qa + (kk ^ 1) * 16, a[0], a[1], a[2], a[3]);",
+     ("flash_prefill",)),
+    ("flash_hd256_q_in_the_ring", "flash_prefill.cu",
+     "ring + (F::QREG ? NS - 1 : NS) * F::STAGE;",
+     "ring + (NS - 1) * F::STAGE;", ("flash_prefill",)),
+    ("walk_f32_split_start", "common.cuh",
+     "const int tb = split * steps;", "const int tb = split * tiles;",
+     ("parity_gemma",)),
+    ("walk_hd256_merge_row", "common.cuh",
+     "      const int row = tg * QGB + jr0 + 8 * h;",
+     "      const int row = tg * QGB + jr0 + 8 * h"
+     " + (HD > 128 && tg == 3 && jr0 == 0);",
+     ("ragged_paged_attention", "ragged_paged_attention_int8",
+      "ragged_decode")),
+    ("flash_f32_hd256_short_dot", "flash_prefill.cu",
+     "    for (int d = 0; d < HD; ++d) {",
+     "    for (int d = 0; d < (HD > 128 ? HD - 8 : HD); ++d) {",
+     ("parity_gemma",)),
+    ("grammar_gemma_words_flipped", "grammar_mask.cu",
+     "a.out[(long long)srow[j + g] * a.words + word] = bits;",
+     "a.out[(long long)srow[j + g] * a.words + word] ="
+     " word >= 4008 ? bits ^ 0x100u : bits;", ("grammar_mask",)),
+    ("sampler_z_over_all", "sample_slots.cu",
+     "zpart += s >= thr_k ? expf(s - m) : 0.f;", "zpart += expf(s - m);",
+     ("sample_slots",)),
     ("lora_dropped_rank", "lora.cu",
      "        if (j < p.r) {\n          src = static_cast<const bf16*>",
      "        if (j + 1 < p.r) {\n          src = static_cast<const bf16*>",
@@ -5097,7 +5548,7 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.CHECK_ONLY = True
 dev = torch.device("cuda")
-if "parity_lora" in sys.argv[1:]:
+if {"parity_lora", "parity_gemma"} & set(sys.argv[1:]):
     cs.phase_build(gemm_report=False)   # every library at once
 phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention": cs.ragged_cases(dev),
@@ -5107,7 +5558,8 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "grammar_mask": cs.grammar_cases(dev),
           "w8a16_gemm": cs.gemm_cases(dev),
           "lora": cs.lora_cases(dev),
-          "parity_lora": cs.parity_lora_cases(dev)}
+          "parity_lora": cs.parity_lora_cases(dev),
+          "parity_gemma": cs.parity_gemma_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -5335,7 +5787,11 @@ def planted_faults(only=()) -> None:
         if only and name not in only:
             continue
         with tempfile.TemporaryDirectory() as tmp:
-            shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
+            # the corpus too: the grammar cases' tokenizer is learned from
+            # it, and another tokenizer would give the cases other masks
+            for fname in ("chip_smoke.py",) + CORPUS_FILES:
+                if os.path.exists(os.path.join(HERE, fname)):
+                    shutil.copy(os.path.join(HERE, fname), tmp)
             pkg = os.path.join(tmp, "generativeaiexamples_tpu_torch")
             shutil.copytree(os.path.join(HERE, "generativeaiexamples_tpu_torch"),
                             pkg, ignore=shutil.ignore_patterns("__pycache__"))
@@ -5430,6 +5886,12 @@ def main() -> int:
     timed("parity_lora", phase_parity_lora, dev)
     torch.cuda.empty_cache()
     paths = {"dense_lora": timed("dense_lora", phase_dense_lora, dev)}
+    torch.cuda.empty_cache()
+    timed("parity_gemma", phase_parity_gemma, dev)
+    torch.cuda.empty_cache()
+    # gemma-7b before llama3-8b's weights are drawn: the two sets would
+    # not share the card with serve's pools
+    paths["serve_gemma"] = timed("serve_gemma", phase_serve_gemma, dev)
     torch.cuda.empty_cache()
     cfg, params, init_s = draw_8b(dev)
     emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)

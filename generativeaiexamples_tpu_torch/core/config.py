@@ -57,6 +57,8 @@ class EngineConfig:
     quant: str = "none"
     # auto (kernel on CUDA tensors, plain on CPU tensors) | kernel | plain
     attention: str = "auto"
+    # the architecture served with random weights: llama3-8b, llama3-70b,
+    # gemma-2b, gemma-7b, codegemma-7b, tiny, tiny-gemma (models.model_configs)
     model_family: str = "llama3-8b"
     # a local HF Llama directory (config.json, *.safetensors,
     # tokenizer.json) to serve; "" serves random weights of model_family

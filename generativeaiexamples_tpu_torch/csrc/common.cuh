@@ -90,14 +90,31 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 // registers for bf16 activations and 96 to 123 for f32, no spills; spills
 // only at HD <= 64 (76 bytes at most), off the serving shapes.
 //
+// HD = 256 (the Gemma family): a bf16 warp's output rows are 16 x 256 f32,
+// 128 registers, so a block holds at most 32 query vectors (qg_cap: the
+// 16- and 32-row buckets, 128 and 256 threads, up to 255 registers a
+// thread), and rows of more are cut into query tiles by the wrapper
+// (query_tile in ops/cuda/attention.py). The bf16 ring of 3 stages of 64
+// tokens is 202,752 bytes, one block an SM. Two stages of 64 f32 K/V rows
+// would take 266,240 bytes, so the f32 walk stages 32 tokens a step (ST):
+// a split's 64-token tiles are walked as two steps each.
+//
 // The int8 elements are never dequantized, as in the TPU kernel: scores are
 // (q.k)*scale*k_s, probabilities are multiplied by v_s before P.V, and the
 // denominator sums the unscaled probabilities.
 // ---------------------------------------------------------------------------
 
-constexpr int BT = 64;          // tokens per tile
+constexpr int BT = 64;          // tokens per tile of the split plan
 constexpr int QG_MAX = 64;      // query vectors (G * Qb) per block, at most
 constexpr int SPLIT_MAX = 32;   // splits per (row, KV head), at most
+constexpr size_t SMEM_OPTIN = 232448;   // the H100's per-block opt-in limit
+
+// query vectors a block holds at head dim HD (QG_MAX, or 32 at HD = 256,
+// where a bf16 warp's output rows take 128 registers)
+template <int HD>
+__host__ __device__ constexpr int qg_cap() {
+  return HD <= 128 ? QG_MAX : 32;
+}
 
 template <typename KT>
 __host__ __device__ constexpr bool is_quant() {
@@ -122,6 +139,10 @@ struct Walk {
   static constexpr int RT = 128 * MT;           // threads
   static constexpr int NTG = MMA ? 4 : 1;       // token groups, merged at end
   static constexpr int NS = sizeof(KT) == 4 ? 2 : 3;   // ring stages
+  // tokens staged a step: the split tile, or half of it for f32 rows at
+  // HD = 256 (two stages of 64 would not fit)
+  static constexpr int ST = sizeof(KT) == 4 && HD > 128 ? BT / 2 : BT;
+  static_assert(!MMA || ST == BT, "the tensor-core walk takes 64 tokens");
   static constexpr int VEC = 16 / sizeof(KT);   // elements per 16-byte copy
   static constexpr int CPR = HD / VEC;          // 16-byte copies per token row
   static constexpr int LDK = HD + VEC;          // staged row: 16 bytes of pad
@@ -130,18 +151,21 @@ struct Walk {
   // shared memory: [query block][offset tables][ring | merge | combine]
   static constexpr size_t Q_BYTES =
       MMA ? round16(sizeof(__nv_bfloat16) * QGB * LDQ)
-          : round16(sizeof(float) * (QGB * LDQ + QGB * BT + 3 * QGB));
-  static constexpr size_t OFF_BYTES = sizeof(long long) * 4 * BT;
-  static constexpr size_t STAGE_ELEMS = 2 * BT * LDK;  // K then V
+          : round16(sizeof(float) * (QGB * LDQ + QGB * ST + 3 * QGB));
+  static constexpr size_t OFF_BYTES = sizeof(long long) * 4 * ST;
+  static constexpr size_t STAGE_ELEMS = 2 * ST * LDK;  // K then V
   static constexpr size_t RING_BYTES =
       round16(sizeof(KT) * NS * STAGE_ELEMS) +
-      (QUANT ? sizeof(float) * NS * 2 * BT : 0);
+      (QUANT ? sizeof(float) * NS * 2 * ST : 0);
   static constexpr size_t MERGE_BYTES =
       sizeof(float) * NTG * QGB * (LDA + 2);
   static constexpr size_t COMBINE_BYTES = sizeof(float) * 3 * SPLIT_MAX * QGB;
   static constexpr size_t SMEM =
       Q_BYTES + OFF_BYTES +
       cmax(RING_BYTES, cmax(MERGE_BYTES, COMBINE_BYTES));
+  static_assert(QGB <= qg_cap<HD>() && SMEM + 16 <= SMEM_OPTIN,
+                "an instance past the head dim's bucket or the card's "
+                "shared memory");
 };
 
 // --- PTX helpers ------------------------------------------------------------
@@ -265,10 +289,11 @@ __device__ __forceinline__ void attend_tiles(
   constexpr bool QUANT = W::QUANT;
   constexpr int RT = W::RT, NS = W::NS, NTG = W::NTG;
   constexpr int LDK = W::LDK, LDQ = W::LDQ, LDA = W::LDA;
+  constexpr int ST = W::ST;   // tokens a step
   extern __shared__ __align__(16) unsigned char walk_smem[];
   __shared__ int last_s;
   long long* off_s = reinterpret_cast<long long*>(walk_smem + W::Q_BYTES);
-  long long* sc_s = off_s + 2 * BT;
+  long long* sc_s = off_s + 2 * ST;
   unsigned char* uni = walk_smem + W::Q_BYTES + W::OFF_BYTES;
   KT* ring = reinterpret_cast<KT*>(uni);
   float* kscale_s = reinterpret_cast<float*>(
@@ -282,18 +307,20 @@ __device__ __forceinline__ void attend_tiles(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int S = gridDim.z, split = blockIdx.z;
   const long long cell = (long long)blockIdx.x * gridDim.y + blockIdx.y;
-  const int tb = split * tiles;
-  const int te = min(tb + tiles, (len + BT - 1) / BT);
+  // `tiles` counts the plan's BT-token tiles; the walk steps ST tokens
+  const int steps = tiles * (BT / ST);
+  const int tb = split * steps;
+  const int te = min(tb + steps, (len + ST - 1) / ST);
   const int n_t = te - tb;   // <= 0: the split lies past the row's length
 
   // --- the copy pipeline ---------------------------------------------------
   // tile x (x = 0..n_t-1 within the split) is resolved into slot x % 2 of
   // off_s/sc_s one step before its copies are issued into stage x % NS
   const auto resolve = [&](int x) {
-    const int t0 = (tb + x) * BT;
-    long long* off = off_s + (x & 1) * BT;
-    long long* scs = sc_s + (x & 1) * BT;
-    for (int t = tid; t < BT; t += RT) {
+    const int t0 = (tb + x) * ST;
+    long long* off = off_s + (x & 1) * ST;
+    long long* scs = sc_s + (x & 1) * ST;
+    for (int t = tid; t < ST; t += RT) {
       const int pos = t0 + t;
       long long sc = 0;
       off[t] = pos < len ? locate(pos, sc) : -1;
@@ -301,10 +328,10 @@ __device__ __forceinline__ void attend_tiles(
     }
   };
   const auto issue = [&](int x) {
-    const long long* off = off_s + (x & 1) * BT;
+    const long long* off = off_s + (x & 1) * ST;
     KT* kd = ring + (x % NS) * W::STAGE_ELEMS;
-    KT* vd = kd + BT * LDK;
-    for (int c = tid; c < BT * W::CPR; c += RT) {
+    KT* vd = kd + ST * LDK;
+    for (int c = tid; c < ST * W::CPR; c += RT) {
       const int t = c / W::CPR, e = (c % W::CPR) * W::VEC;
       const long long o = off[t];
       const bool ok = o >= 0;
@@ -312,12 +339,12 @@ __device__ __forceinline__ void attend_tiles(
       cp_async16(vd + t * LDK + e, v + (ok ? o : 0) + e, ok);
     }
     if constexpr (QUANT) {
-      const long long* scs = sc_s + (x & 1) * BT;
-      float* ks = kscale_s + (x % NS) * 2 * BT;
-      for (int t = tid; t < BT; t += RT) {
+      const long long* scs = sc_s + (x & 1) * ST;
+      float* ks = kscale_s + (x % NS) * 2 * ST;
+      for (int t = tid; t < ST; t += RT) {
         const bool ok = off[t] >= 0;
         cp_async4(ks + t, k_scales + (ok ? scs[t] : 0), ok);
-        cp_async4(ks + BT + t, v_scales + (ok ? scs[t] : 0), ok);
+        cp_async4(ks + ST + t, v_scales + (ok ? scs[t] : 0), ok);
       }
     }
   };
@@ -370,7 +397,7 @@ __device__ __forceinline__ void attend_tiles(
     }
   } else {
     float* q_s = reinterpret_cast<float*>(walk_smem);
-    float* m_s = q_s + QGB * LDQ + QGB * BT;
+    float* m_s = q_s + QGB * LDQ + QGB * ST;
     float* l_s = m_s + QGB;
     for (int idx = tid; idx < QG * HD; idx += RT) {
       const int j = idx / HD, d = idx % HD;
@@ -394,11 +421,11 @@ __device__ __forceinline__ void attend_tiles(
       cp_async_commit();
     }
     const int tile = tb + i;
-    const int t0 = tile * BT;
+    const int t0 = tile * ST;
     const KT* ks = ring + (i % NS) * W::STAGE_ELEMS;
-    const KT* vs = ks + BT * LDK;
-    const float* ksc = kscale_s + (i % NS) * 2 * BT;   // int8 pool only
-    const float* vsc = ksc + BT;
+    const KT* vs = ks + ST * LDK;
+    const float* ksc = kscale_s + (i % NS) * 2 * ST;   // int8 pool only
+    const float* vsc = ksc + ST;
 
     if constexpr (W::MMA) {
       // scores of 16 rows x 16 tokens: two n-tiles of 8 tokens
@@ -494,12 +521,12 @@ __device__ __forceinline__ void attend_tiles(
       }
     } else {
       float* q_s = reinterpret_cast<float*>(walk_smem);
-      float* s_s = q_s + QGB * LDQ;   // QG x BT scores, then probabilities
-      float* m_s = s_s + QGB * BT;
+      float* s_s = q_s + QGB * LDQ;   // QG x ST scores, then probabilities
+      float* m_s = s_s + QGB * ST;
       float* l_s = m_s + QGB;
       float* a_s = l_s + QGB;         // this tile's rescale factor per row
-      for (int idx = tid; idx < QG * BT; idx += RT) {
-        const int j = idx / BT, t = idx % BT;
+      for (int idx = tid; idx < QG * ST; idx += RT) {
+        const int j = idx / ST, t = idx % ST;
         const float* qr = q_s + j * LDQ;
         const KT* kr = ks + t * LDK;
         float dot = 0.f;
@@ -510,28 +537,36 @@ __device__ __forceinline__ void attend_tiles(
         const bool ok = pos < len && pos <= pos0 + qi && qi < n_q;
         float s = dot * scale;
         if constexpr (QUANT) s *= ksc[t];
-        s_s[j * BT + t] = ok ? s : NEG_INF;
+        s_s[j * ST + t] = ok ? s : NEG_INF;
       }
       __syncthreads();
-      // online softmax, one warp per query row, two tokens per lane
+      // online softmax, one warp per query row, ST / 32 tokens per lane
+      constexpr int TPL = ST / 32;
       for (int j = warp; j < QG; j += RT / 32) {
-        float* sr = s_s + j * BT;
-        const float s0 = sr[lane], s1 = sr[lane + 32];
-        float mx = fmaxf(s0, s1);
+        float* sr = s_s + j * ST;
+        float sv[TPL];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int u = 0; u < TPL; ++u) {
+          sv[u] = sr[lane + 32 * u];
+          mx = fmaxf(mx, sv[u]);
+        }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         const float m_old = m_s[j];
         const float m_new = fmaxf(m_old, mx);
-        const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-        if constexpr (QUANT) {
-          sr[lane] = p0 * vsc[lane];
-          sr[lane + 32] = p1 * vsc[lane + 32];
-        } else {
-          sr[lane] = p0;
-          sr[lane + 32] = p1;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < TPL; ++u) {
+          const float p = expf(sv[u] - m_new);
+          if constexpr (QUANT) {
+            sr[lane + 32 * u] = p * vsc[lane + 32 * u];
+          } else {
+            sr[lane + 32 * u] = p;
+          }
+          sum += p;
         }
-        float sum = p0 + p1;
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -548,10 +583,10 @@ __device__ __forceinline__ void attend_tiles(
         const int idx = tid + e * RT;
         if (idx < QG * HD) {
           const int j = idx / HD, d = idx % HD;
-          const float* pr = s_s + j * BT;
+          const float* pr = s_s + j * ST;
           float sum = 0.f;
 #pragma unroll 8
-          for (int t = 0; t < BT; ++t)
+          for (int t = 0; t < ST; ++t)
             sum = fmaf(pr[t], to_f(vs[t * LDK + d]), sum);
           facc[e] = facc[e] * a_s[j] + sum;
         }
@@ -583,7 +618,7 @@ __device__ __forceinline__ void attend_tiles(
     }
   } else {
     const float* m_s =
-        reinterpret_cast<const float*>(walk_smem) + QGB * LDQ + QGB * BT;
+        reinterpret_cast<const float*>(walk_smem) + QGB * LDQ + QGB * ST;
     const float* l_s = m_s + QGB;
 #pragma unroll
     for (int e = 0; e < NACC; ++e) {

@@ -47,9 +47,19 @@
 //   interleaved below it, the G heads of one KV head on adjacent blocks so
 //   their K/V tiles are served from L2.
 //
+// HD = 256 (the Gemma family): a warp's 16 x 256 f32 output is 128
+// registers, and Q held as A fragments would add 64 more (with the 32 of
+// the scores, 224 before any address: it would spill). So at HD = 256 Q
+// stays in shared memory beside the ring, and each k-step of Q.K^T loads
+// its A fragment by ldmatrix (QREG false); the ring drops to 2 stages of
+// 64 tokens, 2 x 67,584 bytes, plus Q's 33,792: 168,960 bytes, one block
+// (4 warps) an SM, __launch_bounds__(128, 1). Correct first; a wgmma
+// walk with the output split over more warps is later work.
+//
 // The f32 instance (the parity phase and the f32 card tests) keeps scalar
 // f32 FMAs from shared memory: 16 x 16 threads, each owning a 4 x 4 score
-// tile and a 4 x HD/16 output tile. wgmma and TMA tiles are later work.
+// tile and a 4 x HD/16 output tile (213,760 bytes of shared memory at HD =
+// 256). wgmma and TMA tiles are later work.
 #include "common.cuh"
 
 using namespace gk;
@@ -82,16 +92,25 @@ template <int HD>
 struct MmaTile {
   static constexpr int NW = 4;                 // warps, 16 query rows each
   static constexpr int NT = 32 * NW;
-  static constexpr int NS = 3;                 // ring stages
+  // Q held in registers for the whole walk (HD <= 128), else read from
+  // shared memory at each k-step
+  static constexpr bool QREG = HD <= 128;
+  static constexpr int NS = QREG ? 3 : 2;      // ring stages
+  static constexpr int MIN_BLOCKS = QREG ? 2 : 1;   // blocks an SM
   static constexpr int LD = HD + 8;            // staged row: 16 bytes of pad
   static constexpr int CPR = HD / 8;           // 16-byte copies per row
   static constexpr int STAGE = 2 * BK * LD;    // K then V, elements
-  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * NS * STAGE;
+  // Q's staging aliases the last stage when Q moves to registers, else it
+  // has its own rows after the ring
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (NS * STAGE + (QREG ? 0 : BQ * LD));
   static_assert(BQ * LD <= BK * LD, "Q's staging fits in one stage");
+  static_assert(SMEM <= 232448, "the card's shared memory a block");
 };
 
 template <int HD>
-__global__ void __launch_bounds__(MmaTile<HD>::NT, 2) flash_prefill_mma(
+__global__ void __launch_bounds__(MmaTile<HD>::NT, MmaTile<HD>::MIN_BLOCKS)
+    flash_prefill_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     const int* __restrict__ start_pos, const int* __restrict__ valid_through,
@@ -105,7 +124,7 @@ __global__ void __launch_bounds__(MmaTile<HD>::NT, 2) flash_prefill_mma(
   constexpr int NJ = BK / 8;    // 8-token score tiles
   extern __shared__ __align__(16) unsigned char fp_smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(fp_smem);
-  __nv_bfloat16* q_s = ring + (NS - 1) * F::STAGE;
+  __nv_bfloat16* q_s = ring + (F::QREG ? NS - 1 : NS) * F::STAGE;
 
   const TileCoord tc = tile_of(blockIdx.x, (S + BQ - 1) / BQ, H, B);
   const int b = tc.b, h = tc.h, q0 = tc.qt * BQ;
@@ -145,12 +164,13 @@ __global__ void __launch_bounds__(MmaTile<HD>::NT, 2) flash_prefill_mma(
   cp_async_wait<NS - 1>();   // Q's group has landed
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, for the whole walk
-  uint32_t qf[KS][4];
-  {
-    const __nv_bfloat16* qa = q_s +
-        (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-        (lane >> 4) * 8;
+  // this warp's 16 query rows as A fragments: held for the whole walk
+  // (QREG), else loaded from q_s at each k-step
+  const __nv_bfloat16* qa = q_s +
+      (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+      (lane >> 4) * 8;
+  uint32_t qf[F::QREG ? KS : 1][4];
+  if constexpr (F::QREG) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
       ldmatrix_x4(qa + kk * 16, qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
@@ -168,7 +188,8 @@ __global__ void __launch_bounds__(MmaTile<HD>::NT, 2) flash_prefill_mma(
 
   for (int kt = 0; kt < n_t; ++kt) {
     cp_async_wait<NS - 2>();
-    __syncthreads();   // tile kt landed; tile kt-1's stage (and Q's) is free
+    __syncthreads();   // tile kt landed; tile kt-1's stage is free (and
+                       // Q's staging, where it aliases the last stage)
     if (kt + NS - 1 < n_t) issue(kt + NS - 1);
     cp_async_commit();
     const __nv_bfloat16* ks = ring + (kt % NS) * F::STAGE;
@@ -183,14 +204,18 @@ __global__ void __launch_bounds__(MmaTile<HD>::NT, 2) flash_prefill_mma(
         ks + ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      if constexpr (F::QREG) {
+        a[0] = qf[kk][0], a[1] = qf[kk][1], a[2] = qf[kk][2], a[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(qa + kk * 16, a[0], a[1], a[2], a[3]);
+      }
 #pragma unroll
       for (int np = 0; np < NJ / 2; ++np) {
         uint32_t b0, b1, b2, b3;
         ldmatrix_x4(kf + np * 16 * LD + kk * 16, b0, b1, b2, b3);
-        mma_bf16(s[2 * np], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], b0,
-                 b1);
-        mma_bf16(s[2 * np + 1], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                 b2, b3);
+        mma_bf16(s[2 * np], a[0], a[1], a[2], a[3], b0, b1);
+        mma_bf16(s[2 * np + 1], a[0], a[1], a[2], a[3], b2, b3);
       }
     }
 
@@ -288,6 +313,7 @@ constexpr size_t f32_smem_bytes() {
   return sizeof(float) *
          (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
 }
+static_assert(f32_smem_bytes<256>() <= 232448, "the card's shared memory");
 
 template <int HD>
 __global__ void __launch_bounds__(NT_F32) flash_prefill_f32(
@@ -463,6 +489,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, out, sp, vt, B, S, T_len, H, KV, st, stream);
     case 64: return launch<T, 64>(q, k, v, out, sp, vt, B, S, T_len, H, KV, st, stream);
     case 128: return launch<T, 128>(q, k, v, out, sp, vt, B, S, T_len, H, KV, st, stream);
+    case 256: return launch<T, 256>(q, k, v, out, sp, vt, B, S, T_len, H, KV, st, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -84,7 +84,9 @@ cudaError_t launch(const Args& a) {
   const int G = a.H / a.KV;
   if (G <= 16) return launch_gb<T, HD, 16>(a);
   if (G <= 32) return launch_gb<T, HD, 32>(a);
-  if (G <= QG_MAX) return launch_gb<T, HD, QG_MAX>(a);
+  if constexpr (qg_cap<HD>() == QG_MAX) {
+    if (G <= QG_MAX) return launch_gb<T, HD, QG_MAX>(a);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -95,6 +97,7 @@ cudaError_t dispatch_hd(int hd, const Args& a) {
     case 32: return launch<T, 32>(a);
     case 64: return launch<T, 64>(a);
     case 128: return launch<T, 128>(a);
+    case 256: return launch<T, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }

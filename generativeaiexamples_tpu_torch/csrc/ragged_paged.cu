@@ -25,10 +25,12 @@
 // keeps only the page-table address resolution, the query tiles and the
 // launch.
 //
-// Query tiles: a block holds at most QG_MAX = 64 query vectors (Qb * G).
-// A row with more (llama3-70b, G = 8: a verify step of width 9 has 72, a
-// mixed dispatch's q_block of 16 has 128) is cut into tiles of tq =
-// QG_MAX / G queries (the wrapper's choice), each a cell of its own: grid
+// Query tiles: a block holds at most QG_MAX = 64 query vectors (Qb * G),
+// 32 at HD = 256 (qg_cap). A row with more (llama3-70b, G = 8: a verify
+// step of width 9 has 72, a mixed dispatch's q_block of 16 has 128;
+// gemma-2b, G = 8 at HD = 256: a verify step of width 5 has 40) is cut
+// into tiles of tq = cap / G queries (the wrapper's choice), each a cell
+// of its own: grid
 // axis y is (query tile, KV head), every tile walks the same KV split,
 // and its partials and ticket are its own, so a combine never mixes two
 // tiles. Each tile re-reads its split's K/V (from L2 when the tiles of a
@@ -39,8 +41,10 @@
 // rows (R = 4) 11 of 3 (352), batch 1 32 of 1 (256). Dynamic shared
 // memory per block at HD = 128 (Walk<>::SMEM): 110,848 bytes for a bf16
 // pool in the 16-row bucket (two blocks an SM), 63,232 for an int8 pool,
-// 187,392 for f32 in the 64-row bucket. Registers and spills:
-// chip_smoke.py's build phase.
+// 187,392 for f32 in the 64-row bucket; at HD = 256, 213,248 and 221,696
+// for a bf16 pool in the 16- and 32-row buckets (one block an SM),
+// 153,088 for an int8 pool and 171,520 for f32 (32 rows). Registers and
+// spills: chip_smoke.py's build phase.
 #include "common.cuh"
 
 using namespace gk;
@@ -130,7 +134,9 @@ cudaError_t launch(const Args& a) {
   const int QG = a.tq * (a.H / a.KV);
   if (QG <= 16) return launch_qgb<T, KT, HD, 16>(a);
   if (QG <= 32) return launch_qgb<T, KT, HD, 32>(a);
-  if (QG <= QG_MAX) return launch_qgb<T, KT, HD, QG_MAX>(a);
+  if constexpr (qg_cap<HD>() == QG_MAX) {
+    if (QG <= QG_MAX) return launch_qgb<T, KT, HD, QG_MAX>(a);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -141,6 +147,7 @@ cudaError_t dispatch_hd(int hd, const Args& a) {
     case 32: return launch<T, KT, 32>(a);
     case 64: return launch<T, KT, 64>(a);
     case 128: return launch<T, KT, 128>(a);
+    case 256: return launch<T, KT, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }

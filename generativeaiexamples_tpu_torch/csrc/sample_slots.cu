@@ -68,10 +68,11 @@
 //
 // Design: one thread-block cluster of CL = 8 blocks per row. Each block
 // loads its slice of the row once, with 16-byte loads, into shared memory
-// as the scaled float32 row (and, for a top-p row, e beside it); every
-// later pass reads shared memory. A pass leaves each block with partials
-// (int32 counts, float32 masses, a 64-bit packed argmax), reduced over the
-// block's warps by shuffles; they go to double-buffered slots in the
+// as the scaled float32 row; every later pass reads shared memory (a
+// top-p row's e = exp(s - max) is recomputed from s in each round, the
+// same expf of the same value each time). A pass leaves each block with
+// partials (int32 counts, float32 masses, a 64-bit packed argmax),
+// reduced over the block's warps by shuffles; they go to double-buffered slots in the
 // block's shared memory, one cluster barrier follows, and every thread of
 // every block adds the CL slots over distributed shared memory in rank
 // order. So every block takes the same bisection decision, with no global
@@ -89,10 +90,14 @@
 // sampler inputs, bf16, V = 128,256, ms a call): 1 / 2 / 3 levels a round
 // at R = 8 rows 0.108 / 0.0866 / 0.1007 (CL = 8); CL = 8 against 16 with 2
 // levels at R = 8, 40, 72, 136: 0.0866 / 0.0974, 0.1388 / 0.1492, 0.2478
-// / 0.2404, 0.5106 / 0.5042. Shared memory a block: 8 x ceil(V / 8)
-// bytes, 128,256 for V = 128,256, so one block an SM and 15 row clusters
-// at once (cudaOccupancyMaxActiveClusters). Registers: 64 a thread, no
-// spills (-Xptxas -v; chip_smoke.py's build phase reports them).
+// / 0.2404, 0.5106 / 0.5042 (those with e stored beside s). Shared
+// memory a block: 4 x ceil(V / 8) bytes, 64,128 for V = 128,256 and
+// 128,000 for Gemma's V = 256,000. e stored beside s (8 bytes an entry,
+// one block an SM at V = 128,256, and past the opt-in limit at 256,000)
+// against e recomputed, at R = 72 / 8 / 40 of V = 128,256: 0.2475 /
+// 0.0873 / 0.1389 against 0.1920 / 0.0971 / 0.1302. Registers: 64 a
+// thread, no spills (-Xptxas -v; chip_smoke.py's build phase reports
+// them).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,6 +117,8 @@ constexpr int LEVELS = 2;      // bisection levels one round decides
 constexpr int MAX_MIDS = (1 << LEVELS) - 1;
 constexpr int UNROLL = 4;      // 16-byte loads in flight a thread
 constexpr int TOP = 5;         // top-logprob entries a row (TOP_LP)
+constexpr size_t SMEM_OPTIN = 232448;    // the H100's per-block limit
+constexpr size_t STATIC_SMEM = 1024;     // the kernel's own, rounded up
 // a top word's index field: the complement, so that of two equal values
 // the lower index is the larger word (jax.lax.top_k's order of ties)
 constexpr bool kTopLowFirst = true;
@@ -380,7 +387,6 @@ __global__ void __launch_bounds__(THREADS)
     sample_slots_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* sbuf = reinterpret_cast<float*>(smem4);    // [n] scaled row slice
-  float* ebuf = sbuf + a.n;                         // [n] e (top-p rows)
   __shared__ uint32_t wpart[WARPS * MAX_MIDS];
   __shared__ uint32_t slot[2 * MAX_MIDS];
   __shared__ Stats wstats[WARPS];
@@ -550,10 +556,7 @@ __global__ void __launch_bounds__(THREADS)
       float zpart = 0.f;
       for (int j = tid; j < len; j += THREADS) {
         const float s = sbuf[j];
-        const float ex_all = expf(s - m);
-        const float e = s >= thr_k ? ex_all : 0.f;
-        ebuf[j] = e;
-        zpart += e;
+        zpart += s >= thr_k ? expf(s - m) : 0.f;
       }
       const float z = ex.sum1(zpart);
       const float target = __fmul_rn(fminf(fmaxf(p, 0.f), 1.f), z);
@@ -565,7 +568,8 @@ __global__ void __launch_bounds__(THREADS)
           [&](const auto& mids, auto& acc) {
             constexpr int NM = sizeof(mids) / sizeof(float);
             for (int j = tid; j < len; j += THREADS) {
-              const float s = sbuf[j], e = ebuf[j];
+              const float s = sbuf[j];
+              const float e = s >= thr_k ? expf(s - m) : 0.f;
 #pragma unroll
               for (int n = 0; n < NM; ++n) acc[n] += s >= mids[n] ? e : 0.f;
             }
@@ -681,7 +685,7 @@ int slice_of(int V) { return ((V + CL - 1) / CL + 7) / 8 * 8; }
 template <typename T, bool MASK, bool TOPS>
 int launch(const Args& a, cudaStream_t s) {
   auto kern = sample_slots_kernel<T, MASK, TOPS>;
-  const size_t smem = 2 * sizeof(float) * (size_t)a.n;
+  const size_t smem = sizeof(float) * (size_t)a.n;   // s
   static size_t smem_set = 0;     // the instance's dynamic-shared limit
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -775,7 +779,7 @@ extern "C" int gk_sample_slots(
   a.L = L;
   a.top_ids = static_cast<int*>(top_ids);
   a.top_lps = static_cast<float*>(top_lps);
-  if (2 * sizeof(float) * (size_t)a.n > 232448) {
+  if (sizeof(float) * (size_t)a.n + STATIC_SMEM > SMEM_OPTIN) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -10,8 +10,12 @@ test-scale model with the byte tokenizer. With
 checkpoint: the architecture from ``config.json`` (``model_family`` is
 ignored), the weights in ``APP_ENGINE_DTYPE``, the directory's tokenizer
 and its end-of-turn id. Otherwise the architecture is
-``APP_ENGINE_MODEL_FAMILY`` (default llama3-8b) with random weights drawn
-from a seeded generator on the device, and the byte tokenizer.
+``APP_ENGINE_MODEL_FAMILY`` (default llama3-8b; also llama3-70b,
+gemma-2b, gemma-7b, codegemma-7b, tiny and tiny-gemma, the reference's
+names) with random weights drawn from a seeded generator on the device,
+and the byte tokenizer. An HF directory must hold a Llama architecture:
+``config.json`` of another (``GemmaForCausalLM``) is refused, as the
+reference's loader refuses it.
 Engine knobs come from ``APP_ENGINE_*`` (``core/config.py``): speculative
 decoding is on by default (``APP_ENGINE_SPEC_DECODE=off`` turns it off),
 ``APP_ENGINE_QUANT=int8`` serves int8 weights (loaded or drawn and

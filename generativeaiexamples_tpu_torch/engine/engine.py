@@ -470,12 +470,14 @@ class EngineCore:
                     "paged_decode_supported and ragged_paged_supported "
                     f"disagree for page_size={self.page_size}, head_dim={HD}"
                     " — kernel-support predicates have drifted")
-            # rows of more than QG_MAX query vectors are cut into query
-            # tiles (kernels.query_tile); only the group must fit a block
-            if G > kernels.QG_MAX:
+            # rows of more than qg_max(HD) query vectors are cut into
+            # query tiles (kernels.query_tile); only the group must fit a
+            # block
+            if G > kernels.qg_max(HD):
                 raise ValueError(
                     f"GQA group {G} exceeds the ragged kernel's "
-                    f"{kernels.QG_MAX} query vectors a block")
+                    f"{kernels.qg_max(HD)} query vectors a block at "
+                    f"head_dim={HD}")
 
         # ---- mixed-phase dispatch gate, resolved once and loudly; the
         # bare env APP_MIXED_PHASE_DISPATCH overrides the config field
@@ -1234,8 +1236,13 @@ class EngineCore:
     @torch.no_grad()
     def release(self, state: DecodeState, slot: int) -> DecodeState:
         """Deactivate a slot; its pages may be reused at once (its later
-        decode writes go to the null page)."""
+        decode writes go to the null page). Its adapter returns to the base
+        model, so a pass whose rows hold no live adapter request makes no
+        LoRA call (a dispatch already issued read the slot before, in
+        stream order)."""
         state.active[slot] = False
+        state.adapter_ix[slot] = 0
+        state.adapter_host[slot] = 0
         return state
 
     @torch.no_grad()

@@ -765,8 +765,17 @@ class Scheduler:
             self._retire(job)
             return
         job.request.finish_reason = end
-        del self._slots[job.slot]
+        self._vacate(job)
         self._finish(job)
+
+    def _vacate(self, job: _Job) -> None:
+        """A job that ended by EOS or its length leaves its slot (the
+        device already left the slot inactive); a slot that served an
+        adapter is released too, so its adapter returns to the base model
+        and later passes make no LoRA call for it."""
+        del self._slots[job.slot]
+        if job.adapter_ix:
+            self._state = self.core.release(self._state, job.slot)
 
     def _retire(self, job: _Job) -> None:
         """Stop-string end: deactivate the slot on device, then finish."""
@@ -1118,7 +1127,7 @@ class Scheduler:
                 if out["done"][k, slot]:
                     req.finish_reason = ("eos" if out["hit_eos"][k, slot]
                                          else "length")
-                    del self._slots[slot]
+                    self._vacate(job)
                     self._finish(job)
                     break
 

@@ -38,6 +38,10 @@ batch row's slot in ``adapter_ix``. Either may come prepared
 prepared for the pass. Adapter leaves inside the *param* tree are refused
 (:func:`params_from_jax`).
 
+The Gemma family (``models/gemma.py``) rides this layout: GeGLU
+(``hidden_act="gelu_tanh"``), the embedding scaled by ``embed_scale``,
+tied embeddings and ``head_dim * n_heads != dim``.
+
 Not ported here (ROADMAP A.11): biased projections and LayerNorm, and
 MoE.
 """
@@ -83,6 +87,9 @@ class LlamaConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     hidden_act: str = "silu"
+    # the token embedding's output scale (Gemma: sqrt(dim)), applied in the
+    # model dtype
+    embed_scale: float = 1.0
     # "auto" | "kernel" | "plain": the attention of the paged passes and the
     # dense API (see kernel_attention)
     attn_impl: str = "auto"
@@ -310,7 +317,13 @@ def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
 
 def embed_tokens(params: Params, cfg: LlamaConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return quant_ops.take(params["embed"], tokens, cfg.torch_dtype)
+    """Token embedding lookup times ``embed_scale``, the scale rounded to
+    the model dtype first, as the reference's ``jnp.asarray(scale,
+    h.dtype)`` does (bf16 sqrt(3072) is 55.5, not 55.4256)."""
+    h = quant_ops.take(params["embed"], tokens, cfg.torch_dtype)
+    if cfg.embed_scale != 1.0:
+        h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype, device=h.device)
+    return h
 
 
 def _norm(cfg: LlamaConfig, x: torch.Tensor, layer: Params,

@@ -44,12 +44,18 @@ from generativeaiexamples_tpu_torch.ops.attention import (
 from generativeaiexamples_tpu_torch.ops.cuda.build import (  # noqa: F401
     LAUNCHES, launch_counts, reset_launch_counts)
 
-HEAD_DIMS = (16, 32, 64, 128)
-QG_MAX = 64   # query vectors (G * Qb) one block of the walk holds
+HEAD_DIMS = (16, 32, 64, 128, 256)
+QG_MAX = 64   # query vectors (G * Qb) one block of the walk holds, at most
 SPLIT_TILE = 64   # tokens per tile of the decode-side walk (csrc BT)
 SPLIT_MAX = 32    # splits of one (row, KV head), at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+
+def qg_max(head_dim: int) -> int:
+    """Query vectors one block of the decode-side walk holds at
+    ``head_dim`` (csrc ``qg_cap``): ``QG_MAX``, or 32 at head_dim 256,
+    where a bf16 warp's 16 output rows take 128 registers."""
+    return QG_MAX if head_dim <= 128 else 32
 
 
 # ---------------------------------------------------------------------------
@@ -81,16 +87,19 @@ def ragged_paged_supported(page_size: int, head_dim: int,
             and q_block >= 1 and q_block & (q_block - 1) == 0)
 
 
-def query_tile(q_block: int, group: int) -> int:
+def query_tile(q_block: int, group: int, head_dim: int = 128) -> int:
     """Queries of a ragged row one block takes: the whole row when its
-    ``q_block * group`` query vectors fit ``QG_MAX``, else ``QG_MAX //
-    group`` (llama3-70b's G = 8: 8 queries, so a verify row of 9 is two
-    tiles and a mixed row of 16 two). Each tile is a block over the same KV
-    walk with partials and a ticket of its own."""
-    if group > QG_MAX:
-        raise ValueError(f"GQA group {group} exceeds the {QG_MAX} query "
-                         f"vectors a block holds")
-    return q_block if q_block * group <= QG_MAX else QG_MAX // group
+    ``q_block * group`` query vectors fit :func:`qg_max` of ``head_dim``,
+    else ``qg_max // group`` (llama3-70b's G = 8 at 128: 8 queries, so a
+    verify row of 9 is two tiles and a mixed row of 16 two; gemma-2b's G =
+    8 at 256: 4 queries, so a verify row of 5 is two tiles and a mixed row
+    of 16 four). Each tile is a block over the same KV walk with partials
+    and a ticket of its own."""
+    cap = qg_max(head_dim)
+    if group > cap:
+        raise ValueError(f"GQA group {group} exceeds the {cap} query "
+                         f"vectors a block holds at head_dim {head_dim}")
+    return q_block if q_block * group <= cap else cap // group
 
 
 # ---------------------------------------------------------------------------
@@ -331,8 +340,8 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     an int or a device tensor. ``k_scales``/``v_scales``, f32 (L*P, KV,
     page), switch to the int8 pool (its own launch count,
     ``ragged_paged_attention_int8``). A row of more than ``QG_MAX`` query
-    vectors is cut into query tiles (:func:`query_tile`). CPU tensors take
-    the plain version.
+    vectors (:func:`qg_max`) is cut into query tiles (:func:`query_tile`).
+    CPU tensors take the plain version.
     """
     if (k_scales is None) != (v_scales is None):
         raise ValueError("ragged_paged_attention: give both k_scales and "
@@ -356,9 +365,10 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"ragged_paged_attention: unsupported shapes q "
                          f"{tuple(q.shape)} pool {tuple(k_pages.shape)}")
     KV = KVHD // HD
-    if H % KV or H // KV > QG_MAX:
+    if H % KV or H // KV > qg_max(HD):
         raise ValueError(f"ragged_paged_attention: H={H}, KV={KV} outside "
-                         f"the kernel's limits (H/KV <= {QG_MAX})")
+                         f"the kernel's limits (H/KV <= {qg_max(HD)} at "
+                         f"head_dim {HD})")
     if not (q.is_contiguous() and k_pages.is_contiguous()
             and v_pages.is_contiguous()):
         raise ValueError("ragged_paged_attention: q and pools must be "
@@ -385,8 +395,8 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pos0 = _as_i32(q_pos0, dev)
     qnum = _as_i32(q_num, dev)
     out = torch.empty_like(q)
-    # rows past QG_MAX query vectors: query tiles, each a cell of the grid
-    tq = query_tile(Qb, H // KV)
+    # rows past qg_max query vectors: query tiles, each a cell of the grid
+    tq = query_tile(Qb, H // KV, HD)
     n_qt = -(-Qb // tq)
     plan, part, tickets = _split_args(dev, R * n_qt, KV, maxp * ps,
                                       tq * (H // KV), HD)
@@ -447,9 +457,10 @@ def ragged_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"ragged_decode: unsupported shapes q "
                          f"{tuple(q.shape)} k {tuple(k_cache.shape)} v "
                          f"{tuple(v_cache.shape)}")
-    if H % KV or H // KV > QG_MAX:
+    if H % KV or H // KV > qg_max(HD):
         raise ValueError(f"ragged_decode: H={H}, KV={KV} outside the "
-                         f"kernel's limits (H/KV <= {QG_MAX})")
+                         f"kernel's limits (H/KV <= {qg_max(HD)} at "
+                         f"head_dim {HD})")
     if (not q.is_contiguous() or k_cache.stride(-1) != 1
             or v_cache.stride() != k_cache.stride()):
         raise ValueError("ragged_decode: q must be contiguous, and the "

@@ -43,7 +43,7 @@ from generativeaiexamples_tpu_torch.ops.cuda.build import (LAUNCHES,
                                                            SAMPLER_VARIANTS)
 
 MAX_ROWS = 136          # 8 slots x W = 9 (72), or the mixed dispatch's 136
-MAX_VOCAB = 128_256     # llama3's vocabulary
+MAX_VOCAB = 256_000     # Gemma's vocabulary (llama3's is 128,256)
 CLUSTER = 8             # blocks a row's cluster holds (csrc CL)
 TOP_LP = 5              # top-logprob entries a row (csrc TOP)
 
@@ -58,7 +58,7 @@ _BITS_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 2
 def slice_entries(vocab: int) -> int:
     """Entries of a row each block of its cluster holds (the source's
     ``slice_of``): a multiple of 8 (16-byte loads of bf16), together
-    covering the row. A block keeps 8 bytes of shared memory an entry."""
+    covering the row."""
     return (-(-vocab // CLUSTER) + 7) // 8 * 8
 
 
@@ -74,6 +74,16 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def check_size(R: int, V: int, W: int) -> None:
+    """Raise unless ``R`` rows of ``V`` entries in slots of ``W`` rows are
+    a call the kernel takes."""
+    if not (W >= 1 and R % W == 0 and 1 <= R <= MAX_ROWS
+            and 1 <= V <= MAX_VOCAB):
+        raise ValueError(f"sample_slots: {R} rows of {V} in slots of {W} "
+                         f"rows; the kernel takes 1..{MAX_ROWS} rows of at "
+                         f"most {MAX_VOCAB}")
+
+
 def _check(keys, counter0, W, logits, temperature, top_k, top_p, active):
     """Raise unless the arguments are what the kernel takes."""
     if logits.dim() != 2 or not logits.is_cuda:
@@ -85,11 +95,7 @@ def _check(keys, counter0, W, logits, temperature, top_k, top_p, active):
         raise ValueError(f"sample_slots takes float32 or bfloat16 logits "
                          f"with contiguous entries, got {logits.dtype} "
                          f"strides {logits.stride()}")
-    if not (W >= 1 and R % W == 0 and 1 <= R <= MAX_ROWS
-            and 1 <= V <= MAX_VOCAB):
-        raise ValueError(f"sample_slots: {R} rows of {V} in slots of {W} "
-                         f"rows; the kernel takes 1..{MAX_ROWS} rows of at "
-                         f"most {MAX_VOCAB}")
+    check_size(R, V, W)
     B = R // W
     want = ((keys, (B, 2), (torch.int64,)),
             (counter0, (B,), (torch.int32, torch.int64)),

@@ -1,7 +1,8 @@
 """Normalization, activation and rotary primitives (plain PyTorch).
 
 Port of ``generativeaiexamples_tpu/ops/layers.py``. Moments and the rotary
-mix are taken in float32 whatever the carrier dtype, as there.
+mix are taken in float32 whatever the carrier dtype, as there; the tanh
+GELU runs in the carrier dtype, as ``jax.nn.gelu`` does there.
 """
 
 from __future__ import annotations
@@ -25,13 +26,23 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return (xf * (1.0 / (1.0 + torch.exp(-xf)))).to(x.dtype)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` as the reference computes it:
+    op for op in x's dtype, its constants rounded to that dtype (in bf16
+    sqrt(2/pi) is 0.796875 and 0.044715 is 0.044677734375), so a bf16
+    GeGLU rounds where the reference's does, not once from f32."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = x + c(0.044715) * (x * x * x)
+    return x * (c(0.5) * (c(1.0) + torch.tanh(c(math.sqrt(2.0 / math.pi))
+                                               * inner)))
+
+
 def activate(x: torch.Tensor, act: str) -> torch.Tensor:
     """Ungated activation by name."""
     if act == "silu":
         return silu(x)
     if act == "gelu_tanh":
-        return torch.nn.functional.gelu(x.float(), approximate="tanh").to(
-            x.dtype)
+        return gelu_tanh(x)
     raise ValueError(f"unknown activation {act!r}")
 
 

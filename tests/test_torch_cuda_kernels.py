@@ -48,6 +48,112 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# ---------------------------------------------------------------------------
+# The kernels' limits, on the CPU: the predicates and each instance's
+# shared memory
+# ---------------------------------------------------------------------------
+
+SMEM_OPTIN = 232_448   # shared memory a block may opt into on the H100
+
+
+def _round16(n):
+    return -(-n // 16) * 16
+
+
+def walk_smem_bytes(act, pool, head_dim, qgb):
+    """Dynamic shared memory of one instance of the decode-side walk, the
+    arithmetic of csrc/common.cuh ``Walk<T, KT, HD, QGB>::SMEM``:
+    activations ``act`` (bf16 or f32), pool ``pool`` (the activations'
+    dtype or int8), query bucket ``qgb`` (16, 32 or 64 rows)."""
+    mma = act != torch.float32
+    kt = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[pool]
+    ns = 2 if kt == 4 else 3
+    st = tk.SPLIT_TILE // 2 if kt == 4 and head_dim > 128 else tk.SPLIT_TILE
+    ldk = head_dim + 16 // kt
+    ldq = head_dim + 8 if mma else head_dim + 1
+    q_bytes = (_round16(2 * qgb * ldq) if mma
+               else _round16(4 * (qgb * ldq + qgb * st + 3 * qgb)))
+    ring = (_round16(kt * ns * 2 * st * ldk)
+            + (4 * ns * 2 * st if kt == 1 else 0))
+    merge = 4 * (4 if mma else 1) * qgb * (head_dim + 6)
+    combine = 4 * 3 * tk.SPLIT_MAX * qgb
+    return q_bytes + 8 * 4 * st + max(ring, merge, combine)
+
+
+def walk_buckets(head_dim):
+    """The query buckets the decode-side kernels instantiate."""
+    return tuple(b for b in (16, 32, 64) if b <= tk.qg_max(head_dim))
+
+
+def flash_smem_bytes(dtype, head_dim):
+    """Dynamic shared memory of a ``flash_prefill`` instance, the
+    arithmetic of csrc/flash_prefill.cu (``MmaTile<HD>::SMEM`` for bf16,
+    ``f32_smem_bytes<HD>`` for f32): 64-query and 64-token tiles."""
+    if dtype == torch.float32:
+        return 4 * (64 * (head_dim + 1) * 2 + 64 * head_dim + 64 * 65)
+    qreg = head_dim <= 128
+    ld = head_dim + 8
+    return 2 * ((3 if qreg else 2) * 2 * 64 * ld + (0 if qreg else 64 * ld))
+
+@pytest.mark.parametrize("HD", [16, 32, 64, 128, 256])
+def test_predicates_take_every_instance(HD):
+    assert tk.prefill_supported(512, 2048, HD)
+    assert tk.decode_supported(2048, HD)
+    assert tk.paged_decode_supported(128, HD)
+    assert tk.ragged_paged_supported(128, HD, 16)
+    assert tk.paged_decode_supported(128, HD) == tk.ragged_paged_supported(
+        128, HD, 8)
+
+
+@pytest.mark.parametrize("HD", [8, 48, 96, 512])
+def test_predicates_refuse_other_head_dims(HD):
+    assert not tk.prefill_supported(512, 2048, HD)
+    assert not tk.decode_supported(2048, HD)
+    assert not tk.paged_decode_supported(128, HD)
+    assert not tk.ragged_paged_supported(128, HD, 8)
+
+
+# the shared memory of the HD 256 instances, as the sources' notes state
+HD256_SMEM = {
+    ("walk", torch.bfloat16, torch.bfloat16, 16): 213_248,
+    ("walk", torch.bfloat16, torch.bfloat16, 32): 221_696,
+    ("walk", torch.bfloat16, torch.int8, 32): 153_088,
+    ("walk", torch.float32, torch.float32, 32): 171_520,
+    ("flash", torch.bfloat16): 168_960,
+    ("flash", torch.float32): 213_760,
+}
+
+
+def test_shared_memory_of_every_instance_fits_the_card():
+    """Every instance the sources build, at every head dim and bucket, fits
+    the H100's 232,448 bytes a block (with 16 of static memory); the HD
+    256 instances are the numbers in the sources' notes, and the 64-row
+    bucket the HD 256 cap leaves out would not fit."""
+    pairs = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+             (torch.float32, torch.float32), (torch.float32, torch.int8)]
+    for HD in tk.HEAD_DIMS:
+        assert walk_buckets(HD)[-1] == tk.qg_max(HD)
+        for act, pool in pairs:
+            for qgb in walk_buckets(HD):
+                assert walk_smem_bytes(act, pool, HD, qgb) + 16 \
+                    <= SMEM_OPTIN, (act, pool, HD, qgb)
+        for dt in (torch.bfloat16, torch.float32):
+            assert flash_smem_bytes(dt, HD) <= SMEM_OPTIN
+    for key, want in HD256_SMEM.items():
+        got = (walk_smem_bytes(*key[1:3], 256, key[3])
+               if key[0] == "walk" else flash_smem_bytes(key[1], 256))
+        assert got == want, key
+    assert walk_buckets(256) == (16, 32)
+    assert walk_smem_bytes(torch.bfloat16, torch.bfloat16, 256, 64) \
+        > SMEM_OPTIN
+    # the llama3 instances are the ones the notes name at HD 128
+    assert walk_smem_bytes(torch.bfloat16, torch.bfloat16, 128, 16) \
+        == 110_848
+    assert walk_smem_bytes(torch.float32, torch.float32, 128, 64) \
+        == 187_392
+    assert flash_smem_bytes(torch.bfloat16, 128) == 104_448
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card(cuda_device):
     rng = np.random.default_rng(21)
@@ -331,7 +437,7 @@ def test_flash_prefill_cache_hit_suffixes_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("HD", [16, 32, 64, 128])
+@pytest.mark.parametrize("HD", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_flash_prefill_every_head_dim_on_the_card(cuda_device, dt, HD):
@@ -533,9 +639,50 @@ def test_ragged_paged_group8_query_tiles_on_the_card(cuda_device, pool,
     _check_verify_and_mixed_rows(cuda_device, pool, case, H=64)
 
 
-def _check_verify_and_mixed_rows(cuda_device, pool, case, H):
-    rng = np.random.default_rng(70 + len(case) + (0 if H == 32 else 1000))
-    KV, HD, ps = 8, 128, 128
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["verify_qb5", "verify_qb9", "mixed_qb16"])
+@pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("heads", [(16, 16), (8, 1)], ids=["G1", "G8"])
+def test_ragged_paged_head_dim_256_on_the_card(cuda_device, heads, pool,
+                                               case):
+    """Gemma's heads of 256: gemma-7b's (16 q, 16 KV, G = 1) rows fit one
+    block; gemma-2b's (8 q, 1 KV, G = 8) verify rows of 5 and 9 and mixed
+    rows of 16 hold 40, 72 and 128 query vectors, past the 32 a block
+    takes at head_dim 256, so they run as query tiles of 4."""
+    H, KV = heads
+    _check_verify_and_mixed_rows(cuda_device, pool, case, H, KV=KV, HD=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("heads", [(16, 16), (8, 1)], ids=["G1", "G8"])
+def test_ragged_decode_head_dim_256_on_the_card(cuda_device, heads, dt):
+    """``ragged_decode`` at Gemma's heads over one layer of a dense cache:
+    ragged lengths, a full slot and one past the cache; bf16 per (row,
+    head) within one bf16 ulp, f32 within 1e-4."""
+    H, KV = heads
+    rng = np.random.default_rng(26 + H)
+    L, B, T, HD = 2, 4, 640, 256
+    k, v = (_t(_rand(rng, (L, B, T, KV, HD))).to(cuda_device, dt)
+            for _ in range(2))
+    q = _t(_rand(rng, (B, 1, H, HD))).to(cuda_device, dt)
+    lens = torch.tensor([1, 200, T, T + 1], dtype=torch.int32,
+                        device=cuda_device)
+    tk.reset_launch_counts()
+    got = tk.ragged_decode(q, k[1], v[1], lens)
+    assert tk.launch_counts()["ragged_decode"] == 1
+    want = mha_decode(q, k[1], v[1], lens)
+    if dt == torch.float32:
+        assert (got - want).abs().max().item() < 1e-4
+    else:
+        assert _within_one_ulp(got, want)
+
+
+def _check_verify_and_mixed_rows(cuda_device, pool, case, H, KV=8, HD=128):
+    rng = np.random.default_rng(70 + len(case) + (0 if H == 32 else 1000)
+                                + (0 if HD == 128 else HD))
+    ps = 128
     cap = 2048 if case == "mixed_prefix" else 1024
     maxp = cap // ps
     Qb, lens, pos0, qnum, slots = _verify_and_mixed_rows(case, cap)
@@ -560,7 +707,7 @@ def _check_verify_and_mixed_rows(cuda_device, pool, case, H):
     assert tk.launch_counts()[key] == 1
     want = tk.ragged_paged_attention_plain(q, kp, vp, *args, 1, P, ks, vs)
     assert torch.isfinite(got).all()
-    if Qb * H // KV > tk.QG_MAX:
+    if Qb * H // KV > tk.qg_max(HD):
         assert torch.equal(got, tk.ragged_paged_attention(
             q, kp, vp, *args, layer=1, pages_per_layer=P, k_scales=ks,
             v_scales=vs))
@@ -791,7 +938,7 @@ def _smoke():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("V", [128_256, 32_000, 1_000])
+@pytest.mark.parametrize("V", [256_000, 128_256, 32_000, 1_000])
 @pytest.mark.parametrize("R", [1, 8, 72, 136])
 def test_sample_slots_matches_plain_on_the_card(cuda_device, R, V, dtype):
     """One launch a sampling call, at the engine's row counts (a slot, 8

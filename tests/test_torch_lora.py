@@ -570,17 +570,36 @@ def test_base_only_batch_streams_match_jax_without_an_update(
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
 def test_adapter_request_finishing_while_base_rows_continue(setup,
                                                             temperature):
-    """An adapter'd request of 3 tokens beside base requests of 12: the
-    passes after it ends (its slot keeps its adapter until reused, as the
-    device's ``adapter_ix`` does) and the base rows' streams equal the JAX
-    ``Scheduler``'s, greedy and seeded."""
+    """An adapter'd request of 3 tokens beside base requests of 12: once
+    it ends its slot returns to the base model, so the passes after it
+    make no update call (``lora_passes`` stays where it was when the
+    request finished), and every stream equals the JAX ``Scheduler``'s,
+    greedy and seeded."""
     s = setup
     batch, lens = [(0, ""), (1, "ad-a"), (1, "")], [TOKENS, 3, TOKENS]
     want = _jax_streams(s, batch, temperature, lens=lens, **JAX_NARROW)
-    got, sched = _torch_streams(s, batch, temperature, lens=lens, **NARROW)
+    sched = Scheduler(_core(s, **NARROW), s.tok)
+    reqs = [Request(prompt_ids=s.tok.encode(PROMPTS[p], add_bos=True),
+                    max_tokens=n, temperature=temperature, seed=10 + i,
+                    adapter=name)
+            for i, ((p, name), n) in enumerate(zip(batch, lens))]
+    for r in reqs:
+        sched.submit(r)
+    at_end, ticks_after = None, 0
+    while sched._tick():
+        if reqs[1].finished_at is None:
+            continue
+        if at_end is None:
+            at_end = sched.core.lora_passes
+        else:
+            ticks_after += 1
+    assert [r.error for r in reqs] == [None] * len(reqs)
+    got = [r.output_ids for r in reqs]
     assert got == want
     assert [len(g) for g in got] == lens
-    assert sched.core.lora_passes > 0
+    assert at_end > 0 and ticks_after > 0
+    assert sched.core.lora_passes == at_end
+    assert not sched._state.adapter_host.any()
 
 
 def test_config_max_adapters_defaults_to_the_reference(monkeypatch):

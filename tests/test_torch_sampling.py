@@ -215,3 +215,53 @@ def test_sample_cutoffs_plain_are_the_masks_cutoffs():
         np.testing.assert_array_equal(
             torch.isfinite(masked[r]).numpy(),
             (scaled[r] >= cuts[r, 2]).numpy())
+
+
+# ---------------------------------------------------------------- Gemma's V
+
+def test_kernel_size_check_takes_gemmas_vocabulary():
+    """The kernel takes Gemma's 256,000 entries and llama3's 128,256 (s
+    alone in shared memory, e recomputed), and refuses a vocabulary past
+    its limit or rows past its grid."""
+    from generativeaiexamples_tpu_torch.ops.cuda import sampling as ks
+    assert ks.MAX_VOCAB == 256_000
+    for R, V, W in ((1, 256_000, 1), (136, 256_000, 8), (72, 128_256, 9)):
+        ks.check_size(R, V, W)
+    for R, V, W in ((8, 256_001, 1), (137, 1_000, 1), (9, 1_000, 2)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            ks.check_size(R, V, W)
+    # a block holds its slice's s as f32 (csrc smem), beside the kernel's
+    # own 1,024 bytes, within the H100's 232,448 bytes
+    shared = lambda V: 4 * ks.slice_entries(V)
+    assert shared(128_256) == 4 * 16_032 == 64_128
+    assert shared(256_000) == 4 * 32_000 == 128_000
+    for V in (1_000, 128_256, 232_000, 256_000):
+        assert shared(V) + 1_024 <= 232_448
+
+
+@pytest.mark.parametrize("mix", ["chain", "mixed_rows"])
+def test_sample_slots_matches_jax_at_gemmas_vocabulary(mix):
+    """The plain sampler at V = 256,000 against the reference's on the
+    same keys and settings: tokens equal, logprobs within 1e-5."""
+    temperature, top_k, top_p = (np.array(x, dt) for x, dt in zip(
+        SLOT_MIXES[mix], (np.float32, np.int32, np.float32)))
+    B, W, V = len(temperature), 1, 256_000
+    rng = np.random.default_rng(17)
+    logits = (rng.standard_normal((B, V)) * 2.5).astype(np.float32)
+    logits[1, :V // 3] = -np.inf
+    logits[3, :V // 4] -= 130.0
+    active = np.ones(B, bool)
+    active[5] = False
+    keys = np.asarray(jax.vmap(jax.random.PRNGKey)(
+        jnp.arange(B, dtype=jnp.int32) + 700))
+    counter0 = COUNTERS[:B]
+    want_tok, want_lp = _jax_sample_slots(
+        keys, counter0, W, logits, temperature, top_k, top_p, active)
+    got_tok, got_lp, _ = ts.sample_slots(
+        torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(counter0),
+        W, torch.from_numpy(logits), torch.from_numpy(temperature),
+        torch.from_numpy(top_k), torch.from_numpy(top_p),
+        torch.from_numpy(active))
+    np.testing.assert_array_equal(got_tok.numpy(), want_tok)
+    np.testing.assert_allclose(got_lp.numpy(), want_lp, atol=1e-5)
+    assert (got_tok.numpy() < V).all()

@@ -267,6 +267,8 @@ DECODE_CASES = {
     # split boundary, past the cache (decode_step once a slot is full)
     "ragged": (3, 256, 8, 2, 16, [1, 128, 300], 64),
     "one_kv_head": (2, 192, 4, 1, 32, [192, 65], 64),
+    # gemma-2b's heads: G = 8 of 256 on one KV head
+    "head_dim_256": (2, 160, 8, 1, 256, [160, 70], 64),
 }
 
 
@@ -292,3 +294,102 @@ def test_split_partials_match_mha_decode_and_interpret_kernel(case):
                                    err_msg=label)
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL,
                                    err_msg=label)
+
+
+# ---------------------------------------------------------------------------
+# Head dim 256 (the Gemma family): 32 query vectors a block, query tiles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("group,q_block,tile", [
+    (1, 1, 1), (1, 5, 5), (1, 9, 9), (1, 16, 16),      # gemma-7b
+    (8, 1, 1), (8, 5, 4), (8, 9, 4), (8, 16, 4),       # gemma-2b
+])
+def test_query_tile_at_head_dim_256(group, q_block, tile):
+    assert tk.qg_max(256) == 32 and tk.qg_max(128) == tk.QG_MAX == 64
+    assert tk.query_tile(q_block, group, 256) == tile
+    assert tile * group <= tk.qg_max(256)
+    # llama3-70b's G = 8 at head_dim 128 keeps its 8-query tiles
+    assert tk.query_tile(q_block, group, 128) == (
+        q_block if q_block * group <= 64 else 64 // group)
+
+
+def test_query_tile_refuses_a_group_past_the_head_dims_block():
+    assert tk.query_tile(1, 32, 256) == 1
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tk.query_tile(1, 33, 256)
+    assert tk.query_tile(1, 64, 128) == 1
+
+
+@pytest.mark.parametrize("rows,kv,qg", [(8, 16, 1), (16, 1, 4), (8, 1, 8)],
+                         ids=["gemma7b_decode", "gemma2b_verify_tiles",
+                              "gemma2b_decode"])
+def test_split_scratch_at_head_dim_256(rows, kv, qg):
+    """The partials' scratch at head_dim 256 for gemma-7b's decode rows
+    (G = 1, 16 KV heads) and gemma-2b's (G = 8, one KV head; a verify row
+    of 5 is two tiles of 4 queries): (m, l, acc) f32 a query vector and
+    split, 258 values, against 130 at head_dim 128."""
+    plan = tk.split_plan(rows, kv, 2048, 132)
+    cells = rows * kv
+    got = plan.scratch_bytes(cells, qg, 256)
+    assert got == 4 * cells * plan.splits * qg * (256 + 2)
+    if plan.splits > 1:
+        assert got * 130 == plan.scratch_bytes(cells, qg, 128) * 258
+    assert plan.splits * plan.tiles * BT >= 2048
+
+
+def _tiled_walk(q, k, v, lens, pos0, qnum, cap, plan, tq):
+    """The wrapper's query tiles of ``tq`` queries, each walked as a row
+    of its own (its queries, its first position, its live count), stitched
+    back."""
+    R, Qb = q.shape[:2]
+    out = np.zeros(q.shape, np.float64)
+    for q0 in range(0, Qb, tq):
+        qb = min(tq, Qb - q0)
+        n = np.clip(qnum - q0, 0, qb).astype(np.int32)
+        part = _split_walk(q[:, q0:q0 + qb], k, v, lens, pos0 + q0, n, cap,
+                           plan)
+        out[:, q0:q0 + qb] = part
+    return out
+
+
+@pytest.mark.parametrize("heads", [(2, 2), (8, 1)], ids=["G1", "G8"])
+@pytest.mark.parametrize("Qb", [5, 16])
+def test_query_tiles_at_head_dim_256_match_plain_and_interpret_kernel(
+        heads, Qb):
+    """Rows of Qb = 5 (a verify step) and 16 (a mixed row) at head_dim
+    256, cut into the wrapper's query tiles, each walked in splits: the
+    plain version and the JAX kernel in interpret mode within 2e-5."""
+    H, KV = heads
+    HD, R, L, P, ps, maxp = 256, 3, 2, 20, 16, 4
+    rng = np.random.default_rng(80 + Qb + H)
+    cap = maxp * ps
+    kp, vp = (rng.standard_normal((L * P, ps, KV * HD)).astype(np.float32)
+              for _ in range(2))
+    q = rng.standard_normal((R, Qb, H, HD)).astype(np.float32)
+    tables = (rng.permutation(np.arange(1, P))[:R * maxp]
+              .reshape(R, maxp).astype(np.int32))
+    lens = np.array([Qb + 3, cap, 40], np.int32)
+    qnum = np.array([Qb, Qb - 2, 0], np.int32)
+    pos0 = lens - qnum
+    tq = tk.query_tile(Qb, H // KV, HD)
+    assert tq * (H // KV) <= 32 and (tq < Qb) == (Qb * H // KV > 32)
+    plain = tk.ragged_paged_attention_plain(
+        _t(q), _t(kp), _t(vp), _t(tables), _t(lens), _t(pos0), _t(qnum), 1,
+        P).numpy()
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jpallas.ragged_paged_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(tables), jnp.asarray(lens), jnp.asarray(pos0),
+            jnp.asarray(qnum), layer=jnp.int32(1), pages_per_layer=P,
+            interpret=True))
+    rows = 1 * P + tables
+    kd = kp[rows].reshape(R, cap, KV, HD)
+    vd = vp[rows].reshape(R, cap, KV, HD)
+    for label, plan in _plans(R, KV, cap).items():
+        got = _tiled_walk(q, kd, vd, lens, pos0, qnum, cap, plan, tq)
+        for r in range(R):
+            n = int(qnum[r])
+            np.testing.assert_allclose(got[r, :n], plain[r, :n], atol=ATOL,
+                                       rtol=ATOL, err_msg=label)
+            np.testing.assert_allclose(got[r, :n], want[r, :n], atol=ATOL,
+                                       rtol=ATOL, err_msg=label)
