@@ -111,7 +111,17 @@ prints no result:
               256, G = 1 and 8, V = 256,000), 2 layers, f32, the kernel
               path against the plain path: a dense prefill's logits within
               ``PARITY_GAP_TOL``, greedy engine streams over both pools
-              with speculation and the mixed dispatch on;
+              with speculation and the mixed dispatch on; then
+              ``parity_multi``: multi-step decode (``decode_multistep``
+              4, K 8) at llama3-8b width, 2 layers, f32, both pools,
+              three greedy requests over the smoke's BPE tokenizer, one
+              with a stop string cut from its own per-step stream and one
+              that never matches on its most frequent character: the
+              kernel path's multi-step streams equal its per-step ones
+              (finish reasons too) and the plain path's, a stop-bearing
+              slot emits nothing after its first suspect token in a block
+              (``_pause_check``), and the attention kernel and
+              ``sample_slots`` launch inside the multi-step dispatches;
   8b. serve_gemma  gemma-7b at full width and depth (28 layers, 8.5 B
               parameters, bf16, seeded) behind the HTTP server with the
               reference's defaults: ``serve``'s traffic, then one
@@ -133,6 +143,15 @@ prints no result:
               (``profile_mixed``);
  10. serve_int8  the same over an int8 KV pool (the int8 instance), without
               the two profiles (cut to keep the smoke's time);
+ 10b. serve_multi  llama3-8b over the smoke's BPE tokenizer, speculation
+              off, K = 2: ``serve``'s traffic plus one request with a stop
+              string, in a fixed order, with ``decode_multistep`` 0 and
+              then 8: every request 200, equal streams, host fetches per
+              token down at least 4x, the ragged kernel and
+              ``sample_slots`` launched inside multi-step dispatches; a
+              short run with ``decode_steps_max=32`` must deepen a
+              dispatch; then ``profile_multi``, the device operations a
+              step that the stop ring and the suspect lookup add;
  11. serve_prefix  the prefix cache behind the server: 12 chat requests
               over one 1,536-byte context, the first alone, 7 once its
               first token is out (cache hits arriving in a ramp), 4 after
@@ -272,7 +291,10 @@ call) with ``profile_w8`` (the parts named after the trees, all by
 default); ``--lora-variants`` times a few LoRA cases, with each call's
 shrink and expand device time, for the tree as it is and for each of
 ``LORA_VARIANTS`` (the design choices of ``csrc/lora.cu`` undone, one at
-a time, in a temporary copy). Each main
+a time, in a temporary copy). ``--planted-faults
+multi_running_dropped`` drops the multi-step decode's running mask in
+``engine/engine.py`` (a suspect token no longer pauses its slot): the
+streams stay equal and ``parity_multi``'s pause check must fail. Each main
 path (8b to 16) sets the launch counts to 0 just before it and reads
 them just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -3194,10 +3216,12 @@ def _pipeline_parity(dev, params, cfg, tok):
 
 
 def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
-             temperature=None, top_p=None, model=None, response_format=None):
+             temperature=None, top_p=None, model=None, response_format=None,
+             stop=None):
     """One request (seed ``i``); by default the i-th of the narrow phase's
     six: chat/completion, streamed or not, temperature 0 / 0.7; ``model``
-    the OpenAI model id to send, ``response_format`` its JSON mode.
+    the OpenAI model id to send, ``response_format`` its JSON mode,
+    ``stop`` its stop strings.
     Returns its status, text, finish reason, usage, the model id it echoed
     and client-side times."""
     chat = i % 2 == 0 if chat is None else chat
@@ -3214,6 +3238,8 @@ def _request(base, i, text=None, max_tokens=32, chat=None, stream=None,
         body["model"] = model
     if response_format is not None:
         body["response_format"] = response_format
+    if stop is not None:
+        body["stop"] = stop
     if chat:
         body["messages"] = [{"role": "user", "content": text}]
         url = base + "/v1/chat/completions"
@@ -3958,6 +3984,235 @@ def parity_gemma_cases(dev):
     return {"streams": case}
 
 
+# multi-step decode: parity_multi's M ceiling (K 8: blocks of 16 and 32
+# steps), and serve_multi's K and M. serve_multi runs the reference
+# test's K of 2, so a top block of 16 steps spans 8 per-step dispatches:
+# at K 8 a block of 64 steps outgrows the 32-token late prompts and the
+# budgets' tails, which then run shallow rungs or per-step dispatches
+MULTI_M = 4
+MULTI_SERVE_K = 2
+MULTI_SERVE_M = 8
+
+
+def _record_multi(core):
+    """Wrap ``core.decode_multi`` to keep, for each multi-step dispatch,
+    its stop flags, its suspect table, its out block (fresh tensors no
+    later launch writes) and the kernel launches it made
+    (``_pause_check`` reads the first three). Returns the list."""
+    import numpy as np
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    blocks = []
+    multi = core.decode_multi
+
+    def recording(state, table, steps=None, m=None, **kw):
+        before = k.launch_counts()
+        state, out = multi(state, table, steps, m, **kw)
+        after = k.launch_counts()
+        blocks.append((np.asarray(kw.get("has_stop")),
+                       core._stop_suspect(tuple(kw.get("stops", ()))), out,
+                       {n: after[n] - before[n] for n in after}))
+        return state, out
+
+    core.decode_multi = recording
+    return blocks
+
+
+def _pause_check(name, blocks):
+    """The on-device stop pause of every recorded multi-step block: a slot
+    that carries a stop string emits nothing after its first suspect
+    token. Returns (suspect tokens seen in stop-bearing slots, those
+    before a block's last row: pauses); a slot that ran on past one raises
+    KernelMismatch (the planted fault ``multi_running_dropped``)."""
+    import numpy as np
+    seen = pauses = 0
+    for has_stop, table, out, _ in blocks:
+        em = out["emitted"].bool()
+        sus = (table[out["sampled"].long()] & em).cpu().numpy()
+        em = em.cpu().numpy()
+        rows = em.shape[0]
+        for s in np.flatnonzero(has_stop):
+            hits = np.flatnonzero(sus[:, s])
+            if not len(hits):
+                continue
+            seen += 1
+            first = int(hits[0])
+            after = int(em[first + 1:, s].sum())
+            if after:
+                raise KernelMismatch(name, {
+                    "slot": int(s), "suspect_row": first, "rows": rows,
+                    "rows_emitted_after_it": after})
+            pauses += first + 1 < rows
+    return seen, pauses
+
+
+def _pick_stop(tok, ids, pauses, length=3):
+    """A stop string from the text of ``ids``: ``length`` characters whose
+    first occurrence is where they stand, past the first character, with
+    no U+FFFD and not all blank; one from a quarter of the way in if there
+    is one (a greedy stream of random weights may repeat from its start).
+    Of those, the one the most tokens before it share a byte with
+    (``pauses``: each such token pauses a multi-step block) or the fewest
+    (so the request keeps its depth); None when there is none."""
+    text = tok.decode(ids)
+    ends = [len(tok.decode(ids[:i + 1])) for i in range(len(ids))]
+    pieces = [set(tok.decode([t]).encode()) for t in ids]
+    best = None
+    for at in range(1, len(text) - length + 1):
+        stop = text[at:at + length]
+        if "\ufffd" in stop or not stop.strip() or text.find(stop) != at:
+            continue
+        need = set(stop.encode())
+        score = sum(1 for end, piece in zip(ends, pieces)
+                    if end <= at and piece & need)
+        key = (at >= len(text) // 4, score if pauses else -score, -at)
+        if best is None or key > best[0]:
+            best = (key, stop)
+    return None if best is None else best[1]
+
+
+def _frequent_stop(tok, ids):
+    """A stop string that never matches ``ids``' text but starts with its
+    most frequent character: every token holding that character is
+    suspect, so a multi-step block holding one pauses the slot."""
+    text = tok.decode(ids).replace("\ufffd", "")
+    if not text:
+        return None
+    c = max(set(text), key=text.count)
+    return c + "\x00\x01"
+
+
+def _drive(sched, reqs, timeout=600):
+    """Submit ``reqs`` and tick ``sched`` by hand until all finish."""
+    for r in reqs:
+        sched.submit(r)
+    t0 = time.perf_counter()
+    while not all(r.finished_at for r in reqs):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"requests unfinished after {timeout} s")
+        sched._tick()
+    if any(r.error for r in reqs):
+        raise AssertionError(f"a request failed: {[r.error for r in reqs]}")
+    return reqs
+
+
+def phase_parity_multi(dev):
+    """llama3-8b width, 2 layers, f32, greedy, over a model-dtype pool and
+    an int8 pool, with ``decode_multistep=4`` (K 8: blocks of 16 and 32
+    steps): three requests through the Scheduler, one of them carrying
+    two stop strings, one cut from its own per-step stream (the smoke's
+    BPE tokenizer, so the ids decode to text) and one that never matches
+    but starts with the stream's most frequent character (so blocks
+    pause). The kernel path's multi-step
+    streams equal its per-step streams (both at the full batch width, the
+    ladder off) with the same finish reasons and texts, and the plain
+    path's multi-step streams up to a near-tie (``_parity_report``); in
+    every multi-step block a stop-bearing slot emits nothing after its
+    first suspect token (``_pause_check``), at least one pause happens,
+    and the attention kernel and ``sample_slots`` launch inside the
+    multi-step dispatches."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import (Request,
+                                                                 Scheduler)
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype="float32")
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(3),
+                               cfg, device=dev)
+    tok = smoke_tokenizer()["tok"]
+    prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
+               tok.encode(PROMPT_TEXT * 5, add_bos=True),
+               tok.encode("A stop string ends this one. " + PROMPT_TEXT,
+                          add_bos=True)]
+    budgets = (64, 40, 64)
+
+    def run(kv_quant, attn, multistep, stop):
+        ecfg = EngineConfig(
+            max_batch_size=8, max_seq_len=2048, page_size=128,
+            prefill_chunk=512, dtype="float32", attention=attn,
+            kv_quant=kv_quant, spec_decode="off", mixed_phase_dispatch="off",
+            decode_width_ladder="off", decode_multistep=multistep)
+        core = EngineCore(cfg, ecfg, params, tok.eos_id, device=dev)
+        blocks = _record_multi(core) if multistep else []
+        sched = Scheduler(core, tok)
+        reqs = _drive(sched, [
+            Request(prompt_ids=p, max_tokens=n, temperature=0.0,
+                    stop=stop if stop and i == 2 else [])
+            for i, (p, n) in enumerate(zip(prompts, budgets))])
+        return reqs, dict(sched.stats), blocks
+
+    reports, readings = {}, {}
+    for kv_quant in ("none", "int8"):
+        probe, _, _ = run(kv_quant, "kernel", 0, None)
+        stop = [_pick_stop(tok, probe[2].output_ids, pauses=True),
+                _frequent_stop(tok, probe[2].output_ids)]
+        if None in stop:
+            raise AssertionError(f"parity_multi ({kv_quant}): no stop string "
+                                 f"in the probe's text")
+        step, _, _ = run(kv_quant, "kernel", 0, stop)
+        fast, stats, blocks = run(kv_quant, "kernel", MULTI_M, stop)
+        plain, pstats, pblocks = run(kv_quant, "plain", MULTI_M, stop)
+        label = f"kv_quant={kv_quant}"
+        got = [(r.output_ids, r.finish_reason) for r in fast]
+        want = [(r.output_ids, r.finish_reason) for r in step]
+        if got != want:
+            raise KernelMismatch("parity_multi", {
+                "path": f"{label}, multi-step vs per-step, kernel",
+                "finish": [[a[1], b[1]] for a, b in zip(got, want)],
+                "equal": [a == b for a, b in zip(got, want)]})
+        reports[f"{label}, kernel vs plain, multi-step"] = _parity_report(
+            params, cfg, prompts, [r.output_ids for r in fast],
+            [r.output_ids for r in plain], dev,
+            f"parity_multi {label}, kernel vs plain")
+        seen, pauses = _pause_check("parity_multi", blocks)
+        pseen, ppauses = _pause_check("parity_multi", pblocks)
+        decode_key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                      else "ragged_paged_attention")
+        inside = {n: sum(b[3][n] for b in blocks)
+                  for n in (decode_key, "sample_slots")}
+        if not stats["multi_dispatches"] or min(inside.values()) < 1:
+            raise AssertionError(f"parity_multi ({label}): no multi-step "
+                                 f"dispatch through the kernels: {stats}, "
+                                 f"{inside}")
+        if pauses < 1:
+            raise AssertionError(f"parity_multi ({label}): no stop-bearing "
+                                 f"slot paused in a block ({seen} suspect "
+                                 f"tokens)")
+        readings[label] = dict(
+            stop=stop, finish_reasons=[r.finish_reason for r in fast],
+            tokens=[len(r.output_ids) for r in fast],
+            multi_dispatches=stats["multi_dispatches"],
+            multi_by_m={m: stats[f"multi_m_{m}"] for m in (2, 4)},
+            decode_dispatches=stats["decode_dispatches"],
+            per_step_dispatches=stats["decode_dispatches"]
+            - stats["multi_dispatches"],
+            host_fetches=stats["host_fetches"],
+            suspect_tokens=seen, pauses=pauses,
+            plain_suspect_tokens=pseen, plain_pauses=ppauses,
+            launches_inside_multi=inside,
+            plain_multi_dispatches=pstats["multi_dispatches"])
+    emit("parity_multi", ok=True, tolerance_top2_gap=PARITY_GAP_TOL,
+         streams=reports, runs=readings)
+    del params
+
+
+def parity_multi_cases(dev):
+    """``phase_parity_multi`` as one check-only case (the planted faults
+    read it): a failed check of any kind is its reading."""
+    def case():
+        try:
+            phase_parity_multi(dev)
+        except KernelMismatch:
+            raise
+        except AssertionError as exc:
+            raise KernelMismatch("parity_multi", {"error": str(exc)[:400]})
+        return {"passed": True}
+    return {"streams_and_pauses": case}
+
+
 def phase_serve_gemma(dev):
     """gemma-7b at full width and depth (28 layers, dim 3,072, 16 heads and
     16 KV heads of 256, GeGLU hidden 24,576, V = 256,000, tied embeddings,
@@ -3989,6 +4244,221 @@ def phase_serve_gemma(dev):
     del core, params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# serve_multi's stop-bearing request: 64 greedy tokens, sent after the
+# decoders in the first wave
+STOP_PROMPT = "A request whose stop string ends it. " + PROMPT_TEXT
+STOP_TOKENS = 64
+
+
+def _serve_multi_run(dev, cfg, params, tok, texts, stop, multistep,
+                     steps_max=0, late=True, decoder_tokens=256):
+    """One run of ``serve_multi`` behind the HTTP server: ``serve``'s
+    traffic in the smoke tokenizer's tokens (``texts``) and the
+    stop-bearing request, in a fixed order: the first wave (the decoders,
+    then the stop request) is admitted together once all of it arrived,
+    the late prompts (``late``) together once the first decode dispatch
+    ran. Speculation, the mixed dispatch and the width ladder are off, so
+    every decode row runs at the full batch and a request's tokens do not
+    depend on when the others run. The launch counts, the stats and the
+    engine's sampling calls are set to 0 just before the traffic and read
+    just after. Returns (fields, each request's output ids, launches)."""
+    import torch
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    core = serving_core(dev, cfg, params, eos_id=tok.eos_id,
+                        spec_decode="off", mixed_phase_dispatch="off",
+                        decode_width_ladder="off",
+                        decode_steps_per_dispatch=MULTI_SERVE_K,
+                        decode_multistep=multistep,
+                        decode_steps_max=steps_max)
+    warmup_s = core.warmup()
+    # the byte table before the traffic, as the server's warmup with its
+    # tokenizer builds it: else the first multi-step dispatch with a stop
+    # string builds it (a host decode an id) on the scheduler's thread
+    core.ensure_token_bytes(tok)
+    blocks = _record_multi(core) if multistep else []
+    sched = Scheduler(core, tok)
+    submitted = []
+    submit = sched.submit
+
+    def recording_submit(req):
+        submitted.append(req)
+        return submit(req)
+
+    sched.submit = recording_submit
+    gate = _gate_admission(sched)
+    # this run's peak: the runs before it left reference cycles behind
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    httpd, thread = serve_in_thread(sched, "llama3-8b-random")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    # (seed, prompt, tokens, chat, sampling): the stop request is a
+    # completion, so its prompt is the probe's
+    first = [(i, text, decoder_tokens, i % 2 == 0,
+              dict(temperature=0.0 if i % 2 else 0.7))
+             for i, text in enumerate(texts[0])]
+    first.append((len(first), STOP_PROMPT, STOP_TOKENS, False,
+                  dict(temperature=0.0, stop=[stop])))
+    second = [(len(first) + i, texts[1], 32, i == 0, dict(temperature=0.0))
+              for i in range(2 if late else 0)]
+
+    def wave(pool, specs):
+        gate.clear()
+        futs = []
+        for i, text, tokens, chat, kw in specs:
+            n = len(submitted)
+            futs.append(pool.submit(_request, base, i, text, tokens, chat,
+                                    False, **kw))
+            _wait_for(lambda: len(submitted) > n, "a request did not arrive")
+        gate.set()
+        sched._wake.set()
+        return futs
+
+    try:
+        k.reset_launch_counts()
+        for key in sched.stats:
+            sched.stats[key] = 0
+        core.sample_calls = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = wave(pool, first)
+            _wait_for(lambda: sched.stats["decode_dispatches"] >= 1,
+                      "no decode dispatch")
+            futs += wave(pool, second)
+            results = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        launches = k.launch_counts()
+        stats = dict(sched.stats)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+    bad = [r for r in results if r["status"] != 200 or not r["usage"]]
+    if bad or any(r.error for r in submitted):
+        raise AssertionError(f"serve_multi: a request failed: {bad}, "
+                             f"{[r.error for r in submitted]}")
+    gen = sum(r["usage"]["completion_tokens"] for r in results)
+    inside = {n: sum(b[3][n] for b in blocks)
+              for n in ("ragged_paged_attention", "sample_slots")}
+    fields = dict(
+        decode_multistep=multistep, decode_steps_max=steps_max,
+        completion_tokens=gen, wall_s=wall, gen_tok_s=gen / wall,
+        host_fetches=stats["host_fetches"],
+        host_fetches_per_token=stats["host_fetches"] / gen,
+        multi_dispatches=stats["multi_dispatches"],
+        multi_by_m={m: stats[f"multi_m_{m}"] for m in core.multi_ms},
+        decode_dispatches=stats["decode_dispatches"],
+        decode_steps=stats["decode_steps"],
+        dispatches_by_depth={key: n for key, n in stats.items()
+                             if key.startswith("decode_depth_")},
+        server_ttft_s=sorted(round(r.first_token_at - r.submitted_at, 4)
+                             for r in submitted if r.first_token_at),
+        finish_reasons=[r.finish_reason for r in submitted],
+        stop_request=dict(stop=stop, finish_reason=submitted[len(first) - 1]
+                          .finish_reason,
+                          tokens=len(submitted[len(first) - 1].output_ids)),
+        launches=launches, launches_inside_multi=inside,
+        sample_calls=core.sample_calls, warmup_s=warmup_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    streams = [list(r.output_ids) for r in submitted]
+    del core, sched, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields, streams, launches
+
+
+def phase_serve_multi(dev, cfg, params):
+    """llama3-8b at full width and depth, bf16, seeded, 8 slots of 2,048,
+    over the smoke's BPE tokenizer (so the stop string reads text):
+    ``serve``'s traffic plus one greedy request with a stop string, at
+    ``spec_decode=off`` and K = 2 (``MULTI_SERVE_K``), twice on the loaded
+    weights: ``decode_multistep`` 0, then 8. The stop string is cut from
+    the stop request's own per-step stream, run alone first, where the
+    fewest of its tokens would pause a block. Every request answers 200 and both runs give
+    each request the same tokens and finish reason; host fetches per
+    generated token drop at least 4x; the multi run's multi-step
+    dispatches launch the ragged-paged kernel and ``sample_slots``, and a
+    stop-bearing slot never runs past a suspect token (``_pause_check``).
+    A third, short run (the decoders at 64 tokens, no late prompts) with
+    ``decode_steps_max=32`` and multi-step off must deepen a dispatch past
+    the base K (``decode_depth_<k>``). Then ``profile_multi``: a K 2
+    core's multi-step dispatch of 4 steps beside a per-step one of 2 (8
+    slots at 1,000 tokens), the device operations a step the stop ring
+    and the suspect lookup add. Returns the multi run's launches."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import (Request,
+                                                                 Scheduler)
+    tok = smoke_tokenizer()["tok"]
+    texts = _traffic_texts(tok)
+    seconds = {}
+    t0 = time.perf_counter()
+    probe_core = serving_core(dev, cfg, params, eos_id=tok.eos_id,
+                              spec_decode="off", mixed_phase_dispatch="off",
+                              decode_width_ladder="off")
+    probe = _drive(Scheduler(probe_core, tok), [Request(
+        prompt_ids=tok.encode(STOP_PROMPT, add_bos=True),
+        max_tokens=STOP_TOKENS, temperature=0.0)])[0]
+    del probe_core
+    gc.collect()
+    stop = _pick_stop(tok, probe.output_ids, pauses=False)
+    if stop is None:
+        raise AssertionError("serve_multi: no stop string in the probe")
+    seconds["probe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    off, off_streams, _ = _serve_multi_run(dev, cfg, params, tok, texts,
+                                           stop, 0)
+    seconds["per_step_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on, on_streams, launches = _serve_multi_run(dev, cfg, params, tok,
+                                                texts, stop, MULTI_SERVE_M)
+    seconds["multi_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deep, _, _ = _serve_multi_run(dev, cfg, params, tok, texts, stop, 0,
+                                  steps_max=32, late=False,
+                                  decoder_tokens=64)
+    seconds["depth_run"] = time.perf_counter() - t0
+    faults = []
+    if on_streams != off_streams or on["finish_reasons"] != off[
+            "finish_reasons"]:
+        faults.append("the multi-step run's streams differ from the "
+                      "per-step run's: " + str([a == b for a, b in zip(
+                          on_streams, off_streams)]))
+    if on["multi_dispatches"] < 1 or min(
+            on["launches_inside_multi"].values()) < 1:
+        faults.append("no multi-step dispatch through the kernels")
+    if on["host_fetches_per_token"] > off["host_fetches_per_token"] / 4:
+        faults.append("host fetches per token dropped less than 4x")
+    if not any(n for key, n in deep["dispatches_by_depth"].items()
+               if int(key.rsplit("_", 1)[1]) > MULTI_SERVE_K):
+        faults.append(f"no dispatch deepened past {MULTI_SERVE_K} steps")
+    if faults:
+        raise AssertionError(f"serve_multi: {'; '.join(faults)}: "
+                             f"{off}, {on}, {deep}")
+    t0 = time.perf_counter()
+    core = serving_core(dev, cfg, params, spec_decode="off",
+                        decode_steps_per_dispatch=2, decode_multistep=2)
+    prof = profile_decode(core, steps=2)
+    prof_multi = profile_decode(core, steps=2, multi_m=2)
+    seconds["profile_multi"] = time.perf_counter() - t0
+    del core
+    emit("serve_multi", model="llama3-8b", tokenizer=type(tok).__name__,
+         probe_tokens=len(probe.output_ids), stop=stop,
+         streams_equal=True, per_step=off, multi=on, depth_ladder=deep,
+         fetch_drop=off["host_fetches_per_token"]
+         / on["host_fetches_per_token"],
+         profile_multi=dict(
+             per_step={key: prof[key] for key in (
+                 "steps", "device_ops_per_step", "decode_ms_per_step",
+                 "device_ms_per_step", "device_busy_share")},
+             multi={key: prof_multi[key] for key in (
+                 "steps", "device_ops_per_step", "decode_ms_per_step",
+                 "device_ms_per_step", "device_busy_share")},
+             device_ops_added_per_step=prof_multi["device_ops_per_step"]
+             - prof["device_ops_per_step"]), seconds=seconds)
     return launches
 
 
@@ -5022,7 +5492,7 @@ def phase_serve_ckpt(dev, cfg, params, smi):
 
 
 def profile_decode(core, ctx: int = 1000, steps: int = 8,
-                   spec_width=None, sampling=None, adapters=0):
+                   spec_width=None, sampling=None, adapters=0, multi_m=0):
     """Where a full-batch decode dispatch spends its time: 8 slots at
     ``ctx`` tokens, ``spec_width`` wide steps (a ladder rung; the narrow
     step on a core without speculation), greedy or with ``sampling``
@@ -5030,7 +5500,11 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     device time by kernel class and device operations a step
     (torch.profiler), after the serving run (not part of its counts).
     ``adapters``: slot s takes resident adapter slot s % (adapters + 1),
-    the base model among them (``profile_lora``)."""
+    the base model among them (``profile_lora``). ``multi_m``: one
+    ``decode_multi`` dispatch of ``steps`` x ``multi_m`` steps, every slot
+    carrying a stop string none of its tokens can match (the ring and the
+    suspect lookup run, nothing pauses); the per-step figures are over
+    its steps."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -5043,7 +5517,7 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     items = []
     for s in range(core.batch):
         # budget and pages for the warm-up dispatch and the profiled one
-        budget = max(4, 2 * core.spec_width) * steps
+        budget = max(4, 2 * core.spec_width) * steps * max(1, multi_m)
         pages = alloc.alloc(core.pages_for(ctx + budget))
         table[s, :len(pages)] = pages
         ids = [(s * 31 + i) % 256 for i in range(ctx)]
@@ -5063,14 +5537,22 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     prefill_s = time.perf_counter() - t0
     dev_table = core.put_table(table)
     kw = {} if spec_width is None else {"spec_width": spec_width}
-    state, _ = core.decode(state, dev_table, steps, **kw)      # warm
+
+    def dispatch(state):
+        if multi_m:
+            return core.decode_multi(state, dev_table, steps, multi_m,
+                                     stops=("\x00\x01",))
+        return core.decode(state, dev_table, steps, **kw)
+
+    state, _ = dispatch(state)      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, out = core.decode(state, dev_table, steps, **kw)
+        state, out = dispatch(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps *= max(1, multi_m)
     emitted = int(out["emitted"].sum())
     classes, summed, top = _device_ms_by_class(
         prof, (("ragged_paged_attention", ("ragged_paged",)),
@@ -5120,15 +5602,17 @@ CHAIN_SAMPLING = (0.2, 0, 0.7)     # the chain server's temperature, top_p
 def profile_sampled(dev, cfg, params):
     """A decode dispatch at the chain server's settings beside the same
     dispatch greedy (``profile_decode``: 8 slots at 1,000 tokens, bf16
-    pool) at W = 5: device operations, host wall and device busy share a
-    step. What the top-p path adds to a step. (The narrow pair was cut to
-    keep the smoke's time.)"""
+    pool) at W = 5, 4 steps each: device operations, host wall and device
+    busy share a step. What the top-p path adds to a step. (The narrow
+    pair was cut to keep the smoke's time, and the steps from 8 to 4 when
+    ``serve_multi`` came.)"""
     import torch
     out = {}
     for rung, knobs, width in (("w5", {}, 5),):
         core = serving_core(dev, cfg, params, **knobs)
         for name, smp in (("greedy", None), ("chain", CHAIN_SAMPLING)):
-            prof = profile_decode(core, spec_width=width, sampling=smp)
+            prof = profile_decode(core, steps=4, spec_width=width,
+                                  sampling=smp)
             out[f"{rung}_{name}"] = {key: prof[key] for key in (
                 "spec_width", "sampling", "device_ops_per_step",
                 "decode_ms_per_step", "device_ms_per_step",
@@ -5540,6 +6024,13 @@ PLANTED_FAULTS = (
      "        if (j < p.r) {\n          src = static_cast<const bf16*>",
      "        if (j + 1 < p.r) {\n          src = static_cast<const bf16*>",
      ("lora",)),
+    # the multi-step decode's running mask dropped: a suspect token no
+    # longer pauses its slot (the streams stay equal: the host replay is
+    # the stop truth; the pause check must fail)
+    ("multi_running_dropped", "engine/engine.py",
+     "running = running & ~(has_stop & suspect[ring].any(dim=1))",
+     "running = running | (has_stop & suspect[ring].any(dim=1))",
+     ("parity_multi",)),
 )
 
 _FAULT_PHASES = """
@@ -5548,7 +6039,7 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.CHECK_ONLY = True
 dev = torch.device("cuda")
-if {"parity_lora", "parity_gemma"} & set(sys.argv[1:]):
+if {"parity_lora", "parity_gemma", "parity_multi"} & set(sys.argv[1:]):
     cs.phase_build(gemm_report=False)   # every library at once
 phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention": cs.ragged_cases(dev),
@@ -5559,7 +6050,8 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "w8a16_gemm": cs.gemm_cases(dev),
           "lora": cs.lora_cases(dev),
           "parity_lora": cs.parity_lora_cases(dev),
-          "parity_gemma": cs.parity_gemma_cases(dev)}
+          "parity_gemma": cs.parity_gemma_cases(dev),
+          "parity_multi": cs.parity_multi_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -5795,7 +6287,9 @@ def planted_faults(only=()) -> None:
             pkg = os.path.join(tmp, "generativeaiexamples_tpu_torch")
             shutil.copytree(os.path.join(HERE, "generativeaiexamples_tpu_torch"),
                             pkg, ignore=shutil.ignore_patterns("__pycache__"))
-            path = os.path.join(pkg, "csrc", src)
+            # a kernel source by name, a module of the port by its path
+            path = os.path.join(pkg, src if "/" in src else
+                                os.path.join("csrc", src))
             with open(path) as fh:
                 code = fh.read()
             if code.count(text) != 1:
@@ -5889,6 +6383,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("parity_gemma", phase_parity_gemma, dev)
     torch.cuda.empty_cache()
+    timed("parity_multi", phase_parity_multi, dev)
+    torch.cuda.empty_cache()
     # gemma-7b before llama3-8b's weights are drawn: the two sets would
     # not share the card with serve's pools
     paths["serve_gemma"] = timed("serve_gemma", phase_serve_gemma, dev)
@@ -5910,6 +6406,9 @@ def main() -> int:
                                           core))
         del core
         torch.cuda.empty_cache()
+    paths["serve_multi"] = timed("serve_multi", phase_serve_multi, dev, cfg,
+                                 params)
+    torch.cuda.empty_cache()
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
         paths["serve_prefix" + tag] = timed(
             "serve_prefix" + tag, phase_serve_prefix, dev, cfg, params,

@@ -24,8 +24,6 @@ ENV_PREFIX = "APP"
 # ports them, and the value that means "feature off" (accepted as a no-op)
 NOT_PORTED: Dict[str, tuple] = {
     "role": ("A7 (KV handoff / disaggregated roles)", "unified"),
-    "decode_steps_max": ("A5 (adaptive dispatch depth)", "0"),
-    "decode_multistep": ("A5 (decode_multi)", "0"),
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
     "devtime": ("A6 (device-time ledger)", "off"),
     "qos": ("A6 (QoS plane)", "off"),
@@ -47,6 +45,21 @@ class EngineConfig:
     num_pages: int = 0            # 0 = full slot capacity (+ null page 0)
     prefill_chunk: int = 512
     decode_steps_per_dispatch: int = 8
+    # adaptive upper bound on fused decode steps: when the batch is at
+    # least half full and every active slot has the budget, dispatches
+    # deepen up to this many steps (power of two; 0 = always use
+    # decode_steps_per_dispatch)
+    decode_steps_max: int = 0
+    # multi-step decode with deferred token fetch: ceiling M of the
+    # multiplier ladder (power of two >= 2; 0 = off). Eligible
+    # steady-state dispatches (no grammar, no top logprobs, no speculative
+    # widening pending, no held-back stop match) run
+    # decode_steps_per_dispatch x M plain decode steps in one dispatch
+    # (decode_multi) whose token block the host fetches once; a stop-string
+    # maybe-match over a ring of recent ids pauses a stop-bearing slot on
+    # the device until the host confirms. Streams stay token-identical to
+    # the per-step path. The bare env APP_DECODE_MULTISTEP overrides
+    decode_multistep: int = 0
     prefill_group: int = 8
     dtype: str = "bfloat16"
     # KV pool storage: none (the model dtype) | int8 (per-token-per-head

@@ -25,7 +25,11 @@ on for a CUDA device, off on the CPU; ``on`` runs it on the CPU too). Two
 decode dispatches stay in flight (``APP_ENGINE_PIPELINE_DEPTH``), ramps
 hold decode for up to 16 prefill chunks (``APP_ENGINE_PREFILL_HOLD_CHUNKS``)
 and pure decode dispatches take the narrowest batch-width rung
-(``APP_ENGINE_DECODE_WIDTH_LADDER``). Per-request LoRA adapters are
+(``APP_ENGINE_DECODE_WIDTH_LADDER``). Multi-step decode is off by default:
+``APP_DECODE_MULTISTEP=8`` (or ``APP_ENGINE_DECODE_MULTISTEP``) runs
+eligible fleets K·M steps a dispatch with one fetch, and
+``APP_ENGINE_DECODE_STEPS_MAX=32`` deepens per-step dispatches up to 32
+steps once the batch is half full. Per-request LoRA adapters are
 served once registered (``EngineCore.register_adapter``); loading them
 from ``APP_ENGINE_ADAPTERS`` directories (the reference's orbax
 checkpoints) waits for ROADMAP A.15, and a non-empty value exits with a

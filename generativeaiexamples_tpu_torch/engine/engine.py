@@ -79,9 +79,23 @@ no adapter can be registered. While any adapter tree is resident the
 mixed-phase dispatch is off, as there (``mixed_step`` runs base weights
 only).
 
-Not ported here: ``decode_multi``, KV handoff, tensor parallelism
-(ROADMAP A2, A5, A7, A11). Their config knobs are refused in
-``core/config.py``.
+Multi-step decode (the reference's ``decode_multi``): with
+``decode_multistep`` M set, :meth:`EngineCore.decode_multi` runs K·M plain
+decode steps (K = ``decode_steps_per_dispatch``, M a rung of ``multi_ms``)
+as one dispatch whose packed block the host fetches once. Each step is
+:meth:`EngineCore._step` over the full batch with ``active`` masked by a
+``running`` mask: a slot that draws a token of the stop-suspect table
+(``_stop_suspect``, from ``ops.sampling.stop_suspect_mask``) while it
+carries a stop string is paused for the rest of the dispatch, keeping its
+activation, key counter and length, so it resumes token-identically. The
+reference skips the forward once every slot is done or paused
+(``lax.cond``); here every step runs, since testing the mask would read
+the device back, and a paused or done slot is masked exactly as an
+inactive one. ``warmup`` runs every depth rung up to ``decode_steps_max``
+and every M rung.
+
+Not ported here: KV handoff, tensor parallelism (ROADMAP A2, A7, A11).
+Their config knobs are refused in ``core/config.py``.
 """
 
 from __future__ import annotations
@@ -161,6 +175,39 @@ def spec_ladder(engine_cfg: EngineConfig) -> Tuple[int, Tuple[int, ...]]:
         drafts.add(d)
         d *= 2
     return 1 + dmax, tuple(sorted(1 + d for d in drafts))
+
+
+def multi_ladder(engine_cfg: EngineConfig) -> Tuple[int, ...]:
+    """The multi-step decode's M rungs (2, 4, ..., M) for ``decode_multistep``
+    M, or () when it is 0 or 1 (1 is the per-step path already). The bare
+    env ``APP_DECODE_MULTISTEP`` overrides the field."""
+    raw = (os.environ.get("APP_DECODE_MULTISTEP", "").strip()
+           or str(engine_cfg.decode_multistep or 0))
+    try:
+        mm = int(raw)
+    except ValueError:
+        raise ValueError(f"APP_DECODE_MULTISTEP must be an integer (0 = off, "
+                         f"else a power of two >= 2), got {raw!r}")
+    if mm < 0 or (mm > 1 and mm & (mm - 1)):
+        raise ValueError(f"decode_multistep ({mm}) must be 0 (off) or a "
+                         f"power of two >= 2")
+    rungs, r = [], 2
+    while r <= mm:
+        rungs.append(r)
+        r *= 2
+    return tuple(rungs)
+
+
+def depth_ladder(engine_cfg: EngineConfig) -> Tuple[int, ...]:
+    """The depths a per-step dispatch may take: powers of two from
+    ``decode_steps_per_dispatch`` to ``decode_steps_max`` (0: the base
+    only)."""
+    base = engine_cfg.decode_steps_per_dispatch
+    rungs, k = [], base
+    while k <= max(engine_cfg.decode_steps_max, base):
+        rungs.append(k)
+        k *= 2
+    return tuple(rungs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -410,6 +457,15 @@ class EngineCore:
         if k < 1 or k & (k - 1):
             raise ValueError(
                 f"decode_steps_per_dispatch ({k}) must be a power of two")
+        km = engine_cfg.decode_steps_max
+        if km and (km < k or km & (km - 1)):
+            raise ValueError(
+                f"decode_steps_max ({km}) must be a power of two >= "
+                f"decode_steps_per_dispatch ({k})")
+        # the depth ladder of per-step dispatches, and the M rungs
+        # decode_multi takes (() when off); warmup runs every one
+        self.decode_depths = depth_ladder(engine_cfg)
+        self.multi_ms = multi_ladder(engine_cfg)
         # prompt-lookup speculative decoding: every decode step widens to a
         # rung of the width ladder; spec_width is the ceiling, which sizes
         # the mixed program's q_block and the scheduler's page horizon
@@ -548,6 +604,8 @@ class EngineCore:
         self._tok_bytes8: Optional[torch.Tensor] = None
         self._tok_lens8: Optional[torch.Tensor] = None
         self._tok_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # the multi-step decode's stop-suspect tables, by stop-byte set
+        self._suspect_cache: Dict[frozenset, torch.Tensor] = {}
         # LoRA: a global tree (every row) given here, or the stacked slots
         # register_adapter fills ({target: {"a": (L, N, r, in), "b": (L, N,
         # out, r)}} in the model dtype); the names map to slots, and each
@@ -699,6 +757,7 @@ class EngineCore:
         elif V < tb.shape[0]:
             tb, tl = tb[:V], tl[:V]
         self._tok_host = (tb, tl)
+        self._suspect_cache.clear()    # tables built without the bytes
         self._tok_bytes = self._up(np.ascontiguousarray(tb))
         self._tok_lens = self._up(np.ascontiguousarray(tl))
         self._tok_bytes8, self._tok_lens8 = (
@@ -1199,6 +1258,97 @@ class EngineCore:
         res["first_tokens"] = first
         return state, res
 
+    # ------------------------------------------------------ multi-step decode
+
+    # the ring of recent sampled ids a slot's stop maybe-match reads: 8
+    # tokens cover any practical stop string's first contributing token
+    STOP_RING = 8
+
+    def decode_multi_bucket(self, steps: int, m: int) -> str:
+        """The reference's ledger bucket of a multi-step dispatch: it runs
+        the base K at the full batch and width 1, so (K, M) is its key."""
+        return f"s{steps}m{m}"
+
+    def _stop_suspect(self, stops: Sequence[str]) -> torch.Tensor:
+        """(V+1,) bool device table of the multi-step decode: token id ->
+        may it contribute to a match of one of ``stops``
+        (``ops.sampling.stop_suspect_mask`` over the byte table). The last
+        entry is the ring's padding id and is never suspect. Without the
+        byte table (``ensure_token_bytes`` not yet called) every real
+        token is suspect, so stop-bearing slots gain no depth. Cached per
+        stop-byte set, at most 64 sets."""
+        stop_bytes = frozenset(b for s in stops for b in s.encode("utf-8"))
+        hit = self._suspect_cache.get(stop_bytes)
+        if hit is not None:
+            return hit
+        V = self.model_cfg.vocab_size
+        if not stop_bytes:
+            mask = np.zeros((V,), np.bool_)
+        elif self._tok_host is None:
+            mask = np.ones((V,), np.bool_)
+        else:
+            mask = sampling.stop_suspect_mask(*self._tok_host, stop_bytes)
+        table = self._up(np.concatenate([mask, np.zeros((1,), np.bool_)]))
+        if len(self._suspect_cache) >= 64:
+            self._suspect_cache.clear()
+        self._suspect_cache[stop_bytes] = table
+        return table
+
+    @torch.no_grad()
+    def decode_multi(self, state: DecodeState, page_table: torch.Tensor,
+                     steps: Optional[int] = None, m: Optional[int] = None, *,
+                     stops: Sequence[str] = (), has_stop=None,
+                     between_steps: Optional[Callable[[], None]] = None
+                     ) -> Tuple[DecodeState, Dict[str, Any]]:
+        """``steps``·``m`` narrow decode steps over the full batch as one
+        dispatch with one packed block (``_decode_multi_impl`` there): the
+        scheduler's eligibility test keeps grammared, top-logprob and
+        widened slots out. ``m`` must be a rung of ``multi_ms`` (default
+        the top one) and ``steps`` the base K. ``stops``: the union of the
+        live slots' stop strings (the suspect table); ``has_stop`` (B,)
+        bool: the slots that carry one, the only ones a suspect token
+        pauses. A paused slot is masked like an inactive one for the rest
+        of the dispatch and keeps its activation; done slots end as in
+        :meth:`decode`. Out arrays are (steps·m, B), :meth:`decode`'s
+        layout; ``between_steps`` as there. Adapter rows ride each step
+        through ``_lora``."""
+        if not self.multi_ms:
+            raise ValueError("multi-step decode is off "
+                             "(APP_DECODE_MULTISTEP=0)")
+        m = m or self.multi_ms[-1]
+        if m not in self.multi_ms:
+            raise ValueError(f"multistep m {m} is not a ladder rung "
+                             f"{self.multi_ms}")
+        base = self.cfg.decode_steps_per_dispatch
+        steps = steps or base
+        if steps != base:
+            raise ValueError(f"multi-step dispatches run the base K "
+                             f"({base}), got steps={steps}")
+        suspect = self._stop_suspect(tuple(stops))
+        B, dev = self.batch, self.device
+        has_stop = self._up(np.zeros((B,), np.bool_) if has_stop is None
+                            else np.asarray(has_stop, np.bool_))
+        running = torch.ones((B,), dtype=torch.bool, device=dev)
+        ring = torch.full((B, self.STOP_RING), suspect.shape[0] - 1,
+                          dtype=torch.int64, device=dev)
+        outs = []
+        for _ in range(steps * m):
+            active = state.active
+            state.active = active & running
+            out = self._step(state, page_table)
+            # a paused (not done) slot keeps its activation: it resumes on
+            # the next dispatch with the same token, counter and length
+            state.active = torch.where(running, state.active, active)
+            ring = torch.where(out["emitted"][0][:, None],
+                               torch.cat([ring[:, 1:],
+                                          out["sampled"][0][:, None].long()],
+                                         dim=1), ring)
+            running = running & ~(has_stop & suspect[ring].any(dim=1))
+            outs.append(out)
+            if between_steps is not None:
+                between_steps()
+        return state, self._pack(outs)
+
     @torch.no_grad()
     def activate(self, state: DecodeState, slot: int, token: int,
                  generated: int, max_gen: int, temperature: float, top_k: int,
@@ -1393,9 +1543,10 @@ class EngineCore:
         traffic, as the reference's ``warmup`` compiles its grid: every
         grouped-prefill bucket (sampled fused first tokens, so the sampling
         kernel runs too), every decode program (each rung of the batch
-        width ladder times each speculative rung, at
-        ``decode_steps_per_dispatch`` steps, with sampled slots), and every
-        mixed group bucket. With ``tokenizer`` the constrained variants
+        width ladder times each speculative rung, at every depth from
+        ``decode_steps_per_dispatch`` to ``decode_steps_max``, with sampled
+        slots), every multi-step rung of ``multi_ms`` (at the base depth),
+        and every mixed group bucket. With ``tokenizer`` the constrained variants
         run too, as the reference's: the byte table is built, a tiny
         grammar registered, and one grouped prefill, one decode at the
         ceiling width and the full batch (where the scheduler pins
@@ -1431,10 +1582,13 @@ class EngineCore:
 
         for g in self.group_buckets:
             state, _ = self.prefill_group(state, items(g, lambda i: True))
-        for wi in self.spec_widths:
-            for bw in self.decode_widths:
-                state, _ = self.decode(state, table, steps, spec_width=wi,
-                                       width=bw)
+        for depth in self.decode_depths:
+            for wi in self.spec_widths:
+                for bw in self.decode_widths:
+                    state, _ = self.decode(state, table, depth,
+                                           spec_width=wi, width=bw)
+        for mi in self.multi_ms:       # at the base K only
+            state, _ = self.decode_multi(state, table, m=mi)
         if self.mixed_supported:
             for g in self.group_buckets:
                 state, _ = self.decode_mixed(

@@ -59,10 +59,22 @@ prefix cache's chain seed ``"{epoch}|{adapter}"`` keeps each adapter's
 pages apart, and an adapter'd job never rides a mixed dispatch (the
 engine turns that dispatch off while adapters are resident).
 
+The dispatch depth and the multi-step plan, as there: with
+``decode_steps_max`` a pure decode dispatch deepens past
+``decode_steps_per_dispatch`` while the batch is at least half full and
+every slot's remaining budget covers the deeper depth (``_steps``). With
+``decode_multistep`` an eligible fleet (``_multi_plan``: no grammar, no
+top logprobs, no held-back stop text, no speculative widening pending)
+runs K·M steps in one ``decode_multi`` dispatch, M the largest rung whose
+K·M fits every slot's remaining budget, halved under page pressure; the
+host fetches its block once and replays it through the same path, where
+the stop strings stay the truth. With the ladder on, no dispatch is
+issued once the steps in flight cover every slot's remaining budget.
+
 Not ported (their Request fields raise): KV handoff (ROADMAP A7); nor
-spill/tier, QoS, SLO, metrics and flight planes and
-the multi-step plan (A5, A6). Dispatch, speculation, prefix-cache,
-admission and pipelining counters live in ``Scheduler.stats``.
+spill/tier, QoS, SLO, metrics and flight planes (A6). Dispatch,
+speculation, prefix-cache, admission, pipelining and fetch counters live
+in ``Scheduler.stats``.
 """
 
 from __future__ import annotations
@@ -280,6 +292,14 @@ class Scheduler:
                       "inflight_peak": 0,
                       # first tokens streamed between a dispatch's steps
                       "first_mid_dispatch": 0,
+                      # results copied to the host (decode blocks and
+                      # first-token snapshots: the reference's
+                      # engine_host_fetches_total), multi-step dispatches
+                      # in all and per M rung, per-step dispatches per
+                      # depth rung
+                      "host_fetches": 0, "multi_dispatches": 0,
+                      **{f"multi_m_{m}": 0 for m in core.multi_ms},
+                      **{f"decode_depth_{k}": 0 for k in core.decode_depths},
                       **{f"decode_width_{w}": 0
                          for w in self._decode_widths}}
 
@@ -1000,6 +1020,56 @@ class Scheduler:
             metas.append((job, last))
         return items, metas
 
+    @property
+    def _steps(self) -> int:
+        """Decode steps of a per-step dispatch: ``decode_steps_per_dispatch``,
+        deepened by powers of two up to ``decode_steps_max`` while the batch
+        is at least half full and every slot's remaining budget, net of
+        the positions in flight, covers the deeper depth (so deepening
+        never wastes a request's last steps)."""
+        base = max(1, self.core.cfg.decode_steps_per_dispatch)
+        cap = self.core.cfg.decode_steps_max or base
+        if cap <= base or len(self._slots) < self.core.batch // 2:
+            return base
+        rem = (min(j.request.max_tokens - len(j.gen_ids)
+                   for j in self._slots.values())
+               - self._pending_steps) // self._spec_w
+        steps = base
+        while steps * 2 <= min(cap, rem):
+            steps *= 2
+        return steps
+
+    def _multi_plan(self) -> int:
+        """M of this dispatch (0: the per-step path). A fleet is eligible
+        when the core has a multi-step ladder and every live slot is plain
+        steady-state decode: no grammar, no top logprobs, no held-back
+        stop text (a stop is near: the per-step path ends it), and no
+        speculative widening pending (speculation off, or the adaptive
+        controller gives every slot no drafts). The largest rung whose K·M
+        fits every slot's remaining budget, net of the positions in
+        flight, is taken."""
+        ms = self.core.multi_ms
+        if not ms or not self._slots:
+            return 0
+        for j in self._slots.values():
+            if j.gram_on or j.stop_buf:
+                return 0
+            if j.request.logprobs and j.request.top_logprobs > 0:
+                return 0
+        if self._spec_w > 1:
+            if len(self._spec_widths) <= 1:
+                return 0   # a static width always widens
+            if any(self._choose_draft(j) > 0 for j in self._slots.values()):
+                return 0
+        base = max(1, self.core.cfg.decode_steps_per_dispatch)
+        rem = min(j.request.max_tokens - len(j.gen_ids)
+                  for j in self._slots.values()) - self._pending_steps
+        m = 0
+        for rung in ms:
+            if base * rung <= max(rem, 0):
+                m = rung
+        return m
+
     def _decode_width(self) -> int:
         """Batch-width rung of a pure decode dispatch: the smallest one
         covering the highest live slot (slots are allocated lowest id
@@ -1018,8 +1088,29 @@ class Scheduler:
         snapshotted with it, so their first token resolves from its step-0
         inputs."""
         w_plan, _ = self._spec_plan()
-        steps = self._grow_pages(self.core.cfg.decode_steps_per_dispatch,
-                                 w_plan)
+        if not try_mixed and self._slots and self.core.multi_ms:
+            # the tail kill: once the steps in flight cover every live
+            # slot's remaining budget, another dispatch could only make
+            # rows the host drops (a preemption voids them and dispatch
+            # resumes); only with the ladder on, so the cadence with the
+            # feature off is unchanged
+            if (max(j.request.max_tokens - len(j.gen_ids)
+                    for j in self._slots.values()) <= self._pending_steps):
+                return
+        multi_m = 0 if try_mixed else self._multi_plan()
+        if multi_m:
+            # page pressure halves M until the grown horizon covers the
+            # block; below 2 the dispatch is an ordinary per-step one
+            base = max(1, self.core.cfg.decode_steps_per_dispatch)
+            grown = self._grow_pages(base * multi_m, 1)
+            while multi_m >= 2 and base * multi_m > grown:
+                multi_m //= 2
+            if multi_m < 2:
+                multi_m = 0
+            steps = base if multi_m else self._grow_pages(self._steps,
+                                                          w_plan)
+        else:
+            steps = self._grow_pages(self._steps, w_plan)
         if not self._slots:
             return
         packed = self._pack_mixed_chunks() if try_mixed else None
@@ -1055,6 +1146,27 @@ class Scheduler:
                 between_steps=between_steps)
             self.stats["mixed_dispatches"] += 1
             self.stats["prefill_chunks"] += len(items)
+        elif multi_m:
+            # K·M plain steps at width 1 over the full batch, one block to
+            # fetch. The union of the live stop strings builds the suspect
+            # table, and has_stop marks the slots it may pause; the host
+            # replay below stays the stop truth
+            w_disp = 1
+            stop_set = sorted({s for j in self._slots.values()
+                               for s in j.request.stop})
+            has_stop = np.zeros((self.core.batch,), np.bool_)
+            for slot, j in self._slots.items():
+                if j.request.stop:
+                    has_stop[slot] = True
+            if stop_set:
+                self.core.ensure_token_bytes(self.tokenizer)
+            self._state, out = self.core.decode_multi(
+                self._state, table, steps, multi_m, stops=tuple(stop_set),
+                has_stop=has_stop, between_steps=between_steps)
+            self.stats["multi_dispatches"] += 1
+            self.stats[f"multi_m_{multi_m}"] += 1
+            self.stats[f"decode_width_{self.core.batch}"] += 1
+            steps *= multi_m
         else:
             if use_grammar or want_top:
                 # these variants run at the ceiling width and the full
@@ -1071,11 +1183,15 @@ class Scheduler:
             self._state, out = self.core.decode(
                 self._state, table, steps, use_grammar, want_top, **kw)
             self.stats[f"decode_width_{width}"] += 1
+        if not multi_m:
+            key = f"decode_depth_{steps}"
+            self.stats[key] = self.stats.get(key, 0) + 1
         if self._inflight:
             self.stats["overlapped_dispatches"] += 1
         self._inflight.append(_Dispatch(HostCopy(out["packed"]), fresh,
                                         active_map, steps * w_disp, w_disp))
         self._pending_steps += steps * w_disp
+        self.stats["host_fetches"] += 1
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += steps
         if w_disp > 1:
@@ -1147,6 +1263,7 @@ class Scheduler:
             j.first_batched = True
         self._first_fetches.append((self.core.snapshot_tokens(self._state),
                                     waiting))
+        self.stats["host_fetches"] += 1
 
     def _resolve_first_fetches(self, defer: Optional[List[tuple]] = None
                                ) -> bool:

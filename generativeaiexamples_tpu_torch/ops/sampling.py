@@ -35,12 +35,16 @@ which the kernel leaves unwritten and the plain version fills with ones.
 ``grammar`` advances each active, constrained slot's DFA state over the
 token it drew at w = 0 (:func:`grammar_advance_plain`), in the same
 launch on the card.
+
+:func:`stop_suspect_mask` is the multi-step decode's host table of tokens
+that may contribute to a stop-string match (numpy, one per stop set).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.ops import threefry
@@ -247,6 +251,25 @@ def mask_byte_table(tok_bytes, tok_lens) -> Tuple[torch.Tensor,
         raise ValueError(f"mask_byte_table: a length outside -1.."
                          f"{tb.shape[1]}")
     return (tb.to(torch.uint8).contiguous(), tl.to(torch.int8).contiguous())
+
+
+def stop_suspect_mask(tok_bytes, tok_lens, stop_bytes) -> np.ndarray:
+    """(V,) bool host table of the multi-step decode's on-device stop
+    maybe-match (the reference's ``stop_suspect_mask``): token ``t`` is
+    suspect iff one of its bytes is a byte value of some active stop
+    string. Any token that contributes a byte to a match shares that byte,
+    so the first contributing token of every possible match is flagged;
+    a token that shares a byte without matching only pauses its slot
+    early. ``tok_bytes``/``tok_lens`` are the engine's (V, L)/(V,) byte
+    table (``EngineCore.ensure_token_bytes``), ``stop_bytes`` a set of
+    byte values 0..255. Numpy only."""
+    tb = np.asarray(tok_bytes)
+    tl = np.asarray(tok_lens)
+    if not stop_bytes:
+        return np.zeros((tb.shape[0],), np.bool_)
+    member = np.isin(tb, np.fromiter(stop_bytes, np.int32, len(stop_bytes)))
+    valid = np.arange(tb.shape[1])[None, :] < tl[:, None]
+    return np.asarray((member & valid).any(axis=1), np.bool_)
 
 
 def grammar_mask(gram_state: torch.Tensor, budget_left: torch.Tensor,

@@ -306,8 +306,11 @@ def test_spec_knobs_load_from_the_environment(monkeypatch):
     eng = load_config().engine
     assert (eng.spec_decode, eng.spec_draft, eng.mixed_phase_dispatch) == (
         "off", 3, "on")
+    # multi-step decode is ported; the KV handoff's role is not
     monkeypatch.setenv("APP_ENGINE_DECODE_MULTISTEP", "2")
-    with pytest.raises(NotImplementedError, match="A5"):
+    assert load_config().engine.decode_multistep == 2
+    monkeypatch.setenv("APP_ENGINE_ROLE", "prefill")
+    with pytest.raises(NotImplementedError, match="A7"):
         load_config()
     with pytest.raises(ValueError, match="spec_decode"):
         _core_cfg = EngineConfig(spec_decode="maybe")
