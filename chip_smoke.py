@@ -122,6 +122,14 @@ prints no result:
               slot emits nothing after its first suspect token in a block
               (``_pause_check``), and the attention kernel and
               ``sample_slots`` launch inside the multi-step dispatches;
+              then ``parity_disagg``: the KV handoff at llama3-8b width, 2
+              layers, f32, by hand-driven schedulers: a 14-page and a 2-page
+              prompt, greedy and seeded, prefilled by a ``role=prefill``
+              scheduler, their pages imported into a throwaway pool in
+              reverse order and exported again bit for bit, then imported
+              by a ``role=decode`` one whose streams equal its own unified
+              ones; and a seeded stream evacuated once 8 tokens came and
+              resumed on a peer, equal to the unevacuated one;
   8b. serve_gemma  gemma-7b at full width and depth (28 layers, 8.5 B
               parameters, bf16, seeded) behind the HTTP server with the
               reference's defaults: ``serve``'s traffic, then one
@@ -143,6 +151,24 @@ prints no result:
               (``profile_mixed``);
  10. serve_int8  the same over an int8 KV pool (the int8 instance), without
               the two profiles (cut to keep the smoke's time);
+ 10c. serve_disagg  (after serve_multi) llama3-8b at full width and depth,
+              bf16, workers behind the stdlib server sharing the weights,
+              each with its own pool of 8 x 2,048, rows independent of
+              timing: ``serve``'s traffic (96 tokens) and a json_object
+              chat unified on a ``role=decode`` worker, then through a
+              ``role=prefill`` worker's ``/v1/kv/prefill`` (frames) and the
+              decode worker's ``/v1/kv/handoff``, streams equal, the
+              prefill worker with no decode dispatch and no
+              ``ragged_paged_attention`` launch, the decode worker with no
+              ``flash_prefill`` launch for them (and over an int8 pool); a
+              seeded stream pulled through ``GET /v1/kv/evacuation/<rid>``
+              (per-step, and with ``decode_multistep=8`` blocks in flight)
+              and resumed on a peer, equal; the decoders into 36 pages
+              with the spill pool armed: a spill resume, no prefill for the
+              promoted job, equal streams; each request's frame bytes and
+              export, encode, decode and import ms, the longest prompt's
+              gather and scatter against 3.35 TB/s and its TTFT through the
+              handoff against unified;
  10b. serve_multi  llama3-8b over the smoke's BPE tokenizer, speculation
               off, K = 2: ``serve``'s traffic plus one request with a stop
               string, in a fixed order, with ``decode_multistep`` 0 and
@@ -294,7 +320,11 @@ shrink and expand device time, for the tree as it is and for each of
 a time, in a temporary copy). ``--planted-faults
 multi_running_dropped`` drops the multi-step decode's running mask in
 ``engine/engine.py`` (a suspect token no longer pauses its slot): the
-streams stay equal and ``parity_multi``'s pause check must fail. Each main
+streams stay equal and ``parity_multi``'s pause check must fail;
+``import_pages_swapped`` (an import that swaps a slot's first two pages,
+``engine/kv_cache.py``) and ``evac_position_dropped`` (a snapshot that
+drops the seed's position, ``engine/scheduler.py``) must fail
+``parity_disagg``. Each main
 path (8b to 16) sets the launch counts to 0 just before it and reads
 them just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -4462,6 +4492,849 @@ def phase_serve_multi(dev, cfg, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# KV movement: the prefill/decode handoff, evacuation and spill
+# ---------------------------------------------------------------------------
+
+# serve_disagg's traffic: serve's decoders at 96 tokens (wave 1), then
+# serve's two late prompts and one json_object chat (wave 2); the spill run
+# re-sends wave 1 into a pool of DISAGG_PAGES pages, where decode growth
+# preempts
+DISAGG_TOKENS = 96
+DISAGG_PAGES = 36
+DISAGG_SPILL_MB = 4096
+EVAC_TEXT = PROMPT_TEXT * 4
+EVAC_TOKENS = 96
+EVAC_PULL_TOKENS = 16  # the pull comes once this many tokens were made
+
+
+def _disagg_traffic(json_request=True):
+    """(wave 1, wave 2) of (i, text, tokens, chat, sampling): serve's
+    decoders (temperature 0.7 seeded for even i, greedy for odd), then its
+    late prompts and, with ``json_request``, one json_object chat."""
+    first = [(i, PROMPT_TEXT * n, DISAGG_TOKENS, i % 2 == 0,
+              dict(temperature=0.7 if i % 2 == 0 else 0.0))
+             for i, n in enumerate(DECODERS)]
+    second = [(4 + i, PROMPT_TEXT * LATE_PROMPT, 32, i == 0,
+               dict(temperature=0.0)) for i in range(2)]
+    if json_request:
+        second.append((6, JSON_PROMPT, 48, True, dict(
+            temperature=0.0, response_format={"type": "json_object"})))
+    return first, second
+
+
+class _Worker:
+    """One scheduler behind the stdlib HTTP server in a thread, its
+    admission gated (``_gate_admission``) and every request it is given
+    recorded (``submit`` and ``submit_prefilled``)."""
+
+    def __init__(self, core, tok):
+        from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+        from generativeaiexamples_tpu_torch.engine.server import (
+            serve_in_thread)
+        self.core = core
+        self.sched = sched = Scheduler(core, tok)
+        self.submitted = []
+        for name in ("submit", "submit_prefilled"):
+            fn = getattr(sched, name)
+
+            def recording(req, *args, _fn=fn):
+                out = _fn(req, *args)
+                self.submitted.append(req)
+                return out
+            setattr(sched, name, recording)
+        self.gate = _gate_admission(sched)
+        self.httpd, self.thread = serve_in_thread(sched, "llama3-8b-random")
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.sched.stop()
+        self.thread.join(timeout=30)
+
+
+def _post(url, body, headers, timeout=600):
+    """POST ``body`` (bytes); (status, headers, raw reply)."""
+    req = urllib.request.Request(url, data=body, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers, exc.read()
+
+
+def _kv_prefill_post(base, i, text, max_tokens, chat, temperature=0.0,
+                     response_format=None):
+    """``/v1/kv/prefill`` for the i-th request (seed i) with the frame
+    Accept: (status, frame, client seconds)."""
+    from generativeaiexamples_tpu_torch.core import kv_wire
+    body = {"max_tokens": max_tokens, "temperature": temperature, "seed": i}
+    if response_format is not None:
+        body["response_format"] = response_format
+    if chat:
+        body["messages"] = [{"role": "user", "content": text}]
+    else:
+        body["prompt"] = text
+    t0 = time.perf_counter()
+    status, headers, frame = _post(
+        base + "/v1/kv/prefill", json.dumps(body).encode(),
+        {"Content-Type": "application/json",
+         "Accept": kv_wire.KV_FRAMES_CONTENT_TYPE})
+    if status != 200 or headers.get("Content-Type") != \
+            kv_wire.KV_FRAMES_CONTENT_TYPE:
+        raise AssertionError(f"/v1/kv/prefill {i}: {status} {frame[:300]}")
+    return frame, time.perf_counter() - t0
+
+
+def _sse_read(resp, on_content=None):
+    """The content of an SSE chat stream, its last finish reason and the
+    seconds to its first content (``on_content(text so far)`` after each
+    content chunk)."""
+    t0 = time.perf_counter()
+    parts, finish, first = [], None, None
+    for line in resp:
+        line = line.decode().strip()
+        if not line.startswith("data: ") or line == "data: [DONE]":
+            continue
+        chunk = json.loads(line[len("data: "):])
+        if chunk.get("error"):
+            raise AssertionError(f"stream error: {chunk['error']}")
+        choice = chunk["choices"][0]
+        content = choice["delta"].get("content")
+        if content:
+            if first is None:
+                first = time.perf_counter() - t0
+            parts.append(content)
+            if on_content is not None:
+                on_content("".join(parts))
+        finish = choice.get("finish_reason") or finish
+    return "".join(parts), finish, first
+
+
+def _kv_handoff_post(base, frame, resume_chars=None):
+    """POST a frame to ``/v1/kv/handoff``: (text, finish reason, seconds
+    to the first content, seconds in all)."""
+    from generativeaiexamples_tpu_torch.core import kv_wire
+    headers = {"Content-Type": kv_wire.KV_FRAMES_CONTENT_TYPE}
+    if resume_chars is not None:
+        headers["X-Resume-Chars"] = str(resume_chars)
+    req = urllib.request.Request(base + "/v1/kv/handoff", data=frame,
+                                 headers=headers)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        text, finish, first = _sse_read(resp)
+    return text, finish, first, time.perf_counter() - t0
+
+
+def _wave(pool, worker, specs, send):
+    """Post ``specs`` in their order, each once the one before arrived,
+    and admit them together: the same grouped prefill in every run."""
+    worker.gate.clear()
+    futs = []
+    for spec in specs:
+        n = len(worker.submitted)
+        futs.append(pool.submit(send, spec))
+        _wait_for(lambda: len(worker.submitted) > n,
+                  "a request did not arrive")
+    worker.gate.set()
+    worker.sched._wake.set()
+    return futs
+
+
+def _disagg_core(dev, cfg, params, role, kv_quant="none", **knobs):
+    """A serve_disagg engine: 8 slots of 2,048 over its own pool, rows
+    independent of timing (speculation, the mixed dispatch, the width
+    ladder and the prefix cache off), the role given."""
+    return serving_core(dev, cfg, params, kv_quant, role=role,
+                        spec_decode="off", mixed_phase_dispatch="off",
+                        decode_width_ladder="off", prefix_cache="off",
+                        **knobs)
+
+
+def _launch_window(k):
+    """Launch counts since the last reset, then reset."""
+    got = k.launch_counts()
+    k.reset_launch_counts()
+    return got
+
+
+def _add_launches(total, got):
+    for key, n in got.items():
+        total[key] = total.get(key, 0) + n
+
+
+def _handoff_case(dev, cfg, params, tok, kv_quant, total):
+    """Case 1: the traffic unified on a decode worker, then prefilled on a
+    prefill worker (frames) and handed to the decode worker. Returns
+    (readings, the unified requests by prompt, the workers)."""
+    from generativeaiexamples_tpu_torch.core import kv_wire
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    decode_key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                  else "ragged_paged_attention")
+    json_request = kv_quant == "none"
+    first, second = _disagg_traffic(json_request)
+    pre = _Worker(_disagg_core(dev, cfg, params, "prefill", kv_quant), tok)
+    dec = _Worker(_disagg_core(dev, cfg, params, "decode", kv_quant), tok)
+    try:
+        def unified(spec):
+            i, text, tokens, chat, kw = spec
+            return _request(dec.base, i, text, tokens, chat, False, **kw)
+
+        k.reset_launch_counts()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = _wave(pool, dec, first, unified)
+            _wait_for(lambda: dec.sched.stats["decode_dispatches"] >= 1,
+                      "no decode dispatch")
+            futs += _wave(pool, dec, second, unified)
+            uni_results = [f.result() for f in futs]
+        uni_launches = _launch_window(k)
+        _add_launches(total, uni_launches)
+        uni_reqs = list(dec.submitted)
+
+        # the prefill worker: the same waves through /v1/kv/prefill
+        def prefill(spec):
+            i, text, tokens, chat, kw = spec
+            return _kv_prefill_post(pre.base, i, text, tokens, chat, **kw)
+
+        # each request's journey, keyed by its length in tokens: frame
+        # bytes and host seconds of the codec, device-synchronized seconds
+        # of the export and the import
+        log = {}
+        encode, decode = kv_wire.encode_for_wire, kv_wire.decode_kv_frames
+        export, imp = pre.core.export_slot_kv, dec.core.import_slot_kv
+
+        def note(length, **fields):
+            log.setdefault(int(length), {}).update(fields)
+
+        def timed_encode(payload, binary):
+            t0 = time.perf_counter()
+            out = encode(payload, binary)
+            note(payload["length"], frame_bytes=len(out[0]),
+                 encode_s=time.perf_counter() - t0)
+            return out
+
+        def timed_decode(body, *a, **kw):
+            t0 = time.perf_counter()
+            out = decode(body, *a, **kw)
+            note(out["length"], decode_s=time.perf_counter() - t0)
+            return out
+
+        def synced(fn, key, length):
+            def run(*a, **kw):
+                import torch
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                note(length(a, out), **{key: time.perf_counter() - t0})
+                return out
+            return run
+
+        kv_wire.encode_for_wire = timed_encode
+        kv_wire.decode_kv_frames = timed_decode
+        pre.core.export_slot_kv = synced(export, "export_s",
+                                         lambda a, out: out["length"])
+        dec.core.import_slot_kv = synced(imp, "import_s",
+                                         lambda a, out: a[3]["length"])
+        try:
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                futs = _wave(pool, pre, first, prefill)
+                frames = [f.result() for f in futs]
+                futs = _wave(pool, pre, second, prefill)
+                frames += [f.result() for f in futs]
+            pre_launches = _launch_window(k)
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                handed = [f.result() for f in [
+                    pool.submit(_kv_handoff_post, dec.base, frame)
+                    for frame, _ in frames]]
+            dec_launches = _launch_window(k)
+        finally:
+            kv_wire.encode_for_wire, kv_wire.decode_kv_frames = encode, decode
+            pre.core.export_slot_kv = export
+            dec.core.import_slot_kv = imp
+        _add_launches(total, pre_launches)
+        _add_launches(total, dec_launches)
+        handoff_reqs = dec.submitted[len(uni_reqs):]
+        faults = []
+        if pre.sched.stats["decode_dispatches"] or pre_launches[decode_key]:
+            faults.append(f"the prefill worker decoded: "
+                          f"{pre.sched.stats['decode_dispatches']} "
+                          f"dispatches, {pre_launches[decode_key]} "
+                          f"{decode_key} launches")
+        if dec_launches["flash_prefill"]:
+            faults.append(f"the decode worker ran flash_prefill "
+                          f"{dec_launches['flash_prefill']} times for "
+                          f"handed-off requests")
+        for name, got in (("prefill worker", pre_launches),
+                          ("decode worker", dec_launches)):
+            need = ["sample_slots"] + (["grammar_mask"] if json_request
+                                       else [])
+            need.append("flash_prefill" if name == "prefill worker"
+                        else decode_key)
+            faults += [f"the {name} never launched {n}" for n in need
+                       if got[n] < 1]
+        by_prompt = {tuple(r.prompt_ids): r for r in uni_reqs}
+        equal = []
+        for r in handoff_reqs:
+            u = by_prompt.get(tuple(r.prompt_ids))
+            equal.append(u is not None and u.output_ids == r.output_ids
+                         and u.finish_reason == r.finish_reason)
+        if len(handoff_reqs) != len(uni_reqs) or not all(equal):
+            faults.append(f"handed-off streams differ from the unified "
+                          f"ones: {equal}")
+        if any(r.error for r in uni_reqs + handoff_reqs) or any(
+                r["status"] != 200 for r in uni_results):
+            faults.append("a request failed")
+        if json_request:
+            attached = [r.grammar_attached for r in handoff_reqs
+                        if r.grammar is not None]
+            if attached != [True]:
+                faults.append(f"the json_object handoff's grammar "
+                              f"attached {attached}")
+        if faults:
+            raise AssertionError(f"serve_disagg handoff ({kv_quant}): "
+                                 f"{'; '.join(faults)}")
+
+        per_request = []
+        for length, got in sorted(log.items()):
+            row = {"tokens": length, "frame_bytes": got["frame_bytes"]}
+            for step in ("export", "encode", "decode", "import"):
+                sec = got[f"{step}_s"]
+                row[f"{step}_ms"] = sec * 1e3
+                row[f"{step}_gb_s"] = got["frame_bytes"] / sec / 1e9
+            per_request.append(row)
+        readings = dict(
+            kv_quant=kv_quant, requests=len(handoff_reqs),
+            streams_equal=True,
+            completion_tokens=[len(r.output_ids) for r in handoff_reqs],
+            prefill_client_s=[s for _, s in frames],
+            per_request=per_request,
+            note=("export and import ms: the engine call between two "
+                  "torch.cuda.synchronize (device work and the upload); "
+                  "encode and decode ms: the wire codec on the host"),
+            launches_unified=uni_launches, launches_prefill=pre_launches,
+            launches_handoff=dec_launches,
+            prefill_worker=dict(
+                decode_dispatches=pre.sched.stats["decode_dispatches"],
+                prefill_dispatches=pre.sched.stats["prefill_dispatches"],
+                kv_handoff_exports=pre.sched.stats["kv_handoff_exports"]),
+            decode_worker=dict(
+                kv_handoff_imports=dec.sched.stats["kv_handoff_imports"],
+                prefill_dispatches=dec.sched.stats["prefill_dispatches"]))
+        return readings, by_prompt, pre, dec
+    except BaseException:
+        pre.close()
+        dec.close()
+        raise
+
+
+def _pull_case(src, peer, oracle, name, total):
+    """Case 2: stream EVAC_TEXT from ``src``; once the request has
+    generated EVAC_PULL_TOKENS tokens, pull it through
+    ``/v1/kv/evacuation/<rid>`` (from another thread: random weights
+    under the byte tokenizer stream few characters), and resume the frame
+    on ``peer`` with ``X-Resume-Chars`` the characters the client got: the
+    joined text and the resumed request's ids must equal ``oracle``'s."""
+    from generativeaiexamples_tpu_torch.core import kv_wire
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    at_evac = []
+    evacuate = src.sched._do_evacuate
+
+    def recording(rids, reason):
+        at_evac.append([d.positions for d in src.sched._inflight])
+        return evacuate(rids, reason)
+
+    src.sched._do_evacuate = recording
+    body = {"messages": [{"role": "user", "content": EVAC_TEXT}],
+            "max_tokens": EVAC_TOKENS, "temperature": 0.7, "seed": 7,
+            "stream": True}
+    pulled = {}
+    n0 = len(src.submitted)
+
+    def pull():
+        _wait_for(lambda: len(src.submitted) > n0, "the request to arrive")
+        req = src.submitted[n0]
+        _wait_for(lambda: req.completion_tokens >= EVAC_PULL_TOKENS
+                  or req.finished_at is not None, "tokens to pull at")
+        at = req.completion_tokens
+        t0 = time.perf_counter()
+        status, _, frame = _get(
+            src.base + f"/v1/kv/evacuation/{req.request_id}",
+            {"Accept": kv_wire.KV_FRAMES_CONTENT_TYPE})
+        pulled.update(frame=frame, status=status, rid=req.request_id,
+                      pull_s=time.perf_counter() - t0, at_tokens=at)
+
+    k.reset_launch_counts()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            puller = pool.submit(pull)
+            req = urllib.request.Request(
+                src.base + "/v1/chat/completions",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                pre, finish, _ = _sse_read(resp)
+            puller.result()
+    finally:
+        src.sched._do_evacuate = evacuate
+    rid = pulled["rid"]
+    again, _, _ = _get(src.base + f"/v1/kv/evacuation/{rid}", {})
+    faults = []
+    if pulled.get("status") != 200:
+        faults.append(f"the pull answered {pulled.get('status')}")
+    if finish != "evacuated":
+        faults.append(f"the pulled stream ended {finish!r}")
+    if again != 404:
+        faults.append(f"a second pull answered {again}")
+    if faults:
+        raise AssertionError(f"{name}: {'; '.join(faults)}")
+    n_peer = len(peer.submitted)
+    rest, rfinish, _, resume_s = _kv_handoff_post(peer.base, pulled["frame"],
+                                                  resume_chars=len(pre))
+    launches = _launch_window(k)
+    _add_launches(total, launches)
+    resumed = peer.submitted[n_peer]
+    joined_equal = pre + rest == oracle["text"]
+    ids_equal = resumed.output_ids == oracle["ids"]
+    if not (joined_equal and ids_equal) or resumed.snapshot_resumes != 1:
+        raise AssertionError(
+            f"{name}: the resumed stream differs from the unevacuated one "
+            f"(text equal {joined_equal}, ids equal {ids_equal}, "
+            f"{len(pre)} + {len(rest)} chars for {len(oracle['text'])}, "
+            f"snapshot_resumes {resumed.snapshot_resumes})")
+    return dict(pulled_at_tokens=pulled["at_tokens"], pull_s=pulled["pull_s"],
+                client_chars_before=len(pre),
+                frame_bytes=len(pulled["frame"]), resume_s=resume_s,
+                inflight_positions_at_evacuation=at_evac,
+                generated_before=len(resumed.output_ids)
+                - resumed.completion_tokens,
+                finish_reason=rfinish, launches=launches)
+
+
+def _get(url, headers):
+    """GET ``url``: (status, headers, raw reply)."""
+    req = urllib.request.Request(url, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers, exc.read()
+
+
+def _evacuation_case(dev, cfg, params, tok, dec, total):
+    """Case 2: the unevacuated stream of EVAC_TEXT on a peer, then the same
+    request pulled from ``dec`` (per-step) and from a decode worker with
+    ``decode_multistep=8`` at K 2 (blocks of 16 steps in flight), each
+    resumed on the peer."""
+    peer = _Worker(_disagg_core(dev, cfg, params, "decode"), tok)
+    multi = _Worker(_disagg_core(dev, cfg, params, "decode",
+                                 decode_steps_per_dispatch=MULTI_SERVE_K,
+                                 decode_multistep=MULTI_SERVE_M), tok)
+    try:
+        from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+        k.reset_launch_counts()
+        n = len(peer.submitted)
+        got = _request(peer.base, 7, EVAC_TEXT, EVAC_TOKENS, True, False,
+                       temperature=0.7)
+        _add_launches(total, _launch_window(k))
+        oracle = {"text": got["text"], "ids": list(peer.submitted[n]
+                                                    .output_ids)}
+        if got["status"] != 200 or len(oracle["ids"]) < EVAC_TOKENS // 2:
+            raise AssertionError(f"serve_disagg evacuation: the oracle "
+                                 f"stopped at {len(oracle['ids'])} tokens")
+        per_step = _pull_case(dec, peer, oracle, "evacuation per-step",
+                              total)
+        blocks = _pull_case(multi, peer, oracle, "evacuation multi-step",
+                            total)
+        if not any(p > MULTI_SERVE_K for p in sum(
+                blocks["inflight_positions_at_evacuation"], [])):
+            raise AssertionError(
+                f"serve_disagg evacuation: no multi-step block in flight "
+                f"when the pull evacuated: "
+                f"{blocks['inflight_positions_at_evacuation']}")
+        return dict(oracle_tokens=len(oracle["ids"]), per_step=per_step,
+                    multi_step=dict(blocks, multi_dispatches=multi.sched
+                                    .stats["multi_dispatches"]),
+                    streams_equal=True)
+    finally:
+        peer.close()
+        multi.close()
+
+
+def _spill_case(dev, cfg, params, tok, unified, total):
+    """Case 3: wave 1 into a pool of DISAGG_PAGES pages with the spill pool
+    armed: decode growth preempts, the victims' pages go to host RAM and
+    come back without a prefill (no grouped prefill carries a chunk of a
+    promoted job, so no flash_prefill launch is made for one), and the
+    streams equal the roomy run's."""
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    first, _ = _disagg_traffic()
+    core = _disagg_core(dev, cfg, params, "decode", num_pages=DISAGG_PAGES,
+                        kv_spill_mb=DISAGG_SPILL_MB)
+    tight = _Worker(core, tok)
+    promoted_prefill = {"calls": 0, "flash_prefill": 0}
+    prefill_group = core.prefill_group
+
+    def watched(state, items, *a, **kw):
+        jobs = {j.slot: j for j in tight.sched._prefilling}
+        promoted = any(jobs[it.slot].request.spill_resumes
+                       for it in items if it.slot in jobs)
+        before = k.launch_counts()["flash_prefill"]
+        out = prefill_group(state, items, *a, **kw)
+        if promoted:
+            promoted_prefill["calls"] += 1
+            promoted_prefill["flash_prefill"] += (
+                k.launch_counts()["flash_prefill"] - before)
+        return out
+
+    core.prefill_group = watched
+    try:
+        def send(spec):
+            i, text, tokens, chat, kw = spec
+            return _request(tight.base, i, text, tokens, chat, False, **kw)
+
+        k.reset_launch_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            results = [f.result() for f in _wave(pool, tight, first, send)]
+        wall = time.perf_counter() - t0
+        launches = _launch_window(k)
+        _add_launches(total, launches)
+        stats = dict(tight.sched.stats)
+        reqs = list(tight.submitted)
+        spill_used = tight.sched.load_stats()["kv_spill_used_bytes"]
+    finally:
+        tight.close()
+    equal = [unified[tuple(r.prompt_ids)].output_ids == r.output_ids
+             for r in reqs]
+    faults = []
+    if any(r["status"] != 200 for r in results) or any(r.error
+                                                       for r in reqs):
+        faults.append("a request failed")
+    if stats["spill_resumes"] < 1:
+        faults.append(f"no spill resume ({stats['preemptions']} "
+                      f"preemptions)")
+    if promoted_prefill["calls"] or promoted_prefill["flash_prefill"]:
+        faults.append(f"promoted jobs were prefilled: {promoted_prefill}")
+    if not all(equal):
+        faults.append(f"streams differ from the roomy run's: {equal}")
+    if spill_used:
+        faults.append(f"{spill_used} spill bytes held at the end")
+    if faults:
+        raise AssertionError(f"serve_disagg spill: {'; '.join(faults)}")
+    return dict(num_pages=DISAGG_PAGES, kv_spill_mb=DISAGG_SPILL_MB,
+                wall_s=wall, streams_equal=True,
+                preemptions=stats["preemptions"],
+                spill_resumes=stats["spill_resumes"],
+                spilled=stats.get("kv_spill_spilled", 0),
+                over_budget=stats.get("kv_spill_over_budget", 0),
+                recompute_preemptions=stats["preemptions"]
+                - stats.get("kv_spill_spilled", 0),
+                prefill_dispatches=stats["prefill_dispatches"],
+                prefill_chunks=stats["prefill_chunks"],
+                promoted_job_prefill=promoted_prefill, launches=launches)
+
+
+def _page_check(core, payload, name):
+    """Import ``payload`` into pages of a throwaway state of ``core`` in
+    reverse order, export them again: every byte must come back (the
+    import's page placement and the export's gather). Returns (state,
+    pages); raises KernelMismatch."""
+    import torch
+    state = core.init_state()
+    n = int(payload["n_pages"])
+    pages = list(range(n, 0, -1))
+    core.import_slot_kv(state, 0, pages, payload)
+    back = core.export_slot_kv(state, pages, payload["length"])
+    bad = {}
+    for key in ("k", "v", "k_s", "v_s"):
+        if payload.get(key) is None:
+            continue
+        got, want = back[key], payload[key].to(back[key].device)
+        if not torch.equal(got.view(torch.uint8), want.contiguous()
+                           .view(torch.uint8)):
+            bad[key] = int((got != want).sum())
+    if int(state.cache.lengths[0]) != int(payload["length"]):
+        bad["length"] = int(state.cache.lengths[0])
+    if bad:
+        raise KernelMismatch(name, {"pages_differ": bad, "n_pages": n})
+    return state, pages
+
+
+def _kv_readings(dec, pre, tok, kv_quant):
+    """Case 4 for one pool: the longest ``serve`` prompt (a 1,728-byte
+    completion, 14 pages) prefilled by the prefill worker into a
+    device-native payload, then each step of its journey timed: the
+    device gather and scatter (CUDA events, beside 3.35 TB/s for the
+    bytes they read and write), the copy to the host, the frame's encode
+    and decode (host, crc32 per segment), and the import from the decoded
+    host payload (upload and scatter, synchronized); the pages round-trip
+    bit for bit."""
+    import torch
+    from generativeaiexamples_tpu_torch.core import kv_wire
+    from generativeaiexamples_tpu_torch.engine import kv_cache
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    r = Request(prompt_ids=tok.encode(PROMPT_TEXT * 12, add_bos=True),
+                prefill_only=True, max_tokens=8, temperature=0.0)
+    pre.sched.submit(r)
+    _wait_for(lambda: r.finished_at is not None, "the readings' prefill")
+    payload = r.handoff
+    state, pages = _page_check(dec.core, payload, "serve_disagg pages")
+    nbytes = sum(payload[key].numel() * payload[key].element_size()
+                 for key in ("k", "v", "k_s", "v_s")
+                 if payload.get(key) is not None)
+    ids = torch.tensor(pages, device=state.cache.k.device)
+    P = dec.core.num_pages
+    gather_ms = time_ms(lambda: kv_cache.export_pages(state.cache, ids, P))
+    L = dec.core.model_cfg.n_layers
+    flat = [None if payload.get(key) is None else
+            payload[key].reshape((-1,) + tuple(payload[key].shape[2:]))
+            for key in ("k", "v", "k_s", "v_s")]
+    scatter_ms = time_ms(lambda: kv_cache.import_pages(
+        state.cache, ids, P, 0, payload["length"], *flat))
+
+    def host_s(fn, reps=3):
+        best = None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            best = s if best is None else min(best, s)
+        return best, out
+
+    fetch_s, _ = host_s(lambda: [payload[key].cpu() for key in
+                                 ("k", "v", "k_s", "v_s")
+                                 if payload.get(key) is not None])
+    encode_s, frame = host_s(lambda: kv_wire.encode_kv_frames(payload))
+    decode_s, decoded = host_s(lambda: kv_wire.decode_kv_frames(frame))
+    import_s, _ = host_s(lambda: dec.core.import_slot_kv(state, 0, pages,
+                                                         decoded))
+    bound = 2 * nbytes / PEAK_BYTES * 1e3
+    del state
+    gb = lambda s: nbytes / s / 1e9
+    return dict(
+        kv_quant=kv_quant, tokens=len(r.prompt_ids),
+        n_pages=payload["n_pages"],
+        token_rows=payload["n_pages"] * dec.core.page_size,
+        payload_bytes=nbytes, frame_bytes=len(frame),
+        pages_round_trip="bit-equal",
+        gather_ms=gather_ms, scatter_ms=scatter_ms,
+        gather_scatter_bound_ms=bound,
+        gather_share_of_bound=bound / gather_ms,
+        scatter_share_of_bound=bound / scatter_ms,
+        fetch_ms=fetch_s * 1e3, fetch_gb_s=gb(fetch_s),
+        encode_ms=encode_s * 1e3, encode_gb_s=gb(encode_s),
+        decode_ms=decode_s * 1e3, decode_gb_s=gb(decode_s),
+        import_ms=import_s * 1e3, import_gb_s=gb(import_s),
+        export_issue_ms=payload["export_s"] * 1e3)
+
+
+def _ttft_readings(dec, pre):
+    """The longest prompt's TTFT alone, from the client's POST to the
+    server's first-token stamp (the servers run in this process, so one
+    clock): unified on the decode worker (a completion), then through
+    /v1/kv/prefill and /v1/kv/handoff, with the prefill worker's own
+    submit -> first token and submit -> export, and the decode worker's
+    import host seconds. Random weights under the byte tokenizer may
+    stream no text for a while, so the stamps, not the client's first
+    content, are read."""
+    text = PROMPT_TEXT * 12
+    body = {"prompt": text, "max_tokens": 8, "temperature": 0.0, "seed": 1}
+    n = len(dec.submitted)
+    t0 = time.perf_counter()
+    status, _, _ = _post(dec.base + "/v1/completions",
+                         json.dumps(body).encode(),
+                         {"Content-Type": "application/json"})
+    u = dec.submitted[n]
+    unified = u.first_token_at - t0
+    t0 = time.perf_counter()
+    frame, prefill_s = _kv_prefill_post(pre.base, 1, text, 8, False)
+    m = len(dec.submitted)
+    _kv_handoff_post(dec.base, frame)
+    p, h = pre.submitted[-1], dec.submitted[m]
+    return dict(
+        prompt_tokens=len(u.prompt_ids), status=status,
+        unified_ttft_s=unified,
+        unified_server_ttft_s=u.first_token_at - u.submitted_at,
+        handoff_ttft_s=h.first_token_at - t0,
+        handoff_over_unified=(h.first_token_at - t0) / unified,
+        prefill_post_s=prefill_s,
+        prefill_worker_ttft_s=p.first_token_at - p.submitted_at,
+        prefill_worker_export_s=p.finished_at - p.submitted_at,
+        decode_worker_ttft_s=h.first_token_at - h.submitted_at,
+        decode_worker_import_host_s=h.kv_import_s,
+        frame_bytes=len(frame))
+
+
+def phase_serve_disagg(dev, cfg, params):
+    """llama3-8b at full width and depth, bf16 weights (``draw_8b``'s,
+    shared), the byte tokenizer: workers each with its own pool of 8 slots
+    of 2,048 behind the stdlib server, rows independent of timing
+    (speculation, the mixed dispatch, the width ladder and the prefix
+    cache off; waves admitted together in a fixed order):
+
+    1. handoff: ``serve``'s traffic (decoders at 96 tokens, the late prompts
+       and a json_object chat) unified on a ``role=decode`` worker, then
+       through a ``role=prefill`` worker's ``/v1/kv/prefill`` (frames) and
+       the decode worker's ``/v1/kv/handoff``: every stream equal to its
+       unified one, greedy and seeded; the prefill worker makes no decode
+       dispatch and no ``ragged_paged_attention`` launch, the decode worker
+       no ``flash_prefill`` launch; then over the int8 pool (no json chat);
+    2. evacuation: a seeded stream pulled through
+       ``GET /v1/kv/evacuation/<rid>`` from the decode worker (per-step)
+       and from one running ``decode_multistep=8`` at K 2 (a block in
+       flight at the pull), each resumed on a peer: the joined text and the
+       resumed ids equal the unevacuated stream's;
+    3. spill: the decoders into DISAGG_PAGES pages with the spill pool
+       armed: spill resumes, no prefill for a promoted job, the streams
+       equal the roomy (unified) run's;
+    4. readings: each request's frame bytes, export, encode, decode and
+       import ms and GB/s; the longest prompt's gather and scatter against
+       3.35 TB/s, copy, codec and import per pool, with its pages
+       round-tripping bit for bit; its TTFT through the handoff against
+       unified.
+
+    The launch counts are set to 0 just before each run and read just
+    after; returns their sum over the phase."""
+    import torch
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    total, seconds, out = {}, {}, {}
+    t0 = time.perf_counter()
+    handoff, unified, pre, dec = _handoff_case(dev, cfg, params, tok, "none",
+                                               total)
+    seconds["handoff"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        out["evacuation"] = _evacuation_case(dev, cfg, params, tok, dec,
+                                             total)
+        seconds["evacuation"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        readings = {"none": _kv_readings(dec, pre, tok, "none")}
+        out["ttft"] = _ttft_readings(dec, pre)
+        seconds["readings"] = time.perf_counter() - t0
+    finally:
+        pre.close()
+        dec.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["spill"] = _spill_case(dev, cfg, params, tok, unified, total)
+    seconds["spill"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    handoff8, _, pre8, dec8 = _handoff_case(dev, cfg, params, tok, "int8",
+                                            total)
+    try:
+        readings["int8"] = _kv_readings(dec8, pre8, tok, "int8")
+    finally:
+        pre8.close()
+        dec8.close()
+    seconds["handoff_int8"] = time.perf_counter() - t0
+    emit("serve_disagg", model="llama3-8b", handoff=handoff,
+         handoff_int8=handoff8, readings=readings, seconds=seconds, **out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _disagg_parity_run(dev, name):
+    """One check of ``parity_disagg`` at llama3-8b width, 2 layers, f32, by
+    hand-driven schedulers (no HTTP): ``handoff`` (a 14-page prompt and a
+    2-page one, greedy and seeded, prefilled by a prefill-role scheduler,
+    their pages round-tripped through a throwaway pool, imported by a
+    decode-role one: streams equal that scheduler's unified ones) or
+    ``evacuation`` (a seeded stream evacuated once 8 tokens came, with the
+    dispatches in flight drained first, and resumed on a peer: equal to
+    the unevacuated stream)."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.engine.scheduler import (Request,
+                                                                 Scheduler)
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype="float32")
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(4),
+                               cfg, device=dev)
+    tok = ByteTokenizer()
+
+    def sched(role):
+        return Scheduler(_disagg_core(dev, cfg, params, role,
+                                      eos_id=tok.eos_id), tok)
+
+    prompts = [tok.encode(PROMPT_TEXT * 12, add_bos=True),
+               tok.encode(PROMPT_TEXT, add_bos=True)]
+    # 64 tokens: the dispatches in flight at the evacuation (up to
+    # pipeline_depth x K steps past the host's view) end short of it
+    kws = [dict(max_tokens=64, temperature=0.0),
+           dict(max_tokens=64, temperature=0.7, seed=3)]
+    if name == "handoff":
+        dec = sched("decode")
+        refs = _drive(dec, [Request(prompt_ids=list(p), **kw)
+                            for p, kw in zip(prompts, kws)])
+        rps = _drive(sched("prefill"), [
+            Request(prompt_ids=list(p), prefill_only=True, **kw)
+            for p, kw in zip(prompts, kws)])
+        for rp in rps:
+            _page_check(dec.core, rp.handoff, "parity_disagg")
+        rds = [Request(prompt_ids=list(rp.handoff["prompt_ids"]), **kw)
+               for rp, kw in zip(rps, kws)]
+        for rd, rp in zip(rds, rps):
+            dec.submit_prefilled(rd, rp.handoff)
+        t0 = time.perf_counter()
+        while not all(r.finished_at for r in rds):
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("handoffs unfinished after 600 s")
+            dec._tick()
+        got = [r.output_ids for r in rds]
+        want = [r.output_ids for r in refs]
+    else:
+        peer = sched("decode")
+        (ref,) = _drive(peer, [Request(prompt_ids=list(prompts[1]),
+                                       **kws[1])])
+        src = sched("decode")
+        r = Request(prompt_ids=list(prompts[1]), **kws[1])
+        src.submit(r)
+        while r.completion_tokens < 8 and r.finished_at is None:
+            src._tick()
+        src.request_evacuation(wait_s=0.0)
+        while src._evac_reqs:
+            src._tick()
+        payload = src.take_evacuated(r.request_id)
+        if payload is None or r.finish_reason != "evacuated":
+            raise AssertionError(f"parity_disagg: no snapshot "
+                                 f"({r.finish_reason})")
+        rd = Request(prompt_ids=list(payload["prompt_ids"]), **kws[1])
+        peer.submit_prefilled(rd, payload)
+        while rd.finished_at is None:
+            peer._tick()
+        got, want = [rd.output_ids], [ref.output_ids]
+    if got != want or any(not ids for ids in want):
+        raise KernelMismatch("parity_disagg", {
+            "case": name, "equal": [a == b for a, b in zip(got, want)],
+            "tokens": [len(a) for a in got]})
+    return {"case": name, "tokens": [len(a) for a in got]}
+
+
+def parity_disagg_cases(dev):
+    """``parity_disagg``'s checks as thunks (the planted faults read them):
+    ``handoff`` and ``evacuation``."""
+    return {name: (lambda name=name: _disagg_parity_run(dev, name))
+            for name in ("handoff", "evacuation")}
+
+
+def phase_parity_disagg(dev):
+    """Every case of ``parity_disagg_cases``, each raising on a mismatch."""
+    readings = {name: fn() for name, fn in parity_disagg_cases(dev).items()}
+    emit("parity_disagg", ok=True, streams_equal=True,
+         pages_round_trip="bit-equal", runs=readings)
+
+
 def phase_serve_prefix(dev, cfg, params, kv_quant="none"):
     """The prefix cache at full llama3-8b behind the HTTP server, with the
     reference's defaults: chat requests over one 1,536-byte context (64- to
@@ -6031,6 +6904,19 @@ PLANTED_FAULTS = (
      "running = running & ~(has_stop & suspect[ring].any(dim=1))",
      "running = running | (has_stop & suspect[ring].any(dim=1))",
      ("parity_multi",)),
+    # KV movement: an import that swaps a slot's first two pages (the
+    # page round trip and the handed-off streams must fail), and an
+    # evacuation snapshot that drops the seed's position (the resumed
+    # draws restart their keys: the resumed stream must differ)
+    ("import_pages_swapped", "engine/kv_cache.py",
+     "    dst = page_ids.to(device=cache.k.device, dtype=torch.long)\n",
+     "    dst = page_ids.to(device=cache.k.device, dtype=torch.long)\n"
+     "    dst = torch.cat([dst[1:2], dst[:1], dst[2:]])\n",
+     ("parity_disagg",)),
+    ("evac_position_dropped", "engine/scheduler.py",
+     '            "generated": len(job.gen_ids),\n            "resume": True,',
+     '            "generated": 1,\n            "resume": True,',
+     ("parity_disagg",)),
 )
 
 _FAULT_PHASES = """
@@ -6039,7 +6925,8 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.CHECK_ONLY = True
 dev = torch.device("cuda")
-if {"parity_lora", "parity_gemma", "parity_multi"} & set(sys.argv[1:]):
+if {"parity_lora", "parity_gemma", "parity_multi",
+        "parity_disagg"} & set(sys.argv[1:]):
     cs.phase_build(gemm_report=False)   # every library at once
 phases = {"flash_prefill": cs.flash_cases(dev),
           "ragged_paged_attention": cs.ragged_cases(dev),
@@ -6051,7 +6938,8 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "lora": cs.lora_cases(dev),
           "parity_lora": cs.parity_lora_cases(dev),
           "parity_gemma": cs.parity_gemma_cases(dev),
-          "parity_multi": cs.parity_multi_cases(dev)}
+          "parity_multi": cs.parity_multi_cases(dev),
+          "parity_disagg": cs.parity_disagg_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -6385,6 +7273,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("parity_multi", phase_parity_multi, dev)
     torch.cuda.empty_cache()
+    timed("parity_disagg", phase_parity_disagg, dev)
+    torch.cuda.empty_cache()
     # gemma-7b before llama3-8b's weights are drawn: the two sets would
     # not share the card with serve's pools
     paths["serve_gemma"] = timed("serve_gemma", phase_serve_gemma, dev)
@@ -6408,6 +7298,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     paths["serve_multi"] = timed("serve_multi", phase_serve_multi, dev, cfg,
                                  params)
+    torch.cuda.empty_cache()
+    paths["serve_disagg"] = timed("serve_disagg", phase_serve_disagg, dev,
+                                  cfg, params)
     torch.cuda.empty_cache()
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
         paths["serve_prefix" + tag] = timed(

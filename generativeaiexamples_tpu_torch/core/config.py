@@ -23,13 +23,13 @@ ENV_PREFIX = "APP"
 # TPU-engine knobs not served by the port yet -> the ROADMAP item that
 # ports them, and the value that means "feature off" (accepted as a no-op)
 NOT_PORTED: Dict[str, tuple] = {
-    "role": ("A7 (KV handoff / disaggregated roles)", "unified"),
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
     "devtime": ("A6 (device-time ledger)", "off"),
     "qos": ("A6 (QoS plane)", "off"),
-    "kv_spill_mb": ("A6 (host KV spill)", "0"),
-    "kv_tier": ("A6 (prefix KV tier)", "off"),
-    "kv_tier_disk_mb": ("A6 (prefix KV tier)", "0"),
+    "kv_tier": ("A.9, second part (the prefix-addressed host KV tier)",
+                "off"),
+    "kv_tier_disk_mb": ("A.9, second part (the prefix-addressed host KV "
+                        "tier)", "0"),
     "mesh_shape": ("A11 (tensor parallelism)", ""),
     "donate_buffers": ("none: PyTorch updates the pool in place", "auto"),
 }
@@ -39,6 +39,13 @@ NOT_PORTED: Dict[str, tuple] = {
 class EngineConfig:
     """Serving-engine knobs of the port (``APP_ENGINE_<FIELD>``)."""
 
+    # serving role for disaggregated prefill/decode topologies: unified
+    # (default: one worker does everything) | prefill (runs chunked prefill
+    # only and exports the finished request's KV pages and sampling state
+    # via /v1/kv/prefill; never dispatches decode) | decode (a full worker
+    # that also imports handed-off KV via /v1/kv/handoff and decodes from
+    # the first token on)
+    role: str = "unified"
     max_batch_size: int = 8
     max_seq_len: int = 2048
     page_size: int = 128
@@ -110,6 +117,13 @@ class EngineConfig:
     # registered name (the OpenAI `model` field) and one decode batch mixes
     # adapters freely
     max_adapters: int = 4
+    # bounded host-RAM pool (MiB) for spill preemption of KV pages
+    # (engine/kv_tier.py): under page exhaustion the victim slot's pages
+    # are demoted to this pool instead of freed, and promotion re-imports
+    # them when pages free, so preemption costs one transfer each way
+    # instead of a re-prefill; 0 (default) = off, preemption recomputes.
+    # The bare env APP_KV_SPILL_MB overrides this field
+    kv_spill_mb: int = 0
 
     def __post_init__(self) -> None:
         if self.pipeline_depth < 1:

@@ -29,7 +29,14 @@ and pure decode dispatches take the narrowest batch-width rung
 ``APP_DECODE_MULTISTEP=8`` (or ``APP_ENGINE_DECODE_MULTISTEP``) runs
 eligible fleets K·M steps a dispatch with one fetch, and
 ``APP_ENGINE_DECODE_STEPS_MAX=32`` deepens per-step dispatches up to 32
-steps once the batch is half full. Per-request LoRA adapters are
+steps once the batch is half full. ``APP_ENGINE_ROLE`` picks the
+disaggregated role: ``unified`` (default), ``prefill`` (serves
+``/v1/kv/prefill`` only, never decodes, and its warmup skips the decode
+programs) or ``decode`` (also imports ``/v1/kv/handoff`` bodies); any
+worker serves ``GET /v1/kv/evacuation/<rid>``. ``APP_KV_SPILL_MB`` (or
+``APP_ENGINE_KV_SPILL_MB``) arms the host spill pool of preempted slots'
+pages (0, the default, recomputes); ``APP_EVAC_TTL_S`` (default 120) is
+how long an evacuation snapshot waits to be pulled. Per-request LoRA adapters are
 served once registered (``EngineCore.register_adapter``); loading them
 from ``APP_ENGINE_ADAPTERS`` directories (the reference's orbax
 checkpoints) waits for ROADMAP A.15, and a non-empty value exits with a

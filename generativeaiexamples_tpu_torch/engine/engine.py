@@ -94,8 +94,21 @@ the device back, and a paused or done slot is masked exactly as an
 inactive one. ``warmup`` runs every depth rung up to ``decode_steps_max``
 and every M rung.
 
-Not ported here: KV handoff, tensor parallelism (ROADMAP A2, A7, A11).
-Their config knobs are refused in ``core/config.py``.
+KV handoff (the reference's disaggregated roles): ``role`` is
+``unified``, ``prefill`` (chunked prefill only; ``warmup`` skips the
+decode programs) or ``decode``. :meth:`EngineCore.export_slot_kv` gathers a
+slot's pages (``kv_cache.export_pages``) into a payload with the
+reference's keys and shapes, device-native by default: its tensors stay on
+the card, with the CUDA event recorded behind the gather under
+``kv_wire.READY_KEY`` for a host copy made on another thread;
+:meth:`EngineCore.validate_handoff` refuses a payload this pool cannot
+host, loudly; :meth:`EngineCore.import_slot_kv` scatters one into this
+pool's pages in place (``kv_cache.import_pages``) from CUDA or CPU tensors
+or numpy arrays (a bf16 one as ``ml_dtypes`` gives it, or as the wire's
+``uint16`` words). No page-count bucket: nothing here compiles per shape.
+
+Not ported here: tensor parallelism (ROADMAP A2, A11). Its config knobs
+are refused in ``core/config.py``.
 """
 
 from __future__ import annotations
@@ -105,11 +118,13 @@ import hashlib
 import logging
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from generativeaiexamples_tpu_torch.core import kv_wire
 from generativeaiexamples_tpu_torch.core.config import EngineConfig
 from generativeaiexamples_tpu_torch.core.runtime import resolve_device
 from generativeaiexamples_tpu_torch.engine import grammar as grammar_mod
@@ -364,9 +379,14 @@ class HostCopy:
 
     def result(self) -> np.ndarray:
         """The host array, waiting for the copy if it is still running."""
+        return self.tensor().numpy()
+
+    def tensor(self) -> torch.Tensor:
+        """The host tensor (pinned on CUDA; any dtype, bf16 too), waiting
+        for the copy if it is still running."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        return self._host
 
 
 @dataclasses.dataclass
@@ -429,6 +449,15 @@ class EngineCore:
                  adapters: Optional[Dict[str, Dict[str, Any]]] = None
                  ) -> None:
         self.device = resolve_device(device)
+        role = str(getattr(engine_cfg, "role", "unified")
+                   or "unified").strip().lower()
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"APP_ENGINE_ROLE must be unified|prefill|"
+                             f"decode, got {role!r}")
+        # disaggregated serving: a "prefill" worker runs chunked prefill
+        # only and exports finished requests' pages (export_slot_kv); a
+        # "decode" worker also imports handed-off pages (import_slot_kv)
+        self.role = role
         attn = engine_cfg.attention
         if attn == "auto":
             attn = "kernel" if self.device.type == "cuda" else "plain"
@@ -1408,6 +1437,154 @@ class EngineCore:
         state.history[slot, :self.max_seq] = self._up(row)
         return state
 
+    # ------------------------------------------- KV handoff (disaggregation)
+
+    def export_slot_kv(self, state: DecodeState, pages, length,
+                       fetch: bool = False) -> Dict[str, Any]:
+        """Gather a slot's first ``length`` positions of KV into a handoff
+        payload (``kv_cache.export_pages``): the prefill worker's half of
+        disaggregated serving, and a live slot's snapshot. An int8 pool
+        ships int8 values and f32 scales.
+
+        Device-native by default (``fetch=False``): the tensors stay on the
+        engine's device, and on CUDA the event recorded on the serving
+        stream behind the gather rides under ``kv_wire.READY_KEY``, so an
+        encoder on another thread copies them out only after the gather
+        ran (the gather's outputs are fresh tensors, so pages freed and
+        reused after it cannot change them). An in-process importer
+        scatters them straight back. ``fetch=True`` returns host tensors
+        (pinned on CUDA), copied through ``HostCopy``."""
+        n_exp = max(1, -(-int(length) // self.page_size))
+        ids = np.zeros((n_exp,), np.int64)
+        got = list(pages)[:n_exp]
+        ids[:len(got)] = got
+        k, v, k_s, v_s = kv_cache.export_pages(state.cache, self._up(ids),
+                                               self.num_pages)
+        L = self.model_cfg.n_layers
+
+        def trim(a):
+            if a is None:
+                return None
+            a = a.view((L, n_exp) + tuple(a.shape[1:]))
+            # the gather's output is fresh, so no later launch writes it
+            return HostCopy(a).tensor() if fetch else a
+
+        payload: Dict[str, Any] = {
+            "version": 1,
+            "length": int(length),
+            "n_pages": n_exp,
+            "page_size": self.page_size,
+            "n_layers": L,
+            "kv_dim": self.model_cfg.n_kv_heads * self.model_cfg.head_dim,
+            "kv_dtype": self.kv_dtype,
+            "k": trim(k), "v": trim(v),
+            "k_s": trim(k_s), "v_s": trim(v_s),
+        }
+        if not fetch and self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            payload[kv_wire.READY_KEY] = event
+        return payload
+
+    def validate_handoff(self, payload: Dict[str, Any]) -> None:
+        """Refuse, with ``ValueError``, a payload this pool cannot host: a
+        page-size, layer-count, width or dtype mismatch, a length outside
+        the slot's capacity, a page count or prompt length that disagrees
+        with the length, or buffers of another shape (the reference's
+        checks)."""
+        kv_dim = self.model_cfg.n_kv_heads * self.model_cfg.head_dim
+        mine = {"page_size": self.page_size,
+                "n_layers": self.model_cfg.n_layers,
+                "kv_dim": kv_dim, "kv_dtype": self.kv_dtype}
+        for key, want in mine.items():
+            got = payload.get(key)
+            if got != want:
+                raise ValueError(
+                    f"handoff {key} mismatch: payload carries {got!r}, this "
+                    f"engine serves {want!r} — prefill and decode workers "
+                    f"must share model geometry and kv_quant")
+        n = int(payload.get("length", 0))
+        if n < 1 or n + 1 >= self.max_seq:
+            raise ValueError(f"handoff length {n} outside this engine's "
+                             f"serving range (max_seq {self.max_seq})")
+        n_pages = int(payload.get("n_pages", 0))
+        if n_pages != max(1, -(-n // self.page_size)):
+            raise ValueError("handoff n_pages inconsistent with length")
+        if "prompt_ids" in payload and len(payload["prompt_ids"]) != n:
+            raise ValueError(
+                f"handoff length {n} does not match its "
+                f"{len(payload['prompt_ids'])} prompt_ids")
+        want_kv = (mine["n_layers"], n_pages, self.page_size, kv_dim)
+        want_sc = (mine["n_layers"], n_pages, self.model_cfg.n_kv_heads,
+                   self.page_size)
+        for key, want in (("k", want_kv), ("v", want_kv),
+                          ("k_s", want_sc), ("v_s", want_sc)):
+            arr = payload.get(key)
+            if arr is None:
+                if key in ("k", "v") or self.cfg.kv_quant == "int8":
+                    raise ValueError(f"handoff payload is missing {key!r}")
+                continue
+            shape = tuple(getattr(arr, "shape", ()))
+            if shape != want:
+                raise ValueError(
+                    f"handoff {key} buffer shape {shape} does not match "
+                    f"the metadata's {want}")
+
+    def _kv_in(self, a, dtype: torch.dtype) -> torch.Tensor:
+        """A payload array on this engine's device, read as ``dtype``: a
+        device tensor as it is; a CPU tensor or numpy array uploaded (a
+        read-only wire view too: the upload reads a copy). bf16 words
+        arrive as a numpy ``bfloat16`` array (the reference's host export)
+        or as 16-bit integers (the wire's numpy form); both are read bit
+        for bit."""
+        if not isinstance(a, torch.Tensor):
+            arr = np.ascontiguousarray(a)
+            if arr.dtype.name == "bfloat16":
+                arr = arr.view(np.int16)
+            with warnings.catch_warnings():
+                # a read-only wire view: nothing writes through it
+                warnings.simplefilter("ignore", UserWarning)
+                a = torch.from_numpy(arr)
+        if (dtype == torch.bfloat16 and a.dtype in (torch.int16,
+                                                    torch.uint16)):
+            a = a.view(torch.bfloat16)
+        if a.device.type != "cpu":
+            return a.to(self.device)
+        if self.device.type != "cpu":
+            return self._up(a)
+        if a.data_ptr() % a.element_size():
+            a = a.clone()      # a wire view at an unaligned offset
+        return a
+
+    @torch.no_grad()
+    def import_slot_kv(self, state: DecodeState, slot: int, pages,
+                       payload: Dict[str, Any]) -> DecodeState:
+        """Scatter a handoff payload into pages ``pages`` of this pool and
+        set ``lengths[slot]`` (``kv_cache.import_pages``, in place): the
+        decode worker's half. The caller then activates the slot at the
+        payload's first token, and decode runs as after a local prefill.
+        Validates first (``ValueError``)."""
+        self.validate_handoff(payload)
+        n_exp = int(payload["n_pages"])
+        ids = np.zeros((n_exp,), np.int64)
+        got = list(pages)[:n_exp]
+        ids[:len(got)] = got
+        cache = state.cache
+        L = self.model_cfg.n_layers
+
+        def flat(key, dtype):
+            a = self._kv_in(payload[key], dtype)
+            return a.reshape((L * n_exp,) + tuple(a.shape[2:]))
+
+        quant = self.cfg.kv_quant == "int8"
+        kv_cache.import_pages(
+            cache, self._up(ids), self.num_pages, slot,
+            int(payload["length"]), flat("k", cache.k.dtype),
+            flat("v", cache.v.dtype),
+            flat("k_s", torch.float32) if quant else None,
+            flat("v_s", torch.float32) if quant else None)
+        return state
+
     # ------------------------------------------------- multi-LoRA serving
 
     def _adapter_leaves(self, tree, name: str):
@@ -1582,6 +1759,14 @@ class EngineCore:
 
         for g in self.group_buckets:
             state, _ = self.prefill_group(state, items(g, lambda i: True))
+        if self.role == "prefill":
+            # a prefill worker never dispatches decode
+            if gram_start:
+                state, _ = self.prefill_group(
+                    state, items(1, lambda i: True, gram_start))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter() - t0
         for depth in self.decode_depths:
             for wi in self.spec_widths:
                 for bw in self.decode_widths:

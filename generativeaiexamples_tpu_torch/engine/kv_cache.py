@@ -26,6 +26,13 @@ global tree, or the engine's stacked slots with each row's slot in
 ``adapter_ix``; either as a tree or prepared, ``ops.lora.prepare``) into
 every projection (``llama.run_blocks``);
 :func:`mixed_step` runs base weights only, as there, and refuses them.
+
+The KV handoff: :func:`export_pages` gathers a slot's pages into fresh
+dense tensors in the pool's dtype (an int8 pool's values and scales, never
+a dequantized copy) and :func:`import_pages` scatters them into another
+pool's pages in place and sets the slot's length. In the reference these
+are XLA gathers and scatters outside any Pallas kernel, so one
+``index_select`` and one ``index_copy_`` a pool tensor are their port.
 """
 
 from __future__ import annotations
@@ -155,6 +162,68 @@ def _gather_dense(cache: PagedKVCache, flat_rows: torch.Tensor, G: int,
                                  dtype)
 
     return dense(cache.k, cache.k_s), dense(cache.v, cache.v_s)
+
+
+# ---------------------------------------------------------------------------
+# KV-page handoff (disaggregated prefill/decode serving)
+# ---------------------------------------------------------------------------
+
+def _layer_rows(ids: torch.Tensor, L: int, num_pages: int) -> torch.Tensor:
+    """Pool rows of pages ``ids`` (n,) in every layer, layer-major: layer
+    l's j-th page at ``l*n + j``."""
+    layers = torch.arange(L, dtype=torch.long, device=ids.device)
+    return (layers[:, None] * num_pages + ids[None, :]).reshape(-1)
+
+
+@torch.no_grad()
+def export_pages(cache: PagedKVCache, page_ids: torch.Tensor, num_pages: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Gather a slot's pages into fresh dense tensors in the pool's dtype
+    (one ``index_select`` a pool tensor): the prefill half of the handoff.
+    An int8 pool exports its int8 values and f32 scales, never a
+    dequantized copy.
+
+    page_ids: (n,) physical pages of the slot's first n logical pages.
+    Returns (k, v, k_s, v_s): k/v (L*n, page, KV*HD) with layer l's j-th
+    page at row ``l*n + j``; k_s/v_s (L*n, KV, page) f32 for an int8 pool,
+    else None. The tensors are new, so pages freed and reused after the
+    gather was issued cannot change them."""
+    L = cache.k.shape[0] // num_pages
+    src = page_ids.to(device=cache.k.device, dtype=torch.long)
+    rows = _layer_rows(src, L, num_pages)
+    out = [t.index_select(0, rows) for t in (cache.k, cache.v)]
+    if cache.quantized:
+        return (*out, cache.k_s.index_select(0, rows),
+                cache.v_s.index_select(0, rows))
+    return (*out, None, None)
+
+
+@torch.no_grad()
+def import_pages(cache: PagedKVCache, page_ids: torch.Tensor, num_pages: int,
+                 slot: int, length: int, k: torch.Tensor, v: torch.Tensor,
+                 k_s: Optional[torch.Tensor] = None,
+                 v_s: Optional[torch.Tensor] = None) -> PagedKVCache:
+    """Scatter an exported page buffer into pages ``page_ids`` of this pool,
+    in place (``index_copy_``), and set ``lengths[slot] = length``: the
+    decode half of the handoff. k/v (L*n, page, KV*HD) in the pool's dtype
+    and geometry, the scales (L*n, KV, page) for an int8 pool (the engine
+    validates the payload first). The slot's first decode step then writes
+    at position ``length``, as after a local prefill."""
+    L = cache.k.shape[0] // num_pages
+    dst = page_ids.to(device=cache.k.device, dtype=torch.long)
+    rows = _layer_rows(dst, L, num_pages)
+    cache.k.index_copy_(0, rows, k.to(cache.k.device, cache.k.dtype))
+    cache.v.index_copy_(0, rows, v.to(cache.v.device, cache.v.dtype))
+    if cache.quantized:
+        if k_s is None or v_s is None:
+            raise ValueError("int8 pool import needs k_s/v_s scales")
+        cache.k_s.index_copy_(0, rows, k_s.to(cache.k_s.device,
+                                              torch.float32))
+        cache.v_s.index_copy_(0, rows, v_s.to(cache.v_s.device,
+                                              torch.float32))
+    cache.lengths[slot] = length
+    return cache
 
 
 class PageAllocator:

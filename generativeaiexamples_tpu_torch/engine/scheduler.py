@@ -71,10 +71,27 @@ host fetches its block once and replays it through the same path, where
 the stop strings stay the truth. With the ladder on, no dispatch is
 issued once the steps in flight cover every slot's remaining budget.
 
-Not ported (their Request fields raise): KV handoff (ROADMAP A7); nor
-spill/tier, QoS, SLO, metrics and flight planes (A6). Dispatch,
-speculation, prefix-cache, admission, pipelining and fetch counters live
-in ``Scheduler.stats``.
+KV movement, as there. Disaggregated roles: a ``prefill_only`` request
+runs chunked prefill and ends at its first token, whose slot's pages and
+sampling state it exports into ``Request.handoff`` (``finish_reason``
+"handoff"; a ``role="prefill"`` scheduler never dispatches decode); a
+decode worker admits such a payload with :meth:`Scheduler.submit_prefilled`
+(imported into fresh pages, activated at the payload's first token, the
+grammar re-walked). Evacuation: :meth:`Scheduler.request_evacuation` queues,
+for the driver thread, a snapshot of live slots (``export_live_slot``: the
+pages written so far, the emitted tokens, the seed's position, the stop
+holdback and the grammar spec) into an outbox that
+:meth:`Scheduler.take_evacuated` serves once (``APP_EVAC_TTL_S`` expires
+what is never pulled); the stream ends "evacuated", and a peer's
+``submit_prefilled`` resumes it token for token. Spill: with a host budget
+(``APP_KV_SPILL_MB``), a page-exhaust preemption demotes a decoding
+victim's pages to host RAM and re-imports them at its re-admission, no
+prefill; over budget it recomputes, as there.
+
+Not ported: the prefix-addressed host tier (ROADMAP A.9, second part),
+QoS, SLO, metrics and flight planes (A.10). Dispatch, speculation,
+prefix-cache, admission, pipelining, fetch, handoff, evacuation and spill
+counters live in ``Scheduler.stats``.
 """
 
 from __future__ import annotations
@@ -83,12 +100,13 @@ import heapq
 import itertools
 import logging
 import math
+import os
 import queue
 import random
 import threading
 import time
 import uuid
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, Iterator, List, Optional, Sequence
 
@@ -96,6 +114,8 @@ import numpy as np
 
 from generativeaiexamples_tpu_torch.engine.engine import (
     EngineCore, HostCopy, PrefillItem, bits_to_f32, unpack_decode_out)
+from generativeaiexamples_tpu_torch.engine.kv_tier import (
+    KVSpillPool, spill_budget_bytes, tier_mode)
 from generativeaiexamples_tpu_torch.engine.prefix_cache import chain_hashes
 from generativeaiexamples_tpu_torch.engine.tokenizer import (
     IncrementalDetokenizer, Tokenizer)
@@ -149,8 +169,15 @@ class Request:
     grammar_attached: Optional[bool] = None
     # a registered LoRA adapter's name ("" = the base model)
     adapter: str = ""
-    # not ported yet; setting it raises
+    # disaggregated serving: a prefill_only request runs chunked prefill
+    # and ends at its first sampled token, exporting its slot's KV pages
+    # and sampling state into ``handoff`` (finish_reason "handoff"; no
+    # text streams); a decode worker admits the payload with
+    # Scheduler.submit_prefilled. kv_import_s: host seconds of the import
+    # at admission on the decode side
     prefill_only: bool = False
+    handoff: Optional[dict] = None
+    kv_import_s: Optional[float] = None
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
     submitted_at: float = field(default_factory=time.perf_counter)
@@ -159,18 +186,19 @@ class Request:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     preemptions: int = 0
+    # preemptions promoted back from the host spill pool (no re-prefill),
+    # and mid-decode snapshots of a peer resumed on this worker
+    spill_resumes: int = 0
+    snapshot_resumes: int = 0
     prefix_hit_tokens: int = 0    # prompt tokens served from the prefix cache
     completion_tokens: int = 0
-    output_ids: List[int] = field(default_factory=list)   # generated ids
+    # generated ids (a resumed snapshot's include those generated before
+    # it, on the evacuated worker)
+    output_ids: List[int] = field(default_factory=list)
     error: Optional[str] = None
-    # "eos" | "stop" | "length"; None = not finished or failed
+    # "eos" | "stop" | "length" | "handoff" | "evacuated"; None = not
+    # finished or failed
     finish_reason: Optional[str] = None
-
-    def __post_init__(self) -> None:
-        if self.prefill_only:
-            raise NotImplementedError(
-                "Request.prefill_only is not served by the PyTorch port yet "
-                "(ROADMAP A7 (KV handoff))")
 
 
 @dataclass
@@ -205,6 +233,14 @@ class _Job:
                                   # a preempted, re-admitted job is dropped
     gram_on: bool = False         # its grammar is attached on the device
     adapter_ix: int = 0           # resident LoRA slot (0 = base model)
+    # a handoff payload imported at admission instead of prefilling
+    # (submit_prefilled), and a spilled snapshot of this job's own pages
+    # promoted back at re-admission (_admit_spilled)
+    preload: Optional[dict] = None
+    spill: Optional[dict] = None
+    # a prefill_only job's resolved (first token, logprob), exported once
+    # the dispatch that resolved it was issued
+    handoff_first: Optional[tuple] = None
 
 
 @dataclass
@@ -270,6 +306,21 @@ class Scheduler:
         self._first_fetch_depth = 4
         self._holding = False      # inside a prefill-priority ramp episode
         self._hold_left = 0        # chunk budget remaining in the episode
+        # disaggregated serving role: a "prefill" worker never dispatches
+        # decode (its slots are finished prefills awaiting their first
+        # token and export); "decode" and "unified" behave alike here
+        self._role = core.role
+        # live-migration evacuation: callers queue a request, the driver
+        # thread (the owner of _state) performs it inside _tick and parks
+        # each live slot's snapshot in the outbox, count-capped and
+        # expired after APP_EVAC_TTL_S (device-native snapshots hold card
+        # memory)
+        self._evac_lock = threading.Lock()
+        self._evac_reqs: List[dict] = []
+        self._evac_outbox: "OrderedDict[str, tuple]" = OrderedDict()
+        self._evac_outbox_cap = 64
+        self._evac_ttl_s = float(os.environ.get("APP_EVAC_TTL_S", "")
+                                 or 120.0)
         # counts read by chip_smoke.py and /health: dispatches, mixed
         # dispatches, widened decode steps (W > 1), accepted drafts
         # (spec_bonus_tokens) over slot-steps that emitted (spec_base_steps),
@@ -301,7 +352,24 @@ class Scheduler:
                       **{f"multi_m_{m}": 0 for m in core.multi_ms},
                       **{f"decode_depth_{k}": 0 for k in core.decode_depths},
                       **{f"decode_width_{w}": 0
-                         for w in self._decode_widths}}
+                         for w in self._decode_widths},
+                      # KV movement: handoffs submitted, imported and
+                      # exported, snapshots resumed here and evacuated
+                      # (with a snapshot or for re-prefill), snapshots
+                      # expired unpulled, spills promoted back (the pool
+                      # adds kv_spill_<outcome>)
+                      "kv_handoff_submitted": 0, "kv_handoff_imports": 0,
+                      "kv_handoff_exports": 0, "snapshot_resumes": 0,
+                      "evacuations_snapshot": 0,
+                      "evacuations_reprefill": 0,
+                      "evacuation_snapshots_expired": 0,
+                      "spill_resumes": 0}
+        # host-spill preemption: with a budget, page-exhaust preemption
+        # demotes the victim's pages to host RAM instead of recomputing
+        tier_mode(core.cfg)
+        budget = spill_budget_bytes(core.cfg)
+        self._spill: Optional[KVSpillPool] = (
+            KVSpillPool(budget, self.stats) if budget > 0 else None)
 
     # ------------------------------------------------------------------ API
 
@@ -340,6 +408,38 @@ class Scheduler:
         self._wake.set()
         return request
 
+    def submit_prefilled(self, request: Request, payload: dict) -> Request:
+        """Admit a request whose prompt KV arrives as a handoff payload
+        (decode role): admission imports the pages into fresh ones
+        (``EngineCore.import_slot_kv``) and starts decoding at the
+        payload's first token. A mid-decode snapshot (``resume``) resumes
+        at its position: its ``prompt_ids`` are the prompt plus the tokens
+        generated before it, split by ``prompt_len``. Raises ValueError
+        before anything is queued when this pool cannot host the payload."""
+        self.core.validate_handoff(payload)
+        if request.seed is None:
+            request.seed = int(payload.get("seed", 0) or 0)
+        request.seed = int(request.seed) & 0x7FFFFFFF
+        job = _Job(request=request,
+                   detok=IncrementalDetokenizer(self.tokenizer),
+                   ids=list(request.prompt_ids))
+        if payload.get("resume"):
+            # ids mirror the written KV (page math, history, a later
+            # preemption); gen_ids reseed the generated prefix so grammar
+            # walks and stop accounting run as if it had decoded here
+            full = [int(t) for t in payload.get("prompt_ids", [])]
+            plen = max(0, min(int(payload.get("prompt_len", len(full))),
+                              len(full)))
+            request.prompt_ids = full[:plen]
+            job.ids = list(full)
+            job.gen_ids = full[plen:]
+        job.preload = dict(payload)
+        with self._lock:
+            self._pending.append(job)
+        self.stats["kv_handoff_submitted"] += 1
+        self._wake.set()
+        return request
+
     def iter_text(self, request: Request) -> Iterator[str]:
         """Blocking iterator over the request's text deltas."""
         while True:
@@ -364,7 +464,7 @@ class Scheduler:
         with self._lock:
             waiting = len(self._pending)
         prompted = self.stats["prefix_prompt_tokens"]
-        return {"running": len(self._slots),
+        return {"engine_role": self._role, "running": len(self._slots),
                 "prefilling": len(self._prefilling), "waiting": waiting,
                 "batch": self.core.batch, "kv_dtype": self.core.kv_dtype,
                 "spec_widths": list(self._spec_widths),
@@ -378,6 +478,11 @@ class Scheduler:
                 "prefix_hit_frac": (round(self.stats["prefix_hit_tokens"]
                                           / prompted, 4) if prompted else 0.0),
                 "prefix_cached_pages": getattr(self._alloc, "cached_pages", 0),
+                # host spill occupancy: a replica's host-RAM headroom
+                "kv_spill_used_bytes": (self._spill.used_bytes
+                                        if self._spill is not None else 0),
+                "kv_spill_budget_bytes": (self._spill.budget_bytes
+                                          if self._spill is not None else 0),
                 **self.stats}
 
     # ------------------------------------------------------------- internals
@@ -397,11 +502,19 @@ class Scheduler:
         for job in jobs:
             job.request.error = reason
             job.request.finished_at = time.perf_counter()
+            # spilled host buffers die with their job
+            self._drop_spill(job)
             job.request.out_queue.put(_STOP)
         self._alloc = self.core.new_allocator()
         self._free = list(range(self.core.batch))
         self._table[:] = 0
         self._table_dev = None
+        # evacuation waiters: their jobs just failed
+        with self._evac_lock:
+            waiters, self._evac_reqs = self._evac_reqs, []
+        for entry in waiters:
+            entry["result"] = {"error": reason}
+            entry["event"].set()
 
     def _release(self, job: _Job) -> None:
         """Return the job's slot and pages to the pools (its device row is
@@ -436,11 +549,13 @@ class Scheduler:
         # decode-written pages join the prefix cache before release: a
         # follow-up turn whose prompt embeds this one re-admits against them
         self._cache_insert(job, with_generated=True)
+        self._drop_spill(job)
         self._release(job)
 
     def _fail(self, job: _Job, reason: str) -> None:
         job.request.error = reason
         job.request.finished_at = time.perf_counter()
+        self._drop_spill(job)
         job.request.out_queue.put(_STOP)
 
     def _table_device(self):
@@ -490,7 +605,10 @@ class Scheduler:
         """(fresh pages needed, shared tokens, hit pages) for admitting the
         job now."""
         n = len(job.ids)
-        if not self._caching:
+        if not self._caching or job.preload is not None \
+                or job.spill is not None:
+            # handoff and spill imports scatter into their pages: they must
+            # never be given shared prefix-cache pages
             return self.core.pages_for(n), 0, []
         if job.hashed_len != n:
             job.page_hashes = chain_hashes(
@@ -645,7 +763,106 @@ class Scheduler:
             self._table[slot, :] = 0
             self._table[slot, :len(pages)] = pages
             self._table_dev = None
-            self._prefilling.append(job)
+            if job.preload is not None:
+                self._admit_prefilled(job)
+            elif job.spill is not None:
+                self._admit_spilled(job)
+            else:
+                self._prefilling.append(job)
+
+    def _admit_prefilled(self, job: _Job) -> None:
+        """Admission with prefilled KV: import the handoff payload into the
+        slot's fresh pages, seed history, activate at the payload's first
+        token and emit it; from here the slot decodes as after a local
+        prefill. A snapshot resume instead restores its stream state and
+        streams only the text its client has not seen."""
+        req = job.request
+        payload = job.preload
+        job.preload = None
+        now = time.perf_counter()
+        if req.prefill_start_at is None:
+            req.prefill_start_at = now
+        self._state = self.core.import_slot_kv(self._state, job.slot,
+                                               job.pages, payload)
+        job.prefilled = job.total_len = len(job.ids)
+        req.kv_import_s = round(time.perf_counter() - now, 6)
+        self.stats["kv_handoff_imports"] += 1
+        first = int(payload.get("first_token", self.core.eos_id))
+        gen = max(1, int(payload.get("generated", 1)))
+        resume = bool(payload.get("resume"))
+        if resume:
+            self.stats["snapshot_resumes"] += 1
+            req.snapshot_resumes += 1
+        elif req.first_token_at is None:
+            # the first token was sampled remotely and reaches this
+            # worker's client now
+            req.first_token_at = now
+        if first == self.core.eos_id and not resume:
+            req.finish_reason = "eos"
+            self._finish(job)
+            return
+        alive = gen < req.max_tokens
+        if alive:
+            if self._spec_w > 1:
+                # imported pages skip prefill, so the drafting history is
+                # seeded here
+                self._state = self.core.seed_history(self._state, job.slot,
+                                                     job.ids)
+            # a grammar that rode the handoff walks the prefix and the
+            # remotely sampled token: the slot activates at the DFA state
+            # the prefill worker's sample reached (a resume walks its whole
+            # emitted history the same way)
+            gs = (self._gram_state_for(job, extra=(first,))
+                  if req.grammar is not None else 0)
+            self._state = self.core.activate(
+                self._state, job.slot, first, gen, req.max_tokens,
+                req.temperature, req.top_k, req.top_p, seed=req.seed or 0,
+                gram_state=gs)
+            self._slots[job.slot] = job
+        if resume:
+            self._resume_stream_state(job, payload, first, alive)
+            return
+        if self._emit_token(job, first,
+                            float(payload.get("first_logprob") or 0.0)):
+            if alive:
+                self._retire(job)
+            else:
+                self._finish(job)
+            return
+        if not alive:
+            req.finish_reason = "length"
+            self._finish(job)
+
+    def _resume_stream_state(self, job: _Job, payload: dict, first: int,
+                             alive: bool) -> None:
+        """A snapshot's host stream state: replay the emitted tokens
+        through the fresh detokenizer (held UTF-8 bytes continue where the
+        evacuated worker stopped), restore the stop holdback, and emit
+        only the text the client has not seen (``resume_chars``: the
+        characters it was delivered; absent, everything the evacuated
+        worker streamed). The pending token joins ``gen_ids`` without
+        streaming again."""
+        req = job.request
+        replay = "".join(job.detok.push(int(t))
+                         for t in list(job.gen_ids) + [first])
+        job.gen_ids.append(first)
+        req.output_ids = list(job.gen_ids)
+        job.total_len += 1
+        job.stop_buf = str(payload.get("stop_buf") or "")
+        # what the evacuated worker streamed: every delta minus its holdback
+        streamed = max(0, len(replay) - len(job.stop_buf))
+        sent = payload.get("resume_chars")
+        already = streamed if sent is None else max(0, min(int(sent),
+                                                           streamed))
+        gap = replay[already:streamed]
+        if gap:
+            req.out_queue.put(gap)
+        if not alive:
+            # the snapshot sat at the budget: end cleanly without flushing
+            # the replayed text again
+            job.stopped = True
+            req.finish_reason = "length"
+            self._finish(job)
 
     # -- prefill ------------------------------------------------------------
 
@@ -701,10 +918,11 @@ class Scheduler:
             self._enter_decode(job)
         return len(items)
 
-    def _gram_state_for(self, job: _Job) -> int:
+    def _gram_state_for(self, job: _Job, extra: tuple = ()) -> int:
         """The flat DFA state a grammared job's fused first token samples
         under (0: unconstrained). A resume re-walks the tokens it already
-        emitted. Grammars of active, prefilling and pending jobs stay
+        emitted, then ``extra`` (a handoff's remotely sampled first
+        token). Grammars of active, prefilling and pending jobs stay
         pinned (a preempted job's client was promised enforcement). A
         failed registration (an unsupported schema, every slot pinned)
         degrades the job to unconstrained: ``grammar_attached`` False."""
@@ -721,9 +939,10 @@ class Scheduler:
                                 + list(self._prefilling) + pending)
                       if j.request.grammar is not None}
             prefix = job.request.grammar_prefix.encode("utf-8")
-            if job.gen_ids or prefix:
-                state = self.core.walk_grammar(grammar, list(job.gen_ids),
-                                               active, prefix=prefix)
+            tokens = list(job.gen_ids) + list(extra)
+            if tokens or prefix:
+                state = self.core.walk_grammar(grammar, tokens, active,
+                                               prefix=prefix)
             else:
                 state = self.core.register_grammar(grammar, active)
             job.gram_on = state > 0
@@ -737,12 +956,16 @@ class Scheduler:
 
     def _enter_decode(self, job: _Job) -> None:
         """A job's final chunk is dispatched: flag its fused first token
-        for resolution and hand the slot to the decode set."""
+        for resolution and hand the slot to the decode set. A prefill_only
+        slot is released on the device at once: nothing may decode it
+        before its export (its first token stays in ``state.tokens``)."""
         job.first_pending = True
         job.first_inflight = False
         job.first_batched = False
         job.first_epoch += 1
         self._slots[job.slot] = job
+        if job.request.prefill_only:
+            self._state = self.core.release(self._state, job.slot)
 
     def _resolve_first(self, job: _Job, first: int,
                        defer: Optional[List[tuple]] = None,
@@ -764,7 +987,12 @@ class Scheduler:
         req = job.request
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
-        if first == self.core.eos_id:
+        if req.prefill_only:
+            # a prefill_only request ends here: its pages and sampling
+            # state are exported instead of decoded
+            job.handoff_first = (first, lp)
+            end = "handoff"
+        elif first == self.core.eos_id:
             end = "eos"
         elif self._emit_token(job, first, lp):
             end = "stop"
@@ -780,7 +1008,10 @@ class Scheduler:
 
     def _end_first(self, job: _Job, end: str) -> None:
         """Finish a job whose first token ended it: a stop string also
-        deactivates the slot on the device."""
+        deactivates the slot on the device; a prefill_only job exports."""
+        if end == "handoff":
+            self._export_handoff(job, *job.handoff_first)
+            return
         if end == "stop":
             self._retire(job)
             return
@@ -829,6 +1060,340 @@ class Scheduler:
             req.out_queue.put(delta)
         return False
 
+    # -- KV handoff and live migration ---------------------------------------
+
+    def _export_handoff(self, job: _Job, first: int,
+                        lp: Optional[float] = None) -> None:
+        """Finish a prefill_only request by exporting its pages and sampling
+        state (``EngineCore.export_slot_kv``) into ``Request.handoff``. The
+        gather is issued before the slot's pages are freed, and its
+        outputs are fresh tensors, so page reuse cannot reach them."""
+        req = job.request
+        t0 = time.perf_counter()
+        try:
+            payload = self.core.export_slot_kv(self._state, job.pages,
+                                               len(job.ids))
+        except Exception as exc:
+            logger.exception("KV export failed for %s", req.request_id)
+            del self._slots[job.slot]
+            self._state = self.core.release(self._state, job.slot)
+            self._fail(job, f"kv export failed: {exc}")
+            self._release(job)
+            return
+        self._commit_export(payload, t0)
+        self.stats["kv_handoff_exports"] += 1
+        payload.update({
+            "prompt_ids": [int(t) for t in job.ids],
+            "first_token": int(first),
+            "first_logprob": float(lp) if lp is not None else 0.0,
+            "generated": len(job.gen_ids) + 1,
+            **self._sampling_scalars(req),
+        })
+        # the grammar rides as its constructor spec; grammar_attached says
+        # whether this worker's first token was sampled under it
+        payload.update(self._grammar_scalars(job))
+        req.handoff = payload
+        req.finish_reason = "handoff"
+        del self._slots[job.slot]
+        self._state = self.core.release(self._state, job.slot)
+        self._finish(job)
+
+    @staticmethod
+    def _commit_export(payload: dict, t0: float) -> None:
+        """The host seconds an export took to issue (device-native: the
+        gather is not waited for), riding the payload as ``export_s``."""
+        payload["export_s"] = round(time.perf_counter() - t0, 6)
+
+    @staticmethod
+    def _sampling_scalars(req: Request) -> dict:
+        """The sampling scalars every exported payload carries (the
+        prefill handoff and the mid-decode snapshot alike)."""
+        return {"seed": int(req.seed or 0),
+                "max_tokens": int(req.max_tokens),
+                "temperature": float(req.temperature),
+                "top_k": int(req.top_k),
+                "top_p": float(req.top_p),
+                "stop": list(req.stop)}
+
+    @staticmethod
+    def _grammar_scalars(job: _Job) -> dict:
+        req = job.request
+        if not req.grammar_spec:
+            return {}
+        return {"grammar_kind": req.grammar_spec[0],
+                "grammar_payload": req.grammar_spec[1],
+                "grammar_prefix": req.grammar_prefix,
+                "grammar_attached": bool(job.gram_on)}
+
+    def _snapshot_eligible(self, job: _Job) -> bool:
+        """May this slot's live decode state be exported mid-stream? It
+        needs a resolved pending token, base weights (the importer
+        activates at the base model), budget left, and no dispatch in
+        flight (the host view must equal the device's, or the in-flight
+        steps' tokens would be lost)."""
+        req = job.request
+        return (not req.prefill_only and not req.adapter
+                and bool(job.gen_ids) and not job.first_pending
+                and not job.stopped
+                and len(job.gen_ids) < req.max_tokens
+                and not self._inflight)
+
+    def export_live_slot(self, job: _Job, fetch: bool = False) -> dict:
+        """A mid-decode snapshot that a peer resumes token for token at
+        its position: the pages of every position written (``total_len -
+        1``: the last emitted token is the next input, its KV not yet
+        written), the emitted tokens (``prompt_ids`` + ``prompt_len``), the
+        seed and its position (``generated``: the threefry keys fold in
+        the position, so the resumed draws are the same), the stop
+        holdback and the grammar spec. The caller has checked
+        :meth:`_snapshot_eligible`."""
+        req = job.request
+        written = job.total_len - 1
+        t0 = time.perf_counter()
+        payload = self.core.export_slot_kv(self._state, job.pages, written,
+                                           fetch=fetch)
+        self._commit_export(payload, t0)
+        payload.update({
+            "prompt_ids": ([int(t) for t in req.prompt_ids]
+                           + [int(t) for t in job.gen_ids[:-1]]),
+            "prompt_len": len(req.prompt_ids),
+            "first_token": int(job.gen_ids[-1]),
+            "first_logprob": 0.0,
+            "generated": len(job.gen_ids),
+            "resume": True,
+            "stop_buf": job.stop_buf,
+            **self._sampling_scalars(req),
+        })
+        payload.update(self._grammar_scalars(job))
+        return payload
+
+    def request_evacuation(self, rids: Optional[set] = None,
+                           wait_s: float = 30.0, reason: str = "drain",
+                           guard=None) -> dict:
+        """Queue an evacuation for the driver thread and wait up to
+        ``wait_s`` for its summary (0: return at once). ``rids`` limits it
+        to those request ids (None: everything live). ``guard``, when
+        given, is called by the driver when it acts: False cancels the
+        sweep (the trigger may have cleared meanwhile)."""
+        ev = threading.Event()
+        entry = {"rids": set(rids) if rids else None, "event": ev,
+                 "result": None, "reason": reason, "guard": guard}
+        with self._evac_lock:
+            self._evac_reqs.append(entry)
+        self._wake.set()
+        if wait_s and ev.wait(wait_s):
+            return entry["result"] or {}
+        return entry["result"] or {"queued": True, "reason": reason}
+
+    def _prune_outbox(self) -> None:
+        """Expire outbox entries older than ``APP_EVAC_TTL_S`` (the caller
+        holds ``_evac_lock``); insertion order is age order."""
+        now = time.monotonic()
+        while self._evac_outbox:
+            rid, (_payload, parked) = next(iter(self._evac_outbox.items()))
+            if now - parked <= self._evac_ttl_s:
+                break
+            self._evac_outbox.popitem(last=False)
+            self.stats["evacuation_snapshots_expired"] += 1
+            logger.warning("evacuation snapshot for %s expired unpulled "
+                           "after %.0f s; its stream can only resume by "
+                           "re-prefill now", rid, self._evac_ttl_s)
+
+    def take_evacuated(self, rid: str) -> Optional[dict]:
+        """Pop a parked snapshot (each is served once: a second resume
+        would fork the stream)."""
+        with self._evac_lock:
+            self._prune_outbox()
+            entry = self._evac_outbox.pop(rid, None)
+        return entry[0] if entry is not None else None
+
+    def evacuated_ids(self) -> List[str]:
+        with self._evac_lock:
+            self._prune_outbox()
+            return list(self._evac_outbox)
+
+    def _run_evacuations(self) -> bool:
+        """Driver side: run every queued evacuation (and age the outbox,
+        whether or not a pull ever comes)."""
+        with self._evac_lock:
+            if self._evac_outbox:
+                self._prune_outbox()
+            if not self._evac_reqs:
+                return False
+            entries, self._evac_reqs = self._evac_reqs, []
+        for entry in entries:
+            try:
+                guard = entry.get("guard")
+                if guard is not None and not guard():
+                    logger.warning("evacuation (%s) cancelled: its trigger "
+                                   "cleared before the driver could act",
+                                   entry["reason"])
+                    entry["result"] = {"canceled": True,
+                                       "reason": entry["reason"]}
+                    continue
+                entry["result"] = self._do_evacuate(entry["rids"],
+                                                    entry["reason"])
+            except Exception as exc:
+                logger.exception("evacuation failed")
+                entry["result"] = {"error": str(exc)}
+            finally:
+                entry["event"].set()
+        return True
+
+    def _do_evacuate(self, rids: Optional[set], reason: str) -> dict:
+        """Snapshot every live slot (of ``rids``) into the outbox and end
+        its stream with finish_reason "evacuated". The dispatches in flight
+        (multi-step blocks too) resolve first. A job that cannot be
+        snapshotted (first token in flight, mid-prefill, an adapter, still
+        pending) ends the same way without a snapshot: its pull finds
+        nothing and the caller re-prefills; a spilled pending job ships its
+        spill."""
+        while self._inflight:
+            self._process_decode()
+        summary = {"reason": reason, "snapshot": [], "reprefill": []}
+
+        def count(snapshot: bool, req: Request) -> None:
+            kind = "snapshot" if snapshot else "reprefill"
+            self.stats[f"evacuations_{kind}"] += 1
+            summary[kind].append(req.request_id)
+
+        for slot, job in list(self._slots.items()):
+            req = job.request
+            if rids is not None and req.request_id not in rids:
+                continue
+            if self._slots.get(slot) is not job or req.prefill_only:
+                continue   # a prefill_only job awaits its own export
+            payload = None
+            if self._snapshot_eligible(job):
+                try:
+                    payload = self.export_live_slot(job)
+                except Exception:
+                    logger.exception("snapshot export failed for %s; it "
+                                     "resumes by re-prefill",
+                                     req.request_id)
+                    payload = None
+            del self._slots[slot]
+            self._state = self.core.release(self._state, slot)
+            self._cache_insert(job, with_generated=True)
+            count(payload is not None, req)
+            self._finish_evacuated(job, payload)
+        for job in list(self._prefilling):
+            req = job.request
+            if rids is not None and req.request_id not in rids:
+                continue
+            self._prefilling.remove(job)
+            if job.slot >= 0:
+                self._state = self.core.release(self._state, job.slot)
+                self._cache_insert(job, with_generated=True)
+            count(False, req)
+            self._finish_evacuated(job, None)
+        with self._lock:
+            pending = [j for j in self._pending
+                       if rids is None or j.request.request_id in rids]
+            for job in pending:
+                self._pending.remove(job)
+        for job in pending:
+            # a spilled job holds a complete host snapshot already
+            payload = job.spill
+            if payload is not None:
+                self._drop_spill(job, outcome="evacuated")
+            count(payload is not None, job.request)
+            self._finish_evacuated(job, payload)
+        return summary
+
+    def _finish_evacuated(self, job: _Job, payload: Optional[dict]) -> None:
+        """End an evacuated stream: finish_reason "evacuated" (resumable,
+        not an error), the snapshot parked before the stream's end (a
+        consumer that sees the end and pulls at once finds it), and no
+        detokenizer flush (held bytes re-emerge from the resume's
+        replay)."""
+        req = job.request
+        req.finish_reason = "evacuated"
+        if payload is not None:
+            with self._evac_lock:
+                self._prune_outbox()
+                self._evac_outbox[req.request_id] = (payload,
+                                                     time.monotonic())
+                self._evac_outbox.move_to_end(req.request_id)
+                while len(self._evac_outbox) > self._evac_outbox_cap:
+                    self._evac_outbox.popitem(last=False)
+        req.finished_at = time.perf_counter()
+        req.out_queue.put(_STOP)
+        self._release(job)
+
+    def _drop_spill(self, job: _Job, outcome: str = "dropped") -> None:
+        """Return a dead spilled job's bytes to the pool's budget."""
+        if job.spill is not None and self._spill is not None:
+            self._spill.release(job.request.request_id, outcome=outcome)
+        job.spill = None
+
+    def _spill_out(self, job: _Job) -> bool:
+        """Demote a preemption victim's pages to the host spill pool
+        instead of freeing and recomputing them: one device-to-host copy
+        now, one upload at promotion, no prefill. False when the job is
+        ineligible or the pool over budget: the caller recomputes."""
+        if self._spill is None or self._slots.get(job.slot) is not job \
+                or not self._snapshot_eligible(job):
+            return False
+        req = job.request
+        try:
+            payload = self.export_live_slot(job, fetch=True)
+        except Exception:
+            logger.exception("spill export failed for %s; recomputing",
+                             req.request_id)
+            return False
+        if not self._spill.admit(req.request_id, payload):
+            return False   # over APP_KV_SPILL_MB: recompute
+        job.spill = payload
+        del self._slots[job.slot]
+        self._state = self.core.release(self._state, job.slot)
+        self._cache_insert(job, with_generated=True)
+        self._release(job)
+        # the job keeps its live detokenizer, stop and grammar state; only
+        # its KV moved. ids cover the written context and the pending token
+        job.ids = list(req.prompt_ids) + list(job.gen_ids)
+        job.prefilled = job.total_len = 0
+        with self._lock:
+            self._pending.appendleft(job)
+        req.preemptions += 1
+        self.stats["preemptions"] += 1
+        logger.info("spilled request %s at %d generated tokens (%d bytes "
+                    "on the host)", req.request_id, len(job.gen_ids),
+                    self._spill.used_bytes)
+        return True
+
+    def _admit_spilled(self, job: _Job) -> None:
+        """Promotion: re-import a spilled job's pages into its fresh ones and
+        reactivate the slot at the snapshot's position. No prefill runs,
+        and nothing is re-emitted: the job's stream state never left."""
+        req = job.request
+        payload = job.spill
+        job.spill = None
+        if self._spill is not None:
+            self._spill.release(req.request_id, outcome="promoted")
+        try:
+            self._state = self.core.import_slot_kv(self._state, job.slot,
+                                                   job.pages, payload)
+        except Exception as exc:
+            # a local promote cannot fail for wire reasons: fail loudly,
+            # never serve garbage KV
+            logger.exception("spill promote failed for %s", req.request_id)
+            self._fail(job, f"kv spill promote failed: {exc}")
+            self._release(job)
+            return
+        job.prefilled = job.total_len = len(job.ids)
+        self.stats["spill_resumes"] += 1
+        req.spill_resumes += 1
+        if self._spec_w > 1:
+            self._state = self.core.seed_history(self._state, job.slot,
+                                                 job.ids)
+        gs = self._gram_state_for(job) if req.grammar is not None else 0
+        self._state = self.core.activate(
+            self._state, job.slot, int(job.gen_ids[-1]), len(job.gen_ids),
+            req.max_tokens, req.temperature, req.top_k, req.top_p,
+            seed=req.seed or 0, gram_state=gs)
+        self._slots[job.slot] = job
+
     # -- decode -------------------------------------------------------------
 
     def _grow_pages(self, steps: int, spec_w: int = 1) -> int:
@@ -846,6 +1411,8 @@ class Scheduler:
             job = self._slots.get(slot)
             if job is None:
                 continue   # finished or preempted earlier in this pass
+            if job.request.prefill_only:
+                continue   # awaiting its export; never decode-advances
             while self._slots.get(slot) is job:
                 next_write = job.total_len + self._pending_steps
                 target = min(self.core.pages_for(next_write
@@ -884,9 +1451,14 @@ class Scheduler:
         return p2
 
     def _preempt(self, job: _Job) -> None:
-        """Recompute preemption: free the slot and pages, re-queue the job
-        at the head as prompt + generated tokens. Results still in flight
-        for it are dropped by the identity checks."""
+        """Preemption under page pressure: with the host spill pool armed a
+        decoding victim's pages demote to host RAM (``_spill_out``); else,
+        or when it is ineligible or over budget, recompute preemption: free
+        the slot and pages, re-queue the job at the head as prompt +
+        generated tokens. Results still in flight for it are dropped by
+        the identity checks."""
+        if self._spill_out(job):
+            return
         if self._slots.get(job.slot) is job:
             del self._slots[job.slot]
         else:
@@ -978,8 +1550,9 @@ class Scheduler:
         at a page, not a chunk, boundary): the mixed program pads every
         chunk to ``prefill_chunk`` positions, which would pass the row, so
         that chunk takes the grouped path, which pads to pages. Nor an
-        adapter'd job: the mixed program runs base weights only."""
-        if job.adapter_ix or job.request.adapter:
+        adapter'd job: the mixed program runs base weights only. Nor a
+        prefill_only job: its export stays on the grouped program."""
+        if job.adapter_ix or job.request.adapter or job.request.prefill_only:
             return False
         if job.prefilled + self.core.chunk > self.core.row_tokens:
             return False
@@ -1293,7 +1866,9 @@ class Scheduler:
 
     def _tick(self) -> bool:
         """One scheduling round; False when fully idle."""
-        worked = False
+        # queued evacuations run first: the driver owns the device state,
+        # and an evacuating worker's ticks move streams out
+        worked = self._run_evacuations()
         # results that already landed resolve now: first tokens stamp and
         # done slots free without waiting for the backpressure point
         while self._inflight and self._inflight[0].result.done():
@@ -1315,7 +1890,8 @@ class Scheduler:
         # while slots decode and few enough prompts prefill, each prompt's
         # next chunk rides the decode dispatch instead of stalling it; a
         # ramp that holds keeps the grouped prefill
-        try_mixed = (bool(self._prefilling) and bool(self._slots)
+        try_mixed = (self._role != "prefill"
+                     and bool(self._prefilling) and bool(self._slots)
                      and self.core.mixed_supported
                      and len(self._prefilling) <= self.core.prefill_group_max
                      and not (self._holding and self._hold_left > 0)
@@ -1331,7 +1907,9 @@ class Scheduler:
         self._fetch_first_tokens(hold)
         if self._slots and hold:
             self.stats["held_ticks"] += 1
-        elif self._slots:
+        elif self._slots and self._role != "prefill":
+            # a prefill worker never dispatches decode: its slots are
+            # finished prefills awaiting their first token and export
             self._dispatch_decode(try_mixed)
             worked = True
         # backpressure: at most pipeline_depth dispatches in flight; drain

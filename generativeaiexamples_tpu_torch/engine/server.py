@@ -26,8 +26,22 @@ adapter routes every choice to it, an unknown id gets a 404 once adapters
 exist, and every response shape (buffered, streamed, ``n`` > 1, tools)
 echoes the requested id.
 
-Not ported (ROADMAP A7, A9): KV handoff, drain/evacuation, metrics and
-debug endpoints.
+KV movement, as there: ``POST /v1/kv/prefill`` prefills a request
+(``prefill_only``; the chat preparation of ``/v1/chat/completions``, plus
+``continue_text``) and answers its exported pages and sampling state as a
+binary frame (``core/kv_wire.py``) to an ``Accept`` that names
+``application/x-kv-frames``, else as JSON-base64; ``POST /v1/kv/handoff``
+imports such a body and streams the completion as SSE framed like chat
+completions (``X-Resume-Chars`` for a snapshot resume); ``GET
+/v1/kv/evacuation/<rid>`` serves a request's mid-decode snapshot once
+(from the outbox, or taken from the live slot on demand) and answers 404
+when there is none. An undecodable body answers 400, a geometry or dtype
+mismatch 409, and a ``role=prefill`` worker 409 on the generation routes;
+``/health`` carries ``engine_role`` and the wires it reads (``kv_wire``).
+A request naming a LoRA adapter is refused on both handoff routes (400):
+the reference hands it off on the base weights (ROADMAP C8).
+
+Not ported (ROADMAP A.10): drain, metrics and debug endpoints.
 """
 
 from __future__ import annotations
@@ -36,12 +50,14 @@ import functools
 import json
 import logging
 import queue
+import re
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
+from generativeaiexamples_tpu_torch.core import kv_wire
 from generativeaiexamples_tpu_torch.engine import grammar as grammar_mod
 from generativeaiexamples_tpu_torch.engine import tools as tools_mod
 from generativeaiexamples_tpu_torch.engine.engine import TOP_LP
@@ -49,6 +65,7 @@ from generativeaiexamples_tpu_torch.engine.scheduler import Request, Scheduler
 
 MAX_TOKENS_CAP = 1024
 MAX_CHOICES = 4
+_RID_SAFE = re.compile(r"[^A-Za-z0-9_.:\-]")
 logger = logging.getLogger(__name__)
 
 
@@ -66,8 +83,9 @@ def _finish_reason(req, default: str = "stop") -> str:
         return "error"
     if default == "tool_calls":
         return default
-    if getattr(req, "finish_reason", None) == "length":
-        return "length"
+    if getattr(req, "finish_reason", None) in ("length", "evacuated"):
+        # "evacuated" passes through: a router resumes the stream on it
+        return req.finish_reason
     return default
 
 
@@ -110,7 +128,19 @@ class BadRequest(ValueError):
 
 
 class NotFound(LookupError):
-    """An unknown model id: the handler answers 404."""
+    """An unknown model id or request: the handler answers 404."""
+
+
+class Conflict(RuntimeError):
+    """A request this worker cannot serve (its role, or a handoff its pool
+    cannot host): the handler answers 409."""
+
+
+class KVBody:
+    """A KV route's answer: the encoded payload and its content type."""
+
+    def __init__(self, body: bytes, content_type: str, rid: str) -> None:
+        self.body, self.content_type, self.rid = body, content_type, rid
 
 
 class Call:
@@ -138,10 +168,26 @@ class ModelServer:
         self.scheduler = scheduler
         self.model_name = model_name
 
+    @property
+    def role(self) -> str:
+        """This worker's serving role (``EngineConfig.role``)."""
+        return str(getattr(getattr(self.scheduler, "core", None), "role",
+                           "unified") or "unified")
+
     def health(self) -> Dict[str, Any]:
         core = self.scheduler.core
-        return {"message": "Service is up.", **self.scheduler.load_stats(),
+        # kv_wire: the handoff bodies this worker reads, so a router never
+        # sends a frame to a worker that would refuse it
+        return {"message": "Service is up.", "kv_wire": ["binary", "json"],
+                **self.scheduler.load_stats(),
                 "quant": core.quant, "weight_bytes": core.param_bytes}
+
+    def require_decode_capable(self) -> None:
+        if self.role == "prefill":
+            raise Conflict("this worker serves APP_ENGINE_ROLE=prefill: it "
+                           "only runs chunked prefill (/v1/kv/prefill) and "
+                           "never decodes; route generation to a decode or "
+                           "unified worker")
 
     def models(self) -> Dict[str, Any]:
         """The base model and, as first-class model ids, every registered
@@ -273,6 +319,7 @@ class ModelServer:
 
     def submit(self, path: str, body: Dict[str, Any]) -> Call:
         """Parse a request and submit its ``n`` choices."""
+        self.require_decode_capable()
         tok = self.scheduler.tokenizer
         chat = path == "/v1/chat/completions"
         adapter = self._adapter_for(body)
@@ -307,6 +354,152 @@ class ModelServer:
 
     def _text(self, req: Request) -> str:
         return "".join(self.scheduler.iter_text(req))
+
+    # ------------------------------------------ KV handoff (disaggregation)
+
+    def _refuse_adapter(self, model_id: str) -> None:
+        """A LoRA adapter's request cannot cross a handoff: the importer
+        activates at the base model, so it would decode on base weights."""
+        if model_id and model_id in self._adapter_names():
+            raise BadRequest(
+                f"model {model_id!r} is a LoRA adapter: adapter requests "
+                f"cannot be handed off (the KV handoff carries no adapter "
+                f"slot); send it to /v1/chat/completions")
+
+    def _prompt_ids_from_body(self, body: Dict[str, Any]) -> tuple:
+        """A /v1/kv/prefill body -> ``(prompt_ids, grammar, grammar_spec,
+        continue_text)``: chat messages take the chat endpoint's
+        preparation; a raw ``prompt`` is encoded as it is (no grammar);
+        ``continue_text`` appends an emitted prefix, which the grammar
+        walks before its first sample."""
+        tok = self.scheduler.tokenizer
+        grammar = spec = None
+        if body.get("messages"):
+            prep = self._prepare_chat(body)
+            ids = tok.apply_chat_template(prep["messages"])
+            grammar, spec = self._grammar_for_prep(prep)
+        else:
+            ids = tok.encode(str(body.get("prompt", "")), add_bos=True)
+        cont = str(body.get("continue_text") or "")
+        if cont:
+            ids = ids + tok.encode(cont)
+        return ids, grammar, spec, cont
+
+    @staticmethod
+    def wants_kv_frames(accept: str) -> bool:
+        """Frames only to a client whose Accept names them; any other gets
+        the JSON-base64 wire."""
+        return kv_wire.KV_FRAMES_CONTENT_TYPE in (accept or "")
+
+    def kv_prefill(self, body: Dict[str, Any], accept: str) -> KVBody:
+        """Prefill a request and answer its handoff payload (any role may
+        serve it) in the negotiated wire form. The host copy of the
+        device-native payload is made here, on the handler's thread, after
+        the gather's event."""
+        self._refuse_adapter(str(body.get("model") or ""))
+        ids, grammar, spec, cont = self._prompt_ids_from_body(body)
+        sampling = self._sampling(body)
+        sampling.pop("logprobs", None)
+        sampling.pop("top_logprobs", None)
+        req = Request(prompt_ids=list(ids), prefill_only=True,
+                      grammar=grammar, grammar_spec=spec,
+                      grammar_prefix=cont, **sampling)
+        self.scheduler.submit(req)
+        self._text(req)
+        if req.error or not req.handoff:
+            raise RuntimeError(req.error or "prefill produced no handoff")
+        data, ctype = kv_wire.encode_for_wire(req.handoff,
+                                              self.wants_kv_frames(accept))
+        return KVBody(data, ctype, req.request_id)
+
+    def kv_handoff(self, raw: bytes, content_type: str,
+                   resume_chars: Optional[str] = None):
+        """Import a /v1/kv/prefill payload (or an evacuation snapshot) and
+        submit it: ``(request, model id)``. An undecodable body raises
+        BadRequest (400); a payload this pool cannot host, Conflict
+        (409)."""
+        self.require_decode_capable()
+        if kv_wire.is_kv_frames(raw, content_type):
+            try:
+                payload = kv_wire.decode_kv_frames(raw)
+            except kv_wire.KVWireError as exc:
+                raise BadRequest(f"undecodable handoff frame: {exc}")
+        else:
+            try:
+                body = json.loads(raw)
+                if not isinstance(body, dict):
+                    raise ValueError("the body is not a JSON object")
+                payload = kv_wire.decode_kv_payload(body)
+            except Exception as exc:
+                raise BadRequest(f"undecodable handoff payload: {exc}")
+        self._refuse_adapter(str(payload.get("adapter")
+                                 or payload.get("model") or ""))
+        if payload.get("resume") and resume_chars is not None:
+            # the characters the client was delivered: the resume emits
+            # only the gap after them
+            try:
+                payload["resume_chars"] = int(resume_chars)
+            except ValueError:
+                raise BadRequest("X-Resume-Chars must be an int")
+        # the grammar rides as its constructor spec; it attaches only where
+        # the exporting worker enforced it (a degraded first token must not
+        # be passed off as constrained)
+        grammar = None
+        kind = str(payload.get("grammar_kind") or "")
+        if kind and payload.get("grammar_attached"):
+            grammar = _grammar_for(kind,
+                                   str(payload.get("grammar_payload") or ""))
+        try:
+            req = Request(
+                prompt_ids=[int(t) for t in payload.get("prompt_ids", [])],
+                max_tokens=int(payload.get("max_tokens", 128)),
+                temperature=float(payload.get("temperature", 0.7)),
+                top_k=int(payload.get("top_k", 0)),
+                top_p=float(payload.get("top_p", 1.0)),
+                stop=parse_stop(payload.get("stop")),
+                seed=int(payload.get("seed", 0)), grammar=grammar,
+                grammar_prefix=str(payload.get("grammar_prefix") or ""))
+        except (TypeError, ValueError) as exc:
+            raise BadRequest(f"undecodable handoff payload: {exc}")
+        try:
+            self.scheduler.submit_prefilled(req, payload)
+        except ValueError as exc:
+            raise Conflict(str(exc))
+        return req, str(payload.get("model") or self.model_name)
+
+    def handoff_stream(self, req: Request, model: str):
+        """SSE payloads of a handed-off request, framed like a chat
+        completion stream."""
+        rid = f"chatcmpl-{uuid.uuid4().hex[:16]}"
+        yield _chunk(model, rid, {"role": "assistant"})
+        for delta in self.scheduler.iter_text(req):
+            yield _chunk(model, rid, {"content": delta})
+        final = json.loads(_chunk(model, rid, {}, _finish_reason(req)))
+        if req.error:
+            final["error"] = req.error
+        yield json.dumps(final)
+        yield "[DONE]"
+
+    def kv_evacuation(self, rid: str, accept: str) -> KVBody:
+        """One request's mid-decode snapshot, served once: the parked one,
+        or the live slot's taken now (a one-request evacuation through the
+        driver). NotFound when there is none (finished, never
+        snapshottable, or pulled already): resume by re-prefill."""
+        rid = _RID_SAFE.sub("", rid)[:64]
+        if not rid:
+            raise BadRequest("missing request id")
+        payload = self.scheduler.take_evacuated(rid)
+        if payload is None:
+            self.scheduler.request_evacuation(rids={rid}, wait_s=15.0,
+                                              reason="pull")
+            payload = self.scheduler.take_evacuated(rid)
+        if payload is None:
+            raise NotFound(f"no evacuable state for request {rid!r} "
+                           f"(finished, never snapshottable, or already "
+                           f"pulled): resume by re-prefill")
+        data, ctype = kv_wire.encode_for_wire(payload,
+                                              self.wants_kv_frames(accept))
+        return KVBody(data, ctype, rid)
 
     def _usage(self, call: Call) -> Dict[str, int]:
         n = sum(r.completion_tokens for r in call.reqs)
@@ -505,49 +698,100 @@ def _handler_class(server: ModelServer):
             logger.debug("%s " + fmt, self.address_string(), *args)
 
         def _json(self, status: int, body: Dict[str, Any]) -> None:
-            data = json.dumps(body).encode()
+            self._bytes(status, json.dumps(body).encode(), "application/json")
+
+        def _bytes(self, status: int, data: bytes, ctype: str,
+                   rid: Optional[str] = None) -> None:
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
+            if rid:
+                self.send_header("X-Request-Id", rid)
             self.end_headers()
             self.wfile.write(data)
+
+        def _sse(self, rid: str, payloads) -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("X-Request-Id", rid)
+            self.end_headers()
+            for payload in payloads:
+                self.wfile.write(f"data: {payload}\n\n".encode())
+                self.wfile.flush()
+
+        def _guarded(self, fn):
+            """Run a route; its refusals answer 400, 404 or 409."""
+            try:
+                return fn()
+            except NotFound as exc:
+                self._json(404, {"error": str(exc)})
+            except Conflict as exc:
+                self._json(409, {"error": str(exc)})
+            except (BadRequest, ValueError, NotImplementedError) as exc:
+                self._json(400, {"error": str(exc)})
+            return None
 
         def do_GET(self):
             if self.path == "/health":
                 self._json(200, server.health())
             elif self.path == "/v1/models":
                 self._json(200, server.models())
+            elif self.path.startswith("/v1/kv/evacuation/"):
+                out = self._guarded(lambda: server.kv_evacuation(
+                    self.path[len("/v1/kv/evacuation/"):],
+                    self.headers.get("Accept", "")))
+                if out is not None:
+                    self._bytes(200, out.body, out.content_type, out.rid)
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 
+        def _read(self) -> bytes:
+            length = int(self.headers.get("Content-Length") or 0)
+            return self.rfile.read(length) if length else b""
+
+        def _json_body(self, raw: bytes) -> Dict[str, Any]:
+            body = json.loads(raw or b"{}")
+            if not isinstance(body, dict):
+                raise BadRequest("the request body must be a JSON object")
+            return body
+
         def do_POST(self):
-            if self.path not in ("/v1/chat/completions", "/v1/completions"):
+            routes = ("/v1/chat/completions", "/v1/completions",
+                      "/v1/kv/prefill", "/v1/kv/handoff")
+            if self.path not in routes:
                 self._json(404, {"error": f"no route {self.path}"})
                 return
-            try:
-                length = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(length) or b"{}")
-                if not isinstance(body, dict):
-                    raise BadRequest("the request body must be a JSON object")
-                call = server.submit(self.path, body)
-            except NotFound as exc:
-                self._json(404, {"error": str(exc)})
+            raw = self._read()
+            if self.path == "/v1/kv/prefill":
+                try:
+                    out = self._guarded(lambda: server.kv_prefill(
+                        self._json_body(raw),
+                        self.headers.get("Accept", "")))
+                except RuntimeError as exc:   # the prefill itself failed
+                    self._json(503, {"error": str(exc)})
+                    return
+                if out is not None:
+                    self._bytes(200, out.body, out.content_type, out.rid)
                 return
-            except (BadRequest, ValueError, NotImplementedError) as exc:
-                self._json(400, {"error": str(exc)})
+            if self.path == "/v1/kv/handoff":
+                got = self._guarded(lambda: server.kv_handoff(
+                    raw, self.headers.get("Content-Type", ""),
+                    self.headers.get("X-Resume-Chars")))
+                if got is not None:
+                    req, model = got
+                    self._sse(req.request_id,
+                              server.handoff_stream(req, model))
+                return
+            call = self._guarded(lambda: server.submit(
+                self.path, self._json_body(raw)))
+            if call is None:
                 return
             if not call.stream:
                 payload = server.complete(call)
                 self._json(503 if call.req.error else 200, payload)
                 return
-            self.send_response(200)
-            self.send_header("Content-Type", "text/event-stream")
-            self.send_header("Cache-Control", "no-cache")
-            self.send_header("X-Request-Id", call.req.request_id)
-            self.end_headers()
-            for payload in server.stream(call):
-                self.wfile.write(f"data: {payload}\n\n".encode())
-                self.wfile.flush()
+            self._sse(call.req.request_id, server.stream(call))
 
     return Handler
 

@@ -1324,3 +1324,182 @@ def test_engine_lora_streams_kernel_match_plain(cuda_device, monkeypatch):
                             if path == "kernel" else 0)
     assert streams["kernel"] == streams["plain"]
     assert streams["kernel"][0] != streams["kernel"][1]
+
+
+# ---------------------------------------------------------------------------
+# KV movement on the card: the device-native handoff, its frame, and the
+# spill through pinned host tensors (tiny model, f32, seeded weights)
+# ---------------------------------------------------------------------------
+
+_KV_GEOMETRY = dict(max_batch_size=4, max_seq_len=128, prefill_chunk=16,
+                    page_size=16, prefill_hold_chunks=0, spec_decode="off",
+                    mixed_phase_dispatch="off")
+
+
+def _kv_sched(dev, role="unified", kv_quant="none", **kw):
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(5),
+                               cfg)
+    tok = ByteTokenizer()
+    ecfg = EngineConfig(role=role, kv_quant=kv_quant,
+                        **{**_KV_GEOMETRY, **kw})
+    return Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id, device=dev),
+                     tok)
+
+
+def _tick_all(sched, reqs, submit=True):
+    if submit:
+        for r in reqs:
+            sched.submit(r)
+    for _ in range(6000):
+        sched._tick()
+        if all(r.finished_at is not None for r in reqs):
+            assert all(r.error is None for r in reqs), \
+                [r.error for r in reqs]
+            return reqs
+    raise AssertionError("requests did not finish within the tick budget")
+
+
+def _prefilled(dev, kv_quant, prompt, kw):
+    """A prefill-role scheduler's device-native export of ``prompt``."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+
+    pre = _kv_sched(dev, "prefill", kv_quant)
+    rp = _tick_all(pre, [Request(prompt_ids=list(prompt), prefill_only=True,
+                                 **kw)])[0]
+    assert rp.finish_reason == "handoff"
+    assert pre.stats["decode_dispatches"] == 0
+    return rp.handoff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_device_native_handoff_imports_bit_equal_on_the_card(cuda_device,
+                                                             kv_quant):
+    """``export_slot_kv(fetch=False)`` keeps the payload on the card, with
+    the serving stream's event behind its gather; ``import_slot_kv``
+    scatters those CUDA tensors into other pages of a second pool, whose
+    re-export is bit-equal; and the decode-role scheduler fed the payload
+    streams the unified stream's tokens with no ``flash_prefill`` launch."""
+    from generativeaiexamples_tpu_torch.core import kv_wire
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    prompt = ByteTokenizer().encode("the quick brown fox jumps over the "
+                                    "lazy dog", add_bos=True)
+    kw = dict(max_tokens=12, temperature=0.7, seed=123)
+    payload = _prefilled(cuda_device, kv_quant, prompt, kw)
+    arrays = ("k", "v", "k_s", "v_s") if kv_quant == "int8" else ("k", "v")
+    for key in arrays:
+        assert payload[key].is_cuda, key
+    assert isinstance(payload[kv_wire.READY_KEY], torch.cuda.Event)
+
+    dec = _kv_sched(cuda_device, "decode", kv_quant)
+    core, n = dec.core, int(payload["n_pages"])
+    pages = list(range(core.num_pages - n, core.num_pages))
+    state = core.import_slot_kv(core.init_state(), 1, pages, payload)
+    assert int(state.cache.lengths[1]) == payload["length"]
+    back = core.export_slot_kv(state, pages, payload["length"])
+    for key in arrays:
+        assert back[key].dtype == payload[key].dtype
+        assert torch.equal(back[key].view(torch.uint8),
+                           payload[key].view(torch.uint8)), key
+
+    ref = _tick_all(dec, [Request(prompt_ids=list(prompt), **kw)])[0]
+    tk.reset_launch_counts()
+    rd = dec.submit_prefilled(Request(prompt_ids=list(prompt), **kw),
+                              payload)
+    _tick_all(dec, [rd], submit=False)
+    assert tk.launch_counts()["flash_prefill"] == 0
+    key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+           else "ragged_paged_attention")
+    assert tk.launch_counts()[key] > 0
+    assert rd.output_ids == ref.output_ids
+
+
+@pytest.mark.cuda
+def test_frame_of_a_device_native_payload_on_the_card(cuda_device):
+    """A frame encoded from a payload that still carries ``READY_KEY``
+    waits on that event, ships no process-local key, and decodes to the
+    payload's bits."""
+    from generativeaiexamples_tpu_torch.core import kv_wire
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    prompt = ByteTokenizer().encode("voltage report for pump four",
+                                    add_bos=True)
+    for kv_quant in ("none", "int8"):
+        payload = _prefilled(cuda_device, kv_quant, prompt,
+                             dict(max_tokens=4, temperature=0.0))
+        assert kv_wire.READY_KEY in payload
+        body = kv_wire.encode_kv_frames(payload)
+        assert kv_wire.READY_KEY not in kv_wire.peek_kv_frames_meta(body)
+        out = kv_wire.decode_kv_frames(body)
+        for key in kv_wire.PAYLOAD_ARRAYS:
+            if payload.get(key) is None:
+                assert out.get(key) is None
+                continue
+            assert torch.equal(out[key].view(torch.uint8),
+                               payload[key].cpu().view(torch.uint8)), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_spill_round_trip_through_pinned_host_tensors_on_the_card(
+        cuda_device, monkeypatch, kv_quant):
+    """Page exhaustion with a spill budget: the victim's pages go to pinned
+    host tensors, come back with no ``flash_prefill`` launch, and both
+    streams equal the roomy pool's."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode("the quick brown fox jumps over the lazy"),
+               tok.encode("pack my box with five dozen liquor ju")]
+    kws = [dict(max_tokens=60, temperature=0.7, seed=11),
+           dict(max_tokens=60, temperature=0.0, seed=22)]
+
+    def reqs():
+        return [Request(prompt_ids=list(p), **kw)
+                for p, kw in zip(prompts, kws)]
+
+    monkeypatch.delenv("APP_KV_SPILL_MB", raising=False)
+    roomy = _tick_all(_kv_sched(cuda_device, kv_quant=kv_quant,
+                                max_batch_size=2, prefix_cache="off"),
+                      reqs())
+    monkeypatch.setenv("APP_KV_SPILL_MB", "64")
+    # 2 slots x 3 prompt pages + 2 spares: decode growth exhausts the pool
+    sched = _kv_sched(cuda_device, kv_quant=kv_quant, max_batch_size=2,
+                      num_pages=8, prefix_cache="off")
+    pinned = []
+    admit = sched._spill.admit
+
+    def spy(rid, payload):
+        pinned.extend(payload[k].is_pinned()
+                      for k in ("k", "v", "k_s", "v_s")
+                      if payload.get(k) is not None)
+        return admit(rid, payload)
+
+    monkeypatch.setattr(sched._spill, "admit", spy)
+    r1, r2 = reqs()
+    sched.submit(r1)
+    sched.submit(r2)
+    for _ in range(6000):
+        sched._tick()
+        if r1.spill_resumes + r2.spill_resumes >= 1:
+            break
+    else:
+        raise AssertionError("no spill resume under page pressure")
+    tk.reset_launch_counts()
+    _tick_all(sched, [r1, r2], submit=False)
+    assert pinned and all(pinned)
+    assert tk.launch_counts()["flash_prefill"] == 0, \
+        "the spill promotion ran a prefill"
+    assert sched.stats["spill_resumes"] >= 1
+    assert sched.stats["kv_spill_spilled"] == sched.stats["kv_spill_promoted"]
+    assert [r1.output_ids, r2.output_ids] == [r.output_ids for r in roomy]

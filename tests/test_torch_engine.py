@@ -181,13 +181,22 @@ def test_stop_string_ends_stream(tiny):
     assert req.finish_reason == "stop"
 
 
-def test_unported_request_fields_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Request(prompt_ids=[1], prefill_only=True)
-    # logprobs and grammars are served since A.5 and A.6, adapters since
-    # A.7
+def test_unported_request_fields_raise(monkeypatch):
+    # every Request field is served now: logprobs and grammars since A.5
+    # and A.6, adapters since A.7, prefill_only (the KV handoff) since A.9
+    assert Request(prompt_ids=[1], prefill_only=True).prefill_only
     assert Request(prompt_ids=[1], adapter="lora-a").adapter == "lora-a"
     assert Request(prompt_ids=[1], logprobs=True, top_logprobs=5).logprobs
+    # role and kv_spill_mb left NOT_PORTED with it; the prefix tier's knobs
+    # stay refused, naming its slice
+    from generativeaiexamples_tpu_torch.core.config import (NOT_PORTED,
+                                                            load_config)
+    assert "role" not in NOT_PORTED and "kv_spill_mb" not in NOT_PORTED
+    for knob, value in (("KV_TIER", "prefix"), ("KV_TIER_DISK_MB", "64")):
+        monkeypatch.setenv(f"APP_ENGINE_{knob}", value)
+        with pytest.raises(NotImplementedError, match="A.9, second part"):
+            load_config()
+        monkeypatch.delenv(f"APP_ENGINE_{knob}")
 
 
 def test_engine_refuses_kernel_attention_on_cpu(tiny):

@@ -137,6 +137,31 @@ def test_every_module_imports_without_hf_packages():
     assert proc.stdout.strip() == f"ok {len(mods)}"
 
 
+def test_every_module_imports_without_ml_dtypes():
+    """The card's machine has no ``ml_dtypes``: every module of the port
+    and the smoke script import with it refused (the KV wire reads bf16
+    as its raw 2-byte words), and no source imports it."""
+    guard = _GUARD.replace(
+        'FORBIDDEN = ("jax", "jaxlib", "generativeaiexamples_tpu")',
+        'FORBIDDEN = ("ml_dtypes",)')
+    assert guard != _GUARD
+    mods = sorted(_modules()) + ["chip_smoke"]
+    proc = subprocess.run([sys.executable, "-c", guard, *mods], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == f"ok {len(mods)}"
+    for path in _sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.module else [])
+            assert not [n for n in names if n.split(".")[0] == "ml_dtypes"], \
+                f"{path}:{node.lineno} imports ml_dtypes"
+
+
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     """With no GPU and no explicit CPU request the entry points raise; an
     explicit ``device='cpu'`` works."""

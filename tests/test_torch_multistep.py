@@ -2,8 +2,7 @@
 against the JAX package on the CPU (the tiny model, ``PRNGKey(2)`` weights
 through ``params_from_jax``, each package's byte tokenizer).
 
-Every case of ``tests/test_decode_multistep.py`` has its counterpart here
-but the evacuation, which waits for the port's KV movement:
+Every case of ``tests/test_decode_multistep.py`` has its counterpart here:
 
 * the M ladder's gate, validation, env override and config loading equal
   the reference's, and ``decode_multi`` on an engine with it off raises;
@@ -26,7 +25,10 @@ but the evacuation, which waits for the port's KV movement:
   first token resolves between the steps of a multi dispatch;
 * ``warmup`` visits every depth and M rung and leaves the first request's
   stream unchanged; the new engine and scheduler code reads nothing back
-  from the device.
+  from the device;
+* a slot evacuated with multi-step dispatches in flight resumes on a peer
+  through ``submit_prefilled`` and the joined stream equals the
+  unevacuated one.
 """
 
 import concurrent.futures
@@ -238,7 +240,7 @@ def test_env_override_and_config_load(tiny, monkeypatch):
     eng = load_config().engine
     assert (eng.decode_multistep, eng.decode_steps_max) == (8, 32)
     monkeypatch.setenv("APP_ENGINE_KV_TIER", "prefix")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A.9, second part"):
         load_config()
 
 
@@ -747,3 +749,59 @@ def test_new_step_code_reads_nothing_back_from_the_device():
             r"\.(cpu|item|tolist|numpy|result|synchronize|query)\(", src), \
             fn.__qualname__
         assert "bool(" not in src, fn.__qualname__
+
+
+# ------------------------------------------------------------- evacuation
+
+def test_multistep_evacuation_resumes_token_identical(tiny, late_copies):
+    """A slot evacuated mid-generation with multi-step dispatches in flight
+    (a device whose copies land late keeps them in flight into the
+    evacuation's tick) resumes via ``submit_prefilled`` on a peer, and the
+    joined stream equals the unevacuated one, and the JAX
+    ``Scheduler``'s."""
+    kw = dict(PLAIN, decode_multistep=4)
+    rkw = dict(max_tokens=20, temperature=0.7, seed=123)
+    prompt = _ids("the quick brown fox jumps over")
+    (ref,) = _run(Scheduler(_core(tiny, **kw), TOK),
+                  [Request(prompt_ids=list(prompt), **rkw)])
+    oracle = _text(ref)
+    assert oracle
+    (jref,) = _run(_jax_sched(_jax_core(tiny, **kw)),
+                   [JaxRequest(prompt_ids=list(prompt), logprobs=True, **rkw)])
+    assert ref.output_ids == _jax_tokens([jref])[0]
+
+    src_core = _core(tiny, **kw)
+    calls = _spy(src_core)
+    src = Scheduler(src_core, TOK)
+    r = Request(prompt_ids=list(prompt), **rkw)
+    src.submit(r)
+    for _ in range(4000):
+        src._tick()
+        if r.completion_tokens >= 4:
+            break
+        assert r.finished_at is None
+    assert any(c[0] == "multi" for c in calls), \
+        "evacuation raced nothing: multi-step never dispatched"
+    assert any(d.positions > 2 for d in src._inflight), \
+        "no multi-step block in flight at the evacuation"
+    res = src.request_evacuation(wait_s=0.0)
+    assert res.get("queued")
+    for _ in range(50):
+        src._tick()
+        if not src._evac_reqs:
+            break
+    assert r.finish_reason == "evacuated" and r.error is None
+    pre = _text(r)
+    assert oracle.startswith(pre) and pre != oracle
+    payload = src.take_evacuated(r.request_id)
+    assert payload is not None
+    peer = Scheduler(_core(tiny, **kw), TOK)
+    rd = Request(prompt_ids=[int(t) for t in payload["prompt_ids"]], **rkw)
+    peer.submit_prefilled(rd, dict(payload))
+    for _ in range(4000):
+        peer._tick()
+        if rd.finished_at is not None:
+            break
+    assert rd.error is None, rd.error
+    assert pre + _text(rd) == oracle
+    assert rd.output_ids == ref.output_ids
