@@ -130,6 +130,19 @@ prints no result:
               by a ``role=decode`` one whose streams equal its own unified
               ones; and a seeded stream evacuated once 8 tokens came and
               resumed on a peer, equal to the unevacuated one;
+              then ``parity_encoders``: the Embedder and the Reranker on
+              the card at e5-base's width (768, 12 heads, F 3,072), 2
+              layers, f32, against ``bert.embed`` / ``bert.rank_score`` on
+              the CPU over inputs this script packs (embeddings within
+              1e-4, logits within 1e-3, the order equal off near-ties),
+              and an IVF store on the card (20,000 clustered rows, every
+              cell probed, an incremental add, a third deleted) whose
+              top-10 equals a float64 numpy brute force (scores within
+              1e-5, ranks swapped only at near-ties);
+  8a. retrieval_ivf  the port's ``retrieval/bench_ivf`` at its defaults
+              (1,000,000 x 384 clustered rows, nlist 1,024, nprobe 32):
+              exact and IVF ms a query, recall@10, build and ingest s,
+              each store's device bytes;
   8b. serve_gemma  gemma-7b at full width and depth (28 layers, 8.5 B
               parameters, bf16, seeded) behind the HTTP server with the
               reference's defaults: ``serve``'s traffic, then one
@@ -169,6 +182,16 @@ prints no result:
               export, encode, decode and import ms, the longest prompt's
               gather and scatter against 3.35 TB/s and its TTFT through the
               handoff against unified;
+ 10d. serve_rag  (after serve_disagg) the north star's path: the
+              repository's ``docs/*.md`` and ``SURVEY.md`` split 510 / 200,
+              embedded by the Embedder at full e5-base in bf16 with its
+              micro-batcher on, held in the VectorStore; 4 queries each
+              embedded, searched at 40, reranked to 4 (full e5-base with
+              the rank head, bf16), the passages in a chat to full
+              llama3-8b behind the HTTP server; then 24 concurrent
+              ``/v1/embeddings`` POSTs to an EncoderServer, fewer embed
+              dispatches than requests; docs/s, pairs/s, embed, search
+              and rerank ms a call, query-to-first-token s, peak memory;
  10b. serve_multi  llama3-8b over the smoke's BPE tokenizer, speculation
               off, K = 2: ``serve``'s traffic plus one request with a stop
               string, in a fixed order, with ``decode_multistep`` 0 and
@@ -324,7 +347,10 @@ streams stay equal and ``parity_multi``'s pause check must fail;
 ``import_pages_swapped`` (an import that swaps a slot's first two pages,
 ``engine/kv_cache.py``) and ``evac_position_dropped`` (a snapshot that
 drops the seed's position, ``engine/scheduler.py``) must fail
-``parity_disagg``. Each main
+``parity_disagg``; ``encoder_mask_last_token_dropped`` (the embedder's
+mask drops each text's last token), ``reranker_separator_typed_passage``
+(the separator typed as passage) and ``ivf_valid_mask_dropped`` (the IVF
+search scores deleted rows) must fail ``parity_encoders``. Each main
 path (8b to 16) sets the launch counts to 0 just before it and reads
 them just after; every kernel must have launched on its path. Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -6780,6 +6806,469 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # sampler_advance_short leaves the last byte of the drawn token out of
 # the sampler's DFA advance; sampler_top_tie_high has the sampler's top
 # rows take a tie by the higher index.
+# ---------------------------------------------------------------------------
+# The retrieval half of the RAG path: encoders, the vector store, serve_rag
+# ---------------------------------------------------------------------------
+
+# the parity phase's texts: lengths from 3 to past 512 bytes (cut at the
+# encoder's 512 positions), unicode, a repeated word
+ENCODER_TEXTS = ("ü", "paged attention keeps pages",
+                 "the reranker scores (query, passage) pairs " * 4,
+                 PROMPT_TEXT, "page " * 40, PROMPT_TEXT * 4,
+                 "Ünïcödé text with accents: café, naïve, façade.",
+                 "a vector store holds one row a passage")
+ENCODER_QUERY = "which pages does a request share?"
+ENCODER_TOL = {"embed": 1e-4, "rerank": 1e-3, "ivf": 1e-5}
+# the IVF case: a clustered corpus (as bench_ivf's), every cell probed so
+# the top-10 must equal the brute force; a third of the rows deleted
+IVF_PARITY = dict(n=20_000, dim=384, modes=32, nlist=64, queries=16)
+
+
+def _encoder_parity_model():
+    """e5-base's width (768, 12 heads, F 3,072), 2 layers, f32, with the
+    rank head: weights on the CPU from a torch.Generator seeded 21."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import bert
+    cfg = bert.BertConfig(n_layers=2)
+    return cfg, bert.init_params(torch.Generator().manual_seed(21), cfg,
+                                 with_rank_head=True)
+
+
+def _rows_on_cpu(fn, params, cfg, seqs, types=None):
+    """``fn`` (``bert.embed`` or ``bert.rank_score``) on the CPU, one
+    unpadded row a sequence: inputs built here, not by the encoder's own
+    packing, so a fault there shows."""
+    import numpy as np
+    import torch
+    out = []
+    for i, seq in enumerate(seqs):
+        tokens = torch.tensor([seq])
+        mask = torch.ones_like(tokens, dtype=torch.bool)
+        args = (tokens, mask) + ((torch.tensor([types[i]]),) if types else ())
+        out.append(fn(params, cfg, *args)[0].numpy())
+    return np.stack(out)
+
+
+def _encoder_embed_case(dev):
+    import numpy as np
+    from generativeaiexamples_tpu_torch.encoders import Embedder
+    from generativeaiexamples_tpu_torch.encoders.embedder import \
+        PASSAGE_PREFIX
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import bert
+    cfg, params = _encoder_parity_model()
+    card = Embedder(cfg=cfg, params=params, device=dev, dtype="float32",
+                    max_batch=4)
+    got = card.embed_documents(list(ENCODER_TEXTS))
+    tok = ByteTokenizer()
+    want = _rows_on_cpu(bert.embed, params, cfg, [
+        tok.encode(PASSAGE_PREFIX + t)[:cfg.max_positions]
+        for t in ENCODER_TEXTS])
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else None
+    reading = {"case": "embed", "rows": len(ENCODER_TEXTS),
+               "max_abs_err": err, "tolerance": ENCODER_TOL["embed"],
+               "finite": bool(np.isfinite(got).all())}
+    if err is None or not reading["finite"] or err > ENCODER_TOL["embed"]:
+        raise KernelMismatch("parity_encoders", reading)
+    return reading
+
+
+def _encoder_rerank_case(dev):
+    import numpy as np
+    from generativeaiexamples_tpu_torch.encoders import Reranker
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import bert
+    cfg, params = _encoder_parity_model()
+    card = Reranker(cfg=cfg, params=params, device=dev, dtype="float32",
+                    max_batch=4)
+    passages = list(ENCODER_TEXTS)
+    got = card.score(ENCODER_QUERY, passages)
+    ranked = card.rerank(ENCODER_QUERY, passages, top_n=len(passages))
+    tok = ByteTokenizer()
+    q = tok.encode(ENCODER_QUERY)[:cfg.max_positions // 2]
+    seqs, types = [], []
+    for p in passages:
+        ids = tok.encode(p)[:cfg.max_positions - len(q) - 1]
+        seqs.append(q + [0] + ids)
+        types.append([0] * (len(q) + 1) + [1] * len(ids))
+    want = _rows_on_cpu(bert.rank_score, params, cfg, seqs, types)
+    tol = ENCODER_TOL["rerank"]
+    err = float(np.abs(got - want).max())
+    order = [i for i, _ in ranked]
+    # the card's order, read in the CPU's scores, never rises by more
+    # than the tolerance twice over (a swap only at a near-tie)
+    order_ok = all(want[a] >= want[b] - 2 * tol
+                   for a, b in zip(order, order[1:]))
+    reading = {"case": "rerank", "pairs": len(passages), "max_abs_err": err,
+               "tolerance": tol, "order": order,
+               "cpu_order": [int(i) for i in np.argsort(-want)],
+               "order_ok": order_ok}
+    if not np.isfinite(got).all() or err > tol or not order_ok:
+        raise KernelMismatch("parity_encoders", reading)
+    return reading
+
+
+def _encoder_ivf_case(dev):
+    import numpy as np
+    from generativeaiexamples_tpu_torch.retrieval import Document, VectorStore
+    p = IVF_PARITY
+    rng = np.random.default_rng(0)
+    modes = rng.standard_normal((p["modes"], p["dim"])).astype(np.float32)
+    emb = (modes[rng.integers(0, p["modes"], p["n"])] + 0.15
+           * rng.standard_normal((p["n"], p["dim"])).astype(np.float32))
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    store = VectorStore(p["dim"], index_type="ivf", nlist=p["nlist"],
+                        nprobe=p["nlist"], device=dev)
+    half = p["n"] // 2
+    docs = [Document(content=str(i), metadata={"source": f"s{i % 3}"})
+            for i in range(p["n"])]
+    store.add(docs[:half], emb[:half])
+    store.search(emb[0], top_k=10)            # the k-means build
+    store.add(docs[half:], emb[half:])        # assigned incrementally
+    store.delete_by_source(["s1"])
+    live = np.array([i % 3 != 1 for i in range(p["n"])])
+    queries = emb[rng.integers(0, p["n"], p["queries"])] + 0.05 * \
+        rng.standard_normal((p["queries"], p["dim"])).astype(np.float32)
+    mismatched, err, near_ties = [], 0.0, 0
+    data = emb.astype(np.float64)
+    tol = ENCODER_TOL["ivf"]
+    for qi, q in enumerate(queries):
+        hits = store.search(q, top_k=10)
+        qd = q.astype(np.float64) / np.linalg.norm(q.astype(np.float64))
+        scores = np.where(live, data @ qd, -np.inf)
+        truth = np.argsort(-scores, kind="stable")[:10]
+        got = np.array([int(d.content) for d, _ in hits])
+        if len(got) != 10 or len(set(got)) != 10:
+            mismatched.append(qi)
+            continue
+        err = max(err, max(abs(s - (scores[i] + 1) / 2)
+                           for i, (_, s) in zip(got, hits)))
+        if not np.array_equal(got, truth):
+            # accepted only where each rank's score equals the brute
+            # force's within the tolerance (a swap at a near-tie)
+            if np.abs(scores[got] - scores[truth]).max() <= 2 * tol:
+                near_ties += 1
+            else:
+                mismatched.append(qi)
+    reading = {"case": "ivf", "rows": p["n"], "live_rows": int(live.sum()),
+               "nlist": p["nlist"], "nprobe": p["nlist"],
+               "queries": p["queries"], "mismatched_queries": mismatched,
+               "near_tie_queries": near_ties, "max_score_err": float(err),
+               "tolerance": ENCODER_TOL["ivf"],
+               "cell_cap": int(store._grouped.shape[1])}
+    if mismatched or err > tol:
+        raise KernelMismatch("parity_encoders", reading)
+    return reading
+
+
+def parity_encoders_cases(dev):
+    """``parity_encoders``'s checks as thunks (the planted faults read
+    them): ``embed`` and ``rerank`` (the encoders on the card at e5-base's
+    width, 2 layers, f32, against ``bert.embed`` / ``bert.rank_score`` on
+    the CPU over inputs built here) and ``ivf`` (the IVF store on the card
+    against a float64 numpy brute force)."""
+    return {"embed": lambda: _encoder_embed_case(dev),
+            "rerank": lambda: _encoder_rerank_case(dev),
+            "ivf": lambda: _encoder_ivf_case(dev)}
+
+
+def phase_parity_encoders(dev):
+    """Every case of ``parity_encoders_cases``, each raising on a
+    mismatch."""
+    readings = {name: fn() for name, fn in parity_encoders_cases(dev).items()}
+    emit("parity_encoders", ok=True, width="e5-base (768, 12 heads, F 3,072)",
+         n_layers=2, dtype="float32", runs=readings)
+
+
+RAG_QUERIES = ("How are the CUDA kernels built and checked on the card?",
+               "What does the prefix cache share between requests?",
+               "How does the scheduler admit and batch requests?",
+               "Which metrics does the server export?")
+RAG_PROMPT = ("Answer the question from this context only.\n\n"
+              "{context}\n\nQuestion: {query}")
+RAG_POSTS = 24          # concurrent /v1/embeddings requests
+RAG_MAX_TOKENS = 32
+
+
+def rag_corpus():
+    """(path, text) of the repository's ``docs/*.md`` and ``SURVEY.md``."""
+    import glob
+    paths = sorted(glob.glob(os.path.join(HERE, "docs", "*.md")))
+    paths.append(os.path.join(HERE, "SURVEY.md"))
+    out = []
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            out.append((os.path.relpath(path, HERE), fh.read()))
+    return out
+
+
+def _rag_server_posts(emb, rer, texts):
+    """``RAG_POSTS`` concurrent /v1/embeddings POSTs and one /v1/ranking
+    against an EncoderServer over the phase's encoders: each reply's vector
+    within bf16 noise of the direct call's, and fewer embed dispatches
+    than requests."""
+    import numpy as np
+    from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
+    from generativeaiexamples_tpu_torch.encoders.server import serve_in_thread
+    _, httpd, thread = serve_in_thread(emb, rer)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, body):
+        status, _, raw = _post(base + path, json.dumps(body).encode(),
+                               {"Content-Type": "application/json"})
+        if status != 200:
+            raise AssertionError(f"{path} answered {status}: {raw[:300]}")
+        return json.loads(raw)
+
+    dispatches = REGISTRY.counter("embed_dispatches")
+    fill = REGISTRY.histogram("embed_batch_fill")
+    try:
+        d0, f0 = dispatches.value, (fill.count, fill.sum)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(RAG_POSTS) as pool:
+            replies = list(pool.map(lambda t: post(
+                "/v1/embeddings", {"input": [t], "input_type": "query"}),
+                texts))
+        wall = time.perf_counter() - t0
+        n_disp = dispatches.value - d0
+        mean_fill = (fill.sum - f0[1]) / max(1, fill.count - f0[0])
+        got = np.array([r["data"][0]["embedding"] for r in replies],
+                       np.float32)
+        want = emb.embed_queries(texts)
+        cos = np.sum(got * want, axis=1)
+        ranking = post("/v1/ranking", {
+            "query": {"text": texts[0]},
+            "passages": [{"text": t} for t in texts[:8]], "top_n": 3})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    logits = [r["logit"] for r in ranking["rankings"]]
+    reading = dict(requests=RAG_POSTS, embed_dispatches=n_disp,
+                   mean_batch_fill=mean_fill, wall_s=wall, min_cosine_to_direct=float(cos.min()),
+                   ranking=ranking["rankings"])
+    if (n_disp >= RAG_POSTS or n_disp < 1 or cos.min() < 0.99
+            or len(logits) != 3 or logits != sorted(logits, reverse=True)):
+        raise AssertionError(f"serve_rag's encoder server: {reading}")
+    return reading
+
+
+def phase_serve_rag(dev, cfg, params):
+    """The north star's path on one card: the repository's Markdown split
+    by ``TokenTextSplitter`` (the config's 510 / 200), embedded by the
+    ``Embedder`` at full e5-base in bf16 with its micro-batcher on, held in
+    the ``VectorStore``; each of ``RAG_QUERIES`` embedded, searched at
+    ``nr_top_k`` (40), cut to ``top_k`` (4) by the ``Reranker`` (full
+    e5-base with the rank head, bf16), its passages (cut to
+    ``max_context_tokens``) put in a chat to full llama3-8b behind the
+    engine's HTTP server (the defaults, greedy, 32 tokens). Every request
+    must answer 200 with its top passage in its prompt and launch the
+    engine's kernels; then ``RAG_POSTS`` concurrent /v1/embeddings
+    requests to an ``EncoderServer`` must take fewer dispatches than
+    requests. Returns the launches."""
+    import numpy as np
+    import torch
+    from generativeaiexamples_tpu_torch.core.config import load_config
+    from generativeaiexamples_tpu_torch.encoders import Embedder, Reranker
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import bert
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    from generativeaiexamples_tpu_torch.retrieval import (Document,
+                                                          TokenTextSplitter,
+                                                          VectorStore)
+    app = load_config(env={})        # the reference's defaults
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    tok = ByteTokenizer()
+    corpus = rag_corpus()
+    t0 = time.perf_counter()
+    splitter = TokenTextSplitter(app.text_splitter.chunk_size,
+                                 app.text_splitter.chunk_overlap)
+    chunks = [(src, c) for src, text in corpus for c in splitter.split(text)]
+    split_s = time.perf_counter() - t0
+    e5 = bert.BertConfig.e5_base()
+    emb = Embedder(cfg=e5, device=dev, dtype="bfloat16", micro_window_s=(
+        app.embeddings.microbatch_window_ms / 1e3))
+    rer = Reranker(cfg=e5, device=dev, dtype="bfloat16", micro_window_s=(
+        app.ranking.microbatch_window_ms / 1e3))
+    encoder_bytes = sum(t.numel() * t.element_size() for enc in (emb, rer)
+                        for t in _leaves(enc.params))
+    emb.embed_documents(["warm up"])     # first calls: cuBLAS handles
+    rer.score("warm", ["up"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vecs = emb.embed_documents([c for _, c in chunks])
+    ingest_embed_s = time.perf_counter() - t0
+    if (vecs.shape != (len(chunks), e5.dim) or not np.isfinite(vecs).all()
+            or np.abs(np.linalg.norm(vecs, axis=1) - 1).max() > 1e-4):
+        raise AssertionError(f"serve_rag: embeddings {vecs.shape} not finite "
+                             f"unit rows")
+    store = VectorStore(e5.dim, index_type=app.vector_store.index_type,
+                        nlist=app.vector_store.nlist,
+                        nprobe=app.vector_store.nprobe, device=dev)
+    t0 = time.perf_counter()
+    store.add([Document(content=c, metadata={"source": src})
+               for src, c in chunks], vecs)
+    store_add_s = time.perf_counter() - t0
+    for i in range(0, len(chunks), max(1, len(chunks) // 4)):
+        (top, rel), = store.search(vecs[i], top_k=1)
+        if top.content != chunks[i][1] or rel < 0.999:
+            raise AssertionError(f"serve_rag: chunk {i} does not find itself "
+                                 f"({rel})")
+
+    core = serving_core(dev, cfg, params)
+    warmup_s = core.warmup()
+    sched = Scheduler(core, tok)
+    submitted = []
+    submit = sched.submit
+
+    def recording_submit(req):
+        submitted.append(req)
+        return submit(req)
+
+    sched.submit = recording_submit
+    httpd, thread = serve_in_thread(sched, "llama3-8b-random")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    calls = []
+    try:
+        k.reset_launch_counts()
+        for key in sched.stats:
+            sched.stats[key] = 0
+        for qi, query in enumerate(RAG_QUERIES):
+            t_q = time.perf_counter()
+            qv = emb.embed_queries([query])[0]
+            t_s = time.perf_counter()
+            hits = store.search(qv, top_k=app.retriever.nr_top_k,
+                                score_threshold=app.retriever.score_threshold)
+            t_r = time.perf_counter()
+            ranked = rer.rerank(query, [d.content for d, _ in hits],
+                                top_n=app.retriever.top_k)
+            t_p = time.perf_counter()
+            context = "\n\n".join(hits[i][0].content for i, _ in ranked)
+            context = tok.decode(tok.encode(context)[
+                :app.retriever.max_context_tokens])
+            n_sub = len(submitted)
+            reply = _request(base, qi, RAG_PROMPT.format(context=context,
+                                                         query=query),
+                             RAG_MAX_TOKENS, chat=True, stream=True,
+                             temperature=0.0)
+            req = submitted[n_sub] if len(submitted) > n_sub else None
+            calls.append(dict(
+                query=query, hits=len(hits), ranked=ranked,
+                embed_ms=(t_s - t_q) * 1e3, search_ms=(t_r - t_s) * 1e3,
+                rerank_ms=(t_p - t_r) * 1e3, context_bytes=len(context),
+                status=reply["status"],
+                finish_reason=reply["finish_reason"],
+                usage=reply["usage"],
+                query_to_first_token_s=(req.first_token_at - t_q
+                                        if req and req.first_token_at
+                                        else None),
+                server_ttft_s=(req.first_token_at - req.submitted_at
+                               if req and req.first_token_at else None),
+                prompt_has_top_passage=bool(req) and hits[ranked[0][0]][
+                    0].content[:200] in tok.decode(req.prompt_ids),
+                _req=req, _context=context))
+            if len(hits) < app.retriever.top_k:
+                raise AssertionError(f"serve_rag: {len(hits)} hits for "
+                                     f"{query!r}")
+        launches = k.launch_counts()
+        stats = dict(sched.stats)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+    for c in calls:
+        req = c.pop("_req")
+        context = c.pop("_context")
+        if (c["status"] != 200 or not c["finish_reason"] or not c["usage"]
+                or c["query_to_first_token_s"] is None
+                or not c["prompt_has_top_passage"] or req.error):
+            raise AssertionError(f"serve_rag: request failed {c}")
+        if context[:200] not in tok.decode(req.prompt_ids):
+            raise AssertionError("serve_rag: the prompt lacks its context")
+    L = cfg.n_layers
+    if (launches["flash_prefill"] < L * stats["prefill_dispatches"]
+            or stats["prefill_dispatches"] < 1
+            or launches["ragged_paged_attention"] < 1
+            or launches["sample_slots"] < 1):
+        raise AssertionError(f"serve_rag did not run through the kernels: "
+                             f"{launches}, {stats}")
+    posts = _rag_server_posts(emb, rer, [
+        f"{RAG_QUERIES[i % len(RAG_QUERIES)]} ({i})"
+        for i in range(RAG_POSTS)])
+    emb.close()
+    rer.close()
+    pairs = sum(c["hits"] for c in calls)
+    rerank_s = sum(c["rerank_ms"] for c in calls) / 1e3
+    emit("serve_rag", corpus_files=len(corpus),
+         corpus_bytes=sum(len(t.encode()) for _, t in corpus),
+         chunks=len(chunks), chunk_size=app.text_splitter.chunk_size,
+         chunk_overlap=app.text_splitter.chunk_overlap, split_s=split_s,
+         encoder=(f"e5-base ({e5.n_layers} layers, {e5.dim}, {e5.n_heads} "
+                  f"heads, F {e5.hidden_dim}), bfloat16, random, "
+                  f"torch.Generator seeds 11 / 13"),
+         encoder_param_bytes=encoder_bytes,
+         ingest_embed_s=ingest_embed_s,
+         docs_per_s=len(chunks) / ingest_embed_s, store_add_s=store_add_s,
+         store_bytes=store.nbytes, index_type=store.index_type,
+         nr_top_k=app.retriever.nr_top_k, top_k=app.retriever.top_k,
+         pairs_per_s=pairs / rerank_s,
+         embed_ms_per_query=[c["embed_ms"] for c in calls],
+         search_ms_per_query=[c["search_ms"] for c in calls],
+         rerank_ms_per_call=[c["rerank_ms"] for c in calls],
+         query_to_first_token_s=[c["query_to_first_token_s"] for c in calls],
+         server_ttft_s=[c["server_ttft_s"] for c in calls],
+         llm=(f"llama3-8b, {cfg.n_layers} layers, {cfg.dtype}, random, "
+              f"torch.Generator seed 0"), warmup_s=warmup_s, requests=calls,
+         dispatches=stats, launches=launches, encoder_server=posts,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_above_start_gb=(torch.cuda.max_memory_allocated() - mem0)
+         / 1e9)
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_retrieval_ivf(dev):
+    """The port's ``retrieval/bench_ivf`` at its defaults (1,000,000 x 384
+    clustered rows, nlist 1,024, nprobe 32, 32 queries) on the card: exact
+    and IVF ms a query, recall@10 of IVF against exact, build and ingest
+    seconds, each store's device bytes and the phase's peak."""
+    import torch
+    from generativeaiexamples_tpu_torch.retrieval import bench_ivf
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    out = bench_ivf.run(device=dev)
+    torch.cuda.synchronize()
+    out["peak_above_start_gb"] = (torch.cuda.max_memory_allocated()
+                                  - mem0) / 1e9
+    # IVF must probe fewer rows than the corpus and find most of the exact
+    # top-10 (a recall under 0.5 is a broken index, not a tuning matter)
+    if (out["device"] != str(dev) or out["rows_scanned_ivf"] >= out["n"]
+            or out["recall_at_10_vs_exact"] < 0.5):
+        raise AssertionError(f"retrieval_ivf: {out}")
+    emit("retrieval_ivf", **out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 PLANTED_FAULTS = (
     ("flash_dropped_tile", "flash_prefill.cu",
      "    const __nv_bfloat16* vs = ks + BK * LD;\n",
@@ -6917,6 +7406,18 @@ PLANTED_FAULTS = (
      '            "generated": len(job.gen_ids),\n            "resume": True,',
      '            "generated": 1,\n            "resume": True,',
      ("parity_disagg",)),
+    # the retrieval half: the embedder's mask drops each text's last
+    # token; the reranker types its separator as passage; the IVF search
+    # scores deleted rows (they surface as holes in the top-10)
+    ("encoder_mask_last_token_dropped", "encoders/embedder.py",
+     "mask[r, :len(seq)] = True", "mask[r, :len(seq) - 1] = True",
+     ("parity_encoders",)),
+    ("reranker_separator_typed_passage", "encoders/reranker.py",
+     "types[r, len(q) + 1:len(seq)] = 1", "types[r, len(q):len(seq)] = 1",
+     ("parity_encoders",)),
+    ("ivf_valid_mask_dropped", "retrieval/store.py",
+     "ok = (ids >= 0) & valid[ids.clamp(min=0)]", "ok = ids >= 0",
+     ("parity_encoders",)),
 )
 
 _FAULT_PHASES = """
@@ -6939,7 +7440,8 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "parity_lora": cs.parity_lora_cases(dev),
           "parity_gemma": cs.parity_gemma_cases(dev),
           "parity_multi": cs.parity_multi_cases(dev),
-          "parity_disagg": cs.parity_disagg_cases(dev)}
+          "parity_disagg": cs.parity_disagg_cases(dev),
+          "parity_encoders": cs.parity_encoders_cases(dev)}
 out = {}
 for name in sys.argv[1:]:
     out[name] = {}
@@ -7275,6 +7777,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("parity_disagg", phase_parity_disagg, dev)
     torch.cuda.empty_cache()
+    timed("parity_encoders", phase_parity_encoders, dev)
+    torch.cuda.empty_cache()
+    timed("retrieval_ivf", phase_retrieval_ivf, dev)
     # gemma-7b before llama3-8b's weights are drawn: the two sets would
     # not share the card with serve's pools
     paths["serve_gemma"] = timed("serve_gemma", phase_serve_gemma, dev)
@@ -7301,6 +7806,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve_disagg"] = timed("serve_disagg", phase_serve_disagg, dev,
                                   cfg, params)
+    torch.cuda.empty_cache()
+    paths["serve_rag"] = timed("serve_rag", phase_serve_rag, dev, cfg, params)
     torch.cuda.empty_cache()
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
         paths["serve_prefix" + tag] = timed(

@@ -1,9 +1,12 @@
 """Engine configuration with the ``APP_*`` environment overlay.
 
 Port of the parts of ``generativeaiexamples_tpu/core/config.py`` that the
-serving slice runs: ``EngineConfig`` (only the knobs this port serves),
-``LLMConfig.model_name``, and the loader (an optional JSON file named by
-``APP_CONFIG_FILE``, then ``APP_<SECTION>_<FIELD>`` variables on top).
+port runs: ``EngineConfig`` (only the knobs this port serves),
+``LLMConfig.model_name``, the retrieval sections (``VectorStoreConfig``,
+``TextSplitterConfig``, ``EmbeddingConfig``, ``RankingConfig``,
+``RetrieverConfig``: the reference's fields, defaults and env names), and
+the loader (an optional JSON file named by ``APP_CONFIG_FILE``, then
+``APP_<SECTION>_<FIELD>`` variables on top).
 
 Knobs of the TPU engine that this port does not serve yet are refused
 loudly: setting one of them in the environment or the file raises
@@ -145,9 +148,79 @@ class LLMConfig:
 
 
 @dataclass(frozen=True)
+class VectorStoreConfig:
+    """``APP_VECTOR_STORE_<FIELD>``: the in-process store
+    (``retrieval/store.py``). Only ``name="tpu"`` is served: the remote
+    stores (Milvus, pgvector) are refused."""
+
+    name: str = "tpu"             # tpu | milvus | pgvector
+    url: str = ""                 # remote vector DB URL (unused in-process)
+    nlist: int = 64               # IVF coarse cells
+    nprobe: int = 16              # IVF cells probed per query
+    index_type: str = "exact"     # exact | ivf
+
+    def __post_init__(self) -> None:
+        if str(self.name).strip().lower() != "tpu":
+            raise NotImplementedError(
+                f"vector_store.name={self.name!r} is not served by the "
+                f"PyTorch port yet (ROADMAP A.13, second part: "
+                f"retrieval/adapters.py make_store); only the in-process "
+                f"store, 'tpu', is")
+
+
+@dataclass(frozen=True)
+class TextSplitterConfig:
+    """``APP_TEXT_SPLITTER_<FIELD>``: chunking in tokens."""
+
+    model_name: str = "byte-bpe"  # tokenizer that counts while chunking
+    chunk_size: int = 510
+    chunk_overlap: int = 200
+
+
+@dataclass(frozen=True)
+class EmbeddingConfig:
+    """``APP_EMBEDDINGS_<FIELD>``: the embedder."""
+
+    model_name: str = "e5-base-tpu"
+    dimensions: int = 512
+    model_engine: str = "tpu"
+    server_url: str = ""          # remote embedding server; "" in-process
+    # cross-request micro-batch window (encoders/microbatch.py); 0 = off
+    microbatch_window_ms: float = 2.0
+
+
+@dataclass(frozen=True)
+class RankingConfig:
+    """``APP_RANKING_<FIELD>``: the reranker."""
+
+    model_name: str = "rerank-minilm-tpu"
+    model_engine: str = "tpu"
+    server_url: str = ""          # remote rerank server; "" in-process
+    microbatch_window_ms: float = 2.0
+
+
+@dataclass(frozen=True)
+class RetrieverConfig:
+    """``APP_RETRIEVER_<FIELD>``: retrieval knobs."""
+
+    top_k: int = 4                # documents returned to the prompt
+    score_threshold: float = 0.25
+    nr_top_k: int = 40            # documents fetched before reranking
+    max_context_tokens: int = 1500
+
+
+@dataclass(frozen=True)
 class AppConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
+    vector_store: VectorStoreConfig = field(
+        default_factory=VectorStoreConfig)
+    text_splitter: TextSplitterConfig = field(
+        default_factory=TextSplitterConfig)
+    embeddings: EmbeddingConfig = field(default_factory=EmbeddingConfig)
+    ranking: RankingConfig = field(default_factory=RankingConfig)
+    retriever: RetrieverConfig = field(default_factory=RetrieverConfig)
+
 
 
 def _coerce(value: Any, ftype: Any) -> Any:
@@ -196,10 +269,11 @@ def load_config(path: Optional[str] = None,
             data = json.loads(text)
     engine_data = data.get("engine", {}) or {}
     refuse_not_ported(engine_data, env)
-    return AppConfig(
-        engine=_section(EngineConfig, engine_data, env, f"{ENV_PREFIX}_ENGINE"),
-        llm=_section(LLMConfig, data.get("llm", {}) or {}, env,
-                     f"{ENV_PREFIX}_LLM"))
+    sections = {f.name: f.default_factory for f in fields(AppConfig)}
+    return AppConfig(**{
+        name: _section(cls, data.get(name, {}) or {}, env,
+                       f"{ENV_PREFIX}_{name.upper()}")
+        for name, cls in sections.items()})
 
 
 def get_config() -> AppConfig:

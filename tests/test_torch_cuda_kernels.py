@@ -1503,3 +1503,74 @@ def test_spill_round_trip_through_pinned_host_tensors_on_the_card(
     assert sched.stats["spill_resumes"] >= 1
     assert sched.stats["kv_spill_spilled"] == sched.stats["kv_spill_promoted"]
     assert [r1.output_ids, r2.output_ids] == [r.output_ids for r in roomy]
+
+
+# ---------------------------------------------------------------------------
+# Encoders and the vector store on the card against the CPU (no kernel of
+# their own: plain PyTorch on both sides, f32 within 1e-4 for embeddings
+# and 1e-3 for rerank logits, store scores within 1e-5, the same ids)
+# ---------------------------------------------------------------------------
+
+def _encoder_pair(cls, device, **kw):
+    from generativeaiexamples_tpu_torch.models import bert
+    cfg = bert.BertConfig(n_layers=2)        # e5-base's width, 2 layers
+    params = bert.init_params(torch.Generator().manual_seed(5), cfg,
+                              with_rank_head=True)
+    return (cls(cfg=cfg, params=params, device=device, **kw),
+            cls(cfg=cfg, params=params, device="cpu", dtype="float32"))
+
+
+_ENC_TEXTS = ["paged attention keeps every request's keys in pages",
+              "a vector store", "ü" * 3, "the reranker scores pairs " * 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedder_on_the_card_matches_cpu(cuda_device, dtype):
+    from generativeaiexamples_tpu_torch.encoders import Embedder
+    card, cpu = _encoder_pair(Embedder, cuda_device, dtype=dtype,
+                              max_batch=2)
+    got = card.embed_documents(_ENC_TEXTS)
+    want = cpu.embed_documents(_ENC_TEXTS)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4)
+    else:   # bf16 weights and activations: direction kept
+        assert (np.sum(got * want, axis=1) > 0.99).all()
+
+
+@pytest.mark.cuda
+def test_reranker_on_the_card_matches_cpu(cuda_device):
+    from generativeaiexamples_tpu_torch.encoders import Reranker
+    card, cpu = _encoder_pair(Reranker, cuda_device, dtype="float32",
+                              max_batch=2)
+    got = card.score("which pages", _ENC_TEXTS)
+    want = cpu.score("which pages", _ENC_TEXTS)
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert ([i for i, _ in card.rerank("which pages", _ENC_TEXTS)]
+            == [i for i, _ in cpu.rerank("which pages", _ENC_TEXTS)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_type", ["exact", "ivf"])
+def test_store_search_on_the_card_matches_cpu(cuda_device, index_type):
+    from generativeaiexamples_tpu_torch.retrieval import (Document,
+                                                          VectorStore)
+    rng = np.random.default_rng(3)
+    emb = rng.standard_normal((3000, 64)).astype(np.float32)
+    # every cell probed: k-means on the card sums in another order, so a
+    # row near a cell boundary may land elsewhere, but the hits may not
+    stores = [VectorStore(64, index_type=index_type, nlist=16, nprobe=16,
+                          device=d) for d in (cuda_device, "cpu")]
+    for s in stores:
+        s.add([Document(content=f"d{i}", metadata={"source": f"s{i % 3}"})
+               for i in range(2500)], emb[:2500])
+        s.search(emb[0])                     # the IVF build
+        s.add([Document(content=f"e{i}") for i in range(500)], emb[2500:])
+        s.delete_by_source(["s1"])
+    assert stores[0]._matrix.device.type == "cuda"
+    for q in emb[::250]:
+        got, want = (s.search(q, top_k=10) for s in stores)
+        assert [d.content for d, _ in got] == [d.content for d, _ in want]
+        np.testing.assert_allclose([x for _, x in got], [x for _, x in want],
+                                   atol=1e-5)
