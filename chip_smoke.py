@@ -192,6 +192,23 @@ prints no result:
               ``/v1/embeddings`` POSTs to an EncoderServer, fewer embed
               dispatches than requests; docs/s, pairs/s, embed, search
               and rerank ms a call, query-to-first-token s, peak memory;
+ 10e. serve_chain_server  (after serve_rag) the same path behind the
+              port's chain server (``multi_turn_rag`` over full llama3-8b
+              and full e5-base, bf16, micro-batchers on), driven over HTTP
+              with the standard library: the corpus uploaded as multipart
+              and listed, ``/search`` and greedy ``/generate`` (32 tokens,
+              knowledge base on) for each query, a follow-up turn with
+              history (the condense step and lookahead retrieval), one
+              request without the knowledge base, 8 concurrent requests,
+              a delete; every status and SSE frame as the reference
+              gives them, each prompt holding its top reranked passage,
+              each answer equal to the engine's direct greedy stream of
+              the same prompt ids (the 8 concurrent ones: or parting at a
+              tie of two bf16 ulps), their 8 query embeddings in fewer
+              dispatches than requests, the three serving kernels
+              launched; upload
+              docs/s, the chain's stage histograms, request to first SSE
+              chunk, e2e TTFT and latency;
  10b. serve_multi  llama3-8b over the smoke's BPE tokenizer, speculation
               off, K = 2: ``serve``'s traffic plus one request with a stop
               string, in a fixed order, with ``decode_multistep`` 0 and
@@ -7232,6 +7249,370 @@ def phase_serve_rag(dev, cfg, params):
     return launches
 
 
+CHAIN_FOLLOW_UP = "And how are they checked after that?"
+CHAIN_CONCURRENT = 8
+CHAIN_TIE_ULPS = 2        # a burst stream may part from its replay only here
+
+
+def _multipart(name: str, data: bytes):
+    """(body, headers) of a multipart/form-data upload of ``data`` as the
+    field ``file``, named ``name``."""
+    import uuid
+    boundary = uuid.uuid4().hex
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f"name=\"file\"; filename=\"{name}\"\r\nContent-Type: "
+            f"text/markdown\r\n\r\n").encode() + data + (
+                f"\r\n--{boundary}--\r\n").encode()
+    return body, {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def _chain_json(base, method, path, body=None, timeout=600):
+    """(status, parsed JSON or text) of one chain-server call."""
+    req = urllib.request.Request(
+        base + path, method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, raw = exc.code, exc.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode("utf-8", "replace")
+
+
+def _chain_generate(base, rid, messages, use_kb=True,
+                    max_tokens=RAG_MAX_TOKENS):
+    """One greedy ``/generate`` with ``X-Request-Id`` ``rid``: its status,
+    the request id it echoed, its frames checked against the chain
+    server's SSE contract, its text and the seconds to its first frame."""
+    body = json.dumps({"messages": messages, "use_knowledge_base": use_kb,
+                       "max_tokens": max_tokens, "temperature": 0.0}).encode()
+    req = urllib.request.Request(base + "/generate", data=body, headers={
+        "Content-Type": "application/json", "X-Request-Id": rid})
+    t0 = time.perf_counter()
+    first = None
+    lines = []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        status, echoed = resp.status, resp.headers.get("X-Request-Id")
+        ctype = resp.headers.get("Content-Type", "")
+        for raw in resp:
+            if first is None and raw.startswith(b"data: "):
+                first = time.perf_counter() - t0
+            lines.append(raw.decode())
+    frames = [f[len("data: "):] for f in "".join(lines).split("\n\n") if f]
+    faults = []
+    if status != 200 or echoed != rid or not ctype.startswith(
+            "text/event-stream"):
+        faults.append(f"status {status}, id {echoed!r}, type {ctype!r}")
+    if len(frames) < 2 or frames[-1] != "[DONE]":
+        faults.append("no [DONE] frame")
+    parsed = [json.loads(f) for f in frames[:-1]]
+    for i, chunk in enumerate(parsed):
+        choice = chunk["choices"][0]
+        last = i == len(parsed) - 1
+        if (chunk["id"] != rid or choice["index"] != 0
+                or choice["message"]["role"] != "assistant"
+                or choice["finish_reason"] != ("stop" if last else None)
+                or (last and choice["message"]["content"] != "")):
+            faults.append(f"frame {i} breaks the contract: {chunk}")
+    if faults:
+        raise AssertionError(f"serve_chain_server /generate {rid}: {faults}")
+    text = "".join(c["choices"][0]["message"]["content"] for c in parsed)
+    return text, first
+
+
+def phase_serve_chain_server(dev, cfg, params, smi):
+    """``serve_rag``'s path behind the port's chain server: full llama3-8b
+    (bf16, the default engine config) under ``LocalLLM``, full e5-base
+    encoders in bf16 with their micro-batchers on, wired in through
+    ``set_context`` and served as ``multi_turn_rag`` by ``ChainServer`` on a
+    local port; every call goes over HTTP. Returns the launches of the
+    chain server's requests."""
+    import torch
+    from generativeaiexamples_tpu_torch.chains.context import (ChainContext,
+                                                               set_context)
+    from generativeaiexamples_tpu_torch.chains.llm_client import LocalLLM
+    from generativeaiexamples_tpu_torch.chains.multi_turn_rag import DOCS
+    from generativeaiexamples_tpu_torch.core.config import load_config
+    from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
+    from generativeaiexamples_tpu_torch.encoders import Embedder, Reranker
+    from generativeaiexamples_tpu_torch.engine.scheduler import (Request,
+                                                                 Scheduler)
+    from generativeaiexamples_tpu_torch.models import bert, llama
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    from generativeaiexamples_tpu_torch.server.api import serve_in_thread
+    from generativeaiexamples_tpu_torch.server.registry import get_example
+    app = load_config(env={})        # the reference's defaults
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = smoke_tokenizer()["tok"]
+    e5 = bert.BertConfig.e5_base()
+    emb = Embedder(cfg=e5, device=dev, dtype="bfloat16", micro_window_s=(
+        app.embeddings.microbatch_window_ms / 1e3))
+    rer = Reranker(cfg=e5, device=dev, dtype="bfloat16", micro_window_s=(
+        app.ranking.microbatch_window_ms / 1e3))
+    emb.embed_documents(["warm up"])     # first calls: cuBLAS handles
+    rer.score("warm", ["up"])
+    # the smoke's Llama-3-shaped BPE tokenizer: every id of llama3-8b's
+    # vocabulary decodes to text, so the random model's answers stream
+    core = serving_core(dev, cfg, params, eos_id=tok.eos_id)
+    warmup_s = core.warmup()
+    sched = Scheduler(core, tok)
+    submitted = []
+    submit = sched.submit
+
+    def recording_submit(req):
+        submitted.append(req)
+        return submit(req)
+
+    sched.submit = recording_submit
+    sched.start()
+    set_context(ChainContext(config=app, llm=LocalLLM(sched), embedder=emb,
+                             reranker=rer))
+    example = get_example("multi_turn_rag")
+    pools, funnels = [], {}
+    retrieve_pool, funnel = example._retrieve_pool, example._funnel
+
+    def recording_pool(collection, qvec, wide):
+        out = retrieve_pool(collection, qvec, wide)
+        pools.append((collection, out))
+        return out
+
+    def recording_funnel(query, passages):
+        out = funnel(query, passages)
+        funnels[tuple(passages)] = out
+        return out
+
+    example._retrieve_pool = recording_pool
+    example._funnel = recording_funnel
+    _, httpd, thread = serve_in_thread(example)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    corpus = rag_corpus()
+    names = [os.path.basename(path) for path, _ in corpus]
+    calls, faults = [], []
+    try:
+        k.reset_launch_counts()
+        for key in sched.stats:
+            sched.stats[key] = 0
+        # the registry is the process's: earlier phases' rerankers count
+        # into it too, so this phase reads its own dispatches as a difference
+        rerank_counter = REGISTRY.counter("rerank_dispatches")
+        rerank0 = rerank_counter.value
+        t0 = time.perf_counter()
+        for name, (_, text) in zip(names, corpus):
+            body, headers = _multipart(name, text.encode())
+            status, _, raw = _post(base + "/documents", body, headers)
+            if status != 200 or json.loads(raw) != {
+                    "message": "File uploaded successfully"}:
+                faults.append(f"upload {name}: {status} {raw[:200]}")
+        upload_s = time.perf_counter() - t0
+        chunks = len(example.ctx.store(DOCS))
+        status, listed = _chain_json(base, "GET", "/documents")
+        if status != 200 or sorted(listed["documents"]) != sorted(names):
+            faults.append(f"GET /documents: {status} {listed}")
+        searches = []
+        for query in RAG_QUERIES:
+            t1 = time.perf_counter()
+            status, found = _chain_json(base, "POST", "/search",
+                                        {"query": query, "top_k": 4})
+            searches.append(time.perf_counter() - t1)
+            if (status != 200 or len(found["chunks"]) != 4
+                    or any(c["filename"] not in names
+                           for c in found["chunks"])):
+                faults.append(f"/search {query!r}: {status}")
+        status, bad = _chain_json(base, "POST", "/generate",
+                                  {"messages": []})
+        if status != 422:
+            faults.append(f"an empty /generate answered {status}")
+
+        def turn(rid, messages, use_kb=True):
+            n_sub, n_pool = len(submitted), len(pools)
+            text, first_s = _chain_generate(base, rid, messages, use_kb)
+            reqs = submitted[n_sub:]
+            docs_pool = [p for c, p in pools[n_pool:] if c == DOCS]
+            calls.append(dict(rid=rid, text=text, first_frame_s=first_s,
+                              reqs=reqs, docs_pool=(docs_pool[-1]
+                                                    if docs_pool else None),
+                              use_kb=use_kb))
+            return text
+
+        answers = [turn(f"rag-{i}", [{"role": "user", "content": q}])
+                   for i, q in enumerate(RAG_QUERIES)]
+        turn("follow-up", [{"role": "user", "content": RAG_QUERIES[0]},
+                           {"role": "assistant", "content": answers[0]},
+                           {"role": "user", "content": CHAIN_FOLLOW_UP}])
+        turn("no-kb", [{"role": "user", "content": RAG_QUERIES[1]}],
+             use_kb=False)
+        # which embed dispatches carried the burst's queries (the others
+        # carry the turns written to the conversation store as each ends)
+        batcher = emb._batcher
+        dispatch = batcher._dispatch
+        query_dispatches = []
+
+        def recording_dispatch(texts):
+            query_dispatches.append(sum(t.startswith("query: ")
+                                        for t in texts))
+            return dispatch(texts)
+
+        batcher._dispatch = recording_dispatch
+        dispatches = REGISTRY.counter("embed_dispatches")
+        d0, n_sub = dispatches.value, len(submitted)
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(CHAIN_CONCURRENT) as pool:
+            burst = list(pool.map(lambda i: _chain_generate(
+                base, f"burst-{i}", [{"role": "user", "content":
+                                      RAG_QUERIES[i % len(RAG_QUERIES)]
+                                      + f" ({i})"}]),
+                range(CHAIN_CONCURRENT)))
+        burst_s = time.perf_counter() - t1
+        batcher._dispatch = dispatch
+        burst_dispatches = dispatches.value - d0
+        query_dispatches = [n for n in query_dispatches if n]
+        burst_reqs = submitted[n_sub:]
+        status, deleted = _chain_json(base, "DELETE",
+                                      f"/documents?filename={names[0]}")
+        if status != 200 or deleted != {"deleted": True}:
+            faults.append(f"DELETE /documents: {status} {deleted}")
+        status, listed = _chain_json(base, "GET", "/documents")
+        if sorted(listed["documents"]) != sorted(names[1:]):
+            faults.append(f"after the delete: {listed}")
+        launches = k.launch_counts()
+        stats = dict(sched.stats)
+        _, metrics = _chain_json(base, "GET", "/metrics")
+        rerank_dispatches = rerank_counter.value - rerank0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        sched.stop()
+        set_context(None)
+        emb.close()
+        rer.close()
+    # each answer against the engine's own greedy stream of its prompt ids,
+    # submitted directly to a fresh Scheduler over the same core (an empty
+    # prefix cache, as the chain's run began): the sequential requests one
+    # at a time in their order, then the burst's together
+    replay = Scheduler(core, tok)
+    replay.start()
+    try:
+        def again(req):
+            return Request(prompt_ids=list(req.prompt_ids),
+                           max_tokens=req.max_tokens, temperature=0.0,
+                           top_p=req.top_p, stop=list(req.stop))
+
+        direct = {}
+        for req in [r for c in calls for r in c["reqs"]]:
+            twin = replay.submit(again(req))
+            direct[id(req)] = (twin, "".join(replay.iter_text(twin)))
+        twins = [replay.submit(again(req)) for req in burst_reqs]
+        for req, twin in zip(burst_reqs, twins):
+            direct[id(req)] = (twin, "".join(replay.iter_text(twin)))
+    finally:
+        replay.stop()
+    for c in calls:
+        for req in c["reqs"]:
+            twin = direct[id(req)][0]
+            if req.error or twin.error or req.output_ids != twin.output_ids:
+                faults.append(f"{c['rid']}: the chain's engine stream "
+                              f"differs from the direct one")
+        if len(c["reqs"]) != (2 if c["rid"] == "follow-up" else 1):
+            faults.append(f"{c['rid']}: {len(c['reqs'])} engine requests")
+            continue
+        answer = c["reqs"][-1]
+        if direct[id(answer)][1] != c["text"]:
+            faults.append(f"{c['rid']}: the SSE text differs from the "
+                          f"direct stream")
+        if c["use_kb"]:
+            top = funnels.get(tuple(c["docs_pool"] or ()), [None])[0]
+            if top is None or top[:200] not in tok.decode(answer.prompt_ids):
+                faults.append(f"{c['rid']}: the prompt lacks its top "
+                              f"reranked passage")
+    # the burst's requests reached the engine as the chain sent them, the
+    # replay's together: a stream may part from its twin only where the
+    # plain forward's top two logits are within CHAIN_TIE_ULPS bf16 ulps
+    burst_report = []
+    for req in burst_reqs:
+        twin = direct[id(req)][0]
+        if req.error or twin.error:
+            faults.append(f"burst request {req.request_id} failed")
+            continue
+        a, b = req.output_ids, twin.output_ids
+        if a == b:
+            burst_report.append({"identical": True, "tokens": len(a)})
+            continue
+        step = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        ids = torch.tensor([list(req.prompt_ids) + a[:step]], device=dev)
+        with torch.no_grad():
+            logits = llama.forward(params, cfg, ids)[0, -1].float()
+        top2 = logits.topk(2).values
+        gap, limit = (top2[0] - top2[1]).item(), (
+            CHAIN_TIE_ULPS * BF16_ULP * abs(top2[0].item()))
+        burst_report.append({"identical": False, "step": step,
+                             "top2_gap": gap, "limit": limit})
+        if gap > limit:
+            faults.append(f"burst request {req.request_id}: parts from the "
+                          f"direct stream at step {step}, top-2 gap {gap}")
+    if len(burst) != CHAIN_CONCURRENT or len(burst_reqs) != CHAIN_CONCURRENT:
+        faults.append(f"{len(burst_reqs)} engine requests for "
+                      f"{CHAIN_CONCURRENT} concurrent ones")
+    if (sum(query_dispatches) != CHAIN_CONCURRENT
+            or not 1 <= len(query_dispatches) < CHAIN_CONCURRENT):
+        faults.append(f"the burst's {CHAIN_CONCURRENT} queries took "
+                      f"{len(query_dispatches)} embed dispatches "
+                      f"({query_dispatches})")
+    L = cfg.n_layers
+    if (launches["flash_prefill"] < L * stats["prefill_dispatches"]
+            or stats["prefill_dispatches"] < 1
+            or launches["ragged_paged_attention"] < 1
+            or launches["sample_slots"] < 1):
+        faults.append(f"the chain server's requests did not run through the "
+                      f"kernels: {launches}, {stats}")
+    stages = {name: metrics.get(f"stage_{name}_s")
+              for name in ("condense", "retrieve", "rerank", "generate")}
+    if any(v is None or not v.get("count") for v in stages.values()):
+        faults.append(f"stage histograms missing: {stages}")
+    if faults:
+        raise AssertionError(f"serve_chain_server: {faults}")
+    first = [c["first_frame_s"] for c in calls]
+    emit("serve_chain_server", card=smi, example="multi_turn_rag",
+         corpus_files=len(names), chunks=chunks, upload_s=upload_s,
+         upload_docs_per_s=chunks / upload_s,
+         search_s=searches,
+         request_to_first_frame_s={c["rid"]: c["first_frame_s"]
+                                   for c in calls},
+         first_turn_to_first_frame_s=first[:len(RAG_QUERIES)],
+         follow_up_to_first_frame_s=calls[len(RAG_QUERIES)]["first_frame_s"],
+         stage_s={name: {key: v[key] for key in ("count", "mean", "p50",
+                                                 "p90")}
+                  for name, v in stages.items()},
+         e2e_ttft_s=metrics.get("e2e_ttft_s"),
+         e2e_latency_s=metrics.get("e2e_latency_s"),
+         e2e_tpot_s=metrics.get("e2e_tpot_s"),
+         concurrent=dict(requests=CHAIN_CONCURRENT,
+                         embed_dispatches=burst_dispatches,
+                         query_embed_dispatches=query_dispatches,
+                         wall_s=burst_s,
+                         first_frame_s=sorted(f for _, f in burst)),
+         lookahead=dict(reuse=metrics.get("lookahead_reuse"),
+                        requery=metrics.get("lookahead_requery")),
+         rerank_dispatches=rerank_dispatches,
+         engine_requests=len(direct), burst_vs_direct=burst_report,
+         tie_limit=f"{CHAIN_TIE_ULPS} bf16 ulps of the top logit",
+         warmup_s=warmup_s,
+         llm=(f"llama3-8b, {cfg.n_layers} layers, {cfg.dtype}, random, "
+              f"torch.Generator seed 0, the smoke's BPE tokenizer"),
+         answer_chars=[len(c["text"]) for c in calls],
+         encoder=(f"e5-base ({e5.n_layers} layers, {e5.dim}), bfloat16, "
+                  f"random, torch.Generator seeds 11 / 13"),
+         dispatches=stats, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -7808,6 +8189,9 @@ def main() -> int:
                                   cfg, params)
     torch.cuda.empty_cache()
     paths["serve_rag"] = timed("serve_rag", phase_serve_rag, dev, cfg, params)
+    torch.cuda.empty_cache()
+    paths["serve_chain_server"] = timed(
+        "serve_chain_server", phase_serve_chain_server, dev, cfg, params, smi)
     torch.cuda.empty_cache()
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
         paths["serve_prefix" + tag] = timed(

@@ -2,7 +2,8 @@
 
 Port of the parts of ``generativeaiexamples_tpu/core/config.py`` that the
 port runs: ``EngineConfig`` (only the knobs this port serves),
-``LLMConfig.model_name``, the retrieval sections (``VectorStoreConfig``,
+``LLMConfig`` (``model_name``, ``server_url``, ``model_engine``), the
+retrieval sections (``VectorStoreConfig``,
 ``TextSplitterConfig``, ``EmbeddingConfig``, ``RankingConfig``,
 ``RetrieverConfig``: the reference's fields, defaults and env names), and
 the loader (an optional JSON file named by ``APP_CONFIG_FILE``, then
@@ -142,30 +143,36 @@ class EngineConfig:
 
 @dataclass(frozen=True)
 class LLMConfig:
-    """``APP_LLM_<FIELD>``: the cosmetic OpenAI model id."""
+    """``APP_LLM_<FIELD>``: the chains' LLM (``chains/llm_client.py``)."""
 
-    model_name: str = "llama3-8b-instruct"
+    model_name: str = "llama3-8b-instruct"   # the OpenAI model id
+    # a remote OpenAI-compatible server; "" = the in-process engine
+    server_url: str = ""
+    # the reference reads this field nowhere: it takes remote or in-process
+    # from server_url alone, so the port refuses any other value than its
+    # default instead of ignoring it
+    model_engine: str = "tpu"
+
+    def __post_init__(self) -> None:
+        if str(self.model_engine).strip().lower() != "tpu":
+            raise ValueError(
+                f"llm.model_engine={self.model_engine!r} is not served: the "
+                f"chains use the in-process engine, or the OpenAI-compatible "
+                f"server that llm.server_url (APP_LLM_SERVER_URL) names")
 
 
 @dataclass(frozen=True)
 class VectorStoreConfig:
-    """``APP_VECTOR_STORE_<FIELD>``: the in-process store
-    (``retrieval/store.py``). Only ``name="tpu"`` is served: the remote
-    stores (Milvus, pgvector) are refused."""
+    """``APP_VECTOR_STORE_<FIELD>``: the store backend
+    (``retrieval/adapters.make_store``: the in-process store,
+    ``retrieval/store.py``, or a Milvus, pgvector or Elasticsearch
+    adapter)."""
 
-    name: str = "tpu"             # tpu | milvus | pgvector
+    name: str = "tpu"             # tpu | milvus | pgvector | elasticsearch
     url: str = ""                 # remote vector DB URL (unused in-process)
     nlist: int = 64               # IVF coarse cells
     nprobe: int = 16              # IVF cells probed per query
     index_type: str = "exact"     # exact | ivf
-
-    def __post_init__(self) -> None:
-        if str(self.name).strip().lower() != "tpu":
-            raise NotImplementedError(
-                f"vector_store.name={self.name!r} is not served by the "
-                f"PyTorch port yet (ROADMAP A.13, second part: "
-                f"retrieval/adapters.py make_store); only the in-process "
-                f"store, 'tpu', is")
 
 
 @dataclass(frozen=True)

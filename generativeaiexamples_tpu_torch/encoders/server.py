@@ -14,9 +14,9 @@ its calls in a thread pool for the same reason).
   * ``GET /health``: ``{"message": "Service is up."}``;
   * ``GET /metrics``: ``core/metrics.REGISTRY`` as JSON, or as Prometheus
     text when ``?format=prometheus`` / ``text`` or an ``Accept`` of
-    OpenMetrics or ``text/plain`` without JSON asks for it (as
-    ``server/common.py`` negotiates there); ``?format=openmetrics`` adds
-    the exemplars.
+    OpenMetrics or ``text/plain`` without JSON asks for it
+    (``server/common.metrics_body``); ``?format=openmetrics`` adds the
+    exemplars.
 
 An empty input, a missing query or passages, or a body that is not a JSON
 object answers 400. Not ported (ROADMAP A.10): the ``/debug`` routes,
@@ -29,37 +29,18 @@ import json
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 from urllib.parse import parse_qs, urlsplit
 
-from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
 from generativeaiexamples_tpu_torch.encoders.embedder import Embedder
 from generativeaiexamples_tpu_torch.encoders.reranker import Reranker
+from generativeaiexamples_tpu_torch.server.common import health, metrics_body
 
-PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
-OPENMETRICS_CONTENT_TYPE = ("application/openmetrics-text; version=1.0.0; "
-                            "charset=utf-8")
 logger = logging.getLogger(__name__)
 
 
 class BadRequest(ValueError):
     """A request the server refuses with 400."""
-
-
-def metrics_body(fmt: str, accept: str) -> Tuple[bytes, str]:
-    """The registry's exposition for a ``?format=`` value and an
-    ``Accept`` header: (body, content type)."""
-    fmt = fmt.lower()
-    if fmt == "openmetrics":
-        return (REGISTRY.render_prometheus(openmetrics=True).encode(),
-                OPENMETRICS_CONTENT_TYPE)
-    # a Prometheus scraper asks for openmetrics or text/plain and never for
-    # JSON; generic clients list text/plain after application/json and
-    # keep the JSON snapshot
-    if fmt in ("prometheus", "text") or "openmetrics" in accept or (
-            "text/plain" in accept and "application/json" not in accept):
-        return REGISTRY.render_prometheus().encode(), PROMETHEUS_CONTENT_TYPE
-    return json.dumps(REGISTRY.snapshot()).encode(), "application/json"
 
 
 class EncoderServer:
@@ -141,7 +122,7 @@ def _handler_class(server: EncoderServer):
         def do_GET(self):
             url = urlsplit(self.path)
             if url.path == "/health":
-                self._json(200, {"message": "Service is up."})
+                self._json(*health())
             elif url.path == "/metrics":
                 fmt = parse_qs(url.query).get("format", [""])[0]
                 self._send(200, *metrics_body(

@@ -62,18 +62,12 @@ from generativeaiexamples_tpu_torch.engine import grammar as grammar_mod
 from generativeaiexamples_tpu_torch.engine import tools as tools_mod
 from generativeaiexamples_tpu_torch.engine.engine import TOP_LP
 from generativeaiexamples_tpu_torch.engine.scheduler import Request, Scheduler
+from generativeaiexamples_tpu_torch.server.common import (MAX_TOKENS_CAP,
+                                                           parse_stop)
 
-MAX_TOKENS_CAP = 1024
 MAX_CHOICES = 4
 _RID_SAFE = re.compile(r"[^A-Za-z0-9_.:\-]")
 logger = logging.getLogger(__name__)
-
-
-def parse_stop(value) -> list:
-    """OpenAI ``stop`` (string | list | null) -> at most 4 strings."""
-    if isinstance(value, str):
-        value = [value]
-    return [str(s) for s in (value or []) if s][:4]
 
 
 def _finish_reason(req, default: str = "stop") -> str:

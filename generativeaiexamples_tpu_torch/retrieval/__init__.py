@@ -3,9 +3,9 @@
 Port of ``generativeaiexamples_tpu/retrieval``'s core: an in-process
 store whose similarity search is a matrix product on the GPU (exact, and
 IVF mirroring Milvus ``GPU_IVF_FLAT``'s knobs), BM25 with reciprocal-rank
-fusion, and the token splitter. The remote stores (``adapters.py``:
-Milvus, pgvector) and ``streaming_ingest.py`` are ROADMAP A.13's second
-part.
+fusion, and the token splitter; ``adapters.py`` puts Milvus, pgvector
+and Elasticsearch behind the same surface (``make_store``).
+``streaming_ingest.py`` waits for ROADMAP A.16 with its one chain.
 """
 
 from generativeaiexamples_tpu_torch.retrieval.store import Document, VectorStore  # noqa: F401

@@ -1574,3 +1574,95 @@ def test_store_search_on_the_card_matches_cpu(cuda_device, index_type):
         assert [d.content for d, _ in got] == [d.content for d, _ in want]
         np.testing.assert_allclose([x for _, x in got], [x for _, x in want],
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The chain server on the card
+# ---------------------------------------------------------------------------
+
+def _on(tree, device):
+    """A copy of a parameter tree (dicts and lists of tensors) on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _chain_server_bodies(device, folder):
+    """SSE bodies of the tiny chain server on ``device``: the tiny llama
+    and tiny BERT encoders in f32, their weights drawn on the CPU (a CUDA
+    generator draws other numbers) and copied over; one upload, then a RAG
+    and a plain request, greedy, with a fixed request id."""
+    import json
+    import urllib.request
+    from generativeaiexamples_tpu_torch.chains.basic_rag import BasicRAG
+    from generativeaiexamples_tpu_torch.chains.context import ChainContext
+    from generativeaiexamples_tpu_torch.chains.llm_client import LocalLLM
+    from generativeaiexamples_tpu_torch.core.config import (AppConfig,
+                                                            EngineConfig)
+    from generativeaiexamples_tpu_torch.encoders import Embedder, Reranker
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import bert, llama
+    from generativeaiexamples_tpu_torch.server.api import serve_in_thread
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = _on(llama.init_params(torch.Generator().manual_seed(5), cfg),
+                 device)
+    tok = ByteTokenizer()
+    sched = Scheduler(EngineCore(cfg, EngineConfig(), params, tok.eos_id,
+                                 device=device), tok)
+    sched.start()
+    encoders = [
+        cls(cfg=bert.BertConfig.tiny(), device=device, dtype="float32",
+            params=bert.init_params(torch.Generator().manual_seed(seed),
+                                    bert.BertConfig.tiny(),
+                                    with_rank_head=rank))
+        for cls, seed, rank in ((Embedder, 11, False), (Reranker, 13, True))]
+    ctx = ChainContext(config=AppConfig(), llm=LocalLLM(sched),
+                       embedder=encoders[0], reranker=encoders[1])
+    example = BasicRAG(context=ctx)
+    example.ingest_docs(str(folder / "kb.txt"), "kb.txt")
+    _, httpd, thread = serve_in_thread(example)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+    bodies = []
+    try:
+        for use_kb in (True, False):
+            req = urllib.request.Request(url, data=json.dumps({
+                "messages": [{"role": "user",
+                              "content": "where do llamas live?"}],
+                "use_knowledge_base": use_kb, "max_tokens": 16,
+                "temperature": 0.0}).encode(), headers={
+                "Content-Type": "application/json", "X-Request-Id": "r"})
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                bodies.append(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        sched.stop()
+    return bodies
+
+
+def _stream_text(body):
+    """The concatenated content of an SSE body's frames (their split into
+    deltas follows the dispatches, which differ by device)."""
+    import json
+    frames = [f[len(b"data: "):] for f in body.split(b"\n\n") if f]
+    assert frames[-1] == b"[DONE]"
+    return "".join(json.loads(f)["choices"][0]["message"]["content"]
+                   for f in frames[:-1])
+
+
+@pytest.mark.cuda
+def test_tiny_chain_server_on_the_card_matches_cpu(cuda_device, tmp_path):
+    (tmp_path / "kb.txt").write_text(
+        "Llamas live in the Andes.\n\nPaged attention shares pages.")
+    card = _chain_server_bodies(cuda_device, tmp_path)
+    cpu = _chain_server_bodies(torch.device("cpu"), tmp_path)
+    got = [_stream_text(body) for body in card]
+    want = [_stream_text(body) for body in cpu]
+    assert got == want and all(got)

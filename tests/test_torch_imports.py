@@ -9,6 +9,9 @@ to fall back to the CPU when no GPU is present. The packages the serving
 machine lacks (``tokenizers``, ``safetensors``, ``transformers``) are
 imported by no module of the port nor the smoke, but inside
 ``HFTokenizer.__init__``, which only a refused ``tokenizer.json`` reaches.
+Nor does it need the chain server's packages there (``aiohttp``,
+``bleach``, ``httpx``, ``requests``, ``yaml``, ``bs4``): with them refused
+every module imports and the port's chain server answers a ``/generate``.
 """
 
 import ast
@@ -200,3 +203,67 @@ def test_unported_config_knobs_are_refused(monkeypatch):
     for name in ("starcoder2-3b", "mixtral-8x7b"):
         with pytest.raises(NotImplementedError, match=r"A\.12"):
             model_config(name)
+
+
+# the chain server's packages there, which the card's machine lacks
+WEB_PACKAGES = ("aiohttp", "bleach", "httpx", "requests", "yaml", "bs4")
+
+_CHAIN_SERVER = r'''
+import json, urllib.request
+from generativeaiexamples_tpu_torch.chains.basic_rag import BasicRAG
+from generativeaiexamples_tpu_torch.server.__main__ import tiny_context
+from generativeaiexamples_tpu_torch.server.api import serve_in_thread
+ctx = tiny_context("cpu")
+_, httpd, thread = serve_in_thread(BasicRAG(context=ctx))
+try:
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/generate" % httpd.server_address[1],
+        data=json.dumps({"messages": [{"role": "user", "content": "<b>hi</b>"}],
+                         "use_knowledge_base": False, "max_tokens": 4,
+                         "temperature": 0.0}).encode(),
+        headers={"Content-Type": "application/json", "X-Request-Id": "r1"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        frames = [f for f in resp.read().decode().split("\n\n") if f]
+finally:
+    httpd.shutdown()
+    httpd.server_close()
+    ctx.llm.scheduler.stop()
+assert frames[-1] == "data: [DONE]", frames
+assert json.loads(frames[-2][6:])["choices"][0]["finish_reason"] == "stop"
+assert json.loads(frames[0][6:])["id"] == "r1"
+leaked = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
+assert not leaked, leaked
+print("served", len(frames))
+'''
+
+
+def test_every_module_imports_and_serves_without_web_packages():
+    """``aiohttp``, ``bleach``, ``httpx``, ``requests``, ``yaml`` and
+    ``bs4`` refused: every module of the port and the smoke script import,
+    and the port's chain server answers one ``/generate`` on the CPU."""
+    guard = _GUARD.replace(
+        'FORBIDDEN = ("jax", "jaxlib", "generativeaiexamples_tpu")',
+        f"FORBIDDEN = {WEB_PACKAGES!r}")
+    assert guard != _GUARD
+    mods = sorted(_modules()) + ["chip_smoke"]
+    proc = subprocess.run([sys.executable, "-c", guard + _CHAIN_SERVER,
+                           *mods], cwd=ROOT, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.split()
+    assert lines[:2] == ["ok", str(len(mods))] and lines[2] == "served"
+
+
+def test_chain_entry_points_refuse_cpu_fallback(monkeypatch):
+    """With no GPU and no explicit device the chain context and the chain
+    server's CLI raise; their engine and encoders would run on ``cuda``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from generativeaiexamples_tpu_torch.chains import context
+    from generativeaiexamples_tpu_torch.server import __main__ as cli
+    monkeypatch.setattr(context, "_context", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        context.get_context()
+    assert context._context is None
+    monkeypatch.setattr(sys, "argv", ["server", "--example", "basic_rag"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main()

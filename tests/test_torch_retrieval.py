@@ -353,9 +353,14 @@ def test_retrieval_config_sections_match_the_reference(section, cls,
 
 
 def test_remote_vector_stores_are_refused():
-    with pytest.raises(NotImplementedError, match=r"A\.13"):
-        tconfig.load_config(env={"APP_VECTOR_STORE_NAME": "milvus"})
-    with pytest.raises(NotImplementedError, match=r"A\.13"):
-        tconfig.VectorStoreConfig(name="pgvector")
+    """The remote stores are served since their adapters were ported
+    (``retrieval/adapters.py``): the configuration takes them, and
+    ``make_store`` refuses only a backend it does not know."""
+    from generativeaiexamples_tpu_torch.retrieval.adapters import make_store
+    assert tconfig.load_config(env={"APP_VECTOR_STORE_NAME": "milvus"}
+                               ).vector_store.name == "milvus"
+    assert tconfig.VectorStoreConfig(name="pgvector").name == "pgvector"
+    with pytest.raises(ValueError, match="unknown vector store backend"):
+        make_store(4, tconfig.VectorStoreConfig(name="chroma"))
     assert tconfig.load_config(
         env={"APP_VECTOR_STORE_NAME": "tpu"}).vector_store.name == "tpu"
