@@ -209,6 +209,30 @@ prints no result:
               launched; upload
               docs/s, the chain's stage histograms, request to first SSE
               chunk, e2e TTFT and latency;
+ 10f. serve_agents  (after serve_chain_server, on its engine core,
+              tokenizer and encoders) the agentic chains, fired together
+              so the engine batches them: ``agentic_rag``, ``router_rag``,
+              ``query_decomposition_rag`` and ``text_to_sql`` each behind a
+              ChainServer of its own (two of the corpus's files uploaded;
+              for text_to_sql a note on the tables of a 3-table sqlite file
+              whose schema and one question it trained on; then one greedy
+              ``/generate`` of 32 tokens;
+              ``/search`` for agentic_rag), a retriever of 2; beside them
+              one ``ToolAgent`` episode forced to its approval-gated tool
+              under the tool grammar (approved once, then denied), one
+              ``StructuredExtractor.extract`` and one two-turn
+              ``BashAgent.run`` whose policy approves only ``ls`` and
+              ``pwd``, both replying under their reply format's grammar;
+              every status 200, every SSE frame as the reference gives
+              it, each answer the engine's stream or its chain's
+              documented fallback, every tool call valid under its tool's
+              schema, a record extracted, each bash turn an approved
+              command that ran in its folder, the sqlite
+              authorizer refusing a write, and ``flash_prefill``,
+              ``ragged_paged_attention``, ``sample_slots`` and
+              ``grammar_mask`` launched; per chain its engine requests,
+              tokens and seconds, the agentic loop's grades, rewrites and
+              attempts, the lookahead counters, ``grammar_attached``;
  10b. serve_multi  llama3-8b over the smoke's BPE tokenizer, speculation
               off, K = 2: ``serve``'s traffic plus one request with a stop
               string, in a fixed order, with ``decode_multistep`` 0 and
@@ -7077,7 +7101,7 @@ def phase_serve_rag(dev, cfg, params):
     the ``VectorStore``; each of ``RAG_QUERIES`` embedded, searched at
     ``nr_top_k`` (40), cut to ``top_k`` (4) by the ``Reranker`` (full
     e5-base with the rank head, bf16), its passages (cut to
-    ``max_context_tokens``) put in a chat to full llama3-8b behind the
+    ``max_context_tokens``) put in a chat to llama3-8b (``cfg``) behind the
     engine's HTTP server (the defaults, greedy, 32 tokens). Every request
     must answer 200 with its top passage in its prompt and launch the
     engine's kernels; then ``RAG_POSTS`` concurrent /v1/embeddings
@@ -7324,13 +7348,15 @@ def _chain_generate(base, rid, messages, use_kb=True,
     return text, first
 
 
-def phase_serve_chain_server(dev, cfg, params, smi):
+def phase_serve_chain_server(dev, cfg, params, smi, shared):
     """``serve_rag``'s path behind the port's chain server: full llama3-8b
     (bf16, the default engine config) under ``LocalLLM``, full e5-base
     encoders in bf16 with their micro-batchers on, wired in through
     ``set_context`` and served as ``multi_turn_rag`` by ``ChainServer`` on a
     local port; every call goes over HTTP. Returns the launches of the
-    chain server's requests."""
+    chain server's requests; ``shared`` gets the app config, tokenizer,
+    encoders and engine core for ``serve_agents`` (the caller closes the
+    encoders)."""
     import torch
     from generativeaiexamples_tpu_torch.chains.context import (ChainContext,
                                                                set_context)
@@ -7354,11 +7380,13 @@ def phase_serve_chain_server(dev, cfg, params, smi):
         app.embeddings.microbatch_window_ms / 1e3))
     rer = Reranker(cfg=e5, device=dev, dtype="bfloat16", micro_window_s=(
         app.ranking.microbatch_window_ms / 1e3))
+    shared.update(app=app, tok=tok, emb=emb, rer=rer)
     emb.embed_documents(["warm up"])     # first calls: cuBLAS handles
     rer.score("warm", ["up"])
     # the smoke's Llama-3-shaped BPE tokenizer: every id of llama3-8b's
     # vocabulary decodes to text, so the random model's answers stream
     core = serving_core(dev, cfg, params, eos_id=tok.eos_id)
+    shared["core"] = core
     warmup_s = core.warmup()
     sched = Scheduler(core, tok)
     submitted = []
@@ -7489,8 +7517,6 @@ def phase_serve_chain_server(dev, cfg, params, smi):
         thread.join(timeout=30)
         sched.stop()
         set_context(None)
-        emb.close()
-        rer.close()
     # each answer against the engine's own greedy stream of its prompt ids,
     # submitted directly to a fresh Scheduler over the same core (an empty
     # prefix cache, as the chain's run began): the sequential requests one
@@ -7609,6 +7635,432 @@ def phase_serve_chain_server(dev, cfg, params, smi):
          encoder=(f"e5-base ({e5.n_layers} layers, {e5.dim}), bfloat16, "
                   f"random, torch.Generator seeds 11 / 13"),
          dispatches=stats, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+# serve_agents' traffic: two of rag_corpus()'s files (its two smallest) a
+# chain, text_to_sql's documentation a note on its tables instead (the
+# corpus's chunks would not fit its prompt in 2,048 positions); a
+# retriever of AGENT_TOP_K (a smoke choice that bounds the graders' calls;
+# the CPU tests hold the default 4), one greedy /generate of
+# RAG_MAX_TOKENS a chain, the four chains and three agent loops at once
+AGENT_FILES = ("docs/migration.md", "docs/rag_pipeline.md")
+AGENT_SQL_NOTE = ("tables.md", "The kernels table names each CUDA kernel "
+                  "and its source file. The phases table names each smoke "
+                  "phase and its seconds. The launches table counts the "
+                  "launches of a kernel in a phase.\n")
+AGENT_TOP_K = 2
+AGENT_CHAINS = {
+    "agentic_rag": RAG_QUERIES[0],
+    "router_rag": RAG_QUERIES[1],
+    "query_decomposition_rag": RAG_QUERIES[2],
+    "text_to_sql": "How many launches did each kernel make in each phase?"}
+# (name, description, parameters, behind approval): the episode is forced
+# to ``report``, so the approval gate opens on every step
+AGENT_TOOLS = (
+    ("lookup", "Look a topic up in the notes.",
+     {"type": "object", "properties": {
+         "topic": {"type": "string",
+                   "enum": ["kernels", "chains", "serving"]}},
+      "required": ["topic"]}, False),
+    ("report", "Send a short report to a team.",
+     {"type": "object", "properties": {
+         "to": {"type": "string", "maxLength": 12},
+         "urgent": {"type": "boolean"}},
+      "required": ["to", "urgent"]}, True))
+AGENT_TOOL_TOKENS = 128
+AGENT_EXTRACT = ("flash_prefill launched 288 times in serve_chain_server, "
+                 "on the card.")
+AGENT_BASH_OK = r"(ls|pwd)( [\w./-]+)*"    # the only commands approved
+# the extraction's and the bash agent's replies decode under these (their
+# reply formats), so random weights answer in them: every bash turn is a
+# command the policy approves, run in the agent's folder (the CPU tests
+# hold the declined path)
+AGENT_EXTRACT_SCHEMA = {"type": "object", "properties": {
+    "kernel": {"type": "string", "maxLength": 24},
+    "launches": {"type": "number"},
+    "on_card": {"type": "boolean"}}, "required": ["kernel", "launches"]}
+AGENT_BASH_SCHEMA = {"type": "object", "properties": {
+    "tool": {"enum": ["exec_bash_command"]},
+    "cmd": {"enum": ["ls", "ls -t", "pwd"]}},
+    "required": ["tool", "cmd"]}
+
+
+class _Tagged:
+    """A Scheduler as one chain's ``LocalLLM`` sees it: the requests it
+    submits are recorded, with the text each streamed."""
+
+    def __init__(self, sched):
+        self._sched = sched
+        self.reqs = []
+        self.texts = {}
+
+    def __getattr__(self, name):
+        return getattr(self._sched, name)
+
+    def submit(self, req):
+        self.reqs.append(req)
+        return self._sched.submit(req)
+
+    def iter_text(self, req):
+        parts = []
+        for piece in self._sched.iter_text(req):
+            parts.append(piece)
+            yield piece
+        self.texts[id(req)] = "".join(parts)
+
+
+class _ToolChoice:
+    """A LocalLLM with every tool turn under ``choice``: ToolAgent sends
+    "auto", which attaches no grammar, so random weights call no tool."""
+
+    def __init__(self, llm, choice):
+        self.llm, self.choice = llm, choice
+
+    def chat_tools(self, messages, tools, tool_choice="auto", **sampling):
+        return self.llm.chat_tools(messages, tools, tool_choice=self.choice,
+                                   **sampling)
+
+
+class _Schema:
+    """A LocalLLM whose ``chat`` decodes under the JSON grammar of
+    ``schema``, in at most AGENT_TOOL_TOKENS tokens."""
+
+    def __init__(self, llm, schema):
+        from generativeaiexamples_tpu_torch.engine.grammar import Grammar
+        self.llm, self.grammar = llm, Grammar.from_schema(schema)
+
+    def chat(self, messages, max_tokens=256, **sampling):
+        return self.llm.chat(messages, grammar=self.grammar,
+                             max_tokens=min(max_tokens, AGENT_TOOL_TOKENS),
+                             **sampling)
+
+
+def _agent_db(path):
+    """A sqlite file of three tables (kernels, phases, launches)."""
+    import sqlite3
+    conn = sqlite3.connect(path)
+    conn.executescript(
+        "CREATE TABLE kernels (id INTEGER PRIMARY KEY, name TEXT, "
+        "source TEXT);"
+        "CREATE TABLE phases (id INTEGER PRIMARY KEY, name TEXT, "
+        "seconds REAL);"
+        "CREATE TABLE launches (kernel_id INTEGER REFERENCES kernels(id), "
+        "phase_id INTEGER REFERENCES phases(id), n INTEGER);")
+    conn.executemany("INSERT INTO kernels (name, source) VALUES (?, ?)",
+                     [("flash_prefill", "flash_prefill.cu"),
+                      ("sample_slots", "sample_slots.cu")])
+    conn.executemany("INSERT INTO phases (name, seconds) VALUES (?, ?)",
+                     [("serve", 30.0), ("serve_chain_server", 40.0)])
+    conn.executemany("INSERT INTO launches VALUES (?, ?, ?)",
+                     [(1, 1, 64), (1, 2, 288), (2, 1, 259), (2, 2, 299)])
+    conn.commit()
+    conn.close()
+
+
+def _tool_fn(name):
+    return lambda **args: f"{name} done: {json.dumps(args, sort_keys=True)}"
+
+
+def phase_serve_agents(smi, app, tok, emb, rer, core):
+    """serve_agents: the agentic chains on ``serve_chain_server``'s engine
+    core, tokenizer and encoders (no second engine is drawn, loaded or
+    warmed), a new Scheduler over the core. ``agentic_rag``,
+    ``router_rag``, ``query_decomposition_rag`` and ``text_to_sql`` each
+    behind a ChainServer of its own, with ``AGENT_FILES`` uploaded and one
+    ``/generate``; a ``ToolAgent`` episode, a ``StructuredExtractor`` call
+    and a ``BashAgent`` run beside them, all at once (``AGENT_SQL_NOTE``
+    is text_to_sql's upload). The three loops reply under grammars
+    (``_ToolChoice``, ``_Schema``), so each takes its tool or record path.
+    Raises on any fault; returns the phase's launches."""
+    import dataclasses
+    import re
+    import shutil
+    import sqlite3
+    import tempfile
+    import torch
+    from generativeaiexamples_tpu_torch.chains import NO_CONTEXT_MSG
+    from generativeaiexamples_tpu_torch.chains.bash_agent import (BashAgent,
+                                                                  BashTool)
+    from generativeaiexamples_tpu_torch.chains.context import ChainContext
+    from generativeaiexamples_tpu_torch.chains.extraction import (
+        Field, StructuredExtractor)
+    from generativeaiexamples_tpu_torch.chains.llm_client import LocalLLM
+    from generativeaiexamples_tpu_torch.chains.tool_agent import (Tool,
+                                                                  ToolAgent)
+    from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    from generativeaiexamples_tpu_torch.server.api import (ERROR_MESSAGE,
+                                                           serve_in_thread)
+    from generativeaiexamples_tpu_torch.server.registry import get_example
+    config = dataclasses.replace(app, retriever=dataclasses.replace(
+        app.retriever, top_k=AGENT_TOP_K))
+    t0 = time.perf_counter()
+    core.ensure_token_bytes(tok)
+    token_bytes_s = time.perf_counter() - t0
+    sched = Scheduler(core, tok)
+    sched.start()
+    tagged = {name: _Tagged(sched) for name in
+              list(AGENT_CHAINS) + ["tool_agent", "extraction", "bash_agent"]}
+    files = []
+    for path in AGENT_FILES:
+        with open(os.path.join(HERE, path), encoding="utf-8") as fh:
+            files.append((os.path.basename(path), fh.read()))
+    folder = tempfile.mkdtemp(prefix="serve_agents_")
+    db = os.path.join(folder, "smoke.db")
+    _agent_db(db)
+    examples, servers = {}, {}
+    try:
+        for name in AGENT_CHAINS:
+            examples[name] = get_example(
+                name, context=ChainContext(
+                    config=config, llm=LocalLLM(tagged[name]), embedder=emb,
+                    reranker=rer),
+                **({"db_path": db} if name == "text_to_sql" else {}))
+        t2s = examples["text_to_sql"]
+        trained = t2s.auto_train_schema()
+        t2s.train(question="How many times did flash_prefill launch?",
+                  sql="SELECT SUM(n) FROM launches JOIN kernels ON "
+                      "kernels.id = launches.kernel_id WHERE kernels.name = "
+                      "'flash_prefill'")
+        agentic = examples["agentic_rag"]
+        loop = {"attempts": 0, "grades": [], "rewrites": [],
+                "generations": []}
+        grade_docs, grade, rewrite, generate = (
+            agentic._grade_documents, agentic._grade,
+            agentic._rewrite_question, agentic._generate)
+
+        def spy_grade_docs(question, docs, **settings):
+            loop["attempts"] += 1
+            return grade_docs(question, docs, **settings)
+
+        def spy(key, fn):
+            def wrapped(*args, **settings):
+                out = fn(*args, **settings)
+                loop[key].append(out)
+                return out
+            return wrapped
+
+        agentic._grade_documents = spy_grade_docs
+        agentic._grade = spy("grades", grade)
+        agentic._rewrite_question = spy("rewrites", rewrite)
+        agentic._generate = spy("generations", generate)
+        for name, example in examples.items():
+            servers[name] = serve_in_thread(example)
+        bases = {name: f"http://127.0.0.1:{s[1].server_address[1]}"
+                 for name, s in servers.items()}
+        sources = sorted(f for f, _ in files)
+
+        def http_chain(name):
+            base, faults = bases[name], []
+            t1 = time.perf_counter()
+            for fname, text in ([AGENT_SQL_NOTE] if name == "text_to_sql"
+                                else files):
+                body, headers = _multipart(fname, text.encode())
+                status, _, raw = _post(base + "/documents", body, headers)
+                if status != 200 or json.loads(raw) != {
+                        "message": "File uploaded successfully"}:
+                    faults.append(f"upload {fname}: {status} {raw[:200]}")
+            status, listed = _chain_json(base, "GET", "/documents")
+            want = ["sql_docs"] if name == "text_to_sql" else sources
+            if status != 200 or not isinstance(listed, dict) or sorted(
+                    listed["documents"]) != want:
+                faults.append(f"GET /documents: {status} {listed}")
+            text, first = _chain_generate(base, f"agents-{name}", [
+                {"role": "user", "content": AGENT_CHAINS[name]}])
+            out = dict(text=text, first_frame_s=first, faults=faults)
+            if name == "agentic_rag":
+                status, found = _chain_json(base, "POST", "/search", {
+                    "query": AGENT_CHAINS[name], "top_k": AGENT_TOP_K})
+                if (status != 200 or not isinstance(found, dict)
+                        or len(found["chunks"]) != AGENT_TOP_K
+                        or any(c["filename"] not in sources
+                               for c in found["chunks"])):
+                    faults.append(f"/search: {status} {found}")
+            out["wall_s"] = time.perf_counter() - t1
+            return out
+
+        def tool_episode():
+            t1 = time.perf_counter()
+            tools = [Tool(name=n, description=d, parameters=p,
+                          fn=_tool_fn(n), requires_approval=gated)
+                     for n, d, p, gated in AGENT_TOOLS]
+            agent = ToolAgent(
+                _ToolChoice(LocalLLM(tagged["tool_agent"]), {
+                    "type": "function", "function": {"name": "report"}}),
+                tools, max_steps=2, max_tokens=AGENT_TOOL_TOKENS,
+                temperature=0.0)
+            events = list(agent.run("Look up the kernels, then report them "
+                                    "to the serving team."))
+            verdicts = []
+            while events[-1]["type"] == "approval_request":
+                verdicts.append(not verdicts)     # approve once, then deny
+                events += list(agent.resume(events[-1]["pending"],
+                                            approved=verdicts[-1],
+                                            feedback="one report is enough"))
+            return dict(events=events, verdicts=verdicts,
+                        wall_s=time.perf_counter() - t1)
+
+        def extraction():
+            t1 = time.perf_counter()
+            fields = [Field("kernel", "string", "the kernel's name"),
+                      Field("launches", "number"),
+                      Field("on_card", "boolean", required=False)]
+            record = StructuredExtractor(
+                _Schema(LocalLLM(tagged["extraction"]),
+                        AGENT_EXTRACT_SCHEMA),
+                max_retries=0).extract(AGENT_EXTRACT, fields)
+            return dict(record=record, wall_s=time.perf_counter() - t1)
+
+        def bash():
+            t1 = time.perf_counter()
+            workdir = os.path.join(folder, "bash")
+            os.makedirs(workdir)
+            with open(os.path.join(workdir, "notes.txt"), "w") as fh:
+                fh.write("serve_agents\n")
+            agent = BashAgent(
+                _Schema(LocalLLM(tagged["bash_agent"]), AGENT_BASH_SCHEMA),
+                tool=BashTool(root_dir=workdir, timeout_s=5.0),
+                confirm=lambda cmd: re.fullmatch(AGENT_BASH_OK, cmd)
+                is not None, max_turns=2)
+            answer, transcript = agent.run("List the files here and say "
+                                           "which one is newest.")
+            return dict(answer_chars=len(answer), transcript=transcript,
+                        wall_s=time.perf_counter() - t1)
+
+        counters = ("lookahead_reuse", "lookahead_requery",
+                    "generate_errors")
+        before = {n: REGISTRY.counter(n).value for n in counters}
+        k.reset_launch_counts()
+        core.sample_calls = 0
+        for key in sched.stats:
+            sched.stats[key] = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(tagged)) as pool:
+            futs = {name: pool.submit(http_chain, name)
+                    for name in AGENT_CHAINS}
+            futs.update(tool_agent=pool.submit(tool_episode),
+                        extraction=pool.submit(extraction),
+                        bash_agent=pool.submit(bash))
+            results = {name: f.result() for name, f in futs.items()}
+        traffic_s = time.perf_counter() - t0
+        launches = k.launch_counts()
+        sample_calls = core.sample_calls
+        stats = dict(sched.stats)
+        moved = {n: REGISTRY.counter(n).value - before[n] for n in counters}
+        try:
+            t2s.run_sql("DELETE FROM launches")
+            refused = None
+        except sqlite3.Error as exc:
+            refused = f"{type(exc).__name__}: {exc}"
+        rows_left = t2s.run_sql("SELECT COUNT(*) FROM launches")[1]
+    finally:
+        for _, httpd, thread in servers.values():
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        sched.stop()
+        shutil.rmtree(folder, ignore_errors=True)
+    faults = [f"{name}: {f}" for name in AGENT_CHAINS
+              for f in results[name]["faults"]]
+    for name, t in tagged.items():
+        if not t.reqs:
+            faults.append(f"{name} sent no engine request")
+        for req in t.reqs:
+            if req.error or not req.output_ids:
+                faults.append(f"{name}: request {req.request_id} failed: "
+                              f"{req.error}")
+
+    def last_text(name):
+        reqs = tagged[name].reqs
+        return tagged[name].texts.get(id(reqs[-1])) if reqs else None
+
+    # each answer is the engine's stream of the chain's last call, or the
+    # chain's own documented fallback
+    allowed = {
+        "agentic_rag": [NO_CONTEXT_MSG] + loop["generations"][-1:],
+        "router_rag": [last_text("router_rag")],
+        "query_decomposition_rag": [NO_CONTEXT_MSG,
+                                    "I can't find an answer for that.",
+                                    last_text("query_decomposition_rag")],
+        "text_to_sql": [last_text("text_to_sql")]}
+    for name in AGENT_CHAINS:
+        text = results[name]["text"]
+        if text == ERROR_MESSAGE or not (
+                text in allowed[name] or (
+                    name == "text_to_sql" and text.startswith(
+                        "I could not answer that with SQL: "))):
+            faults.append(f"{name} answered {text[:120]!r}")
+    if moved["generate_errors"]:
+        faults.append(f"{moved['generate_errors']} chain errors")
+    schemas = {n: p for n, _, p, _ in AGENT_TOOLS}
+    episode = results["tool_agent"]
+    calls = [e["call"]["function"] for e in episode["events"]
+             if e["type"] in ("tool_call", "approval_request")]
+    invalid = [c for c in calls if c["name"] != "report"
+               or not validates(json.loads(c["arguments"]),
+                                schemas[c["name"]])]
+    executed = [e for e in episode["events"]
+                if e["type"] == "tool_call" and e.get("approved")]
+    if (not calls or invalid or episode["verdicts"][:1] != [True]
+            or len(executed) != 1
+            or episode["events"][-1]["type"] != "final"):
+        faults.append(f"tool_agent: calls {calls}, invalid {invalid}, "
+                      f"verdicts {episode['verdicts']}")
+    attached = {name: [r.grammar_attached for r in tagged[name].reqs]
+                for name in ("tool_agent", "extraction", "bash_agent")}
+    if not all(flags and all(flags) for flags in attached.values()):
+        faults.append(f"grammar_attached {attached}")
+    # every bash turn is a command (its grammar) that the policy approved
+    # and that ran in the agent's folder
+    transcript = results["bash_agent"]["transcript"]
+    if len(transcript) != 2:
+        faults.append(f"bash_agent: {len(transcript)} steps, not 2")
+    for step in transcript:
+        if (re.fullmatch(AGENT_BASH_OK, step["cmd"]) is None
+                or step.get("returncode") != "0"
+                or ("notes.txt" not in step["stdout"] if step["cmd"] != "pwd"
+                    else not step["stdout"].strip().endswith("bash"))):
+            faults.append(f"bash_agent step {step}")
+    if refused is None or rows_left != [(4,)]:
+        faults.append(f"text_to_sql's authorizer let a write through: "
+                      f"{rows_left}")
+    for name in ("flash_prefill", "ragged_paged_attention", "sample_slots",
+                 "grammar_mask"):
+        if launches[name] < 1:
+            faults.append(f"{name} never launched")
+    if launches["sample_slots"] != sample_calls:
+        faults.append(f"{launches['sample_slots']} sample_slots launches "
+                      f"for {sample_calls} sampling calls")
+    if faults:
+        raise AssertionError("serve_agents: " + "; ".join(faults))
+    per_chain = {}
+    for name, t in tagged.items():
+        per_chain[name] = dict(
+            engine_requests=len(t.reqs),
+            tokens=sum(len(r.output_ids) for r in t.reqs),
+            wall_s=results[name]["wall_s"])
+        if name in AGENT_CHAINS:
+            per_chain[name].update(first_frame_s=results[name][
+                "first_frame_s"], answer_chars=len(results[name]["text"]))
+    emit("serve_agents", card=smi, traffic_s=traffic_s,
+         token_byte_table_s=token_bytes_s, chains=per_chain,
+         agentic=dict(attempts=loop["attempts"], grades=loop["grades"],
+                      rewrites=len(loop["rewrites"]),
+                      generations=len(loop["generations"])),
+         lookahead=dict(reuse=moved["lookahead_reuse"],
+                        requery=moved["lookahead_requery"]),
+         grammar_attached=attached,
+         tool_events=[e["type"] for e in episode["events"]],
+         tool_calls=calls, verdicts=episode["verdicts"],
+         extraction={key: v for key, v in results["extraction"].items()
+                     if key != "wall_s"},
+         bash_transcript=results["bash_agent"]["transcript"],
+         sql=dict(tables_trained=trained, write_refused=refused),
+         top_k=AGENT_TOP_K, dispatches=stats, launches=launches,
+         sample_calls=sample_calls,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches
 
@@ -8190,8 +8642,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve_rag"] = timed("serve_rag", phase_serve_rag, dev, cfg, params)
     torch.cuda.empty_cache()
-    paths["serve_chain_server"] = timed(
-        "serve_chain_server", phase_serve_chain_server, dev, cfg, params, smi)
+    # serve_agents runs on serve_chain_server's engine core, tokenizer and
+    # encoders
+    shared = {}
+    try:
+        paths["serve_chain_server"] = timed(
+            "serve_chain_server", phase_serve_chain_server, dev, cfg, params,
+            smi, shared)
+        paths["serve_agents"] = timed("serve_agents", phase_serve_agents,
+                                      smi, **shared)
+    finally:
+        for name in ("emb", "rer"):
+            if name in shared:
+                shared[name].close()
+    del shared
+    gc.collect()
     torch.cuda.empty_cache()
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
         paths["serve_prefix" + tag] = timed(

@@ -21,9 +21,12 @@ with its request and response shapes.
   * ``POST /search`` (``query``, ``top_k``) -> ``{"chunks": [{content,
     filename, score}]}``, 501 for an example without search;
   * ``GET /documents`` -> ``{"documents": [...]}``; ``POST /documents``
-    takes the multipart field ``file`` into ``UPLOAD_DIR`` (the system's
-    temporary directory's ``gaie-tpu-uploads`` unless set) and ingests
-    it; ``DELETE /documents?filename=`` -> ``{"deleted": bool}``.
+    writes the multipart field ``file`` into a folder of its own under
+    ``UPLOAD_DIR`` (the system's temporary directory's
+    ``gaie-tpu-uploads`` unless set), ingests it and removes it, where the
+    reference keeps ``UPLOAD_DIR/<name>``, which two uploads of one name
+    at once share (ROADMAP C10); ``DELETE /documents?filename=`` ->
+    ``{"deleted": bool}``.
 
 An empty ``messages`` list, an empty search query, a missing ``file``
 field or ``filename`` answers 422 with ``{"error": ...}``, as the reference
@@ -356,15 +359,18 @@ class ChainServer:
             raise _unprocessable("multipart field 'file' required")
         filename = os.path.basename(got[0] or f"upload-{uuid.uuid4().hex}")
         os.makedirs(UPLOAD_DIR, exist_ok=True)
-        path = os.path.join(UPLOAD_DIR, filename)
-        with open(path, "wb") as fh:
-            fh.write(got[1])
-        try:
-            self.example.ingest_docs(path, filename)
-        except Exception as exc:
-            logger.exception("ingestion failed for %s", filename)
-            raise HTTPError(500, json.dumps(
-                {"error": f"ingestion failed: {exc}"}))
+        # a folder of the upload's own: two uploads of one name at once
+        # would otherwise write one file while the other is read (C10)
+        with tempfile.TemporaryDirectory(dir=UPLOAD_DIR) as folder:
+            path = os.path.join(folder, filename)
+            with open(path, "wb") as fh:
+                fh.write(got[1])
+            try:
+                self.example.ingest_docs(path, filename)
+            except Exception as exc:
+                logger.exception("ingestion failed for %s", filename)
+                raise HTTPError(500, json.dumps(
+                    {"error": f"ingestion failed: {exc}"}))
         REGISTRY.counter("documents_uploaded").inc()
         return {"message": "File uploaded successfully"}
 

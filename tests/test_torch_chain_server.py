@@ -476,6 +476,160 @@ def test_unported_examples_name_their_roadmap_item(name):
         registry.get_example(name)
 
 
+# the chains of A.13's part 3a: served by name from the port
+AGENT_CHAINS = ("agentic_rag", "query_decomposition_rag", "router_rag",
+                "text_to_sql")
+
+
+def _fresh(ctx, cls):
+    """``ctx``'s engine and encoders with stores of their own."""
+    return cls(config=ctx.config, llm=ctx.llm, embedder=ctx.embedder,
+               reranker=ctx.reranker)
+
+
+@pytest.mark.parametrize("name", AGENT_CHAINS)
+def test_agent_chains_serve_health_and_documents(name, pair,  # noqa: F811
+                                                 tmp_path, monkeypatch):
+    from generativeaiexamples_tpu_torch.chains.context import ChainContext
+
+    assert name not in registry.NOT_PORTED
+    monkeypatch.setattr(tapi, "UPLOAD_DIR", str(tmp_path / "up"))
+    example = registry.get_example(name, context=_fresh(pair[1],
+                                                        ChainContext))
+    assert type(example).__module__ == registry._KNOWN[name]
+    _, httpd, thread = tapi.serve_in_thread(example)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    (tmp_path / "kb.txt").write_text(DOCS["llamas.txt"])
+    try:
+        health = requests.get(url + "/health", timeout=60)
+        with open(tmp_path / "kb.txt", "rb") as fh:
+            upload = requests.post(url + "/documents",
+                                   files={"file": ("kb.txt", fh)}, timeout=60)
+        listed = requests.get(url + "/documents", timeout=60)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    assert health.status_code == 200
+    assert upload.status_code == 200 and upload.json() == {
+        "message": "File uploaded successfully"}
+    # text_to_sql keeps an upload as documentation, under its collection
+    assert listed.status_code == 200 and listed.json()["documents"] == (
+        ["sql_docs"] if name == "text_to_sql" else ["kb.txt"])
+
+
+@pytest.mark.parametrize("name", ["router_rag", "text_to_sql"])
+def test_c9_delete_answers(name, pair, tmp_path, monkeypatch):  # noqa: F811
+    """ROADMAP C9: the reference's ``router_rag`` and ``text_to_sql`` return
+    None from ``delete_documents``, so its chain server answers
+    ``{"deleted": false}`` after a real delete; the port's answer whether
+    anything went, and a second delete of the same name is false on both."""
+    from generativeaiexamples_tpu.chains.context import (ChainContext as
+                                                         JContext)
+    from generativeaiexamples_tpu.server import registry as jregistry
+    from generativeaiexamples_tpu_torch.chains.context import ChainContext
+
+    for mod in (japi, tapi):
+        monkeypatch.setattr(mod, "UPLOAD_DIR", str(tmp_path / mod.__name__))
+    jex = jregistry.get_example(name, context=_fresh(pair[0], JContext))
+    tex = registry.get_example(name, context=_fresh(pair[1], ChainContext))
+    port = _free_port()
+    jserver = _ServerThread(JChainServer(jex).app, port)
+    jserver.start()
+    _, httpd, thread = tapi.serve_in_thread(tex)
+    urls = (f"http://127.0.0.1:{port}",
+            f"http://127.0.0.1:{httpd.server_address[1]}")
+    (tmp_path / "kb.txt").write_text(DOCS["kernels.txt"])
+    try:
+        for url in urls:
+            with open(tmp_path / "kb.txt", "rb") as fh:
+                assert requests.post(url + "/documents", files={
+                    "file": ("kb.txt", fh)}, timeout=60).status_code == 200
+        listed = [r.json()["documents"] for r in _both(urls, "GET",
+                                                       "/documents")]
+        assert listed[0] == listed[1] and len(listed[0]) == 1
+        target = f"/documents?filename={listed[0][0]}"
+        first = [r.json() for r in _both(urls, "DELETE", target)]
+        after = [r.json()["documents"] for r in _both(urls, "GET",
+                                                      "/documents")]
+        again = [r.json() for r in _both(urls, "DELETE", target)]
+    finally:
+        jserver.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    assert after == [[], []]          # both removed the documents
+    assert first == [{"deleted": False}, {"deleted": True}]
+    assert again == [{"deleted": False}, {"deleted": False}]
+    assert jex.delete_documents(["kb.txt"]) is None
+    assert tex.delete_documents(["kb.txt"]) is False
+
+
+def _held_ingest(base):
+    """An example whose first ``ingest_docs`` waits, before it reads its
+    file, until a second upload has entered ``ingest_docs``; records the
+    text each call read."""
+    class Held(base):
+        def __init__(self):
+            self.read, self.lock = {}, threading.Lock()
+            self.first_in, self.second_in = (threading.Event(),
+                                             threading.Event())
+
+        def ingest_docs(self, filepath, filename):
+            with self.lock:
+                n = len(self.read) + 1
+                self.read[n] = None
+            if n == 1:
+                self.first_in.set()
+                assert self.second_in.wait(60)
+            else:
+                self.second_in.set()
+            with open(filepath, encoding="utf-8") as fh:
+                self.read[n] = fh.read()
+
+        def llm_chain(self, query, chat_history, **settings):
+            yield ""
+
+        rag_chain = llm_chain
+    return Held()
+
+
+def test_c10_uploads_of_one_name_at_once(tmp_path, monkeypatch):
+    """ROADMAP C10: the reference writes every upload to
+    ``UPLOAD_DIR/<name>``, so the first of two uploads of one name at
+    once reads the second's bytes; the port gives each upload a folder of
+    its own (and removes it after ingesting)."""
+    for mod in (japi, tapi):
+        monkeypatch.setattr(mod, "UPLOAD_DIR", str(tmp_path / mod.__name__))
+    jex, tex = _held_ingest(JBase), _held_ingest(BaseExample)
+    port = _free_port()
+    jserver = _ServerThread(JChainServer(jex).app, port)
+    jserver.start()
+    _, httpd, thread = tapi.serve_in_thread(tex)
+    try:
+        for url, ex in ((f"http://127.0.0.1:{port}", jex),
+                        (f"http://127.0.0.1:{httpd.server_address[1]}",
+                         tex)):
+            def upload(text):
+                return requests.post(url + "/documents", files={
+                    "file": ("kb.txt", text.encode())}, timeout=60)
+
+            first = threading.Thread(target=upload, args=("alpha",))
+            first.start()
+            assert ex.first_in.wait(60)
+            assert upload("beta").status_code == 200
+            first.join(timeout=60)
+            assert not first.is_alive()
+    finally:
+        jserver.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    assert jex.read == {1: "beta", 2: "beta"}
+    assert tex.read == {1: "alpha", 2: "beta"}
+    assert os.listdir(tapi.UPLOAD_DIR) == []
+
+
 def test_unknown_example_is_refused():
     with pytest.raises(KeyError, match="unknown example"):
         registry.get_example("no_such_chain")

@@ -1666,3 +1666,79 @@ def test_tiny_chain_server_on_the_card_matches_cpu(cuda_device, tmp_path):
     got = [_stream_text(body) for body in card]
     want = [_stream_text(body) for body in cpu]
     assert got == want and all(got)
+
+
+def _tool_episode(device):
+    """One ``ToolAgent`` episode of the tiny llama on ``device`` (weights
+    drawn on the CPU and copied) over the byte tokenizer, f32, greedy, every
+    turn under the tool grammar (``tool_choice="required"``): two tools,
+    ``report`` behind approval, two steps, the first approval granted and
+    any later one denied. Returns the events as JSON text with the call ids
+    renumbered, and the ``grammar_mask`` launches."""
+    import json
+    import re
+    from generativeaiexamples_tpu_torch.chains.llm_client import LocalLLM
+    from generativeaiexamples_tpu_torch.chains.tool_agent import (Tool,
+                                                                  ToolAgent)
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.cuda import build
+
+    cfg = llama.LlamaConfig.tiny(vocab_size=300)
+    params = _on(llama.init_params(torch.Generator().manual_seed(5), cfg),
+                 device)
+    tok = ByteTokenizer()
+    sched = Scheduler(EngineCore(cfg, EngineConfig(), params, tok.eos_id,
+                                 device=device), tok)
+    sched.start()
+    tools = [Tool(name="lookup", description="Look a topic up.",
+                  parameters={"type": "object", "properties": {
+                      "topic": {"type": "string",
+                                "enum": ["llamas", "pages"]}},
+                      "required": ["topic"]},
+                  fn=lambda topic: f"notes on {topic}"),
+             Tool(name="report", description="Send a report.",
+                  parameters={"type": "object", "properties": {
+                      "to": {"type": "string", "maxLength": 6},
+                      "urgent": {"type": "boolean"}},
+                      "required": ["to", "urgent"]},
+                  fn=lambda to, urgent: f"sent to {to}",
+                  requires_approval=True)]
+    class Required(LocalLLM):
+        # ToolAgent sends "auto" always
+        def chat_tools(self, messages, tools, tool_choice="auto", **kw):
+            return super().chat_tools(messages, tools, "required", **kw)
+
+    agent = ToolAgent(Required(sched), tools, max_steps=2, max_tokens=96,
+                      temperature=0.0)
+    build.reset_launch_counts()
+    try:
+        events = list(agent.run("Look up llamas, then report it to ops."))
+        approvals = 0
+        while events[-1]["type"] == "approval_request":
+            approvals += 1
+            events += list(agent.resume(events[-1]["pending"],
+                                        approved=approvals == 1))
+    finally:
+        sched.stop()
+    ids = {}
+    plain = [re.sub(r"call_[0-9a-f]{12}",
+                    lambda m: ids.setdefault(m.group(0), f"call_{len(ids)}"),
+                    json.dumps({k: (v.to_json() if k == "pending" else v)
+                                for k, v in e.items()}, sort_keys=True))
+             for e in events]
+    return plain, build.launch_counts()["grammar_mask"]
+
+
+@pytest.mark.cuda
+def test_tool_agent_episode_on_the_card_matches_cpu(cuda_device):
+    import json
+    card, launches = _tool_episode(cuda_device)
+    cpu, _ = _tool_episode(torch.device("cpu"))
+    assert card == cpu and launches > 0
+    kinds = [json.loads(e)["type"] for e in card]
+    assert kinds[-1] == "final" and (
+        "tool_call" in kinds or "approval_request" in kinds)
