@@ -4573,6 +4573,11 @@ DISAGG_SPILL_MB = 4096
 EVAC_TEXT = PROMPT_TEXT * 4
 EVAC_TOKENS = 96
 EVAC_PULL_TOKENS = 16  # the pull comes once this many tokens were made
+# the tier case: a returning request decodes this many tokens (its stream
+# is held against the first of the unified one's); the oracle's replay of
+# the wave only prefills it (its pages then sit in the prefix cache)
+TIER_RETURN_TOKENS = 32
+TIER_ORACLE_WAVE_TOKENS = 2
 
 
 def _disagg_traffic(json_request=True):
@@ -5103,6 +5108,279 @@ def _spill_case(dev, cfg, params, tok, unified, total):
                 promoted_job_prefill=promoted_prefill, launches=launches)
 
 
+def _tier_bits(got, want):
+    """Keys of ``want``'s arrays whose bytes ``got`` does not carry."""
+    import torch
+    bad = []
+    for key in ("k", "v", "k_s", "v_s"):
+        if want.get(key) is None:
+            continue
+        a = torch.as_tensor(got[key]).cpu().contiguous()
+        b = torch.as_tensor(want[key]).cpu().contiguous()
+        if a.shape != b.shape or not torch.equal(a.view(torch.uint8),
+                                                 b.view(torch.uint8)):
+            bad.append(key)
+    return bad
+
+
+def _tier_import_readings(core, payload, n_imp, name):
+    """Import the first ``n_imp`` pages of a tier payload into pages of a
+    throwaway state of ``core`` (``import_pages_kv``, host seconds with the
+    device synchronized, best of 3), export them again and hold them to
+    the payload's bit for bit. Returns (ms, bytes moved)."""
+    import torch
+    state = core.init_state()
+    pages = list(range(n_imp, 0, -1))
+    best = None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core.import_pages_kv(state, pages, payload, n_pages=n_imp)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        best = s if best is None else min(best, s)
+    back = core.export_slot_kv(state, pages, n_imp * core.page_size)
+    want = {key: None if payload.get(key) is None
+            else torch.as_tensor(payload[key])[:, :n_imp]
+            for key in ("k", "v", "k_s", "v_s")}
+    bad = _tier_bits(back, want)
+    if bad or int(state.cache.lengths.abs().sum()) != 0:
+        raise KernelMismatch(name, {"pages_differ": bad,
+                                    "lengths_written": bool(
+                                        state.cache.lengths.abs().sum())})
+    nbytes = sum(want[key].numel() * want[key].element_size()
+                 for key in want if want[key] is not None)
+    del state
+    return best * 1e3, nbytes
+
+
+def _first_divergence(a, b):
+    """The first position where two token streams differ (None: equal)."""
+    if list(a) == list(b):
+        return None
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _tier_case(dev, cfg, params, tok, unified, total, kv_quant):
+    """Case 5, on one pool: the prefix-addressed host tier. Wave 1 into
+    DISAGG_PAGES pages with ``kv_tier=prefix``: decode growth spills
+    victims into the tier and every stream finishes equal to the roomy
+    (unified) run's. Each victim's prompt is sent again, and the first's
+    once more under the other sampling (seeded or greedy): each promotes
+    the covered span from host RAM and prefills only the tail (``n -
+    covered`` tokens dispatched, ``kv_tier_hit_tokens`` the covered ones,
+    its opening page in the hot set), and ``flash_prefill`` (the tail) and
+    the decode kernel launch for it. The import of the covered pages is
+    timed and round-trips bit for bit; then the disk run: the entry in a
+    tier with a disk budget and RAM for one entry, written behind, its RAM
+    copy demoted by a second admission, checked out from its file (bit for
+    bit) and imported from there (the files in a temporary directory
+    removed at the end). Last the oracle: the same wave (the same grouped
+    prefill, TIER_ORACLE_WAVE_TOKENS tokens each) into a roomy pool with
+    the device prefix cache on, then each promoted request's own: a cache
+    hit over the same span, from the same chunk boundary, whose stream
+    each promoted one must equal. Against the unified stream (one chunk,
+    no boundary) the promoted one is compared and not held: a chunk
+    boundary changes the shapes of the tail's bf16 products, so near-ties
+    may part. The returning requests decode TIER_RETURN_TOKENS tokens."""
+    import shutil
+    import tempfile
+    from generativeaiexamples_tpu_torch.engine.kv_tier import (PrefixKVTier,
+                                                               payload_nbytes)
+    from generativeaiexamples_tpu_torch.engine.prefix_cache import (
+        chain_hashes)
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    decode_key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+                  else "ragged_paged_attention")
+    first, _ = _disagg_traffic(False)
+    core = _disagg_core(dev, cfg, params, "decode", kv_quant,
+                        num_pages=DISAGG_PAGES, kv_spill_mb=DISAGG_SPILL_MB,
+                        kv_tier="prefix")
+    tight = _Worker(core, tok)
+    sched, ps = tight.sched, core.page_size
+    folder = tempfile.mkdtemp(prefix="serve_disagg_tier_")
+    faults, promoted, readings = [], [], {}
+
+    def sender(worker):
+        def send(spec):
+            i, text, tokens, chat, kw = spec
+            return _request(worker.base, i, text, tokens, chat, False, **kw)
+        return send
+
+    try:
+        send = sender(tight)
+        k.reset_launch_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            results = [f.result() for f in _wave(pool, tight, first, send)]
+        wave_s = time.perf_counter() - t0
+        _add_launches(total, _launch_window(k))
+        reqs = list(tight.submitted)
+        victims = [(spec, r) for spec, r in zip(first, reqs)
+                   if r.spill_resumes]
+        if any(r["status"] != 200 for r in results) or any(r.error
+                                                           for r in reqs):
+            faults.append("a request of the wave failed")
+        if not victims:
+            faults.append(f"no spill resume ({sched.stats['preemptions']} "
+                          f"preemptions)")
+        if not all(unified[tuple(r.prompt_ids)].output_ids == r.output_ids
+                   for r in reqs):
+            faults.append("the wave's streams differ from the unified run's")
+        hot = sched.load_stats()["kv_tier_hot"]
+        specs = [(i, text, TIER_RETURN_TOKENS, chat, kw)
+                 for (i, text, _, chat, kw), _ in victims]
+        if victims:
+            i, text, tokens, chat, kw = specs[0]
+            specs.append((i, text, tokens, chat, dict(
+                kw, temperature=0.7 if kw["temperature"] == 0.0 else 0.0)))
+        t0 = time.perf_counter()
+        for n_spec, spec in enumerate(specs if not faults else []):
+            before = dict(sched.stats)
+            n = len(tight.submitted)
+            k.reset_launch_counts()
+            got = send(spec)
+            launches = _launch_window(k)
+            _add_launches(total, launches)
+            r3 = tight.submitted[n]
+            back = dict(
+                i=spec[0], greedy=spec[4]["temperature"] == 0.0,
+                variant=n_spec == len(victims), status=got["status"],
+                prompt_tokens=len(r3.prompt_ids),
+                covered_tokens=r3.tier_hit_tokens,
+                prefill_tokens=(sched.stats["prefill_tokens"]
+                                - before["prefill_tokens"]),
+                kv_tier_hit_tokens=(sched.stats["kv_tier_hit_tokens"]
+                                    - before["kv_tier_hit_tokens"]),
+                import_host_s=r3.kv_import_s,
+                in_hot_set=sched.prefix_key_hex(r3.prompt_ids) in hot,
+                flash_prefill=launches["flash_prefill"],
+                decode_launches=launches[decode_key])
+            if not back["variant"]:
+                back["unified_first_divergence"] = _first_divergence(
+                    r3.output_ids, unified[tuple(r3.prompt_ids)]
+                    .output_ids[:len(r3.output_ids)])
+            promoted.append((spec, r3, back))
+            if (back["status"] != 200 or r3.error
+                    or back["covered_tokens"] <= 0
+                    or back["prefill_tokens"] != (back["prompt_tokens"]
+                                                  - back["covered_tokens"])
+                    or back["kv_tier_hit_tokens"] != back["covered_tokens"]
+                    or not back["in_hot_set"] or back["flash_prefill"] < 1
+                    or back["decode_launches"] < 1):
+                faults.append(f"promotion {back}")
+        returns_s = time.perf_counter() - t0
+        if promoted and not faults:
+            tier = sched._tier
+            r = promoted[0][1]
+            covered = promoted[0][2]["covered_tokens"]
+            hashes = chain_hashes(list(r.prompt_ids), ps,
+                                  seed=f"{sched._cache_seed}|")
+            key, depth = tier.probe(hashes)
+            payload = tier.checkout(key)
+            try:
+                ram_ms, nbytes = _tier_import_readings(
+                    core, payload, covered // ps, f"tier {kv_quant} RAM")
+                # the disk run: RAM for one entry, a disk budget
+                entry = payload_nbytes(payload)
+                dstats = {}
+                disk = PrefixKVTier(int(entry * 1.5),
+                                    disk_budget_bytes=4 * entry,
+                                    disk_dir=folder, stats=dstats)
+                try:
+                    t1 = time.perf_counter()
+                    disk.admit("entry", payload)
+                    disk.contribute("entry", hashes[:depth], payload,
+                                    tokens=depth * ps)
+                    disk.release("entry")
+                    _wait_for(lambda: disk.disk_used_bytes > 0,
+                              "the tier's disk copy", timeout=120)
+                    write_s = time.perf_counter() - t1
+                    # a second admission of the same size demotes it
+                    disk.admit("second", dict(payload))
+                    t1 = time.perf_counter()
+                    hit = disk.probe(hashes)
+                    loaded = disk.checkout(hit[0]) if hit else None
+                    load_s = time.perf_counter() - t1
+                    if (loaded is None or dstats["kv_tier_demoted"] != 1
+                            or dstats["kv_tier_disk_load"] != 1):
+                        raise AssertionError(f"serve_disagg tier disk: no "
+                                             f"promotion from disk {dstats}")
+                    bad = _tier_bits(loaded, payload)
+                    if bad:
+                        raise KernelMismatch(f"tier {kv_quant} disk",
+                                             {"differ": bad})
+                    disk_ms, _ = _tier_import_readings(
+                        core, loaded, covered // ps, f"tier {kv_quant} disk")
+                    disk.checkin(hit[0])
+                    disk.release("second", outcome="dropped")
+                    files = sorted(os.listdir(folder))
+                    disk_bytes = disk.disk_used_bytes
+                finally:
+                    disk.close()
+            finally:
+                tier.checkin(key)
+            readings = dict(
+                covered_tokens=covered, covered_pages=covered // ps,
+                entry_pages=depth, payload_bytes=nbytes,
+                entry_bytes=entry, import_ms=ram_ms,
+                import_gb_s=nbytes / ram_ms / 1e6,
+                gather_bound_ms=2 * nbytes / PEAK_BYTES * 1e3,
+                disk=dict(write_behind_s=write_s, checkout_s=load_s,
+                          import_ms=disk_ms, file_bytes=disk_bytes,
+                          files=len(files), pages_bit_equal=True))
+        live = sched._tier.live_refs()
+        if live:
+            faults.append(f"{live} tier pins held at the end")
+        stats = dict(sched.stats)
+    finally:
+        tight.close()
+        shutil.rmtree(folder, ignore_errors=True)
+    if faults:
+        raise AssertionError(f"serve_disagg tier {kv_quant}: "
+                             f"{'; '.join(faults)}")
+    t0 = time.perf_counter()
+    oracle = _Worker(serving_core(
+        dev, cfg, params, kv_quant, role="decode", spec_decode="off",
+        mixed_phase_dispatch="off", decode_width_ladder="off",
+        prefix_cache="on"), tok)
+    try:
+        send = sender(oracle)
+        k.reset_launch_counts()
+        replay = [(i, text, TIER_ORACLE_WAVE_TOKENS, chat, kw)
+                  for i, text, _, chat, kw in first]
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            [f.result() for f in _wave(pool, oracle, replay, send)]
+        for spec, r3, back in promoted:
+            n = len(oracle.submitted)
+            send(spec)
+            o = oracle.submitted[n]
+            back["oracle_hit_tokens"] = o.prefix_hit_tokens
+            back["equal"] = o.output_ids == r3.output_ids
+            if (o.error or not back["equal"]
+                    or o.prefix_hit_tokens != back["covered_tokens"]):
+                faults.append(f"promotion against the cache hit {back}")
+        _add_launches(total, _launch_window(k))
+    finally:
+        oracle.close()
+    oracle_s = time.perf_counter() - t0
+    if faults:
+        raise AssertionError(f"serve_disagg tier {kv_quant}: "
+                             f"{'; '.join(faults)}")
+    return dict(kv_quant=kv_quant, num_pages=DISAGG_PAGES, wave_s=wave_s,
+                returns_s=returns_s, oracle_s=oracle_s,
+                wave_streams_equal=True,
+                promoted_equal_cache_hit=True,
+                preemptions=stats["preemptions"],
+                spill_resumes=stats["spill_resumes"],
+                contributed=stats["kv_tier_contributed"],
+                retained=stats["kv_tier_retained"],
+                promoted=stats["kv_tier_promoted"],
+                returns=[back for _, _, back in promoted],
+                readings=readings)
+
+
 def _page_check(core, payload, name):
     """Import ``payload`` into pages of a throwaway state of ``core`` in
     reverse order, export them again: every byte must come back (the
@@ -5257,7 +5535,12 @@ def phase_serve_disagg(dev, cfg, params):
        resumed ids equal the unevacuated stream's;
     3. spill: the decoders into DISAGG_PAGES pages with the spill pool
        armed: spill resumes, no prefill for a promoted job, the streams
-       equal the roomy (unified) run's;
+       equal the roomy (unified) run's; then the same with the
+       prefix-addressed tier (``_tier_case``, on both pools): each spill
+       victim's prompt sent again (greedy and seeded) promotes its
+       covered span and prefills only the tail, equal to a device
+       prefix-cache hit over the same span, and a disk run demotes the
+       entry to a file and promotes it from there bit for bit;
     4. readings: each request's frame bytes, export, encode, decode and
        import ms and GB/s; the longest prompt's gather and scatter against
        3.35 TB/s, copy, codec and import per pool, with its pages
@@ -5294,14 +5577,26 @@ def phase_serve_disagg(dev, cfg, params):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    handoff8, _, pre8, dec8 = _handoff_case(dev, cfg, params, tok, "int8",
-                                            total)
+    out["tier"] = {"none": _tier_case(dev, cfg, params, tok, unified, total,
+                                      "none")}
+    seconds["tier"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    handoff8, unified8, pre8, dec8 = _handoff_case(dev, cfg, params, tok,
+                                                   "int8", total)
     try:
         readings["int8"] = _kv_readings(dec8, pre8, tok, "int8")
     finally:
         pre8.close()
         dec8.close()
     seconds["handoff_int8"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["tier"]["int8"] = _tier_case(dev, cfg, params, tok, unified8, total,
+                                     "int8")
+    seconds["tier_int8"] = time.perf_counter() - t0
     emit("serve_disagg", model="llama3-8b", handoff=handoff,
          handoff_int8=handoff8, readings=readings, seconds=seconds, **out)
     gc.collect()
@@ -8065,6 +8360,236 @@ def phase_serve_agents(smi, app, tok, emb, rer, core):
     return launches
 
 
+# serve_events' traffic: six advisories through the CVE triage handler at
+# once (EVENT_CONCURRENCY), the handler's LLM under the verdict schema's
+# grammar (random weights then answer a verdict that parses) in at most
+# EVENT_TOKENS tokens, over an inventory of EVENT_INVENTORY in a
+# collection of its own; one poisoned event whose handler always raises,
+# retried EVENT_RETRIES times on a backoff of base EVENT_RETRY_S, then
+# dead-lettered
+EVENT_SCHEMA = {"type": "object", "properties": {
+    "cve": {"type": "string", "maxLength": 16},
+    "affected": {"type": "boolean"},
+    "severity": {"enum": ["low", "medium", "high", "critical"]},
+    "justification": {"type": "string", "maxLength": 24}},
+    "required": ["cve", "affected", "severity", "justification"]}
+EVENT_ADVISORIES = (
+    ("CVE-2026-0001", "remote code execution in pump firmware 2.x"),
+    ("CVE-2026-0002", "denial of service in the valve web ui"),
+    ("CVE-2026-0003", "authentication bypass in the site gateway"),
+    ("CVE-2026-0004", "stored xss in the operator dashboard"),
+    ("CVE-2026-0005", "heap overflow in the telemetry parser"),
+    ("CVE-2026-0006", "credential leak in the audit logger"))
+EVENT_INVENTORY = (
+    "Every site runs pump firmware 2.1 behind the site gateway 4.0.",
+    "The valve web ui and the operator dashboard are reachable only from "
+    "the plant network.",
+    "Telemetry is parsed by the collector 1.8; the audit logger is off.")
+EVENT_POISON = "CVE-2026-9999"
+EVENT_TOKENS = 64
+EVENT_CONCURRENCY = 4
+EVENT_RETRIES = 2
+EVENT_RETRY_S = 0.05
+# the data chains' turn on the card: each reply at most this many tokens
+DATA_CHAIN_TOKENS = 16
+DATA_CHAIN_CSV = ("machine,site,age_months\npump-1,north,7\n"
+                  "pump-2,south,14\nvalve-1,north,3\n")
+
+
+class _Capped:
+    """A LocalLLM whose replies stop at ``cap`` tokens."""
+
+    def __init__(self, llm, cap):
+        self.llm, self.cap = llm, cap
+
+    def chat(self, messages, max_tokens=256, **sampling):
+        return self.llm.chat(messages, max_tokens=min(max_tokens, self.cap),
+                             **sampling)
+
+
+def _data_chains_turn(app, tok, emb, rer, sched):
+    """One turn of ``structured_data_rag`` and of ``knowledge_graph_rag``
+    behind the chain server on ``sched`` (each reply capped at
+    DATA_CHAIN_TOKENS): an upload, the listing, one ``/generate``. Runs
+    only where pandas and networkx are installed; returns a line for
+    each chain, or ``{"data_chains": "cpu_only", "missing": [...]}``."""
+    import importlib.util
+    import shutil
+    import tempfile
+    missing = [m for m in ("pandas", "networkx")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        return {"data_chains": "cpu_only", "missing": missing}
+    from generativeaiexamples_tpu_torch.chains.context import ChainContext
+    from generativeaiexamples_tpu_torch.chains.llm_client import LocalLLM
+    from generativeaiexamples_tpu_torch.server.api import (ERROR_MESSAGE,
+                                                           serve_in_thread)
+    from generativeaiexamples_tpu_torch.server.registry import get_example
+    folder = tempfile.mkdtemp(prefix="serve_events_data_")
+    out = {}
+    try:
+        for name, upload in (
+                ("structured_data_rag", ("machines.csv", DATA_CHAIN_CSV)),
+                ("knowledge_graph_rag", ("inventory.md",
+                                         " ".join(EVENT_INVENTORY)))):
+            ctx = ChainContext(config=app, llm=_Capped(LocalLLM(sched),
+                                                       DATA_CHAIN_TOKENS),
+                               embedder=emb, reranker=rer)
+            kw = ({"state_dir": os.path.join(folder, name)}
+                  if name == "structured_data_rag" else {})
+            example = get_example(name, context=ctx, **kw)
+            _, httpd, thread = serve_in_thread(example)
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            t0 = time.perf_counter()
+            try:
+                body, headers = _multipart(upload[0], upload[1].encode())
+                status, _, raw = _post(base + "/documents", body, headers)
+                listed = _chain_json(base, "GET", "/documents")
+                text, first = _chain_generate(
+                    base, f"events-{name}", [
+                        {"role": "user", "content": "Which pump is oldest, "
+                         "and where does it run?"}],
+                    max_tokens=DATA_CHAIN_TOKENS)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=30)
+            if status != 200 or listed != (200, {"documents": [
+                    upload[0]]}) or text == ERROR_MESSAGE:
+                raise AssertionError(f"serve_events {name}: upload {status} "
+                                     f"{raw[:200]}, listed {listed}, "
+                                     f"answer {text[:120]!r}")
+            out[name] = dict(wall_s=time.perf_counter() - t0,
+                             first_frame_s=first, answer_chars=len(text))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    return {"data_chains": "card", **out}
+
+
+def phase_serve_events(smi, app, tok, emb, rer, core):
+    """serve_events: the event agent on ``serve_chain_server``'s engine
+    core, tokenizer and encoders (nothing new is drawn, loaded or warmed),
+    a new Scheduler over the core. ``EVENT_ADVISORIES`` and one poisoned
+    event through ``EventDrivenAgent(make_cve_triage_handler(...))`` at
+    ``EVENT_CONCURRENCY``: each advisory retrieves from an inventory
+    collection and the handler's LLM answers under the verdict schema's
+    grammar (``_Schema``), so every verdict parses and validates; the
+    poisoned event's handler raises, is retried EVENT_RETRIES times and
+    lands in the dead letter and the process's ring. Then the data chains
+    on the same engine where pandas and networkx are installed (else one
+    ``cpu_only`` line). Raises on any fault; returns the launches of the
+    events' run."""
+    import torch
+    from generativeaiexamples_tpu_torch.chains import event_agent
+    from generativeaiexamples_tpu_torch.chains.context import ChainContext
+    from generativeaiexamples_tpu_torch.chains.llm_client import LocalLLM
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    from generativeaiexamples_tpu_torch.retrieval.store import Document
+    sched = Scheduler(core, tok)
+    tagged = _Tagged(sched)
+    sched.start()
+    try:
+        ctx = ChainContext(config=app, llm=_Schema(LocalLLM(tagged),
+                                                   EVENT_SCHEMA),
+                           embedder=emb, reranker=rer)
+        ctx.store("inventory").add(
+            [Document(content=t, metadata={"source": "inventory.md"})
+             for t in EVENT_INVENTORY],
+            emb.embed_documents(list(EVENT_INVENTORY)))
+        triage = event_agent.make_cve_triage_handler(
+            ctx, collection="inventory", top_k=2, max_tokens=EVENT_TOKENS,
+            temperature=0.0)
+        poison_calls = []
+
+        def handler(event):
+            if event.key == EVENT_POISON:
+                poison_calls.append(time.perf_counter())
+                raise ValueError(f"no JSON verdict in analysis for "
+                                 f"{event.key}")
+            return triage(event)
+
+        sink = []
+        agent = event_agent.EventDrivenAgent(
+            handler, result_sink=sink.append,
+            max_concurrency=EVENT_CONCURRENCY, max_retries=EVENT_RETRIES,
+            retry_delay_s=EVENT_RETRY_S)
+        events = [event_agent.Event(key=key, payload={"id": key,
+                                                      "summary": summary})
+                  for key, summary in EVENT_ADVISORIES]
+        events.append(event_agent.Event(key=EVENT_POISON, payload={
+            "id": EVENT_POISON, "summary": "a malformed advisory"}))
+        ring0 = event_agent.dead_letter_payload()["total"]
+        k.reset_launch_counts()
+        core.sample_calls = 0
+        for key in sched.stats:
+            sched.stats[key] = 0
+        t0 = time.perf_counter()
+        counts = agent.run_sync(event_agent.list_source(events))
+        events_s = time.perf_counter() - t0
+        launches = k.launch_counts()
+        sample_calls = core.sample_calls
+        stats = dict(sched.stats)
+        ring = event_agent.dead_letter_payload()
+        data = _data_chains_turn(app, tok, emb, rer, sched)
+    finally:
+        sched.stop()
+    faults = []
+    want = {"processed": len(events), "succeeded": len(EVENT_ADVISORIES),
+            "failed": 1, "dead_letter": 1}
+    if counts != want:
+        faults.append(f"counts {counts}, not {want}")
+    by_key = {r.key: r for r in agent.results}
+    verdicts = {}
+    for key, _ in EVENT_ADVISORIES:
+        r = by_key.get(key)
+        try:
+            verdicts[key] = json.loads(r.output)
+        except (AttributeError, TypeError, ValueError):
+            faults.append(f"{key}: no verdict ({r})")
+            continue
+        if not r.ok or r.attempts != 1 or not validates(verdicts[key],
+                                                        EVENT_SCHEMA):
+            faults.append(f"{key}: {r}")
+    poison = by_key.get(EVENT_POISON)
+    if (poison is None or poison.ok or poison.attempts != EVENT_RETRIES + 1
+            or len(poison_calls) != EVENT_RETRIES + 1
+            or [e.key for e in agent.dead_letter] != [EVENT_POISON]):
+        faults.append(f"the poisoned event: {poison}, "
+                      f"{len(poison_calls)} calls, dead letter "
+                      f"{agent.dead_letter}")
+    if ring["total"] != ring0 + 1 or ring["dead_letters"][0]["key"] != \
+            EVENT_POISON:
+        faults.append(f"the dead-letter ring {ring}")
+    if len(sink) != len(events):
+        faults.append(f"the sink took {len(sink)} results")
+    if len(tagged.reqs) != len(EVENT_ADVISORIES) or not all(
+            r.grammar_attached and not r.error for r in tagged.reqs):
+        states = [(r.grammar_attached, r.error) for r in tagged.reqs]
+        faults.append(f"engine requests {states}")
+    for name in ("flash_prefill", "ragged_paged_attention", "sample_slots",
+                 "grammar_mask"):
+        if launches[name] < 1:
+            faults.append(f"{name} never launched")
+    if launches["sample_slots"] != sample_calls:
+        faults.append(f"{launches['sample_slots']} sample_slots launches "
+                      f"for {sample_calls} sampling calls")
+    if faults:
+        raise AssertionError("serve_events: " + "; ".join(faults))
+    backoffs = [b - a for a, b in zip(poison_calls, poison_calls[1:])]
+    emit("serve_events", card=smi, events_s=events_s, **counts,
+         engine_requests=len(tagged.reqs),
+         tokens=sum(len(r.output_ids) for r in tagged.reqs),
+         latency_s={r.key: r.latency_s for r in agent.results},
+         poison_retry_gaps_s=backoffs, verdicts=verdicts,
+         dispatches=stats, launches=launches,
+         grammar_mask_launches=launches["grammar_mask"],
+         sample_calls=sample_calls,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps(data), flush=True)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -8642,14 +9167,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve_rag"] = timed("serve_rag", phase_serve_rag, dev, cfg, params)
     torch.cuda.empty_cache()
-    # serve_agents runs on serve_chain_server's engine core, tokenizer and
-    # encoders
+    # serve_agents and serve_events run on serve_chain_server's engine core,
+    # tokenizer and encoders
     shared = {}
     try:
         paths["serve_chain_server"] = timed(
             "serve_chain_server", phase_serve_chain_server, dev, cfg, params,
             smi, shared)
         paths["serve_agents"] = timed("serve_agents", phase_serve_agents,
+                                      smi, **shared)
+        paths["serve_events"] = timed("serve_events", phase_serve_events,
                                       smi, **shared)
     finally:
         for name in ("emb", "rer"):

@@ -17,14 +17,19 @@ Port of ``generativeaiexamples_tpu/chains``. Each module registers a
                        (ref community/routing-multisource-rag/workflow.py)
   text_to_sql          Vanna-style retrieval-augmented SQL over sqlite,
                        read-only authorizer (ref asset_lifecycle vanna_util.py)
+  structured_data_rag  CSV Q&A: the LLM writes pandas code, run under an
+                       AST allowlist (ref structured_data_rag/chains.py)
+  knowledge_graph_rag  LLM triple extraction into a NetworkX graph, answers
+                       from graph facts and passages (ref knowledge_graph_rag)
 
 and the agent loops that are not registered examples: ``tool_agent``
 (OpenAI tool calls with approval gates), ``extraction`` (schema-checked
-JSON with retries) and ``bash_agent`` (allowlisted shell, deny by default).
+JSON with retries), ``bash_agent`` (allowlisted shell, deny by default) and
+``event_agent`` (events under a concurrency cap, retried with jittered
+backoff, then dead-lettered; the CVE triage handler).
 
-``structured_data_rag`` and ``knowledge_graph_rag`` wait for ROADMAP A.13's
-part 3b, the multimodal and speech chains for A.16; ``server/registry.py``
-names the item when one is asked for.
+The multimodal and speech chains wait for ROADMAP A.16;
+``server/registry.py`` names the item when one is asked for.
 
 All chains share `ChainContext` (engine + encoders + stores) so one process
 serves any example.

@@ -30,10 +30,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
     "devtime": ("A6 (device-time ledger)", "off"),
     "qos": ("A6 (QoS plane)", "off"),
-    "kv_tier": ("A.9, second part (the prefix-addressed host KV tier)",
-                "off"),
-    "kv_tier_disk_mb": ("A.9, second part (the prefix-addressed host KV "
-                        "tier)", "0"),
     "mesh_shape": ("A11 (tensor parallelism)", ""),
     "donate_buffers": ("none: PyTorch updates the pool in place", "auto"),
 }
@@ -128,6 +124,20 @@ class EngineConfig:
     # instead of a re-prefill; 0 (default) = off, preemption recomputes.
     # The bare env APP_KV_SPILL_MB overrides this field
     kv_spill_mb: int = 0
+    # prefix-addressed host KV tier over the spill pool (engine/kv_tier.py):
+    # off (default: the request-keyed spill pool) | prefix (spilled page
+    # runs are keyed by their page-chain hashes and retained after release
+    # as refcounted, value-priced cache; admission probes the tier for the
+    # longest cached prefix of every prompt and imports it, so only the
+    # tail prefills). Needs a spill budget (kv_spill_mb > 0). The bare env
+    # APP_KV_TIER overrides this field
+    kv_tier: str = "off"
+    # disk tier (MiB) below the host-RAM tier: retained entries are written
+    # behind, off the driver thread, as core/kv_wire.py frames (a corrupt
+    # file is a loud error, never served KV), so a RAM eviction demotes
+    # instead of dropping; 0 (default) = off. APP_KV_TIER_DISK_DIR picks
+    # the directory; the bare env APP_KV_TIER_DISK_MB overrides this field
+    kv_tier_disk_mb: int = 0
 
     def __post_init__(self) -> None:
         if self.pipeline_depth < 1:

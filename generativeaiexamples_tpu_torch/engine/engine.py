@@ -1492,17 +1492,8 @@ class EngineCore:
         the slot's capacity, a page count or prompt length that disagrees
         with the length, or buffers of another shape (the reference's
         checks)."""
-        kv_dim = self.model_cfg.n_kv_heads * self.model_cfg.head_dim
-        mine = {"page_size": self.page_size,
-                "n_layers": self.model_cfg.n_layers,
-                "kv_dim": kv_dim, "kv_dtype": self.kv_dtype}
-        for key, want in mine.items():
-            got = payload.get(key)
-            if got != want:
-                raise ValueError(
-                    f"handoff {key} mismatch: payload carries {got!r}, this "
-                    f"engine serves {want!r} — prefill and decode workers "
-                    f"must share model geometry and kv_quant")
+        self._check_geometry(payload, "handoff", " — prefill and decode "
+                             "workers must share model geometry and kv_quant")
         n = int(payload.get("length", 0))
         if n < 1 or n + 1 >= self.max_seq:
             raise ValueError(f"handoff length {n} outside this engine's "
@@ -1514,20 +1505,42 @@ class EngineCore:
             raise ValueError(
                 f"handoff length {n} does not match its "
                 f"{len(payload['prompt_ids'])} prompt_ids")
-        want_kv = (mine["n_layers"], n_pages, self.page_size, kv_dim)
-        want_sc = (mine["n_layers"], n_pages, self.model_cfg.n_kv_heads,
-                   self.page_size)
+        self._check_buffers(payload, n_pages, "handoff")
+
+    def _check_geometry(self, payload: Dict[str, Any], what: str,
+                        hint: str = "") -> None:
+        """``ValueError`` unless the payload's page size, layer count, KV
+        width and dtype are this pool's."""
+        mine = {"page_size": self.page_size,
+                "n_layers": self.model_cfg.n_layers,
+                "kv_dim": self.model_cfg.n_kv_heads * self.model_cfg.head_dim,
+                "kv_dtype": self.kv_dtype}
+        for key, want in mine.items():
+            got = payload.get(key)
+            if got != want:
+                raise ValueError(
+                    f"{what} {key} mismatch: payload carries {got!r}, this "
+                    f"engine serves {want!r}{hint}")
+
+    def _check_buffers(self, payload: Dict[str, Any], n_pages: int,
+                       what: str) -> None:
+        """``ValueError`` unless k and v (and an int8 pool's scales) are
+        there in the shapes of ``n_pages`` pages of this pool."""
+        cfg = self.model_cfg
+        want_kv = (cfg.n_layers, n_pages, self.page_size,
+                   cfg.n_kv_heads * cfg.head_dim)
+        want_sc = (cfg.n_layers, n_pages, cfg.n_kv_heads, self.page_size)
         for key, want in (("k", want_kv), ("v", want_kv),
                           ("k_s", want_sc), ("v_s", want_sc)):
             arr = payload.get(key)
             if arr is None:
                 if key in ("k", "v") or self.cfg.kv_quant == "int8":
-                    raise ValueError(f"handoff payload is missing {key!r}")
+                    raise ValueError(f"{what} payload is missing {key!r}")
                 continue
             shape = tuple(getattr(arr, "shape", ()))
             if shape != want:
                 raise ValueError(
-                    f"handoff {key} buffer shape {shape} does not match "
+                    f"{what} {key} buffer shape {shape} does not match "
                     f"the metadata's {want}")
 
     def _kv_in(self, a, dtype: torch.dtype) -> torch.Tensor:
@@ -1580,6 +1593,57 @@ class EngineCore:
         kv_cache.import_pages(
             cache, self._up(ids), self.num_pages, slot,
             int(payload["length"]), flat("k", cache.k.dtype),
+            flat("v", cache.v.dtype),
+            flat("k_s", torch.float32) if quant else None,
+            flat("v_s", torch.float32) if quant else None)
+        return state
+
+    def validate_pages_payload(self, payload: Dict[str, Any],
+                               n_pages: int) -> None:
+        """Refuse, with ``ValueError``, a partial page import this pool
+        cannot host: the prefix tier's variant of :meth:`validate_handoff`.
+        Geometry only: the tier promotes the first ``n_pages`` full pages
+        of a cached run and the scheduler prefills the tail, but a
+        page-size, layer, width or dtype mismatch, a page count outside the
+        payload or the slot, or buffers of another shape would scatter
+        garbage KV."""
+        self._check_geometry(payload, "tier import")
+        total = int(payload.get("n_pages", 0))
+        if n_pages < 1 or n_pages > total:
+            raise ValueError(f"tier import of {n_pages} pages from a "
+                             f"{total}-page payload")
+        if n_pages > self.max_pages_per_slot:
+            raise ValueError(f"tier import of {n_pages} pages exceeds this "
+                             f"engine's {self.max_pages_per_slot} pages/slot")
+        self._check_buffers(payload, total, "tier")
+
+    @torch.no_grad()
+    def import_pages_kv(self, state: DecodeState, pages,
+                        payload: Dict[str, Any],
+                        n_pages: Optional[int] = None) -> DecodeState:
+        """Scatter the first ``n_pages`` pages of an exported payload into
+        pages ``pages`` of this pool (``kv_cache.import_pages_partial``, in
+        place): the prefix tier's promotion. No slot state is touched: the
+        caller starts its chunked prefill at the covered boundary, so the
+        promoted span costs no prefill and the tail runs as a fresh
+        admission. Validates first (``ValueError``)."""
+        n_imp = int(payload["n_pages"] if n_pages is None else n_pages)
+        self.validate_pages_payload(payload, n_imp)
+        ids = np.asarray(list(pages)[:n_imp], np.int64)
+        if ids.shape[0] != n_imp:
+            raise ValueError(f"tier import of {n_imp} pages into "
+                             f"{ids.shape[0]} allocated pages")
+        cache = state.cache
+        L = self.model_cfg.n_layers
+
+        def flat(key, dtype):
+            # only the covered pages cross to the device
+            a = self._kv_in(payload[key][:, :n_imp], dtype)
+            return a.reshape((L * n_imp,) + tuple(a.shape[2:]))
+
+        quant = self.cfg.kv_quant == "int8"
+        kv_cache.import_pages_partial(
+            cache, self._up(ids), self.num_pages, flat("k", cache.k.dtype),
             flat("v", cache.v.dtype),
             flat("k_s", torch.float32) if quant else None,
             flat("v_s", torch.float32) if quant else None)

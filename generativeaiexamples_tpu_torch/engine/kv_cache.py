@@ -226,6 +226,33 @@ def import_pages(cache: PagedKVCache, page_ids: torch.Tensor, num_pages: int,
     return cache
 
 
+@torch.no_grad()
+def import_pages_partial(cache: PagedKVCache, page_ids: torch.Tensor,
+                         num_pages: int, k: torch.Tensor, v: torch.Tensor,
+                         k_s: Optional[torch.Tensor] = None,
+                         v_s: Optional[torch.Tensor] = None) -> PagedKVCache:
+    """Scatter an exported page buffer into pages ``page_ids`` in place
+    (``index_copy_``) without touching any slot's state: the prefix tier's
+    promotion (``engine/kv_tier.py``). Unlike :func:`import_pages` the run
+    covers only the prefix of a prompt still being admitted; the chunked
+    prefill of its tail owns ``lengths`` as a fresh admission does, so this
+    never writes them. Shapes as :func:`import_pages`'s, the int8 pool's
+    scales ``(L*n, KV, page)`` included."""
+    L = cache.k.shape[0] // num_pages
+    dst = page_ids.to(device=cache.k.device, dtype=torch.long)
+    rows = _layer_rows(dst, L, num_pages)
+    cache.k.index_copy_(0, rows, k.to(cache.k.device, cache.k.dtype))
+    cache.v.index_copy_(0, rows, v.to(cache.v.device, cache.v.dtype))
+    if cache.quantized:
+        if k_s is None or v_s is None:
+            raise ValueError("int8 pool import needs k_s/v_s scales")
+        cache.k_s.index_copy_(0, rows, k_s.to(cache.k_s.device,
+                                              torch.float32))
+        cache.v_s.index_copy_(0, rows, v_s.to(cache.v_s.device,
+                                              torch.float32))
+    return cache
+
+
 class PageAllocator:
     """Host-side free-list over physical pages 1..num_pages-1 (0 = null)."""
 

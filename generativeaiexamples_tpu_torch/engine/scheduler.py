@@ -86,10 +86,15 @@ what is never pulled); the stream ends "evacuated", and a peer's
 ``submit_prefilled`` resumes it token for token. Spill: with a host budget
 (``APP_KV_SPILL_MB``), a page-exhaust preemption demotes a decoding
 victim's pages to host RAM and re-imports them at its re-admission, no
-prefill; over budget it recomputes, as there.
+prefill; over budget it recomputes, as there. With ``APP_KV_TIER=prefix``
+the pool is the prefix-addressed tier (``engine/kv_tier.PrefixKVTier``): a
+spill contributes its prefix run under its page-chain hashes, the run stays
+as priced cache after the request, and ``_plan_admission`` probes it for
+every prompt; ``_admit_tier`` imports the covered pages and prefills only
+the tail. ``load_stats`` carries the tier's hot-set advert and
+``prefix_key_hex`` the ``X-KV-Prefix`` header's hash.
 
-Not ported: the prefix-addressed host tier (ROADMAP A.9, second part),
-QoS, SLO, metrics and flight planes (A.10). Dispatch, speculation,
+Not ported: QoS, SLO, metrics and flight planes (A.10). Dispatch, speculation,
 prefix-cache, admission, pipelining, fetch, handoff, evacuation and spill
 counters live in ``Scheduler.stats``.
 """
@@ -114,8 +119,9 @@ import numpy as np
 
 from generativeaiexamples_tpu_torch.engine.engine import (
     EngineCore, HostCopy, PrefillItem, bits_to_f32, unpack_decode_out)
+from generativeaiexamples_tpu_torch.engine import kv_tier as kv_tier_mod
 from generativeaiexamples_tpu_torch.engine.kv_tier import (
-    KVSpillPool, spill_budget_bytes, tier_mode)
+    KVSpillPool, PrefixKVTier, spill_budget_bytes, tier_disk_bytes, tier_mode)
 from generativeaiexamples_tpu_torch.engine.prefix_cache import chain_hashes
 from generativeaiexamples_tpu_torch.engine.tokenizer import (
     IncrementalDetokenizer, Tokenizer)
@@ -191,6 +197,9 @@ class Request:
     spill_resumes: int = 0
     snapshot_resumes: int = 0
     prefix_hit_tokens: int = 0    # prompt tokens served from the prefix cache
+    # of those, the tokens promoted from the prefix-addressed host tier
+    # (engine/kv_tier.py) at admission
+    tier_hit_tokens: int = 0
     completion_tokens: int = 0
     # generated ids (a resumed snapshot's include those generated before
     # it, on the evacuated worker)
@@ -241,6 +250,10 @@ class _Job:
     # a prefill_only job's resolved (first token, logprob), exported once
     # the dispatch that resolved it was issued
     handoff_first: Optional[tuple] = None
+    # the host tier's promotion plan from _plan_admission: (entry key,
+    # covered tokens); _admit_tier imports the covered pages and the
+    # chunked prefill starts at the boundary. Recomputed every plan
+    tier_plan: Optional[tuple] = None
 
 
 @dataclass
@@ -326,8 +339,10 @@ class Scheduler:
         # (spec_bonus_tokens) over slot-steps that emitted (spec_base_steps),
         # prompt tokens served from the prefix cache over prompt tokens
         # admitted, admissions past a page-blocked head, cached pages
-        # reclaimed by allocation
+        # reclaimed by allocation; prefill_tokens: the tokens of every
+        # prefill chunk dispatched (grouped or riding a mixed dispatch)
         self.stats = {"prefill_dispatches": 0, "prefill_chunks": 0,
+                      "prefill_tokens": 0,
                       "decode_dispatches": 0, "decode_steps": 0,
                       "mixed_dispatches": 0, "spec_steps": 0,
                       "spec_bonus_tokens": 0, "spec_base_steps": 0,
@@ -365,11 +380,22 @@ class Scheduler:
                       "evacuation_snapshots_expired": 0,
                       "spill_resumes": 0}
         # host-spill preemption: with a budget, page-exhaust preemption
-        # demotes the victim's pages to host RAM instead of recomputing
-        tier_mode(core.cfg)
+        # demotes the victim's pages to host RAM instead of recomputing.
+        # APP_KV_TIER=prefix grows the pool into the prefix-addressed tier
+        # (retention, hash addressing, value-priced eviction), which
+        # _plan_admission probes for every prompt
         budget = spill_budget_bytes(core.cfg)
-        self._spill: Optional[KVSpillPool] = (
-            KVSpillPool(budget, self.stats) if budget > 0 else None)
+        self._spill: Optional[KVSpillPool] = None
+        self._tier: Optional[PrefixKVTier] = None
+        if budget > 0:
+            if tier_mode(core.cfg) == "prefix":
+                self._tier = PrefixKVTier(
+                    budget, disk_budget_bytes=tier_disk_bytes(core.cfg),
+                    stats=self.stats)
+                self._spill = self._tier
+            else:
+                self._spill = KVSpillPool(budget, self.stats)
+        kv_tier_mod.register_pool(self._spill)
 
     # ------------------------------------------------------------------ API
 
@@ -390,6 +416,9 @@ class Scheduler:
                 logger.warning("driver thread still busy at stop()")
                 return
         self._fail_all("scheduler stopped")
+        if self._tier is not None:
+            # bounded join of the tier's write-behind thread
+            self._tier.close()
 
     def submit(self, request: Request) -> Request:
         """Enqueue; stream text deltas with :meth:`iter_text`."""
@@ -483,7 +512,25 @@ class Scheduler:
                                         if self._spill is not None else 0),
                 "kv_spill_budget_bytes": (self._spill.budget_bytes
                                           if self._spill is not None else 0),
+                # the tier's occupancy and its top-K hottest opening-page
+                # hashes: the advert a router's promote routing matches
+                **(self._tier.hot_stats() if self._tier is not None else {}),
                 **self.stats}
+
+    def prefix_key_hex(self, prompt_ids: Sequence[int],
+                       adapter: str = "") -> str:
+        """h0, the chain hash of a prompt's first full page under this
+        scheduler's cache seed: what ``load_stats`` advertises and the
+        ``X-KV-Prefix`` response header carries. "" when the tier is off or
+        the prompt does not fill one page."""
+        if self._tier is None:
+            return ""
+        ps = self.core.page_size
+        if len(prompt_ids) < ps:
+            return ""
+        hs = chain_hashes([int(t) for t in prompt_ids[:ps]], ps,
+                          seed=f"{self._cache_seed}|{adapter}")
+        return hs[0].hex() if hs else ""
 
     # ------------------------------------------------------------- internals
 
@@ -603,10 +650,12 @@ class Scheduler:
 
     def _plan_admission(self, job: _Job):
         """(fresh pages needed, shared tokens, hit pages) for admitting the
-        job now."""
+        job now; sets ``job.tier_plan`` when the host tier covers more of
+        the prompt than the device cache."""
         n = len(job.ids)
-        if not self._caching or job.preload is not None \
-                or job.spill is not None:
+        job.tier_plan = None
+        if job.preload is not None or job.spill is not None \
+                or (not self._caching and self._tier is None):
             # handoff and spill imports scatter into their pages: they must
             # never be given shared prefix-cache pages
             return self.core.pages_for(n), 0, []
@@ -615,8 +664,19 @@ class Scheduler:
                 job.ids, self.core.page_size,
                 seed=f"{self._cache_seed}|{job.request.adapter}")
             job.hashed_len = n
-        hits = self._alloc.match(job.page_hashes)
+        hits = self._alloc.match(job.page_hashes) if self._caching else []
         shared = self._cap_shared(n, len(hits) * self.core.page_size)
+        if self._tier is not None:
+            # the tier's promotion imports (scatters) the covered span, so
+            # like a handoff it takes fresh pages for the whole prompt, and
+            # the chunk walk starts at the covered boundary
+            hit = self._tier.probe(job.page_hashes)
+            if hit is not None:
+                key, depth = hit
+                covered = self._cap_shared(n, depth * self.core.page_size)
+                if covered > shared:
+                    job.tier_plan = (key, covered)
+                    return self.core.pages_for(n), 0, []
         hits = hits[: shared // self.core.page_size]
         return self.core.pages_for(n) - len(hits), shared, hits
 
@@ -745,7 +805,7 @@ class Scheduler:
             job.prefilled = job.total_len = job.shared = shared
             if job.request.admitted_at is None:
                 job.request.admitted_at = time.perf_counter()
-            if self._caching:
+            if self._caching or self._tier is not None:
                 if shared:
                     job.request.prefix_hit_tokens += shared
                     self.stats["prefix_hit_tokens"] += shared
@@ -767,6 +827,8 @@ class Scheduler:
                 self._admit_prefilled(job)
             elif job.spill is not None:
                 self._admit_spilled(job)
+            elif job.tier_plan is not None:
+                self._admit_tier(job)
             else:
                 self._prefilling.append(job)
 
@@ -911,6 +973,7 @@ class Scheduler:
         self._state, _ = self.core.prefill_group(self._state, items)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_chunks"] += len(items)
+        self.stats["prefill_tokens"] += sum(len(it.chunk_ids) for it in items)
         for job in finals:
             self._prefilling.remove(job)
             # the prompt's pages are now write-dispatched: publish them
@@ -1344,6 +1407,8 @@ class Scheduler:
             return False
         if not self._spill.admit(req.request_id, payload):
             return False   # over APP_KV_SPILL_MB: recompute
+        if self._tier is not None:
+            self._tier_contribute(job, payload)
         job.spill = payload
         del self._slots[job.slot]
         self._state = self.core.release(self._state, job.slot)
@@ -1361,6 +1426,67 @@ class Scheduler:
                     "on the host)", req.request_id, len(job.gen_ids),
                     self._spill.used_bytes)
         return True
+
+    def _tier_contribute(self, job: _Job, payload: dict) -> None:
+        """Register a fresh spill's full-page prefix run in the tier under
+        its chain hashes: the spill pins the entry while it lives; after the
+        request id releases it stays as priced cache, so a later prompt
+        that shares the prefix promotes instead of prefilling. The hashes
+        run over the written context (prompt and fed-back generated
+        tokens), which a returning conversation's next turn extends."""
+        req = job.request
+        ids = payload.get("prompt_ids") or []
+        ps = self.core.page_size
+        hashes = chain_hashes([int(t) for t in ids], ps,
+                              seed=f"{self._cache_seed}|{req.adapter}")
+        depth = min(len(hashes), int(payload.get("n_pages", 0)))
+        if depth <= 0:
+            return
+        self._tier.contribute(req.request_id, hashes[:depth], payload,
+                              tokens=depth * ps)
+
+    def _admit_tier(self, job: _Job) -> None:
+        """The tier's promotion at admission: import the cached prefix run
+        into the job's fresh pages (a partial scatter, no slot state) and
+        start the chunk walk at the covered boundary. No prefill runs over
+        the covered span; the tail prefills as after a prefix-cache hit of
+        the same span, whose stream it equals. Any failure (the entry evicted
+        since the plan, a corrupt disk copy, a geometry mismatch) falls
+        back to a full prefill on the same pages."""
+        key, covered = job.tier_plan
+        job.tier_plan = None
+        req = job.request
+        tier = self._tier
+        payload = tier.checkout(key)
+        if payload is None:
+            self._prefilling.append(job)
+            return
+        now = time.perf_counter()
+        n_imp = covered // self.core.page_size
+        try:
+            self._state = self.core.import_pages_kv(
+                self._state, job.pages, payload, n_pages=n_imp)
+        except Exception as exc:
+            logger.warning("kv tier promote failed for %s (%s); "
+                           "re-prefilling", req.request_id, exc)
+            tier.count_tier("import_failed")
+            self._prefilling.append(job)
+            return
+        finally:
+            tier.checkin(key)
+        job.prefilled = job.total_len = job.shared = covered
+        req.kv_import_s = round(time.perf_counter() - now, 6)
+        req.tier_hit_tokens += covered
+        req.prefix_hit_tokens += covered
+        self.stats["prefix_hit_tokens"] += covered
+        self.stats["kv_tier_hit_tokens"] += covered
+        tier.count_tier("promoted")
+        if self._spec_w > 1:
+            # promoted pages skip prefill, so the drafting history row is
+            # seeded here, as for cache hits
+            self._state = self.core.seed_history(self._state, job.slot,
+                                                 job.ids)
+        self._prefilling.append(job)
 
     def _admit_spilled(self, job: _Job) -> None:
         """Promotion: re-import a spilled job's pages into its fresh ones and
@@ -1719,6 +1845,8 @@ class Scheduler:
                 between_steps=between_steps)
             self.stats["mixed_dispatches"] += 1
             self.stats["prefill_chunks"] += len(items)
+            self.stats["prefill_tokens"] += sum(len(it.chunk_ids)
+                                                for it in items)
         elif multi_m:
             # K·M plain steps at width 1 over the full batch, one block to
             # fetch. The union of the live stop strings builds the suspect

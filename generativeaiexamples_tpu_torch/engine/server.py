@@ -39,7 +39,11 @@ when there is none. An undecodable body answers 400, a geometry or dtype
 mismatch 409, and a ``role=prefill`` worker 409 on the generation routes;
 ``/health`` carries ``engine_role`` and the wires it reads (``kv_wire``).
 A request naming a LoRA adapter is refused on both handoff routes (400):
-the reference hands it off on the base weights (ROADMAP C8).
+the reference hands it off on the base weights (ROADMAP C8). Every
+completion (chat or not, streamed or not) carries ``X-KV-Prefix``: the
+prompt's opening-page chain hash under the prefix-addressed host tier
+(``Scheduler.prefix_key_hex``), ``""`` when the tier is off or the prompt
+does not fill a page; ``/health`` carries the tier's hot-set advert.
 
 Not ported (ROADMAP A.10): drain, metrics and debug endpoints.
 """
@@ -144,11 +148,15 @@ class Call:
 
     def __init__(self, reqs: List[Request], ids, chat: bool,
                  tools: List[Dict[str, Any]], json_mode: bool,
-                 grammar: Optional[object], stream: bool, model: str) -> None:
+                 grammar: Optional[object], stream: bool, model: str,
+                 kv_prefix: str = "") -> None:
         self.reqs, self.ids, self.chat = reqs, ids, chat
         self.tools, self.json_mode, self.grammar = tools, json_mode, grammar
         self.stream = stream
         self.model = model   # the id every response echoes
+        # the prompt's opening-page chain hash under the host tier ("" when
+        # the tier is off): the X-KV-Prefix header a router learns from
+        self.kv_prefix = kv_prefix
 
     @property
     def req(self) -> Request:
@@ -342,9 +350,12 @@ class ModelServer:
         for r in reqs:
             self.scheduler.submit(r)
         # responses echo the requested id: adapter traffic is not reported
-        # as the base model's
+        # as the base model's; a scheduler without the host tier's key
+        # (a stand-in) answers "", as the reference's server reads it
+        key = getattr(self.scheduler, "prefix_key_hex", None)
         return Call(reqs, ids, chat, tools, json_mode, grammar,
-                    bool(body.get("stream")), adapter or self.model_name)
+                    bool(body.get("stream")), adapter or self.model_name,
+                    kv_prefix=key(ids, adapter) if key else "")
 
     def _text(self, req: Request) -> str:
         return "".join(self.scheduler.iter_text(req))
@@ -695,20 +706,26 @@ def _handler_class(server: ModelServer):
             self._bytes(status, json.dumps(body).encode(), "application/json")
 
         def _bytes(self, status: int, data: bytes, ctype: str,
-                   rid: Optional[str] = None) -> None:
+                   rid: Optional[str] = None,
+                   kv_prefix: Optional[str] = None) -> None:
             self.send_response(status)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
             if rid:
                 self.send_header("X-Request-Id", rid)
+            if kv_prefix is not None:
+                self.send_header("X-KV-Prefix", kv_prefix)
             self.end_headers()
             self.wfile.write(data)
 
-        def _sse(self, rid: str, payloads) -> None:
+        def _sse(self, rid: str, payloads,
+                 kv_prefix: Optional[str] = None) -> None:
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.send_header("X-Request-Id", rid)
+            if kv_prefix is not None:
+                self.send_header("X-KV-Prefix", kv_prefix)
             self.end_headers()
             for payload in payloads:
                 self.wfile.write(f"data: {payload}\n\n".encode())
@@ -781,11 +798,15 @@ def _handler_class(server: ModelServer):
                 self.path, self._json_body(raw)))
             if call is None:
                 return
+            # every completion carries the prompt's tier prefix hash
             if not call.stream:
                 payload = server.complete(call)
-                self._json(503 if call.req.error else 200, payload)
+                self._bytes(503 if call.req.error else 200,
+                            json.dumps(payload).encode(), "application/json",
+                            call.req.request_id, kv_prefix=call.kv_prefix)
                 return
-            self._sse(call.req.request_id, server.stream(call))
+            self._sse(call.req.request_id, server.stream(call),
+                      kv_prefix=call.kv_prefix)
 
     return Handler
 

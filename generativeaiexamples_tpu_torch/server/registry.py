@@ -32,12 +32,14 @@ _KNOWN = {
     "agentic_rag": "generativeaiexamples_tpu_torch.chains.agentic_rag",
     "router_rag": "generativeaiexamples_tpu_torch.chains.router_rag",
     "text_to_sql": "generativeaiexamples_tpu_torch.chains.text_to_sql",
+    "structured_data_rag":
+        "generativeaiexamples_tpu_torch.chains.structured_data",
+    "knowledge_graph_rag":
+        "generativeaiexamples_tpu_torch.chains.knowledge_graph_rag",
 }
 
 # the reference's examples that wait for a later part of the port
 NOT_PORTED = {
-    "structured_data_rag": "A.13, part 3b",
-    "knowledge_graph_rag": "A.13, part 3b",
     "multimodal_rag": "A.16",
     "asr_stream_rag": "A.16",
 }

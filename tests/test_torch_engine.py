@@ -187,16 +187,20 @@ def test_unported_request_fields_raise(monkeypatch):
     assert Request(prompt_ids=[1], prefill_only=True).prefill_only
     assert Request(prompt_ids=[1], adapter="lora-a").adapter == "lora-a"
     assert Request(prompt_ids=[1], logprobs=True, top_logprobs=5).logprobs
-    # role and kv_spill_mb left NOT_PORTED with it; the prefix tier's knobs
-    # stay refused, naming its slice
+    # role and kv_spill_mb left NOT_PORTED with it, the prefix tier's knobs
+    # with A.9's second part; the knobs still unported stay refused,
+    # naming their item
     from generativeaiexamples_tpu_torch.core.config import (NOT_PORTED,
                                                             load_config)
-    assert "role" not in NOT_PORTED and "kv_spill_mb" not in NOT_PORTED
+    for knob in ("role", "kv_spill_mb", "kv_tier", "kv_tier_disk_mb"):
+        assert knob not in NOT_PORTED
     for knob, value in (("KV_TIER", "prefix"), ("KV_TIER_DISK_MB", "64")):
         monkeypatch.setenv(f"APP_ENGINE_{knob}", value)
-        with pytest.raises(NotImplementedError, match="A.9, second part"):
-            load_config()
-        monkeypatch.delenv(f"APP_ENGINE_{knob}")
+    eng = load_config().engine
+    assert (eng.kv_tier, eng.kv_tier_disk_mb) == ("prefix", 64)
+    monkeypatch.setenv("APP_ENGINE_QOS", "fair")
+    with pytest.raises(NotImplementedError, match="QoS plane"):
+        load_config()
 
 
 def test_engine_refuses_kernel_attention_on_cpu(tiny):

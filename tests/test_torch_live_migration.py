@@ -305,12 +305,6 @@ def test_spill_over_budget_falls_back_to_recompute(tiny, monkeypatch):
     assert sched._spill.used_bytes == 0
 
 
-def test_prefix_tier_is_refused(tiny, monkeypatch):
-    monkeypatch.setenv("APP_KV_TIER", "prefix")
-    with pytest.raises(NotImplementedError, match="A.9, second part"):
-        _mk_sched(tiny)
-
-
 # ------------------------------------------------------ evacuation control
 
 def test_guarded_evacuation_cancels_when_condition_cleared(tiny):

@@ -239,8 +239,8 @@ def test_env_override_and_config_load(tiny, monkeypatch):
     monkeypatch.setenv("APP_ENGINE_DECODE_STEPS_MAX", "32")
     eng = load_config().engine
     assert (eng.decode_multistep, eng.decode_steps_max) == (8, 32)
-    monkeypatch.setenv("APP_ENGINE_KV_TIER", "prefix")
-    with pytest.raises(NotImplementedError, match="A.9, second part"):
+    monkeypatch.setenv("APP_ENGINE_LONG_PREFILL", "on")
+    with pytest.raises(NotImplementedError, match="sequence-parallel"):
         load_config()
 
 
