@@ -3450,7 +3450,8 @@ def _staggered_traffic(base, sched, submitted, chain=False,
     """``serve``'s traffic: the decoders (``decoder_tokens``, greedy and
     0.7 in turn) admitted together, then ``late`` prompts (32 tokens) once
     the first decode dispatch ran. ``chain``: every request at the chain
-    server's temperature 0.2 / top-p 0.7 and 64 tokens (``serve_chain``).
+    server's temperature 0.2 / top-p 0.7 and ``CHAIN_DEVTIME_TOKENS``
+    tokens a decoder (``serve_chain``; the late prompts 64).
     ``texts``: (the decoders' prompts, the late prompt) in place of
     ``PROMPT_TEXT`` times ``DECODERS`` and ``LATE_PROMPT``; ``models``: the
     model id request i sends (decoders first), by default none."""
@@ -3463,7 +3464,8 @@ def _staggered_traffic(base, sched, submitted, chain=False,
     chain_kw = dict(temperature=0.2, top_p=0.7)
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         futs = [pool.submit(
-            _request, base, i, text, 64 if chain else decoder_tokens,
+            _request, base, i, text,
+            CHAIN_DEVTIME_TOKENS if chain else decoder_tokens,
             i % 2 == 0, i < 2, model=models[i],
             **(chain_kw if chain else dict(temperature=0.0 if i % 2
                                            else 0.7)))
@@ -3583,10 +3585,175 @@ class _ForwardCount:
 JSON_PROMPT = "Describe the paged KV cache as a JSON object."
 
 
+# Scheduler.stats keys and the registry counter that moves with each (the
+# reference's names); host_fetches is engine_host_fetches_total there
+STAT_METRICS = (("prefill_chunks", "prefill_chunks"),
+                ("decode_steps", "decode_steps"),
+                ("mixed_dispatches", "mixed_dispatches"),
+                ("spec_bonus_tokens", "spec_bonus_tokens"),
+                ("spec_base_steps", "spec_base_steps"),
+                ("preemptions", "preemptions"),
+                ("prefix_hit_tokens", "prefix_hit_tokens"),
+                ("prefix_prompt_tokens", "prefix_prompt_tokens"),
+                ("admission_skips", "admission_skips"),
+                ("host_fetches", "engine_host_fetches_total"),
+                ("kv_handoff_imports", "kv_handoff_imports"),
+                ("kv_handoff_exports", "kv_handoff_exports"),
+                ("snapshot_resumes", "snapshot_resumes"),
+                ("spill_resumes", "spill_resumes"))
+TIMELINE_PHASES = ("queued", "admitted", "prefill_start", "first_token",
+                   "finished")
+
+
+def _get_json(url, headers=None, want=200):
+    """GET ``url`` as JSON; fails unless it answers ``want``."""
+    status, _, raw = _get(url, headers or {})
+    if status != want:
+        raise AssertionError(f"GET {url} answered {status}, not {want}: "
+                             f"{raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _scrape(base, fmt):
+    """``/metrics?format=<fmt>`` parsed: {series: value}, and the text."""
+    status, headers, raw = _get(f"{base}/metrics?format={fmt}", {})
+    if status != 200 or not headers.get("Content-Type", "").startswith(
+            "text/plain" if fmt == "prometheus"
+            else "application/openmetrics-text"):
+        raise AssertionError(f"/metrics?format={fmt}: {status} "
+                             f"{headers.get('Content-Type')}")
+    text = raw.decode()
+    series = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            series[name.split(" # ")[0]] = float(value)
+    return series, text
+
+
+def _plane_checks(base, stats, scrape0, reqs):
+    """``serve``'s host-plane checks after its traffic, on the live
+    server: each scheduler counter's change over the window in the
+    Prometheus and the OpenMetrics scrape equals its ``Scheduler.stats``
+    key (zeroed at the window's start); every request's
+    ``/debug/requests/<id>`` timeline holds its phases in order;
+    ``/debug/flight`` holds samples; ``/health`` carries the perf card and
+    the tenant rollup; ``engine_recompiles_total`` and the first-seen keys
+    (``/debug/compiles``) are reported."""
+    prom, _ = _scrape(base, "prometheus")
+    om, om_text = _scrape(base, "openmetrics")
+    if not om_text.rstrip().endswith("# EOF"):
+        raise AssertionError("the OpenMetrics scrape has no # EOF")
+    counters, faults = {}, []
+    for key, metric in STAT_METRICS:
+        moved = prom.get(metric, 0.0) - scrape0.get(metric, 0.0)
+        moved_om = om.get(metric, 0.0) - scrape0.get(metric, 0.0)
+        counters[metric] = moved
+        if not moved == moved_om == stats.get(key, 0):
+            faults.append(f"{metric} moved {moved} / {moved_om}, "
+                          f"stats[{key!r}] {stats.get(key, 0)}")
+    if faults:
+        raise AssertionError(f"serve: the scrape disagrees with "
+                             f"Scheduler.stats: {faults}")
+    timelines = []
+    for req in reqs:
+        rec = _get_json(f"{base}/debug/requests/{req.request_id}")
+        stamps = [rec["phases"].get(p) for p in TIMELINE_PHASES]
+        if None in stamps or stamps != sorted(stamps):
+            raise AssertionError(f"timeline of {req.request_id} out of "
+                                 f"order or incomplete: {rec['phases']}")
+        timelines.append(rec["durations_s"])
+    flight = _get_json(f"{base}/debug/flight?window=600")
+    if not flight["samples"]:
+        raise AssertionError("/debug/flight holds no sample")
+    health = _get_json(f"{base}/health")
+    for key in ("perf", "usage_by_tenant", "slo_pressure"):
+        if key not in health:
+            raise AssertionError(f"/health has no {key}: {sorted(health)}")
+    compiles = _get_json(f"{base}/debug/compiles")
+    first_seen = [f"{e['program']}/{e['bucket']}" for e in compiles["events"]
+                  if e["during_serving"]]
+    requests_total = {k: v - scrape0.get(k, 0.0) for k, v in prom.items()
+                      if k.startswith("requests_finished")}
+    return dict(counters_equal_stats=counters,
+                requests_finished=requests_total,
+                timelines=len(timelines),
+                ttft_s_by_timeline=sorted(t.get("ttft_s", -1.0)
+                                          for t in timelines),
+                flight_samples=len(flight["samples"]),
+                flight_last=flight["samples"][-1],
+                perf_card=health["perf"],
+                usage_by_tenant=health["usage_by_tenant"],
+                slo_pressure=health["slo_pressure"],
+                recompiles=prom.get("engine_recompiles_total", 0.0)
+                - scrape0.get("engine_recompiles_total", 0.0),
+                first_seen_mid_serving=first_seen,
+                metric_series=len(prom))
+
+
+# serve_chain's ledger readings, for the comparison with profile's
+LEDGER = {}
+# serve_chain's decoders' tokens: dispatches enough for APP_DEVTIME_SAMPLE_N
+# = 16 to time a few of them
+CHAIN_DEVTIME_TOKENS = 384
+
+
+def _devtime_vs_profile(prof):
+    """The ledger's device ms a decode step (serve_chain, sampled timing
+    events: each timed dispatch's span on the stream) beside ``profile``'s
+    device ms a step (kernel time under torch.profiler, the narrow step);
+    the ratio is reported, a gap is explained in PERF.md."""
+    led = LEDGER.get("serve_chain") or {}
+    per_step = led.get("decode_device_ms_per_step")
+    emit("devtime_vs_profile", ledger_ms_per_step=per_step,
+         profile_device_ms_per_step=prof["device_ms_per_step"],
+         profile_wall_ms_per_step=prof.get("decode_ms_per_step"),
+         ratio=(per_step / prof["device_ms_per_step"]
+                if per_step and prof["device_ms_per_step"] else None),
+         timed_decode_steps=led.get("timed_decode_steps"))
+
+
+def _devtime_readings(base):
+    """``serve_chain``'s ledger under ``APP_DEVTIME=sample``: per key its
+    count, timed dispatches, device and queue seconds, tokens and
+    padding; the live MFU and HBM-read gauges; the device ms a decode step
+    of the timed decode dispatches (each key's steps from its bucket)."""
+    snap = _get_json(f"{base}/debug/devtime")
+    if snap["mode"] != "sample" or not snap["totals"]["timed"]:
+        raise AssertionError(f"/debug/devtime timed nothing: {snap['mode']} "
+                             f"{snap['totals']}")
+    rows = {}
+    step_s, steps = 0.0, 0
+    for r in snap["programs"]:
+        rows[f"{r['program']}/{r['bucket']}"] = {
+            k: r.get(k) for k in ("count", "timed", "device_s", "queue_s",
+                                  "issue_s", "tokens", "padded_tokens",
+                                  "row_util", "est_device_s",
+                                  "steady_p50_s")}
+        if r["program"].startswith("decode") and r["timed"]:
+            k = int(r["bucket"][1:].split("w")[0].split("b")[0]
+                    .split("m")[0])
+            step_s += r["device_s"]
+            steps += r["timed"] * k
+    prom, _ = _scrape(base, "prometheus")
+    mfu = {k: v for k, v in prom.items() if k.startswith("engine_mfu")}
+    return dict(mode=snap["mode"], sample_n=snap["sample_n"],
+                totals=snap["totals"], programs=rows,
+                padding_waste_frac=snap["padding_waste_frac"],
+                engine_mfu=mfu,
+                engine_hbm_read_util=prom.get("engine_hbm_read_util"),
+                perf_model=snap.get("perf_model"),
+                decode_device_ms_per_step=(1e3 * step_s / steps
+                                           if steps else None),
+                timed_decode_steps=steps)
+
+
+
 def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                 chain=False, quant="none", model="llama3-8b",
                 decoder_tokens=256, late=2, tok=None, texts=None, name=None,
-                adapters=None, adapter_traffic=True, json_request=False):
+                adapters=None, adapter_traffic=True, json_request=False,
+                planes=False, devtime=None):
     """HTTP requests against a full model (llama3-8b unless ``model`` says
     otherwise); the launch counts, the dispatch counts and the engine's
     sampling calls are set to 0 just before the requests and read just
@@ -3615,10 +3782,16 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     ``json_request``: once the traffic is done, one more chat request with
     ``response_format: json_object`` (greedy, 64 tokens) inside the
     counted window: its reply must parse as JSON, and ``grammar_mask`` and
-    the sampler's masked variants must launch. Returns (launches, the
+    the sampler's masked variants must launch. ``planes``: the host-plane
+    checks of ``_plane_checks`` after the traffic (``serve``), with the
+    device-time ledger reset before warmup so the first-seen keys are this
+    engine's. ``devtime``: the ledger's mode for the phase
+    (``serve_chain``: "sample", every 16th dispatch timed), read back by
+    ``_devtime_readings`` and set off again after. Returns (launches, the
     engine core)."""
     import torch
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.observability.devtime import DEVTIME
     from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
     from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
@@ -3627,8 +3800,19 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     weights = ("random, torch.Generator seed 0" if tok is None else
                "random, torch.Generator seed 0, loaded from safetensors")
     tok = tok or ByteTokenizer()
-    core = serving_core(dev, cfg, params, kv_quant, quant=quant,
-                        eos_id=tok.eos_id, **(NARROW if narrow else {}))
+    if planes or devtime:
+        # this engine's warmup marks its own keys; serving marks them hot
+        DEVTIME.reset()
+    if devtime:
+        os.environ["APP_DEVTIME"] = devtime
+        os.environ["APP_DEVTIME_SAMPLE_N"] = "16"
+        DEVTIME.configure(sample_n=16)
+    try:
+        core = serving_core(dev, cfg, params, kv_quant, quant=quant,
+                            eos_id=tok.eos_id, **(NARROW if narrow else {}))
+    finally:
+        os.environ.pop("APP_DEVTIME", None)
+        os.environ.pop("APP_DEVTIME_SAMPLE_N", None)
     base_id = f"{model}-random"
     models, register_s = None, None
     if adapters:
@@ -3658,6 +3842,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     at_late = None
     lora_checks = None
+    plane_readings = devtime_readings = None
     try:
         with urllib.request.urlopen(base + "/health", timeout=30) as resp:
             if resp.status != 200:
@@ -3669,6 +3854,7 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
                 sched.stats[key] = 0
             core.sample_calls = 0
             lora_passes0 = core.lora_passes
+            scrape0 = _scrape(base, "prometheus")[0] if planes else None
             t0 = time.perf_counter()
             if narrow:
                 with concurrent.futures.ThreadPoolExecutor(6) as pool:
@@ -3690,6 +3876,11 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
             gemm_rows = build.gemm_launches_by_rows()
             stats = dict(sched.stats)
         traffic = list(submitted)     # the counted window's requests
+        if planes:
+            plane_readings = _plane_checks(base, stats, scrape0, traffic)
+        if devtime:
+            devtime_readings = _devtime_readings(base)
+            LEDGER[name or "serve_chain"] = devtime_readings
         if adapters and adapter_traffic:
             calls = core.sample_calls
             lora_checks = _lora_serve_checks(base, submitted, base_id,
@@ -3700,6 +3891,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         httpd.server_close()
         sched.stop()
         thread.join(timeout=30)
+        if devtime:
+            DEVTIME.configure(mode="off")
     json_reply = None
     if json_request:
         text = results[-1]["text"]
@@ -3812,6 +4005,8 @@ def phase_serve(dev, cfg, params, kv_quant="none", narrow=False,
         **_loop_fields(stats, core, warmup_s, launches),
         **(dict(gemm_launches_by_rows=gemm_rows) if quant == "int8" else {}),
         **(dict(json_object_reply=json_reply) if json_request else {}),
+        **(dict(planes=plane_readings) if planes else {}),
+        **(dict(devtime=devtime_readings) if devtime else {}),
         **(dict(adapters=list(adapters), adapter_targets=targets,
                 adapter_rank=int(next(iter(next(iter(
                     adapters.values())).values()))["a"].shape[1]),
@@ -4598,12 +4793,16 @@ def _disagg_traffic(json_request=True):
 class _Worker:
     """One scheduler behind the stdlib HTTP server in a thread, its
     admission gated (``_gate_admission``) and every request it is given
-    recorded (``submit`` and ``submit_prefilled``)."""
+    recorded (``submit`` and ``submit_prefilled``). ``watchdog``: an
+    engine watchdog (``engine/watchdog.py``, its poll thread started) is
+    the server's health arbiter, so ``POST /debug/drain`` drains."""
 
-    def __init__(self, core, tok):
+    def __init__(self, core, tok, watchdog=False):
         from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
         from generativeaiexamples_tpu_torch.engine.server import (
             serve_in_thread)
+        from generativeaiexamples_tpu_torch.engine.watchdog import (
+            EngineWatchdog)
         self.core = core
         self.sched = sched = Scheduler(core, tok)
         self.submitted = []
@@ -4616,10 +4815,16 @@ class _Worker:
                 return out
             setattr(sched, name, recording)
         self.gate = _gate_admission(sched)
-        self.httpd, self.thread = serve_in_thread(sched, "llama3-8b-random")
+        self.watchdog = EngineWatchdog(sched) if watchdog else None
+        if self.watchdog is not None:
+            self.watchdog.start()
+        self.httpd, self.thread = serve_in_thread(
+            sched, "llama3-8b-random", watchdog=self.watchdog)
         self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
 
     def close(self):
+        if self.watchdog is not None:
+            self.watchdog.stop()
         self.httpd.shutdown()
         self.httpd.server_close()
         self.sched.stop()
@@ -4747,7 +4952,8 @@ def _handoff_case(dev, cfg, params, tok, kv_quant, total):
     json_request = kv_quant == "none"
     first, second = _disagg_traffic(json_request)
     pre = _Worker(_disagg_core(dev, cfg, params, "prefill", kv_quant), tok)
-    dec = _Worker(_disagg_core(dev, cfg, params, "decode", kv_quant), tok)
+    dec = _Worker(_disagg_core(dev, cfg, params, "decode", kv_quant), tok,
+                  watchdog=True)
     try:
         def unified(spec):
             i, text, tokens, chat, kw = spec
@@ -4901,13 +5107,19 @@ def _handoff_case(dev, cfg, params, tok, kv_quant, total):
         raise
 
 
-def _pull_case(src, peer, oracle, name, total):
+def _pull_case(src, peer, oracle, name, total, drain=False):
     """Case 2: stream EVAC_TEXT from ``src``; once the request has
     generated EVAC_PULL_TOKENS tokens, pull it through
     ``/v1/kv/evacuation/<rid>`` (from another thread: random weights
     under the byte tokenizer stream few characters), and resume the frame
     on ``peer`` with ``X-Resume-Chars`` the characters the client got: the
-    joined text and the resumed request's ids must equal ``oracle``'s."""
+    joined text and the resumed request's ids must equal ``oracle``'s.
+    ``drain``: the worker is drained mid-stream instead (``POST
+    /debug/drain?evacuate=1``, ``src`` has a watchdog): the drain's
+    summary names the request among its snapshots, ``/health`` answers
+    503, the parked snapshot is pulled and resumed as above, and
+    ``?off=1`` brings ``/health`` back to 200; both workers decode
+    (``decode_dispatches`` moves on each)."""
     from generativeaiexamples_tpu_torch.core import kv_wire
     from generativeaiexamples_tpu_torch.ops.cuda import attention as k
     at_evac = []
@@ -4931,6 +5143,15 @@ def _pull_case(src, peer, oracle, name, total):
                   or req.finished_at is not None, "tokens to pull at")
         at = req.completion_tokens
         t0 = time.perf_counter()
+        if drain:
+            d_status, _, d_raw = _post(src.base + "/debug/drain?evacuate=1",
+                                       b"", {})
+            summary = json.loads(d_raw)
+            h_status, _, h_raw = _get(src.base + "/health", {})
+            pulled.update(drain_status=d_status, drain=summary,
+                          health_draining=h_status,
+                          health_body=json.loads(h_raw),
+                          drain_s=time.perf_counter() - t0)
         status, _, frame = _get(
             src.base + f"/v1/kv/evacuation/{req.request_id}",
             {"Accept": kv_wire.KV_FRAMES_CONTENT_TYPE})
@@ -4938,6 +5159,8 @@ def _pull_case(src, peer, oracle, name, total):
                       pull_s=time.perf_counter() - t0, at_tokens=at)
 
     k.reset_launch_counts()
+    dispatches0 = (src.sched.stats["decode_dispatches"],
+                   peer.sched.stats["decode_dispatches"])
     try:
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             puller = pool.submit(pull)
@@ -4959,6 +5182,21 @@ def _pull_case(src, peer, oracle, name, total):
         faults.append(f"the pulled stream ended {finish!r}")
     if again != 404:
         faults.append(f"a second pull answered {again}")
+    drained = {}
+    if drain:
+        off_status, _, _ = _post(src.base + "/debug/drain?off=1", b"", {})
+        after, _, _ = _get(src.base + "/health", {})
+        drained = dict(drain_status=pulled["drain_status"],
+                       health_while_draining=pulled["health_draining"],
+                       health_after_off=after, off_status=off_status,
+                       drain_s=pulled["drain_s"],
+                       evacuation=pulled["drain"].get("evacuation"),
+                       watchdog=pulled["health_body"].get("watchdog"))
+        if (pulled["drain_status"] != 200 or pulled["health_draining"] != 503
+                or off_status != 200 or after != 200
+                or rid not in (pulled["drain"].get("evacuation") or {})
+                .get("snapshot", [])):
+            faults.append(f"the drain surface: {drained}")
     if faults:
         raise AssertionError(f"{name}: {'; '.join(faults)}")
     n_peer = len(peer.submitted)
@@ -4967,6 +5205,14 @@ def _pull_case(src, peer, oracle, name, total):
     launches = _launch_window(k)
     _add_launches(total, launches)
     resumed = peer.submitted[n_peer]
+    decoded = (src.sched.stats["decode_dispatches"] - dispatches0[0],
+               peer.sched.stats["decode_dispatches"] - dispatches0[1])
+    if drain and (min(decoded) < 1
+                  or launches.get("ragged_paged_attention", 0) < 1
+                  or launches.get("sample_slots", 0) < 1):
+        raise AssertionError(f"{name}: a worker made no decode dispatch "
+                             f"or the kernels did not launch: dispatches "
+                             f"{decoded}, launches {launches}")
     joined_equal = pre + rest == oracle["text"]
     ids_equal = resumed.output_ids == oracle["ids"]
     if not (joined_equal and ids_equal) or resumed.snapshot_resumes != 1:
@@ -4981,7 +5227,8 @@ def _pull_case(src, peer, oracle, name, total):
                 inflight_positions_at_evacuation=at_evac,
                 generated_before=len(resumed.output_ids)
                 - resumed.completion_tokens,
-                finish_reason=rfinish, launches=launches)
+                finish_reason=rfinish, launches=launches,
+                decode_dispatches=decoded, **drained)
 
 
 def _get(url, headers):
@@ -5019,6 +5266,8 @@ def _evacuation_case(dev, cfg, params, tok, dec, total):
                               total)
         blocks = _pull_case(multi, peer, oracle, "evacuation multi-step",
                             total)
+        drained = _pull_case(dec, peer, oracle, "evacuation drain", total,
+                             drain=True)
         if not any(p > MULTI_SERVE_K for p in sum(
                 blocks["inflight_positions_at_evacuation"], [])):
             raise AssertionError(
@@ -5026,6 +5275,7 @@ def _evacuation_case(dev, cfg, params, tok, dec, total):
                 f"when the pull evacuated: "
                 f"{blocks['inflight_positions_at_evacuation']}")
         return dict(oracle_tokens=len(oracle["ids"]), per_step=per_step,
+                    drain=drained,
                     multi_step=dict(blocks, multi_dispatches=multi.sched
                                     .stats["multi_dispatches"]),
                     streams_equal=True)
@@ -7643,6 +7893,54 @@ def _chain_generate(base, rid, messages, use_kb=True,
     return text, first
 
 
+def _slo_tenant_case(base, sched, submitted):
+    """``serve_chain_server``'s SLO and usage case: one ``/generate`` with
+    ``X-Slo-Class: batch`` and ``X-Tenant-Id`` answers 200 (the port once
+    answered 422); its engine requests carry the class and the tenant;
+    ``/debug/slo`` counts the class, ``/debug/usage`` bills the tenant,
+    and the engine's ``/health`` body (``ModelServer.health``: this
+    phase's engine is in-process, behind ``LocalLLM``) shows the tenant's
+    tokens in ``usage_by_tenant``; the timeline names both."""
+    from generativeaiexamples_tpu_torch.engine.server import ModelServer
+    tenant = "smoke-tenant"
+    n = len(submitted)
+    body = json.dumps({"messages": [{"role": "user",
+                                     "content": RAG_QUERIES[0]}],
+                       "max_tokens": 16, "temperature": 0.0}).encode()
+    req = urllib.request.Request(base + "/generate", data=body, headers={
+        "Content-Type": "application/json", "X-Request-Id": "slo-tenant",
+        "X-Slo-Class": "batch", "X-Tenant-Id": tenant})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        status, raw = resp.status, resp.read()
+    reqs = submitted[n:]
+    slo = _get_json(base + "/debug/slo")
+    usage = _get_json(base + "/debug/usage")
+    _, health = ModelServer(sched, "llama3-8b-random").health()
+    rec = (_get_json(f"{base}/debug/requests/{reqs[-1].request_id}")
+           if reqs else {})
+    billed = usage["tenants"].get(tenant, {})
+    rolled = health["usage_by_tenant"].get(tenant, {})
+    out_tokens = sum(r.completion_tokens for r in reqs)
+    got = dict(status=status, engine_requests=len(reqs),
+               classes=sorted({r.slo_class for r in reqs}),
+               tenants=sorted({r.tenant for r in reqs}),
+               batch_lifetime=slo["classes"]["batch"]["lifetime"],
+               usage=billed, health_usage=rolled,
+               timeline_class=rec.get("slo_class"),
+               timeline_tenant=rec.get("tenant"), tokens_out=out_tokens)
+    if (status != 200 or not raw.rstrip().endswith(b"data: [DONE]")
+            or not reqs or got["classes"] != ["batch"]
+            or got["tenants"] != [tenant]
+            or got["batch_lifetime"]["total"] < len(reqs)
+            or billed.get("requests") != len(reqs)
+            or billed.get("tokens_out") != out_tokens
+            or rolled.get("tok_out") != out_tokens or out_tokens < 1
+            or rec.get("slo_class") != "batch"
+            or rec.get("tenant") != tenant):
+        raise AssertionError(f"serve_chain_server SLO / tenant: {got}")
+    return got
+
+
 def phase_serve_chain_server(dev, cfg, params, smi, shared):
     """``serve_rag``'s path behind the port's chain server: full llama3-8b
     (bf16, the default engine config) under ``LocalLLM``, full e5-base
@@ -7806,6 +8104,7 @@ def phase_serve_chain_server(dev, cfg, params, smi, shared):
         stats = dict(sched.stats)
         _, metrics = _chain_json(base, "GET", "/metrics")
         rerank_dispatches = rerank_counter.value - rerank0
+        slo_tenant = _slo_tenant_case(base, sched, submitted)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -7900,6 +8199,7 @@ def phase_serve_chain_server(dev, cfg, params, smi, shared):
         raise AssertionError(f"serve_chain_server: {faults}")
     first = [c["first_frame_s"] for c in calls]
     emit("serve_chain_server", card=smi, example="multi_turn_rag",
+         slo_tenant=slo_tenant,
          corpus_files=len(names), chunks=chunks, upload_s=upload_s,
          upload_docs_per_s=chunks / upload_s,
          search_s=searches,
@@ -8846,10 +9146,23 @@ if "grammar" in parts:
     out["grammar_mask"] = cs.ab_grammar(dev)
 if "lora" in parts:
     out["lora"] = cs.ab_lora(dev)
-if not set(parts) & {"attention", "sampling", "gemm"}:
+if not set(parts) & {"attention", "sampling", "gemm", "host"}:
     print(json.dumps(out))
     sys.exit(0)
 cfg, params, _ = cs.draw_8b(dev)
+if "host" in parts:
+    lines = {}
+    cs.emit = lambda phase, **fields: lines.update({phase: fields})
+    keep = ("gen_tok_s", "wall_s", "completion_tokens", "server_ttft_s")
+    for name, narrow in (("serve", False), ("serve_two_dispatch", True)):
+        _, core = cs.phase_serve(dev, cfg, params, narrow=narrow)
+        out[name] = {key: lines[name][key] for key in keep}
+        if not narrow:
+            del core
+            torch.cuda.empty_cache()
+    prof = cs.profile_decode(core)
+    out["profile"] = {key: prof[key] for key in (
+        "decode_ms_per_step", "device_ms_per_step", "device_busy_share")}
 if "attention" in parts:
     prof = cs.profile_prefill(cs.serving_core(dev, cfg, params))
     out["profile_prefill"] = {key: prof[key] for key in (
@@ -8866,7 +9179,7 @@ if "gemm" in parts:
 print(json.dumps(out))
 """
 AB_PARTS = ("attention", "sampling", "gemm", "grammar")
-AB_NAMED_ONLY = ("lora",)    # parts run only when named
+AB_NAMED_ONLY = ("lora", "host")    # parts run only when named
 
 
 def ab(trees, parts=AB_PARTS) -> None:
@@ -8880,16 +9193,22 @@ def ab(trees, parts=AB_PARTS) -> None:
     "grammar" (``ab_grammar``: the grammar mask's seven inputs and the
     sampler's option cases with a mask), "lora" (``ab_lora``: every LoRA
     case; both trees must have the kernel, so it runs only when
-    named)."""
+    named), "host" (named alone: each tree's own ``serve`` and
+    ``serve_two_dispatch`` traffic and ``profile``'s decode step, the
+    host work a dispatch of two versions of the Scheduler)."""
     unknown = set(parts) - set(AB_PARTS + AB_NAMED_ONLY)
     if unknown:
         raise AssertionError(f"no A/B part named {sorted(unknown)}")
+    if "host" in parts and len(parts) > 1:
+        raise AssertionError("the host part runs alone")
     order = [trees[0], trees[1], trees[1], trees[0]]
     runs = []
     for tree in order:
         tree = os.path.abspath(tree)
+        smoke = (os.path.join(tree, "chip_smoke.py") if "host" in parts
+                 else os.path.abspath(__file__))
         run = subprocess.run([sys.executable, "-c", _AB_PHASES, tree,
-                              os.path.abspath(__file__), ",".join(parts)],
+                              smoke, ",".join(parts)],
                              cwd=tree, capture_output=True, text=True,
                              timeout=900)
         if run.returncode != 0:
@@ -9146,7 +9465,8 @@ def main() -> int:
     emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)
     for kv_quant, tag in (("none", ""), ("int8", "_int8")):
         paths["serve" + tag], core = timed("serve" + tag, phase_serve, dev,
-                                           cfg, params, kv_quant)
+                                           cfg, params, kv_quant,
+                                           planes=kv_quant == "none")
         if kv_quant == "none":
             # the int8 pool's W = 5 and mixed profiles were cut to keep
             # the smoke's time; serve_int8 still runs both paths
@@ -9191,7 +9511,7 @@ def main() -> int:
             kv_quant)
         torch.cuda.empty_cache()
     paths["serve_chain"], core = timed("serve_chain", phase_serve, dev, cfg,
-                                       params, chain=True)
+                                       params, chain=True, devtime="sample")
     del core
     torch.cuda.empty_cache()
     emit("profile_sampled", **timed("profile_sampled", profile_sampled, dev,
@@ -9204,6 +9524,7 @@ def main() -> int:
         "serve_two_dispatch", phase_serve, dev, cfg, params, narrow=True)
     prof_bf16 = timed("profile", profile_decode, core)
     emit("profile", **prof_bf16)
+    _devtime_vs_profile(prof_bf16)
     emit("profile_prefill", **timed("profile_prefill", profile_prefill,
                                     core))
     del core

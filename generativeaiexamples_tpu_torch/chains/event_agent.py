@@ -23,9 +23,9 @@ Mechanics the reference gets from its streaming engine, kept here:
   * results stream to a sink callback as they finish (publish side).
 
 Port of ``generativeaiexamples_tpu/chains/event_agent.py``, the same in
-behaviour. The ``/debug/deadletter`` route that serves the ring is the
-host planes' (ROADMAP A.10); until then :func:`dead_letter_payload` is its
-body for a caller that asks.
+behaviour. :func:`dead_letter_payload` is the body of every server's
+``GET /debug/deadletter`` (``server/common.DEBUG_ROUTES``), and the
+retry policy reads the ambient SLO deadline (``server/resilience.py``).
 """
 
 from __future__ import annotations

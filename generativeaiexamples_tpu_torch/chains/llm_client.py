@@ -8,11 +8,15 @@ stream text deltas from ``chat`` and answer one tool-capable turn from
 ``httpx`` (the card's machine has no ``httpx``), with the same SSE parsing
 and the same error surfacing: an error chunk raises, a non-2xx stream
 ends without text as ``httpx.stream`` ends it, and ``chat_tools`` raises
-on a non-2xx answer as ``raise_for_status`` does. Its requests carry the
-W3C ``traceparent``; the SLO class and deadline headers the reference adds
-wait for the SLO plane (ROADMAP A.10). A comma-separated ``server_url``
-(the reference's failover pool) is refused: ``server/failover.py`` is
-ROADMAP A.17.
+on a non-2xx answer as ``raise_for_status`` does. Its requests carry
+``slo.outbound_headers()``: the W3C ``traceparent`` and, inside an SLO
+admission, the class and the remaining deadline. A comma-separated
+``server_url`` (the reference's failover pool) is refused:
+``server/failover.py`` is ROADMAP A.17; the tenant header that router
+forwards is sent by ``RemoteLLM`` itself here (``X-Tenant-Id`` of the
+ambient ``usage.tenant_scope``), and ``LocalLLM`` stamps the ambient
+tenant on its Request, where the reference's in-process requests bill
+``anon``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from functools import lru_cache
 from typing import Dict, Iterator, Optional, Sequence
 
 from generativeaiexamples_tpu_torch.core.config import get_config
-from generativeaiexamples_tpu_torch.observability import otel
+from generativeaiexamples_tpu_torch.observability import slo as slo_mod
+from generativeaiexamples_tpu_torch.observability import usage as usage_mod
 
 logger = logging.getLogger(__name__)
 
@@ -46,9 +51,12 @@ class LocalLLM:
 
         prompt_ids = self.scheduler.tokenizer.apply_chat_template(
             list(messages))
+        # the SLO class and deadline come from the ambient admission at
+        # submission (slo.stamp_request); the tenant from the ambient scope
         req = Request(prompt_ids=prompt_ids, max_tokens=max_tokens,
                       temperature=temperature, top_p=top_p, top_k=top_k,
-                      grammar=grammar, stop=list(stop or []))
+                      grammar=grammar, stop=list(stop or []),
+                      tenant=usage_mod.current_tenant())
         # submitted on the first pull (a generator body), so an un-iterated
         # chat() never leaves a generating request on the device
         self.scheduler.submit(req)
@@ -92,8 +100,13 @@ class LocalLLM:
 
 
 def _post(url: str, payload: Dict) -> urllib.request.Request:
-    headers = {"Content-Type": "application/json"}
-    otel.inject_traceparent(headers)
+    """A JSON POST carrying the traceparent, the ambient SLO class and
+    remaining deadline (``slo.outbound_headers``) and the ambient
+    tenant."""
+    headers = slo_mod.outbound_headers({"Content-Type": "application/json"})
+    tenant = usage_mod.current_tenant()
+    if tenant:
+        headers["X-Tenant-Id"] = tenant
     return urllib.request.Request(url, data=json.dumps(payload).encode(),
                                   headers=headers, method="POST")
 

@@ -5,7 +5,9 @@ port runs: ``EngineConfig`` (only the knobs this port serves),
 ``LLMConfig`` (``model_name``, ``server_url``, ``model_engine``), the
 retrieval sections (``VectorStoreConfig``,
 ``TextSplitterConfig``, ``EmbeddingConfig``, ``RankingConfig``,
-``RetrieverConfig``: the reference's fields, defaults and env names), and
+``RetrieverConfig``: the reference's fields, defaults and env names), the
+SLO section (``SLOConfig`` with its three classes, ``APP_SLO_*`` and
+``APP_SLO_<CLASS>_<FIELD>``, read by ``observability/slo.py``), and
 the loader (an optional JSON file named by ``APP_CONFIG_FILE``, then
 ``APP_<SECTION>_<FIELD>`` variables on top).
 
@@ -16,6 +18,7 @@ loudly: setting one of them in the environment or the file raises
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import typing
@@ -28,7 +31,6 @@ ENV_PREFIX = "APP"
 # ports them, and the value that means "feature off" (accepted as a no-op)
 NOT_PORTED: Dict[str, tuple] = {
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
-    "devtime": ("A6 (device-time ledger)", "off"),
     "qos": ("A6 (QoS plane)", "off"),
     "mesh_shape": ("A11 (tensor parallelism)", ""),
     "donate_buffers": ("none: PyTorch updates the pool in place", "auto"),
@@ -138,6 +140,12 @@ class EngineConfig:
     # instead of dropping; 0 (default) = off. APP_KV_TIER_DISK_DIR picks
     # the directory; the bare env APP_KV_TIER_DISK_MB overrides this field
     kv_tier_disk_mb: int = 0
+    # device-time ledger (observability/devtime.py): off (default: dispatch
+    # counts and first-seen watch only, no fence and no CUDA event) |
+    # sample (one timing fence every APP_DEVTIME_SAMPLE_N-th dispatch) |
+    # on (every dispatch; serializes the pipeline). The bare env
+    # APP_DEVTIME overrides this field
+    devtime: str = "off"
 
     def __post_init__(self) -> None:
         if self.pipeline_depth < 1:
@@ -227,6 +235,57 @@ class RetrieverConfig:
 
 
 @dataclass(frozen=True)
+class SLOInteractiveConfig:
+    """Budgets of the ``interactive`` SLO class (chat-facing traffic)."""
+
+    ttft_s: float = 1.0
+    tpot_s: float = 0.25
+    e2e_s: float = 30.0
+    sheddable: bool = False
+
+
+@dataclass(frozen=True)
+class SLOBatchConfig:
+    """Budgets of the ``batch`` SLO class (bulk work)."""
+
+    ttft_s: float = 10.0
+    tpot_s: float = 1.0
+    e2e_s: float = 300.0
+    sheddable: bool = False
+
+
+@dataclass(frozen=True)
+class SLOBestEffortConfig:
+    """Budgets of the ``best_effort`` SLO class: shed at admission under
+    critical error-budget burn."""
+
+    ttft_s: float = 30.0
+    tpot_s: float = 2.0
+    e2e_s: float = 600.0
+    sheddable: bool = True
+
+
+@dataclass(frozen=True)
+class SLOConfig:
+    """``APP_SLO_<FIELD>``: serving objectives and burn-rate windows
+    (observability/slo.py). A pressure level fires only when both the
+    fast and the slow window burn past its threshold."""
+
+    default_class: str = "interactive"
+    target: float = 0.99
+    fast_window_s: float = 300.0
+    slow_window_s: float = 3600.0
+    warn_burn: float = 2.0
+    critical_burn: float = 10.0
+    min_events: int = 10
+    interactive: SLOInteractiveConfig = field(
+        default_factory=SLOInteractiveConfig)
+    batch: SLOBatchConfig = field(default_factory=SLOBatchConfig)
+    best_effort: SLOBestEffortConfig = field(
+        default_factory=SLOBestEffortConfig)
+
+
+@dataclass(frozen=True)
 class AppConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
@@ -237,10 +296,15 @@ class AppConfig:
     embeddings: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     ranking: RankingConfig = field(default_factory=RankingConfig)
     retriever: RetrieverConfig = field(default_factory=RetrieverConfig)
+    slo: SLOConfig = field(default_factory=SLOConfig)
 
 
 
 def _coerce(value: Any, ftype: Any) -> Any:
+    if ftype is bool:
+        if isinstance(value, bool):
+            return value
+        return str(value).strip().lower() in ("1", "true", "yes", "on")
     if ftype is int:
         return int(value)
     if ftype is float:
@@ -254,6 +318,11 @@ def _section(cls: type, data: Mapping[str, Any], env: Mapping[str, str],
     kwargs = {}
     for f in fields(cls):
         name = f"{prefix}_{f.name.upper()}"
+        if dataclasses.is_dataclass(hints[f.name]):
+            # a nested section (the SLO classes): APP_SLO_<CLASS>_<FIELD>
+            kwargs[f.name] = _section(hints[f.name],
+                                      data.get(f.name, {}) or {}, env, name)
+            continue
         if name in env:
             kwargs[f.name] = _coerce(env[name], hints[f.name])
         elif f.name in data:

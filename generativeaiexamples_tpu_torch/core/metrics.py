@@ -2,8 +2,9 @@
 
 A copy of ``generativeaiexamples_tpu/core/metrics.py`` (which imports no
 JAX), kept in the port because the port imports nothing of that package.
-The encoders count into :data:`REGISTRY`; the engine does not yet (ROADMAP
-A.10).
+The engine (scheduler, prefix cache, host KV tier), the encoders, the
+servers and the host planes (``observability/``) count into
+:data:`REGISTRY` under the reference's names.
 
 The reference has no first-class metrics (metrics ride on spans; SURVEY §5.5) —
 these are the north-star measurements in BASELINE.json, so the TPU stack makes

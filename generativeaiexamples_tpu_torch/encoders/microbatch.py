@@ -25,9 +25,9 @@ Semantics:
 Observability: per-submission queue wait and per-dispatch fill land in
 ``<name>_wait_s`` / ``<name>_batch_fill`` / ``<name>_batch_requests``
 histograms and the ``<name>_dispatches`` counter (``core/metrics.py``).
-The reference also commits each dispatch's wall time to its device-time
-ledger (``DEVTIME.commit``); that ledger is not ported (ROADMAP A.10), so
-the port leaves it out.
+Each dispatch's wall time goes to the device-time ledger as a
+pre-measured commit (``DEVTIME.commit(name, "b<pow2 batch>", device_s=)``:
+the dispatch returns host results, so no fence is taken in any mode).
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ import time
 from typing import Any, Callable, List, Optional, Sequence
 
 from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
+from generativeaiexamples_tpu_torch.observability.devtime import (
+    DEVTIME, pow2_bucket)
 
 
 class _Pending:
@@ -157,6 +159,7 @@ class MicroBatcher:
             REGISTRY.histogram(f"{self.name}_batch_requests").observe(
                 len(batch))
             REGISTRY.counter(f"{self.name}_dispatches").inc()
+            t0 = time.perf_counter()
             try:
                 results = self._dispatch(flat)
                 if len(results) != len(flat):
@@ -168,6 +171,13 @@ class MicroBatcher:
                     p.error = exc
                     p.event.set()
                 continue
+            # devtime: the dispatch blocked until its results were on the
+            # host, so its wall is a pre-measured duration; mfu=False keeps
+            # encoder items out of the LLM's model-FLOP gauges
+            b2 = pow2_bucket(len(flat))
+            DEVTIME.commit(self.name, f"b{b2}",
+                           device_s=time.perf_counter() - t0,
+                           tokens=len(flat), padded_tokens=b2, mfu=False)
             start = 0
             for p in batch:
                 p.result = results[start:start + len(p.items)]

@@ -11,16 +11,20 @@ its calls in a thread pool for the same reason).
     ``input_type`` extension (``query`` | ``passage``, the default);
   * ``POST /v1/ranking``: ``{query: {text}, passages: [{text}], top_n}``
     -> ``{rankings: [{index, logit}]}``, best first;
-  * ``GET /health``: ``{"message": "Service is up."}``;
+  * ``GET /health``: ``{"message": "Service is up.", "slo_pressure":
+    ...}``, 503 while the process drains;
   * ``GET /metrics``: ``core/metrics.REGISTRY`` as JSON, or as Prometheus
     text when ``?format=prometheus`` / ``text`` or an ``Accept`` of
     OpenMetrics or ``text/plain`` without JSON asks for it
     (``server/common.metrics_body``); ``?format=openmetrics`` adds the
     exemplars.
 
+  * the debug surface of ``server/common.DEBUG_ROUTES`` (the encoders'
+    micro-batches key ``/debug/devtime`` as ``embed|rerank / b<batch>``)
+    and ``POST /debug/drain[?off=1]`` (the process drain switch).
+
 An empty input, a missing query or passages, or a body that is not a JSON
-object answers 400. Not ported (ROADMAP A.10): the ``/debug`` routes,
-``init_observability`` and ``/health``'s SLO pressure.
+object answers 400. ``run_server`` calls ``init_observability("encoder")``.
 """
 
 from __future__ import annotations
@@ -30,10 +34,10 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
-from urllib.parse import parse_qs, urlsplit
 
 from generativeaiexamples_tpu_torch.encoders.embedder import Embedder
 from generativeaiexamples_tpu_torch.encoders.reranker import Reranker
+from generativeaiexamples_tpu_torch.server import common
 from generativeaiexamples_tpu_torch.server.common import health, metrics_body
 
 logger = logging.getLogger(__name__)
@@ -120,18 +124,25 @@ def _handler_class(server: EncoderServer):
             self._send(status, json.dumps(body).encode(), "application/json")
 
         def do_GET(self):
-            url = urlsplit(self.path)
-            if url.path == "/health":
+            path, query = common.split_path(self.path)
+            if path == "/health":
                 self._json(*health())
-            elif url.path == "/metrics":
-                fmt = parse_qs(url.query).get("format", [""])[0]
+            elif path == "/metrics":
                 self._send(200, *metrics_body(
-                    fmt, self.headers.get("Accept", "")))
+                    query.get("format", ""), self.headers.get("Accept", "")))
             else:
-                self._json(404, {"error": f"no route {url.path}"})
+                got = common.debug_get(path, query)
+                if got is None:
+                    self._json(404, {"error": f"no route {path}"})
+                else:
+                    self._json(*got)
 
         def do_POST(self):
-            route = posts.get(urlsplit(self.path).path)
+            path, query = common.split_path(self.path)
+            if path == "/debug/drain":
+                self._json(*common.drain_post(query))
+                return
+            route = posts.get(path)
             if route is None:
                 self._json(404, {"error": f"no route {self.path}"})
                 return
@@ -174,6 +185,9 @@ def run_server(embedder: Optional[Embedder] = None,
     micro-batch windows) with seeded e5-base weights on ``device`` (``cuda``
     unless the caller asks for another)."""
     from generativeaiexamples_tpu_torch.core.config import get_config
+    from generativeaiexamples_tpu_torch.observability.bootstrap import (
+        init_observability)
+    init_observability("encoder")
     cfg = get_config()
     names = {}
     if embedder is None and reranker is None:

@@ -124,7 +124,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from generativeaiexamples_tpu_torch.core import kv_wire
+from generativeaiexamples_tpu_torch.core import kv_wire, perfmodel
 from generativeaiexamples_tpu_torch.core.config import EngineConfig
 from generativeaiexamples_tpu_torch.core.runtime import resolve_device
 from generativeaiexamples_tpu_torch.engine import grammar as grammar_mod
@@ -138,6 +138,7 @@ from generativeaiexamples_tpu_torch.ops import sampling, threefry
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
 from generativeaiexamples_tpu_torch.ops.cuda import lora as lora_kernels
 from generativeaiexamples_tpu_torch.ops.cuda import quant as quant_kernels
+from generativeaiexamples_tpu_torch.observability.devtime import DEVTIME
 from generativeaiexamples_tpu_torch.ops.speculative import (
     acceptance, draft_lookup)
 
@@ -495,6 +496,16 @@ class EngineCore:
         # decode_multi takes (() when off); warmup runs every one
         self.decode_depths = depth_ladder(engine_cfg)
         self.multi_ms = multi_ladder(engine_cfg)
+        # the device-time ledger's gate (observability/devtime.py): the
+        # bare env APP_DEVTIME wins, else engine.devtime; a bad value fails
+        # at init. A CUDA device arms the ledger's timing events
+        dv = (os.environ.get("APP_DEVTIME", "").strip().lower()
+              or str(getattr(engine_cfg, "devtime", "off")
+                     or "off").strip().lower())
+        if dv not in ("off", "sample", "on"):
+            raise ValueError(f"engine.devtime (APP_DEVTIME) must be "
+                             f"off|sample|on, got {dv!r}")
+        DEVTIME.configure(mode=dv, device=self.device)
         # prompt-lookup speculative decoding: every decode step widens to a
         # rung of the width ladder; spec_width is the ceiling, which sizes
         # the mixed program's q_block and the scheduler's page horizon
@@ -609,6 +620,13 @@ class EngineCore:
         self.n_params = quant_ops.n_params(params)
         self.param_bytes = quant_ops.weight_bytes(
             self.n_params, self.quant, self.model_cfg.torch_dtype.itemsize)
+        # the analytic envelope on this card (core/perfmodel.py): the
+        # devtime ledger's live MFU / HBM gauges, the host tier's pricing
+        # and the watchdog's dispatch bound read it; no peaks on the CPU
+        peak_flops, peak_bw = perfmodel.chip_peaks(self.device)
+        self.perf_model = perfmodel.PerfModel(
+            n_params=self.n_params, param_bytes=float(self.param_bytes),
+            peak_flops=peak_flops, peak_bw=peak_bw)
         if self.quant == "int8":
             params = quant_ops.quantize_params(params, donate=True)
             logger.info("serving with int8 weight-only quantization")
@@ -1293,6 +1311,24 @@ class EngineCore:
     # tokens cover any practical stop string's first contributing token
     STOP_RING = 8
 
+    def decode_bucket(self, steps: int, spec_width: Optional[int] = None,
+                      width: Optional[int] = None) -> str:
+        """The reference's ledger bucket of a pure-decode program shape:
+        width parts appear only where that ladder has more than one rung,
+        so the scheduler's commits and warmup's marks share one key
+        space."""
+        parts = [f"s{steps}"]
+        if len(self.spec_widths) > 1:
+            parts.append(f"w{spec_width or self.spec_widths[-1]}")
+        if len(self.decode_widths) > 1:
+            parts.append(f"b{width or self.batch}")
+        return "".join(parts)
+
+    def mixed_bucket(self, group: int, steps: int) -> str:
+        """The reference's ledger bucket of a mixed dispatch: it runs the
+        full batch at the ceiling width, so (G, K) is its key."""
+        return f"g{group}s{steps}"
+
     def decode_multi_bucket(self, steps: int, m: int) -> str:
         """The reference's ledger bucket of a multi-step dispatch: it runs
         the base K at the full batch and width 1, so (K, M) is its key."""
@@ -1823,6 +1859,7 @@ class EngineCore:
 
         for g in self.group_buckets:
             state, _ = self.prefill_group(state, items(g, lambda i: True))
+            DEVTIME.mark_warm("prefill", f"g{g}")
         if self.role == "prefill":
             # a prefill worker never dispatches decode
             if gram_start:
@@ -1831,27 +1868,41 @@ class EngineCore:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return time.perf_counter() - t0
+        # the compile-watch (observability/devtime.py) marks every program
+        # shape visited here: its first serving dispatch is not counted in
+        # engine_recompiles_total; shapes left cold are
         for depth in self.decode_depths:
             for wi in self.spec_widths:
                 for bw in self.decode_widths:
                     state, _ = self.decode(state, table, depth,
                                            spec_width=wi, width=bw)
+                    DEVTIME.mark_warm("decode",
+                                      self.decode_bucket(depth, wi, bw))
         for mi in self.multi_ms:       # at the base K only
             state, _ = self.decode_multi(state, table, m=mi)
+            DEVTIME.mark_warm("decode_multi",
+                              self.decode_multi_bucket(steps, mi))
         if self.mixed_supported:
             for g in self.group_buckets:
                 state, _ = self.decode_mixed(
                     state, table, steps,
                     items(min(g, self.batch), lambda i: bool(i % 2)))
+                DEVTIME.mark_warm("mixed", self.mixed_bucket(
+                    next(b for b in self.group_buckets
+                         if min(g, self.batch) <= b), steps))
         if gram_start:
             state, _ = self.prefill_group(state, items(1, lambda i: True,
                                                        gram_start))
             state, _ = self.decode(state, table, steps, True, True)
+            DEVTIME.mark_warm("decode+gram+top", self.decode_bucket(
+                steps, self.spec_widths[-1], self.batch))
             if self.mixed_supported:
                 state, _ = self.decode_mixed(
                     state, table, steps,
                     items(min(2, self.batch), lambda i: bool(i % 2),
                           gram_start), True, True)
+                DEVTIME.mark_warm("mixed+gram+top",
+                                  self.mixed_bucket(2, steps))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         del state

@@ -29,22 +29,21 @@ pool by the page-chain hashes the device prefix cache computes
     RAM eviction demotes instead of dropping. A frame that fails its crc32
     is a loud error and the entry dies: it is never served.
 
-Departures from the reference, each because a plane it reads is not ported:
+Pricing and counters, as there: ``_recompute_cost`` prices an entry by
+``core/perfmodel``'s prefill-seconds estimate when the card's peaks are
+known (the engine's ``perf_model``, the H100's), by its token count
+otherwise (the CPU). The pools count into ``core/metrics.REGISTRY``
+(``kv_spill_total{outcome}``, ``kv_tier_total{outcome}``,
+``kv_tier_probe_total{outcome}`` and the ``kv_spill_bytes`` /
+``kv_tier_*`` gauges) and, beside it, into the ``stats`` dict they are
+given (the scheduler's: ``kv_spill_<outcome>``, ``kv_tier_<outcome>``,
+``kv_tier_probe_<hit|miss>``). The lock is ``lockwatch.tracked_lock``.
 
-  * **No perf model.** ``_recompute_cost`` prices an entry by its token
-    count, the reference's own fallback when its ``perf_model`` is absent.
-    The prefill-seconds estimate needs the H100's peaks, which come with
-    ``core/perfmodel.py`` (ROADMAP A.10); no TPU peak enters the port.
-  * **No QoS plane.** Every contributor counts as maximally slack (the
-    reference's reading of an undated request), so the reference's slack
-    factor is 1 for every entry and drops out of the price; its tenant
-    victim bias (``set_victim_bias``) waits for the plane too (ROADMAP
-    A.10).
-  * **Counters.** The reference counts into its metrics registry, which the
-    engine lacks until ROADMAP A.10. The pools count into the ``stats`` dict
-    they are given (the scheduler's): ``kv_spill_<outcome>``,
-    ``kv_tier_<outcome>`` and ``kv_tier_probe_<hit|miss>``.
-  * ``tracked_lock`` (the lock watchdog's) is a plain ``threading.Lock``.
+The one departure: the QoS plane is not ported (ROADMAP A.10, second
+part). Every contributor counts as maximally slack (the reference's
+reading of an undated request), so the reference's slack factor is 1 for
+every entry and drops out of the price, and its tenant victim bias
+(``set_victim_bias``) waits for the plane.
 """
 
 from __future__ import annotations
@@ -60,6 +59,9 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from generativeaiexamples_tpu_torch.core import clock, kv_wire
+from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
+from generativeaiexamples_tpu_torch.observability.lockwatch import (
+    tracked_lock)
 
 logger = logging.getLogger(__name__)
 
@@ -141,7 +143,7 @@ class KVSpillPool:
     def __init__(self, budget_bytes: int,
                  stats: Optional[Dict[str, int]] = None) -> None:
         self.budget_bytes = int(budget_bytes)
-        self._lock = threading.Lock()
+        self._lock = tracked_lock("kv_tier._lock")
         self._bytes: Dict[str, int] = {}
         self._used = 0
         self._stats = stats if stats is not None else {}
@@ -160,8 +162,23 @@ class KVSpillPool:
             return len(self._bytes)
 
     def _count(self, outcome: str, plane: str = "spill") -> None:
+        """Count one outcome into the registry and the stats dict, and
+        refresh the occupancy gauges."""
         key = f"kv_{plane}_{outcome}"
         self._stats[key] = self._stats.get(key, 0) + 1
+        if plane == "spill":
+            REGISTRY.counter("kv_spill_total",
+                             labels={"outcome": outcome}).inc()
+        elif plane == "tier":
+            REGISTRY.counter("kv_tier_total",
+                             labels={"outcome": outcome}).inc()
+        else:
+            REGISTRY.counter("kv_tier_probe_total",
+                             labels={"outcome": outcome}).inc()
+        self._gauge()
+
+    def _gauge(self) -> None:
+        REGISTRY.gauge("kv_spill_bytes").set(self._used)
 
     def admit(self, rid: str, payload: Dict[str, Any]) -> bool:
         """Charge ``payload``'s bytes to the pool; False when over budget
@@ -237,8 +254,12 @@ class PrefixKVTier(KVSpillPool):
                  disk_budget_bytes: int = 0,
                  disk_dir: Optional[str] = None,
                  half_life_s: float = 300.0,
+                 perf_model: Any = None,
                  stats: Optional[Dict[str, int]] = None) -> None:
         super().__init__(budget_bytes, stats)
+        # core/perfmodel.PerfModel of the engine: prices entries in
+        # prefill seconds where the card's peaks are known
+        self._perf = perf_model
         self._entries: Dict[bytes, _TierEntry] = {}
         self._by_hash: Dict[bytes, Tuple[bytes, int]] = {}
         self._rid_link: Dict[str, bytes] = {}
@@ -291,11 +312,22 @@ class PrefixKVTier(KVSpillPool):
 
     # --------------------------------------------------------------- pricing
 
-    @staticmethod
-    def _recompute_cost(tokens: int) -> float:
-        """What re-prefilling ``tokens`` would cost, priced by the token
-        count (relative ordering is what eviction needs)."""
-        return float(tokens)
+    def _gauge(self) -> None:
+        REGISTRY.gauge("kv_spill_bytes").set(self._used)
+        REGISTRY.gauge("kv_tier_bytes").set(self._cached)
+        REGISTRY.gauge("kv_tier_entries").set(len(self._entries))
+        if self.disk_budget_bytes:
+            REGISTRY.gauge("kv_tier_disk_bytes").set(self._disk_used)
+
+    def _recompute_cost(self, tokens: int) -> float:
+        """What re-prefilling ``tokens`` would cost: core/perfmodel's
+        prefill-seconds estimate when the card's peaks are known, the
+        token count itself otherwise (relative ordering is what eviction
+        needs, and an unknown denominator must never price every entry
+        at zero)."""
+        fn = getattr(self._perf, "prefill_seconds", None)
+        est = fn(tokens) if fn is not None else None
+        return float(est) if est is not None else float(tokens)
 
     def _score_locked(self, e: _TierEntry, now: float) -> float:
         """Eviction value (lower evicts first): recompute cost × recency
@@ -656,8 +688,8 @@ _POOL: Optional[KVSpillPool] = None
 def register_pool(pool: Optional[KVSpillPool]) -> None:
     """Record the serving scheduler's spill pool / prefix tier so a
     process-global surface can read its occupancy without holding a
-    scheduler reference (the reference's flight dump; ROADMAP A.10 ports
-    it). The last one constructed wins (one serving scheduler a process;
+    scheduler reference (the flight recorder's dump,
+    ``observability/flight.py``). The last one constructed wins (one serving scheduler a process;
     test schedulers overwrite freely)."""
     global _POOL
     _POOL = pool

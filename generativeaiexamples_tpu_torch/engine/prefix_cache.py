@@ -25,9 +25,10 @@ Design (page-granular, immutable, no copy-on-write), as there:
 
 ``chain_hashes`` is byte-identical to the reference's (blake2b-128 over
 4-byte little-endian ids, seeded by ``str(seed)``), so the two packages
-name the same pages alike. The reference's metrics-registry counters are
-the allocator's integer attributes ``evictions`` and ``inserted_pages``
-here; the scheduler folds them into its stats.
+name the same pages alike. The allocator counts ``prefix_evictions`` and
+``prefix_inserted_pages`` into ``core/metrics.REGISTRY``, as there, and
+into its integer attributes ``evictions`` and ``inserted_pages``, which
+the scheduler folds into its stats.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from __future__ import annotations
 import hashlib
 from collections import OrderedDict, deque
 from typing import Dict, Iterable, List, Optional, Sequence
+
+from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
 
 
 def chain_hashes(ids: Sequence[int], page_size: int, seed=0) -> List[bytes]:
@@ -106,6 +109,7 @@ class CachingAllocator:
                 h = self._page_to_hash.pop(p)
                 del self._hash_to_page[h]
                 self.evictions += 1
+                REGISTRY.counter("prefix_evictions").inc()
             self._refs[p] = 1
             out.append(p)
         return out
@@ -168,3 +172,4 @@ class CachingAllocator:
             self._hash_to_page[h] = p
             self._page_to_hash[p] = h
             self.inserted_pages += 1
+            REGISTRY.counter("prefix_inserted_pages").inc()

@@ -94,9 +94,27 @@ every prompt; ``_admit_tier`` imports the covered pages and prefills only
 the tail. ``load_stats`` carries the tier's hot-set advert and
 ``prefix_key_hex`` the ``X-KV-Prefix`` header's hash.
 
-Not ported: QoS, SLO, metrics and flight planes (A.10). Dispatch, speculation,
-prefix-cache, admission, pipelining, fetch, handoff, evacuation and spill
-counters live in ``Scheduler.stats``.
+The host planes, as there: the reference's counters, gauges and
+histograms go to ``core/metrics.REGISTRY`` under its names, beside
+``Scheduler.stats`` (whose keys the card smoke and ``/health`` read; a
+stats key with a registry counter of the same name moves with it, and
+``host_fetches`` with ``engine_host_fetches_total``). A request carries
+its SLO class and deadline (``slo.stamp_request`` at submission), its
+tenant and its KV page-seconds; every terminal event (finish, failure,
+evacuation, driver reset) judges it (``SLO.observe``), bills it
+(``USAGE.bill_request``) and records its timeline (``REQUEST_LOG``)
+before the stream ends. Under critical SLO pressure pending sheddable
+requests are shed at admission. ``TRACE`` records admission, dispatch,
+preemption, spill, promotion, migration and finish; ``DEVTIME`` keys
+every dispatch (``prefill``, ``decode[+gram][+top]``, ``mixed``,
+``decode_multi`` with its deferred census, ``kv_import``, ``kv_export``)
+and counts every result fetch at the ``HostCopy`` seam; ``FLIGHT``
+samples the scheduler's state every ``APP_FLIGHT_INTERVAL_MS``; the
+chaos plane's page, spill and tick faults fire at their seams. The
+driver stamps ``last_tick_mono`` every loop and each in-flight dispatch
+its issue instant and steps (``_Dispatch.issued``): the engine watchdog
+(``engine/watchdog.py``) reads both. Not ported: the QoS admission plane
+and the forensics plane (ROADMAP A.10, second part).
 """
 
 from __future__ import annotations
@@ -109,7 +127,6 @@ import os
 import queue
 import random
 import threading
-import time
 import uuid
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
@@ -117,6 +134,8 @@ from typing import Deque, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from generativeaiexamples_tpu_torch.core import clock
+from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
 from generativeaiexamples_tpu_torch.engine.engine import (
     EngineCore, HostCopy, PrefillItem, bits_to_f32, unpack_decode_out)
 from generativeaiexamples_tpu_torch.engine import kv_tier as kv_tier_mod
@@ -125,6 +144,16 @@ from generativeaiexamples_tpu_torch.engine.kv_tier import (
 from generativeaiexamples_tpu_torch.engine.prefix_cache import chain_hashes
 from generativeaiexamples_tpu_torch.engine.tokenizer import (
     IncrementalDetokenizer, Tokenizer)
+from generativeaiexamples_tpu_torch.observability import chaos as chaos_mod
+from generativeaiexamples_tpu_torch.observability import slo as slo_mod
+from generativeaiexamples_tpu_torch.observability import usage as usage_mod
+from generativeaiexamples_tpu_torch.observability.devtime import (
+    DEVTIME, pow2_bucket)
+from generativeaiexamples_tpu_torch.observability.flight import (
+    FLIGHT, REQUEST_LOG)
+from generativeaiexamples_tpu_torch.observability.lockwatch import (
+    tracked_lock)
+from generativeaiexamples_tpu_torch.observability.trace import TRACE
 
 logger = logging.getLogger(__name__)
 
@@ -184,9 +213,24 @@ class Request:
     prefill_only: bool = False
     handoff: Optional[dict] = None
     kv_import_s: Optional[float] = None
+    # SLO plane (observability/slo.py): the serving class ("" = the
+    # configured default, stamped at submission), the remaining end-to-end
+    # budget in seconds, the W3C trace id breach records link on, and the
+    # verdict (slo_outcome: a preset such as "shed" that overrides judging)
+    slo_class: str = ""
+    deadline_s: Optional[float] = None
+    trace_id: str = ""
+    slo_outcome: Optional[str] = None
+    slo: Optional[dict] = None
+    # usage plane (observability/usage.py): the tenant billed ("" = anon)
+    # and the KV pages held x seconds, stamped at every page-count change
+    tenant: str = ""
+    kv_page_seconds: float = 0.0
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
-    submitted_at: float = field(default_factory=time.perf_counter)
+    # the timeline (observability/flight.py renders it); every stamp is on
+    # the injected perf clock (core/clock.py)
+    submitted_at: float = field(default_factory=clock.perf)
     admitted_at: Optional[float] = None
     prefill_start_at: Optional[float] = None
     first_token_at: Optional[float] = None
@@ -254,6 +298,8 @@ class _Job:
     # covered tokens); _admit_tier imports the covered pages and the
     # chunked prefill starts at the boundary. Recomputed every plan
     tier_plan: Optional[tuple] = None
+    page_clock: float = 0.0       # the usage plane's page-second stamp
+    prefill_started: float = 0.0  # first chunk dispatched (prefill_s)
 
 
 @dataclass
@@ -268,6 +314,12 @@ class _Dispatch:
     active_map: Dict[int, _Job]
     positions: int
     w_disp: int
+    # (issue instant on the mono clock, steps): the watchdog's hung-
+    # dispatch bound reads the head entry's age
+    issued: tuple = (0.0, 0)
+    # a multi-step dispatch's deferred devtime census key:
+    # (program, bucket, padded tokens)
+    census: Optional[tuple] = None
 
 
 class Scheduler:
@@ -276,7 +328,7 @@ class Scheduler:
     def __init__(self, core: EngineCore, tokenizer: Tokenizer) -> None:
         self.core = core
         self.tokenizer = tokenizer
-        self._lock = threading.Lock()
+        self._lock = tracked_lock("scheduler._lock")
         self._pending: Deque[_Job] = deque()
         self._prefilling: Deque[_Job] = deque()
         self._slots: Dict[int, _Job] = {}
@@ -328,12 +380,18 @@ class Scheduler:
         # each live slot's snapshot in the outbox, count-capped and
         # expired after APP_EVAC_TTL_S (device-native snapshots hold card
         # memory)
-        self._evac_lock = threading.Lock()
+        self._evac_lock = tracked_lock("scheduler._evac_lock")
         self._evac_reqs: List[dict] = []
         self._evac_outbox: "OrderedDict[str, tuple]" = OrderedDict()
         self._evac_outbox_cap = 64
         self._evac_ttl_s = float(os.environ.get("APP_EVAC_TTL_S", "")
                                  or 120.0)
+        # tick heartbeat for the engine watchdog (engine/watchdog.py): the
+        # driver stamps this every loop iteration
+        self.last_tick_mono = clock.mono()
+        # the last dispatch's active over padded query rows (the flight
+        # recorder's ragged_row_util)
+        self._ragged_row_util = 0.0
         # counts read by chip_smoke.py and /health: dispatches, mixed
         # dispatches, widened decode steps (W > 1), accepted drafts
         # (spec_bonus_tokens) over slot-steps that emitted (spec_base_steps),
@@ -391,6 +449,7 @@ class Scheduler:
             if tier_mode(core.cfg) == "prefix":
                 self._tier = PrefixKVTier(
                     budget, disk_budget_bytes=tier_disk_bytes(core.cfg),
+                    perf_model=getattr(core, "perf_model", None),
                     stats=self.stats)
                 self._spill = self._tier
             else:
@@ -402,6 +461,11 @@ class Scheduler:
     def start(self) -> None:
         if self._running:
             return
+        # the devtime plane gets this engine's perf model (live MFU / HBM
+        # gauges) and closes the warm window: program keys first seen from
+        # here on count as engine_recompiles_total
+        DEVTIME.attach_perf(getattr(self.core, "perf_model", None))
+        DEVTIME.mark_serving()
         self._running = True
         self._thread = threading.Thread(target=self._loop, name="engine-driver",
                                         daemon=True)
@@ -429,12 +493,27 @@ class Scheduler:
             request.seed = random.getrandbits(31)
         else:
             request.seed = int(request.seed) & 0x7FFFFFFF
+        # the SLO class and deadline: explicit fields, else the ambient
+        # admission context, else the default class's full budget
+        slo_mod.stamp_request(request, slo_class=request.slo_class or None,
+                              deadline_s=request.deadline_s)
         job = _Job(request=request,
                    detok=IncrementalDetokenizer(self.tokenizer),
                    ids=list(request.prompt_ids))
         with self._lock:
             self._pending.append(job)
         self._wake.set()
+        REGISTRY.counter("requests_submitted").inc()
+        if TRACE.enabled:
+            self._trace("submit", request,
+                        prompt_tokens=len(request.prompt_ids),
+                        max_tokens=request.max_tokens,
+                        slo=request.slo_class,
+                        deadline_s=request.deadline_s,
+                        prefix=self.prefix_key_hex(request.prompt_ids,
+                                                   request.adapter or ""),
+                        est_cost_s=self._est_cost_s(len(request.prompt_ids),
+                                                    request.max_tokens))
         return request
 
     def submit_prefilled(self, request: Request, payload: dict) -> Request:
@@ -449,6 +528,17 @@ class Scheduler:
         if request.seed is None:
             request.seed = int(payload.get("seed", 0) or 0)
         request.seed = int(request.seed) & 0x7FFFFFFF
+        # the payload's class/deadline/tenant ride the handoff; explicit
+        # request fields win
+        if not request.slo_class and payload.get("slo_class"):
+            request.slo_class = str(payload["slo_class"])
+        if request.deadline_s is None and \
+                payload.get("deadline_s") is not None:
+            request.deadline_s = float(payload["deadline_s"])
+        if not request.tenant and payload.get("tenant"):
+            request.tenant = str(payload["tenant"])
+        slo_mod.stamp_request(request, slo_class=request.slo_class or None,
+                              deadline_s=request.deadline_s)
         job = _Job(request=request,
                    detok=IncrementalDetokenizer(self.tokenizer),
                    ids=list(request.prompt_ids))
@@ -466,8 +556,38 @@ class Scheduler:
         with self._lock:
             self._pending.append(job)
         self.stats["kv_handoff_submitted"] += 1
+        REGISTRY.counter("requests_submitted").inc()
+        REGISTRY.counter("kv_handoff_submitted").inc()
         self._wake.set()
+        if TRACE.enabled:
+            self._trace("submit", request,
+                        prompt_tokens=len(request.prompt_ids),
+                        max_tokens=request.max_tokens,
+                        slo=request.slo_class,
+                        deadline_s=request.deadline_s, path="handoff",
+                        resume=bool(payload.get("resume")))
         return request
+
+    def _est_cost_s(self, prompt_tokens: int, max_tokens: int) -> float:
+        """Perf-model estimate of a request's device seconds (the trace's
+        ``est_cost_s``): its prefill at the card's matmul peak plus one
+        weight read a token; 0.0 where the peaks are unknown."""
+        pm = getattr(self.core, "perf_model", None)
+        try:
+            if pm is None or not pm.peak_flops or not pm.peak_bw:
+                return 0.0
+            per_tok = pm.weight_read_bytes(1) / pm.peak_bw
+            return round((pm.prefill_seconds(prompt_tokens) or 0.0)
+                         + max(1, max_tokens) * per_tok, 6)
+        except (AttributeError, TypeError):
+            return 0.0
+
+    def _trace(self, kind: str, req: Request, **fields) -> None:
+        """One fleet-trace record (observability/trace.py) of a
+        request-scoped event. Callers guard with ``TRACE.enabled``, so the
+        off mode costs one attribute read."""
+        TRACE.emit(kind, rid=req.request_id,
+                   tenant=str(getattr(req, "tenant", "") or ""), **fields)
 
     def iter_text(self, request: Request) -> Iterator[str]:
         """Blocking iterator over the request's text deltas."""
@@ -493,6 +613,10 @@ class Scheduler:
         with self._lock:
             waiting = len(self._pending)
         prompted = self.stats["prefix_prompt_tokens"]
+        hits = REGISTRY.counter("prefix_hit_tokens").value
+        prompted_all = REGISTRY.counter("prefix_prompt_tokens").value
+        REGISTRY.gauge("prefix_hit_frac").set(
+            round(hits / prompted_all, 4) if prompted_all else 0.0)
         return {"engine_role": self._role, "running": len(self._slots),
                 "prefilling": len(self._prefilling), "waiting": waiting,
                 "batch": self.core.batch, "kv_dtype": self.core.kv_dtype,
@@ -546,11 +670,22 @@ class Scheduler:
         self._pending_steps = 0
         self._first_fetches = []
         self._holding = False
+        now = clock.perf()
         for job in jobs:
             job.request.error = reason
-            job.request.finished_at = time.perf_counter()
+            if job.request.finished_at is None:
+                job.request.finished_at = now
+            REGISTRY.counter("requests_failed").inc()
+            REGISTRY.counter("requests_finished",
+                             labels={"finish": "error"}).inc()
+            slo_mod.SLO.observe(job.request)
+            # page-seconds close before the pool rebuild below
+            self._bill_pages(job)
+            job.page_clock = 0.0
             # spilled host buffers die with their job
             self._drop_spill(job)
+            usage_mod.USAGE.bill_request(job.request)
+            REQUEST_LOG.record(job.request)
             job.request.out_queue.put(_STOP)
         self._alloc = self.core.new_allocator()
         self._free = list(range(self.core.batch))
@@ -563,9 +698,23 @@ class Scheduler:
             entry["result"] = {"error": reason}
             entry["event"].set()
 
+    def _bill_pages(self, job: _Job) -> None:
+        """Add the job's KV page-seconds (pages held x seconds) to its
+        request and restamp the clock: called at every page-count change
+        (admission, growth, release, export), so the usage plane's vector
+        integrates exactly the pages the job held. A stopped clock (0.0)
+        only restamps: admission starts billing that way."""
+        now = clock.perf()
+        if job.page_clock and job.pages:
+            job.request.kv_page_seconds += (len(job.pages)
+                                            * (now - job.page_clock))
+        job.page_clock = now
+
     def _release(self, job: _Job) -> None:
         """Return the job's slot and pages to the pools (its device row is
         already inactive)."""
+        self._bill_pages(job)
+        job.page_clock = 0.0      # billing stops with the hold
         if job.slot >= 0:
             heapq.heappush(self._free, job.slot)
             self._table[job.slot, :] = 0
@@ -591,7 +740,32 @@ class Scheduler:
         elif tail:
             req.out_queue.put(tail)
         job.stop_buf = ""
-        req.finished_at = time.perf_counter()
+        # stamp, judge, bill and log before the stream ends: a client that
+        # reads [DONE] and polls /debug/requests/<id> at once finds it
+        req.finished_at = clock.perf()
+        REGISTRY.counter("requests_completed").inc()
+        REGISTRY.counter("requests_finished",
+                         labels={"finish": req.finish_reason or "unknown"}
+                         ).inc()
+        REGISTRY.histogram("request_latency_s").observe(
+            req.finished_at - req.submitted_at)
+        if TRACE.enabled:
+            self._trace("finish", req,
+                        finish=req.finish_reason or "unknown",
+                        completion_tokens=len(job.gen_ids),
+                        prompt_tokens=len(req.prompt_ids),
+                        e2e_s=round(req.finished_at - req.submitted_at, 6),
+                        ttft_s=(round(req.first_token_at
+                                      - req.submitted_at, 6)
+                                if req.first_token_at else None),
+                        preemptions=req.preemptions,
+                        prefix_hit_tokens=req.prefix_hit_tokens,
+                        tier_hit_tokens=req.tier_hit_tokens)
+        slo_mod.SLO.observe(req)
+        self._bill_pages(job)
+        job.page_clock = 0.0
+        usage_mod.USAGE.bill_request(req)
+        REQUEST_LOG.record(req)
         req.out_queue.put(_STOP)
         # decode-written pages join the prefix cache before release: a
         # follow-up turn whose prompt embeds this one re-admits against them
@@ -601,8 +775,22 @@ class Scheduler:
 
     def _fail(self, job: _Job, reason: str) -> None:
         job.request.error = reason
-        job.request.finished_at = time.perf_counter()
+        job.request.finished_at = clock.perf()
+        REGISTRY.counter("requests_failed").inc()
+        REGISTRY.counter("requests_finished", labels={"finish": "error"}).inc()
+        if TRACE.enabled:
+            self._trace("finish", job.request, finish="error",
+                        error=reason[:200],
+                        completion_tokens=len(job.gen_ids),
+                        prompt_tokens=len(job.request.prompt_ids))
+        slo_mod.SLO.observe(job.request)
+        # page-seconds close before billing: failure paths that still hold
+        # pages release after this call
+        self._bill_pages(job)
+        job.page_clock = 0.0
         self._drop_spill(job)
+        usage_mod.USAGE.bill_request(job.request)
+        REQUEST_LOG.record(job.request)
         job.request.out_queue.put(_STOP)
 
     def _table_device(self):
@@ -617,7 +805,11 @@ class Scheduler:
 
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
         """The one page allocation of admission and decode growth; folds
-        the cached pages it reclaimed into ``stats``."""
+        the cached pages it reclaimed into ``stats``. The chaos plane's
+        forced exhaustion injects here, so a chaos run takes exactly the
+        paths an empty pool takes; APP_CHAOS=off is one attribute read."""
+        if chaos_mod.CHAOS.enabled and chaos_mod.CHAOS.page_fault():
+            return None
         before = getattr(self._alloc, "evictions", 0)
         pages = self._alloc.alloc(n)
         self.stats["prefix_evictions"] += (getattr(self._alloc, "evictions", 0)
@@ -714,6 +906,32 @@ class Scheduler:
         if n_full > 0:
             self._alloc.insert(job.page_hashes[:n_full], job.pages[:n_full])
 
+    def _shed_pending(self) -> None:
+        """Load shedding under critical error-budget burn
+        (observability/slo.py): while ``SLO.pressure()`` is ``critical``,
+        pending requests of a sheddable class are refused at admission.
+        Only fresh submissions shed: a preempted resume already streamed
+        tokens to its client."""
+        if slo_mod.SLO.pressure() != "critical":
+            return
+        with self._lock:
+            shed = [j for j in self._pending
+                    if not j.gen_ids and j.admit_seq == 0
+                    and slo_mod.SLO.resolve_or_default(
+                        j.request.slo_class).sheddable]
+            for job in shed:
+                self._pending.remove(job)
+        for job in shed:
+            job.request.slo_outcome = "shed"
+            if TRACE.enabled:
+                self._trace("qos", job.request, decision="shed",
+                            reason="slo_pressure")
+            REGISTRY.counter("slo_shed_total",
+                             labels={"class": job.request.slo_class}).inc()
+            self._fail(job, "shed: SLO pressure is critical (error budget "
+                            "burning); best-effort admission rejected — "
+                            "retry when pressure clears (/debug/slo)")
+
     def _admit(self) -> None:
         """Move pending jobs into the prefilling set while slots and pages
         last.
@@ -726,7 +944,9 @@ class Scheduler:
         ``_BYPASS_MAX`` admission is strict FIFO until the head admits, so
         small prompts cannot starve a big one. A prompt that can never be
         served fails at once; a preempted resume that outgrew the cache
-        ends at its current length."""
+        ends at its current length. Under critical SLO pressure sheddable
+        fresh submissions are refused first (``_shed_pending``)."""
+        self._shed_pending()
         while self._free:
             with self._lock:
                 cands = list(itertools.islice(self._pending,
@@ -765,6 +985,7 @@ class Scheduler:
                     chosen, plan = job, (need, shared, hits)
                     head.bypass_count += 1
                     self.stats["admission_skips"] += 1
+                    REGISTRY.counter("admission_skips").inc()
                     break
             if bad_adapter is not None:
                 # never serve base weights under a fine-tune's name
@@ -797,24 +1018,36 @@ class Scheduler:
             # are still there: acquire the hits, then the fresh pages
             if hits:
                 self._alloc.acquire(hits)
-            pages = list(hits) + self._alloc_pages(need)
+            fresh = self._alloc_pages(need)
+            if fresh is None:
+                # an injected exhaustion (the chaos plane): the head waits
+                # for the next tick, as for an empty pool
+                if hits:
+                    self._alloc.free(hits)
+                return
+            pages = list(hits) + fresh
             with self._lock:
                 self._pending.remove(job)
             slot = heapq.heappop(self._free)   # lowest id first
             job.slot, job.pages = slot, pages
+            # the page-second clock starts: a resume keeps accumulating on
+            # the same request
+            self._bill_pages(job)
             job.prefilled = job.total_len = job.shared = shared
             if job.request.admitted_at is None:
-                job.request.admitted_at = time.perf_counter()
+                job.request.admitted_at = clock.perf()
             if self._caching or self._tier is not None:
                 if shared:
                     job.request.prefix_hit_tokens += shared
                     self.stats["prefix_hit_tokens"] += shared
+                    REGISTRY.counter("prefix_hit_tokens").inc(shared)
                     if self._spec_w > 1:
                         # cache-hit chunks skip prefill, so the drafting
                         # history row is seeded here
                         self._state = self.core.seed_history(
                             self._state, slot, job.ids)
                 self.stats["prefix_prompt_tokens"] += len(job.ids)
+                REGISTRY.counter("prefix_prompt_tokens").inc(len(job.ids))
             if job.admit_seq == 0:
                 # resumes keep their admission age, so youngest-first
                 # preemption cannot thrash an old request
@@ -823,6 +1056,16 @@ class Scheduler:
             self._table[slot, :] = 0
             self._table[slot, :len(pages)] = pages
             self._table_dev = None
+            if TRACE.enabled:
+                self._trace("admit", job.request, slot=slot,
+                            pages=len(pages), shared_tokens=shared,
+                            resume=bool(job.gen_ids),
+                            waited_s=round(clock.perf()
+                                           - job.request.submitted_at, 6),
+                            path=("handoff" if job.preload is not None
+                                  else "spill" if job.spill is not None
+                                  else "tier" if job.tier_plan is not None
+                                  else "prefill"))
             if job.preload is not None:
                 self._admit_prefilled(job)
             elif job.spill is not None:
@@ -841,24 +1084,31 @@ class Scheduler:
         req = job.request
         payload = job.preload
         job.preload = None
-        now = time.perf_counter()
+        now = clock.perf()
         if req.prefill_start_at is None:
             req.prefill_start_at = now
+        t0 = DEVTIME.track()
         self._state = self.core.import_slot_kv(self._state, job.slot,
                                                job.pages, payload)
         job.prefilled = job.total_len = len(job.ids)
-        req.kv_import_s = round(time.perf_counter() - now, 6)
+        DEVTIME.commit("kv_import", f"p{self._import_bucket(payload)}",
+                       self._state.tokens, t0=t0, tokens=len(job.ids),
+                       mfu=False)
+        req.kv_import_s = round(clock.perf() - now, 6)
         self.stats["kv_handoff_imports"] += 1
+        REGISTRY.counter("kv_handoff_imports").inc()
         first = int(payload.get("first_token", self.core.eos_id))
         gen = max(1, int(payload.get("generated", 1)))
         resume = bool(payload.get("resume"))
         if resume:
             self.stats["snapshot_resumes"] += 1
+            REGISTRY.counter("snapshot_resumes").inc()
             req.snapshot_resumes += 1
         elif req.first_token_at is None:
             # the first token was sampled remotely and reaches this
             # worker's client now
             req.first_token_at = now
+            REGISTRY.histogram("ttft_s").observe(now - req.submitted_at)
         if first == self.core.eos_id and not resume:
             req.finish_reason = "eos"
             self._finish(job)
@@ -894,6 +1144,12 @@ class Scheduler:
         if not alive:
             req.finish_reason = "length"
             self._finish(job)
+
+    def _import_bucket(self, payload: dict, n_pages: int = 0) -> int:
+        """The ledger bucket of a KV import: its page count's power of two,
+        capped at a slot's pages (the reference's ``p<pages>`` keys)."""
+        n = n_pages or int(payload.get("n_pages", 1) or 1)
+        return min(pow2_bucket(max(1, n)), int(self.core.max_pages_per_slot))
 
     def _resume_stream_state(self, job: _Job, payload: dict, first: int,
                              alive: bool) -> None:
@@ -956,7 +1212,9 @@ class Scheduler:
                     break
                 span, top = max(span, pad), max(top, start)
                 if req.prefill_start_at is None:
-                    req.prefill_start_at = time.perf_counter()
+                    req.prefill_start_at = clock.perf()
+                if not job.prefill_started:
+                    job.prefill_started = clock.perf()
                 last = start + len(chunk_ids) >= len(job.ids)
                 items.append(PrefillItem(
                     chunk_ids=chunk_ids, page_row=self._table[job.slot],
@@ -970,10 +1228,28 @@ class Scheduler:
                 if last:
                     finals.append(job)
             job.prefilled = job.total_len = start
-        self._state, _ = self.core.prefill_group(self._state, items)
+        t_issue = clock.perf()
+        t0 = DEVTIME.track()
+        self._state, toks = self.core.prefill_group(self._state, items)
+        n_tok = sum(len(it.chunk_ids) for it in items)
+        # one ledger key per grouped-prefill bucket (the padded group size)
+        g_bucket = next(b for b in self.core.group_buckets
+                        if len(items) <= b)
+        DEVTIME.commit("prefill", f"g{g_bucket}", toks, t0=t0, tokens=n_tok,
+                       padded_tokens=g_bucket * self.core.chunk,
+                       weight_passes=1.0)
+        REGISTRY.histogram("prefill_issue_s").observe(clock.perf() - t_issue)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_chunks"] += len(items)
-        self.stats["prefill_tokens"] += sum(len(it.chunk_ids) for it in items)
+        REGISTRY.counter("prefill_chunks").inc(len(items))
+        self.stats["prefill_tokens"] += n_tok
+        if TRACE.enabled:
+            slots_hit = {it.slot for it in items}
+            TRACE.emit("dispatch", phase="prefill", chunks=len(items),
+                       tokens=n_tok, jobs=len(slots_hit),
+                       rids=",".join(j.request.request_id
+                                     for j in self._prefilling
+                                     if j.slot in slots_hit))
         for job in finals:
             self._prefilling.remove(job)
             # the prompt's pages are now write-dispatched: publish them
@@ -1048,8 +1324,14 @@ class Scheduler:
         job.first_pending = False
         job.first_batched = False
         req = job.request
+        now = clock.perf()
         if req.first_token_at is None:
-            req.first_token_at = time.perf_counter()
+            req.first_token_at = now
+            REGISTRY.histogram("ttft_s").observe(now - req.submitted_at)
+        if job.prefill_started:
+            # first chunk dispatched -> first token on the host
+            REGISTRY.histogram("prefill_s").observe(now - job.prefill_started)
+            job.prefill_started = 0.0
         if req.prefill_only:
             # a prefill_only request ends here: its pages and sampling
             # state are exported instead of decoded
@@ -1132,7 +1414,7 @@ class Scheduler:
         gather is issued before the slot's pages are freed, and its
         outputs are fresh tensors, so page reuse cannot reach them."""
         req = job.request
-        t0 = time.perf_counter()
+        t0 = DEVTIME.track()
         try:
             payload = self.core.export_slot_kv(self._state, job.pages,
                                                len(job.ids))
@@ -1145,6 +1427,7 @@ class Scheduler:
             return
         self._commit_export(payload, t0)
         self.stats["kv_handoff_exports"] += 1
+        REGISTRY.counter("kv_handoff_exports").inc()
         payload.update({
             "prompt_ids": [int(t) for t in job.ids],
             "first_token": int(first),
@@ -1161,11 +1444,19 @@ class Scheduler:
         self._state = self.core.release(self._state, job.slot)
         self._finish(job)
 
-    @staticmethod
-    def _commit_export(payload: dict, t0: float) -> None:
+    def _commit_export(self, payload: dict, t0: float) -> None:
         """The host seconds an export took to issue (device-native: the
-        gather is not waited for), riding the payload as ``export_s``."""
-        payload["export_s"] = round(time.perf_counter() - t0, 6)
+        gather is not waited for), riding the payload as ``export_s``,
+        the ``kv_export_s`` histogram and the ledger's ``kv_export`` key
+        (fenced on the gather's output when sampled)."""
+        export_s = round(clock.perf() - t0, 6)
+        payload["export_s"] = export_s
+        REGISTRY.histogram("kv_export_s").observe(export_s)
+        marker = payload.get("k")
+        DEVTIME.commit("kv_export", f"p{self._import_bucket(payload)}",
+                       marker, t0=t0,
+                       tokens=int(payload.get("length", 0) or 0),
+                       mfu=False, retain=False)
 
     @staticmethod
     def _sampling_scalars(req: Request) -> dict:
@@ -1176,7 +1467,12 @@ class Scheduler:
                 "temperature": float(req.temperature),
                 "top_k": int(req.top_k),
                 "top_p": float(req.top_p),
-                "stop": list(req.stop)}
+                "stop": list(req.stop),
+                # one logical request keeps its class, deadline and tenant
+                # across the disaggregated route
+                "slo_class": req.slo_class,
+                "deadline_s": req.deadline_s,
+                "tenant": req.tenant}
 
     @staticmethod
     def _grammar_scalars(job: _Job) -> dict:
@@ -1212,7 +1508,7 @@ class Scheduler:
         :meth:`_snapshot_eligible`."""
         req = job.request
         written = job.total_len - 1
-        t0 = time.perf_counter()
+        t0 = DEVTIME.track()
         payload = self.core.export_slot_kv(self._state, job.pages, written,
                                            fetch=fetch)
         self._commit_export(payload, t0)
@@ -1251,13 +1547,14 @@ class Scheduler:
     def _prune_outbox(self) -> None:
         """Expire outbox entries older than ``APP_EVAC_TTL_S`` (the caller
         holds ``_evac_lock``); insertion order is age order."""
-        now = time.monotonic()
+        now = clock.mono()
         while self._evac_outbox:
             rid, (_payload, parked) = next(iter(self._evac_outbox.items()))
             if now - parked <= self._evac_ttl_s:
                 break
             self._evac_outbox.popitem(last=False)
             self.stats["evacuation_snapshots_expired"] += 1
+            REGISTRY.counter("evacuation_snapshots_expired").inc()
             logger.warning("evacuation snapshot for %s expired unpulled "
                            "after %.0f s; its stream can only resume by "
                            "re-prefill now", rid, self._evac_ttl_s)
@@ -1318,6 +1615,8 @@ class Scheduler:
         def count(snapshot: bool, req: Request) -> None:
             kind = "snapshot" if snapshot else "reprefill"
             self.stats[f"evacuations_{kind}"] += 1
+            REGISTRY.counter("engine_evacuations_total",
+                             labels={"outcome": kind}).inc()
             summary[kind].append(req.request_id)
 
         for slot, job in list(self._slots.items()):
@@ -1362,6 +1661,9 @@ class Scheduler:
                 self._drop_spill(job, outcome="evacuated")
             count(payload is not None, job.request)
             self._finish_evacuated(job, payload)
+        FLIGHT.event("evacuation", reason=reason,
+                     snapshots=len(summary["snapshot"]),
+                     reprefills=len(summary["reprefill"]))
         return summary
 
     def _finish_evacuated(self, job: _Job, payload: Optional[dict]) -> None:
@@ -1375,12 +1677,22 @@ class Scheduler:
         if payload is not None:
             with self._evac_lock:
                 self._prune_outbox()
-                self._evac_outbox[req.request_id] = (payload,
-                                                     time.monotonic())
+                self._evac_outbox[req.request_id] = (payload, clock.mono())
                 self._evac_outbox.move_to_end(req.request_id)
                 while len(self._evac_outbox) > self._evac_outbox_cap:
                     self._evac_outbox.popitem(last=False)
-        req.finished_at = time.perf_counter()
+        req.slo_outcome = req.slo_outcome or "evacuated"
+        req.finished_at = clock.perf()
+        REGISTRY.counter("requests_finished",
+                         labels={"finish": "evacuated"}).inc()
+        if TRACE.enabled:
+            self._trace("migrate", req, snapshot=payload is not None,
+                        generated=len(job.gen_ids))
+        slo_mod.SLO.observe(req)
+        self._bill_pages(job)
+        job.page_clock = 0.0
+        usage_mod.USAGE.bill_request(req)
+        REQUEST_LOG.record(req)
         req.out_queue.put(_STOP)
         self._release(job)
 
@@ -1398,6 +1710,8 @@ class Scheduler:
         if self._spill is None or self._slots.get(job.slot) is not job \
                 or not self._snapshot_eligible(job):
             return False
+        if chaos_mod.CHAOS.enabled and chaos_mod.CHAOS.spill_fault():
+            return False   # injected pool exhaustion: recompute
         req = job.request
         try:
             payload = self.export_live_slot(job, fetch=True)
@@ -1418,13 +1732,18 @@ class Scheduler:
         # its KV moved. ids cover the written context and the pending token
         job.ids = list(req.prompt_ids) + list(job.gen_ids)
         job.prefilled = job.total_len = 0
+        job.prefill_started = 0.0
         with self._lock:
             self._pending.appendleft(job)
         req.preemptions += 1
         self.stats["preemptions"] += 1
+        REGISTRY.counter("preemptions").inc()
         logger.info("spilled request %s at %d generated tokens (%d bytes "
                     "on the host)", req.request_id, len(job.gen_ids),
                     self._spill.used_bytes)
+        if TRACE.enabled:
+            self._trace("spill", req, generated=len(job.gen_ids),
+                        pool_used_bytes=self._spill.used_bytes)
         return True
 
     def _tier_contribute(self, job: _Job, payload: dict) -> None:
@@ -1461,7 +1780,8 @@ class Scheduler:
         if payload is None:
             self._prefilling.append(job)
             return
-        now = time.perf_counter()
+        now = clock.perf()
+        t0 = DEVTIME.track()
         n_imp = covered // self.core.page_size
         try:
             self._state = self.core.import_pages_kv(
@@ -1475,12 +1795,20 @@ class Scheduler:
         finally:
             tier.checkin(key)
         job.prefilled = job.total_len = job.shared = covered
-        req.kv_import_s = round(time.perf_counter() - now, 6)
+        DEVTIME.commit("kv_import",
+                       f"p{self._import_bucket(payload, n_imp)}",
+                       self._state.tokens, t0=t0, tokens=covered, mfu=False)
+        req.kv_import_s = round(clock.perf() - now, 6)
         req.tier_hit_tokens += covered
         req.prefix_hit_tokens += covered
         self.stats["prefix_hit_tokens"] += covered
+        REGISTRY.counter("prefix_hit_tokens").inc(covered)
         self.stats["kv_tier_hit_tokens"] += covered
+        REGISTRY.counter("kv_tier_hit_tokens").inc(covered)
         tier.count_tier("promoted")
+        if TRACE.enabled:
+            self._trace("promote", req, source="tier",
+                        covered_tokens=covered, import_s=req.kv_import_s)
         if self._spec_w > 1:
             # promoted pages skip prefill, so the drafting history row is
             # seeded here, as for cache hits
@@ -1497,6 +1825,7 @@ class Scheduler:
         job.spill = None
         if self._spill is not None:
             self._spill.release(req.request_id, outcome="promoted")
+        t0 = DEVTIME.track()
         try:
             self._state = self.core.import_slot_kv(self._state, job.slot,
                                                    job.pages, payload)
@@ -1508,8 +1837,15 @@ class Scheduler:
             self._release(job)
             return
         job.prefilled = job.total_len = len(job.ids)
+        DEVTIME.commit("kv_import", f"p{self._import_bucket(payload)}",
+                       self._state.tokens, t0=t0, tokens=len(job.ids),
+                       mfu=False)
         self.stats["spill_resumes"] += 1
+        REGISTRY.counter("spill_resumes").inc()
         req.spill_resumes += 1
+        if TRACE.enabled:
+            self._trace("promote", req, source="spill",
+                        generated=len(job.gen_ids))
         if self._spec_w > 1:
             self._state = self.core.seed_history(self._state, job.slot,
                                                  job.ids)
@@ -1550,6 +1886,7 @@ class Scheduler:
                     break
                 got = self._alloc_pages(1)
                 if got is not None:
+                    self._bill_pages(job)   # the count changes now
                     self._table[slot, len(job.pages)] = got[0]
                     job.pages.extend(got)
                     self._table_dev = None
@@ -1596,13 +1933,18 @@ class Scheduler:
         self._release(job)
         job.ids = list(job.request.prompt_ids) + list(job.gen_ids)
         job.prefilled = job.total_len = 0
+        job.prefill_started = 0.0
         job.first_pending = job.first_batched = job.first_inflight = False
         with self._lock:
             self._pending.appendleft(job)
         job.request.preemptions += 1
         self.stats["preemptions"] += 1
+        REGISTRY.counter("preemptions").inc()
         logger.info("preempted request %s at %d generated tokens",
                     job.request.request_id, len(job.gen_ids))
+        if TRACE.enabled:
+            self._trace("preempt", job.request, mode="recompute",
+                        generated=len(job.gen_ids))
 
     # EMA smoothing of the acceptance signal, and the headroom between the
     # trailing accepted-drafts mean and the offered draft: cap = ceil(
@@ -1651,16 +1993,23 @@ class Scheduler:
             return
         em = out["emitted"].reshape(-1, w_disp, out["emitted"].shape[1])
         per_step = em.sum(axis=1)                       # (steps, B)
-        self.stats["spec_bonus_tokens"] += int(
-            np.maximum(per_step - 1, 0).sum())
-        self.stats["spec_base_steps"] += int((per_step > 0).sum())
+        bonus = int(np.maximum(per_step - 1, 0).sum())
+        base_steps = int((per_step > 0).sum())
+        self.stats["spec_bonus_tokens"] += bonus
+        self.stats["spec_base_steps"] += base_steps
+        REGISTRY.counter("spec_bonus_tokens").inc(bonus)
+        REGISTRY.counter("spec_base_steps").inc(base_steps)
+        accept_h = REGISTRY.histogram("spec_accept_len")
         a = self._SPEC_EMA_ALPHA
         for slot, job in active_map.items():
             col = per_step[:, slot]
             live = col > 0
             if not live.any():
                 continue
-            mean = float((col[live] - 1).mean())
+            accepted = col[live] - 1                    # drafts accepted
+            for v in accepted:
+                accept_h.observe(float(v))
+            mean = float(accepted.mean())
             if job.spec_ema < 0:
                 job.spec_ema = self._spec_ema_global
             job.spec_ema = (1 - a) * job.spec_ema + a * mean
@@ -1705,7 +2054,9 @@ class Scheduler:
             chunk_ids = job.ids[start:start + self.core.chunk]
             last = start + len(chunk_ids) >= len(job.ids)
             if req.prefill_start_at is None:
-                req.prefill_start_at = time.perf_counter()
+                req.prefill_start_at = clock.perf()
+            if not job.prefill_started:
+                job.prefill_started = clock.perf()
             # a grammared final samples its fused first token under the
             # DFA inside the mixed dispatch, as on the grouped path
             items.append(PrefillItem(
@@ -1825,6 +2176,8 @@ class Scheduler:
                        for j in self._slots.values())
         active_map = dict(self._slots)
         table = self._table_device()
+        t_issue = clock.perf()
+        t0 = DEVTIME.track()
         # first tokens whose batched fetch lands while the dispatch is being
         # issued stream at once; the finishes they cause wait for its end
         ended: List[tuple] = []
@@ -1845,8 +2198,11 @@ class Scheduler:
                 between_steps=between_steps)
             self.stats["mixed_dispatches"] += 1
             self.stats["prefill_chunks"] += len(items)
+            REGISTRY.counter("mixed_dispatches").inc()
+            REGISTRY.counter("prefill_chunks").inc(len(items))
             self.stats["prefill_tokens"] += sum(len(it.chunk_ids)
                                                 for it in items)
+            width = self.core.batch
         elif multi_m:
             # K·M plain steps at width 1 over the full batch, one block to
             # fetch. The union of the live stop strings builds the suspect
@@ -1867,6 +2223,7 @@ class Scheduler:
             self.stats["multi_dispatches"] += 1
             self.stats[f"multi_m_{multi_m}"] += 1
             self.stats[f"decode_width_{self.core.batch}"] += 1
+            width = self.core.batch
             steps *= multi_m
         else:
             if use_grammar or want_top:
@@ -1889,12 +2246,17 @@ class Scheduler:
             self.stats[key] = self.stats.get(key, 0) + 1
         if self._inflight:
             self.stats["overlapped_dispatches"] += 1
-        self._inflight.append(_Dispatch(HostCopy(out["packed"]), fresh,
-                                        active_map, steps * w_disp, w_disp))
+        census = self._commit_decode(out, t0, steps, multi_m, w_disp, caps,
+                                     width, use_grammar, want_top, packed)
+        self._note_decode_issue(t_issue, steps, width, w_disp, packed)
+        self._inflight.append(_Dispatch(self._fetch(out["packed"], steps),
+                                        fresh, active_map, steps * w_disp,
+                                        w_disp, issued=(clock.mono(), steps),
+                                        census=census))
         self._pending_steps += steps * w_disp
-        self.stats["host_fetches"] += 1
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += steps
+        REGISTRY.counter("decode_steps").inc(steps)
         if w_disp > 1:
             self.stats["spec_steps"] += steps
         if packed is not None:
@@ -1909,6 +2271,85 @@ class Scheduler:
         for job, end in ended:
             self._end_first(job, end)
 
+    def _fetch(self, packed, steps: int = 0) -> HostCopy:
+        """The one result-fetch seam: start a device tensor's copy to the
+        host (``engine.HostCopy``) and count it (``stats["host_fetches"]``
+        and the ledger's ``engine_host_fetches_total``; ``steps`` is the
+        decode steps the block carries, 0 for a first-token snapshot)."""
+        self.stats["host_fetches"] += 1
+        DEVTIME.note_fetch(steps)
+        if isinstance(packed, HostCopy):
+            return packed
+        return HostCopy(packed)
+
+    def _commit_decode(self, out, t0, steps: int, multi_m: int, w_disp: int,
+                       caps, width: int, use_grammar: bool, want_top: bool,
+                       packed) -> Optional[tuple]:
+        """The devtime ledger's entry of one decode dispatch, keyed by its
+        program shape as the reference keys it: grammar and top-logprob
+        variants split the program name, useful tokens are steps x active
+        slots x width (plus fused chunk tokens). A multi-step dispatch's
+        census is deferred to its result: returns its (program, bucket,
+        padded tokens)."""
+        suffix = (("+gram" if use_grammar else "")
+                  + ("+top" if want_top else ""))
+        if caps is None:
+            dec_useful = steps * len(self._slots) * w_disp
+        else:
+            dec_useful = steps * sum(1 + int(caps[s]) for s in self._slots)
+        if packed is not None:
+            items = packed[0]
+            g_bucket = next(b for b in self.core.group_buckets
+                            if len(items) <= b)
+            DEVTIME.commit(
+                f"mixed{suffix}", self.core.mixed_bucket(g_bucket, steps),
+                out["packed"], t0=t0,
+                tokens=dec_useful + sum(len(it.chunk_ids) for it in items),
+                padded_tokens=(steps * self.core.batch * w_disp
+                               + g_bucket * self.core.chunk),
+                weight_passes=float(steps))
+            return None
+        if multi_m:
+            base = steps // multi_m
+            bucket = self.core.decode_multi_bucket(base, multi_m)
+            DEVTIME.commit("decode_multi", bucket, out["packed"], t0=t0,
+                           tokens=0, padded_tokens=0,
+                           weight_passes=float(steps), defer_census=True)
+            return ("decode_multi", bucket, float(steps * self.core.batch))
+        DEVTIME.commit(f"decode{suffix}",
+                       self.core.decode_bucket(steps, w_disp, width),
+                       out["packed"], t0=t0, tokens=dec_useful,
+                       padded_tokens=steps * width * w_disp,
+                       weight_passes=float(steps))
+        return None
+
+    def _note_decode_issue(self, t_issue: float, steps: int, width: int,
+                           w_disp: int, packed) -> None:
+        """The issue-side gauges and histograms of a decode dispatch and
+        its trace record: active over padded query rows
+        (``ragged_row_util``), host issue seconds, batch fill."""
+        active_q = len(self._slots) * w_disp
+        padded_q = width * w_disp
+        if packed is not None:
+            items = packed[0]
+            g_bucket = next(b for b in self.core.group_buckets
+                            if len(items) <= b)
+            active_q += sum(len(it.chunk_ids) for it in items)
+            padded_q = (self.core.batch * self._spec_w
+                        + g_bucket * self.core.chunk)
+        self._ragged_row_util = active_q / padded_q if padded_q else 0.0
+        REGISTRY.gauge("ragged_row_util").set(round(self._ragged_row_util, 4))
+        REGISTRY.histogram("decode_issue_s").observe(clock.perf() - t_issue)
+        REGISTRY.histogram("decode_batch_fill").observe(
+            len(self._slots) / self.core.batch)
+        if TRACE.enabled:
+            TRACE.emit("dispatch", phase="decode", steps=steps,
+                       width=width, slots=len(self._slots),
+                       mixed=packed is not None,
+                       fill=round(len(self._slots) / self.core.batch, 4),
+                       rids=",".join(j.request.request_id
+                                     for j in self._slots.values()))
+
     def _process_decode(self) -> None:
         """Resolve the oldest dispatch in flight (waiting for its copy if
         it is still running) and fan out its (steps*W, width) micro-rows:
@@ -1916,7 +2357,15 @@ class Scheduler:
         tokens per slot a step."""
         entry = self._inflight.popleft()
         self._pending_steps -= entry.positions
+        t0 = clock.perf()
         out = unpack_decode_out(entry.result.result())
+        REGISTRY.histogram("sync_wait_s").observe(clock.perf() - t0)
+        REGISTRY.counter("tokens_generated").inc(int(out["emitted"].sum()))
+        if entry.census is not None:
+            # the deferred census: only rows the block emitted are useful
+            prog, bucket, padded = entry.census
+            DEVTIME.note_tokens(prog, bucket, float(out["emitted"].sum()),
+                                padded)
         self._note_acceptance(out, entry.w_disp, entry.active_map)
         for slot, job in entry.fresh:
             if self._slots.get(slot) is job:
@@ -1962,9 +2411,8 @@ class Scheduler:
             return
         for _, j, _e in waiting:
             j.first_batched = True
-        self._first_fetches.append((self.core.snapshot_tokens(self._state),
-                                    waiting))
-        self.stats["host_fetches"] += 1
+        self._first_fetches.append(
+            (self._fetch(self.core.snapshot_tokens(self._state)), waiting))
 
     def _resolve_first_fetches(self, defer: Optional[List[tuple]] = None
                                ) -> bool:
@@ -1992,11 +2440,46 @@ class Scheduler:
 
     # -- driver loop --------------------------------------------------------
 
+    def _flight_fields(self) -> Dict[str, object]:
+        """One flight-recorder sample of the scheduler's state, the
+        reference's fields (called only when a sample is due)."""
+        with self._lock:
+            waiting = len(self._pending)
+        free = int(self._alloc.available)
+        total = int(self.core.num_pages)
+        decodes = self.stats["decode_dispatches"]
+        return {
+            "fill": round(len(self._slots) / self.core.batch, 4),
+            "running": len(self._slots),
+            "prefilling": len(self._prefilling),
+            "waiting": waiting,
+            "inflight_dispatches": len(self._inflight),
+            "kv_pages_free": free,
+            "kv_pages_used": total - free,
+            "prefix_hit_tokens": REGISTRY.counter("prefix_hit_tokens").value,
+            "preemptions": REGISTRY.counter("preemptions").value,
+            "tokens_generated": REGISTRY.counter("tokens_generated").value,
+            "mixed_dispatch_frac": (round(self.stats["mixed_dispatches"]
+                                          / decodes, 4) if decodes else 0.0),
+            "ragged_row_util": round(self._ragged_row_util, 4),
+            "padding_waste_frac": round(DEVTIME.padding_waste(), 4),
+            "recompiles": REGISTRY.counter("engine_recompiles_total").value,
+            "devtime_attributed_s": round(DEVTIME.attributed_s(), 4),
+            "steps_per_fetch": round(DEVTIME.steps_per_fetch(), 2),
+        }
+
     def _tick(self) -> bool:
         """One scheduling round; False when fully idle."""
+        # the chaos plane's tick stall (what the watchdog's heartbeat
+        # detects) and worker death (the driver loop's crash path); off is
+        # one attribute read
+        if chaos_mod.CHAOS.enabled:
+            chaos_mod.CHAOS.tick_fault()
         # queued evacuations run first: the driver owns the device state,
         # and an evacuating worker's ticks move streams out
         worked = self._run_evacuations()
+        # the flight ring's time-gated sample (idle ticks sample too)
+        FLIGHT.maybe_sample(self._flight_fields)
         # results that already landed resolve now: first tokens stamp and
         # done slots free without waiting for the backpressure point
         while self._inflight and self._inflight[0].result.done():
@@ -2052,6 +2535,7 @@ class Scheduler:
 
     def _loop(self) -> None:
         while self._running:
+            self.last_tick_mono = clock.mono()
             try:
                 if not self._tick():
                     if self._first_fetches:
@@ -2065,6 +2549,7 @@ class Scheduler:
                 # fail loudly but keep serving: release every consumer and
                 # start from a clean device state
                 logger.exception("engine driver step failed; resetting state")
+                REGISTRY.counter("driver_errors").inc()
                 self._fail_all("engine error")
                 self._state = self.core.init_state()
         self._fail_all("scheduler stopped")

@@ -45,7 +45,28 @@ prompt's opening-page chain hash under the prefix-addressed host tier
 (``Scheduler.prefix_key_hex``), ``""`` when the tier is off or the prompt
 does not fill a page; ``/health`` carries the tier's hot-set advert.
 
-Not ported (ROADMAP A.10): drain, metrics and debug endpoints.
+The host planes, as there: ``GET /metrics`` (``server/common.py``'s
+content negotiation), the debug routes of ``server/common.DEBUG_ROUTES``
+(``/debug/flight``, ``/debug/requests[/<rid>]``, ``/debug/slo``,
+``/debug/devtime``, ``/debug/compiles``, ``/debug/chaos``,
+``/debug/deadletter``, ``/debug/usage``, ``/debug/fleet``,
+``/debug/trace``, ``/debug/locks``), and ``/health`` with
+``slo_pressure``, ``usage_by_tenant``, ``perf`` and, with an engine
+watchdog attached (``engine/watchdog.py``, ``APP_WATCHDOG``), its status:
+503 while the worker drains or the watchdog has tripped.
+``POST /debug/drain`` drains (``?off=1`` lifts it; ``?evacuate=1`` also
+snapshots every live decode slot through the driver, each stream ending
+"evacuated" with its snapshot at ``/v1/kv/evacuation/<rid>``); with no
+watchdog attached it answers 409. Every route that submits reads the SLO
+headers (``X-Request-Class`` / ``X-Slo-Class`` and the remaining-deadline
+pair; an unknown class is a 400), the tenant (``X-Tenant-Id`` or an API
+key's digest; the handoff takes the payload's tenant below the header)
+and a caller's ``X-Request-Id``. The chaos plane's server faults gate
+``/v1/chat/completions``, ``/v1/completions`` and ``/v1/kv/*`` (a delay
+is slept on the handler's thread, an error answers 503).
+``install_sigterm_drain`` turns SIGTERM into a drain and an evacuation,
+then an exit after ``APP_DRAIN_GRACE_S``. Not ported: ``/debug/profile``
+(ROADMAP A.17) and the QoS / forensics routes (A.10, second part).
 """
 
 from __future__ import annotations
@@ -53,25 +74,58 @@ from __future__ import annotations
 import functools
 import json
 import logging
+import os
 import queue
 import re
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 from generativeaiexamples_tpu_torch.core import kv_wire
 from generativeaiexamples_tpu_torch.engine import grammar as grammar_mod
 from generativeaiexamples_tpu_torch.engine import tools as tools_mod
 from generativeaiexamples_tpu_torch.engine.engine import TOP_LP
 from generativeaiexamples_tpu_torch.engine.scheduler import Request, Scheduler
+from generativeaiexamples_tpu_torch.engine.watchdog import (
+    EngineWatchdog, watchdog_enabled)
+from generativeaiexamples_tpu_torch.observability import chaos as chaos_mod
+from generativeaiexamples_tpu_torch.observability import otel
+from generativeaiexamples_tpu_torch.observability import slo as slo_mod
+from generativeaiexamples_tpu_torch.observability import usage as usage_mod
+from generativeaiexamples_tpu_torch.server import common
 from generativeaiexamples_tpu_torch.server.common import (MAX_TOKENS_CAP,
                                                            parse_stop)
 
 MAX_CHOICES = 4
 _RID_SAFE = re.compile(r"[^A-Za-z0-9_.:\-]")
 logger = logging.getLogger(__name__)
+
+
+def inbound_request_id(headers: Mapping[str, str]) -> str:
+    """A caller's ``X-Request-Id`` (a router stamps one id on every
+    dispatch of a logical request), sanitized and capped: the id is a
+    log and URL key, never trusted further."""
+    raw = (headers.get("X-Request-Id") or "").strip()
+    return _RID_SAFE.sub("", raw)[:64]
+
+
+def request_fields(headers: Optional[Mapping[str, str]]) -> Dict[str, Any]:
+    """The SLO, tenant and trace fields of a submitting route's Request,
+    from its headers; an unknown SLO class or a malformed deadline is a
+    BadRequest (400)."""
+    headers = headers or {}
+    try:
+        cls, deadline_s = slo_mod.parse_inbound(headers)
+    except ValueError as exc:
+        raise BadRequest(str(exc))
+    parent = otel.extract_traceparent(dict(headers))
+    # no tenant header bills "anon": the reference passes the default
+    # "anon" on, which its ledger escapes to "t_anon" (ROADMAP C12)
+    return {"slo_class": cls or "", "deadline_s": deadline_s,
+            "trace_id": parent.trace_id if parent else "",
+            "tenant": usage_mod.tenant_from_headers(headers, default="")}
 
 
 def _finish_reason(req, default: str = "stop") -> str:
@@ -125,6 +179,10 @@ class BadRequest(ValueError):
     pass
 
 
+class Unavailable(RuntimeError):
+    """A chaos-injected 5xx: the handler answers 503."""
+
+
 class NotFound(LookupError):
     """An unknown model id or request: the handler answers 404."""
 
@@ -166,9 +224,14 @@ class Call:
 class ModelServer:
     """Routes and request handling, independent of the HTTP transport."""
 
-    def __init__(self, scheduler: Scheduler, model_name: str) -> None:
+    def __init__(self, scheduler: Scheduler, model_name: str,
+                 watchdog: Optional[EngineWatchdog] = None) -> None:
         self.scheduler = scheduler
         self.model_name = model_name
+        # the health arbiter (engine/watchdog.py): while it reports not
+        # serving (tripped or draining) /health answers 503; None: health
+        # is liveness only and POST /debug/drain answers 409
+        self.watchdog = watchdog
 
     @property
     def role(self) -> str:
@@ -176,13 +239,64 @@ class ModelServer:
         return str(getattr(getattr(self.scheduler, "core", None), "role",
                            "unified") or "unified")
 
-    def health(self) -> Dict[str, Any]:
+    def health(self) -> tuple:
+        """(status, body) of ``GET /health``: liveness, ``slo_pressure``,
+        the load surface, the tenant rollup and the utilization card; 503
+        while the watchdog reports not serving."""
         core = self.scheduler.core
         # kv_wire: the handoff bodies this worker reads, so a router never
         # sends a frame to a worker that would refuse it
-        return {"message": "Service is up.", "kv_wire": ["binary", "json"],
+        body = {"message": "Service is up.",
+                "slo_pressure": slo_mod.SLO.pressure(),
+                "kv_wire": ["binary", "json"],
                 **self.scheduler.load_stats(),
-                "quant": core.quant, "weight_bytes": core.param_bytes}
+                "quant": core.quant, "weight_bytes": core.param_bytes,
+                "usage_by_tenant": usage_mod.USAGE.rollup(),
+                "perf": usage_mod.worker_perf_card()}
+        if self.watchdog is not None:
+            body["watchdog"] = self.watchdog.status()
+            if not self.watchdog.serving_ok():
+                body["message"] = ("Service is draining."
+                                   if self.watchdog.draining
+                                   else "Service is unhealthy "
+                                        "(watchdog tripped).")
+                return 503, body
+        return 200, body
+
+    def debug_drain(self, query: Mapping[str, str]) -> tuple:
+        """(status, body) of ``POST /debug/drain``: start a graceful drain
+        (health 503 while in-flight streams finish), ``?off=1`` lifts it,
+        ``?evacuate=1`` also snapshots every live decode slot on the
+        driver (this handler's thread waits for its summary). 409 without
+        a watchdog."""
+        if self.watchdog is None:
+            return 409, {"error": "no watchdog attached (APP_WATCHDOG=off);"
+                                  " drain needs the health arbiter"}
+        if query.get("off", "").strip() in ("1", "true", "on"):
+            self.watchdog.undrain()
+            return 200, self.watchdog.status()
+        self.watchdog.drain()
+        body: Dict[str, Any] = dict(self.watchdog.status())
+        if query.get("evacuate", "").strip() in ("1", "true", "on"):
+            body["evacuation"] = self.scheduler.request_evacuation(
+                reason="drain")
+        return 200, body
+
+    @staticmethod
+    def chaos_gate(site: str) -> None:
+        """The chaos plane's server fault at an HTTP seam: a delay is
+        slept here, an error raises Unavailable (503). APP_CHAOS=off is
+        one attribute read."""
+        if not chaos_mod.CHAOS.enabled:
+            return
+        action = chaos_mod.CHAOS.server_fault(site)
+        if action is None:
+            return
+        kind, param = action
+        if kind == "delay":
+            chaos_mod.CHAOS.sleep(param)
+        elif kind == "error":
+            raise Unavailable(f"chaos: injected 5xx at {site}")
 
     def require_decode_capable(self) -> None:
         if self.role == "prefill":
@@ -319,9 +433,13 @@ class ModelServer:
         grammar = _grammar_for(*spec)
         return grammar, (spec if grammar is not None else None)
 
-    def submit(self, path: str, body: Dict[str, Any]) -> Call:
-        """Parse a request and submit its ``n`` choices."""
+    def submit(self, path: str, body: Dict[str, Any],
+               headers: Optional[Mapping[str, str]] = None) -> Call:
+        """Parse a request and submit its ``n`` choices; ``headers`` give
+        their SLO class, deadline, tenant and a caller's request id."""
         self.require_decode_capable()
+        fields = request_fields(headers)
+        rid_in = inbound_request_id(headers or {})
         tok = self.scheduler.tokenizer
         chat = path == "/v1/chat/completions"
         adapter = self._adapter_for(body)
@@ -345,8 +463,13 @@ class ModelServer:
             kw = dict(sampling)
             if i and kw["seed"] is not None:
                 kw["seed"] = kw["seed"] + i   # distinct, still reproducible
+            if rid_in:
+                # the caller's id keys this worker's timeline; secondary
+                # choices get a derived suffix
+                kw["request_id"] = rid_in if i == 0 else f"{rid_in}.{i}"
             reqs.append(Request(prompt_ids=list(ids), grammar=grammar,
-                                grammar_spec=spec, adapter=adapter, **kw))
+                                grammar_spec=spec, adapter=adapter,
+                                **fields, **kw))
         for r in reqs:
             self.scheduler.submit(r)
         # responses echo the requested id: adapter traffic is not reported
@@ -396,34 +519,48 @@ class ModelServer:
         the JSON-base64 wire."""
         return kv_wire.KV_FRAMES_CONTENT_TYPE in (accept or "")
 
-    def kv_prefill(self, body: Dict[str, Any], accept: str) -> KVBody:
+    def kv_prefill(self, body: Dict[str, Any], accept: str,
+                   headers: Optional[Mapping[str, str]] = None) -> KVBody:
         """Prefill a request and answer its handoff payload (any role may
         serve it) in the negotiated wire form. The host copy of the
         device-native payload is made here, on the handler's thread, after
-        the gather's event."""
+        the gather's event. With the chaos plane on, the payload and then
+        the frame may be corrupted (the decode side must refuse both)."""
         self._refuse_adapter(str(body.get("model") or ""))
+        fields = request_fields(headers)
+        rid_in = inbound_request_id(headers or {})
+        if rid_in:
+            fields["request_id"] = rid_in
         ids, grammar, spec, cont = self._prompt_ids_from_body(body)
         sampling = self._sampling(body)
         sampling.pop("logprobs", None)
         sampling.pop("top_logprobs", None)
         req = Request(prompt_ids=list(ids), prefill_only=True,
                       grammar=grammar, grammar_spec=spec,
-                      grammar_prefix=cont, **sampling)
+                      grammar_prefix=cont, **fields, **sampling)
         self.scheduler.submit(req)
         self._text(req)
         if req.error or not req.handoff:
             raise RuntimeError(req.error or "prefill produced no handoff")
-        data, ctype = kv_wire.encode_for_wire(req.handoff,
-                                              self.wants_kv_frames(accept))
+        payload = req.handoff
+        binary = self.wants_kv_frames(accept)
+        if chaos_mod.CHAOS.enabled:
+            payload = chaos_mod.CHAOS.corrupt_kv(payload, "kv.prefill")
+        data, ctype = kv_wire.encode_for_wire(payload, binary)
+        if chaos_mod.CHAOS.enabled and binary:
+            data = chaos_mod.CHAOS.corrupt_wire(data, "kv.prefill.wire")
         return KVBody(data, ctype, req.request_id)
 
     def kv_handoff(self, raw: bytes, content_type: str,
-                   resume_chars: Optional[str] = None):
+                   resume_chars: Optional[str] = None,
+                   headers: Optional[Mapping[str, str]] = None):
         """Import a /v1/kv/prefill payload (or an evacuation snapshot) and
         submit it: ``(request, model id)``. An undecodable body raises
         BadRequest (400); a payload this pool cannot host, Conflict
-        (409)."""
+        (409). One logical request bills one tenant: the header, else the
+        tenant the payload carries."""
         self.require_decode_capable()
+        fields = request_fields(headers)
         if kv_wire.is_kv_frames(raw, content_type):
             try:
                 payload = kv_wire.decode_kv_frames(raw)
@@ -454,6 +591,10 @@ class ModelServer:
         if kind and payload.get("grammar_attached"):
             grammar = _grammar_for(kind,
                                    str(payload.get("grammar_payload") or ""))
+        fields["tenant"] = usage_mod.handoff_tenant(headers or {}, payload)
+        rid_in = inbound_request_id(headers or {})
+        if rid_in:
+            fields["request_id"] = rid_in
         try:
             req = Request(
                 prompt_ids=[int(t) for t in payload.get("prompt_ids", [])],
@@ -463,7 +604,8 @@ class ModelServer:
                 top_p=float(payload.get("top_p", 1.0)),
                 stop=parse_stop(payload.get("stop")),
                 seed=int(payload.get("seed", 0)), grammar=grammar,
-                grammar_prefix=str(payload.get("grammar_prefix") or ""))
+                grammar_prefix=str(payload.get("grammar_prefix") or ""),
+                **fields)
         except (TypeError, ValueError) as exc:
             raise BadRequest(f"undecodable handoff payload: {exc}")
         try:
@@ -732,30 +874,44 @@ def _handler_class(server: ModelServer):
                 self.wfile.flush()
 
         def _guarded(self, fn):
-            """Run a route; its refusals answer 400, 404 or 409."""
+            """Run a route; its refusals answer 400, 404, 409 or 503."""
             try:
                 return fn()
             except NotFound as exc:
                 self._json(404, {"error": str(exc)})
             except Conflict as exc:
                 self._json(409, {"error": str(exc)})
+            except Unavailable as exc:
+                self._json(503, {"error": str(exc)})
             except (BadRequest, ValueError, NotImplementedError) as exc:
                 self._json(400, {"error": str(exc)})
             return None
 
         def do_GET(self):
-            if self.path == "/health":
-                self._json(200, server.health())
-            elif self.path == "/v1/models":
+            path, query = common.split_path(self.path)
+            if path == "/health":
+                self._json(*server.health())
+            elif path == "/metrics":
+                body, ctype = common.metrics_body(
+                    query.get("format", ""), self.headers.get("Accept", ""))
+                self._bytes(200, body, ctype)
+            elif path == "/v1/models":
                 self._json(200, server.models())
-            elif self.path.startswith("/v1/kv/evacuation/"):
-                out = self._guarded(lambda: server.kv_evacuation(
-                    self.path[len("/v1/kv/evacuation/"):],
-                    self.headers.get("Accept", "")))
+            elif path.startswith("/v1/kv/evacuation/"):
+                def evac():
+                    server.chaos_gate("engine.kv_evacuation")
+                    return server.kv_evacuation(
+                        path[len("/v1/kv/evacuation/"):],
+                        self.headers.get("Accept", ""))
+                out = self._guarded(evac)
                 if out is not None:
                     self._bytes(200, out.body, out.content_type, out.rid)
             else:
-                self._json(404, {"error": f"no route {self.path}"})
+                got = common.debug_get(path, query)
+                if got is None:
+                    self._json(404, {"error": f"no route {self.path}"})
+                else:
+                    self._json(*got)
 
         def _read(self) -> bytes:
             length = int(self.headers.get("Content-Length") or 0)
@@ -768,34 +924,44 @@ def _handler_class(server: ModelServer):
             return body
 
         def do_POST(self):
-            routes = ("/v1/chat/completions", "/v1/completions",
-                      "/v1/kv/prefill", "/v1/kv/handoff")
-            if self.path not in routes:
+            path, query = common.split_path(self.path)
+            if path == "/debug/drain":
+                self._read()
+                self._json(*server.debug_drain(query))
+                return
+            routes = {"/v1/chat/completions": "engine.chat",
+                      "/v1/completions": "engine.completions",
+                      "/v1/kv/prefill": "engine.kv_prefill",
+                      "/v1/kv/handoff": "engine.kv_handoff"}
+            if path not in routes:
                 self._json(404, {"error": f"no route {self.path}"})
                 return
             raw = self._read()
-            if self.path == "/v1/kv/prefill":
+            if self._guarded(lambda: server.chaos_gate(routes[path])
+                             or True) is None:
+                return
+            if path == "/v1/kv/prefill":
                 try:
                     out = self._guarded(lambda: server.kv_prefill(
                         self._json_body(raw),
-                        self.headers.get("Accept", "")))
+                        self.headers.get("Accept", ""), self.headers))
                 except RuntimeError as exc:   # the prefill itself failed
                     self._json(503, {"error": str(exc)})
                     return
                 if out is not None:
                     self._bytes(200, out.body, out.content_type, out.rid)
                 return
-            if self.path == "/v1/kv/handoff":
+            if path == "/v1/kv/handoff":
                 got = self._guarded(lambda: server.kv_handoff(
                     raw, self.headers.get("Content-Type", ""),
-                    self.headers.get("X-Resume-Chars")))
+                    self.headers.get("X-Resume-Chars"), self.headers))
                 if got is not None:
                     req, model = got
                     self._sse(req.request_id,
                               server.handoff_stream(req, model))
                 return
             call = self._guarded(lambda: server.submit(
-                self.path, self._json_body(raw)))
+                path, self._json_body(raw), self.headers))
             if call is None:
                 return
             # every completion carries the prompt's tier prefix hash
@@ -812,21 +978,76 @@ def _handler_class(server: ModelServer):
 
 
 def make_server(scheduler: Scheduler, model_name: str, host: str = "0.0.0.0",
-                port: int = 8000) -> ThreadingHTTPServer:
-    """A bound, not yet serving, HTTP server (port 0 picks a free port)."""
-    httpd = ThreadingHTTPServer((host, port),
-                                _handler_class(ModelServer(scheduler,
-                                                           model_name)))
+                port: int = 8000,
+                watchdog: Optional[EngineWatchdog] = None
+                ) -> ThreadingHTTPServer:
+    """A bound, not yet serving, HTTP server (port 0 picks a free port).
+    ``httpd.model_server`` is its ModelServer."""
+    model_server = ModelServer(scheduler, model_name, watchdog=watchdog)
+    httpd = ThreadingHTTPServer((host, port), _handler_class(model_server))
     httpd.daemon_threads = True
+    httpd.model_server = model_server
     return httpd
 
 
+def install_sigterm_drain(scheduler: Scheduler,
+                          watchdog: Optional[EngineWatchdog],
+                          grace_s: Optional[float] = None, exit_fn=None):
+    """SIGTERM -> graceful drain and evacuation: the handler flags the
+    drain (health 503), queues a non-blocking full evacuation (every live
+    slot's snapshot parks at ``/v1/kv/evacuation/<rid>`` while HTTP keeps
+    serving), then exits after ``APP_DRAIN_GRACE_S`` (default 10 s),
+    flushing the event trace first. Installs only from the main thread;
+    returns the handler either way (tests call it, ``exit_fn`` injects
+    the exit)."""
+    import signal
+
+    if grace_s is None:
+        try:
+            grace_s = float(os.environ.get("APP_DRAIN_GRACE_S", "") or 10.0)
+        except ValueError:
+            grace_s = 10.0
+    exit_fn = exit_fn if exit_fn is not None else (lambda: os._exit(0))
+    fired = {"done": False}
+
+    def _handler(signum, frame):
+        if fired["done"]:
+            return   # a second TERM inside the grace window is a no-op
+        fired["done"] = True
+        logger.warning("SIGTERM: draining (+evacuating live streams); "
+                       "exiting in %.1fs", grace_s)
+        if watchdog is not None:
+            watchdog.drain()
+        # non-blocking: HTTP must keep serving the snapshot pulls
+        scheduler.request_evacuation(wait_s=0.0, reason="sigterm")
+
+        def _exit_after_grace():
+            time.sleep(grace_s)
+            logger.warning("drain grace elapsed; exiting")
+            # os._exit skips atexit: push the trace tail to its sink first
+            from generativeaiexamples_tpu_torch.observability.trace import (
+                TRACE)
+            TRACE.flush()
+            exit_fn()
+
+        threading.Thread(target=_exit_after_grace, name="drain-exit",
+                         daemon=True).start()
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _handler)
+    else:
+        logger.debug("not on the main thread; SIGTERM handler not "
+                     "installed")
+    return _handler
+
+
 def serve_in_thread(scheduler: Scheduler, model_name: str,
-                    host: str = "127.0.0.1", port: int = 0):
+                    host: str = "127.0.0.1", port: int = 0,
+                    watchdog: Optional[EngineWatchdog] = None):
     """Start the scheduler and an HTTP server on a background thread.
     Returns (httpd, thread); stop with ``httpd.shutdown()`` and
-    ``scheduler.stop()``."""
-    httpd = make_server(scheduler, model_name, host, port)
+    ``scheduler.stop()`` (and the watchdog's ``stop()``)."""
+    httpd = make_server(scheduler, model_name, host, port, watchdog)
     scheduler.start()
     thread = threading.Thread(target=httpd.serve_forever, name="http",
                               daemon=True)
@@ -836,9 +1057,18 @@ def serve_in_thread(scheduler: Scheduler, model_name: str,
 
 def run_server(scheduler: Scheduler, model_name: str, host: str = "0.0.0.0",
                port: int = 8000) -> None:
-    """Serve until interrupted."""
-    httpd = make_server(scheduler, model_name, host, port)
+    """Serve until interrupted: the observability planes, a watchdog
+    unless ``APP_WATCHDOG=off``, and SIGTERM as a drain."""
+    from generativeaiexamples_tpu_torch.observability.bootstrap import (
+        init_observability)
+    init_observability("engine")
+    watchdog = None
+    if watchdog_enabled():
+        watchdog = EngineWatchdog(scheduler)
+        watchdog.start()
+    httpd = make_server(scheduler, model_name, host, port, watchdog)
     scheduler.start()
+    install_sigterm_drain(scheduler, watchdog)
     logger.info("serving %s on http://%s:%d", model_name, host,
                 httpd.server_address[1])
     try:
@@ -847,4 +1077,6 @@ def run_server(scheduler: Scheduler, model_name: str, host: str = "0.0.0.0",
         pass
     finally:
         httpd.server_close()
+        if watchdog is not None:
+            watchdog.stop()
         scheduler.stop()

@@ -1,5 +1,45 @@
-"""Observability of the port: the in-tree tracing core (``otel.py``).
+"""Observability of the port: the in-tree tracing core (``otel``) and the
+host planes of the servers.
 
-The reference's other planes (flight recorder, SLO, devtime, usage,
-profiling, alerts) are ROADMAP A.10.
+Sibling planes: ``flight`` (scheduler-state ring + request timelines),
+``trace`` (the admission / dispatch record stream), ``slo`` (budgets,
+burn rates, shed pressure), ``usage`` (the per-tenant ledger),
+``devtime`` (the per-dispatch device-time ledger on CUDA events and the
+first-seen watch), ``chaos`` (fault injection), ``lockwatch`` (the lock
+order sanitizer) and ``bootstrap`` (``init_observability``). The QoS,
+alert and forensics planes are ROADMAP A.10's second part; device
+profiling (``profiling``) is A.17.
 """
+
+from generativeaiexamples_tpu_torch.observability.bootstrap import (  # noqa: F401
+    init_observability,
+)
+from generativeaiexamples_tpu_torch.observability.devtime import (  # noqa: F401
+    DEVTIME,
+    DevtimeLedger,
+)
+from generativeaiexamples_tpu_torch.observability.flight import (  # noqa: F401
+    FLIGHT,
+    REQUEST_LOG,
+    FlightRecorder,
+    RequestLog,
+    install_signal_dump,
+    timeline,
+    timeline_attributes,
+)
+from generativeaiexamples_tpu_torch.observability.usage import (  # noqa: F401
+    USAGE,
+    UsageLedger,
+    tenant_from_headers,
+)
+from generativeaiexamples_tpu_torch.observability.otel import (  # noqa: F401
+    ConsoleSpanExporter,
+    InMemorySpanExporter,
+    JsonlSpanExporter,
+    Span,
+    Tracer,
+    extract_traceparent,
+    get_tracer,
+    inject_traceparent,
+    set_exporter,
+)

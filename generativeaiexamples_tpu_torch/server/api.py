@@ -5,8 +5,10 @@ Port of ``generativeaiexamples_tpu/server/api.py`` on
 card's machine lacks, as it lacks bleach): every route of the reference,
 with its request and response shapes.
 
-  * ``GET /health``, ``GET /metrics`` (JSON, or
-    Prometheus text as ``server/common.metrics_body`` negotiates);
+  * ``GET /health`` (``slo_pressure``; 503 while the process drains),
+    ``GET /metrics`` (JSON, or Prometheus text as
+    ``server/common.metrics_body`` negotiates), the debug surface of
+    ``server/common.DEBUG_ROUTES`` and ``POST /debug/drain[?off=1]``;
   * ``POST /generate``: ``messages`` (the last one is the query, the rest
     the history; every content cleaned as ``bleach.clean(text[:131072],
     strip=True)`` cleans it, ``server/sanitize.py``), ``use_knowledge_base``
@@ -35,11 +37,15 @@ and the ``generate_requests``, ``generate_errors`` and
 ``documents_uploaded`` counters go to ``core/metrics.REGISTRY``. Rails
 (``server/guardrails.py``) arm from ``APP_GUARDRAILS_CONFIG`` as there.
 
-Not ported (ROADMAP A.10): SLO admission and the usage plane, so a request
-that names an SLO class or a deadline (``X-Request-Class``,
-``X-Slo-Class``, ``X-Request-Deadline-Ms``, ``X-Deadline-Ms`` or a body
-``slo_class``) or a tenant (``X-Tenant-Id``) answers 422 naming A.10; the
-``/debug`` routes and ``init_observability``.
+SLO admission and the usage plane, as there: ``/generate`` reads an SLO
+class (``X-Request-Class`` / ``X-Slo-Class``, else a body ``slo_class``;
+an unknown class answers 422) and a remaining deadline
+(``X-Request-Deadline-Ms`` / ``X-Deadline-Ms``), and runs the chain
+inside ``slo.admission`` and ``usage.tenant_scope`` (``X-Tenant-Id`` or
+an API key's digest), so the engine requests the chain makes carry the
+class and the remaining deadline (``RemoteLLM``'s headers, or the
+in-process ``LocalLLM``'s ``stamp_request``) and bill the tenant.
+``run_server`` calls ``init_observability("chain")``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,9 @@ from urllib.parse import parse_qs, urlsplit
 from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
 from generativeaiexamples_tpu_torch.core.tracing import instrumentation_wrapper
 from generativeaiexamples_tpu_torch.observability import otel
+from generativeaiexamples_tpu_torch.observability import slo as slo_mod
+from generativeaiexamples_tpu_torch.observability import usage as usage_mod
+from generativeaiexamples_tpu_torch.server import common
 from generativeaiexamples_tpu_torch.server import guardrails as guardrails_mod
 from generativeaiexamples_tpu_torch.server.base import BaseExample
 from generativeaiexamples_tpu_torch.server.common import (
@@ -74,7 +83,7 @@ ERROR_MESSAGE = ("Error from chain server. Please check chain-server "
                  "logs for more details.")
 JSON_TYPE = "application/json; charset=utf-8"
 TEXT_TYPE = "text/plain; charset=utf-8"
-# admission headers of the reference's SLO and usage planes
+# the admission headers /generate reads (the SLO and usage planes)
 SLO_HEADERS = ("X-Request-Class", "X-Slo-Class", "X-Request-Deadline-Ms",
                "X-Deadline-Ms", "X-Tenant-Id")
 
@@ -109,14 +118,18 @@ def _chain_chunk(rid: str, content: str,
     })
 
 
-def _refuse_slo(headers, body: Dict[str, Any]) -> None:
-    named = [h for h in SLO_HEADERS if (headers.get(h) or "").strip()]
-    if str(body.get("slo_class") or "").strip():
-        named.append("slo_class")
-    if named:
-        raise _unprocessable(
-            f"{', '.join(named)}: SLO admission and the usage plane are not "
-            f"ported to the PyTorch chain server yet (ROADMAP A.10)")
+def _admission(headers, body: Dict[str, Any]):
+    """(SLO class, remaining deadline in ms, tenant) of a ``/generate``:
+    the class from the headers or the body's ``slo_class``, the deadline
+    from the headers; an unknown class or a malformed deadline is a 422."""
+    try:
+        slo_class, deadline_s = slo_mod.parse_inbound(
+            headers, fallback_class=str(body.get("slo_class") or ""))
+    except ValueError as exc:
+        raise _unprocessable(str(exc))
+    deadline_ms = None if deadline_s is None else deadline_s * 1000.0
+    return slo_class, deadline_ms, usage_mod.tenant_from_headers(
+        headers, default="")
 
 
 def _read_body(request) -> bytes:
@@ -216,15 +229,20 @@ class ChainServer:
         # join on it
         rid = (request.headers.get("X-Request-Id", "").strip()
                or uuid.uuid4().hex)
-        _refuse_slo(request.headers, body)
+        # SLO admission: the deadline is stamped now, and every engine
+        # request the chain makes carries what remains of it
+        slo_class, deadline_ms, tenant = _admission(request.headers, body)
 
         def guarded():
-            # runs on the StreamDrain reader thread: the request id is set
-            # there, where the chain executes
+            # runs on the StreamDrain reader thread: the request id, the
+            # admission and the tenant are set there, where the chain
+            # executes (context variables do not cross threads)
             token = otel.set_request_id(rid)
             try:
-                yield from self._guarded_chain(query, history, use_kb,
-                                               settings)
+                with slo_mod.admission(slo_class, deadline_ms=deadline_ms), \
+                        usage_mod.tenant_scope(tenant):
+                    yield from self._guarded_chain(query, history, use_kb,
+                                                   settings)
             finally:
                 otel.reset_request_id(token)
 
@@ -428,6 +446,18 @@ def _handler_class(server: ChainServer):
                 self._send(200, *metrics_body(
                     fmt, self.headers.get("Accept", "")))
                 return
+            if method == "POST" and url.path == "/debug/drain":
+                status, body = common.drain_post(
+                    common.split_path(self.path)[1])
+                self._send(status, json.dumps(body).encode(), JSON_TYPE)
+                return
+            if method == "GET" and url.path.startswith("/debug/"):
+                got = common.debug_get(url.path,
+                                       common.split_path(self.path)[1])
+                if got is not None:
+                    self._send(got[0], json.dumps(got[1]).encode(),
+                               JSON_TYPE)
+                    return
             route = routes.get((method, url.path))
             if route is None:
                 known = any(p == url.path for _, p in routes)
@@ -475,6 +505,9 @@ def serve_in_thread(example: BaseExample, host: str = "127.0.0.1",
 def run_server(example: BaseExample, host: str = "0.0.0.0",
                port: int = 8081) -> None:
     """Serve until interrupted."""
+    from generativeaiexamples_tpu_torch.observability.bootstrap import (
+        init_observability)
+    init_observability("chain")
     httpd = ChainServer(example).make_httpd(host, port)
     logger.info("serving the chain server on http://%s:%d", host,
                 httpd.server_address[1])

@@ -38,12 +38,10 @@ composes them for the router's loops):
 Everything takes injectable ``rng``/``sleep``/``clock`` so tests pin exact
 delays; metrics ride the shared REGISTRY.
 
-Port of ``generativeaiexamples_tpu/server/resilience.py``, the same but in
-one place: the port has no SLO plane yet (``observability/slo.py``, ROADMAP
-A.10), so when ``before_retry`` is given no ``deadline_s`` it reads no
-deadline. That is what the reference does outside an admission context,
-where ``slo.remaining_s()`` is None. A caller that knows its deadline
-passes it.
+Port of ``generativeaiexamples_tpu/server/resilience.py``: when
+``before_retry`` is given no ``deadline_s`` it reads the ambient SLO
+admission's remaining budget (``observability/slo.remaining_s``; None
+outside an admission context, where no deadline applies).
 """
 
 from __future__ import annotations
@@ -162,14 +160,17 @@ class ResiliencePolicy:
                      deadline_s: Optional[float] = None) -> bool:
         """Gate retry number ``attempt`` (1-based; attempt 0 is the first
         try and is never gated). Checks the attempt cap, the pool's retry
-        budget, and the request's remaining deadline ``deadline_s`` (None:
-        no deadline, as the reference reads outside an admission context;
-        its ambient SLO read waits for ROADMAP A.10 — a request past its
+        budget, and the request's remaining SLO deadline (the ambient
+        admission context when ``deadline_s`` is None — a request past its
         deadline is shed, not retried); on approval sleeps the jittered
         backoff and returns True."""
         if attempt >= self.max_attempts:
             return self._deny("attempts")
         delay = self.backoff_s(attempt)
+        if deadline_s is None:
+            from generativeaiexamples_tpu_torch.observability import (
+                slo as slo_mod)
+            deadline_s = slo_mod.remaining_s()
         if deadline_s is not None and deadline_s <= delay:
             # the backoff alone would eat the remaining budget: nothing
             # this retry produces can arrive before the deadline

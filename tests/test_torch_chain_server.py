@@ -240,19 +240,49 @@ def test_example_without_search_answers_501():
         thread.join(timeout=10)
 
 
+# a valid value of each admission field, and an invalid one where one exists
+_ADMISSION_VALUES = {"X-Request-Class": ("batch", "platinum"),
+                     "X-Slo-Class": ("best_effort", "platinum"),
+                     "X-Request-Deadline-Ms": ("60000", "soon"),
+                     "X-Deadline-Ms": ("45000", "soon"),
+                     "X-Tenant-Id": ("acme", None),
+                     "slo_class": ("interactive", "platinum")}
+
+
 @pytest.mark.parametrize("header", list(tapi.SLO_HEADERS) + ["slo_class"])
 def test_slo_and_tenant_requests_are_refused(servers, header):
+    """Since ROADMAP A.10's first part the port admits an SLO class, a
+    deadline and a tenant on /generate (the test keeps its name): under
+    the same headers both servers answer byte-equal SSE bodies, and an
+    unknown class or a malformed deadline the same 422 and error."""
+    from generativeaiexamples_tpu.observability import slo as jslo
+    from generativeaiexamples_tpu_torch.observability import slo as tslo
+
     urls, _ = servers
-    body = {"messages": [{"role": "user", "content": "q"}]}
-    headers = {}
-    if header == "slo_class":
-        body["slo_class"] = "interactive"
-    else:
-        headers[header] = "100"
-    resp = requests.post(urls[1] + "/generate", json=body, headers=headers,
-                         timeout=60)
-    assert resp.status_code == 422
-    assert "A.10" in resp.json()["error"]
+    good, bad = _ADMISSION_VALUES[header]
+    # each package's SLO tracker is process-global: earlier requests of
+    # this process (the reference's first calls compile) must not have
+    # left either in critical pressure, which sheds best_effort
+    jslo.SLO.reset()
+    tslo.SLO.reset()
+    for value, status in ((good, 200), (bad, 422)):
+        if value is None:
+            continue
+        body = {"messages": [{"role": "user", "content": "q"}],
+                "use_knowledge_base": False, "max_tokens": 4,
+                "temperature": 0.0}
+        headers = {"X-Request-Id": RID}
+        if header == "slo_class":
+            body["slo_class"] = value
+        else:
+            headers[header] = value
+        want, got = _both(urls, "POST", "/generate", json=body,
+                          headers=headers)
+        assert got.status_code == want.status_code == status
+        if status == 200:
+            assert got.content == want.content
+        else:
+            assert got.json() == json.loads(want.text)
 
 
 def test_health_and_metrics(servers):

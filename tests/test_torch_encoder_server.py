@@ -68,7 +68,10 @@ def test_health(served):
     base, _, _ = served
     status, ctype, body = _call(base, "/health")
     assert status == 200 and ctype == "application/json"
-    assert json.loads(body) == {"message": "Service is up."}
+    # the reference's health body, slo_pressure included since the SLO
+    # plane's port (server/common.health)
+    assert json.loads(body) == {"message": "Service is up.",
+                                "slo_pressure": "ok"}
     assert _call(base, "/nowhere")[0] == 404
     assert _call(base, "/v1/nowhere", {"input": "x"})[0] == 404
 

@@ -181,20 +181,28 @@ def test_policy_deadline_cutoff_sheds_instead_of_retrying():
 
 
 def test_policy_reads_no_ambient_deadline_until_the_slo_plane():
-    """Given no deadline the port's policy reads none, where the
-    reference reads the SLO plane's admission context (ROADMAP A.10).
-    Outside such a context both approve alike; inside one past its
-    deadline only the reference sheds."""
-    from generativeaiexamples_tpu.observability import slo as slo_mod
+    """Given no deadline, both packages' policies read their SLO plane's
+    admission context (the port's since ROADMAP A.10's first part; the
+    test keeps its name). Outside such a context both approve alike;
+    inside one past its deadline both shed; inside one with budget to
+    spare both approve."""
+    from generativeaiexamples_tpu.observability import slo as jslo
+    from generativeaiexamples_tpu_torch.observability import slo as tslo
 
     policies = {name: res.ResiliencePolicy("amb", max_attempts=4,
                                            base_s=0.05, cap_s=0.05,
                                            sleep=lambda s: None)
                 for name, (_, res, _) in PACKAGES.items()}
     assert all(p.before_retry(1) for p in policies.values())
-    with slo_mod.admission("interactive", deadline_ms=0.0):
-        assert not policies["jax"].before_retry(1)
-        assert policies["torch"].before_retry(1)
+    before = _denied("amb", "deadline")
+    with jslo.admission("interactive", deadline_ms=0.0), \
+            tslo.admission("interactive", deadline_ms=0.0):
+        assert [p.before_retry(1) for p in policies.values()] == [False,
+                                                                  False]
+    assert _denied("amb", "deadline") == before + 1
+    with jslo.admission("batch", deadline_ms=60000.0), \
+            tslo.admission("batch", deadline_ms=60000.0):
+        assert all(p.before_retry(1) for p in policies.values())
     # an explicit deadline sheds in both
     assert not any(p.before_retry(1, deadline_s=0.0)
                    for p in policies.values())
