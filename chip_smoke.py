@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ab PARENT CHANGE [attention sampling gemm grammar
                                              lora | sampler]
                                             # kernel times of two trees
+    python3 chip_smoke.py --serve-qos       # serve_qos alone
 
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result:
@@ -233,6 +234,18 @@ prints no result:
               ``grammar_mask`` launched; per chain its engine requests,
               tokens and seconds, the agentic loop's grades, rewrites and
               attempts, the lookahead counters, ``grammar_attached``;
+ 10g. serve_qos  (after serve_events, on serve_chain_server's engine core)
+              the QoS admission plane and the forensics plane over the
+              engine server: ``APP_QOS=fair`` with tenants gold and bulk
+              weighted 4:1, ``APP_FORENSICS=on``; bulk's 12 greedy chats,
+              then gold's 4 and a best_effort chat with a 1 ms deadline;
+              a forced page exhaustion (the chaos plane) once both
+              tenants hold slots: the doomed chat shed before prefill,
+              gold's chats admitted before bulk's backlog drains as the
+              virtual times predict, a bulk victim, every stream equal to
+              its replay with the plane off (or parting at a tie of two
+              bf16 ulps), the debug routes, ``alerts_active`` and a
+              flight dump's ``qos``; ``--serve-qos`` runs it alone;
  10b. serve_multi  llama3-8b over the smoke's BPE tokenizer, speculation
               off, K = 2: ``serve``'s traffic plus one request with a stop
               string, in a fixed order, with ``decode_multistep`` 0 and
@@ -1211,12 +1224,40 @@ def gemm_case_shapes():
     return shapes
 
 
-def gemm_cases(dev):
-    """The W8A16 GEMM's cases (``gemm_case_shapes``), each a thunk."""
+# the ring check: 8b gate/up at 72 rows, a decode ring of 7 stages (odd,
+# so its slots pass between the two consumer warpgroups within a tile) and
+# 32 stages a tile; the first stage's loads issued this long after the
+# rest of the ring's first fill
+GEMM_LATE_NS = 50_000
+
+
+def _gemm_late_ring_case(dev):
+    """The W8A16 GEMM's ring protocol under the late first stage
+    (``late_first_ns=GEMM_LATE_NS``): each warpgroup reaches a slot's
+    next fill while the other still waits for its first, so a wait that
+    took the older, incomplete phase for the newer would read the slot
+    before its data landed. The result must pass ``check_gemm`` and equal
+    the undelayed launch's bit for bit. Check only: not timed."""
     import torch
-    return {tag: (lambda M=M, N=N, K=K, dt=dt, seed=seed: _gemm_case(
+    from generativeaiexamples_tpu_torch.ops.cuda import quant as cq
+    x, q, s = gemm_inputs(dev, 72, 14336, 4096, torch.bfloat16, 97)
+    late = cq.w8a16_gemm(x, q, s, late_first_ns=GEMM_LATE_NS)
+    res = check_gemm("w8a16_gemm", x, q, s, late)
+    if not torch.equal(late, cq.w8a16_gemm(x, q, s)):
+        raise KernelMismatch("w8a16_gemm", dict(
+            res, bit_equal_to_undelayed=False))
+    return dict(res, late_first_ns=GEMM_LATE_NS, bit_equal_to_undelayed=True)
+
+
+def gemm_cases(dev):
+    """The W8A16 GEMM's cases (``gemm_case_shapes``), each a thunk, and
+    the ring check (``_gemm_late_ring_case``)."""
+    import torch
+    cases = {tag: (lambda M=M, N=N, K=K, dt=dt, seed=seed: _gemm_case(
         dev, M, N, K, getattr(torch, dt), seed))
         for tag, (M, N, K, dt, seed) in gemm_case_shapes().items()}
+    cases["8b_gate_up_m72_late_ring"] = lambda: _gemm_late_ring_case(dev)
+    return cases
 
 
 def ab_gemm(dev):
@@ -7380,8 +7421,10 @@ def _device_ms_by_class(prof, classes, ranges=()):
 # of the contraction's depth (still releasing its stage),
 # gemm_cluster_dropped_rank has the distributed-shared-memory reduction of
 # its decode tiles skip rank 1's partials (caught where the plan splits the
-# contraction across a cluster) and gemm_f32_skipped_k_tile skips the first
-# tile in its f32 instance. grammar_flipped_bit flips one bit of every word
+# contraction across a cluster), gemm_f32_skipped_k_tile skips the first
+# tile in its f32 instance and gemm_ring_guard_off removes the odd decode
+# ring's wait for a slot's last release (caught by the late-ring case: a
+# wrong result, or a wait that traps). grammar_flipped_bit flips one bit of every word
 # of the grammar mask; grammar_row_dropped never walks the last row of
 # each interleaved group of constrained rows; grammar_failsafe_off has the
 # last block ignore the row's "any entry allowed" flag (EOS only at
@@ -8890,6 +8933,378 @@ def phase_serve_events(smi, app, tok, emb, rer, core):
     return launches
 
 
+# serve_qos (the QoS admission plane and the forensics plane on
+# serve_chain_server's engine core): tenants gold and bulk weighted 4:1,
+# bulk's QOS_BULK chats first (admitted together: 8 slots, so 4 wait),
+# then gold's QOS_GOLD while bulk's first wave decodes, and one
+# best_effort chat (the sheddable class: batch is not, in the reference's
+# classes) with a 1 ms deadline; every chat greedy, QOS_TOKENS tokens, its
+# templated prompt QOS_PAGE_TAIL tokens short of a page boundary at most,
+# so decode grows into a new page while both tenants hold slots
+QOS_WEIGHTS = "gold=4,bulk=1,*=1"
+QOS_BULK, QOS_GOLD, QOS_TOKENS = 12, 4, 32
+QOS_PAGE_TAIL = (8, 24)
+QOS_DOOMED = "qos-doomed"
+
+
+def _qos_prompts(tok, page_size):
+    """(tenant, request id, chat text) of serve_qos's chats, bulk's first:
+    ``PROMPT_TEXT``'s words after the request's name, as many as leave the
+    templated prompt between ``QOS_PAGE_TAIL`` tokens short of a page."""
+    words = PROMPT_TEXT.split()
+    out = []
+    for tenant, n in (("bulk", QOS_BULK), ("gold", QOS_GOLD)):
+        for i in range(n):
+            text, j = f"{tenant} request {i}:", i
+            while True:
+                ids = tok.apply_chat_template([{"role": "user",
+                                                "content": text}])
+                short = -len(ids) % page_size
+                if len(ids) > page_size // 2 and \
+                        QOS_PAGE_TAIL[0] <= short <= QOS_PAGE_TAIL[1]:
+                    break
+                text += " " + words[j % len(words)]
+                j += 1
+            out.append((tenant, f"qos-{tenant}-{i}", text))
+    return out
+
+
+def _qos_chat(base, text, rid, headers):
+    """One greedy, unstreamed chat: (status, body)."""
+    body = json.dumps({"messages": [{"role": "user", "content": text}],
+                       "max_tokens": QOS_TOKENS,
+                       "temperature": 0.0}).encode()
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=body,
+        headers={"Content-Type": "application/json", "X-Request-Id": rid,
+                 **headers})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def _top2_gap(dev, cfg, params, prompt, a, b):
+    """Where greedy streams a and b of ``prompt`` part: (step, the plain
+    forward's top-2 logit gap there, the CHAIN_TIE_ULPS limit); None when
+    they are equal."""
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama
+    if a == b:
+        return None
+    step = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+    ids = torch.tensor([list(prompt) + list(a[:step])], device=dev)
+    with torch.no_grad():
+        logits = llama.forward(params, cfg, ids)[0, -1].float()
+    top2 = logits.topk(2).values
+    return (step, (top2[0] - top2[1]).item(),
+            CHAIN_TIE_ULPS * BF16_ULP * abs(top2[0].item()))
+
+
+def phase_serve_qos(dev, cfg, params, smi, tok, core, **_):
+    """serve_qos: the QoS admission plane (``APP_QOS=fair``,
+    ``QOS_WEIGHTS``) and the forensics plane (``APP_FORENSICS=on``, the
+    trace on) over the port's engine server, on ``serve_chain_server``'s
+    engine core and tokenizer (llama3-8b, bf16, 8 slots, warm; nothing new
+    is drawn or built) with a new Scheduler, after every earlier
+    scheduler over the core stopped. Traffic: ``_qos_prompts`` over HTTP
+    with ``X-Tenant-Id`` (bulk's admitted together, gold's once bulk's
+    first wave decodes) and ``QOS_DOOMED`` (best_effort, ``X-Deadline-Ms:
+    1``). Once both tenants hold slots, the chaos plane's ``page.exhaust``
+    fails every page allocation until the scheduler preempts one job.
+    Checks: the doomed chat is shed before prefill (503 naming the shed,
+    ``slo_outcome`` "shed", its trace a ``qos`` shed and no dispatch);
+    gold's chats are admitted before bulk's backlog drains, as
+    ``/debug/qos``'s virtual times at gold's arrival predict; the victim is
+    a bulk job; every stream equals its replay with ``APP_QOS`` off on the
+    same core, from an empty prefix cache, in the live admission order, or
+    parts from it only at a top-2 tie within ``CHAIN_TIE_ULPS`` bf16 ulps;
+    ``/debug/qos``, ``/debug/alerts``, ``/debug/forensics[/<rid>]`` and
+    ``/debug/doctor`` answer with the reference's keys (the doctor naming
+    the shed and the page pressure), ``/health`` carries
+    ``alerts_active``, a flight dump holds ``qos``; ``flash_prefill``,
+    ``ragged_paged_attention`` and ``sample_slots`` launched. Raises on
+    any fault; returns the launches of the phase's window."""
+    import tempfile
+    import torch
+    from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
+    from generativeaiexamples_tpu_torch.engine import qos as qos_mod
+    from generativeaiexamples_tpu_torch.engine.scheduler import (Request,
+                                                                 Scheduler)
+    from generativeaiexamples_tpu_torch.engine.server import serve_in_thread
+    from generativeaiexamples_tpu_torch.observability import (alerts,
+                                                              forensics, slo)
+    from generativeaiexamples_tpu_torch.observability.chaos import CHAOS
+    from generativeaiexamples_tpu_torch.observability.flight import FLIGHT
+    from generativeaiexamples_tpu_torch.observability.trace import TRACE
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+    prompts = _qos_prompts(tok, core.page_size)
+    env = {"APP_QOS": "fair", "APP_QOS_TENANT_WEIGHTS": QOS_WEIGHTS,
+           "APP_FORENSICS": "on"}
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    TRACE.configure(mode="on")
+    TRACE.reset()
+    # this phase's verdicts alone set the SLO pressure (a critical one
+    # would shed the doomed chat before the QoS plane sees it)
+    slo.SLO.reset()
+    forensics.FORENSICS.configure(mode="on")
+    forensics.FORENSICS.reset()
+    alerts.ALERTS.reset()
+    shed0 = REGISTRY.counter("qos_shed_before_prefill_total",
+                             labels={"tenant": "bulk"}).value
+    faults, victims, arm = [], [], {"armed": False, "done": False}
+    try:
+        sched = Scheduler(core, tok)
+        if sched._qos is None:
+            raise AssertionError("serve_qos: APP_QOS=fair built no policy")
+        submitted = []
+        submit = sched.submit
+
+        def recording_submit(req):
+            submitted.append(req)
+            return submit(req)
+
+        sched.submit = recording_submit
+        grow, preempt = sched._grow_pages, sched._preempt
+
+        def grow_then_arm(steps, spec_w=1):
+            # on the driver thread: the first growth pass with both tenants
+            # in slots and nothing pending arms the forced exhaustion (while
+            # bulk still had a backlog the global virtual clock would sit at
+            # bulk's, and bulk would overuse nothing)
+            if not arm["armed"] and not sched._pending and {
+                    "gold", "bulk"} <= {j.request.tenant
+                                        for j in sched._slots.values()}:
+                CHAOS.configure(mode="on", seed=0,
+                                spec="page.exhaust=1/0/100000")
+                arm["armed"] = True
+            return grow(steps, spec_w)
+
+        def preempt_once(job):
+            if arm["armed"] and not arm["done"]:
+                CHAOS.configure(mode="off")
+                arm["done"] = True
+            victims.append((job.request.request_id, job.request.tenant))
+            return preempt(job)
+
+        sched._grow_pages, sched._preempt = grow_then_arm, preempt_once
+        gate = _gate_admission(sched)
+        gate.clear()
+        httpd, thread = serve_in_thread(sched, "llama3-8b-random")
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        k.reset_launch_counts()
+        core.sample_calls = 0
+        for key in sched.stats:
+            sched.stats[key] = 0
+        t0 = time.perf_counter()
+        try:
+            with concurrent.futures.ThreadPoolExecutor(
+                    len(prompts) + 1) as pool:
+                futs = {rid: pool.submit(_qos_chat, base, text, rid,
+                                         {"X-Tenant-Id": tenant})
+                        for tenant, rid, text in prompts[:QOS_BULK]}
+                _wait_for(lambda: len(submitted) >= QOS_BULK,
+                          "bulk's chats did not arrive")
+                gate.set()
+                _wait_for(lambda: sched.stats["decode_dispatches"] >= 1,
+                          "bulk's first wave did not decode")
+                for tenant, rid, text in prompts[QOS_BULK:]:
+                    futs[rid] = pool.submit(_qos_chat, base, text, rid,
+                                            {"X-Tenant-Id": tenant})
+                futs[QOS_DOOMED] = pool.submit(
+                    _qos_chat, base, prompts[0][2], QOS_DOOMED,
+                    {"X-Tenant-Id": "bulk", "X-Slo-Class": "best_effort",
+                     "X-Deadline-Ms": "1"})
+                _wait_for(lambda: len(submitted) >= len(prompts) + 1,
+                          "gold's chats did not arrive")
+                at_gold = _get_json(base + "/debug/qos")
+                rates = sched._qos._charge_rates()
+                answers = {rid: f.result() for rid, f in futs.items()}
+            traffic_s = time.perf_counter() - t0
+            launches = k.launch_counts()
+            stats = dict(sched.stats)
+            bodies = {path: _get_json(base + path) for path in (
+                "/debug/qos", "/debug/alerts", "/debug/forensics",
+                f"/debug/forensics/{QOS_DOOMED}", "/debug/doctor",
+                "/health", f"/debug/trace?rid={QOS_DOOMED}")}
+            if victims:
+                bodies["victim"] = _get_json(
+                    f"{base}/debug/forensics/{victims[0][0]}")
+            with tempfile.TemporaryDirectory() as tmp:
+                with open(FLIGHT.dump(os.path.join(tmp, "flight.json"))) as fh:
+                    dump = json.load(fh)
+            records = TRACE.records()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            sched.stop()
+            CHAOS.reset()
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        # the planes back off: the shed's goodput alert and its SLO hazard
+        # are this phase's, not the next phases'
+        forensics.FORENSICS.configure(mode="off")
+        forensics.FORENSICS.reset()
+        alerts.ALERTS.reset()
+        slo.SLO.reset()
+        TRACE.configure(mode="off")
+    reqs = {r.request_id: r for r in submitted}
+    admits = [r["rid"] for r in records
+              if r["kind"] == "admit" and not r.get("resume")]
+    # shed before prefill
+    doomed = reqs.get(QOS_DOOMED)
+    status, body = answers[QOS_DOOMED]
+    sheds = [r for r in records if r["kind"] == "qos"
+             and r.get("decision") == "shed"]
+    shed_dispatch = [r for r in records if r["kind"] == "dispatch"
+                     and QOS_DOOMED in str(r.get("rids", "")).split(",")]
+    if (doomed is None or doomed.slo_outcome != "shed" or status != 503
+            or "shed: deadline unmeetable before prefill"
+            not in body.get("error", "") or QOS_DOOMED in admits
+            or [r["rid"] for r in sheds] != [QOS_DOOMED] or shed_dispatch
+            or REGISTRY.counter("qos_shed_before_prefill_total",
+                                labels={"tenant": "bulk"}).value
+            != shed0 + 1):
+        faults.append(f"the doomed chat was not shed before prefill: "
+                      f"{status} {body}, {sheds}, {shed_dispatch}")
+    # fair share: at gold's arrival its virtual clock floors at the global
+    # one, which bulk's is not behind; each gold admission advances it by a
+    # quarter of its cost, so gold's chats go before bulk's backlog drains.
+    # The predicted order: a policy of the same weights and rates started
+    # from that snapshot, merging the chats that waited then
+    vt = {t: row["virtual_time"] for t, row in at_gold["tenants"].items()}
+    floor = at_gold["global_virtual_time"]
+    wave = [rid for rid in admits[len(admits) - QOS_GOLD - (
+        QOS_BULK - 8):]]
+    model = qos_mod.QosPolicy(weights={"gold": 4.0, "bulk": 1.0})
+    if rates is not None:
+        model.configure_estimate(*rates)
+    model._vtime, model._global_v = dict(vt), floor
+    predicted = [j.request.request_id for j in model.order(
+        [type("Job", (), {"request": reqs[rid], "gen_ids": [],
+                          "spill": None})() for rid in sorted(
+            wave, key=lambda rid: reqs[rid].submitted_at)], len(wave))]
+    gold_at = [admits.index(rid) for _, rid, _ in prompts[QOS_BULK:]
+               if rid in admits]
+    last_bulk = max(i for i, rid in enumerate(admits)
+                    if rid.startswith("qos-bulk"))
+    if (len(gold_at) != QOS_GOLD or not vt.get("bulk")
+            or max(vt.get("gold", floor), floor) > vt["bulk"]
+            or max(gold_at) > last_bulk
+            or max(predicted.index(rid) for rid in predicted
+                   if rid.startswith("qos-gold")) > max(
+                predicted.index(rid) for rid in predicted
+                if rid.startswith("qos-bulk"))
+            or len(admits) != len(prompts)):
+        faults.append(f"gold did not go before bulk's backlog: admits "
+                      f"{admits}, predicted {predicted}, virtual times at "
+                      f"gold's arrival {vt} (global {floor})")
+    # the preemption
+    if not arm["done"] or not victims or victims[0][1] != "bulk":
+        faults.append(f"the forced exhaustion's victim {victims} (armed "
+                      f"{arm})")
+    # every stream against its replay with the plane off, admitted in the
+    # live order from an empty prefix cache
+    live = [reqs[rid] for rid in admits]
+    for rid, (code, answer) in answers.items():
+        if rid != QOS_DOOMED and (code != 200 or reqs[rid].error):
+            faults.append(f"{rid}: {code} {answer}")
+    replay = Scheduler(core, tok)
+    gate = _gate_admission(replay)
+    gate.clear()
+    replay.start()
+    try:
+        twins = [replay.submit(Request(prompt_ids=list(r.prompt_ids),
+                                       max_tokens=r.max_tokens,
+                                       temperature=0.0)) for r in live]
+        gate.set()
+        for twin in twins:
+            "".join(replay.iter_text(twin))
+    finally:
+        replay.stop()
+    if replay._qos is not None:
+        faults.append("the replay's scheduler held a QoS policy")
+    parted = {}
+    for req, twin in zip(live, twins):
+        gap = _top2_gap(dev, cfg, params, req.prompt_ids, req.output_ids,
+                        twin.output_ids)
+        if twin.error or gap is not None:
+            parted[req.request_id] = gap
+            if twin.error or gap[1] > gap[2]:
+                faults.append(f"{req.request_id} parts from its replay at "
+                              f"{gap} ({twin.error})")
+    # the debug surfaces
+    keys = {"/debug/qos": ("enabled", "mode", "default_weight",
+                           "global_virtual_time", "outstanding_admissions",
+                           "max_tenants", "tenants", "estimate"),
+            "/debug/alerts": ("active", "fired_total", "recent_fired",
+                              "objectives", "rules", "enabled"),
+            "/debug/forensics": ("enabled", "mode", "capacity", "captured",
+                                 "p99_samples", "trailing_p99_s",
+                                 "exemplars"),
+            "/debug/doctor": ("healthy", "diagnoses", "alerts",
+                              "slo_pressure", "forensics", "qos",
+                              "generated_unix")}
+    for path, want in keys.items():
+        if sorted(bodies[path]) != sorted(want):
+            faults.append(f"{path} keys {sorted(bodies[path])}")
+    exemplar = bodies[f"/debug/forensics/{QOS_DOOMED}"]
+    if (not exemplar.get("captured") or exemplar.get("reason") != "shed"
+            or "shed" not in [s["label"] for s in
+                              exemplar["breakdown"]["segments"]]):
+        faults.append(f"the doomed chat's exemplar {exemplar}")
+    causes = {d["cause"] for d in bodies["/debug/doctor"]["diagnoses"]}
+    if not {"qos_shed", "page_pressure"} <= causes:
+        faults.append(f"the doctor names {causes}")
+    if "alerts_active" not in bodies["/health"]:
+        faults.append("/health lacks alerts_active")
+    if not dump.get("qos", {}).get("enabled"):
+        faults.append(f"the flight dump's qos: {dump.get('qos')}")
+    qos_body = bodies["/debug/qos"]
+    if (not qos_body["enabled"] or qos_body["outstanding_admissions"] != 0
+            or qos_body["tenants"]["bulk"]["virtual_time"]
+            <= qos_body["tenants"]["gold"]["virtual_time"]):
+        faults.append(f"/debug/qos after the traffic: {qos_body}")
+    for name in ("flash_prefill", "ragged_paged_attention", "sample_slots"):
+        if launches[name] < 1:
+            faults.append(f"{name} never launched")
+    if faults:
+        raise AssertionError("serve_qos: " + "; ".join(faults))
+    victim_bd = bodies.get("victim", {}).get("breakdown", {})
+    emit("serve_qos", card=smi, traffic_s=traffic_s,
+         weights=QOS_WEIGHTS, admission_order=admits,
+         virtual_times_at_gold_arrival=vt, global_at_gold_arrival=floor,
+         second_wave=dict(admitted=wave, predicted=predicted,
+                          equal=wave == predicted),
+         virtual_times_after={t: row["virtual_time"] for t, row in
+                              qos_body["tenants"].items()},
+         global_virtual_time=qos_body["global_virtual_time"],
+         estimate=qos_body["estimate"],
+         shed=dict(status=status, error=body.get("error"),
+                   est_s=sheds[0].get("est_s"),
+                   basis=at_gold["estimate"]["basis"]),
+         victims=victims,
+         victim_segments=[(s["label"], s["cause"]) for s in
+                          victim_bd.get("segments", [])],
+         replay_parted=parted, tie_limit=f"{CHAIN_TIE_ULPS} bf16 ulps",
+         doctor=sorted(causes),
+         exemplars=[(e["rid"], e["reason"]) for e in
+                    bodies["/debug/forensics"]["exemplars"]],
+         alerts_active=bodies["/health"]["alerts_active"],
+         tokens=sum(len(r.output_ids) for r in live),
+         dispatches=stats, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -8977,6 +9392,9 @@ PLANTED_FAULTS = (
     ("gemm_f32_skipped_k_tile", "w8a16_gemm.cu",
      "for (int k0 = 0; k0 < K; k0 += FBK)",
      "for (int k0 = FBK; k0 < K; k0 += FBK)", ("w8a16_gemm",)),
+    ("gemm_ring_guard_off", "w8a16_gemm.cu",
+     "        if (pos >= STAGES)\n",
+     "        if (false)\n", ("w8a16_gemm",)),
     ("grammar_flipped_bit", "grammar_mask.cu",
      "a.out[(long long)srow[j + g] * a.words + word] = bits;",
      "a.out[(long long)srow[j + g] * a.words + word] = bits ^ 0x100u;",
@@ -9100,16 +9518,27 @@ phases = {"flash_prefill": cs.flash_cases(dev),
           "parity_multi": cs.parity_multi_cases(dev),
           "parity_disagg": cs.parity_disagg_cases(dev),
           "parity_encoders": cs.parity_encoders_cases(dev)}
-out = {}
+out, dead = {}, False
 for name in sys.argv[1:]:
     out[name] = {}
     for case, fn in phases[name].items():
         try:
             fn()
+            torch.cuda.synchronize()
             out[name][case] = "passed"
         except cs.KernelMismatch as exc:
             out[name][case] = exc.reading
+        except RuntimeError as exc:
+            if "CUDA" not in str(exc):
+                raise
+            # a launch failed (a trapped wait): the process's context is
+            # gone, so the phase's later cases cannot run
+            out[name][case] = {"cuda_error": str(exc)[:300]}
+            dead = True
+            break
         torch.cuda.empty_cache()
+    if dead:
+        break
 print(json.dumps(out))
 """
 
@@ -9382,10 +9811,26 @@ def planted_faults(only=()) -> None:
                 if reading != "passed":
                     caught[f"{phase}:{case}"].append(name)
     emit("planted_faults", caught_by=caught)
+    # every case failing under some fault is a property of the whole set:
+    # a run of named faults checks only that each of them is caught
     uncaught = [case for case, faults in caught.items() if not faults]
-    if uncaught:
+    if uncaught and not only:
         raise AssertionError(f"no planted fault failed the checks of "
                              f"{uncaught}")
+
+
+def serve_qos_alone(dev, smi) -> None:
+    """``serve_qos`` without the rest of the smoke: the kernels built,
+    llama3-8b drawn and an engine core warmed as ``serve_chain_server``
+    makes its own (``--serve-qos``)."""
+    timed("build", phase_build, gemm_report=False)
+    cfg, params, init_s = draw_8b(dev)
+    emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)
+    tok = smoke_tokenizer()["tok"]
+    core = serving_core(dev, cfg, params, eos_id=tok.eos_id)
+    core.warmup()
+    timed("serve_qos", phase_serve_qos, dev, cfg, params, smi, tok=tok,
+          core=core)
 
 
 def main() -> int:
@@ -9409,11 +9854,13 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = phase_device()
     if sys.argv[1:2] in (["--planted-faults"], ["--ab"],
-                         ["--lora-variants"]):
+                         ["--lora-variants"], ["--serve-qos"]):
         if sys.argv[1] == "--ab":
             ab(sys.argv[2:4], sys.argv[4:] or AB_PARTS)
         elif sys.argv[1] == "--lora-variants":
             lora_variants()
+        elif sys.argv[1] == "--serve-qos":
+            serve_qos_alone(dev, smi)
         else:
             planted_faults(sys.argv[2:])
         print(smi, flush=True)
@@ -9498,6 +9945,8 @@ def main() -> int:
                                       smi, **shared)
         paths["serve_events"] = timed("serve_events", phase_serve_events,
                                       smi, **shared)
+        paths["serve_qos"] = timed("serve_qos", phase_serve_qos, dev, cfg,
+                                   params, smi, **shared)
     finally:
         for name in ("emb", "rer"):
             if name in shared:

@@ -31,7 +31,6 @@ ENV_PREFIX = "APP"
 # ports them, and the value that means "feature off" (accepted as a no-op)
 NOT_PORTED: Dict[str, tuple] = {
     "long_prefill": ("A11 (sequence-parallel prefill)", "off"),
-    "qos": ("A6 (QoS plane)", "off"),
     "mesh_shape": ("A11 (tensor parallelism)", ""),
     "donate_buffers": ("none: PyTorch updates the pool in place", "auto"),
 }
@@ -146,6 +145,13 @@ class EngineConfig:
     # on (every dispatch; serializes the pipeline). The bare env
     # APP_DEVTIME overrides this field
     devtime: str = "off"
+    # QoS admission plane (engine/qos.py): off (default: the scheduler's
+    # FIFO with bounded bypass, zero qos calls) | fair (per-tenant weighted
+    # fair queuing on virtual time, EDF within a tenant, the
+    # APP_QOS_TOKENS_PER_S quotas, shed before prefill, slack-aware
+    # preemption). Tenant weights ride APP_QOS_TENANT_WEIGHTS
+    # ("acme=4,*=1"); the bare env APP_QOS overrides this field
+    qos: str = "off"
 
     def __post_init__(self) -> None:
         if self.pipeline_depth < 1:

@@ -756,11 +756,39 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
       : "memory");
 }
 
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// A barrier wait that lasts this long is a broken protocol, not a slow
+// one (every wait of the ring is sub-microsecond when the protocol
+// holds). The waits of a check instance (WATCH) trap then, so a check that
+// breaks the protocol fails its launch loudly instead of hanging the card;
+// serving instances keep the bare spin.
+constexpr unsigned long long WAIT_TRAP_NS = 10ull * 1000 * 1000 * 1000;
+
+// after every 1,024 failed polls: trap once the wait has passed
+// WAIT_TRAP_NS (the timer is read only on the slow path)
+__device__ __forceinline__ void wait_watch(unsigned& polls,
+                                           unsigned long long& t0) {
+  if (++polls & 1023u) return;
+  const unsigned long long now = global_ns();
+  if (t0 == 0)
+    t0 = now;
+  else if (now - t0 > WAIT_TRAP_NS)
+    __trap();
+}
+
 // wait until the phase of parity `parity` has completed
+template <bool WATCH = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   const unsigned a = smem_addr(bar);
-  unsigned done = 0;
+  unsigned done = 0, polls = 0;
+  unsigned long long t0 = 0;
   while (!done) {
+    if constexpr (WATCH) wait_watch(polls, t0);
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -772,11 +800,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 // the same, acquiring at cluster scope what other CTAs released
+template <bool WATCH = false>
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
                                                   unsigned parity) {
   const unsigned a = smem_addr(bar);
-  unsigned done = 0;
+  unsigned done = 0, polls = 0;
+  unsigned long long t0 = 0;
   while (!done) {
+    if constexpr (WATCH) wait_watch(polls, t0);
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "

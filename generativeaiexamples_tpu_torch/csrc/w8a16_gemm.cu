@@ -145,6 +145,10 @@ struct Params {
   __nv_bfloat16* y;
   int M, N, K;
   int m_tiles, n_tiles, ks_total, ks_per_rank;   // stages of the depth
+  // the ring check (0 in serving; its instance only): the producer issues
+  // the loads of ring position 0 last of the ring's first fill, this many
+  // ns after the others (the kernel's "late first stage")
+  unsigned long long late_ns;
 };
 
 // four int8 (bytes 0..3 of w) as two bf16 pairs: (b0, b1) and (b2, b3)
@@ -249,7 +253,23 @@ __device__ __forceinline__ void store8(const Params& p, int row, int col,
   }
 }
 
+// stage ks of output tile (mt, nt) into the ring slot at `xs`: the weight
+// box and x's boxes, completing on `bar`
 template <int BN, bool SPLIT>
+__device__ __forceinline__ void load_stage(uint8_t* xs, const void* wmap,
+                                           const void* xmap, uint64_t* bar,
+                                           int ks, int mt, int nt) {
+  using S = Shape<BN, SPLIT>;
+  tma_load_2d(xs + S::X_BYTES, wmap, bar, ks * S::KS, nt * S::ROWS);
+#pragma unroll
+  for (int h = 0; h < S::HALVES; ++h)
+    tma_load_2d(xs + h * S::X_HALF, xmap, bar, ks * S::KS + h * BK, mt * BN);
+}
+
+// CHECK: the ring check's instance (dispatch's late_ns): the late first
+// stage, and waits that trap past WAIT_TRAP_NS; serving instances have
+// neither
+template <int BN, bool SPLIT, bool CHECK = false>
 __global__ void __launch_bounds__(threads_of<SPLIT>(), 1)
     w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                        const __grid_constant__ CUtensorMap xmap,
@@ -292,21 +312,33 @@ __global__ void __launch_bounds__(threads_of<SPLIT>(), 1)
     if (warp == CONSUMERS / 32 && lane == 0) {
       tma_prefetch_map(&wmap);
       tma_prefetch_map(&xmap);
+      // the late first stage (CHECK): position 0's loads wait until the
+      // rest of the ring's first fill is issued, p.late_ns more, so its
+      // data lands last, after the other warpgroup's stages
+      const int fill = min(STAGES, ks1 - ks0);
+      int late_mt = -1, late_nt = 0;
       int g = 0;
       for (int t = cid; t < n_tiles; t += n_clusters) {
         int mt, nt;
         tile_of(t, p.m_tiles, p.n_tiles, mt, nt);
         for (int ks = ks0; ks < ks1; ++ks, ++g) {
           const int st = g % STAGES;
-          mbar_wait(&empty_bar[st], ((g / STAGES) & 1) ^ 1);
-          uint8_t* xs = smem + st * S::STAGE;
+          mbar_wait<CHECK>(&empty_bar[st], ((g / STAGES) & 1) ^ 1);
           mbar_arrive_expect_tx(&full_bar[st], S::STAGE);
-          tma_load_2d(xs + S::X_BYTES, &wmap, &full_bar[st], ks * S::KS,
-                      nt * S::ROWS);
-#pragma unroll
-          for (int h = 0; h < S::HALVES; ++h)
-            tma_load_2d(xs + h * S::X_HALF, &xmap, &full_bar[st],
-                        ks * S::KS + h * BK, mt * BN);
+          if (CHECK && g == 0) {
+            late_mt = mt;
+            late_nt = nt;
+          } else {
+            load_stage<BN, SPLIT>(smem + st * S::STAGE, &wmap, &xmap,
+                                  &full_bar[st], ks, mt, nt);
+          }
+          if (CHECK && late_mt >= 0 && g == fill - 1) {
+            const unsigned long long t0 = global_ns();
+            while (global_ns() - t0 < p.late_ns) __nanosleep(1000);
+            load_stage<BN, SPLIT>(smem, &wmap, &xmap, &full_bar[0], ks0,
+                                  late_mt, late_nt);
+            late_mt = -1;
+          }
         }
       }
     }
@@ -331,10 +363,23 @@ __global__ void __launch_bounds__(threads_of<SPLIT>(), 1)
     return u % H < H - 1 ? u + 1 : u + 1 + (SPLIT ? H : 0);
   };
   int g0 = 0, tile_i = 0;   // the ring position of the tile's first stage
-  // unit u's A fragments into `a` (first waiting for its stage to land)
+  // unit u's A fragments into `a` (first waiting for its stage to land).
+  // A decode ring of odd depth hands a slot to the two warpgroups in turn
+  // within a tile, so one may reach the slot's next fill while the other
+  // still waits for its last one: the parity wait cannot tell those two
+  // phases apart, and would pass on the older, incomplete one (reading
+  // the slot before its data landed, releasing it twice). So such a ring
+  // first waits for the slot's last fill to be released.
   const auto fetch = [&](int u, uint32_t (&a)[4][4]) {
     const int pos = g0 + u / H;
-    if (u % H == 0) mbar_wait(&full_bar[pos % STAGES], (pos / STAGES) & 1);
+    if (u % H == 0) {
+      if constexpr (SPLIT && (STAGES & 1)) {
+        if (pos >= STAGES)
+          mbar_wait<CHECK>(&empty_bar[pos % STAGES],
+                           ((pos / STAGES) - 1) & 1);
+      }
+      mbar_wait<CHECK>(&full_bar[pos % STAGES], (pos / STAGES) & 1);
+    }
     load_a<SPLIT>(smem + (pos % STAGES) * S::STAGE + S::X_BYTES, arow, t4,
                   u % H, a);
   };
@@ -380,7 +425,7 @@ __global__ void __launch_bounds__(threads_of<SPLIT>(), 1)
       // ---- f32 partials, added across the cluster in rank order --------
       float* part = reinterpret_cast<float*>(smem + STAGES * S::STAGE);
       // the last tile's partials may still be read by other ranks
-      if (tile_i > 0) mbar_wait_cluster(&red_done, (tile_i - 1) & 1);
+      if (tile_i > 0) mbar_wait_cluster<CHECK>(&red_done, (tile_i - 1) & 1);
       float* mine = part + wg * BN * PSTRIDE;
 #pragma unroll
       for (int j = 0; j < BN / 2; ++j) {
@@ -392,7 +437,7 @@ __global__ void __launch_bounds__(threads_of<SPLIT>(), 1)
       bar_sync(1, CONSUMERS);
       if (tid == 0)
         for (int q = 0; q < CL; ++q) mbar_arrive_cluster(&red_full, q);
-      mbar_wait_cluster(&red_full, tile_i & 1);
+      mbar_wait_cluster<CHECK>(&red_full, tile_i & 1);
       // rank `rank` adds the outputs (m, 8-column chunk c) with
       // (8m + c) % CL == rank
       const int n0 = nt * 64;
@@ -455,7 +500,8 @@ __global__ void __launch_bounds__(threads_of<SPLIT>(), 1)
     }
   }
   // no rank leaves while another may still read its partials
-  if (SPLIT && tile_i > 0) mbar_wait_cluster(&red_done, (tile_i - 1) & 1);
+  if (SPLIT && tile_i > 0)
+    mbar_wait_cluster<CHECK>(&red_done, (tile_i - 1) & 1);
 }
 
 // f32 activations: scalar FMAs, 32 x 64 outputs a block of 256 threads
@@ -552,11 +598,11 @@ int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int BN, bool SPLIT>
+template <int BN, bool SPLIT, bool CHECK = false>
 int launch(const CUtensorMap& wmap, const CUtensorMap& xmap, const Params& p,
            int cluster, int clusters, cudaStream_t stream) {
   using S = Shape<BN, SPLIT>;
-  auto kern = w8a16_wgmma_kernel<BN, SPLIT>;
+  auto kern = w8a16_wgmma_kernel<BN, SPLIT, CHECK>;
   static bool smem_set = false;   // the instance's dynamic-shared limit
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -611,6 +657,10 @@ int max_clusters(int cluster, int* out) {
 int dispatch(bool split, int bn, const CUtensorMap& wmap,
              const CUtensorMap& xmap, const Params& p, int cluster,
              int clusters, cudaStream_t st) {
+  if (p.late_ns) {   // the ring check: one instance, 72-row decode tiles
+    if (!split || bn != 72) return (int)cudaErrorInvalidValue;
+    return launch<72, true, true>(wmap, xmap, p, cluster, clusters, st);
+  }
 #define GK_CASE(R) \
   case R: return launch<R, true>(wmap, xmap, p, cluster, clusters, st);
   if (split) {
@@ -658,12 +708,15 @@ extern "C" int gk_w8a16_weight_map(const void* q, int N, int K, int rows,
 // 64 deep); the grid is `clusters` clusters of `cluster` CTAs (decode
 // tiles only: up to 8), rank r of a cluster taking the stages
 // [r * ks_per_rank, (r + 1) * ks_per_rank) of the contraction; x's map is
-// encoded here. f32: the scalar instance
+// encoded here; `late_ns` (0 in serving) runs the ring check's instance
+// (72-row decode tiles only), which delays ring position 0's loads that
+// long (Params::late_ns). f32: the scalar instance
 // (the plan and wmap unused). Returns a CUDA error code, 0 on success.
 extern "C" int gk_w8a16_gemm(int dtype, const void* x, const void* q,
                              const void* s, void* y, int M, int N, int K,
                              const void* wmap, int split, int bn, int cluster,
-                             int clusters, int ks_per_rank, void* stream) {
+                             int clusters, int ks_per_rank,
+                             unsigned long long late_ns, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   const int8_t* qq = static_cast<const int8_t*>(q);
@@ -699,6 +752,7 @@ extern "C" int gk_w8a16_gemm(int dtype, const void* x, const void* q,
   p.n_tiles = (N + (split ? 64 : 128) - 1) / (split ? 64 : 128);
   p.ks_total = ks_total;
   p.ks_per_rank = ks_per_rank;
+  p.late_ns = late_ns;
   if (clusters > p.m_tiles * p.n_tiles) return (int)cudaErrorInvalidValue;
   return dispatch(split != 0, bn, wm, xm, p, cluster, clusters, st);
 }

@@ -39,11 +39,15 @@ otherwise (the CPU). The pools count into ``core/metrics.REGISTRY``
 given (the scheduler's: ``kv_spill_<outcome>``, ``kv_tier_<outcome>``,
 ``kv_tier_probe_<hit|miss>``). The lock is ``lockwatch.tracked_lock``.
 
-The one departure: the QoS plane is not ported (ROADMAP A.10, second
-part). Every contributor counts as maximally slack (the reference's
-reading of an undated request), so the reference's slack factor is 1 for
-every entry and drops out of the price, and its tenant victim bias
-(``set_victim_bias``) waits for the plane.
+The QoS plane composes with the price, as there: a contributor's SLO slack
+(``engine/qos.request_remaining_s`` at the spill; an undated request is
+maximally slack) keeps entries of requests with little slack longest, and
+with ``APP_QOS=fair`` the scheduler sets the tenant victim bias
+(``set_victim_bias(QosPolicy.tenant_overuse_hint)``), which divides an
+entry's value by one plus its tenant's virtual-time lead, so a flooding
+tenant's prefixes evict first. The hint reads the policy's published
+snapshot without the QoS lock: pricing runs under the tier's lock, and
+the tier never orders ``kv_tier._lock`` before ``qos._lock``.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from generativeaiexamples_tpu_torch.core import clock, kv_wire
 from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
@@ -64,6 +68,10 @@ from generativeaiexamples_tpu_torch.observability.lockwatch import (
     tracked_lock)
 
 logger = logging.getLogger(__name__)
+
+# slack values are clamped here (mirrors engine/qos.py's cap): an undated
+# request is "maximally slack", never infinitely valuable
+_SLACK_CAP_S = 600.0
 
 
 
@@ -233,6 +241,8 @@ class _TierEntry:
     last_use: float = field(default_factory=clock.mono)
     disk_path: str = ""
     disk_bytes: int = 0
+    tenant: str = ""
+    slack_s: float = _SLACK_CAP_S      # contributor's SLO slack
 
 
 class PrefixKVTier(KVSpillPool):
@@ -265,6 +275,9 @@ class PrefixKVTier(KVSpillPool):
         self._rid_link: Dict[str, bytes] = {}
         self._cached = 0
         self._half_life_s = float(half_life_s)
+        # QoS composition hook: tenant -> overuse seconds (virtual-time
+        # lead). Entries from overusing tenants evict first.
+        self._victim_bias: Optional[Callable[[str], float]] = None
         # disk tier (write-behind): ops drain on ONE background thread so
         # file I/O never blocks the driver and never runs under _lock
         self.disk_budget_bytes = int(disk_budget_bytes)
@@ -305,6 +318,11 @@ class PrefixKVTier(KVSpillPool):
             return (sum(e.refs for e in self._entries.values())
                     + len(self._rid_link))
 
+    def set_victim_bias(self, fn: Optional[Callable[[str], float]]) -> None:
+        """tenant -> overuse seconds (the QoS plane's virtual-time lead);
+        entries of overusing tenants evict first. None removes it."""
+        self._victim_bias = fn
+
     def count_tier(self, outcome: str) -> None:
         """Count a promotion's outcome the scheduler decides
         (``kv_tier_promoted``, ``kv_tier_import_failed``)."""
@@ -331,11 +349,20 @@ class PrefixKVTier(KVSpillPool):
 
     def _score_locked(self, e: _TierEntry, now: float) -> float:
         """Eviction value (lower evicts first): recompute cost × recency
-        decay × hit history."""
+        decay × hit history, kept longer when the contributor had little
+        SLO slack, discounted by the contributing tenant's QoS overuse."""
         value = self._recompute_cost(e.tokens)
         age = max(0.0, now - e.last_use)
         value *= max(0.5 ** (age / self._half_life_s), 1e-3)
         value *= 1.0 + min(e.hits, 8)
+        slack = min(max(e.slack_s, 0.0), _SLACK_CAP_S)
+        value *= 1.0 + (_SLACK_CAP_S - slack) / _SLACK_CAP_S
+        bias = self._victim_bias
+        if bias is not None:
+            try:
+                value /= 1.0 + max(0.0, float(bias(e.tenant) or 0.0))
+            except Exception:   # a pricing hook never breaks eviction
+                pass
         return value
 
     # -------------------------------------------------------------- eviction
@@ -437,7 +464,9 @@ class PrefixKVTier(KVSpillPool):
     # ----------------------------------------------------------- tier plane
 
     def contribute(self, rid: str, hashes: Sequence[bytes],
-                   payload: Dict[str, Any], tokens: int) -> bool:
+                   payload: Dict[str, Any], tokens: int,
+                   tenant: str = "",
+                   slack_s: Optional[float] = None) -> bool:
         """Register a spilled payload's full-page prefix run under its
         chain hashes. The entry shares the rid's payload arrays (zero
         copy) and is pinned by the rid until :meth:`release`."""
@@ -460,6 +489,9 @@ class PrefixKVTier(KVSpillPool):
                 depth=len(hashes),
                 tokens=int(tokens),
                 payload=payload,
+                tenant=str(tenant or ""),
+                slack_s=(_SLACK_CAP_S if slack_s is None
+                         else min(max(float(slack_s), 0.0), _SLACK_CAP_S)),
                 linked_rid=rid,
             )
             self._entries[key] = e

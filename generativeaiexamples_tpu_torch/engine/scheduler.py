@@ -113,8 +113,22 @@ samples the scheduler's state every ``APP_FLIGHT_INTERVAL_MS``; the
 chaos plane's page, spill and tick faults fire at their seams. The
 driver stamps ``last_tick_mono`` every loop and each in-flight dispatch
 its issue instant and steps (``_Dispatch.issued``): the engine watchdog
-(``engine/watchdog.py``) reads both. Not ported: the QoS admission plane
-and the forensics plane (ROADMAP A.10, second part).
+(``engine/watchdog.py``) reads both.
+
+The QoS admission plane, as there (``engine/qos.py``, ``APP_QOS=off|fair``):
+off, the scheduler holds no policy and makes no qos call. Fair, each
+admission pass first sheds the sheddable fresh submissions whose remaining
+deadline cannot cover their estimated service (``_qos_shed_unmeetable``:
+no prefill runs for them), then scans the policy's order (per-tenant EDF
+merged by weighted-fair virtual time, quota-throttled tenants held back)
+with the same page-fit and bounded-bypass walk; a first admission charges
+the tenant's virtual clock and quota, every terminal event settles it
+(``_qos_settle``), page pressure picks its victim by tenant overuse, then
+slack, then age (``_pick_victim``), and the prefix tier prices each spill
+by its tenant's overuse and its slack. With ``APP_FORENSICS=on`` every
+terminal event also feeds ``FORENSICS.observe`` (the tail-exemplar ring
+and the burn-rate alerts); the dispatch records carry their requests'
+ids (``rids``), which the forensics plane joins to each request.
 """
 
 from __future__ import annotations
@@ -139,12 +153,15 @@ from generativeaiexamples_tpu_torch.core.metrics import REGISTRY
 from generativeaiexamples_tpu_torch.engine.engine import (
     EngineCore, HostCopy, PrefillItem, bits_to_f32, unpack_decode_out)
 from generativeaiexamples_tpu_torch.engine import kv_tier as kv_tier_mod
+from generativeaiexamples_tpu_torch.engine import qos as qos_mod
 from generativeaiexamples_tpu_torch.engine.kv_tier import (
     KVSpillPool, PrefixKVTier, spill_budget_bytes, tier_disk_bytes, tier_mode)
 from generativeaiexamples_tpu_torch.engine.prefix_cache import chain_hashes
 from generativeaiexamples_tpu_torch.engine.tokenizer import (
     IncrementalDetokenizer, Tokenizer)
 from generativeaiexamples_tpu_torch.observability import chaos as chaos_mod
+from generativeaiexamples_tpu_torch.observability import (
+    forensics as forensics_mod)
 from generativeaiexamples_tpu_torch.observability import slo as slo_mod
 from generativeaiexamples_tpu_torch.observability import usage as usage_mod
 from generativeaiexamples_tpu_torch.observability.devtime import (
@@ -455,6 +472,17 @@ class Scheduler:
             else:
                 self._spill = KVSpillPool(budget, self.stats)
         kv_tier_mod.register_pool(self._spill)
+        # QoS admission plane (engine/qos.py, APP_QOS=off|fair): None in
+        # off mode, where admission is the FIFO walk with no qos call
+        self._qos: Optional[qos_mod.QosPolicy] = qos_mod.policy_from_env(
+            core.cfg, perf_model=getattr(core, "perf_model", None),
+            batch_hint=int(getattr(core, "batch", 1) or 1))
+        if self._tier is not None and self._qos is not None:
+            # cached prefixes of an overusing tenant evict first, as its
+            # live jobs spill first. The hint reads the policy's published
+            # snapshot without the QoS lock: the tier calls it under its
+            # own lock, which must never be held while taking qos._lock
+            self._tier.set_victim_bias(self._qos.tenant_overuse_hint)
 
     # ------------------------------------------------------------------ API
 
@@ -684,8 +712,11 @@ class Scheduler:
             job.page_clock = 0.0
             # spilled host buffers die with their job
             self._drop_spill(job)
+            self._qos_settle(job)
             usage_mod.USAGE.bill_request(job.request)
             REQUEST_LOG.record(job.request)
+            if forensics_mod.FORENSICS.enabled:
+                forensics_mod.FORENSICS.observe(job.request)
             job.request.out_queue.put(_STOP)
         self._alloc = self.core.new_allocator()
         self._free = list(range(self.core.batch))
@@ -697,6 +728,15 @@ class Scheduler:
         for entry in waiters:
             entry["result"] = {"error": reason}
             entry["event"].set()
+
+    def _qos_settle(self, job: _Job) -> None:
+        """Close the job's QoS reservation (the virtual-time true-up and
+        the quota refund) at its terminal event: called on every path
+        that bills the usage ledger, so the policy's outstanding set
+        drains through finishes, failures, evacuations and driver
+        resets. No-op in off mode."""
+        if self._qos is not None:
+            self._qos.settle(job.request)
 
     def _bill_pages(self, job: _Job) -> None:
         """Add the job's KV page-seconds (pages held x seconds) to its
@@ -764,8 +804,11 @@ class Scheduler:
         slo_mod.SLO.observe(req)
         self._bill_pages(job)
         job.page_clock = 0.0
+        self._qos_settle(job)
         usage_mod.USAGE.bill_request(req)
         REQUEST_LOG.record(req)
+        if forensics_mod.FORENSICS.enabled:
+            forensics_mod.FORENSICS.observe(req)
         req.out_queue.put(_STOP)
         # decode-written pages join the prefix cache before release: a
         # follow-up turn whose prompt embeds this one re-admits against them
@@ -789,8 +832,11 @@ class Scheduler:
         self._bill_pages(job)
         job.page_clock = 0.0
         self._drop_spill(job)
+        self._qos_settle(job)
         usage_mod.USAGE.bill_request(job.request)
         REQUEST_LOG.record(job.request)
+        if forensics_mod.FORENSICS.enabled:
+            forensics_mod.FORENSICS.observe(job.request)
         job.request.out_queue.put(_STOP)
 
     def _table_device(self):
@@ -932,6 +978,45 @@ class Scheduler:
                             "burning); best-effort admission rejected — "
                             "retry when pressure clears (/debug/slo)")
 
+    def _qos_shed_unmeetable(self) -> None:
+        """Shed before prefill (engine/qos.py, ``APP_QOS=fair``): a
+        sheddable pending request whose remaining deadline cannot cover
+        its estimated prefill and decode service is refused at admission
+        (``slo_outcome`` "shed", an error finish) before any prefill
+        program runs for it. Only fresh local submissions shed: a resume
+        already streamed to its client, and a handoff or spill import
+        carries work already paid for."""
+        now = clock.perf()
+        with self._lock:
+            shed = []
+            for j in self._pending:
+                if (j.gen_ids or j.admit_seq != 0 or j.preload is not None
+                        or j.spill is not None):
+                    continue
+                if not slo_mod.SLO.resolve_or_default(
+                        j.request.slo_class).sheddable:
+                    continue
+                est = self._qos.should_shed(j.request, len(j.ids), now)
+                if est is not None:
+                    shed.append((j, est))
+            for job, _est in shed:
+                self._pending.remove(job)
+        for job, est in shed:
+            job.request.slo_outcome = "shed"
+            if TRACE.enabled:
+                self._trace("qos", job.request, decision="shed",
+                            reason="deadline_unmeetable",
+                            est_s=round(est, 6))
+            self._qos.note_shed(job.request)
+            REGISTRY.counter("slo_shed_total",
+                             labels={"class": job.request.slo_class}).inc()
+            rem = qos_mod.request_remaining_s(job.request, now)
+            self._fail(job, f"shed: deadline unmeetable before prefill "
+                            f"(estimated service {est:.3f}s > remaining "
+                            f"budget {0.0 if rem is None else rem:.3f}s); "
+                            f"nothing was dispatched — retry with a larger "
+                            f"deadline (/debug/qos)")
+
     def _admit(self) -> None:
         """Move pending jobs into the prefilling set while slots and pages
         last.
@@ -945,12 +1030,24 @@ class Scheduler:
         small prompts cannot starve a big one. A prompt that can never be
         served fails at once; a preempted resume that outgrew the cache
         ends at its current length. Under critical SLO pressure sheddable
-        fresh submissions are refused first (``_shed_pending``)."""
+        fresh submissions are refused first (``_shed_pending``).
+
+        With the QoS plane armed the scan takes the policy's order (EDF
+        within a tenant, merged by weighted-fair virtual time, throttled
+        tenants held back for the pass) after the unmeetable deadlines
+        are shed; the page-fit and bypass walk runs unchanged on it."""
         self._shed_pending()
+        if self._qos is not None:
+            self._qos_shed_unmeetable()
         while self._free:
-            with self._lock:
-                cands = list(itertools.islice(self._pending,
-                                              self._ADMIT_SCAN))
+            if self._qos is not None:
+                with self._lock:
+                    pending = list(self._pending)
+                cands = self._qos.order(pending, self._ADMIT_SCAN)
+            else:
+                with self._lock:
+                    cands = list(itertools.islice(self._pending,
+                                                  self._ADMIT_SCAN))
             if not cands:
                 return
             chosen: Optional[_Job] = None
@@ -1053,6 +1150,11 @@ class Scheduler:
                 # preemption cannot thrash an old request
                 self._admit_counter += 1
                 job.admit_seq = self._admit_counter
+                if self._qos is not None:
+                    # a first admission charges the tenant's virtual clock
+                    # and quota (a resume re-admits free); settled at the
+                    # request's terminal event
+                    self._qos.charge_admission(job.request)
             self._table[slot, :] = 0
             self._table[slot, :len(pages)] = pages
             self._table_dev = None
@@ -1691,8 +1793,11 @@ class Scheduler:
         slo_mod.SLO.observe(req)
         self._bill_pages(job)
         job.page_clock = 0.0
+        self._qos_settle(job)
         usage_mod.USAGE.bill_request(req)
         REQUEST_LOG.record(req)
+        if forensics_mod.FORENSICS.enabled:
+            forensics_mod.FORENSICS.observe(req)
         req.out_queue.put(_STOP)
         self._release(job)
 
@@ -1762,7 +1867,9 @@ class Scheduler:
         if depth <= 0:
             return
         self._tier.contribute(req.request_id, hashes[:depth], payload,
-                              tokens=depth * ps)
+                              tokens=depth * ps,
+                              tenant=req.tenant,
+                              slack_s=qos_mod.request_remaining_s(req))
 
     def _admit_tier(self, job: _Job) -> None:
         """The tier's promotion at admission: import the cached prefix run
@@ -1899,9 +2006,7 @@ class Scheduler:
                     while self._inflight:
                         self._process_decode()
                     continue
-                victim = max(list(self._prefilling) + list(self._slots.values()),
-                             key=lambda j: j.admit_seq)
-                self._preempt(victim)
+                self._preempt(self._pick_victim())
             if self._slots.get(slot) is not job:
                 continue
             if len(job.pages) < self.core.max_pages_per_slot:
@@ -1912,6 +2017,17 @@ class Scheduler:
         while p2 * 2 <= effective:
             p2 *= 2
         return p2
+
+    def _pick_victim(self) -> _Job:
+        """The youngest admission, decoding or mid-prefill (both hold
+        pages; the growing job too, so it preempts itself rather than an
+        older request). With the QoS plane armed: the job whose tenant
+        runs furthest ahead of the global virtual clock, then the one with
+        the most SLO slack, then the youngest (``QosPolicy.pick_victim``)."""
+        cands = list(self._prefilling) + list(self._slots.values())
+        if self._qos is not None:
+            return self._qos.pick_victim(cands)
+        return max(cands, key=lambda j: j.admit_seq)
 
     def _preempt(self, job: _Job) -> None:
         """Preemption under page pressure: with the host spill pool armed a

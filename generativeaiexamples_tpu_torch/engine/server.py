@@ -50,8 +50,10 @@ content negotiation), the debug routes of ``server/common.DEBUG_ROUTES``
 (``/debug/flight``, ``/debug/requests[/<rid>]``, ``/debug/slo``,
 ``/debug/devtime``, ``/debug/compiles``, ``/debug/chaos``,
 ``/debug/deadletter``, ``/debug/usage``, ``/debug/fleet``,
-``/debug/trace``, ``/debug/locks``), and ``/health`` with
-``slo_pressure``, ``usage_by_tenant``, ``perf`` and, with an engine
+``/debug/trace``, ``/debug/locks``, ``/debug/qos``,
+``/debug/forensics[/<rid>]``, ``/debug/alerts``, ``/debug/doctor``), and
+``/health`` with ``slo_pressure``, ``usage_by_tenant``, ``perf``,
+``alerts_active`` while ``APP_FORENSICS=on`` and, with an engine
 watchdog attached (``engine/watchdog.py``, ``APP_WATCHDOG``), its status:
 503 while the worker drains or the watchdog has tripped.
 ``POST /debug/drain`` drains (``?off=1`` lifts it; ``?evacuate=1`` also
@@ -65,8 +67,9 @@ and a caller's ``X-Request-Id``. The chaos plane's server faults gate
 ``/v1/chat/completions``, ``/v1/completions`` and ``/v1/kv/*`` (a delay
 is slept on the handler's thread, an error answers 503).
 ``install_sigterm_drain`` turns SIGTERM into a drain and an evacuation,
-then an exit after ``APP_DRAIN_GRACE_S``. Not ported: ``/debug/profile``
-(ROADMAP A.17) and the QoS / forensics routes (A.10, second part).
+then an exit after ``APP_DRAIN_GRACE_S``. The scheduler's QoS admission
+plane (``APP_QOS=fair``) reads the tenant, the class and the deadline
+these headers carry. Not ported: ``/debug/profile`` (ROADMAP A.17).
 """
 
 from __future__ import annotations
@@ -94,6 +97,8 @@ from generativeaiexamples_tpu_torch.observability import chaos as chaos_mod
 from generativeaiexamples_tpu_torch.observability import otel
 from generativeaiexamples_tpu_torch.observability import slo as slo_mod
 from generativeaiexamples_tpu_torch.observability import usage as usage_mod
+from generativeaiexamples_tpu_torch.observability.alerts import ALERTS
+from generativeaiexamples_tpu_torch.observability.forensics import FORENSICS
 from generativeaiexamples_tpu_torch.server import common
 from generativeaiexamples_tpu_torch.server.common import (MAX_TOKENS_CAP,
                                                            parse_stop)
@@ -241,8 +246,10 @@ class ModelServer:
 
     def health(self) -> tuple:
         """(status, body) of ``GET /health``: liveness, ``slo_pressure``,
-        the load surface, the tenant rollup and the utilization card; 503
-        while the watchdog reports not serving."""
+        the load surface, the tenant rollup, the utilization card and,
+        with ``APP_FORENSICS=on``, the active burn-rate alerts
+        (``alerts_active``); 503 while the watchdog reports not
+        serving."""
         core = self.scheduler.core
         # kv_wire: the handoff bodies this worker reads, so a router never
         # sends a frame to a worker that would refuse it
@@ -253,6 +260,10 @@ class ModelServer:
                 "quant": core.quant, "weight_bytes": core.param_bytes,
                 "usage_by_tenant": usage_mod.USAGE.rollup(),
                 "perf": usage_mod.worker_perf_card()}
+        # the burn-rate alert summary rides the probe a router already
+        # makes; off mode costs one attribute read
+        if FORENSICS.enabled:
+            body["alerts_active"] = ALERTS.active()
         if self.watchdog is not None:
             body["watchdog"] = self.watchdog.status()
             if not self.watchdog.serving_ok():

@@ -6,9 +6,11 @@ Sibling planes: ``flight`` (scheduler-state ring + request timelines),
 burn rates, shed pressure), ``usage`` (the per-tenant ledger),
 ``devtime`` (the per-dispatch device-time ledger on CUDA events and the
 first-seen watch), ``chaos`` (fault injection), ``lockwatch`` (the lock
-order sanitizer) and ``bootstrap`` (``init_observability``). The QoS,
-alert and forensics planes are ROADMAP A.10's second part; device
-profiling (``profiling``) is A.17.
+order sanitizer), ``alerts`` (multi-window burn-rate alerts over the SLO
+judge's verdicts), ``forensics`` (per-request critical paths, the
+tail-exemplar ring and ``/debug/doctor``) and ``bootstrap``
+(``init_observability``). The QoS admission plane is
+``engine/qos.py``; device profiling (``profiling``) is A.17.
 """
 
 from generativeaiexamples_tpu_torch.observability.bootstrap import (  # noqa: F401

@@ -2,8 +2,8 @@
 
 A copy of ``generativeaiexamples_tpu/observability/flight.py`` (standard
 library only) with its imports pointed at the port. The crash dump
-carries the host KV tier's occupancy when the engine package is loaded;
-the QoS plane's state is not ported (ROADMAP A.10, second part).
+carries the QoS plane's state (``engine/qos.debug_payload``) and the host
+KV tier's occupancy when the engine package is loaded.
 
 Post-incident "why did tok/s crater at 14:02" questions need continuous
 per-step engine state, not uptime-averaged counters (RAGO's per-stage
@@ -65,13 +65,20 @@ def _env_float(name: str, default: float) -> float:
 
 
 def _policy_state() -> Dict[str, Any]:
-    """Point-in-time KV-tier occupancy for the crash-dump artifact. The
-    tier lives in the engine package, whose import pulls torch — a
-    process that never loaded it (encoder, chain server without an
-    engine) CANNOT have registered a pool, so consult sys.modules instead
-    of importing."""
+    """Point-in-time QoS virtual-time state + KV-tier occupancy for the
+    crash-dump artifact. Both planes live in the engine package, whose
+    import pulls torch — a process that never loaded it (encoder, chain
+    server without an engine) CANNOT have registered either object, so
+    consult sys.modules (under the port's module names) instead of
+    importing."""
     import sys
     out: Dict[str, Any] = {}
+    qos_mod = sys.modules.get("generativeaiexamples_tpu_torch.engine.qos")
+    if qos_mod is not None:
+        try:
+            out["qos"] = qos_mod.debug_payload()
+        except Exception:
+            logger.exception("flight dump: qos snapshot failed")
     tier_mod = sys.modules.get("generativeaiexamples_tpu_torch.engine.kv_tier")
     if tier_mod is not None:
         try:

@@ -47,7 +47,8 @@ SPLIT_ROWS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 96, 112, 128)
 WIDE_ROWS = (128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-         + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+         + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_ulonglong]
+         + [ctypes.c_void_p])
 _MAP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
 
@@ -227,11 +228,15 @@ def _weight_map(q: torch.Tensor, rows: int) -> ctypes.Array:
     return wmap
 
 
-def w8a16_gemm(x: torch.Tensor, q: torch.Tensor,
-               s: torch.Tensor) -> torch.Tensor:
+def w8a16_gemm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+               late_first_ns: int = 0) -> torch.Tensor:
     """``(x @ q.T rounded to x's dtype) * s`` for x (..., K) bf16/f32, q
     (N, K) int8, s (N,) f32; returns (..., N) in x's dtype. CPU tensors
-    take the plain version."""
+    take the plain version. ``late_first_ns`` (0 in serving) runs the
+    kernel's ring check, an instance for 72-row decode plans only: the
+    loads of its first stage are issued last of the ring's first fill,
+    that many ns after the others, and its barrier waits trap after 10 s
+    instead of hanging."""
     if not x.is_cuda:
         return w8a16_gemm_plain(x, q, s)
     N, K = q.shape
@@ -263,14 +268,15 @@ def w8a16_gemm(x: torch.Tensor, q: torch.Tensor,
     if x.dtype == torch.float32:
         rc = _lib().gk_w8a16_gemm(0, x2.data_ptr(), q.data_ptr(),
                                   s.data_ptr(), y.data_ptr(), M, N, K, None,
-                                  0, 0, 1, 1, 1, stream)
+                                  0, 0, 1, 1, 1, 0, stream)
         bucket = None
     else:
         plan = card_plan(M, N, K, dev)
         rc = _lib().gk_w8a16_gemm(
             1, x2.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), M, N,
             K, ctypes.addressof(_weight_map(q, plan.rows)), plan.split,
-            plan.bn, plan.cluster, plan.clusters, plan.ks_per_rank, stream)
+            plan.bn, plan.cluster, plan.clusters, plan.ks_per_rank,
+            int(late_first_ns), stream)
         bucket = rows_bucket(plan, M)
     if rc != 0:
         raise RuntimeError(f"w8a16_gemm kernel launch failed: CUDA error {rc}")

@@ -13,15 +13,19 @@ one path table that the engine, encoder and chain servers all consult:
 ``/debug/devtime``, ``/debug/compiles``, ``/debug/chaos``,
 ``/debug/deadletter``, ``/debug/usage``, ``/debug/fleet`` (this
 process's local view: the failover router is ROADMAP A.17),
-``/debug/trace``, ``/debug/locks``) with its query caps;
+``/debug/trace[?rid=]``, ``/debug/locks``, the QoS plane's
+``/debug/qos``, the forensics plane's ``/debug/forensics[/<rid>]``,
+``/debug/alerts`` and ``/debug/doctor``) with its query caps;
 ``POST /debug/drain[?off=1]`` for the servers without an engine
 (``drain_post``; the engine server answers it through its watchdog); and
 ``StreamDrain``, which moves a blocking delta iterator onto a reader
 thread of its own.
 
-Not ported (ROADMAP A.10, second part): ``/debug/qos``,
-``/debug/forensics[/<rid>]``, ``/debug/alerts``, ``/debug/doctor``.
-``/debug/profile`` (device traces) is ROADMAP A.17.
+Each plane's route answers ``enabled: false`` with the reference's hint
+while the plane is off (``APP_QOS``, ``APP_FORENSICS``, ``APP_TRACE``,
+``APP_LOCKWATCH``). A request's forensics are this process's view: the
+reference's router-side join of worker legs waits for the failover
+router, and ``/debug/profile`` (device traces) for ROADMAP A.17.
 """
 
 from __future__ import annotations
@@ -223,10 +227,22 @@ def _trace(query: Mapping[str, str]) -> Dict[str, Any]:
     kinds_raw = query.get("kind", "").strip()
     kinds = ([k.strip() for k in kinds_raw.split(",") if k.strip()]
              or None)
+    rid = query.get("rid", "").strip()
     if not TRACE.enabled:
         return {**TRACE.describe(),
                 "hint": "set APP_TRACE=on (worker env) to record the fleet "
                         "event trace"}
+    if rid:
+        # one request's records, the GLOBAL dispatch emits joined by
+        # their rids roster (the forensics plane's slice)
+        from generativeaiexamples_tpu_torch.observability import forensics
+        records = forensics.trace_slice(rid)
+        if kinds is not None:
+            records = [r for r in records if r.get("kind") in set(kinds)]
+        if limit and len(records) > limit:
+            records = records[-limit:]
+        return {**TRACE.describe(), "rid": rid, "limit": limit,
+                "records": records}
     return {**TRACE.describe(), "window_s": seconds, "limit": limit,
             "records": TRACE.window(seconds, limit=limit, kinds=kinds)}
 
@@ -238,6 +254,74 @@ def _locks(query: Mapping[str, str]) -> Dict[str, Any]:
                 "hint": "set APP_LOCKWATCH=on (worker env, before process "
                         "start) to arm the lock-order sanitizer"}
     return lockwatch.WATCH.payload()
+
+
+def _qos(query: Mapping[str, str]) -> Dict[str, Any]:
+    """The QoS admission plane (engine/qos.py, ``APP_QOS``): per-tenant
+    weights, virtual clocks, quota buckets, the service-time estimate's
+    basis and the open admission reservations; ``enabled: false`` in off
+    mode. A process that never loaded the engine package cannot hold a
+    policy, so the module is looked up, never imported."""
+    import os
+    import sys
+    qos_mod = sys.modules.get("generativeaiexamples_tpu_torch.engine.qos")
+    if qos_mod is None:
+        return {"enabled": False,
+                "mode": (os.environ.get("APP_QOS", "").strip().lower()
+                         or "off"),
+                "hint": "set APP_QOS=fair (engine worker env) to enable the "
+                        "admission plane; docs/scheduling.md"}
+    return qos_mod.debug_payload()
+
+
+def _forensics(query: Mapping[str, str]) -> Dict[str, Any]:
+    """The tail-exemplar ring (observability/forensics.py,
+    ``APP_FORENSICS=on``): requests that breached their SLO or landed
+    above the trailing p99, captured with their trace slices."""
+    from generativeaiexamples_tpu_torch.observability.forensics import (
+        FORENSICS)
+    if not FORENSICS.enabled:
+        return {**FORENSICS.describe(),
+                "hint": "set APP_FORENSICS=on (worker env) to capture tail "
+                        "exemplars; docs/observability.md"}
+    return {**FORENSICS.describe(), "exemplars": FORENSICS.exemplars()}
+
+
+def _forensics_rid(rid: str) -> Dict[str, Any]:
+    """One request's critical path: its captured exemplar, else a live
+    breakdown from what the trace and the request log still hold (404
+    when neither knows it)."""
+    from generativeaiexamples_tpu_torch.observability.forensics import (
+        FORENSICS)
+    body = FORENSICS.payload(rid)
+    if not body.get("captured") and not (body.get("breakdown")
+                                         or {}).get("found"):
+        raise DebugError(404, f"no forensics for request {rid!r} (trace "
+                              "ring and request log have both aged it out)")
+    return body
+
+
+def _alerts(query: Mapping[str, str]) -> Dict[str, Any]:
+    """Burn-rate alert state (observability/alerts.py): active alerts by
+    objective and scope, the raise log, the rules in force. Verdicts feed
+    the windows only where a scheduler runs with ``APP_FORENSICS=on``."""
+    from generativeaiexamples_tpu_torch.observability.alerts import ALERTS
+    from generativeaiexamples_tpu_torch.observability.forensics import (
+        FORENSICS)
+    body = ALERTS.payload()
+    body["enabled"] = FORENSICS.enabled
+    if not FORENSICS.enabled:
+        body["hint"] = ("set APP_FORENSICS=on (worker env) to feed the "
+                        "burn-rate windows; docs/observability.md")
+    return body
+
+
+def _doctor(query: Mapping[str, str]) -> Dict[str, Any]:
+    """Symptoms to named causes, ranked by estimated device seconds lost
+    (observability/forensics.doctor_payload)."""
+    from generativeaiexamples_tpu_torch.observability.forensics import (
+        doctor_payload)
+    return doctor_payload()
 
 
 # the one path table of the debug surface, consulted by every server
@@ -253,6 +337,10 @@ DEBUG_ROUTES: Dict[str, Callable[[Mapping[str, str]], Dict[str, Any]]] = {
     "/debug/fleet": _fleet,
     "/debug/trace": _trace,
     "/debug/locks": _locks,
+    "/debug/qos": _qos,
+    "/debug/forensics": _forensics,
+    "/debug/alerts": _alerts,
+    "/debug/doctor": _doctor,
 }
 
 
@@ -264,6 +352,9 @@ def debug_get(path: str, query: Mapping[str, str]
         if path.startswith("/debug/requests/"):
             return 200, _request_timeline(
                 unquote(path[len("/debug/requests/"):]))
+        if path.startswith("/debug/forensics/"):
+            return 200, _forensics_rid(
+                unquote(path[len("/debug/forensics/"):]))
         fn = DEBUG_ROUTES.get(path)
         if fn is None:
             return None

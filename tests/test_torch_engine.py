@@ -192,18 +192,19 @@ def test_unported_request_fields_raise(monkeypatch):
     # naming their item
     from generativeaiexamples_tpu_torch.core.config import (NOT_PORTED,
                                                             load_config)
-    # and devtime with A.10's first part (the device-time ledger)
+    # devtime with A.10's first part (the device-time ledger), qos with
+    # its second part (the QoS admission plane)
     for knob in ("role", "kv_spill_mb", "kv_tier", "kv_tier_disk_mb",
-                 "devtime"):
+                 "devtime", "qos"):
         assert knob not in NOT_PORTED
     for knob, value in (("KV_TIER", "prefix"), ("KV_TIER_DISK_MB", "64"),
-                        ("DEVTIME", "sample")):
+                        ("DEVTIME", "sample"), ("QOS", "fair")):
         monkeypatch.setenv(f"APP_ENGINE_{knob}", value)
     eng = load_config().engine
-    assert (eng.kv_tier, eng.kv_tier_disk_mb, eng.devtime) == (
-        "prefix", 64, "sample")
-    monkeypatch.setenv("APP_ENGINE_QOS", "fair")
-    with pytest.raises(NotImplementedError, match="QoS plane"):
+    assert (eng.kv_tier, eng.kv_tier_disk_mb, eng.devtime, eng.qos) == (
+        "prefix", 64, "sample", "fair")
+    monkeypatch.setenv("APP_ENGINE_LONG_PREFILL", "on")
+    with pytest.raises(NotImplementedError, match="sequence-parallel"):
         load_config()
 
 

@@ -18,6 +18,8 @@ CPU, at every weight shape of llama3-8b and llama3-70b.
 * The weight tensor-map cache's key changes with the shape, the strides,
   the dtype or the box at one pointer.
 * Decode rows are counted by the instance's rows, prefill rows exactly.
+* The smoke's ring check runs a decode instance whose odd ring passes its
+  slots between the two consumer warpgroups within a tile.
 """
 
 import jax.numpy as jnp
@@ -206,3 +208,35 @@ def test_plan_is_from_shapes_only():
     for name, N, K in SHAPES:
         plan = cq.gemm_plan(8, N, K, N_SM, SLOTS)
         assert plan.clusters <= SLOTS[plan.cluster]
+
+
+def _decode_ring_stages(bn: int) -> int:
+    """``Shape<bn, true>::STAGES`` of ``csrc/w8a16_gemm.cu``, from the
+    constants its source states."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(cq.__file__), os.pardir,
+                            os.pardir, "csrc", "w8a16_gemm.cu")).read()
+    assert "constexpr int SMEM_LIMIT = 232448 - 1024;" in src
+    bk, pstride = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                 src).group(1)) for name in ("BK", "PSTRIDE"))
+    stage = 2 * bn * 2 * bk + 64 * 2 * bk      # x's two boxes, the weight
+    epi = 2 * bn * pstride * 4                  # the f32 partials
+    return min(16, (232448 - 1024 - 1024 - epi) // stage)
+
+
+def test_the_ring_check_shares_slots_between_the_warpgroups():
+    """The smoke's ring check (``8b_gate_up_m72_late_ring``) runs a decode
+    instance whose ring is odd, so its slots pass between the two consumer
+    warpgroups within a tile, and whose tile has more stages a rank than
+    the ring: the case where a parity wait alone cannot tell a slot's two
+    fills apart. Off the card the wrapper's ``late_first_ns`` takes the
+    plain version like every call."""
+    plan = cq.gemm_plan(72, 14336, 4096, N_SM, cq.H100_CLUSTER_SLOTS)
+    stages = _decode_ring_stages(plan.bn)
+    assert plan.split and stages % 2 == 1 and plan.ks_per_rank > stages
+    x = torch.randn((3, 32))
+    q = torch.randint(-127, 128, (16, 32), dtype=torch.int8)
+    s = torch.rand(16) + 0.5
+    assert torch.equal(cq.w8a16_gemm(x, q, s, late_first_ns=50_000),
+                       cq.w8a16_gemm_plain(x, q, s))

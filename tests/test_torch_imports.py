@@ -205,6 +205,27 @@ def test_unported_config_knobs_are_refused(monkeypatch):
             model_config(name)
 
 
+# the host planes' second part, looked up by the port's own module names
+PLANE_MODULES = ("generativeaiexamples_tpu_torch.engine.qos",
+                 "generativeaiexamples_tpu_torch.observability.alerts",
+                 "generativeaiexamples_tpu_torch.observability.forensics")
+
+
+def test_plane_modules_are_scanned_and_found_by_their_port_names():
+    """The QoS, alert and forensics modules are among the modules every
+    case above imports and scans; the flight dump, ``/debug/qos`` and the
+    doctor find the QoS plane under the port's name (a lookup under the
+    reference's name would never find it, and a dump would silently lack
+    ``qos``)."""
+    assert set(PLANE_MODULES) <= set(_modules())
+    for rel in ("observability/flight.py", "observability/forensics.py",
+                "server/common.py"):
+        with open(os.path.join(PKG, rel)) as fh:
+            src = fh.read()
+        assert 'sys.modules.get("generativeaiexamples_tpu_torch.engine.qos")' \
+            in src, rel
+
+
 # the chain server's packages there, which the card's machine lacks
 WEB_PACKAGES = ("aiohttp", "bleach", "httpx", "requests", "yaml", "bs4")
 

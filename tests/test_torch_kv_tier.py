@@ -2,9 +2,9 @@
 package on the CPU (the tiny model, ``PRNGKey(5)`` weights through
 ``params_from_jax``).
 
-Every case of ``tests/test_kv_tier.py`` has its counterpart here but
-``test_timeline_carries_tier_hit_tokens``, whose flight timeline waits for
-ROADMAP A.10:
+Every case of ``tests/test_kv_tier.py`` has its counterpart here
+(``test_timeline_carries_tier_hit_tokens``'s in
+``tests/test_torch_plane_scheduler.py``):
 
 * the returning prefix, on the model-dtype pool and the int8 pool: a tight
   pool with ``APP_KV_TIER=prefix`` spills a stream into the tier, the
@@ -18,6 +18,12 @@ ROADMAP A.10:
   ``X-KV-Prefix`` header); a pinned entry is never evicted; the deepest
   prefix wins; a disk demotion promotes back bit for bit; a corrupt disk
   file is a loud error, never served; ``payload_nbytes``;
+* with the QoS plane's tenant bias and each contributor's slack in the
+  price, the eviction order equals the reference's ``PrefixKVTier``'s on
+  seeded sequences of two tenants' dated and undated spills; with
+  ``APP_QOS=fair`` the scheduler sets the policy's lock-free hint as the
+  bias and a spill's entry carries its tenant and remaining deadline, with
+  no ``kv_tier._lock -> qos._lock`` edge under the armed lock watch;
 * ``kv_cache.import_pages_partial`` scatters the pages as the reference's
   does and leaves ``lengths`` alone, on both pools; the engine refuses a
   payload of another geometry.
@@ -26,6 +32,7 @@ ROADMAP A.10:
 import json
 import time
 import urllib.request
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -305,6 +312,115 @@ def test_refcounted_entry_never_evicted():
     assert stats["kv_spill_over_budget"] == 2
     assert stats["kv_tier_probe_hit"] == 1
     assert stats["kv_tier_probe_miss"] == 1
+
+
+def _eviction_order(tier_cls, qos_mod, clock_mod, seed):
+    """A seeded sequence on one package's tier on a virtual clock: two
+    tenants weighted 4:1 (``gold``, ``bulk``) whose QoS policy has charged
+    bulk ahead of its share, spills dated (a remaining budget) and undated,
+    each contributed, used and retained at its own time; then spills that
+    need the room, so the retained entries evict. Returns the keys in the
+    order evicted, and the policy's overuse of each tenant."""
+    rng = np.random.default_rng(seed)
+    clk = clock_mod.VirtualClock(start=50.0)
+    clock_mod.install(clk)
+    try:
+        policy = qos_mod.QosPolicy(weights={"gold": 4.0, "bulk": 1.0})
+        for i in range(6):
+            policy.charge_admission(SimpleNamespace(
+                tenant=("bulk", "gold")[i % 3 == 0], request_id=f"c{i}",
+                prompt_ids=[1] * int(rng.integers(10, 60)),
+                max_tokens=int(rng.integers(10, 60))))
+        one = payload_nbytes(_payload(0.0, pages=2))
+        tier = tier_cls(one * 6)
+        tier.set_victim_bias(policy.tenant_overuse_hint)
+        evicted = []
+        drop = tier._drop_entry_locked
+
+        def record(e, outcome):
+            evicted.append((e.key[-2:].decode(), outcome))
+            drop(e, outcome)
+
+        tier._drop_entry_locked = record
+        for i in range(6):
+            clk.advance(float(rng.uniform(1.0, 40.0)))
+            tenant = ("gold", "bulk")[int(rng.integers(0, 2))]
+            slack = (None if rng.random() < 0.4
+                     else float(rng.uniform(-5.0, 900.0)))
+            pay = _payload(float(i), pages=2)
+            assert tier.admit(f"s{i}", pay)
+            assert tier.contribute(f"s{i}", _hashes(b"k%d" % i, 2), pay,
+                                   tokens=32, tenant=tenant, slack_s=slack)
+            tier.release(f"s{i}", outcome="promoted")
+            for _ in range(int(rng.integers(0, 3))):
+                clk.advance(float(rng.uniform(0.5, 5.0)))
+                hit = tier.probe(_hashes(b"k%d" % i, 2))
+                tier.checkout(hit[0])
+                tier.checkin(hit[0])
+        for i in range(6):
+            clk.advance(2.0)
+            assert tier.admit(f"n{i}", _payload(10.0 + i, pages=2))
+        return evicted, {t: policy.tenant_overuse_hint(t)
+                         for t in ("gold", "bulk")}
+    finally:
+        clock_mod.reset()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_eviction_order_with_qos_bias_and_slack_matches_the_reference(
+        seed):
+    """With the QoS plane's tenant bias and each contributor's slack in
+    the price, the port's tier evicts the reference's ``PrefixKVTier``'s
+    entries in its order on the same seeded sequence."""
+    from generativeaiexamples_tpu.core import clock as jclock
+    from generativeaiexamples_tpu.engine import qos as jqos
+    from generativeaiexamples_tpu_torch.core import clock as tclock
+    from generativeaiexamples_tpu_torch.engine import qos as tqos
+    want = _eviction_order(JaxPrefixKVTier, jqos, jclock, seed)
+    got = _eviction_order(PrefixKVTier, tqos, tclock, seed)
+    assert got == want
+    assert len(got[0]) == 6 and got[1]["bulk"] > got[1]["gold"]
+
+
+def test_scheduler_prices_a_spill_by_its_tenant_and_slack(monkeypatch):
+    """``APP_QOS=fair`` with the tier on: the scheduler sets the policy's
+    lock-free hint as the tier's bias, and a spill's entry carries its
+    request's tenant and remaining deadline. Under the armed lock watch no
+    ``kv_tier._lock -> qos._lock`` edge is witnessed."""
+    from generativeaiexamples_tpu_torch.engine import qos as tqos
+    from generativeaiexamples_tpu_torch.engine.fakecore import FakeCore
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.observability import lockwatch
+    monkeypatch.setenv("APP_LOCKWATCH", "on")
+    lockwatch.WATCH.reset()
+    _env(monkeypatch, 1, "prefix")
+    monkeypatch.setenv(tqos.MODE_ENV, "fair")
+    try:
+        core = FakeCore(batch=2, max_seq=64, page_size=8, chunk=16, steps=2,
+                        num_pages=9)
+        core.import_pages_kv = lambda *a, **k: None
+        sched = Scheduler(core, ByteTokenizer())
+        assert sched._tier is not None and sched._qos is not None
+        assert sched._tier._victim_bias == sched._qos.tenant_overuse_hint
+        req = Request(prompt_ids=[40] * 20, max_tokens=4, temperature=0.0,
+                      tenant="acme", deadline_s=30.0)
+        job = SimpleNamespace(request=req)
+        pay = _payload(1.0, pages=2, ps=8)
+        assert sched._tier.admit(req.request_id, pay)
+        sched._tier_contribute(job, pay)
+        entry = next(iter(sched._tier._entries.values()))
+        assert entry.tenant == "acme"
+        assert 0.0 < entry.slack_s <= 30.0
+        sched._tier.release(req.request_id)
+        sched._tier.admit("big", _payload(2.0, pages=40, ps=8))
+        body = lockwatch.WATCH.payload()
+        edges = {(e["held"], e["acquired"]) for e in body["edges"]}
+        assert "kv_tier._lock" in body["locks"]
+        assert ("kv_tier._lock", "qos._lock") not in edges
+        assert lockwatch.WATCH.inversions == []
+    finally:
+        tqos.register_policy(None)
+        lockwatch.WATCH.reset()
 
 
 def test_probe_prefers_deepest_cached_prefix():

@@ -306,14 +306,16 @@ def test_spec_knobs_load_from_the_environment(monkeypatch):
     eng = load_config().engine
     assert (eng.spec_decode, eng.spec_draft, eng.mixed_phase_dispatch) == (
         "off", 3, "on")
-    # multi-step decode and the KV handoff's role are ported; the QoS
-    # plane is not
+    # multi-step decode, the KV handoff's role and the QoS plane are
+    # ported; sequence-parallel prefill is not
     monkeypatch.setenv("APP_ENGINE_DECODE_MULTISTEP", "2")
     assert load_config().engine.decode_multistep == 2
     monkeypatch.setenv("APP_ENGINE_ROLE", "prefill")
     assert load_config().engine.role == "prefill"
     monkeypatch.setenv("APP_ENGINE_QOS", "fair")
-    with pytest.raises(NotImplementedError, match="A6"):
+    assert load_config().engine.qos == "fair"
+    monkeypatch.setenv("APP_ENGINE_LONG_PREFILL", "on")
+    with pytest.raises(NotImplementedError, match="A11"):
         load_config()
     with pytest.raises(ValueError, match="spec_decode"):
         _core_cfg = EngineConfig(spec_decode="maybe")
