@@ -140,6 +140,21 @@ prints no result:
               cell probed, an incremental add, a third deleted) whose
               top-10 equals a float64 numpy brute force (scores within
               1e-5, ranks swapped only at near-ties);
+              ``parity_moe`` (after ``parity_gemma``): mixtral-8x7b's
+              widths (8 experts of hidden 14,336, top-2, capacity factor
+              1.25, V = 32,000), 2 layers, f32: a dense prefill's and a
+              dense ``decode_step``'s logits, kernel attention against
+              plain, within ``PARITY_GAP_TOL``; greedy engine streams over
+              both pools with speculation and the mixed dispatch on,
+              kernel path against plain; ``moe_mlp`` on the card against
+              the CPU (routing equal, outputs within ``MOE_TOL``, a
+              forced-drop case) with the smallest router margin; int8
+              weights leaving the router and the experts f32 while the
+              attention projections and the head launch ``w8a16_gemm``;
+              ``parity_block``: starcoder2-3b's widths (LayerNorm, biases,
+              the plain MLP), 2 layers, f32, biases and norm biases drawn
+              non-zero: the dense forward on the card against the CPU,
+              and the windowed config refused on the card (A.12);
   8a. retrieval_ivf  the port's ``retrieval/bench_ivf`` at its defaults
               (1,000,000 x 384 clustered rows, nlist 1,024, nprobe 32):
               exact and IVF ms a query, recall@10, build and ingest s,
@@ -150,6 +165,14 @@ prints no result:
               ``response_format: json_object`` request whose reply must
               parse; the attention kernels at head_dim 256, the grammar
               mask and the sampler at V = 256,000 launched;
+  8c. serve_moe  mixtral-8x7b at full width, 8 of its 32 layers (23.7 GB
+              of bf16 weights, seeded), behind the HTTP server with the
+              reference's defaults: ``serve``'s traffic (256 tokens a
+              decoder), every request 200,
+              ``flash_prefill``, ``ragged_paged_attention`` and
+              ``sample_slots`` launched; then one profiled decode step
+              (``profile_moe``): the MoE's device ms by stage against
+              every expert's bytes over 3.35 TB/s;
   9. serve    llama3-8b at full width and depth, bf16, random seeded
               weights, behind the port's HTTP server with the reference's
               defaults (``warmup`` first): 4 requests (10 chunks) admitted
@@ -4317,6 +4340,425 @@ def parity_gemma_cases(dev):
     return {"streams": case}
 
 
+
+# ---------------------------------------------------------------------------
+# The rest of the model block: the top-k MoE (mixtral-8x7b) and StarCoder2's
+# LayerNorm, biases and plain MLP
+# ---------------------------------------------------------------------------
+
+# moe_mlp on the card against the CPU on the same f32 inputs: another
+# summation order, so within this share of the largest CPU output
+MOE_TOL = 1e-4
+# (case, tokens, capacity factor or None for the config's): a prefill
+# chunk's worth of tokens, the same under a capacity that drops, a decode
+# batch
+MOE_CASES = (("rows128", 128, None), ("rows128_drops", 128, 0.5),
+             ("rows8", 8, None))
+MOE_STAGES = ("route", "dispatch", "experts", "combine")
+SERVE_MOE_LAYERS = 8
+# a divergence of the kernel path's MoE streams from the plain path's is
+# accepted only where the first token routed apart had a router margin
+# (k-th minus (k+1)-th probability) below this in the plain run: top-k
+# routing is discontinuous, so attention's f32 rounding can flip a choice
+# there and move the output by a whole expert's difference
+ROUTER_NEAR_TIE = 1e-5
+
+
+class _RoutingLog:
+    """While entered: every ``ops.moe.route`` call's choices, valid
+    tokens and router margins, copied to the host, in call order (a
+    forward pass's layers in turn)."""
+
+    def __enter__(self):
+        from generativeaiexamples_tpu_torch.ops import moe
+        self.calls, self._moe, self._route = [], moe, moe.route
+
+        def route(x, w_router, k, C, valid=None):
+            r = self._route(x, w_router, k, C, valid)
+            top = r.probs.topk(k + 1, dim=-1).values
+            self.calls.append((
+                r.expert_ix.cpu(),
+                None if valid is None else valid.cpu(),
+                (top[:, k - 1] - top[:, k]).cpu()))
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def _first_routing_split(kernel, plain):
+    """The first route call where the kernel run's log and the plain
+    run's choose apart for a valid token: (call index, the smallest router
+    margin of those tokens in the plain run), or None where they never
+    do."""
+    for i, ((ix_k, vk, _), (ix_p, vp, mp)) in enumerate(zip(kernel, plain)):
+        if ix_k.shape != ix_p.shape:
+            return i, 0.0
+        apart = (ix_k != ix_p).any(-1)
+        if vp is not None:
+            apart &= vk.reshape(-1) & vp.reshape(-1)
+        if apart.any():
+            return i, mp[apart].min().item()
+    return None
+
+
+def _moe_parity_report(params, cfg, prompts, got, want, logs, dev, label):
+    """``_parity_report`` for an MoE model's kernel and plain streams, run
+    through one deterministic schedule: equal, or diverging only where the
+    runs first routed a token apart at a plain-run router margin below
+    ``ROUTER_NEAR_TIE`` (``logs``: the kernel run's and the plain run's
+    ``_RoutingLog`` calls), or,
+    with no routing split, at a near-tie of the plain logits."""
+    if got == want:
+        return [{"prompt": i, "identical": True, "tokens": len(a)}
+                for i, a in enumerate(got)]
+    split = _first_routing_split(*logs)
+    if split is None:
+        return _parity_report(params, cfg, prompts, got, want, dev, label)
+    call, margin = split
+    report = [{"prompt": i, "identical": a == b, "tokens": len(a),
+               "routing_split_call": call,
+               "routing_split_layer": call % cfg.n_layers,
+               "routing_split_margin": margin}
+              for i, (a, b) in enumerate(zip(got, want))]
+    if margin >= ROUTER_NEAR_TIE:
+        emit("parity_moe", ok=False, path=label, streams=report)
+        raise AssertionError(f"{label}: the kernel and plain runs route a "
+                             f"token apart at a router margin of {margin}")
+    return report
+
+
+def _ticked_streams(sched, prompts, first_tokens, rest_tokens):
+    """``_staggered_streams`` on one schedule, whatever the timing: the
+    scheduler driven by hand (``_tick``) with every result landing at the
+    backpressure point (``HostCopy.done`` False): the first prompt alone,
+    the rest submitted once its first decode dispatch ran."""
+    from generativeaiexamples_tpu_torch.engine import engine as eng
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    done, eng.HostCopy.done = eng.HostCopy.done, lambda self: False
+    try:
+        reqs = [sched.submit(Request(prompt_ids=prompts[0],
+                                     max_tokens=first_tokens,
+                                     temperature=0.0))]
+        while sched.stats["decode_dispatches"] < 1:
+            if not sched._tick():
+                raise AssertionError("the first request never decoded")
+        reqs += [sched.submit(Request(prompt_ids=p, max_tokens=rest_tokens,
+                                      temperature=0.0))
+                 for p in prompts[1:]]
+        for _ in range(10_000):
+            if not sched._tick():
+                break
+    finally:
+        eng.HostCopy.done = done
+    if any(r.error or not r.finished_at for r in reqs):
+        raise AssertionError(f"a request failed: {[r.error for r in reqs]}")
+    return [r.output_ids for r in reqs]
+
+
+def _moe_card_vs_cpu(dev, cfg, layer, seed=21):
+    """``ops.moe`` on the card against the CPU on the same inputs, per
+    ``MOE_CASES`` at ``cfg``'s widths with ``layer``'s router and experts:
+    the routing (each token's choices, slots and keeps) equal, the outputs
+    within ``MOE_TOL`` x max(1, the largest CPU output), every output
+    finite, and the forced-drop case dropping. Returns each case's
+    readings and the smallest router margin seen (the k-th minus the
+    (k+1)-th probability of a token)."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import moe
+    k, E = cfg.n_experts_per_tok, cfg.n_experts
+    host = {key: layer[key].cpu() for key in ("w_router", "w_gate", "w_up",
+                                             "w_down")}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out, margin = {}, float("inf")
+    for name, N, cf in MOE_CASES:
+        cf = cf or cfg.capacity_factor
+        C = moe.capacity(N, E, k, cf)
+        x = torch.randn((N, cfg.dim), generator=g, device=dev)
+        with torch.no_grad():
+            r_dev = moe.route(x, layer["w_router"], k, C)
+            r_cpu = moe.route(x.cpu(), host["w_router"], k, C)
+            got, _ = moe.moe_mlp(layer, x, k, cf, cfg.hidden_act)
+            want, _ = moe.moe_mlp(host, x.cpu(), k, cf, cfg.hidden_act)
+        unequal = [f for f in ("expert_ix", "slot", "keep")
+                   if not torch.equal(getattr(r_dev, f).cpu(),
+                                      getattr(r_cpu, f))]
+        top = r_cpu.probs.sort(-1, descending=True).values
+        case_margin = (top[:, k - 1] - top[:, k]).min().item()
+        margin = min(margin, case_margin)
+        err = (got.cpu() - want).abs().max().item()
+        limit = MOE_TOL * max(1.0, want.abs().max().item())
+        drops = int((~r_cpu.keep).sum())
+        out[name] = dict(tokens=N, capacity_factor=cf, capacity=C,
+                         dropped_choices=drops, routing_unequal=unequal,
+                         max_abs_err=err, limit=limit,
+                         router_margin=case_margin)
+        if (unequal or not err <= limit or not bool(torch.isfinite(got).all())
+                or (cf < cfg.capacity_factor and drops == 0)):
+            raise AssertionError(f"parity_moe: moe_mlp on the card against "
+                                 f"the CPU, {name}: {out[name]}")
+    return out, margin
+
+
+def _moe_model(dev, n_layers, dtype, seed):
+    """mixtral-8x7b's widths at ``n_layers`` in ``dtype``, random weights
+    from ``seed`` on the card, and the seconds the draw took."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.models import llama, model_config
+    cfg = dataclasses.replace(model_config("mixtral-8x7b"),
+                              n_layers=n_layers, dtype=dtype)
+    t0 = time.perf_counter()
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev)
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def phase_parity_moe(dev):
+    """mixtral-8x7b's widths (dim 4,096, 32 heads on 8 KV heads of 128, 8
+    experts of hidden 14,336, top-2, capacity factor 1.25, V = 32,000), 2
+    layers, f32, random weights from seed 3, the kernel path against the
+    plain path: the dense API's prefill logits of a two-chunk prompt,
+    kernel attention (``flash_prefill``) against plain, within
+    ``PARITY_GAP_TOL``, and one dense ``decode_step`` each way
+    (``ragged_decode``); greedy streams through the engine over an f32
+    pool and an int8 pool with speculation and the mixed dispatch on, token
+    for token (``_parity_report``); ``moe_mlp`` on the card against the
+    CPU (``_moe_card_vs_cpu``, a forced-drop case included), with the
+    smallest router margin seen; and int8 weights: the router and the
+    expert stacks stay f32, the four attention projections and the head
+    launch ``w8a16_gemm`` (4 a layer a forward pass, one an unembedding).
+    Returns the kernel-path runs' launches, summed."""
+    import dataclasses
+    from collections import Counter
+    import torch
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.cuda import attention as k
+
+    cfg, params, draw_s = _moe_model(dev, 2, "float32", 3)
+    moe_cases, margin = _moe_card_vs_cpu(dev, cfg, params["layers"][0])
+    tok = ByteTokenizer()
+    prompts = [tok.encode(PROMPT_TEXT * 2, add_bos=True),
+               tok.encode(PROMPT_TEXT * 5, add_bos=True)]   # two chunks
+    total = Counter()
+    ids = torch.tensor([prompts[1]], device=dev)
+    seq = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
+    logits, steps = {}, {}
+    with torch.no_grad():
+        for attn in ("kernel", "plain"):
+            k.reset_launch_counts()
+            acfg = dataclasses.replace(cfg, attn_impl=attn)
+            cache = llama.KVCache.create(acfg, 1, 1024, device=dev)
+            logits[attn], cache = llama.prefill(
+                params, acfg, ids, cache, torch.zeros_like(seq), seq)
+            steps[attn], _ = llama.decode_step(
+                params, acfg, logits[attn][:, -1].argmax(-1), cache)
+            launches = k.launch_counts()
+            if (attn == "kernel") != (
+                    launches["flash_prefill"] == cfg.n_layers
+                    and launches["ragged_decode"] == cfg.n_layers):
+                raise AssertionError(f"parity_moe: the {attn} dense API "
+                                     f"launched {launches}")
+            if attn == "kernel":
+                total.update(launches)
+    dense = {}
+    for what, got, want in (("prefill", logits["kernel"], logits["plain"]),
+                            ("decode_step", steps["kernel"],
+                             steps["plain"])):
+        dense[what] = (got - want).abs().max().item()
+        if not (dense[what] <= PARITY_GAP_TOL
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"parity_moe: dense {what} logits, kernel "
+                                 f"against plain: {dense[what]} > "
+                                 f"{PARITY_GAP_TOL}")
+    del logits, steps, cache
+    streams, reports, dispatches = {}, {}, {}
+    for kv_quant in ("none", "int8"):
+        key = ("ragged_paged_attention_int8" if kv_quant == "int8"
+               else "ragged_paged_attention")
+        logs = []
+        for attn in ("kernel", "plain"):
+            ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                page_size=128, prefill_chunk=512,
+                                dtype="float32", attention=attn,
+                                kv_quant=kv_quant, prefill_hold_chunks=0)
+            sched = Scheduler(EngineCore(cfg, ecfg, params, tok.eos_id,
+                                         device=dev), tok)
+            k.reset_launch_counts()
+            with _RoutingLog() as log:
+                streams[attn] = _ticked_streams(sched, prompts, 48, 16)
+            logs.append(log.calls)
+            launches = k.launch_counts()
+            if attn == "kernel":
+                total.update(launches)
+                if not (launches["flash_prefill"] and launches[key]
+                        and launches["sample_slots"]):
+                    raise AssertionError(f"parity_moe ({kv_quant}) did not "
+                                         f"launch the kernels: {launches}")
+            if not (sched.stats["mixed_dispatches"]
+                    and sched.stats["spec_steps"]):
+                raise AssertionError(f"parity_moe ({kv_quant}, {attn}) ran "
+                                     f"no mixed or widened step: "
+                                     f"{sched.stats}")
+            dispatches[f"{kv_quant}, {attn}"] = dict(
+                mixed=sched.stats["mixed_dispatches"],
+                spec_steps=sched.stats["spec_steps"], launches=launches)
+        label = f"mixtral-8x7b width, kv_quant={kv_quant}, kernel vs plain"
+        reports[label] = _moe_parity_report(params, cfg, prompts,
+                                            streams["kernel"],
+                                            streams["plain"], logs, dev,
+                                            label)
+        margin = min([margin] + [
+            (m if v is None else m[v.reshape(-1)]).min().item()
+            for _, v, m in logs[1] if v is None or v.any()])
+        del logs
+    # int8 weights: a copy of the dict, so the f32 set stays as drawn
+    qparams = dict(params, layers=[dict(l) for l in params["layers"]])
+    ecfg = EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
+                        prefill_chunk=512, dtype="float32", quant="int8",
+                        prefill_hold_chunks=0)
+    core = EngineCore(cfg, ecfg, qparams, tok.eos_id, device=dev)
+    layer = core.params["layers"][0]
+    kinds = {key: type(layer[key]).__name__ for key in (
+        "wq", "wk", "wv", "wo", "w_router", "w_gate", "w_up", "w_down")}
+    if not (all(isinstance(layer[key], quant.QTensor)
+                for key in ("wq", "wk", "wv", "wo"))
+            and all(isinstance(layer[key], torch.Tensor)
+                    and layer[key].dtype == torch.float32
+                    for key in ("w_router", "w_gate", "w_up", "w_down"))):
+        raise AssertionError(f"parity_moe: int8 weights quantized {kinds}")
+    sched = Scheduler(core, tok)
+    with _ForwardCount() as fwd:
+        k.reset_launch_counts()
+        sched.start()
+        try:
+            w8_streams = _staggered_streams(sched, prompts, 16, 8)
+        finally:
+            sched.stop()
+        launches = k.launch_counts()
+    need = 4 * cfg.n_layers * fwd.blocks + fwd.unembeds
+    if launches["w8a16_gemm"] != need or need == 0:
+        raise AssertionError(f"parity_moe: {launches['w8a16_gemm']} "
+                             f"w8a16_gemm launches for {fwd.blocks} forward "
+                             f"passes and {fwd.unembeds} unembeddings (want "
+                             f"{need})")
+    total.update(launches)
+    emit("parity_moe", ok=True, n_layers=cfg.n_layers, dtype=cfg.dtype,
+         draw_s=draw_s, widths=dict(dim=cfg.dim, heads=cfg.n_heads,
+                                    kv_heads=cfg.n_kv_heads,
+                                    experts=cfg.n_experts,
+                                    top_k=cfg.n_experts_per_tok,
+                                    hidden=cfg.hidden_dim,
+                                    capacity_factor=cfg.capacity_factor,
+                                    vocab=cfg.vocab_size),
+         prompt_tokens=[len(p) for p in prompts],
+         dense_logits_max_abs_err=dense,
+         logits_tolerance=f"{PARITY_GAP_TOL} absolute",
+         tolerance_top2_gap=PARITY_GAP_TOL, streams=reports,
+         dispatches=dispatches, moe_card_vs_cpu=moe_cases,
+         moe_tolerance=f"{MOE_TOL} x max(1, the largest CPU output); "
+                       f"routing equal",
+         min_router_margin=margin, int8_weights=dict(
+             leaves=kinds, w8a16_gemm=launches["w8a16_gemm"],
+             forward_passes=fwd.blocks, unembeddings=fwd.unembeds,
+             tokens=[len(s) for s in w8_streams],
+             param_bytes=core.param_bytes),
+         launches=dict(total))
+    del params, qparams, core, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
+def phase_parity_block(dev):
+    """starcoder2-3b's widths (dim 3,072, 24 heads on 2 KV heads of 128,
+    LayerNorm, biases, the plain gelu_tanh MLP of hidden 12,288, V =
+    49,152, tied embeddings), 2 layers, f32: random weights from seed 7
+    with every bias and norm bias drawn non-zero and every norm weight
+    drawn off one. The dense ``forward`` of ``PROMPT_TEXT * 5`` on the
+    card against the CPU on the same weights, within 1e-4 x max(1, the
+    largest CPU logit). Then the windowed config's refusal on the card: the
+    engine at kernel attention and the dense API's ``prefill`` raise
+    NotImplementedError naming A.12."""
+    import dataclasses
+    import torch
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama, model_config
+    cfg = dataclasses.replace(model_config("starcoder2-3b"), n_layers=2,
+                              dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(7)
+    params = llama.init_params(g, cfg, device=dev)
+    drawn = 0
+    for tree in [params] + params["layers"]:
+        for key, w in tree.items():
+            if key.endswith("_b"):
+                w.copy_(0.1 * torch.randn(w.shape, generator=g, device=dev))
+            elif key.endswith("norm"):
+                w.add_(0.2 * torch.randn(w.shape, generator=g, device=dev))
+            else:
+                continue
+            drawn += 1
+    tok = ByteTokenizer()
+    ids = torch.tensor([tok.encode(PROMPT_TEXT * 5, add_bos=True)],
+                       device=dev)
+    host = {key: (w.cpu() if key != "layers" else
+                  [{n: t.cpu() for n, t in l.items()} for l in w])
+            for key, w in params.items()}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        got = llama.forward(params, cfg, ids)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = llama.forward(host, cfg, ids.cpu())
+        cpu_s = time.perf_counter() - t0
+    err = (got.cpu() - want).abs().max().item()
+    limit = 1e-4 * max(1.0, want.abs().max().item())
+    if not (err <= limit and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"parity_block: the card's forward against the "
+                             f"CPU's: {err} > {limit}")
+    refusals = {}
+    try:
+        EngineCore(cfg, EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                     page_size=128, prefill_chunk=512,
+                                     dtype="float32"),
+                   params, tok.eos_id, device=dev)
+    except NotImplementedError as exc:
+        refusals["engine"] = str(exc)[:120]
+    seq = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
+    try:
+        llama.prefill(params, cfg, ids, llama.KVCache.create(
+            cfg, 1, 1024, device=dev), torch.zeros_like(seq), seq)
+    except NotImplementedError as exc:
+        refusals["dense_prefill"] = str(exc)[:120]
+    if len(refusals) != 2 or not all("A.12" in v for v in refusals.values()):
+        raise AssertionError(f"parity_block: the windowed config was not "
+                             f"refused on the card: {refusals}")
+    emit("parity_block", ok=True, n_layers=cfg.n_layers, dtype=cfg.dtype,
+         prompt_tokens=ids.shape[1], drawn_non_zero_leaves=drawn,
+         logits_max_abs_err=err, limit=limit,
+         tolerance="1e-4 x max(1, the largest CPU logit)",
+         largest_logit=want.abs().max().item(), card_forward_s=card_s,
+         cpu_forward_s=cpu_s, refusals=refusals,
+         widths=dict(dim=cfg.dim, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                     hidden=cfg.hidden_dim, vocab=cfg.vocab_size,
+                     norm=cfg.norm, mlp=cfg.mlp, use_bias=cfg.use_bias,
+                     window=cfg.sliding_window))
+    del params, host, got
+    torch.cuda.empty_cache()
+
+
 # multi-step decode: parity_multi's M ceiling (K 8: blocks of 16 and 32
 # steps), and serve_multi's K and M. serve_multi runs the reference
 # test's K of 2, so a top block of 16 steps spans 8 per-step dispatches:
@@ -4578,6 +5020,75 @@ def phase_serve_gemma(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+
+def phase_serve_moe(dev):
+    """mixtral-8x7b at full width and ``SERVE_MOE_LAYERS`` layers (its 32
+    take 93.4 GB in bf16, past one card): bf16 weights from seed 0, a bf16
+    pool of 8 slots of 2,048 tokens, the engine's defaults, behind the
+    HTTP server: ``serve``'s staggered traffic, 256 tokens a decoder
+    (``phase_serve``: every request 200,
+    ``flash_prefill``, ``ragged_paged_attention`` and ``sample_slots``
+    launched), then one profiled decode step (``profile_moe``). Returns
+    the launches."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, draw_s = _moe_model(dev, SERVE_MOE_LAYERS, "bfloat16", 0)
+    emit("weights_moe", model="mixtral-8x7b", n_layers=cfg.n_layers,
+         dtype=cfg.dtype, init_weights_s=draw_s,
+         allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         peak_during_init_gb=torch.cuda.max_memory_allocated() / 1e9)
+    launches, core = phase_serve(dev, cfg, params, model="mixtral-8x7b",
+                                 name="serve_moe")
+    emit("profile_moe", **timed("profile_moe", profile_moe, core))
+    del core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_moe(core):
+    """One full-batch decode step of an MoE model under ``torch.profiler``
+    (``profile_decode``, 8 slots at 1,000 tokens), with the device time of
+    each MoE stage (``ops.moe``: route, dispatch, experts, combine) under
+    a ``record_function`` range of its own, against the MoE's bound: the
+    capacity formulation runs every expert (C >= 8 slots each), so a step
+    reads every expert's weights once, over 3.35 TB/s."""
+    import torch
+    from generativeaiexamples_tpu_torch.ops import moe
+    saved = {name: getattr(moe, name) for name in MOE_STAGES}
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function("moe_" + name):
+                return fn(*args, **kw)
+        return run
+
+    for name, fn in saved.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        prof = profile_decode(core, steps=1, ranges=tuple(
+            "moe_" + name for name in MOE_STAGES))
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+    by = prof["device_ms_per_step_by_class"]
+    moe_ms = sum(by["moe_" + name] for name in MOE_STAGES)
+    expert_bytes = sum(layer[key].numel() * layer[key].element_size()
+                       for layer in core.params["layers"]
+                       for key in ("w_router", "w_gate", "w_up", "w_down"))
+    bound = expert_bytes / PEAK_BYTES * 1e3
+    if moe_ms <= 0:
+        raise AssertionError(f"profile_moe: no device time under the MoE "
+                             f"ranges: {by}")
+    return dict(prof, moe_device_ms_per_step=moe_ms,
+                moe_bound_ms=bound, moe_bound_by="bytes",
+                moe_expert_bytes=expert_bytes,
+                moe_share_of_bound=bound / moe_ms,
+                moe_share_of_device=moe_ms / prof["device_ms_per_step"])
 
 
 # serve_multi's stop-bearing request: 64 greedy tokens, sent after the
@@ -7018,7 +7529,8 @@ def phase_serve_ckpt(dev, cfg, params, smi):
 
 
 def profile_decode(core, ctx: int = 1000, steps: int = 8,
-                   spec_width=None, sampling=None, adapters=0, multi_m=0):
+                   spec_width=None, sampling=None, adapters=0, multi_m=0,
+                   ranges=()):
     """Where a full-batch decode dispatch spends its time: 8 slots at
     ``ctx`` tokens, ``spec_width`` wide steps (a ladder rung; the narrow
     step on a core without speculation), greedy or with ``sampling``
@@ -7030,7 +7542,8 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     ``decode_multi`` dispatch of ``steps`` x ``multi_m`` steps, every slot
     carrying a stop string none of its tokens can match (the ring and the
     suspect lookup run, nothing pauses); the per-step figures are over
-    its steps."""
+    its steps. ``ranges``: ``record_function`` names whose kernels count
+    as a class of their own (``_device_ms_by_class``)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -7083,7 +7596,7 @@ def profile_decode(core, ctx: int = 1000, steps: int = 8,
     classes, summed, top = _device_ms_by_class(
         prof, (("ragged_paged_attention", ("ragged_paged",)),
                ("w8a16_gemm", ("w8a16",)), ("lora", ("lora_shrink", "lora_expand")),
-               ("matmul", MATMUL_KERNELS)))
+               ("matmul", MATMUL_KERNELS)), ranges)
     device_ms = sum(classes.values())
     device_ops = sum(1 for ev in prof.events()
                      if ev.device_type == DeviceType.CUDA)
@@ -9897,6 +10410,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("parity_gemma", phase_parity_gemma, dev)
     torch.cuda.empty_cache()
+    paths["parity_moe"] = timed("parity_moe", phase_parity_moe, dev)
+    torch.cuda.empty_cache()
+    timed("parity_block", phase_parity_block, dev)
+    torch.cuda.empty_cache()
     timed("parity_multi", phase_parity_multi, dev)
     torch.cuda.empty_cache()
     timed("parity_disagg", phase_parity_disagg, dev)
@@ -9904,9 +10421,11 @@ def main() -> int:
     timed("parity_encoders", phase_parity_encoders, dev)
     torch.cuda.empty_cache()
     timed("retrieval_ivf", phase_retrieval_ivf, dev)
-    # gemma-7b before llama3-8b's weights are drawn: the two sets would
-    # not share the card with serve's pools
+    # gemma-7b and mixtral-8x7b before llama3-8b's weights are drawn: the
+    # sets would not share the card with serve's pools
     paths["serve_gemma"] = timed("serve_gemma", phase_serve_gemma, dev)
+    torch.cuda.empty_cache()
+    paths["serve_moe"] = timed("serve_moe", phase_serve_moe, dev)
     torch.cuda.empty_cache()
     cfg, params, init_s = draw_8b(dev)
     emit("weights", model="llama3-8b", dtype="bfloat16", init_weights_s=init_s)

@@ -11,11 +11,14 @@ checkpoint: the architecture from ``config.json`` (``model_family`` is
 ignored), the weights in ``APP_ENGINE_DTYPE``, the directory's tokenizer
 and its end-of-turn id. Otherwise the architecture is
 ``APP_ENGINE_MODEL_FAMILY`` (default llama3-8b; also llama3-70b,
-gemma-2b, gemma-7b, codegemma-7b, tiny and tiny-gemma, the reference's
-names) with random weights drawn from a seeded generator on the device,
-and the byte tokenizer. An HF directory must hold a Llama architecture:
-``config.json`` of another (``GemmaForCausalLM``) is refused, as the
-reference's loader refuses it.
+mixtral-8x7b, gemma-2b, gemma-7b, codegemma-7b, starcoder2-3b,
+starcoder2-7b, tiny, tiny-moe, tiny-gemma and tiny-starcoder2, the
+reference's names; mixtral-8x7b's 32 layers take 93.4 GB in bf16, past
+one card, and a StarCoder2 config's sliding window raises on the card
+until the kernels take it, ROADMAP A.12) with random weights drawn from a
+seeded generator on the device, and the byte tokenizer. An HF directory
+must hold a Llama architecture: ``config.json`` of another
+(``GemmaForCausalLM``) is refused, as the reference's loader refuses it.
 Engine knobs come from ``APP_ENGINE_*`` (``core/config.py``): speculative
 decoding is on by default (``APP_ENGINE_SPEC_DECODE=off`` turns it off),
 ``APP_ENGINE_QUANT=int8`` serves int8 weights (loaded or drawn and

@@ -51,8 +51,17 @@ tokens into the drafting history.
 (``ops/quant.py``): matrices not already int8 are quantized at load, one
 at a time, and every projection and the unembedding run through the
 hand-written W8A16 GEMM on the card (``ops/cuda/quant.py``). ``n_params``
-and ``param_bytes`` (one byte a parameter at int8) are taken before
-quantization, as the reference's.
+and ``param_bytes`` (one byte a parameter at int8, but an MoE block's
+router and expert stacks, which stay in the model dtype, at its size) are
+taken before quantization.
+
+The model block's knobs ride every pass (``models/llama.py``): LayerNorm,
+biases, the plain MLP and the top-k MoE, whose experts take slots only for
+the tokens a pass writes for a live slot (``kv_cache``'s token masks). A
+``sliding_window`` config keeps the mixed dispatch off, as the
+reference's gate does; on CUDA with kernel attention it raises at init
+(the window inside the kernels is ROADMAP A.12), and on the CPU it serves
+the plain windowed attention.
 
 Constrained decoding (the reference's grammar stack): compiled grammars
 (``engine/grammar.py``) live in a flat device stack of ``GRAM_SLOTS``
@@ -468,7 +477,10 @@ class EngineCore:
         if attn == "kernel" and self.device.type != "cuda":
             raise ValueError("attention='kernel' needs a CUDA device: the "
                              "hand-written kernels have no CPU build")
+        llama.check_config(model_cfg)
         self.model_cfg = dataclasses.replace(model_cfg, attn_impl=attn)
+        # a sliding window the kernels do not take raises here on CUDA
+        llama.attention_kernels(self.model_cfg, self.device)
         self.cfg = engine_cfg
         self.eos_id = eos_id
         self.batch = engine_cfg.max_batch_size
@@ -589,6 +601,8 @@ class EngineCore:
             qb *= 2
         self._mixed_q_block = qb
         reasons = []
+        if self.model_cfg.sliding_window:
+            reasons.append("sliding-window attention")
         if self.chunk % qb:
             reasons.append(f"prefill_chunk ({self.chunk}) not a multiple of "
                            f"the ragged q_block ({qb})")
@@ -619,7 +633,8 @@ class EngineCore:
                              f"(engine.quant); expected 'none' or 'int8'")
         self.n_params = quant_ops.n_params(params)
         self.param_bytes = quant_ops.weight_bytes(
-            self.n_params, self.quant, self.model_cfg.torch_dtype.itemsize)
+            self.n_params, self.quant, self.model_cfg.torch_dtype.itemsize,
+            kept=quant_ops.n_kept(params))
         # the analytic envelope on this card (core/perfmodel.py): the
         # devtime ledger's live MFU / HBM gauges, the host tier's pricing
         # and the watchdog's dispatch bound read it; no peaks on the CPU
@@ -1699,6 +1714,13 @@ class EngineCore:
             if target not in lora_mod.TARGETS:
                 raise ValueError(f"adapter {name!r}: unknown target "
                                  f"{target!r}; valid: {list(lora_mod.TARGETS)}")
+        try:
+            # the block's refusals: MLP targets on an MoE block, w_gate on
+            # a plain MLP
+            lora_mod.check_targets(cfg, tuple(tree))
+        except ValueError as e:
+            raise ValueError(f"adapter {name!r}: {e}") from None
+        for target in sorted(tree):
             a = torch.as_tensor(tree[target]["a"])
             b = torch.as_tensor(tree[target]["b"])
             d_in, d_out = lora_mod.target_dims(cfg, target)

@@ -12,13 +12,22 @@ passes **update the pool and the ``lengths`` vector in place**: PyTorch
 has no donation, and a copy of a multi-GB pool per step would dominate the
 step.
 
-Attention in the passes follows :func:`llama.kernel_attention`: ``"auto"``
+Attention in the passes follows :func:`llama.attention_kernels`: ``"auto"``
 and ``"kernel"`` call the kernel wrappers (``ops/cuda/attention.py``),
 which launch the hand-written kernels on CUDA tensors, ``"plain"`` the dense
 gather (dequantized in the model dtype for an int8 pool) plus
 :func:`mha_prefill` (the TPU package's XLA path). Prefill over an int8
 pool writes the quantized chunk first and then attends to a dequantized
-dense view, the chunk included, as the reference does.
+dense view, the chunk included, as the reference does. A
+``sliding_window`` config attends through the plain windowed path on the
+CPU and raises on CUDA (ROADMAP A.12).
+
+Each pass hands ``llama.run_blocks`` a token mask, the tokens it writes
+for a live slot: a chunk's first ``chunk_len`` tokens, a decode row whose
+slot is written (``write_mask``, rows within the table). Only those take
+an MoE block's expert slots (``ops/moe.py``), so a chunk's padding, a
+padding row or a dead slot never displaces a real token; the capacity
+stays that of the pass's whole token count.
 
 LoRA: :func:`prefill_chunks`, :func:`prefill_chunk`,
 :func:`decode_step_wide` and :func:`decode_step` take ``adapters`` (a
@@ -321,7 +330,8 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
         1, (start // ps)[:, None] + torch.arange(n_cp, device=dev)[None])
     cache_positions = torch.arange(T, device=dev)[None].expand(G, T)
     kv_mask = cache_positions < valid_through[:, None]
-    use_kernel = llama.kernel_attention(cfg)
+    use_kernel = llama.attention_kernels(cfg, dev)
+    token_mask = _chunk_mask(chunk_len, C)
 
     def attn_for_layer(i):
         def attn(q, k, v):
@@ -335,11 +345,11 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
                                              kv_valid_through=valid_through)
             return mha_prefill(q, k_dense, v_dense, q_positions=positions,
                                kv_positions=cache_positions, kv_mask=kv_mask,
-                               causal=True)
+                               causal=True, window=cfg.sliding_window)
         return attn
 
     h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer, adapters,
-                         adapter_ix)
+                         adapter_ix, token_mask=token_mask)
     last = (chunk_len.to(torch.int64) - 1).clamp_min(0)
     h_last = h[torch.arange(G, device=dev), last][:, None]          # (G, 1, D)
     logits = llama._unembed(cfg, params, h_last)[:, 0]
@@ -350,6 +360,12 @@ def prefill_chunks(params: llama.Params, cfg: llama.LlamaConfig,
     ext.scatter_(0, slots.long().clamp(0, B), valid_through)
     cache.lengths.copy_(ext[:B])
     return logits
+
+
+def _chunk_mask(chunk_len: torch.Tensor, C: int) -> torch.Tensor:
+    """(G, C) bool: each chunk's first ``chunk_len`` tokens."""
+    return (torch.arange(C, device=chunk_len.device)[None]
+            < chunk_len.to(torch.int64)[:, None])
 
 
 def prefill_chunk(params: llama.Params, cfg: llama.LlamaConfig,
@@ -404,7 +420,7 @@ def decode_step_wide(params: llama.Params, cfg: llama.LlamaConfig,
     offs = positions % ps
     cache_positions = torch.arange(T, device=dev)[None].expand(B, T)
     kv_mask = cache_positions < attn_len[:, None]
-    use_kernel = llama.kernel_attention(cfg)
+    use_kernel = llama.attention_kernels(cfg, dev)
 
     def attn_for_layer(i):
         def attn(q, k, v):
@@ -421,11 +437,11 @@ def decode_step_wide(params: llama.Params, cfg: llama.LlamaConfig,
                                              B, T, KV, HD, q.dtype)
             return mha_prefill(q, k_dense, v_dense, q_positions=positions,
                                kv_positions=cache_positions, kv_mask=kv_mask,
-                               causal=True)
+                               causal=True, window=cfg.sliding_window)
         return attn
 
     h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer, adapters,
-                         adapter_ix)
+                         adapter_ix, token_mask=ok)
     return llama._unembed(cfg, params, h)
 
 
@@ -484,7 +500,7 @@ def mixed_step(params: llama.Params, cfg: llama.LlamaConfig,
     if q_block < 1 or C % q_block:
         raise ValueError(f"chunk size {C} must be a multiple of the ragged "
                          f"q_block ({q_block})")
-    use_kernel = llama.kernel_attention(cfg)
+    use_kernel = llama.attention_kernels(cfg, tokens.device)
     if use_kernel and q_block < Q:
         raise ValueError(f"decode width {Q} exceeds the ragged q_block "
                          f"({q_block})")
@@ -565,19 +581,22 @@ def mixed_step(params: llama.Params, cfg: llama.LlamaConfig,
             ctx_dec = mha_prefill(
                 q_dec, k_dense, v_dense, q_positions=dec_pos,
                 kv_positions=cache_positions[None].expand(B, T),
-                kv_mask=dec_mask, causal=True)
+                kv_mask=dec_mask, causal=True, window=cfg.sliding_window)
             k_dense, v_dense = _gather_dense(cache,
                                              i * num_pages + chunk_rows64,
                                              G, T, KV, HD, q.dtype)
             ctx_ch = mha_prefill(
                 q_ch, k_dense, v_dense, q_positions=ch_pos,
                 kv_positions=cache_positions[None].expand(G, T),
-                kv_mask=ch_mask, causal=True)
+                kv_mask=ch_mask, causal=True, window=cfg.sliding_window)
             return torch.cat([ctx_dec.reshape(1, B * Q, H, HD),
                               ctx_ch.reshape(1, G * C, H, HD)], dim=1)
         return attn
 
-    h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer)
+    token_mask = torch.cat([ok.reshape(1, B * Q),
+                            _chunk_mask(chunk_len, C).reshape(1, G * C)], 1)
+    h = llama.run_blocks(cfg, params, h, cos, sin, attn_for_layer,
+                         token_mask=token_mask)
     # unembed only what is read: every decode position and each chunk's
     # last valid position
     last = (B * Q + torch.arange(G, device=dev) * C

@@ -18,7 +18,7 @@ The dense-cache model API is here too: :class:`KVCache` (k/v ``(L, B, T,
 KV, HD)``), :func:`prefill` and :func:`decode_step`, whose attention is the
 ``flash_prefill`` and ``ragged_decode`` kernels unless ``attn_impl ==
 "plain"`` asks for the plain :func:`mha_prefill`/:func:`mha_decode` (see
-:func:`kernel_attention`). Like the paged passes they write the cache in
+:func:`attention_kernels`). Like the paged passes they write the cache in
 place.
 
 :func:`params_from_hf` maps a HuggingFace ``LlamaForCausalLM`` state dict
@@ -42,12 +42,23 @@ The Gemma family (``models/gemma.py``) rides this layout: GeGLU
 (``hidden_act="gelu_tanh"``), the embedding scaled by ``embed_scale``,
 tied embeddings and ``head_dim * n_heads != dim``.
 
-Not ported here (ROADMAP A.11): biased projections and LayerNorm, and
-MoE.
+The rest of the reference's block rides it too, as config knobs:
+``norm="layernorm"`` (LayerNorm with a bias, ``*_norm_b`` leaves and
+``final_norm_b``), ``use_bias`` (a bias after each projection's base
+product and before its LoRA update, ``<name>_b`` leaves), ``mlp="plain"``
+(the ungated ``w_up`` -> act -> ``w_down`` of StarCoder2,
+``models/starcoder2.py``) and ``mlp="moe"`` (top-k routed GLU experts,
+``ops/moe.py``: ``w_router`` (E, D) and the stacks ``w_gate``/``w_up``
+(E, F, D) and ``w_down`` (E, D, F)). ``sliding_window`` masks the plain
+attention of every path; the hand-written kernels are full-causal, so a
+windowed config on CUDA raises (:func:`attention_kernels`, ROADMAP
+A.12), and on the CPU it runs the plain windowed path, as the reference's
+XLA path does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -57,12 +68,13 @@ import torch
 import torch.nn.functional as F
 
 from generativeaiexamples_tpu_torch.ops import lora as lora_ops
+from generativeaiexamples_tpu_torch.ops import moe as moe_ops
 from generativeaiexamples_tpu_torch.ops import quant as quant_ops
 from generativeaiexamples_tpu_torch.ops.attention import (
     mha_decode, mha_prefill)
 from generativeaiexamples_tpu_torch.ops.cuda import attention as kernels
 from generativeaiexamples_tpu_torch.ops.layers import (
-    apply_rope, glu, rms_norm, rotary_embedding)
+    activate, apply_rope, glu, layer_norm, rms_norm, rotary_embedding)
 
 Params = Dict[str, Any]
 
@@ -90,8 +102,20 @@ class LlamaConfig:
     # the token embedding's output scale (Gemma: sqrt(dim)), applied in the
     # model dtype
     embed_scale: float = 1.0
+    # StarCoder2 knobs (models/starcoder2.py): "rms" | "layernorm" (with a
+    # bias), biased projections, "glu" | "plain" (ungated w_up -> act ->
+    # w_down) | "moe" (ops/moe.py), and the attention window (0 = full)
+    norm: str = "rms"
+    use_bias: bool = False
+    mlp: str = "glu"
+    sliding_window: int = 0
+    # MoE knobs (mlp="moe"): top-k of n_experts routed GLU experts with
+    # capacity_factor * k * tokens / n_experts slots each
+    n_experts: int = 8
+    n_experts_per_tok: int = 2
+    capacity_factor: float = 1.25
     # "auto" | "kernel" | "plain": the attention of the paged passes and the
-    # dense API (see kernel_attention)
+    # dense API (see attention_kernels)
     attn_impl: str = "auto"
 
     @staticmethod
@@ -102,6 +126,22 @@ class LlamaConfig:
     def llama3_70b() -> "LlamaConfig":
         return LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
                            hidden_dim=28672)
+
+    @staticmethod
+    def mixtral_8x7b() -> "LlamaConfig":
+        """Mixtral-class sparse MoE: top-2 of 8 GLU experts a token."""
+        return LlamaConfig(vocab_size=32000, dim=4096, n_layers=32,
+                           n_heads=32, n_kv_heads=8, hidden_dim=14336,
+                           rope_theta=1e6, mlp="moe", n_experts=8,
+                           n_experts_per_tok=2)
+
+    @staticmethod
+    def tiny_moe(vocab_size: int = 300) -> "LlamaConfig":
+        """:meth:`tiny` (f32) with the MLP swapped for top-2 of 4 routed
+        experts."""
+        return dataclasses.replace(LlamaConfig.tiny(vocab_size), mlp="moe",
+                                   n_experts=4, n_experts_per_tok=2,
+                                   capacity_factor=2.0)
 
     @staticmethod
     def tiny(vocab_size: int = 256) -> "LlamaConfig":
@@ -120,16 +160,45 @@ class LlamaConfig:
 # Parameters
 # ---------------------------------------------------------------------------
 
+MLPS = ("glu", "plain", "moe")
+NORMS = ("rms", "layernorm")
+
+
+def check_config(cfg: LlamaConfig) -> None:
+    """The block knobs' values, and the reference's refusal of biases in
+    an MoE block."""
+    if cfg.mlp not in MLPS:
+        raise ValueError(f"mlp must be one of {MLPS}, got {cfg.mlp!r}")
+    if cfg.norm not in NORMS:
+        raise ValueError(f"norm must be one of {NORMS}, got {cfg.norm!r}")
+    if cfg.mlp == "moe" and cfg.use_bias:
+        raise ValueError("mlp='moe' does not support use_bias")
+
+
+def bias_widths(cfg: LlamaConfig) -> Dict[str, int]:
+    """``<projection>_b`` leaf -> width, for ``use_bias`` configs."""
+    D, F_ = cfg.dim, cfg.hidden_dim
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    widths = {"wq_b": q, "wk_b": kv, "wv_b": kv, "wo_b": D, "w_up_b": F_,
+              "w_down_b": D}
+    if cfg.mlp == "glu":
+        widths["w_gate_b"] = F_
+    return widths if cfg.use_bias else {}
+
+
 def init_params(generator: torch.Generator, cfg: LlamaConfig,
                 device=None, quant: str = "none") -> Params:
     """Random weights: scaled-normal fan-in init (normal / sqrt(fan_in)),
-    norms at one, drawn from ``generator`` on ``device`` (the generator's
-    device by default). ``quant="int8"`` quantizes each matrix as
-    soon as it is drawn (in the model dtype, so the result equals
-    ``quant.quantize_params`` of the unquantized draw), so a model too
-    large for the card in its dtype never holds more than one matrix
-    unquantized: llama3-70b's largest, the (128,256, 8,192) embedding and
-    head, for a moment in f32 (4.2 GB)."""
+    norms at one, biases and norm biases at zero, drawn from ``generator``
+    on ``device`` (the generator's device by default). ``quant="int8"``
+    quantizes each matrix as soon as it is drawn (in the model dtype, so
+    the result equals ``quant.quantize_params`` of the unquantized draw),
+    so a model too large for the card in its dtype never holds more than
+    one matrix unquantized: llama3-70b's largest, the (128,256, 8,192)
+    embedding and head, for a moment in f32 (4.2 GB). An MoE block's
+    router and expert stacks stay in the model dtype, as the reference's
+    ``quantize_params`` leaves them."""
+    check_config(cfg)
     device = torch.device(device or generator.device)
     D, H, KV, HD, F_ = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                         cfg.hidden_dim)
@@ -147,25 +216,50 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     def ones(n):
         return torch.ones((n,), dtype=dt, device=device)
 
+    def zeros(n):
+        return torch.zeros((n,), dtype=dt, device=device)
+
+    layernorm = cfg.norm == "layernorm"
     params: Params = {"embed": normal(cfg.vocab_size, D),
                       "final_norm": ones(D), "layers": []}
+    if layernorm:
+        params["final_norm_b"] = zeros(D)
     for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "attn_norm": ones(D),
-            "wq": normal(H * HD, D), "wk": normal(KV * HD, D),
-            "wv": normal(KV * HD, D), "wo": normal(D, H * HD),
-            "mlp_norm": ones(D),
-            "w_gate": normal(F_, D), "w_up": normal(F_, D),
-            "w_down": normal(D, F_),
-        })
+        layer = {"attn_norm": ones(D),
+                 "wq": normal(H * HD, D), "wk": normal(KV * HD, D),
+                 "wv": normal(KV * HD, D), "wo": normal(D, H * HD),
+                 "mlp_norm": ones(D)}
+        if cfg.mlp == "moe":
+            layer.update(moe_ops.init_moe_params(
+                generator, D, F_, cfg.n_experts, dt, device))
+        else:
+            if cfg.mlp == "glu":
+                layer["w_gate"] = normal(F_, D)
+            layer.update(w_up=normal(F_, D), w_down=normal(D, F_))
+        layer.update({name: zeros(w) for name, w in bias_widths(cfg).items()})
+        if layernorm:
+            layer.update(attn_norm_b=zeros(D), mlp_norm_b=zeros(D))
+        params["layers"].append(layer)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(cfg.vocab_size, D)
     return params
 
 
-_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-               "w_up", "w_down")
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def layer_keys(cfg: LlamaConfig) -> Tuple[str, ...]:
+    """The leaves of one layer of ``cfg``, in the block's order."""
+    check_config(cfg)
+    keys = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"]
+    if cfg.mlp == "moe":
+        keys += ["w_router", "w_gate", "w_up", "w_down"]
+    else:
+        keys += (["w_gate"] if cfg.mlp == "glu" else []) + ["w_up", "w_down"]
+    keys += list(bias_widths(cfg))
+    if cfg.norm == "layernorm":
+        keys += ["attn_norm_b", "mlp_norm_b"]
+    return tuple(keys)
 
 
 def _qpair(leaf):
@@ -192,7 +286,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
     layers (L, in, out) with s (L, 1, out), embed (V, D) with s (V, 1),
     lm_head (D, V) with s (1, V)) and becomes a ``quant.QTensor`` of the
     same int8 values, transposed the same way, its scales one per output
-    row.
+    row. An MoE block's ``w_router`` (L, D, E) becomes (E, D) and its
+    expert stacks (L, E, in, out) become (E, out, in) per layer; biases
+    (``<name>_b``, (L, out)), norm biases (``*_norm_b``) and
+    ``final_norm_b`` carry over as they are.
     """
     dt = cfg.torch_dtype
     device = torch.device(device or "cpu")
@@ -218,21 +315,33 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
         return t(a.T if transpose else a)
 
     layers = tree["layers"]
-    unknown = set(layers) - set(_LAYER_KEYS)
+    keys = layer_keys(cfg)
+    unknown = set(layers) - set(keys)
     if unknown:
-        raise NotImplementedError(
-            f"layer leaves {sorted(unknown)} (biases, MoE, LoRA) are not "
-            f"ported into the param tree (ROADMAP A.11; LoRA adapters are "
-            f"a tree of their own: train/lora.adapters_from_jax)")
+        raise ValueError(
+            f"layer leaves {sorted(unknown)} are not leaves of this config "
+            f"(mlp={cfg.mlp!r}, use_bias={cfg.use_bias}, norm={cfg.norm!r}); "
+            f"LoRA adapters are a tree of their own: "
+            f"train/lora.adapters_from_jax")
+    moe = cfg.mlp == "moe"
     params: Params = {"embed": matrix(tree["embed"], transpose=False),
                       "final_norm": t(tree["final_norm"]), "layers": []}
+    if cfg.norm == "layernorm":
+        params["final_norm_b"] = t(tree["final_norm_b"])
     for i in range(cfg.n_layers):
         layer = {}
-        for key in _LAYER_KEYS:
-            if key in _MATRICES:
-                layer[key] = matrix(layers[key], i)
+        for key in keys:
+            a = layers[key]
+            if key == "w_router":
+                layer[key] = t(np.asarray(a[i], np.float32).T)
+            elif moe and key in quant_ops.MOE_LEAVES:
+                # (E, in, out) -> (E, out, in): bmm's (out, in) stacks
+                layer[key] = t(np.asarray(a[i], np.float32)
+                               .transpose(0, 2, 1))
+            elif key in _MATRICES:
+                layer[key] = matrix(a, i)
             else:
-                layer[key] = t(np.asarray(layers[key][i], np.float32))
+                layer[key] = t(np.asarray(a[i], np.float32))
         params["layers"].append(layer)
     if not cfg.tie_embeddings:
         params["lm_head"] = matrix(tree["lm_head"])
@@ -248,10 +357,15 @@ HF_LAYER_KEYS = {
     "w_gate": "mlp.gate_proj.weight", "w_up": "mlp.up_proj.weight",
     "w_down": "mlp.down_proj.weight",
 }
+# MixtralForCausalLM's MoE block, under "model.layers.{i}.block_sparse_moe.":
+# the router, and each expert's w1 (gate), w3 (up) and w2 (down)
+HF_MOE_ROUTER = "gate.weight"
+HF_MOE_EXPERTS = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
 
 
 def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
-                   device=None, quant: str = "none") -> Params:
+                   device=None, quant: str = "none",
+                   hf_names: Optional[Dict[str, str]] = None) -> Params:
     """Map an HF ``LlamaForCausalLM`` state dict into this layout.
 
     ``state`` maps HF names to CPU torch tensors, and to nothing else:
@@ -262,8 +376,15 @@ def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
     dtype and converted there to the model dtype, rounding to nearest even
     as ``jnp.asarray(arr, dtype)`` does, so a file loads bit-equal to the
     reference. Without ``lm_head.weight`` (and untied) the head is the
-    embedding, as in the reference. MoE (``block_sparse_moe``) and biased
-    projections raise.
+    embedding, as in the reference. An MoE config reads Mixtral's
+    ``block_sparse_moe`` names: the router ``gate`` (E, D) and each
+    expert's ``w1``/``w3``/``w2`` (out, in), stacked on a leading expert
+    axis (:data:`HF_MOE_EXPERTS`). ``hf_names`` maps leaves to HF names
+    under ``model.layers.{i}.`` (:data:`HF_LAYER_KEYS` by default;
+    StarCoder2's mapper passes its own, biases included); a LayerNorm
+    config reads the final norm's bias from ``model.norm.bias``. A
+    checkpoint whose MoE or bias tensors the config does not take is
+    refused.
 
     ``quant="int8"`` quantizes each matrix as it lands on the device and
     drops its model-dtype copy before the next is read, as
@@ -275,15 +396,16 @@ def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
     if quant not in ("none", "", "int8"):
         raise ValueError(f"unknown quant mode {quant!r}; expected "
                          f"'none' or 'int8'")
-    moe = sorted(k for k in state if ".block_sparse_moe." in k)
-    if moe:
-        raise NotImplementedError(
-            f"MoE weights ({moe[0]}, ...) are not ported (ROADMAP A.11)")
+    check_config(cfg)
+    names = hf_names or HF_LAYER_KEYS
+    moe_keys = sorted(k for k in state if ".block_sparse_moe." in k)
+    if moe_keys and cfg.mlp != "moe":
+        raise ValueError(f"MoE weights ({moe_keys[0]}, ...) in a checkpoint for "
+                         f"a mlp={cfg.mlp!r} config")
     biases = sorted(k for k in state if k.endswith(".bias"))
-    if biases:
-        raise NotImplementedError(
-            f"biased projections ({biases[0]}, ...) are not ported (ROADMAP "
-            f"A.11)")
+    if biases and not (cfg.use_bias or cfg.norm == "layernorm"):
+        raise ValueError(f"biases ({biases[0]}, ...) in a checkpoint for a "
+                         f"config without use_bias or LayerNorm")
     device = torch.device(device or "cpu")
     dt = cfg.torch_dtype
 
@@ -297,13 +419,28 @@ def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
         w = leaf(name)
         return quant_ops.quantize(w) if quant == "int8" else w
 
+    def experts(prefix, w):
+        return torch.stack([leaf(f"{prefix}experts.{e}.{w}.weight")
+                            for e in range(cfg.n_experts)])
+
+    moe = cfg.mlp == "moe"
     params: Params = {"embed": matrix("model.embed_tokens.weight"),
                       "final_norm": leaf("model.norm.weight"), "layers": []}
+    if cfg.norm == "layernorm":
+        params["final_norm_b"] = leaf("model.norm.bias")
     for i in range(cfg.n_layers):
-        params["layers"].append({
-            key: (matrix if key in _MATRICES else leaf)(
-                f"model.layers.{i}.{hf}")
-            for key, hf in HF_LAYER_KEYS.items()})
+        p = f"model.layers.{i}."
+        layer = {}
+        for key in layer_keys(cfg):
+            if moe and key == "w_router":
+                layer[key] = leaf(f"{p}block_sparse_moe.{HF_MOE_ROUTER}")
+            elif moe and key in HF_MOE_EXPERTS:
+                layer[key] = experts(f"{p}block_sparse_moe.",
+                                     HF_MOE_EXPERTS[key])
+            else:
+                layer[key] = (matrix if key in _MATRICES else leaf)(
+                    p + names[key])
+        params["layers"].append(layer)
     if not cfg.tie_embeddings:
         params["lm_head"] = (matrix("lm_head.weight")
                              if "lm_head.weight" in state
@@ -328,6 +465,8 @@ def embed_tokens(params: Params, cfg: LlamaConfig,
 
 def _norm(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
           name: str) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, layer[name], layer[name + "_b"], cfg.norm_eps)
     return rms_norm(x, layer[name], cfg.norm_eps)
 
 
@@ -335,12 +474,21 @@ def _projs(x: torch.Tensor, layer: Params, names: Tuple[str, ...],
            lora: Optional[Dict[str, Any]] = None,
            adapter_ix: Optional[torch.Tensor] = None):
     """x @ W of the projections ``names`` that read x, through the quant
-    seam, then the LoRA update of each of the layer's groups over x (one
-    call a group, ``_maybe_lora`` there). Returns the outputs in order."""
-    ys = {n: quant_ops.matmul(x, layer[n]) for n in names}
-    for g in (lora or {}).get(names[0], ()):
-        ys.update(zip(g.targets, lora_ops.lora_apply_group(
-            [ys[t] for t in g.targets], x, g, adapter_ix)))
+    seam, plus each one's bias where the layer has one, then the LoRA
+    update of each of the layer's groups over x (one call a group,
+    ``_maybe_lora`` there): the bias lands between the base product and
+    the update, as the reference's ``_proj`` adds it, so bf16 rounds where
+    it rounds there. Returns the outputs in order."""
+    ys = {}
+    for n in names:
+        y = quant_ops.matmul(x, layer[n])
+        b = layer.get(n + "_b")
+        ys[n] = y if b is None else y + b.to(y.dtype)
+    if lora:
+        for n in names:
+            for g in lora.get(n, ()):
+                ys.update(zip(g.targets, lora_ops.lora_apply_group(
+                    [ys[t] for t in g.targets], x, g, adapter_ix)))
     return [ys[n] for n in names]
 
 
@@ -359,11 +507,16 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 def _block(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
            cos: torch.Tensor, sin: torch.Tensor, attn_fn: AttnFn,
            adapters: Optional[Dict[str, Any]] = None,
-           adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
+           adapter_ix: Optional[torch.Tensor] = None,
+           token_mask: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One transformer block; ``attn_fn(q, k, v) -> ctx`` owns the cache
     write and the attention read, so every path shares this block.
     ``adapters``: the layer's groups (an entry of ``ops.lora.LoraLayers``),
-    stacked slots selected per batch row by ``adapter_ix`` (B,)."""
+    stacked slots selected per batch row by ``adapter_ix`` (B,).
+    ``token_mask`` (B, S) bool: the tokens that take expert slots in an
+    MoE block (``ops.moe``; all when None). Returns (h, the MoE
+    load-balance loss, or None for a dense MLP)."""
     B, S, _ = h.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ad = (adapters, adapter_ix)
@@ -375,28 +528,53 @@ def _block(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
     o, = _projs(attn_fn(q, k, v).reshape(B, S, H * HD), layer, ("wo",), *ad)
     h = h + o
     x = _norm(cfg, h, layer, "mlp_norm")
-    gate, up = _projs(x, layer, ("w_gate", "w_up"), *ad)
-    down, = _projs(glu(gate, up, cfg.hidden_act), layer, ("w_down",), *ad)
-    return h + down
+    if cfg.mlp == "moe":
+        out, aux = moe_ops.moe_mlp(
+            layer, x, k=cfg.n_experts_per_tok,
+            capacity_factor=cfg.capacity_factor, hidden_act=cfg.hidden_act,
+            valid=token_mask)
+        return h + out, aux
+    if cfg.mlp == "glu":
+        gate, up = _projs(x, layer, ("w_gate", "w_up"), *ad)
+        act = glu(gate, up, cfg.hidden_act)
+    else:   # plain: c_fc -> act -> c_proj (StarCoder2)
+        up, = _projs(x, layer, ("w_up",), *ad)
+        act = activate(up, cfg.hidden_act)
+    down, = _projs(act, layer, ("w_down",), *ad)
+    return h + down, None
 
 
 ATTN_IMPLS = ("auto", "kernel", "plain")
 
 
-def kernel_attention(cfg: LlamaConfig) -> bool:
-    """Whether attention goes through the kernel wrappers of
+def attention_kernels(cfg: LlamaConfig, device: torch.device) -> bool:
+    """Whether a pass on ``device`` goes through the kernel wrappers of
     ``ops/cuda/attention.py``: ``"auto"`` and ``"kernel"`` do, and a
     wrapper launches its kernel for CUDA tensors and takes its plain
     version only for CPU tensors; ``"plain"`` asks for the plain PyTorch
-    attention on any device."""
+    attention on any device. The kernels are full-causal: a
+    ``sliding_window`` config takes the plain windowed attention on the
+    CPU, as the reference's XLA path does, and on CUDA raises (the window
+    inside the kernels is ROADMAP A.12), unless the caller asked for
+    ``attn_impl="plain"``."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{cfg.attn_impl!r}")
-    return cfg.attn_impl != "plain"
+    if cfg.attn_impl == "plain":
+        return False
+    if cfg.sliding_window:
+        if torch.device(device).type == "cuda":
+            raise NotImplementedError(
+                f"sliding_window={cfg.sliding_window}: the attention "
+                f"kernels are full-causal; the window inside them is "
+                f"ROADMAP A.12 (attn_impl='plain' runs the plain windowed "
+                f"attention)")
+        return False
+    return True
 
 
 def _unembed(cfg: LlamaConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = _norm(cfg, h, params, "final_norm")
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     if isinstance(head, quant_ops.QTensor):
         return quant_ops.matmul(h, head).float()
@@ -407,26 +585,36 @@ def run_blocks(cfg: LlamaConfig, params: Params, h: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor,
                attn_for_layer: Callable[[int], AttnFn],
                adapters: Optional[Params] = None,
-               adapter_ix: Optional[torch.Tensor] = None) -> torch.Tensor:
+               adapter_ix: Optional[torch.Tensor] = None, *,
+               token_mask: Optional[torch.Tensor] = None,
+               aux: Optional[list] = None) -> torch.Tensor:
     """The layer loop (``scan_blocks_inplace`` there): ``attn_for_layer(i)``
     gives layer i's attention, which may write the KV pool in place.
     ``adapters``: a global adapter tree, or stacked slots with each batch
     row's slot in ``adapter_ix`` (B,), as a tree or prepared
-    (:func:`lora_layers`)."""
+    (:func:`lora_layers`). ``token_mask`` (B, S): the tokens the pass
+    computes for, which alone take MoE expert slots; ``aux``, a list, gets
+    each MoE layer's load-balance loss."""
     lora = lora_layers(adapters, len(params["layers"]))
     for i, layer in enumerate(params["layers"]):
-        h = _block(cfg, h, layer, cos, sin, attn_for_layer(i),
-                   lora[i] if lora is not None else None, adapter_ix)
+        h, layer_aux = _block(cfg, h, layer, cos, sin, attn_for_layer(i),
+                              lora[i] if lora is not None else None,
+                              adapter_ix, token_mask)
+        if aux is not None and layer_aux is not None:
+            aux.append(layer_aux)
     return h
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             attn_mask: Optional[torch.Tensor] = None,
-            adapters: Optional[Params] = None) -> torch.Tensor:
+            adapters: Optional[Params] = None, return_aux: bool = False):
     """Full-sequence causal LM: tokens (B, S) -> logits (B, S, V) f32.
     ``attn_mask`` (B, S) marks valid tokens of right-padded rows;
-    ``adapters`` a global adapter tree."""
+    ``adapters`` a global adapter tree. Attention is the plain one on
+    every device (windowed for a ``sliding_window`` config), and every
+    token is routed, as there. ``return_aux`` also returns the layer-mean
+    MoE load-balance loss (0 for a dense MLP), a 0-d f32 tensor."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -437,10 +625,17 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     def attn(q, k, v):
         return mha_prefill(q, k, v, q_positions=positions,
                            kv_positions=positions, kv_mask=attn_mask,
-                           causal=True)
+                           causal=True, window=cfg.sliding_window)
 
-    h = run_blocks(cfg, params, h, cos, sin, lambda _i: attn, adapters)
-    return _unembed(cfg, params, h)
+    aux: list = []
+    h = run_blocks(cfg, params, h, cos, sin, lambda _i: attn, adapters,
+                   aux=aux)
+    logits = _unembed(cfg, params, h)
+    if return_aux:
+        total = torch.stack(aux).sum() if aux else torch.zeros(
+            (), dtype=torch.float32, device=logits.device)
+        return logits, total / cfg.n_layers
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +709,7 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     valid_through = (start_pos + seq_lens).to(torch.int32)
     cache_positions = torch.arange(T, device=dev)[None].expand(B, T)
     kv_mask = cache_positions < valid_through[:, None]
-    use_kernel = kernel_attention(cfg)
+    use_kernel = attention_kernels(cfg, dev)
     if (use_kernel and dev.type == "cuda"
             and not kernels.prefill_supported(S, T, cfg.head_dim)):
         raise ValueError(f"flash_prefill kernel does not take S={S}, T={T}, "
@@ -527,7 +722,7 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                                          kv_valid_through=valid_through)
         return mha_prefill(q, k, v, q_positions=positions,
                            kv_positions=cache_positions, kv_mask=kv_mask,
-                           causal=True)
+                           causal=True, window=cfg.sliding_window)
 
     h = _cached_blocks(cfg, params, h, cos, sin, cache, start_pos, attn,
                        adapters)
@@ -552,7 +747,7 @@ def decode_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta,
                                 scaling=cfg.rope_scaling)
     new_lengths = cache.lengths + 1
-    use_kernel = kernel_attention(cfg)
+    use_kernel = attention_kernels(cfg, tokens.device)
     if (use_kernel and tokens.is_cuda
             and not kernels.decode_supported(T, cfg.head_dim)):
         raise ValueError(f"ragged_decode kernel does not take T={T}, "
@@ -562,7 +757,7 @@ def decode_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     def attn(q, k, v):
         if use_kernel:
             return kernels.ragged_decode(q, k, v, new_lengths)
-        return mha_decode(q, k, v, new_lengths)
+        return mha_decode(q, k, v, new_lengths, window=cfg.sliding_window)
 
     h = _cached_blocks(cfg, params, h, cos, sin, cache, cache.lengths, attn,
                        adapters)

@@ -21,6 +21,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with affine weight and bias (StarCoder2 blocks): the
+    moments in f32, weight and bias applied in f32, the result in x's
+    dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     return (xf * (1.0 / (1.0 + torch.exp(-xf)))).to(x.dtype)

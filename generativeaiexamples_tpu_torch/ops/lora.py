@@ -109,7 +109,10 @@ def prepare(tree: Dict[str, Dict[str, torch.Tensor]],
                 if n in tree:
                     by_rank.setdefault(tree[n]["a"].shape[-2], []).append(n)
             if by_rank:
-                layer[names[0]] = [
+                # keyed by the group's first target the tree holds: a
+                # plain MLP's group is (w_up,), which ``llama._projs``
+                # looks up by its own names
+                layer[next(n for n in names if n in tree)] = [
                     lora_group(ns, [tree[n]["a"][i] for n in ns],
                                [tree[n]["b"][i] for n in ns])
                     for ns in by_rank.values()]

@@ -22,9 +22,10 @@ per-output scales, which the reference gets from ``QTensor.T``.
 ``(x @ q.to(x.dtype).T) * s.to(x.dtype)``, only for CPU tensors.
 :func:`take` gathers embedding rows (a row gather, not a kernel).
 
-Only 2-D dense matrices are quantized: MoE expert stacks and LoRA
-adapters, when ported, stay in the model dtype as the reference keeps
-them.
+Only 2-D dense matrices are quantized: an MoE block's router and expert
+stacks (``ops/moe.py``), biases, norms and LoRA adapters stay in the
+model dtype, as the reference keeps them; :func:`weight_bytes` counts the
+kept MoE leaves at the dtype's size.
 """
 
 from __future__ import annotations
@@ -150,12 +151,29 @@ def n_params(params: Params) -> int:
     return count(params)
 
 
-def weight_bytes(n_params: int, quant: str, dtype_itemsize: int) -> float:
+MOE_LEAVES = ("w_router", "w_gate", "w_up", "w_down")
+
+
+def n_kept(params: Params) -> int:
+    """Parameters int8 serving keeps in the model dtype among the
+    matrices: an MoE block's router and expert stacks (0 for a dense
+    model)."""
+    return sum(layer[n].numel() for layer in params["layers"]
+               for n in MOE_LEAVES
+               if isinstance(layer.get(n), torch.Tensor)
+               and (n == "w_router" or layer[n].dim() == 3))
+
+
+def weight_bytes(n_params: int, quant: str, dtype_itemsize: int,
+                 kept: int = 0) -> float:
     """Resident weight bytes, what one full weight read (one decode step)
     streams: one byte a parameter at int8 (the per-channel scales are
-    excluded, as in the reference's ``core/perfmodel.weight_bytes``), else
-    the dtype's size."""
-    return float(n_params) * (1 if quant == "int8" else int(dtype_itemsize))
+    excluded, as in the reference's ``core/perfmodel.weight_bytes``) but
+    the dtype's size for the ``kept`` parameters int8 leaves alone
+    (:func:`n_kept`), else the dtype's size."""
+    if quant != "int8":
+        return float(n_params) * int(dtype_itemsize)
+    return float(n_params - kept) + float(kept) * int(dtype_itemsize)
 
 
 def weights(params: Params):

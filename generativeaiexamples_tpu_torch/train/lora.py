@@ -66,7 +66,7 @@ def target_dims(model_cfg, name: str) -> Tuple[int, int]:
     return _TARGET_DIMS[name](model_cfg)
 
 
-def _check_targets(model_cfg, targets) -> None:
+def check_targets(model_cfg, targets) -> None:
     """The reference's refusals: ``w_gate`` needs a GLU MLP, and an MoE
     block's expert MLP takes no adapter."""
     mlp = getattr(model_cfg, "mlp", "glu")
@@ -89,7 +89,7 @@ def init_adapters(generator: torch.Generator, model_cfg, cfg: LoraConfig,
     sqrt(in) times ``alpha / rank``, ``b`` zeros (a new adapter changes
     nothing until trained), drawn from ``generator`` on ``device`` (the
     generator's by default)."""
-    _check_targets(model_cfg, cfg.targets)
+    check_targets(model_cfg, cfg.targets)
     device = torch.device(device or generator.device)
     L = model_cfg.n_layers
     scale = cfg.alpha / cfg.rank
@@ -112,7 +112,7 @@ def adapters_from_jax(tree: Dict[str, Any], model_cfg, device=None,
     default). Raises on an unknown target or a leaf whose shape does not
     fit ``model_cfg``."""
     device = torch.device(device or "cpu")
-    _check_targets(model_cfg, list(tree))
+    check_targets(model_cfg, list(tree))
     out: Adapters = {}
     for name, ab in tree.items():
         if name not in _TARGET_DIMS:

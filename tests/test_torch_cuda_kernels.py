@@ -1742,3 +1742,29 @@ def test_tool_agent_episode_on_the_card_matches_cpu(cuda_device):
     kinds = [json.loads(e)["type"] for e in card]
     assert kinds[-1] == "final" and (
         "tool_call" in kinds or "approval_request" in kinds)
+
+
+@pytest.mark.cuda
+def test_windowed_config_raises_on_cuda_naming_a12(cuda_device):
+    """The attention kernels are full-causal: a sliding-window config
+    (tiny-starcoder2's 16 tokens) is refused on the card at engine init
+    and by the dense API's ``prefill`` and ``decode_step``, each naming
+    ROADMAP A.12 (on the CPU it runs the plain windowed path)."""
+    from generativeaiexamples_tpu_torch.core.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine.engine import EngineCore
+    from generativeaiexamples_tpu_torch.models import llama, starcoder2
+    cfg = starcoder2.tiny(300)
+    params = llama.init_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg,
+        device=cuda_device)
+    with pytest.raises(NotImplementedError, match=r"A\.12"):
+        EngineCore(cfg, EngineConfig(max_batch_size=4, max_seq_len=256,
+                                     page_size=8, prefill_chunk=16),
+                   params, eos_id=0, device=cuda_device)
+    cache = llama.KVCache.create(cfg, 1, 32, device=cuda_device)
+    toks = torch.zeros((1, 8), dtype=torch.long, device=cuda_device)
+    lens = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match=r"A\.12"):
+        llama.prefill(params, cfg, toks, cache, torch.zeros_like(lens), lens)
+    with pytest.raises(NotImplementedError, match=r"A\.12"):
+        llama.decode_step(params, cfg, toks[:, 0], cache)

@@ -198,11 +198,13 @@ def test_unported_config_knobs_are_refused(monkeypatch):
     assert load_config().engine.kv_quant == "int8"
     monkeypatch.setenv("APP_ENGINE_PREFILL_CHUNK", "256")
     assert load_config().engine.prefill_chunk == 256
-    # the Gemma family is ported; StarCoder2 and the MoE configs are not
+    # every name the reference registers resolves (StarCoder2 and the MoE
+    # configs since the model block's A.11 slice); another name is refused
     assert model_config("gemma-2b").head_dim == 256
-    for name in ("starcoder2-3b", "mixtral-8x7b"):
-        with pytest.raises(NotImplementedError, match=r"A\.12"):
-            model_config(name)
+    assert model_config("mixtral-8x7b").mlp == "moe"
+    assert model_config("starcoder2-3b").sliding_window == 4096
+    with pytest.raises(NotImplementedError, match="registered"):
+        model_config("gpt-9")
 
 
 # the host planes' second part, looked up by the port's own module names

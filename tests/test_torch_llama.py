@@ -55,5 +55,7 @@ def test_params_from_jax_refuses_unported_leaves():
     cfg = tl.LlamaConfig.tiny()
     tree = {"embed": np.zeros((256, 64)), "final_norm": np.ones(64),
             "layers": {"wq_b": np.zeros((2, 64))}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a bias leaf for a config without use_bias (biases, LayerNorm and MoE
+    # are ported since A.11: the refusal is of a tree the config lacks)
+    with pytest.raises(ValueError, match="not leaves of this config"):
         tl.params_from_jax(tree, cfg)
